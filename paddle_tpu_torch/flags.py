@@ -1,0 +1,82 @@
+"""The serving knobs of the port (the ``serve_*`` part of
+``paddle_tpu/flags.py``, same names and defaults).
+
+Read as attributes of :data:`FLAGS`. A value can be overridden per
+process with the environment variable ``PADDLE_TPU_FLAG_<NAME>`` (read
+at first use, the JAX package's convention) or in code by assignment.
+"""
+from __future__ import annotations
+
+import os
+import threading
+
+__all__ = ["FLAGS"]
+
+_TRUE = frozenset(("1", "true", "yes", "on"))
+_FALSE = frozenset(("0", "false", "no", "off", ""))
+
+
+def _parse_bool(s):
+    if isinstance(s, bool):
+        return s
+    t = str(s).strip().lower()
+    if t in _TRUE:
+        return True
+    if t in _FALSE:
+        return False
+    raise ValueError("not a boolean: %r" % (s,))
+
+
+# name -> (default, parser, help)
+_DEFS = {
+    "serve_queue_depth": (
+        64, int, "bound on generation requests queued per engine; one "
+        "more is shed with OverloadError (HTTP 429)"),
+    "serve_max_running": (
+        8, int, "most sequences decoded together by one decode step"),
+    "serve_kv_pages": (
+        64, int, "usable pages of the per-model KV pool (one trash page "
+        "is added)"),
+    "serve_page_tokens": (16, int, "K/V positions per page"),
+    "serve_device_sample": (
+        True, _parse_bool, "sample the next token on the device inside "
+        "the step (only [R] tokens and logprobs reach the host); false "
+        "samples on the host from the [R, V] logits"),
+}
+
+
+class _Flags(object):
+    """Attribute access over the declared knobs; thread-safe writes."""
+
+    def __init__(self):
+        object.__setattr__(self, "_values", {})
+        object.__setattr__(self, "_lock", threading.Lock())
+        object.__setattr__(self, "_env_loaded", False)
+
+    def _load_env_once(self):
+        with self._lock:
+            if self._env_loaded:
+                return
+            for name, (_, parse, _h) in _DEFS.items():
+                key = "PADDLE_TPU_FLAG_" + name.upper()
+                if key in os.environ:
+                    self._values[name] = parse(os.environ[key])
+            object.__setattr__(self, "_env_loaded", True)
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        if name not in _DEFS:
+            raise AttributeError("undeclared flag %r" % name)
+        self._load_env_once()
+        return self._values.get(name, _DEFS[name][0])
+
+    def __setattr__(self, name, value):
+        if name not in _DEFS:
+            raise AttributeError("undeclared flag %r" % name)
+        self._load_env_once()
+        with self._lock:
+            self._values[name] = _DEFS[name][1](value)
+
+
+FLAGS = _Flags()

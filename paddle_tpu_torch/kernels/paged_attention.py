@@ -1,0 +1,105 @@
+"""Paged attention for the decode step (counterpart of
+``paddle_tpu/kernels/paged_attention.py``).
+
+One query per running row attends over the row's cached K/V, read
+through its block table from one layer's page pool
+``[num_pages + 1, T, nh, dh]`` (the last page is the trash page). Column
+``c`` attends iff ``c <= positions[row]``.
+
+- :func:`paged_attention_reference` is the plain PyTorch version: the
+  gather-then-mask math of the JAX package's reference, verbatim. The
+  CPU tests hold it against the JAX functions, and on the card
+  ``chip_smoke.py`` holds the kernel against it.
+- :func:`paged_attention` is the wrapper. A CPU tensor gets the plain
+  version; a CUDA tensor gets the hand-written kernel of
+  ``csrc/paged_attention.cu`` or an exception, never the plain version.
+- ``launches`` counts the wrapper's kernel launches.
+
+The JAX package's tune configs and their degrade-to-reference validator
+(``resolve_block_config``) do not carry over: the kernel takes every
+pool geometry the engine builds and picks its own launch shape.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["paged_attention", "paged_attention_reference", "launches"]
+
+# kernel launches made by paged_attention since the last reset
+launches = 0
+
+_NAME = "paged_attention"
+_HEAD_DIMS = (32, 64, 128)
+
+
+def paged_attention_reference(q, k_pages, v_pages, block_tables, positions):
+    """Plain version: gather ``[R, max_blocks * T, nh, dh]`` through the
+    tables, mask columns past each row's position to -inf, dense
+    softmax. ``q`` [R, nh, dh]; pools [P + 1, T, nh, dh]; ``block_tables``
+    [R, max_blocks] int; ``positions`` [R] int -> [R, nh, dh]."""
+    R, nh, dh = q.shape
+    T = k_pages.shape[1]
+    C = block_tables.shape[1] * T
+    tables = block_tables.long()
+    kc = k_pages[tables].reshape(R, C, nh, dh)
+    vc = v_pages[tables].reshape(R, C, nh, dh)
+    s = torch.einsum("rhd,rchd->rhc", q, kc) * dh ** -0.5
+    cols = torch.arange(C, device=q.device)
+    colmask = cols[None, :] <= positions.long()[:, None]
+    s = s.masked_fill(~colmask[:, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("rhc,rchd->rhd", p, vc)
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, positions):
+    """Decode attention for the whole running batch; the arguments and
+    result of :func:`paged_attention_reference`. On CUDA: float32 q and
+    pools, int32 tables and positions, all contiguous on q's device, and
+    ``dh`` in (32, 64, 128); anything else raises."""
+    global launches
+    _build.refuse_grad(_NAME, q, k_pages, v_pages)
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pages, v_pages, block_tables,
+                                         positions)
+    if q.device.type != "cuda":
+        raise ValueError("%s: no kernel for device %s" % (_NAME, q.device))
+    R, nh, dh = q.shape
+    P1, T, nh_k, dh_k = k_pages.shape
+    MB = block_tables.shape[1]
+    if (nh_k, dh_k) != (nh, dh) or v_pages.shape != k_pages.shape:
+        raise ValueError("%s: pools %s/%s do not hold q's heads %s"
+                         % (_NAME, tuple(k_pages.shape),
+                            tuple(v_pages.shape), (nh, dh)))
+    if tuple(block_tables.shape) != (R, MB) or \
+            tuple(positions.shape) != (R,):
+        raise ValueError("%s: tables %s / positions %s do not match %d rows"
+                         % (_NAME, tuple(block_tables.shape),
+                            tuple(positions.shape), R))
+    if dh not in _HEAD_DIMS:
+        raise ValueError("%s: head_dim %d has no kernel (supported: %s)"
+                         % (_NAME, dh, _HEAD_DIMS))
+    if q.dtype != torch.float32 or k_pages.dtype != torch.float32 or \
+            v_pages.dtype != torch.float32:
+        raise ValueError("%s: the kernel takes float32 q and pools" % _NAME)
+    if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
+        raise ValueError("%s: block_tables and positions must be int32"
+                         % _NAME)
+    _build.check_cuda_operands(_NAME, q.device, q=q, k_pages=k_pages,
+                               v_pages=v_pages, block_tables=block_tables,
+                               positions=positions)
+    out = torch.empty_like(q)
+    lib = _build.load(_NAME)
+    fn = lib.paged_attention_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
+        [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+              block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+              R, nh, dh, T, MB, dh ** -0.5, _build.stream_handle(q.device))
+    _build.check(lib, code, _NAME)
+    launches += 1
+    return out

@@ -1,0 +1,20 @@
+"""Generative serving of the port (counterpart of ``paddle_tpu/serving``):
+paged KV cache, continuous-batching engine, in-process service and the
+``:generate`` HTTP endpoint."""
+from __future__ import annotations
+
+from .admission import (AdmissionController, DeadlineExceededError,
+                        ModelUnavailableError, OverloadError, ServingError)
+from .batcher import bucket_for, padding_buckets
+from .generator import (GenerationEngine, GenRequest, GenResult,
+                        reference_decode, sample_token)
+from .httpd import make_server, serve_until_shutdown
+from .kvcache import BlockTable, PagePool, PoolExhausted, pages_for
+from .service import InferenceService
+
+__all__ = ["AdmissionController", "BlockTable", "DeadlineExceededError",
+           "GenRequest", "GenResult", "GenerationEngine", "InferenceService",
+           "ModelUnavailableError", "OverloadError", "PagePool",
+           "PoolExhausted", "ServingError", "bucket_for", "make_server",
+           "padding_buckets", "pages_for", "reference_decode",
+           "sample_token", "serve_until_shutdown"]
