@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of paddle_tpu_torch on one NVIDIA card (an H100).
 
-Drives the port's generative serving path at the widths of GPT-2 small
-and holds each hand-written CUDA kernel against its plain PyTorch
-version. Run from the root of a checkout:
+Drives the port's generative serving path and its Fluid training path
+at the widths of GPT-2 small and holds each hand-written CUDA kernel
+against its plain PyTorch version. Run from the root of a checkout:
 
     python3 chip_smoke.py
 
@@ -24,7 +24,17 @@ Phases, in order; any failure exits non-zero at once:
    full-sequence forward;
 4. http: serve the same artifact on port 0 in-process, POST ``:generate``
    twice (tokens must equal the engine's), then raise SIGTERM while a
-   third request is in flight: the server must drain it and answer.
+   third request is in flight: the server must drain it and answer;
+5. train: build ``transformer_lm`` + softmax-CE + Adam at GPT-2-small
+   widths with the port's layers DSL (``configs/tiny_lm.model``), run
+   the startup program, hold step 1's ``@GRAD`` vars of every parameter
+   against ``torch.autograd`` through the plain functional forward (and
+   show that a TF32 attention misses the tolerance), train 8 Adam steps
+   of 8 x 1024 synthetic tokens through ``Trainer.train`` (the loss must
+   fall; the launch counters must equal 2 forward and 1 dK/dV and dQ
+   launch a layer a step), profile two more steps, then export the
+   trained scope, load it and serve two greedy requests whose tokens
+   must be the plain forward's argmax.
 
 The last lines printed are the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -66,6 +76,27 @@ KERNEL_TOL = 5e-5
 # TF32 kernel computes) is measured in the same run and must miss this
 # tolerance, so a kernel run in TF32 or bf16 would fail it.
 LOGIT_TOL = 1e-3
+# Flash backward kernels against the plain backward, same inputs, both
+# float32: max abs error over the largest magnitude of the plain dq, dk
+# or dv. Only sum orders differ (~1e-6 relative); the plain backward on
+# inputs rounded to TF32 errs by ~1e-3 and is shown to miss it.
+BWD_REL_TOL = 2e-5
+# Step-1 gradients of every parameter from the Executor (flash kernels,
+# the op lowerings and their grads) against torch.autograd through the
+# plain functional forward: the norm of the difference over the norm of
+# that parameter's reference gradient. Sum orders differ through 12
+# layers and 8192 tokens, and a ReLU whose input lies within float32
+# noise of 0 can open in one run and stay shut in the other, moving one
+# token's whole contribution (so an elementwise maximum is no measure):
+# together some 1e-3 for the worst parameter on the H100. A reference
+# whose attention inputs are rounded to TF32 moves them by 1e-2 and more;
+# it is measured in the same run and must miss this tolerance.
+GRAD_REL_TOL = 5e-3
+# the training drive: GPT-2-small widths, 8 sequences of 1024 tokens a
+# step, 2 batches of synthetic next-token data repeated over 4 passes
+TRAIN_BATCH = 8
+TRAIN_PASSES = 4
+TRAIN_LR = 1e-3
 
 
 def log(msg):
@@ -235,8 +266,107 @@ def phase_kernels(dev):
         "library": "scaled_dot_product_attention(is_causal=True)",
         "shape": {"B": 1, "H": 12, "D": 64, "S_timed": 1024},
         "per_S": {str(k): v for k, v in shapes.items()}}
+    out.update(_flash_bwd_kernels(dev, flush))
     del flush
     torch.cuda.empty_cache()
+    return out
+
+
+def _rel_err(got, want):
+    return max(float((g - w).abs().max() / w.abs().max())
+               for g, w in zip(got, want))
+
+
+def _flash_bwd_kernels(dev, flush):
+    """dK/dV and dQ at the training shape (B 8, H 12, D 64, causal, S
+    1024) and at the ragged S = 17 and 130, against the plain backward;
+    each kernel timed alone on the delta its wrapper forms."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    F = torch.nn.functional
+    B, H, D = TRAIN_BATCH, 12, 64
+    scale = D ** -0.5
+    rng = np.random.RandomState(13)
+    per_s = {}
+    for S in (17, 130, 1024):
+        q, k, v, do = [torch.from_numpy(rng.randn(B, S, H, D).astype(
+            np.float32)).to(dev) for _ in range(4)]
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                causal=True)
+        tf32 = fa.flash_attention_bwd_reference(
+            *(_tf32_round(t) for t in (q, k, v)), o, lse, _tf32_round(do),
+            causal=True)
+        torch.cuda.synchronize()
+        rel = {n: _rel_err([g], [w])
+               for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        err = {n: float((g - w).abs().max())
+               for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        tf32_rel = _rel_err(tf32, want)
+        if not all(np.isfinite(x) and x <= BWD_REL_TOL
+                   for x in rel.values()):
+            fail("flash backward kernels disagree with the plain backward "
+                 "at S=%d: relative errors %s > %g" % (S, rel, BWD_REL_TOL))
+        if not tf32_rel > BWD_REL_TOL:
+            fail("a TF32 backward errs by only %g <= BWD_REL_TOL %g: the "
+                 "tolerance cannot tell float32 from TF32"
+                 % (tf32_rel, BWD_REL_TOL))
+        delta = fa._delta(o, do, None).contiguous()
+        pairs = S * (S + 1) // 2
+        head = S * D * 4
+        dkv_bound = bound(B * H * (6 * head + 2 * S * 4),
+                          B * H * pairs * 8 * D)
+        dq_bound = bound(B * H * (5 * head + 2 * S * 4),
+                         B * H * pairs * 6 * D)
+        qh, kh, vh = (t.transpose(1, 2).detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        doh = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+                                       retain_graph=True)
+
+        lib_rel = _rel_err([g.transpose(1, 2) for g in library()], want)
+        per_s[S] = {
+            "max_rel_err": rel, "max_abs_err": err,
+            "tolerance_rel": BWD_REL_TOL, "tf32_inputs_max_rel_err": tf32_rel,
+            "dkv_ms": time_ms(lambda: fa._bwd_dkv(q, k, v, do, lse, delta,
+                                                  True, scale), flush=flush),
+            "dq_ms": time_ms(lambda: fa._bwd_dq(q, k, v, do, lse, delta,
+                                                True, scale), flush=flush),
+            "plain_ms": time_ms(lambda: fa.flash_attention_bwd_reference(
+                q, k, v, o, lse, do, causal=True), flush=flush),
+            "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
+            "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
+            "library_ms": time_ms(library, flush=flush),
+            "library_max_rel_err": lib_rel}
+        del q, k, v, do, o, lse, got, want, tf32, delta, lib_out, qh, kh, vh
+    big = per_s[1024]
+    out = {}
+    for name, line, key, what in (
+            ("flash_attention_bwd_dkv", 231, "dkv", ("dk", "dv")),
+            ("flash_attention_bwd_dq", 254, "dq", ("dq",))):
+        out[name] = {
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "paddle_tpu/kernels/flash_attention.py:%d" % line,
+            "max_abs_err": max(per_s[S]["max_abs_err"][n]
+                               for S in per_s for n in what),
+            "max_rel_err": max(per_s[S]["max_rel_err"][n]
+                               for S in per_s for n in what),
+            "tolerance_rel": BWD_REL_TOL,
+            "ms": big[key + "_ms"], "plain_ms": big["plain_ms"],
+            "plain": "flash_attention_bwd_reference (dq, dk and dv)",
+            "bound_ms": big[key + "_bound_ms"],
+            "bound_by": big[key + "_bound_by"],
+            "library_ms": big["library_ms"],
+            "library": "autograd.grad through scaled_dot_product_attention"
+                       "(is_causal=True): dq, dk and dv, to be compared "
+                       "with the sum of both kernels",
+            "shape": {"B": B, "H": H, "D": D, "causal": True,
+                      "S_timed": 1024},
+            "per_S": {str(S): per_s[S] for S in per_s}}
     return out
 
 
@@ -346,6 +476,12 @@ def _profile_window(engine, prompts):
         again = [h.wait(timeout=600) for h in handles]
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+    return again, _device_kernels(prof, wall)
+
+
+def _device_kernels(prof, wall):
+    """Device kernel time by name from a profile over ``wall`` seconds:
+    the busy share and the top 12 kernels."""
     kern = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -356,11 +492,10 @@ def _profile_window(engine, prompts):
         kern[e.key] = (t_us / 1e3, e.count)
     busy = sum(t for t, _ in kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
-    return again, {
-        "window_wall_ms": wall * 1e3, "device_kernel_ms": busy,
-        "device_busy_share": busy / (wall * 1e3),
-        "top_kernels": [{"name": k[:120], "ms": t, "count": c}
-                        for k, (t, c) in top]}
+    return {"window_wall_ms": wall * 1e3, "device_kernel_ms": busy,
+            "device_busy_share": busy / (wall * 1e3),
+            "top_kernels": [{"name": k[:120], "ms": t, "count": c}
+                            for k, (t, c) in top]}
 
 
 def phase_engine(dev, art_dir):
@@ -371,7 +506,7 @@ def phase_engine(dev, art_dir):
     from paddle_tpu_torch.serving import GenerationEngine
     cfg = tt.TransformerConfig(**GPT2_SMALL)
     t0 = time.monotonic()
-    export_generative(art_dir, cfg, tt.init_params(cfg, seed=0))
+    export_generative(art_dir, cfg, params=tt.init_params(cfg, seed=0))
     model = load_generative(art_dir, device=dev)
     setup_s = time.monotonic() - t0
     rng = np.random.RandomState(1)
@@ -405,6 +540,7 @@ def phase_engine(dev, art_dir):
             fail("a token id out of the vocabulary")
     L = cfg.num_layers
     want = {"flash_attention_fwd": L * st["prefills"],
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
             "paged_attention": L * st["decode_steps"]}
     if launches != want or st["prefills"] < 16 or st["decode_steps"] < 31:
         fail("launch counts %s, expected %s (prefills %d, decode steps %d)"
@@ -509,6 +645,218 @@ def phase_http(dev, art_dir, prompts, results):
                              "drained_tokens": len(ans[1]["tokens"])}}))
 
 
+# -- phase 5 -----------------------------------------------------------------
+
+def _up_biases(program, num_layers):
+    """{layer: name of the FFN-up fc's auto-named bias}: the Y of the
+    elementwise_add that takes the output of the mul by blk<i>_up."""
+    ops = program.global_block().ops
+    mul_out = {op.input("Y")[0]: op.output("Out")[0]
+               for op in ops if op.type == "mul"}
+    bias_of = {op.input("X")[0]: op.input("Y")[0]
+               for op in ops if op.type == "elementwise_add"}
+    return {i: bias_of[mul_out["blk%d_up" % i]] for i in range(num_layers)}
+
+
+def _reference_grads(params, feed, cfg, attention=None):
+    """{name: grad} of the mean next-token cross entropy through the
+    plain functional forward (``attention`` maps q/k/v to the attention
+    output; default the plain causal attention)."""
+    from paddle_tpu_torch.models import transformer as tt
+    leaves = {n: p.detach().clone().requires_grad_(True)
+              for n, p in params.items()}
+    if attention is None:
+        logits = tt.forward(leaves, feed["toks"], cfg)
+    else:
+        x, _, _ = tt._forward_hidden(leaves, feed["toks"], cfg, attention)
+        logits = x @ leaves["lm_head"]
+    loss = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, cfg.vocab_size), feed["tgt"].reshape(-1))
+    names = sorted(leaves)
+    grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+    return dict(zip(names, grads)), float(loss.detach())
+
+
+def _tf32_attention(q, k, v):
+    """Plain causal attention on inputs rounded to TF32; the rounding
+    passes gradients straight through."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    r = [t + (_tf32_round(t) - t).detach() for t in (q, k, v)]
+    return fa.flash_attention_reference(*r, causal=True)[0]
+
+
+def _grad_check(trainer, spec, cfg, feed, up_b):
+    """Step 1 through the Executor, fetching every parameter's @GRAD,
+    against torch.autograd through the plain forward on the parameters
+    the step started from."""
+    from paddle_tpu_torch.core.scope import global_scope
+    scope = global_scope()
+    params = [p.name for p in trainer.main_program.all_parameters()]
+    start = {n: scope.find_var(n).clone() for n in params}
+    outs = trainer.exe.run(trainer.main_program, feed=feed,
+                           fetch_list=[spec["cost"]]
+                           + [n + "@GRAD" for n in params],
+                           return_numpy=False)
+    got = dict(zip(params, outs[1:]))
+    # the serving face names the FFN-up bias blk<i>_up_b
+    ref_name = {b: "blk%d_up_b" % i for i, b in up_b.items()}
+    ref_params = {ref_name.get(n, n): t for n, t in start.items()}
+    stats = {}
+    for label, attention in (("float32", None), ("tf32_attention",
+                                                 _tf32_attention)):
+        want, ref_loss = _reference_grads(ref_params, feed, cfg, attention)
+        norm_rel, max_rel = {}, {}
+        for n in params:
+            d, w = got[n] - want[ref_name.get(n, n)], want[ref_name.get(n, n)]
+            norm_rel[n] = float(d.norm() / w.norm())
+            max_rel[n] = float(d.abs().max() / w.abs().max())
+        worst = max(norm_rel, key=norm_rel.get)
+        stats[label] = {
+            "norm_rel_err": norm_rel[worst], "worst_param": worst,
+            "norm_rel_err_median": float(np.median(list(norm_rel.values()))),
+            "elementwise_max_rel_err": max(max_rel.values()),
+            "elementwise_worst_param": max(max_rel, key=max_rel.get),
+            "loss_abs_err": abs(float(outs[0].reshape(-1)[0]) - ref_loss)}
+        del want
+    torch.cuda.synchronize()
+    checks = {"params_checked": len(params), "tolerance_rel": GRAD_REL_TOL,
+              "float32": stats["float32"],
+              "tf32_attention": stats["tf32_attention"]}
+    log(json.dumps({"train_grad_check": checks}))
+    if not stats["float32"]["norm_rel_err"] <= GRAD_REL_TOL:
+        fail("step-1 gradient of %s differs from the autograd reference "
+             "by %g (relative norm) > %g"
+             % (stats["float32"]["worst_param"],
+                stats["float32"]["norm_rel_err"], GRAD_REL_TOL))
+    if not stats["tf32_attention"]["norm_rel_err"] > GRAD_REL_TOL:
+        fail("a TF32 attention moves the gradients by only %g <= "
+             "GRAD_REL_TOL %g: the tolerance cannot tell float32 from TF32"
+             % (stats["tf32_attention"]["norm_rel_err"], GRAD_REL_TOL))
+    return checks
+
+
+def _serve_trained(dev, art_dir, cfg, scope):
+    """Export the trained scope, load it with the serving stack and serve
+    two greedy requests; each token must be the plain forward's argmax
+    over the exported weights."""
+    from paddle_tpu_torch.inference import export_generative, \
+        load_generative
+    from paddle_tpu_torch.serving import GenerationEngine
+    export_generative(art_dir, cfg, scope=scope)
+    model = load_generative(art_dir, device=dev)
+    rng = np.random.RandomState(5)
+    prompts = [list(rng.randint(0, cfg.vocab_size, n))
+               for n in (16, cfg.max_seq // 4)]
+    with GenerationEngine(model, max_running=2, kv_pages=64,
+                          page_tokens=16, queue_depth=8, warm=False,
+                          name="trained") as eng:
+        results = [h.wait(timeout=600) for h in
+                   [eng.submit(p, max_new_tokens=8) for p in prompts]]
+    worst = 0.0
+    for p, r in zip(prompts, results):
+        ids = torch.tensor([list(p) + r.tokens], dtype=torch.int32,
+                           device=dev)
+        logits = model(ids)[0, len(p) - 1:-1]
+        for row, tok in zip(logits, r.tokens):
+            worst = max(worst, float(row.max() - row[tok]))
+    if len(results[0].tokens) != 8 or not worst <= LOGIT_TOL:
+        fail("the trained model's greedy tokens are not the plain "
+             "forward's argmax (margin %g > %g)" % (worst, LOGIT_TOL))
+    return {"requests": len(prompts), "prompt_lens": [len(p)
+                                                      for p in prompts],
+            "tokens": [r.tokens for r in results],
+            "max_argmax_margin": worst}
+
+
+def phase_train(dev, art_dir):
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.configs import tiny_lm
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    from paddle_tpu_torch.trainer import BeginIteration, EndIteration, \
+        Trainer
+    widths = dict(vocab=GPT2_SMALL["vocab_size"], seq=GPT2_SMALL["max_seq"],
+                  hidden=GPT2_SMALL["hidden"],
+                  num_layers=GPT2_SMALL["num_layers"],
+                  num_heads=GPT2_SMALL["num_heads"],
+                  ffn_mult=GPT2_SMALL["ffn_mult"])
+    cfg = tiny_lm.lm_config(**widths)
+    L = cfg.num_layers
+    t0 = time.monotonic()
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        spec = tiny_lm.model(batch=TRAIN_BATCH, samples=2 * TRAIN_BATCH,
+                             learning_rate=TRAIN_LR, seed=0, **widths)
+        trainer = Trainer(spec["cost"], spec["optimizer"],
+                          spec["feed_list"], device=dev)
+    build_s = time.monotonic() - t0
+    n_ops = len(main_prog.global_block().ops)
+    with scope_guard(Scope()):
+        t0 = time.monotonic()
+        trainer._maybe_init()
+        torch.cuda.synchronize()
+        startup_s = time.monotonic() - t0
+        n_params = sum(p.numel() for p in (
+            global_scope().find_var(v.name)
+            for v in main_prog.all_parameters()))
+        first = next(iter(spec["reader"]()))
+        checks = _grad_check(trainer, spec, cfg, trainer.feeder.feed(first),
+                             _up_biases(main_prog, L))
+        torch.cuda.empty_cache()
+
+        losses, step_s, marks = [], [], {}
+
+        def handler(e):
+            if isinstance(e, BeginIteration):
+                marks["t"] = time.monotonic()
+            elif isinstance(e, EndIteration):
+                step_s.append(time.monotonic() - marks["t"])
+                losses.append(e.cost)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        trainer.train(spec["reader"], num_passes=TRAIN_PASSES,
+                      event_handler=handler)
+        wall = time.monotonic() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps = len(losses)
+        want = {"flash_attention_fwd": 2 * L * steps,
+                "flash_attention_bwd_dkv": L * steps,
+                "flash_attention_bwd_dq": L * steps, "paged_attention": 0}
+        if steps != 2 * TRAIN_PASSES or launches != want:
+            fail("train launch counts %s over %d steps, expected %s"
+                 % (launches, steps, want))
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            fail("training loss did not fall: %s" % losses)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.monotonic()
+            trainer.train(spec["reader"], num_passes=1)
+            torch.cuda.synchronize()
+            prof_wall = time.monotonic() - t1
+        profile_window = _device_kernels(prof, prof_wall)
+        profile_window["steps"] = 2
+        served = _serve_trained(dev, art_dir, cfg, global_scope())
+    p50 = float(np.median(step_s))
+    tokens = TRAIN_BATCH * cfg.max_seq
+    log(json.dumps({"train": {
+        "config": dict(widths, dtype="float32", batch=TRAIN_BATCH,
+                       tokens_per_step=tokens, optimizer="adam",
+                       learning_rate=TRAIN_LR, seed=0),
+        "params": n_params, "program_ops": n_ops, "build_s": build_s,
+        "startup_s": startup_s, "grad_check": checks, "losses": losses,
+        "step_ms": [s * 1e3 for s in step_s], "step_ms_p50": p50 * 1e3,
+        "tokens_per_s": tokens / p50, "wall_s": wall,
+        "peak_memory_bytes": peak, "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "profile": profile_window, "served": served}}))
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -528,10 +876,17 @@ def main():
     kernels = phase_kernels(dev)
     root = os.path.dirname(os.path.abspath(__file__))
     art_dir = os.path.join(root, "build", "chip_smoke", "gpt2_small_seed0")
-    prompts, results, launches = phase_engine(dev, art_dir)
+    prompts, results, serve_launches = phase_engine(dev, art_dir)
     phase_http(dev, art_dir, prompts, results)
+    train_launches = phase_train(
+        dev, os.path.join(root, "build", "chip_smoke", "gpt2_small_trained"))
     for name, entry in kernels.items():
-        entry["launches"] = launches[name]
+        # each main path is read with the counts set to 0 just before it
+        entry["launches_by_path"] = {"serve": serve_launches[name],
+                                     "train": train_launches[name]}
+        entry["launches"] = serve_launches[name] + train_launches[name]
+        if entry["launches"] == 0:
+            fail("kernel %s was launched on no main path" % name)
         entry["kernel_ms"] = entry["ms"]
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
     log(card)

@@ -2,16 +2,23 @@
 NVIDIA H100.
 
 The JAX package ``paddle_tpu`` stays the reference; this package imports
-neither it nor JAX. Module names mirror the JAX package's. The first
-slice is the generative serving path:
+neither it nor JAX. Module names mirror the JAX package's. Two slices
+are ported, the serving and the training path, over shared kernels:
 
-- ``models/transformer.py``: the transformer LM's serving face;
+- the generative serving path: ``models/transformer.py``'s serving face,
+  ``serving/`` (paged KV pool, continuous-batching engine, service and
+  the ``:generate`` HTTP endpoint), ``inference.py`` (the generative
+  artifact, the JAX package's format);
+- the Fluid training path: ``core/`` (Program IR, registry, scope, the
+  per-op ``Executor``, ``append_backward``), ``layers/``, ``ops/`` (the
+  lowerings of the transformer LM's training step), ``optimizer.py``
+  (SGD, Adam), ``reader/``, ``data_feeder.py``, ``trainer.py`` and the
+  ``transformer_lm`` Program builder;
 - ``kernels/``: hand-written CUDA kernels (paged-attention decode,
-  flash-attention forward), each beside its plain PyTorch version;
-- ``serving/``: paged KV pool, continuous-batching engine, service and
-  the ``:generate`` HTTP endpoint;
-- ``inference.py``: the generative artifact, the JAX package's format;
-- ``cli.py``: ``python -m paddle_tpu_torch serve <artifact_dir>``.
+  flash-attention forward and backward), each beside its plain PyTorch
+  version;
+- ``cli.py``: ``python -m paddle_tpu_torch train <config.py>`` and
+  ``serve <artifact_dir>``.
 
 Entry points take ``device`` (default ``"cuda"``) and raise when no card
 is present, unless the caller passes ``device="cpu"``.

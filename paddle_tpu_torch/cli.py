@@ -1,5 +1,15 @@
-"""Command line of the port: the ``serve`` verb (counterpart of
-``paddle_tpu/cli.py:cmd_serve`` for generative artifacts).
+"""Command line of the port: the ``train`` and ``serve`` verbs
+(counterparts of ``paddle_tpu/cli.py:cmd_train`` and of ``cmd_serve`` for
+generative artifacts).
+
+    python -m paddle_tpu_torch train <config.py> [--device cuda|cpu]
+        [--num_passes N] [--log_period K] [--learning_rate LR]
+
+loads the config file, calls its ``model()`` (a dict with ``cost``,
+``feed_list``, ``reader`` and optionally ``optimizer`` and
+``num_passes``), trains it with the port's Trainer on the device and
+prints ``pass P batch B cost C`` for every K-th batch and a line at the
+end of each pass.
 
     python -m paddle_tpu_torch serve <artifact_dir> --port 0 [--device cuda]
 
@@ -13,10 +23,41 @@ until SIGTERM or SIGINT. Then it drains in-flight generations, prints
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import sys
 
 __all__ = ["main"]
+
+
+def _load_config(path):
+    spec = importlib.util.spec_from_file_location("train_config", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cmd_train(args):
+    from . import optimizer, trainer
+    cfg = _load_config(args.config)
+    spec = cfg.model()
+    opt = spec.get("optimizer") or optimizer.SGD(
+        learning_rate=args.learning_rate)
+    tr = trainer.Trainer(cost=spec["cost"], optimizer=opt,
+                         feed_list=spec["feed_list"], device=args.device)
+
+    def handler(e):
+        if isinstance(e, trainer.EndIteration):
+            if e.batch_id % args.log_period == 0:
+                print("pass %d batch %d cost %.5f"
+                      % (e.pass_id, e.batch_id, e.cost), flush=True)
+        elif isinstance(e, trainer.EndPass):
+            print("pass %d done: %s" % (e.pass_id, e.metrics), flush=True)
+
+    tr.train(spec["reader"],
+             num_passes=args.num_passes or spec.get("num_passes", 1),
+             event_handler=handler)
+    return 0
 
 
 def cmd_serve(args):
@@ -70,6 +111,16 @@ def cmd_serve(args):
 def _parser():
     p = argparse.ArgumentParser(prog="python -m paddle_tpu_torch")
     sub = p.add_subparsers(dest="verb", required=True)
+    t = sub.add_parser("train", help="train a model config")
+    t.add_argument("config")
+    t.add_argument("--device", default="cuda",
+                   help="'cuda' (default) or 'cpu'")
+    t.add_argument("--num_passes", type=int, default=0,
+                   help="0 = the config's num_passes")
+    t.add_argument("--learning_rate", type=float, default=0.01,
+                   help="SGD's rate when the config names no optimizer")
+    t.add_argument("--log_period", type=int, default=10)
+    t.set_defaults(fn=cmd_train)
     s = sub.add_parser("serve", help="serve a generative artifact over "
                                      "HTTP")
     s.add_argument("artifact_dir")

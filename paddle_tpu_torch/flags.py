@@ -1,5 +1,5 @@
-"""The serving knobs of the port (the ``serve_*`` part of
-``paddle_tpu/flags.py``, same names and defaults).
+"""The knobs of the port (the ``serve_*`` part of ``paddle_tpu/flags.py``
+and its ``log_period``, same names and defaults).
 
 Read as attributes of :data:`FLAGS`. A value can be overridden per
 process with the environment variable ``PADDLE_TPU_FLAG_<NAME>`` (read
@@ -42,6 +42,9 @@ _DEFS = {
         True, _parse_bool, "sample the next token on the device inside "
         "the step (only [R] tokens and logprobs reach the host); false "
         "samples on the host from the [R, V] logits"),
+    "log_period": (
+        100, int, "Trainer.train prints a progress line every this many "
+        "batches (0: never)"),
 }
 
 

@@ -54,12 +54,17 @@ def validate_generative_artifact(dirname):
     return problems
 
 
-def export_generative(dirname, config, params):
-    """Write ``params`` ({name: array}, numpy or tensors) and ``config``
-    (a TransformerConfig or its dict) as a generative artifact."""
+def export_generative(dirname, config, scope=None, params=None):
+    """Write a transformer LM as a generative artifact; the JAX
+    package's signature. ``config``: a TransformerConfig or its dict.
+    ``params``: {name: array}, numpy or tensors; by default the
+    transformer_lm parameters are taken from ``scope`` (default the
+    global scope) by ``models.transformer.params_from_scope``."""
     from .models import transformer as _tm
     if isinstance(config, dict):
         config = _tm.TransformerConfig.from_dict(config)
+    if params is None:
+        params = _tm.params_from_scope(config, scope)
     missing = [n for n in _tm.param_names(config) if n not in params]
     if missing:
         raise ValueError("params dict is missing %s" % missing)

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version (counterpart of ``paddle_tpu/kernels``).
 
-Every kernel module keeps a ``launches`` count that its wrapper raises by
-one per kernel launch, and nowhere else; :func:`launch_counts` and
+Every kernel has a launch count on its wrapper module that the wrapper
+raises by one per launch, and nowhere else; :func:`launch_counts` and
 :func:`reset_launches` read and clear all of them, so a run can show
 that its main path went through the kernels.
 """
@@ -10,20 +10,23 @@ from __future__ import annotations
 
 from . import flash_attention, paged_attention
 
-__all__ = ["KERNEL_MODULES", "launch_counts", "reset_launches"]
+__all__ = ["KERNEL_COUNTERS", "launch_counts", "reset_launches"]
 
-# kernel name (its csrc/<name>.cu) -> the module whose wrapper launches it
-KERNEL_MODULES = {
-    "flash_attention_fwd": flash_attention,
-    "paged_attention": paged_attention,
+# kernel name -> (wrapper module, name of its count there)
+KERNEL_COUNTERS = {
+    "flash_attention_fwd": (flash_attention, "launches"),
+    "flash_attention_bwd_dkv": (flash_attention, "launches_bwd_dkv"),
+    "flash_attention_bwd_dq": (flash_attention, "launches_bwd_dq"),
+    "paged_attention": (paged_attention, "launches"),
 }
 
 
 def launch_counts():
     """{kernel name: launches since the last reset}."""
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in KERNEL_COUNTERS.items()}
 
 
 def reset_launches():
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for mod, attr in KERNEL_COUNTERS.values():
+        setattr(mod, attr, 0)

@@ -150,14 +150,12 @@ def check(lib, code, what):
 
 
 def refuse_grad(what, *tensors):
-    """No backward kernel is ported yet: a wrapper called on a tensor
-    that requires grad raises instead of returning an output autograd
-    cannot differentiate."""
+    """A wrapper without a backward kernel, called on a tensor that
+    requires grad, raises instead of returning an output autograd cannot
+    differentiate."""
     if any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "%s has no backward yet: its gradient kernels come with the "
-            "training slice of the port (flash-attention backward, "
-            "conv3x3, matmul); call it on tensors that do not require "
+            "%s has no backward: call it on tensors that do not require "
             "grad" % what)
 
 

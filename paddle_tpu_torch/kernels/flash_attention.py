@@ -1,23 +1,26 @@
-"""Flash attention, forward only (counterpart of the forward of
+"""Flash attention, forward and backward (counterpart of
 ``paddle_tpu/kernels/flash_attention.py``).
 
 ``q``, ``k``, ``v`` are ``[B, S, H, D]`` (the JAX package's public
 layout); the result is ``(o [B, S, H, D], lse [B, H, S])`` with
 ``lse = m + log(den)``, the semantics of ``flash_attention_with_lse``.
 
-- :func:`flash_attention_reference` is the plain PyTorch version: dense
-  scores, a -inf causal mask and a softmax, taken over blocks of query
-  rows so that the score matrix never needs more than
-  ``block * S`` entries a head. The CPU tests hold it against the JAX
-  kernel, and on the card ``chip_smoke.py`` holds the kernel against it.
-- :func:`flash_attention_with_lse` is the wrapper. A CPU tensor gets the
-  plain version; a CUDA tensor gets the hand-written kernel of
-  ``csrc/flash_attention_fwd.cu`` or an exception, never the plain
-  version.
-- ``launches`` counts the wrapper's kernel launches.
-
-There is no backward yet (the training slice brings it), so a wrapper
-call on a tensor that requires grad raises.
+- :func:`flash_attention_reference` is the plain forward: dense scores,
+  a -inf causal mask and a softmax, over blocks of query rows so that the
+  score matrix never needs more than ``block * S`` entries a head.
+- :func:`flash_attention_bwd_reference` is the plain backward: the
+  recompute formulas of the kernels (``p = exp(s - lse)``,
+  ``ds = p * (dO v^T - delta) * scale``) over the same blocks, with
+  cotangents on both ``o`` and ``lse``.
+- :func:`flash_attention_with_lse` is the wrapper, a
+  ``torch.autograd.Function``: its forward keeps ``q, k, v, o, lse``, its
+  backward folds the ``lse`` cotangent into delta, as the JAX custom vjp
+  does. A CPU tensor gets the plain versions; a CUDA tensor gets the
+  hand-written kernels of ``csrc/flash_attention_fwd.cu`` and
+  ``csrc/flash_attention_bwd.cu`` or an exception, never the plain
+  versions.
+- ``launches``, ``launches_bwd_dkv`` and ``launches_bwd_dq`` count the
+  kernel launches of the forward, dK/dV and dQ kernels.
 """
 from __future__ import annotations
 
@@ -27,13 +30,18 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_reference",
-           "flash_attention_with_lse", "launches"]
+__all__ = ["flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_reference", "flash_attention_reference",
+           "flash_attention_with_lse", "launches", "launches_bwd_dkv",
+           "launches_bwd_dq"]
 
-# kernel launches made by flash_attention_with_lse since the last reset
+# kernel launches since the last reset: forward, dK/dV and dQ
 launches = 0
+launches_bwd_dkv = 0
+launches_bwd_dq = 0
 
 _NAME = "flash_attention_fwd"
+_BWD_NAME = "flash_attention_bwd"
 _HEAD_DIMS = (32, 64, 128)
 
 
@@ -62,12 +70,54 @@ def flash_attention_reference(q, k, v, causal=False, scale=None,
     return o, torch.cat(lses, dim=2)
 
 
-def flash_attention_with_lse(q, k, v, causal=False, scale=None):
-    """``(o, lse)`` as :func:`flash_attention_reference` returns them. On
-    CUDA: float32, contiguous ``[B, S, H, D]`` q/k/v of one shape on one
-    device, ``D`` in (32, 64, 128); anything else raises."""
+def _delta(o, do, dlse):
+    """delta [B, H, S] = rowsum(dO * o) - dlse, float32."""
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float())
+    return delta if dlse is None else delta - dlse
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, dlse=None,
+                                  causal=False, scale=None, block=256):
+    """Plain backward: ``(dq, dk, dv)``, each ``[B, S, H, D]``, from the
+    recompute formulas over blocks of ``block`` query rows. ``dlse``
+    ([B, H, S] or None) is the cotangent of ``lse``."""
+    B, S, H, D = q.shape
+    Sk = k.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    qh, kh, vh, doh = (t.permute(0, 2, 1, 3) for t in (q, k, v, do))
+    delta = _delta(o, do, dlse)
+    dq = torch.empty_like(qh)
+    dk = torch.zeros_like(kh)
+    dv = torch.zeros_like(vh)
+    cols = torch.arange(Sk, device=q.device)
+    for r0 in range(0, S, block):
+        r1 = min(r0 + block, S)
+        s = torch.einsum("bhqd,bhkd->bhqk", qh[:, :, r0:r1], kh) * scale
+        if causal:
+            rows = torch.arange(r0, r1, device=q.device)
+            s = s.masked_fill(cols[None, :] > rows[:, None], float("-inf"))
+        p = torch.exp(s - lse[:, :, r0:r1, None])
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, doh[:, :, r0:r1])
+        dp = torch.einsum("bhqd,bhkd->bhqk", doh[:, :, r0:r1], vh)
+        ds = p * (dp - delta[:, :, r0:r1, None]) * scale
+        dq[:, :, r0:r1] = torch.einsum("bhqk,bhkd->bhqd", ds, kh)
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qh[:, :, r0:r1])
+    return tuple(t.permute(0, 2, 1, 3) for t in (dq, dk, dv))
+
+
+def _check_kernel_operands(what, D, **named):
+    for name, t in named.items():
+        if t.dtype != torch.float32:
+            raise ValueError("%s: the kernel takes float32 operands, %s is "
+                             "%s" % (what, name, t.dtype))
+    if D not in _HEAD_DIMS:
+        raise ValueError("%s: head_dim %d has no kernel (supported: %s)"
+                         % (what, D, _HEAD_DIMS))
+
+
+def _forward(q, k, v, causal, scale):
+    """(o, lse): the plain version on the CPU, the kernel on CUDA."""
     global launches
-    _build.refuse_grad(_NAME, q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          scale=scale)
@@ -78,11 +128,7 @@ def flash_attention_with_lse(q, k, v, causal=False, scale=None):
         raise ValueError("%s: the kernel takes q, k, v of one shape, got "
                          "%s/%s/%s" % (_NAME, tuple(q.shape),
                                        tuple(k.shape), tuple(v.shape)))
-    if D not in _HEAD_DIMS:
-        raise ValueError("%s: head_dim %d has no kernel (supported: %s)"
-                         % (_NAME, D, _HEAD_DIMS))
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise ValueError("%s: the kernel takes float32 q/k/v" % _NAME)
+    _check_kernel_operands(_NAME, D, q=q, k=k, v=v)
     _build.check_cuda_operands(_NAME, q.device, q=q, k=k, v=v)
     scale = scale if scale is not None else D ** -0.5
     o = torch.empty_like(q)
@@ -98,6 +144,105 @@ def flash_attention_with_lse(q, k, v, causal=False, scale=None):
     _build.check(lib, code, _NAME)
     launches += 1
     return o, lse
+
+
+def _bwd_fn(lib, name, n_out):
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * (6 + n_out) + [ctypes.c_int] * 5 + \
+        [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_dkv(q, k, v, do, lse, delta, causal, scale):
+    """Launch the dK/dV kernel on checked operands; returns (dk, dv)."""
+    global launches_bwd_dkv
+    B, S, H, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _build.load(_BWD_NAME)
+    code = _bwd_fn(lib, "flash_attention_bwd_dkv_f32", 2)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, S, H, D, int(bool(causal)), float(scale),
+        _build.stream_handle(q.device))
+    _build.check(lib, code, "flash_attention_bwd_dkv")
+    launches_bwd_dkv += 1
+    return dk, dv
+
+
+def _bwd_dq(q, k, v, do, lse, delta, causal, scale):
+    """Launch the dQ kernel on checked operands; returns dq."""
+    global launches_bwd_dq
+    B, S, H, D = q.shape
+    dq = torch.empty_like(q)
+    lib = _build.load(_BWD_NAME)
+    code = _bwd_fn(lib, "flash_attention_bwd_dq_f32", 1)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        B, S, H, D, int(bool(causal)), float(scale),
+        _build.stream_handle(q.device))
+    _build.check(lib, code, "flash_attention_bwd_dq")
+    launches_bwd_dq += 1
+    return dq
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, dlse=None, causal=False,
+                        scale=None):
+    """``(dq, dk, dv)`` of :func:`flash_attention_bwd_reference`. On CUDA:
+    the dK/dV and dQ kernels, after ``delta`` is formed with two torch
+    elementwise ops; float32 ``[B, S, H, D]`` tensors of one shape and
+    ``D`` in (32, 64, 128), anything else raises."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, dlse,
+                                             causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError("%s: no kernel for device %s"
+                         % (_BWD_NAME, q.device))
+    D = q.shape[-1]
+    if any(t.shape != q.shape for t in (k, v, o, do)):
+        raise ValueError("%s: the kernels take q, k, v, o, dO of one "
+                         "shape" % _BWD_NAME)
+    do = do.contiguous()
+    delta = _delta(o, do, dlse).contiguous()
+    lse = lse.contiguous()
+    _check_kernel_operands(_BWD_NAME, D, q=q, k=k, v=v, do=do, lse=lse,
+                           delta=delta)
+    _build.check_cuda_operands(_BWD_NAME, q.device, q=q, k=k, v=v, do=do,
+                               lse=lse, delta=delta)
+    scale = scale if scale is not None else D ** -0.5
+    dk, dv = _bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    dq = _bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(o, lse) with the flash backward: ``_flash_fwd``/``_flash_bwd`` of
+    the JAX package's custom vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = _forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, dlse,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_with_lse(q, k, v, causal=False, scale=None):
+    """``(o, lse)`` as :func:`flash_attention_reference` returns them,
+    differentiable in q, k and v through the flash backward. On CUDA:
+    float32, contiguous ``[B, S, H, D]`` q/k/v of one shape on one
+    device, ``D`` in (32, 64, 128); anything else raises."""
+    return _FlashAttention.apply(q, k, v, causal, scale)
 
 
 def flash_attention(q, k, v, causal=False, scale=None):

@@ -1,13 +1,27 @@
-"""Decoder-only transformer language model: the serving face (counterpart
-of ``paddle_tpu/models/transformer.py``).
+"""Decoder-only transformer language model (counterpart of
+``paddle_tpu/models/transformer.py``): the Program builders the trainer
+runs and the serving face the generation engine drives.
 
-The same weights and the same math as the JAX package: learned token
-and position embeddings, pre-LN blocks (``LN_EPS = 1e-5``, population
-variance), bias-free q/k/v/proj, a bias-free ReLU MLP, a final layer
-norm and an untied head. Weights keep the JAX layout, ``h @ W`` with ``W`` ``[in, out]``, and
-``init_params`` is numpy, so both packages start from the same bytes.
+Program builders (the layers DSL): :func:`transformer_lm`,
+:func:`transformer_block` and :func:`causal_flash_attention`, whose
+attention is the ``flash_attention`` op. :func:`params_from_scope` takes
+the trained weights out of a scope for the serving face.
 
-Entry points, all on tensors that live on one device:
+The serving face has the same weights and the same math as the JAX
+package: learned token and position embeddings, pre-LN blocks
+(``LN_EPS = 1e-5``, population variance), bias-free q/k/v/proj, a
+bias-free ReLU MLP, a final layer norm and an untied head. Weights keep
+the JAX layout, ``h @ W`` with ``W`` ``[in, out]``, and ``init_params`` is
+numpy, so both packages start from the same bytes. The Program's FFN-up
+``fc`` has an auto-named bias ``fc_N.b_0`` that the JAX package's
+``param_names``, ``params_from_scope`` and serving face leave out; the
+port mirrors that, so a trained model exports without that bias (its
+initial value is zero). :func:`forward` takes it when the params dict
+holds it as ``blk<i>_up_b``, for a gradient reference of the whole
+Program.
+
+Entry points of the serving face, all on tensors that live on one
+device:
 
 - :func:`forward`: full-sequence logits through the plain attention —
   the reference decoder;
@@ -42,14 +56,92 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.scope import global_scope
 from ..device import resolve_device
 from ..kernels.flash_attention import (flash_attention_reference,
                                        flash_attention_with_lse)
 from ..kernels.paged_attention import paged_attention
+from ..layers import nn as L
+from ..layers import ops as OPS
+from ..layers import tensor as T
+from ..layers.layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
 __all__ = ["LN_EPS", "TransformerConfig", "TransformerLM", "param_names",
-           "init_params", "forward", "prefill_step", "decode_step",
-           "device_sample", "decode_step_sampled", "prefill_step_sampled"]
+           "init_params", "params_from_scope", "forward", "prefill_step",
+           "decode_step", "device_sample", "decode_step_sampled",
+           "prefill_step_sampled", "causal_flash_attention",
+           "transformer_block", "transformer_lm"]
+
+
+def causal_flash_attention(q, k, v, num_heads):
+    """[B, S, hidden] q/k/v -> [B, S, hidden] through the causal
+    ``flash_attention`` op."""
+    hidden = q.shape[-1]
+    seq = q.shape[-2]
+    dh = hidden // num_heads
+    qh = L.reshape(q, shape=[0, seq, num_heads, dh])
+    kh = L.reshape(k, shape=[0, seq, num_heads, dh])
+    vh = L.reshape(v, shape=[0, seq, num_heads, dh])
+    helper = LayerHelper("flash_attention")
+    out = helper.create_variable_for_type_inference(dtype=q.dtype)
+    out.shape = qh.shape
+    helper.append_op(type="flash_attention",
+                     inputs={"Q": [qh], "K": [kh], "V": [vh]},
+                     outputs={"Out": [out]}, attrs={"causal": True})
+    return L.reshape(out, shape=[0, seq, hidden])
+
+
+def transformer_block(x, hidden, num_heads, ffn_mult=4, prefix="blk"):
+    """Pre-norm block: x + attn(ln(x)); x + ffn(ln(x))."""
+    h = L.layer_norm(x, begin_norm_axis=2,
+                     param_attr=ParamAttr(name=prefix + "_ln1_w"),
+                     bias_attr=ParamAttr(name=prefix + "_ln1_b"))
+    q = L.fc(h, size=hidden, num_flatten_dims=2, bias_attr=False,
+             param_attr=ParamAttr(name=prefix + "_q"))
+    k = L.fc(h, size=hidden, num_flatten_dims=2, bias_attr=False,
+             param_attr=ParamAttr(name=prefix + "_k"))
+    v = L.fc(h, size=hidden, num_flatten_dims=2, bias_attr=False,
+             param_attr=ParamAttr(name=prefix + "_v"))
+    att = causal_flash_attention(q, k, v, num_heads)
+    proj = L.fc(att, size=hidden, num_flatten_dims=2, bias_attr=False,
+                param_attr=ParamAttr(name=prefix + "_proj"))
+    x = L.elementwise_add(x, proj)
+    h2 = L.layer_norm(x, begin_norm_axis=2,
+                      param_attr=ParamAttr(name=prefix + "_ln2_w"),
+                      bias_attr=ParamAttr(name=prefix + "_ln2_b"))
+    up = L.fc(h2, size=hidden * ffn_mult, num_flatten_dims=2, act="relu",
+              param_attr=ParamAttr(name=prefix + "_up"))
+    down = L.fc(up, size=hidden, num_flatten_dims=2, bias_attr=False,
+                param_attr=ParamAttr(name=prefix + "_down"))
+    return L.elementwise_add(x, down)
+
+
+def transformer_lm(tokens, vocab_size, hidden=64, num_layers=2,
+                   num_heads=4, ffn_mult=4):
+    """``tokens`` [B, S] int64 -> logits [B, S, vocab_size]: learned
+    position embeddings added to token embeddings, ``num_layers`` pre-norm
+    causal blocks, final layer norm, untied head."""
+    seq = tokens.shape[1]
+    emb = L.embedding(tokens, size=[vocab_size, hidden],
+                      param_attr=ParamAttr(name="tok_emb"))
+    # position ids: cumsum over a ones row - 1, per batch row
+    ones = T.fill_constant_batch_size_like(tokens, shape=[-1, seq],
+                                           dtype="float32", value=1.0)
+    pos_ids = T.cast(L.scale(OPS.cumsum(ones, axis=1), scale=1.0, bias=-1.0),
+                     "int64")
+    pos = L.embedding(pos_ids, size=[seq, hidden],
+                      param_attr=ParamAttr(name="pos_emb"))
+    x = L.elementwise_add(emb, pos)
+    for i in range(num_layers):
+        x = transformer_block(x, hidden, num_heads, ffn_mult,
+                              prefix="blk%d" % i)
+    x = L.layer_norm(x, begin_norm_axis=2,
+                     param_attr=ParamAttr(name="final_ln_w"),
+                     bias_attr=ParamAttr(name="final_ln_b"))
+    return L.fc(x, size=vocab_size, num_flatten_dims=2, bias_attr=False,
+                param_attr=ParamAttr(name="lm_head"))
+
 
 LN_EPS = 1e-5
 
@@ -128,6 +220,25 @@ def init_params(config, seed=0):
     return p
 
 
+def params_from_scope(config, scope=None):
+    """The trained transformer_lm weights of ``scope`` (default the
+    global scope) as the {name: np.ndarray} dict of the serving face.
+    Raises with every missing name listed."""
+    scope = scope or global_scope()
+    out, missing = {}, []
+    for n in param_names(config):
+        v = scope.find_var(n)
+        if v is None:
+            missing.append(n)
+        else:
+            out[n] = v.detach().cpu().numpy()
+    if missing:
+        raise ValueError(
+            "scope is missing transformer params %s — was transformer_lm "
+            "built with this config and the startup program run?" % missing)
+    return out
+
+
 def _ln(x, w, b):
     return F.layer_norm(x, (x.shape[-1],), w, b, eps=LN_EPS)
 
@@ -160,8 +271,10 @@ def _forward_hidden(params, tokens, config, causal_attention):
         att = causal_attention(q, k, v).reshape(B, S, nh * dh)
         x = x + att @ params[pre + "_proj"]
         h2 = _ln(x, params[pre + "_ln2_w"], params[pre + "_ln2_b"])
-        up = torch.relu(h2 @ params[pre + "_up"])
-        x = x + up @ params[pre + "_down"]
+        up = h2 @ params[pre + "_up"]
+        if pre + "_up_b" in params:
+            up = up + params[pre + "_up_b"]
+        x = x + torch.relu(up) @ params[pre + "_down"]
     return _ln(x, params["final_ln_w"], params["final_ln_b"]), ks, vs
 
 

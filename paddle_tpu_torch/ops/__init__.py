@@ -1,0 +1,16 @@
+"""Importing this package registers every op lowering of the port
+(counterpart of ``paddle_tpu/ops/__init__.py``). This slice holds the
+ops of the transformer LM's training step."""
+from . import (  # noqa: F401
+    common,
+    generic_grad,
+    tensor_ops,
+    math_ops,
+    nn_ops,
+    loss_ops,
+    optimizer_ops,
+    attention_ops,
+    explicit_grads,  # last: attaches grad makers to the ops above
+)
+
+from ..core.registry import registered_ops  # noqa: F401

@@ -70,10 +70,19 @@ def test_causal_needs_aligned_lengths():
 
 
 def test_wrapper_refuses_grad():
+    """The flash wrapper has its backward now: a tensor that requires
+    grad gets a differentiable output. Paged attention still has none
+    and refuses."""
+    from paddle_tpu_torch.kernels import paged_attention as tpa
     q, k, v = [torch.from_numpy(a) for a in _qkv(1, 4, 1, 8, seed=2)]
     k.requires_grad_(True)
+    o, lse = tfa.flash_attention_with_lse(q, k, v, causal=True)
+    assert o.requires_grad and lse.requires_grad
+    pool = torch.zeros(2, 4, 1, 8, requires_grad=True)
     with pytest.raises(NotImplementedError, match="backward"):
-        tfa.flash_attention_with_lse(q, k, v, causal=True)
+        tpa.paged_attention(q[:, 0], pool, pool,
+                            torch.zeros(1, 1, dtype=torch.int32),
+                            torch.zeros(1, dtype=torch.int32))
 
 
 @pytest.mark.cuda

@@ -153,7 +153,7 @@ def test_jax_artifact_loads_in_the_port(tmp_path, jax_model, model):
         assert torch.equal(getattr(loaded, n), t)
     # and the port's export loads back in the JAX package
     back = str(tmp_path / "back")
-    tinf.export_generative(back, loaded.config, loaded.params)
+    tinf.export_generative(back, loaded.config, params=loaded.params)
     jl = jinf.load_generative(back)
     assert jl.config.to_dict() == jax_model.config.to_dict()
     with pytest.raises(tinf.ArtifactError, match="missing"):
@@ -175,7 +175,7 @@ def test_default_device_without_a_card_raises(tmp_path, jax_model):
 
 def test_http_generate_on_port_zero(tmp_path, model):
     art = str(tmp_path / "gen")
-    tinf.export_generative(art, model.config, model.params)
+    tinf.export_generative(art, model.config, params=model.params)
     svc = InferenceService()
     svc.load_model("lm", art, warm=False, device="cpu", max_running=2,
                    kv_pages=4, page_tokens=8)
@@ -233,7 +233,7 @@ def test_serve_cli_readiness_generate_and_sigterm_drain(tmp_path, model):
     import subprocess
     import sys
     art = str(tmp_path / "gen")
-    tinf.export_generative(art, model.config, model.params)
+    tinf.export_generative(art, model.config, params=model.params)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
     proc = subprocess.Popen(
