@@ -2,8 +2,9 @@
 """Chip smoke of paddle_tpu_torch on one NVIDIA card (an H100).
 
 Drives the port's generative serving path and its Fluid training path
-at the widths of GPT-2 small and holds each hand-written CUDA kernel
-against its plain PyTorch version. Run from the root of a checkout:
+at the widths of GPT-2 small, and its conv-net training path on
+ImageNet ResNet-50, and holds each hand-written CUDA kernel against its
+plain PyTorch version. Run from the root of a checkout:
 
     python3 chip_smoke.py
 
@@ -34,7 +35,21 @@ Phases, in order; any failure exits non-zero at once:
    fall; the launch counters must equal 2 forward and 1 dK/dV and dQ
    launch a layer a step), profile two more steps, then export the
    trained scope, load it and serve two greedy requests whose tokens
-   must be the plain forward's argmax.
+   must be the plain forward's argmax;
+6. convnet: hold the conv3x3 kernel (forward, and dx on the rotated
+   filter) against its plain version at ResNet-50's four 3x3 stage
+   shapes (batch 32) and two ragged ones, with kernel, plain and cuDNN
+   times; build ImageNet ResNet-50 (224 x 224, 1000 classes, float32,
+   ``Momentum(0.01, 0.9)``, ``conv_impl=pallas3x3``) through
+   ``configs/resnet_cifar.model``, hold step 1's gradients of every
+   parameter and the running statistics against ``torch.autograd``
+   through a plain forward (``F.conv2d`` everywhere; a TF32 reference
+   must miss the tolerance), train 8 steps on one fixed batch of 32
+   through ``Trainer.train`` (the loss must fall; exactly 16 forward and
+   16 dx launches a step), report ``resnet50_train_images_per_sec`` and
+   profile two more steps.
+
+Each phase prints its wall time.
 
 The last lines printed are the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -97,6 +112,47 @@ GRAD_REL_TOL = 5e-3
 TRAIN_BATCH = 8
 TRAIN_PASSES = 4
 TRAIN_LR = 1e-3
+# conv3x3 kernel against its plain version (9 tap matmuls), same inputs,
+# both float32: the largest error over the largest magnitude of the
+# plain output. Only sum orders differ (sums of 9 * C products, C up to
+# 512: ~1e-6 relative); the plain version on inputs rounded to TF32 errs
+# by ~1e-3 and is shown to miss it at every shape.
+CONV_REL_TOL = 2e-5
+# ResNet-50's 3x3 convs (N, H, W, C, O) at batch 32, stage by stage, and
+# how many of each a step runs; and ragged shapes (pixel and channel
+# tails, the vector and the scalar load path)
+R50_CONV_SHAPES = [(32, 56, 56, 64, 64), (32, 28, 28, 128, 128),
+                   (32, 14, 14, 256, 256), (32, 7, 7, 512, 512)]
+R50_CONV_COUNTS = [3, 4, 6, 3]
+CONV_RAGGED_SHAPES = [(3, 7, 9, 24, 40), (2, 5, 6, 3, 7)]
+# the conv-net drive: ImageNet ResNet-50, 224 x 224, 1000 classes, one
+# fixed batch of 32, Momentum(0.01, 0.9), 8 steps
+R50_BATCH = 32
+R50_STEPS = 8
+R50_LR = 0.01
+# Step-1 gradients of every parameter from the Executor (conv3x3 kernel,
+# cuDNN for the other convs, the op lowerings and their grads) against
+# torch.autograd through a plain forward (F.conv2d everywhere,
+# F.batch_norm): the norm of the difference over the norm of that
+# parameter's reference gradient. Sum orders differ through 53 convs and
+# batch norms, so the forwards differ by ~1e-5 relative in the deep
+# layers, and a ReLU input within that noise of 0 opens in one and stays
+# shut in the other, moving that pixel's whole gradient: two float32
+# computations of the step at 224 x 224 on the CPU differ by up to 1.7e-2
+# (median 1.0e-2), while in float64 the port's lowerings and the
+# reference agree to 2e-14. A reference whose conv operands are rounded
+# to TF32 moves them by ~0.2-0.3; it is measured in the same run and
+# must miss this tolerance.
+R50_GRAD_REL_TOL = 5e-2
+# a parameter whose reference gradient norm is below this fraction of the
+# largest is zero but for float32 noise (each bottleneck's last batch-norm
+# bias: the residual add carries no relu); the port's must be as small
+ZERO_GRAD_FRAC = 1e-5
+# running means and variances after step 1 against the reference's:
+# relative norm over each stat vector, plus ZERO_GRAD_FRAC of the largest
+# stat's norm (the running means of convs fed by a residual sum are zero
+# but for noise: their input has zero mean, again for want of the relu)
+R50_STAT_REL_TOL = 1e-4
 
 
 def log(msg):
@@ -134,6 +190,12 @@ def time_ms(fn, iters=20, warmup=3, flush=None):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _no_launches():
+    """{kernel name: 0} over every launch counter of the port."""
+    from paddle_tpu_torch import kernels
+    return {name: 0 for name in kernels.KERNEL_COUNTERS}
 
 
 def bound(nbytes, flops):
@@ -539,9 +601,8 @@ def phase_engine(dev, art_dir):
         if not all(0 <= t < cfg.vocab_size for t in r.tokens):
             fail("a token id out of the vocabulary")
     L = cfg.num_layers
-    want = {"flash_attention_fwd": L * st["prefills"],
-            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-            "paged_attention": L * st["decode_steps"]}
+    want = dict(_no_launches(), flash_attention_fwd=L * st["prefills"],
+                paged_attention=L * st["decode_steps"])
     if launches != want or st["prefills"] < 16 or st["decode_steps"] < 31:
         fail("launch counts %s, expected %s (prefills %d, decode steps %d)"
              % (launches, want, st["prefills"], st["decode_steps"]))
@@ -681,7 +742,7 @@ def _tf32_attention(q, k, v):
     """Plain causal attention on inputs rounded to TF32; the rounding
     passes gradients straight through."""
     from paddle_tpu_torch.kernels import flash_attention as fa
-    r = [t + (_tf32_round(t) - t).detach() for t in (q, k, v)]
+    r = [_tf32_straight(t) for t in (q, k, v)]
     return fa.flash_attention_reference(*r, causal=True)[0]
 
 
@@ -823,9 +884,9 @@ def phase_train(dev, art_dir):
         launches = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated(dev)
         steps = len(losses)
-        want = {"flash_attention_fwd": 2 * L * steps,
-                "flash_attention_bwd_dkv": L * steps,
-                "flash_attention_bwd_dq": L * steps, "paged_attention": 0}
+        want = dict(_no_launches(), flash_attention_fwd=2 * L * steps,
+                    flash_attention_bwd_dkv=L * steps,
+                    flash_attention_bwd_dq=L * steps)
         if steps != 2 * TRAIN_PASSES or launches != want:
             fail("train launch counts %s over %d steps, expected %s"
                  % (launches, steps, want))
@@ -856,6 +917,408 @@ def phase_train(dev, art_dir):
     torch.cuda.empty_cache()
     return launches
 
+# -- phase 6 -----------------------------------------------------------------
+
+def _conv_inputs(shape, seed, dev):
+    N, H, W, C, O = shape
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(N, H, W, C).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(3, 3, C, O) * (2.0 / (9 * C)) ** 0.5)
+                         .astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(N, H, W, O).astype(np.float32)).to(dev)
+    return x, w, g
+
+
+def _conv3x3_kernel_check(dev):
+    """The conv3x3 kernel against its plain version, forward and dx, at
+    the four ResNet-50 stage shapes (batch 32) and two ragged ones, with
+    the kernel, plain and cuDNN times at the stage shapes. Returns the
+    two entries of the kernels line."""
+    from paddle_tpu_torch.kernels import conv3x3
+    F = torch.nn.functional
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    per_shape = {}
+    for i, shape in enumerate(R50_CONV_SHAPES + CONV_RAGGED_SHAPES):
+        N, H, W, C, O = shape
+        x, w, g = _conv_inputs(shape, 20 + i, dev)
+        w_rot = conv3x3.rotate_filter(w)
+        got = conv3x3.conv3x3_s1_nhwc(x, w)
+        got_dx, _ = conv3x3.conv3x3_bwd(x, w, g, want_dw=False)
+        want = conv3x3.conv3x3_reference(x, w)
+        want_dx = conv3x3.conv3x3_reference(g, w_rot)
+        tf32 = conv3x3.conv3x3_reference(_tf32_round(x), _tf32_round(w))
+        tf32_dx = conv3x3.conv3x3_reference(_tf32_round(g),
+                                            _tf32_round(w_rot))
+        torch.cuda.synchronize()
+        rec = {"fwd_max_rel_err": _rel_err([got], [want]),
+               "dx_max_rel_err": _rel_err([got_dx], [want_dx]),
+               "fwd_max_abs_err": float((got - want).abs().max()),
+               "dx_max_abs_err": float((got_dx - want_dx).abs().max()),
+               "tf32_fwd_max_rel_err": _rel_err([tf32], [want]),
+               "tf32_dx_max_rel_err": _rel_err([tf32_dx], [want_dx])}
+        per_shape["x".join(str(d) for d in shape)] = rec
+        log(json.dumps({"conv3x3_check": {"shape": shape, **rec}}))
+        if not (rec["fwd_max_rel_err"] <= CONV_REL_TOL
+                and rec["dx_max_rel_err"] <= CONV_REL_TOL):
+            fail("conv3x3 disagrees with its plain version at %s: %s > %g"
+                 % (shape, rec, CONV_REL_TOL))
+        if not (rec["tf32_fwd_max_rel_err"] > CONV_REL_TOL
+                and rec["tf32_dx_max_rel_err"] > CONV_REL_TOL):
+            fail("a TF32 conv errs by only %s <= CONV_REL_TOL %g: the "
+                 "tolerance cannot tell float32 from TF32" % (rec,
+                                                             CONV_REL_TOL))
+        if shape not in R50_CONV_SHAPES:
+            continue
+        # cuDNN on the same bytes: x and g as NCHW views of the NHWC
+        # tensors, the filters in channels-last OIHW
+        x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        w_cl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        b_ms, b_by = bound(4 * (N * H * W * (C + O) + 9 * C * O),
+                           2 * N * H * W * C * O * 9)
+        rec.update({
+            "fwd_ms": time_ms(lambda: conv3x3._launch(x, w), flush=flush),
+            "dx_ms": time_ms(lambda: conv3x3._launch(g, w_rot),
+                             flush=flush),
+            "fwd_plain_ms": time_ms(lambda: conv3x3.conv3x3_reference(x, w),
+                                    flush=flush),
+            "dx_plain_ms": time_ms(
+                lambda: conv3x3.conv3x3_reference(g, conv3x3.rotate_filter(
+                    w)), flush=flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "fwd_library_ms": time_ms(lambda: F.conv2d(x_cl, w_cl,
+                                                       padding=1),
+                                      flush=flush),
+            "dx_library_ms": time_ms(
+                lambda: torch.ops.aten.convolution_backward(
+                    g_cl, x_cl, w_cl, None, [1, 1], [1, 1], [1, 1], False,
+                    [0, 0], 1, [True, False, False]), flush=flush)})
+        del x, w, g, w_rot, got, got_dx, want, want_dx, tf32, tf32_dx
+    del flush
+    torch.cuda.empty_cache()
+    weights = {"x".join(str(d) for d in s): n
+               for s, n in zip(R50_CONV_SHAPES, R50_CONV_COUNTS)}
+    total = sum(weights.values())
+
+    def per_launch(key):
+        # mean over the 16 launches of a step: 3, 4, 6 and 3 at the stages
+        return sum(per_shape[k][key] * n for k, n in weights.items()) / total
+
+    out = {}
+    for name, role in (("conv3x3_fwd", "fwd"), ("conv3x3_dx", "dx")):
+        out[name] = {
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/conv3x3.cu",
+            "replaces": "paddle_tpu/kernels/conv3x3.py:97",
+            "role": "forward" if role == "fwd" else
+                    "dx of the backward, the same kernel on the rotated "
+                    "filter (_vjp_bwd, conv3x3.py:165)",
+            "max_abs_err": max(r[role + "_max_abs_err"]
+                               for r in per_shape.values()),
+            "max_rel_err": max(r[role + "_max_rel_err"]
+                               for r in per_shape.values()),
+            "tolerance_rel": CONV_REL_TOL,
+            "tf32_inputs_min_rel_err": min(r["tf32_%s_max_rel_err" % role]
+                                           for r in per_shape.values()),
+            "ms": per_launch(role + "_ms"),
+            "plain_ms": per_launch(role + "_plain_ms"),
+            "bound_ms": per_launch("bound_ms"), "bound_by": "operations",
+            "library_ms": per_launch(role + "_library_ms"),
+            "library": "cuDNN through F.conv2d" if role == "fwd" else
+                       "cuDNN through convolution_backward (dx only)",
+            "timed_as": "mean over a ResNet-50 step's 16 launches: the "
+                        "stage shapes weighted 3, 4, 6, 3",
+            "per_shape": per_shape}
+    log(json.dumps({"conv3x3_times": {
+        k: {f: v for f, v in r.items() if f.endswith("ms")}
+        for k, r in per_shape.items() if "fwd_ms" in r}}))
+    return out
+
+
+def _plain_resnet_loss(program, params, feed, cost, conv_round=None):
+    """The loss of ``program``'s forward recomputed with plain torch
+    functions (``F.conv2d`` for every conv, ``F.batch_norm`` with batch
+    statistics) from ``params`` and ``feed``, differentiable through
+    autograd; returns (loss, {MeanOut/VarianceOut name: new running
+    stat}). ``conv_round`` maps each conv operand before the conv (the
+    TF32 contrast)."""
+    F = torch.nn.functional
+    env = dict(feed)
+    env.update(params)
+    stats = {}
+    for op in program.global_block().ops:
+        a = op.attr
+        if op.type == "conv2d":
+            x, w = env[op.input("Input")[0]], env[op.input("Filter")[0]]
+            if conv_round is not None:
+                x, w = conv_round(x), conv_round(w)
+            y = F.conv2d(x, w, None, a("strides"), a("paddings"),
+                         a("dilations"), a("groups"))
+            env[op.output("Output")[0]] = y
+        elif op.type == "batch_norm":
+            x = env[op.input("X")[0]]
+            m = a("momentum")
+            bv, bm = torch.var_mean(x.detach(), dim=(0, 2, 3),
+                                    unbiased=False)
+            stats[op.output("MeanOut")[0]] = \
+                m * env[op.input("Mean")[0]] + (1 - m) * bm
+            stats[op.output("VarianceOut")[0]] = \
+                m * env[op.input("Variance")[0]] + (1 - m) * bv
+            env[op.output("Y")[0]] = F.batch_norm(
+                x, None, None, env[op.input("Scale")[0]],
+                env[op.input("Bias")[0]], True, 0.0, a("epsilon"))
+        elif op.type == "relu":
+            env[op.output("Out")[0]] = F.relu(env[op.input("X")[0]])
+        elif op.type == "pool2d":
+            x = env[op.input("X")[0]]
+            if a("global_pooling"):
+                y = x.mean(dim=(2, 3), keepdim=True)
+            else:
+                y = F.max_pool2d(x, a("ksize"), a("strides"), a("paddings"))
+            env[op.output("Out")[0]] = y
+        elif op.type == "elementwise_add":
+            x, y = env[op.input("X")[0]], env[op.input("Y")[0]]
+            env[op.output("Out")[0]] = x + (y if y.shape == x.shape
+                                            else y.reshape(1, -1))
+        elif op.type == "mul":
+            x = env[op.input("X")[0]]
+            env[op.output("Out")[0]] = x.reshape(x.shape[0], -1) \
+                @ env[op.input("Y")[0]]
+        elif op.type == "softmax":
+            env[op.output("Out")[0]] = torch.softmax(env[op.input("X")[0]],
+                                                     dim=-1)
+        elif op.type == "cross_entropy":
+            p = env[op.input("X")[0]]
+            lab = env[op.input("Label")[0]].long().reshape(-1, 1)
+            env[op.output("Y")[0]] = -torch.log(
+                torch.clamp(p, 1e-15, 1.0)).gather(1, lab)
+        elif op.type == "mean":
+            env[op.output("Out")[0]] = env[op.input("X")[0]].mean() \
+                .reshape(1)
+        elif op.type in ("top_k", "accuracy"):
+            continue
+        else:
+            fail("the plain ResNet forward has no rule for op %r" % op.type)
+        if cost in op.output_arg_names:
+            return env[cost], stats
+    fail("the plain ResNet forward never reached the loss %r" % cost)
+
+
+def _convnet_grad_check(trainer, spec, feed):
+    """Step 1 through the Executor, fetching every parameter's @GRAD
+    and the running statistics after it, against torch.autograd through
+    the plain forward on the state the step started from; and the same
+    reference with every conv operand rounded to TF32, which must miss
+    the tolerance."""
+    from paddle_tpu_torch.core.scope import global_scope
+    scope = global_scope()
+    prog = trainer.main_program
+    cost = spec["cost"].name
+    params = [p.name for p in prog.all_parameters() if p.trainable]
+    stat_names = [op.output(s)[0] for op in prog.global_block().ops
+                  if op.type == "batch_norm"
+                  for s in ("MeanOut", "VarianceOut")]
+    start = {n: scope.find_var(n).clone()
+             for n in params + stat_names}
+    outs = trainer.exe.run(prog, feed=feed,
+                           fetch_list=[cost] + [n + "@GRAD" for n in params],
+                           return_numpy=False)
+    got = dict(zip(params, outs[1:]))
+    got_stats = {n: scope.find_var(n) for n in stat_names}
+    stats = {}
+    for label, rnd in (("float32", None), ("tf32_convs", _tf32_straight)):
+        leaves = {n: start[n].detach().clone().requires_grad_(n in params)
+                  for n in start}
+        loss, new_stats = _plain_resnet_loss(prog, leaves, feed, cost, rnd)
+        want = dict(zip(params, torch.autograd.grad(
+            loss, [leaves[n] for n in params])))
+        largest = max(float(w.norm()) for w in want.values())
+        # gradients that are zero but for float32 noise (the bias of each
+        # bottleneck's last batch norm: no relu after the residual add)
+        zero = {n for n in params
+                if float(want[n].norm()) <= ZERO_GRAD_FRAC * largest}
+        rel = {n: float((got[n] - want[n]).norm() / want[n].norm())
+               for n in params if n not in zero}
+        worst = max(rel, key=rel.get)
+        # err <= tol * |want| + floor, as err / (|want| + floor / tol)
+        slack = ZERO_GRAD_FRAC * max(float(t.norm())
+                                     for t in new_stats.values()) \
+            / R50_STAT_REL_TOL
+        stat_rel = {n: float((got_stats[n] - new_stats[n]).norm())
+                    / (float(new_stats[n].norm()) + slack)
+                    for n in stat_names}
+        stats[label] = {
+            "norm_rel_err": rel[worst], "worst_param": worst,
+            "norm_rel_err_median": float(np.median(list(rel.values()))),
+            "zero_grad_params": len(zero),
+            "zero_grad_max_abs_err": max(
+                [float((got[n] - want[n]).abs().max()) for n in zero]
+                or [0.0]),
+            "largest_grad_norm": largest,
+            "running_stats_norm_rel_err": max(stat_rel.values()),
+            "running_stats_worst": max(stat_rel, key=stat_rel.get),
+            "loss_abs_err": abs(float(outs[0].reshape(-1)[0])
+                                - float(loss.detach()))}
+        del leaves, loss, new_stats, want
+    torch.cuda.synchronize()
+    checks = {"params_checked": len(params), "running_stats": len(stat_names),
+              "tolerance_rel": R50_GRAD_REL_TOL,
+              "stats_tolerance_rel": R50_STAT_REL_TOL,
+              "loss": float(outs[0].reshape(-1)[0]), **stats}
+    log(json.dumps({"convnet_grad_check": checks}))
+    f32, tf32 = stats["float32"], stats["tf32_convs"]
+    if not f32["norm_rel_err"] <= R50_GRAD_REL_TOL:
+        fail("step-1 gradient of %s differs from the autograd reference by "
+             "%g (relative norm) > %g" % (f32["worst_param"],
+                                          f32["norm_rel_err"],
+                                          R50_GRAD_REL_TOL))
+    if not f32["zero_grad_max_abs_err"] <= ZERO_GRAD_FRAC * \
+            f32["largest_grad_norm"]:
+        fail("a gradient that is zero in the reference is %g in the port"
+             % f32["zero_grad_max_abs_err"])
+    if not f32["running_stats_norm_rel_err"] <= R50_STAT_REL_TOL:
+        fail("running statistic %s differs from the reference by %g > %g"
+             % (f32["running_stats_worst"],
+                f32["running_stats_norm_rel_err"], R50_STAT_REL_TOL))
+    if not tf32["norm_rel_err"] > R50_GRAD_REL_TOL:
+        fail("TF32 convs move the gradients by only %g <= %g: the tolerance "
+             "cannot tell float32 from TF32" % (tf32["norm_rel_err"],
+                                                R50_GRAD_REL_TOL))
+    return checks
+
+
+def _tf32_straight(t):
+    """``t`` rounded to TF32, passing gradients straight through."""
+    return t + (_tf32_round(t) - t).detach()
+
+
+def _conv_share(prof):
+    """Device time by kind of kernel over a profile: the conv3x3 kernel,
+    cuDNN convolutions (forward, dgrad, wgrad), GEMMs (the dw tap
+    contractions and the fc), reductions (batch norm statistics and their
+    grads) and the rest (elementwise, copies, pooling)."""
+    kinds = {"conv3x3": 0.0, "cudnn_conv": 0.0, "gemm": 0.0,
+             "reduction": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = (e.self_cuda_time_total if t is None else t) / 1e3
+        k = e.key.lower()
+        if "conv3x3_kernel" in k:
+            kinds["conv3x3"] += t
+        elif any(s in k for s in ("conv", "cudnn", "xmma", "implicit",
+                                  "dgrad", "wgrad", "fprop")):
+            kinds["cudnn_conv"] += t
+        elif any(s in k for s in ("gemm", "cutlass", "gemv")):
+            kinds["gemm"] += t
+        elif "reduce" in k:
+            kinds["reduction"] += t
+        else:
+            kinds["other"] += t
+    busy = sum(kinds.values())
+    return {k: {"ms": v, "share": v / busy if busy else 0.0}
+            for k, v in kinds.items()}
+
+
+def phase_convnet(dev):
+    """ImageNet ResNet-50 at 224 x 224, 1000 classes, float32, batch 32,
+    Momentum(0.01, 0.9), conv_impl=pallas3x3, built by the CIFAR config's
+    model(); step-1 gradients and running stats against the plain
+    reference, then R50_STEPS steps on one fixed batch through
+    Trainer.train, then two profiled steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.configs import resnet_cifar
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    from paddle_tpu_torch.trainer import BeginIteration, EndIteration, \
+        Trainer
+    t0 = time.monotonic()
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        spec = resnet_cifar.model(variant="imagenet", depth=50, image=224,
+                                  class_dim=1000, batch=R50_BATCH,
+                                  learning_rate=R50_LR)
+        trainer = Trainer(spec["cost"], spec["optimizer"],
+                          spec["feed_list"], device=dev)
+    build_s = time.monotonic() - t0
+    n_ops = len(main_prog.global_block().ops)
+    # one fixed batch, as bench.py's ResNet-50 rung makes it
+    rng = np.random.RandomState(0)
+    imgs = rng.rand(R50_BATCH, 3, 224, 224).astype(np.float32)
+    labels = rng.randint(0, 1000, (R50_BATCH, 1)).astype(np.int64)
+    batch = list(zip(imgs, labels))
+
+    def fixed(n):
+        return lambda: (batch for _ in range(n))
+
+    with scope_guard(Scope()):
+        t0 = time.monotonic()
+        trainer._maybe_init()
+        torch.cuda.synchronize()
+        startup_s = time.monotonic() - t0
+        n_params = sum(global_scope().find_var(v.name).numel()
+                       for v in main_prog.all_parameters() if v.trainable)
+        checks = _convnet_grad_check(trainer, spec, trainer.feeder.feed(
+            batch))
+        torch.cuda.empty_cache()
+        losses, step_s, marks = [], [], {}
+
+        def handler(e):
+            if isinstance(e, BeginIteration):
+                marks["t"] = time.monotonic()
+            elif isinstance(e, EndIteration):
+                step_s.append(time.monotonic() - marks["t"])
+                losses.append(e.cost)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        trainer.train(fixed(R50_STEPS), num_passes=1, event_handler=handler)
+        wall = time.monotonic() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps = len(losses)
+        want = dict(_no_launches(), conv3x3_fwd=16 * steps,
+                    conv3x3_dx=16 * steps)
+        log(json.dumps({"convnet_losses": losses, "launches": launches}))
+        if steps != R50_STEPS or launches != want:
+            fail("convnet launch counts %s over %d steps, expected %s"
+                 % (launches, steps, want))
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            fail("ResNet-50 loss did not fall on the fixed batch: %s"
+                 % losses)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.monotonic()
+            trainer.train(fixed(2), num_passes=1)
+            torch.cuda.synchronize()
+            prof_wall = time.monotonic() - t1
+        profile_window = _device_kernels(prof, prof_wall)
+        profile_window["steps"] = 2
+        profile_window["by_kind"] = _conv_share(prof)
+    p50 = float(np.median(step_s))
+    log(json.dumps({"convnet": {
+        "config": {"model": "resnet_imagenet", "depth": 50, "image": 224,
+                   "class_dim": 1000, "dtype": "float32",
+                   "batch": R50_BATCH, "optimizer": "momentum(0.9)",
+                   "learning_rate": R50_LR, "conv_impl": "pallas3x3",
+                   "data": "one fixed batch, RandomState(0) rand/randint"},
+        "params": n_params, "program_ops": n_ops, "build_s": build_s,
+        "startup_s": startup_s, "grad_check": checks, "losses": losses,
+        "step_ms": [t * 1e3 for t in step_s], "step_ms_p50": p50 * 1e3,
+        "resnet50_train_images_per_sec": R50_BATCH / p50, "wall_s": wall,
+        "peak_memory_bytes": peak, "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "profile": profile_window}}))
+    log("resnet50_train_images_per_sec %.3f (batch %d, step p50 %.3f ms)"
+        % (R50_BATCH / p50, R50_BATCH, p50 * 1e3))
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
 
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
@@ -871,24 +1334,37 @@ def main():
                         torch.backends.cuda.matmul.allow_tf32,
                     "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}))
     card = card_line()
+    log(card)
     t_start = time.monotonic()
-    phase_build()
-    kernels = phase_kernels(dev)
+
+    def timed(num, fn, *a):
+        t0 = time.monotonic()
+        out = fn(*a)
+        log(json.dumps({"phase": num,
+                        "seconds": round(time.monotonic() - t0, 3)}))
+        return out
+
     root = os.path.dirname(os.path.abspath(__file__))
     art_dir = os.path.join(root, "build", "chip_smoke", "gpt2_small_seed0")
-    prompts, results, serve_launches = phase_engine(dev, art_dir)
-    phase_http(dev, art_dir, prompts, results)
-    train_launches = phase_train(
-        dev, os.path.join(root, "build", "chip_smoke", "gpt2_small_trained"))
+    timed(1, phase_build)
+    kernels = timed(2, phase_kernels, dev)
+    prompts, results, serve_launches = timed(3, phase_engine, dev, art_dir)
+    timed(4, phase_http, dev, art_dir, prompts, results)
+    train_launches = timed(5, phase_train, dev, os.path.join(
+        root, "build", "chip_smoke", "gpt2_small_trained"))
+    conv_kernels, convnet_launches = timed(
+        6, lambda: (_conv3x3_kernel_check(dev), phase_convnet(dev)))
+    kernels.update(conv_kernels)
+    log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
+    paths = {"serve": serve_launches, "train": train_launches,
+             "convnet_train": convnet_launches}
     for name, entry in kernels.items():
         # each main path is read with the counts set to 0 just before it
-        entry["launches_by_path"] = {"serve": serve_launches[name],
-                                     "train": train_launches[name]}
-        entry["launches"] = serve_launches[name] + train_launches[name]
+        entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
         if entry["launches"] == 0:
             fail("kernel %s was launched on no main path" % name)
         entry["kernel_ms"] = entry["ms"]
-    log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
     log(card)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 NVIDIA H100.
 
 The JAX package ``paddle_tpu`` stays the reference; this package imports
-neither it nor JAX. Module names mirror the JAX package's. Two slices
-are ported, the serving and the training path, over shared kernels:
+neither it nor JAX. Module names mirror the JAX package's. Three slices
+are ported, the serving path and two training paths, over shared
+kernels:
 
 - the generative serving path: ``models/transformer.py``'s serving face,
   ``serving/`` (paged KV pool, continuous-batching engine, service and
@@ -12,11 +13,13 @@ are ported, the serving and the training path, over shared kernels:
 - the Fluid training path: ``core/`` (Program IR, registry, scope, the
   per-op ``Executor``, ``append_backward``), ``layers/``, ``ops/`` (the
   lowerings of the transformer LM's training step), ``optimizer.py``
-  (SGD, Adam), ``reader/``, ``data_feeder.py``, ``trainer.py`` and the
-  ``transformer_lm`` Program builder;
+  (SGD, Momentum, Adam), ``reader/``, ``data_feeder.py``,
+  ``trainer.py`` and the ``transformer_lm`` Program builder;
+- the conv-net training path: the conv2d, pool2d, batch_norm, softmax,
+  cross_entropy and metric ops and ``models/resnet.py``;
 - ``kernels/``: hand-written CUDA kernels (paged-attention decode,
-  flash-attention forward and backward), each beside its plain PyTorch
-  version;
+  flash-attention forward and backward, the 3x3 / s1 / p1 convolution),
+  each beside its plain PyTorch version;
 - ``cli.py``: ``python -m paddle_tpu_torch train <config.py>`` and
   ``serve <artifact_dir>``.
 

@@ -1,5 +1,5 @@
-"""The knobs of the port (the ``serve_*`` part of ``paddle_tpu/flags.py``
-and its ``log_period``, same names and defaults).
+"""The knobs of the port (the ``serve_*`` part of ``paddle_tpu/flags.py``,
+its ``log_period`` and its ``conv_impl``, same names and defaults).
 
 Read as attributes of :data:`FLAGS`. A value can be overridden per
 process with the environment variable ``PADDLE_TPU_FLAG_<NAME>`` (read
@@ -42,6 +42,12 @@ _DEFS = {
         True, _parse_bool, "sample the next token on the device inside "
         "the step (only [R] tokens and logprobs reach the host); false "
         "samples on the host from the [R, V] logits"),
+    "conv_impl": (
+        "conv", str, "dense conv2d lowering: 'conv' (torch's conv2d) or "
+        "'pallas3x3' (the hand-written 3x3 / s1 / p1 kernel for that "
+        "population, torch's conv2d for the rest); PADDLE_TPU_CONV_IMPL "
+        "overrides it, and a conv2d op's own 'conv_impl' attr takes "
+        "precedence over it. 'matmul' (shifted matmuls) is not ported"),
     "log_period": (
         100, int, "Trainer.train prints a progress line every this many "
         "batches (0: never)"),

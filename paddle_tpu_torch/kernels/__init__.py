@@ -8,7 +8,7 @@ that its main path went through the kernels.
 """
 from __future__ import annotations
 
-from . import flash_attention, paged_attention
+from . import conv3x3, flash_attention, paged_attention
 
 __all__ = ["KERNEL_COUNTERS", "launch_counts", "reset_launches"]
 
@@ -18,6 +18,9 @@ KERNEL_COUNTERS = {
     "flash_attention_bwd_dkv": (flash_attention, "launches_bwd_dkv"),
     "flash_attention_bwd_dq": (flash_attention, "launches_bwd_dq"),
     "paged_attention": (paged_attention, "launches"),
+    # one kernel in two roles: the conv's forward and its backward's dx
+    "conv3x3_fwd": (conv3x3, "launches"),
+    "conv3x3_dx": (conv3x3, "launches_dx"),
 }
 
 

@@ -1,17 +1,24 @@
-"""NN layers of the transformer LM and its loss (the matching part of
-``paddle_tpu/layers/nn.py``): each appends ops to the current block.
+"""NN layers of the transformer LM, of ResNet and their losses and
+metrics (the matching part of ``paddle_tpu/layers/nn.py``): each appends
+ops to the current block.
 Names are generated in the JAX package's order, so a program built in
 both packages under ``unique_name.guard()`` has the same variables."""
 from __future__ import annotations
 
 import numpy as np
 
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..param_attr import ParamAttr
 from .layer_helper import LayerHelper
 
-__all__ = ["elementwise_add", "embedding", "fc", "layer_norm", "mean",
-           "relu", "reshape", "scale", "softmax_with_cross_entropy"]
+__all__ = ["accuracy", "batch_norm", "conv2d", "cross_entropy",
+           "elementwise_add", "embedding", "fc", "layer_norm", "mean",
+           "pool2d", "relu", "reshape", "scale", "softmax",
+           "softmax_with_cross_entropy", "topk"]
+
+
+def _pair(v):
+    return [v, v] if isinstance(v, int) else v
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -63,6 +70,94 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return tmp
 
 
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    """A ``conv2d`` op, NCHW input and OIHW filter initialized
+    ``Normal(0, sqrt(2 / fan_in))``, then bias and act."""
+    helper = LayerHelper("conv2d", **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    filter_size, stride, padding, dilation = (
+        _pair(v) for v in (filter_size, stride, padding, dilation))
+    filter_shape = [num_filters, input.shape[1] // groups] + list(filter_size)
+    fan_in = filter_shape[1] * filter_shape[2] * filter_shape[3]
+    w = helper.create_parameter(
+        helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, (2.0 / fan_in) ** 0.5))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="conv2d",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [pre_bias]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": groups,
+                            "use_cudnn": use_cudnn})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True):
+    helper = LayerHelper("pool2d", **locals())
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    helper.append_op(type="pool2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type,
+                            "ksize": _pair(pool_size),
+                            "strides": _pair(pool_stride),
+                            "paddings": _pair(pool_padding),
+                            "global_pooling": global_pooling,
+                            "ceil_mode": ceil_mode,
+                            "exclusive": exclusive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None):
+    """A ``batch_norm`` op. The running Mean and Variance are persistable
+    parameters that the op reads and writes (MeanOut/VarianceOut), so
+    they update in the program."""
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = helper.input_dtype()
+    channels = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    param_shape = [channels]
+    scale = helper.create_parameter(
+        helper.param_attr, shape=param_shape, dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(
+        helper.bias_attr if helper.bias_attr else ParamAttr(),
+        shape=param_shape, dtype=dtype, is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, trainable=False),
+        shape=param_shape, dtype=dtype,
+        default_initializer=ConstantInitializer(0.0))
+    variance = helper.create_parameter(
+        ParamAttr(name=moving_variance_name, trainable=False),
+        shape=param_shape, dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = input if in_place else \
+        helper.create_variable_for_type_inference(dtype)
+    out.shape = input.shape
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout})
+    return helper.append_activation(out)
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                name=None):
@@ -88,6 +183,54 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                      attrs={"epsilon": epsilon,
                             "begin_norm_axis": begin_norm_axis})
     return helper.append_activation(out)
+
+
+def softmax(input, use_cudnn=True, name=None):
+    helper = LayerHelper("softmax", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False):
+    """Per-row cross entropy [N, 1] of probabilities ``input``."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]}, attrs={"soft_label": soft_label})
+    return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Top-k accuracy: a ``top_k`` op and an ``accuracy`` op."""
+    helper = LayerHelper("accuracy")
+    topk_out, topk_indices = topk(input, k=k)
+    acc_out = helper.create_variable_for_type_inference("float32")
+    if correct is None:
+        correct = helper.create_variable_for_type_inference("int32")
+    if total is None:
+        total = helper.create_variable_for_type_inference("int32")
+    helper.append_op(type="accuracy",
+                     inputs={"Out": [topk_out], "Indices": [topk_indices],
+                             "Label": [label]},
+                     outputs={"Accuracy": [acc_out], "Correct": [correct],
+                              "Total": [total]})
+    return acc_out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", **locals())
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    values.stop_gradient = True
+    indices.stop_gradient = True
+    return values, indices
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False):

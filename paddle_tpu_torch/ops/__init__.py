@@ -1,6 +1,6 @@
 """Importing this package registers every op lowering of the port
-(counterpart of ``paddle_tpu/ops/__init__.py``). This slice holds the
-ops of the transformer LM's training step."""
+(counterpart of ``paddle_tpu/ops/__init__.py``). The ported slices hold
+the ops of the transformer LM's and of ResNet's training steps."""
 from . import (  # noqa: F401
     common,
     generic_grad,
@@ -8,6 +8,7 @@ from . import (  # noqa: F401
     math_ops,
     nn_ops,
     loss_ops,
+    metric_ops,
     optimizer_ops,
     attention_ops,
     explicit_grads,  # last: attaches grad makers to the ops above

@@ -1,5 +1,5 @@
-"""The loss of the transformer LM (counterpart of
-``paddle_tpu/ops/loss_ops.py``: ``softmax_with_cross_entropy`` :49)."""
+"""Losses (counterparts in ``paddle_tpu/ops/loss_ops.py``:
+``cross_entropy`` :28, ``softmax_with_cross_entropy`` :49)."""
 from __future__ import annotations
 
 import torch
@@ -20,6 +20,21 @@ def _infer_loss_rowwise(op, block):
             if ov is not None and xv is not None and xv.shape is not None:
                 ov.shape = (xv.shape[0], 1)
                 ov.dtype = xv.dtype
+
+
+@register_op("cross_entropy", infer_shape=_infer_loss_rowwise)
+def cross_entropy(ctx):
+    """X holds probabilities (after a softmax); hard labels [N, 1] int or
+    soft labels [N, D]. The log is taken in float32 of X clipped to
+    [1e-15, 1]; Y [N, 1] is in X's dtype."""
+    x = ctx.input("X")
+    label = ctx.input("Label")
+    logx = torch.log(torch.clamp(x.float(), 1e-15, 1.0))
+    if ctx.attr("soft_label", False):
+        loss = -torch.sum(label.float() * logx, dim=-1, keepdim=True)
+    else:
+        loss = -torch.gather(logx, 1, label.long().reshape(-1, 1))
+    ctx.set_output("Y", loss.to(x.dtype))
 
 
 @register_op("softmax_with_cross_entropy", infer_shape=_infer_loss_rowwise)

@@ -1,6 +1,6 @@
 """Math ops (counterparts in ``paddle_tpu/ops/math_ops.py``: ``mul`` :61,
 ``elementwise_add`` :132, ``sum`` :154, ``scale`` :176, ``cumsum`` :201,
-``mean`` :279).
+``mean`` :279, ``top_k`` :325).
 
 ``mul`` is a ``torch.matmul`` of the flattened operands. The JAX
 package's default is ``jnp.matmul`` too: its Pallas matmul runs only for
@@ -100,3 +100,12 @@ def _infer_mean(op, block):
 @register_op("mean", infer_shape=_infer_mean)
 def mean(ctx):
     ctx.set_output("Out", torch.mean(ctx.input("X")).reshape((1,)))
+
+
+@register_op("top_k", no_gradient=True)
+def top_k(ctx):
+    """The ``k`` largest values of the last axis and their int64
+    indices, largest first."""
+    vals, idx = torch.topk(ctx.input("X"), ctx.attr("k", 1), dim=-1)
+    ctx.set_output("Out", vals)
+    ctx.set_output("Indices", idx)

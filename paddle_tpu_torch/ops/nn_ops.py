@@ -1,12 +1,32 @@
-"""NN ops of the transformer LM (counterparts in
-``paddle_tpu/ops/nn_ops.py``: ``relu`` :48/67, ``layer_norm`` :774)."""
+"""NN ops (counterparts in ``paddle_tpu/ops/nn_ops.py``: ``relu``
+:48/67, ``softmax`` :147, ``conv2d`` :387 with ``conv2d_apply`` :345,
+``pool2d`` :614 with ``pool2d_apply`` :584, ``batch_norm`` :697 with
+``_bn_grad_maker`` :744, ``layer_norm`` :774).
+
+Convolutions are NCHW with OIHW filters. Under ``conv_impl=pallas3x3``
+the 3x3 / s1 / p1 population goes to the hand-written kernel
+(``kernels/conv3x3.py``) through NHWC/HWIO transposes, as the JAX op
+does; every other conv is ``torch.nn.functional.conv2d``, as the JAX
+package computes it with ``lax.conv`` outside any Pallas kernel. The
+JAX dispatch's tune-cache consult is not ported (the port has no
+``tune/``): ``pallas3x3`` always runs the kernel on its population, as a
+cache miss does in the JAX package.
+"""
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import register_op
+from ..flags import FLAGS
+from ..kernels import conv3x3
 
-__all__ = []
+__all__ = ["conv2d_apply", "conv_impl", "pool2d_apply", "uses_conv3x3_kernel"]
+
+_NOT_PORTED = ("is not ported to paddle_tpu_torch (ROADMAP.md, Queue 1: "
+               "the rest of the training path)")
 
 
 def _infer_same(op, block):
@@ -47,3 +67,219 @@ def layer_norm(ctx):
     ctx.set_output("Y", y)
     ctx.set_output("Mean", mean.reshape(-1))
     ctx.set_output("Variance", var.reshape(-1))
+
+
+@register_op("softmax", infer_shape=_infer_same)
+def softmax(ctx):
+    ctx.set_output("Out", torch.softmax(ctx.input("X"), dim=-1))
+
+
+# -- conv / pool --------------------------------------------------------------
+
+def _conv_out_dim(i, k, p, s, d=1):
+    ke = (k - 1) * d + 1
+    return (i + 2 * p - ke) // s + 1
+
+
+def _infer_conv2d(op, block):
+    xv = block._find_var_recursive(op.input("Input")[0])
+    fv = block._find_var_recursive(op.input("Filter")[0])
+    ov = block._find_var_recursive(op.output("Output")[0])
+    if None in (xv, fv, ov) or xv.shape is None or fv.shape is None:
+        return
+    s = op.attr("strides", [1, 1])
+    p = op.attr("paddings", [0, 0])
+    d = op.attr("dilations", [1, 1])
+    n, _, h, w = xv.shape
+    oc, _, kh, kw = fv.shape
+    ov.shape = (n, oc, _conv_out_dim(h, kh, p[0], s[0], d[0]),
+                _conv_out_dim(w, kw, p[1], s[1], d[1]))
+    ov.dtype = xv.dtype
+
+
+def conv_impl(program_choice=None):
+    """The dense-conv lowering, 'conv' (default) or 'pallas3x3':
+    ``PADDLE_TPU_CONV_IMPL``, else the op's ``conv_impl`` attr (set by a
+    config that opts its program in), else ``FLAGS.conv_impl``."""
+    impl = (os.environ.get("PADDLE_TPU_CONV_IMPL") or program_choice
+            or FLAGS.conv_impl)
+    if impl == "matmul":
+        raise NotImplementedError("conv_impl='matmul' " + _NOT_PORTED)
+    return impl
+
+
+def uses_conv3x3_kernel(w_shape, s, p, d, groups, program_choice=None):
+    """True when this conv goes to the conv3x3 kernel: ``pallas3x3`` and
+    a 3x3 / s1 / p1 / ungrouped / undilated filter. Raises for the JAX
+    package's other conv knobs (``PADDLE_TPU_CONV_LAYOUT=nhwc``,
+    ``PADDLE_TPU_CONV_S2D``), which the port does not have."""
+    layout = os.environ.get("PADDLE_TPU_CONV_LAYOUT", "nchw")
+    if layout != "nchw":
+        raise NotImplementedError("conv_layout=%r %s" % (layout, _NOT_PORTED))
+    if os.environ.get("PADDLE_TPU_CONV_S2D", "0") not in ("0", "false",
+                                                          "False", ""):
+        raise NotImplementedError("conv_first_s2d " + _NOT_PORTED)
+    return (conv_impl(program_choice) == "pallas3x3"
+            and conv3x3.supports_conv3x3(w_shape, s, p, d, groups))
+
+
+def conv2d_apply(x, w, s, p, d, groups, program_choice=None):
+    """conv2d forward, ``x`` NCHW and ``w`` OIHW: the conv3x3 kernel for
+    its population under ``pallas3x3``, else torch's conv2d."""
+    if uses_conv3x3_kernel(w.shape, s, p, d, groups, program_choice):
+        out = conv3x3.conv3x3_s1_nhwc(x.permute(0, 2, 3, 1).contiguous(),
+                                      w.permute(2, 3, 1, 0).contiguous())
+        return out.permute(0, 3, 1, 2).contiguous()
+    return F.conv2d(x, w, None, tuple(s), tuple(p), tuple(d), groups)
+
+
+@register_op("conv2d", infer_shape=_infer_conv2d)
+def conv2d(ctx):
+    """NCHW input, OIHW filter; AMP is not ported, so float32 runs as
+    float32 throughout."""
+    ctx.set_output("Output", conv2d_apply(
+        ctx.input("Input"), ctx.input("Filter"), ctx.attr("strides", [1, 1]),
+        ctx.attr("paddings", [0, 0]), ctx.attr("dilations", [1, 1]),
+        ctx.attr("groups", 1) or 1, ctx.attr("conv_impl")))
+
+
+def _infer_pool2d(op, block):
+    xv = block._find_var_recursive(op.input("X")[0])
+    ov = block._find_var_recursive(op.output("Out")[0])
+    if None in (xv, ov) or xv.shape is None:
+        return
+    if op.attr("global_pooling", False):
+        ov.shape = (xv.shape[0], xv.shape[1], 1, 1)
+        ov.dtype = xv.dtype
+        return
+    k = op.attr("ksize")
+    s = op.attr("strides", [1, 1])
+    p = op.attr("paddings", [0, 0])
+    ceil = op.attr("ceil_mode", False)
+
+    def od(i, kk, pp, ss):
+        num = i + 2 * pp - kk
+        return (num + ss - 1) // ss + 1 if ceil else num // ss + 1
+
+    n, c, h, w = xv.shape
+    ov.shape = (n, c, od(h, k[0], p[0], s[0]), od(w, k[1], p[1], s[1]))
+    ov.dtype = xv.dtype
+
+
+def pool2d_apply(x, ptype, k, s, p, ceil, exclusive):
+    """pool2d forward over NCHW ``x``, shared by the lowering and the
+    replay of ``pool2d_grad``. The input is padded explicitly (with -inf
+    for max, zeros for avg; ``ceil_mode`` adds the right/bottom padding
+    that covers the partial trailing window), then pooled without
+    padding: the JAX package's ``reduce_window`` semantics. An exclusive
+    average divides by the count of real pixels in each window."""
+    extra = [0, 0]
+    if ceil:
+        for a, i in ((0, x.shape[2]), (1, x.shape[3])):
+            num = i + 2 * p[a] - k[a]
+            out_d = (num + s[a] - 1) // s[a] + 1
+            extra[a] = max((out_d - 1) * s[a] + k[a] - (i + 2 * p[a]), 0)
+    pads = (p[1], p[1] + extra[1], p[0], p[0] + extra[0])
+    if ptype == "max":
+        xp = F.pad(x, pads, value=float("-inf")) if any(pads) else x
+        return F.max_pool2d(xp, tuple(k), tuple(s))
+    xp = F.pad(x, pads) if any(pads) else x
+    summed = F.avg_pool2d(xp, tuple(k), tuple(s), divisor_override=1)
+    if exclusive and any(pads):
+        ones = F.pad(torch.ones_like(x[:1, :1]), pads)
+        return summed / F.avg_pool2d(ones, tuple(k), tuple(s),
+                                     divisor_override=1)
+    return summed / float(k[0] * k[1])
+
+
+@register_op("pool2d", infer_shape=_infer_pool2d)
+def pool2d(ctx):
+    x = ctx.input("X")
+    ptype = ctx.attr("pooling_type", "max")
+    if ctx.attr("global_pooling", False):
+        red = torch.amax if ptype == "max" else torch.mean
+        ctx.set_output("Out", red(x, dim=(2, 3), keepdim=True))
+        return
+    ctx.set_output("Out", pool2d_apply(
+        x, ptype, ctx.attr("ksize"), ctx.attr("strides", [1, 1]),
+        ctx.attr("paddings", [0, 0]), bool(ctx.attr("ceil_mode", False)),
+        ctx.attr("exclusive", True)))
+
+
+# -- normalization ------------------------------------------------------------
+
+def bn_axes(x, layout):
+    """(reduction axes, channel-broadcast shape) of batch norm over ``x``."""
+    nchw = x.ndim == 4 and layout == "NCHW"
+    axes = (0, 2, 3) if nchw else (0, 1, 2) if x.ndim == 4 else (0,)
+    cshape = [1] * x.ndim
+    caxis = 1 if nchw else x.ndim - 1
+    cshape[caxis] = x.shape[caxis]
+    return axes, cshape
+
+
+@register_op("batch_norm")
+def batch_norm(ctx):
+    """Batch norm with the running statistics updated in the program:
+    ``MeanOut``/``VarianceOut`` are the persistable ``Mean``/``Variance``
+    vars, so the Executor's write-back carries them across steps. Paddle's
+    convention: ``new = momentum * old + (1 - momentum) * batch``, with the
+    biased batch variance; ``SavedVariance`` holds the inverse std.
+    (``F.batch_norm`` updates running stats with the unbiased variance and
+    the opposite momentum, so it is not used.)"""
+    x = ctx.input("X")
+    scale = ctx.input("Scale")
+    bias = ctx.input("Bias")
+    mean = ctx.input("Mean")
+    var = ctx.input("Variance")
+    eps = ctx.attr("epsilon", 1e-5)
+    momentum = ctx.attr("momentum", 0.9)
+    axes, cshape = bn_axes(x, ctx.attr("data_layout", "NCHW"))
+    if ctx.attr("is_test", False):
+        use_mean, use_var = mean, var
+        saved_mean, saved_var = mean, var
+        new_mean, new_var = mean, var
+    else:
+        bm = torch.mean(x, dim=axes)
+        bv = torch.var(x, dim=axes, unbiased=False)
+        use_mean, use_var = bm, bv
+        saved_mean = bm
+        saved_var = 1.0 / torch.sqrt(bv + eps)
+        new_mean = momentum * mean + (1.0 - momentum) * bm
+        new_var = momentum * var + (1.0 - momentum) * bv
+    inv = 1.0 / torch.sqrt(use_var + eps)
+    y = (x - use_mean.reshape(cshape)) * (inv * scale).reshape(cshape) \
+        + bias.reshape(cshape)
+    ctx.set_output("Y", y)
+    ctx.set_output("MeanOut", new_mean)
+    ctx.set_output("VarianceOut", new_var)
+    ctx.set_output("SavedMean", saved_mean)
+    ctx.set_output("SavedVariance", saved_var)
+
+
+def _bn_grad_maker(op, block, grad_of, no_grad):
+    """The generic replay restricted to (X, Scale, Bias) -> Y, so the
+    running-stat update is never differentiated: what batch_norm's grad
+    maker (``explicit_grads._bn_explicit_grad_maker``) falls back to
+    when the op's saved statistics are not wired."""
+    g = grad_of.get(op.output("Y")[0])
+    if g is None:
+        return None
+    inputs = {"X": list(op.input("X")), "Scale": list(op.input("Scale")),
+              "Bias": list(op.input("Bias")), "Mean": list(op.input("Mean")),
+              "Variance": list(op.input("Variance")),
+              "Y": list(op.output("Y")), "Y@GRAD": [g]}
+    outputs, diff = {}, {}
+    for slot in ("X", "Scale", "Bias"):
+        n = op.input(slot)[0]
+        if n not in no_grad:
+            outputs[slot + "@GRAD"] = [n + "@GRAD"]
+            diff[slot] = [True]
+    if not outputs:
+        return None
+    attrs = dict(op.attrs)
+    attrs["__fwd_type__"] = "batch_norm"
+    attrs["__fwd_input_slots__"] = ["X", "Scale", "Bias", "Mean", "Variance"]
+    attrs["__fwd_output_slots__"] = ["Y"]
+    attrs["__diff_slots__"] = diff
+    return [("generic_grad", inputs, outputs, attrs)]

@@ -1,9 +1,9 @@
 """Optimizers as ops (counterparts in ``paddle_tpu/ops/optimizer_ops.py``:
-``sgd`` :30, ``adam`` :60). Each reads Param, Grad, LearningRate and its
-accumulators and writes ParamOut (the same var as Param), so the
-Executor's write-back carries the update into the scope. The updates
-make new tensors; the dense gradients of this slice need no sparse
-(SelectedRows) branch.
+``sgd`` :30, ``momentum`` :43, ``adam`` :60). Each reads Param, Grad,
+LearningRate and its accumulators and writes ParamOut (the same var as
+Param), so the Executor's write-back carries the update into the scope.
+The updates make new tensors; the dense gradients of the ported slices
+need no sparse (SelectedRows) branch.
 """
 from __future__ import annotations
 
@@ -22,6 +22,24 @@ def _lr(ctx):
 def sgd(ctx):
     ctx.set_output("ParamOut",
                    ctx.input("Param") - _lr(ctx) * ctx.input("Grad"))
+
+
+@register_op("momentum", no_gradient=True,
+             stateful_outputs=("ParamOut", "VelocityOut"))
+def momentum(ctx):
+    """``v = mu * v + g``; ``p -= lr * v``, or with Nesterov
+    ``p -= lr * (g + mu * v)``."""
+    p = ctx.input("Param")
+    g = ctx.input("Grad")
+    mu = ctx.attr("mu")
+    lr = _lr(ctx)
+    v_new = mu * ctx.input("Velocity") + g
+    if ctx.attr("use_nesterov", False):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    ctx.set_output("ParamOut", p_new)
+    ctx.set_output("VelocityOut", v_new)
 
 
 @register_op("adam", no_gradient=True,

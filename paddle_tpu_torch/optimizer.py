@@ -1,6 +1,7 @@
 """Optimizers: ``minimize`` = ``append_backward`` + accumulators +
 optimizer ops (counterpart of ``paddle_tpu/optimizer.py``: the
-``Optimizer`` base, ``SGDOptimizer`` and ``AdamOptimizer`` :175).
+``Optimizer`` base, ``SGDOptimizer``, ``MomentumOptimizer`` :130 and
+``AdamOptimizer`` :175).
 
 Every parameter update is an op of the main program, run by the
 Executor after the backward ops. Gradient clipping and regularization
@@ -16,7 +17,8 @@ from .core.backward import append_backward
 from .initializer import ConstantInitializer
 from .layers.layer_helper import LayerHelper
 
-__all__ = ["Adam", "AdamOptimizer", "Optimizer", "SGD", "SGDOptimizer"]
+__all__ = ["Adam", "AdamOptimizer", "Momentum", "MomentumOptimizer",
+           "Optimizer", "SGD", "SGDOptimizer"]
 
 
 class Optimizer(object):
@@ -125,6 +127,34 @@ class SGDOptimizer(Optimizer):
             outputs={"ParamOut": [param_and_grad[0]]})
 
 
+class MomentumOptimizer(Optimizer):
+    """One ``velocity`` accumulator per parameter and a ``momentum`` op
+    (``v = mu * v + g``, ``p -= lr * v``, or the Nesterov form)."""
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super(MomentumOptimizer, self).__init__(learning_rate, **kwargs)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity = self._get_accumulator("velocity", param_and_grad[0])
+        return block.append_op(
+            type="momentum",
+            inputs={"Param": [param_and_grad[0]], "Grad": [param_and_grad[1]],
+                    "Velocity": [velocity],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param_and_grad[0]],
+                     "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum,
+                   "use_nesterov": self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kwargs):
@@ -176,4 +206,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer
