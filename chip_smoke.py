@@ -2,9 +2,11 @@
 """Chip smoke of paddle_tpu_torch on one NVIDIA card (an H100).
 
 Drives the port's generative serving path and its Fluid training path
-at the widths of GPT-2 small, and its conv-net training path on
-ImageNet ResNet-50, and holds each hand-written CUDA kernel against its
-plain PyTorch version. Run from the root of a checkout:
+at the widths of GPT-2 small, its conv-net training path on ImageNet
+ResNet-50 and its sequence training path on the stacked-RNN text
+classifier of ``benchmark/rnn_bench.py``, and holds each hand-written
+CUDA kernel against its plain PyTorch version. Run from the root of a
+checkout:
 
     python3 chip_smoke.py
 
@@ -47,7 +49,21 @@ Phases, in order; any failure exits non-zero at once:
    must miss the tolerance), train 8 steps on one fixed batch of 32
    through ``Trainer.train`` (the loss must fall; exactly 16 forward and
    16 dx launches a step), report ``resnet50_train_images_per_sec`` and
-   profile two more steps.
+   profile two more steps;
+7. rnn: hold the fused LSTM and GRU recurrence kernels against their
+   plain versions at T 100, N 64, D 512 (ragged lengths from a seeded
+   RandomState, and full ones) and at T 7, N 3, D 128 (a TF32 recurrence
+   must miss the tolerance), with kernel, plain and (LSTM) cuDNN times,
+   registers, shared memory and blocks; then train
+   ``configs/text_rnn.model`` at rnn_bench's widths (vocab 30000, hidden
+   512, 100 words, batch 64, 2 layers the second reversed, Adam 0.002,
+   float32, no peepholes, ``lstm_impl=pallas``) twice, with LSTM and
+   with GRU cells: step 1's gradients of every parameter against
+   ``torch.autograd`` through a plain forward (the plain recurrence), 8
+   steps on one fixed batch through ``Trainer.train`` (the loss must
+   fall; exactly 2 launches of the cell's kernel per layer a step, the
+   forward and its replay in the generic grad, and no other kernel),
+   tokens/s and two profiled steps.
 
 Each phase prints its wall time.
 
@@ -153,6 +169,35 @@ ZERO_GRAD_FRAC = 1e-5
 # stat's norm (the running means of convs fed by a residual sum are zero
 # but for noise: their input has zero mean, again for want of the relu)
 R50_STAT_REL_TOL = 1e-4
+# The fused recurrences (phase 7) at the slice's shape, T 100 steps of N
+# 64 rows and D 512 units, and an odd one (N and D tails of the launch)
+RNN_SHAPE = (100, 64, 512)
+RNN_ODD_SHAPE = (7, 3, 128)
+# Kernel against plain version, same inputs, both float32: the largest
+# error over the largest magnitude of the plain hs (and cs). Only the
+# order of each step's D-term sums differs (~1e-7 relative), and the
+# state carries it through T steps of a contracting recurrence: 4e-7 on
+# an H100. The plain recurrence with its products in TF32 (10-bit
+# mantissa) errs by ~2e-4 there and is shown to miss this at the slice's
+# shape.
+RNN_REL_TOL = 1e-4
+# the sequence drive: benchmark/rnn_bench.py's widths, one fixed batch,
+# Adam(0.002), 8 steps, once with LSTM cells and once with GRU cells
+RNN_BENCH = dict(vocab=30000, hidden=512, layers=2, seq_len=100, batch=64,
+                 learning_rate=0.002)
+RNN_STEPS = 8
+# Step-1 gradients of every parameter from the Executor (the kernel
+# forward, its replay in the generic grad, the plain backward loop with
+# its batched recompute) against torch.autograd through the plain
+# forward (the time loop): the norm of the difference over the norm of
+# the reference gradient. Sum orders differ through 100 steps of two
+# recurrences, forward and back (~1e-6 relative on an H100); a max-pool
+# argmax that flips on a near tie would move one entry's whole gradient.
+# A reference with its products in TF32 moves them by ~3e-2; it is
+# measured in the same run and must miss this tolerance.
+RNN_GRAD_REL_TOL = 1e-3
+# the profiler range around the recurrences' plain backward loop
+RNN_BWD_RANGE = "rnn_plain_backward_loop"
 
 
 def log(msg):
@@ -541,12 +586,16 @@ def _profile_window(engine, prompts):
     return again, _device_kernels(prof, wall)
 
 
-def _device_kernels(prof, wall):
+def _device_kernels(prof, wall, ranges=()):
     """Device kernel time by name from a profile over ``wall`` seconds:
-    the busy share and the top 12 kernels."""
+    the busy share and the top 12 kernels. ``ranges`` names
+    ``record_function`` ranges, which the profiler mirrors on the device
+    as spans over their kernels; they are left out, or their kernels
+    would count twice."""
     kern = {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.key in ranges:
             continue
         t_us = getattr(e, "self_device_time_total", None)
         if t_us is None:
@@ -1320,6 +1369,436 @@ def phase_convnet(dev):
     return launches
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+def _rnn_inputs(gates, T, N, D, seed, ragged, dev):
+    """Inputs of a fused recurrence: xs at the scale of the model's fc
+    projections, W at 1/sqrt(D), h0/c0 small; lengths from a seeded
+    RandomState in [1, T] when ``ragged``, else all T."""
+    rng = np.random.RandomState(seed)
+    xs = rng.randn(T, N, gates * D).astype(np.float32) * 0.5
+    w = (rng.randn(D, gates * D) / np.sqrt(D)).astype(np.float32)
+    h0 = rng.randn(N, D).astype(np.float32) * 0.2
+    c0 = rng.randn(N, D).astype(np.float32) * 0.2
+    lens = rng.randint(1, T + 1, N) if ragged else np.full(N, T)
+    mask = (np.arange(T)[:, None] < lens[None, :]).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (xs, w, h0, c0, mask)]
+
+
+def _ptxas(name, kernel):
+    """The compiler's register / shared-memory / spill lines of one
+    kernel of ``csrc/<name>.cu``."""
+    from paddle_tpu_torch.kernels import _build
+    lines = (_build.build_log(name) or "").splitlines()
+    out, hit = [], False
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            hit = kernel in ln
+        elif hit and ("registers" in ln or "spill" in ln):
+            out.append(ln.strip())
+    return out
+
+
+def _cudnn_lstm(xs, w, h0, c0):
+    """One cuDNN ``torch.nn.LSTM`` layer computing the fused LSTM on an
+    unmasked batch: input size 4D, an input weight that permutes
+    Paddle's gate slabs (c~, i, f, o) to PyTorch's (i, f, g, o), the
+    recurrent weight in the same order, no biases. Returns a call that
+    runs it on ``xs`` from (h0, c0)."""
+    T, N, D4 = xs.shape
+    D = D4 // 4
+    lstm = torch.nn.LSTM(D4, D, num_layers=1, bias=False).to(xs.device)
+    order = [1, 2, 0, 3]            # PyTorch's i, f, g, o in Paddle's slabs
+    eye = torch.eye(D4, device=xs.device)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(torch.cat([eye[k * D:(k + 1) * D]
+                                           for k in order]))
+        lstm.weight_hh_l0.copy_(torch.cat([w[:, k * D:(k + 1) * D].t()
+                                           for k in order]))
+    lstm.flatten_parameters()
+    state = (h0[None].contiguous(), c0[None].contiguous())
+
+    def call():
+        with torch.no_grad():
+            return lstm(xs, state)[0]
+    return call
+
+
+def _rnn_kernel_check(dev):
+    """Each fused recurrence against its plain version at the slice's
+    shape (T 100, N 64, D 512), ragged and full masks, and at an odd one
+    (T 7, N 3, D 128); a recurrence run with TF32 products must miss the
+    tolerance. Times at the training drive's input (full lengths), with
+    cuDNN's LSTM beside row 7. Returns the two entries of the kernels
+    line."""
+    from paddle_tpu_torch.kernels import fused_gru, fused_lstm
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    out = {}
+    for name, gates, mod in (("fused_lstm", 4, fused_lstm),
+                             ("fused_gru", 3, fused_gru)):
+        def run(args, plain=False):
+            xs, w, h0, c0, mask = args
+            if name == "fused_lstm":
+                f = fused_lstm.fused_lstm_reference if plain \
+                    else fused_lstm.fused_lstm
+                return list(f(xs, w, h0, c0, mask))
+            f = fused_gru.fused_gru_reference if plain \
+                else fused_gru.fused_gru
+            return [f(xs, w, h0, mask)]
+
+        checks = []
+        for seed, (T, N, D) in enumerate((RNN_SHAPE, RNN_ODD_SHAPE)):
+            for ragged in (True, False):
+                args = _rnn_inputs(gates, T, N, D, 40 + seed, ragged, dev)
+                got = run(args)
+                want = run(args, plain=True)
+                torch.backends.cuda.matmul.allow_tf32 = True
+                tf32 = run(args, plain=True)
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.cuda.synchronize()
+                rec = {"shape": [T, N, D], "ragged": ragged,
+                       "lengths_sum": int(args[4].sum()),
+                       "max_rel_err": _rel_err(got, want),
+                       "max_abs_err": max(float((g - w_).abs().max())
+                                          for g, w_ in zip(got, want)),
+                       "tf32_products_max_rel_err": _rel_err(tf32, want),
+                       "launch": mod.launch_plan(N, D)}
+                checks.append(rec)
+                log(json.dumps({name + "_check": rec}))
+                if not rec["max_rel_err"] <= RNN_REL_TOL:
+                    fail("%s disagrees with its plain version at %s: %s > %g"
+                         % (name, rec["shape"], rec["max_rel_err"],
+                            RNN_REL_TOL))
+                # (at the odd shape cuBLAS may keep a 3-row product in
+                # float32 even with TF32 allowed, so only the slice's
+                # shape is held to the contrast)
+                if (T, N, D) == RNN_SHAPE and \
+                        not rec["tf32_products_max_rel_err"] > RNN_REL_TOL:
+                    fail("a TF32 recurrence errs by only %g <= %g: the "
+                         "tolerance cannot tell float32 from TF32"
+                         % (rec["tf32_products_max_rel_err"], RNN_REL_TOL))
+        T, N, D = RNN_SHAPE
+        args = _rnn_inputs(gates, T, N, D, 40, False, dev)
+        xs, w, h0, c0, mask = args
+        # the bound: each input read once, each output written once; the
+        # recurrent products over every step (full lengths, the drive's)
+        nbytes = 4 * (xs.numel() + w.numel() + h0.numel() + mask.numel()
+                      + (c0.numel() if gates == 4 else 0)
+                      + (2 if gates == 4 else 1) * T * N * D)
+        b_ms, b_by = bound(nbytes, 2 * T * N * D * gates * D)
+        launch = mod._launch
+        kargs = args if gates == 4 else (xs, w, h0, mask)
+        # where a step's time goes: the cost of one more step (T 10 -> 100),
+        # and of a batch of 8 rows against 64 (the products shrink 8x, the
+        # barriers and the staging of h do not)
+        scaling = {}
+        for t_, n_ in ((10, N), (T, 8)):
+            xs_, h0_, c0_, m_ = (a.contiguous() for a in (
+                xs[:t_, :n_], h0[:n_], c0[:n_], mask[:t_, :n_]))
+            sargs = (xs_, w, h0_, c0_, m_) if gates == 4 \
+                else (xs_, w, h0_, m_)
+            scaling["T%d_N%d_ms" % (t_, n_)] = time_ms(
+                lambda: launch(*sargs), flush=flush)
+        rec = {
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/%s.cu" % name,
+            "replaces": "paddle_tpu/kernels/%s.py:%d" % (
+                name, 73 if gates == 4 else 63),
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "max_rel_err": max(c["max_rel_err"] for c in checks),
+            "tolerance_rel": RNN_REL_TOL,
+            "tf32_products_min_rel_err": min(
+                c["tf32_products_max_rel_err"] for c in checks
+                if c["shape"] == list(RNN_SHAPE)),
+            "ms": time_ms(lambda: launch(*kargs), flush=flush),
+            "scaling": scaling,
+            "plain_ms": time_ms(lambda: run(args, plain=True), iters=5,
+                                flush=flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "launch": mod.launch_plan(N, D),
+            "ptxas": _ptxas(name, name + "_kernel"),
+            "shape": {"T": T, "N": N, "D": D, "timed_lengths": "all T"},
+            "checks": checks}
+        if gates == 4:
+            lib = _cudnn_lstm(xs, w, h0, c0)
+            rec["library_max_abs_err"] = float(
+                (lib() - run(args)[0]).abs().max())
+            rec["library_ms"] = time_ms(lib, flush=flush)
+            rec["library"] = ("cuDNN torch.nn.LSTM, one layer, input 4D with "
+                              "a gate-permuting identity input weight (one "
+                              "extra [T*N, 4D] x [4D, 4D] GEMM), no biases, "
+                              "unmasked")
+        else:
+            rec["library_ms"] = None
+            rec["library"] = ("none, a different function: PyTorch's GRU "
+                              "applies r after the recurrent product")
+        rec["scaling"]["us_per_step"] = 1e3 * (
+            rec["ms"] - scaling["T10_N%d_ms" % N]) / (T - 10)
+        out[name] = rec
+        del args, xs, w, h0, c0, mask
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def _plain_rnn_loss(program, params, feed, cost):
+    """The loss of ``program``'s forward recomputed with plain torch
+    functions from ``params`` and ``feed``, differentiable through
+    autograd: every sequence of the batch has the same length T (the
+    benchmark's batch), so the ragged rows are a [N, T, ...] grid, and
+    each recurrence is the kernels' plain version over the whole grid."""
+    from paddle_tpu_torch.kernels import fused_gru, fused_lstm
+    words = feed["words"]
+    N = words.lod[0].numel() - 1
+    T = words.max_lens[0]
+    env = {"words": words.data.reshape(-1), "label": feed["label"]}
+    env.update(params)
+    for op in program.global_block().ops:
+        ins = {s: [env.get(n) for n in op.input(s)] for s in op.inputs}
+        x = ins.get("X", ins.get("Input", [None]))[0]
+        if op.type == "lookup_table":
+            out = {"Out": env[op.input("W")[0]][env[op.input("Ids")[0]]]}
+        elif op.type == "mul":
+            out = {"Out": x.reshape(x.shape[0], -1) @ ins["Y"][0]}
+        elif op.type == "elementwise_add":
+            out = {"Out": x + ins["Y"][0]}
+        elif op.type in ("lstm", "gru"):
+            D = ins["Weight"][0].shape[0]
+            xs = (x.reshape(N, T, -1) + ins["Bias"][0].reshape(-1)
+                  [:x.shape[1]]).transpose(0, 1)
+            rev = op.attr("is_reverse")
+            if rev:
+                xs = xs.flip(0)
+            zeros = xs.new_zeros((N, D))
+            ones = xs.new_ones((T, N))
+            if op.type == "lstm":
+                hs, _ = fused_lstm.fused_lstm_reference(
+                    xs, ins["Weight"][0], zeros, zeros, ones)
+            else:
+                hs = fused_gru.fused_gru_reference(xs, ins["Weight"][0],
+                                                   zeros, ones)
+            if rev:
+                hs = hs.flip(0)
+            out = {"Hidden": hs.transpose(0, 1).reshape(N * T, D)}
+        elif op.type == "sequence_pool":
+            out = {"Out": x.reshape(N, T, -1).amax(dim=1)}
+        elif op.type == "softmax":
+            out = {"Out": torch.softmax(x, dim=-1)}
+        elif op.type == "cross_entropy":
+            lab = ins["Label"][0].long().reshape(-1, 1)
+            out = {"Y": -torch.log(torch.clamp(x, 1e-15, 1.0)).gather(1, lab)}
+        elif op.type == "mean":
+            out = {"Out": x.mean().reshape(1)}
+        else:
+            fail("the plain RNN forward has no rule for op %r" % op.type)
+        for slot, value in out.items():
+            env[op.output(slot)[0]] = value
+        if cost in op.output_arg_names:
+            return env[cost]
+    fail("the plain RNN forward never reached the loss %r" % cost)
+
+
+def _rnn_grad_check(trainer, spec, feed):
+    """Step 1 through the Executor (the kernel forward, its replay and
+    the plain backward loop), fetching every parameter's @GRAD, against
+    torch.autograd through the plain forward on the state the step
+    started from; the same reference with TF32 products must miss the
+    tolerance."""
+    from paddle_tpu_torch.core.scope import global_scope
+    scope = global_scope()
+    prog = trainer.main_program
+    cost = spec["cost"].name
+    params = [p.name for p in prog.all_parameters() if p.trainable]
+    start = {n: scope.find_var(n).clone() for n in params}
+    outs = trainer.exe.run(prog, feed=feed,
+                           fetch_list=[cost] + [n + "@GRAD" for n in params],
+                           return_numpy=False)
+    got = dict(zip(params, outs[1:]))
+    stats = {}
+    for label, tf32 in (("float32", False), ("tf32_products", True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        leaves = {n: start[n].detach().clone().requires_grad_(True)
+                  for n in params}
+        loss = _plain_rnn_loss(prog, leaves, feed, cost)
+        want = dict(zip(params, torch.autograd.grad(
+            loss, [leaves[n] for n in params])))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rel = {n: float((got[n] - want[n]).norm() / want[n].norm())
+               for n in params}
+        worst = max(rel, key=rel.get)
+        stats[label] = {"norm_rel_err": rel[worst], "worst_param": worst,
+                        "norm_rel_err_median": float(np.median(
+                            list(rel.values()))),
+                        "loss_abs_err": abs(float(outs[0].reshape(-1)[0])
+                                            - float(loss.detach()))}
+        del leaves, loss, want
+    torch.cuda.synchronize()
+    checks = {"params_checked": len(params),
+              "tolerance_rel": RNN_GRAD_REL_TOL,
+              "loss": float(outs[0].reshape(-1)[0]), **stats}
+    log(json.dumps({"rnn_grad_check": checks}))
+    if not stats["float32"]["norm_rel_err"] <= RNN_GRAD_REL_TOL:
+        fail("step-1 gradient of %s differs from the autograd reference by "
+             "%g (relative norm) > %g"
+             % (stats["float32"]["worst_param"],
+                stats["float32"]["norm_rel_err"], RNN_GRAD_REL_TOL))
+    if not stats["tf32_products"]["norm_rel_err"] > RNN_GRAD_REL_TOL:
+        fail("TF32 products move the gradients by only %g <= %g: the "
+             "tolerance cannot tell float32 from TF32"
+             % (stats["tf32_products"]["norm_rel_err"], RNN_GRAD_REL_TOL))
+    return checks
+
+
+def _rnn_share(prof, kernel):
+    """Device time by kind over a profile: the fused recurrence kernel,
+    GEMMs (the fc projections, the backward's recompute, dh and dW
+    products) and the rest (elementwise gate arithmetic of the backward
+    loop, the pads and scatters, Adam); and, across those kinds, the
+    device time spent inside the plain backward loop (its
+    ``record_function`` range, whose own device-side span is left
+    out)."""
+    kinds = {"rnn_kernel": 0.0, "gemm": 0.0, "other": 0.0}
+    loop_ms = 0.0
+    for e in prof.key_averages():
+        if e.key == RNN_BWD_RANGE:
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                t = getattr(e, "device_time_total", None)
+                loop_ms += (e.cuda_time_total if t is None else t) / 1e3
+            continue
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = (e.self_cuda_time_total if t is None else t) / 1e3
+        k = e.key.lower()
+        if kernel in k:
+            kinds["rnn_kernel"] += t
+        elif any(s in k for s in ("gemm", "cutlass", "gemv")):
+            kinds["gemm"] += t
+        else:
+            kinds["other"] += t
+    busy = sum(kinds.values())
+    out = {k: {"ms": v, "share": v / busy if busy else 0.0}
+           for k, v in kinds.items()}
+    out["plain_backward_loop"] = {"ms": loop_ms,
+                                  "share": loop_ms / busy if busy else 0.0}
+    return out
+
+
+def phase_rnn(dev, cell):
+    """``configs/text_rnn.model`` at ``benchmark/rnn_bench.py``'s widths
+    (vocab 30000, hidden 512, 100 words, batch 64, 2 layers, the second
+    reversed, Adam 0.002, float32) with ``cell``: step-1 gradients
+    against the plain reference, RNN_STEPS steps on one fixed batch
+    through Trainer.train, then two profiled steps."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.configs import text_rnn
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    from paddle_tpu_torch.kernels import fused_gru, fused_lstm
+    from paddle_tpu_torch.trainer import BeginIteration, EndIteration, \
+        Trainer
+    t0 = time.monotonic()
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        spec = text_rnn.model(cell=cell, samples=RNN_BENCH["batch"],
+                              **RNN_BENCH)
+        trainer = Trainer(spec["cost"], spec["optimizer"],
+                          spec["feed_list"], device=dev)
+    build_s = time.monotonic() - t0
+    n_ops = len(main_prog.global_block().ops)
+    # the config's first batch is rnn_bench's: RandomState(0) word ids
+    batch = next(iter(spec["reader"]()))
+
+    def fixed(n):
+        return lambda: (batch for _ in range(n))
+
+    with scope_guard(Scope()):
+        t0 = time.monotonic()
+        trainer._maybe_init()
+        torch.cuda.synchronize()
+        startup_s = time.monotonic() - t0
+        n_params = sum(global_scope().find_var(v.name).numel()
+                       for v in main_prog.all_parameters() if v.trainable)
+        checks = _rnn_grad_check(trainer, spec, trainer.feeder.feed(batch))
+        torch.cuda.empty_cache()
+        losses, step_s, marks = [], [], {}
+
+        def handler(e):
+            if isinstance(e, BeginIteration):
+                marks["t"] = time.monotonic()
+            elif isinstance(e, EndIteration):
+                step_s.append(time.monotonic() - marks["t"])
+                losses.append(e.cost)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        trainer.train(fixed(RNN_STEPS), num_passes=1, event_handler=handler)
+        wall = time.monotonic() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps = len(losses)
+        # per RNN layer a step: the forward, and its replay in the generic
+        # grad, which the plain backward loop then differentiates
+        want = dict(_no_launches(), **{
+            "fused_" + cell: 2 * RNN_BENCH["layers"] * steps})
+        log(json.dumps({"rnn_%s_losses" % cell: losses,
+                        "launches": launches}))
+        if steps != RNN_STEPS or launches != want:
+            fail("rnn %s launch counts %s over %d steps, expected %s"
+                 % (cell, launches, steps, want))
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            fail("the %s text classifier's loss did not fall on the fixed "
+                 "batch: %s" % (cell, losses))
+        mod = fused_lstm if cell == "lstm" else fused_gru
+        bwd_name = "fused_%s_bwd" % cell
+        plain_bwd = getattr(mod, bwd_name)
+
+        def marked_bwd(*a):
+            with record_function(RNN_BWD_RANGE):
+                return plain_bwd(*a)
+
+        setattr(mod, bwd_name, marked_bwd)
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.monotonic()
+                trainer.train(fixed(2), num_passes=1)
+                torch.cuda.synchronize()
+                prof_wall = time.monotonic() - t1
+        finally:
+            setattr(mod, bwd_name, plain_bwd)
+        profile_window = _device_kernels(prof, prof_wall,
+                                         ranges=(RNN_BWD_RANGE,))
+        profile_window["steps"] = 2
+        profile_window["by_kind"] = _rnn_share(prof, "fused_%s_kernel" % cell)
+        profile_window["host_share"] = 1.0 - profile_window[
+            "device_busy_share"]
+    p50 = float(np.median(step_s))
+    tokens = RNN_BENCH["batch"] * RNN_BENCH["seq_len"]
+    log(json.dumps({"rnn_train_" + cell: {
+        "config": dict(RNN_BENCH, cell=cell, dtype="float32",
+                       optimizer="adam", use_peepholes=False,
+                       lstm_impl="pallas",
+                       data="one fixed batch, RandomState(0) randint "
+                            "(benchmark/rnn_bench.py)"),
+        "params": n_params, "program_ops": n_ops, "build_s": build_s,
+        "startup_s": startup_s, "grad_check": checks, "losses": losses,
+        "step_ms": [t * 1e3 for t in step_s], "step_ms_p50": p50 * 1e3,
+        "tokens_per_s": tokens / p50, "wall_s": wall,
+        "peak_memory_bytes": peak, "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "profile": profile_window}}))
+    log("rnn_%s_train_tokens_per_sec %.3f (batch %d x %d words, step p50 "
+        "%.3f ms)" % (cell, tokens / p50, RNN_BENCH["batch"],
+                      RNN_BENCH["seq_len"], p50 * 1e3))
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -1355,9 +1834,15 @@ def main():
     conv_kernels, convnet_launches = timed(
         6, lambda: (_conv3x3_kernel_check(dev), phase_convnet(dev)))
     kernels.update(conv_kernels)
+    rnn_kernels, lstm_launches, gru_launches = timed(
+        7, lambda: (_rnn_kernel_check(dev), phase_rnn(dev, "lstm"),
+                    phase_rnn(dev, "gru")))
+    kernels.update(rnn_kernels)
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
     paths = {"serve": serve_launches, "train": train_launches,
-             "convnet_train": convnet_launches}
+             "convnet_train": convnet_launches,
+             "rnn_train_lstm": lstm_launches,
+             "rnn_train_gru": gru_launches}
     for name, entry in kernels.items():
         # each main path is read with the counts set to 0 just before it
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

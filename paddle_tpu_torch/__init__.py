@@ -2,8 +2,8 @@
 NVIDIA H100.
 
 The JAX package ``paddle_tpu`` stays the reference; this package imports
-neither it nor JAX. Module names mirror the JAX package's. Three slices
-are ported, the serving path and two training paths, over shared
+neither it nor JAX. Module names mirror the JAX package's. Four slices
+are ported, the serving path and three training paths, over shared
 kernels:
 
 - the generative serving path: ``models/transformer.py``'s serving face,
@@ -17,9 +17,13 @@ kernels:
   ``trainer.py`` and the ``transformer_lm`` Program builder;
 - the conv-net training path: the conv2d, pool2d, batch_norm, softmax,
   cross_entropy and metric ops and ``models/resnet.py``;
+- the sequence (LoD) training path: ``core/lod.py``, ragged feeds and
+  the Executor's ``LoDValue``, ``ops/sequence_ops.py`` (sequence_pool,
+  lstm, gru) and ``layers/sequence.py``;
 - ``kernels/``: hand-written CUDA kernels (paged-attention decode,
-  flash-attention forward and backward, the 3x3 / s1 / p1 convolution),
-  each beside its plain PyTorch version;
+  flash-attention forward and backward, the 3x3 / s1 / p1 convolution,
+  the fused LSTM and GRU recurrences), each beside its plain PyTorch
+  version;
 - ``cli.py``: ``python -m paddle_tpu_torch train <config.py>`` and
   ``serve <artifact_dir>``.
 

@@ -9,7 +9,11 @@ gradient that a second consumer contributes is renamed
 (``X@GRAD@RENAME_n``) and merged by a ``sum`` op into ``X@GRAD@ACC_n``;
 a parameter whose final gradient is such an accumulator gets an
 ``assign`` to its canonical ``P@GRAD``. The program structure is the
-JAX package's, name for name.
+JAX package's, name for name. A gradient var takes the ``lod_level``
+of its forward var; at run time a LoD var's gradient is a ``LoDValue``
+with the forward value's offsets, and an output of an op whose
+gradient nobody produced gets no cotangent in the generic grad (zero,
+as in the JAX package), LoD or not.
 
 Not ported yet: the post-pass ``_check_backward_pass``, which needs the
 ``analysis`` package.
@@ -143,13 +147,12 @@ def append_backward(loss: ir.Variable, parameter_list=None, no_grad_set=None,
                         renamed = unique_name.generate(n + "@RENAME")
                         names[j] = renamed
                         fv = block._find_var_recursive(fwd_name)
-                        block.create_var(name=renamed,
-                                         shape=fv.shape if fv else None,
-                                         dtype=fv.dtype if fv else "float32")
+                        like = dict(shape=fv.shape if fv else None,
+                                    dtype=fv.dtype if fv else "float32",
+                                    lod_level=fv.lod_level if fv else 0)
+                        block.create_var(name=renamed, **like)
                         acc = unique_name.generate(n + "@ACC")
-                        block.create_var(name=acc,
-                                         shape=fv.shape if fv else None,
-                                         dtype=fv.dtype if fv else "float32")
+                        block.create_var(name=acc, **like)
                         sums.append(("sum",
                                      {"X": [grad_of[fwd_name], renamed]},
                                      {"Out": [acc]}, {}))

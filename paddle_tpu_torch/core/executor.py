@@ -12,6 +12,13 @@ scope, and the fetches are returned. The run is under
 and only the generic grad op turns autograd on, around the one forward
 op it replays.
 
+A ragged (LoD) feed becomes a :class:`LoDValue`: the data tensor, its
+offset tensors on the device and its per-level maximum sequence
+lengths as host ints, counted once at feed time, so that no lowering
+reads an offset back to the host. Lowerings take ``raw_data`` of their
+inputs and wrap a sequence-preserving output with ``with_lod_of``;
+fetching a LoD value gives back a host ``LoDTensor``.
+
 Not ported yet (later slices): the jit, hybrid, explicit-comm and
 distributed paths, ``repeat``, async fetches, the NaN/Inf scan, the
 memory and sharding preflights and the verifier hook.
@@ -25,12 +32,72 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from . import ir, registry
+from .lod import LoDTensor
 from .scope import global_scope
 
-__all__ = ["RNG_VAR", "Executor", "FunctionalContext", "LowerContext",
-           "trace_ops"]
+__all__ = ["RNG_VAR", "Executor", "FunctionalContext", "LoDValue",
+           "LowerContext", "raw_data", "to_lod_value", "trace_ops",
+           "with_lod_of"]
 
 RNG_VAR = "@RNG_KEY@"
+
+
+class LoDValue(object):
+    """A ragged value on the device (counterpart of ``TracedLoD``,
+    ``paddle_tpu/core/executor.py:40``): ``data`` holds the sequences
+    concatenated along dim 0, ``lod`` one int64 offset tensor per level
+    on the same device, and ``max_lens`` each level's longest sequence
+    as a host int, which is what lets the recurrent ops pad the batch to
+    ``[num_seqs, max_len, ...]`` without a copy back to the host."""
+
+    __slots__ = ("data", "lod", "max_lens")
+
+    def __init__(self, data, lod=(), max_lens=None):
+        self.data = data
+        self.lod = tuple(lod)
+        self.max_lens = (tuple(max_lens) if max_lens is not None
+                         else (None,) * len(self.lod))
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    def __repr__(self):
+        return "LoDValue(shape=%s, levels=%d, max_lens=%s)" % (
+            tuple(self.data.shape), len(self.lod), self.max_lens)
+
+
+def raw_data(v):
+    """The data tensor of a LoD value; any other value as it is."""
+    return v.data if isinstance(v, LoDValue) else v
+
+
+def with_lod_of(v, data):
+    """``data`` with the LoD of ``v`` (a sequence-preserving op's
+    output); plain ``data`` when ``v`` carries none."""
+    if isinstance(v, LoDValue) and v.lod:
+        return LoDValue(data, v.lod, max_lens=v.max_lens)
+    return data
+
+
+def to_lod_value(t, device):
+    """A host ``LoDTensor`` -> a :class:`LoDValue` on ``device`` (a plain
+    tensor when it has no LoD). The offsets become int64, the index
+    type of torch, once here; ``max_lens`` is counted from the host
+    offsets (``paddle_tpu/core/executor.py:383-395``)."""
+    data = torch.as_tensor(np.asarray(t.numpy()), device=device)
+    host_lod = t.lod()
+    if not host_lod:
+        return data
+    lod = tuple(torch.as_tensor(np.asarray(l, dtype=np.int64),
+                                device=device) for l in host_lod)
+    max_lens = tuple(int(max((b - a for a, b in zip(l, l[1:])), default=0))
+                     for l in host_lod)
+    return LoDValue(data, lod, max_lens=max_lens)
 
 
 class LowerContext(object):
@@ -129,11 +196,26 @@ class FunctionalContext(LowerContext):
 
 
 def _to_device_value(v, device):
-    """A fed value (numpy array, python scalar or list, tensor) -> a
-    tensor on ``device``."""
+    """A fed value (numpy array, python scalar or list, tensor,
+    ``LoDTensor``, ``LoDValue``) -> a tensor or LoD value on
+    ``device``."""
+    if isinstance(v, LoDTensor):
+        return to_lod_value(v, device)
+    if isinstance(v, LoDValue):
+        return LoDValue(v.data.to(device), [l.to(device) for l in v.lod],
+                        max_lens=v.max_lens)
     if isinstance(v, torch.Tensor):
         return v.to(device)
     return torch.as_tensor(np.asarray(v), device=device)
+
+
+def _fetch_to_host(v):
+    """A fetched value as numpy, or as a host ``LoDTensor`` when it
+    carries LoD (``paddle_tpu/core/executor.py:566``)."""
+    if isinstance(v, LoDValue):
+        return LoDTensor(v.data.detach().cpu().numpy(),
+                         [l.cpu().tolist() for l in v.lod])
+    return v.detach().cpu().numpy()
 
 
 class Executor(object):
@@ -155,9 +237,10 @@ class Executor(object):
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
         """Run ``program``'s global block. ``feed``: {name: array or
-        tensor}; ``fetch_list``: Variables or names. Returns the fetches
-        as numpy arrays, or as tensors on the device with
-        ``return_numpy=False``."""
+        tensor, or ``LoDTensor`` for a ragged var}; ``fetch_list``:
+        Variables or names. Returns the fetches as numpy arrays (a
+        ``LoDTensor`` for a LoD value), or as they are on the device
+        with ``return_numpy=False``."""
         program = program if program is not None \
             else ir.default_main_program()
         scope = scope if scope is not None else global_scope()
@@ -168,7 +251,7 @@ class Executor(object):
             outs = self._run_eager(program, env, fetch_names, scope)
         self.stats["eager_runs"] += 1
         if return_numpy:
-            outs = [o.detach().cpu().numpy() for o in outs]
+            outs = [_fetch_to_host(o) for o in outs]
             self.stats["fetch_sync_count"] += len(outs)
         return outs
 

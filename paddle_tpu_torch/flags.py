@@ -1,5 +1,6 @@
 """The knobs of the port (the ``serve_*`` part of ``paddle_tpu/flags.py``,
-its ``log_period`` and its ``conv_impl``, same names and defaults).
+its ``log_period``, ``conv_impl`` and ``lstm_impl``, same names and
+defaults).
 
 Read as attributes of :data:`FLAGS`. A value can be overridden per
 process with the environment variable ``PADDLE_TPU_FLAG_<NAME>`` (read
@@ -48,6 +49,13 @@ _DEFS = {
         "population, torch's conv2d for the rest); PADDLE_TPU_CONV_IMPL "
         "overrides it, and a conv2d op's own 'conv_impl' attr takes "
         "precedence over it. 'matmul' (shifted matmuls) is not ported"),
+    "lstm_impl": (
+        "scan", str, "whole-sequence lstm and gru lowering: 'scan' (the "
+        "plain time loop) or 'pallas' (the hand-written fused recurrence "
+        "kernels, for the standard gate set with no peepholes and a "
+        "hidden width that is a multiple of 128; the time loop for the "
+        "rest). An lstm or gru op's own 'lstm_impl' attr takes precedence "
+        "over it"),
     "log_period": (
         100, int, "Trainer.train prints a progress line every this many "
         "batches (0: never)"),

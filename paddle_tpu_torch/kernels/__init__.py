@@ -8,7 +8,7 @@ that its main path went through the kernels.
 """
 from __future__ import annotations
 
-from . import conv3x3, flash_attention, paged_attention
+from . import conv3x3, flash_attention, fused_gru, fused_lstm, paged_attention
 
 __all__ = ["KERNEL_COUNTERS", "launch_counts", "reset_launches"]
 
@@ -21,6 +21,9 @@ KERNEL_COUNTERS = {
     # one kernel in two roles: the conv's forward and its backward's dx
     "conv3x3_fwd": (conv3x3, "launches"),
     "conv3x3_dx": (conv3x3, "launches_dx"),
+    # the whole recurrence of an lstm / gru op, one launch a call
+    "fused_lstm": (fused_lstm, "launches"),
+    "fused_gru": (fused_gru, "launches"),
 }
 
 

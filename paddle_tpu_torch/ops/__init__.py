@@ -1,6 +1,7 @@
 """Importing this package registers every op lowering of the port
 (counterpart of ``paddle_tpu/ops/__init__.py``). The ported slices hold
-the ops of the transformer LM's and of ResNet's training steps."""
+the ops of the transformer LM's, ResNet's and the stacked-RNN text
+classifier's training steps."""
 from . import (  # noqa: F401
     common,
     generic_grad,
@@ -11,6 +12,7 @@ from . import (  # noqa: F401
     metric_ops,
     optimizer_ops,
     attention_ops,
+    sequence_ops,
     explicit_grads,  # last: attaches grad makers to the ops above
 )
 

@@ -2,6 +2,7 @@
 Paddle's elementwise broadcasting and the mul op's 2-D flattening."""
 from __future__ import annotations
 
+from ..core.executor import raw_data, with_lod_of
 from ..core.types import convert_dtype, torch_dtype
 
 __all__ = ["bcast_y_to_x", "elementwise", "flatten_to_2d", "np_dtype",
@@ -39,9 +40,11 @@ def flatten_to_2d(x, num_col_dims):
 
 
 def elementwise(ctx, fn):
-    x = ctx.input("X")
-    y = ctx.input("Y")
-    ctx.set_output("Out", fn(x, bcast_y_to_x(x, y, ctx.attr("axis", -1))))
+    """``fn(X, Y)`` under Paddle's broadcasting; Out keeps X's LoD."""
+    x_v = ctx.input("X")
+    x, y = raw_data(x_v), raw_data(ctx.input("Y"))
+    ctx.set_output("Out", with_lod_of(
+        x_v, fn(x, bcast_y_to_x(x, y, ctx.attr("axis", -1)))))
 
 
 def prod(it):

@@ -15,6 +15,7 @@ import torch
 
 from ..core import registry
 from ..kernels import conv3x3
+from ..core.executor import raw_data, with_lod_of
 from ..core.ir import grad_var_name
 from ..core.registry import register_op
 from ..core.types import is_floating
@@ -94,15 +95,18 @@ _attach("softmax", "softmax_grad", need_outputs=("Out",))
 
 @register_op("mul_grad", no_gradient=True)
 def mul_grad(ctx):
-    """Gemms on the flattened 2-D views: dX = dOut Yᵀ, dY = Xᵀ dOut."""
-    x = ctx.input("X")
-    y = ctx.input("Y")
-    dy = ctx.input("Out@GRAD")
+    """Gemms on the flattened 2-D views: dX = dOut Yᵀ, dY = Xᵀ dOut.
+    dX keeps X's LoD."""
+    x_v = ctx.input("X")
+    x = raw_data(x_v)
+    y = raw_data(ctx.input("Y"))
+    dy = raw_data(ctx.input("Out@GRAD"))
     x2 = flatten_to_2d(x, ctx.attr("x_num_col_dims", 1))
     y2 = flatten_to_2d(y, ctx.attr("y_num_col_dims", 1))
     dy2 = dy.reshape(x2.shape[0], y2.shape[1])
     if ctx.op.output("X@GRAD"):
-        ctx.set_output("X@GRAD", torch.matmul(dy2, y2.t()).reshape(x.shape))
+        ctx.set_output("X@GRAD", with_lod_of(
+            x_v, torch.matmul(dy2, y2.t()).reshape(x.shape)))
     if ctx.op.output("Y@GRAD"):
         ctx.set_output("Y@GRAD", torch.matmul(x2.t(), dy2).reshape(y.shape))
 
@@ -132,11 +136,13 @@ def _unbcast_to(g, shape, axis):
 
 @register_op("elementwise_add_grad", no_gradient=True)
 def elementwise_add_grad(ctx):
-    x = ctx.input("X")
-    y = ctx.input("Y")
-    dy = ctx.input("Out@GRAD")
+    """dX is dOut with X's LoD; dY sums dOut over the broadcast dims."""
+    x_v = ctx.input("X")
+    x = raw_data(x_v)
+    y = raw_data(ctx.input("Y"))
+    dy = raw_data(ctx.input("Out@GRAD"))
     if ctx.op.output("X@GRAD"):
-        ctx.set_output("X@GRAD", dy.to(x.dtype))
+        ctx.set_output("X@GRAD", with_lod_of(x_v, dy.to(x.dtype)))
     if ctx.op.output("Y@GRAD"):
         ctx.set_output("Y@GRAD", _unbcast_to(dy, y.shape,
                                              ctx.attr("axis", -1))
@@ -324,10 +330,11 @@ _attach("softmax_with_cross_entropy", "softmax_with_cross_entropy_grad",
 
 @register_op("mean_grad", no_gradient=True)
 def mean_grad(ctx):
-    x = ctx.input("X")
+    x_v = ctx.input("X")
+    x = raw_data(x_v)
     dy = ctx.input("Out@GRAD")
-    ctx.set_output("X@GRAD", (dy.reshape(()) / x.numel())
-                   .expand(x.shape).to(x.dtype))
+    ctx.set_output("X@GRAD", with_lod_of(x_v, (dy.reshape(()) / x.numel())
+                                         .expand(x.shape).to(x.dtype)))
 
 
 _attach("mean", "mean_grad", need_inputs=("X",))

@@ -8,7 +8,12 @@ want a gradient. It runs the forward lowering again on detached copies
 of those inputs with autograd on, then takes ``torch.autograd.grad`` of
 the replayed outputs against the cotangents. An output whose gradient
 var is unnamed gets no cotangent (a zero one in the JAX package), and an
-input the outputs do not depend on gets zeros. A forward op whose
+input the outputs do not depend on gets zeros. A LoD-valued input
+(``LoDValue``) differentiates through its data tensor, which is the
+primal; its offsets ride along as constants, and its gradient carries
+the input's LoD, as ``paddle_tpu/ops/generic_grad.py:49`` has it. A
+differentiable input that is neither raises instead of coming out as
+zeros. A forward op whose
 lowering calls a kernel wrapper that is a ``torch.autograd.Function``
 (flash attention) reaches that wrapper's backward kernels here.
 """
@@ -17,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..core import registry
-from ..core.executor import FunctionalContext
+from ..core.executor import FunctionalContext, raw_data, with_lod_of
 
 __all__ = []
 
@@ -37,12 +42,20 @@ def generic_grad(ctx):
     for s in in_slots:
         flags = diff_slots.get(s, [False] * len(in_vals[s]))
         for i, v in enumerate(in_vals[s]):
-            if i < len(flags) and flags[i] and isinstance(v, torch.Tensor) \
-                    and v.is_floating_point():
-                p = v.detach().requires_grad_(True)
-                in_vals[s][i] = p
-                prim_index.append((s, i))
-                primals.append(p)
+            if not (i < len(flags) and flags[i]) or v is None:
+                continue
+            data = raw_data(v)
+            if not isinstance(data, torch.Tensor):
+                raise TypeError(
+                    "generic grad of %r: input %s[%d] wants a gradient but "
+                    "holds %s, not a tensor or a LoD value"
+                    % (fwd_type, s, i, type(v).__name__))
+            if not data.is_floating_point():
+                continue
+            p = data.detach().requires_grad_(True)
+            in_vals[s][i] = with_lod_of(v, p)
+            prim_index.append((s, i, v))
+            primals.append(p)
 
     fwd_outputs = {s: list(ctx.op.input(s)) for s in out_slots}
     fctx = FunctionalContext(ctx.op, in_vals, fwd_attrs, ctx.device,
@@ -54,10 +67,10 @@ def generic_grad(ctx):
     for s in out_slots:
         replayed = fctx.collected.get(s, [])
         for i, gn in enumerate(ctx.op.input(s + "@GRAD")):
-            o = replayed[i] if i < len(replayed) else None
+            o = raw_data(replayed[i]) if i < len(replayed) else None
             if not gn or o is None or not o.requires_grad:
                 continue
-            g = ctx.env[gn]
+            g = raw_data(ctx.env[gn])
             outs.append(o)
             cots.append(g.to(o.dtype).reshape(o.shape))
     if outs:
@@ -66,7 +79,8 @@ def generic_grad(ctx):
     else:
         grads = [None] * len(primals)
 
-    for (s, i), p, g in zip(prim_index, primals, grads):
+    for (s, i, v), p, g in zip(prim_index, primals, grads):
         names = ctx.op.output(s + "@GRAD")
         if i < len(names) and names[i]:
-            ctx.env[names[i]] = torch.zeros_like(p) if g is None else g
+            ctx.env[names[i]] = with_lod_of(
+                v, torch.zeros_like(p) if g is None else g)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.executor import raw_data, with_lod_of
 from ..core.registry import register_op
 from .common import elementwise, flatten_to_2d
 
@@ -32,14 +33,16 @@ def _infer_mul(op, block):
 @register_op("mul", infer_shape=_infer_mul)
 def mul(ctx):
     """Flatten X by ``x_num_col_dims`` and Y by ``y_num_col_dims``, one
-    gemm, reshape to X's leading dims + Y's trailing dims."""
-    x = ctx.input("X")
-    y = ctx.input("Y")
+    gemm, reshape to X's leading dims + Y's trailing dims. Out keeps
+    X's LoD (an fc over ragged sequences stays ragged)."""
+    x_v = ctx.input("X")
+    x = raw_data(x_v)
+    y = raw_data(ctx.input("Y"))
     xn = ctx.attr("x_num_col_dims", 1)
     yn = ctx.attr("y_num_col_dims", 1)
     out = torch.matmul(flatten_to_2d(x, xn), flatten_to_2d(y, yn))
-    ctx.set_output("Out", out.reshape(tuple(x.shape[:xn])
-                                      + tuple(y.shape[yn:])))
+    ctx.set_output("Out", with_lod_of(x_v, out.reshape(
+        tuple(x.shape[:xn]) + tuple(y.shape[yn:]))))
 
 
 def _infer_ew(op, block):
@@ -57,12 +60,13 @@ def elementwise_add(ctx):
 
 @register_op("sum", infer_shape=_infer_ew)
 def sum_op(ctx):
-    """Multi-input add, the gradient-accumulation op of backward."""
+    """Multi-input add, the gradient-accumulation op of backward; Out
+    keeps the first input's LoD."""
     xs = ctx.inputs("X")
-    out = xs[0]
+    out = raw_data(xs[0])
     for v in xs[1:]:
-        out = out + v
-    ctx.set_output("Out", out)
+        out = out + raw_data(v)
+    ctx.set_output("Out", with_lod_of(xs[0], out))
 
 
 @register_op("scale", infer_shape=_infer_ew)
@@ -99,7 +103,7 @@ def _infer_mean(op, block):
 
 @register_op("mean", infer_shape=_infer_mean)
 def mean(ctx):
-    ctx.set_output("Out", torch.mean(ctx.input("X")).reshape((1,)))
+    ctx.set_output("Out", torch.mean(raw_data(ctx.input("X"))).reshape((1,)))
 
 
 @register_op("top_k", no_gradient=True)

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import registry
+from ..core.executor import raw_data, with_lod_of
 from ..core.registry import register_op
 from .common import prod, tdt
 
@@ -132,13 +133,15 @@ def reshape(ctx):
 @register_op("lookup_table")
 def lookup_table(ctx):
     """Embedding lookup: rows of W gathered by Ids (a trailing dim of 1 is
-    dropped); rows at ``padding_idx`` read as zeros."""
+    dropped); rows at ``padding_idx`` read as zeros. Ragged Ids give a
+    ragged Out with their LoD."""
     w = ctx.input("W")
-    ids = ctx.input("Ids").long()
+    ids_v = ctx.input("Ids")
+    ids = raw_data(ids_v).long()
     if ids.ndim >= 2 and ids.shape[-1] == 1:
         ids = ids.reshape(ids.shape[:-1])
     out = F.embedding(ids, w)
     padding_idx = ctx.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
-    ctx.set_output("Out", out)
+    ctx.set_output("Out", with_lod_of(ids_v, out))
