@@ -3,10 +3,11 @@
 
 Drives the port's generative serving path and its Fluid training path
 at the widths of GPT-2 small, its conv-net training path on ImageNet
-ResNet-50 and its sequence training path on the stacked-RNN text
-classifier of ``benchmark/rnn_bench.py``, and holds each hand-written
-CUDA kernel against its plain PyTorch version. Run from the root of a
-checkout:
+ResNet-50, its sequence training path on the stacked-RNN text
+classifier of ``benchmark/rnn_bench.py`` and its autotune path (the
+``tune`` verb, the winner cache, the tuned dispatch of ``mul`` and
+``conv2d``), and holds each hand-written CUDA kernel against its plain
+PyTorch version. Run from the root of a checkout:
 
     python3 chip_smoke.py
 
@@ -63,9 +64,28 @@ Phases, in order; any failure exits non-zero at once:
    steps on one fixed batch through ``Trainer.train`` (the loss must
    fall; exactly 2 launches of the cell's kernel per layer a step, the
    forward and its replay in the generic grad, and no other kernel),
-   tokens/s and two profiled steps.
+   tokens/s and two profiled steps;
+8. tune: hold the blocked matmul kernel against its plain version at
+   every compiled tiling, at the LM step's gemm shapes (8192 x 768 x 768,
+   8192 x 768 x 3072, 8192 x 3072 x 768) and a ragged one (a TF32
+   product must miss the tolerance), with every tiling's, the plain
+   version's and ``torch.matmul``'s times; run ``python -m
+   paddle_tpu_torch tune`` on phase 5's config with the wall timer
+   against an empty cache of its own (exit 0) and print its table of the
+   stock rung's and each tiling's times; write a cache whose winner for
+   each gemm population is the race's fastest kernel tiling and train
+   phase 5's 8 Adam steps against it: step-1 gradients against the plain
+   reference, exactly 72 matmul launches and 72 tune hits and 1 fallback
+   a step, the losses within 1e-3 of phase 5's, and two profiled steps;
+   then one ResNet-50 step against a cache that says stock for the first
+   stage's 3x3 population and the kernel for the second's
+   (``conv_impl=conv``): the conv3x3 kernel runs forward and dx for
+   exactly the second stage's 4 convs.
 
-Each phase prints its wall time.
+Each phase prints its wall time. Before phase 1 the tune cache is set
+to a fresh, empty directory under ``build/`` (printed), so that no
+winner left in the home directory reroutes phases 1-7; phase 8 fails
+unless they made no tune hit.
 
 The last lines printed are the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -76,6 +96,7 @@ package beside it, the script exits non-zero and prints no result.
 import argparse
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -123,6 +144,12 @@ BWD_REL_TOL = 2e-5
 # whose attention inputs are rounded to TF32 moves them by 1e-2 and more;
 # it is measured in the same run and must miss this tolerance.
 GRAD_REL_TOL = 5e-3
+# The same check on phase 8's tuned run, whose 72 gemms a step go through
+# the matmul kernel: 1e-3. Both the kernel and the reference are
+# deterministic, so the reading repeats exactly from run to run on one
+# card (8.92e-4 for blk11_ln2_b on the H100); the cuBLAS gemms of phase 5
+# read 1.05e-3 and keep 5e-3 above.
+TUNED_GRAD_REL_TOL = 1e-3
 # the training drive: GPT-2-small widths, 8 sequences of 1024 tokens a
 # step, 2 batches of synthetic next-token data repeated over 4 passes
 TRAIN_BATCH = 8
@@ -198,6 +225,26 @@ RNN_STEPS = 8
 RNN_GRAD_REL_TOL = 1e-3
 # the profiler range around the recurrences' plain backward loop
 RNN_BWD_RANGE = "rnn_plain_backward_loop"
+# The gemms of a GPT-2-small training step (M, K, N) that fall in the
+# matmul kernel's population (q, k, v and the attention output; FFN up;
+# FFN down), how many of each a layer runs, and a ragged shape (edges of
+# every tile, the scalar load path)
+MM_SHAPES = [(8192, 768, 768), (8192, 768, 3072), (8192, 3072, 768)]
+MM_COUNTS = [4, 1, 1]
+MM_RAGGED_SHAPE = (100, 130, 200)
+# matmul kernel against its plain version (the sum of k tiles of
+# torch.matmul), same inputs, both float32: the largest error over the
+# largest magnitude of the plain output. Only sum orders differ over K
+# <= 3072 (~1e-6 relative); a product of inputs rounded to TF32 errs by
+# ~1e-4 and is shown to miss it at every shape.
+MM_REL_TOL = 1e-5
+# losses of the tuned run (matmul kernel) against phase 5's (cuBLAS) at
+# each of the 8 steps: the same start, only gemm sum orders differ
+LOSS_REL_TOL = 1e-3
+# the tune cache of phases 1-7: a fresh, empty directory, so that no
+# winner left in the home directory reroutes them
+TUNE_EMPTY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "build", "chip_smoke", "tune_empty")
 
 
 def log(msg):
@@ -795,7 +842,8 @@ def _tf32_attention(q, k, v):
     return fa.flash_attention_reference(*r, causal=True)[0]
 
 
-def _grad_check(trainer, spec, cfg, feed, up_b):
+def _grad_check(trainer, spec, cfg, feed, up_b, label="train",
+                tol=GRAD_REL_TOL):
     """Step 1 through the Executor, fetching every parameter's @GRAD,
     against torch.autograd through the plain forward on the parameters
     the step started from."""
@@ -812,8 +860,8 @@ def _grad_check(trainer, spec, cfg, feed, up_b):
     ref_name = {b: "blk%d_up_b" % i for i, b in up_b.items()}
     ref_params = {ref_name.get(n, n): t for n, t in start.items()}
     stats = {}
-    for label, attention in (("float32", None), ("tf32_attention",
-                                                 _tf32_attention)):
+    for ref_kind, attention in (("float32", None), ("tf32_attention",
+                                                    _tf32_attention)):
         want, ref_loss = _reference_grads(ref_params, feed, cfg, attention)
         norm_rel, max_rel = {}, {}
         for n in params:
@@ -821,7 +869,7 @@ def _grad_check(trainer, spec, cfg, feed, up_b):
             norm_rel[n] = float(d.norm() / w.norm())
             max_rel[n] = float(d.abs().max() / w.abs().max())
         worst = max(norm_rel, key=norm_rel.get)
-        stats[label] = {
+        stats[ref_kind] = {
             "norm_rel_err": norm_rel[worst], "worst_param": worst,
             "norm_rel_err_median": float(np.median(list(norm_rel.values()))),
             "elementwise_max_rel_err": max(max_rel.values()),
@@ -829,19 +877,19 @@ def _grad_check(trainer, spec, cfg, feed, up_b):
             "loss_abs_err": abs(float(outs[0].reshape(-1)[0]) - ref_loss)}
         del want
     torch.cuda.synchronize()
-    checks = {"params_checked": len(params), "tolerance_rel": GRAD_REL_TOL,
+    checks = {"params_checked": len(params), "tolerance_rel": tol,
               "float32": stats["float32"],
               "tf32_attention": stats["tf32_attention"]}
-    log(json.dumps({"train_grad_check": checks}))
-    if not stats["float32"]["norm_rel_err"] <= GRAD_REL_TOL:
+    log(json.dumps({label + "_grad_check": checks}))
+    if not stats["float32"]["norm_rel_err"] <= tol:
         fail("step-1 gradient of %s differs from the autograd reference "
              "by %g (relative norm) > %g"
              % (stats["float32"]["worst_param"],
-                stats["float32"]["norm_rel_err"], GRAD_REL_TOL))
-    if not stats["tf32_attention"]["norm_rel_err"] > GRAD_REL_TOL:
+                stats["float32"]["norm_rel_err"], tol))
+    if not stats["tf32_attention"]["norm_rel_err"] > tol:
         fail("a TF32 attention moves the gradients by only %g <= "
-             "GRAD_REL_TOL %g: the tolerance cannot tell float32 from TF32"
-             % (stats["tf32_attention"]["norm_rel_err"], GRAD_REL_TOL))
+             "tolerance %g: the tolerance cannot tell float32 from TF32"
+             % (stats["tf32_attention"]["norm_rel_err"], tol))
     return checks
 
 
@@ -878,9 +926,18 @@ def _serve_trained(dev, art_dir, cfg, scope):
             "max_argmax_margin": worst}
 
 
-def phase_train(dev, art_dir):
+def _lm_train(dev, label, after=None, want_matmul=0,
+              grad_tol=GRAD_REL_TOL):
+    """Build ``transformer_lm`` + softmax-CE + Adam at GPT-2-small widths
+    through ``configs/tiny_lm.model``, init it, hold step 1's gradients
+    against the plain reference, train TRAIN_PASSES passes of 2 batches
+    through ``Trainer.train`` with the launch counters zeroed just before
+    (and the tune counters read before and after), and profile two more
+    steps. ``want_matmul`` is the
+    matmul kernel's expected launches a step; ``after(cfg, scope)`` runs
+    inside the trained scope. Returns the record the phase logs."""
     from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import kernels, tune
     from paddle_tpu_torch.configs import tiny_lm
     from paddle_tpu_torch.core import ir, unique_name
     from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
@@ -912,7 +969,7 @@ def phase_train(dev, art_dir):
             for v in main_prog.all_parameters()))
         first = next(iter(spec["reader"]()))
         checks = _grad_check(trainer, spec, cfg, trainer.feeder.feed(first),
-                             _up_biases(main_prog, L))
+                             _up_biases(main_prog, L), label, grad_tol)
         torch.cuda.empty_cache()
 
         losses, step_s, marks = [], [], {}
@@ -926,21 +983,26 @@ def phase_train(dev, art_dir):
 
         torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launches()
+        tune_before = tune.counters()
         t0 = time.monotonic()
         trainer.train(spec["reader"], num_passes=TRAIN_PASSES,
                       event_handler=handler)
         wall = time.monotonic() - t0
         launches = kernels.launch_counts()
+        # Executor.stats mirror the process counters: this run's share
+        tune_stats = {k: trainer.exe.stats[k] - v
+                      for k, v in tune_before.items()}
         peak = torch.cuda.max_memory_allocated(dev)
         steps = len(losses)
         want = dict(_no_launches(), flash_attention_fwd=2 * L * steps,
                     flash_attention_bwd_dkv=L * steps,
-                    flash_attention_bwd_dq=L * steps)
+                    flash_attention_bwd_dq=L * steps,
+                    matmul=want_matmul * steps)
         if steps != 2 * TRAIN_PASSES or launches != want:
-            fail("train launch counts %s over %d steps, expected %s"
-                 % (launches, steps, want))
+            fail("%s launch counts %s over %d steps, expected %s"
+                 % (label, launches, steps, want))
         if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
-            fail("training loss did not fall: %s" % losses)
+            fail("%s loss did not fall: %s" % (label, losses))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t1 = time.monotonic()
@@ -949,22 +1011,53 @@ def phase_train(dev, art_dir):
             prof_wall = time.monotonic() - t1
         profile_window = _device_kernels(prof, prof_wall)
         profile_window["steps"] = 2
-        served = _serve_trained(dev, art_dir, cfg, global_scope())
+        profile_window["matmul_kernel"] = _kernel_share(prof,
+                                                        "matmul_kernel")
+        extra = after(cfg, global_scope()) if after else None
     p50 = float(np.median(step_s))
     tokens = TRAIN_BATCH * cfg.max_seq
-    log(json.dumps({"train": {
+    rec = {
         "config": dict(widths, dtype="float32", batch=TRAIN_BATCH,
                        tokens_per_step=tokens, optimizer="adam",
                        learning_rate=TRAIN_LR, seed=0),
         "params": n_params, "program_ops": n_ops, "build_s": build_s,
         "startup_s": startup_s, "grad_check": checks, "losses": losses,
-        "step_ms": [s * 1e3 for s in step_s], "step_ms_p50": p50 * 1e3,
+        "step_ms": [t * 1e3 for t in step_s], "step_ms_p50": p50 * 1e3,
         "tokens_per_s": tokens / p50, "wall_s": wall,
         "peak_memory_bytes": peak, "launches": launches,
         "launches_per_step": {k: v / steps for k, v in launches.items()},
-        "profile": profile_window, "served": served}}))
+        "tune": tune_stats, "profile": profile_window}
+    if after:
+        rec["served"] = extra
+    del trainer
     torch.cuda.empty_cache()
-    return launches
+    return rec
+
+
+def _kernel_share(prof, name):
+    """Device time of the kernels whose name holds ``name`` over a
+    profile, and their share of all device kernel time."""
+    total = mine = 0.0
+    count = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = (e.self_cuda_time_total if t is None else t) / 1e3
+        total += t
+        if name in e.key:
+            mine += t
+            count += e.count
+    return {"ms": mine, "count": count,
+            "share": mine / total if total else 0.0}
+
+
+def phase_train(dev, art_dir):
+    rec = _lm_train(dev, "train",
+                    after=lambda cfg, scope: _serve_trained(dev, art_dir,
+                                                            cfg, scope))
+    log(json.dumps({"train": rec}))
+    return rec
 
 # -- phase 6 -----------------------------------------------------------------
 
@@ -1799,6 +1892,325 @@ def phase_rnn(dev, cell):
     return launches
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+def _mm_inputs(shape, seed, dev):
+    M, K, N = shape
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(K, N) * 0.1).astype(np.float32)).to(dev)
+    return x, w
+
+
+def _mm_config(tiling):
+    return dict(zip(("block_m", "block_n", "block_k"), tiling))
+
+
+def _matmul_kernel_check(dev):
+    """The matmul kernel against its plain version at every compiled
+    tiling, at the LM step's three gemm shapes and a ragged one, with the
+    kernel (every tiling), plain, library and bound times at the step's
+    shapes. Returns {shape: record}."""
+    from paddle_tpu_torch.kernels import matmul as mm
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    per_shape = {}
+    for i, shape in enumerate(MM_SHAPES + [MM_RAGGED_SHAPE]):
+        M, K, N = shape
+        x, w = _mm_inputs(shape, 30 + i, dev)
+        plain = mm.matmul_reference(x, w)
+        tf32 = torch.matmul(_tf32_round(x), _tf32_round(w))
+        rec = {"max_rel_err": {}, "max_abs_err": 0.0, "ms": {},
+               "tf32_inputs_rel_err": _rel_err([tf32], [plain])}
+        for t in mm.TILINGS:
+            cfg = _mm_config(t)
+            got = mm.matmul(x, w, config=cfg)
+            want = mm.matmul_reference(x, w, cfg)
+            torch.cuda.synchronize()
+            rec["max_rel_err"]["%dx%dx%d" % t] = _rel_err([got], [want])
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     float((got - want).abs().max()))
+            if shape in MM_SHAPES:
+                rec["ms"]["%dx%dx%d" % t] = time_ms(
+                    lambda: mm._launch(x, w, t), flush=flush)
+        worst = max(rec["max_rel_err"].values())
+        log(json.dumps({"matmul_check": {
+            "shape": shape, "max_rel_err_all_tilings": worst,
+            "tf32_inputs_rel_err": rec["tf32_inputs_rel_err"]}}))
+        if not worst <= MM_REL_TOL:
+            fail("matmul disagrees with its plain version at %s: %s > %g"
+                 % (shape, rec["max_rel_err"], MM_REL_TOL))
+        if not rec["tf32_inputs_rel_err"] > MM_REL_TOL:
+            fail("a TF32 product errs by only %g <= MM_REL_TOL %g: the "
+                 "tolerance cannot tell float32 from TF32"
+                 % (rec["tf32_inputs_rel_err"], MM_REL_TOL))
+        if shape in MM_SHAPES:
+            b_ms, b_by = bound(4 * (M * K + K * N + M * N), 2 * M * N * K)
+            rec.update({
+                "plain_ms": time_ms(lambda: mm.matmul_reference(x, w),
+                                    flush=flush),
+                "library_ms": time_ms(lambda: torch.matmul(x, w),
+                                      flush=flush),
+                "bound_ms": b_ms, "bound_by": b_by})
+        per_shape["x".join(str(d) for d in shape)] = rec
+        del x, w, plain, tf32
+    del flush
+    torch.cuda.empty_cache()
+    log(json.dumps({"matmul_times": {
+        k: {f: r[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        for k, r in per_shape.items() if "plain_ms" in r}}))
+    return per_shape
+
+
+def _tune_race(root, work):
+    """``python -m paddle_tpu_torch tune`` on a config at GPT-2-small
+    widths with the wall timer, against an empty cache of its own. Exit
+    0; returns the evidence rows (one per population, every candidate's
+    seconds)."""
+    cfg_path = os.path.join(work, "tune_gpt2_small.py")
+    with open(cfg_path, "w") as f:
+        f.write(
+            "from paddle_tpu_torch.configs import tiny_lm\n\n\n"
+            "def model():\n"
+            "    return tiny_lm.model(vocab=%d, seq=%d, hidden=%d, "
+            "num_layers=%d,\n"
+            "                         num_heads=%d, ffn_mult=%d, batch=%d)\n"
+            % (GPT2_SMALL["vocab_size"], GPT2_SMALL["max_seq"],
+               GPT2_SMALL["hidden"], GPT2_SMALL["num_layers"],
+               GPT2_SMALL["num_heads"], GPT2_SMALL["ffn_mult"], TRAIN_BATCH))
+    race_dir = _fresh_dir(os.path.join(work, "tune_race"))
+    evidence = os.path.join(work, "tune_race.json")
+    env = dict(os.environ, PADDLE_TPU_FLAG_TUNE_CACHE_DIR=race_dir,
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch", "tune", cfg_path,
+           "--timer", "wall", "--batch", str(TRAIN_BATCH), "--device",
+           "cuda", "--out", evidence]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                          text=True, timeout=900)
+    for line in proc.stdout.splitlines():
+        log("tune| " + line)
+    if proc.returncode != 0:
+        fail("the tune race exited %d:\n%s" % (proc.returncode,
+                                               proc.stderr[-4000:]))
+    with open(evidence) as f:
+        rows = json.load(f)["rows"]
+    table = []
+    for row in rows:
+        ms = {("xla" if r["config"].get("use") == "xla" else
+               "%(block_m)dx%(block_n)dx%(block_k)d" % r["config"]):
+              (None if r["seconds"] is None else r["seconds"] * 1e3)
+              for r in row["records"]}
+        table.append({"sig": row["sig"], "winner": row["winner"],
+                      "stock_ms": ms.pop("xla"), "tiling_ms": ms,
+                      "failed": row["failed"]})
+    log(json.dumps({"tune_race": {"seconds": time.monotonic() - t0,
+                                  "cache_dir": race_dir,
+                                  "winners": table}}))
+    if len(rows) != len(MM_SHAPES):
+        fail("the tune race found %d populations, expected the %d gemm "
+             "shapes of the LM step" % (len(rows), len(MM_SHAPES)))
+    bad = [(row["sig"], r["config"], r["status"], r["note"])
+           for row in rows for r in row["records"] if r["status"] != "ok"]
+    if bad:
+        fail("the tune race skipped %d candidate(s): %s" % (len(bad), bad))
+    return rows
+
+
+def _fresh_dir(path):
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def _seed_kernel_cache(rows, cache_dir):
+    """A winner cache whose entry for each gemm population is the fastest
+    kernel tiling of the race (the stock rung left out), written through
+    WinnerCache.put. Returns {signature: tiling}."""
+    from paddle_tpu_torch import tune
+    cache = tune.WinnerCache(cache_dir)
+    picked = {}
+    for row in rows:
+        ok = [r for r in row["records"] if r["status"] == "ok"
+              and r["config"].get("use") != "xla"]
+        if not ok:
+            fail("no kernel tiling passed the race's parity gate at %s"
+                 % row["sig"])
+        best = min(ok, key=lambda r: r["seconds"])
+        cache.put(tune.cache_key(tune.device_kind(), "matmul", row["sig"]),
+                  best["config"], time_ms=best["seconds"] * 1e3,
+                  timer="wall", meta={"kernel": "matmul", "sig": row["sig"],
+                                      "device": tune.device_kind()})
+        picked[row["sig"]] = dict(best["config"])
+    return picked
+
+
+def _conv_consult(dev, cache_dir):
+    """One ResNet-50 step (224 x 224, batch R50_BATCH, conv_impl=conv, so
+    a miss runs cuDNN) against a cache that says stock for the first
+    stage's 3x3 population and {} (the kernel) for the second's: the
+    kernel must run forward and dx exactly for the second stage's convs."""
+    from paddle_tpu_torch import kernels, tune
+    from paddle_tpu_torch.configs import resnet_cifar
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.flags import FLAGS
+    from paddle_tpu_torch.trainer import EndIteration, Trainer
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        spec = resnet_cifar.model(variant="imagenet", depth=50, image=224,
+                                  class_dim=1000, batch=R50_BATCH,
+                                  learning_rate=R50_LR, conv_impl="conv")
+        trainer = Trainer(spec["cost"], spec["optimizer"],
+                          spec["feed_list"], device=dev)
+    keys = [dict(zip("nhwco", s), dtype="float32")
+            for s in R50_CONV_SHAPES[:2]]
+    cache = tune.WinnerCache(cache_dir)
+    for key, cfg in zip(keys, (tune.XLA_CONFIG, {})):
+        cache.put(tune.cache_key(tune.device_kind(), "conv3x3",
+                                 tune.signature(key)), cfg)
+    # the program's convs at the second stage's 3x3 shape
+    kernel_convs = sum(
+        1 for op in main_prog.global_block().ops if op.type == "conv2d"
+        and tuple(main_prog.global_block().var(
+            op.input("Filter")[0]).shape) == (128, 128, 3, 3)
+        and list(op.attr("strides")) == [1, 1])
+    stock_convs = sum(
+        1 for op in main_prog.global_block().ops if op.type == "conv2d"
+        and tuple(main_prog.global_block().var(
+            op.input("Filter")[0]).shape) == (64, 64, 3, 3))
+    rng = np.random.RandomState(0)
+    batch = list(zip(rng.rand(R50_BATCH, 3, 224, 224).astype(np.float32),
+                     rng.randint(0, 1000, (R50_BATCH, 1)).astype(np.int64)))
+    old_dir = FLAGS.tune_cache_dir
+    FLAGS.tune_cache_dir = cache_dir
+    tune.clear_memory_cache()
+    losses = []
+    try:
+        with scope_guard(Scope()):
+            trainer._maybe_init()
+            kernels.reset_launches()
+            tune.reset_counters()
+            trainer.train(lambda: iter([batch]), num_passes=1,
+                          event_handler=lambda e: losses.append(e.cost)
+                          if isinstance(e, EndIteration) else None)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            stats = {k: trainer.exe.stats[k] for k in
+                     ("tune_hits", "tune_misses", "tune_fallbacks")}
+    finally:
+        FLAGS.tune_cache_dir = old_dir
+        tune.clear_memory_cache()
+    rec = {"seeded": {tune.signature(k): c for k, c in
+                      zip(keys, (tune.XLA_CONFIG, {}))},
+           "kernel_seeded_convs": kernel_convs,
+           "stock_seeded_convs": stock_convs, "tune": stats,
+           "launches": launches, "losses": losses}
+    log(json.dumps({"conv3x3_consult": rec}))
+    want = dict(_no_launches(), conv3x3_fwd=kernel_convs,
+                conv3x3_dx=kernel_convs)
+    if not (kernel_convs == 4 and stock_convs == 3 and launches == want):
+        fail("conv3x3 consult: launches %s, expected %s" % (launches, want))
+    # forward and grad ask the cache for each seeded conv
+    if stats["tune_hits"] != 2 * (kernel_convs + stock_convs) \
+            or stats["tune_misses"] != 0:
+        fail("conv3x3 consult: tune counters %s, expected %d hits and no "
+             "miss" % (stats, 2 * (kernel_convs + stock_convs)))
+    if not (len(losses) == 1 and np.isfinite(losses[0])):
+        fail("conv3x3 consult: the step's loss is %s" % losses)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tune(dev, root, train5):
+    """The autotune path: the matmul kernel against its plain version,
+    the wall-clock race of the tune verb, 8 Adam steps of GPT-2 small
+    against a cache of the race's fastest kernel tilings (held against
+    phase 5's losses), and the conv3x3 consult on ResNet-50."""
+    from paddle_tpu_torch import tune
+    from paddle_tpu_torch.flags import FLAGS
+    before = tune.counters()
+    log(json.dumps({"tune_counters_phases_1_to_7": before}))
+    if before["tune_hits"] != 0:
+        fail("phases 1-7 hit the tune cache %d times: a stray winner "
+             "rerouted them" % before["tune_hits"])
+    work = os.path.join(root, "build", "chip_smoke")
+    per_shape = _matmul_kernel_check(dev)
+    rows = _tune_race(root, work)
+    picked = _seed_kernel_cache(
+        rows, _fresh_dir(os.path.join(work, "tune_kernel_tilings")))
+    log(json.dumps({"tune_kernel_cache": picked}))
+    FLAGS.tune_cache_dir = os.path.join(work, "tune_kernel_tilings")
+    tune.clear_memory_cache()
+    L = GPT2_SMALL["num_layers"]
+    per_layer = sum(MM_COUNTS)
+    try:
+        rec = _lm_train(dev, "tuned_train", want_matmul=per_layer * L,
+                        grad_tol=TUNED_GRAD_REL_TOL)
+    finally:
+        FLAGS.tune_cache_dir = TUNE_EMPTY_DIR
+        tune.clear_memory_cache()
+    steps = len(rec["losses"])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(rec["losses"], train5["losses"]))
+    rec.update({
+        "kernel_cache": picked,
+        "phase5_losses": train5["losses"],
+        "losses_max_rel_err_vs_phase5": loss_rel,
+        "loss_tolerance_rel": LOSS_REL_TOL,
+        "phase5_step_ms_p50": train5["step_ms_p50"],
+        "phase5_tokens_per_s": train5["tokens_per_s"],
+        "phase5_peak_memory_bytes": train5["peak_memory_bytes"]})
+    log(json.dumps({"tuned_train": rec}))
+    if rec["tune"] != {"tune_hits": per_layer * L * steps, "tune_misses": 0,
+                       "tune_fallbacks": steps}:
+        fail("tuned train tune counters %s over %d steps, expected %d hits "
+             "and 1 fallback a step" % (rec["tune"], steps, per_layer * L))
+    if not loss_rel <= LOSS_REL_TOL:
+        fail("tuned train losses differ from phase 5's by %g > %g"
+             % (loss_rel, LOSS_REL_TOL))
+    consult = _conv_consult(dev, _fresh_dir(os.path.join(
+        work, "tune_conv_consult")))
+    # the kernels line's row: timed at the tilings the tuned run used,
+    # the mean over a step's 72 launches
+    weights = {}
+    for shape, n in zip(MM_SHAPES, MM_COUNTS):
+        key = {"m": shape[0], "k": shape[1], "n": shape[2],
+               "dtype": "float32"}
+        t = picked[tune.signature(key)]
+        weights["x".join(str(d) for d in shape)] = (
+            n, "%(block_m)dx%(block_n)dx%(block_k)d" % t)
+
+    def per_launch(f):
+        return sum(f(per_shape[k], tag) * n
+                   for k, (n, tag) in weights.items()) / per_layer
+
+    entry = {
+        "name": "matmul", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/matmul.cu",
+        "replaces": "paddle_tpu/kernels/matmul.py:91",
+        "max_abs_err": max(r["max_abs_err"] for r in per_shape.values()),
+        "max_rel_err": max(max(r["max_rel_err"].values())
+                           for r in per_shape.values()),
+        "tolerance_rel": MM_REL_TOL,
+        "tf32_inputs_min_rel_err": min(r["tf32_inputs_rel_err"]
+                                       for r in per_shape.values()),
+        "ms": per_launch(lambda r, t: r["ms"][t]),
+        "plain_ms": per_launch(lambda r, t: r["plain_ms"]),
+        "bound_ms": per_launch(lambda r, t: r["bound_ms"]),
+        "bound_by": "operations",
+        "library_ms": per_launch(lambda r, t: r["library_ms"]),
+        "library": "torch.matmul (cuBLAS), TF32 off",
+        "timed_as": "mean over a GPT-2-small step's 72 launches (48 at "
+                    "8192x768x768, 12 each at 8192x768x3072 and "
+                    "8192x3072x768), each at the tiling the tuned run "
+                    "used",
+        "tilings_used": {k: t for k, (_, t) in weights.items()},
+        "per_shape": per_shape}
+    return {"matmul": entry}, rec["launches"], consult
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -1825,11 +2237,15 @@ def main():
 
     root = os.path.dirname(os.path.abspath(__file__))
     art_dir = os.path.join(root, "build", "chip_smoke", "gpt2_small_seed0")
+    from paddle_tpu_torch.flags import FLAGS
+    FLAGS.tune_cache_dir = _fresh_dir(TUNE_EMPTY_DIR)
+    log(json.dumps({"tune_cache_dir": FLAGS.tune_cache_dir,
+                    "tune": FLAGS.tune}))
     timed(1, phase_build)
     kernels = timed(2, phase_kernels, dev)
     prompts, results, serve_launches = timed(3, phase_engine, dev, art_dir)
     timed(4, phase_http, dev, art_dir, prompts, results)
-    train_launches = timed(5, phase_train, dev, os.path.join(
+    train5 = timed(5, phase_train, dev, os.path.join(
         root, "build", "chip_smoke", "gpt2_small_trained"))
     conv_kernels, convnet_launches = timed(
         6, lambda: (_conv3x3_kernel_check(dev), phase_convnet(dev)))
@@ -1838,11 +2254,16 @@ def main():
         7, lambda: (_rnn_kernel_check(dev), phase_rnn(dev, "lstm"),
                     phase_rnn(dev, "gru")))
     kernels.update(rnn_kernels)
+    mm_kernels, tuned_launches, consult_launches = timed(
+        8, phase_tune, dev, root, train5)
+    kernels.update(mm_kernels)
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
-    paths = {"serve": serve_launches, "train": train_launches,
+    paths = {"serve": serve_launches, "train": train5["launches"],
              "convnet_train": convnet_launches,
              "rnn_train_lstm": lstm_launches,
-             "rnn_train_gru": gru_launches}
+             "rnn_train_gru": gru_launches,
+             "tuned_train": tuned_launches,
+             "convnet_conv3x3_consult": consult_launches}
     for name, entry in kernels.items():
         # each main path is read with the counts set to 0 just before it
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

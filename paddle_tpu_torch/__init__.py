@@ -2,9 +2,9 @@
 NVIDIA H100.
 
 The JAX package ``paddle_tpu`` stays the reference; this package imports
-neither it nor JAX. Module names mirror the JAX package's. Four slices
-are ported, the serving path and three training paths, over shared
-kernels:
+neither it nor JAX. Module names mirror the JAX package's. Five slices
+are ported, the serving path, three training paths and the autotune
+path, over shared kernels:
 
 - the generative serving path: ``models/transformer.py``'s serving face,
   ``serving/`` (paged KV pool, continuous-batching engine, service and
@@ -20,12 +20,16 @@ kernels:
 - the sequence (LoD) training path: ``core/lod.py``, ragged feeds and
   the Executor's ``LoDValue``, ``ops/sequence_ops.py`` (sequence_pool,
   lstm, gru) and ``layers/sequence.py``;
+- the autotune path: ``tune/`` (search spaces over the kernels'
+  compiled tilings, the autotune loop, the CRC-checked winner cache,
+  the dispatch counters), its consult in ``mul`` and ``conv2d``, and
+  ``resilience/`` (the event log and the two tune fault sites);
 - ``kernels/``: hand-written CUDA kernels (paged-attention decode,
   flash-attention forward and backward, the 3x3 / s1 / p1 convolution,
-  the fused LSTM and GRU recurrences), each beside its plain PyTorch
-  version;
-- ``cli.py``: ``python -m paddle_tpu_torch train <config.py>`` and
-  ``serve <artifact_dir>``.
+  the fused LSTM and GRU recurrences, the blocked matmul), each beside
+  its plain PyTorch version;
+- ``cli.py``: ``python -m paddle_tpu_torch train <config.py>``,
+  ``serve <artifact_dir>`` and ``tune <config.py>``.
 
 Entry points take ``device`` (default ``"cuda"``) and raise when no card
 is present, unless the caller passes ``device="cpu"``.

@@ -1,6 +1,6 @@
-"""Command line of the port: the ``train`` and ``serve`` verbs
-(counterparts of ``paddle_tpu/cli.py:cmd_train`` and of ``cmd_serve`` for
-generative artifacts).
+"""Command line of the port: the ``train``, ``serve`` and ``tune`` verbs
+(counterparts of ``paddle_tpu/cli.py:cmd_train``, of ``cmd_serve`` for
+generative artifacts and of ``cmd_tune`` for train configs).
 
     python -m paddle_tpu_torch train <config.py> [--device cuda|cpu]
         [--num_passes N] [--log_period K] [--learning_rate LR]
@@ -19,12 +19,24 @@ onto the device, warms the engine, prints one JSON readiness line
 and this line names it), and serves ``POST /v1/models/<name>:generate``
 until SIGTERM or SIGINT. Then it drains in-flight generations, prints
 ``{"serving_stopped": {"signal", "stats"}}`` and exits 0.
+
+    python -m paddle_tpu_torch tune <config.py> [--device cuda|cpu]
+        [--batch 8] [--dtype float32] [--budget N] [--dry-run]
+        [--timer auto|wall|model] [--out PATH]
+
+builds the config's program, collects the shapes its ``mul`` and
+``conv2d`` ops give the matmul and conv3x3 kernels, races each kernel's
+tilings against the stock rung on the device, caches the winners
+(``tune/cache.py``) and prints the winners table. Exit 0 on success, 1
+when a population has no eligible candidate, 2 when the config fails to
+build.
 """
 from __future__ import annotations
 
 import argparse
 import importlib.util
 import json
+import os
 import sys
 
 __all__ = ["main"]
@@ -108,6 +120,169 @@ def cmd_serve(args):
     return 0
 
 
+def _tune_populations(program, batch, compute_dtype=None):
+    """The tunable-kernel shape keys the program's ops hit: conv2d ops
+    inside the conv3x3 kernel's population and mul gemms inside the
+    matmul kernel's, the feed batch dim (-1) replaced by ``batch``.
+    Returns ([(kernel, key)] deduplicated in declaration order, [keys of
+    flash_attention ops]); the flash-attention space is not ported, so
+    those are reported and not tuned. ``compute_dtype`` overrides the
+    declared dtype of the keys (the port has no AMP, so nothing else
+    changes it).
+
+    A declared dim of 0 is taken as the batch too: it is a reshape's
+    "copy this input dim" that shape inference leaves in place (the
+    transformer's attention output projection). The JAX package keys
+    that gemm with m 0, a population no run dispatches (ROADMAP.md,
+    faults of the reference)."""
+    from .kernels.conv3x3 import supports_conv3x3
+    from .kernels.matmul import supports_matmul
+
+    def shape_of(block, name):
+        v = block._find_var_recursive(name)
+        if v is None or v.shape is None:
+            return None
+        return tuple(batch if int(s) in (-1, 0) else int(s)
+                     for s in v.shape)
+
+    def run_dtype(block, name):
+        if compute_dtype:
+            return compute_dtype
+        v = block._find_var_recursive(name)
+        return str(getattr(v, "dtype", "float32") or "float32")
+
+    out, seen, flash = [], set(), []
+
+    def add(kernel, key):
+        k = (kernel, tuple(sorted(key.items())))
+        if k not in seen:
+            seen.add(k)
+            out.append((kernel, key))
+
+    for block in program.blocks:
+        for op in block.ops:
+            if op.type == "conv2d":
+                xs = shape_of(block, op.input("Input")[0])
+                ws = shape_of(block, op.input("Filter")[0])
+                if not xs or not ws or len(xs) != 4:
+                    continue
+                if supports_conv3x3(ws, op.attr("strides", [1, 1]),
+                                    op.attr("paddings", [0, 0]),
+                                    op.attr("dilations", [1, 1]),
+                                    op.attr("groups", 1) or 1):
+                    n, c, h, w = xs
+                    add("conv3x3", {"n": n, "h": h, "w": w, "c": c,
+                                    "o": int(ws[0]),
+                                    "dtype": run_dtype(
+                                        block, op.input("Input")[0])})
+            elif op.type == "flash_attention":
+                qs = shape_of(block, op.input("Q")[0])
+                if qs and len(qs) == 4:
+                    key = {"b": qs[0], "s": qs[1], "h": qs[2], "d": qs[3],
+                           "causal": bool(op.attr("causal", False))}
+                    if key not in flash:
+                        flash.append(key)
+            elif op.type == "mul":
+                xs = shape_of(block, op.input("X")[0])
+                ys = shape_of(block, op.input("Y")[0])
+                if not xs or not ys:
+                    continue
+                xn = op.attr("x_num_col_dims", 1)
+                yn = op.attr("y_num_col_dims", 1)
+                m = k = n = 1
+                for v in xs[:xn]:
+                    m *= v
+                for v in xs[xn:]:
+                    k *= v
+                for v in ys[yn:]:
+                    n *= v
+                dt = run_dtype(block, op.input("X")[0])
+                if supports_matmul((m, k), (k, n), dt):
+                    add("matmul", {"m": m, "k": k, "n": n, "dtype": dt})
+    return out, flash
+
+
+def _fmt_config(cfg):
+    if cfg.get("use") == "xla":
+        return "xla"
+    return ",".join("%s=%s" % kv for kv in sorted(cfg.items())) or "{}"
+
+
+def cmd_tune(args):
+    """Autotune the kernels a train config's program uses: enumerate
+    each kernel's valid configs at the program's shapes, build, check
+    parity with and time every candidate against the stock rung on the
+    device, cache the winners per (device, shape) and print the winners
+    table. ``--dry-run`` only enumerates."""
+    from . import tune as tune_mod
+    from .core import ir
+    from .device import resolve_device
+    from .flags import FLAGS
+    from .tune import results as results_mod
+
+    device = resolve_device(args.device)
+    main, startup = ir.Program(), ir.Program()
+    try:
+        cfg_mod = _load_config(args.config)
+        with ir.program_guard(main, startup):
+            cfg_mod.model()
+    except Exception as e:
+        print("tune: config %r failed to build: %s: %s"
+              % (args.config, type(e).__name__, e), file=sys.stderr)
+        return 2
+    pops, flash = _tune_populations(main, args.batch,
+                                    compute_dtype=args.dtype or None)
+    for key in flash:
+        print("tune: flash_attention %s: not yet tunable in the port "
+              "(skipped)" % tune_mod.signature(key))
+    if not pops:
+        print("tune: no tunable kernel populations in %r (conv3x3 / "
+              "matmul shapes)" % args.config)
+        return 0
+    budget = args.budget if args.budget > 0 else (FLAGS.tune_budget or
+                                                  None)
+    if args.dry_run:
+        # the loop's budget arithmetic (stock rung included), so the
+        # printed count is what a run would time
+        print("%-10s %-44s %10s" % ("kernel", "signature", "candidates"))
+        for kernel, key in pops:
+            cands = tune_mod.get_space(kernel).candidates(
+                key, budget=(budget - 1) if budget else None)
+            print("%-10s %-44s %10d" % (kernel, tune_mod.signature(key),
+                                        len(cands) + 1))
+        print("tune: dry run, nothing timed, nothing cached")
+        return 0
+    timer = {"wall": tune_mod.wall_timer, "model": tune_mod.model_timer,
+             "auto": lambda: tune_mod.default_timer(device)}[args.timer]()
+    rows, failed = [], 0
+    cache = tune_mod.WinnerCache()
+    print("%-10s %-44s %-34s %12s %6s" % ("kernel", "signature", "winner",
+                                          "time", "cands"))
+    for kernel, key in pops:
+        res = tune_mod.autotune(kernel, key, timer=timer, budget=budget,
+                                cache=cache, device=device)
+        rows.append(res.row())
+        if not res.ok:
+            failed += 1
+            print("%-10s %-44s %-34s %12s %6d"
+                  % (kernel, res.sig, "<NO ELIGIBLE CANDIDATE>", "-",
+                     len(res.records)), flush=True)
+            continue
+        print("%-10s %-44s %-34s %10.4fms %6d"
+              % (kernel, res.sig, _fmt_config(res.winner),
+                 res.winner_seconds * 1e3, len(res.records)), flush=True)
+    rec = results_mod.bench_record(
+        "tune", rows, meta={"config": os.path.abspath(args.config),
+                            "batch": args.batch, "budget": budget or 0,
+                            "timer": getattr(timer, "kind", "custom"),
+                            "device": str(device),
+                            "cache_dir": cache.cache_dir})
+    path = results_mod.write_result(rec, path=args.out)
+    print("tune: %d population(s), %d failed; winners cached in %s; "
+          "evidence %s" % (len(pops), failed, cache.path, path))
+    return 1 if failed else 0
+
+
 def _parser():
     p = argparse.ArgumentParser(prog="python -m paddle_tpu_torch")
     sub = p.add_subparsers(dest="verb", required=True)
@@ -140,6 +315,33 @@ def _parser():
     s.add_argument("--queue_depth", type=int, default=0,
                    help="0 = FLAGS.serve_queue_depth")
     s.set_defaults(fn=cmd_serve)
+    tn = sub.add_parser("tune", help="autotune the kernels a train config "
+                                     "uses; winners persist per device "
+                                     "and shape")
+    tn.add_argument("config")
+    tn.add_argument("--device", default="cuda",
+                    help="'cuda' (default) or 'cpu'")
+    tn.add_argument("--batch", type=int, default=8,
+                    help="batch size substituted for the feed dim (-1) "
+                         "when deriving kernel shapes")
+    tn.add_argument("--dtype", default=None, choices=["float32"],
+                    help="compute dtype of the conv/matmul keys (default: "
+                         "the declared var dtype); the port's kernels take "
+                         "float32 only")
+    tn.add_argument("--budget", type=int, default=0,
+                    help="cap on candidates per (kernel, shape), stock "
+                         "rung included (0 = FLAGS.tune_budget)")
+    tn.add_argument("--dry-run", action="store_true",
+                    help="enumerate populations and candidate counts "
+                         "only; nothing timed or cached")
+    tn.add_argument("--timer", choices=["auto", "wall", "model"],
+                    default="auto",
+                    help="auto = the wall clock on cuda, the "
+                         "deterministic model timer on the cpu")
+    tn.add_argument("--out", default=None, metavar="PATH",
+                    help="evidence-record path (default "
+                         "build/tune/tune_<device>.json)")
+    tn.set_defaults(fn=cmd_tune)
     return p
 
 

@@ -19,8 +19,10 @@ conv3x3 kernel: each conv2d op carries ``conv_impl="pallas3x3"`` as an
 attr, so no other program of the process is touched
 (``PADDLE_TPU_CONV_IMPL`` still overrides it). ``FLAGS.conv_impl``
 stays ``"conv"``, as in the JAX package, whose convs reach the kernel
-only when ``bench.py``'s autotuner pins it or a tune winner is cached;
-the port has no tune cache.
+only when ``bench.py``'s autotuner pins it or a tune winner is cached.
+A winner in the port's tune cache (``python -m paddle_tpu_torch tune``)
+outranks the attr for its shape: ``{}`` runs the kernel and ``use: xla``
+runs ``F.conv2d``, whatever the attr says.
 """
 import numpy as np
 

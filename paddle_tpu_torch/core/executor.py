@@ -226,8 +226,13 @@ class Executor(object):
     def __init__(self, device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
         # eager_runs: run() calls; ops_run: lowerings executed;
-        # fetch_sync_count: fetches copied to the host
-        self.stats = {"eager_runs": 0, "ops_run": 0, "fetch_sync_count": 0}
+        # fetch_sync_count: fetches copied to the host; tune_*: the
+        # process-level kernel-dispatch counters of paddle_tpu_torch.tune
+        # (hits = a cached winner applied, misses = a flag-enabled
+        # kernel's default config, fallbacks = the stock lowering), which
+        # move once per dispatching op a run; refreshed after every run()
+        self.stats = {"eager_runs": 0, "ops_run": 0, "fetch_sync_count": 0,
+                      "tune_hits": 0, "tune_misses": 0, "tune_fallbacks": 0}
 
     def prepare_feed(self, feed):
         """Move a feed dict to the device once; the result can be passed
@@ -250,6 +255,8 @@ class Executor(object):
         with torch.no_grad():
             outs = self._run_eager(program, env, fetch_names, scope)
         self.stats["eager_runs"] += 1
+        from .. import tune
+        self.stats.update(tune.counters())
         if return_numpy:
             outs = [_fetch_to_host(o) for o in outs]
             self.stats["fetch_sync_count"] += len(outs)

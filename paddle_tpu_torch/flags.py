@@ -1,6 +1,6 @@
 """The knobs of the port (the ``serve_*`` part of ``paddle_tpu/flags.py``,
-its ``log_period``, ``conv_impl`` and ``lstm_impl``, same names and
-defaults).
+its ``log_period``, ``conv_impl``, ``lstm_impl``, ``tune``,
+``tune_cache_dir`` and ``tune_budget``, same names and defaults).
 
 Read as attributes of :data:`FLAGS`. A value can be overridden per
 process with the environment variable ``PADDLE_TPU_FLAG_<NAME>`` (read
@@ -56,6 +56,21 @@ _DEFS = {
         "hidden width that is a multiple of 128; the time loop for the "
         "rest). An lstm or gru op's own 'lstm_impl' attr takes precedence "
         "over it"),
+    "tune": (
+        True, _parse_bool, "consult the paddle_tpu_torch.tune winner cache "
+        "at kernel dispatch sites: a cached per-(device, shape) winner runs "
+        "the kernel with the winning config (tune_hits); a miss keeps the "
+        "legacy behaviour, the kernel's default config where a flag already "
+        "enables the kernel (tune_misses), the stock PyTorch lowering "
+        "otherwise (tune_fallbacks). 0 disables the consult"),
+    "tune_cache_dir": (
+        "~/.cache/paddle_tpu/tune", str, "directory of the persistent "
+        "kernel-winner cache; the port's file there is winners.torch.json, "
+        "so it never reads or overwrites the JAX package's winners.json"),
+    "tune_budget": (
+        0, int, "cap on the candidates the autotune loop builds and times "
+        "per (kernel, shape), the stock rung included; 0 = the whole valid "
+        "space. The CLI's --budget overrides it per run"),
     "log_period": (
         100, int, "Trainer.train prints a progress line every this many "
         "batches (0: never)"),

@@ -8,7 +8,8 @@ that its main path went through the kernels.
 """
 from __future__ import annotations
 
-from . import conv3x3, flash_attention, fused_gru, fused_lstm, paged_attention
+from . import (conv3x3, flash_attention, fused_gru, fused_lstm, matmul,
+               paged_attention)
 
 __all__ = ["KERNEL_COUNTERS", "launch_counts", "reset_launches"]
 
@@ -24,6 +25,8 @@ KERNEL_COUNTERS = {
     # the whole recurrence of an lstm / gru op, one launch a call
     "fused_lstm": (fused_lstm, "launches"),
     "fused_gru": (fused_gru, "launches"),
+    # the blocked gemm of a mul under a cached tune winner
+    "matmul": (matmul, "launches"),
 }
 
 

@@ -5,8 +5,9 @@ Q/K/V are ``[batch, seq, heads, dim]``. The op calls the port's flash
 wrapper, a ``torch.autograd.Function``: on a CUDA tensor its forward is
 the kernel of ``csrc/flash_attention_fwd.cu`` and its backward those of
 ``csrc/flash_attention_bwd.cu``, on a CPU tensor the plain versions. The
-JAX op's tune lookup is not ported: on a cache miss it returns ``{}``
-and the op runs the flash kernel, which is what the port always does.
+JAX op's tune lookup is not ported (the port's ``tune/`` has no
+flash-attention space): on a cache miss it returns ``{}`` and the op
+runs the flash kernel, which is what the port always does.
 """
 from __future__ import annotations
 

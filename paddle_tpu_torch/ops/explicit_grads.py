@@ -20,7 +20,7 @@ from ..core.ir import grad_var_name
 from ..core.registry import register_op
 from ..core.types import is_floating
 from .common import flatten_to_2d
-from .nn_ops import _bn_grad_maker, bn_axes, pool2d_apply, uses_conv3x3_kernel
+from .nn_ops import _bn_grad_maker, bn_axes, conv3x3_config, pool2d_apply
 
 __all__ = ["simple_grad_maker"]
 
@@ -157,10 +157,12 @@ _attach("elementwise_add", "elementwise_add_grad", need_inputs=("X", "Y"),
 def conv2d_grad(ctx):
     """dInput and dFilter without replaying the forward (the JAX grad
     replays it under ``jax.vjp``, where XLA drops the dead primal; here
-    it would be a real launch). The conv3x3 kernel's population takes
-    that wrapper's backward through the NHWC/HWIO transposes: dx by the
-    kernel, dw by the 9 tap contractions. Every other conv takes
-    ``convolution_backward``, the backward of torch's conv2d."""
+    it would be a real launch). A conv whose tune dispatch decision
+    (``nn_ops.conv3x3_config``, asked again as the JAX grad's replay
+    asks it) runs the conv3x3 kernel takes that wrapper's backward
+    through the NHWC/HWIO transposes: dx by the kernel, dw by the 9 tap
+    contractions. Every other conv takes ``convolution_backward``, the
+    backward of torch's conv2d."""
     x = ctx.input("Input")
     w = ctx.input("Filter")
     dy = ctx.input("Output@GRAD")
@@ -170,7 +172,8 @@ def conv2d_grad(ctx):
     groups = ctx.attr("groups", 1) or 1
     want_dx = bool(ctx.op.output("Input@GRAD"))
     want_dw = bool(ctx.op.output("Filter@GRAD"))
-    if uses_conv3x3_kernel(w.shape, s, p, d, groups, ctx.attr("conv_impl")):
+    if conv3x3_config(x.shape, w.shape, s, p, d, groups, x.dtype,
+                      ctx.attr("conv_impl")) is not None:
         dx, dw = conv3x3.conv3x3_bwd(
             x.permute(0, 2, 3, 1).contiguous(),
             w.permute(2, 3, 1, 0).contiguous(),

@@ -1,21 +1,47 @@
-"""Math ops (counterparts in ``paddle_tpu/ops/math_ops.py``: ``mul`` :61,
-``elementwise_add`` :132, ``sum`` :154, ``scale`` :176, ``cumsum`` :201,
-``mean`` :279, ``top_k`` :325).
+"""Math ops (counterparts in ``paddle_tpu/ops/math_ops.py``: ``mul`` :61
+with ``_gemm_dispatch`` :27, ``elementwise_add`` :132, ``sum`` :154,
+``scale`` :176, ``cumsum`` :201, ``mean`` :279, ``top_k`` :325).
 
-``mul`` is a ``torch.matmul`` of the flattened operands. The JAX
-package's default is ``jnp.matmul`` too: its Pallas matmul runs only for
-a cached tune winner (``math_ops.py:27-46``), and the tune cache is not
-ported.
+``mul`` is one gemm of the flattened operands, routed through
+``paddle_tpu_torch.tune`` as the JAX op is: only a cached
+per-(device, shape) winner tiling runs the hand-written blocked matmul
+(``kernels/matmul.py``). No winner, a winner that says the stock rung is
+fastest (``use: xla``) and every shape outside the kernel's population
+run ``torch.matmul``, as the JAX package runs ``jnp.matmul``; an untuned
+process computes exactly what it did before the tune slice.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import tune
 from ..core.executor import raw_data, with_lod_of
 from ..core.registry import register_op
+from ..kernels import matmul as matmul_kernel
 from .common import elementwise, flatten_to_2d
 
 __all__ = []
+
+
+def _gemm_dispatch(x2, y2):
+    """The mul op's 2-D gemm. Inside the kernel's population the tune
+    cache decides (``enabled=False``: no flag opts this kernel in): a
+    winner tiling runs the kernel with it; no winner (a fallback) or a
+    ``use: xla`` winner (a hit) runs ``torch.matmul``. Outside the
+    population it is ``torch.matmul`` with a recorded fallback."""
+    M, K = (int(v) for v in x2.shape)
+    N = int(y2.shape[-1])
+    if matmul_kernel.supports_matmul((M, K), (K, N), x2.dtype):
+        cfg = tune.lookup(
+            "matmul", {"m": M, "k": K, "n": N,
+                       "dtype": str(x2.dtype).replace("torch.", "")},
+            enabled=False)
+        if cfg:
+            return matmul_kernel.matmul(x2.contiguous(), y2.contiguous(),
+                                        None, cfg)
+    else:
+        tune.record_fallback("matmul")
+    return torch.matmul(x2, y2)
 
 
 def _infer_mul(op, block):
@@ -40,7 +66,7 @@ def mul(ctx):
     y = raw_data(ctx.input("Y"))
     xn = ctx.attr("x_num_col_dims", 1)
     yn = ctx.attr("y_num_col_dims", 1)
-    out = torch.matmul(flatten_to_2d(x, xn), flatten_to_2d(y, yn))
+    out = _gemm_dispatch(flatten_to_2d(x, xn), flatten_to_2d(y, yn))
     ctx.set_output("Out", with_lod_of(x_v, out.reshape(
         tuple(x.shape[:xn]) + tuple(y.shape[yn:]))))
 

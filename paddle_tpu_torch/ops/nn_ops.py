@@ -3,14 +3,15 @@
 ``pool2d`` :614 with ``pool2d_apply`` :584, ``batch_norm`` :697 with
 ``_bn_grad_maker`` :744, ``layer_norm`` :774).
 
-Convolutions are NCHW with OIHW filters. Under ``conv_impl=pallas3x3``
-the 3x3 / s1 / p1 population goes to the hand-written kernel
-(``kernels/conv3x3.py``) through NHWC/HWIO transposes, as the JAX op
-does; every other conv is ``torch.nn.functional.conv2d``, as the JAX
-package computes it with ``lax.conv`` outside any Pallas kernel. The
-JAX dispatch's tune-cache consult is not ported (the port has no
-``tune/``): ``pallas3x3`` always runs the kernel on its population, as a
-cache miss does in the JAX package.
+Convolutions are NCHW with OIHW filters. The 3x3 / s1 / p1 population
+is routed through ``paddle_tpu_torch.tune`` as in the JAX op
+(``conv2d_apply`` :363-381): a cached per-(device, shape) winner runs
+the hand-written kernel (``kernels/conv3x3.py``, through NHWC/HWIO
+transposes) when it is ``{}`` and ``F.conv2d`` when it is ``use: xla``;
+with no winner, ``conv_impl=pallas3x3`` runs the kernel (a tune miss)
+and ``conv`` runs ``F.conv2d`` (a fallback). Every other conv is
+``torch.nn.functional.conv2d`` with a recorded fallback, as the JAX
+package computes it with ``lax.conv`` outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -19,11 +20,12 @@ import os
 import torch
 import torch.nn.functional as F
 
+from .. import tune
 from ..core.registry import register_op
 from ..flags import FLAGS
 from ..kernels import conv3x3
 
-__all__ = ["conv2d_apply", "conv_impl", "pool2d_apply", "uses_conv3x3_kernel"]
+__all__ = ["conv2d_apply", "conv3x3_config", "conv_impl", "pool2d_apply"]
 
 _NOT_PORTED = ("is not ported to paddle_tpu_torch (ROADMAP.md, Queue 1: "
                "the rest of the training path)")
@@ -108,25 +110,42 @@ def conv_impl(program_choice=None):
     return impl
 
 
-def uses_conv3x3_kernel(w_shape, s, p, d, groups, program_choice=None):
-    """True when this conv goes to the conv3x3 kernel: ``pallas3x3`` and
-    a 3x3 / s1 / p1 / ungrouped / undilated filter. Raises for the JAX
-    package's other conv knobs (``PADDLE_TPU_CONV_LAYOUT=nhwc``,
-    ``PADDLE_TPU_CONV_S2D``), which the port does not have."""
+def _refuse_unported_knobs():
+    """Raise for the JAX package's other conv knobs
+    (``PADDLE_TPU_CONV_LAYOUT=nhwc``, ``PADDLE_TPU_CONV_S2D``), which the
+    port does not have."""
     layout = os.environ.get("PADDLE_TPU_CONV_LAYOUT", "nchw")
     if layout != "nchw":
         raise NotImplementedError("conv_layout=%r %s" % (layout, _NOT_PORTED))
     if os.environ.get("PADDLE_TPU_CONV_S2D", "0") not in ("0", "false",
                                                           "False", ""):
         raise NotImplementedError("conv_first_s2d " + _NOT_PORTED)
-    return (conv_impl(program_choice) == "pallas3x3"
-            and conv3x3.supports_conv3x3(w_shape, s, p, d, groups))
+
+
+def conv3x3_config(x_shape, w_shape, s, p, d, groups, dtype,
+                   program_choice=None):
+    """The tune dispatch decision of one conv (``x`` NCHW, ``w`` OIHW): a
+    config dict (``{}``, the kernel's one tiling) to run the conv3x3
+    kernel, or None for ``F.conv2d``. Inside the population the cache
+    decides, enabled by ``pallas3x3``; outside it a fallback is
+    recorded. Raises for the conv knobs the port does not have. The grad
+    op asks again, as the JAX grad replays the forward's dispatch."""
+    _refuse_unported_knobs()
+    if not conv3x3.supports_conv3x3(w_shape, s, p, d, groups):
+        tune.record_fallback("conv3x3")
+        return None
+    N, C, H, W = (int(v) for v in x_shape)
+    return tune.lookup(
+        "conv3x3", {"n": N, "h": H, "w": W, "c": C, "o": int(w_shape[0]),
+                    "dtype": str(dtype).replace("torch.", "")},
+        enabled=conv_impl(program_choice) == "pallas3x3")
 
 
 def conv2d_apply(x, w, s, p, d, groups, program_choice=None):
-    """conv2d forward, ``x`` NCHW and ``w`` OIHW: the conv3x3 kernel for
-    its population under ``pallas3x3``, else torch's conv2d."""
-    if uses_conv3x3_kernel(w.shape, s, p, d, groups, program_choice):
+    """conv2d forward, ``x`` NCHW and ``w`` OIHW: the conv3x3 kernel when
+    :func:`conv3x3_config` gives a config, else torch's conv2d."""
+    if conv3x3_config(x.shape, w.shape, s, p, d, groups, x.dtype,
+                      program_choice) is not None:
         out = conv3x3.conv3x3_s1_nhwc(x.permute(0, 2, 3, 1).contiguous(),
                                       w.permute(2, 3, 1, 0).contiguous())
         return out.permute(0, 3, 1, 2).contiguous()

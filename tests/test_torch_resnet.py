@@ -125,17 +125,21 @@ def test_conv2d_and_its_grad_match_jax(case, impl, monkeypatch):
     assert set(kernels.launch_counts().values()) == {0}
 
 
+def _conv3x3_config(w_shape, s, p, d, groups, program_choice=None):
+    """The conv's dispatch decision with the tune cache off: what the
+    flag alone routes (``{}`` = the kernel, None = torch's conv2d)."""
+    return nn_ops.conv3x3_config((2, w_shape[1], 9, 9), w_shape, s, p, d,
+                                 groups, torch.float32, program_choice)
+
+
 def test_conv2d_routes_only_its_population_to_the_kernel(monkeypatch):
+    monkeypatch.setattr(FLAGS, "tune", False)
     monkeypatch.setenv("PADDLE_TPU_CONV_IMPL", "pallas3x3")
-    assert nn_ops.uses_conv3x3_kernel((6, 4, 3, 3), [1, 1], [1, 1],
-                                      [1, 1], 1)
-    assert not nn_ops.uses_conv3x3_kernel((6, 4, 3, 3), [2, 2], [1, 1],
-                                          [1, 1], 1)
-    assert not nn_ops.uses_conv3x3_kernel((6, 4, 1, 1), [1, 1], [0, 0],
-                                          [1, 1], 1)
+    assert _conv3x3_config((6, 4, 3, 3), [1, 1], [1, 1], [1, 1], 1) == {}
+    assert _conv3x3_config((6, 4, 3, 3), [2, 2], [1, 1], [1, 1], 1) is None
+    assert _conv3x3_config((6, 4, 1, 1), [1, 1], [0, 0], [1, 1], 1) is None
     monkeypatch.setenv("PADDLE_TPU_CONV_IMPL", "conv")
-    assert not nn_ops.uses_conv3x3_kernel((6, 4, 3, 3), [1, 1], [1, 1],
-                                          [1, 1], 1)
+    assert _conv3x3_config((6, 4, 3, 3), [1, 1], [1, 1], [1, 1], 1) is None
 
 
 def test_conv_knobs_that_are_not_ported_raise(monkeypatch):
@@ -146,8 +150,7 @@ def test_conv_knobs_that_are_not_ported_raise(monkeypatch):
                              ("PADDLE_TPU_CONV_S2D", "1", "s2d")):
         monkeypatch.setenv(env, value)
         with pytest.raises(NotImplementedError, match=what):
-            nn_ops.uses_conv3x3_kernel((6, 4, 3, 3), [1, 1], [1, 1],
-                                       [1, 1], 1)
+            _conv3x3_config((6, 4, 3, 3), [1, 1], [1, 1], [1, 1], 1)
         monkeypatch.delenv(env)
 
 
@@ -516,8 +519,8 @@ def test_cifar_config_opts_only_its_own_program_into_the_kernel(
     want = len(k3) if impl == "pallas3x3" else 0
     assert calls == {"fwd": want, "bwd": want}
     # a conv2d op that carries no choice still takes the process default
-    assert not nn_ops.uses_conv3x3_kernel((6, 4, 3, 3), [1, 1], [1, 1],
-                                          [1, 1], 1)
+    monkeypatch.setattr(FLAGS, "tune", False)
+    assert _conv3x3_config((6, 4, 3, 3), [1, 1], [1, 1], [1, 1], 1) is None
 
 
 def test_cli_trains_the_cifar_config_on_the_cpu():
