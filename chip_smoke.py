@@ -18,7 +18,10 @@ Phases, in order; any failure exits non-zero at once:
 2. kernels: each kernel against its plain version on the card, at the
    shapes the main path gives it, with the time of the kernel, of the
    plain version and of one PyTorch library call computing the same
-   function, and the least time the card could take;
+   function, and the least time the card could take (in float32 on the
+   CUDA cores, and in 3xTF32 on the tensor cores); the flash backward
+   also at the templates of D 32 (non-causal) and D 128 (causal), and a
+   second launch of each of its kernels must equal the first bit for bit;
 3. engine: export random GPT-2-small-wide weights (seed 0) as a
    generative artifact, load them onto the card, and serve 16 greedy
    requests (prompts of 16 to 900 tokens, 32 new tokens each) through
@@ -94,6 +97,7 @@ them), the ``{"kernels": [...]}`` line, and then
 package beside it, the script exits non-zero and prints no result.
 """
 import argparse
+import ctypes
 import json
 import os
 import shutil
@@ -112,6 +116,9 @@ import torch
 # float32 flops/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# and the tensor cores' dense TF32 flops/s: a float32-exact product in
+# 3xTF32 takes three TF32 products
+PEAK_TF32_FLOPS = 495e12
 
 # GPT-2 small widths (Radford et al. 2019; Hugging Face "gpt2" config)
 GPT2_SMALL = dict(vocab_size=50257, hidden=768, num_layers=12, num_heads=12,
@@ -133,6 +140,10 @@ LOGIT_TOL = 1e-3
 # or dv. Only sum orders differ (~1e-6 relative); the plain backward on
 # inputs rounded to TF32 errs by ~1e-3 and is shown to miss it.
 BWD_REL_TOL = 2e-5
+# the flash backward's cases (S, D, causal): the training shape's ragged
+# lengths and S 1024 (timed), and the other head dims' templates
+FLASH_BWD_CASES = [(17, 64, True), (130, 64, True), (1024, 64, True),
+                   (130, 32, False), (130, 128, True)]
 # Step-1 gradients of every parameter from the Executor (flash kernels,
 # the op lowerings and their grads) against torch.autograd through the
 # plain functional forward: the norm of the difference over the norm of
@@ -296,6 +307,13 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def tc_bound(nbytes, flops):
+    """The least ms of the same float32 work on the tensor cores in
+    3xTF32: the larger of the bytes over the memory rate and three TF32
+    products a flop over their rate."""
+    return max(nbytes / PEAK_BYTES_S, 3 * flops / PEAK_TF32_FLOPS) * 1e3
+
+
 # -- phase 1 -----------------------------------------------------------------
 
 def phase_build():
@@ -354,6 +372,7 @@ def phase_kernels(dev):
               + int(((positions.long().clamp(max=MB * T - 1) // T) + 1)
                     .sum()) * 4)
     b_ms, b_by = bound(nbytes, 4 * cols * nh * dh)
+    tc_ms = tc_bound(nbytes, 4 * cols * nh * dh)
     colmask = (torch.arange(MB * T, device=dev)[None, :]
                <= positions.long()[:, None])[:, None, None, :]
 
@@ -373,7 +392,7 @@ def phase_kernels(dev):
                                                   positions), flush=flush),
         "plain_ms": time_ms(lambda: pa.paged_attention_reference(
             q, kp, vp, tables, positions), flush=flush),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms": b_ms, "bound_by": b_by, "tc_bound_ms": tc_ms,
         "library_ms": time_ms(library, flush=flush),
         "library": "gather + scaled_dot_product_attention",
         "library_max_abs_err": lib_err,
@@ -397,7 +416,8 @@ def phase_kernels(dev):
         errs.append(e)
         BH, D = 12, 64
         pairs = S * (S + 1) // 2
-        b_ms, b_by = bound((4 * S * D + S) * BH * 4, 4 * pairs * D * BH)
+        work = ((4 * S * D + S) * BH * 4, 4 * pairs * D * BH)
+        b_ms, b_by = bound(*work)
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in qkv)
         shapes[S] = {
             "max_abs_err": e,
@@ -406,6 +426,7 @@ def phase_kernels(dev):
             "plain_ms": time_ms(lambda: fa.flash_attention_reference(
                 *qkv, causal=True), flush=flush),
             "bound_ms": b_ms, "bound_by": b_by,
+            "tc_bound_ms": tc_bound(*work),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, is_causal=True), flush=flush)}
     big = shapes[1024]
@@ -416,6 +437,7 @@ def phase_kernels(dev):
         "max_abs_err": max(errs), "tolerance": KERNEL_TOL,
         "ms": big["ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+        "tc_bound_ms": big["tc_bound_ms"],
         "library_ms": big["library_ms"],
         "library": "scaled_dot_product_attention(is_causal=True)",
         "shape": {"B": 1, "H": 12, "D": 64, "S_timed": 1024},
@@ -432,71 +454,102 @@ def _rel_err(got, want):
 
 
 def _flash_bwd_kernels(dev, flush):
-    """dK/dV and dQ at the training shape (B 8, H 12, D 64, causal, S
-    1024) and at the ragged S = 17 and 130, against the plain backward;
-    each kernel timed alone on the delta its wrapper forms."""
+    """dK/dV and dQ against the plain backward at the training shape (B
+    8, H 12, D 64, causal, S 1024), at the ragged S = 17 and 130, and at
+    the other head dims' templates (D 32 non-causal, D 128 causal, S
+    130); a second launch of each kernel must equal the first bit for
+    bit. Each kernel is timed alone at S 1024 on the delta its wrapper
+    forms."""
+    from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_attention as fa
     F = torch.nn.functional
-    B, H, D = TRAIN_BATCH, 12, 64
-    scale = D ** -0.5
+    B, H = TRAIN_BATCH, 12
     rng = np.random.RandomState(13)
-    per_s = {}
-    for S in (17, 130, 1024):
+    lib = _build.load("flash_attention_bwd")
+    lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
+    per_case = {}
+    for S, D, causal in FLASH_BWD_CASES:
+        scale = D ** -0.5
         q, k, v, do = [torch.from_numpy(rng.randn(B, S, H, D).astype(
             np.float32)).to(dev) for _ in range(4)]
-        o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
-        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
-                                                causal=True)
+                                                causal=causal)
         tf32 = fa.flash_attention_bwd_reference(
             *(_tf32_round(t) for t in (q, k, v)), o, lse, _tf32_round(do),
-            causal=True)
+            causal=causal)
         torch.cuda.synchronize()
-        rel = {n: _rel_err([g], [w])
-               for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        names = ("dq", "dk", "dv")
+        rel = {n: _rel_err([g], [w]) for n, g, w in zip(names, got, want)}
         err = {n: float((g - w).abs().max())
-               for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+               for n, g, w in zip(names, got, want)}
+        same = {n: bool(torch.equal(a, b))
+                for n, a, b in zip(names, got, again)}
         tf32_rel = _rel_err(tf32, want)
+        case = "S%d_D%d_%s" % (S, D, "causal" if causal else "full")
         if not all(np.isfinite(x) and x <= BWD_REL_TOL
                    for x in rel.values()):
             fail("flash backward kernels disagree with the plain backward "
-                 "at S=%d: relative errors %s > %g" % (S, rel, BWD_REL_TOL))
+                 "at %s: relative errors %s > %g" % (case, rel, BWD_REL_TOL))
+        if not all(same.values()):
+            fail("flash backward kernels are not deterministic at %s: a "
+                 "second launch differs (bit-identical: %s)" % (case, same))
         if not tf32_rel > BWD_REL_TOL:
-            fail("a TF32 backward errs by only %g <= BWD_REL_TOL %g: the "
-                 "tolerance cannot tell float32 from TF32"
-                 % (tf32_rel, BWD_REL_TOL))
-        delta = fa._delta(o, do, None).contiguous()
-        pairs = S * (S + 1) // 2
-        head = S * D * 4
-        dkv_bound = bound(B * H * (6 * head + 2 * S * 4),
-                          B * H * pairs * 8 * D)
-        dq_bound = bound(B * H * (5 * head + 2 * S * 4),
-                         B * H * pairs * 6 * D)
+            fail("a TF32 backward errs by only %g <= BWD_REL_TOL %g at %s: "
+                 "the tolerance cannot tell float32 from TF32"
+                 % (tf32_rel, BWD_REL_TOL, case))
         qh, kh, vh = (t.transpose(1, 2).detach().clone().requires_grad_(True)
                       for t in (q, k, v))
-        lib_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh,
+                                                 is_causal=causal)
         doh = do.transpose(1, 2)
 
         def library():
             return torch.autograd.grad(lib_out, (qh, kh, vh), doh,
                                        retain_graph=True)
 
-        lib_rel = _rel_err([g.transpose(1, 2) for g in library()], want)
-        per_s[S] = {
-            "max_rel_err": rel, "max_abs_err": err,
-            "tolerance_rel": BWD_REL_TOL, "tf32_inputs_max_rel_err": tf32_rel,
-            "dkv_ms": time_ms(lambda: fa._bwd_dkv(q, k, v, do, lse, delta,
-                                                  True, scale), flush=flush),
-            "dq_ms": time_ms(lambda: fa._bwd_dq(q, k, v, do, lse, delta,
-                                                True, scale), flush=flush),
-            "plain_ms": time_ms(lambda: fa.flash_attention_bwd_reference(
-                q, k, v, o, lse, do, causal=True), flush=flush),
-            "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
-            "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
-            "library_ms": time_ms(library, flush=flush),
-            "library_max_rel_err": lib_rel}
-        del q, k, v, do, o, lse, got, want, tf32, delta, lib_out, qh, kh, vh
-    big = per_s[1024]
+        rec = {"S": S, "D": D, "causal": causal,
+               "max_rel_err": rel, "max_abs_err": err,
+               "tolerance_rel": BWD_REL_TOL,
+               "second_launch_bit_identical": same,
+               "tf32_inputs_max_rel_err": tf32_rel,
+               "library_max_rel_err": _rel_err(
+                   [g.transpose(1, 2) for g in library()], want),
+               "smem_bytes": {
+                   "dkv": lib.flash_attention_bwd_smem_bytes(D, 0),
+                   "dq": lib.flash_attention_bwd_smem_bytes(D, 1)},
+               "ptxas": {
+                   "dkv": _ptxas("flash_attention_bwd",
+                                 "flash_bwd_dkv_kernelILi%dE" % D),
+                   "dq": _ptxas("flash_attention_bwd",
+                                "flash_bwd_dq_kernelILi%dE" % D)}}
+        if S == 1024:
+            delta = fa._delta(o, do, None).contiguous()
+            pairs = S * (S + 1) // 2 if causal else S * S
+            head = S * D * 4
+            dkv_work = (B * H * (6 * head + 2 * S * 4), B * H * pairs * 8 * D)
+            dq_work = (B * H * (5 * head + 2 * S * 4), B * H * pairs * 6 * D)
+            dkv_bound, dq_bound = bound(*dkv_work), bound(*dq_work)
+            rec.update({
+                "dkv_ms": time_ms(lambda: fa._bwd_dkv(
+                    q, k, v, do, lse, delta, causal, scale), flush=flush),
+                "dq_ms": time_ms(lambda: fa._bwd_dq(
+                    q, k, v, do, lse, delta, causal, scale), flush=flush),
+                "plain_ms": time_ms(lambda: fa.flash_attention_bwd_reference(
+                    q, k, v, o, lse, do, causal=causal), flush=flush),
+                "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
+                "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
+                "dkv_tc_bound_ms": tc_bound(*dkv_work),
+                "dq_tc_bound_ms": tc_bound(*dq_work),
+                "library_ms": time_ms(library, flush=flush)})
+            rec["dkv_plus_dq_ms"] = rec["dkv_ms"] + rec["dq_ms"]
+            del delta
+        log(json.dumps({"flash_bwd_check": {case: rec}}))
+        per_case[case] = rec
+        del q, k, v, do, o, lse, got, again, want, tf32, lib_out, qh, kh, vh
+    big = per_case["S1024_D64_causal"]
     out = {}
     for name, line, key, what in (
             ("flash_attention_bwd_dkv", 231, "dkv", ("dk", "dv")),
@@ -505,22 +558,24 @@ def _flash_bwd_kernels(dev, flush):
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "paddle_tpu/kernels/flash_attention.py:%d" % line,
-            "max_abs_err": max(per_s[S]["max_abs_err"][n]
-                               for S in per_s for n in what),
-            "max_rel_err": max(per_s[S]["max_rel_err"][n]
-                               for S in per_s for n in what),
+            "max_abs_err": max(r["max_abs_err"][n]
+                               for r in per_case.values() for n in what),
+            "max_rel_err": max(r["max_rel_err"][n]
+                               for r in per_case.values() for n in what),
             "tolerance_rel": BWD_REL_TOL,
             "ms": big[key + "_ms"], "plain_ms": big["plain_ms"],
             "plain": "flash_attention_bwd_reference (dq, dk and dv)",
             "bound_ms": big[key + "_bound_ms"],
             "bound_by": big[key + "_bound_by"],
+            "tc_bound_ms": big[key + "_tc_bound_ms"],
             "library_ms": big["library_ms"],
             "library": "autograd.grad through scaled_dot_product_attention"
                        "(is_causal=True): dq, dk and dv, to be compared "
                        "with the sum of both kernels",
-            "shape": {"B": B, "H": H, "D": D, "causal": True,
+            "dkv_plus_dq_ms": big["dkv_plus_dq_ms"],
+            "shape": {"B": B, "H": H, "D": 64, "causal": True,
                       "S_timed": 1024},
-            "per_S": {str(S): per_s[S] for S in per_s}}
+            "per_case": per_case}
     return out
 
 
@@ -1011,8 +1066,9 @@ def _lm_train(dev, label, after=None, want_matmul=0,
             prof_wall = time.monotonic() - t1
         profile_window = _device_kernels(prof, prof_wall)
         profile_window["steps"] = 2
-        profile_window["matmul_kernel"] = _kernel_share(prof,
-                                                        "matmul_kernel")
+        for kernel in ("matmul_kernel", "flash_fwd_kernel",
+                       "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"):
+            profile_window[kernel] = _kernel_share(prof, kernel)
         extra = after(cfg, global_scope()) if after else None
     p50 = float(np.median(step_s))
     tokens = TRAIN_BATCH * cfg.max_seq
@@ -1116,8 +1172,9 @@ def _conv3x3_kernel_check(dev):
         x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
         w_cl = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        b_ms, b_by = bound(4 * (N * H * W * (C + O) + 9 * C * O),
-                           2 * N * H * W * C * O * 9)
+        work = (4 * (N * H * W * (C + O) + 9 * C * O),
+                2 * N * H * W * C * O * 9)
+        b_ms, b_by = bound(*work)
         rec.update({
             "fwd_ms": time_ms(lambda: conv3x3._launch(x, w), flush=flush),
             "dx_ms": time_ms(lambda: conv3x3._launch(g, w_rot),
@@ -1128,6 +1185,7 @@ def _conv3x3_kernel_check(dev):
                 lambda: conv3x3.conv3x3_reference(g, conv3x3.rotate_filter(
                     w)), flush=flush),
             "bound_ms": b_ms, "bound_by": b_by,
+            "tc_bound_ms": tc_bound(*work),
             "fwd_library_ms": time_ms(lambda: F.conv2d(x_cl, w_cl,
                                                        padding=1),
                                       flush=flush),
@@ -1165,6 +1223,7 @@ def _conv3x3_kernel_check(dev):
             "ms": per_launch(role + "_ms"),
             "plain_ms": per_launch(role + "_plain_ms"),
             "bound_ms": per_launch("bound_ms"), "bound_by": "operations",
+            "tc_bound_ms": per_launch("tc_bound_ms"),
             "library_ms": per_launch(role + "_library_ms"),
             "library": "cuDNN through F.conv2d" if role == "fwd" else
                        "cuDNN through convolution_backward (dx only)",
@@ -1578,7 +1637,8 @@ def _rnn_kernel_check(dev):
         nbytes = 4 * (xs.numel() + w.numel() + h0.numel() + mask.numel()
                       + (c0.numel() if gates == 4 else 0)
                       + (2 if gates == 4 else 1) * T * N * D)
-        b_ms, b_by = bound(nbytes, 2 * T * N * D * gates * D)
+        flops = 2 * T * N * D * gates * D
+        b_ms, b_by = bound(nbytes, flops)
         launch = mod._launch
         kargs = args if gates == 4 else (xs, w, h0, mask)
         # where a step's time goes: the cost of one more step (T 10 -> 100),
@@ -1608,6 +1668,7 @@ def _rnn_kernel_check(dev):
             "plain_ms": time_ms(lambda: run(args, plain=True), iters=5,
                                 flush=flush),
             "bound_ms": b_ms, "bound_by": b_by,
+            "tc_bound_ms": tc_bound(nbytes, flops),
             "launch": mod.launch_plan(N, D),
             "ptxas": _ptxas(name, name + "_kernel"),
             "shape": {"T": T, "N": N, "D": D, "timed_lengths": "all T"},
@@ -1944,13 +2005,15 @@ def _matmul_kernel_check(dev):
                  "tolerance cannot tell float32 from TF32"
                  % (rec["tf32_inputs_rel_err"], MM_REL_TOL))
         if shape in MM_SHAPES:
-            b_ms, b_by = bound(4 * (M * K + K * N + M * N), 2 * M * N * K)
+            work = (4 * (M * K + K * N + M * N), 2 * M * N * K)
+            b_ms, b_by = bound(*work)
             rec.update({
                 "plain_ms": time_ms(lambda: mm.matmul_reference(x, w),
                                     flush=flush),
                 "library_ms": time_ms(lambda: torch.matmul(x, w),
                                       flush=flush),
-                "bound_ms": b_ms, "bound_by": b_by})
+                "bound_ms": b_ms, "bound_by": b_by,
+                "tc_bound_ms": tc_bound(*work)})
         per_shape["x".join(str(d) for d in shape)] = rec
         del x, w, plain, tf32
     del flush
@@ -2199,6 +2262,7 @@ def phase_tune(dev, root, train5):
         "ms": per_launch(lambda r, t: r["ms"][t]),
         "plain_ms": per_launch(lambda r, t: r["plain_ms"]),
         "bound_ms": per_launch(lambda r, t: r["bound_ms"]),
+        "tc_bound_ms": per_launch(lambda r, t: r["tc_bound_ms"]),
         "bound_by": "operations",
         "library_ms": per_launch(lambda r, t: r["library_ms"]),
         "library": "torch.matmul (cuBLAS), TF32 off",

@@ -30,6 +30,8 @@ import itertools
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE
+
 __all__ = ["Conv3x3Space", "KernelSpace", "MatmulSpace", "SMEM_BUDGET",
            "get_space", "signature", "space_names"]
 
@@ -90,7 +92,7 @@ class KernelSpace(object):
         """callable(*operands) running the stock PyTorch lowering."""
         raise NotImplementedError
 
-    def make_operands(self, key, seed=0, device="cpu"):
+    def make_operands(self, key, seed=0, device=DEFAULT_DEVICE):
         raise NotImplementedError
 
     def candidates(self, key, budget=None):
@@ -158,7 +160,7 @@ class MatmulSpace(KernelSpace):
         return smem_bytes(int(config["block_m"]), int(config["block_n"]),
                           int(config["block_k"]))
 
-    def make_operands(self, key, seed=0, device="cpu"):
+    def make_operands(self, key, seed=0, device=DEFAULT_DEVICE):
         rng = np.random.RandomState(seed)
         x = rng.randn(key["m"], key["k"])
         w = rng.randn(key["k"], key["n"]) * 0.1
@@ -204,7 +206,7 @@ class Conv3x3Space(KernelSpace):
     def smem_bytes(self, config, key):
         return self.SMEM
 
-    def make_operands(self, key, seed=0, device="cpu"):
+    def make_operands(self, key, seed=0, device=DEFAULT_DEVICE):
         rng = np.random.RandomState(seed)
         x = rng.randn(key["n"], key["h"], key["w"], key["c"])
         w = rng.randn(3, 3, key["c"], key["o"]) * 0.1

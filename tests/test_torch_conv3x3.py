@@ -31,14 +31,6 @@ SHAPES = [(2, 8, 8, 16, 32), (1, 7, 7, 64, 64), (2, 14, 14, 32, 16),
           (3, 7, 9, 24, 40)]
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; on the card run "
-                    "python -m pytest -m cuda tests/test_torch_*.py")
-    return torch.device("cuda", 0)
-
-
 def _inputs(shape, seed):
     n, h, w, c, o = shape
     rng = np.random.RandomState(seed)
@@ -103,30 +95,3 @@ def test_cpu_call_counts_no_launch():
     counts = kernels.launch_counts()
     assert {"conv3x3_fwd", "conv3x3_dx"} <= set(counts)
     assert set(counts.values()) == {0}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES + [(2, 5, 6, 3, 7)])
-def test_kernel_matches_plain_version_on_the_card(cuda_device, shape):
-    x, w, g = (torch.from_numpy(a).to(cuda_device)
-               for a in _inputs(shape, seed=7))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    kernels.reset_launches()
-    out = tconv.conv3x3_s1_nhwc(x, w)
-    dx, dw = tconv.conv3x3_bwd(x, w, g)
-    torch.cuda.synchronize()
-    assert kernels.launch_counts()["conv3x3_fwd"] == 1
-    assert kernels.launch_counts()["conv3x3_dx"] == 1
-    want = tconv.conv3x3_reference(x, w)
-    want_dx, want_dw = tconv.conv3x3_bwd_reference(x, w, g)
-    for got, ref in ((out, want), (dx, want_dx), (dw, want_dw)):
-        assert float((got - ref).abs().max()) <= \
-            TOL * max(1.0, float(ref.abs().max()))
-
-
-@pytest.mark.cuda
-def test_kernel_refuses_other_dtypes(cuda_device):
-    x, w, _ = (torch.from_numpy(a).to(cuda_device)
-               for a in _inputs(SHAPES[0], seed=8))
-    with pytest.raises(ValueError, match="float32"):
-        tconv.conv3x3_s1_nhwc(x.double(), w.double())

@@ -1,8 +1,8 @@
 """The blocked matmul: the port's plain version and its
 ``torch.autograd.Function`` wrapper against the JAX package's ``matmul``
 (the Pallas kernel in interpret mode on the CPU) and its custom vjp, the
-population gate, the tiling normaliser, and on the card the CUDA kernel
-against its plain version.
+population gate and the tiling normaliser. The CUDA kernel is held
+against its plain version on the card by ``test_torch_matmul_cuda.py``.
 
 Operands are made with numpy from a seed and handed to both packages.
 Tolerance: 1e-5 of the largest magnitude of the JAX output, float32 on
@@ -32,14 +32,6 @@ SHAPES = [(64, 256, 128), (24, 384, 256), (8, 128, 384), (10, 100, 30),
 JAX_TILINGS = [None, {"block_m": 8, "block_n": 128, "block_k": 128}]
 # tilings of the port's kernel (the plain version's k-tile order)
 PORT_TILINGS = [None, {"block_m": 64, "block_n": 128, "block_k": 32}]
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; on the card run "
-                    "python -m pytest -m cuda tests/test_torch_*.py")
-    return torch.device("cuda", 0)
 
 
 def _inputs(shape, seed):
@@ -148,39 +140,3 @@ def test_cpu_call_counts_no_launch():
     tmm.matmul(x, w, config={"block_m": 64, "block_n": 64, "block_k": 8})
     counts = kernels.launch_counts()
     assert "matmul" in counts and counts["matmul"] == 0
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(256, 384, 256), (100, 130, 200),
-                                   (1, 3, 5), (130, 257, 66)])
-def test_kernel_matches_plain_version_at_every_tiling(cuda_device, shape):
-    torch.backends.cuda.matmul.allow_tf32 = False
-    x, w, _ = (torch.from_numpy(a).to(cuda_device)
-               for a in _inputs(shape, seed=7))
-    lib = tmm._build.load("matmul")
-    for t in tmm.TILINGS:
-        assert lib.matmul_smem_bytes(*t) == tmm.smem_bytes(*t)
-        cfg = dict(zip(("block_m", "block_n", "block_k"), t))
-        kernels.reset_launches()
-        got = tmm.matmul(x, w, config=cfg)
-        torch.cuda.synchronize()
-        assert kernels.launch_counts()["matmul"] == 1
-        want = tmm.matmul_reference(x, w, cfg)
-        err = float((got - want).abs().max())
-        assert err <= TOL * max(1.0, float(want.abs().max())), (t, err)
-
-
-@pytest.mark.cuda
-def test_kernel_refuses_what_it_does_not_take(cuda_device):
-    x = torch.randn(64, 128, device=cuda_device)
-    w = torch.randn(128, 128, device=cuda_device)
-    kernels.reset_launches()
-    with pytest.raises(ValueError, match="float32"):
-        tmm.matmul(x.bfloat16(), w.bfloat16())
-    with pytest.raises(ValueError, match="contiguous"):
-        tmm.matmul(x, torch.randn(128, 128, device=cuda_device).t())
-    with pytest.raises(ValueError, match="w \\[K, N\\]"):
-        tmm.matmul(x, w[:64])
-    with pytest.raises(ValueError, match="float32"):
-        tmm.matmul(x, w, out_dtype=torch.bfloat16)
-    assert kernels.launch_counts()["matmul"] == 0

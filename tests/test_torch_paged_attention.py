@@ -22,14 +22,6 @@ from paddle_tpu_torch.kernels import paged_attention as tpa  # noqa: E402
 TOL = 2e-5
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; on the card run "
-                    "python -m pytest -m cuda tests/test_torch_*.py")
-    return torch.device("cuda", 0)
-
-
 # the JAX parity grid of tests/test_kernels_parity.py:
 # (R, pages, MB, T, nh, dh, block_r, block_kv)
 PAGED_GRID = [
@@ -100,20 +92,3 @@ def test_wrapper_refuses_grad():
     q.requires_grad_(True)
     with pytest.raises(NotImplementedError, match="backward"):
         tpa.paged_attention(q, kp, vp, tables, positions)
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_version_on_the_card(cuda_device):
-    # engine-shaped: mixed positions including 0, T-1, T and the last
-    # column, and an all-trash row
-    R, pages, MB, T, nh, dh = 8, 40, 8, 16, 4, 64
-    q, kp, vp, tables, positions = _operands(R, pages, MB, T, nh, dh, 21)
-    positions[2:6] = [T - 1, T, MB * T - 1, 37]
-    ops = [torch.from_numpy(a).to(cuda_device)
-           for a in (q, kp, vp, tables, positions)]
-    before = tpa.launches
-    got = tpa.paged_attention(*ops)
-    torch.cuda.synchronize()
-    assert tpa.launches == before + 1
-    want = tpa.paged_attention_reference(*ops)
-    assert float((got - want).abs().max()) <= TOL

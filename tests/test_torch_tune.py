@@ -14,6 +14,7 @@ faults and a cold in-memory cache layer. Tolerances: a tuned ``mul`` or
 taps in another order); losses of the two packages 1e-5 relative at
 every step, the tolerance of ``tests/test_torch_training.py``.
 """
+import inspect
 import json
 import os
 
@@ -37,6 +38,7 @@ from paddle_tpu_torch import tune  # noqa: E402
 from paddle_tpu_torch.core import ir as tir  # noqa: E402
 from paddle_tpu_torch.core import unique_name as tun  # noqa: E402
 from paddle_tpu_torch.core.executor import Executor as TExecutor  # noqa: E402
+from paddle_tpu_torch.device import DEFAULT_DEVICE  # noqa: E402
 from paddle_tpu_torch.core.scope import (Scope as TScope,  # noqa: E402
                                          scope_from_numpy)
 from paddle_tpu_torch.flags import FLAGS  # noqa: E402
@@ -127,6 +129,14 @@ def test_operands_are_the_jax_spaces_numbers(kernel, key):
         assert g.dtype == torch.float32
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert tune.signature(key) == jtune.signature(key)
+
+
+@pytest.mark.parametrize("kernel", ["matmul", "conv3x3"])
+def test_operands_default_to_the_card_like_every_entry_point(kernel):
+    make = tune.get_space(kernel).make_operands
+    assert DEFAULT_DEVICE == "cuda"
+    assert inspect.signature(make).parameters["device"].default == \
+        DEFAULT_DEVICE
 
 
 def test_stock_rung_is_the_library_call_without_tf32():
