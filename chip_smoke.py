@@ -19,9 +19,15 @@ Phases, in order; any failure exits non-zero at once:
    shapes the main path gives it, with the time of the kernel, of the
    plain version and of one PyTorch library call computing the same
    function, and the least time the card could take (in float32 on the
-   CUDA cores, and in 3xTF32 on the tensor cores); the flash backward
-   also at the templates of D 32 (non-causal) and D 128 (causal), and a
-   second launch of each of its kernels must equal the first bit for bit;
+   CUDA cores, and in 3xTF32 on the tensor cores); the flash forward and
+   backward also at the templates of D 32 (non-causal) and D 128
+   (causal), a second launch of each of their kernels must equal the
+   first bit for bit, and their TF32-rounded counterparts must miss the
+   tolerance; the forward is timed at the prefill's batch (1) and the LM
+   step's (8), where it is also held against the plain forward and
+   relaunched, with registers, spills and shared memory of every
+   template; the backward's cases first hold the forward's o and lse at
+   B 8;
 3. engine: export random GPT-2-small-wide weights (seed 0) as a
    generative artifact, load them onto the card, and serve 16 greedy
    requests (prompts of 16 to 900 tokens, 32 new tokens each) through
@@ -35,8 +41,9 @@ Phases, in order; any failure exits non-zero at once:
 5. train: build ``transformer_lm`` + softmax-CE + Adam at GPT-2-small
    widths with the port's layers DSL (``configs/tiny_lm.model``), run
    the startup program, hold step 1's ``@GRAD`` vars of every parameter
-   against ``torch.autograd`` through the plain functional forward (and
-   show that a TF32 attention misses the tolerance), train 8 Adam steps
+   against ``torch.autograd`` through the plain functional forward run
+   in float64 (and log it in float32, and show that a TF32 attention
+   misses the tolerance), train 8 Adam steps
    of 8 x 1024 synthetic tokens through ``Trainer.train`` (the loss must
    fall; the launch counters must equal 2 forward and 1 dK/dV and dQ
    launch a layer a step), profile two more steps, then export the
@@ -71,13 +78,18 @@ Phases, in order; any failure exits non-zero at once:
 8. tune: hold the blocked matmul kernel against its plain version at
    every compiled tiling, at the LM step's gemm shapes (8192 x 768 x 768,
    8192 x 768 x 3072, 8192 x 3072 x 768) and a ragged one (a TF32
-   product must miss the tolerance), with every tiling's, the plain
-   version's and ``torch.matmul``'s times; run ``python -m
-   paddle_tpu_torch tune`` on phase 5's config with the wall timer
-   against an empty cache of its own (exit 0) and print its table of the
-   stock rung's and each tiling's times; write a cache whose winner for
-   each gemm population is the race's fastest kernel tiling and train
-   phase 5's 8 Adam steps against it: step-1 gradients against the plain
+   product must miss the tolerance; a second launch must equal the first
+   bit for bit), with every tiling's, the plain version's and
+   ``torch.matmul``'s times and every template's registers, spills and
+   shared memory; run ``python -m paddle_tpu_torch tune`` on phase 5's
+   config with the wall timer against an empty cache of its own (exit
+   0), print its table of the stock rung's and each tiling's times and
+   which rung it cached at each population, by what margin; hold step
+   1's gradients at each of the 12 tilings (one cache a tiling, 72
+   matmul launches each) against the float64 reference; write a
+   cache whose winner for each gemm population is the race's fastest
+   kernel tiling (whatever the race cached) and train phase 5's 8 Adam
+   steps against it: step-1 gradients against the plain
    reference, exactly 72 matmul launches and 72 tune hits and 1 fallback
    a step, the losses within 1e-3 of phase 5's, and two profiled steps;
    then one ResNet-50 step against a cache that says stock for the first
@@ -140,26 +152,30 @@ LOGIT_TOL = 1e-3
 # or dv. Only sum orders differ (~1e-6 relative); the plain backward on
 # inputs rounded to TF32 errs by ~1e-3 and is shown to miss it.
 BWD_REL_TOL = 2e-5
+# the flash forward's cases (S, D, causal) at B 1, H 12: the prefill's
+# ragged lengths and S 1024 (timed), and the other head dims' templates
+FLASH_FWD_CASES = [(17, 64, True), (128, 64, True), (1024, 64, True),
+                   (130, 32, False), (130, 128, True)]
 # the flash backward's cases (S, D, causal): the training shape's ragged
 # lengths and S 1024 (timed), and the other head dims' templates
 FLASH_BWD_CASES = [(17, 64, True), (130, 64, True), (1024, 64, True),
                    (130, 32, False), (130, 128, True)]
 # Step-1 gradients of every parameter from the Executor (flash kernels,
 # the op lowerings and their grads) against torch.autograd through the
-# plain functional forward: the norm of the difference over the norm of
-# that parameter's reference gradient. Sum orders differ through 12
-# layers and 8192 tokens, and a ReLU whose input lies within float32
-# noise of 0 can open in one run and stay shut in the other, moving one
-# token's whole contribution (so an elementwise maximum is no measure):
-# together some 1e-3 for the worst parameter on the H100. A reference
-# whose attention inputs are rounded to TF32 moves them by 1e-2 and more;
-# it is measured in the same run and must miss this tolerance.
+# plain functional forward run in float64: the norm of the difference
+# over the norm of that parameter's reference gradient. The float32 run
+# sums in other orders through 12 layers and 8192 tokens, and a ReLU
+# whose input lies within float32 noise of 0 can open in it and stay
+# shut in the exact run, moving one token's whole contribution (so an
+# elementwise maximum is no measure). Against a float32 reference, which
+# carries the same noise of its own, that read some 1e-3 for the worst
+# parameter on the H100; the float32 reference's reading is still
+# logged. A reference whose attention inputs are rounded to TF32 moves
+# the gradients by 1e-2 and more; it is measured in the same run and
+# must miss this tolerance.
 GRAD_REL_TOL = 5e-3
 # The same check on phase 8's tuned run, whose 72 gemms a step go through
-# the matmul kernel: 1e-3. Both the kernel and the reference are
-# deterministic, so the reading repeats exactly from run to run on one
-# card (8.92e-4 for blk11_ln2_b on the H100); the cuBLAS gemms of phase 5
-# read 1.05e-3 and keep 5e-3 above.
+# the matmul kernel, and on each of the 12 tilings: 1e-3.
 TUNED_GRAD_REL_TOL = 1e-3
 # the training drive: GPT-2-small widths, 8 sequences of 1024 tokens a
 # step, 2 batches of synthetic next-token data repeated over 4 passes
@@ -350,7 +366,6 @@ def _paged_inputs(dev):
 
 
 def phase_kernels(dev):
-    from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import paged_attention as pa
     F = torch.nn.functional
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
@@ -399,28 +414,91 @@ def phase_kernels(dev):
         "shape": {"R": R, "MB": MB, "T": T, "nh": nh, "dh": dh,
                   "positions": positions.tolist()}}
 
-    # flash forward, the prefill's shape: causal, [1, S, 12, 64]
+    out.update(_flash_fwd_kernel(dev, flush))
+    out.update(_flash_bwd_kernels(dev, flush))
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def _flash_fwd_kernel(dev, flush):
+    """The forward kernel against the plain forward at FLASH_FWD_CASES (B
+    1, H 12), a second launch that must equal the first bit for bit, and
+    at S 1024 a plain forward on TF32-rounded inputs that must miss
+    KERNEL_TOL; then, at the prefill's shape (B 1) and the LM step's (B
+    8), S 1024, D 64, causal, the kernel held against the plain forward
+    and relaunched in the same way, and timed beside the plain forward
+    and SDPA."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    F = torch.nn.functional
+    H = 12
     rng = np.random.RandomState(12)
-    shapes, errs = {}, []
-    for S in (17, 128, 1024):
-        qkv = [torch.from_numpy(rng.randn(1, S, 12, 64).astype(np.float32)
+    lib = _build.load("flash_attention_fwd")
+    lib.flash_attention_fwd_smem_bytes.restype = ctypes.c_int
+
+    def err(got, want):
+        return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+    per_case = {}
+    for S, D, causal in FLASH_FWD_CASES:
+        qkv = [torch.from_numpy(rng.randn(1, S, H, D).astype(np.float32)
                                 ).to(dev) for _ in range(3)]
-        o, lse = fa.flash_attention_with_lse(*qkv, causal=True)
-        o_ref, lse_ref = fa.flash_attention_reference(*qkv, causal=True)
+        got = fa.flash_attention_with_lse(*qkv, causal=causal)
+        again = fa.flash_attention_with_lse(*qkv, causal=causal)
+        want = fa.flash_attention_reference(*qkv, causal=causal)
         torch.cuda.synchronize()
-        e = max(float((o - o_ref).abs().max()),
-                float((lse - lse_ref).abs().max()))
-        if not np.isfinite(e) or e > KERNEL_TOL:
+        case = "S%d_D%d_%s" % (S, D, "causal" if causal else "full")
+        rec = {"S": S, "D": D, "causal": causal,
+               "max_abs_err": err(got, want), "tolerance": KERNEL_TOL,
+               "second_launch_bit_identical": all(
+                   bool(torch.equal(a, b)) for a, b in zip(got, again)),
+               "smem_bytes": lib.flash_attention_fwd_smem_bytes(D),
+               "ptxas": _ptxas("flash_attention_fwd",
+                               "flash_fwd_kernelILi%dE" % D)}
+        if S == 1024:
+            rec["tf32_inputs_max_abs_err"] = err(fa.flash_attention_reference(
+                *(_tf32_round(t) for t in qkv), causal=causal), want)
+        log(json.dumps({"flash_fwd_check": {case: rec}}))
+        if not (np.isfinite(rec["max_abs_err"])
+                and rec["max_abs_err"] <= KERNEL_TOL):
             fail("flash_attention_fwd disagrees with its plain version at "
-                 "S=%d: max abs err %g > %g" % (S, e, KERNEL_TOL))
-        errs.append(e)
-        BH, D = 12, 64
-        pairs = S * (S + 1) // 2
-        work = ((4 * S * D + S) * BH * 4, 4 * pairs * D * BH)
-        b_ms, b_by = bound(*work)
+                 "%s: max abs err %g > %g" % (case, rec["max_abs_err"],
+                                              KERNEL_TOL))
+        if not rec["second_launch_bit_identical"]:
+            fail("flash_attention_fwd is not deterministic at %s: a second "
+                 "launch differs" % case)
+        if S == 1024 and not rec["tf32_inputs_max_abs_err"] > KERNEL_TOL:
+            fail("a TF32 forward errs by only %g <= KERNEL_TOL %g at %s: the "
+                 "tolerance cannot tell float32 from TF32"
+                 % (rec["tf32_inputs_max_abs_err"], KERNEL_TOL, case))
+        per_case[case] = rec
+        del qkv, got, again, want
+    per_shape = {}
+    for B in (1, TRAIN_BATCH):
+        S, D = 1024, 64
+        qkv = [torch.from_numpy(rng.randn(B, S, H, D).astype(np.float32)
+                                ).to(dev) for _ in range(3)]
+        got = fa.flash_attention_with_lse(*qkv, causal=True)
+        again = fa.flash_attention_with_lse(*qkv, causal=True)
+        fwd_err = err(got, fa.flash_attention_reference(*qkv, causal=True))
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+        del got, again
+        if not (np.isfinite(fwd_err) and fwd_err <= KERNEL_TOL):
+            fail("flash_attention_fwd disagrees with its plain version at "
+                 "B %d, S %d: max abs err %g > %g" % (B, S, fwd_err,
+                                                     KERNEL_TOL))
+        if not same:
+            fail("flash_attention_fwd is not deterministic at B %d, S %d: "
+                 "a second launch differs" % (B, S))
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in qkv)
-        shapes[S] = {
-            "max_abs_err": e,
+        work = ((4 * S * D + S) * B * H * 4,
+                4 * (S * (S + 1) // 2) * D * B * H)
+        b_ms, b_by = bound(*work)
+        per_shape["B%d" % B] = {
+            "B": B, "S": S, "H": H, "D": D, "causal": True,
+            "max_abs_err": fwd_err, "tolerance": KERNEL_TOL,
+            "second_launch_bit_identical": same,
             "ms": time_ms(lambda: fa.flash_attention_with_lse(
                 *qkv, causal=True), flush=flush),
             "plain_ms": time_ms(lambda: fa.flash_attention_reference(
@@ -429,23 +507,25 @@ def phase_kernels(dev):
             "tc_bound_ms": tc_bound(*work),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, is_causal=True), flush=flush)}
-    big = shapes[1024]
-    out["flash_attention_fwd"] = {
+        log(json.dumps({"flash_fwd_times": per_shape["B%d" % B]}))
+        del qkv, qh, kh, vh
+    big = per_shape["B1"]
+    return {"flash_attention_fwd": {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:119",
-        "max_abs_err": max(errs), "tolerance": KERNEL_TOL,
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           list(per_case.values()) + list(per_shape.values())),
+        "tolerance": KERNEL_TOL,
+        "tf32_inputs_max_abs_err": per_case["S1024_D64_causal"][
+            "tf32_inputs_max_abs_err"],
         "ms": big["ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
         "tc_bound_ms": big["tc_bound_ms"],
         "library_ms": big["library_ms"],
         "library": "scaled_dot_product_attention(is_causal=True)",
-        "shape": {"B": 1, "H": 12, "D": 64, "S_timed": 1024},
-        "per_S": {str(k): v for k, v in shapes.items()}}
-    out.update(_flash_bwd_kernels(dev, flush))
-    del flush
-    torch.cuda.empty_cache()
-    return out
+        "shape": {"B": 1, "H": H, "D": 64, "causal": True, "S_timed": 1024},
+        "per_shape": per_shape, "per_case": per_case}}
 
 
 def _rel_err(got, want):
@@ -458,7 +538,8 @@ def _flash_bwd_kernels(dev, flush):
     8, H 12, D 64, causal, S 1024), at the ragged S = 17 and 130, and at
     the other head dims' templates (D 32 non-causal, D 128 causal, S
     130); a second launch of each kernel must equal the first bit for
-    bit. Each kernel is timed alone at S 1024 on the delta its wrapper
+    bit. The forward kernel's o and lse, which both backwards take, are
+    held against the plain forward at each case first (B 8). Each kernel is timed alone at S 1024 on the delta its wrapper
     forms."""
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -473,6 +554,9 @@ def _flash_bwd_kernels(dev, flush):
         q, k, v, do = [torch.from_numpy(rng.randn(B, S, H, D).astype(
             np.float32)).to(dev) for _ in range(4)]
         o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+        # the forward kernel's o and lse feed both backwards: held first
+        fwd_err = max(float((g - w).abs().max()) for g, w in zip(
+            (o, lse), fa.flash_attention_reference(q, k, v, causal=causal)))
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
@@ -489,6 +573,10 @@ def _flash_bwd_kernels(dev, flush):
                 for n, a, b in zip(names, got, again)}
         tf32_rel = _rel_err(tf32, want)
         case = "S%d_D%d_%s" % (S, D, "causal" if causal else "full")
+        if not (np.isfinite(fwd_err) and fwd_err <= KERNEL_TOL):
+            fail("flash_attention_fwd disagrees with its plain version at "
+                 "B %d, %s: max abs err %g > %g" % (B, case, fwd_err,
+                                                   KERNEL_TOL))
         if not all(np.isfinite(x) and x <= BWD_REL_TOL
                    for x in rel.values()):
             fail("flash backward kernels disagree with the plain backward "
@@ -511,6 +599,7 @@ def _flash_bwd_kernels(dev, flush):
                                        retain_graph=True)
 
         rec = {"S": S, "D": D, "causal": causal,
+               "fwd_max_abs_err": fwd_err, "fwd_tolerance": KERNEL_TOL,
                "max_rel_err": rel, "max_abs_err": err,
                "tolerance_rel": BWD_REL_TOL,
                "second_launch_bit_identical": same,
@@ -870,12 +959,13 @@ def _up_biases(program, num_layers):
     return {i: bias_of[mul_out["blk%d_up" % i]] for i in range(num_layers)}
 
 
-def _reference_grads(params, feed, cfg, attention=None):
+def _reference_grads(params, feed, cfg, attention=None,
+                     dtype=torch.float32):
     """{name: grad} of the mean next-token cross entropy through the
-    plain functional forward (``attention`` maps q/k/v to the attention
-    output; default the plain causal attention)."""
+    plain functional forward, run in ``dtype`` (``attention`` maps q/k/v
+    to the attention output; default the plain causal attention)."""
     from paddle_tpu_torch.models import transformer as tt
-    leaves = {n: p.detach().clone().requires_grad_(True)
+    leaves = {n: p.detach().to(dtype, copy=True).requires_grad_(True)
               for n, p in params.items()}
     if attention is None:
         logits = tt.forward(leaves, feed["toks"], cfg)
@@ -897,11 +987,34 @@ def _tf32_attention(q, k, v):
     return fa.flash_attention_reference(*r, causal=True)[0]
 
 
+def _ref_names(up_b):
+    """{program parameter: its name in the plain forward's params}: the
+    serving face names the FFN-up bias blk<i>_up_b."""
+    return {b: "blk%d_up_b" % i for i, b in up_b.items()}
+
+
+def _grad_stats(got, want, ref_name):
+    """The worst parameter's norm of (got - want) over the norm of want,
+    the median over parameters, and the elementwise worst."""
+    norm_rel, max_rel = {}, {}
+    for n, g in got.items():
+        w = want[ref_name.get(n, n)]
+        d = g.to(w.dtype) - w
+        norm_rel[n] = float(d.norm() / w.norm())
+        max_rel[n] = float(d.abs().max() / w.abs().max())
+    worst = max(norm_rel, key=norm_rel.get)
+    return {"norm_rel_err": norm_rel[worst], "worst_param": worst,
+            "norm_rel_err_median": float(np.median(list(norm_rel.values()))),
+            "elementwise_max_rel_err": max(max_rel.values()),
+            "elementwise_worst_param": max(max_rel, key=max_rel.get)}
+
+
 def _grad_check(trainer, spec, cfg, feed, up_b, label="train",
                 tol=GRAD_REL_TOL):
     """Step 1 through the Executor, fetching every parameter's @GRAD,
     against torch.autograd through the plain forward on the parameters
-    the step started from."""
+    the step started from: run in float64 (the gate), in float32 and in
+    float32 with TF32-rounded attention inputs (which must miss)."""
     from paddle_tpu_torch.core.scope import global_scope
     scope = global_scope()
     params = [p.name for p in trainer.main_program.all_parameters()]
@@ -911,36 +1024,28 @@ def _grad_check(trainer, spec, cfg, feed, up_b, label="train",
                            + [n + "@GRAD" for n in params],
                            return_numpy=False)
     got = dict(zip(params, outs[1:]))
-    # the serving face names the FFN-up bias blk<i>_up_b
-    ref_name = {b: "blk%d_up_b" % i for i, b in up_b.items()}
+    ref_name = _ref_names(up_b)
     ref_params = {ref_name.get(n, n): t for n, t in start.items()}
     stats = {}
-    for ref_kind, attention in (("float32", None), ("tf32_attention",
-                                                    _tf32_attention)):
-        want, ref_loss = _reference_grads(ref_params, feed, cfg, attention)
-        norm_rel, max_rel = {}, {}
-        for n in params:
-            d, w = got[n] - want[ref_name.get(n, n)], want[ref_name.get(n, n)]
-            norm_rel[n] = float(d.norm() / w.norm())
-            max_rel[n] = float(d.abs().max() / w.abs().max())
-        worst = max(norm_rel, key=norm_rel.get)
-        stats[ref_kind] = {
-            "norm_rel_err": norm_rel[worst], "worst_param": worst,
-            "norm_rel_err_median": float(np.median(list(norm_rel.values()))),
-            "elementwise_max_rel_err": max(max_rel.values()),
-            "elementwise_worst_param": max(max_rel, key=max_rel.get),
-            "loss_abs_err": abs(float(outs[0].reshape(-1)[0]) - ref_loss)}
+    for ref_kind, attention, dtype in (
+            ("float64", None, torch.float64),
+            ("float32", None, torch.float32),
+            ("tf32_attention", _tf32_attention, torch.float32)):
+        want, ref_loss = _reference_grads(ref_params, feed, cfg, attention,
+                                          dtype)
+        stats[ref_kind] = dict(
+            _grad_stats(got, want, ref_name),
+            loss_abs_err=abs(float(outs[0].reshape(-1)[0]) - ref_loss))
         del want
     torch.cuda.synchronize()
     checks = {"params_checked": len(params), "tolerance_rel": tol,
-              "float32": stats["float32"],
-              "tf32_attention": stats["tf32_attention"]}
+              "gate": "float64", **stats}
     log(json.dumps({label + "_grad_check": checks}))
-    if not stats["float32"]["norm_rel_err"] <= tol:
-        fail("step-1 gradient of %s differs from the autograd reference "
-             "by %g (relative norm) > %g"
-             % (stats["float32"]["worst_param"],
-                stats["float32"]["norm_rel_err"], tol))
+    if not stats["float64"]["norm_rel_err"] <= tol:
+        fail("step-1 gradient of %s differs from the float64 autograd "
+             "reference by %g (relative norm) > %g"
+             % (stats["float64"]["worst_param"],
+                stats["float64"]["norm_rel_err"], tol))
     if not stats["tf32_attention"]["norm_rel_err"] > tol:
         fail("a TF32 attention moves the gradients by only %g <= "
              "tolerance %g: the tolerance cannot tell float32 from TF32"
@@ -981,6 +1086,27 @@ def _serve_trained(dev, art_dir, cfg, scope):
             "max_argmax_margin": worst}
 
 
+def _lm_build(dev):
+    """``transformer_lm`` + softmax-CE + Adam at GPT-2-small widths
+    through ``configs/tiny_lm.model`` (seed 0, TRAIN_BATCH sequences):
+    (widths, config, spec, trainer, main program)."""
+    from paddle_tpu_torch.configs import tiny_lm
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.trainer import Trainer
+    widths = dict(vocab=GPT2_SMALL["vocab_size"], seq=GPT2_SMALL["max_seq"],
+                  hidden=GPT2_SMALL["hidden"],
+                  num_layers=GPT2_SMALL["num_layers"],
+                  num_heads=GPT2_SMALL["num_heads"],
+                  ffn_mult=GPT2_SMALL["ffn_mult"])
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        spec = tiny_lm.model(batch=TRAIN_BATCH, samples=2 * TRAIN_BATCH,
+                             learning_rate=TRAIN_LR, seed=0, **widths)
+        trainer = Trainer(spec["cost"], spec["optimizer"],
+                          spec["feed_list"], device=dev)
+    return widths, tiny_lm.lm_config(**widths), spec, trainer, main_prog
+
+
 def _lm_train(dev, label, after=None, want_matmul=0,
               grad_tol=GRAD_REL_TOL):
     """Build ``transformer_lm`` + softmax-CE + Adam at GPT-2-small widths
@@ -993,25 +1119,11 @@ def _lm_train(dev, label, after=None, want_matmul=0,
     inside the trained scope. Returns the record the phase logs."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import kernels, tune
-    from paddle_tpu_torch.configs import tiny_lm
-    from paddle_tpu_torch.core import ir, unique_name
     from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
-    from paddle_tpu_torch.trainer import BeginIteration, EndIteration, \
-        Trainer
-    widths = dict(vocab=GPT2_SMALL["vocab_size"], seq=GPT2_SMALL["max_seq"],
-                  hidden=GPT2_SMALL["hidden"],
-                  num_layers=GPT2_SMALL["num_layers"],
-                  num_heads=GPT2_SMALL["num_heads"],
-                  ffn_mult=GPT2_SMALL["ffn_mult"])
-    cfg = tiny_lm.lm_config(**widths)
-    L = cfg.num_layers
+    from paddle_tpu_torch.trainer import BeginIteration, EndIteration
     t0 = time.monotonic()
-    main_prog, startup = ir.Program(), ir.Program()
-    with unique_name.guard(), ir.program_guard(main_prog, startup):
-        spec = tiny_lm.model(batch=TRAIN_BATCH, samples=2 * TRAIN_BATCH,
-                             learning_rate=TRAIN_LR, seed=0, **widths)
-        trainer = Trainer(spec["cost"], spec["optimizer"],
-                          spec["feed_list"], device=dev)
+    widths, cfg, spec, trainer, main_prog = _lm_build(dev)
+    L = cfg.num_layers
     build_s = time.monotonic() - t0
     n_ops = len(main_prog.global_block().ops)
     with scope_guard(Scope()):
@@ -1972,7 +2084,16 @@ def _matmul_kernel_check(dev):
     tiling, at the LM step's three gemm shapes and a ragged one, with the
     kernel (every tiling), plain, library and bound times at the step's
     shapes. Returns {shape: record}."""
+    from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import matmul as mm
+    lib = _build.load("matmul")
+    templates = {"%dx%dx%d" % t: {
+        "smem_bytes": lib.matmul_smem_bytes(*t),
+        "ptxas_vec": _ptxas("matmul", "matmul_kernelILi%dELi%dELi%dELb1E" % t),
+        "ptxas_scalar": _ptxas("matmul",
+                               "matmul_kernelILi%dELi%dELi%dELb0E" % t)}
+        for t in mm.TILINGS}
+    log(json.dumps({"matmul_templates": templates}))
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     per_shape = {}
     for i, shape in enumerate(MM_SHAPES + [MM_RAGGED_SHAPE]):
@@ -1981,15 +2102,20 @@ def _matmul_kernel_check(dev):
         plain = mm.matmul_reference(x, w)
         tf32 = torch.matmul(_tf32_round(x), _tf32_round(w))
         rec = {"max_rel_err": {}, "max_abs_err": 0.0, "ms": {},
-               "tf32_inputs_rel_err": _rel_err([tf32], [plain])}
+               "tf32_inputs_rel_err": _rel_err([tf32], [plain]),
+               "second_launch_bit_identical": True}
         for t in mm.TILINGS:
             cfg = _mm_config(t)
             got = mm.matmul(x, w, config=cfg)
+            again = mm.matmul(x, w, config=cfg)
             want = mm.matmul_reference(x, w, cfg)
             torch.cuda.synchronize()
             rec["max_rel_err"]["%dx%dx%d" % t] = _rel_err([got], [want])
             rec["max_abs_err"] = max(rec["max_abs_err"],
                                      float((got - want).abs().max()))
+            if not torch.equal(got, again):
+                fail("matmul is not deterministic at %s, tiling %s: a "
+                     "second launch differs" % (shape, t))
             if shape in MM_SHAPES:
                 rec["ms"]["%dx%dx%d" % t] = time_ms(
                     lambda: mm._launch(x, w, t), flush=flush)
@@ -2015,7 +2141,7 @@ def _matmul_kernel_check(dev):
                 "bound_ms": b_ms, "bound_by": b_by,
                 "tc_bound_ms": tc_bound(*work)})
         per_shape["x".join(str(d) for d in shape)] = rec
-        del x, w, plain, tf32
+        del x, w, plain, tf32, got, again, want
     del flush
     torch.cuda.empty_cache()
     log(json.dumps({"matmul_times": {
@@ -2028,7 +2154,8 @@ def _tune_race(root, work):
     """``python -m paddle_tpu_torch tune`` on a config at GPT-2-small
     widths with the wall timer, against an empty cache of its own. Exit
     0; returns the evidence rows (one per population, every candidate's
-    seconds)."""
+    seconds) and {population: the rung the race cached, with its
+    margin}."""
     cfg_path = os.path.join(work, "tune_gpt2_small.py")
     with open(cfg_path, "w") as f:
         f.write(
@@ -2070,6 +2197,22 @@ def _tune_race(root, work):
     log(json.dumps({"tune_race": {"seconds": time.monotonic() - t0,
                                   "cache_dir": race_dir,
                                   "winners": table}}))
+    # which rung the race cached at each population, and by how much the
+    # best of the other kind was slower
+    cached = {}
+    for row in table:
+        kernel_ms = {t: v for t, v in row["tiling_ms"].items()
+                     if v is not None}
+        best = min(kernel_ms, key=kernel_ms.get) if kernel_ms else None
+        stock = (row["winner"] or {}).get("use") == "xla"
+        won, other = ((row["stock_ms"], kernel_ms.get(best)) if stock
+                      else (kernel_ms.get(best), row["stock_ms"]))
+        cached[row["sig"]] = {
+            "rung": "stock" if stock else "kernel",
+            "config": row["winner"], "best_kernel_tiling": best,
+            "winner_ms": won, "runner_up_ms": other,
+            "margin": (other / won - 1.0) if won and other else None}
+    log(json.dumps({"tune_race_cached": cached}))
     if len(rows) != len(MM_SHAPES):
         fail("the tune race found %d populations, expected the %d gemm "
              "shapes of the LM step" % (len(rows), len(MM_SHAPES)))
@@ -2077,7 +2220,88 @@ def _tune_race(root, work):
            for row in rows for r in row["records"] if r["status"] != "ok"]
     if bad:
         fail("the tune race skipped %d candidate(s): %s" % (len(bad), bad))
-    return rows
+    return rows, cached
+
+
+def _tiling_grad_sweep(dev, work, rows):
+    """Step 1's gradients of the LM at each of the 12 matmul tilings (a
+    winner cache of its own naming that tiling at all three gemm
+    populations), each run from the same parameters and held against
+    the float64 reference as _grad_check holds the tuned run's: every
+    tiling must be within TUNED_GRAD_REL_TOL, so that phase 8's check
+    holds whichever tiling the race caches. The float32 reference's
+    reading is logged beside it, with the tiling's race time over the
+    race's best kernel time at each population."""
+    from paddle_tpu_torch import kernels, tune
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    from paddle_tpu_torch.flags import FLAGS
+    from paddle_tpu_torch.kernels import matmul as mm
+    _, cfg, spec, trainer, main_prog = _lm_build(dev)
+    L = cfg.num_layers
+    want_launches = dict(_no_launches(), flash_attention_fwd=2 * L,
+                         flash_attention_bwd_dkv=L,
+                         flash_attention_bwd_dq=L,
+                         matmul=sum(MM_COUNTS) * L)
+    race = {}
+    for row in rows:
+        ms = {"%(block_m)dx%(block_n)dx%(block_k)d" % r["config"]:
+              r["seconds"] for r in row["records"]
+              if r["config"].get("use") != "xla"}
+        race[row["sig"]] = {t: v / min(ms.values()) for t, v in ms.items()}
+    sweep = {}
+    with scope_guard(Scope()):
+        trainer._maybe_init()
+        scope = global_scope()
+        params = [p.name for p in main_prog.all_parameters()]
+        start = {n: scope.find_var(n).clone() for n in params}
+        feed = trainer.feeder.feed(next(iter(spec["reader"]())))
+        ref_name = _ref_names(_up_biases(main_prog, L))
+        ref_params = {ref_name.get(n, n): t for n, t in start.items()}
+        want = {kind: _reference_grads(ref_params, feed, cfg, dtype=dtype)[0]
+                for kind, dtype in (("float64", torch.float64),
+                                    ("float32", torch.float32))}
+        try:
+            for t in mm.TILINGS:
+                tag = "%dx%dx%d" % t
+                cache_dir = _fresh_dir(os.path.join(work, "tune_sweep"))
+                cache = tune.WinnerCache(cache_dir)
+                for row in rows:
+                    cache.put(tune.cache_key(tune.device_kind(), "matmul",
+                                             row["sig"]), _mm_config(t))
+                FLAGS.tune_cache_dir = cache_dir
+                tune.clear_memory_cache()
+                for n in params:
+                    scope.set_var(n, start[n].clone())
+                kernels.reset_launches()
+                outs = trainer.exe.run(main_prog, feed=feed, fetch_list=[
+                    n + "@GRAD" for n in params], return_numpy=False)
+                torch.cuda.synchronize()
+                launches = kernels.launch_counts()
+                got = dict(zip(params, outs))
+                del outs
+                sweep[tag] = {kind: _grad_stats(got, w, ref_name)
+                              for kind, w in want.items()}
+                sweep[tag]["race_ms_over_best"] = {
+                    sig: r[tag] for sig, r in race.items()}
+                del got
+                if launches != want_launches:
+                    fail("gradient sweep at %s: launch counts %s, expected "
+                         "%s" % (tag, launches, want_launches))
+        finally:
+            FLAGS.tune_cache_dir = TUNE_EMPTY_DIR
+            tune.clear_memory_cache()
+    del want, trainer
+    torch.cuda.empty_cache()
+    log(json.dumps({"tuned_grad_sweep": {"tolerance_rel": TUNED_GRAD_REL_TOL,
+                                         "gate": "float64",
+                                         "tilings": sweep}}))
+    bad = {t: r["float64"]["norm_rel_err"] for t, r in sweep.items()
+           if not r["float64"]["norm_rel_err"] <= TUNED_GRAD_REL_TOL}
+    if bad:
+        fail("step-1 gradients differ from the float64 autograd reference "
+             "by more than %g (relative norm) at tilings %s"
+             % (TUNED_GRAD_REL_TOL, bad))
+    return sweep
 
 
 def _fresh_dir(path):
@@ -2188,9 +2412,10 @@ def _conv_consult(dev, cache_dir):
 
 def phase_tune(dev, root, train5):
     """The autotune path: the matmul kernel against its plain version,
-    the wall-clock race of the tune verb, 8 Adam steps of GPT-2 small
-    against a cache of the race's fastest kernel tilings (held against
-    phase 5's losses), and the conv3x3 consult on ResNet-50."""
+    the wall-clock race of the tune verb, step 1's gradients at every
+    tiling, 8 Adam steps of GPT-2 small against a cache of the race's
+    fastest kernel tilings (held against phase 5's losses), and the
+    conv3x3 consult on ResNet-50."""
     from paddle_tpu_torch import tune
     from paddle_tpu_torch.flags import FLAGS
     before = tune.counters()
@@ -2200,7 +2425,8 @@ def phase_tune(dev, root, train5):
              "rerouted them" % before["tune_hits"])
     work = os.path.join(root, "build", "chip_smoke")
     per_shape = _matmul_kernel_check(dev)
-    rows = _tune_race(root, work)
+    rows, race_cached = _tune_race(root, work)
+    sweep = _tiling_grad_sweep(dev, work, rows)
     picked = _seed_kernel_cache(
         rows, _fresh_dir(os.path.join(work, "tune_kernel_tilings")))
     log(json.dumps({"tune_kernel_cache": picked}))
@@ -2219,6 +2445,9 @@ def phase_tune(dev, root, train5):
                    zip(rec["losses"], train5["losses"]))
     rec.update({
         "kernel_cache": picked,
+        "race_cached": race_cached,
+        "grad_sweep": {t: r["float64"]["norm_rel_err"]
+                       for t, r in sweep.items()},
         "phase5_losses": train5["losses"],
         "losses_max_rel_err_vs_phase5": loss_rel,
         "loss_tolerance_rel": LOSS_REL_TOL,

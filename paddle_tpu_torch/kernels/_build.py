@@ -3,11 +3,12 @@
 Each ``kernels/csrc/<name>.cu`` has a plain C interface and becomes its
 own shared library, compiled by ``nvcc`` for ``sm_90a`` into
 ``build/paddle_tpu_torch/`` at the root of the checkout (the directory
-``.gitignore`` lists) on first use, and loaded with ``ctypes``. The file
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. Nothing here runs at import
-time: the CPU tests import every module of the port, and this host has
-no ``nvcc``.
+``.gitignore`` lists) on first use, and loaded with ``ctypes``; the
+sources include the shared ``csrc/*.cuh`` headers. The file name carries
+a hash of the source, every header and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded. Nothing here runs
+at import time: the CPU tests import every module of the port, and this
+host has no ``nvcc``.
 
 :func:`build_all` starts one ``nvcc`` per source at once and waits for
 all of them; :func:`load` builds one library if it is missing and
@@ -24,7 +25,7 @@ import threading
 import time
 
 __all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_all", "build_log",
-           "check", "check_cuda_operands", "library_path", "load",
+           "check", "check_cuda_operands", "headers", "library_path", "load",
            "refuse_grad", "sources", "stream_handle"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -57,11 +58,20 @@ def _nvcc():
     return found
 
 
+def headers():
+    """Names of the shared headers (``csrc/*.cuh``), sorted."""
+    return sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+
+
 def library_path(name):
     """Where the library of ``csrc/<name>.cu`` lives for the current
-    source and flags."""
+    source, headers and flags."""
     with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
         digest = hashlib.sha256(f.read())
+    for header in headers():
+        digest.update(header.encode())
+        with open(os.path.join(CSRC_DIR, header), "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, "%s-%s.so" % (name,
                                                  digest.hexdigest()[:16]))

@@ -78,6 +78,8 @@
 // - Determinism. Two kernels and no atomics, as the TPU's two pallas_calls:
 //   each output element is written once, by one thread, after sums taken
 //   in a fixed order, so two launches on the same inputs agree bit for bit.
+// The 3xTF32 split, the mma, the fragment loads and the cp.async wrappers
+// are the shared helpers of tf32x3.cuh.
 // tools/torch_flash_bwd_study.py builds the alternatives named here and
 // measures them against this source.
 //
@@ -88,6 +90,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int WARPS = 4;
@@ -96,131 +100,7 @@ constexpr int BR = 16 * WARPS;  // rows a block owns: 16 a warp
 constexpr int BN = 32;          // rows of a streamed tile
 constexpr float LOG2E = 1.4426950408889634f;
 
-// -- 3xTF32 on mma.sync ------------------------------------------------------
-
-struct FragA {  // a 16 x 8 A operand, split
-  uint32_t hi[4], lo[4];
-};
-struct FragB {  // an 8 x 8 B operand, split
-  uint32_t hi[2], lo[2];
-};
-
-// x = hi + lo: hi is x rounded to TF32 once its low 13 bits are dropped,
-// which the tensor cores do as they read it; lo is the rest, exact in
-// float32, of which they read the top 19 bits as well
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  const uint32_t r = __float_as_uint(x) + 0x1000u;
-  hi = r;
-  lo = __float_as_uint(x - __uint_as_float(r & 0xffffe000u));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void add4(float (&d)[4], const float (&c)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += c[i];
-}
-
-// d += a * b in 3xTF32: the small terms first
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
-                                     const FragB& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
-// Fragment loads; g = lane / 4, t = lane % 4 (the PTX ISA's groupID and
-// threadID_in_group). `s` points at the tile's first element.
-
-// A = rows 0..15, columns 0..7 of a row-major tile
-template <int LD>
-__device__ __forceinline__ FragA load_a(const float* s, int g, int t) {
-  FragA f;
-  split(s[g * LD + t], f.hi[0], f.lo[0]);
-  split(s[(g + 8) * LD + t], f.hi[1], f.lo[1]);
-  split(s[g * LD + t + 4], f.hi[2], f.lo[2]);
-  split(s[(g + 8) * LD + t + 4], f.hi[3], f.lo[3]);
-  return f;
-}
-
-// A = a 16 x 8 C fragment, its columns taken in the order 0, 2, 4, 6, 1,
-// 3, 5, 7 (what load_b_perm's rows follow)
-__device__ __forceinline__ FragA a_of_c(const float (&c)[4]) {
-  FragA f;
-  split(c[0], f.hi[0], f.lo[0]);
-  split(c[2], f.hi[1], f.lo[1]);
-  split(c[1], f.hi[2], f.lo[2]);
-  split(c[3], f.hi[3], f.lo[3]);
-  return f;
-}
-
-// B = Y^T, Y the rows 0..7, columns 0..7 of a row-major tile (B[k][n] =
-// Y[n][k]): the keys of q k^T, the queries of k q^T
-template <int LD>
-__device__ __forceinline__ FragB load_b_t(const float* s, int g, int t) {
-  FragB f;
-  split(s[g * LD + t], f.hi[0], f.lo[0]);
-  split(s[g * LD + t + 4], f.hi[1], f.lo[1]);
-  return f;
-}
-
-// B = rows 0..7, columns 0..7 of a row-major tile, its rows in the order
-// 0, 2, 4, 6, 1, 3, 5, 7, to meet an A from a_of_c
-template <int LD>
-__device__ __forceinline__ FragB load_b_perm(const float* s, int g, int t) {
-  FragB f;
-  split(s[2 * t * LD + g], f.hi[0], f.lo[0]);
-  split(s[(2 * t + 1) * LD + g], f.hi[1], f.lo[1]);
-  return f;
-}
-
-// -- asynchronous copies -----------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool in) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool in) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most one group (the newest) is still in flight
-__device__ __forceinline__ void cp_async_wait_all_but_newest() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// rows r0 .. r0 + ROWS - 1 of one head (`src` at its row 0; rows
-// `stride` floats apart) into a [ROWS][D + 4] tile; rows past S read zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void copy_rows(float* dst, const float* src, int r0,
-                                          int S, size_t stride) {
-  constexpr int CHUNKS = D / 4;
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS;
-    const int c = i % CHUNKS;
-    const bool in = r0 + r < S;
-    cp_async16(dst + r * (D + 4) + 4 * c,
-               src + (in ? (size_t)(r0 + r) * stride : 0) + 4 * c, in);
-  }
-}
+// -- copies of tiles --------------------------------------------------------
 
 // entries r0 .. r0 + ROWS - 1 of a length-S vector; past S read zeros
 template <int ROWS>
@@ -281,13 +161,13 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   auto copy_tile = [&](int it) {
     const int q0 = q_first + it * BN;
     const int buf = it & 1;
-    copy_rows<D, BN>(qs + buf * BN * LD, q + head, q0, S, stride);
-    copy_rows<D, BN>(dos + buf * BN * LD, dout + head, q0, S, stride);
+    copy_rows<D, BN, THREADS>(qs + buf * BN * LD, q + head, q0, S, stride);
+    copy_rows<D, BN, THREADS>(dos + buf * BN * LD, dout + head, q0, S, stride);
     copy_vec<BN>(ls + buf * BN, lse_h, q0, S);
     copy_vec<BN>(dls + buf * BN, delta_h, q0, S);
   };
-  copy_rows<D, BR>(ks, k + head, k0, S, stride);
-  copy_rows<D, BR>(vs, v + head, k0, S, stride);
+  copy_rows<D, BR, THREADS>(ks, k + head, k0, S, stride);
+  copy_rows<D, BR, THREADS>(vs, v + head, k0, S, stride);
   copy_tile(0);
   cp_async_commit();
 
@@ -306,7 +186,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int q0 = q_first + it * BN;
     if (it + 1 < n_tiles) copy_tile(it + 1);
     cp_async_commit();  // an empty group on the last tile keeps the count
-    cp_async_wait_all_but_newest();
+    cp_async_wait<1>();
     __syncthreads();
     const float* qt = qs + (it & 1) * BN * LD;
     const float* dot = dos + (it & 1) * BN * LD;
@@ -429,11 +309,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   auto copy_tile = [&](int it) {
     const int buf = it & 1;
-    copy_rows<D, BN>(ks + buf * BN * LD, k + head, it * BN, S, stride);
-    copy_rows<D, BN>(vs + buf * BN * LD, v + head, it * BN, S, stride);
+    copy_rows<D, BN, THREADS>(ks + buf * BN * LD, k + head, it * BN, S, stride);
+    copy_rows<D, BN, THREADS>(vs + buf * BN * LD, v + head, it * BN, S, stride);
   };
-  copy_rows<D, BR>(qs, q + head, q0, S, stride);
-  copy_rows<D, BR>(dos, dout + head, q0, S, stride);
+  copy_rows<D, BR, THREADS>(qs, q + head, q0, S, stride);
+  copy_rows<D, BR, THREADS>(dos, dout + head, q0, S, stride);
   copy_tile(0);
   cp_async_commit();
 
@@ -462,7 +342,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int kt0 = it * BN;
     if (it + 1 < n_tiles) copy_tile(it + 1);
     cp_async_commit();  // an empty group on the last tile keeps the count
-    cp_async_wait_all_but_newest();
+    cp_async_wait<1>();
     __syncthreads();
     const float* kt = ks + (it & 1) * BN * LD;
     const float* vt = vs + (it & 1) * BN * LD;

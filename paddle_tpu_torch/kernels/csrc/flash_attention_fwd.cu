@@ -1,4 +1,5 @@
-// Flash attention forward, float32 on CUDA cores, for sm_90a.
+// Flash attention forward on Hopper's tensor cores, float32-exact through
+// 3xTF32, for sm_90a.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py, `_fa_forward` (its
 // pallas_call) with the kernel body `_fa_kernel`, reached through
@@ -6,139 +7,298 @@
 // causal or not, and the per-row logsumexp lse = m + log(den) with the
 // denominator floored at 1e-20, as the TPU kernel does.
 //
-// What bounds it on the H100: operations. A causal head of length S does
-// about 4 * D * S * (S + 1) / 2 flops (q.k and p.v) on 4 * S * D * 4
-// bytes of q, k, v and o; at S = 1024, D = 64 that is about 128 flops a
-// byte, above the f32 balance of the card (67 TFLOP/s over 3.35 TB/s, 20
-// flops a byte), so the least time is the flops over 67 TFLOP/s. This
-// first version runs on the CUDA cores in full f32; tensor cores (TF32,
-// bf16 through wgmma) are later work and would change the numbers.
+// What bounds it on the H100: operations. A causal head of length S has
+// S * (S + 1) / 2 (query, key) pairs that attend, each 4 * D flops (q.k
+// and p.v), on 4 * S * D * 4 bytes of q, k, v and o. Every product runs
+// on the tensor cores in 3xTF32, three TF32 products for each float32
+// one, so the least time is 3 * flops over the card's 495 TFLOP/s dense
+// TF32: 0.0098 ms at the prefill's shape (B 1, S 1024, H 12, D 64,
+// causal) and 0.078 ms at the LM step's (B 8); the bytes take a tenth of
+// that.
 //
-// Design. The TPU kernel holds the whole K and V of a head in VMEM and
-// loops over 128-wide k blocks; a thread block here has 227 KB of shared
-// memory at most, so it streams BK-row tiles of K and V through shared
-// memory instead. One thread block owns one (batch * head, BQ-row q
-// tile); TPR threads share one query row, each holding D / TPR elements
-// of q and of the output accumulator (element t + TPR * i, so the threads
-// of a row read distinct shared-memory banks). A q.k dot is reduced over
-// the TPR threads with two warp shuffles. Each k tile takes its row
-// maximum first and then rescales once, so the exponential of the
-// rescale is paid once a tile, not once a column. For causal attention
-// the loop stops at the tile that holds the q tile's last row; inside
-// the diagonal tile, and past the ragged end of S, columns are masked in
-// the kernel (the wrapper pads nothing).
+// Design.
+// - 3xTF32 (tf32x3.cuh): each float32 operand is split into a TF32 hi and
+//   a lo part, and a * b is taken as lo(a) hi(b) + hi(a) lo(b) + hi(a)
+//   hi(b) on mma.sync.m16n8k8, rounded by hand (add, mask, subtract) as
+//   the fragments are loaded.
+// - Tiles. The TPU kernel holds a head's whole K and V in VMEM; here a
+//   block of 4 warps owns 64 query rows of one (batch, head), 16 a warp,
+//   and streams K and V through shared memory in tiles of BN = 32 rows.
+//   A warp's q rows are read once, straight from device memory into
+//   registers, and split once into the A fragments of every 8-wide step
+//   of the head dim; they stay there for the whole walk. At D 128 that
+//   would spill, so there the block's q waits in shared memory and its
+//   fragments are loaded and split on every tile, as K's are.
+// - s = q k^T on the tensor cores, K's B fragments read transposed
+//   (load_b_t). The causal mask and the ragged end of S are applied in
+//   registers, and only on the tiles that the diagonal or the end cuts; a
+//   warp whose rows all precede a diagonal tile skips it.
+// - Online softmax on the C fragments. A row lives in one quad of 4
+//   lanes, so a tile's row maximum takes 2 shuffles; the row sum is kept
+//   in parts, one a lane, and gathered once at the end. Scores are taken
+//   in base 2 (scale * log2 e folded into one multiply, exp2f), and lse is
+//   brought back to natural logarithms at the end.
+// - o += p v. The C fragment of s holds columns 2t and 2t + 1 where an A
+//   fragment wants t and t + 4, so p goes straight from registers into
+//   the A operand with the k columns of each step taken in the order 0,
+//   2, 4, 6, 1, 3, 5, 7 (a_of_c), and V's B rows read in the same order
+//   (load_b_perm): no shuffle and no trip through shared memory.
+// - Accumulation. The tensor cores truncate as they accumulate, so each
+//   tile's p v is summed from zero on the tensor cores and added in
+//   float32 to the rescaled accumulator (acc = acc * alpha + tile). Within
+//   a tile, the large products (hi hi) and the two small ones of each
+//   3xTF32 product run in separate accumulators (mma3_apart), joined in
+//   float32 once a tile: a third as many truncating adds land on the
+//   large sum, and the errors against a float64 forward fall by about
+//   half, for a time that stays within the spread between runs
+//   (tools/torch_flash_bwd_study.py --kernel fwd, variant one_chain).
+// - Copies. K and V tiles come by 16-byte cp.async, double buffered: the
+//   next tile is in flight while the tensor cores work on the current one.
+//   Rows sit D + 4 floats apart, so each fragment load puts the 32 lanes
+//   on 32 distinct banks; rows past S are zero-filled. Dynamic shared
+//   memory (18 to 99 KB a block) is raised with cudaFuncSetAttribute; its
+//   error comes back through the entry point's return code.
+// - Causal blocks are issued last query tile first, the longest walks
+//   first. Determinism: no atomics, each output written once by one
+//   thread after sums in a fixed order, so relaunches agree bit for bit.
 //
-// Tensors are [B, S, H, D], contiguous: the layout the prefill's
-// projections produce, so no transpose is needed. lse is [B, H, S].
-// The kernel allocates nothing. The entry point launches on the stream it
-// is given and returns cudaGetLastError().
+// Tensors are [B, S, H, D], contiguous, 16-byte aligned: the layout the
+// prefill's projections produce, so no transpose is needed. lse is
+// [B, H, S]. The kernel allocates nothing. The entry point launches on the
+// stream it is given and returns a CUDA error code (0 on success).
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int BQ = 32;   // query rows per block
-constexpr int BK = 32;   // key rows per shared-memory tile
-constexpr int TPR = 4;   // threads per query row
-constexpr int THREADS = BQ * TPR;
-constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BR = 16 * WARPS;  // query rows a block owns: 16 a warp
+constexpr int BN = 32;          // key rows of a streamed tile
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
+// q's A fragments are split once, into registers, for the whole walk where
+// the registers allow it. At D 128 the split fragments (128 registers a
+// lane) beside the output accumulator (64) and the tile's p (32) spill, so
+// there the block's q waits in shared memory and each tile loads and
+// splits its fragments again. (q kept in registers as floats and split at
+// each use is no cure: the compiler hoists the split out of the walk.)
+template <int D>
+constexpr bool Q_IN_REGS = D < 128;
+
+template <int D>
+constexpr int fwd_smem_bytes() {
+  // K and V, two buffers each, and at D 128 the block's q
+  return (4 * BN + (Q_IN_REGS<D> ? 0 : BR)) * (D + 4) * 4;
+}
+
+// One block: 64 query rows [q0, q0 + 64) of one (batch, head). Warp w
+// holds q, the output accumulator and the softmax state of queries q0 +
+// 16 w .. + 15 in registers and walks the key tiles up to the diagonal.
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int S, int H, int causal,
                  float scale) {
-  constexpr int DS = D / TPR;
-  __shared__ float ks[BK][D];
-  __shared__ float vs[BK][D];
+  constexpr int LD = D + 4;
+  constexpr int NT = BN / 8;  // 8-key steps of a tile
+  constexpr int DT = D / 8;   // 8-wide steps of the head dim
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;              // [2][BN][LD]
+  float* vs = ks + 2 * BN * LD;  // [2][BN][LD]
+  float* qs = vs + 2 * BN * LD;  // [BR][LD], where q is not in registers
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.y * BQ;
-  const int r = threadIdx.x / TPR;
-  const int t = threadIdx.x % TPR;
-  const int qpos = q0 + r;
-  const bool row_ok = qpos < S;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  const size_t stride = (size_t)H * D;
+  const size_t head = (size_t)b * S * stride + (size_t)h * D;
 
-  const size_t row_stride = (size_t)H * D;
-  const size_t head_base = (size_t)b * S * row_stride + (size_t)h * D;
+  // queries of this block attend only to keys before q0 + 64
+  const int k_end = causal ? min(S, q0 + BR) : S;
+  const int n_tiles = (k_end + BN - 1) / BN;
 
-  float qv[DS];
-  float acc[DS];
+  auto copy_tile = [&](int it) {
+    const int buf = it & 1;
+    copy_rows<D, BN, THREADS>(ks + buf * BN * LD, k + head, it * BN, S, stride);
+    copy_rows<D, BN, THREADS>(vs + buf * BN * LD, v + head, it * BN, S, stride);
+  };
+  constexpr bool QREG = Q_IN_REGS<D>;
+  if constexpr (!QREG) copy_rows<D, BR, THREADS>(qs, q + head, q0, S, stride);
+  copy_tile(0);
+  cp_async_commit();
+
+  // this thread's two query rows, and the warp's q split once into A
+  // fragments (a 16 x 8 A fragment holds row g, column t; row g + 8,
+  // column t; then both at column t + 4), straight from device memory
+  const int w0 = q0 + warp * 16;
+  const int row = w0 + g;  // and row + 8
+  FragA qa[QREG ? DT : 1];
+  if constexpr (QREG) {
+    const float* r0 = q + head + (size_t)min(row, S - 1) * stride;
+    const float* r1 = q + head + (size_t)min(row + 8, S - 1) * stride;
+    const bool in0 = row < S, in1 = row + 8 < S;
 #pragma unroll
-  for (int i = 0; i < DS; ++i) {
-    qv[i] = row_ok ? q[head_base + (size_t)qpos * row_stride + t + TPR * i]
-                   : 0.f;
-    acc[i] = 0.f;
+    for (int kk = 0; kk < DT; ++kk) {
+      const int c = kk * 8 + t;
+      const float x[4] = {in0 ? r0[c] : 0.f, in1 ? r1[c] : 0.f,
+                          in0 ? r0[c + 4] : 0.f, in1 ? r1[c + 4] : 0.f};
+      qa[kk] = split_a(x);
+    }
   }
-  float m = -INFINITY;
-  float den = 0.f;
 
-  const int k_end = causal ? min(S, q0 + BQ) : S;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    for (int idx = threadIdx.x; idx < BK * D; idx += THREADS) {
-      const int j = idx / D;
-      const int d = idx % D;
-      const int kpos = k0 + j;
-      const bool in = kpos < S;
-      const size_t off = head_base + (size_t)kpos * row_stride + d;
-      ks[j][d] = in ? k[off] : 0.f;
-      vs[j][d] = in ? v[off] : 0.f;
-    }
+  float acc[DT][4];
+#pragma unroll
+  for (int dn = 0; dn < DT; ++dn)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[dn][i] = 0.f;
+  // per row half: the running maximum of the base-2 scores, and this
+  // lane's part of the denominator
+  float m[2] = {-INFINITY, -INFINITY};
+  float den[2] = {0.f, 0.f};
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kt0 = it * BN;
+    if (it + 1 < n_tiles) copy_tile(it + 1);
+    cp_async_commit();  // an empty group on the last tile keeps the count
+    cp_async_wait<1>();
     __syncthreads();
+    // a warp whose 16 rows all precede the tile adds nothing to them
+    if (!causal || kt0 <= w0 + 15) {
+      const float* kt = ks + (it & 1) * BN * LD;
+      const float* vt = vs + (it & 1) * BN * LD;
 
-    float s[BK];
-    float tile_max = -INFINITY;
+      // s = q k^T: 16 queries x BN keys a warp, the large products and
+      // the small ones summed in separate chains and joined once
+      float s[NT][4], sl[NT][4];
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float part = 0.f;
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int i = 0; i < DS; ++i) part = fmaf(qv[i], ks[j][t + TPR * i], part);
-      part += __shfl_xor_sync(FULL_MASK, part, 1);
-      part += __shfl_xor_sync(FULL_MASK, part, 2);
-      const int kpos = k0 + j;
-      const bool valid = kpos < S && (!causal || kpos <= qpos);
-      s[j] = valid ? part * scale : -INFINITY;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    const float new_m = fmaxf(m, tile_max);
-    // new_m stays -inf only while every column so far was masked (rows of
-    // the ragged q tail past S); such a row has nothing to rescale yet
-    if (new_m != -INFINITY) {
-      const float alpha = expf(m - new_m);
-      den *= alpha;
+        for (int i = 0; i < 4; ++i) s[n][i] = sl[n][i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < DS; ++i) acc[i] *= alpha;
+      for (int kk = 0; kk < DT; ++kk) {
+        FragA a;
+        if constexpr (QREG)
+          a = qa[kk];
+        else
+          a = load_a<LD>(qs + warp * 16 * LD + kk * 8, g, t);
 #pragma unroll
-      for (int j = 0; j < BK; ++j) {
-        const float p = expf(s[j] - new_m);
-        den += p;
-#pragma unroll
-        for (int i = 0; i < DS; ++i) acc[i] = fmaf(p, vs[j][t + TPR * i], acc[i]);
+        for (int n = 0; n < NT; ++n)
+          mma3_apart(s[n], sl[n], a,
+                     load_b_t<LD>(kt + n * 8 * LD + kk * 8, g, t));
       }
-      m = new_m;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) add4(s[n], sl[n]);
+
+      // base-2 scores, masked pairs at -inf, and each row's maximum;
+      // element i of a C fragment is query row g + 8 (i / 2), key column
+      // 2 t + i % 2
+      const bool masked = (causal && kt0 + BN - 1 > w0) || kt0 + BN > S;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x = s[n][i] * scale_log2;
+          if (masked) {
+            const int kpos = kt0 + n * 8 + 2 * t + (i & 1);
+            if (kpos >= S || (causal && kpos > row + 8 * (i >> 1)))
+              x = -INFINITY;
+          }
+          s[n][i] = x;
+          mx[i >> 1] = fmaxf(mx[i >> 1], x);
+        }
+      }
+      float alpha[2], m_use[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float x = mx[half];
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        const float m_new = fmaxf(m[half], x);
+        // a row with every column so far masked has nothing to rescale
+        m_use[half] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[half] = exp2f(m[half] - m_use[half]);
+        m[half] = m_new;
+        den[half] *= alpha[half];
+      }
+
+      // p in place, then into A fragments
+      FragA pa[NT];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = exp2f(s[n][i] - m_use[i >> 1]);
+          den[i >> 1] += p;
+          s[n][i] = p;
+        }
+        pa[n] = a_of_c(s[n]);
+      }
+
+      // o = o * alpha + p v, the tile's sum taken from zero on the tensor
+      // cores (in two chains, as s) and added in float32
+#pragma unroll
+      for (int dn = 0; dn < DT; ++dn) {
+        float c[4] = {0.f, 0.f, 0.f, 0.f}, cl[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          mma3_apart(c, cl, pa[n],
+                     load_b_perm<LD>(vt + n * 8 * LD + dn * 8, g, t));
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[dn][i] = fmaf(acc[dn][i], alpha[i >> 1], c[i] + cl[i]);
+      }
     }
-    __syncthreads();
+    __syncthreads();  // the tile's buffer is refilled next iteration
   }
 
-  if (row_ok) {
-    const float den_safe = fmaxf(den, 1e-20f);
-    const size_t out_off = head_base + (size_t)qpos * row_stride + t;
 #pragma unroll
-    for (int i = 0; i < DS; ++i) o[out_off + TPR * i] = acc[i] / den_safe;
-    if (t == 0) lse[(size_t)bh * S + qpos] = m + logf(den_safe);
+  for (int half = 0; half < 2; ++half) {
+    float d = den[half];
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    const int r = row + 8 * half;
+    if (r >= S) continue;
+    const float den_safe = fmaxf(d, 1e-20f);
+    const size_t off = head + (size_t)r * stride + 2 * t;
+#pragma unroll
+    for (int dn = 0; dn < DT; ++dn)
+      *reinterpret_cast<float2*>(o + off + dn * 8) =
+          make_float2(acc[dn][2 * half] / den_safe,
+                      acc[dn][2 * half + 1] / den_safe);
+    if (t == 0)
+      lse[(size_t)bh * S + r] = m[half] * LN2 + logf(den_safe);
   }
 }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 template <int D>
-void launch(const float* q, const float* k, const float* v, float* o,
-            float* lse, int B, int S, int H, int causal, float scale,
-            cudaStream_t stream) {
-  dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_fwd_kernel<D><<<grid, THREADS, 0, stream>>>(q, k, v, o, lse, S, H,
-                                                     causal, scale);
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* lse, int B, int S, int H, int causal, float scale,
+           cudaStream_t stream) {
+  constexpr int smem = fwd_smem_bytes<D>();
+  auto kernel = flash_fwd_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (S + BR - 1) / BR);
+  kernel<<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, S, H, causal,
+                                          scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -146,24 +306,38 @@ void launch(const float* q, const float* k, const float* v, float* o,
 extern "C" {
 
 // q, k, v, o [B, S, H, D] and lse [B, H, S], float32, contiguous, on one
-// device. D must be 32, 64 or 128.
+// device; the [B, S, H, D] tensors 16-byte aligned. D must be 32, 64 or
+// 128.
 int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int S, int H, int D,
                             int causal, float scale, void* stream) {
+  if (B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
+    return (int)cudaErrorMisalignedAddress;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(o);
   float* lf = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 32: launch<32>(qf, kf, vf, of, lf, B, S, H, causal, scale, st); break;
-    case 64: launch<64>(qf, kf, vf, of, lf, B, S, H, causal, scale, st); break;
-    case 128: launch<128>(qf, kf, vf, of, lf, B, S, H, causal, scale, st); break;
+    case 32: return launch<32>(qf, kf, vf, of, lf, B, S, H, causal, scale, st);
+    case 64: return launch<64>(qf, kf, vf, of, lf, B, S, H, causal, scale, st);
+    case 128:
+      return launch<128>(qf, kf, vf, of, lf, B, S, H, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory a block takes at head dim D (0 for a D without a
+// kernel).
+int flash_attention_fwd_smem_bytes(int D) {
+  switch (D) {
+    case 32: return fwd_smem_bytes<32>();
+    case 64: return fwd_smem_bytes<64>();
+    case 128: return fwd_smem_bytes<128>();
+    default: return 0;
+  }
 }
 
 const char* error_string(int code) {

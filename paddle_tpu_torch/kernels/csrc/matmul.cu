@@ -1,5 +1,5 @@
-// Blocked matrix product x [M, K] @ w [K, N] -> out [M, N], float32 on
-// CUDA cores, for sm_90a.
+// Blocked matrix product x [M, K] @ w [K, N] -> out [M, N] on Hopper's
+// tensor cores, float32-exact through 3xTF32, for sm_90a.
 //
 // Replaces: paddle_tpu/kernels/matmul.py, `_matmul_fwd` (its pallas_call)
 // with the kernel body `_kernel`, reached through `matmul`. It computes
@@ -11,28 +11,39 @@
 //
 // What bounds it on the H100: operations. One call does 2*M*N*K flops on
 // (M*K + K*N + M*N) floats; at the transformer projections of GPT-2 small
-// (M 8192 tokens, K and N 768 or 3072) that is 190 to 330 flops a byte,
-// far above the float32 balance of the card (67 TFLOP/s over 3.35 TB/s,
-// 20 flops a byte), so the least time is the flops over 67 TFLOP/s. This
-// version runs on the CUDA cores in full float32 (FFMA): no TF32, no
-// tensor cores; mma/wgmma with TMA loads are later work.
+// (M 8192 tokens, K and N 768 or 3072) that is 190 to 330 flops a byte.
+// Every product runs on the tensor cores in 3xTF32, three TF32 products
+// for each float32 one, so the least time is 3 * 2*M*N*K over the card's
+// 495 TFLOP/s dense TF32: 0.0586 ms at 8192 x 768 x 768 and 0.2343 ms at
+// 8192 x 768 x 3072 and 8192 x 3072 x 768 (the bytes take a fifth to a
+// ninth of that).
 //
-// Design: the TPU's sequential k axis becomes a loop inside the block.
-// One thread block of 256 threads owns a BM x BN output tile; all tiles
-// are in flight at once. It walks K in steps of BK: an x tile (BM x BK,
-// stored transposed, [k][m], so that a thread reads its rows as 16-byte
-// vectors) and a w tile (BK x BN) go through shared memory, two stages:
-// while the block computes on one stage, the next tiles are loaded from
-// global memory into registers and stored into the other stage after the
-// products, so a single barrier a step suffices. Each thread keeps a
-// TM x TN register micro-tile (TM = BM/16, TN = BN/16: 8 x 8 at 128 x 128)
-// of float32 sums, and the output tile is written once. The thread's rows
-// and columns are groups of 4 strided by 64, so the 16 threads of a
-// half-warp read and write 256 contiguous bytes. Ragged edges (M, N or K
-// not a multiple of the tile) are masked at the loads (zeros) and at the
-// stores, so the kernel is right at any shape. When K and N are multiples
-// of 4 and the pointers 16-byte aligned, global loads and stores are
-// 16-byte vectors.
+// Design.
+// - 3xTF32 (tf32x3.cuh): each float32 operand is split into a TF32 hi and
+//   a lo part, and x w is taken as lo(x) hi(w) + hi(x) lo(w) + hi(x)
+//   hi(w) on mma.sync.m16n8k8, rounded by hand (add, mask, subtract) as
+//   the fragments are loaded from shared memory.
+// - Tiles. The TPU's sequential k axis becomes a loop inside the block.
+//   One block of 8 warps owns a BM x BN output tile, the warps 2 along M
+//   and 4 along N, so a warp owns BM/2 x BN/4: (BM/32) x (BN/32) m16n8
+//   fragments of float32 sums in registers.
+// - Copies. Each BK-deep step's x tile, stored [BM][BK + 4], and w tile,
+//   stored [BK][BN + 8], come by cp.async into a ring of three stages: two
+//   steps are in flight while the tensor cores work on the third, and one
+//   barrier a step suffices. These pitches put the 32 lanes of a fragment
+//   load on 32 distinct banks (the A lanes on a permutation of 4 g + t,
+//   the B lanes on 8 t + g).
+// - Ragged shapes. When K and N are multiples of 4 and the pointers are
+//   16-byte aligned the copies are 16 bytes, else 4 bytes; every copy
+//   past an edge of M, N or K is zero-filled, and the stores are masked,
+//   so the kernel is right at any shape.
+// - Sum order. The tensor cores truncate as they accumulate, so each BK
+//   step is summed from zero on them (BK/8 mma k-steps) and added in
+//   float32 to the register accumulator: the tile-level order of the
+//   plain version (a float32 sum of the k tiles' products), and no drift
+//   over K = 3072.
+// - Determinism: no atomics, each output written once, so relaunches agree
+//   bit for bit.
 //
 // Tilings: one template instantiation for each (BM, BN, BK) in
 // {64, 128} x {64, 128} x {8, 16, 32}, the `params` of the port's
@@ -40,132 +51,67 @@
 // one by a switch and refuses any other.
 //
 // Tensors are contiguous, row-major. The kernel allocates nothing. The
-// entry point launches on the stream it is given and returns
-// cudaGetLastError().
+// entry point launches on the stream it is given and returns a CUDA error
+// code (0 on success).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;   // 16 x 16 threads, each a TM x TN micro-tile
-constexpr int PAD = 4;         // row padding of the transposed x tile
+constexpr int THREADS = 256;  // 8 warps: 2 along M, 4 along N
+constexpr int STAGES = 3;     // the ring of x and w tiles
+constexpr int X_PAD = 4;      // row padding of the x tile
+constexpr int W_PAD = 8;      // row padding of the w tile
 
 template <int BM, int BN, int BK>
 struct Tile {
-  static constexpr int TM = BM / 16;
-  static constexpr int TN = BN / 16;
-  static constexpr int AS_LD = BM + PAD;            // [k][m] pitch
-  static constexpr int AS = BK * AS_LD;             // one stage of x
-  static constexpr int BS = BK * BN;                // one stage of w
-  static constexpr int SMEM_BYTES = 2 * (AS + BS) * (int)sizeof(float);
-  // vector (float4) and scalar loads of each tile, per thread, rounded up
-  static constexpr int A_VEC = (BM * BK / 4 + THREADS - 1) / THREADS;
-  static constexpr int B_VEC = (BK * BN / 4 + THREADS - 1) / THREADS;
-  static constexpr int A_SCL = (BM * BK + THREADS - 1) / THREADS;
-  static constexpr int B_SCL = (BK * BN + THREADS - 1) / THREADS;
-  static_assert(BM % 64 == 0 && BN % 64 == 0, "groups of 4 strided by 64");
-  static_assert(BK % 4 == 0, "x tile rows load as 16-byte vectors");
+  static constexpr int WM = BM / 2;           // a warp's rows
+  static constexpr int WN = BN / 4;           // a warp's columns
+  static constexpr int MI = WM / 16;          // its m16 fragments
+  static constexpr int NI = WN / 8;           // its n8 fragments
+  static constexpr int XLD = BK + X_PAD;      // [m][k] pitch
+  static constexpr int WLD = BN + W_PAD;      // [k][n] pitch
+  static constexpr int XS = BM * XLD;         // one stage of x
+  static constexpr int WS = BK * WLD;         // one stage of w
+  static constexpr int SMEM_BYTES = STAGES * (XS + WS) * (int)sizeof(float);
+  static_assert(BM % 32 == 0 && BN % 32 == 0 && BK % 8 == 0, "tiling");
 };
 
-// Staging registers of one step's tiles.
-template <int BM, int BN, int BK, bool VEC>
-struct Stage {
-  using T = Tile<BM, BN, BK>;
-  float a[VEC ? 4 * T::A_VEC : T::A_SCL];
-  float b[VEC ? 4 * T::B_VEC : T::B_SCL];
-};
-
+// The x and w tiles of the k step at k0 into one stage; zeros past every
+// edge
 template <int BM, int BN, int BK, bool VEC>
 __device__ __forceinline__ void load_stage(
-    Stage<BM, BN, BK, VEC>& st, const float* __restrict__ x,
-    const float* __restrict__ w, int M, int N, int K, int m0, int n0, int k0,
-    int tid) {
+    float* xs, float* ws, const float* __restrict__ x,
+    const float* __restrict__ w, int M, int N, int K, int m0, int n0,
+    int k0) {
   using T = Tile<BM, BN, BK>;
-  if (VEC) {
-#pragma unroll
-    for (int i = 0; i < T::A_VEC; ++i) {
-      const int v = tid + i * THREADS;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (v < BM * BK / 4) {
-        const int row = v / (BK / 4), kv = (v % (BK / 4)) * 4;
-        const int m = m0 + row, k = k0 + kv;
-        if (m < M && k < K)   // K % 4 == 0: the vector is all in or out
-          val = *reinterpret_cast<const float4*>(x + (size_t)m * K + k);
-      }
-      st.a[4 * i] = val.x; st.a[4 * i + 1] = val.y;
-      st.a[4 * i + 2] = val.z; st.a[4 * i + 3] = val.w;
+  if (VEC) {  // K % 4 == 0 and N % 4 == 0: a chunk is all in or all out
+    for (int i = threadIdx.x; i < BM * BK / 4; i += THREADS) {
+      const int r = i / (BK / 4), c = (i % (BK / 4)) * 4;
+      const bool in = m0 + r < M && k0 + c < K;
+      cp_async16(xs + r * T::XLD + c,
+                 x + (in ? (size_t)(m0 + r) * K + k0 + c : 0), in);
     }
-#pragma unroll
-    for (int i = 0; i < T::B_VEC; ++i) {
-      const int v = tid + i * THREADS;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (v < BK * BN / 4) {
-        const int kr = v / (BN / 4), nv = (v % (BN / 4)) * 4;
-        const int k = k0 + kr, n = n0 + nv;
-        if (k < K && n < N)   // N % 4 == 0
-          val = *reinterpret_cast<const float4*>(w + (size_t)k * N + n);
-      }
-      st.b[4 * i] = val.x; st.b[4 * i + 1] = val.y;
-      st.b[4 * i + 2] = val.z; st.b[4 * i + 3] = val.w;
+    for (int i = threadIdx.x; i < BK * BN / 4; i += THREADS) {
+      const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+      const bool in = k0 + r < K && n0 + c < N;
+      cp_async16(ws + r * T::WLD + c,
+                 w + (in ? (size_t)(k0 + r) * N + n0 + c : 0), in);
     }
   } else {
-#pragma unroll
-    for (int i = 0; i < T::A_SCL; ++i) {
-      const int e = tid + i * THREADS;
-      float val = 0.f;
-      if (e < BM * BK) {
-        const int m = m0 + e / BK, k = k0 + e % BK;
-        if (m < M && k < K) val = x[(size_t)m * K + k];
-      }
-      st.a[i] = val;
+    for (int i = threadIdx.x; i < BM * BK; i += THREADS) {
+      const int r = i / BK, c = i % BK;
+      const bool in = m0 + r < M && k0 + c < K;
+      cp_async4(xs + r * T::XLD + c,
+                x + (in ? (size_t)(m0 + r) * K + k0 + c : 0), in);
     }
-#pragma unroll
-    for (int i = 0; i < T::B_SCL; ++i) {
-      const int e = tid + i * THREADS;
-      float val = 0.f;
-      if (e < BK * BN) {
-        const int k = k0 + e / BN, n = n0 + e % BN;
-        if (k < K && n < N) val = w[(size_t)k * N + n];
-      }
-      st.b[i] = val;
-    }
-  }
-}
-
-template <int BM, int BN, int BK, bool VEC>
-__device__ __forceinline__ void store_stage(
-    const Stage<BM, BN, BK, VEC>& st, float* as, float* bs, int tid) {
-  using T = Tile<BM, BN, BK>;
-  if (VEC) {
-#pragma unroll
-    for (int i = 0; i < T::A_VEC; ++i) {
-      const int v = tid + i * THREADS;
-      if (v < BM * BK / 4) {
-        const int row = v / (BK / 4), kv = (v % (BK / 4)) * 4;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) as[(kv + j) * T::AS_LD + row] = st.a[4 * i + j];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < T::B_VEC; ++i) {
-      const int v = tid + i * THREADS;
-      if (v < BK * BN / 4) {
-        const int kr = v / (BN / 4), nv = (v % (BN / 4)) * 4;
-        *reinterpret_cast<float4*>(bs + kr * BN + nv) =
-            make_float4(st.b[4 * i], st.b[4 * i + 1], st.b[4 * i + 2],
-                        st.b[4 * i + 3]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < T::A_SCL; ++i) {
-      const int e = tid + i * THREADS;
-      if (e < BM * BK) as[(e % BK) * T::AS_LD + e / BK] = st.a[i];
-    }
-#pragma unroll
-    for (int i = 0; i < T::B_SCL; ++i) {
-      const int e = tid + i * THREADS;
-      if (e < BK * BN) bs[e] = st.b[i];
+    for (int i = threadIdx.x; i < BK * BN; i += THREADS) {
+      const int r = i / BN, c = i % BN;
+      const bool in = k0 + r < K && n0 + c < N;
+      cp_async4(ws + r * T::WLD + c,
+                w + (in ? (size_t)(k0 + r) * N + n0 + c : 0), in);
     }
   }
 }
@@ -175,80 +121,97 @@ __global__ void __launch_bounds__(THREADS)
 matmul_kernel(const float* __restrict__ x, const float* __restrict__ w,
               float* __restrict__ out, int M, int N, int K) {
   using T = Tile<BM, BN, BK>;
-  constexpr int TM = T::TM, TN = T::TN;
+  constexpr int MI = T::MI, NI = T::NI;
   extern __shared__ __align__(16) float smem[];
-  float* as = smem;              // 2 stages of [BK][BM + PAD]
-  float* bs = smem + 2 * T::AS;  // 2 stages of [BK][BN]
+  float* xs = smem;                   // STAGES x [BM][BK + 4]
+  float* ws = smem + STAGES * T::XS;  // STAGES x [BK][BN + 8]
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  const int wm = (warp / 4) * T::WM;  // the warp's first row in the tile
+  const int wn = (warp % 4) * T::WN;  // and first column
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int nk = (K + BK - 1) / BK;
 
-  float acc[TM][TN];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  Stage<BM, BN, BK, VEC> st;
-  if (nk > 0) {
-    load_stage<BM, BN, BK, VEC>(st, x, w, M, N, K, m0, n0, 0, tid);
-    store_stage<BM, BN, BK, VEC>(st, as, bs, tid);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk)
+      load_stage<BM, BN, BK, VEC>(xs + s * T::XS, ws + s * T::WS, x, w, M,
+                                  N, K, m0, n0, s * BK);
+    cp_async_commit();
   }
-  __syncthreads();
 
-  for (int t = 0; t < nk; ++t) {
-    const int cur = t & 1;
-    const bool more = t + 1 < nk;
-    if (more)
-      load_stage<BM, BN, BK, VEC>(st, x, w, M, N, K, m0, n0, (t + 1) * BK,
-                                  tid);
-    const float* a_s = as + cur * T::AS;
-    const float* b_s = bs + cur * T::BS;
+  float acc[MI][NI][4];
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int g = 0; g < TM / 4; ++g) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            a_s + kk * T::AS_LD + g * 64 + ty * 4);
-        a[4 * g] = v.x; a[4 * g + 1] = v.y; a[4 * g + 2] = v.z; a[4 * g + 3] = v.w;
-      }
+    for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
-      for (int g = 0; g < TN / 4; ++g) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            b_s + kk * BN + g * 64 + tx * 4);
-        b[4 * g] = v.x; b[4 * g + 1] = v.y; b[4 * g + 2] = v.z; b[4 * g + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (more)
-      store_stage<BM, BN, BK, VEC>(st, as + (cur ^ 1) * T::AS,
-                                   bs + (cur ^ 1) * T::BS, tid);
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    // step kt has landed (only the groups of the later steps may still be
+    // in flight), and every warp is done with step kt - 1's stage, which
+    // the copy below refills
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
+    const int nxt = kt + STAGES - 1;
+    if (nxt < nk)
+      load_stage<BM, BN, BK, VEC>(xs + (nxt % STAGES) * T::XS,
+                                  ws + (nxt % STAGES) * T::WS, x, w, M, N, K,
+                                  m0, n0, nxt * BK);
+    cp_async_commit();  // an empty group near the end keeps the count
+
+    const float* xt = xs + (kt % STAGES) * T::XS + wm * T::XLD;
+    const float* wt = ws + (kt % STAGES) * T::WS + wn;
+    // the step's sum, from zero on the tensor cores
+    float c[MI][NI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[mi][ni][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      FragA a[MI];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        a[mi] = load_a<T::XLD>(xt + mi * 16 * T::XLD + kk * 8, g, t);
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const FragB b = load_b<T::WLD>(wt + kk * 8 * T::WLD + ni * 8, g, t);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) mma3(c[mi][ni], a[mi], b);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) add4(acc[mi][ni], c[mi][ni]);
   }
 
+  // element i of a C fragment is row g + 8 (i / 2), column 2 t + i % 2
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + (i / 4) * 64 + ty * 4 + (i % 4);
-    if (m >= M) continue;
-    float* orow = out + (size_t)m * N;
+  for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
-    for (int g = 0; g < TN / 4; ++g) {
-      const int n = n0 + g * 64 + tx * 4;
-      if (VEC) {
-        if (n < N)   // N % 4 == 0
-          *reinterpret_cast<float4*>(orow + n) =
-              make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
-                          acc[i][4 * g + 3]);
-      } else {
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm + mi * 16 + g + 8 * half;
+      if (m >= M) continue;
+      float* orow = out + (size_t)m * N;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (n + j < N) orow[n + j] = acc[i][4 * g + j];
+      for (int ni = 0; ni < NI; ++ni) {
+        const int n = n0 + wn + ni * 8 + 2 * t;
+        const float v0 = acc[mi][ni][2 * half];
+        const float v1 = acc[mi][ni][2 * half + 1];
+        if (VEC) {
+          if (n < N)  // N % 4 == 0: n + 1 < N too
+            *reinterpret_cast<float2*>(orow + n) = make_float2(v0, v1);
+        } else {
+          if (n < N) orow[n] = v0;
+          if (n + 1 < N) orow[n + 1] = v1;
+        }
       }
     }
   }

@@ -240,8 +240,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention_with_lse(q, k, v, causal=False, scale=None):
     """``(o, lse)`` as :func:`flash_attention_reference` returns them,
     differentiable in q, k and v through the flash backward. On CUDA:
-    float32, contiguous ``[B, S, H, D]`` q/k/v of one shape on one
-    device, ``D`` in (32, 64, 128); anything else raises."""
+    float32, contiguous, 16-byte aligned ``[B, S, H, D]`` q/k/v of one
+    shape on one device, ``D`` in (32, 64, 128); anything else raises."""
     return _FlashAttention.apply(q, k, v, causal, scale)
 
 

@@ -48,7 +48,11 @@ TILINGS = tuple((bm, bn, bk) for bm in (64, 128) for bn in (64, 128)
                 for bk in (8, 16, 32))
 DEFAULT_CONFIG = {"block_m": 128, "block_n": 128, "block_k": 8}
 
-_PAD = 4   # row padding of the transposed x tile (PAD in the source)
+# the shared-memory layout of csrc/matmul.cu: a ring of _STAGES stages of
+# the x tile [bm][bk + _X_PAD] and the w tile [bk][bn + _W_PAD]
+_STAGES = 3
+_X_PAD = 4
+_W_PAD = 8
 
 
 def _dtype_name(dtype):
@@ -89,10 +93,10 @@ def normalize_config(config=None):
 
 
 def smem_bytes(bm, bn, bk):
-    """Dynamic shared memory of one block of the tiling: two stages of
-    the transposed x tile (``bk x (bm + 4)``) and the w tile
-    (``bk x bn``), float32 (``Tile::SMEM_BYTES`` of the source)."""
-    return 2 * (bk * (bm + _PAD) + bk * bn) * 4
+    """Dynamic shared memory of one block of the tiling: three stages of
+    the x tile (``bm x (bk + 4)``) and the w tile (``bk x (bn + 8)``),
+    float32 (``Tile::SMEM_BYTES`` of the source)."""
+    return _STAGES * (bm * (bk + _X_PAD) + bk * (bn + _W_PAD)) * 4
 
 
 def matmul_reference(x, w, config=None):

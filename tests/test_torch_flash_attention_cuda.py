@@ -1,10 +1,13 @@
 """Flash attention forward on the card: the CUDA kernel against its
-plain version, causal and not, at ragged lengths.
+plain version, causal and not, at ragged lengths and at every head dim's
+template (D 32 non-causal, D 64, D 128 causal), with a second launch that
+must equal the first bit for bit, and its refusal of misaligned operands.
 
 JAX-free, so that it runs where the card is. Tolerance: 2e-5 absolute on
-``o`` and ``lse``, float32 on both sides; the kernel's online softmax
-and the plain version's dense one sum in other orders, which moves
-results of size ~1 by ~1e-6.
+``o`` and ``lse``, float32 on both sides; the kernel takes its products
+in 3xTF32 on the tensor cores, float32-exact, and its online softmax and
+the plain version's dense one sum in other orders, which moves results
+of size ~1 by ~1e-6.
 """
 import numpy as np
 import pytest
@@ -43,3 +46,45 @@ def test_kernel_matches_plain_version_on_the_card(cuda_device, S):
         o_r, lse_r = tfa.flash_attention_reference(q, k, v, causal=causal)
         assert float((o - o_r).abs().max()) <= TOL
         assert float((lse - lse_r).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 17, 130, 300])
+def test_kernel_matches_plain_version_at_every_head_dim(cuda_device, S):
+    for D, causal in ((32, False), (128, True)):
+        q, k, v = [torch.from_numpy(a).to(cuda_device)
+                   for a in _qkv(2, S, 3, D, seed=S + D)]
+        before = tfa.launches
+        o, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert tfa.launches == before + 1
+        o_r, lse_r = tfa.flash_attention_reference(q, k, v, causal=causal)
+        assert float((o - o_r).abs().max()) <= TOL, (D, causal)
+        assert float((lse - lse_r).abs().max()) <= TOL, (D, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,causal", [(32, False), (64, True),
+                                      (128, True)])
+def test_second_launch_is_bit_identical(cuda_device, D, causal):
+    # no atomics and a fixed order of sums: the same inputs give the
+    # same bits
+    q, k, v = [torch.from_numpy(a).to(cuda_device)
+               for a in _qkv(2, 257, 3, D, seed=D)]
+    o, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal)
+    o2, lse2 = tfa.flash_attention_with_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_misaligned_operands(cuda_device):
+    q, k, v = [torch.from_numpy(a).to(cuda_device)
+               for a in _qkv(1, 8, 1, 32, seed=5)]
+    # contiguous, but one float past a 16-byte boundary
+    shifted = torch.empty(q.numel() + 1, device=cuda_device)[1:]
+    q_off = shifted.view(q.shape).copy_(q)
+    before = tfa.launches
+    with pytest.raises(RuntimeError, match="misaligned"):
+        tfa.flash_attention_with_lse(q_off, k, v, causal=True)
+    assert tfa.launches == before

@@ -131,7 +131,7 @@ def test_normalize_config_maps_uncompiled_tilings_to_the_default():
 def test_smem_bytes_of_every_tiling_fits_a_block():
     for t in tmm.TILINGS:
         assert 0 < tmm.smem_bytes(*t) <= 227 * 1024
-    assert tmm.smem_bytes(128, 128, 8) == 2 * (8 * 132 + 8 * 128) * 4
+    assert tmm.smem_bytes(128, 128, 8) == 3 * (128 * 12 + 8 * 136) * 4
 
 
 def test_cpu_call_counts_no_launch():

@@ -1,12 +1,14 @@
 """The blocked matmul on the card: the CUDA kernel against its plain
 version at every compiled tiling (ragged shapes included), its shared
-memory against the wrapper's count, and what it refuses.
+memory against the wrapper's count, a second launch that must equal the
+first bit for bit, and what it refuses.
 
 JAX-free, so that it runs where the card is. Tolerance: 1e-5 of the
 largest magnitude of the plain output (or 1e-5 absolute below 1),
-float32 on both sides; the kernel and the plain version's k tiles of
-``torch.matmul`` sum in other orders, which moves outputs of size
-~1-10 by ~1e-6.
+float32 on both sides; the kernel takes its products in 3xTF32 on the
+tensor cores, float32-exact, and it and the plain version's k tiles of
+``torch.matmul`` sum in other orders, which moves outputs of size ~1-10
+by ~1e-6.
 """
 import numpy as np
 import pytest
@@ -55,6 +57,21 @@ def test_kernel_matches_plain_version_at_every_tiling(cuda_device, shape):
         want = tmm.matmul_reference(x, w, cfg)
         err = float((got - want).abs().max())
         assert err <= TOL * max(1.0, float(want.abs().max())), (t, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 384, 256), (130, 257, 66)])
+def test_second_launch_is_bit_identical(cuda_device, shape):
+    # no atomics and a fixed order of sums: the same inputs give the
+    # same bits, at every tiling
+    x, w, _ = (torch.from_numpy(a).to(cuda_device)
+               for a in _inputs(shape, seed=9))
+    for t in tmm.TILINGS:
+        cfg = dict(zip(("block_m", "block_n", "block_k"), t))
+        a = tmm.matmul(x, w, config=cfg)
+        b = tmm.matmul(x, w, config=cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), t
 
 
 @pytest.mark.cuda

@@ -1,37 +1,61 @@
 #!/usr/bin/env python3
-"""The design choices of ``paddle_tpu_torch/kernels/csrc/
-flash_attention_bwd.cu`` against alternatives, on one NVIDIA card. Run
-from the root of a checkout:
+"""The design choices of the 3xTF32 kernels (``paddle_tpu_torch/kernels/
+csrc/flash_attention_bwd.cu``, ``flash_attention_fwd.cu`` and
+``matmul.cu``) against alternatives, on one NVIDIA card. Run from the
+root of a checkout:
 
-    python3 tools/torch_flash_bwd_study.py
+    python3 tools/torch_flash_bwd_study.py [--kernel bwd fwd matmul]
 
-It builds the committed source and five variants made from it by text
-substitution, each with ``nvcc`` into ``build/flash_bwd_study/``:
+(the flash backward alone by default). For each kernel it builds the
+committed source and variants made from it and from the shared header
+``tf32x3.cuh`` by text substitution, each with ``nvcc`` into its own
+directory under ``build/flash_bwd_study/``. Every kernel has these:
 
 - ``cvt_rna``: the 3xTF32 split through ``cvt.rna.tf32.f32`` (hi =
-  cvt(x), lo = cvt(x - hi)) instead of the source's integer rounding;
-- ``mma_accumulator``: the long sums (dk and dv over the queries, dq
-  over the keys) left in the mma accumulators for the whole walk
-  instead of a float32 add after each group of steps;
+  cvt(x), lo = cvt(x - hi)) instead of the header's integer rounding;
+- ``mma_accumulator``: the long sums (bwd: dk and dv over the queries,
+  dq over the keys; fwd: o over the keys; matmul: out over K) left in
+  the mma accumulators for the whole walk instead of a float32 add after
+  each streamed tile;
 - ``tf32_once``: one TF32 product a float32 one (hi * hi) instead of
   three, so the split's lo halves go unused: not float32-exact (its
-  errors are ~1e-3), timed to show what the 3xTF32 scheme costs;
-- ``bn64``: streamed tiles of 64 rows instead of 32 (timed at D 64; the
-  D 128 templates spill at this size);
-- ``planes``: the dK/dV kernel's q and dO tiles split once as they land,
-  into hi (in place) and lo planes in shared memory that the fragment
-  loads then read, instead of each warp splitting every fragment it
-  loads (the dQ kernel as in the source).
+  errors are ~1e-3), timed to show what the 3xTF32 scheme costs.
 
-For each it prints the registers and spills ``-Xptxas -v`` reports, the
-largest error of dq, dk and dv over the largest magnitude of a float64
-plain backward at causal S 1024 (B 8, H 12, D 64: the LM step's shape)
-and S 2048 (B 2, H 4), and at S 1024 the CUDA-event median time of each
-kernel over 20 launches, L2 flushed before each. The last lines are the
-card's name and power limit and one JSON object with all of it. Exits
-non-zero without a card, or if the source no longer has the text a
-variant replaces.
+The backward also has ``bn64`` (streamed tiles of 64 rows instead of 32,
+timed at D 64; the D 128 templates spill at this size) and ``planes``
+(the dK/dV kernel's q and dO tiles split once as they land, into hi (in
+place) and lo planes in shared memory that the fragment loads then read,
+instead of each warp splitting every fragment it loads; the dQ kernel as
+in the source). The forward has ``bn64`` (key tiles of 64 rows),
+``br32`` (blocks of 2 warps and 32 query rows instead of 4 and 64),
+``q_in_smem`` (the block's q in shared memory and its fragments split
+on every tile at every D, as the source does at D 128 only),
+``min_blocks3`` (registers capped for 3 blocks an SM) and ``one_chain``
+(each 3xTF32 product's three terms in one mma accumulator, instead of
+the large term and the two small ones in separate chains); the matmul
+``stages2`` (a ring of two stages instead of three).
+
+For each it prints the registers and spills ``-Xptxas -v`` reports and:
+
+- bwd: the largest error of dq, dk and dv over the largest magnitude of a
+  float64 plain backward at causal S 1024 (B 8, H 12, D 64: the LM
+  step's shape) and S 2048 (B 2, H 4), and at S 1024 the time of each
+  kernel;
+- fwd: the largest error of o and lse against a float64 plain forward
+  (o over its largest magnitude, lse absolute) at causal S 1024 (B 8, H
+  12, D 64) and S 4096 (B 1, H 4), and the time at the prefill's shape
+  (B 1, S 1024, H 12, D 64, causal) and the LM step's (B 8);
+- matmul: at the LM step's gemm shapes (8192 x 768 x 768, 8192 x 768 x
+  3072, 8192 x 3072 x 768) the largest error over the largest magnitude
+  of a float64 product, worst over the tilings, and the time of every
+  tiling.
+
+Times are CUDA-event medians over 20 launches, L2 flushed before each.
+The last lines are the card's name and power limit and one JSON object
+with all of it. Exits non-zero without a card, or if the sources no
+longer have the text a variant replaces.
 """
+import argparse
 import ctypes
 import json
 import os
@@ -47,9 +71,9 @@ sys.path.insert(0, ROOT)
 
 from paddle_tpu_torch.kernels import _build  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
+from paddle_tpu_torch.kernels import matmul as mm  # noqa: E402
 
 OUT_DIR = os.path.join(ROOT, "build", "flash_bwd_study")
-NAME = "flash_attention_bwd"
 
 INT_SPLIT = """  const uint32_t r = __float_as_uint(x) + 0x1000u;
   hi = r;
@@ -96,11 +120,13 @@ PLANE_SPLIT = """    const float* dlt = dls + (it & 1) * BN;
     }
     __syncthreads();
 """
-# (text in the source, text in the variant)
-VARIANTS = {
+# (text in the sources, text in the variant), shared by every kernel
+COMMON = {
     "cvt_rna": [(INT_SPLIT, CVT_SPLIT)],
     "tf32_once": [("  mma_tf32(d, a.lo, b.hi);\n  mma_tf32(d, a.hi, b.lo);\n",
                    "")],
+}
+BWD_VARIANTS = {
     "mma_accumulator": [
         ("      float cv[4] = {0.f, 0.f, 0.f, 0.f}, "
          "ck[4] = {0.f, 0.f, 0.f, 0.f};\n",
@@ -133,18 +159,70 @@ VARIANTS = {
 }
 
 
-def variant_sources():
-    with open(os.path.join(_build.CSRC_DIR, NAME + ".cu")) as f:
-        src = f.read()
+FWD_VARIANTS = {
+    "tf32_once": COMMON["tf32_once"] + [
+        ("  mma_tf32(e, a.lo, b.hi);\n  mma_tf32(e, a.hi, b.lo);\n", "")],
+    "mma_accumulator": [
+        ("        float c[4] = {0.f, 0.f, 0.f, 0.f}, "
+         "cl[4] = {0.f, 0.f, 0.f, 0.f};\n",
+         """#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[dn][i] *= alpha[i >> 1];
+        float (&c)[4] = acc[dn];
+        float (&cl)[4] = acc[dn];
+"""),
+        ("""#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[dn][i] = fmaf(acc[dn][i], alpha[i >> 1], c[i] + cl[i]);
+""", ""),
+    ],
+    "one_chain": [
+        ("          mma3_apart(s[n], sl[n], a,\n", "          mma3(s[n], a,\n"),
+        ("          mma3_apart(c, cl, pa[n],\n", "          mma3(c, pa[n],\n")],
+    "bn64": [("constexpr int BN = 32; ", "constexpr int BN = 64; ")],
+    "br32": [("constexpr int WARPS = 4;", "constexpr int WARPS = 2;")],
+    "q_in_smem": [("constexpr bool Q_IN_REGS = D < 128;",
+                   "constexpr bool Q_IN_REGS = false;")],
+    "min_blocks3": [("__launch_bounds__(THREADS)\nflash_fwd_kernel",
+                     "__launch_bounds__(THREADS, 3)\nflash_fwd_kernel")],
+}
+MATMUL_VARIANTS = {
+    "mma_accumulator": [
+        ("""    float c[MI][NI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[mi][ni][i] = 0.f;
+""", "    float (&c)[MI][NI][4] = acc;\n"),
+        ("""#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) add4(acc[mi][ni], c[mi][ni]);
+""", ""),
+    ],
+    "stages2": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
+}
+def variant_sources(name, variants):
+    """{variant: {file name: text}}: the source ``csrc/<name>.cu`` and the
+    shared headers, as committed and as each variant edits them. Every
+    edited text must occur exactly once across the files."""
+    files = [name + ".cu"] + _build.headers()
+    src = {}
+    for f in files:
+        with open(os.path.join(_build.CSRC_DIR, f)) as fh:
+            src[f] = fh.read()
     out = {"source": src}
-    for name, edits in VARIANTS.items():
-        s = src
+    for vname, edits in dict(COMMON, **variants).items():
+        texts = dict(src)
         for old, new in edits:
-            if s.count(old) != 1:
-                sys.exit("torch_flash_bwd_study: the source no longer has "
-                         "the text variant %s replaces: %r" % (name, old))
-            s = s.replace(old, new)
-        out[name] = s
+            hits = [f for f in files if old in texts[f]]
+            if len(hits) != 1 or texts[hits[0]].count(old) != 1:
+                sys.exit("torch_flash_bwd_study: the sources of %s no longer "
+                         "have the text variant %s replaces once: %r"
+                         % (name, vname, old))
+            texts[hits[0]] = texts[hits[0]].replace(old, new)
+        out[vname] = texts
     return out
 
 
@@ -152,9 +230,12 @@ def ptxas_summary(log):
     """{kernel template: 'N registers[, spills]'} from nvcc -Xptxas -v."""
     out, cur = {}, None
     for ln in log.splitlines():
-        m = re.search(r"flash_bwd_(dkv|dq)_kernelILi(\d+)E", ln)
+        m = re.search(r"\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)E", ln)
         if "Compiling entry function" in ln and m:
-            cur = "%s_D%s" % m.groups()
+            args = re.findall(r"L[ib](\d+)E", m.group(2))
+            cur = "%s<%s>" % (m.group(1), ",".join(args))
+        elif "Compiling entry function" in ln:
+            cur = None
         elif cur and "registers" in ln:
             regs = re.search(r"Used (\d+) registers", ln).group(1)
             out[cur] = regs + " registers" + out.get(cur, "")
@@ -163,27 +244,31 @@ def ptxas_summary(log):
     return out
 
 
-def build(sources):
-    os.makedirs(OUT_DIR, exist_ok=True)
+def build(name, sources):
+    """Build every variant of ``csrc/<name>.cu``, one nvcc each, all
+    started together; returns ({variant: library}, {variant: ptxas})."""
     procs = {}
-    for name, src in sources.items():
-        path = os.path.join(OUT_DIR, name + ".cu")
-        with open(path, "w") as f:
-            f.write(src)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", path[:-3] + ".so",
-             path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+    for vname, texts in sources.items():
+        vdir = os.path.join(OUT_DIR, name, vname)
+        os.makedirs(vdir, exist_ok=True)
+        for f, text in texts.items():
+            with open(os.path.join(vdir, f), "w") as fh:
+                fh.write(text)
+        so = os.path.join(vdir, name + ".so")
+        procs[vname] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+             os.path.join(vdir, name + ".cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
     libs, ptxas = {}, {}
-    for name, proc in procs.items():
+    for vname, (so, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            sys.exit("torch_flash_bwd_study: nvcc failed on %s:\n%s"
-                     % (name, log))
-        lib = ctypes.CDLL(os.path.join(OUT_DIR, name + ".so"))
+            sys.exit("torch_flash_bwd_study: nvcc failed on %s %s:\n%s"
+                     % (name, vname, log))
+        lib = ctypes.CDLL(so)
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
-        libs[name], ptxas[name] = lib, ptxas_summary(log)
+        libs[vname], ptxas[vname] = lib, ptxas_summary(log)
     return libs, ptxas
 
 
@@ -203,27 +288,35 @@ def time_ms(fn, flush, iters=20, warmup=3):
     return float(np.median(times))
 
 
-def main():
-    if not torch.cuda.is_available():
-        sys.exit("torch_flash_bwd_study: needs a CUDA device")
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    libs, ptxas = build(variant_sources())
-    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
-    load = _build.load
+class using:
+    """Within the block, ``_build.load(name)`` returns ``lib``."""
+
+    def __init__(self, name, lib):
+        self.name, self.lib, self.load = name, lib, _build.load
+
+    def __enter__(self):
+        _build.load = (lambda n: self.lib if n == self.name
+                       else self.load(n))
+
+    def __exit__(self, *exc):
+        _build.load = self.load
+
+
+def _randn(rng, shape, dev, scale=1.0):
+    return torch.from_numpy((rng.randn(*shape) * scale).astype(
+        np.float32)).to(dev)
+
+
+def study_bwd(libs, result, dev, flush):
     rng = np.random.RandomState(0)
-    result = {name: {"ptxas": ptxas[name]} for name in libs}
     for B, S, H, D in ((8, 1024, 12, 64), (2, 2048, 4, 64)):
-        q, k, v, do = [torch.from_numpy(rng.randn(B, S, H, D).astype(
-            np.float32)).to(dev) for _ in range(4)]
+        q, k, v, do = [_randn(rng, (B, S, H, D), dev) for _ in range(4)]
         o, lse = fa.flash_attention_reference(q, k, v, causal=True)
         want = fa.flash_attention_bwd_reference(
             *(t.double() for t in (q, k, v, o, lse, do)), causal=True)
         delta = fa._delta(o, do, None).contiguous()
         for name, lib in libs.items():
-            _build.load = (lambda n, lib=lib:
-                           lib if n == NAME else load(n))
-            try:
+            with using("flash_attention_bwd", lib):
                 got = fa.flash_attention_bwd(q, k, v, o, lse, do,
                                              causal=True)
                 torch.cuda.synchronize()
@@ -235,18 +328,95 @@ def main():
                     rec["dkv_ms"] = time_ms(lambda: fa._bwd_dkv(*args),
                                             flush)
                     rec["dq_ms"] = time_ms(lambda: fa._bwd_dq(*args), flush)
-            finally:
-                _build.load = load
             result[name]["S%d" % S] = rec
             print(json.dumps({name: {"S%d" % S: rec}}), flush=True)
         del q, k, v, do, o, lse, want, delta
         torch.cuda.empty_cache()
+
+
+def study_fwd(libs, result, dev, flush):
+    rng = np.random.RandomState(0)
+    for B, S, H, D, timed in ((1, 1024, 12, 64, True),
+                              (8, 1024, 12, 64, True),
+                              (1, 4096, 4, 64, False)):
+        q, k, v = [_randn(rng, (B, S, H, D), dev) for _ in range(3)]
+        o_want, lse_want = fa.flash_attention_reference(
+            *(t.double() for t in (q, k, v)), causal=True)
+        tag = "B%d_S%d" % (B, S)
+        for name, lib in libs.items():
+            with using("flash_attention_fwd", lib):
+                o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+                torch.cuda.synchronize()
+                rec = {"o": float((o.double() - o_want).abs().max()
+                                  / o_want.abs().max()),
+                       "lse": float((lse.double() - lse_want).abs().max())}
+                if timed:
+                    rec["ms"] = time_ms(lambda: fa.flash_attention_with_lse(
+                        q, k, v, causal=True), flush)
+            result[name][tag] = rec
+            print(json.dumps({name: {tag: rec}}), flush=True)
+        del q, k, v, o_want, lse_want
+        torch.cuda.empty_cache()
+
+
+def study_matmul(libs, result, dev, flush):
+    rng = np.random.RandomState(0)
+    for M, K, N in ((8192, 768, 768), (8192, 768, 3072), (8192, 3072, 768)):
+        x = _randn(rng, (M, K), dev)
+        w = _randn(rng, (K, N), dev, 0.1)
+        want = torch.matmul(x.double(), w.double())
+        tag = "%dx%dx%d" % (M, K, N)
+        for name, lib in libs.items():
+            rec = {"max_rel_err": 0.0, "ms": {}}
+            with using("matmul", lib):
+                for t in mm.TILINGS:
+                    got = mm._launch(x, w, t)
+                    torch.cuda.synchronize()
+                    rec["max_rel_err"] = max(rec["max_rel_err"], float(
+                        (got.double() - want).abs().max()
+                        / want.abs().max()))
+                    rec["ms"]["%dx%dx%d" % t] = time_ms(
+                        lambda: mm._launch(x, w, t), flush)
+            best = min(rec["ms"], key=rec["ms"].get)
+            rec["best"] = {best: rec["ms"][best]}
+            result[name][tag] = rec
+            print(json.dumps({name: {tag: {"max_rel_err": rec["max_rel_err"],
+                                           "best": rec["best"]}}}),
+                  flush=True)
+        del x, w, want
+        torch.cuda.empty_cache()
+
+
+STUDIES = {  # kernel: (library name, its variants, its study)
+    "bwd": ("flash_attention_bwd", BWD_VARIANTS, study_bwd),
+    "fwd": ("flash_attention_fwd", FWD_VARIANTS, study_fwd),
+    "matmul": ("matmul", MATMUL_VARIANTS, study_matmul),
+}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", nargs="+", choices=sorted(STUDIES),
+                    default=["bwd"])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("torch_flash_bwd_study: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    out = {}
+    for kernel in args.kernel:
+        name, variants, study = STUDIES[kernel]
+        libs, ptxas = build(name, variant_sources(name, variants))
+        result = {v: {"ptxas": ptxas[v]} for v in libs}
+        study(libs, result, dev, flush)
+        out["%s_study" % kernel] = result
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     print(card[0] if card else "")
-    print(json.dumps({"flash_bwd_study": result}))
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":
