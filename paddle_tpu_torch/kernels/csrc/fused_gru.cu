@@ -1,5 +1,5 @@
-// The whole GRU recurrence of a ragged batch in one launch, float32 on
-// CUDA cores, for sm_90a.
+// The whole GRU recurrence of a ragged batch in one launch, float32-exact
+// on Hopper's tensor cores (3xTF32), for sm_90a.
 //
 // Replaces: paddle_tpu/kernels/fused_gru.py, `_forward` (its
 // pallas_call) with the kernel body `_kernel`, reached through
@@ -13,26 +13,47 @@
 // mask [T, N], hs [T, N, D]. The reset gate multiplies h before the
 // candidate's product (Paddle's GRU; PyTorch's applies it after).
 //
-// What bounds it on the H100: operations. 2 * T * N * D * 3D flops on
-// (T*N*(3D + D) + 3D*D + N*D + T*N) * 4 bytes; at T 100, N 64, D 512 that
-// is 10.1 GFLOP (0.150 ms at 67 TFLOP/s float32) against 55.6 MB (0.017
-// ms). The bound leaves out the serial chain of 2T - 1 grid-wide
-// barriers.
+// What bounds it on the H100. Operations: 2 * T * N * D * 3D flops, in
+// 3xTF32 three TF32 products each; at T 100, N 64, D 512 that is 0.0610
+// ms at 495 TFLOP/s against 55.6 MB (0.017 ms at 3.35 TB/s). In fact the
+// serial chain bounds it: a step needs every unit's r * h before any
+// candidate, so a step is two phases with a grid-wide barrier after
+// each, 2T - 1 barriers in all, and each phase reads the whole of h (or
+// r * h) that all blocks wrote in the phase before.
 //
-// Design: the persistent cooperative launch of fused_lstm.cu (read its
-// note), with three gate columns a unit. The candidate needs every
-// unit's r * h before any block can form its product, so a step has two
-// phases and a grid-wide barrier after each:
-//   A. stage h_{t-1} in shared memory; thread (n, j) forms u and r,
-//      writes r * h_{t-1}[n, j] to the scratch row rh[n] and u to its
-//      own slot hs[t][n, j] (hs[t] is read by nobody before the step
-//      ends, so it holds u in between and no other scratch is needed);
-//   B. stage rh in shared memory; thread (n, j) forms the candidate, reads
-//      its u back and h_{t-1}[n, j] (which it wrote itself), and writes
-//      h_t to hs[t][n, j].
-// The second barrier also orders the next step's writes of rh after
-// this step's reads. Cross-block data (hs, rh) is read with
-// ld.global.cg, past the L1, which is not coherent between SMs.
+// Design: one persistent cooperative launch; block b owns the DJ units
+// b*DJ .. b*DJ + DJ - 1 (64 blocks at D 512, one an SM) and walks the
+// batch in pieces of up to 64 rows, each piece through all T steps (the
+// rows are independent: only the units cross blocks). A step:
+//   A. h_{t-1} [rows, D] @ W[:, u | r of the block's units] [D, 2 DJ]:
+//      u and r; r * h_{t-1} of the block's units to the scratch rh.
+//   B. rh [rows, D] @ W[:, cand] [D, DJ]: the candidate, then h_t to
+//      hs[t].
+// What it does about the costs of a step:
+//   - the products run on mma.sync.m16n8k8 tf32 in 3xTF32 (tf32x3.cuh).
+//     The block's W columns are split into hi and lo once, before the
+//     time loop, and stay in shared memory as B fragments (16 bytes a
+//     lane, one load a fragment). The K = D reduction is split across
+//     the 8 warps: warp w multiplies k tiles [w KT / 8, (w+1) KT / 8) of
+//     every row, its sum starting from zero on the tensor cores (the
+//     large terms and the small ones in two chains), and the 8 partial
+//     sums are added in float32 in warp order through shared memory, so
+//     a relaunch is bit-identical;
+//   - each warp stages only its K slice of h_{t-1} (or rh) with
+//     cp.async.cg (L2 only: other SMs wrote it), one group for each 16
+//     rows, and starts on each 16 rows as they land: no block-wide
+//     barrier between copy and product;
+//   - the gate inputs xs[t] and the mask of a thread's (row, unit) pairs
+//     are loaded before the grid barrier that precedes the step, and
+//     arrive while the block waits;
+//   - u and h of the block's own units stay in registers from phase A to
+//     phase B and from step to step; only rh (after A) and hs[t] (after
+//     B) cross blocks;
+//   - the grid barrier is one red.release.gpu add a block and a spin on
+//     ld.acquire.gpu, with no fence pair.
+// Shared memory at D 512: 96 KB of W fragments, 129 KB for the staged
+// 64 rows (the 8 warps' partial sums reuse it). A D whose fragments and
+// 16 staged rows do not fit (D > 908) is refused by the plan.
 //
 // Tensors are contiguous float32. The kernel allocates nothing; the
 // entry point zeroes the barrier counter on the stream, launches on it
@@ -40,138 +61,288 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int PAD = 4;      // row pitch of the shared tiles: D + PAD floats
-constexpr int GATES = 3;
+constexpr int DJ = 8;                      // units a block
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int ROWS = 64;                   // rows of a piece, at most
+constexpr int MT = ROWS / 16;              // its m16 tiles
+constexpr int NA = (2 * DJ + 7) / 8;       // n8 tiles of phase A (u | r)
+constexpr int NB = (DJ + 7) / 8;           // n8 tiles of phase B (cand)
+constexpr int CA = 8 * NA;                 // row pitch of a partial sum
+constexpr int PAIRS = ROWS * DJ / THREADS; // (row, unit) pairs a thread
+static_assert(ROWS * DJ % THREADS == 0, "pairs must tile the threads");
+static_assert(MT <= 4, "wait_landed counts at most 4 groups");
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
 // All blocks of the grid meet here; `target` is the number of blocks
-// times the number of barriers passed so far, this one included. A wait
-// of seconds (a block that never arrives) traps, so the launch fails
-// with an error instead of hanging the card.
+// times the number of barriers passed so far, this one included. The
+// release add publishes the block's writes (ordered before it by the
+// __syncthreads), the acquire load sees every other block's. A wait of
+// seconds (a block that never arrives) traps, so the launch fails with
+// an error instead of hanging the card.
 __device__ __forceinline__ void grid_barrier(unsigned int* count,
                                              unsigned int target) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(count, 1u);
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(count),
+                 "r"(1u)
+                 : "memory");
+    unsigned int seen;
     unsigned long long spins = 0;
-    while (*reinterpret_cast<volatile unsigned int*>(count) < target) {
-      __nanosleep(32);
-      if (++spins > (1ull << 27)) __trap();
-    }
-    __threadfence();
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen)
+                   : "l"(count)
+                   : "memory");
+      if (++spins > (1ull << 25)) __trap();
+    } while (seen < target);
   }
   __syncthreads();
 }
 
-// Copy rows [r0, r0 + nr) of the [*, D] matrix `src` into `dst` (pitch
-// ld), bypassing L1: other blocks wrote `src`.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int r0, int nr, int D, int ld) {
-  const int d4 = D >> 2;
-  for (int idx = threadIdx.x; idx < nr * d4; idx += blockDim.x) {
-    const int n = idx / d4, k4 = idx - n * d4;
-    const float4 v = __ldcg(
-        reinterpret_cast<const float4*>(src + (size_t)(r0 + n) * D) + k4);
-    *reinterpret_cast<float4*>(dst + n * ld + 4 * k4) = v;
+// The warp's K slice (16-byte chunks [2 k0, 2 k1)) of rows r0 .. r0 + nr
+// - 1 of the [*, D] matrix `src` into hb (pitch ldh), one cp.async group
+// for each 16 rows (an empty group for an m tile past nr); rows past nr
+// and columns past D read zeros.
+__device__ __forceinline__ void stage_slice(float* hb, int ldh,
+                                            const float* src, int r0, int nr,
+                                            int D, int k0, int k1,
+                                            int lane) {
+  const int c0 = 2 * k0, nc = 2 * (k1 - k0);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    if (mt * 16 < nr) {
+      for (int i = lane; i < 16 * nc; i += 32) {
+        const int r = mt * 16 + i / nc, c = c0 + i % nc;
+        const bool in = r < nr && 4 * c < D;
+        cp_async16(hb + r * ldh + 4 * c,
+                   src + (in ? (size_t)(r0 + r) * D + 4 * c : 0), in);
+      }
+    }
+    cp_async_commit();
   }
 }
 
-__device__ __forceinline__ float dot_row(const float* a, const float* b,
-                                         int D) {
-  float s0 = 0.f, s1 = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < D; k += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(a + k);
-    const float4 y = *reinterpret_cast<const float4*>(b + k);
-    s0 = fmaf(x.x, y.x, s0); s1 = fmaf(x.y, y.y, s1);
-    s0 = fmaf(x.z, y.z, s0); s1 = fmaf(x.w, y.w, s1);
+// wait for the groups of m tiles 0 .. mt of the MT just committed
+__device__ __forceinline__ void wait_landed(int mt) {
+  switch (MT - 1 - mt) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
   }
-  return s0 + s1;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// A = rows 0..15, columns 0..7 of a row-major tile of pitch ld
+__device__ __forceinline__ FragA load_a_ld(const float* s, int ld, int g,
+                                           int t) {
+  FragA f;
+  split(s[g * ld + t], f.hi[0], f.lo[0]);
+  split(s[(g + 8) * ld + t], f.hi[1], f.lo[1]);
+  split(s[g * ld + t + 4], f.hi[2], f.lo[2]);
+  split(s[(g + 8) * ld + t + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// The warp's partial product of the staged rows (k tiles [k0, k1)) with
+// the NT fragment columns nt0 .. nt0 + NT - 1 of wf, into acc; each m
+// tile starts as its rows land.
+template <int NT>
+__device__ __forceinline__ void products(float (&acc)[MT][NT][4],
+                                         const float* hb, int ldh,
+                                         const uint4* wf, int KT, int nt0,
+                                         int k0, int k1, int nr, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float e[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = e[mt][nt][i] = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    wait_landed(mt);
+    __syncwarp();
+    if (mt * 16 >= nr) continue;
+    const float* a_rows = hb + mt * 16 * ldh;
+    for (int kt = k0; kt < k1; ++kt) {
+      const FragA a = load_a_ld(a_rows + 8 * kt, ldh, g, t);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint4 v = wf[((nt0 + nt) * KT + kt) * 32 + lane];
+        const FragB b = {{v.x, v.y}, {v.z, v.w}};
+        mma3_apart(acc[mt][nt], e[mt][nt], a, b);
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) add4(acc[mt][nt], e[mt][nt]);
+}
+
+// the warp's partial sums to red[warp][row][CA]
+template <int NT>
+__device__ __forceinline__ void put_partials(float* red,
+                                             const float (&acc)[MT][NT][4],
+                                             int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float* r = red + warp * ROWS * CA;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(
+            r + (mt * 16 + g + 8 * h) * CA + nt * 8 + 2 * t) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+}
+
+// the sum over the warps of red[.][n][c], in warp order
+__device__ __forceinline__ float gather(const float* red, int n, int c) {
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) s += red[(w * ROWS + n) * CA + c];
+  return s;
+}
+
+// the gate inputs and the mask of step t at a thread's pairs
+__device__ __forceinline__ void load_x(float (&xu)[PAIRS], float (&xr)[PAIRS],
+                                       float (&xc)[PAIRS], float (&m)[PAIRS],
+                                       const float* __restrict__ xs,
+                                       const float* __restrict__ mask,
+                                       const int (&at)[PAIRS], int t, int N,
+                                       int D) {
+#pragma unroll
+  for (int i = 0; i < PAIRS; ++i) {
+    if (at[i] < 0) continue;
+    const int row = at[i] / D, j = at[i] - row * D;
+    const float* x = xs + ((size_t)t * N + row) * 3 * D + j;
+    xu[i] = __ldg(x);
+    xr[i] = __ldg(x + D);
+    xc[i] = __ldg(x + 2 * D);
+    m[i] = __ldg(mask + (size_t)t * N + row);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
                  const float* __restrict__ h0,
                  const float* __restrict__ mask, float* hs, float* rh,
-                 unsigned int* barrier, int T, int N, int D, int dj,
-                 int rows) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = D + PAD;
-  float* wt = smem;                        // [GATES * dj][ld]
-  float* hb = smem + GATES * dj * ld;      // [rows][ld]
-  const int j0 = blockIdx.x * dj;
-  const int nj = min(dj, D - j0);
-  const size_t D3 = (size_t)GATES * D;
+                 unsigned int* barrier, int T, int N, int D, int rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int KT = (D + 7) >> 3;             // k8 tiles of D
+  const int ldh = 8 * KT + 4;              // row pitch of the staged rows
+  uint4* wf = reinterpret_cast<uint4*>(smem);  // [NA + NB][KT][32 lanes]
+  float* hb = reinterpret_cast<float*>(wf + (NA + NB) * KT * 32);
+  float* red = hb;                         // the partial sums, after use
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j0 = blockIdx.x * DJ;
+  const int k0 = warp * KT / WARPS, k1 = (warp + 1) * KT / WARPS;
+  const size_t D3 = (size_t)3 * D;
 
-  // this block's columns of W: column g*dj + jl is W[:, g*D + j0 + jl]
-  for (int idx = threadIdx.x; idx < GATES * dj * D; idx += blockDim.x) {
-    const int k = idx / (GATES * dj), col = idx - k * (GATES * dj);
-    const int g = col / dj, jl = col - g * dj;
-    wt[col * ld + k] = jl < nj ? w[(size_t)k * D3 + g * D + j0 + jl] : 0.f;
+  // The block's columns of W as split B fragments: fragment column c of
+  // phase A is unit c's u (c < DJ) or unit c - DJ's r; of phase B unit
+  // c's candidate; units past D and rows past D are zeros.
+  for (int idx = threadIdx.x; idx < (NA + NB) * KT * 32; idx += THREADS) {
+    const int l = idx & 31, f = idx >> 5;
+    const int nt = f / KT, kt = f - nt * KT;
+    const int n = l >> 2, kk = l & 3;
+    int col = -1;
+    if (nt < NA) {
+      const int c = nt * 8 + n;
+      if (c < DJ && j0 + c < D) col = j0 + c;
+      else if (c >= DJ && c < 2 * DJ && j0 + c - DJ < D)
+        col = D + j0 + c - DJ;
+    } else {
+      const int c = (nt - NA) * 8 + n;
+      if (c < DJ && j0 + c < D) col = 2 * D + j0 + c;
+    }
+    const int ka = 8 * kt + kk, kb = ka + 4;
+    const float va = col >= 0 && ka < D ? w[(size_t)ka * D3 + col] : 0.f;
+    const float vb = col >= 0 && kb < D ? w[(size_t)kb * D3 + col] : 0.f;
+    uint4 v;
+    split(va, v.x, v.z);
+    split(vb, v.y, v.w);
+    wf[idx] = v;
   }
 
   unsigned int passed = 0;
-  for (int t = 0; t < T; ++t) {
-    const float* hprev = t == 0 ? h0 : hs + (size_t)(t - 1) * N * D;
-    float* ht = hs + (size_t)t * N * D;
-    // A: update and reset gates, r * h_{t-1} to rh, u parked in hs[t]
-    for (int r0 = 0; r0 < N; r0 += rows) {
-      const int nr = min(rows, N - r0);
-      __syncthreads();
-      stage_rows(hb, hprev, r0, nr, D, ld);
-      __syncthreads();
-      for (int p = threadIdx.x; p < nr * dj; p += blockDim.x) {
-        const int n = p / dj, jl = p - n * dj;
-        if (jl >= nj) continue;
-        const float* hr = hb + n * ld;
-        const int row = r0 + n, j = j0 + jl;
-        const float* x = xs + ((size_t)t * N + row) * D3;
-        const float u = sigmoid_f(x[j] + dot_row(hr, wt + jl * ld, D));
-        const float r = sigmoid_f(x[D + j] +
-                                  dot_row(hr, wt + (dj + jl) * ld, D));
-        rh[(size_t)row * D + j] = r * hr[j];
-        ht[(size_t)row * D + j] = u;
+  for (int r0 = 0; r0 < N; r0 += rows) {
+    const int nr = min(rows, N - r0);
+    // this thread's (row, unit) pairs: their state and gate inputs
+    int at[PAIRS];                         // row * D + unit, or -1
+    float h[PAIRS], u[PAIRS], xu[PAIRS], xr[PAIRS], xc[PAIRS], m[PAIRS];
+#pragma unroll
+    for (int i = 0; i < PAIRS; ++i) {
+      const int p = threadIdx.x + i * THREADS, n = p / DJ, j = j0 + p % DJ;
+      at[i] = n < nr && j < D ? (r0 + n) * D + j : -1;
+      h[i] = at[i] >= 0 ? h0[at[i]] : 0.f;
+      u[i] = xu[i] = xr[i] = xc[i] = m[i] = 0.f;
+    }
+    load_x(xu, xr, xc, m, xs, mask, at, 0, N, D);
+    for (int t = 0; t < T; ++t) {
+      const float* hprev = t == 0 ? h0 : hs + (size_t)(t - 1) * N * D;
+      // A: update and reset gates, r * h_{t-1} of the block's units to rh
+      {
+        __syncthreads();
+        stage_slice(hb, ldh, hprev, r0, nr, D, k0, k1, lane);
+        float acc[MT][NA][4];
+        products<NA>(acc, hb, ldh, wf, KT, 0, k0, k1, nr, lane);
+        __syncthreads();
+        put_partials<NA>(red, acc, warp, lane);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < PAIRS; ++i) {
+          if (at[i] < 0) continue;
+          const int p = threadIdx.x + i * THREADS, n = p / DJ, jl = p % DJ;
+          u[i] = sigmoid_f(xu[i] + gather(red, n, jl));
+          const float r = sigmoid_f(xr[i] + gather(red, n, DJ + jl));
+          rh[at[i]] = r * h[i];
+        }
+      }
+      grid_barrier(barrier, gridDim.x * ++passed);
+      // B: the candidate from every unit's r * h, then h_t
+      {
+        __syncthreads();
+        stage_slice(hb, ldh, rh, r0, nr, D, k0, k1, lane);
+        float acc[MT][NB][4];
+        products<NB>(acc, hb, ldh, wf, KT, NA, k0, k1, nr, lane);
+        __syncthreads();
+        put_partials<NB>(red, acc, warp, lane);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < PAIRS; ++i) {
+          if (at[i] < 0) continue;
+          const int p = threadIdx.x + i * THREADS, n = p / DJ, jl = p % DJ;
+          const float cand = tanhf(xc[i] + gather(red, n, jl));
+          const float hn = (1.f - u[i]) * h[i] + u[i] * cand;
+          h[i] = hn * m[i] + h[i] * (1.f - m[i]);
+          hs[(size_t)t * N * D + at[i]] = h[i];
+        }
+      }
+      if (t + 1 < T) {
+        // lands while the block waits at the barrier
+        load_x(xu, xr, xc, m, xs, mask, at, t + 1, N, D);
+        grid_barrier(barrier, gridDim.x * ++passed);
       }
     }
-    grid_barrier(barrier, gridDim.x * ++passed);
-    // B: the candidate from every unit's r * h, then h_t
-    for (int r0 = 0; r0 < N; r0 += rows) {
-      const int nr = min(rows, N - r0);
-      __syncthreads();
-      stage_rows(hb, rh, r0, nr, D, ld);
-      __syncthreads();
-      for (int p = threadIdx.x; p < nr * dj; p += blockDim.x) {
-        const int n = p / dj, jl = p - n * dj;
-        if (jl >= nj) continue;
-        const int row = r0 + n, j = j0 + jl;
-        const float* x = xs + ((size_t)t * N + row) * D3;
-        const float cand = tanhf(x[2 * D + j] +
-                                 dot_row(hb + n * ld,
-                                         wt + (2 * dj + jl) * ld, D));
-        const size_t at = (size_t)row * D + j;
-        const float u = ht[at];            // parked in phase A
-        const float hp = hprev[at];        // this thread wrote it (or h0)
-        const float hn = (1.f - u) * hp + u * cand;
-        const float m = mask[(size_t)t * N + row];
-        ht[at] = hn * m + hp * (1.f - m);
-      }
-    }
-    if (t + 1 < T) grid_barrier(barrier, gridDim.x * ++passed);
   }
 }
 
-// The launch shape for N rows of D units: blocks, units a block (dj),
-// rows a shared-memory chunk and dynamic shared bytes; an error code when
-// the shape cannot run.
-cudaError_t plan(int N, int D, int* blocks, int* dj, int* rows,
-                 size_t* smem, int* per_sm, int* sms) {
+// The launch shape for N rows of D units: blocks, rows a piece and
+// dynamic shared bytes; an error code when the shape cannot run.
+cudaError_t plan(int N, int D, int* blocks, int* rows, size_t* smem,
+                 int* per_sm, int* sms) {
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -182,15 +353,18 @@ cudaError_t plan(int N, int D, int* blocks, int* dj, int* rows,
                                   cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                   dev)) != cudaSuccess)
     return e;
-  *dj = (D + *sms - 1) / *sms;
-  *blocks = (D + *dj - 1) / *dj;
-  const size_t ld = (size_t)D + PAD;
-  const size_t wbytes = (size_t)GATES * *dj * ld * sizeof(float);
-  if (wbytes + ld * sizeof(float) > (size_t)optin)
-    return cudaErrorInvalidValue;          // not even one row of h fits
-  const size_t fit = ((size_t)optin - wbytes) / (ld * sizeof(float));
-  *rows = (int)(fit < (size_t)N ? fit : (size_t)N);
-  *smem = wbytes + (size_t)*rows * ld * sizeof(float);
+  *blocks = (D + DJ - 1) / DJ;
+  const size_t KT = (size_t)(D + 7) / 8, ldh = 8 * KT + 4;
+  const size_t wbytes = (size_t)(NA + NB) * KT * 32 * sizeof(uint4);
+  const size_t red = (size_t)WARPS * ROWS * CA;
+  int r16 = N < ROWS ? (N + 15) / 16 * 16 : ROWS;
+  for (; r16 >= 16; r16 -= 16) {
+    const size_t hb = (size_t)r16 * ldh > red ? (size_t)r16 * ldh : red;
+    *smem = wbytes + hb * sizeof(float);
+    if (*smem <= (size_t)optin) break;
+  }
+  if (r16 < 16) return cudaErrorInvalidValue;  // not even 16 rows fit
+  *rows = r16 < N ? r16 : N;
   if ((e = cudaFuncSetAttribute(fused_gru_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)*smem)) != cudaSuccess)
@@ -208,16 +382,15 @@ cudaError_t plan(int N, int D, int* blocks, int* dj, int* rows,
 extern "C" {
 
 // The launch shape of N rows of D units on the current device: info[7]
-// receives blocks, dj, rows a chunk, shared bytes, threads, co-resident
-// blocks per SM and SMs.
+// receives blocks, units a block, rows a piece, shared bytes, threads,
+// co-resident blocks per SM and SMs.
 int fused_gru_plan(int N, int D, int* info) {
   if (N < 1 || D < 4 || D % 4 != 0) return (int)cudaErrorInvalidValue;
-  int blocks, dj, rows, per_sm, sms;
+  int blocks, rows, per_sm, sms;
   size_t smem;
-  const cudaError_t e =
-      plan(N, D, &blocks, &dj, &rows, &smem, &per_sm, &sms);
+  const cudaError_t e = plan(N, D, &blocks, &rows, &smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
-  const int vals[7] = {blocks, dj, rows, (int)smem, THREADS, per_sm, sms};
+  const int vals[7] = {blocks, DJ, rows, (int)smem, THREADS, per_sm, sms};
   for (int i = 0; i < 7; ++i) info[i] = vals[i];
   return 0;
 }
@@ -230,9 +403,9 @@ int fused_gru_f32(const void* xs, const void* w, const void* h0,
                   int N, int D, void* stream) {
   if (T < 1 || N < 1 || D < 4 || D % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  int blocks, dj, rows, per_sm, sms;
+  int blocks, rows, per_sm, sms;
   size_t smem;
-  cudaError_t e = plan(N, D, &blocks, &dj, &rows, &smem, &per_sm, &sms);
+  cudaError_t e = plan(N, D, &blocks, &rows, &smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((e = cudaMemsetAsync(barrier, 0, sizeof(unsigned int), st)) !=
@@ -247,7 +420,7 @@ int fused_gru_f32(const void* xs, const void* w, const void* h0,
   unsigned int* bar = static_cast<unsigned int*>(barrier);
   void* args[] = {(void*)&xf, (void*)&wf, (void*)&h0f, (void*)&mf,
                   (void*)&hsf, (void*)&rhf, (void*)&bar, (void*)&T,
-                  (void*)&N, (void*)&D, (void*)&dj, (void*)&rows};
+                  (void*)&N, (void*)&D, (void*)&rows};
   e = cudaLaunchCooperativeKernel((const void*)fused_gru_kernel,
                                   dim3(blocks), dim3(THREADS), args, smem,
                                   st);

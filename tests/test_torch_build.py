@@ -26,7 +26,8 @@ def _paths():
 
 def test_the_kernels_share_the_3xtf32_header():
     assert "tf32x3.cuh" in _build.headers()
-    for name in ("flash_attention_fwd", "flash_attention_bwd", "matmul"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "matmul",
+                 "fused_gru"):
         with open(os.path.join(_build.CSRC_DIR, name + ".cu")) as f:
             assert '#include "tf32x3.cuh"' in f.read(), name
 

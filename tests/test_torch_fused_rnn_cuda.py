@@ -1,7 +1,10 @@
 """The fused LSTM and GRU recurrences on the card: the CUDA kernels
 against their plain versions, ragged and full lengths, at a small odd
 shape and at the sequence slice's shape (T 100, N 64, D 512), and their
-refusal of other dtypes.
+refusal of other dtypes. The GRU's tensor-core kernel also at its edges
+(N 65: one row past a 64-row piece; D 36: a partial k8 tile and a
+partial last block of units; T 400: a long chain of 3xTF32 sums), and
+relaunched bit-identically.
 
 JAX-free, so that it runs where the card is. Tolerance: 1e-4 of the
 largest magnitude, float32 on both sides: the sum order of each D-term
@@ -21,6 +24,8 @@ from paddle_tpu_torch.kernels import fused_lstm as tlstm  # noqa: E402
 T, N, D = 6, 8, 128
 CARD_TOL = 1e-4
 CARD_SHAPES = [(7, 3, 128), (100, 64, 512)]
+# (T, N, D) at the GRU kernel's edges
+GRU_EDGE_SHAPES = [(9, 65, 128), (9, 5, 36), (400, 64, 512)]
 
 
 @pytest.fixture
@@ -76,6 +81,30 @@ def test_gru_kernel_matches_plain_version_on_the_card(cuda_device, shape,
     torch.cuda.synchronize()
     assert kernels.launch_counts()["fused_gru"] == 1
     assert _rel(hs, tgru.fused_gru_reference(xs, w, h0, mask)) <= CARD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GRU_EDGE_SHAPES,
+                         ids=["n65", "d36", "t400"])
+def test_gru_kernel_matches_plain_version_at_its_edges(cuda_device, shape):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xs, w, h0, _, mask = (torch.tensor(a, device=cuda_device)
+                          for a in _inputs(3, 10, *shape))
+    kernels.reset_launches()
+    hs = tgru.fused_gru(xs, w, h0, mask)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_gru"] == 1
+    assert _rel(hs, tgru.fused_gru_reference(xs, w, h0, mask)) <= CARD_TOL
+
+
+@pytest.mark.cuda
+def test_gru_kernel_relaunch_is_bit_identical(cuda_device):
+    xs, w, h0, _, mask = (torch.tensor(a, device=cuda_device)
+                          for a in _inputs(3, 11, *CARD_SHAPES[1]))
+    first = tgru.fused_gru(xs, w, h0, mask)
+    second = tgru.fused_gru(xs, w, h0, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
