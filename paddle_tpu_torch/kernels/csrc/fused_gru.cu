@@ -35,17 +35,20 @@
 //     time loop, and stay in shared memory as B fragments (16 bytes a
 //     lane, one load a fragment). The K = D reduction is split across
 //     the 8 warps: warp w multiplies k tiles [w KT / 8, (w+1) KT / 8) of
-//     every row, its sum starting from zero on the tensor cores (the
-//     large terms and the small ones in two chains), and the 8 partial
-//     sums are added in float32 in warp order through shared memory, so
-//     a relaunch is bit-identical;
+//     every row, a k tile's B fragments loaded once for all its m tiles
+//     (the large terms and the small ones in separate chains), each sum
+//     from zero on the tensor cores; the chains and then the 8 warps'
+//     partial sums are added in float32 in a fixed order (the warps'
+//     through shared memory), so a relaunch is bit-identical;
 //   - each warp stages only its K slice of h_{t-1} (or rh) with
-//     cp.async.cg (L2 only: other SMs wrote it), one group for each 16
-//     rows, and starts on each 16 rows as they land: no block-wide
+//     cp.async.cg (L2 only: other SMs wrote it), in two groups of k
+//     tiles, and multiplies each group as it lands: no block-wide
 //     barrier between copy and product;
-//   - the gate inputs xs[t] and the mask of a thread's (row, unit) pairs
-//     are loaded before the grid barrier that precedes the step, and
-//     arrive while the block waits;
+//   - the gate inputs xs[t + 1] and the mask of a thread's (row, unit)
+//     pairs are loaded as phase B of step t starts, under its products
+//     and before the barrier that precedes step t + 1 (a __syncthreads
+//     waits for the thread's loads in flight, so none may be left for
+//     the barrier's);
 //   - u and h of the block's own units stay in registers from phase A to
 //     phase B and from step to step; only rh (after A) and hs[t] (after
 //     B) cross blocks;
@@ -75,25 +78,31 @@ constexpr int NB = (DJ + 7) / 8;           // n8 tiles of phase B (cand)
 constexpr int CA = 8 * NA;                 // row pitch of a partial sum
 constexpr int PAIRS = ROWS * DJ / THREADS; // (row, unit) pairs a thread
 static_assert(ROWS * DJ % THREADS == 0, "pairs must tile the threads");
-static_assert(MT <= 4, "wait_landed counts at most 4 groups");
+constexpr int GROUPS = 2;                  // copy groups of a staging
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// All blocks of the grid meet here; `target` is the number of blocks
-// times the number of barriers passed so far, this one included. The
-// release add publishes the block's writes (ordered before it by the
-// __syncthreads), the acquire load sees every other block's. A wait of
-// seconds (a block that never arrives) traps, so the launch fails with
-// an error instead of hanging the card.
-__device__ __forceinline__ void grid_barrier(unsigned int* count,
-                                             unsigned int target) {
+// All blocks of the grid meet in two halves. grid_arrive: the release
+// add publishes the block's writes (ordered before it by the
+// __syncthreads); work that no other block waits for can go between the
+// halves. grid_wait: the acquire load sees every other block's writes
+// once `target` (the number of blocks times the number of barriers
+// passed, this one included) have arrived. A wait of seconds (a block
+// that never arrives) traps, so the launch fails with an error instead
+// of hanging the card.
+__device__ __forceinline__ void grid_arrive(unsigned int* count) {
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0)
     asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(count),
                  "r"(1u)
                  : "memory");
+}
+
+__device__ __forceinline__ void grid_wait(const unsigned int* count,
+                                          unsigned int target) {
+  if (threadIdx.x == 0) {
     unsigned int seen;
     unsigned long long spins = 0;
     do {
@@ -107,36 +116,58 @@ __device__ __forceinline__ void grid_barrier(unsigned int* count,
   __syncthreads();
 }
 
-// The warp's K slice (16-byte chunks [2 k0, 2 k1)) of rows r0 .. r0 + nr
-// - 1 of the [*, D] matrix `src` into hb (pitch ldh), one cp.async group
-// for each 16 rows (an empty group for an m tile past nr); rows past nr
-// and columns past D read zeros.
+// the first k tile of copy group q of the warp's k tiles [k0, k1)
+__device__ __forceinline__ int group_start(int k0, int k1, int q) {
+  return k0 + (k1 - k0) * q / GROUPS;
+}
+
+// How a lane walks one copy group of the warp's K slice: the group's
+// first chunk c0 and chunks a row nc (16 bytes each), the lane's first
+// row and chunk, and its step of 32 copies in rows and chunks (no
+// division in the copy loop).
+struct Walk {
+  int c0, nc, r, c, dr, dc;
+};
+
+__device__ __forceinline__ Walk walk(int k0, int k1, int q, int lane) {
+  Walk w;
+  w.c0 = 2 * group_start(k0, k1, q);
+  w.nc = 2 * group_start(k0, k1, q + 1) - w.c0;
+  const int nc = max(w.nc, 1);
+  w.r = lane / nc;
+  w.c = lane - w.r * nc;
+  w.dr = 32 / nc;
+  w.dc = 32 - w.dr * nc;
+  return w;
+}
+
+// The warp's K slice of rows r0 .. r0 + nr - 1 of the [*, D] matrix
+// `src` into hb (pitch ldh), 16 bytes a copy, in GROUPS cp.async groups
+// of half its k tiles each (at D 512 a group is one 128-byte line a
+// row); rows past nr (up to the m tile) and columns past D read zeros.
 __device__ __forceinline__ void stage_slice(float* hb, int ldh,
                                             const float* src, int r0, int nr,
-                                            int D, int k0, int k1,
-                                            int lane) {
-  const int c0 = 2 * k0, nc = 2 * (k1 - k0);
+                                            int D,
+                                            const Walk (&walks)[GROUPS]) {
+  const int rows = (nr + 15) & ~15;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    if (mt * 16 < nr) {
-      for (int i = lane; i < 16 * nc; i += 32) {
-        const int r = mt * 16 + i / nc, c = c0 + i % nc;
-        const bool in = r < nr && 4 * c < D;
-        cp_async16(hb + r * ldh + 4 * c,
-                   src + (in ? (size_t)(r0 + r) * D + 4 * c : 0), in);
+  for (int q = 0; q < GROUPS; ++q) {
+    const Walk& w = walks[q];
+    if (w.nc > 0) {
+      for (int r = w.r, c = w.c; r < rows;) {
+        const int col = 4 * (w.c0 + c);
+        const bool in = r < nr && col < D;
+        cp_async16(hb + r * ldh + col,
+                   src + (in ? (size_t)(r0 + r) * D + col : 0), in);
+        r += w.dr;
+        c += w.dc;
+        if (c >= w.nc) {
+          c -= w.nc;
+          ++r;
+        }
       }
     }
     cp_async_commit();
-  }
-}
-
-// wait for the groups of m tiles 0 .. mt of the MT just committed
-__device__ __forceinline__ void wait_landed(int mt) {
-  switch (MT - 1 - mt) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    default: cp_async_wait<3>(); break;
   }
 }
 
@@ -151,42 +182,95 @@ __device__ __forceinline__ FragA load_a_ld(const float* s, int ld, int g,
   return f;
 }
 
+// B fragment column nt of k tile kt, split once before the time loop
+__device__ __forceinline__ FragB frag_b(const uint4* wf, int KT, int nt,
+                                       int kt, int lane) {
+  const uint4 v = wf[(nt * KT + kt) * 32 + lane];
+  FragB b;
+  b.hi[0] = v.x;
+  b.hi[1] = v.y;
+  b.lo[0] = v.z;
+  b.lo[1] = v.w;
+  return b;
+}
+
 // The warp's partial product of the staged rows (k tiles [k0, k1)) with
-// the NT fragment columns nt0 .. nt0 + NT - 1 of wf, into acc; each m
-// tile starts as its rows land.
+// the NT fragment columns nt0 .. nt0 + NT - 1 of wf, into acc, for the
+// first MA m tiles (the rest stay zero). Each copy group is multiplied as
+// it lands: a k tile's B fragments are loaded once and meet every m
+// tile's A fragment, with no branch between the tiles, so that their
+// loads, splits and MA x NT chains interleave (the large terms and the
+// small ones apart in each chain), each summed from zero on the tensor
+// cores and the two added in float32.
+template <int NT, int MA>
+__device__ __forceinline__ void products_ma(float (&acc)[MT][NT][4],
+                                            const float* hb, int ldh,
+                                            const uint4* wf, int KT, int nt0,
+                                            int k0, int k1, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float e[MA][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MA; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) e[mt][nt][i] = 0.f;
+#pragma unroll
+  for (int q = 0; q < GROUPS; ++q) {
+    if (q == 0) cp_async_wait<GROUPS - 1>();
+    else cp_async_wait<0>();
+    __syncwarp();
+    const int kb = group_start(k0, k1, q), ke = group_start(k0, k1, q + 1);
+#pragma unroll 2
+    for (int kt = kb; kt < ke; ++kt) {
+      FragB b[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        b[nt] = frag_b(wf, KT, nt0 + nt, kt, lane);
+      FragA a[MA];
+#pragma unroll
+      for (int mt = 0; mt < MA; ++mt)
+        a[mt] = load_a_ld(hb + mt * 16 * ldh + 8 * kt, ldh, g, t);
+#pragma unroll
+      for (int mt = 0; mt < MA; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma3_apart(acc[mt][nt], e[mt][nt], a[mt], b[nt]);
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < MA; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) add4(acc[mt][nt], e[mt][nt]);
+}
+
+// products_ma for the m tiles that hold rows: ceil(nr / 16) of them
 template <int NT>
 __device__ __forceinline__ void products(float (&acc)[MT][NT][4],
                                          const float* hb, int ldh,
                                          const uint4* wf, int KT, int nt0,
                                          int k0, int k1, int nr, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  float e[MT][NT][4];
+  static_assert(MT == 4, "one case for each count of m tiles");
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = e[mt][nt][i] = 0.f;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    wait_landed(mt);
-    __syncwarp();
-    if (mt * 16 >= nr) continue;
-    const float* a_rows = hb + mt * 16 * ldh;
-    for (int kt = k0; kt < k1; ++kt) {
-      const FragA a = load_a_ld(a_rows + 8 * kt, ldh, g, t);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const uint4 v = wf[((nt0 + nt) * KT + kt) * 32 + lane];
-        const FragB b = {{v.x, v.y}, {v.z, v.w}};
-        mma3_apart(acc[mt][nt], e[mt][nt], a, b);
-      }
-    }
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  switch ((min(nr, ROWS) + 15) / 16) {
+    case 1:
+      products_ma<NT, 1>(acc, hb, ldh, wf, KT, nt0, k0, k1, lane);
+      break;
+    case 2:
+      products_ma<NT, 2>(acc, hb, ldh, wf, KT, nt0, k0, k1, lane);
+      break;
+    case 3:
+      products_ma<NT, 3>(acc, hb, ldh, wf, KT, nt0, k0, k1, lane);
+      break;
+    default:
+      products_ma<NT, 4>(acc, hb, ldh, wf, KT, nt0, k0, k1, lane);
+      break;
   }
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) add4(acc[mt][nt], e[mt][nt]);
 }
 
 // the warp's partial sums to red[warp][row][CA]
@@ -276,18 +360,24 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
     wf[idx] = v;
   }
 
+  Walk walks[GROUPS];
+#pragma unroll
+  for (int q = 0; q < GROUPS; ++q) walks[q] = walk(k0, k1, q, lane);
+
   unsigned int passed = 0;
   for (int r0 = 0; r0 < N; r0 += rows) {
     const int nr = min(rows, N - r0);
     // this thread's (row, unit) pairs: their state and gate inputs
     int at[PAIRS];                         // row * D + unit, or -1
     float h[PAIRS], u[PAIRS], xu[PAIRS], xr[PAIRS], xc[PAIRS], m[PAIRS];
+    float nxu[PAIRS], nxr[PAIRS], nxc[PAIRS], nm[PAIRS];
 #pragma unroll
     for (int i = 0; i < PAIRS; ++i) {
       const int p = threadIdx.x + i * THREADS, n = p / DJ, j = j0 + p % DJ;
       at[i] = n < nr && j < D ? (r0 + n) * D + j : -1;
       h[i] = at[i] >= 0 ? h0[at[i]] : 0.f;
       u[i] = xu[i] = xr[i] = xc[i] = m[i] = 0.f;
+      nxu[i] = nxr[i] = nxc[i] = nm[i] = 0.f;
     }
     load_x(xu, xr, xc, m, xs, mask, at, 0, N, D);
     for (int t = 0; t < T; ++t) {
@@ -295,7 +385,7 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
       // A: update and reset gates, r * h_{t-1} of the block's units to rh
       {
         __syncthreads();
-        stage_slice(hb, ldh, hprev, r0, nr, D, k0, k1, lane);
+        stage_slice(hb, ldh, hprev, r0, nr, D, walks);
         float acc[MT][NA][4];
         products<NA>(acc, hb, ldh, wf, KT, 0, k0, k1, nr, lane);
         __syncthreads();
@@ -310,11 +400,16 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
           rh[at[i]] = r * h[i];
         }
       }
-      grid_barrier(barrier, gridDim.x * ++passed);
+      grid_arrive(barrier);
+      grid_wait(barrier, gridDim.x * ++passed);
       // B: the candidate from every unit's r * h, then h_t
       {
         __syncthreads();
-        stage_slice(hb, ldh, rh, r0, nr, D, k0, k1, lane);
+        stage_slice(hb, ldh, rh, r0, nr, D, walks);
+        // the next step's gate inputs, landing under this phase's
+        // products (a __syncthreads waits for a thread's loads, so they
+        // must not be in flight at the barrier)
+        if (t + 1 < T) load_x(nxu, nxr, nxc, nm, xs, mask, at, t + 1, N, D);
         float acc[MT][NB][4];
         products<NB>(acc, hb, ldh, wf, KT, NA, k0, k1, nr, lane);
         __syncthreads();
@@ -328,12 +423,15 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
           const float hn = (1.f - u[i]) * h[i] + u[i] * cand;
           h[i] = hn * m[i] + h[i] * (1.f - m[i]);
           hs[(size_t)t * N * D + at[i]] = h[i];
+          xu[i] = nxu[i];
+          xr[i] = nxr[i];
+          xc[i] = nxc[i];
+          m[i] = nm[i];
         }
       }
       if (t + 1 < T) {
-        // lands while the block waits at the barrier
-        load_x(xu, xr, xc, m, xs, mask, at, t + 1, N, D);
-        grid_barrier(barrier, gridDim.x * ++passed);
+        grid_arrive(barrier);
+        grid_wait(barrier, gridDim.x * ++passed);
       }
     }
   }

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """The design choices of the 3xTF32 kernels (``paddle_tpu_torch/kernels/
-csrc/flash_attention_bwd.cu``, ``flash_attention_fwd.cu`` and
-``matmul.cu``) against alternatives, on one NVIDIA card. Run from the
-root of a checkout:
+csrc/flash_attention_bwd.cu``, ``flash_attention_fwd.cu``, ``matmul.cu``
+and ``fused_gru.cu``) against alternatives, on one NVIDIA card. Run
+from the root of a checkout:
 
-    python3 tools/torch_flash_bwd_study.py [--kernel bwd fwd matmul]
+    python3 tools/torch_flash_bwd_study.py [--kernel bwd fwd matmul gru]
 
 (the flash backward alone by default). For each kernel it builds the
 committed source and variants made from it and from the shared header
 ``tf32x3.cuh`` by text substitution, each with ``nvcc`` into its own
-directory under ``build/flash_bwd_study/``. Every kernel has these:
+directory under ``build/flash_bwd_study/``. Every kernel but the GRU
+has these:
 
 - ``cvt_rna``: the 3xTF32 split through ``cvt.rna.tf32.f32`` (hi =
   cvt(x), lo = cvt(x - hi)) instead of the header's integer rounding;
@@ -33,7 +34,8 @@ on every tile at every D, as the source does at D 128 only),
 ``min_blocks3`` (registers capped for 3 blocks an SM) and ``one_chain``
 (each 3xTF32 product's three terms in one mma accumulator, instead of
 the large term and the two small ones in separate chains); the matmul
-``stages2`` (a ring of two stages instead of three).
+``stages2`` (a ring of two stages instead of three). The GRU has one,
+``dj4``: 4 units a block (128 blocks at D 512) instead of 8 (64).
 
 For each it prints the registers and spills ``-Xptxas -v`` reports and:
 
@@ -48,7 +50,11 @@ For each it prints the registers and spills ``-Xptxas -v`` reports and:
 - matmul: at the LM step's gemm shapes (8192 x 768 x 768, 8192 x 768 x
   3072, 8192 x 3072 x 768) the largest error over the largest magnitude
   of a float64 product, worst over the tilings, and the time of every
-  tiling.
+  tiling;
+- gru: the largest error of hs over its largest magnitude against a
+  float64 plain recurrence at T 100, N 64, D 512 (the sequence slice's
+  shape), ragged and full, and the time at that shape (full lengths),
+  at T 10 and at N 8, with the microseconds a step from T 10 to 100.
 
 Times are CUDA-event medians over 20 launches, L2 flushed before each.
 The last lines are the card's name and power limit and one JSON object
@@ -71,6 +77,7 @@ sys.path.insert(0, ROOT)
 
 from paddle_tpu_torch.kernels import _build  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
+from paddle_tpu_torch.kernels import fused_gru as gru  # noqa: E402
 from paddle_tpu_torch.kernels import matmul as mm  # noqa: E402
 
 OUT_DIR = os.path.join(ROOT, "build", "flash_bwd_study")
@@ -203,17 +210,23 @@ MATMUL_VARIANTS = {
     ],
     "stages2": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
 }
-def variant_sources(name, variants):
+GRU_VARIANTS = {
+    "dj4": [("constexpr int DJ = 8; ", "constexpr int DJ = 4; ")],
+}
+
+
+def variant_sources(name, variants, common=True):
     """{variant: {file name: text}}: the source ``csrc/<name>.cu`` and the
-    shared headers, as committed and as each variant edits them. Every
-    edited text must occur exactly once across the files."""
+    shared headers, as committed and as each variant edits them (with the
+    COMMON variants unless ``common`` is false). Every edited text must
+    occur exactly once across the files."""
     files = [name + ".cu"] + _build.headers()
     src = {}
     for f in files:
         with open(os.path.join(_build.CSRC_DIR, f)) as fh:
             src[f] = fh.read()
     out = {"source": src}
-    for vname, edits in dict(COMMON, **variants).items():
+    for vname, edits in dict(COMMON if common else {}, **variants).items():
         texts = dict(src)
         for old, new in edits:
             hits = [f for f in files if old in texts[f]]
@@ -235,7 +248,8 @@ def ptxas_summary(log):
             args = re.findall(r"L[ib](\d+)E", m.group(2))
             cur = "%s<%s>" % (m.group(1), ",".join(args))
         elif "Compiling entry function" in ln:
-            cur = None
+            m = re.search(r"\d+([a-z_]+_kernel)E", ln)
+            cur = m.group(1) if m else None
         elif cur and "registers" in ln:
             regs = re.search(r"Used (\d+) registers", ln).group(1)
             out[cur] = regs + " registers" + out.get(cur, "")
@@ -387,10 +401,45 @@ def study_matmul(libs, result, dev, flush):
         torch.cuda.empty_cache()
 
 
-STUDIES = {  # kernel: (library name, its variants, its study)
-    "bwd": ("flash_attention_bwd", BWD_VARIANTS, study_bwd),
-    "fwd": ("flash_attention_fwd", FWD_VARIANTS, study_fwd),
-    "matmul": ("matmul", MATMUL_VARIANTS, study_matmul),
+def study_gru(libs, result, dev, flush):
+    T, N, D = 100, 64, 512
+    for ragged in (True, False):
+        rng = np.random.RandomState(40)
+        xs = _randn(rng, (T, N, 3 * D), dev, 0.5)
+        w = _randn(rng, (D, 3 * D), dev, 1 / np.sqrt(D))
+        h0 = _randn(rng, (N, D), dev, 0.2)
+        lens = rng.randint(1, T + 1, N) if ragged else np.full(N, T)
+        mask = torch.from_numpy((np.arange(T)[:, None] < lens[None, :])
+                                .astype(np.float32)).to(dev)
+        want = gru.fused_gru_reference(xs.double(), w.double(),
+                                       h0.double(), mask.double())
+        for name, lib in libs.items():
+            with using("fused_gru", lib):
+                got = gru._launch(xs, w, h0, mask)
+                torch.cuda.synchronize()
+                result[name]["max_rel_err_" + ("ragged" if ragged
+                                                else "full")] = float(
+                    (got.double() - want).abs().max() / want.abs().max())
+                if ragged:
+                    continue
+                ms = {}
+                for t_, n_ in ((T, N), (10, N), (T, 8)):
+                    a = [x.contiguous() for x in (xs[:t_, :n_], w, h0[:n_],
+                                                  mask[:t_, :n_])]
+                    ms["T%d_N%d" % (t_, n_)] = time_ms(
+                        lambda: gru._launch(*a), flush)
+                ms["us_per_step"] = 1e3 * (ms["T100_N64"]
+                                           - ms["T10_N64"]) / (T - 10)
+                result[name]["ms"] = ms
+                result[name]["launch"] = gru.launch_plan(N, D)
+            print(json.dumps({name: result[name]}), flush=True)
+
+
+STUDIES = {  # kernel: (library name, its variants, its study, COMMON too)
+    "bwd": ("flash_attention_bwd", BWD_VARIANTS, study_bwd, True),
+    "fwd": ("flash_attention_fwd", FWD_VARIANTS, study_fwd, True),
+    "matmul": ("matmul", MATMUL_VARIANTS, study_matmul, True),
+    "gru": ("fused_gru", GRU_VARIANTS, study_gru, False),
 }
 
 
@@ -406,8 +455,8 @@ def main():
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     out = {}
     for kernel in args.kernel:
-        name, variants, study = STUDIES[kernel]
-        libs, ptxas = build(name, variant_sources(name, variants))
+        name, variants, study, common = STUDIES[kernel]
+        libs, ptxas = build(name, variant_sources(name, variants, common))
         result = {v: {"ptxas": ptxas[v]} for v in libs}
         study(libs, result, dev, flush)
         out["%s_study" % kernel] = result
