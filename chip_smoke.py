@@ -64,8 +64,10 @@ Phases, in order; any failure exits non-zero at once:
 7. rnn: hold the fused LSTM and GRU recurrence kernels against their
    plain versions at T 100, N 64, D 512 (ragged lengths from a seeded
    RandomState, and full ones) and at T 7, N 3, D 128 (a TF32 recurrence
-   must miss the tolerance), with kernel, plain and (LSTM) cuDNN times,
-   registers, shared memory and blocks; then train
+   must miss the tolerance), the GRU also at N 65, D 36 and T 400 and
+   launched twice at each shape (the second launch bit-identical), with
+   kernel, plain and (LSTM) cuDNN times, registers, shared memory and
+   blocks; then train
    ``configs/text_rnn.model`` at rnn_bench's widths (vocab 30000, hidden
    512, 100 words, batch 64, 2 layers the second reversed, Adam 0.002,
    float32, no peepholes, ``lstm_impl=pallas``) twice, with LSTM and
@@ -227,6 +229,10 @@ R50_STAT_REL_TOL = 1e-4
 # 64 rows and D 512 units, and an odd one (N and D tails of the launch)
 RNN_SHAPE = (100, 64, 512)
 RNN_ODD_SHAPE = (7, 3, 128)
+# and the GRU's tensor-core kernel at its edges: one row past a 64-row
+# piece (N 65), a partial k8 tile and last block of units (D 36), and a
+# long chain of 3xTF32 sums (T 400)
+RNN_GRU_EDGE_SHAPES = ((9, 65, 128), (9, 5, 36), (400, 64, 512))
 # Kernel against plain version, same inputs, both float32: the largest
 # error over the largest magnitude of the plain hs (and cs). Only the
 # order of each step's D-term sums differs (~1e-7 relative), and the
@@ -1691,10 +1697,11 @@ def _cudnn_lstm(xs, w, h0, c0):
 def _rnn_kernel_check(dev):
     """Each fused recurrence against its plain version at the slice's
     shape (T 100, N 64, D 512), ragged and full masks, and at an odd one
-    (T 7, N 3, D 128); a recurrence run with TF32 products must miss the
-    tolerance. Times at the training drive's input (full lengths), with
-    cuDNN's LSTM beside row 7. Returns the two entries of the kernels
-    line."""
+    (T 7, N 3, D 128); the GRU also at RNN_GRU_EDGE_SHAPES, and launched
+    twice at every shape, the second launch bit-identical to the first;
+    a recurrence run with TF32 products must miss the tolerance. Times at
+    the training drive's input (full lengths), with cuDNN's LSTM beside
+    row 7. Returns the two entries of the kernels line."""
     from paddle_tpu_torch.kernels import fused_gru, fused_lstm
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     out = {}
@@ -1711,10 +1718,13 @@ def _rnn_kernel_check(dev):
             return [f(xs, w, h0, mask)]
 
         checks = []
-        for seed, (T, N, D) in enumerate((RNN_SHAPE, RNN_ODD_SHAPE)):
+        shapes = (RNN_SHAPE, RNN_ODD_SHAPE) + (
+            RNN_GRU_EDGE_SHAPES if name == "fused_gru" else ())
+        for seed, (T, N, D) in enumerate(shapes):
             for ragged in (True, False):
                 args = _rnn_inputs(gates, T, N, D, 40 + seed, ragged, dev)
                 got = run(args)
+                again = run(args) if name == "fused_gru" else None
                 want = run(args, plain=True)
                 torch.backends.cuda.matmul.allow_tf32 = True
                 tf32 = run(args, plain=True)
@@ -1727,12 +1737,18 @@ def _rnn_kernel_check(dev):
                                           for g, w_ in zip(got, want)),
                        "tf32_products_max_rel_err": _rel_err(tf32, want),
                        "launch": mod.launch_plan(N, D)}
+                if again is not None:
+                    rec["second_launch_bit_identical"] = all(
+                        torch.equal(a, b) for a, b in zip(got, again))
                 checks.append(rec)
                 log(json.dumps({name + "_check": rec}))
                 if not rec["max_rel_err"] <= RNN_REL_TOL:
                     fail("%s disagrees with its plain version at %s: %s > %g"
                          % (name, rec["shape"], rec["max_rel_err"],
                             RNN_REL_TOL))
+                if rec.get("second_launch_bit_identical") is False:
+                    fail("%s: a second launch at %s is not bit-identical to "
+                         "the first" % (name, rec["shape"]))
                 # (at the odd shape cuBLAS may keep a 3-row product in
                 # float32 even with TF32 allowed, so only the slice's
                 # shape is held to the contrast)

@@ -55,8 +55,10 @@
 //   - the grid barrier is one red.release.gpu add a block and a spin on
 //     ld.acquire.gpu, with no fence pair.
 // Shared memory at D 512: 96 KB of W fragments, 129 KB for the staged
-// 64 rows (the 8 warps' partial sums reuse it). A D whose fragments and
-// 16 staged rows do not fit (D > 908) is refused by the plan.
+// 64 rows (the 8 warps' partial sums reuse it). Where 64 rows do not fit
+// beside the fragments a piece has fewer (a multiple of 16); a D whose
+// fragments and 16 staged rows do not fit (D > 904) is refused by the
+// plan.
 //
 // Tensors are contiguous float32. The kernel allocates nothing; the
 // entry point zeroes the barrier counter on the stream, launches on it
@@ -182,6 +184,17 @@ __device__ __forceinline__ FragA load_a_ld(const float* s, int ld, int g,
   return f;
 }
 
+// wait for copy groups 0 .. q of the GROUPS just committed
+__device__ __forceinline__ void wait_landed(int q) {
+  static_assert(GROUPS <= 4, "one case for each count of groups in flight");
+  switch (GROUPS - 1 - q) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+
 // B fragment column nt of k tile kt, split once before the time loop
 __device__ __forceinline__ FragB frag_b(const uint4* wf, int KT, int nt,
                                        int kt, int lane) {
@@ -217,8 +230,7 @@ __device__ __forceinline__ void products_ma(float (&acc)[MT][NT][4],
       for (int i = 0; i < 4; ++i) e[mt][nt][i] = 0.f;
 #pragma unroll
   for (int q = 0; q < GROUPS; ++q) {
-    if (q == 0) cp_async_wait<GROUPS - 1>();
-    else cp_async_wait<0>();
+    wait_landed(q);
     __syncwarp();
     const int kb = group_start(k0, k1, q), ke = group_start(k0, k1, q + 1);
 #pragma unroll 2
