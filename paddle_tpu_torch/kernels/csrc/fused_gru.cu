@@ -51,7 +51,8 @@
 //     the barrier's);
 //   - u and h of the block's own units stay in registers from phase A to
 //     phase B and from step to step; only rh (after A) and hs[t] (after
-//     B) cross blocks;
+//     B) cross blocks, and u is computed while the block waits at the
+//     barrier after A;
 //   - the grid barrier is one red.release.gpu add a block and a spin on
 //     ld.acquire.gpu, with no fence pair.
 // Shared memory at D 512: 96 KB of W fragments, 129 KB for the staged
@@ -77,13 +78,18 @@ constexpr int ROWS = 64;                   // rows of a piece, at most
 constexpr int MT = ROWS / 16;              // its m16 tiles
 constexpr int NA = (2 * DJ + 7) / 8;       // n8 tiles of phase A (u | r)
 constexpr int NB = (DJ + 7) / 8;           // n8 tiles of phase B (cand)
-constexpr int CA = 8 * NA;                 // row pitch of a partial sum
+constexpr int CA = 8 * NA;                 // columns of a partial sum
+// its row pitch: 8 or 24 banks apart, so that the float2 stores of a C
+// fragment and the gathers of its columns meet no bank twice
+constexpr int RP = CA % 32 == 0 || CA % 32 == 16 ? CA + 8 : CA;
 constexpr int PAIRS = ROWS * DJ / THREADS; // (row, unit) pairs a thread
 static_assert(ROWS * DJ % THREADS == 0, "pairs must tile the threads");
 constexpr int GROUPS = 2;                  // copy groups of a staging
 
+// 1 / (1 + e^-x); __frcp_rn is the correctly rounded reciprocal, the
+// value of the division 1.f / y without its general path
 __device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.f / (1.f + expf(-x));
+  return __frcp_rn(1.f + expf(-x));
 }
 
 // All blocks of the grid meet in two halves. grid_arrive: the release
@@ -173,14 +179,20 @@ __device__ __forceinline__ void stage_slice(float* hb, int ldh,
   }
 }
 
-// A = rows 0..15, columns 0..7 of a row-major tile of pitch ld
-__device__ __forceinline__ FragA load_a_ld(const float* s, int ld, int g,
-                                           int t) {
+// A = rows 0..15, columns 0..7 of a row-major tile of pitch ld, its k
+// index permuted: the fragment's columns t and t + 4 hold columns 2t and
+// 2t + 1, one 8-byte load a row (frag_b's rows follow the same order, so
+// the product is unchanged)
+__device__ __forceinline__ FragA load_a_pair(const float* s, int ld, int g,
+                                             int t) {
+  const float2 r0 = *reinterpret_cast<const float2*>(s + g * ld + 2 * t);
+  const float2 r1 =
+      *reinterpret_cast<const float2*>(s + (g + 8) * ld + 2 * t);
   FragA f;
-  split(s[g * ld + t], f.hi[0], f.lo[0]);
-  split(s[(g + 8) * ld + t], f.hi[1], f.lo[1]);
-  split(s[g * ld + t + 4], f.hi[2], f.lo[2]);
-  split(s[(g + 8) * ld + t + 4], f.hi[3], f.lo[3]);
+  split(r0.x, f.hi[0], f.lo[0]);
+  split(r1.x, f.hi[1], f.lo[1]);
+  split(r0.y, f.hi[2], f.lo[2]);
+  split(r1.y, f.hi[3], f.lo[3]);
   return f;
 }
 
@@ -242,7 +254,7 @@ __device__ __forceinline__ void products_ma(float (&acc)[MT][NT][4],
       FragA a[MA];
 #pragma unroll
       for (int mt = 0; mt < MA; ++mt)
-        a[mt] = load_a_ld(hb + mt * 16 * ldh + 8 * kt, ldh, g, t);
+        a[mt] = load_a_pair(hb + mt * 16 * ldh + 8 * kt, ldh, g, t);
 #pragma unroll
       for (int mt = 0; mt < MA; ++mt)
 #pragma unroll
@@ -285,13 +297,13 @@ __device__ __forceinline__ void products(float (&acc)[MT][NT][4],
   }
 }
 
-// the warp's partial sums to red[warp][row][CA]
+// the warp's partial sums to red[warp][row][RP]
 template <int NT>
 __device__ __forceinline__ void put_partials(float* red,
                                              const float (&acc)[MT][NT][4],
                                              int warp, int lane) {
   const int g = lane >> 2, t = lane & 3;
-  float* r = red + warp * ROWS * CA;
+  float* r = red + warp * ROWS * RP;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -299,7 +311,7 @@ __device__ __forceinline__ void put_partials(float* red,
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         *reinterpret_cast<float2*>(
-            r + (mt * 16 + g + 8 * h) * CA + nt * 8 + 2 * t) =
+            r + (mt * 16 + g + 8 * h) * RP + nt * 8 + 2 * t) =
             make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
 }
 
@@ -307,7 +319,7 @@ __device__ __forceinline__ void put_partials(float* red,
 __device__ __forceinline__ float gather(const float* red, int n, int c) {
   float s = 0.f;
 #pragma unroll
-  for (int w = 0; w < WARPS; ++w) s += red[(w * ROWS + n) * CA + c];
+  for (int w = 0; w < WARPS; ++w) s += red[(w * ROWS + n) * RP + c];
   return s;
 }
 
@@ -337,7 +349,9 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
                  unsigned int* barrier, int T, int N, int D, int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int KT = (D + 7) >> 3;             // k8 tiles of D
-  const int ldh = 8 * KT + 4;              // row pitch of the staged rows
+  // row pitch of the staged rows: 8 banks apart, so that a fragment's
+  // 8-byte loads meet no bank twice in a half warp
+  const int ldh = 8 * KT + 8;
   uint4* wf = reinterpret_cast<uint4*>(smem);  // [NA + NB][KT][32 lanes]
   float* hb = reinterpret_cast<float*>(wf + (NA + NB) * KT * 32);
   float* red = hb;                         // the partial sums, after use
@@ -348,7 +362,8 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
 
   // The block's columns of W as split B fragments: fragment column c of
   // phase A is unit c's u (c < DJ) or unit c - DJ's r; of phase B unit
-  // c's candidate; units past D and rows past D are zeros.
+  // c's candidate; units past D and rows past D are zeros. Lane (n, kk)
+  // holds rows 2 kk and 2 kk + 1 of its k tile (load_a_pair's order).
   for (int idx = threadIdx.x; idx < (NA + NB) * KT * 32; idx += THREADS) {
     const int l = idx & 31, f = idx >> 5;
     const int nt = f / KT, kt = f - nt * KT;
@@ -363,7 +378,7 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
       const int c = (nt - NA) * 8 + n;
       if (c < DJ && j0 + c < D) col = 2 * D + j0 + c;
     }
-    const int ka = 8 * kt + kk, kb = ka + 4;
+    const int ka = 8 * kt + 2 * kk, kb = ka + 1;
     const float va = col >= 0 && ka < D ? w[(size_t)ka * D3 + col] : 0.f;
     const float vb = col >= 0 && kb < D ? w[(size_t)kb * D3 + col] : 0.f;
     uint4 v;
@@ -407,12 +422,18 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
         for (int i = 0; i < PAIRS; ++i) {
           if (at[i] < 0) continue;
           const int p = threadIdx.x + i * THREADS, n = p / DJ, jl = p % DJ;
-          u[i] = sigmoid_f(xu[i] + gather(red, n, jl));
           const float r = sigmoid_f(xr[i] + gather(red, n, DJ + jl));
           rh[at[i]] = r * h[i];
         }
       }
       grid_arrive(barrier);
+      // u, which only this block reads, while the others arrive
+#pragma unroll
+      for (int i = 0; i < PAIRS; ++i) {
+        if (at[i] < 0) continue;
+        const int p = threadIdx.x + i * THREADS, n = p / DJ, jl = p % DJ;
+        u[i] = sigmoid_f(xu[i] + gather(red, n, jl));
+      }
       grid_wait(barrier, gridDim.x * ++passed);
       // B: the candidate from every unit's r * h, then h_t
       {
@@ -464,9 +485,9 @@ cudaError_t plan(int N, int D, int* blocks, int* rows, size_t* smem,
                                   dev)) != cudaSuccess)
     return e;
   *blocks = (D + DJ - 1) / DJ;
-  const size_t KT = (size_t)(D + 7) / 8, ldh = 8 * KT + 4;
+  const size_t KT = (size_t)(D + 7) / 8, ldh = 8 * KT + 8;
   const size_t wbytes = (size_t)(NA + NB) * KT * 32 * sizeof(uint4);
-  const size_t red = (size_t)WARPS * ROWS * CA;
+  const size_t red = (size_t)WARPS * ROWS * RP;
   int r16 = N < ROWS ? (N + 15) / 16 * 16 : ROWS;
   for (; r16 >= 16; r16 -= 16) {
     const size_t hb = (size_t)r16 * ldh > red ? (size_t)r16 * ldh : red;
