@@ -291,8 +291,11 @@ __device__ __forceinline__ void products(float (&acc)[MT][NT][4],
     case 3:
       products_ma<NT, 3>(acc, hb, ldh, wf, KT, nt0, k0, k1, lane);
       break;
-    default:
+    case 4:
       products_ma<NT, 4>(acc, hb, ldh, wf, KT, nt0, k0, k1, lane);
+      break;
+    default:                               // no rows: the copies are empty
+      wait_landed(GROUPS - 1);
       break;
   }
 }
@@ -356,7 +359,11 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
   float* hb = reinterpret_cast<float*>(wf + (NA + NB) * KT * 32);
   float* red = hb;                         // the partial sums, after use
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int j0 = blockIdx.x * DJ;
+  // block (row group rg, unit group) owns units j0 .. j0 + DJ - 1 of
+  // rows [rg rows, (rg + 1) rows) of each piece of `splits` * rows
+  const int groups = (D + DJ - 1) / DJ;
+  const int j0 = blockIdx.x % groups * DJ;
+  const int rg = blockIdx.x / groups, splits = gridDim.x / groups;
   const int k0 = warp * KT / WARPS, k1 = (warp + 1) * KT / WARPS;
   const size_t D3 = (size_t)3 * D;
 
@@ -392,8 +399,10 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
   for (int q = 0; q < GROUPS; ++q) walks[q] = walk(k0, k1, q, lane);
 
   unsigned int passed = 0;
-  for (int r0 = 0; r0 < N; r0 += rows) {
-    const int nr = min(rows, N - r0);
+  for (int p0 = 0; p0 < N; p0 += splits * rows) {
+    const int r0 = p0 + rg * rows;
+    const int nr = max(0, min(rows, N - r0));  // 0: a block with no rows
+                                               // still meets the barriers
     // this thread's (row, unit) pairs: their state and gate inputs
     int at[PAIRS];                         // row * D + unit, or -1
     float h[PAIRS], u[PAIRS], xu[PAIRS], xr[PAIRS], xc[PAIRS], m[PAIRS];
@@ -470,8 +479,9 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
   }
 }
 
-// The launch shape for N rows of D units: blocks, rows a piece and
-// dynamic shared bytes; an error code when the shape cannot run.
+// The launch shape for N rows of D units: blocks (unit groups times row
+// groups), rows a block's piece and dynamic shared bytes; an error code
+// when the shape cannot run.
 cudaError_t plan(int N, int D, int* blocks, int* rows, size_t* smem,
                  int* per_sm, int* sms) {
   int dev;
@@ -484,11 +494,15 @@ cudaError_t plan(int N, int D, int* blocks, int* rows, size_t* smem,
                                   cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                   dev)) != cudaSuccess)
     return e;
-  *blocks = (D + DJ - 1) / DJ;
+  // the rows split across as many blocks as the SMs left over by the
+  // unit groups allow, 16 rows a block at least
+  const int groups = (D + DJ - 1) / DJ;
+  const int splits = max(1, min(*sms / groups, (N + 15) / 16));
+  *blocks = groups * splits;
   const size_t KT = (size_t)(D + 7) / 8, ldh = 8 * KT + 8;
   const size_t wbytes = (size_t)(NA + NB) * KT * 32 * sizeof(uint4);
   const size_t red = (size_t)WARPS * ROWS * RP;
-  int r16 = N < ROWS ? (N + 15) / 16 * 16 : ROWS;
+  int r16 = min(ROWS, ((N + splits - 1) / splits + 15) / 16 * 16);
   for (; r16 >= 16; r16 -= 16) {
     const size_t hb = (size_t)r16 * ldh > red ? (size_t)r16 * ldh : red;
     *smem = wbytes + hb * sizeof(float);
