@@ -64,10 +64,10 @@ Phases, in order; any failure exits non-zero at once:
 7. rnn: hold the fused LSTM and GRU recurrence kernels against their
    plain versions at T 100, N 64, D 512 (ragged lengths from a seeded
    RandomState, and full ones) and at T 7, N 3, D 128 (a TF32 recurrence
-   must miss the tolerance), the GRU also at N 65, D 36 and T 400 and
-   launched twice at each shape (the second launch bit-identical), with
-   kernel, plain and (LSTM) cuDNN times, registers, shared memory and
-   blocks; then train
+   must miss the tolerance), the GRU also at N 65, D 36, T 400 and D
+   1024 and launched twice at each shape (the second launch
+   bit-identical), with kernel, plain and (LSTM) cuDNN times,
+   registers, shared memory and blocks; then train
    ``configs/text_rnn.model`` at rnn_bench's widths (vocab 30000, hidden
    512, 100 words, batch 64, 2 layers the second reversed, Adam 0.002,
    float32, no peepholes, ``lstm_impl=pallas``) twice, with LSTM and
@@ -230,9 +230,10 @@ R50_STAT_REL_TOL = 1e-4
 RNN_SHAPE = (100, 64, 512)
 RNN_ODD_SHAPE = (7, 3, 128)
 # and the GRU's tensor-core kernel at its edges: one row past a 64-row
-# piece (N 65), a partial k8 tile and last block of units (D 36), and a
-# long chain of 3xTF32 sums (T 400)
-RNN_GRU_EDGE_SHAPES = ((9, 65, 128), (9, 5, 36), (400, 64, 512))
+# piece (N 65), a partial k8 tile and last block of units (D 36), a long
+# chain of 3xTF32 sums (T 400), and W split at each load (D 1024)
+RNN_GRU_EDGE_SHAPES = ((9, 65, 128), (9, 5, 36), (400, 64, 512),
+                       (5, 16, 1024))
 # Kernel against plain version, same inputs, both float32: the largest
 # error over the largest magnitude of the plain hs (and cs). Only the
 # order of each step's D-term sums differs (~1e-7 relative), and the

@@ -21,10 +21,12 @@
 // each, 2T - 1 barriers in all, and each phase reads the whole of h (or
 // r * h) that all blocks wrote in the phase before.
 //
-// Design: one persistent cooperative launch; block b owns the DJ units
-// b*DJ .. b*DJ + DJ - 1 (64 blocks at D 512, one an SM) and walks the
-// batch in pieces of up to 64 rows, each piece through all T steps (the
-// rows are independent: only the units cross blocks). A step:
+// Design: one persistent cooperative launch. A block owns DJ units (a
+// unit group) of the rows of its row group: the rows are independent,
+// only the units cross blocks, so the SMs the unit groups leave free
+// take a share of the rows each (at D 512: 64 unit groups, 2 row groups
+// of 32 rows, 128 blocks, one an SM). Rows past a launch's row groups
+// are walked in pieces, each piece through all T steps. A step:
 //   A. h_{t-1} [rows, D] @ W[:, u | r of the block's units] [D, 2 DJ]:
 //      u and r; r * h_{t-1} of the block's units to the scratch rh.
 //   B. rh [rows, D] @ W[:, cand] [D, DJ]: the candidate, then h_t to
@@ -36,14 +38,17 @@
 //     lane, one load a fragment). The K = D reduction is split across
 //     the 8 warps: warp w multiplies k tiles [w KT / 8, (w+1) KT / 8) of
 //     every row, a k tile's B fragments loaded once for all its m tiles
-//     (the large terms and the small ones in separate chains), each sum
-//     from zero on the tensor cores; the chains and then the 8 warps'
-//     partial sums are added in float32 in a fixed order (the warps'
-//     through shared memory), so a relaunch is bit-identical;
-//   - each warp stages only its K slice of h_{t-1} (or rh) with
-//     cp.async.cg (L2 only: other SMs wrote it), in two groups of k
-//     tiles, and multiplies each group as it lands: no block-wide
-//     barrier between copy and product;
+//     and their chains side by side (the large terms and the small ones
+//     apart), each sum from zero on the tensor cores; the chains and
+//     then the 8 warps' partial sums are added in float32 in a fixed
+//     order (the warps' through shared memory), so a relaunch is
+//     bit-identical;
+//   - each warp stages only its K slice of its block's rows of h_{t-1}
+//     (or rh) with cp.async.cg (L2 only: other SMs wrote it), in two
+//     groups of k tiles, and multiplies each group as it lands: no
+//     block-wide barrier between copy and product. Staging costs a
+//     phase the most (a block reads all D columns of its rows, 64 KB at
+//     D 512), hence the row groups;
 //   - the gate inputs xs[t + 1] and the mask of a thread's (row, unit)
 //     pairs are loaded as phase B of step t starts, under its products
 //     and before the barrier that precedes step t + 1 (a __syncthreads
@@ -55,11 +60,11 @@
 //     barrier after A;
 //   - the grid barrier is one red.release.gpu add a block and a spin on
 //     ld.acquire.gpu, with no fence pair.
-// Shared memory at D 512: 96 KB of W fragments, 129 KB for the staged
-// 64 rows (the 8 warps' partial sums reuse it). Where 64 rows do not fit
-// beside the fragments a piece has fewer (a multiple of 16); a D whose
-// fragments and 16 staged rows do not fit (D > 904) is refused by the
-// plan.
+// Shared memory at D 512: 96 KB of W fragments, 65 KB for the staged 32
+// rows, which the 8 warps' partial sums (48 KB) reuse. A block stages
+// at most 64 rows, fewer (a multiple of 16) where they do not fit beside
+// the fragments; a D whose fragments and 16 staged rows do not fit (D >
+// 904) is refused by the plan.
 //
 // Tensors are contiguous float32. The kernel allocates nothing; the
 // entry point zeroes the barrier counter on the stream, launches on it
@@ -207,7 +212,23 @@ __device__ __forceinline__ void wait_landed(int q) {
   }
 }
 
-// B fragment column nt of k tile kt, split once before the time loop
+// W's B fragments in shared memory, [NA + NB][KT][32 lanes], in one of
+// two forms: split once before the time loop (uint4: hi, hi, lo, lo), or,
+// where those do not fit beside the staged rows, as the lane's two
+// floats (float2), split at each load.
+__device__ __forceinline__ void put_w(uint4* wf, int idx, float a, float b) {
+  uint4 v;
+  split(a, v.x, v.z);
+  split(b, v.y, v.w);
+  wf[idx] = v;
+}
+
+__device__ __forceinline__ void put_w(float2* wf, int idx, float a,
+                                      float b) {
+  wf[idx] = make_float2(a, b);
+}
+
+// B fragment column nt of k tile kt
 __device__ __forceinline__ FragB frag_b(const uint4* wf, int KT, int nt,
                                        int kt, int lane) {
   const uint4 v = wf[(nt * KT + kt) * 32 + lane];
@@ -219,6 +240,15 @@ __device__ __forceinline__ FragB frag_b(const uint4* wf, int KT, int nt,
   return b;
 }
 
+__device__ __forceinline__ FragB frag_b(const float2* wf, int KT, int nt,
+                                       int kt, int lane) {
+  const float2 v = wf[(nt * KT + kt) * 32 + lane];
+  FragB b;
+  split(v.x, b.hi[0], b.lo[0]);
+  split(v.y, b.hi[1], b.lo[1]);
+  return b;
+}
+
 // The warp's partial product of the staged rows (k tiles [k0, k1)) with
 // the NT fragment columns nt0 .. nt0 + NT - 1 of wf, into acc, for the
 // first MA m tiles (the rest stay zero). Each copy group is multiplied as
@@ -227,10 +257,10 @@ __device__ __forceinline__ FragB frag_b(const uint4* wf, int KT, int nt,
 // loads, splits and MA x NT chains interleave (the large terms and the
 // small ones apart in each chain), each summed from zero on the tensor
 // cores and the two added in float32.
-template <int NT, int MA>
+template <int NT, int MA, typename WF>
 __device__ __forceinline__ void products_ma(float (&acc)[MT][NT][4],
                                             const float* hb, int ldh,
-                                            const uint4* wf, int KT, int nt0,
+                                            const WF* wf, int KT, int nt0,
                                             int k0, int k1, int lane) {
   const int g = lane >> 2, t = lane & 3;
   float e[MA][NT][4];
@@ -269,10 +299,10 @@ __device__ __forceinline__ void products_ma(float (&acc)[MT][NT][4],
 }
 
 // products_ma for the m tiles that hold rows: ceil(nr / 16) of them
-template <int NT>
+template <int NT, typename WF>
 __device__ __forceinline__ void products(float (&acc)[MT][NT][4],
                                          const float* hb, int ldh,
-                                         const uint4* wf, int KT, int nt0,
+                                         const WF* wf, int KT, int nt0,
                                          int k0, int k1, int nr, int lane) {
   static_assert(MT == 4, "one case for each count of m tiles");
 #pragma unroll
@@ -345,6 +375,7 @@ __device__ __forceinline__ void load_x(float (&xu)[PAIRS], float (&xr)[PAIRS],
   }
 }
 
+template <typename WF>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
                  const float* __restrict__ h0,
@@ -355,7 +386,7 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
   // row pitch of the staged rows: 8 banks apart, so that a fragment's
   // 8-byte loads meet no bank twice in a half warp
   const int ldh = 8 * KT + 8;
-  uint4* wf = reinterpret_cast<uint4*>(smem);  // [NA + NB][KT][32 lanes]
+  WF* wf = reinterpret_cast<WF*>(smem);    // [NA + NB][KT][32 lanes]
   float* hb = reinterpret_cast<float*>(wf + (NA + NB) * KT * 32);
   float* red = hb;                         // the partial sums, after use
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -367,7 +398,7 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
   const int k0 = warp * KT / WARPS, k1 = (warp + 1) * KT / WARPS;
   const size_t D3 = (size_t)3 * D;
 
-  // The block's columns of W as split B fragments: fragment column c of
+  // The block's columns of W as B fragments: fragment column c of
   // phase A is unit c's u (c < DJ) or unit c - DJ's r; of phase B unit
   // c's candidate; units past D and rows past D are zeros. Lane (n, kk)
   // holds rows 2 kk and 2 kk + 1 of its k tile (load_a_pair's order).
@@ -388,10 +419,7 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
     const int ka = 8 * kt + 2 * kk, kb = ka + 1;
     const float va = col >= 0 && ka < D ? w[(size_t)ka * D3 + col] : 0.f;
     const float vb = col >= 0 && kb < D ? w[(size_t)kb * D3 + col] : 0.f;
-    uint4 v;
-    split(va, v.x, v.z);
-    split(vb, v.y, v.w);
-    wf[idx] = v;
+    put_w(wf, idx, va, vb);
   }
 
   Walk walks[GROUPS];
@@ -479,11 +507,19 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
   }
 }
 
-// The launch shape for N rows of D units: blocks (unit groups times row
-// groups), rows a block's piece and dynamic shared bytes; an error code
-// when the shape cannot run.
-cudaError_t plan(int N, int D, int* blocks, int* rows, size_t* smem,
-                 int* per_sm, int* sms) {
+// Shared bytes of a block that stages r16 rows, W's fragments `wbytes`
+size_t smem_bytes(int r16, size_t ldh, size_t wbytes) {
+  const size_t red = (size_t)WARPS * ROWS * RP;
+  const size_t hb = (size_t)r16 * ldh > red ? (size_t)r16 * ldh : red;
+  return wbytes + hb * sizeof(float);
+}
+
+// The launch shape for N rows of D units: the kernel (W split once where
+// that leaves room for the rows a block needs, else split at each load),
+// blocks (unit groups times row groups), rows a block's piece and
+// dynamic shared bytes; an error code when the shape cannot run.
+cudaError_t plan(int N, int D, const void** kernel, int* blocks, int* rows,
+                 size_t* smem, int* per_sm, int* sms) {
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -500,22 +536,26 @@ cudaError_t plan(int N, int D, int* blocks, int* rows, size_t* smem,
   const int splits = max(1, min(*sms / groups, (N + 15) / 16));
   *blocks = groups * splits;
   const size_t KT = (size_t)(D + 7) / 8, ldh = 8 * KT + 8;
-  const size_t wbytes = (size_t)(NA + NB) * KT * 32 * sizeof(uint4);
-  const size_t red = (size_t)WARPS * ROWS * RP;
-  int r16 = min(ROWS, ((N + splits - 1) / splits + 15) / 16 * 16);
+  const size_t frags = (size_t)(NA + NB) * KT * 32;
+  const int need = min(ROWS, ((N + splits - 1) / splits + 15) / 16 * 16);
+  const bool once =
+      smem_bytes(need, ldh, frags * sizeof(uint4)) <= (size_t)optin;
+  const size_t wbytes = frags * (once ? sizeof(uint4) : sizeof(float2));
+  *kernel = once ? (const void*)fused_gru_kernel<uint4>
+                 : (const void*)fused_gru_kernel<float2>;
+  int r16 = need;
   for (; r16 >= 16; r16 -= 16) {
-    const size_t hb = (size_t)r16 * ldh > red ? (size_t)r16 * ldh : red;
-    *smem = wbytes + hb * sizeof(float);
+    *smem = smem_bytes(r16, ldh, wbytes);
     if (*smem <= (size_t)optin) break;
   }
   if (r16 < 16) return cudaErrorInvalidValue;  // not even 16 rows fit
   *rows = r16 < N ? r16 : N;
-  if ((e = cudaFuncSetAttribute(fused_gru_kernel,
+  if ((e = cudaFuncSetAttribute(*kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)*smem)) != cudaSuccess)
     return e;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           per_sm, fused_gru_kernel, THREADS, *smem)) != cudaSuccess)
+           per_sm, *kernel, THREADS, *smem)) != cudaSuccess)
     return e;
   if ((long long)*per_sm * *sms < *blocks)
     return cudaErrorCooperativeLaunchTooLarge;
@@ -527,13 +567,15 @@ cudaError_t plan(int N, int D, int* blocks, int* rows, size_t* smem,
 extern "C" {
 
 // The launch shape of N rows of D units on the current device: info[7]
-// receives blocks, units a block, rows a piece, shared bytes, threads,
-// co-resident blocks per SM and SMs.
+// receives blocks, units a block, rows a block's piece, shared bytes,
+// threads, co-resident blocks per SM and SMs.
 int fused_gru_plan(int N, int D, int* info) {
   if (N < 1 || D < 4 || D % 4 != 0) return (int)cudaErrorInvalidValue;
+  const void* kernel;
   int blocks, rows, per_sm, sms;
   size_t smem;
-  const cudaError_t e = plan(N, D, &blocks, &rows, &smem, &per_sm, &sms);
+  const cudaError_t e =
+      plan(N, D, &kernel, &blocks, &rows, &smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   const int vals[7] = {blocks, DJ, rows, (int)smem, THREADS, per_sm, sms};
   for (int i = 0; i < 7; ++i) info[i] = vals[i];
@@ -548,9 +590,10 @@ int fused_gru_f32(const void* xs, const void* w, const void* h0,
                   int N, int D, void* stream) {
   if (T < 1 || N < 1 || D < 4 || D % 4 != 0)
     return (int)cudaErrorInvalidValue;
+  const void* kernel;
   int blocks, rows, per_sm, sms;
   size_t smem;
-  cudaError_t e = plan(N, D, &blocks, &rows, &smem, &per_sm, &sms);
+  cudaError_t e = plan(N, D, &kernel, &blocks, &rows, &smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((e = cudaMemsetAsync(barrier, 0, sizeof(unsigned int), st)) !=
@@ -566,9 +609,8 @@ int fused_gru_f32(const void* xs, const void* w, const void* h0,
   void* args[] = {(void*)&xf, (void*)&wf, (void*)&h0f, (void*)&mf,
                   (void*)&hsf, (void*)&rhf, (void*)&bar, (void*)&T,
                   (void*)&N, (void*)&D, (void*)&rows};
-  e = cudaLaunchCooperativeKernel((const void*)fused_gru_kernel,
-                                  dim3(blocks), dim3(THREADS), args, smem,
-                                  st);
+  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(THREADS), args,
+                                  smem, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

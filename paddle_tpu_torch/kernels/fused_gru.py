@@ -19,23 +19,17 @@
 
 The kernel replaces the JAX package's Pallas kernel
 (``paddle_tpu/kernels/fused_gru.py``, ``_forward``). It is one persistent
-cooperative launch for all T steps: 8 units a block (64 blocks at D 512),
-the batch in pieces of up to 64 rows. Its products run on the tensor
-cores in 3xTF32 (``csrc/tf32x3.cuh``), float32-exact, with W split into
-hi and lo once and kept in shared memory; the K reduction is split
-across the block's 8 warps and summed in a fixed order, so a relaunch is
-bit-identical. The bound at T 100, N 64, D 512 is 0.0610 ms of 3xTF32
-operations, but the serial chain sets the time: a step is two phases
-with a grid barrier (a release add and an acquire spin) after each,
-2T - 1 in all, and each phase stages the whole of h (or r * h) into
-every block with ``cp.async`` (128 KB a block a phase at N 64).
-
-Gate math (Paddle's GRU): with the pre-projected input x ``[N, 3D]``,
-``u, r = sigmoid(x[:, :2D] + h @ W[:, :2D])``, ``cand = tanh(x[:, 2D:] +
-(r * h) @ W[:, 2D:])``, ``h' = (1 - u) * h + u * cand``. Layout: xs
-``[T, N, 3D]`` (bias folded in); w ``[D, 3D]`` (update | reset, then
-candidate); h0 ``[N, D]``; mask ``[T, N]``. Returns hs ``[T, N, D]``; a
-masked step carries the previous state through.
+cooperative launch for all T steps; a block owns 8 units of a share of
+the rows (at D 512, N 64: 64 unit groups times 2 row groups of 32 rows,
+128 blocks). Its products run on the tensor cores in 3xTF32
+(``csrc/tf32x3.cuh``), float32-exact, with W split into hi and lo once
+and kept in shared memory; the K reduction is split across the block's
+8 warps and summed in a fixed order, so a relaunch is bit-identical. The
+bound at T 100, N 64, D 512 is 0.0610 ms of 3xTF32 operations, but the
+serial chain sets the time: a step is two phases with a grid barrier (a
+release add and an acquire spin) after each, 2T - 1 in all, and each
+phase stages all D columns of the block's rows of h (or r * h) with
+``cp.async`` (64 KB a block a phase at N 64).
 """
 from __future__ import annotations
 

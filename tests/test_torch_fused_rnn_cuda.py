@@ -3,7 +3,8 @@ against their plain versions, ragged and full lengths, at a small odd
 shape and at the sequence slice's shape (T 100, N 64, D 512), and their
 refusal of other dtypes. The GRU's tensor-core kernel also at its edges
 (N 65: one row past a 64-row piece; D 36: a partial k8 tile and a
-partial last block of units; T 400: a long chain of 3xTF32 sums), and
+partial last block of units; T 400: a long chain of 3xTF32 sums; D
+1024: W split at each load, as its split fragments do not fit), and
 relaunched bit-identically.
 
 JAX-free, so that it runs where the card is. Tolerance: 1e-4 of the
@@ -25,7 +26,7 @@ T, N, D = 6, 8, 128
 CARD_TOL = 1e-4
 CARD_SHAPES = [(7, 3, 128), (100, 64, 512)]
 # (T, N, D) at the GRU kernel's edges
-GRU_EDGE_SHAPES = [(9, 65, 128), (9, 5, 36), (400, 64, 512)]
+GRU_EDGE_SHAPES = [(9, 65, 128), (9, 5, 36), (400, 64, 512), (5, 16, 1024)]
 
 
 @pytest.fixture
@@ -85,7 +86,7 @@ def test_gru_kernel_matches_plain_version_on_the_card(cuda_device, shape,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", GRU_EDGE_SHAPES,
-                         ids=["n65", "d36", "t400"])
+                         ids=["n65", "d36", "t400", "d1024"])
 def test_gru_kernel_matches_plain_version_at_its_edges(cuda_device, shape):
     torch.backends.cuda.matmul.allow_tf32 = False
     xs, w, h0, _, mask = (torch.tensor(a, device=cuda_device)

@@ -35,7 +35,8 @@ on every tile at every D, as the source does at D 128 only),
 (each 3xTF32 product's three terms in one mma accumulator, instead of
 the large term and the two small ones in separate chains); the matmul
 ``stages2`` (a ring of two stages instead of three). The GRU has one,
-``dj4``: 4 units a block (128 blocks at D 512) instead of 8 (64).
+``dj4``: 4 units a block instead of 8 (at D 512, N 64: 128 unit groups
+of all 64 rows, instead of 64 unit groups by 2 row groups of 32 rows).
 
 For each it prints the registers and spills ``-Xptxas -v`` reports and:
 
