@@ -1799,7 +1799,11 @@ def _rnn_kernel_check(dev):
             "bound_ms": b_ms, "bound_by": b_by,
             "tc_bound_ms": tc_bound(nbytes, flops),
             "launch": mod.launch_plan(N, D),
-            "ptxas": _ptxas(name, name + "_kernel"),
+            # the GRU kernel's two forms: W split once (the main path) and
+            # split at each load (where the split fragments do not fit)
+            "ptxas": _ptxas(name, name + "_kernel") if gates == 4 else {
+                "w_split_once": _ptxas(name, name + "_kernelI5uint4"),
+                "w_split_at_load": _ptxas(name, name + "_kernelI6float2")},
             "shape": {"T": T, "N": N, "D": D, "timed_lengths": "all T"},
             "checks": checks}
         if gates == 4:

@@ -61,10 +61,12 @@
 //   - the grid barrier is one red.release.gpu add a block and a spin on
 //     ld.acquire.gpu, with no fence pair.
 // Shared memory at D 512: 96 KB of W fragments, 65 KB for the staged 32
-// rows, which the 8 warps' partial sums (48 KB) reuse. A block stages
-// at most 64 rows, fewer (a multiple of 16) where they do not fit beside
-// the fragments; a D whose fragments and 16 staged rows do not fit (D >
-// 904) is refused by the plan.
+// rows, which the 8 warps' partial sums (48 KB) reuse. Where the split
+// fragments (8 bytes a weight) leave too little room for the rows a
+// block needs, W is kept as its floats and split at each load instead
+// (D 1024). A block stages at most 64 rows, fewer (a multiple of 16)
+// where they do not fit; a D with more unit groups than the card has SMs
+// (D > 1056 on an H100) cannot be co-resident and is refused.
 //
 // Tensors are contiguous float32. The kernel allocates nothing; the
 // entry point zeroes the barrier counter on the stream, launches on it
@@ -90,6 +92,7 @@ constexpr int RP = CA % 32 == 0 || CA % 32 == 16 ? CA + 8 : CA;
 constexpr int PAIRS = ROWS * DJ / THREADS; // (row, unit) pairs a thread
 static_assert(ROWS * DJ % THREADS == 0, "pairs must tile the threads");
 constexpr int GROUPS = 2;                  // copy groups of a staging
+static_assert(GROUPS == 2, "products_ma waits for one group, then both");
 
 // 1 / (1 + e^-x); __frcp_rn is the correctly rounded reciprocal, the
 // value of the division 1.f / y without its general path
@@ -201,17 +204,6 @@ __device__ __forceinline__ FragA load_a_pair(const float* s, int ld, int g,
   return f;
 }
 
-// wait for copy groups 0 .. q of the GROUPS just committed
-__device__ __forceinline__ void wait_landed(int q) {
-  static_assert(GROUPS <= 4, "one case for each count of groups in flight");
-  switch (GROUPS - 1 - q) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    default: cp_async_wait<3>(); break;
-  }
-}
-
 // W's B fragments in shared memory, [NA + NB][KT][32 lanes], in one of
 // two forms: split once before the time loop (uint4: hi, hi, lo, lo), or,
 // where those do not fit beside the staged rows, as the lane's two
@@ -272,7 +264,8 @@ __device__ __forceinline__ void products_ma(float (&acc)[MT][NT][4],
       for (int i = 0; i < 4; ++i) e[mt][nt][i] = 0.f;
 #pragma unroll
   for (int q = 0; q < GROUPS; ++q) {
-    wait_landed(q);
+    if (q == 0) cp_async_wait<1>();        // the first group has landed
+    else cp_async_wait<0>();
     __syncwarp();
     const int kb = group_start(k0, k1, q), ke = group_start(k0, k1, q + 1);
 #pragma unroll 2
@@ -325,7 +318,7 @@ __device__ __forceinline__ void products(float (&acc)[MT][NT][4],
       products_ma<NT, 4>(acc, hb, ldh, wf, KT, nt0, k0, k1, lane);
       break;
     default:                               // no rows: the copies are empty
-      wait_landed(GROUPS - 1);
+      cp_async_wait<0>();
       break;
   }
 }

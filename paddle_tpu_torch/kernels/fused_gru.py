@@ -13,7 +13,8 @@
 - :func:`fused_gru` is the wrapper, a ``torch.autograd.Function``. A CPU
   tensor gets the plain forward. A CUDA tensor gets the hand-written
   kernel of ``csrc/fused_gru.cu`` or an exception, never the plain
-  version; float32 only, D a multiple of 4 up to 904.
+  version; float32 only, D a multiple of 4 up to 8 units a block on
+  every SM (1056 on an H100).
 - ``launches`` counts the kernel's launches; :func:`launch_plan` reports
   the launch shape a batch gets.
 

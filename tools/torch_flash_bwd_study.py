@@ -34,9 +34,11 @@ on every tile at every D, as the source does at D 128 only),
 ``min_blocks3`` (registers capped for 3 blocks an SM) and ``one_chain``
 (each 3xTF32 product's three terms in one mma accumulator, instead of
 the large term and the two small ones in separate chains); the matmul
-``stages2`` (a ring of two stages instead of three). The GRU has one,
+``stages2`` (a ring of two stages instead of three). The GRU has
 ``dj4``: 4 units a block instead of 8 (at D 512, N 64: 128 unit groups
-of all 64 rows, instead of 64 unit groups by 2 row groups of 32 rows).
+of all 64 rows, instead of 64 unit groups by 2 row groups of 32 rows);
+and ``w_split_at_load``: W kept as its floats and split at each load,
+the form the kernel takes only where the split fragments do not fit.
 
 For each it prints the registers and spills ``-Xptxas -v`` reports and:
 
@@ -213,6 +215,7 @@ MATMUL_VARIANTS = {
 }
 GRU_VARIANTS = {
     "dj4": [("constexpr int DJ = 8; ", "constexpr int DJ = 4; ")],
+    "w_split_at_load": [("  const bool once =\n", "  const bool once = false &&\n")],
 }
 
 
@@ -249,8 +252,9 @@ def ptxas_summary(log):
             args = re.findall(r"L[ib](\d+)E", m.group(2))
             cur = "%s<%s>" % (m.group(1), ",".join(args))
         elif "Compiling entry function" in ln:
-            m = re.search(r"\d+([a-z_]+_kernel)E", ln)
-            cur = m.group(1) if m else None
+            m = re.search(r"\d+([a-z_]+_kernel)(?:I\d+(\w+?)E)?E", ln)
+            cur = None if m is None else m.group(1) + (
+                "<%s>" % m.group(2) if m.group(2) else "")
         elif cur and "registers" in ln:
             regs = re.search(r"Used (\d+) registers", ln).group(1)
             out[cur] = regs + " registers" + out.get(cur, "")
