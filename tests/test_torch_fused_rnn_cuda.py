@@ -5,7 +5,8 @@ refusal of other dtypes. The GRU's tensor-core kernel also at its edges
 (N 65: one row past a 64-row piece; D 36: a partial k8 tile and a
 partial last block of units; T 400: a long chain of 3xTF32 sums; D
 1024: W split at each load, as its split fragments do not fit), and
-relaunched bit-identically.
+relaunched bit-identically; and its refusal of a D wider than its
+blocks can hold.
 
 JAX-free, so that it runs where the card is. Tolerance: 1e-4 of the
 largest magnitude, float32 on both sides: the sum order of each D-term
@@ -106,6 +107,17 @@ def test_gru_kernel_relaunch_is_bit_identical(cuda_device):
     second = tgru.fused_gru(xs, w, h0, mask)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_gru_kernel_refuses_more_unit_groups_than_sms(cuda_device):
+    # 8 units a block on every SM, and one block more: the cooperative
+    # launch cannot hold the grid, so the wrapper raises
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    xs, w, h0, _, mask = (torch.tensor(a, device=cuda_device)
+                          for a in _inputs(3, 12, 2, 4, 8 * (sms + 1)))
+    with pytest.raises(RuntimeError, match="fused_gru: CUDA error"):
+        tgru.fused_gru(xs, w, h0, mask)
 
 
 @pytest.mark.cuda
