@@ -64,9 +64,10 @@ Phases, in order; any failure exits non-zero at once:
 7. rnn: hold the fused LSTM and GRU recurrence kernels against their
    plain versions at T 100, N 64, D 512 (ragged lengths from a seeded
    RandomState, and full ones) and at T 7, N 3, D 128 (a TF32 recurrence
-   must miss the tolerance), the GRU also at N 65, D 36, T 400 and D
-   1024 and launched twice at each shape (the second launch
-   bit-identical), with kernel, plain and (LSTM) cuDNN times,
+   must miss the tolerance), the GRU also at its edges
+   (``RNN_GRU_EDGE_SHAPES``: N 65, D 36, T 400, D 1024, two pieces of
+   rows, two unit groups a block at D 1152 and 1536) and launched twice
+   at each shape (the second launch bit-identical), with kernel, plain and (LSTM) cuDNN times,
    registers, shared memory and blocks; then train
    ``configs/text_rnn.model`` at rnn_bench's widths (vocab 30000, hidden
    512, 100 words, batch 64, 2 layers the second reversed, Adam 0.002,
@@ -229,11 +230,16 @@ R50_STAT_REL_TOL = 1e-4
 # 64 rows and D 512 units, and an odd one (N and D tails of the launch)
 RNN_SHAPE = (100, 64, 512)
 RNN_ODD_SHAPE = (7, 3, 128)
-# and the GRU's tensor-core kernel at its edges: one row past a 64-row
-# piece (N 65), a partial k8 tile and last block of units (D 36), a long
-# chain of 3xTF32 sums (T 400), and W split at each load (D 1024)
+# and the GRU's tensor-core kernel at its edges: a last row group of one
+# row (N 65 at D 128: 5 row groups of 16 rows), a partial k8 tile and
+# last block of units (D 36), a long chain of 3xTF32 sums (T 400), W split
+# at each load (D 1024), two pieces of rows (N 64 at D 1024: 32 rows a
+# piece; N 160 at D 512: 2 row groups of 64 rows, then 32 rows), and two
+# unit groups a block with W read from global memory, in 2 pieces (D
+# 1152, N 40; D 1536, N 24)
 RNN_GRU_EDGE_SHAPES = ((9, 65, 128), (9, 5, 36), (400, 64, 512),
-                       (5, 16, 1024))
+                       (5, 16, 1024), (5, 64, 1024), (3, 160, 512),
+                       (4, 40, 1152), (3, 24, 1536))
 # Kernel against plain version, same inputs, both float32: the largest
 # error over the largest magnitude of the plain hs (and cs). Only the
 # order of each step's D-term sums differs (~1e-7 relative), and the
@@ -1656,15 +1662,16 @@ def _rnn_inputs(gates, T, N, D, seed, ragged, dev):
     return [torch.from_numpy(a).to(dev) for a in (xs, w, h0, c0, mask)]
 
 
-def _ptxas(name, kernel):
+def _ptxas(name, *kernel):
     """The compiler's register / shared-memory / spill lines of one
-    kernel of ``csrc/<name>.cu``."""
+    kernel of ``csrc/<name>.cu``: the entry whose mangled name holds each
+    of the ``kernel`` texts."""
     from paddle_tpu_torch.kernels import _build
     lines = (_build.build_log(name) or "").splitlines()
     out, hit = [], False
     for ln in lines:
         if "Compiling entry function" in ln:
-            hit = kernel in ln
+            hit = all(k in ln for k in kernel)
         elif hit and ("registers" in ln or "spill" in ln):
             out.append(ln.strip())
     return out
@@ -1799,11 +1806,15 @@ def _rnn_kernel_check(dev):
             "bound_ms": b_ms, "bound_by": b_by,
             "tc_bound_ms": tc_bound(nbytes, flops),
             "launch": mod.launch_plan(N, D),
-            # the GRU kernel's two forms: W split once (the main path) and
+            # the GRU kernel's three forms: W split once (the main path),
             # split at each load (where the split fragments do not fit)
+            # and read from global memory by blocks of two unit groups
+            # (where the groups outnumber the SMs)
             "ptxas": _ptxas(name, name + "_kernel") if gates == 4 else {
-                "w_split_once": _ptxas(name, name + "_kernelI5uint4"),
-                "w_split_at_load": _ptxas(name, name + "_kernelI6float2")},
+                form: _ptxas(name, name + "_kernelI", tag)
+                for form, tag in (("w_split_once", "5uint4"),
+                                  ("w_split_at_load", "6float2"),
+                                  ("w_global_two_groups", "7WGlobal"))},
             "shape": {"T": T, "N": N, "D": D, "timed_lengths": "all T"},
             "checks": checks}
         if gates == 4:

@@ -65,8 +65,13 @@
 // fragments (8 bytes a weight) leave too little room for the rows a
 // block needs, W is kept as its floats and split at each load instead
 // (D 1024). A block stages at most 64 rows, fewer (a multiple of 16)
-// where they do not fit; a D with more unit groups than the card has SMs
-// (D > 1056 on an H100) cannot be co-resident and is refused.
+// where they do not fit. Where the unit groups outnumber the SMs (D above
+// 1056 on an H100), a block owns two of them, g and g + half their
+// count: it stages its rows once a phase and multiplies them by each
+// group's columns in turn, reading W from global memory (L2) at each
+// load, as neither group's fragments fit beside the rows; the partial
+// sums then have room of their own. That reaches D 2112 on an H100 (the
+// CUDA-core kernel this replaced took D up to 1564).
 //
 // Tensors are contiguous float32. The kernel allocates nothing; the
 // entry point zeroes the barrier counter on the stream, launches on it
@@ -78,7 +83,7 @@
 
 namespace {
 
-constexpr int DJ = 8;                      // units a block
+constexpr int DJ = 8;                      // units a unit group
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int ROWS = 64;                   // rows of a piece, at most
@@ -204,10 +209,32 @@ __device__ __forceinline__ FragA load_a_pair(const float* s, int ld, int g,
   return f;
 }
 
-// W's B fragments in shared memory, [NA + NB][KT][32 lanes], in one of
-// two forms: split once before the time loop (uint4: hi, hi, lo, lo), or,
-// where those do not fit beside the staged rows, as the lane's two
-// floats (float2), split at each load.
+// The column of W in fragment column nt, lane row n, of the unit group
+// whose first unit is j0: phase A's column c is unit c's u (c < DJ) or
+// unit c - DJ's r, phase B's unit c's candidate; -1 past D.
+__device__ __forceinline__ int w_col(int nt, int n, int j0, int D) {
+  if (nt < NA) {
+    const int c = nt * 8 + n;
+    if (c < DJ) return j0 + c < D ? j0 + c : -1;
+    return c < 2 * DJ && j0 + c - DJ < D ? D + j0 + c - DJ : -1;
+  }
+  const int c = (nt - NA) * 8 + n;
+  return c < DJ && j0 + c < D ? 2 * D + j0 + c : -1;
+}
+
+// W's B fragments, in one of three forms: in shared memory, [NA + NB][KT]
+// [32 lanes], split once before the time loop (const uint4*: hi, hi, lo,
+// lo) or, where those do not fit beside the staged rows, as the lane's
+// two floats (const float2*), split at each load; or, where a block owns
+// more than one unit group, read from W in global memory and split at
+// each load (WGlobal: the lane's column of W in each fragment column).
+struct WGlobal {
+  const float* w;
+  size_t D3;
+  int D;
+  int col[NA + NB];
+};
+
 __device__ __forceinline__ void put_w(uint4* wf, int idx, float a, float b) {
   uint4 v;
   split(a, v.x, v.z);
@@ -241,6 +268,60 @@ __device__ __forceinline__ FragB frag_b(const float2* wf, int KT, int nt,
   return b;
 }
 
+// (rows 2 kk and 2 kk + 1 of the k tile, as setup_w; as D is a multiple
+// of 4, both lie within D or neither does)
+__device__ __forceinline__ FragB frag_b(const WGlobal& wg, int, int nt,
+                                       int kt, int lane) {
+  const int k = 8 * kt + 2 * (lane & 3), col = wg.col[nt];
+  const bool in = col >= 0 && k < wg.D;
+  const float* p = wg.w + (in ? k * wg.D3 + col : 0);
+  FragB b;
+  split(in ? __ldg(p) : 0.f, b.hi[0], b.lo[0]);
+  split(in ? __ldg(p + wg.D3) : 0.f, b.hi[1], b.lo[1]);
+  return b;
+}
+
+// The block's W in shared memory as B fragments of its one unit group
+// (j0[0]): lane (n, kk) holds rows 2 kk and 2 kk + 1 of its k tile
+// (load_a_pair's order); units past D and rows past D are zeros. Returns
+// where the staged rows begin.
+template <typename V>
+__device__ float* setup_w(const V* (&ws)[1], unsigned char* smem,
+                          const float* __restrict__ w, const int (&j0)[1],
+                          int D, int KT) {
+  V* wf = reinterpret_cast<V*>(smem);
+  const size_t D3 = (size_t)3 * D;
+  for (int idx = threadIdx.x; idx < (NA + NB) * KT * 32; idx += THREADS) {
+    const int l = idx & 31, f = idx >> 5;
+    const int nt = f / KT, kt = f - nt * KT;
+    const int col = w_col(nt, l >> 2, j0[0], D);
+    const int ka = 8 * kt + 2 * (l & 3), kb = ka + 1;
+    const float va = col >= 0 && ka < D ? w[(size_t)ka * D3 + col] : 0.f;
+    const float vb = col >= 0 && kb < D ? w[(size_t)kb * D3 + col] : 0.f;
+    put_w(wf, idx, va, vb);
+  }
+  ws[0] = wf;
+  return reinterpret_cast<float*>(wf + (NA + NB) * KT * 32);
+}
+
+// W in global memory for each of the block's G unit groups: nothing in
+// shared memory
+template <int G>
+__device__ float* setup_w(WGlobal (&ws)[G], unsigned char* smem,
+                          const float* __restrict__ w, const int (&j0)[G],
+                          int D, int) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    ws[g].w = w;
+    ws[g].D3 = (size_t)3 * D;
+    ws[g].D = D;
+#pragma unroll
+    for (int nt = 0; nt < NA + NB; ++nt)
+      ws[g].col[nt] = w_col(nt, (threadIdx.x & 31) >> 2, j0[g], D);
+  }
+  return reinterpret_cast<float*>(smem);
+}
+
 // The warp's partial product of the staged rows (k tiles [k0, k1)) with
 // the NT fragment columns nt0 .. nt0 + NT - 1 of wf, into acc, for the
 // first MA m tiles (the rest stay zero). Each copy group is multiplied as
@@ -249,10 +330,10 @@ __device__ __forceinline__ FragB frag_b(const float2* wf, int KT, int nt,
 // loads, splits and MA x NT chains interleave (the large terms and the
 // small ones apart in each chain), each summed from zero on the tensor
 // cores and the two added in float32.
-template <int NT, int MA, typename WF>
+template <int NT, int MA, typename WS>
 __device__ __forceinline__ void products_ma(float (&acc)[MT][NT][4],
                                             const float* hb, int ldh,
-                                            const WF* wf, int KT, int nt0,
+                                            const WS& wf, int KT, int nt0,
                                             int k0, int k1, int lane) {
   const int g = lane >> 2, t = lane & 3;
   float e[MA][NT][4];
@@ -292,10 +373,10 @@ __device__ __forceinline__ void products_ma(float (&acc)[MT][NT][4],
 }
 
 // products_ma for the m tiles that hold rows: ceil(nr / 16) of them
-template <int NT, typename WF>
+template <int NT, typename WS>
 __device__ __forceinline__ void products(float (&acc)[MT][NT][4],
                                          const float* hb, int ldh,
-                                         const WF* wf, int KT, int nt0,
+                                         const WS& wf, int KT, int nt0,
                                          int k0, int k1, int nr, int lane) {
   static_assert(MT == 4, "one case for each count of m tiles");
 #pragma unroll
@@ -368,7 +449,21 @@ __device__ __forceinline__ void load_x(float (&xu)[PAIRS], float (&xr)[PAIRS],
   }
 }
 
-template <typename WF>
+// The gate inputs and the mask of step t at a thread's pairs of each of
+// its G unit groups
+template <int G>
+__device__ __forceinline__ void load_x_groups(
+    float (&xu)[G][PAIRS], float (&xr)[G][PAIRS], float (&xc)[G][PAIRS],
+    float (&m)[G][PAIRS], const float* __restrict__ xs,
+    const float* __restrict__ mask, const int (&at)[G][PAIRS], int t, int N,
+    int D) {
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    load_x(xu[g], xr[g], xc[g], m[g], xs, mask, at[g], t, N, D);
+}
+
+// WS: the form of W (setup_w); G: the unit groups a block owns
+template <typename WS, int G>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
                  const float* __restrict__ h0,
@@ -379,41 +474,23 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
   // row pitch of the staged rows: 8 banks apart, so that a fragment's
   // 8-byte loads meet no bank twice in a half warp
   const int ldh = 8 * KT + 8;
-  WF* wf = reinterpret_cast<WF*>(smem);    // [NA + NB][KT][32 lanes]
-  float* hb = reinterpret_cast<float*>(wf + (NA + NB) * KT * 32);
-  float* red = hb;                         // the partial sums, after use
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // block (row group rg, unit group) owns units j0 .. j0 + DJ - 1 of
-  // rows [rg rows, (rg + 1) rows) of each piece of `splits` * rows
-  const int groups = (D + DJ - 1) / DJ;
-  const int j0 = blockIdx.x % groups * DJ;
-  const int rg = blockIdx.x / groups, splits = gridDim.x / groups;
+  // block (row group rg, unit block ub) owns the unit groups ub, ub +
+  // ublocks, .. (G of them) of rows [rg rows, (rg + 1) rows) of each
+  // piece of `splits` * rows
+  const int ublocks = ((D + DJ - 1) / DJ + G - 1) / G;
+  const int ub = blockIdx.x % ublocks;
+  const int rg = blockIdx.x / ublocks, splits = gridDim.x / ublocks;
   const int k0 = warp * KT / WARPS, k1 = (warp + 1) * KT / WARPS;
-  const size_t D3 = (size_t)3 * D;
-
-  // The block's columns of W as B fragments: fragment column c of
-  // phase A is unit c's u (c < DJ) or unit c - DJ's r; of phase B unit
-  // c's candidate; units past D and rows past D are zeros. Lane (n, kk)
-  // holds rows 2 kk and 2 kk + 1 of its k tile (load_a_pair's order).
-  for (int idx = threadIdx.x; idx < (NA + NB) * KT * 32; idx += THREADS) {
-    const int l = idx & 31, f = idx >> 5;
-    const int nt = f / KT, kt = f - nt * KT;
-    const int n = l >> 2, kk = l & 3;
-    int col = -1;
-    if (nt < NA) {
-      const int c = nt * 8 + n;
-      if (c < DJ && j0 + c < D) col = j0 + c;
-      else if (c >= DJ && c < 2 * DJ && j0 + c - DJ < D)
-        col = D + j0 + c - DJ;
-    } else {
-      const int c = (nt - NA) * 8 + n;
-      if (c < DJ && j0 + c < D) col = 2 * D + j0 + c;
-    }
-    const int ka = 8 * kt + 2 * kk, kb = ka + 1;
-    const float va = col >= 0 && ka < D ? w[(size_t)ka * D3 + col] : 0.f;
-    const float vb = col >= 0 && kb < D ? w[(size_t)kb * D3 + col] : 0.f;
-    put_w(wf, idx, va, vb);
-  }
+  int j0[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) j0[g] = (ub + g * ublocks) * DJ;
+  WS ws[G];
+  float* hb = setup_w(ws, smem, w, j0, D, KT);
+  // the partial sums: over the staged rows where a block owns one unit
+  // group (its products are done with them), after them where it owns
+  // more (the next group's products read them again)
+  float* red = G == 1 ? hb : hb + ((rows + 15) & ~15) * ldh;
 
   Walk walks[GROUPS];
 #pragma unroll
@@ -424,72 +501,83 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
     const int r0 = p0 + rg * rows;
     const int nr = max(0, min(rows, N - r0));  // 0: a block with no rows
                                                // still meets the barriers
-    // this thread's (row, unit) pairs: their state and gate inputs
-    int at[PAIRS];                         // row * D + unit, or -1
-    float h[PAIRS], u[PAIRS], xu[PAIRS], xr[PAIRS], xc[PAIRS], m[PAIRS];
-    float nxu[PAIRS], nxr[PAIRS], nxc[PAIRS], nm[PAIRS];
+    // this thread's (row, unit) pairs of each unit group: their state and
+    // gate inputs
+    int at[G][PAIRS];                      // row * D + unit, or -1
+    float h[G][PAIRS], u[G][PAIRS], xu[G][PAIRS], xr[G][PAIRS], xc[G][PAIRS],
+        m[G][PAIRS];
+    float nxu[G][PAIRS], nxr[G][PAIRS], nxc[G][PAIRS], nm[G][PAIRS];
 #pragma unroll
-    for (int i = 0; i < PAIRS; ++i) {
-      const int p = threadIdx.x + i * THREADS, n = p / DJ, j = j0 + p % DJ;
-      at[i] = n < nr && j < D ? (r0 + n) * D + j : -1;
-      h[i] = at[i] >= 0 ? h0[at[i]] : 0.f;
-      u[i] = xu[i] = xr[i] = xc[i] = m[i] = 0.f;
-      nxu[i] = nxr[i] = nxc[i] = nm[i] = 0.f;
-    }
-    load_x(xu, xr, xc, m, xs, mask, at, 0, N, D);
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int i = 0; i < PAIRS; ++i) {
+        const int p = threadIdx.x + i * THREADS, n = p / DJ,
+                  j = j0[g] + p % DJ;
+        at[g][i] = n < nr && j < D ? (r0 + n) * D + j : -1;
+        h[g][i] = at[g][i] >= 0 ? h0[at[g][i]] : 0.f;
+        u[g][i] = xu[g][i] = xr[g][i] = xc[g][i] = m[g][i] = 0.f;
+        nxu[g][i] = nxr[g][i] = nxc[g][i] = nm[g][i] = 0.f;
+      }
+    load_x_groups(xu, xr, xc, m, xs, mask, at, 0, N, D);
     for (int t = 0; t < T; ++t) {
       const float* hprev = t == 0 ? h0 : hs + (size_t)(t - 1) * N * D;
       // A: update and reset gates, r * h_{t-1} of the block's units to rh
-      {
-        __syncthreads();
-        stage_slice(hb, ldh, hprev, r0, nr, D, walks);
+      __syncthreads();
+      stage_slice(hb, ldh, hprev, r0, nr, D, walks);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
         float acc[MT][NA][4];
-        products<NA>(acc, hb, ldh, wf, KT, 0, k0, k1, nr, lane);
+        products<NA>(acc, hb, ldh, ws[g], KT, 0, k0, k1, nr, lane);
         __syncthreads();
         put_partials<NA>(red, acc, warp, lane);
         __syncthreads();
 #pragma unroll
         for (int i = 0; i < PAIRS; ++i) {
-          if (at[i] < 0) continue;
+          if (at[g][i] < 0) continue;
           const int p = threadIdx.x + i * THREADS, n = p / DJ, jl = p % DJ;
-          const float r = sigmoid_f(xr[i] + gather(red, n, DJ + jl));
-          rh[at[i]] = r * h[i];
+          const float r = sigmoid_f(xr[g][i] + gather(red, n, DJ + jl));
+          rh[at[g][i]] = r * h[g][i];
+          // u, which only this block reads: the last group's while the
+          // other blocks arrive, an earlier one's before the next group
+          // takes its partial sums' place
+          if (g + 1 < G) u[g][i] = sigmoid_f(xu[g][i] + gather(red, n, jl));
         }
       }
       grid_arrive(barrier);
-      // u, which only this block reads, while the others arrive
 #pragma unroll
       for (int i = 0; i < PAIRS; ++i) {
-        if (at[i] < 0) continue;
+        if (at[G - 1][i] < 0) continue;
         const int p = threadIdx.x + i * THREADS, n = p / DJ, jl = p % DJ;
-        u[i] = sigmoid_f(xu[i] + gather(red, n, jl));
+        u[G - 1][i] = sigmoid_f(xu[G - 1][i] + gather(red, n, jl));
       }
       grid_wait(barrier, gridDim.x * ++passed);
       // B: the candidate from every unit's r * h, then h_t
-      {
-        __syncthreads();
-        stage_slice(hb, ldh, rh, r0, nr, D, walks);
-        // the next step's gate inputs, landing under this phase's
-        // products (a __syncthreads waits for a thread's loads, so they
-        // must not be in flight at the barrier)
-        if (t + 1 < T) load_x(nxu, nxr, nxc, nm, xs, mask, at, t + 1, N, D);
+      __syncthreads();
+      stage_slice(hb, ldh, rh, r0, nr, D, walks);
+      // the next step's gate inputs, landing under this phase's products
+      // (a __syncthreads waits for a thread's loads, so they must not be
+      // in flight at the barrier)
+      if (t + 1 < T)
+        load_x_groups(nxu, nxr, nxc, nm, xs, mask, at, t + 1, N, D);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
         float acc[MT][NB][4];
-        products<NB>(acc, hb, ldh, wf, KT, NA, k0, k1, nr, lane);
+        products<NB>(acc, hb, ldh, ws[g], KT, NA, k0, k1, nr, lane);
         __syncthreads();
         put_partials<NB>(red, acc, warp, lane);
         __syncthreads();
 #pragma unroll
         for (int i = 0; i < PAIRS; ++i) {
-          if (at[i] < 0) continue;
+          if (at[g][i] < 0) continue;
           const int p = threadIdx.x + i * THREADS, n = p / DJ, jl = p % DJ;
-          const float cand = tanhf(xc[i] + gather(red, n, jl));
-          const float hn = (1.f - u[i]) * h[i] + u[i] * cand;
-          h[i] = hn * m[i] + h[i] * (1.f - m[i]);
-          hs[(size_t)t * N * D + at[i]] = h[i];
-          xu[i] = nxu[i];
-          xr[i] = nxr[i];
-          xc[i] = nxc[i];
-          m[i] = nm[i];
+          const float cand = tanhf(xc[g][i] + gather(red, n, jl));
+          const float hn = (1.f - u[g][i]) * h[g][i] + u[g][i] * cand;
+          h[g][i] = hn * m[g][i] + h[g][i] * (1.f - m[g][i]);
+          hs[(size_t)t * N * D + at[g][i]] = h[g][i];
+          xu[g][i] = nxu[g][i];
+          xr[g][i] = nxr[g][i];
+          xc[g][i] = nxc[g][i];
+          m[g][i] = nm[g][i];
         }
       }
       if (t + 1 < T) {
@@ -500,19 +588,22 @@ fused_gru_kernel(const float* __restrict__ xs, const float* __restrict__ w,
   }
 }
 
-// Shared bytes of a block that stages r16 rows, W's fragments `wbytes`
-size_t smem_bytes(int r16, size_t ldh, size_t wbytes) {
-  const size_t red = (size_t)WARPS * ROWS * RP;
-  const size_t hb = (size_t)r16 * ldh > red ? (size_t)r16 * ldh : red;
+// Shared bytes of a block that stages r16 rows, W's fragments `wbytes`,
+// the partial sums over the rows or (apart) after them
+size_t smem_bytes(int r16, size_t ldh, size_t wbytes, bool apart) {
+  const size_t red = (size_t)WARPS * ROWS * RP, rows = (size_t)r16 * ldh;
+  const size_t hb = apart ? rows + red : rows > red ? rows : red;
   return wbytes + hb * sizeof(float);
 }
 
-// The launch shape for N rows of D units: the kernel (W split once where
-// that leaves room for the rows a block needs, else split at each load),
-// blocks (unit groups times row groups), rows a block's piece and
-// dynamic shared bytes; an error code when the shape cannot run.
-cudaError_t plan(int N, int D, const void** kernel, int* blocks, int* rows,
-                 size_t* smem, int* per_sm, int* sms) {
+// The launch shape for N rows of D units: the kernel (one unit group a
+// block with W split once where that leaves room for the rows a block
+// needs, else split at each load; two a block with W in global memory
+// where the groups outnumber the SMs), blocks (unit blocks times row
+// groups), units a block, rows a block's piece and dynamic shared bytes;
+// an error code when the shape cannot run.
+cudaError_t plan(int N, int D, const void** kernel, int* blocks, int* units,
+                 int* rows, size_t* smem, int* per_sm, int* sms) {
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -523,22 +614,30 @@ cudaError_t plan(int N, int D, const void** kernel, int* blocks, int* rows,
                                   cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                   dev)) != cudaSuccess)
     return e;
-  // the rows split across as many blocks as the SMs left over by the
-  // unit groups allow, 16 rows a block at least
   const int groups = (D + DJ - 1) / DJ;
-  const int splits = max(1, min(*sms / groups, (N + 15) / 16));
-  *blocks = groups * splits;
+  const int G = groups > *sms ? 2 : 1;
+  const int ublocks = (groups + G - 1) / G;
+  // the rows split across as many blocks as the SMs left over by the
+  // unit blocks allow, 16 rows a block at least
+  const int splits = max(1, min(*sms / ublocks, (N + 15) / 16));
+  *blocks = ublocks * splits;
+  *units = G * DJ;
   const size_t KT = (size_t)(D + 7) / 8, ldh = 8 * KT + 8;
   const size_t frags = (size_t)(NA + NB) * KT * 32;
   const int need = min(ROWS, ((N + splits - 1) / splits + 15) / 16 * 16);
-  const bool once =
-      smem_bytes(need, ldh, frags * sizeof(uint4)) <= (size_t)optin;
-  const size_t wbytes = frags * (once ? sizeof(uint4) : sizeof(float2));
-  *kernel = once ? (const void*)fused_gru_kernel<uint4>
-                 : (const void*)fused_gru_kernel<float2>;
+  size_t wbytes = 0;
+  if (G == 1) {
+    const bool once =
+        smem_bytes(need, ldh, frags * sizeof(uint4), false) <= (size_t)optin;
+    wbytes = frags * (once ? sizeof(uint4) : sizeof(float2));
+    *kernel = once ? (const void*)fused_gru_kernel<const uint4*, 1>
+                   : (const void*)fused_gru_kernel<const float2*, 1>;
+  } else {
+    *kernel = (const void*)fused_gru_kernel<WGlobal, 2>;
+  }
   int r16 = need;
   for (; r16 >= 16; r16 -= 16) {
-    *smem = smem_bytes(r16, ldh, wbytes);
+    *smem = smem_bytes(r16, ldh, wbytes, G > 1);
     if (*smem <= (size_t)optin) break;
   }
   if (r16 < 16) return cudaErrorInvalidValue;  // not even 16 rows fit
@@ -565,12 +664,12 @@ extern "C" {
 int fused_gru_plan(int N, int D, int* info) {
   if (N < 1 || D < 4 || D % 4 != 0) return (int)cudaErrorInvalidValue;
   const void* kernel;
-  int blocks, rows, per_sm, sms;
+  int blocks, units, rows, per_sm, sms;
   size_t smem;
   const cudaError_t e =
-      plan(N, D, &kernel, &blocks, &rows, &smem, &per_sm, &sms);
+      plan(N, D, &kernel, &blocks, &units, &rows, &smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
-  const int vals[7] = {blocks, DJ, rows, (int)smem, THREADS, per_sm, sms};
+  const int vals[7] = {blocks, units, rows, (int)smem, THREADS, per_sm, sms};
   for (int i = 0; i < 7; ++i) info[i] = vals[i];
   return 0;
 }
@@ -584,9 +683,10 @@ int fused_gru_f32(const void* xs, const void* w, const void* h0,
   if (T < 1 || N < 1 || D < 4 || D % 4 != 0)
     return (int)cudaErrorInvalidValue;
   const void* kernel;
-  int blocks, rows, per_sm, sms;
+  int blocks, units, rows, per_sm, sms;
   size_t smem;
-  cudaError_t e = plan(N, D, &kernel, &blocks, &rows, &smem, &per_sm, &sms);
+  cudaError_t e =
+      plan(N, D, &kernel, &blocks, &units, &rows, &smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((e = cudaMemsetAsync(barrier, 0, sizeof(unsigned int), st)) !=

@@ -13,8 +13,8 @@
 - :func:`fused_gru` is the wrapper, a ``torch.autograd.Function``. A CPU
   tensor gets the plain forward. A CUDA tensor gets the hand-written
   kernel of ``csrc/fused_gru.cu`` or an exception, never the plain
-  version; float32 only, D a multiple of 4 up to 8 units a block on
-  every SM (1056 on an H100).
+  version; float32 only, D a multiple of 4 up to 16 units a block on
+  every SM (2112 on an H100).
 - ``launches`` counts the kernel's launches; :func:`launch_plan` reports
   the launch shape a batch gets.
 
@@ -22,7 +22,8 @@ The kernel replaces the JAX package's Pallas kernel
 (``paddle_tpu/kernels/fused_gru.py``, ``_forward``). It is one persistent
 cooperative launch for all T steps; a block owns 8 units of a share of
 the rows (at D 512, N 64: 64 unit groups times 2 row groups of 32 rows,
-128 blocks). Its products run on the tensor cores in 3xTF32
+128 blocks), or 16 units, two groups read in turn with W from global
+memory, where the groups of 8 outnumber the SMs. Its products run on the tensor cores in 3xTF32
 (``csrc/tf32x3.cuh``), float32-exact, with W split into hi and lo once
 and kept in shared memory; the K reduction is split across the block's
 8 warps and summed in a fixed order, so a relaunch is bit-identical. The

@@ -1,12 +1,16 @@
 """The fused LSTM and GRU recurrences on the card: the CUDA kernels
 against their plain versions, ragged and full lengths, at a small odd
 shape and at the sequence slice's shape (T 100, N 64, D 512), and their
-refusal of other dtypes. The GRU's tensor-core kernel also at its edges
-(N 65: one row past a 64-row piece; D 36: a partial k8 tile and a
-partial last block of units; T 400: a long chain of 3xTF32 sums; D
-1024: W split at each load, as its split fragments do not fit), and
-relaunched bit-identically; and its refusal of a D wider than its
-blocks can hold.
+refusal of other dtypes. The GRU's tensor-core kernel also at its edges,
+ragged and full, each launched twice and the second launch
+bit-identical: N 65 (at D 128 five row groups of 16 rows, the last of
+one row); D 36 (a partial k8 tile and a partial last block of units); T
+400 (a long chain of 3xTF32 sums); D 1024 (W split at each load, as its
+split fragments do not fit); two pieces of rows, each through all T
+steps (N 64 at D 1024: 32 rows a piece; N 160 at D 512: two row groups
+of 64 rows, then 32 rows); and more unit groups than SMs, where a block
+owns two of them and reads W from global memory (D 1152 and 1536, each
+in two pieces).
 
 JAX-free, so that it runs where the card is. Tolerance: 1e-4 of the
 largest magnitude, float32 on both sides: the sum order of each D-term
@@ -27,7 +31,11 @@ T, N, D = 6, 8, 128
 CARD_TOL = 1e-4
 CARD_SHAPES = [(7, 3, 128), (100, 64, 512)]
 # (T, N, D) at the GRU kernel's edges
-GRU_EDGE_SHAPES = [(9, 65, 128), (9, 5, 36), (400, 64, 512), (5, 16, 1024)]
+GRU_EDGE_SHAPES = [(9, 65, 128), (9, 5, 36), (400, 64, 512), (5, 16, 1024),
+                   (5, 64, 1024), (3, 160, 512), (4, 40, 1152),
+                   (3, 24, 1536)]
+GRU_EDGE_IDS = ["n65", "d36", "t400", "d1024", "d1024_two_pieces",
+                "n160_two_pieces", "d1152_two_groups", "d1536_two_groups"]
 
 
 @pytest.fixture
@@ -86,16 +94,19 @@ def test_gru_kernel_matches_plain_version_on_the_card(cuda_device, shape,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", GRU_EDGE_SHAPES,
-                         ids=["n65", "d36", "t400", "d1024"])
-def test_gru_kernel_matches_plain_version_at_its_edges(cuda_device, shape):
+@pytest.mark.parametrize("ragged", [True, False])
+@pytest.mark.parametrize("shape", GRU_EDGE_SHAPES, ids=GRU_EDGE_IDS)
+def test_gru_kernel_matches_plain_version_at_its_edges(cuda_device, shape,
+                                                       ragged):
     torch.backends.cuda.matmul.allow_tf32 = False
     xs, w, h0, _, mask = (torch.tensor(a, device=cuda_device)
-                          for a in _inputs(3, 10, *shape))
+                          for a in _inputs(3, 10, *shape, ragged=ragged))
     kernels.reset_launches()
     hs = tgru.fused_gru(xs, w, h0, mask)
+    again = tgru.fused_gru(xs, w, h0, mask)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["fused_gru"] == 1
+    assert kernels.launch_counts()["fused_gru"] == 2
+    assert torch.equal(hs, again)
     assert _rel(hs, tgru.fused_gru_reference(xs, w, h0, mask)) <= CARD_TOL
 
 
@@ -110,14 +121,19 @@ def test_gru_kernel_relaunch_is_bit_identical(cuda_device):
 
 
 @pytest.mark.cuda
-def test_gru_kernel_refuses_more_unit_groups_than_sms(cuda_device):
-    # 8 units a block on every SM, and one block more: the cooperative
-    # launch cannot hold the grid, so the wrapper raises
+@pytest.mark.parametrize("extra", [0, 1])
+def test_gru_kernel_at_as_many_unit_groups_as_sms_and_one_more(cuda_device,
+                                                               extra):
+    # one unit group (8 units) an SM, and one group more: the launch turns
+    # to blocks of two groups instead of refusing the width
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    d = 8 * (sms + extra)
     xs, w, h0, _, mask = (torch.tensor(a, device=cuda_device)
-                          for a in _inputs(3, 12, 2, 4, 8 * (sms + 1)))
-    with pytest.raises(RuntimeError, match="fused_gru: CUDA error"):
-        tgru.fused_gru(xs, w, h0, mask)
+                          for a in _inputs(3, 12, 2, 4, d))
+    assert tgru.launch_plan(4, d)["units_per_block"] == 8 * (1 + extra)
+    hs = tgru.fused_gru(xs, w, h0, mask)
+    torch.cuda.synchronize()
+    assert _rel(hs, tgru.fused_gru_reference(xs, w, h0, mask)) <= CARD_TOL
 
 
 @pytest.mark.cuda

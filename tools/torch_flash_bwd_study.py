@@ -38,10 +38,7 @@ the large term and the two small ones in separate chains); the matmul
 ``dj4``: 4 units a block instead of 8 (at D 512, N 64: 128 unit groups
 of all 64 rows, instead of 64 unit groups by 2 row groups of 32 rows);
 ``w_split_at_load``: W kept as its floats and split at each load, the
-form the kernel takes only where the split fragments do not fit; and
-``marks``: the source with clock marks, which splits a step into its
-stretches (staging and products, the reductions, the gate math, the two
-barriers) at N 64 and N 8.
+form the kernel takes only where the split fragments do not fit.
 
 For each it prints the registers and spills ``-Xptxas -v`` reports and:
 
@@ -60,9 +57,7 @@ For each it prints the registers and spills ``-Xptxas -v`` reports and:
 - gru: the largest error of hs over its largest magnitude against a
   float64 plain recurrence at T 100, N 64, D 512 (the sequence slice's
   shape), ragged and full, and the time at that shape (full lengths),
-  at T 10 and at N 8, with the microseconds a step from T 10 to 100;
-  for ``marks``, the mean ns of each stretch of a step (the marks add to
-  its time).
+  at T 10 and at N 8, with the microseconds a step from T 10 to 100.
 
 Times are CUDA-event medians over 20 launches, L2 flushed before each.
 The last lines are the card's name and power limit and one JSON object
@@ -218,63 +213,10 @@ MATMUL_VARIANTS = {
     ],
     "stages2": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
 }
-# Where a GRU step's time goes: the source with thread 0 of each block
-# reading clock64 and %globaltimer at nine marks of each of the first
-# MARK_STEPS steps; read_marks copies them out.
-MARK_STEPS = 128
-GRU_MARKS = [
-    ("namespace {\n\nconstexpr int DJ", """__device__ long long g_clk[132 * %d * 9];
-__device__ unsigned long long g_gt[132 * %d * 9];
-#define MARK(k)                                                       \\
-  if (threadIdx.x == 0 && t < %d) {                                   \\
-    unsigned long long gt;                                            \\
-    asm volatile("mov.u64 %%0, %%%%globaltimer;" : "=l"(gt));         \\
-    g_clk[(blockIdx.x * %d + t) * 9 + (k)] = clock64();               \\
-    g_gt[(blockIdx.x * %d + t) * 9 + (k)] = gt;                       \\
-  }
-namespace {
-
-constexpr int DJ""" % ((MARK_STEPS,) * 5)),
-    ("        __syncthreads();\n        stage_slice(hb, ldh, hprev,",
-     "        __syncthreads();\n        MARK(0)\n        stage_slice(hb, ldh, hprev,"),
-    ("        products<NA>(acc, hb, ldh, wf, KT, 0, k0, k1, nr, lane);\n",
-     "        products<NA>(acc, hb, ldh, wf, KT, 0, k0, k1, nr, lane);\n"
-     "        MARK(1)\n"),
-    ("        put_partials<NA>(red, acc, warp, lane);\n        __syncthreads();\n",
-     "        put_partials<NA>(red, acc, warp, lane);\n        __syncthreads();\n"
-     "        MARK(2)\n"),
-    ("      grid_arrive(barrier);\n      // u, which",
-     "      MARK(3)\n      grid_arrive(barrier);\n      // u, which"),
-    ("      grid_wait(barrier, gridDim.x * ++passed);\n      // B",
-     "      grid_wait(barrier, gridDim.x * ++passed);\n      MARK(4)\n      // B"),
-    ("        products<NB>(acc, hb, ldh, wf, KT, NA, k0, k1, nr, lane);\n",
-     "        products<NB>(acc, hb, ldh, wf, KT, NA, k0, k1, nr, lane);\n"
-     "        MARK(5)\n"),
-    ("        put_partials<NB>(red, acc, warp, lane);\n        __syncthreads();\n",
-     "        put_partials<NB>(red, acc, warp, lane);\n        __syncthreads();\n"
-     "        MARK(6)\n"),
-    ("      if (t + 1 < T) {\n        grid_arrive(barrier);",
-     "      MARK(7)\n      if (t + 1 < T) {\n        grid_arrive(barrier);"),
-    ("        grid_wait(barrier, gridDim.x * ++passed);\n      }\n",
-     "        grid_wait(barrier, gridDim.x * ++passed);\n        MARK(8)\n      }\n"),
-    ("}  // extern \"C\"", """int read_marks(void* clk, void* gt) {
-  cudaError_t e = cudaMemcpyFromSymbol(clk, g_clk, sizeof(g_clk));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaMemcpyFromSymbol(gt, g_gt, sizeof(g_gt));
-}
-
-}  // extern \"C\""""),
-]
-# the stretch between two marks (the last: from step t's mark 7 to its
-# mark 8)
-MARK_SEGMENTS = ("stage_and_products_A", "reduce_A", "gate_A_r",
-                 "barrier_A_with_u", "stage_and_products_B", "reduce_B",
-                 "gate_B", "barrier_B")
 GRU_VARIANTS = {
     "dj4": [("constexpr int DJ = 8; ", "constexpr int DJ = 4; ")],
-    "w_split_at_load": [("  const bool once =\n",
-                         "  const bool once = false &&\n")],
-    "marks": GRU_MARKS,
+    "w_split_at_load": [("    const bool once =\n",
+                         "    const bool once = false &&\n")],
 }
 
 
@@ -311,7 +253,7 @@ def ptxas_summary(log):
             args = re.findall(r"L[ib](\d+)E", m.group(2))
             cur = "%s<%s>" % (m.group(1), ",".join(args))
         elif "Compiling entry function" in ln:
-            m = re.search(r"\d+([a-z_]+_kernel)(?:I\d+(\w+?)E)?E", ln)
+            m = re.search(r"\d+([a-z_]+_kernel)(?:I(\w+?)EE)?", ln)
             cur = None if m is None else m.group(1) + (
                 "<%s>" % m.group(2) if m.group(2) else "")
         elif cur and "registers" in ln:
@@ -496,43 +438,7 @@ def study_gru(libs, result, dev, flush):
                                            - ms["T10_N64"]) / (T - 10)
                 result[name]["ms"] = ms
                 result[name]["launch"] = gru.launch_plan(N, D)
-                if name == "marks":
-                    result[name]["segments_ns"] = {
-                        "N%d" % n_: gru_marks(lib, xs[:, :n_].contiguous(),
-                                              w, h0[:n_].contiguous(),
-                                              mask[:, :n_].contiguous())
-                        for n_ in (N, 8)}
             print(json.dumps({name: result[name]}), flush=True)
-
-
-def gru_marks(lib, xs, w, h0, mask):
-    """Mean ns of each MARK_SEGMENTS stretch of a step (%globaltimer,
-    thread 0 of every block, steps 5 .. T - 6), the SM clock's cycles a
-    ns, and how far apart the blocks reach and leave the first barrier."""
-    T, N, _ = xs.shape
-    with using("fused_gru", lib):
-        gru._launch(xs, w, h0, mask)
-        torch.cuda.synchronize()
-        blocks = gru.launch_plan(N, w.shape[0])["blocks"]
-    clk = np.zeros(132 * MARK_STEPS * 9, np.int64)
-    gt = np.zeros(132 * MARK_STEPS * 9, np.uint64)
-    lib.read_marks.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    if lib.read_marks(clk.ctypes.data, gt.ctypes.data) != 0:
-        sys.exit("torch_flash_bwd_study: read_marks failed")
-    steps = slice(5, T - 5)
-    clk = clk.reshape(132, MARK_STEPS, 9)[:blocks, steps].astype(np.float64)
-    gt = gt.reshape(132, MARK_STEPS, 9)[:blocks, steps].astype(np.float64)
-    out = {seg: float((gt[:, :, k + 1] - gt[:, :, k]).mean())
-           for k, seg in enumerate(MARK_SEGMENTS)}
-    out["step"] = float(np.diff(gt[:, :, 0], axis=1).mean())
-    out["sm_cycles_per_ns"] = float(np.diff(clk[:, :, 0], axis=1).mean()
-                                    / out["step"])
-    arrive, leave = gt[:, :, 3], gt[:, :, 4]
-    out["barrier_A_arrive_spread"] = float(
-        (arrive.max(0) - arrive.min(0)).mean())
-    out["barrier_A_last_arrive_to_first_leave"] = float(
-        (leave.min(0) - arrive.max(0)).mean())
-    return out
 
 
 STUDIES = {  # kernel: (library name, its variants, its study, COMMON too)
