@@ -64,11 +64,14 @@ Phases, in order; any failure exits non-zero at once:
 7. rnn: hold the fused LSTM and GRU recurrence kernels against their
    plain versions at T 100, N 64, D 512 (ragged lengths from a seeded
    RandomState, and full ones) and at T 7, N 3, D 128 (a TF32 recurrence
-   must miss the tolerance), the GRU also at its edges
-   (``RNN_GRU_EDGE_SHAPES``: N 65, D 36, T 400, D 1024, two pieces of
-   rows, two unit groups a block at D 1152 and 1536) and launched twice
-   at each shape (the second launch bit-identical), with kernel, plain and (LSTM) cuDNN times,
-   registers, shared memory and blocks; then train
+   must miss the tolerance), both also at their edges
+   (``RNN_EDGE_SHAPES``: N 65, D 36, T 400, D 1024 (W split at each
+   load), pieces of rows (N 64 at D 1024, N 160 at D 512), two unit
+   groups a block at D 1152, 1280, 1320 and 1536), each launched twice
+   at each shape (the second launch bit-identical), with kernel, plain
+   and (LSTM) cuDNN times, the cost of a step (T 10 against T 100, N 8
+   against N 64), the registers of each kernel form, shared memory and
+   blocks; then train
    ``configs/text_rnn.model`` at rnn_bench's widths (vocab 30000, hidden
    512, 100 words, batch 64, 2 layers the second reversed, Adam 0.002,
    float32, no peepholes, ``lstm_impl=pallas``) twice, with LSTM and
@@ -230,16 +233,20 @@ R50_STAT_REL_TOL = 1e-4
 # 64 rows and D 512 units, and an odd one (N and D tails of the launch)
 RNN_SHAPE = (100, 64, 512)
 RNN_ODD_SHAPE = (7, 3, 128)
-# and the GRU's tensor-core kernel at its edges: a last row group of one
+# and both tensor-core kernels at their edges: a last row group of one
 # row (N 65 at D 128: 5 row groups of 16 rows), a partial k8 tile and
 # last block of units (D 36), a long chain of 3xTF32 sums (T 400), W split
-# at each load (D 1024), two pieces of rows (N 64 at D 1024: 32 rows a
-# piece; N 160 at D 512: 2 row groups of 64 rows, then 32 rows), and two
-# unit groups a block with W read from global memory, in 2 pieces (D
-# 1152, N 40; D 1536, N 24)
-RNN_GRU_EDGE_SHAPES = ((9, 65, 128), (9, 5, 36), (400, 64, 512),
-                       (5, 16, 1024), (5, 64, 1024), (3, 160, 512),
-                       (4, 40, 1152), (3, 24, 1536))
+# at each load (D 1024), pieces of rows, each through all T steps (N 64 at
+# D 1024: 32 rows a piece for the GRU, 16 for the LSTM; N 160 at D 512:
+# 2 row groups of 64 rows, then 32, for the GRU, of 32 rows a piece for
+# the LSTM), and two unit groups a block with W read from global memory
+# (D 1152, N 40; D 1280, N 40, the widest multiple of 128 the lstm and
+# gru lowerings send to the kernels; D 1320, the widest the LSTM's
+# CUDA-core kernel took; D 1536, N 24), in pieces
+RNN_EDGE_SHAPES = ((9, 65, 128), (9, 5, 36), (400, 64, 512),
+                   (5, 16, 1024), (5, 64, 1024), (3, 160, 512),
+                   (4, 40, 1152), (3, 40, 1280), (3, 24, 1320),
+                   (3, 24, 1536))
 # Kernel against plain version, same inputs, both float32: the largest
 # error over the largest magnitude of the plain hs (and cs). Only the
 # order of each step's D-term sums differs (~1e-7 relative), and the
@@ -1705,8 +1712,8 @@ def _cudnn_lstm(xs, w, h0, c0):
 def _rnn_kernel_check(dev):
     """Each fused recurrence against its plain version at the slice's
     shape (T 100, N 64, D 512), ragged and full masks, and at an odd one
-    (T 7, N 3, D 128); the GRU also at RNN_GRU_EDGE_SHAPES, and launched
-    twice at every shape, the second launch bit-identical to the first;
+    (T 7, N 3, D 128), and at RNN_EDGE_SHAPES; each launched twice at
+    every shape, the second launch bit-identical to the first;
     a recurrence run with TF32 products must miss the tolerance. Times at
     the training drive's input (full lengths), with cuDNN's LSTM beside
     row 7. Returns the two entries of the kernels line."""
@@ -1726,13 +1733,12 @@ def _rnn_kernel_check(dev):
             return [f(xs, w, h0, mask)]
 
         checks = []
-        shapes = (RNN_SHAPE, RNN_ODD_SHAPE) + (
-            RNN_GRU_EDGE_SHAPES if name == "fused_gru" else ())
+        shapes = (RNN_SHAPE, RNN_ODD_SHAPE) + RNN_EDGE_SHAPES
         for seed, (T, N, D) in enumerate(shapes):
             for ragged in (True, False):
                 args = _rnn_inputs(gates, T, N, D, 40 + seed, ragged, dev)
                 got = run(args)
-                again = run(args) if name == "fused_gru" else None
+                again = run(args)
                 want = run(args, plain=True)
                 torch.backends.cuda.matmul.allow_tf32 = True
                 tf32 = run(args, plain=True)
@@ -1745,16 +1751,15 @@ def _rnn_kernel_check(dev):
                                           for g, w_ in zip(got, want)),
                        "tf32_products_max_rel_err": _rel_err(tf32, want),
                        "launch": mod.launch_plan(N, D)}
-                if again is not None:
-                    rec["second_launch_bit_identical"] = all(
-                        torch.equal(a, b) for a, b in zip(got, again))
+                rec["second_launch_bit_identical"] = all(
+                    torch.equal(a, b) for a, b in zip(got, again))
                 checks.append(rec)
                 log(json.dumps({name + "_check": rec}))
                 if not rec["max_rel_err"] <= RNN_REL_TOL:
                     fail("%s disagrees with its plain version at %s: %s > %g"
                          % (name, rec["shape"], rec["max_rel_err"],
                             RNN_REL_TOL))
-                if rec.get("second_launch_bit_identical") is False:
+                if not rec["second_launch_bit_identical"]:
                     fail("%s: a second launch at %s is not bit-identical to "
                          "the first" % (name, rec["shape"]))
                 # (at the odd shape cuBLAS may keep a 3-row product in
@@ -1806,11 +1811,11 @@ def _rnn_kernel_check(dev):
             "bound_ms": b_ms, "bound_by": b_by,
             "tc_bound_ms": tc_bound(nbytes, flops),
             "launch": mod.launch_plan(N, D),
-            # the GRU kernel's three forms: W split once (the main path),
+            # each kernel's three forms: W split once (the main path),
             # split at each load (where the split fragments do not fit)
             # and read from global memory by blocks of two unit groups
             # (where the groups outnumber the SMs)
-            "ptxas": _ptxas(name, name + "_kernel") if gates == 4 else {
+            "ptxas": {
                 form: _ptxas(name, name + "_kernelI", tag)
                 for form, tag in (("w_split_once", "5uint4"),
                                   ("w_split_at_load", "6float2"),

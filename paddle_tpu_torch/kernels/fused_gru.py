@@ -20,7 +20,8 @@
 
 The kernel replaces the JAX package's Pallas kernel
 (``paddle_tpu/kernels/fused_gru.py``, ``_forward``). It is one persistent
-cooperative launch for all T steps; a block owns 8 units of a share of
+cooperative launch for all T steps (``csrc/recurrence.cuh`` holds what it
+shares with the LSTM's kernel); a block owns 8 units of a share of
 the rows (at D 512, N 64: 64 unit groups times 2 row groups of 32 rows,
 128 blocks), or 16 units, two groups read in turn with W from global
 memory, where the groups of 8 outnumber the SMs. Its products run on the tensor cores in 3xTF32

@@ -14,10 +14,32 @@
   term is ever stacked (the memory concern of ``fused_lstm.py:151-153``).
 - :func:`fused_lstm` is the wrapper, a ``torch.autograd.Function``. A CPU
   tensor gets the plain forward. A CUDA tensor gets the hand-written
-  kernel of ``csrc/fused_lstm.cu`` (one persistent cooperative launch for
-  all T steps) or an exception, never the plain version; float32 only.
+  kernel of ``csrc/fused_lstm.cu`` or an exception, never the plain
+  version; float32 only, D a multiple of 4 up to 16 units a block on
+  every SM (2112 on an H100).
 - ``launches`` counts the kernel's launches; :func:`launch_plan` reports
-  the launch shape (blocks, units a block, shared memory) a batch gets.
+  the launch shape (blocks, units a block, rows a piece, shared memory)
+  a batch gets; :func:`plan` does so for either recurrence's kernel.
+
+The kernel replaces the JAX package's Pallas kernel
+(``paddle_tpu/kernels/fused_lstm.py``, ``_forward``). It is one
+persistent cooperative launch for all T steps, with the GRU kernel's
+design (``csrc/recurrence.cuh`` holds what the two share): a block owns
+all four gates of 8 units of a share of the rows (at D 512, N 64: 64
+unit groups times 2 row groups of 32 rows, 128 blocks), or 16 units, two
+groups read in turn with W from global memory, where the groups of 8
+outnumber the SMs; rows past a launch's row groups go in pieces of at
+most 32 rows, each through all T steps. Its products run on the tensor
+cores in 3xTF32 (``csrc/tf32x3.cuh``), float32-exact, with W split into
+hi and lo once and kept in shared memory (kept as floats and split at
+each load where the split form leaves too little room for the rows a
+block needs, as at D 1024); the K reduction is split across the block's 8 warps and summed in
+a fixed order, so a relaunch is bit-identical. The bound at T 100, N 64,
+D 512 is 0.0813 ms of 3xTF32 operations, but the serial chain sets the
+time: a step stages all D columns of the block's rows of h with
+``cp.async`` (64 KB a block at N 64), multiplies them by the block's 32
+columns of W, and ends at a grid barrier (a release add and an acquire
+spin), T - 1 in all; h and c stay in registers between steps.
 
 Layout: xs ``[T, N, 4D]`` pre-projected gate input (bias folded in), gate
 slabs (c~, i, f, o); w ``[D, 4D]``; h0, c0 ``[N, D]``; mask ``[T, N]``
@@ -38,7 +60,7 @@ __all__ = ["PLAN_FIELDS", "fused_lstm", "fused_lstm_bwd",
 # kernel launches since the last reset
 launches = 0
 # what launch_plan reports about a launch shape
-PLAN_FIELDS = ("blocks", "units_per_block", "rows_per_chunk",
+PLAN_FIELDS = ("blocks", "units_per_block", "rows_per_piece",
                "shared_bytes", "threads", "blocks_per_sm", "sms")
 
 _NAME = "fused_lstm"

@@ -24,12 +24,29 @@ def _paths():
     return {name: _build.library_path(name) for name in _build.sources()}
 
 
+def _reached_headers(name):
+    """The shared headers ``csrc/<name>.cu`` includes, directly or through
+    another header."""
+    seen, todo = set(), [name + ".cu"]
+    while todo:
+        with open(os.path.join(_build.CSRC_DIR, todo.pop())) as f:
+            for line in f:
+                if line.startswith('#include "'):
+                    header = line.split('"')[1]
+                    if header not in seen:
+                        seen.add(header)
+                        todo.append(header)
+    return seen
+
+
 def test_the_kernels_share_the_3xtf32_header():
-    assert "tf32x3.cuh" in _build.headers()
+    assert {"tf32x3.cuh", "recurrence.cuh"} <= set(_build.headers())
     for name in ("flash_attention_fwd", "flash_attention_bwd", "matmul",
-                 "fused_gru"):
-        with open(os.path.join(_build.CSRC_DIR, name + ".cu")) as f:
-            assert '#include "tf32x3.cuh"' in f.read(), name
+                 "fused_gru", "fused_lstm"):
+        assert "tf32x3.cuh" in _reached_headers(name), name
+    # the two recurrences share their step's helpers
+    for name in ("fused_gru", "fused_lstm"):
+        assert "recurrence.cuh" in _reached_headers(name), name
 
 
 def test_library_paths_follow_the_source_and_flags(csrc_copy):

@@ -1,16 +1,22 @@
 """The fused LSTM and GRU recurrences on the card: the CUDA kernels
 against their plain versions, ragged and full lengths, at a small odd
 shape and at the sequence slice's shape (T 100, N 64, D 512), and their
-refusal of other dtypes. The GRU's tensor-core kernel also at its edges,
+refusal of other dtypes. Both tensor-core kernels also at their edges,
 ragged and full, each launched twice and the second launch
-bit-identical: N 65 (at D 128 five row groups of 16 rows, the last of
-one row); D 36 (a partial k8 tile and a partial last block of units); T
-400 (a long chain of 3xTF32 sums); D 1024 (W split at each load, as its
-split fragments do not fit); two pieces of rows, each through all T
-steps (N 64 at D 1024: 32 rows a piece; N 160 at D 512: two row groups
-of 64 rows, then 32 rows); and more unit groups than SMs, where a block
-owns two of them and reads W from global memory (D 1152 and 1536, each
-in two pieces).
+bit-identical. The GRU's: N 65 (at D 128 five row groups of 16 rows, the
+last of one row); D 36 (a partial k8 tile and a partial last block of
+units); T 400 (a long chain of 3xTF32 sums); D 1024 (W split at each
+load, as its split fragments do not fit); two pieces of rows, each
+through all T steps (N 64 at D 1024: 32 rows a piece; N 160 at D 512:
+two row groups of 64 rows, then 32 rows); and more unit groups than
+SMs, where a block owns two of them and reads W from global memory (D
+1152 and 1536, each in two pieces). The LSTM's (pieces of at most 32
+rows): N 65 at D 128, D 36 and T 400 likewise; D 1024 at N 16 (W split
+at each load, one piece of 16 rows) and at N 64 (four pieces); N 160 at
+D 512 (two row groups of 32 rows a piece, three pieces); two unit groups
+a block with W from global memory at D 1152 and D 1280 (the widest
+multiple of 128 the ``lstm`` lowering sends to the kernel), each in two
+pieces, and at D 1320, the widest the CUDA-core kernel it replaced took.
 
 JAX-free, so that it runs where the card is. Tolerance: 1e-4 of the
 largest magnitude, float32 on both sides: the sum order of each D-term
@@ -36,6 +42,13 @@ GRU_EDGE_SHAPES = [(9, 65, 128), (9, 5, 36), (400, 64, 512), (5, 16, 1024),
                    (3, 24, 1536)]
 GRU_EDGE_IDS = ["n65", "d36", "t400", "d1024", "d1024_two_pieces",
                 "n160_two_pieces", "d1152_two_groups", "d1536_two_groups"]
+# (T, N, D) at the LSTM kernel's edges
+LSTM_EDGE_SHAPES = [(9, 65, 128), (9, 5, 36), (400, 64, 512),
+                    (5, 16, 1024), (5, 64, 1024), (3, 160, 512),
+                    (4, 40, 1152), (3, 40, 1280), (3, 24, 1320)]
+LSTM_EDGE_IDS = ["n65", "d36", "t400", "d1024", "d1024_four_pieces",
+                 "n160_three_pieces", "d1152_two_groups", "d1280_two_groups",
+                 "d1320_two_groups"]
 
 
 @pytest.fixture
@@ -75,6 +88,51 @@ def test_lstm_kernel_matches_plain_version_on_the_card(cuda_device, shape,
     torch.cuda.synchronize()
     hr, cr = tlstm.fused_lstm_reference(*args)
     assert kernels.launch_counts()["fused_lstm"] == 1
+    assert _rel(hs, hr) <= CARD_TOL and _rel(cs, cr) <= CARD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [True, False])
+@pytest.mark.parametrize("shape", LSTM_EDGE_SHAPES, ids=LSTM_EDGE_IDS)
+def test_lstm_kernel_matches_plain_version_at_its_edges(cuda_device, shape,
+                                                        ragged):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [torch.tensor(a, device=cuda_device)
+            for a in _inputs(4, 13, *shape, ragged=ragged)]
+    kernels.reset_launches()
+    hs, cs = tlstm.fused_lstm(*args)
+    hs2, cs2 = tlstm.fused_lstm(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_lstm"] == 2
+    assert torch.equal(hs, hs2) and torch.equal(cs, cs2)
+    hr, cr = tlstm.fused_lstm_reference(*args)
+    assert _rel(hs, hr) <= CARD_TOL and _rel(cs, cr) <= CARD_TOL
+
+
+@pytest.mark.cuda
+def test_lstm_kernel_relaunch_is_bit_identical(cuda_device):
+    args = [torch.tensor(a, device=cuda_device)
+            for a in _inputs(4, 14, *CARD_SHAPES[1])]
+    first = tlstm.fused_lstm(*args)
+    second = tlstm.fused_lstm(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [0, 1])
+def test_lstm_kernel_at_as_many_unit_groups_as_sms_and_one_more(cuda_device,
+                                                                extra):
+    # one unit group (8 units) an SM, and one group more: the launch turns
+    # to blocks of two groups instead of refusing the width
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    d = 8 * (sms + extra)
+    args = [torch.tensor(a, device=cuda_device)
+            for a in _inputs(4, 15, 2, 4, d)]
+    assert tlstm.launch_plan(4, d)["units_per_block"] == 8 * (1 + extra)
+    hs, cs = tlstm.fused_lstm(*args)
+    torch.cuda.synchronize()
+    hr, cr = tlstm.fused_lstm_reference(*args)
     assert _rel(hs, hr) <= CARD_TOL and _rel(cs, cr) <= CARD_TOL
 
 

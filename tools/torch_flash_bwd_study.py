@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """The design choices of the 3xTF32 kernels (``paddle_tpu_torch/kernels/
-csrc/flash_attention_bwd.cu``, ``flash_attention_fwd.cu``, ``matmul.cu``
-and ``fused_gru.cu``) against alternatives, on one NVIDIA card. Run
-from the root of a checkout:
+csrc/flash_attention_bwd.cu``, ``flash_attention_fwd.cu``, ``matmul.cu``,
+``fused_gru.cu`` and ``fused_lstm.cu``) against alternatives, on one
+NVIDIA card. Run from the root of a checkout:
 
-    python3 tools/torch_flash_bwd_study.py [--kernel bwd fwd matmul gru]
+    python3 tools/torch_flash_bwd_study.py [--kernel bwd fwd matmul gru lstm]
+        [--against DIR]
 
 (the flash backward alone by default). For each kernel it builds the
-committed source and variants made from it and from the shared header
-``tf32x3.cuh`` by text substitution, each with ``nvcc`` into its own
-directory under ``build/flash_bwd_study/``. Every kernel but the GRU
-has these:
+committed source and variants made from it and from the shared headers
+(``tf32x3.cuh``, ``recurrence.cuh``) by text substitution, each with
+``nvcc`` into its own directory under ``build/flash_bwd_study/``. Every
+kernel but the two recurrences has these:
 
 - ``cvt_rna``: the 3xTF32 split through ``cvt.rna.tf32.f32`` (hi =
   cvt(x), lo = cvt(x - hi)) instead of the header's integer rounding;
@@ -38,7 +39,17 @@ the large term and the two small ones in separate chains); the matmul
 ``dj4``: 4 units a block instead of 8 (at D 512, N 64: 128 unit groups
 of all 64 rows, instead of 64 unit groups by 2 row groups of 32 rows);
 ``w_split_at_load``: W kept as its floats and split at each load, the
-form the kernel takes only where the split fragments do not fit.
+form the kernel takes only where the split fragments do not fit. The
+LSTM has ``w_split_at_load`` likewise, and ``two_passes``: pieces of up
+to 64 rows (4 m tiles, where the source caps them at 32 for its
+registers), each step's four gate columns multiplied in two passes of
+two over the same staged rows (the A fragments loaded and split twice),
+instead of one pass of four.
+
+With ``--against DIR`` (the root of another checkout, say a parent
+commit's ``git archive``) each study also builds that checkout's source
+and headers as one more variant, ``against``, so that two commits are
+timed in one call.
 
 For each it prints the registers and spills ``-Xptxas -v`` reports and:
 
@@ -54,10 +65,17 @@ For each it prints the registers and spills ``-Xptxas -v`` reports and:
   3072, 8192 x 3072 x 768) the largest error over the largest magnitude
   of a float64 product, worst over the tilings, and the time of every
   tiling;
-- gru: the largest error of hs over its largest magnitude against a
-  float64 plain recurrence at T 100, N 64, D 512 (the sequence slice's
-  shape), ragged and full, and the time at that shape (full lengths),
-  at T 10 and at N 8, with the microseconds a step from T 10 to 100.
+- gru, lstm: the largest error of hs (and the LSTM's cs) over its
+  largest magnitude against a float64 plain recurrence at T 100, N 64,
+  D 512 (the sequence slice's shape), ragged and full, and the time at
+  that shape (full lengths), at T 10 and at N 8, with the microseconds
+  a step from T 10 to 100, and at T 100, N 64 and D 1024 and 1280 (W
+  split at each load, and blocks of two unit groups; a variant that
+  cannot launch there reads its error); and whether each variant's
+  outputs equal the source's bit for bit at every shape of
+  ``chip_smoke.RNN_EDGE_SHAPES`` (ragged lengths), which with
+  ``--against`` shows a refactoring left a kernel's results as they
+  were.
 
 Times are CUDA-event medians over 20 launches, L2 flushed before each.
 The last lines are the card's name and power limit and one JSON object
@@ -78,9 +96,11 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from chip_smoke import RNN_EDGE_SHAPES  # noqa: E402
 from paddle_tpu_torch.kernels import _build  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.kernels import fused_gru as gru  # noqa: E402
+from paddle_tpu_torch.kernels import fused_lstm as lstm  # noqa: E402
 from paddle_tpu_torch.kernels import matmul as mm  # noqa: E402
 
 OUT_DIR = os.path.join(ROOT, "build", "flash_bwd_study")
@@ -213,10 +233,27 @@ MATMUL_VARIANTS = {
     ],
     "stages2": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
 }
+W_SPLIT_AT_LOAD = [("    const bool once =\n",
+                    "    const bool once = false &&\n")]
 GRU_VARIANTS = {
     "dj4": [("constexpr int DJ = 8; ", "constexpr int DJ = 4; ")],
-    "w_split_at_load": [("    const bool once =\n",
-                         "    const bool once = false &&\n")],
+    "w_split_at_load": W_SPLIT_AT_LOAD,
+}
+LSTM_VARIANTS = {
+    "w_split_at_load": W_SPLIT_AT_LOAD,
+    "two_passes": [
+        ("constexpr int ROWS = 32; ", "constexpr int ROWS = 64; "),
+        ("""        float acc[MT][NF][4];
+        products(acc, hb, ldh, ws[g], KT, 0, k0, k1, nr, lane);
+        __syncthreads();
+        put_partials<RP>(red, acc, warp, lane);
+""", """        float acc[MT][NF / 2][4], acc2[MT][NF / 2][4];
+        products(acc, hb, ldh, ws[g], KT, 0, k0, k1, nr, lane);
+        products(acc2, hb, ldh, ws[g], KT, NF / 2, k0, k1, nr, lane);
+        __syncthreads();
+        put_partials<RP>(red, acc, warp, lane);
+        put_partials<RP>(red + 8 * (NF / 2), acc2, warp, lane);
+""")],
 }
 
 
@@ -241,6 +278,18 @@ def variant_sources(name, variants, common=True):
                          % (name, vname, old))
             texts[hits[0]] = texts[hits[0]].replace(old, new)
         out[vname] = texts
+    return out
+
+
+def against_sources(root, name):
+    """{file name: text}: ``csrc/<name>.cu`` and the shared headers of the
+    checkout at ``root``."""
+    csrc = os.path.join(root, os.path.relpath(_build.CSRC_DIR, ROOT))
+    out = {}
+    for f in os.listdir(csrc):
+        if f == name + ".cu" or f.endswith(".cuh"):
+            with open(os.path.join(csrc, f)) as fh:
+                out[f] = fh.read()
     return out
 
 
@@ -407,45 +456,104 @@ def study_matmul(libs, result, dev, flush):
         torch.cuda.empty_cache()
 
 
-def study_gru(libs, result, dev, flush):
-    T, N, D = 100, 64, 512
-    for ragged in (True, False):
-        rng = np.random.RandomState(40)
-        xs = _randn(rng, (T, N, 3 * D), dev, 0.5)
-        w = _randn(rng, (D, 3 * D), dev, 1 / np.sqrt(D))
-        h0 = _randn(rng, (N, D), dev, 0.2)
-        lens = rng.randint(1, T + 1, N) if ragged else np.full(N, T)
-        mask = torch.from_numpy((np.arange(T)[:, None] < lens[None, :])
-                                .astype(np.float32)).to(dev)
-        want = gru.fused_gru_reference(xs.double(), w.double(),
-                                       h0.double(), mask.double())
-        for name, lib in libs.items():
-            with using("fused_gru", lib):
-                got = gru._launch(xs, w, h0, mask)
-                torch.cuda.synchronize()
-                result[name]["max_rel_err_" + ("ragged" if ragged
-                                                else "full")] = float(
-                    (got.double() - want).abs().max() / want.abs().max())
-                if ragged:
-                    continue
-                ms = {}
-                for t_, n_ in ((T, N), (10, N), (T, 8)):
-                    a = [x.contiguous() for x in (xs[:t_, :n_], w, h0[:n_],
-                                                  mask[:t_, :n_])]
-                    ms["T%d_N%d" % (t_, n_)] = time_ms(
-                        lambda: gru._launch(*a), flush)
-                ms["us_per_step"] = 1e3 * (ms["T100_N64"]
-                                           - ms["T10_N64"]) / (T - 10)
-                result[name]["ms"] = ms
-                result[name]["launch"] = gru.launch_plan(N, D)
-            print(json.dumps({name: result[name]}), flush=True)
+def rnn_study(mod, name, gates):
+    """The study of a fused recurrence (``mod``, the library ``name``,
+    ``gates`` slabs: 3 the GRU, 4 the LSTM, which also has c0 and cs)."""
+    reference = getattr(mod, name + "_reference")
+
+    def outputs(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    def study(libs, result, dev, flush):
+        T, N, D = 100, 64, 512
+
+        def wide_ms(d):
+            rng = np.random.RandomState(41)
+            a = [_randn(rng, (T, N, gates * d), dev, 0.5),
+                 _randn(rng, (d, gates * d), dev, 1 / np.sqrt(d)),
+                 *(_randn(rng, (N, d), dev, 0.2) for _ in range(gates - 2)),
+                 torch.ones((T, N), device=dev)]
+            try:
+                return time_ms(lambda: mod._launch(*a), flush)
+            except RuntimeError as e:
+                return str(e)
+        for ragged in (True, False):
+            rng = np.random.RandomState(40)
+            xs = _randn(rng, (T, N, gates * D), dev, 0.5)
+            w = _randn(rng, (D, gates * D), dev, 1 / np.sqrt(D))
+            state = [_randn(rng, (N, D), dev, 0.2)
+                     for _ in range(gates - 2)]
+            lens = rng.randint(1, T + 1, N) if ragged else np.full(N, T)
+            mask = torch.from_numpy((np.arange(T)[:, None] < lens[None, :])
+                                    .astype(np.float32)).to(dev)
+            args = [xs, w, *state, mask]
+            want = outputs(reference(*(a.double() for a in args)))
+            for vname, lib in libs.items():
+                with using(name, lib):
+                    got = outputs(mod._launch(*args))
+                    torch.cuda.synchronize()
+                    result[vname]["max_rel_err_" + ("ragged" if ragged
+                                                    else "full")] = max(
+                        float((g.double() - w_).abs().max()
+                              / w_.abs().max()) for g, w_ in zip(got, want))
+                    if ragged:
+                        continue
+                    ms = {}
+                    for t_, n_ in ((T, N), (10, N), (T, 8)):
+                        a = [x.contiguous() for x in (
+                            xs[:t_, :n_], w, *(h[:n_] for h in state),
+                            mask[:t_, :n_])]
+                        ms["T%d_N%d" % (t_, n_)] = time_ms(
+                            lambda: mod._launch(*a), flush)
+                    ms["us_per_step"] = 1e3 * (ms["T100_N64"]
+                                               - ms["T10_N64"]) / (T - 10)
+                    for d in (1024, 1280):
+                        ms["T%d_N%d_D%d" % (T, N, d)] = wide_ms(d)
+                    result[vname]["ms"] = ms
+                    result[vname]["launch"] = mod.launch_plan(N, D)
+                print(json.dumps({vname: result[vname]}), flush=True)
+        edges = []
+        for i, (t_, n_, d_) in enumerate(RNN_EDGE_SHAPES):
+            rng = np.random.RandomState(50 + i)
+            a = [_randn(rng, (t_, n_, gates * d_), dev, 0.5),
+                 _randn(rng, (d_, gates * d_), dev, 1 / np.sqrt(d_)),
+                 *(_randn(rng, (n_, d_), dev, 0.2) for _ in range(gates - 2))]
+            lens = rng.randint(1, t_ + 1, n_)
+            a.append(torch.from_numpy((np.arange(t_)[:, None] < lens[None, :])
+                                      .astype(np.float32)).to(dev))
+            edges.append(a)
+        want = {}
+        for vname, lib in libs.items():
+            same = {}
+            with using(name, lib):
+                for a in edges:
+                    key = "x".join(str(n) for n in a[0].shape[:2]) + \
+                        "x%d" % a[1].shape[0]
+                    try:
+                        got = outputs(mod._launch(*a))
+                    except RuntimeError as e:
+                        same[key] = str(e)
+                        continue
+                    if vname == "source":
+                        want[key] = got
+                    else:
+                        same[key] = all(torch.equal(g, w_) for g, w_ in zip(
+                            got, want[key]))
+            if vname != "source":
+                result[vname]["edges_bit_identical_to_source"] = same
+                print(json.dumps({vname: {"edges_bit_identical_to_source":
+                                          same}}), flush=True)
+    return study
 
 
 STUDIES = {  # kernel: (library name, its variants, its study, COMMON too)
     "bwd": ("flash_attention_bwd", BWD_VARIANTS, study_bwd, True),
     "fwd": ("flash_attention_fwd", FWD_VARIANTS, study_fwd, True),
     "matmul": ("matmul", MATMUL_VARIANTS, study_matmul, True),
-    "gru": ("fused_gru", GRU_VARIANTS, study_gru, False),
+    "gru": ("fused_gru", GRU_VARIANTS, rnn_study(gru, "fused_gru", 3),
+            False),
+    "lstm": ("fused_lstm", LSTM_VARIANTS, rnn_study(lstm, "fused_lstm", 4),
+             False),
 }
 
 
@@ -453,6 +561,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", nargs="+", choices=sorted(STUDIES),
                     default=["bwd"])
+    ap.add_argument("--against", metavar="DIR",
+                    help="the root of another checkout whose source of "
+                    "each kernel is built as the variant 'against'")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_flash_bwd_study: needs a CUDA device")
@@ -462,7 +573,10 @@ def main():
     out = {}
     for kernel in args.kernel:
         name, variants, study, common = STUDIES[kernel]
-        libs, ptxas = build(name, variant_sources(name, variants, common))
+        sources = variant_sources(name, variants, common)
+        if args.against:
+            sources["against"] = against_sources(args.against, name)
+        libs, ptxas = build(name, sources)
         result = {v: {"ptxas": ptxas[v]} for v in libs}
         study(libs, result, dev, flush)
         out["%s_study" % kernel] = result
