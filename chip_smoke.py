@@ -51,8 +51,11 @@ Phases, in order; any failure exits non-zero at once:
    must be the plain forward's argmax;
 6. convnet: hold the conv3x3 kernel (forward, and dx on the rotated
    filter) against its plain version at ResNet-50's four 3x3 stage
-   shapes (batch 32) and two ragged ones, with kernel, plain and cuDNN
-   times; build ImageNet ResNet-50 (224 x 224, 1000 classes, float32,
+   shapes (batch 32) and at edge shapes that reach each tiling and each
+   tail (``CONV_EDGE_SHAPES``), each launched twice (the second launch
+   bit-identical), the tiling the kernel took recorded and held to the
+   rule's mirror (``conv3x3.tiling``), with kernel, plain and cuDNN times
+   at the stage shapes; build ImageNet ResNet-50 (224 x 224, 1000 classes, float32,
    ``Momentum(0.01, 0.9)``, ``conv_impl=pallas3x3``) through
    ``configs/resnet_cifar.model``, hold step 1's gradients of every
    parameter and the running statistics against ``torch.autograd``
@@ -195,12 +198,20 @@ TRAIN_LR = 1e-3
 # by ~1e-3 and is shown to miss it at every shape.
 CONV_REL_TOL = 2e-5
 # ResNet-50's 3x3 convs (N, H, W, C, O) at batch 32, stage by stage, and
-# how many of each a step runs; and ragged shapes (pixel and channel
-# tails, the vector and the scalar load path)
+# how many of each a step runs; and edge shapes, each with the tiling its
+# forward takes on an H100's 132 SMs (its dx, on the rotated filter,
+# swaps C and O)
 R50_CONV_SHAPES = [(32, 56, 56, 64, 64), (32, 28, 28, 128, 128),
                    (32, 14, 14, 256, 256), (32, 7, 7, 512, 512)]
 R50_CONV_COUNTS = [3, 4, 6, 3]
-CONV_RAGGED_SHAPES = [(3, 7, 9, 24, 40), (2, 5, 6, 3, 7)]
+CONV_EDGE_SHAPES = [
+    (3, 7, 9, 24, 40),      # 64 x 64; C 24 a short chunk, O 40 a BN tail
+    (2, 5, 6, 3, 7),        # 64 x 64; C 3, O 7: the 4-byte copies
+    (2, 9, 11, 36, 64),     # 64 x 64; C 36: a chunk of 4 past the first 32
+    (2, 7, 7, 512, 512),    # 64 x 64; the deep stage at batch 2
+    (4, 95, 97, 64, 40),    # 128 x 64; 36860 pixels (a BM tail), O 40
+    (16, 33, 33, 32, 200),  # 128 x 128; 17424 pixels, O 200 (BN tail)
+]
 # the conv-net drive: ImageNet ResNet-50, 224 x 224, 1000 classes, one
 # fixed batch of 32, Momentum(0.01, 0.9), 8 steps
 R50_BATCH = 32
@@ -1261,29 +1272,39 @@ def _conv_inputs(shape, seed, dev):
 
 def _conv3x3_kernel_check(dev):
     """The conv3x3 kernel against its plain version, forward and dx, at
-    the four ResNet-50 stage shapes (batch 32) and two ragged ones, with
-    the kernel, plain and cuDNN times at the stage shapes. Returns the
-    two entries of the kernels line."""
+    the four ResNet-50 stage shapes (batch 32) and the edge shapes, each
+    relaunched (bit-identical) and its tilings recorded, with the kernel,
+    plain and cuDNN times at the stage shapes. Returns the two entries of
+    the kernels line."""
     from paddle_tpu_torch.kernels import conv3x3
     F = torch.nn.functional
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_shape = {}
-    for i, shape in enumerate(R50_CONV_SHAPES + CONV_RAGGED_SHAPES):
+    for i, shape in enumerate(R50_CONV_SHAPES + CONV_EDGE_SHAPES):
         N, H, W, C, O = shape
         x, w, g = _conv_inputs(shape, 20 + i, dev)
         w_rot = conv3x3.rotate_filter(w)
         got = conv3x3.conv3x3_s1_nhwc(x, w)
         got_dx, _ = conv3x3.conv3x3_bwd(x, w, g, want_dw=False)
+        again = conv3x3._launch(x, w)
+        again_dx = conv3x3._launch(g, w_rot)
         want = conv3x3.conv3x3_reference(x, w)
         want_dx = conv3x3.conv3x3_reference(g, w_rot)
         tf32 = conv3x3.conv3x3_reference(_tf32_round(x), _tf32_round(w))
         tf32_dx = conv3x3.conv3x3_reference(_tf32_round(g),
                                             _tf32_round(w_rot))
         torch.cuda.synchronize()
-        rec = {"fwd_max_rel_err": _rel_err([got], [want]),
+        tilings = {"fwd": conv3x3.kernel_tiling(N, H, W, C, O),
+                   "dx": conv3x3.kernel_tiling(N, H, W, O, C)}
+        rec = {"tiling": {k: "%dx%d" % t for k, t in tilings.items()},
+               "fwd_max_rel_err": _rel_err([got], [want]),
                "dx_max_rel_err": _rel_err([got_dx], [want_dx]),
                "fwd_max_abs_err": float((got - want).abs().max()),
                "dx_max_abs_err": float((got_dx - want_dx).abs().max()),
+               "relaunch_bit_identical": bool(torch.equal(got, again)
+                                              and torch.equal(got_dx,
+                                                              again_dx)),
                "tf32_fwd_max_rel_err": _rel_err([tf32], [want]),
                "tf32_dx_max_rel_err": _rel_err([tf32_dx], [want_dx])}
         per_shape["x".join(str(d) for d in shape)] = rec
@@ -1292,6 +1313,14 @@ def _conv3x3_kernel_check(dev):
                 and rec["dx_max_rel_err"] <= CONV_REL_TOL):
             fail("conv3x3 disagrees with its plain version at %s: %s > %g"
                  % (shape, rec, CONV_REL_TOL))
+        if not rec["relaunch_bit_identical"]:
+            fail("conv3x3 relaunched at %s differs from its first launch"
+                 % (shape,))
+        mirror = {"fwd": conv3x3.tiling(N, H, W, C, O, sms),
+                  "dx": conv3x3.tiling(N, H, W, O, C, sms)}
+        if tilings != mirror:
+            fail("conv3x3 at %s took the tilings %s, its rule's mirror "
+                 "says %s" % (shape, tilings, mirror))
         if not (rec["tf32_fwd_max_rel_err"] > CONV_REL_TOL
                 and rec["tf32_dx_max_rel_err"] > CONV_REL_TOL):
             fail("a TF32 conv errs by only %s <= CONV_REL_TOL %g: the "
@@ -1325,7 +1354,8 @@ def _conv3x3_kernel_check(dev):
                 lambda: torch.ops.aten.convolution_backward(
                     g_cl, x_cl, w_cl, None, [1, 1], [1, 1], [1, 1], False,
                     [0, 0], 1, [True, False, False]), flush=flush)})
-        del x, w, g, w_rot, got, got_dx, want, want_dx, tf32, tf32_dx
+        del x, w, g, w_rot, got, got_dx, again, again_dx, want, want_dx
+        del tf32, tf32_dx
     del flush
     torch.cuda.empty_cache()
     weights = {"x".join(str(d) for d in s): n

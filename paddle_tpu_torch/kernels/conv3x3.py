@@ -22,7 +22,9 @@ call, as the JAX op does.
 
 The JAX wrapper takes a tiling ``config`` of the TPU schedule
 (``block_n``, ``block_o``, ``grid_order``); it means nothing to this
-kernel, and the wrapper accepts and ignores it.
+kernel, and the wrapper accepts and ignores it. The kernel picks its own
+tiling by a rule in its source, which :func:`tiling` mirrors, with the
+shared memory of each tiling in :func:`smem_bytes`.
 """
 from __future__ import annotations
 
@@ -33,15 +35,49 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["conv3x3_bwd", "conv3x3_bwd_reference", "conv3x3_reference",
-           "conv3x3_s1_nhwc", "launches", "launches_dx", "rotate_filter",
-           "supports_conv3x3"]
+__all__ = ["H100_SMS", "TILINGS", "conv3x3_bwd", "conv3x3_bwd_reference",
+           "conv3x3_reference", "conv3x3_s1_nhwc", "kernel_tiling",
+           "launches", "launches_dx", "rotate_filter", "smem_bytes",
+           "supports_conv3x3", "tiling"]
 
 # kernel launches since the last reset: forward and dx
 launches = 0
 launches_dx = 0
 
 _NAME = "conv3x3"
+
+# the kernel's tilings (BM pixels x BN output channels a block), largest
+# first, each at BK = 32 input channels a step in a ring of 3 stages
+# (csrc/conv3x3.cu)
+TILINGS = ((128, 128), (128, 64), (64, 64))
+_BK = 32
+_STAGES = 3
+_X_PAD = 4
+_W_PAD = 8
+# the SMs of an H100 SXM; the kernel reads the card's own count
+H100_SMS = 132
+
+
+def tiling(N, H, W, C, O, sms=H100_SMS):
+    """``(BM, BN)`` the kernel takes for x ``[N, H, W, C]`` and O output
+    channels on a card of ``sms`` SMs (``pick_tiling`` of the source):
+    the first of :data:`TILINGS` whose BN is at most ``max(64, O)`` and
+    whose grid has at least 2 blocks an SM, else 64 x 64. C does not
+    enter the rule."""
+    del C
+    M = N * H * W
+    for bm, bn in TILINGS:
+        blocks = -(-M // bm) * -(-O // bn)
+        if bn <= max(64, O) and blocks >= 2 * sms:
+            return bm, bn
+    return TILINGS[-1]
+
+
+def smem_bytes(bm, bn):
+    """Dynamic shared memory of one block of the tiling: three stages of
+    the A tile (``bm x (32 + 4)``) and the B tile (``32 x (bn + 8)``),
+    float32 (``Tile::SMEM_BYTES`` of the source)."""
+    return _STAGES * (bm * (_BK + _X_PAD) + _BK * (bn + _W_PAD)) * 4
 
 
 def supports_conv3x3(w_shape, strides, paddings, dilations, groups):
@@ -113,6 +149,20 @@ def _launch(x, w):
               _build.stream_handle(x.device))
     _build.check(lib, code, _NAME)
     return out
+
+
+def kernel_tiling(N, H, W, C, O):
+    """``(BM, BN)`` the built kernel takes at the shape on the current
+    card: its own rule, asked through the library (needs the card)."""
+    lib = _build.load(_NAME)
+    fn = lib.conv3x3_tiling
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    code = fn(N, H, W, C, O)
+    if code < 0:
+        raise ValueError("%s: no tiling for shape %s"
+                         % (_NAME, (N, H, W, C, O)))
+    return code // 1000, code % 1000
 
 
 def _check(x, w):

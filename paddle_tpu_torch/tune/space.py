@@ -186,16 +186,16 @@ class MatmulSpace(KernelSpace):
 
 class Conv3x3Space(KernelSpace):
     """Space of ``kernels/conv3x3.py`` (3x3 / s1 / p1, NHWC x HWIO).
-    key: {n, h, w, c, o, dtype}. The kernel has one fixed tiling (64
-    pixels x 64 channels a block, 16 input channels a step), so the one
-    candidate is ``{}``; the JAX space's block_n / block_o / grid_order
-    are a TPU schedule that means nothing to it."""
+    key: {n, h, w, c, o, dtype}. The kernel picks its tiling itself (128
+    x 128, 128 x 64 or 64 x 64 pixels x output channels a block, by a
+    rule in its source), so the one candidate is ``{}``, "the kernel,
+    with its own rule"; racing its tilings is later work. The JAX
+    space's block_n / block_o / grid_order are a TPU schedule that means
+    nothing to it. A candidate's shared memory is that of the tiling the
+    rule picks for the key on an H100's 132 SMs."""
 
     name = "conv3x3"
     params = {}
-
-    # csrc/conv3x3.cu: as[16][68] + bs[16][64] floats
-    SMEM = (16 * 68 + 16 * 64) * 4
 
     def default_config(self, key):
         return {}
@@ -204,7 +204,9 @@ class Conv3x3Space(KernelSpace):
         return not config
 
     def smem_bytes(self, config, key):
-        return self.SMEM
+        from ..kernels.conv3x3 import smem_bytes, tiling
+        return smem_bytes(*tiling(key["n"], key["h"], key["w"], key["c"],
+                                  key["o"]))
 
     def make_operands(self, key, seed=0, device=DEFAULT_DEVICE):
         rng = np.random.RandomState(seed)

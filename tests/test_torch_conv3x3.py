@@ -13,6 +13,9 @@ or 9*O products (dx) to values of size ~10-30, where an entry near 0
 carries the same absolute noise; its tolerance is 1e-5 of the largest
 magnitude of the JAX gradient.
 """
+import os
+import re
+
 import numpy as np
 import pytest
 
@@ -95,3 +98,72 @@ def test_cpu_call_counts_no_launch():
     counts = kernels.launch_counts()
     assert {"conv3x3_fwd", "conv3x3_dx"} <= set(counts)
     assert set(counts.values()) == {0}
+
+
+# (N, H, W, C, O) and the tiling the kernel's rule takes on 132 SMs:
+# ResNet-50's stage shapes at batch 32 (784, 392, 392 and 200 blocks),
+# then the edge shapes of chip_smoke.py's phase 6 and one dx of them
+# (C and O swapped)
+RULE_PICKS = [
+    ((32, 56, 56, 64, 64), (128, 64), 784),
+    ((32, 28, 28, 128, 128), (128, 64), 392),
+    ((32, 14, 14, 256, 256), (64, 64), 392),
+    ((32, 7, 7, 512, 512), (64, 64), 200),
+    ((3, 7, 9, 24, 40), (64, 64), 3),
+    ((2, 5, 6, 3, 7), (64, 64), 1),
+    ((2, 9, 11, 36, 64), (64, 64), 4),
+    ((2, 7, 7, 512, 512), (64, 64), 16),
+    ((4, 95, 97, 64, 40), (128, 64), 288),
+    ((16, 33, 33, 32, 200), (128, 128), 274),
+    ((16, 33, 33, 200, 32), (64, 64), 273),
+]
+
+
+@pytest.mark.parametrize("shape,want,blocks", RULE_PICKS)
+def test_tiling_rule_picks(shape, want, blocks):
+    N, H, W, C, O = shape
+    bm, bn = tconv.tiling(*shape)
+    assert (bm, bn) == want
+    assert -(-N * H * W // bm) * -(-O // bn) == blocks
+    # the largest tiling within the rule's limits: BN <= max(64, O) and
+    # 2 blocks an SM, or 64 x 64 where none has the blocks
+    larger = tconv.TILINGS[:tconv.TILINGS.index(want)]
+    for lbm, lbn in larger:
+        assert lbn > max(64, O) or \
+            -(-N * H * W // lbm) * -(-O // lbn) < 2 * tconv.H100_SMS
+
+
+def test_tiling_rule_follows_the_sm_count():
+    # half the SMs: the second stage has the blocks for 128 x 128, the
+    # first stays at BN 64 (O 64)
+    assert tconv.tiling(32, 28, 28, 128, 128, sms=66) == (128, 128)
+    assert tconv.tiling(32, 56, 56, 64, 64, sms=66) == (128, 64)
+    assert tconv.tiling(32, 7, 7, 512, 512, sms=1000) == (64, 64)
+
+
+def test_smem_bytes_is_three_stages_of_both_tiles():
+    for bm, bn in tconv.TILINGS:
+        assert tconv.smem_bytes(bm, bn) == \
+            3 * (bm * (32 + 4) + 32 * (bn + 8)) * 4
+    assert [tconv.smem_bytes(*t) for t in tconv.TILINGS] == \
+        [107520, 82944, 55296]
+
+
+def test_mirror_matches_the_source():
+    """The tilings, the step depth, the ring and the paddings of
+    csrc/conv3x3.cu are those the mirror computes with."""
+    path = os.path.join(os.path.dirname(tconv.__file__), "csrc",
+                        "conv3x3.cu")
+    with open(path) as fh:
+        src = fh.read()
+
+    def ints(name):
+        m = re.search(r"constexpr int %s(?:\[\w+\])? = \{?([\d, ]+)\}?;"
+                      % name, src)
+        return [int(v) for v in m.group(1).split(",")]
+
+    assert list(zip(ints("TILING_BM"), ints("TILING_BN"))) == \
+        list(tconv.TILINGS)
+    assert ints("BK") == [32] and ints("STAGES") == [3]
+    assert ints("X_PAD") == [4] and ints("W_PAD") == [8]
+    assert "2LL * sm_count()" in src

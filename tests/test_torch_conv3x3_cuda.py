@@ -1,6 +1,7 @@
 """The 3x3 / s1 / p1 convolution on the card: the CUDA kernel (forward,
-and dx on the rotated filter) against its plain version, and its refusal
-of other dtypes.
+and dx on the rotated filter) against its plain version, at shapes where
+its rule takes each of its three tilings and at each tail, relaunched
+bit-identically, and its refusal of other dtypes.
 
 JAX-free, so that it runs where the card is. Tolerance: 1e-5 of the
 largest magnitude of the plain output (or 1e-5 absolute below 1),
@@ -55,6 +56,50 @@ def test_kernel_matches_plain_version_on_the_card(cuda_device, shape):
     for got, ref in ((out, want), (dx, want_dx), (dw, want_dw)):
         assert float((got - ref).abs().max()) <= \
             TOL * max(1.0, float(ref.abs().max()))
+
+
+# shapes at which the kernel's rule takes each tiling on an H100 (132
+# SMs), with the tails: (N, H, W, C, O) and the forward's tiling
+TILING_CASES = [
+    ((32, 56, 56, 64, 64), (128, 64)),     # ResNet-50's first stage
+    ((4, 95, 97, 64, 40), (128, 64)),      # a BM tail, O 40 a BN tail
+    ((16, 33, 33, 32, 200), (128, 128)),   # BM and BN tails; dx 64 x 64
+    ((32, 7, 7, 512, 512), (64, 64)),      # the deep stage
+    ((2, 7, 7, 512, 512), (64, 64)),       # the deep stage at batch 2
+    ((3, 7, 9, 24, 40), (64, 64)),         # C 24 a short chunk, O 40
+    ((2, 9, 11, 36, 64), (64, 64)),        # C 36: 4 channels past 32
+    ((2, 5, 6, 3, 7), (64, 64)),           # the 4-byte copies
+    ((1, 1, 1, 1, 1), (64, 64)),           # one pixel, all halo but one
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,want", TILING_CASES)
+def test_each_tiling_and_tail_relaunches_bit_identically(cuda_device,
+                                                         shape, want):
+    N, H, W, C, O = shape
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert tconv.kernel_tiling(*shape) == tconv.tiling(*shape, sms=sms)
+    assert tconv.kernel_tiling(N, H, W, O, C) == \
+        tconv.tiling(N, H, W, O, C, sms=sms)
+    if sms == tconv.H100_SMS:
+        assert tconv.kernel_tiling(*shape) == want
+    rng = np.random.RandomState(sum(shape))
+    x = torch.from_numpy(rng.randn(N, H, W, C).astype(np.float32)).to(
+        cuda_device)
+    w = torch.from_numpy((rng.randn(3, 3, C, O) * (2.0 / (9 * C)) ** 0.5)
+                         .astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.randn(N, H, W, O).astype(np.float32)).to(
+        cuda_device)
+    w_rot = tconv.rotate_filter(w)
+    for a, b in ((x, w), (g, w_rot)):
+        got = tconv._launch(a, b)
+        again = tconv._launch(a, b)
+        want_out = tconv.conv3x3_reference(a.double(), b.double())
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert float((got.double() - want_out).abs().max()) <= \
+            TOL * max(1.0, float(want_out.abs().max()))
 
 
 @pytest.mark.cuda

@@ -113,7 +113,11 @@ def test_conv3x3_space_has_the_kernels_one_tiling():
     assert sp.candidates(CONV_KEY) == [{}]
     assert not sp.is_valid({"block_n": 2, "block_o": 0,
                             "grid_order": "no"}, CONV_KEY)
-    assert sp.smem_bytes({}, CONV_KEY) == (16 * 68 + 16 * 64) * 4
+    # the footprint of the tiling the kernel's rule picks for the key:
+    # 128 pixels are one block, too few for 128-row tiles, so 64 x 64
+    assert sp.smem_bytes({}, CONV_KEY) == 3 * (64 * 36 + 32 * 72) * 4
+    assert sp.smem_bytes({}, dict(CONV_KEY, n=32, h=56, w=56, c=64,
+                                  o=64)) == 3 * (128 * 36 + 32 * 72) * 4
     assert tune.space_names() == ["conv3x3", "matmul"]
     with pytest.raises(KeyError, match="flash_attention"):
         tune.get_space("flash_attention")

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """The design choices of the 3xTF32 kernels (``paddle_tpu_torch/kernels/
 csrc/flash_attention_bwd.cu``, ``flash_attention_fwd.cu``, ``matmul.cu``,
-``fused_gru.cu`` and ``fused_lstm.cu``) against alternatives, on one
-NVIDIA card. Run from the root of a checkout:
+``fused_gru.cu``, ``fused_lstm.cu`` and ``conv3x3.cu``) against
+alternatives, on one NVIDIA card. Run from the root of a checkout:
 
-    python3 tools/torch_flash_bwd_study.py [--kernel bwd fwd matmul gru lstm]
-        [--against DIR]
+    python3 tools/torch_flash_bwd_study.py
+        [--kernel bwd fwd matmul gru lstm conv3x3] [--against DIR]
 
 (the flash backward alone by default). For each kernel it builds the
 committed source and variants made from it and from the shared headers
@@ -44,7 +44,10 @@ LSTM has ``w_split_at_load`` likewise, and ``two_passes``: pieces of up
 to 64 rows (4 m tiles, where the source caps them at 32 for its
 registers), each step's four gate columns multiplied in two passes of
 two over the same staged rows (the A fragments loaded and split twice),
-instead of one pass of four.
+instead of one pass of four. The conv3x3 has ``t128x128``, ``t128x64``
+and ``t64x64`` (that tiling forced at every shape, in place of the
+source's rule), ``stages2`` (a ring of two stages instead of three) and
+``tf32_once``.
 
 With ``--against DIR`` (the root of another checkout, say a parent
 commit's ``git archive``) each study also builds that checkout's source
@@ -75,7 +78,12 @@ For each it prints the registers and spills ``-Xptxas -v`` reports and:
   outputs equal the source's bit for bit at every shape of
   ``chip_smoke.RNN_EDGE_SHAPES`` (ragged lengths), which with
   ``--against`` shows a refactoring left a kernel's results as they
-  were.
+  were;
+- conv3x3: at ResNet-50's four stage shapes at batch 32
+  (``chip_smoke.R50_CONV_SHAPES``) the largest error of the forward and
+  of dx (the kernel on the output gradient and the rotated filter) over
+  the largest magnitude of a float64 plain conv, the time of each, and
+  the tiling the source's rule takes there.
 
 Times are CUDA-event medians over 20 launches, L2 flushed before each.
 The last lines are the card's name and power limit and one JSON object
@@ -96,8 +104,9 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import RNN_EDGE_SHAPES  # noqa: E402
+from chip_smoke import R50_CONV_SHAPES, RNN_EDGE_SHAPES  # noqa: E402
 from paddle_tpu_torch.kernels import _build  # noqa: E402
+from paddle_tpu_torch.kernels import conv3x3 as conv  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.kernels import fused_gru as gru  # noqa: E402
 from paddle_tpu_torch.kernels import fused_lstm as lstm  # noqa: E402
@@ -256,6 +265,15 @@ LSTM_VARIANTS = {
 """)],
 }
 
+PICK = "  const int tiling = pick_tiling(M, O);\n"
+CONV_VARIANTS = {
+    "t128x128": [(PICK, "  const int tiling = 0;\n")],
+    "t128x64": [(PICK, "  const int tiling = 1;\n")],
+    "t64x64": [(PICK, "  const int tiling = 2;\n")],
+    "stages2": MATMUL_VARIANTS["stages2"],
+    "tf32_once": COMMON["tf32_once"],
+}
+
 
 def variant_sources(name, variants, common=True):
     """{variant: {file name: text}}: the source ``csrc/<name>.cu`` and the
@@ -293,17 +311,29 @@ def against_sources(root, name):
     return out
 
 
+def kernel_name(run):
+    """The kernel's name at the end of ``run``, a mangled entry name up to
+    ``_kernel``: the tail that the decimal length before it covers (so
+    that digits in the name, as in conv3x3_kernel, are kept)."""
+    for i in range(1, len(run)):
+        digits = re.search(r"(\d+)$", run[:i])
+        if digits and run[i].isalpha() and int(digits.group(1)) == \
+                len(run) - i:
+            return run[i:]
+    return run
+
+
 def ptxas_summary(log):
     """{kernel template: 'N registers[, spills]'} from nvcc -Xptxas -v."""
     out, cur = {}, None
     for ln in log.splitlines():
-        m = re.search(r"\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)E", ln)
+        m = re.search(r"(\w+?_kernel)I((?:L[ib]\d+E)+)E", ln)
         if "Compiling entry function" in ln and m:
             args = re.findall(r"L[ib](\d+)E", m.group(2))
-            cur = "%s<%s>" % (m.group(1), ",".join(args))
+            cur = "%s<%s>" % (kernel_name(m.group(1)), ",".join(args))
         elif "Compiling entry function" in ln:
-            m = re.search(r"\d+([a-z_]+_kernel)(?:I(\w+?)EE)?", ln)
-            cur = None if m is None else m.group(1) + (
+            m = re.search(r"(\w+?_kernel)(?:I(\w+?)EE)?", ln)
+            cur = None if m is None else kernel_name(m.group(1)) + (
                 "<%s>" % m.group(2) if m.group(2) else "")
         elif cur and "registers" in ln:
             regs = re.search(r"Used (\d+) registers", ln).group(1)
@@ -546,6 +576,39 @@ def rnn_study(mod, name, gates):
     return study
 
 
+def study_conv3x3(libs, result, dev, flush):
+    for i, shape in enumerate(R50_CONV_SHAPES):
+        N, H, W, C, O = shape
+        rng = np.random.RandomState(60 + i)
+        x = _randn(rng, (N, H, W, C), dev)
+        w = _randn(rng, (3, 3, C, O), dev, (2.0 / (9 * C)) ** 0.5)
+        g = _randn(rng, (N, H, W, O), dev)
+        w_rot = conv.rotate_filter(w)
+        want = conv.conv3x3_reference(x.double(), w.double())
+        want_dx = conv.conv3x3_reference(g.double(), w_rot.double())
+        tag = "x".join(str(d) for d in shape)
+        for name, lib in libs.items():
+            with using("conv3x3", lib):
+                got = conv._launch(x, w)
+                got_dx = conv._launch(g, w_rot)
+                torch.cuda.synchronize()
+                rec = {"fwd_max_rel_err": float(
+                           (got.double() - want).abs().max()
+                           / want.abs().max()),
+                       "dx_max_rel_err": float(
+                           (got_dx.double() - want_dx).abs().max()
+                           / want_dx.abs().max()),
+                       "fwd_ms": time_ms(lambda: conv._launch(x, w), flush),
+                       "dx_ms": time_ms(lambda: conv._launch(g, w_rot),
+                                        flush)}
+                if hasattr(lib, "conv3x3_tiling"):
+                    rec["rule_tiling"] = "%dx%d" % conv.kernel_tiling(*shape)
+            result[name][tag] = rec
+            print(json.dumps({name: {tag: rec}}), flush=True)
+        del x, w, g, w_rot, want, want_dx, got, got_dx
+        torch.cuda.empty_cache()
+
+
 STUDIES = {  # kernel: (library name, its variants, its study, COMMON too)
     "bwd": ("flash_attention_bwd", BWD_VARIANTS, study_bwd, True),
     "fwd": ("flash_attention_fwd", FWD_VARIANTS, study_fwd, True),
@@ -554,6 +617,7 @@ STUDIES = {  # kernel: (library name, its variants, its study, COMMON too)
             False),
     "lstm": ("fused_lstm", LSTM_VARIANTS, rnn_study(lstm, "fused_lstm", 4),
              False),
+    "conv3x3": ("conv3x3", CONV_VARIANTS, study_conv3x3, False),
 }
 
 
