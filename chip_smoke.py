@@ -19,22 +19,29 @@ Phases, in order; any failure exits non-zero at once:
    shapes the main path gives it, with the time of the kernel, of the
    plain version and of one PyTorch library call computing the same
    function, and the least time the card could take (in float32 on the
-   CUDA cores, and in 3xTF32 on the tensor cores); the flash forward and
-   backward also at the templates of D 32 (non-causal) and D 128
-   (causal), a second launch of each of their kernels must equal the
-   first bit for bit, and their TF32-rounded counterparts must miss the
-   tolerance; the forward is timed at the prefill's batch (1) and the LM
-   step's (8), where it is also held against the plain forward and
-   relaunched, with registers, spills and shared memory of every
-   template; the backward's cases first hold the forward's o and lse at
-   B 8;
+   CUDA cores, and in 3xTF32 on the tensor cores); the paged attention
+   also at R 1 and 4 (every row at the last column; kernel, device
+   (profiled), bound and library times at R 1, 4 and 16 in its entry's
+   ``by_R``) and at its edges (``PAGED_EDGE_SHAPES``: dh 32 and 128, T
+   24, one split, positions past the table), each launched twice (the
+   second launch bit-identical) and its split count held to the mirror
+   (``paged_attention.splits``);
+   the flash forward and backward also at the templates of D 32
+   (non-causal) and D 128 (causal), a second launch of each of their
+   kernels must equal the first bit for bit, and their TF32-rounded
+   counterparts must miss the tolerance; the forward is timed at the
+   prefill's batch (1) and the LM step's (8), where it is also held
+   against the plain forward and relaunched, with registers, spills and
+   shared memory of every template; the backward's cases first hold the
+   forward's o and lse at B 8;
 3. engine: export random GPT-2-small-wide weights (seed 0) as a
    generative artifact, load them onto the card, and serve 16 greedy
    requests (prompts of 16 to 900 tokens, 32 new tokens each) through
    the continuous-batching engine; the launch counters must show that
    every prefill and decode step went through the kernels, and two
    requests' logits, step by step, must agree with the plain
-   full-sequence forward;
+   full-sequence forward; a profiled repeat reports device time by
+   kernel and the paged attention kernels' share;
 4. http: serve the same artifact on port 0 in-process, POST ``:generate``
    twice (tokens must equal the engine's), then raise SIGTERM while a
    third request is in flight: the server must drain it and answer;
@@ -150,6 +157,21 @@ GPT2_SMALL = dict(vocab_size=50257, hidden=768, num_layers=12, num_heads=12,
 # other reduction trees), worth ~1e-6 on outputs of size ~1. Rounding the
 # inputs of the products to TF32 (10-bit mantissa) errs by ~1e-3.
 KERNEL_TOL = 5e-5
+# The paged attention kernel timed at R 1, 4 and 16 rows (phase 2): one
+# user's long context, a small batch (a speculative verify step), and
+# the engine's full batch of the serving drive
+PAGED_BY_R = (1, 4, 16)
+# and held at its edges (R, MB, T, nh, dh, positions of rows 2..; row 0
+# is inactive, row 1 at position 0): the other head dims, T 24 (splits
+# end inside pages), MB * T below 64 (one split a row), positions at and
+# past the table's width
+PAGED_EDGE_SHAPES = [
+    (8, 32, 16, 12, 32, (15, 16, 511, 63, 64, 300)),
+    (8, 32, 16, 12, 128, (15, 16, 511, 63, 64, 300)),
+    (8, 20, 24, 12, 64, (23, 24, 479, 71, 64, 200)),
+    (8, 3, 16, 12, 64, (15, 16, 47, 30, 1, 2)),
+    (6, 8, 16, 12, 64, (127, 128, 1000, 2 ** 30)),
+]
 # Logits of the kernel path (prefill and decode steps) against the plain
 # full-sequence forward: the same sum-order differences carried through
 # 12 layers. A forward whose attention inputs are rounded to TF32 (what a
@@ -342,6 +364,23 @@ def time_ms(fn, iters=20, warmup=3, flush=None):
     return float(np.median(times))
 
 
+def _device_ms(fn, name, flush, iters=20):
+    """Device ms a call of ``fn`` spends in the kernels whose name holds
+    ``name``, from torch.profiler over ``iters`` calls, ``flush`` zeroed
+    before each as in :func:`time_ms`: the kernels alone, without the
+    host's time to reach them, which CUDA events around a short call
+    also read."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return _kernel_share(prof, name)["ms"] / iters
+
+
 def _no_launches():
     """{kernel name: 0} over every launch counter of the port."""
     from paddle_tpu_torch import kernels
@@ -380,8 +419,13 @@ def phase_build():
 
 # -- phase 2 -----------------------------------------------------------------
 
-def _paged_inputs(dev):
-    R, MB, T, nh, dh = 16, 64, 16, 12, 64
+def _paged_inputs(dev, R=16):
+    """The decode step's operands at the engine's pool geometry (MB 64
+    pages of T 16, nh 12, dh 64; seed 11): at R 16 mixed positions (0, T
+    - 1, T, the last column, random) and two inactive rows on the trash
+    page; at a smaller R every row at the last column (one user's long
+    context, or a verify step)."""
+    MB, T, nh, dh = 64, 16, 12, 64
     P = R * MB
     rng = np.random.RandomState(11)
     kp = torch.from_numpy(rng.randn(P + 1, T, nh, dh).astype(np.float32))
@@ -389,61 +433,138 @@ def _paged_inputs(dev):
     q = torch.from_numpy(rng.randn(R, nh, dh).astype(np.float32))
     tables = rng.permutation(P).reshape(R, MB).astype(np.int32)
     positions = rng.randint(0, MB * T, (R,)).astype(np.int32)
-    positions[:4] = [0, T - 1, T, MB * T - 1]
-    tables[-2:] = P                      # two inactive rows: all trash
-    positions[-2:] = 0
+    if R == 16:
+        positions[:4] = [0, T - 1, T, MB * T - 1]
+        tables[-2:] = P                  # two inactive rows: all trash
+        positions[-2:] = 0
+    else:
+        positions[:] = MB * T - 1
     return [t.to(dev) for t in (q, kp, vp, torch.from_numpy(tables),
                                 torch.from_numpy(positions))]
 
 
-def phase_kernels(dev):
-    from paddle_tpu_torch.kernels import paged_attention as pa
-    F = torch.nn.functional
-    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
-    out = {}
+def _paged_edge_inputs(dev, R, MB, T, nh, dh, rest, seed):
+    """Operands of one of PAGED_EDGE_SHAPES: row 0 inactive (trash page,
+    position 0), row 1 at position 0, the other rows at ``rest``."""
+    rng = np.random.RandomState(seed)
+    P = R * MB
+    kp = rng.randn(P + 1, T, nh, dh).astype(np.float32)
+    vp = rng.randn(P + 1, T, nh, dh).astype(np.float32)
+    q = rng.randn(R, nh, dh).astype(np.float32)
+    tables = rng.permutation(P).reshape(R, MB).astype(np.int32)
+    positions = np.array([0, 0] + list(rest), dtype=np.int32)
+    tables[0] = P
+    return [torch.from_numpy(a).to(dev)
+            for a in (q, kp, vp, tables, positions)]
 
-    # paged attention, the decode step's shape: R=16, MB=64, T=16, nh=12
-    q, kp, vp, tables, positions = _paged_inputs(dev)
-    R, nh, dh = q.shape
-    T, MB = kp.shape[1], tables.shape[1]
-    got = pa.paged_attention(q, kp, vp, tables, positions)
-    want = pa.paged_attention_reference(q, kp, vp, tables, positions)
+
+def _paged_check(pa, ops, label):
+    """The kernel against its plain version within KERNEL_TOL, a second
+    launch bit-identical to the first, and the library's split count the
+    mirror's; returns the largest error."""
+    q, kp, vp, tables, positions = ops
+    MB, T = tables.shape[1], kp.shape[1]
+    got = pa.paged_attention(*ops)
+    again = pa.paged_attention(*ops)
+    want = pa.paged_attention_reference(*ops)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if not np.isfinite(err) or err > KERNEL_TOL:
-        fail("paged_attention disagrees with its plain version: max abs "
-             "err %g > %g" % (err, KERNEL_TOL))
-    cols = (torch.clamp(positions.long(), max=MB * T - 1) + 1).sum().item()
+        fail("paged_attention disagrees with its plain version at %s: max "
+             "abs err %g > %g" % (label, err, KERNEL_TOL))
+    if not torch.equal(got, again):
+        fail("paged_attention at %s: a second launch differs from the "
+             "first" % label)
+    if pa.kernel_splits(MB, T) != pa.splits(MB, T):
+        fail("paged_attention at %s: the library cuts a row into %d "
+             "splits, the mirror into %d"
+             % (label, pa.kernel_splits(MB, T), pa.splits(MB, T)))
+    return err
+
+
+def _paged_bound(q, tables, positions, T):
+    """(bytes, flops) the decode attention needs: each attended column's
+    K and V row of every head read once, q and out, positions and the
+    table entries of the pages attended."""
+    R, nh, dh = q.shape
+    MB = tables.shape[1]
+    last = positions.long().clamp(max=MB * T - 1)
+    cols = int((last + 1).sum())
     nbytes = (cols * nh * dh * 2 * 4 + 2 * R * nh * dh * 4 + R * 4
-              + int(((positions.long().clamp(max=MB * T - 1) // T) + 1)
-                    .sum()) * 4)
-    b_ms, b_by = bound(nbytes, 4 * cols * nh * dh)
-    tc_ms = tc_bound(nbytes, 4 * cols * nh * dh)
-    colmask = (torch.arange(MB * T, device=dev)[None, :]
+              + int((last // T + 1).sum()) * 4)
+    return nbytes, 4 * cols * nh * dh
+
+
+def _paged_library(q, kp, vp, tables, positions):
+    """One library call computing the same function: gather the pages,
+    then scaled_dot_product_attention under the column mask."""
+    F = torch.nn.functional
+    R, nh, dh = q.shape
+    C = tables.shape[1] * kp.shape[1]
+    colmask = (torch.arange(C, device=q.device)[None, :]
                <= positions.long()[:, None])[:, None, None, :]
 
     def library():
-        kc = kp[tables.long()].reshape(R, MB * T, nh, dh).transpose(1, 2)
-        vc = vp[tables.long()].reshape(R, MB * T, nh, dh).transpose(1, 2)
+        kc = kp[tables.long()].reshape(R, C, nh, dh).transpose(1, 2)
+        vc = vp[tables.long()].reshape(R, C, nh, dh).transpose(1, 2)
         return F.scaled_dot_product_attention(q[:, :, None, :], kc, vc,
-                                              attn_mask=colmask)
+                                              attn_mask=colmask)[:, :, 0]
+    return library
 
-    lib_err = float((library()[:, :, 0] - want).abs().max())
-    out["paged_attention"] = {
-        "name": "paged_attention", "route": "cuda",
-        "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
-        "replaces": "paddle_tpu/kernels/paged_attention.py:154",
-        "max_abs_err": err, "tolerance": KERNEL_TOL,
-        "ms": time_ms(lambda: pa.paged_attention(q, kp, vp, tables,
-                                                  positions), flush=flush),
-        "plain_ms": time_ms(lambda: pa.paged_attention_reference(
-            q, kp, vp, tables, positions), flush=flush),
-        "bound_ms": b_ms, "bound_by": b_by, "tc_bound_ms": tc_ms,
-        "library_ms": time_ms(library, flush=flush),
-        "library": "gather + scaled_dot_product_attention",
-        "library_max_abs_err": lib_err,
-        "shape": {"R": R, "MB": MB, "T": T, "nh": nh, "dh": dh,
-                  "positions": positions.tolist()}}
+
+def phase_kernels(dev):
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    out = {}
+
+    # paged attention at the engine's pool geometry (MB=64, T=16, nh=12,
+    # dh=64): R 16 is the decode step's shape and the kernel's entry, R 1
+    # and 4 its by_R records beside R 16's
+    by_r = {}
+    for r in PAGED_BY_R:
+        q, kp, vp, tables, positions = ops = _paged_inputs(dev, r)
+        nbytes, flops = _paged_bound(q, tables, positions, kp.shape[1])
+        library = _paged_library(*ops)
+        rec = by_r[str(r)] = {
+            "max_abs_err": _paged_check(pa, ops, "R %d" % r),
+            "ms": time_ms(lambda: pa.paged_attention(*ops), flush=flush),
+            "device_ms": _device_ms(lambda: pa.paged_attention(*ops),
+                                    "paged_attention", flush),
+            "library_ms": time_ms(library, flush=flush)}
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+        if r != 16:
+            continue
+        R, nh, dh = q.shape
+        T, MB = kp.shape[1], tables.shape[1]
+        out["paged_attention"] = dict(
+            rec, name="paged_attention", route="cuda",
+            source="paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+            replaces="paddle_tpu/kernels/paged_attention.py:154",
+            tolerance=KERNEL_TOL,
+            plain_ms=time_ms(lambda: pa.paged_attention_reference(*ops),
+                             flush=flush),
+            tc_bound_ms=tc_bound(nbytes, flops),
+            library="gather + scaled_dot_product_attention",
+            library_max_abs_err=float(
+                (library() - pa.paged_attention_reference(*ops))
+                .abs().max()),
+            shape={"R": R, "MB": MB, "T": T, "nh": nh, "dh": dh,
+                   "positions": positions.tolist()},
+            splits=pa.splits(MB, T))
+    del q, kp, vp, tables, positions, ops, library
+    out["paged_attention"]["by_R"] = by_r
+    edges = []
+    for i, (r, mb, t, h, d, rest) in enumerate(PAGED_EDGE_SHAPES):
+        ops = _paged_edge_inputs(dev, r, mb, t, h, d, rest, 70 + i)
+        edges.append({"R": r, "MB": mb, "T": t, "nh": h, "dh": d,
+                      "splits": pa.splits(mb, t),
+                      "positions": ops[4].tolist(),
+                      "max_abs_err": _paged_check(
+                          pa, ops, "R %d MB %d T %d nh %d dh %d"
+                          % (r, mb, t, h, d))})
+        del ops
+    out["paged_attention"]["edges"] = edges
+    torch.cuda.empty_cache()
 
     out.update(_flash_fwd_kernel(dev, flush))
     out.update(_flash_bwd_kernels(dev, flush))
@@ -796,7 +917,8 @@ def _logit_checks(model, prompts, results, dev):
 def _profile_window(engine, prompts):
     """Drive the same requests again under torch.profiler: device kernel
     time by name and its share of the window's wall time (the profiler's
-    own host overhead makes the window longer than an unprofiled one)."""
+    own host overhead makes the window longer than an unprofiled one),
+    and the paged attention kernels' device time and share."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -805,7 +927,8 @@ def _profile_window(engine, prompts):
         again = [h.wait(timeout=600) for h in handles]
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    return again, _device_kernels(prof, wall)
+    return again, dict(_device_kernels(prof, wall),
+                       paged_attention=_kernel_share(prof, "paged_attention"))
 
 
 def _device_kernels(prof, wall, ranges=()):

@@ -13,7 +13,11 @@ through its block table from one layer's page pool
 - :func:`paged_attention` is the wrapper. A CPU tensor gets the plain
   version; a CUDA tensor gets the hand-written kernel of
   ``csrc/paged_attention.cu`` or an exception, never the plain version.
-- ``launches`` counts the wrapper's kernel launches.
+- ``launches`` counts the wrapper's calls on CUDA: each call launches
+  the split kernel and then the merge kernel, and counts one.
+- :func:`splits` mirrors the kernel's rule for the number of splits of a
+  row (``SPLIT`` columns each), which sizes the workspace the wrapper
+  allocates; :func:`kernel_splits` asks the built library.
 
 The JAX package's tune configs and their degrade-to-reference validator
 (``resolve_block_config``) do not carry over: the kernel takes every
@@ -27,13 +31,32 @@ import torch
 
 from . import _build
 
-__all__ = ["paged_attention", "paged_attention_reference", "launches"]
+__all__ = ["SPLIT", "kernel_splits", "launches", "paged_attention",
+           "paged_attention_reference", "splits"]
 
-# kernel launches made by paged_attention since the last reset
+# calls of paged_attention that launched the kernels since the last reset
 launches = 0
 
 _NAME = "paged_attention"
 _HEAD_DIMS = (32, 64, 128)
+# columns a split of the kernel takes (``constexpr int SPLIT`` in the
+# source)
+SPLIT = 64
+
+
+def splits(MB, T):
+    """How many splits the kernel cuts a row of ``MB`` pages of ``T``
+    columns into: ``ceil(MB * T / SPLIT)``, whatever the positions."""
+    return -(-MB * T // SPLIT)
+
+
+def kernel_splits(MB, T):
+    """:func:`splits` as the built library computes it (needs the card's
+    toolchain)."""
+    fn = _build.load(_NAME).paged_attention_splits
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return fn(MB, T)
 
 
 def paged_attention_reference(q, k_pages, v_pages, block_tables, positions):
@@ -58,7 +81,8 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, positions):
 def paged_attention(q, k_pages, v_pages, block_tables, positions):
     """Decode attention for the whole running batch; the arguments and
     result of :func:`paged_attention_reference`. On CUDA: float32 q and
-    pools, int32 tables and positions, all contiguous on q's device, and
+    pools, int32 tables and positions, all contiguous on q's device, q
+    and the pools 16-byte aligned (the kernel loads 16 bytes a lane), and
     ``dh`` in (32, 64, 128); anything else raises."""
     global launches
     _build.refuse_grad(_NAME, q, k_pages, v_pages)
@@ -91,15 +115,24 @@ def paged_attention(q, k_pages, v_pages, block_tables, positions):
     _build.check_cuda_operands(_NAME, q.device, q=q, k_pages=k_pages,
                                v_pages=v_pages, block_tables=block_tables,
                                positions=positions)
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError("%s: %s must be 16-byte aligned"
+                             % (_NAME, name))
+    S = splits(MB, T)
     out = torch.empty_like(q)
+    # each (row, head, split)'s partial: acc [dh], then m and den
+    work = torch.empty((R, nh, S, dh + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _build.load(_NAME)
     fn = lib.paged_attention_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
         [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
               block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-              R, nh, dh, T, MB, dh ** -0.5, _build.stream_handle(q.device))
+              work.data_ptr(), R, nh, dh, T, MB, S, dh ** -0.5,
+              _build.stream_handle(q.device))
     _build.check(lib, code, _NAME)
     launches += 1
     return out

@@ -1,12 +1,17 @@
 """Paged attention: the port's plain version and wrapper against the JAX
-package's Pallas kernel (interpret mode) and its gather reference.
+package's Pallas kernel (interpret mode) and its gather reference; the
+CUDA kernel's split count and, emulated in float32 torch, its split
+partials and fixed-order merge against the JAX reference.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerance: 2e-5 absolute, float32 on both sides; the two compute the
 same softmax with different summation orders (online per page in the
-Pallas kernel, dense in the references), which moves float32 results of
-size ~1 by ~1e-6.
+Pallas kernel, dense in the references, by split then merged in the
+emulation), which moves float32 results of size ~1 by ~1e-6.
 """
+import os
+import re
+
 import numpy as np
 import pytest
 
@@ -92,3 +97,86 @@ def test_wrapper_refuses_grad():
     q.requires_grad_(True)
     with pytest.raises(NotImplementedError, match="backward"):
         tpa.paged_attention(q, kp, vp, tables, positions)
+
+
+@pytest.mark.parametrize("MB,T", [(1, 1), (3, 16), (4, 16), (64, 16),
+                                  (6, 24), (20, 24), (5, 13), (128, 8)])
+def test_splits_is_the_columns_over_64_rounded_up(MB, T):
+    assert tpa.splits(MB, T) == int(np.ceil(MB * T / 64)) == \
+        -(-MB * T // tpa.SPLIT)
+
+
+def test_mirror_matches_the_source():
+    """The split length of csrc/paged_attention.cu is the mirror's."""
+    path = os.path.join(os.path.dirname(tpa.__file__), "csrc",
+                        "paged_attention.cu")
+    with open(path) as fh:
+        src = fh.read()
+    m = re.search(r"constexpr int SPLIT = (\d+);", src)
+    assert m is not None and int(m.group(1)) == tpa.SPLIT == 64
+
+
+def _split_merge(q, kp, vp, tables, positions):
+    """The kernel's arithmetic in float32 torch: each split of SPLIT
+    columns writes its unnormalised partial (acc, m, den) to a workspace
+    that starts as NaN; the merge reads the live splits in order. A
+    split past the row's position is never written and never read."""
+    R, nh, dh = q.shape
+    T, MB = kp.shape[1], tables.shape[1]
+    S = tpa.splits(MB, T)
+    work = torch.full((R, nh, S, dh + 2), float("nan"))
+    out = torch.empty_like(q)
+    for r in range(R):
+        n_cols = min(int(positions[r]), MB * T - 1) + 1
+        cols = torch.arange(n_cols)
+        kc = kp[tables[r, cols // T].long(), cols % T]    # [n, nh, dh]
+        vc = vp[tables[r, cols // T].long(), cols % T]
+        for s in range(S):
+            c0, c1 = s * tpa.SPLIT, min((s + 1) * tpa.SPLIT, n_cols)
+            if c0 >= n_cols:
+                continue
+            sc = torch.einsum("hd,chd->hc", q[r], kc[c0:c1]) * dh ** -0.5
+            m = sc.max(-1).values
+            p = torch.exp(sc - m[:, None])
+            work[r, :, s, :dh] = torch.einsum("hc,chd->hd", p, vc[c0:c1])
+            work[r, :, s, dh] = m
+            work[r, :, s, dh + 1] = p.sum(-1)
+        live = -(-n_cols // tpa.SPLIT)
+        big = work[r, :, :live, dh].max(-1).values
+        den = torch.zeros(nh)
+        acc = torch.zeros(nh, dh)
+        for s in range(live):
+            sc = torch.exp(work[r, :, s, dh] - big)
+            den = den + work[r, :, s, dh + 1] * sc
+            acc = acc + work[r, :, s, :dh] * sc[:, None]
+        out[r] = acc / den.clamp_min(1e-20)[:, None]
+    return out, S
+
+
+# (R, pages, MB, T, nh, dh): shapes with more than one split
+SPLIT_GRID = [
+    (6, 40, 16, 16, 2, 32),   # S 4, splits of 4 whole pages
+    (6, 20, 6, 24, 2, 64),    # S 3, splits that cut pages (T 24)
+    (4, 12, 5, 13, 3, 32),    # S 2, an odd T
+]
+
+
+@pytest.mark.parametrize("shape", SPLIT_GRID)
+def test_split_merge_matches_the_jax_reference(shape):
+    R, pages, MB, T, nh, dh = shape
+    q, kp, vp, tables, positions = _operands(R, pages, MB, T, nh, dh,
+                                             seed=R * 100 + T)
+    # row 0 inactive (trash page, position 0), row 1 at position 0, then
+    # the last column of the first split, the first of the second, the
+    # last column and a position past the table
+    positions[2:] = [63, 64, MB * T - 1, MB * T + 40][:R - 2]
+    want = np.asarray(jax_paged_attention_reference(
+        *[jnp.asarray(a) for a in (q, kp, vp, tables, positions)]))
+    ops = [torch.from_numpy(a) for a in (q, kp, vp, tables, positions)]
+    got, S = _split_merge(*ops)
+    assert S > 1
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
+    np.testing.assert_allclose(
+        got.numpy(), tpa.paged_attention_reference(*ops).numpy(), rtol=0,
+        atol=TOL)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """The design choices of the 3xTF32 kernels (``paddle_tpu_torch/kernels/
 csrc/flash_attention_bwd.cu``, ``flash_attention_fwd.cu``, ``matmul.cu``,
-``fused_gru.cu``, ``fused_lstm.cu`` and ``conv3x3.cu``) against
-alternatives, on one NVIDIA card. Run from the root of a checkout:
+``fused_gru.cu``, ``fused_lstm.cu`` and ``conv3x3.cu``) and of the paged
+decode attention (``paged_attention.cu``) against alternatives, on one
+NVIDIA card. Run from the root of a checkout:
 
     python3 tools/torch_flash_bwd_study.py
-        [--kernel bwd fwd matmul gru lstm conv3x3] [--against DIR]
+        [--kernel bwd fwd matmul gru lstm conv3x3 paged] [--against DIR]
 
 (the flash backward alone by default). For each kernel it builds the
 committed source and variants made from it and from the shared headers
@@ -47,7 +48,10 @@ two over the same staged rows (the A fragments loaded and split twice),
 instead of one pass of four. The conv3x3 has ``t128x128``, ``t128x64``
 and ``t64x64`` (that tiling forced at every shape, in place of the
 source's rule), ``stages2`` (a ring of two stages instead of three) and
-``tf32_once``.
+``tf32_once``. The paged attention has ``split32``, ``split128`` and
+``split256`` (splits of that many columns instead of 64), ``unroll2``
+and ``unroll8`` (2 or 8 loads of K and as many of V in flight a lane
+instead of 4).
 
 With ``--against DIR`` (the root of another checkout, say a parent
 commit's ``git archive``) each study also builds that checkout's source
@@ -83,7 +87,17 @@ For each it prints the registers and spills ``-Xptxas -v`` reports and:
   (``chip_smoke.R50_CONV_SHAPES``) the largest error of the forward and
   of dx (the kernel on the output gradient and the rotated filter) over
   the largest magnitude of a float64 plain conv, the time of each, and
-  the tiling the source's rule takes there.
+  the tiling the source's rule takes there;
+- paged: at the decode step's shape (``chip_smoke._paged_inputs``: MB
+  64, T 16, nh 12, dh 64) with R 16 (phase 2's positions) and R 1 and
+  4 (every row at the last column), the largest error against a float64
+  plain version, the time of both launches, the same time with the L2
+  flushed by a read instead of a write (so that no dirty line of the
+  flush is written back during the launch), and the device time of the
+  split and the merge kernel apart (``torch.profiler``), under either
+  flush. A
+  source without ``paged_attention_splits`` (the single-pass kernel of
+  a parent commit) is called with its own arguments.
 
 Times are CUDA-event medians over 20 launches, L2 flushed before each.
 The last lines are the card's name and power limit and one JSON object
@@ -104,13 +118,15 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import R50_CONV_SHAPES, RNN_EDGE_SHAPES  # noqa: E402
+from chip_smoke import (R50_CONV_SHAPES, RNN_EDGE_SHAPES,  # noqa: E402
+                        _paged_inputs)
 from paddle_tpu_torch.kernels import _build  # noqa: E402
 from paddle_tpu_torch.kernels import conv3x3 as conv  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.kernels import fused_gru as gru  # noqa: E402
 from paddle_tpu_torch.kernels import fused_lstm as lstm  # noqa: E402
 from paddle_tpu_torch.kernels import matmul as mm  # noqa: E402
+from paddle_tpu_torch.kernels import paged_attention as pa  # noqa: E402
 
 OUT_DIR = os.path.join(ROOT, "build", "flash_bwd_study")
 
@@ -371,12 +387,17 @@ def build(name, sources):
     return libs, ptxas
 
 
-def time_ms(fn, flush, iters=20, warmup=3):
+def time_ms(fn, flush, iters=20, warmup=3, by_read=False):
+    """Median ms of ``fn``, the L2 flushed before each launch by writing
+    ``flush`` (or, ``by_read``, by reading it: no dirty line is left)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
-        flush.zero_()
+        if by_read:
+            flush.sum()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -609,6 +630,96 @@ def study_conv3x3(libs, result, dev, flush):
         torch.cuda.empty_cache()
 
 
+PAGED_VARIANTS = {
+    "split32": [("constexpr int SPLIT = 64;", "constexpr int SPLIT = 32;")],
+    "split128": [("constexpr int SPLIT = 64;", "constexpr int SPLIT = 128;")],
+    "split256": [("constexpr int SPLIT = 64;", "constexpr int SPLIT = 256;")],
+    "unroll2": [("constexpr int UNROLL = 4;", "constexpr int UNROLL = 2;")],
+    "unroll8": [("constexpr int UNROLL = 4;", "constexpr int UNROLL = 8;")],
+}
+
+
+def paged_call(lib, q, kp, vp, tables, positions):
+    """The paged attention of ``lib`` on the operands: the split kernel
+    and its merge over a workspace of the library's own split count, or
+    (a library without ``paged_attention_splits``) the single-pass
+    kernel."""
+    R, nh, dh = q.shape
+    T, MB = kp.shape[1], tables.shape[1]
+    out = torch.empty_like(q)
+    args = [t.data_ptr() for t in (q, kp, vp, tables, positions, out)]
+    fn = lib.paged_attention_f32
+    fn.restype = ctypes.c_int
+    try:
+        splits = lib.paged_attention_splits
+    except AttributeError:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
+            [ctypes.c_float, ctypes.c_void_p]
+        args += [R, nh, dh, T, MB]
+    else:
+        splits.argtypes = [ctypes.c_int] * 2
+        splits.restype = ctypes.c_int
+        S = splits(MB, T)
+        work = torch.empty((R, nh, S, dh + 2), dtype=torch.float32,
+                           device=q.device)
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
+            [ctypes.c_float, ctypes.c_void_p]
+        args += [work.data_ptr(), R, nh, dh, T, MB, S]
+    code = fn(*args, dh ** -0.5, _build.stream_handle(q.device))
+    _build.check(lib, code, "paged_attention")
+    return out
+
+
+def _paged_device_us(fn, flush, iters=20, by_read=False):
+    """Mean device microseconds a launch of each paged attention kernel
+    over ``iters`` calls of ``fn``, L2 flushed before each as
+    :func:`time_ms` does."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if by_read:
+                flush.sum()
+            else:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"paged_attention\w*", e.key)
+        if m and e.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            t = e.self_cuda_time_total if t is None else t
+            out[m.group(0)] = t / iters
+    return out
+
+
+def study_paged(libs, result, dev, flush):
+    for R in (16, 4, 1):
+        ops = _paged_inputs(dev, R)
+        q, kp, vp, tables, positions = ops
+        want = pa.paged_attention_reference(q.double(), kp.double(),
+                                            vp.double(), tables, positions)
+        tag = "R%d" % R
+        for name, lib in libs.items():
+            got = paged_call(lib, *ops)
+            torch.cuda.synchronize()
+
+            def call():
+                return paged_call(lib, *ops)
+            rec = {"max_abs_err": float((got.double() - want).abs().max()),
+                   "ms": time_ms(call, flush),
+                   "ms_read_flush": time_ms(call, flush, by_read=True),
+                   "device_us": _paged_device_us(call, flush),
+                   "device_us_read_flush": _paged_device_us(
+                       call, flush, by_read=True)}
+            result[name][tag] = rec
+            print(json.dumps({name: {tag: rec}}), flush=True)
+        del ops, q, kp, vp, want
+        torch.cuda.empty_cache()
+
+
 STUDIES = {  # kernel: (library name, its variants, its study, COMMON too)
     "bwd": ("flash_attention_bwd", BWD_VARIANTS, study_bwd, True),
     "fwd": ("flash_attention_fwd", FWD_VARIANTS, study_fwd, True),
@@ -618,6 +729,7 @@ STUDIES = {  # kernel: (library name, its variants, its study, COMMON too)
     "lstm": ("fused_lstm", LSTM_VARIANTS, rnn_study(lstm, "fused_lstm", 4),
              False),
     "conv3x3": ("conv3x3", CONV_VARIANTS, study_conv3x3, False),
+    "paged": ("paged_attention", PAGED_VARIANTS, study_paged, False),
 }
 
 
