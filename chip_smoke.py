@@ -4,10 +4,11 @@
 Drives the port's generative serving path and its Fluid training path
 at the widths of GPT-2 small, its conv-net training path on ImageNet
 ResNet-50, its sequence training path on the stacked-RNN text
-classifier of ``benchmark/rnn_bench.py`` and its autotune path (the
+classifier of ``benchmark/rnn_bench.py``, its autotune path (the
 ``tune`` verb, the winner cache, the tuned dispatch of ``mul`` and
-``conv2d``), and holds each hand-written CUDA kernel against its plain
-PyTorch version. Run from the root of a checkout:
+``conv2d``) and AMP (bfloat16) training of ResNet-50 and the LM, and
+holds each hand-written CUDA kernel against its plain PyTorch version.
+Run from the root of a checkout:
 
     python3 chip_smoke.py
 
@@ -111,7 +112,25 @@ Phases, in order; any failure exits non-zero at once:
    then one ResNet-50 step against a cache that says stock for the first
    stage's 3x3 population and the kernel for the second's
    (``conv_impl=conv``): the conv3x3 kernel runs forward and dx for
-   exactly the second stage's 4 convs.
+   exactly the second stage's 4 convs;
+9. amp: hold the bfloat16 faces of the conv3x3 kernel (forward with a
+   bfloat16 and a float32 output, and dx, at ResNet-50's stage shapes
+   and ``CONV_EDGE_SHAPES``, the tilings held to the mirror) and of the
+   matmul kernel (every tiling, the LM's three gemm shapes and a ragged
+   one, both outputs) against their plain versions within one bfloat16
+   ulp (float32 out: ``AMP_F32_REL_TOL``), each relaunched
+   bit-identically, a plain variant that sums in bfloat16 shown to miss,
+   with kernel, plain, library (on bfloat16) and bfloat16-bound times;
+   train ResNet-50 as phase 6 does under plain AMP (step-1 gradients
+   against a plain reference rounded as AMP rounds, the unrounded one
+   measured beside it; exactly 16 bfloat16 forward and 16 dx launches a
+   step) and under pure AMP (conv and batch-norm outputs fetched as
+   bfloat16, parameters float32), images/s beside phase 6's; train
+   phase 5's LM under plain AMP against a cache of the face's fastest
+   tilings (step-1 gradients against the rounded float64 reference,
+   exactly 72 bfloat16 matmul launches a step, the loss falling), and
+   show that pure AMP on the LM stops at the flash kernels' dtype check
+   (their bfloat16 faces are not ported).
 
 Each phase prints its wall time. Before phase 1 the tune cache is set
 to a fresh, empty directory under ``build/`` (printed), so that no
@@ -127,6 +146,7 @@ package beside it, the script exits non-zero and prints no result.
 import argparse
 import ctypes
 import json
+import math
 import os
 import shutil
 import signal
@@ -321,6 +341,35 @@ MM_REL_TOL = 1e-5
 # losses of the tuned run (matmul kernel) against phase 5's (cuBLAS) at
 # each of the 8 steps: the same start, only gemm sum orders differ
 LOSS_REL_TOL = 1e-3
+# Phase 9 (AMP). The bfloat16 faces of rows 5 and 6 against their plain
+# versions (bfloat16 operands, float32 sums, rounded once), same inputs:
+# a bfloat16 output within one bfloat16 ulp of the largest magnitude of
+# the plain output (2^(floor(log2 max) - 7)): both sum the exact products
+# in float32 in other orders, so an output within float32 noise of a
+# rounding boundary may land one ulp apart. A plain variant that rounds
+# the running sum to bfloat16 after each k step (a tap's 32 channels, or
+# a k tile of 32) errs by several ulps and is shown to miss it. A float32
+# output (bfloat16 operands) within AMP_F32_REL_TOL of the largest
+# magnitude: the sum orders only.
+AMP_F32_REL_TOL = 1e-5
+# the peak of the tensor cores in bfloat16, dense (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12
+# Step-1 gradients under AMP, end to end: torch.autograd through a plain
+# forward whose gemm and conv operands (and output gradients) are rounded
+# to bfloat16 as the port rounds them, and through the unrounded one
+# (float64 for the LM, float32 for ResNet-50), both reported as the norm
+# of the difference over the reference's. They do not gate: bfloat16
+# rounding turns sum-order noise into whole ulps (a value within float32
+# noise of a rounding boundary moves 2^-8 in one computation and not in
+# the other), and a deep network carries that to the gradients. The
+# rounded ResNet-50 reference run in float32 and in float64 differs by a
+# median 0.39 per parameter (64 x 64, batch 4, on the CPU); on the card
+# the port read a median 0.39 against it and 0.58 against float32.
+# The gate is per op, where no noise is carried: every mul and conv2d of
+# step 1, forward and grad, on the tensors the step gave it, against the
+# same op rounded as AMP rounds, within one bfloat16 ulp of the largest
+# magnitude (a bfloat16 value) or AMP_F32_REL_TOL of it (a float32 sum).
+
 # the tune cache of phases 1-7: a fresh, empty directory, so that no
 # winner left in the home directory reroutes them
 TUNE_EMPTY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1262,7 +1311,7 @@ def _lm_build(dev):
 
 
 def _lm_train(dev, label, after=None, want_matmul=0,
-              grad_tol=GRAD_REL_TOL):
+              grad_tol=GRAD_REL_TOL, amp=False):
     """Build ``transformer_lm`` + softmax-CE + Adam at GPT-2-small widths
     through ``configs/tiny_lm.model``, init it, hold step 1's gradients
     against the plain reference, train TRAIN_PASSES passes of 2 batches
@@ -1270,13 +1319,19 @@ def _lm_train(dev, label, after=None, want_matmul=0,
     (and the tune counters read before and after), and profile two more
     steps. ``want_matmul`` is the
     matmul kernel's expected launches a step; ``after(cfg, scope)`` runs
-    inside the trained scope. Returns the record the phase logs."""
+    inside the trained scope. ``amp``: the program under plain AMP, the
+    gemms on the matmul kernel's bfloat16 face and the step-1 gradients
+    held against the bfloat16-rounded reference. Returns the record the
+    phase logs."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import kernels, tune
     from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
     from paddle_tpu_torch.trainer import BeginIteration, EndIteration
     t0 = time.monotonic()
     widths, cfg, spec, trainer, main_prog = _lm_build(dev)
+    if amp:
+        from paddle_tpu_torch import amp as amp_mod
+        amp_mod.enable(main_prog)
     L = cfg.num_layers
     build_s = time.monotonic() - t0
     n_ops = len(main_prog.global_block().ops)
@@ -1289,8 +1344,10 @@ def _lm_train(dev, label, after=None, want_matmul=0,
             global_scope().find_var(v.name)
             for v in main_prog.all_parameters()))
         first = next(iter(spec["reader"]()))
-        checks = _grad_check(trainer, spec, cfg, trainer.feeder.feed(first),
-                             _up_biases(main_prog, L), label, grad_tol)
+        feed, up_b = trainer.feeder.feed(first), _up_biases(main_prog, L)
+        checks = (_amp_lm_grad_check(trainer, spec, cfg, feed, up_b, label)
+                  if amp else _grad_check(trainer, spec, cfg, feed, up_b,
+                                          label, grad_tol))
         torch.cuda.empty_cache()
 
         losses, step_s, marks = [], [], {}
@@ -1318,7 +1375,8 @@ def _lm_train(dev, label, after=None, want_matmul=0,
         want = dict(_no_launches(), flash_attention_fwd=2 * L * steps,
                     flash_attention_bwd_dkv=L * steps,
                     flash_attention_bwd_dq=L * steps,
-                    matmul=want_matmul * steps)
+                    **{"matmul_bf16" if amp else "matmul":
+                       want_matmul * steps})
         if steps != 2 * TRAIN_PASSES or launches != want:
             fail("%s launch counts %s over %d steps, expected %s"
                  % (label, launches, steps, want))
@@ -1332,14 +1390,17 @@ def _lm_train(dev, label, after=None, want_matmul=0,
             prof_wall = time.monotonic() - t1
         profile_window = _device_kernels(prof, prof_wall)
         profile_window["steps"] = 2
-        for kernel in ("matmul_kernel", "flash_fwd_kernel",
-                       "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"):
+        for kernel in ("matmul_kernel", "matmul_bf16_kernel",
+                       "flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                       "flash_bwd_dq_kernel"):
             profile_window[kernel] = _kernel_share(prof, kernel)
         extra = after(cfg, global_scope()) if after else None
     p50 = float(np.median(step_s))
     tokens = TRAIN_BATCH * cfg.max_seq
     rec = {
-        "config": dict(widths, dtype="float32", batch=TRAIN_BATCH,
+        "config": dict(widths, batch=TRAIN_BATCH,
+                       dtype="plain AMP (bfloat16 gemm operands)" if amp
+                       else "float32",
                        tokens_per_step=tokens, optimizer="adam",
                        learning_rate=TRAIN_LR, seed=0),
         "params": n_params, "program_ops": n_ops, "build_s": build_s,
@@ -1521,13 +1582,15 @@ def _conv3x3_kernel_check(dev):
     return out
 
 
-def _plain_resnet_loss(program, params, feed, cost, conv_round=None):
+def _plain_resnet_loss(program, params, feed, cost, conv_round=None,
+                       amp=False):
     """The loss of ``program``'s forward recomputed with plain torch
     functions (``F.conv2d`` for every conv, ``F.batch_norm`` with batch
     statistics) from ``params`` and ``feed``, differentiable through
     autograd; returns (loss, {MeanOut/VarianceOut name: new running
     stat}). ``conv_round`` maps each conv operand before the conv (the
-    TF32 contrast)."""
+    TF32 contrast); ``amp`` rounds the convs and the fc the way plain
+    AMP does (:class:`_AmpConv`, :class:`_AmpMm`)."""
     F = torch.nn.functional
     env = dict(feed)
     env.update(params)
@@ -1538,8 +1601,10 @@ def _plain_resnet_loss(program, params, feed, cost, conv_round=None):
             x, w = env[op.input("Input")[0]], env[op.input("Filter")[0]]
             if conv_round is not None:
                 x, w = conv_round(x), conv_round(w)
-            y = F.conv2d(x, w, None, a("strides"), a("paddings"),
-                         a("dilations"), a("groups"))
+            conv = (_AmpConv.apply if amp else
+                    lambda *c: F.conv2d(c[0], c[1], None, *c[2:]))
+            y = conv(x, w, a("strides"), a("paddings"), a("dilations"),
+                     a("groups"))
             env[op.output("Output")[0]] = y
         elif op.type == "batch_norm":
             x = env[op.input("X")[0]]
@@ -1567,9 +1632,11 @@ def _plain_resnet_loss(program, params, feed, cost, conv_round=None):
             env[op.output("Out")[0]] = x + (y if y.shape == x.shape
                                             else y.reshape(1, -1))
         elif op.type == "mul":
-            x = env[op.input("X")[0]]
-            env[op.output("Out")[0]] = x.reshape(x.shape[0], -1) \
-                @ env[op.input("Y")[0]]
+            x = env[op.input("X")[0]].reshape(env[op.input("X")[0]]
+                                              .shape[0], -1)
+            w = env[op.input("Y")[0]]
+            env[op.output("Out")[0]] = _AmpMm.apply(x, w, False) if amp \
+                else x @ w
         elif op.type == "softmax":
             env[op.output("Out")[0]] = torch.softmax(env[op.input("X")[0]],
                                                      dim=-1)
@@ -1590,39 +1657,28 @@ def _plain_resnet_loss(program, params, feed, cost, conv_round=None):
     fail("the plain ResNet forward never reached the loss %r" % cost)
 
 
-def _convnet_grad_check(trainer, spec, feed):
-    """Step 1 through the Executor, fetching every parameter's @GRAD
-    and the running statistics after it, against torch.autograd through
-    the plain forward on the state the step started from; and the same
-    reference with every conv operand rounded to TF32, which must miss
-    the tolerance."""
-    from paddle_tpu_torch.core.scope import global_scope
-    scope = global_scope()
-    prog = trainer.main_program
-    cost = spec["cost"].name
-    params = [p.name for p in prog.all_parameters() if p.trainable]
-    stat_names = [op.output(s)[0] for op in prog.global_block().ops
-                  if op.type == "batch_norm"
-                  for s in ("MeanOut", "VarianceOut")]
-    start = {n: scope.find_var(n).clone()
-             for n in params + stat_names}
-    outs = trainer.exe.run(prog, feed=feed,
-                           fetch_list=[cost] + [n + "@GRAD" for n in params],
-                           return_numpy=False)
-    got = dict(zip(params, outs[1:]))
-    got_stats = {n: scope.find_var(n) for n in stat_names}
-    stats = {}
-    for label, rnd in (("float32", None), ("tf32_convs", _tf32_straight)):
+def _resnet_ref_stats(prog, params, stat_names, start, got, got_stats,
+                      feed, cost, got_loss, refs, zero_from_first=False):
+    """For each (label, keywords of :func:`_plain_resnet_loss`) of
+    ``refs``: the port's step-1 gradients ``got`` and running statistics
+    ``got_stats`` against torch.autograd through that plain forward on
+    the state the step started from (``start``). ``zero_from_first``:
+    the gradients that are zero but for noise are those of the first
+    reference, for all of them (under AMP they are bfloat16 noise in
+    the rounded reference, not zero)."""
+    stats, zero = {}, None
+    for label, kw in refs:
         leaves = {n: start[n].detach().clone().requires_grad_(n in params)
                   for n in start}
-        loss, new_stats = _plain_resnet_loss(prog, leaves, feed, cost, rnd)
+        loss, new_stats = _plain_resnet_loss(prog, leaves, feed, cost, **kw)
         want = dict(zip(params, torch.autograd.grad(
             loss, [leaves[n] for n in params])))
         largest = max(float(w.norm()) for w in want.values())
         # gradients that are zero but for float32 noise (the bias of each
         # bottleneck's last batch norm: no relu after the residual add)
-        zero = {n for n in params
-                if float(want[n].norm()) <= ZERO_GRAD_FRAC * largest}
+        if zero is None or not zero_from_first:
+            zero = {n for n in params
+                    if float(want[n].norm()) <= ZERO_GRAD_FRAC * largest}
         rel = {n: float((got[n] - want[n]).norm() / want[n].norm())
                for n in params if n not in zero}
         worst = max(rel, key=rel.get)
@@ -1643,14 +1699,50 @@ def _convnet_grad_check(trainer, spec, feed):
             "largest_grad_norm": largest,
             "running_stats_norm_rel_err": max(stat_rel.values()),
             "running_stats_worst": max(stat_rel, key=stat_rel.get),
-            "loss_abs_err": abs(float(outs[0].reshape(-1)[0])
-                                - float(loss.detach()))}
+            "loss_abs_err": abs(got_loss - float(loss.detach()))}
         del leaves, loss, new_stats, want
     torch.cuda.synchronize()
-    checks = {"params_checked": len(params), "running_stats": len(stat_names),
+    return stats
+
+
+def _resnet_step1(trainer, spec, feed, refs, zero_from_first=False):
+    """Step 1 through the Executor, fetching every parameter's @GRAD
+    and the running statistics after it, against the references
+    ``refs`` (:func:`_resnet_ref_stats`). Returns (loss, stats, number
+    of parameters, number of running statistics)."""
+    from paddle_tpu_torch.core.scope import global_scope
+    scope = global_scope()
+    prog = trainer.main_program
+    cost = spec["cost"].name
+    params = [p.name for p in prog.all_parameters() if p.trainable]
+    stat_names = [op.output(s)[0] for op in prog.global_block().ops
+                  if op.type == "batch_norm"
+                  for s in ("MeanOut", "VarianceOut")]
+    start = {n: scope.find_var(n).clone()
+             for n in params + stat_names}
+    outs = trainer.exe.run(prog, feed=feed,
+                           fetch_list=[cost] + [n + "@GRAD" for n in params],
+                           return_numpy=False)
+    got = dict(zip(params, outs[1:]))
+    got_stats = {n: scope.find_var(n) for n in stat_names}
+    loss = float(outs[0].reshape(-1)[0])
+    stats = _resnet_ref_stats(prog, params, stat_names, start, got,
+                              got_stats, feed, cost, loss, refs,
+                              zero_from_first)
+    return loss, stats, len(params), len(stat_names)
+
+
+def _convnet_grad_check(trainer, spec, feed):
+    """Step 1's gradients and running statistics against torch.autograd
+    through the plain forward on the state the step started from; and
+    the same reference with every conv operand rounded to TF32, which
+    must miss the tolerance."""
+    loss, stats, n_params, n_stats = _resnet_step1(
+        trainer, spec, feed,
+        (("float32", {}), ("tf32_convs", {"conv_round": _tf32_straight})))
+    checks = {"params_checked": n_params, "running_stats": n_stats,
               "tolerance_rel": R50_GRAD_REL_TOL,
-              "stats_tolerance_rel": R50_STAT_REL_TOL,
-              "loss": float(outs[0].reshape(-1)[0]), **stats}
+              "stats_tolerance_rel": R50_STAT_REL_TOL, "loss": loss, **stats}
     log(json.dumps({"convnet_grad_check": checks}))
     f32, tf32 = stats["float32"], stats["tf32_convs"]
     if not f32["norm_rel_err"] <= R50_GRAD_REL_TOL:
@@ -1678,11 +1770,220 @@ def _tf32_straight(t):
     return t + (_tf32_round(t) - t).detach()
 
 
+def _bf16_values(t):
+    """``t`` rounded to bfloat16 (to nearest even), in its own dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+class _AmpMm(torch.autograd.Function):
+    """``mul`` and ``mul_grad`` under plain AMP, as the port computes
+    them: the operands (and the output gradient) rounded to bfloat16,
+    the products summed in the reference's dtype; ``rounded`` (a tuned
+    gemm: the matmul kernel's bfloat16 face writes bfloat16) rounds the
+    output to bfloat16 too."""
+
+    @staticmethod
+    def forward(ctx, x, w, rounded):
+        xb, wb = _bf16_values(x), _bf16_values(w)
+        ctx.save_for_backward(xb, wb)
+        out = xb @ wb
+        return _bf16_values(out) if rounded else out
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        gb = _bf16_values(g)
+        return gb @ wb.t(), xb.t() @ gb, None
+
+
+class _AmpConv(torch.autograd.Function):
+    """``conv2d`` and ``conv2d_grad`` under plain AMP, as the port
+    computes them (the conv3x3 kernel's bfloat16 face and cuDNN on
+    bfloat16 alike): the operands and the output gradient rounded to
+    bfloat16, float32 sums, the output, dx and dw rounded to bfloat16."""
+
+    @staticmethod
+    def forward(ctx, x, w, s, p, d, groups):
+        xb, wb = _bf16_values(x), _bf16_values(w)
+        ctx.save_for_backward(xb, wb)
+        ctx.conv = (list(s), list(p), list(d), groups)
+        return _bf16_values(torch.nn.functional.conv2d(
+            xb, wb, None, s, p, d, groups))
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        s, p, d, groups = ctx.conv
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            _bf16_values(g), xb, wb, None, s, p, d, False, [0, 0], groups,
+            [True, True, False])
+        return _bf16_values(dx), _bf16_values(dw), None, None, None, None
+
+
+def _op_err(got, want, rounded):
+    """(largest error, its tolerance) of a port value against its AMP
+    reference: one bfloat16 ulp of the largest magnitude for a rounded
+    (bfloat16-valued) one, AMP_F32_REL_TOL of it for a float32 sum."""
+    err = float((got.double() - want.double()).abs().max())
+    m = float(want.double().abs().max())
+    return err, (_bf16_ulp(m) if rounded else AMP_F32_REL_TOL * max(1.0, m))
+
+
+def _amp_op_check(trainer, feed, label):
+    """One step under plain AMP fetching every mul's and conv2d's
+    inputs, output, output gradient and input gradients (the scope put
+    back as it was before the step); each op against
+    the same op rounded as AMP rounds (:class:`_AmpMm`, :class:`_AmpConv`,
+    in float32 with TF32 off) on those tensors and the parameters the
+    step started from. A gemm inside the matmul kernel's population runs
+    tuned here (its output rounded to bfloat16); the LM head and the fc
+    of ResNet-50 lie outside it. Fails past the tolerance of
+    :func:`_op_err`; returns the worst error over tolerance by role."""
+    from paddle_tpu_torch.core.scope import global_scope
+    from paddle_tpu_torch.kernels.matmul import supports_matmul
+    from paddle_tpu_torch.ops.common import flatten_to_2d
+    F = torch.nn.functional
+    prog = trainer.main_program
+    scope = global_scope()
+    params = {p.name for p in prog.all_parameters()}
+    # the step leaves the scope as it found it: every persistable
+    # (parameters, optimizer state, running statistics) is put back
+    state = {v.name: scope.find_var(v.name).clone() for v in prog.list_vars()
+             if v.persistable and isinstance(scope.find_var(v.name),
+                                             torch.Tensor)}
+    start = {n: state[n] for n in params}
+    ops = prog.global_block().ops
+    slots = {"mul": ("X", "Y", "Out"), "conv2d": ("Input", "Filter", "Output")}
+    # a grad op takes its forward op's operands by name
+    grads = {(op.type[:-5],) + tuple(op.input(s_)[0] for s_ in
+                                     slots[op.type[:-5]][:2]): op
+             for op in ops if op.type in ("mul_grad", "conv2d_grad")}
+    checks, fetch = [], []
+    for op in ops:
+        if op.type not in slots:
+            continue
+        x_slot, w_slot, o_slot = slots[op.type]
+        out = op.output(o_slot)[0]
+        g = grads.get((op.type, op.input(x_slot)[0], op.input(w_slot)[0]))
+        dout = g.input(o_slot + "@GRAD")[0] if g is not None else None
+        dx = g.output(x_slot + "@GRAD") if g is not None else []
+        dw = g.output(w_slot + "@GRAD") if g is not None else []
+        checks.append((op, out, dout, dx[0] if dx else None,
+                       dw[0] if dw else None))
+        fetch += [n for n in (op.input(x_slot)[0], out) if n not in params]
+        if g is not None:
+            fetch += [dout] + dx + dw
+    fetch = sorted(set(fetch))
+    vals = dict(zip(fetch, trainer.exe.run(prog, feed=feed,
+                                           fetch_list=fetch,
+                                           return_numpy=False)))
+    for n, t in state.items():
+        scope.set_var(n, t.clone())
+    vals.update(start)
+    worst = {}
+
+    def hold(role, got, want, rounded, where):
+        err, tol = _op_err(got, want, rounded)
+        worst[role] = max(worst.get(role, 0.0), err / tol)
+        if not err <= tol:
+            fail("%s: AMP %s of %s differs from its rounded reference by "
+                 "%g > %g" % (label, role, where, err, tol))
+
+    for op, out, dout, dx_name, dw_name in checks:
+        a = op.attr
+        if op.type == "conv2d":
+            x, w = vals[op.input("Input")[0]], vals[op.input("Filter")[0]]
+            conf = (list(a("strides")), list(a("paddings")),
+                    list(a("dilations")), a("groups") or 1)
+            xb, wb = _bf16_values(x), _bf16_values(w)
+            hold("conv_out", vals[out], _bf16_values(
+                F.conv2d(xb, wb, None, *conf)), True, out)
+            if dout is not None:
+                rx, rw, _ = torch.ops.aten.convolution_backward(
+                    _bf16_values(vals[dout]), xb, wb, None,
+                    conf[0], conf[1], conf[2], False, [0, 0], conf[3],
+                    [dx_name is not None, dw_name is not None, False])
+                if dx_name:
+                    hold("conv_dx", vals[dx_name], _bf16_values(rx), True,
+                         out)
+                if dw_name:
+                    hold("conv_dw", vals[dw_name], _bf16_values(rw), True,
+                         out)
+            continue
+        x2 = flatten_to_2d(vals[op.input("X")[0]], a("x_num_col_dims", 1))
+        w2 = flatten_to_2d(vals[op.input("Y")[0]], a("y_num_col_dims", 1))
+        tuned = supports_matmul(tuple(x2.shape), tuple(w2.shape), "bfloat16")
+        xb, wb = _bf16_values(x2), _bf16_values(w2)
+        want = xb @ wb
+        hold("mul_out_tuned" if tuned else "mul_out",
+             vals[out].reshape(want.shape),
+             _bf16_values(want) if tuned else want, tuned, out)
+        if dout is not None:
+            gb = _bf16_values(vals[dout].reshape(want.shape))
+            if dx_name:
+                hold("mul_dx", vals[dx_name].reshape(x2.shape), gb @ wb.t(),
+                     False, out)
+            if dw_name:
+                hold("mul_dw", vals[dw_name].reshape(w2.shape), xb.t() @ gb,
+                     False, out)
+    del vals
+    torch.cuda.empty_cache()
+    rec = {"ops": len(checks), "max_err_over_tol": worst}
+    log(json.dumps({label + "_op_check": rec}))
+    return rec
+
+
+def _amp_convnet_grad_check(trainer, spec, feed):
+    """Step 1 under plain AMP: every conv and the fc against its rounded
+    reference (the gate, :func:`_amp_op_check`); then the step's
+    gradients end to end against torch.autograd through the rounded
+    plain forward and through the unrounded float32 one, reported."""
+    ops = _amp_op_check(trainer, feed, "convnet_amp")
+    loss, stats, n_params, n_stats = _resnet_step1(
+        trainer, spec, feed,
+        (("float32", {}), ("bf16_rounded", {"amp": True})),
+        zero_from_first=True)
+    rounded, f32 = stats["bf16_rounded"], stats["float32"]
+    checks = {"op_check": ops, "params_checked": n_params,
+              "running_stats": n_stats, "gate": "op_check",
+              "separates": f32["norm_rel_err_median"]
+              > 2 * rounded["norm_rel_err_median"], "loss": loss, **stats}
+    log(json.dumps({"convnet_amp_grad_check": checks}))
+    return checks
+
+
+def _pure_amp_fetch_check(trainer, spec, feed):
+    """One step under pure AMP fetching the first conv's and the first
+    batch norm's outputs: both bfloat16 (numpy ``ml_dtypes.bfloat16``
+    on the host), while every parameter stays float32."""
+    import ml_dtypes
+    from paddle_tpu_torch.core.scope import global_scope
+    prog = trainer.main_program
+    ops = prog.global_block().ops
+    conv = next(op.output("Output")[0] for op in ops if op.type == "conv2d")
+    bn = next(op.output("Y")[0] for op in ops if op.type == "batch_norm")
+    cost, conv_out, bn_out = trainer.exe.run(
+        prog, feed=feed, fetch_list=[spec["cost"], conv, bn])
+    params = {p.name: global_scope().find_var(p.name).dtype
+              for p in prog.all_parameters()}
+    checks = {"conv_out": str(conv_out.dtype), "bn_out": str(bn_out.dtype),
+              "loss_dtype": str(cost.dtype),
+              "param_dtypes": sorted({str(d) for d in params.values()})}
+    log(json.dumps({"convnet_pure_amp_fetch": checks}))
+    bf16 = np.dtype(ml_dtypes.bfloat16)
+    if conv_out.dtype != bf16 or bn_out.dtype != bf16:
+        fail("pure AMP fetched the conv and batch-norm outputs as %s and %s, "
+             "not bfloat16" % (conv_out.dtype, bn_out.dtype))
+    if set(params.values()) != {torch.float32}:
+        fail("pure AMP left parameters in %s" % checks["param_dtypes"])
+    return checks
+
+
 def _conv_share(prof):
-    """Device time by kind of kernel over a profile: the conv3x3 kernel,
-    cuDNN convolutions (forward, dgrad, wgrad), GEMMs (the dw tap
-    contractions and the fc), reductions (batch norm statistics and their
-    grads) and the rest (elementwise, copies, pooling)."""
+    """Device time by kind of kernel over a profile: the conv3x3 kernel
+    (either face), cuDNN convolutions (forward, dgrad, wgrad), GEMMs (the
+    dw tap contractions and the fc), reductions (batch norm statistics
+    and their grads) and the rest (elementwise, copies, pooling)."""
     kinds = {"conv3x3": 0.0, "cudnn_conv": 0.0, "gemm": 0.0,
              "reduction": 0.0, "other": 0.0}
     for e in prof.key_averages():
@@ -1691,7 +1992,7 @@ def _conv_share(prof):
         t = getattr(e, "self_device_time_total", None)
         t = (e.self_cuda_time_total if t is None else t) / 1e3
         k = e.key.lower()
-        if "conv3x3_kernel" in k:
+        if "conv3x3_kernel" in k or "conv3x3_bf16_kernel" in k:
             kinds["conv3x3"] += t
         elif any(s in k for s in ("conv", "cudnn", "xmma", "implicit",
                                   "dgrad", "wgrad", "fprop")):
@@ -1707,12 +2008,17 @@ def _conv_share(prof):
             for k, v in kinds.items()}
 
 
-def phase_convnet(dev):
+def phase_convnet(dev, amp=False):
     """ImageNet ResNet-50 at 224 x 224, 1000 classes, float32, batch 32,
     Momentum(0.01, 0.9), conv_impl=pallas3x3, built by the CIFAR config's
     model(); step-1 gradients and running stats against the plain
     reference, then R50_STEPS steps on one fixed batch through
-    Trainer.train, then two profiled steps."""
+    Trainer.train, then two profiled steps. ``amp`` (phase 9): True runs
+    it under plain AMP (the gradients against the bfloat16-rounded
+    reference), "pure" under pure AMP (the conv and batch-norm outputs
+    fetched as bfloat16, the parameters float32); either way each step
+    makes 16 launches of each of the conv3x3 kernel's bfloat16 roles.
+    Returns (the launch counts, images/s)."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.configs import resnet_cifar
@@ -1720,12 +2026,17 @@ def phase_convnet(dev):
     from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
     from paddle_tpu_torch.trainer import BeginIteration, EndIteration, \
         Trainer
+    label = {False: "convnet", True: "convnet_amp",
+             "pure": "convnet_pure_amp"}[amp]
+    metric = {False: "resnet50_train_images_per_sec",
+              True: "resnet50_amp_train_images_per_sec",
+              "pure": "resnet50_pure_amp_train_images_per_sec"}[amp]
     t0 = time.monotonic()
     main_prog, startup = ir.Program(), ir.Program()
     with unique_name.guard(), ir.program_guard(main_prog, startup):
         spec = resnet_cifar.model(variant="imagenet", depth=50, image=224,
                                   class_dim=1000, batch=R50_BATCH,
-                                  learning_rate=R50_LR)
+                                  learning_rate=R50_LR, amp=amp)
         trainer = Trainer(spec["cost"], spec["optimizer"],
                           spec["feed_list"], device=dev)
     build_s = time.monotonic() - t0
@@ -1746,8 +2057,9 @@ def phase_convnet(dev):
         startup_s = time.monotonic() - t0
         n_params = sum(global_scope().find_var(v.name).numel()
                        for v in main_prog.all_parameters() if v.trainable)
-        checks = _convnet_grad_check(trainer, spec, trainer.feeder.feed(
-            batch))
+        check = {False: _convnet_grad_check, True: _amp_convnet_grad_check,
+                 "pure": _pure_amp_fetch_check}[amp]
+        checks = check(trainer, spec, trainer.feeder.feed(batch))
         torch.cuda.empty_cache()
         losses, step_s, marks = [], [], {}
 
@@ -1767,9 +2079,10 @@ def phase_convnet(dev):
         launches = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated(dev)
         steps = len(losses)
-        want = dict(_no_launches(), conv3x3_fwd=16 * steps,
-                    conv3x3_dx=16 * steps)
-        log(json.dumps({"convnet_losses": losses, "launches": launches}))
+        face = "_bf16" if amp else ""
+        want = dict(_no_launches(), **{"conv3x3_fwd" + face: 16 * steps,
+                                       "conv3x3_dx" + face: 16 * steps})
+        log(json.dumps({label + "_losses": losses, "launches": launches}))
         if steps != R50_STEPS or launches != want:
             fail("convnet launch counts %s over %d steps, expected %s"
                  % (launches, steps, want))
@@ -1786,24 +2099,26 @@ def phase_convnet(dev):
         profile_window["steps"] = 2
         profile_window["by_kind"] = _conv_share(prof)
     p50 = float(np.median(step_s))
-    log(json.dumps({"convnet": {
+    log(json.dumps({label: {
         "config": {"model": "resnet_imagenet", "depth": 50, "image": 224,
-                   "class_dim": 1000, "dtype": "float32",
+                   "class_dim": 1000,
+                   "dtype": {False: "float32", True: "plain AMP",
+                             "pure": "pure AMP"}[amp],
                    "batch": R50_BATCH, "optimizer": "momentum(0.9)",
                    "learning_rate": R50_LR, "conv_impl": "pallas3x3",
                    "data": "one fixed batch, RandomState(0) rand/randint"},
         "params": n_params, "program_ops": n_ops, "build_s": build_s,
         "startup_s": startup_s, "grad_check": checks, "losses": losses,
         "step_ms": [t * 1e3 for t in step_s], "step_ms_p50": p50 * 1e3,
-        "resnet50_train_images_per_sec": R50_BATCH / p50, "wall_s": wall,
+        metric: R50_BATCH / p50, "wall_s": wall,
         "peak_memory_bytes": peak, "launches": launches,
         "launches_per_step": {k: v / steps for k, v in launches.items()},
         "profile": profile_window}}))
-    log("resnet50_train_images_per_sec %.3f (batch %d, step p50 %.3f ms)"
-        % (R50_BATCH / p50, R50_BATCH, p50 * 1e3))
+    log("%s %.3f (batch %d, step p50 %.3f ms)"
+        % (metric, R50_BATCH / p50, R50_BATCH, p50 * 1e3))
     del trainer
     torch.cuda.empty_cache()
-    return launches
+    return launches, R50_BATCH / p50
 
 
 # -- phase 7 -----------------------------------------------------------------
@@ -2691,7 +3006,468 @@ def phase_tune(dev, root, train5):
                     "used",
         "tilings_used": {k: t for k, (_, t) in weights.items()},
         "per_shape": per_shape}
-    return {"matmul": entry}, rec["launches"], consult
+    return {"matmul": entry}, rec["launches"], consult, rec
+
+
+# -- phase 9 -----------------------------------------------------------------
+
+def _bf16_ulp(m):
+    """One bfloat16 ulp at magnitude ``m`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _face_err(got, want):
+    """(largest error, its tolerance) of a bfloat16 face's output against
+    its plain version: one bfloat16 ulp of the largest magnitude for a
+    bfloat16 output, AMP_F32_REL_TOL of it for a float32 one."""
+    err = float((got.double() - want.double()).abs().max())
+    m = float(want.double().abs().max())
+    tol = _bf16_ulp(m) if want.dtype == torch.bfloat16 \
+        else AMP_F32_REL_TOL * max(1.0, m)
+    return err, tol
+
+
+def bf16_bound(nbytes, flops):
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the flops over the tensor cores' dense bfloat16 rate."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bf16_step_sums_conv(x, w):
+    """The plain forward with the running sum rounded to bfloat16 after
+    each k step (a tap's 32 channels): what a bfloat16 accumulator
+    would give, which must miss the faces' tolerance."""
+    from paddle_tpu_torch.kernels import conv3x3
+    N, H, W, C = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = None
+    for dy, dx, patch in conv3x3._taps(xp, H, W):
+        for c0 in range(0, C, 32):
+            t = patch[:, c0:c0 + 32].float() @ w[dy, dx, c0:c0 + 32].float()
+            acc = (t if acc is None else acc.float() + t).bfloat16()
+    return acc.reshape(N, H, W, w.shape[3])
+
+
+def _bf16_step_sums_mm(x, w, bk=32):
+    """The plain gemm with the running sum rounded to bfloat16 after each
+    k tile."""
+    acc = None
+    for k0 in range(0, x.shape[1], bk):
+        t = x[:, k0:k0 + bk].float() @ w[k0:k0 + bk].float()
+        acc = (t if acc is None else acc.float() + t).bfloat16()
+    return acc
+
+
+def _amp_conv_check(dev, flush):
+    """Row 6's bfloat16 face against its plain version at ResNet-50's
+    stage shapes (batch 32) and the edge shapes: the forward with a
+    bfloat16 and a float32 output and dx on the rotated filter, each
+    launched twice (bit-identical), the tilings held to the rule's
+    mirror, the bfloat16 step-sum variant shown to miss; kernel, plain,
+    cuDNN-on-bfloat16 and bound times at the stage shapes. Returns the
+    two entries of the kernels line."""
+    from paddle_tpu_torch.kernels import conv3x3
+    F = torch.nn.functional
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_shape = {}
+    for i, shape in enumerate(R50_CONV_SHAPES + CONV_EDGE_SHAPES):
+        N, H, W, C, O = shape
+        x, w, g = (t.bfloat16() for t in _conv_inputs(shape, 90 + i, dev))
+        w_rot = conv3x3.rotate_filter(w)
+        got = {"fwd": conv3x3.conv3x3_s1_nhwc(x, w),
+               "fwd_f32": conv3x3.conv3x3_s1_nhwc(x, w, torch.float32),
+               "dx": conv3x3.conv3x3_bwd(x, w, g, want_dw=False)[0]}
+        again = {"fwd": conv3x3._launch(x, w),
+                 "fwd_f32": conv3x3._launch(x, w, torch.float32),
+                 "dx": conv3x3._launch(g, w_rot)}
+        want = {"fwd": conv3x3.conv3x3_reference(x, w),
+                "fwd_f32": conv3x3.conv3x3_reference(x, w, torch.float32),
+                "dx": conv3x3.conv3x3_reference(g, w_rot)}
+        torch.cuda.synchronize()
+        tilings = {"fwd": conv3x3.kernel_tiling(N, H, W, C, O),
+                   "dx": conv3x3.kernel_tiling(N, H, W, O, C)}
+        mirror = {"fwd": conv3x3.tiling(N, H, W, C, O, sms),
+                  "dx": conv3x3.tiling(N, H, W, O, C, sms)}
+        rec = {"tiling": {k: "%dx%d" % t for k, t in tilings.items()},
+               "relaunch_bit_identical": all(
+                   torch.equal(got[k], again[k]) for k in got)}
+        for k in got:
+            if got[k].dtype != want[k].dtype:
+                fail("conv3x3 bf16 %s at %s wrote %s, its plain version %s"
+                     % (k, shape, got[k].dtype, want[k].dtype))
+            err, tol = _face_err(got[k], want[k])
+            rec[k + "_max_abs_err"], rec[k + "_tol"] = err, tol
+            if not err <= tol:
+                fail("conv3x3 bf16 %s disagrees with its plain version at "
+                     "%s: %g > %g" % (k, shape, err, tol))
+        if not rec["relaunch_bit_identical"]:
+            fail("conv3x3 bf16 relaunched at %s differs from its first "
+                 "launch" % (shape,))
+        if tilings != mirror:
+            fail("conv3x3 bf16 at %s took the tilings %s, the rule's mirror "
+                 "says %s" % (shape, tilings, mirror))
+        tag = "x".join(str(d) for d in shape)
+        per_shape[tag] = rec
+        if shape in R50_CONV_SHAPES:
+            step_sums = _bf16_step_sums_conv(x, w)
+            rec["bf16_step_sums_max_abs_err"], _ = _face_err(step_sums,
+                                                             want["fwd"])
+            if not rec["bf16_step_sums_max_abs_err"] > rec["fwd_tol"]:
+                fail("at %s a conv summed in bfloat16 errs by only %g <= "
+                     "one ulp %g: the tolerance cannot tell the face from "
+                     "it" % (shape, rec["bf16_step_sums_max_abs_err"],
+                             rec["fwd_tol"]))
+            x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            w_cl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            b_ms, b_by = bf16_bound(2 * (N * H * W * (C + O) + 9 * C * O),
+                                    2 * N * H * W * C * O * 9)
+            rec.update({
+                "fwd_ms": time_ms(lambda: conv3x3._launch(x, w),
+                                  flush=flush),
+                "dx_ms": time_ms(lambda: conv3x3._launch(g, w_rot),
+                                 flush=flush),
+                "fwd_plain_ms": time_ms(
+                    lambda: conv3x3.conv3x3_reference(x, w), flush=flush),
+                "dx_plain_ms": time_ms(
+                    lambda: conv3x3.conv3x3_reference(
+                        g, conv3x3.rotate_filter(w)), flush=flush),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "fwd_library_ms": time_ms(
+                    lambda: F.conv2d(x_cl, w_cl, padding=1), flush=flush),
+                "dx_library_ms": time_ms(
+                    lambda: torch.ops.aten.convolution_backward(
+                        g_cl, x_cl, w_cl, None, [1, 1], [1, 1], [1, 1],
+                        False, [0, 0], 1, [True, False, False]),
+                    flush=flush)})
+            del step_sums, x_cl, g_cl, w_cl
+        log(json.dumps({"conv3x3_bf16_check": {"shape": shape, **rec}}))
+        del x, w, g, w_rot, got, again, want
+    torch.cuda.empty_cache()
+    weights = {"x".join(str(d) for d in s_): n
+               for s_, n in zip(R50_CONV_SHAPES, R50_CONV_COUNTS)}
+
+    def per_launch(key):
+        return sum(per_shape[k][key] * n for k, n in weights.items()) \
+            / sum(weights.values())
+
+    by = {b: sum(n for k, n in weights.items()
+                 if per_shape[k]["bound_by"] == b)
+          for b in ("bytes", "operations")}
+    out = {}
+    for name, role in (("conv3x3_fwd_bf16", "fwd"), ("conv3x3_dx_bf16", "dx")):
+        keys = ("fwd", "fwd_f32") if role == "fwd" else ("dx",)
+        out[name] = {
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/conv3x3.cu",
+            "replaces": "paddle_tpu/kernels/conv3x3.py:97",
+            "role": ("forward, bfloat16 operands (AMP)" if role == "fwd"
+                     else "dx of the backward under AMP, the same face on "
+                     "the rotated filter (_vjp_bwd, conv3x3.py:165)"),
+            "max_abs_err": max(r[k + "_max_abs_err"] for r in
+                               per_shape.values() for k in keys),
+            "max_err_over_tol": max(r[k + "_max_abs_err"] / r[k + "_tol"]
+                                    for r in per_shape.values()
+                                    for k in keys),
+            "tolerance": "one bfloat16 ulp of the largest magnitude "
+                         "(bfloat16 out); %g of it (float32 out)"
+                         % AMP_F32_REL_TOL,
+            "bf16_step_sums_min_err_over_tol": min(
+                r["bf16_step_sums_max_abs_err"] / r["fwd_tol"]
+                for r in per_shape.values()
+                if "bf16_step_sums_max_abs_err" in r),
+            "ms": per_launch(role + "_ms"),
+            "plain_ms": per_launch(role + "_plain_ms"),
+            "bound_ms": per_launch("bound_ms"),
+            "bound_by": max(by, key=by.get),
+            "library_ms": per_launch(role + "_library_ms"),
+            "library": "cuDNN on bfloat16 through F.conv2d" if role == "fwd"
+                       else "cuDNN on bfloat16 through convolution_backward "
+                            "(dx only)",
+            "timed_as": "mean over a ResNet-50 step's 16 launches: the "
+                        "stage shapes weighted 3, 4, 6, 3",
+            "per_shape": per_shape}
+    return out
+
+
+def _amp_matmul_check(dev, flush):
+    """Row 5's bfloat16 face against its plain version at every compiled
+    tiling, at the LM step's three gemm shapes and a ragged one, with a
+    bfloat16 and a float32 output, each launched twice (bit-identical),
+    the bfloat16 step-sum variant shown to miss; every tiling's, the
+    plain version's, torch.matmul's (bfloat16) and the bound's times at
+    the step's shapes. Returns {shape: record}."""
+    from paddle_tpu_torch.kernels import matmul as mm
+    for t in mm.TILINGS:
+        if mm.kernel_smem_bytes(*t, dtype=torch.bfloat16) != \
+                mm.smem_bytes(*t, torch.bfloat16):
+            fail("matmul bf16 tiling %s: the library's shared memory %d, "
+                 "the mirror's %d" % (t, mm.kernel_smem_bytes(
+                     *t, dtype=torch.bfloat16),
+                     mm.smem_bytes(*t, torch.bfloat16)))
+    per_shape = {}
+    for i, shape in enumerate(MM_SHAPES + [MM_RAGGED_SHAPE]):
+        M, K, N = shape
+        x, w = (t.bfloat16() for t in _mm_inputs(shape, 95 + i, dev))
+        rec = {"max_err_over_tol": 0.0, "max_abs_err": 0.0, "ms": {},
+               "relaunch_bit_identical": True}
+        for t in mm.TILINGS:
+            cfg = _mm_config(t)
+            for out_dtype in (None, torch.float32):
+                got = mm.matmul(x, w, out_dtype, cfg)
+                again = mm._launch(x, w, t, out_dtype)
+                want = mm.matmul_reference(x, w, cfg, out_dtype)
+                torch.cuda.synchronize()
+                err, tol = _face_err(got, want)
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                rec["max_err_over_tol"] = max(rec["max_err_over_tol"],
+                                              err / tol)
+                if got.dtype != want.dtype or not err <= tol:
+                    fail("matmul bf16 disagrees with its plain version at "
+                         "%s, tiling %s, out %s: %g > %g (%s)"
+                         % (shape, t, out_dtype, err, tol, got.dtype))
+                if not torch.equal(got, again):
+                    fail("matmul bf16 is not deterministic at %s, tiling %s"
+                         % (shape, t))
+            if shape in MM_SHAPES:
+                rec["ms"]["%dx%dx%d" % t] = time_ms(
+                    lambda: mm._launch(x, w, t), flush=flush)
+        if shape in MM_SHAPES:
+            # at the step's shapes (24 or 96 k tiles; the ragged K 130
+            # has 5, too few to leave an ulp)
+            want = mm.matmul_reference(x, w, {"block_k": 32})
+            err, tol = _face_err(_bf16_step_sums_mm(x, w), want)
+            rec["bf16_step_sums_err_over_tol"] = err / tol
+            if not err > tol:
+                fail("at %s a gemm summed in bfloat16 errs by only %g <= "
+                     "one ulp %g: the tolerance cannot tell the face from "
+                     "it" % (shape, err, tol))
+            b_ms, b_by = bf16_bound(2 * (M * K + K * N + M * N),
+                                    2 * M * N * K)
+            rec.update({
+                "plain_ms": time_ms(lambda: mm.matmul_reference(x, w),
+                                    flush=flush),
+                "library_ms": time_ms(lambda: torch.matmul(x, w),
+                                      flush=flush),
+                "bound_ms": b_ms, "bound_by": b_by})
+        per_shape["x".join(str(d) for d in shape)] = rec
+        log(json.dumps({"matmul_bf16_check": {"shape": shape, **rec}}))
+        del x, w, got, again, want
+    torch.cuda.empty_cache()
+    return per_shape
+
+
+def _amp_lm_reference(params, feed, cfg, dtype=torch.float64):
+    """{name: grad} and the loss of the plain functional LM forward
+    (``models/transformer._forward_hidden``, written out) under plain
+    AMP with tuned gemms: the 6 projections of each block through
+    :class:`_AmpMm` with their outputs rounded to bfloat16 (the kernel's
+    bfloat16 face), the LM head (outside the kernel's population) with
+    its float32 sum; run in ``dtype``."""
+    from paddle_tpu_torch.models import transformer as tt
+    F = torch.nn.functional
+    p = {n: t.detach().to(dtype, copy=True).requires_grad_(True)
+         for n, t in params.items()}
+    nh, dh = cfg.num_heads, cfg.head_dim
+    toks = feed["toks"]
+    B, S = toks.shape
+
+    def mm(h, w, rounded=True):
+        out = _AmpMm.apply(h.reshape(-1, h.shape[-1]), w, rounded)
+        return out.reshape(*h.shape[:-1], w.shape[1])
+
+    x = F.embedding(toks.long(), p["tok_emb"]) + p["pos_emb"][:S][None]
+    for i in range(cfg.num_layers):
+        pre = "blk%d" % i
+        h = tt._ln(x, p[pre + "_ln1_w"], p[pre + "_ln1_b"])
+        q, k, v = (mm(h, p[pre + s_]).view(B, S, nh, dh)
+                   for s_ in ("_q", "_k", "_v"))
+        att = tt._plain_causal(q, k, v).reshape(B, S, nh * dh)
+        x = x + mm(att, p[pre + "_proj"])
+        h2 = tt._ln(x, p[pre + "_ln2_w"], p[pre + "_ln2_b"])
+        up = mm(h2, p[pre + "_up"]) + p[pre + "_up_b"]
+        x = x + mm(torch.relu(up), p[pre + "_down"])
+    x = tt._ln(x, p["final_ln_w"], p["final_ln_b"])
+    logits = mm(x, p["lm_head"], rounded=False)
+    loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                           feed["tgt"].reshape(-1))
+    names = sorted(p)
+    grads = torch.autograd.grad(loss, [p[n] for n in names])
+    return dict(zip(names, grads)), float(loss.detach())
+
+
+def _amp_lm_grad_check(trainer, spec, cfg, feed, up_b, label):
+    """Step 1 under plain AMP: every mul against its rounded reference
+    (the gate, :func:`_amp_op_check`); then every parameter's @GRAD end
+    to end against torch.autograd through the bfloat16-rounded plain
+    forward in float64 and through the unrounded float64 one,
+    reported."""
+    from paddle_tpu_torch.core.scope import global_scope
+    ops = _amp_op_check(trainer, feed, label)
+    scope = global_scope()
+    params = [p.name for p in trainer.main_program.all_parameters()]
+    start = {n: scope.find_var(n).clone() for n in params}
+    outs = trainer.exe.run(trainer.main_program, feed=feed,
+                           fetch_list=[spec["cost"]]
+                           + [n + "@GRAD" for n in params],
+                           return_numpy=False)
+    got = dict(zip(params, outs[1:]))
+    loss = float(outs[0].reshape(-1)[0])
+    ref_name = _ref_names(up_b)
+    ref_params = {ref_name.get(n, n): t for n, t in start.items()}
+    stats = {}
+    for kind in ("bf16_rounded", "float64"):
+        want, ref_loss = (
+            _amp_lm_reference(ref_params, feed, cfg) if kind != "float64"
+            else _reference_grads(ref_params, feed, cfg,
+                                  dtype=torch.float64))
+        stats[kind] = dict(_grad_stats(got, want, ref_name),
+                           loss_abs_err=abs(loss - ref_loss))
+        del want
+    torch.cuda.synchronize()
+    checks = {"op_check": ops, "params_checked": len(params),
+              "gate": "op_check",
+              "separates": stats["float64"]["norm_rel_err_median"]
+              > 2 * stats["bf16_rounded"]["norm_rel_err_median"], **stats}
+    log(json.dumps({label + "_grad_check": checks}))
+    return checks
+
+
+def _seed_bf16_cache(per_shape, cache_dir):
+    """A winner cache whose entry for each of the LM's bfloat16 gemm
+    populations is the fastest tiling of the face (row 5's check),
+    written through WinnerCache.put. Returns {signature: tiling}."""
+    from paddle_tpu_torch import tune
+    cache = tune.WinnerCache(cache_dir)
+    picked = {}
+    for M, K, N in MM_SHAPES:
+        ms = per_shape["%dx%dx%d" % (M, K, N)]["ms"]
+        best = min(ms, key=ms.get)
+        cfg = _mm_config(tuple(int(v) for v in best.split("x")))
+        sig = tune.signature({"m": M, "k": K, "n": N, "dtype": "bfloat16"})
+        cache.put(tune.cache_key(tune.device_kind(), "matmul", sig), cfg,
+                  time_ms=ms[best], timer="cuda_events",
+                  meta={"kernel": "matmul", "sig": sig,
+                        "device": tune.device_kind()})
+        picked[sig] = cfg
+    return picked
+
+
+def _pure_amp_lm_refusal(dev):
+    """The LM under pure AMP keeps its q / k / v projections in bfloat16,
+    and the flash kernels have a float32 face only: the step must raise
+    at the flash wrapper's dtype check, before any flash launch."""
+    from paddle_tpu_torch import amp, kernels
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    _, _, spec, trainer, main_prog = _lm_build(dev)
+    amp.enable(main_prog, pure=True)
+    with scope_guard(Scope()):
+        trainer._maybe_init()
+        feed = trainer.feeder.feed(next(iter(spec["reader"]())))
+        kernels.reset_launches()
+        try:
+            trainer.exe.run(main_prog, feed=feed, fetch_list=[spec["cost"]])
+        except ValueError as e:
+            where = str(e) + " ".join(getattr(e, "__notes__", []))
+        else:
+            fail("pure AMP ran the LM: its bfloat16 q / k / v met no "
+                 "refusal at the flash kernels")
+        launches = kernels.launch_counts()
+    del trainer
+    torch.cuda.empty_cache()
+    rec = {"raised": where[:300], "flash_launches": {
+        k: v for k, v in launches.items() if k.startswith("flash")}}
+    log(json.dumps({"pure_amp_lm": rec}))
+    if "flash_attention" not in where or "float32" not in where \
+            or any(rec["flash_launches"].values()):
+        fail("pure AMP on the LM did not stop at the flash wrapper's dtype "
+             "check: %s" % rec)
+    return rec
+
+
+def phase_amp(dev, root, f32_images_s, tuned):
+    """AMP: the bfloat16 faces of rows 6 and 5 against their plain
+    versions, ResNet-50 under plain and pure AMP, the LM under plain AMP
+    on a cache of the face's fastest tilings, and pure AMP's refusal at
+    the flash kernels. Returns (kernel entries, {path: launch counts})."""
+    from paddle_tpu_torch import tune
+    from paddle_tpu_torch.flags import FLAGS
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    entries = _amp_conv_check(dev, flush)
+    mm_shapes = _amp_matmul_check(dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    paths = {}
+    paths["convnet_train_amp"], amp_images_s = phase_convnet(dev, amp=True)
+    paths["convnet_train_pure_amp"], pure_images_s = phase_convnet(
+        dev, amp="pure")
+    log(json.dumps({"resnet50_images_per_sec": {
+        "float32": f32_images_s, "amp": amp_images_s,
+        "pure_amp": pure_images_s}}))
+    work = os.path.join(root, "build", "chip_smoke")
+    cache_dir = _fresh_dir(os.path.join(work, "tune_bf16_tilings"))
+    picked = _seed_bf16_cache(mm_shapes, cache_dir)
+    log(json.dumps({"tune_bf16_cache": picked}))
+    FLAGS.tune_cache_dir = cache_dir
+    tune.clear_memory_cache()
+    L = GPT2_SMALL["num_layers"]
+    per_layer = sum(MM_COUNTS)
+    try:
+        rec = _lm_train(dev, "amp_train", want_matmul=per_layer * L,
+                        amp=True)
+    finally:
+        FLAGS.tune_cache_dir = TUNE_EMPTY_DIR
+        tune.clear_memory_cache()
+    steps = len(rec["losses"])
+    rec.update({"kernel_cache": picked,
+                "float32_tuned_tokens_per_s": tuned["tokens_per_s"],
+                "float32_tuned_step_ms_p50": tuned["step_ms_p50"]})
+    log(json.dumps({"amp_train": rec}))
+    if rec["tune"] != {"tune_hits": per_layer * L * steps, "tune_misses": 0,
+                       "tune_fallbacks": steps}:
+        fail("AMP train tune counters %s over %d steps, expected %d hits "
+             "and 1 fallback a step" % (rec["tune"], steps, per_layer * L))
+    paths["amp_train"] = rec["launches"]
+    _pure_amp_lm_refusal(dev)
+    weights = {}
+    for shape, n in zip(MM_SHAPES, MM_COUNTS):
+        sig = tune.signature({"m": shape[0], "k": shape[1], "n": shape[2],
+                              "dtype": "bfloat16"})
+        weights["x".join(str(d) for d in shape)] = (
+            n, "%(block_m)dx%(block_n)dx%(block_k)d" % picked[sig])
+
+    def per_launch(f):
+        return sum(f(mm_shapes[k], tag) * n
+                   for k, (n, tag) in weights.items()) / per_layer
+
+    entries["matmul_bf16"] = {
+        "name": "matmul_bf16", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/matmul.cu",
+        "replaces": "paddle_tpu/kernels/matmul.py:91",
+        "role": "a tuned gemm under AMP: bfloat16 operands, written in "
+                "bfloat16 (x.dtype) as the JAX kernel with out_dtype None",
+        "max_abs_err": max(r["max_abs_err"] for r in mm_shapes.values()),
+        "max_err_over_tol": max(r["max_err_over_tol"]
+                                for r in mm_shapes.values()),
+        "tolerance": "one bfloat16 ulp of the largest magnitude (bfloat16 "
+                     "out); %g of it (float32 out)" % AMP_F32_REL_TOL,
+        "bf16_step_sums_min_err_over_tol": min(
+            r["bf16_step_sums_err_over_tol"] for r in mm_shapes.values()
+            if "bf16_step_sums_err_over_tol" in r),
+        "ms": per_launch(lambda r, t: r["ms"][t]),
+        "plain_ms": per_launch(lambda r, t: r["plain_ms"]),
+        "bound_ms": per_launch(lambda r, t: r["bound_ms"]),
+        "bound_by": "operations",
+        "library_ms": per_launch(lambda r, t: r["library_ms"]),
+        "library": "torch.matmul on bfloat16 (cuBLAS)",
+        "timed_as": "mean over a GPT-2-small step's 72 launches (48 at "
+                    "8192x768x768, 12 each at 8192x768x3072 and "
+                    "8192x3072x768), each at the tiling the AMP run used",
+        "tilings_used": {k: t for k, (_, t) in weights.items()},
+        "per_shape": mm_shapes}
+    return entries, paths
 
 
 def main():
@@ -2730,23 +3506,26 @@ def main():
     timed(4, phase_http, dev, art_dir, prompts, results)
     train5 = timed(5, phase_train, dev, os.path.join(
         root, "build", "chip_smoke", "gpt2_small_trained"))
-    conv_kernels, convnet_launches = timed(
+    conv_kernels, (convnet_launches, f32_images_s) = timed(
         6, lambda: (_conv3x3_kernel_check(dev), phase_convnet(dev)))
     kernels.update(conv_kernels)
     rnn_kernels, lstm_launches, gru_launches = timed(
         7, lambda: (_rnn_kernel_check(dev), phase_rnn(dev, "lstm"),
                     phase_rnn(dev, "gru")))
     kernels.update(rnn_kernels)
-    mm_kernels, tuned_launches, consult_launches = timed(
+    mm_kernels, tuned_launches, consult_launches, tuned = timed(
         8, phase_tune, dev, root, train5)
     kernels.update(mm_kernels)
+    amp_kernels, amp_paths = timed(9, phase_amp, dev, root, f32_images_s,
+                                   tuned)
+    kernels.update(amp_kernels)
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
     paths = {"serve": serve_launches, "train": train5["launches"],
              "convnet_train": convnet_launches,
              "rnn_train_lstm": lstm_launches,
              "rnn_train_gru": gru_launches,
              "tuned_train": tuned_launches,
-             "convnet_conv3x3_consult": consult_launches}
+             "convnet_conv3x3_consult": consult_launches, **amp_paths}
     for name, entry in kernels.items():
         # each main path is read with the counts set to 0 just before it
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -4,7 +4,7 @@ NVIDIA H100.
 The JAX package ``paddle_tpu`` stays the reference; this package imports
 neither it nor JAX. Module names mirror the JAX package's. Five slices
 are ported, the serving path, three training paths and the autotune
-path, over shared kernels:
+path, over shared kernels, with AMP on the training paths:
 
 - the generative serving path: ``models/transformer.py``'s serving face,
   ``serving/`` (paged KV pool, continuous-batching engine, service and
@@ -28,6 +28,9 @@ path, over shared kernels:
   flash-attention forward and backward, the 3x3 / s1 / p1 convolution,
   the fused LSTM and GRU recurrences, the blocked matmul), each beside
   its plain PyTorch version;
+- AMP: ``amp.py`` (``enable(program, pure=)``, bfloat16 operands and
+  float32 sums in ``mul`` and ``conv2d`` and their grads, the bfloat16
+  faces of the conv3x3 and matmul kernels);
 - ``cli.py``: ``python -m paddle_tpu_torch train <config.py>``,
   ``serve <artifact_dir>`` and ``tune <config.py>``.
 
@@ -36,6 +39,7 @@ is present, unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
+from . import amp
 from .device import DEFAULT_DEVICE, NoDeviceError, resolve_device
 
-__all__ = ["DEFAULT_DEVICE", "NoDeviceError", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "NoDeviceError", "amp", "resolve_device"]

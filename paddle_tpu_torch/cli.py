@@ -127,8 +127,10 @@ def _tune_populations(program, batch, compute_dtype=None):
     Returns ([(kernel, key)] deduplicated in declaration order, [keys of
     flash_attention ops]); the flash-attention space is not ported, so
     those are reported and not tuned. ``compute_dtype`` overrides the
-    declared dtype of the keys (the port has no AMP, so nothing else
-    changes it).
+    declared dtype of the conv and mul keys; it defaults to bfloat16 for
+    a program under AMP, whose ops cast their operands before the tune
+    dispatch looks up the key (a winner tuned at float32 would never
+    hit), as in the JAX package.
 
     A declared dim of 0 is taken as the batch too: it is a reshape's
     "copy this input dim" that shape inference leaves in place (the
@@ -137,6 +139,9 @@ def _tune_populations(program, batch, compute_dtype=None):
     faults of the reference)."""
     from .kernels.conv3x3 import supports_conv3x3
     from .kernels.matmul import supports_matmul
+
+    if compute_dtype is None and getattr(program, "_amp", False):
+        compute_dtype = "bfloat16"
 
     def shape_of(block, name):
         v = block._find_var_recursive(name)

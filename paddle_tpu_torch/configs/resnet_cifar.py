@@ -26,16 +26,20 @@ runs ``F.conv2d``, whatever the attr says.
 """
 import numpy as np
 
+from paddle_tpu_torch import amp as amp_mod
 from paddle_tpu_torch import layers, optimizer, reader
 from paddle_tpu_torch.models import resnet
 
 
 def model(variant="cifar", depth=20, image=32, class_dim=10, batch=8,
-          samples=32, learning_rate=0.01, conv_impl="pallas3x3"):
+          samples=32, learning_rate=0.01, conv_impl="pallas3x3", amp=False):
     """The train config dict of the CLI's contract: ``cost``,
     ``metrics``, ``feed_list``, ``reader`` (batched), ``optimizer``,
     ``num_passes``. Every conv2d op of the program carries
-    ``conv_impl`` ('pallas3x3' or 'conv') as its attr."""
+    ``conv_impl`` ('pallas3x3' or 'conv') as its attr. ``amp``: False,
+    True (AMP: bfloat16 operands in the convs and the fc) or "pure"
+    (bfloat16 activations too), as ``bench.py:_build_program``
+    enables it."""
     img = layers.data(name="img", shape=[3, image, image], dtype="float32")
     label = layers.data(name="label", shape=[1], dtype="int64")
     pred = resnet.resnet(img, class_dim=class_dim, depth=depth,
@@ -46,6 +50,8 @@ def model(variant="cifar", depth=20, image=32, class_dim=10, batch=8,
     for op in avg_cost.block.ops:
         if op.type == "conv2d":
             op.attrs["conv_impl"] = conv_impl
+    if amp:
+        amp_mod.enable(avg_cost.block.program, pure=(amp == "pure"))
 
     def samples_reader():
         rng = np.random.RandomState(0)

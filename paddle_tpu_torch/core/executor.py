@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from . import ir, registry
+from . import ir, registry, types
 from .lod import LoDTensor
 from .scope import global_scope
 
@@ -206,16 +206,30 @@ def _to_device_value(v, device):
                         max_lens=v.max_lens)
     if isinstance(v, torch.Tensor):
         return v.to(device)
-    return torch.as_tensor(np.asarray(v), device=device)
+    a = np.asarray(v)
+    if a.dtype == types.bfloat16 and a.dtype.itemsize == 2:
+        # numpy has no bfloat16 of its own: through its bits
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(a, device=device)
+
+
+def _to_numpy(t):
+    """A tensor as a host numpy array; bfloat16 (which ``Tensor.numpy``
+    refuses) as an ``ml_dtypes.bfloat16`` array, bit for bit."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16 and types.bfloat16.itemsize == 2:
+        return t.view(torch.int16).numpy().view(types.bfloat16)
+    return t.numpy()
 
 
 def _fetch_to_host(v):
     """A fetched value as numpy, or as a host ``LoDTensor`` when it
     carries LoD (``paddle_tpu/core/executor.py:566``)."""
     if isinstance(v, LoDValue):
-        return LoDTensor(v.data.detach().cpu().numpy(),
+        return LoDTensor(_to_numpy(v.data),
                          [l.cpu().tolist() for l in v.lod])
-    return v.detach().cpu().numpy()
+    return _to_numpy(v)
 
 
 class Executor(object):

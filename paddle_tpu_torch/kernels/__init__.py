@@ -19,14 +19,19 @@ KERNEL_COUNTERS = {
     "flash_attention_bwd_dkv": (flash_attention, "launches_bwd_dkv"),
     "flash_attention_bwd_dq": (flash_attention, "launches_bwd_dq"),
     "paged_attention": (paged_attention, "launches"),
-    # one kernel in two roles: the conv's forward and its backward's dx
+    # one kernel in two roles: the conv's forward and its backward's dx,
+    # each with a float32 and a bfloat16 (AMP) face
     "conv3x3_fwd": (conv3x3, "launches"),
     "conv3x3_dx": (conv3x3, "launches_dx"),
+    "conv3x3_fwd_bf16": (conv3x3, "launches_bf16"),
+    "conv3x3_dx_bf16": (conv3x3, "launches_dx_bf16"),
     # the whole recurrence of an lstm / gru op, one launch a call
     "fused_lstm": (fused_lstm, "launches"),
     "fused_gru": (fused_gru, "launches"),
-    # the blocked gemm of a mul under a cached tune winner
+    # the blocked gemm of a mul under a cached tune winner, float32 and
+    # bfloat16 (AMP) faces
     "matmul": (matmul, "launches"),
+    "matmul_bf16": (matmul, "launches_bf16"),
 }
 
 

@@ -6,7 +6,8 @@ Layout: NHWC activations, HWIO filters, the JAX package's public layout;
 call, as the JAX op does.
 
 - :func:`conv3x3_reference` is the plain forward: 9 tap products on the
-  zero-padded input, summed in float32.
+  zero-padded input, summed in float32 and written in ``out_dtype``
+  (default the input's dtype), rounded once.
 - :func:`conv3x3_bwd_reference` is the plain backward: dx as the forward
   of the output gradient with the spatially flipped, in/out-swapped
   filter, and dw as the 9 tap contractions.
@@ -15,10 +16,15 @@ call, as the JAX op does.
   hand-written kernel of ``csrc/conv3x3.cu`` or an exception, never the
   plain version: the forward launches it once, and :func:`conv3x3_bwd`
   launches it once more for dx (``_vjp_bwd`` of the JAX package reuses
-  its Pallas kernel the same way). dw is 9 ``torch.matmul`` tap
-  contractions, as the JAX package leaves it to XLA outside Pallas.
-- ``launches`` and ``launches_dx`` count the kernel launches of the
-  forward and of dx.
+  its Pallas kernel the same way). dw is 9 tap contractions summed in
+  float32 and rounded to the filter's dtype, library gemms, as the JAX
+  package leaves it to XLA outside Pallas.
+- Two faces, as the JAX kernel is dtype-generic: float32 operands
+  (``conv3x3_s1_nhwc_f32``, float32 out) and bfloat16 operands under AMP
+  (``conv3x3_s1_nhwc_bf16``, float32 sums, bfloat16 or float32 out).
+- ``launches`` and ``launches_dx`` count the float32 face's launches of
+  the forward and of dx, ``launches_bf16`` and ``launches_dx_bf16`` the
+  bfloat16 face's.
 
 The JAX wrapper takes a tiling ``config`` of the TPU schedule
 (``block_n``, ``block_o``, ``grid_order``); it means nothing to this
@@ -34,15 +40,21 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..core.types import torch_dtype
+from ..amp import matmul_f32
 
 __all__ = ["H100_SMS", "TILINGS", "conv3x3_bwd", "conv3x3_bwd_reference",
-           "conv3x3_reference", "conv3x3_s1_nhwc", "kernel_tiling",
-           "launches", "launches_dx", "rotate_filter", "smem_bytes",
+           "conv3x3_reference", "conv3x3_s1_nhwc", "kernel_smem_bytes",
+           "kernel_tiling", "launches", "launches_bf16", "launches_dx",
+           "launches_dx_bf16", "rotate_filter", "smem_bytes",
            "supports_conv3x3", "tiling"]
 
-# kernel launches since the last reset: forward and dx
+# kernel launches since the last reset: forward and dx, of the float32
+# and of the bfloat16 face
 launches = 0
 launches_dx = 0
+launches_bf16 = 0
+launches_dx_bf16 = 0
 
 _NAME = "conv3x3"
 
@@ -52,8 +64,10 @@ _NAME = "conv3x3"
 TILINGS = ((128, 128), (128, 64), (64, 64))
 _BK = 32
 _STAGES = 3
-_X_PAD = 4
-_W_PAD = 8
+# row paddings of the A and B tiles, in elements, by face
+_PADS = {torch.float32: (4, 8), torch.bfloat16: (8, 8)}
+_FACES = {torch.float32: "conv3x3_s1_nhwc_f32",
+          torch.bfloat16: "conv3x3_s1_nhwc_bf16"}
 # the SMs of an H100 SXM; the kernel reads the card's own count
 H100_SMS = 132
 
@@ -73,11 +87,18 @@ def tiling(N, H, W, C, O, sms=H100_SMS):
     return TILINGS[-1]
 
 
-def smem_bytes(bm, bn):
+def smem_bytes(bm, bn, dtype=torch.float32):
     """Dynamic shared memory of one block of the tiling: three stages of
-    the A tile (``bm x (32 + 4)``) and the B tile (``32 x (bn + 8)``),
-    float32 (``Tile::SMEM_BYTES`` of the source)."""
-    return _STAGES * (bm * (_BK + _X_PAD) + _BK * (bn + _W_PAD)) * 4
+    the A tile and the B tile, ``bm x (32 + 4)`` and ``32 x (bn + 8)``
+    float32 values (``Tile::SMEM_BYTES`` of the source), or ``bm x (32 +
+    8)`` and ``32 x (bn + 8)`` bfloat16 ones (``TileB::SMEM_BYTES``).
+    ``dtype`` may be a torch dtype or its name."""
+    dtype = torch_dtype(dtype)
+    if dtype not in _PADS:      # no face: priced as the float32 one
+        dtype = torch.float32
+    xpad, wpad = _PADS[dtype]
+    return _STAGES * (bm * (_BK + xpad) + _BK * (bn + wpad)) \
+        * dtype.itemsize
 
 
 def supports_conv3x3(w_shape, strides, paddings, dilations, groups):
@@ -103,50 +124,63 @@ def _taps(xp, H, W):
             yield dy, dx, xp[:, dy:dy + H, dx:dx + W, :].reshape(-1, C)
 
 
-def conv3x3_reference(x, w):
+def conv3x3_reference(x, w, out_dtype=None):
     """Plain forward: ``x [N, H, W, C]`` x ``w [3, 3, C, O]`` ->
-    ``[N, H, W, O]``, the sum of 9 tap products."""
+    ``[N, H, W, O]``, the sum of 9 tap products in float32 (float64
+    operands: float64), written in ``out_dtype`` (default ``x``'s
+    dtype). Of bfloat16 operands each product is exact in float32 and
+    the sum is rounded once."""
     N, H, W, C = x.shape
     O = w.shape[3]
+    acc = torch.promote_types(x.dtype, torch.float32)
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     out = None
     for dy, dx, patch in _taps(xp, H, W):
-        t = torch.matmul(patch, w[dy, dx])
+        t = torch.matmul(patch.to(acc), w[dy, dx].to(acc))
         out = t if out is None else out + t
-    return out.reshape(N, H, W, O)
+    return out.reshape(N, H, W, O).to(out_dtype or x.dtype)
 
 
-def _dw_taps(x, g):
+def _dw_taps(x, g, dtype):
     """dw ``[3, 3, C, O]``: ``dw[dy, dx, c, o] = sum_{n,h,w}
-    xpad[n, h+dy, w+dx, c] g[n, h, w, o]``, one matmul a tap."""
+    xpad[n, h+dy, w+dx, c] g[n, h, w, o]``, one gemm a tap summed in
+    float32, written in ``dtype`` (the filter's: ``_vjp_bwd`` rounds the
+    float32 taps to ``w.dtype``)."""
     N, H, W, C = x.shape
     O = g.shape[3]
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     g2 = g.reshape(-1, O)
-    dw = torch.empty((3, 3, C, O), dtype=x.dtype, device=x.device)
+    dw = torch.empty((3, 3, C, O), dtype=dtype, device=x.device)
     for dy, dx, patch in _taps(xp, H, W):
-        dw[dy, dx] = torch.matmul(patch.t(), g2)
+        dw[dy, dx] = matmul_f32(patch.t(), g2)
     return dw
 
 
 def conv3x3_bwd_reference(x, w, g):
-    """Plain backward: ``(dx [N, H, W, C], dw [3, 3, C, O])``."""
-    return conv3x3_reference(g, rotate_filter(w)), _dw_taps(x, g)
+    """Plain backward: ``(dx [N, H, W, C], dw [3, 3, C, O])`` in the
+    dtypes of ``x`` and ``w``."""
+    return (conv3x3_reference(g.to(x.dtype), rotate_filter(w)),
+            _dw_taps(x, g, w.dtype))
 
 
-def _launch(x, w):
-    """One launch of the kernel on checked operands; returns the
-    ``[N, H, W, O]`` output."""
+def _launch(x, w, out_dtype=None):
+    """One launch of the face of ``x``'s dtype on checked operands;
+    returns the ``[N, H, W, O]`` output in ``out_dtype`` (default
+    ``x``'s dtype)."""
     N, H, W, C = x.shape
     O = w.shape[3]
-    out = torch.empty((N, H, W, O), dtype=torch.float32, device=x.device)
+    out_dtype = out_dtype or x.dtype
+    out = torch.empty((N, H, W, O), dtype=out_dtype, device=x.device)
     lib = _build.load(_NAME)
-    fn = lib.conv3x3_s1_nhwc_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + \
+    fn = getattr(lib, _FACES[x.dtype])
+    bf16 = x.dtype == torch.bfloat16
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (6 if bf16
+                                                            else 5) + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    extra = (int(out_dtype == torch.float32),) if bf16 else ()
     code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W, C, O,
-              _build.stream_handle(x.device))
+              *extra, _build.stream_handle(x.device))
     _build.check(lib, code, _NAME)
     return out
 
@@ -165,7 +199,17 @@ def kernel_tiling(N, H, W, C, O):
     return code // 1000, code % 1000
 
 
-def _check(x, w):
+def kernel_smem_bytes(bm, bn, dtype=torch.float32):
+    """The built library's shared memory of a tiling's block, float32 or
+    bfloat16 face (needs the card's toolchain)."""
+    lib = _build.load(_NAME)
+    fn = lib.conv3x3_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(bm, bn, int(torch_dtype(dtype) == torch.bfloat16))
+
+
+def _check(x, w, out_dtype=None):
     if x.device.type != "cuda":
         raise ValueError("%s: no kernel for device %s" % (_NAME, x.device))
     if x.ndim != 4 or tuple(w.shape[:2]) != (3, 3) or w.ndim != 4 \
@@ -173,42 +217,59 @@ def _check(x, w):
         raise ValueError("%s: the kernel takes x [N, H, W, C] and w "
                          "[3, 3, C, O], got %s and %s"
                          % (_NAME, tuple(x.shape), tuple(w.shape)))
-    for name, t in (("x", x), ("w", w)):
-        if t.dtype != torch.float32:
-            raise ValueError("%s: the kernel takes float32 operands, %s is "
-                             "%s" % (_NAME, name, t.dtype))
+    if x.dtype not in _FACES or w.dtype != x.dtype:
+        raise ValueError("%s: the kernel takes float32 or bfloat16 operands "
+                         "of one dtype, x is %s and w %s"
+                         % (_NAME, x.dtype, w.dtype))
+    outs = (torch.float32, torch.bfloat16) if x.dtype == torch.bfloat16 \
+        else (torch.float32,)
+    if out_dtype not in (None,) + outs:
+        raise ValueError("%s: the %s face writes %s, not %s"
+                         % (_NAME, x.dtype, " or ".join(map(str, outs)),
+                            out_dtype))
     _build.check_cuda_operands(_NAME, x.device, x=x, w=w)
 
 
-def _forward(x, w):
+def _count(dx, bf16):
+    global launches, launches_dx, launches_bf16, launches_dx_bf16
+    if dx and bf16:
+        launches_dx_bf16 += 1
+    elif dx:
+        launches_dx += 1
+    elif bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
+
+
+def _forward(x, w, out_dtype=None):
     """The forward: the plain version on the CPU, the kernel on CUDA."""
-    global launches
     if x.device.type == "cpu":
-        return conv3x3_reference(x, w)
-    _check(x, w)
-    out = _launch(x, w)
-    launches += 1
+        return conv3x3_reference(x, w, out_dtype)
+    _check(x, w, out_dtype)
+    out = _launch(x, w, out_dtype)
+    _count(False, x.dtype == torch.bfloat16)
     return out
 
 
 def conv3x3_bwd(x, w, g, want_dx=True, want_dw=True):
     """``(dx, dw)`` of :func:`conv3x3_bwd_reference`, each None when not
-    wanted. On CUDA dx is one launch of the kernel on ``g`` and the
-    rotated filter, and dw the 9 tap matmuls; float32 contiguous
-    operands, anything else raises."""
-    global launches_dx
+    wanted. On CUDA dx is one launch of the kernel on ``g`` (cast to
+    ``x``'s dtype) and the rotated filter, written in ``x``'s dtype, and
+    dw the 9 tap gemms; float32 or bfloat16 contiguous operands,
+    anything else raises."""
     dx = dw = None
-    if x.device.type == "cpu":
-        if want_dx:
-            dx = conv3x3_reference(g, rotate_filter(w))
-    elif want_dx:
+    if want_dx:
         w_rot = rotate_filter(w)
-        g = g.contiguous()
-        _check(g, w_rot)
-        dx = _launch(g, w_rot)
-        launches_dx += 1
+        gx = g.to(x.dtype).contiguous()
+        if x.device.type == "cpu":
+            dx = conv3x3_reference(gx, w_rot)
+        else:
+            _check(gx, w_rot)
+            dx = _launch(gx, w_rot)
+            _count(True, x.dtype == torch.bfloat16)
     if want_dw:
-        dw = _dw_taps(x, g)
+        dw = _dw_taps(x, g, w.dtype)
     return dx, dw
 
 
@@ -217,20 +278,22 @@ class _Conv3x3(torch.autograd.Function):
     vjp (``_vjp_fwd``/``_vjp_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, out_dtype):
         ctx.save_for_backward(x, w)
-        return _forward(x, w)
+        return _forward(x, w, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        return conv3x3_bwd(x, w, g, *ctx.needs_input_grad)
+        return conv3x3_bwd(x, w, g, *ctx.needs_input_grad[:2]) + (None,)
 
 
-def conv3x3_s1_nhwc(x, w, config=None):
-    """3x3 / s1 / p1 convolution, NHWC x HWIO -> NHWC, float32
-    accumulation, differentiable in ``x`` and ``w``. On CUDA: float32,
-    contiguous ``x [N, H, W, C]`` and ``w [3, 3, C, O]`` on one device;
-    anything else raises. ``config`` (a TPU tiling) is ignored."""
+def conv3x3_s1_nhwc(x, w, out_dtype=None, config=None):
+    """3x3 / s1 / p1 convolution, NHWC x HWIO -> NHWC, float32 sums,
+    written in ``out_dtype`` (default ``x``'s dtype), differentiable in
+    ``x`` and ``w``. On CUDA: contiguous ``x [N, H, W, C]`` and ``w [3,
+    3, C, O]`` on one device, both float32 (float32 out) or both
+    bfloat16 (bfloat16 or float32 out); anything else raises.
+    ``config`` (a TPU tiling) is ignored."""
     del config
-    return _Conv3x3.apply(x, w)
+    return _Conv3x3.apply(x, w, out_dtype)

@@ -1,5 +1,6 @@
 // 3x3 / stride-1 / pad-1 convolution, NHWC x HWIO -> NHWC, on Hopper's
-// tensor cores, float32-exact through 3xTF32, for sm_90a.
+// tensor cores, float32-exact through 3xTF32, with a bfloat16 face, for
+// sm_90a.
 //
 // Replaces: paddle_tpu/kernels/conv3x3.py:97, `_conv3x3_fwd` (its
 // pallas_call) with the kernel body `_kernel` (:55), reached through
@@ -57,12 +58,24 @@
 // blocks). paddle_tpu_torch/kernels/conv3x3.py mirrors the rule and the
 // shared memory of each tiling.
 //
+// The bfloat16 face (conv3x3_s1_nhwc_bf16, under AMP): the same walk,
+// ring, tilings and rule on bfloat16 tiles, one bf16 mma.sync.m16n8k16 a
+// product (a bfloat16 product is exact in float32) in place of the 3xTF32
+// triple, the sums in float32 as above, the output written in bfloat16
+// (rounded to nearest even) or float32. The JAX kernel is dtype-generic:
+// `_kernel` sums `jnp.dot(..., preferred_element_type=float32)` of the
+// bf16 operands and writes `out_dtype`. Its bound is operations too, now
+// at the card's 989 TFLOP/s dense bf16: 7.40 GFLOP a stage-shape call
+// over that is 0.0075 ms, and the bytes (half of float32's) about as
+// much, so the bound is the larger of the two, shape by shape.
+//
 // Tensors are contiguous: x [N, H, W, C], w [3, 3, C, O], out [N, H, W, O].
 // The kernel allocates nothing. The entry point launches on the stream it
 // is given and returns a CUDA error code (0 on success).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -92,13 +105,16 @@ struct Tile {
 // Where this thread's A row reads the k step being loaded: the step's
 // tap (dy, dx) and first channel c0, and the row's source pixel for that
 // tap (src, or in = false in the halo or past the last pixel).
-struct Cursor {
+template <typename T>
+struct CursorT {
   int dy, dx, c0;
   bool in;
-  const float* src;
+  const T* src;
 };
+typedef CursorT<float> Cursor;
 
-__device__ __forceinline__ void aim(Cursor& cur, const float* __restrict__ x,
+template <typename T>
+__device__ __forceinline__ void aim(CursorT<T>& cur, const T* __restrict__ x,
                                     bool row, long long m, int h, int w,
                                     int H, int W, int C) {
   const int ih = h + cur.dy - 1, iw = w + cur.dx - 1;
@@ -285,6 +301,202 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+
+// -- the bfloat16 face ------------------------------------------------------
+//
+// The same walk, ring and tilings on bfloat16 tiles: A [BM][BK + 8] and
+// B [BK][BN + 8] (pitches of 80 bytes and 2 BN + 16 bytes keep the 32-bit A
+// fragment loads and the ldmatrix rows of B on distinct banks), one
+// mma.sync.m16n8k16 a 16-deep slice, each step summed from zero on the
+// tensor cores and added in float32. A 16-byte copy holds 8 channels, so
+// the copies are asynchronous when C and O are multiples of 8 and the
+// pointers 16-byte aligned; any other shape (C 3, 36; O 7) is staged by
+// plain loads and stores, zeros past every edge, into the same ring.
+constexpr int X_PAD_BF16 = 8;  // row padding of the A tile, bfloat16
+constexpr int W_PAD_BF16 = 8;  // row padding of the B tile, bfloat16
+
+template <int BM, int BN>
+struct TileB {
+  static constexpr int WM = BM / 2;
+  static constexpr int WN = BN / 4;
+  static constexpr int MI = WM / 16;
+  static constexpr int NI = WN / 8;
+  static constexpr int XLD = BK + X_PAD_BF16;
+  static constexpr int WLD = BN + W_PAD_BF16;
+  static constexpr int XS = BM * XLD;
+  static constexpr int WS = BK * WLD;
+  static constexpr int SMEM_BYTES = STAGES * (XS + WS) * (int)sizeof(bf16);
+  static constexpr int TPR = THREADS / BM;
+  static_assert(BM % 32 == 0 && BN % 32 == 0 && THREADS % BM == 0 &&
+                (BK / 8) % TPR == 0 && BK % 16 == 0, "tiling");
+};
+
+template <int BM, int BN, bool VEC>
+__device__ __forceinline__ void load_stage_bf16(
+    bf16* xs, bf16* ws, const bf16* __restrict__ x,
+    const bf16* __restrict__ w, const CursorT<bf16>& cur, int r, int s,
+    int C, int O, int n0) {
+  using T = TileB<BM, BN>;
+  constexpr int TPR = T::TPR;
+  bf16* dst = xs + r * T::XLD;
+  const bf16* wt = w + ((long long)(cur.dy * 3 + cur.dx) * C + cur.c0) * O;
+  if (VEC) {  // C % 8 == 0 and O % 8 == 0: a chunk is all in or all out
+#pragma unroll
+    for (int j = 0; j < BK / 8 / TPR; ++j) {
+      const int q = 8 * (s + TPR * j);
+      const bool in = cur.in && cur.c0 + q < C;
+      cp_async16(dst + q, in ? cur.src + cur.c0 + q : x, in);
+    }
+    for (int i = threadIdx.x; i < BK * BN / 8; i += THREADS) {
+      const int k = i / (BN / 8), c = (i % (BN / 8)) * 8;
+      const bool in = cur.c0 + k < C && n0 + c < O;
+      cp_async16(ws + k * T::WLD + c,
+                 in ? wt + (long long)k * O + n0 + c : w, in);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16_rn(0.f);
+#pragma unroll
+    for (int j = 0; j < BK / TPR; ++j) {
+      const int q = s + TPR * j;
+      dst[q] = cur.in && cur.c0 + q < C ? cur.src[cur.c0 + q] : zero;
+    }
+    for (int i = threadIdx.x; i < BK * BN; i += THREADS) {
+      const int k = i / BN, c = i % BN;
+      ws[k * T::WLD + c] = cur.c0 + k < C && n0 + c < O
+                               ? wt[(long long)k * O + n0 + c]
+                               : zero;
+    }
+  }
+}
+
+template <int BM, int BN, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                    void* __restrict__ out, bool out_f32, int H, int W,
+                    int C, int O, long long M) {
+  using T = TileB<BM, BN>;
+  constexpr int MI = T::MI, NI = T::NI;
+  extern __shared__ __align__(16) float smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);  // STAGES x [BM][BK + 8]
+  bf16* ws = xs + STAGES * T::XS;            // STAGES x [BK][BN + 8]
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wm = (warp / 4) * T::WM;
+  const int wn = (warp % 4) * T::WN;
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int nc = (C + BK - 1) / BK;
+  const int nk = 9 * nc;
+
+  const int ar = threadIdx.x / T::TPR, ai = threadIdx.x % T::TPR;
+  const long long am = m0 + ar;
+  const bool arow = am < M;
+  int ah = 0, aw = 0;
+  if (arow) {
+    const int p = (int)(am % ((long long)H * W));
+    ah = p / W;
+    aw = p - ah * W;
+  }
+  CursorT<bf16> cur{0, 0, 0, false, x};
+  aim(cur, x, arow, am, ah, aw, H, W, C);
+  auto advance = [&]() {
+    cur.c0 += BK;
+    if (cur.c0 >= C) {
+      cur.c0 = 0;
+      if (++cur.dx == 3) {
+        cur.dx = 0;
+        ++cur.dy;
+      }
+      aim(cur, x, arow, am, ah, aw, H, W, C);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) {
+      load_stage_bf16<BM, BN, VEC>(xs + s * T::XS, ws + s * T::WS, x, w, cur,
+                                   ar, ai, C, O, n0);
+      advance();
+    }
+    cp_async_commit();
+  }
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int nxt = kt + STAGES - 1;
+    if (nxt < nk) {
+      load_stage_bf16<BM, BN, VEC>(xs + (nxt % STAGES) * T::XS,
+                                   ws + (nxt % STAGES) * T::WS, x, w, cur,
+                                   ar, ai, C, O, n0);
+      advance();
+    }
+    cp_async_commit();
+
+    const bf16* xt = xs + (kt % STAGES) * T::XS + wm * T::XLD;
+    const bf16* wt = ws + (kt % STAGES) * T::WS + wn;
+    float step[MI][NI][4];  // the step's sum, from zero
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) step[mi][ni][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[MI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        load_a16<T::XLD>(a[mi], xt + mi * 16 * T::XLD + kk * 16, g, t);
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        uint32_t b[2];
+        load_b16<T::WLD>(b, wt + kk * 16 * T::WLD + ni * 8, lane);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+          mma_bf16_k16(step[mi][ni], a[mi], b);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) add4(acc[mi][ni], step[mi][ni]);
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long m = m0 + wm + mi * 16 + g + 8 * half;
+      if (m >= M) continue;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int n = n0 + wn + ni * 8 + 2 * t;
+        const float v0 = acc[mi][ni][2 * half];
+        const float v1 = acc[mi][ni][2 * half + 1];
+        // VEC: O % 8 == 0, so n + 1 < O with n and the pair aligned
+        if (out_f32)
+          store2(static_cast<float*>(out) + m * O + n, v0, v1, n < O,
+                 n + 1 < O, VEC && n < O);
+        else
+          store2(static_cast<bf16*>(out) + m * O + n, v0, v1, n < O,
+                 n + 1 < O, VEC && n < O);
+      }
+    }
+  }
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
@@ -337,6 +549,25 @@ int launch(const float* x, const float* w, float* out, int H, int W, int C,
   return (int)cudaGetLastError();
 }
 
+template <int BM, int BN>
+int launch_bf16(const bf16* x, const bf16* w, void* out, bool out_f32, int H,
+                int W, int C, int O, long long M, bool vec, cudaStream_t st) {
+  using T = TileB<BM, BN>;
+  const long long mblocks = (M + BM - 1) / BM;
+  const long long oblocks = ((long long)O + BN - 1) / BN;
+  if (mblocks > 0x7fffffffLL || oblocks > 65535)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)mblocks, (unsigned)oblocks);
+  auto kernel = vec ? conv3x3_bf16_kernel<BM, BN, true>
+                    : conv3x3_bf16_kernel<BM, BN, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, THREADS, T::SMEM_BYTES, st>>>(x, w, out, out_f32, H, W, C,
+                                                O, M);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -360,6 +591,43 @@ int conv3x3_s1_nhwc_f32(const void* x, const void* w, void* out, int N,
     case 1: return launch<128, 64>(xf, wf, of, H, W, C, O, M, vec, st);
     default: return launch<64, 64>(xf, wf, of, H, W, C, O, M, vec, st);
   }
+}
+
+// x [N, H, W, C] and w [3, 3, C, O] bfloat16, out [N, H, W, O] float32
+// when out_f32 is non-zero, else bfloat16; contiguous, on one device. The
+// tiling rule is the float32 face's.
+int conv3x3_s1_nhwc_bf16(const void* x, const void* w, void* out, int N,
+                         int H, int W, int C, int O, int out_f32,
+                         void* stream) {
+  if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long M = (long long)N * H * W;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = C % 8 == 0 && O % 8 == 0 && aligned16(x) &&
+                   aligned16(w) && aligned16(out);
+  const bool f32 = out_f32 != 0;
+  switch (pick_tiling(M, O)) {
+    case 0:
+      return launch_bf16<128, 128>(xb, wb, out, f32, H, W, C, O, M, vec, st);
+    case 1:
+      return launch_bf16<128, 64>(xb, wb, out, f32, H, W, C, O, M, vec, st);
+    default:
+      return launch_bf16<64, 64>(xb, wb, out, f32, H, W, C, O, M, vec, st);
+  }
+}
+
+// Dynamic shared memory of a tiling's block, float32 (bf16_face 0) or
+// bfloat16 face, or -1 for a tiling that is not compiled.
+int conv3x3_smem_bytes(int bm, int bn, int bf16_face) {
+#define TILING(BM_, BN_)                                  \
+  if (bm == BM_ && bn == BN_)                             \
+    return bf16_face ? TileB<BM_, BN_>::SMEM_BYTES        \
+                     : Tile<BM_, BN_>::SMEM_BYTES;
+  TILING(128, 128) TILING(128, 64) TILING(64, 64)
+#undef TILING
+  return -1;
 }
 
 // The tiling the entry point takes at a shape, as bm * 1000 + bn

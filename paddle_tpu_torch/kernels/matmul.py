@@ -2,17 +2,22 @@
 
 ``x [M, K] @ w [K, N] -> [M, N]`` with float32 sums, in a tiling
 ``config = {"block_m", "block_n", "block_k"}`` that the autotuner
-(``paddle_tpu_torch/tune``) searches.
+(``paddle_tpu_torch/tune``) searches. Two faces, as the JAX kernel is
+dtype-generic: float32 operands (``matmul_f32``, float32 out) and
+bfloat16 operands, a tuned gemm under AMP (``matmul_bf16``, written in
+``out_dtype or x.dtype``: bfloat16 unless float32 is asked for).
 
 - :func:`matmul_reference` is the plain version: the float32 sum, over
   the tiling's k tiles in order, of ``x[:, k0:k1] @ w[k0:k1, :]``, the
-  kernel's accumulation order at tile level. A CPU tensor gets it.
+  kernel's accumulation order at tile level, rounded once to the
+  output dtype. A CPU tensor gets it.
 - :func:`matmul` is the wrapper, a ``torch.autograd.Function``. A CUDA
   tensor gets the hand-written kernel of ``csrc/matmul.cu`` or an
   exception, never the plain version or ``torch.matmul``. Its backward
   is two ``torch.matmul`` products, as the JAX custom vjp's is two
   stock gemms (``_vjp_bwd``), so the kernel needs no backward.
-- ``launches`` counts the kernel launches.
+- ``launches`` counts the float32 face's launches, ``launches_bf16``
+  the bfloat16 face's.
 
 Dispatch: ``ops/math_ops.py`` routes ``mul`` here only when the tune
 cache holds a winner tiling for the (device, shape); otherwise ``mul``
@@ -33,13 +38,16 @@ import ctypes
 import torch
 
 from . import _build
+from ..core.types import torch_dtype
 
-__all__ = ["DEFAULT_CONFIG", "TILINGS", "launches", "matmul",
-           "matmul_reference", "normalize_config", "smem_bytes",
-           "supports_matmul"]
+__all__ = ["DEFAULT_CONFIG", "TILINGS", "launches", "launches_bf16",
+           "kernel_smem_bytes", "matmul", "matmul_reference",
+           "normalize_config", "smem_bytes", "supports_matmul"]
 
-# kernel launches since the last reset
+# kernel launches since the last reset, of the float32 and the bfloat16
+# face
 launches = 0
+launches_bf16 = 0
 
 _NAME = "matmul"
 
@@ -49,10 +57,11 @@ TILINGS = tuple((bm, bn, bk) for bm in (64, 128) for bn in (64, 128)
 DEFAULT_CONFIG = {"block_m": 128, "block_n": 128, "block_k": 8}
 
 # the shared-memory layout of csrc/matmul.cu: a ring of _STAGES stages of
-# the x tile [bm][bk + _X_PAD] and the w tile [bk][bn + _W_PAD]
+# the x tile [bm][bk + x pad] and the w tile [bk][bn + w pad], the pads
+# in elements by face
 _STAGES = 3
-_X_PAD = 4
-_W_PAD = 8
+_PADS = {torch.float32: (4, 8), torch.bfloat16: (8, 8)}
+_FACES = {torch.float32: "matmul_f32", torch.bfloat16: "matmul_bf16"}
 
 
 def _dtype_name(dtype):
@@ -61,16 +70,15 @@ def _dtype_name(dtype):
 
 def supports_matmul(x_shape, y_shape, dtype):
     """True for the 2-D gemm population the kernel targets: the JAX
-    package's alignment rule (M % 8, K % 128 and N % 128 all 0) on
-    float32 operands. bfloat16, which the JAX kernel also takes, stays
-    out: the port has no AMP and the kernel is float32 only."""
+    package's rule (M % 8, K % 128 and N % 128 all 0) on float32 or
+    bfloat16 operands."""
     if len(x_shape) != 2 or len(y_shape) != 2:
         return False
     M, K = x_shape
     K2, N = y_shape
     if K != K2:
         return False
-    if _dtype_name(dtype) != "float32":
+    if _dtype_name(dtype) not in ("float32", "bfloat16"):
         return False
     return M % 8 == 0 and K % 128 == 0 and N % 128 == 0
 
@@ -92,23 +100,32 @@ def normalize_config(config=None):
     return triple
 
 
-def smem_bytes(bm, bn, bk):
+def smem_bytes(bm, bn, bk, dtype=torch.float32):
     """Dynamic shared memory of one block of the tiling: three stages of
-    the x tile (``bm x (bk + 4)``) and the w tile (``bk x (bn + 8)``),
-    float32 (``Tile::SMEM_BYTES`` of the source)."""
-    return _STAGES * (bm * (bk + _X_PAD) + bk * (bn + _W_PAD)) * 4
+    the x tile and the w tile, ``bm x (bk + 4)`` and ``bk x (bn + 8)``
+    float32 values (``Tile::SMEM_BYTES`` of the source), or ``bm x (bk +
+    8)`` and ``bk x (bn + 8)`` bfloat16 ones (``TileB::SMEM_BYTES``).
+    ``dtype`` may be a torch dtype or its name."""
+    dtype = torch_dtype(dtype)
+    if dtype not in _PADS:      # no face: priced as the float32 one
+        dtype = torch.float32
+    xpad, wpad = _PADS[dtype]
+    return _STAGES * (bm * (bk + xpad) + bk * (bn + wpad)) * dtype.itemsize
 
 
-def matmul_reference(x, w, config=None):
+def matmul_reference(x, w, config=None, out_dtype=None):
     """Plain version: ``x [M, K] @ w [K, N]`` as the float32 sum over the
-    tiling's k tiles, in order, of ``x[:, k0:k1] @ w[k0:k1, :]``."""
+    tiling's k tiles, in order, of ``x[:, k0:k1] @ w[k0:k1, :]`` (float64
+    operands: float64), written in ``out_dtype or x.dtype`` (bfloat16
+    products are exact in float32, and the sum is rounded once)."""
     _, _, bk = normalize_config(config)
     K = x.shape[1]
+    acc = torch.promote_types(x.dtype, torch.float32)
     out = None
     for k0 in range(0, max(K, 1), bk):
-        t = torch.matmul(x[:, k0:k0 + bk].float(), w[k0:k0 + bk].float())
+        t = torch.matmul(x[:, k0:k0 + bk].to(acc), w[k0:k0 + bk].to(acc))
         out = t if out is None else out + t
-    return out
+    return out.to(out_dtype or x.dtype)
 
 
 def _check(x, w, out_dtype):
@@ -118,43 +135,63 @@ def _check(x, w, out_dtype):
         raise ValueError("%s: the kernel takes x [M, K] and w [K, N], got "
                          "%s and %s" % (_NAME, tuple(x.shape),
                                         tuple(w.shape)))
-    for name, t in (("x", x), ("w", w)):
-        if t.dtype != torch.float32:
-            raise ValueError("%s: the kernel takes float32 operands, %s is "
-                             "%s" % (_NAME, name, t.dtype))
-    if out_dtype not in (None, torch.float32):
-        raise ValueError("%s: the kernel writes float32, not %s"
-                         % (_NAME, out_dtype))
+    if x.dtype not in _FACES or w.dtype != x.dtype:
+        raise ValueError("%s: the kernel takes float32 or bfloat16 operands "
+                         "of one dtype, x is %s and w %s"
+                         % (_NAME, x.dtype, w.dtype))
+    outs = (torch.float32, torch.bfloat16) if x.dtype == torch.bfloat16 \
+        else (torch.float32,)
+    if out_dtype not in (None,) + outs:
+        raise ValueError("%s: the %s face writes %s, not %s"
+                         % (_NAME, x.dtype, " or ".join(map(str, outs)),
+                            out_dtype))
     _build.check_cuda_operands(_NAME, x.device, x=x, w=w)
 
 
-def _launch(x, w, tiling):
+def _launch(x, w, tiling, out_dtype=None):
     M, K = x.shape
     N = w.shape[1]
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    out_dtype = out_dtype or x.dtype
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0 or N == 0:
         return out
     lib = _build.load(_NAME)
-    fn = lib.matmul_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + \
+    fn = getattr(lib, _FACES[x.dtype])
+    bf16 = x.dtype == torch.bfloat16
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (7 if bf16
+                                                            else 6) + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    extra = (int(out_dtype == torch.float32),) if bf16 else ()
     code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, *tiling,
-              _build.stream_handle(x.device))
+              *extra, _build.stream_handle(x.device))
     _build.check(lib, code, _NAME)
     return out
 
 
+def kernel_smem_bytes(bm, bn, bk, dtype=torch.float32):
+    """The built library's shared memory of a tiling's block, float32 or
+    bfloat16 face, or -1 for a tiling it does not have."""
+    lib = _build.load(_NAME)
+    fn = lib.matmul_bf16_smem_bytes if torch_dtype(dtype) == \
+        torch.bfloat16 else lib.matmul_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(bm, bn, bk)
+
+
 def _forward(x, w, out_dtype, config):
     """The forward: the plain version on the CPU, the kernel on CUDA."""
-    global launches
+    global launches, launches_bf16
     tiling = normalize_config(config)
     if x.device.type == "cpu":
-        out = matmul_reference(x, w, config)
-        return out if out_dtype is None else out.to(out_dtype)
+        return matmul_reference(x, w, config, out_dtype)
     _check(x, w, out_dtype)
-    out = _launch(x, w, tiling)
-    launches += 1
+    out = _launch(x, w, tiling, out_dtype)
+    if x.dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
@@ -179,8 +216,10 @@ class _Matmul(torch.autograd.Function):
 
 
 def matmul(x, w, out_dtype=None, config=None):
-    """``x [M, K] @ w [K, N] -> [M, N]``, float32 sums, differentiable in
-    ``x`` and ``w``. ``config`` is a tune "matmul" tiling dict; None
-    runs :data:`DEFAULT_CONFIG`. On CUDA: float32, contiguous operands
-    on one device; anything else raises."""
+    """``x [M, K] @ w [K, N] -> [M, N]``, float32 sums, written in
+    ``out_dtype or x.dtype``, differentiable in ``x`` and ``w``.
+    ``config`` is a tune "matmul" tiling dict; None runs
+    :data:`DEFAULT_CONFIG`. On CUDA: contiguous operands on one device,
+    both float32 (float32 out) or both bfloat16 (bfloat16 or float32
+    out); anything else raises."""
     return _Matmul.apply(x, w, out_dtype, config)

@@ -2,6 +2,9 @@
 Paddle's elementwise broadcasting and the mul op's 2-D flattening."""
 from __future__ import annotations
 
+import torch
+
+from .. import amp
 from ..core.executor import raw_data, with_lod_of
 from ..core.types import convert_dtype, torch_dtype
 
@@ -40,11 +43,20 @@ def flatten_to_2d(x, num_col_dims):
 
 
 def elementwise(ctx, fn):
-    """``fn(X, Y)`` under Paddle's broadcasting; Out keeps X's LoD."""
+    """``fn(X, Y)`` under Paddle's broadcasting; Out keeps X's LoD.
+    Under pure AMP a bfloat16 operand (either of them: a residual add
+    may take the bfloat16 branch as Y) combined with a float32 one
+    promotes to float32, and the result is written back in bfloat16,
+    so the activation stream stays half-width; float64 stays exact."""
     x_v = ctx.input("X")
     x, y = raw_data(x_v), raw_data(ctx.input("Y"))
-    ctx.set_output("Out", with_lod_of(
-        x_v, fn(x, bcast_y_to_x(x, y, ctx.attr("axis", -1)))))
+    out = fn(x, bcast_y_to_x(x, y, ctx.attr("axis", -1)))
+    if (out.dtype != torch.bfloat16
+            and torch.bfloat16 in (x.dtype, y.dtype)
+            and torch.float64 not in (x.dtype, y.dtype)
+            and amp.keep_bf16(ctx)):
+        out = out.to(torch.bfloat16)
+    ctx.set_output("Out", with_lod_of(x_v, out))
 
 
 def prod(it):

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import amp
 from ..core import registry
 from ..kernels import conv3x3
 from ..core.executor import raw_data, with_lod_of
@@ -20,6 +21,7 @@ from ..core.ir import grad_var_name
 from ..core.registry import register_op
 from ..core.types import is_floating
 from .common import flatten_to_2d
+from .math_ops import acc_matmul
 from .nn_ops import _bn_grad_maker, bn_axes, conv3x3_config, pool2d_apply
 
 __all__ = ["simple_grad_maker"]
@@ -96,19 +98,23 @@ _attach("softmax", "softmax_grad", need_outputs=("Out",))
 @register_op("mul_grad", no_gradient=True)
 def mul_grad(ctx):
     """Gemms on the flattened 2-D views: dX = dOut Yᵀ, dY = Xᵀ dOut.
-    dX keeps X's LoD."""
+    dX keeps X's LoD. Under AMP X, Y and dOut are cast to bfloat16, the
+    gemms sum in float32, and dX / dY are written in X's / Y's dtype."""
     x_v = ctx.input("X")
     x = raw_data(x_v)
     y = raw_data(ctx.input("Y"))
     dy = raw_data(ctx.input("Out@GRAD"))
+    xdt, ydt = x.dtype, y.dtype
+    x, y, dy = amp.cast_inputs(ctx, x, y, dy)
     x2 = flatten_to_2d(x, ctx.attr("x_num_col_dims", 1))
     y2 = flatten_to_2d(y, ctx.attr("y_num_col_dims", 1))
     dy2 = dy.reshape(x2.shape[0], y2.shape[1])
     if ctx.op.output("X@GRAD"):
         ctx.set_output("X@GRAD", with_lod_of(
-            x_v, torch.matmul(dy2, y2.t()).reshape(x.shape)))
+            x_v, acc_matmul(dy2, y2.t()).to(xdt).reshape(x.shape)))
     if ctx.op.output("Y@GRAD"):
-        ctx.set_output("Y@GRAD", torch.matmul(x2.t(), dy2).reshape(y.shape))
+        ctx.set_output("Y@GRAD",
+                       acc_matmul(x2.t(), dy2).to(ydt).reshape(y.shape))
 
 
 _attach("mul", "mul_grad", need_inputs=("X", "Y"), diff_slots=("X", "Y"))
@@ -162,10 +168,15 @@ def conv2d_grad(ctx):
     asks it) runs the conv3x3 kernel takes that wrapper's backward
     through the NHWC/HWIO transposes: dx by the kernel, dw by the 9 tap
     contractions. Every other conv takes ``convolution_backward``, the
-    backward of torch's conv2d."""
+    backward of torch's conv2d. Under AMP Input, Filter and the output
+    gradient are cast to bfloat16 (the kernel's bfloat16 face writes dx
+    in bfloat16, the dw taps are rounded to bfloat16), and dInput /
+    dFilter are written in their declared dtypes."""
     x = ctx.input("Input")
     w = ctx.input("Filter")
     dy = ctx.input("Output@GRAD")
+    xdt, wdt = x.dtype, w.dtype
+    x, w, dy = amp.cast_inputs(ctx, x, w, dy)
     s = ctx.attr("strides", [1, 1])
     p = ctx.attr("paddings", [0, 0])
     d = ctx.attr("dilations", [1, 1])
@@ -182,10 +193,11 @@ def conv2d_grad(ctx):
         dw = dw.permute(3, 2, 0, 1).contiguous() if want_dw else None
     else:
         dx, dw, _ = torch.ops.aten.convolution_backward(
-            dy, x, w, None, list(s), list(p), list(d), False, [0, 0],
-            groups, [want_dx, want_dw, False])
-    ctx.set_output("Input@GRAD", dx)     # each a no-op when not wired
-    ctx.set_output("Filter@GRAD", dw)
+            dy.to(x.dtype), x, w, None, list(s), list(p), list(d), False,
+            [0, 0], groups, [want_dx, want_dw, False])
+    # each a no-op when not wired
+    ctx.set_output("Input@GRAD", dx.to(xdt) if want_dx else None)
+    ctx.set_output("Filter@GRAD", dw.to(wdt) if want_dw else None)
 
 
 _attach("conv2d", "conv2d_grad", need_inputs=("Input", "Filter"),

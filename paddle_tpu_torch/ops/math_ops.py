@@ -9,12 +9,21 @@ per-(device, shape) winner tiling runs the hand-written blocked matmul
 fastest (``use: xla``) and every shape outside the kernel's population
 run ``torch.matmul``, as the JAX package runs ``jnp.matmul``; an untuned
 process computes exactly what it did before the tune slice.
+
+Under AMP (``paddle_tpu_torch.amp``) the operands are cast to bfloat16.
+An untuned bfloat16 gemm sums and writes float32
+(``preferred_element_type``); a tuned one is the kernel's bfloat16 face,
+which writes ``x.dtype`` (bfloat16) as the JAX kernel called with
+``out_dtype=None`` does, so under plain AMP its output is rounded to
+bfloat16 once before the cast back to float32, and an untuned one's is
+not (``ROADMAP.md``, faults of the reference). Pure AMP keeps the
+output bfloat16.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import tune
+from .. import amp, tune
 from ..core.executor import raw_data, with_lod_of
 from ..core.registry import register_op
 from ..kernels import matmul as matmul_kernel
@@ -23,12 +32,21 @@ from .common import elementwise, flatten_to_2d
 __all__ = []
 
 
+def acc_matmul(a, b):
+    """``jnp.matmul(a, b, preferred_element_type=_acc_type(a))``: half-
+    width operands summed and written in float32, others as they are."""
+    if a.dtype in (torch.bfloat16, torch.float16):
+        return amp.matmul_f32(a, b)
+    return torch.matmul(a, b)
+
+
 def _gemm_dispatch(x2, y2):
     """The mul op's 2-D gemm. Inside the kernel's population the tune
     cache decides (``enabled=False``: no flag opts this kernel in): a
-    winner tiling runs the kernel with it; no winner (a fallback) or a
-    ``use: xla`` winner (a hit) runs ``torch.matmul``. Outside the
-    population it is ``torch.matmul`` with a recorded fallback."""
+    winner tiling runs the kernel with it, written in ``x2``'s dtype; no
+    winner (a fallback) or a ``use: xla`` winner (a hit) runs
+    :func:`acc_matmul`. Outside the population it is :func:`acc_matmul`
+    with a recorded fallback."""
     M, K = (int(v) for v in x2.shape)
     N = int(y2.shape[-1])
     if matmul_kernel.supports_matmul((M, K), (K, N), x2.dtype):
@@ -41,7 +59,7 @@ def _gemm_dispatch(x2, y2):
                                         None, cfg)
     else:
         tune.record_fallback("matmul")
-    return torch.matmul(x2, y2)
+    return acc_matmul(x2, y2)
 
 
 def _infer_mul(op, block):
@@ -60,13 +78,19 @@ def _infer_mul(op, block):
 def mul(ctx):
     """Flatten X by ``x_num_col_dims`` and Y by ``y_num_col_dims``, one
     gemm, reshape to X's leading dims + Y's trailing dims. Out keeps
-    X's LoD (an fc over ragged sequences stays ragged)."""
+    X's LoD (an fc over ragged sequences stays ragged). Under AMP the
+    gemm takes bfloat16 operands; Out is written back in X's dtype, or
+    kept bfloat16 under pure AMP."""
     x_v = ctx.input("X")
     x = raw_data(x_v)
     y = raw_data(ctx.input("Y"))
+    out_dtype = x.dtype
+    x, y = amp.cast_inputs(ctx, x, y)
     xn = ctx.attr("x_num_col_dims", 1)
     yn = ctx.attr("y_num_col_dims", 1)
     out = _gemm_dispatch(flatten_to_2d(x, xn), flatten_to_2d(y, yn))
+    out = out.to(torch.bfloat16 if amp.keep_bf16(ctx, out_dtype)
+                 else out_dtype)
     ctx.set_output("Out", with_lod_of(x_v, out.reshape(
         tuple(x.shape[:xn]) + tuple(y.shape[yn:]))))
 

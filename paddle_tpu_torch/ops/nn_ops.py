@@ -12,6 +12,13 @@ with no winner, ``conv_impl=pallas3x3`` runs the kernel (a tune miss)
 and ``conv`` runs ``F.conv2d`` (a fallback). Every other conv is
 ``torch.nn.functional.conv2d`` with a recorded fallback, as the JAX
 package computes it with ``lax.conv`` outside any Pallas kernel.
+
+Under AMP (``paddle_tpu_torch.amp``) ``conv2d`` casts its operands to
+bfloat16 and the conv is bfloat16 throughout: the kernel's bfloat16 face
+writes bfloat16, as ``F.conv2d`` does for the other convs; plain AMP
+casts the output back to the declared dtype, pure AMP keeps it.
+``batch_norm`` takes its statistics and normalises in float32 for a
+bfloat16 input and writes Y in the input's dtype.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ import os
 import torch
 import torch.nn.functional as F
 
-from .. import tune
+from .. import amp, tune
 from ..core.registry import register_op
 from ..flags import FLAGS
 from ..kernels import conv3x3
@@ -141,25 +148,43 @@ def conv3x3_config(x_shape, w_shape, s, p, d, groups, dtype,
         enabled=conv_impl(program_choice) == "pallas3x3")
 
 
-def conv2d_apply(x, w, s, p, d, groups, program_choice=None):
+def conv2d_apply(x, w, s, p, d, groups, program_choice=None, pe=None):
     """conv2d forward, ``x`` NCHW and ``w`` OIHW: the conv3x3 kernel when
-    :func:`conv3x3_config` gives a config, else torch's conv2d."""
+    :func:`conv3x3_config` gives a config, else torch's conv2d. ``pe``
+    (float32 or None) is the JAX lowering's ``preferred_element_type``:
+    float32 sums bfloat16 operands into a float32 output; None writes
+    the operands' dtype."""
     if conv3x3_config(x.shape, w.shape, s, p, d, groups, x.dtype,
                       program_choice) is not None:
         out = conv3x3.conv3x3_s1_nhwc(x.permute(0, 2, 3, 1).contiguous(),
-                                      w.permute(2, 3, 1, 0).contiguous())
+                                      w.permute(2, 3, 1, 0).contiguous(),
+                                      pe)
         return out.permute(0, 3, 1, 2).contiguous()
+    if pe is not None and x.dtype != pe:
+        x, w = x.to(pe), w.to(pe)
     return F.conv2d(x, w, None, tuple(s), tuple(p), tuple(d), groups)
 
 
 @register_op("conv2d", infer_shape=_infer_conv2d)
 def conv2d(ctx):
-    """NCHW input, OIHW filter; AMP is not ported, so float32 runs as
-    float32 throughout."""
-    ctx.set_output("Output", conv2d_apply(
-        ctx.input("Input"), ctx.input("Filter"), ctx.attr("strides", [1, 1]),
-        ctx.attr("paddings", [0, 0]), ctx.attr("dilations", [1, 1]),
-        ctx.attr("groups", 1) or 1, ctx.attr("conv_impl")))
+    """NCHW input, OIHW filter. Under AMP the operands are cast to
+    bfloat16 and the conv stays bfloat16 (the kernel or ``F.conv2d``
+    writes bfloat16); outside AMP, bfloat16 operands get float32 sums
+    and output. Output is written back in Input's dtype, or kept
+    bfloat16 under pure AMP."""
+    x = ctx.input("Input")
+    w = ctx.input("Filter")
+    out_dtype = x.dtype
+    amp_on = getattr(ctx.block.program, "_amp", False)
+    x, w = amp.cast_inputs(ctx, x, w)
+    pe = torch.float32 if (not amp_on and x.dtype == torch.bfloat16) \
+        else None
+    out = conv2d_apply(
+        x, w, ctx.attr("strides", [1, 1]), ctx.attr("paddings", [0, 0]),
+        ctx.attr("dilations", [1, 1]), ctx.attr("groups", 1) or 1,
+        ctx.attr("conv_impl"), pe)
+    ctx.set_output("Output", out.to(
+        torch.bfloat16 if amp.keep_bf16(ctx, out_dtype) else out_dtype))
 
 
 def _infer_pool2d(op, block):
@@ -245,8 +270,12 @@ def batch_norm(ctx):
     convention: ``new = momentum * old + (1 - momentum) * batch``, with the
     biased batch variance; ``SavedVariance`` holds the inverse std.
     (``F.batch_norm`` updates running stats with the unbiased variance and
-    the opposite momentum, so it is not used.)"""
-    x = ctx.input("X")
+    the opposite momentum, so it is not used.) A bfloat16 input (pure
+    AMP) is widened to float32 for the statistics and the normalisation,
+    and Y written back in bfloat16."""
+    x_in = ctx.input("X")
+    x = x_in.float() if x_in.dtype in (torch.bfloat16, torch.float16) \
+        else x_in
     scale = ctx.input("Scale")
     bias = ctx.input("Bias")
     mean = ctx.input("Mean")
@@ -269,7 +298,7 @@ def batch_norm(ctx):
     inv = 1.0 / torch.sqrt(use_var + eps)
     y = (x - use_mean.reshape(cshape)) * (inv * scale).reshape(cshape) \
         + bias.reshape(cshape)
-    ctx.set_output("Y", y)
+    ctx.set_output("Y", y.to(x_in.dtype))
     ctx.set_output("MeanOut", new_mean)
     ctx.set_output("VarianceOut", new_var)
     ctx.set_output("SavedMean", saved_mean)

@@ -158,7 +158,7 @@ class MatmulSpace(KernelSpace):
     def smem_bytes(self, config, key):
         from ..kernels.matmul import smem_bytes
         return smem_bytes(int(config["block_m"]), int(config["block_n"]),
-                          int(config["block_k"]))
+                          int(config["block_k"]), key["dtype"])
 
     def make_operands(self, key, seed=0, device=DEFAULT_DEVICE):
         rng = np.random.RandomState(seed)
@@ -206,7 +206,7 @@ class Conv3x3Space(KernelSpace):
     def smem_bytes(self, config, key):
         from ..kernels.conv3x3 import smem_bytes, tiling
         return smem_bytes(*tiling(key["n"], key["h"], key["w"], key["c"],
-                                  key["o"]))
+                                  key["o"]), key["dtype"])
 
     def make_operands(self, key, seed=0, device=DEFAULT_DEVICE):
         rng = np.random.RandomState(seed)

@@ -13,9 +13,11 @@ or 9*O products (dx) to values of size ~10-30, where an entry near 0
 carries the same absolute noise; its tolerance is 1e-5 of the largest
 magnitude of the JAX gradient.
 """
+import math
 import os
 import re
 
+import ml_dtypes
 import numpy as np
 import pytest
 
@@ -167,3 +169,116 @@ def test_mirror_matches_the_source():
     assert ints("BK") == [32] and ints("STAGES") == [3]
     assert ints("X_PAD") == [4] and ints("W_PAD") == [8]
     assert "2LL * sm_count()" in src
+
+
+# -- the bfloat16 face (AMP) --------------------------------------------------
+#
+# bfloat16 operands, float32 sums (each product exact), written in
+# bfloat16 or float32. Tolerances: a bfloat16 output within one bfloat16
+# ulp of the largest magnitude of the JAX output (both sum exactly in
+# float32 in other orders and round once, so an output within float32
+# noise of a rounding boundary may land one ulp apart); a float32 output
+# within 1e-5 of the largest magnitude, the sum orders.
+
+BF16 = np.dtype(ml_dtypes.bfloat16)
+
+
+def _bf16_ulp(m):
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _close_any(got, want):
+    """``got`` (a tensor) against ``want`` (a JAX or numpy array) at the
+    tolerance of ``want``'s dtype."""
+    want = np.asarray(want)
+    if got.dtype == torch.bfloat16:
+        assert want.dtype == BF16
+        got = got.float()
+    else:
+        assert want.dtype == np.float32 and got.dtype == torch.float32
+    w = want.astype(np.float64)
+    err = float(np.abs(got.double().numpy() - w).max())
+    m = float(np.abs(w).max())
+    tol = _bf16_ulp(m) if want.dtype == BF16 else TOL * max(1.0, m)
+    assert err <= tol, (err, tol)
+
+
+def _bf16_inputs(shape, seed):
+    x, w, g = _inputs(shape, seed)
+    return [torch.from_numpy(a).bfloat16() for a in (x, w, g)]
+
+
+def _jnp(t):
+    return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32],
+                         ids=["bf16_out", "f32_out"])
+@pytest.mark.parametrize("shape", SHAPES + [(2, 5, 6, 3, 7)])
+def test_bf16_reference_matches_jax_kernel(shape, out_dtype):
+    x, w, _ = _bf16_inputs(shape, seed=sum(shape) + 5)
+    want = jax_conv3x3(_jnp(x), _jnp(w),
+                       None if out_dtype is None else jnp.float32)
+    got = tconv.conv3x3_reference(x, w, out_dtype)
+    assert got.dtype == (out_dtype or torch.bfloat16)
+    _close_any(got, want)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_wrapper_backward_matches_jax_vjp(shape):
+    # dx is the kernel on the bfloat16 cotangent and the rotated filter,
+    # written in bfloat16; dw the float32 tap sums rounded to bfloat16
+    x, w, g = _bf16_inputs(shape, seed=sum(shape) + 6)
+    out, vjp = jax.vjp(jax_conv3x3, _jnp(x), _jnp(w))
+    want_dx, want_dw = vjp(_jnp(g))
+    xt, wt = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    got = tconv.conv3x3_s1_nhwc(xt, wt)
+    _close_any(got.detach(), out)
+    dx, dw = torch.autograd.grad(got, (xt, wt), g)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    _close_any(dx, want_dx)
+    _close_any(dw, want_dw)
+    fdx, fdw = tconv.conv3x3_bwd(x, w, g)
+    assert torch.equal(fdx, dx) and torch.equal(fdw, dw)
+
+
+def test_bf16_partial_sums_miss_the_tolerance():
+    # a plain variant that rounds the running sum to bfloat16 after each
+    # k step (a tap's 32 channels: what a kernel that accumulated in
+    # bfloat16 would compute; 72 steps at C 256) is several ulps off: the
+    # one-ulp tolerance tells it from the face
+    shape = (2, 8, 8, 256, 32)
+    x, w, _ = _bf16_inputs(shape, seed=9)
+    want = np.asarray(jax_conv3x3(_jnp(x), _jnp(w)))
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = None
+    for dy, dx, patch in tconv._taps(xp, 8, 8):
+        for c0 in range(0, 256, 32):
+            t = torch.matmul(patch[:, c0:c0 + 32].float(),
+                             w[dy, dx, c0:c0 + 32].float())
+            acc = (t if acc is None else acc.float() + t).bfloat16()
+    rounded = acc.reshape(2, 8, 8, 32)
+    with pytest.raises(AssertionError):
+        _close_any(rounded, want)
+    _close_any(tconv.conv3x3_reference(x, w), want)
+
+
+def test_bf16_smem_bytes_is_three_stages_of_both_tiles():
+    for bm, bn in tconv.TILINGS:
+        assert tconv.smem_bytes(bm, bn, torch.bfloat16) == \
+            tconv.smem_bytes(bm, bn, "bfloat16") == \
+            3 * (bm * (32 + 8) + 32 * (bn + 8)) * 2
+    assert [tconv.smem_bytes(*t, "bfloat16") for t in tconv.TILINGS] == \
+        [56832, 44544, 29184]
+
+
+def test_bf16_cpu_call_counts_no_launch():
+    kernels.reset_launches()
+    x, w, g = _bf16_inputs(SHAPES[0], seed=3)
+    leaves = [t.requires_grad_(True) for t in (x, w)]
+    out = tconv.conv3x3_s1_nhwc(*leaves, torch.float32)
+    assert out.dtype == torch.float32
+    torch.autograd.grad(out, leaves, g.float())
+    counts = kernels.launch_counts()
+    assert {"conv3x3_fwd_bf16", "conv3x3_dx_bf16"} <= set(counts)
+    assert set(counts.values()) == {0}

@@ -1,13 +1,16 @@
 """The 3x3 / s1 / p1 convolution on the card: the CUDA kernel (forward,
 and dx on the rotated filter) against its plain version, at shapes where
 its rule takes each of its three tilings and at each tail, relaunched
-bit-identically, and its refusal of other dtypes.
+bit-identically, and its refusal of other dtypes; the same of its
+bfloat16 face.
 
 JAX-free, so that it runs where the card is. Tolerance: 1e-5 of the
 largest magnitude of the plain output (or 1e-5 absolute below 1),
 float32 on both sides; the kernel and the plain version's 9 tap matmuls
 sum in other orders, which moves outputs of size ~1-30 by ~1e-6.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -106,5 +109,76 @@ def test_each_tiling_and_tail_relaunches_bit_identically(cuda_device,
 def test_kernel_refuses_other_dtypes(cuda_device):
     x, w, _ = (torch.from_numpy(a).to(cuda_device)
                for a in _inputs(SHAPES[0], seed=8))
-    with pytest.raises(ValueError, match="float32"):
-        tconv.conv3x3_s1_nhwc(x.double(), w.double())
+    kernels.reset_launches()
+    for a, b in ((x.double(), w.double()), (x.half(), w.half()),
+                 (x.bfloat16(), w), (x, w.bfloat16())):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            tconv.conv3x3_s1_nhwc(a, b)
+    with pytest.raises(ValueError, match="writes torch.float32, not"):
+        tconv.conv3x3_s1_nhwc(x, w, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        tconv.conv3x3_s1_nhwc(
+            x.bfloat16().permute(0, 2, 1, 3).contiguous().permute(
+                0, 2, 1, 3), w.bfloat16())
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+# -- the bfloat16 face (AMP) --------------------------------------------------
+#
+# bfloat16 operands, float32 sums, written in bfloat16 or float32; dx on
+# the rotated filter in bfloat16. The plain version sums exactly in
+# float32 in another order and rounds once: a bfloat16 output within one
+# bfloat16 ulp of the largest magnitude, a float32 one within 1e-5 of it.
+
+
+def _bf16_ulp(m):
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _check_face(got, want):
+    assert got.dtype == want.dtype
+    err = float((got.double() - want.double()).abs().max())
+    m = float(want.double().abs().max())
+    tol = _bf16_ulp(m) if want.dtype == torch.bfloat16 \
+        else TOL * max(1.0, m)
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,want", TILING_CASES)
+def test_bf16_face_at_each_tiling_and_tail_relaunches_bit_identically(
+        cuda_device, shape, want):
+    N, H, W, C, O = shape
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for bm, bn in tconv.TILINGS:
+        assert tconv.kernel_smem_bytes(bm, bn, torch.bfloat16) == \
+            tconv.smem_bytes(bm, bn, torch.bfloat16)
+    rng = np.random.RandomState(sum(shape) + 1)
+    x = torch.from_numpy(rng.randn(N, H, W, C).astype(np.float32)).to(
+        cuda_device).bfloat16()
+    w = torch.from_numpy((rng.randn(3, 3, C, O) * (2.0 / (9 * C)) ** 0.5)
+                         .astype(np.float32)).to(cuda_device).bfloat16()
+    g = torch.from_numpy(rng.randn(N, H, W, O).astype(np.float32)).to(
+        cuda_device).bfloat16()
+    w_rot = tconv.rotate_filter(w)
+    for a, b, out_dtype in ((x, w, None), (x, w, torch.float32),
+                            (g, w_rot, None)):
+        kernels.reset_launches()
+        got = tconv.conv3x3_s1_nhwc(a, b, out_dtype)
+        again = tconv.conv3x3_s1_nhwc(a, b, out_dtype)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["conv3x3_fwd_bf16"] == 2 and counts["conv3x3_fwd"] == 0
+        assert torch.equal(got, again)
+        _check_face(got, tconv.conv3x3_reference(a, b, out_dtype))
+    # the backward's dx launches the face as dx; the tiling rule is the
+    # float32 face's
+    kernels.reset_launches()
+    dx, dw = tconv.conv3x3_bwd(x, w, g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["conv3x3_dx_bf16"] == 1
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    want_dx, want_dw = tconv.conv3x3_bwd_reference(x, w, g)
+    _check_face(dx, want_dx)
+    _check_face(dw, want_dw)
+    assert tconv.kernel_tiling(*shape) == tconv.tiling(*shape, sms=sms)

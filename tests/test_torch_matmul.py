@@ -10,6 +10,9 @@ both sides; the Pallas kernel sums its k blocks of ``jnp.dot`` and the
 plain version its k tiles of ``torch.matmul``, in other orders, which
 moves outputs of size ~1-10 by ~1e-6 (K <= 384 here).
 """
+import math
+
+import ml_dtypes
 import numpy as np
 import pytest
 
@@ -94,16 +97,24 @@ def test_supports_the_same_float32_population_as_jax(shape):
         tmm.supports_matmul((m, k), (k, n), torch.float32)
 
 
-def test_population_differs_from_jax_only_on_bfloat16():
-    shape_x, shape_y = (64, 256), (256, 128)
-    assert jax_supports(shape_x, shape_y, "bfloat16")
-    assert not tmm.supports_matmul(shape_x, shape_y, torch.bfloat16)
-    for dt in ("float16", "int32"):
-        assert not tmm.supports_matmul(shape_x, shape_y, dt)
-        assert not jax_supports(shape_x, shape_y, dt)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16",
+                                   "int32"])
+def test_population_agrees_with_jax_on_every_dtype(dtype):
+    # the bfloat16 face (AMP) closed the one difference: both packages
+    # take float32 and bfloat16 gemms of the aligned shapes, and nothing
+    # else
+    grid = [((m, k), (k, n)) for m, k, n in SUPPORT_GRID]
+    want = [jax_supports(a, b, dtype) for a, b in grid]
+    assert [tmm.supports_matmul(a, b, dtype) for a, b in grid] == want
+    if dtype in ("float32", "bfloat16"):
+        assert [tmm.supports_matmul(a, b, getattr(torch, dtype))
+                for a, b in grid] == want
+        assert sum(want) == 12    # M % 8, K % 128, N % 128 of the grid
+    else:
+        assert not any(want)
     # rank and K agreement as in the JAX gate
-    assert not tmm.supports_matmul((2, 64, 128), shape_y, torch.float32)
-    assert not tmm.supports_matmul((64, 128), shape_y, torch.float32)
+    assert not tmm.supports_matmul((2, 64, 128), (256, 128), dtype)
+    assert not tmm.supports_matmul((64, 128), (256, 128), dtype)
 
 
 def test_normalize_config_maps_uncompiled_tilings_to_the_default():
@@ -140,3 +151,101 @@ def test_cpu_call_counts_no_launch():
     tmm.matmul(x, w, config={"block_m": 64, "block_n": 64, "block_k": 8})
     counts = kernels.launch_counts()
     assert "matmul" in counts and counts["matmul"] == 0
+
+
+# -- the bfloat16 face (AMP) --------------------------------------------------
+#
+# bfloat16 operands, float32 sums (each product exact), written in
+# bfloat16 (the kernel's ``x.dtype``) or float32. Tolerances: a bfloat16
+# output within one bfloat16 ulp of the largest magnitude of the JAX
+# output (both round an exact float32 sum, in other orders, once); a
+# float32 output within 1e-5 of the largest magnitude, as above.
+
+BF16 = np.dtype(ml_dtypes.bfloat16)
+
+
+def _bf16_ulp(m):
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _close_bf16(got, want):
+    want = np.asarray(want)
+    assert want.dtype == BF16 and got.dtype == torch.bfloat16
+    w = want.astype(np.float64)
+    err = float(np.abs(got.double().numpy() - w).max())
+    assert err <= _bf16_ulp(float(np.abs(w).max())), err
+
+
+def _bf16_inputs(shape, seed):
+    return [torch.from_numpy(a).bfloat16() for a in _inputs(shape, seed)]
+
+
+def _jnp(t):
+    return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32],
+                         ids=["bf16_out", "f32_out"])
+@pytest.mark.parametrize("shape", SHAPES[:3])
+@pytest.mark.parametrize("tilings", list(zip(JAX_TILINGS, PORT_TILINGS)),
+                         ids=["default", "blocked"])
+def test_bf16_reference_matches_jax_kernel(shape, tilings, out_dtype):
+    jax_cfg, port_cfg = tilings
+    x, w, _ = _bf16_inputs(shape, seed=sum(shape) + 3)
+    want = jax_matmul(_jnp(x), _jnp(w),
+                      None if out_dtype is None else jnp.float32, jax_cfg)
+    got = tmm.matmul_reference(x, w, port_cfg, out_dtype)
+    assert got.dtype == (out_dtype or torch.bfloat16)
+    if out_dtype is None:
+        _close_bf16(got, want)
+    else:
+        _close(got, want)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:2])
+def test_bf16_wrapper_matches_jax_and_its_vjp(shape):
+    # the forward is the face, written in bfloat16; the backward the two
+    # float32 products of the JAX custom vjp, rounded to the operands'
+    # dtype
+    x, w, g = _bf16_inputs(shape, seed=sum(shape) + 4)
+    cfg = {"block_m": 8, "block_n": 128, "block_k": 128}
+    out, vjp = jax.vjp(lambda a, b: jax_matmul(a, b, None, cfg),
+                       _jnp(x), _jnp(w))
+    want_dx, want_dw = vjp(_jnp(g))
+    xt, wt = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    got = tmm.matmul(xt, wt, config={"block_k": 32})
+    _close_bf16(got.detach(), out)
+    dx, dw = torch.autograd.grad(got, (xt, wt), g)
+    _close_bf16(dx, want_dx)
+    _close_bf16(dw, want_dw)
+
+
+def test_bf16_k_tile_partial_sums_miss_the_tolerance():
+    # rounding the sum to bfloat16 after each k tile (a kernel whose
+    # scratch were bfloat16) is several ulps off at K 3072 (96 tiles)
+    x, w, _ = _bf16_inputs((64, 3072, 128), seed=11)
+    want = np.asarray(jax_matmul(_jnp(x), _jnp(w)))
+    acc = None
+    for k0 in range(0, 3072, 32):
+        t = torch.matmul(x[:, k0:k0 + 32].float(), w[k0:k0 + 32].float())
+        acc = (t if acc is None else acc.float() + t).bfloat16()
+    with pytest.raises(AssertionError):
+        _close_bf16(acc, want)
+    _close_bf16(tmm.matmul_reference(x, w, {"block_k": 32}), want)
+
+
+def test_bf16_smem_bytes_of_every_tiling_fits_a_block():
+    for t in tmm.TILINGS:
+        assert 0 < tmm.smem_bytes(*t, torch.bfloat16) <= 227 * 1024
+        assert tmm.smem_bytes(*t, "bfloat16") == \
+            3 * (t[0] * (t[2] + 8) + t[2] * (t[1] + 8)) * 2
+    assert tmm.smem_bytes(128, 128, 32, "bfloat16") == 56832
+
+
+def test_bf16_cpu_call_counts_no_launch():
+    kernels.reset_launches()
+    x, w, _ = _bf16_inputs((16, 128, 128), 3)
+    assert tmm.matmul(x, w).dtype == torch.bfloat16
+    assert tmm.matmul(x, w, torch.float32).dtype == torch.float32
+    counts = kernels.launch_counts()
+    assert counts["matmul"] == counts["matmul_bf16"] == 0

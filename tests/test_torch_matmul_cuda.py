@@ -1,7 +1,7 @@
 """The blocked matmul on the card: the CUDA kernel against its plain
 version at every compiled tiling (ragged shapes included), its shared
 memory against the wrapper's count, a second launch that must equal the
-first bit for bit, and what it refuses.
+first bit for bit, and what it refuses; the same of its bfloat16 face.
 
 JAX-free, so that it runs where the card is. Tolerance: 1e-5 of the
 largest magnitude of the plain output (or 1e-5 absolute below 1),
@@ -10,6 +10,8 @@ tensor cores, float32-exact, and it and the plain version's k tiles of
 ``torch.matmul`` sum in other orders, which moves outputs of size ~1-10
 by ~1e-6.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -79,12 +81,83 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
     x = torch.randn(64, 128, device=cuda_device)
     w = torch.randn(128, 128, device=cuda_device)
     kernels.reset_launches()
-    with pytest.raises(ValueError, match="float32"):
-        tmm.matmul(x.bfloat16(), w.bfloat16())
+    for a, b in ((x.double(), w.double()), (x.half(), w.half()),
+                 (x.bfloat16(), w), (x, w.bfloat16())):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            tmm.matmul(a, b)
     with pytest.raises(ValueError, match="contiguous"):
         tmm.matmul(x, torch.randn(128, 128, device=cuda_device).t())
+    with pytest.raises(ValueError, match="contiguous"):
+        tmm.matmul(x.bfloat16(),
+                   torch.randn(128, 128, device=cuda_device).bfloat16().t())
     with pytest.raises(ValueError, match="w \\[K, N\\]"):
         tmm.matmul(x, w[:64])
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="writes torch.float32, not"):
         tmm.matmul(x, w, out_dtype=torch.bfloat16)
-    assert kernels.launch_counts()["matmul"] == 0
+    with pytest.raises(ValueError, match="not torch.float16"):
+        tmm.matmul(x.bfloat16(), w.bfloat16(), out_dtype=torch.float16)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+# -- the bfloat16 face (AMP) --------------------------------------------------
+#
+# bfloat16 operands, float32 sums, written in bfloat16 or float32. The
+# plain version sums the same k tiles exactly in float32 in another
+# order and rounds once: a bfloat16 output within one bfloat16 ulp of the
+# largest magnitude, a float32 one within 1e-5 of it.
+
+
+def _bf16_ulp(m):
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _check_face(got, want):
+    assert got.dtype == want.dtype
+    err = float((got.double() - want.double()).abs().max())
+    m = float(want.double().abs().max())
+    tol = _bf16_ulp(m) if want.dtype == torch.bfloat16 \
+        else TOL * max(1.0, m)
+    assert err <= tol, (err, tol)
+
+
+BF16_SHAPES = [(256, 384, 256), (100, 130, 200), (1, 3, 5), (130, 257, 66),
+               (64, 3072, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_bf16_face_matches_plain_version_at_every_tiling(cuda_device,
+                                                         shape):
+    x, w, _ = (torch.from_numpy(a).to(cuda_device).bfloat16()
+               for a in _inputs(shape, seed=17))
+    for t in tmm.TILINGS:
+        assert tmm.kernel_smem_bytes(*t, dtype=torch.bfloat16) == \
+            tmm.smem_bytes(*t, torch.bfloat16)
+        cfg = dict(zip(("block_m", "block_n", "block_k"), t))
+        for out_dtype in (None, torch.float32):
+            kernels.reset_launches()
+            got = tmm.matmul(x, w, out_dtype, cfg)
+            again = tmm.matmul(x, w, out_dtype, cfg)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()["matmul_bf16"] == 2
+            assert kernels.launch_counts()["matmul"] == 0
+            assert torch.equal(got, again), t
+            _check_face(got, tmm.matmul_reference(x, w, cfg, out_dtype))
+
+
+@pytest.mark.cuda
+def test_bf16_face_takes_a_misaligned_operand(cuda_device):
+    # an operand that starts one value past a 16-byte boundary is staged
+    # by the face's plain loads (as a ragged K or N is), not refused
+    x, w, _ = (torch.from_numpy(a).to(cuda_device).bfloat16()
+               for a in _inputs((64, 256, 128), seed=18))
+    buf = torch.empty(x.numel() + 1, dtype=torch.bfloat16,
+                      device=cuda_device)
+    xm = buf[1:].view(64, 256)
+    xm.copy_(x)
+    assert xm.is_contiguous() and xm.data_ptr() % 16 != 0
+    cfg = {"block_m": 64, "block_n": 64, "block_k": 32}
+    got = tmm.matmul(xm, w, None, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tmm.matmul(x, w, None, cfg))
+    _check_face(got, tmm.matmul_reference(x, w, cfg))

@@ -70,8 +70,10 @@ For each it prints the registers and spills ``-Xptxas -v`` reports and:
   (B 1, S 1024, H 12, D 64, causal) and the LM step's (B 8);
 - matmul: at the LM step's gemm shapes (8192 x 768 x 768, 8192 x 768 x
   3072, 8192 x 3072 x 768) the largest error over the largest magnitude
-  of a float64 product, worst over the tilings, and the time of every
-  tiling;
+  of a float64 product, worst over the tilings, the time of every
+  tiling, and whether each variant's outputs equal the source's bit for
+  bit at every tiling (with ``--against``: a change left the float32
+  face as it was);
 - gru, lstm: the largest error of hs (and the LSTM's cs) over its
   largest magnitude against a float64 plain recurrence at T 100, N 64,
   D 512 (the sequence slice's shape), ragged and full, and the time at
@@ -86,8 +88,9 @@ For each it prints the registers and spills ``-Xptxas -v`` reports and:
 - conv3x3: at ResNet-50's four stage shapes at batch 32
   (``chip_smoke.R50_CONV_SHAPES``) the largest error of the forward and
   of dx (the kernel on the output gradient and the rotated filter) over
-  the largest magnitude of a float64 plain conv, the time of each, and
-  the tiling the source's rule takes there;
+  the largest magnitude of a float64 plain conv, the time of each, the
+  tiling the source's rule takes there, and whether each variant's
+  outputs equal the source's bit for bit;
 - paged: at the decode step's shape (``chip_smoke._paged_inputs``: MB
   64, T 16, nh 12, dh 64) with R 16 (phase 2's positions) and R 1 and
   4 (every row at the last column), the largest error against a float64
@@ -486,8 +489,10 @@ def study_matmul(libs, result, dev, flush):
         w = _randn(rng, (K, N), dev, 0.1)
         want = torch.matmul(x.double(), w.double())
         tag = "%dx%dx%d" % (M, K, N)
+        source_out = {}
         for name, lib in libs.items():
             rec = {"max_rel_err": 0.0, "ms": {}}
+            same = True
             with using("matmul", lib):
                 for t in mm.TILINGS:
                     got = mm._launch(x, w, t)
@@ -495,15 +500,22 @@ def study_matmul(libs, result, dev, flush):
                     rec["max_rel_err"] = max(rec["max_rel_err"], float(
                         (got.double() - want).abs().max()
                         / want.abs().max()))
+                    if name == "source":
+                        source_out[t] = got
+                    else:
+                        same = same and torch.equal(got, source_out[t])
                     rec["ms"]["%dx%dx%d" % t] = time_ms(
                         lambda: mm._launch(x, w, t), flush)
             best = min(rec["ms"], key=rec["ms"].get)
             rec["best"] = {best: rec["ms"][best]}
+            if name != "source":
+                rec["bit_identical_to_source"] = same
             result[name][tag] = rec
-            print(json.dumps({name: {tag: {"max_rel_err": rec["max_rel_err"],
-                                           "best": rec["best"]}}}),
-                  flush=True)
-        del x, w, want
+            print(json.dumps({name: {tag: {
+                "max_rel_err": rec["max_rel_err"], "best": rec["best"],
+                "bit_identical_to_source": rec.get(
+                    "bit_identical_to_source")}}}), flush=True)
+        del x, w, want, source_out
         torch.cuda.empty_cache()
 
 
@@ -624,9 +636,14 @@ def study_conv3x3(libs, result, dev, flush):
                                         flush)}
                 if hasattr(lib, "conv3x3_tiling"):
                     rec["rule_tiling"] = "%dx%d" % conv.kernel_tiling(*shape)
+            if name == "source":
+                source_out = (got, got_dx)
+            else:
+                rec["bit_identical_to_source"] = torch.equal(
+                    got, source_out[0]) and torch.equal(got_dx, source_out[1])
             result[name][tag] = rec
             print(json.dumps({name: {tag: rec}}), flush=True)
-        del x, w, g, w_rot, want, want_dx, got, got_dx
+        del x, w, g, w_rot, want, want_dx, got, got_dx, source_out
         torch.cuda.empty_cache()
 
 
