@@ -121,16 +121,28 @@ Phases, in order; any failure exits non-zero at once:
    ulp (float32 out: ``AMP_F32_REL_TOL``), each relaunched
    bit-identically, a plain variant that sums in bfloat16 shown to miss,
    with kernel, plain, library (on bfloat16) and bfloat16-bound times;
-   train ResNet-50 as phase 6 does under plain AMP (step-1 gradients
-   against a plain reference rounded as AMP rounds, the unrounded one
-   measured beside it; exactly 16 bfloat16 forward and 16 dx launches a
-   step) and under pure AMP (conv and batch-norm outputs fetched as
-   bfloat16, parameters float32), images/s beside phase 6's; train
-   phase 5's LM under plain AMP against a cache of the face's fastest
-   tilings (step-1 gradients against the rounded float64 reference,
-   exactly 72 bfloat16 matmul launches a step, the loss falling), and
-   show that pure AMP on the LM stops at the flash kernels' dtype check
-   (their bfloat16 faces are not ported).
+   hold the bfloat16 faces of the flash forward, dK/dV and dQ kernels
+   against their plain versions at ``FLASH_BF16_CASES`` (the LM step's
+   shape, the prefill's, D 32 non-causal and D 128 causal) within one
+   ulp element by element (lse at KERNEL_TOL), the elements that differ
+   counted, each relaunched bit-identically, a forward with bfloat16
+   scores shown to miss and faces that round p and ds to one bfloat16
+   measured, with kernel, plain, SDPA (on bfloat16) and bfloat16-bound
+   times at B 8 and B 1 and every template's registers, spills and
+   shared memory; train ResNet-50 as phase 6 does under plain AMP
+   (step-1 gradients against a plain reference rounded as AMP rounds,
+   the unrounded one measured beside it; exactly 16 bfloat16 forward and
+   16 dx launches a step) and under pure AMP (conv and batch-norm
+   outputs fetched as bfloat16, parameters float32), images/s beside
+   phase 6's; train phase 5's LM under plain AMP and under pure AMP
+   against a cache of the matmul face's fastest tilings: step 1 held op
+   by op (every mul, and under pure AMP every flash_attention and its
+   generic grad, on the step's own tensors; the end-to-end gradients
+   against float64 references reported), exactly 72 bfloat16 matmul
+   launches a step, and under pure AMP 24 bfloat16 flash forward, 12
+   dK/dV and 12 dQ launches a step and no float32 flash launch, the loss
+   falling; tokens/s, step p50 and device time of both beside phase 8's
+   tuned float32 run.
 
 Each phase prints its wall time. Before phase 1 the tune cache is set
 to a fresh, empty directory under ``build/`` (printed), so that no
@@ -369,6 +381,22 @@ PEAK_BF16_FLOPS = 989e12
 # step 1, forward and grad, on the tensors the step gave it, against the
 # same op rounded as AMP rounds, within one bfloat16 ulp of the largest
 # magnitude (a bfloat16 value) or AMP_F32_REL_TOL of it (a float32 sum).
+# The bfloat16 faces of the flash kernels (rows 2-4) against their plain
+# versions (float32 on the bfloat16 values, o, dq, dk and dv rounded
+# once): both sum in float32 in other orders, so an output within float32
+# noise of a rounding boundary lands one ulp of its own magnitude apart.
+# Held so element by element: within one ulp of its own magnitude plus
+# BWD_REL_TOL of the largest (the float32 noise of an element near 0),
+# and the largest error within one ulp of the largest magnitude. The
+# second part alone cannot tell a forward that rounds its scores and
+# softmax to bfloat16 (the port's first plain forward on bfloat16) from
+# the face: it errs by 0.5-2 ulps of the largest magnitude, but by 35-125
+# ulps of the small outputs' own, which the first part catches. lse,
+# float32, within KERNEL_TOL (the float32 face's tolerance).
+# The faces' shapes (B, S, H, D, causal): the LM step's and the
+# prefill's, and the other head dims' templates.
+FLASH_BF16_CASES = [(8, 1024, 12, 64, True), (1, 1024, 12, 64, True),
+                    (2, 130, 12, 32, False), (2, 130, 12, 128, True)]
 
 # the tune cache of phases 1-7: a fresh, empty directory, so that no
 # winner left in the home directory reroutes them
@@ -636,6 +664,7 @@ def _flash_fwd_kernel(dev, flush):
     H = 12
     rng = np.random.RandomState(12)
     lib = _build.load("flash_attention_fwd")
+    lib.flash_attention_fwd_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.flash_attention_fwd_smem_bytes.restype = ctypes.c_int
 
     def err(got, want):
@@ -654,7 +683,7 @@ def _flash_fwd_kernel(dev, flush):
                "max_abs_err": err(got, want), "tolerance": KERNEL_TOL,
                "second_launch_bit_identical": all(
                    bool(torch.equal(a, b)) for a, b in zip(got, again)),
-               "smem_bytes": lib.flash_attention_fwd_smem_bytes(D),
+               "smem_bytes": lib.flash_attention_fwd_smem_bytes(D, 0),
                "ptxas": _ptxas("flash_attention_fwd",
                                "flash_fwd_kernelILi%dE" % D)}
         if S == 1024:
@@ -748,6 +777,7 @@ def _flash_bwd_kernels(dev, flush):
     B, H = TRAIN_BATCH, 12
     rng = np.random.RandomState(13)
     lib = _build.load("flash_attention_bwd")
+    lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
     per_case = {}
     for S, D, causal in FLASH_BWD_CASES:
@@ -808,8 +838,8 @@ def _flash_bwd_kernels(dev, flush):
                "library_max_rel_err": _rel_err(
                    [g.transpose(1, 2) for g in library()], want),
                "smem_bytes": {
-                   "dkv": lib.flash_attention_bwd_smem_bytes(D, 0),
-                   "dq": lib.flash_attention_bwd_smem_bytes(D, 1)},
+                   "dkv": lib.flash_attention_bwd_smem_bytes(D, 0, 0),
+                   "dq": lib.flash_attention_bwd_smem_bytes(D, 1, 0)},
                "ptxas": {
                    "dkv": _ptxas("flash_attention_bwd",
                                  "flash_bwd_dkv_kernelILi%dE" % D),
@@ -1319,10 +1349,12 @@ def _lm_train(dev, label, after=None, want_matmul=0,
     (and the tune counters read before and after), and profile two more
     steps. ``want_matmul`` is the
     matmul kernel's expected launches a step; ``after(cfg, scope)`` runs
-    inside the trained scope. ``amp``: the program under plain AMP, the
-    gemms on the matmul kernel's bfloat16 face and the step-1 gradients
-    held against the bfloat16-rounded reference. Returns the record the
-    phase logs."""
+    inside the trained scope. ``amp``: the program under plain AMP
+    (True) or pure AMP ("pure"), the gemms on the matmul kernel's
+    bfloat16 face (under pure AMP the attention too, on the flash
+    kernels' bfloat16 faces) and step 1 held op by op against the
+    bfloat16-rounded reference (:func:`_amp_lm_grad_check`). Returns
+    the record the phase logs."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import kernels, tune
     from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
@@ -1331,7 +1363,7 @@ def _lm_train(dev, label, after=None, want_matmul=0,
     widths, cfg, spec, trainer, main_prog = _lm_build(dev)
     if amp:
         from paddle_tpu_torch import amp as amp_mod
-        amp_mod.enable(main_prog)
+        amp_mod.enable(main_prog, pure=amp == "pure")
     L = cfg.num_layers
     build_s = time.monotonic() - t0
     n_ops = len(main_prog.global_block().ops)
@@ -1345,7 +1377,8 @@ def _lm_train(dev, label, after=None, want_matmul=0,
             for v in main_prog.all_parameters()))
         first = next(iter(spec["reader"]()))
         feed, up_b = trainer.feeder.feed(first), _up_biases(main_prog, L)
-        checks = (_amp_lm_grad_check(trainer, spec, cfg, feed, up_b, label)
+        checks = (_amp_lm_grad_check(trainer, spec, cfg, feed, up_b, label,
+                                     pure=amp == "pure")
                   if amp else _grad_check(trainer, spec, cfg, feed, up_b,
                                           label, grad_tol))
         torch.cuda.empty_cache()
@@ -1372,15 +1405,20 @@ def _lm_train(dev, label, after=None, want_matmul=0,
                       for k, v in tune_before.items()}
         peak = torch.cuda.max_memory_allocated(dev)
         steps = len(losses)
-        want = dict(_no_launches(), flash_attention_fwd=2 * L * steps,
-                    flash_attention_bwd_dkv=L * steps,
-                    flash_attention_bwd_dq=L * steps,
-                    **{"matmul_bf16" if amp else "matmul":
-                       want_matmul * steps})
+        flash = "_bf16" if amp == "pure" else ""
+        want = dict(_no_launches(), **{
+            "flash_attention_fwd" + flash: 2 * L * steps,
+            "flash_attention_bwd_dkv" + flash: L * steps,
+            "flash_attention_bwd_dq" + flash: L * steps,
+            "matmul_bf16" if amp else "matmul": want_matmul * steps})
         if steps != 2 * TRAIN_PASSES or launches != want:
             fail("%s launch counts %s over %d steps, expected %s"
                  % (label, launches, steps, want))
-        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        # under pure AMP the loss is a bfloat16 value: it falls only by
+        # more than one bfloat16 ulp
+        fall = _bf16_ulp(abs(losses[0])) if amp == "pure" else 0.0
+        if not (np.all(np.isfinite(losses))
+                and losses[-1] < losses[0] - fall):
             fail("%s loss did not fall: %s" % (label, losses))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1392,15 +1430,19 @@ def _lm_train(dev, label, after=None, want_matmul=0,
         profile_window["steps"] = 2
         for kernel in ("matmul_kernel", "matmul_bf16_kernel",
                        "flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                       "flash_bwd_dq_kernel"):
+                       "flash_bwd_dq_kernel", "flash_fwd_bf16_kernel",
+                       "flash_bwd_dkv_bf16_kernel",
+                       "flash_bwd_dq_bf16_kernel"):
             profile_window[kernel] = _kernel_share(prof, kernel)
         extra = after(cfg, global_scope()) if after else None
     p50 = float(np.median(step_s))
     tokens = TRAIN_BATCH * cfg.max_seq
     rec = {
         "config": dict(widths, batch=TRAIN_BATCH,
-                       dtype="plain AMP (bfloat16 gemm operands)" if amp
-                       else "float32",
+                       dtype={True: "plain AMP (bfloat16 gemm operands)",
+                              "pure": "pure AMP (bfloat16 gemm operands "
+                                      "and outputs, bfloat16 attention)",
+                              False: "float32"}[amp],
                        tokens_per_step=tokens, optimizer="adam",
                        learning_rate=TRAIN_LR, seed=0),
         "params": n_params, "program_ops": n_ops, "build_s": build_s,
@@ -1830,16 +1872,24 @@ def _op_err(got, want, rounded):
 
 
 def _amp_op_check(trainer, feed, label):
-    """One step under plain AMP fetching every mul's and conv2d's
-    inputs, output, output gradient and input gradients (the scope put
-    back as it was before the step); each op against
-    the same op rounded as AMP rounds (:class:`_AmpMm`, :class:`_AmpConv`,
-    in float32 with TF32 off) on those tensors and the parameters the
-    step started from. A gemm inside the matmul kernel's population runs
-    tuned here (its output rounded to bfloat16); the LM head and the fc
-    of ResNet-50 lie outside it. Fails past the tolerance of
-    :func:`_op_err`; returns the worst error over tolerance by role."""
+    """One step under plain or pure AMP fetching every mul's, conv2d's
+    and flash_attention's inputs, output, output gradient and input
+    gradients (the scope put back as it was before the step); each op
+    against the same op rounded as AMP rounds (:class:`_AmpMm`,
+    :class:`_AmpConv`, in float32 with TF32 off) on those tensors and the
+    parameters the step started from. A gemm inside the matmul kernel's
+    population runs tuned here (its output rounded to bfloat16); the LM
+    head and the fc of ResNet-50 lie outside it; a value the step wrote
+    in bfloat16 (pure AMP: every mul's output, dX of a bfloat16 X) is
+    held against its reference rounded to bfloat16. Fails past the
+    tolerance of :func:`_op_err`. A flash_attention op and its generic
+    grad are held against the plain forward and backward (float32, o
+    and the gradients rounded once to the operands' dtype) on the
+    step's q, k, v, o and dO: within one ulp (:func:`_flash_bf16_err`)
+    on bfloat16 operands, KERNEL_TOL and BWD_REL_TOL on float32 ones.
+    Returns the worst error over tolerance by role."""
     from paddle_tpu_torch.core.scope import global_scope
+    from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels.matmul import supports_matmul
     from paddle_tpu_torch.ops.common import flatten_to_2d
     F = torch.nn.functional
@@ -1858,8 +1908,20 @@ def _amp_op_check(trainer, feed, label):
     grads = {(op.type[:-5],) + tuple(op.input(s_)[0] for s_ in
                                      slots[op.type[:-5]][:2]): op
              for op in ops if op.type in ("mul_grad", "conv2d_grad")}
-    checks, fetch = [], []
+    flash_grads = {tuple(op.input(s_)[0] for s_ in ("Q", "K", "V")): op
+                   for op in ops if op.type == "generic_grad"
+                   and op.attr("__fwd_type__") == "flash_attention"}
+    checks, fetch, flash = [], [], []
     for op in ops:
+        if op.type == "flash_attention":
+            qkv = tuple(op.input(s_)[0] for s_ in ("Q", "K", "V"))
+            g = flash_grads.get(qkv)
+            dout = g.input("Out@GRAD")[0] if g is not None else None
+            dqkv = [g.output(s_ + "@GRAD")[0] if g is not None
+                    and g.output(s_ + "@GRAD") else None for s_ in "QKV"]
+            flash.append((op, qkv, op.output("Out")[0], dout, dqkv))
+            fetch += [n for n in qkv + (op.output("Out")[0], dout)
+                      + tuple(dqkv) if n]
         if op.type not in slots:
             continue
         x_slot, w_slot, o_slot = slots[op.type]
@@ -1889,6 +1951,37 @@ def _amp_op_check(trainer, feed, label):
             fail("%s: AMP %s of %s differs from its rounded reference by "
                  "%g > %g" % (label, role, where, err, tol))
 
+    def hold_flash(role, got, want, where):
+        if got.dtype != want.dtype:
+            fail("%s: %s of %s is %s, its plain version %s"
+                 % (label, role, where, got.dtype, want.dtype))
+        if got.dtype == torch.bfloat16:
+            ratio = max(_flash_bf16_err(got, want)[:2])
+        else:
+            tol = KERNEL_TOL if role == "flash_out" else \
+                BWD_REL_TOL * float(want.abs().max())
+            ratio = float((got - want).abs().max()) / tol
+        worst[role] = max(worst.get(role, 0.0), ratio)
+        if not ratio <= 1:
+            fail("%s: %s of %s differs from the plain flash attention by "
+                 "%g of its tolerance" % (label, role, where, ratio))
+
+    for op, qkv, out, dout, dqkv in flash:
+        q, k, v = (vals[n] for n in qkv)
+        causal = bool(op.attr("causal", False))
+        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=causal)
+        hold_flash("flash_out", vals[out], o_ref, out)
+        if dout is None:
+            continue
+        want_grads = fa.flash_attention_bwd_reference(
+            q, k, v, vals[out], lse_ref, vals[dout].reshape(q.shape),
+            causal=causal)
+        for role, name, w in zip(("flash_dq", "flash_dk", "flash_dv"), dqkv,
+                                 want_grads):
+            if name:
+                hold_flash(role, vals[name], w, out)
+        del o_ref, lse_ref, want_grads
+
     for op, out, dout, dx_name, dw_name in checks:
         a = op.attr
         if op.type == "conv2d":
@@ -1913,22 +2006,28 @@ def _amp_op_check(trainer, feed, label):
         x2 = flatten_to_2d(vals[op.input("X")[0]], a("x_num_col_dims", 1))
         w2 = flatten_to_2d(vals[op.input("Y")[0]], a("y_num_col_dims", 1))
         tuned = supports_matmul(tuple(x2.shape), tuple(w2.shape), "bfloat16")
-        xb, wb = _bf16_values(x2), _bf16_values(w2)
+        xb, wb = _bf16_values(x2).float(), _bf16_values(w2).float()
         want = xb @ wb
-        hold("mul_out_tuned" if tuned else "mul_out",
-             vals[out].reshape(want.shape),
-             _bf16_values(want) if tuned else want, tuned, out)
+        got = vals[out].reshape(want.shape)
+        rounded = tuned or got.dtype == torch.bfloat16
+        hold("mul_out_tuned" if tuned else "mul_out", got,
+             _bf16_values(want) if rounded else want, rounded, out)
         if dout is not None:
-            gb = _bf16_values(vals[dout].reshape(want.shape))
+            gb = _bf16_values(vals[dout].reshape(want.shape)).float()
             if dx_name:
-                hold("mul_dx", vals[dx_name].reshape(x2.shape), gb @ wb.t(),
-                     False, out)
+                got = vals[dx_name].reshape(x2.shape)
+                rounded = got.dtype == torch.bfloat16
+                want_dx = gb @ wb.t()
+                hold("mul_dx", got,
+                     _bf16_values(want_dx) if rounded else want_dx, rounded,
+                     out)
             if dw_name:
                 hold("mul_dw", vals[dw_name].reshape(w2.shape), xb.t() @ gb,
                      False, out)
     del vals
     torch.cuda.empty_cache()
-    rec = {"ops": len(checks), "max_err_over_tol": worst}
+    rec = {"ops": len(checks), "flash_ops": len(flash),
+           "max_err_over_tol": worst}
     log(json.dumps({label + "_op_check": rec}))
     return rec
 
@@ -3060,6 +3159,259 @@ def _bf16_step_sums_mm(x, w, bk=32):
     return acc
 
 
+def _flash_bf16_err(got, want):
+    """(largest error over one bfloat16 ulp of the largest magnitude,
+    largest error of an element over one ulp of its own magnitude plus
+    BWD_REL_TOL of the largest, elements that differ) of a bfloat16
+    output against its plain version; both ratios at most 1 pass."""
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    m = float(w.abs().max())
+    mag = w.abs()
+    own = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(
+        torch.where(mag > 0, mag, torch.ones_like(mag)))) - 7),
+        torch.zeros_like(mag))
+    return (float(err.max()) / _bf16_ulp(m),
+            float((err / (own + BWD_REL_TOL * m)).max()),
+            int(torch.count_nonzero(err)))
+
+
+def _bf16_scores_forward(q, k, v, causal):
+    """The plain forward as the port first computed it on bfloat16:
+    scores, softmax and p v each written in bfloat16. Must miss the
+    faces' tolerance."""
+    S, D = q.shape[1], q.shape[3]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * D ** -0.5
+    if causal:
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool,
+                                     device=q.device).triu(1), float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
+                        vh).transpose(1, 2)
+
+
+def _p_rounded_flash(q, k, v, do, causal):
+    """A plain emulation of faces that round p and ds to one bfloat16
+    each (FlashAttention-2's products, where the faces split them into
+    two): ``exp(s - rowmax)`` rounded before p v and divided by its
+    float32 sum, p and ds rounded before p^T dO, ds k and ds^T q.
+    Returns (o, (dq, dk, dv)), rounded to bfloat16; reported, not
+    gated."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    S, D = q.shape[1], q.shape[3]
+    scale = D ** -0.5
+    qh, kh, vh, doh = (t.transpose(1, 2).float() for t in (q, k, v, do))
+    s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool,
+                                     device=q.device).triu(1), float("-inf"))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bhqk,bhkd->bhqd", e.bfloat16().float(), vh) \
+        / e.sum(dim=-1, keepdim=True)
+    del e
+    o = o.transpose(1, 2).bfloat16()
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    delta = fa._delta(o, do, None)
+    dp = torch.einsum("bhqd,bhkd->bhqk", doh, vh)
+    ds = (p * (dp - delta[..., None]) * scale).bfloat16().float()
+    p = p.bfloat16().float()
+    grads = (torch.einsum("bhqk,bhkd->bhqd", ds, kh),
+             torch.einsum("bhqk,bhqd->bhkd", ds, qh),
+             torch.einsum("bhqk,bhqd->bhkd", p, doh))
+    return o, tuple(g.transpose(1, 2).bfloat16() for g in grads)
+
+
+def _amp_flash_check(dev, flush):
+    """Rows 2-4's bfloat16 faces against their plain versions at
+    FLASH_BF16_CASES: o, dq, dk and dv within one ulp
+    (:func:`_flash_bf16_err`, the count of elements that differ
+    reported), lse within KERNEL_TOL, each kernel launched twice (the
+    second launch bit-identical), the bfloat16-score forward shown to
+    miss, the error of faces that round p and ds to one bfloat16
+    reported; at B 8 and B 1 the kernels', the plain versions' and SDPA's
+    (on bfloat16) times and the bfloat16 bound; every template's
+    registers, spills and shared memory. Returns the three entries of
+    the kernels line."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    F = torch.nn.functional
+    fwd_lib = _build.load("flash_attention_fwd")
+    bwd_lib = _build.load("flash_attention_bwd")
+    fwd_lib.flash_attention_fwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    fwd_lib.flash_attention_fwd_smem_bytes.restype = ctypes.c_int
+    bwd_lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    bwd_lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
+    rng = np.random.RandomState(14)
+    per_case = {}
+    for B, S, H, D, causal in FLASH_BF16_CASES:
+        scale = D ** -0.5
+        q, k, v, do = [torch.from_numpy(rng.randn(B, S, H, D).astype(
+            np.float32)).to(dev).bfloat16() for _ in range(4)]
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+        o2, lse2 = fa.flash_attention_with_lse(q, k, v, causal=causal)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=causal)
+        want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                causal=causal)
+        torch.cuda.synchronize()
+        case = "B%d_S%d_D%d_%s" % (B, S, D, "causal" if causal else "full")
+        rec = {"B": B, "S": S, "H": H, "D": D, "causal": causal,
+               "lse_max_abs_err": float((lse - lse_ref).abs().max()),
+               "lse_tolerance": KERNEL_TOL,
+               "relaunch_bit_identical": {
+                   "fwd": bool(torch.equal(o, o2) and torch.equal(lse, lse2)),
+                   **{n: bool(torch.equal(g, a)) for n, g, a in
+                      zip(("dq", "dk", "dv"), grads, again)}}}
+        names = ("o", "dq", "dk", "dv")
+        for n, g, w in zip(names, (o,) + tuple(grads), (o_ref,) + want):
+            if g.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+                fail("flash bf16 %s at %s is %s, its plain version %s"
+                     % (n, case, g.dtype, w.dtype))
+            max_ulps, own_ulps, differ = _flash_bf16_err(g, w)
+            rec[n] = {"max_abs_err": float((g.double() - w.double()).abs()
+                                           .max()),
+                      "err_over_max_ulp": max_ulps,
+                      "err_over_own_tol": own_ulps,
+                      "elements_differ": differ, "elements": g.numel()}
+            if not (max_ulps <= 1 and own_ulps <= 1):
+                fail("flash bf16 %s disagrees with its plain version at %s: "
+                     "%g ulps of the largest, %g of its own tolerance"
+                     % (n, case, max_ulps, own_ulps))
+        if not rec["lse_max_abs_err"] <= KERNEL_TOL:
+            fail("flash bf16 lse disagrees with its plain version at %s: %g "
+                 "> %g" % (case, rec["lse_max_abs_err"], KERNEL_TOL))
+        if not all(rec["relaunch_bit_identical"].values()):
+            fail("flash bf16 relaunched at %s differs from its first launch: "
+                 "%s" % (case, rec["relaunch_bit_identical"]))
+        old = _flash_bf16_err(_bf16_scores_forward(q, k, v, causal), o_ref)
+        rec["bf16_scores_forward"] = {"err_over_max_ulp": old[0],
+                                      "err_over_own_tol": old[1],
+                                      "elements_differ": old[2]}
+        if not max(old[:2]) > 1:
+            fail("at %s a forward with bfloat16 scores errs by only %s: the "
+                 "tolerance cannot tell it from the face" % (case, old))
+        po, pg = _p_rounded_flash(q, k, v, do, causal)
+        rec["p_ds_rounded_once"] = {
+            n: dict(zip(("err_over_max_ulp", "err_over_own_tol",
+                         "elements_differ"), _flash_bf16_err(g, w)))
+            for n, g, w in zip(names, (po,) + pg, (o_ref,) + want)}
+        del po, pg, o2, lse2, again
+        rec["smem_bytes"] = {
+            "fwd": fwd_lib.flash_attention_fwd_smem_bytes(D, 1),
+            "dkv": bwd_lib.flash_attention_bwd_smem_bytes(D, 0, 1),
+            "dq": bwd_lib.flash_attention_bwd_smem_bytes(D, 1, 1)}
+        rec["ptxas"] = {
+            "fwd": _ptxas("flash_attention_fwd",
+                          "flash_fwd_bf16_kernelILi%dE" % D),
+            "dkv": _ptxas("flash_attention_bwd",
+                          "flash_bwd_dkv_bf16_kernelILi%dE" % D),
+            "dq": _ptxas("flash_attention_bwd",
+                         "flash_bwd_dq_bf16_kernelILi%dE" % D)}
+        if S == 1024:
+            delta = fa._delta(o, do, None).contiguous()
+            pairs = S * (S + 1) // 2 if causal else S * S
+            head, vec = S * D * 2, S * 4
+            work = {"fwd": (B * H * (4 * head + vec), B * H * pairs * 4 * D),
+                    "dkv": (B * H * (6 * head + 2 * vec),
+                            B * H * pairs * 8 * D),
+                    "dq": (B * H * (5 * head + 2 * vec),
+                           B * H * pairs * 6 * D)}
+            qh, kh, vh = (t.transpose(1, 2).detach().clone()
+                          .requires_grad_(True) for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(qh, kh, vh,
+                                                     is_causal=causal)
+            doh = do.transpose(1, 2)
+            rec["times"] = {
+                "fwd_ms": time_ms(lambda: fa.flash_attention_with_lse(
+                    q, k, v, causal=causal), flush=flush),
+                "dkv_ms": time_ms(lambda: fa._bwd_dkv(
+                    q, k, v, do, lse, delta, causal, scale), flush=flush),
+                "dq_ms": time_ms(lambda: fa._bwd_dq(
+                    q, k, v, do, lse, delta, causal, scale), flush=flush),
+                "fwd_plain_ms": time_ms(lambda: fa.flash_attention_reference(
+                    q, k, v, causal=causal), flush=flush),
+                "bwd_plain_ms": time_ms(
+                    lambda: fa.flash_attention_bwd_reference(
+                        q, k, v, o, lse, do, causal=causal), flush=flush),
+                "fwd_library_ms": time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, is_causal=causal), flush=flush),
+                "bwd_library_ms": time_ms(lambda: torch.autograd.grad(
+                    lib_out, (qh, kh, vh), doh, retain_graph=True),
+                    flush=flush)}
+            rec["bound"] = {}
+            for kname, (nbytes, flops) in work.items():
+                b_ms, b_by = bf16_bound(nbytes, flops)
+                rec["bound"][kname] = {"ms": b_ms, "by": b_by,
+                                       "bytes": nbytes, "flops": flops}
+            del delta, qh, kh, vh, lib_out
+        log(json.dumps({"flash_bf16_check": {case: rec}}))
+        per_case[case] = rec
+        del q, k, v, do, o, lse, grads, o_ref, lse_ref, want
+    torch.cuda.empty_cache()
+    lm = per_case["B8_S1024_D64_causal"]
+    prefill = per_case["B1_S1024_D64_causal"]
+    out = {}
+    for name, line, key, what, split in (
+            ("flash_attention_fwd_bf16", 119, "fwd", ("o",), 1.5),
+            ("flash_attention_bwd_dkv_bf16", 231, "dkv", ("dk", "dv"), 1.5),
+            ("flash_attention_bwd_dq_bf16", 254, "dq", ("dq",), 4 / 3)):
+        plain = "fwd_plain_ms" if key == "fwd" else "bwd_plain_ms"
+        lib_key = "fwd_library_ms" if key == "fwd" else "bwd_library_ms"
+        out[name] = {
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention_%s.cu"
+                      % ("fwd" if key == "fwd" else "bwd"),
+            "replaces": "paddle_tpu/kernels/flash_attention.py:%d" % line,
+            "role": "the bfloat16 face (pure AMP): bfloat16 q, k, v%s, "
+                    "float32 arithmetic, %s rounded once to bfloat16"
+                    % ("" if key == "fwd" else " and dO",
+                       "/".join(what)),
+            "max_abs_err": max(r[n]["max_abs_err"] for r in per_case.values()
+                               for n in what),
+            "max_err_over_tol": max(max(r[n]["err_over_max_ulp"],
+                                        r[n]["err_over_own_tol"])
+                                    for r in per_case.values() for n in what),
+            "tolerance": "one bfloat16 ulp: every element within one ulp of "
+                         "its own magnitude plus %g of the largest, the "
+                         "largest error within one ulp of the largest "
+                         "magnitude" % BWD_REL_TOL,
+            "bf16_scores_forward_min_err_over_tol": min(
+                max(r["bf16_scores_forward"]["err_over_max_ulp"],
+                    r["bf16_scores_forward"]["err_over_own_tol"])
+                for r in per_case.values()),
+            "p_ds_rounded_once_max_err_over_tol": max(
+                max(r["p_ds_rounded_once"][n]["err_over_max_ulp"],
+                    r["p_ds_rounded_once"][n]["err_over_own_tol"])
+                for r in per_case.values() for n in what),
+            "ms": lm["times"][key + "_ms"],
+            "plain_ms": lm["times"][plain],
+            "plain": "flash_attention_reference" if key == "fwd" else
+                     "flash_attention_bwd_reference (dq, dk and dv)",
+            "bound_ms": lm["bound"][key]["ms"],
+            "bound_by": lm["bound"][key]["by"],
+            "bound_note": "bytes over 3.35 TB/s or flops over 989 TFLOP/s "
+                          "dense bf16; the face's split products (p or ds "
+                          "as two bfloat16 terms) take %.3gx those flops"
+                          % split,
+            "library_ms": lm["times"][lib_key],
+            "library": "scaled_dot_product_attention(is_causal=True) on "
+                       "bfloat16" if key == "fwd" else
+                       "autograd.grad through scaled_dot_product_attention"
+                       "(is_causal=True) on bfloat16: dq, dk and dv, to be "
+                       "compared with the sum of both kernels",
+            "shape": {"B": 8, "H": 12, "D": 64, "causal": True, "S": 1024},
+            "prefill_B1": {"ms": prefill["times"][key + "_ms"],
+                           "plain_ms": prefill["times"][plain],
+                           "bound_ms": prefill["bound"][key]["ms"],
+                           "library_ms": prefill["times"][lib_key]},
+            "per_case": {c: {n: r[n] for n in what}
+                         for c, r in per_case.items()}}
+    return out
+
+
 def _amp_conv_check(dev, flush):
     """Row 6's bfloat16 face against its plain version at ResNet-50's
     stage shapes (batch 32) and the edge shapes: the forward with a
@@ -3298,12 +3650,13 @@ def _amp_lm_reference(params, feed, cfg, dtype=torch.float64):
     return dict(zip(names, grads)), float(loss.detach())
 
 
-def _amp_lm_grad_check(trainer, spec, cfg, feed, up_b, label):
-    """Step 1 under plain AMP: every mul against its rounded reference
-    (the gate, :func:`_amp_op_check`); then every parameter's @GRAD end
-    to end against torch.autograd through the bfloat16-rounded plain
-    forward in float64 and through the unrounded float64 one,
-    reported."""
+def _amp_lm_grad_check(trainer, spec, cfg, feed, up_b, label, pure=False):
+    """Step 1 under plain or pure AMP: every mul and flash_attention
+    against its rounded reference (the gate, :func:`_amp_op_check`); then
+    every parameter's @GRAD end to end against torch.autograd through
+    the unrounded float64 plain forward and, under plain AMP, through
+    the bfloat16-rounded one in float64 (:func:`_amp_lm_reference`
+    rounds as plain AMP does), reported."""
     from paddle_tpu_torch.core.scope import global_scope
     ops = _amp_op_check(trainer, feed, label)
     scope = global_scope()
@@ -3318,7 +3671,7 @@ def _amp_lm_grad_check(trainer, spec, cfg, feed, up_b, label):
     ref_name = _ref_names(up_b)
     ref_params = {ref_name.get(n, n): t for n, t in start.items()}
     stats = {}
-    for kind in ("bf16_rounded", "float64"):
+    for kind in ("float64",) if pure else ("bf16_rounded", "float64"):
         want, ref_loss = (
             _amp_lm_reference(ref_params, feed, cfg) if kind != "float64"
             else _reference_grads(ref_params, feed, cfg,
@@ -3328,9 +3681,10 @@ def _amp_lm_grad_check(trainer, spec, cfg, feed, up_b, label):
         del want
     torch.cuda.synchronize()
     checks = {"op_check": ops, "params_checked": len(params),
-              "gate": "op_check",
-              "separates": stats["float64"]["norm_rel_err_median"]
-              > 2 * stats["bf16_rounded"]["norm_rel_err_median"], **stats}
+              "gate": "op_check", **stats}
+    if not pure:
+        checks["separates"] = stats["float64"]["norm_rel_err_median"] \
+            > 2 * stats["bf16_rounded"]["norm_rel_err_median"]
     log(json.dumps({label + "_grad_check": checks}))
     return checks
 
@@ -3355,47 +3709,16 @@ def _seed_bf16_cache(per_shape, cache_dir):
     return picked
 
 
-def _pure_amp_lm_refusal(dev):
-    """The LM under pure AMP keeps its q / k / v projections in bfloat16,
-    and the flash kernels have a float32 face only: the step must raise
-    at the flash wrapper's dtype check, before any flash launch."""
-    from paddle_tpu_torch import amp, kernels
-    from paddle_tpu_torch.core.scope import Scope, scope_guard
-    _, _, spec, trainer, main_prog = _lm_build(dev)
-    amp.enable(main_prog, pure=True)
-    with scope_guard(Scope()):
-        trainer._maybe_init()
-        feed = trainer.feeder.feed(next(iter(spec["reader"]())))
-        kernels.reset_launches()
-        try:
-            trainer.exe.run(main_prog, feed=feed, fetch_list=[spec["cost"]])
-        except ValueError as e:
-            where = str(e) + " ".join(getattr(e, "__notes__", []))
-        else:
-            fail("pure AMP ran the LM: its bfloat16 q / k / v met no "
-                 "refusal at the flash kernels")
-        launches = kernels.launch_counts()
-    del trainer
-    torch.cuda.empty_cache()
-    rec = {"raised": where[:300], "flash_launches": {
-        k: v for k, v in launches.items() if k.startswith("flash")}}
-    log(json.dumps({"pure_amp_lm": rec}))
-    if "flash_attention" not in where or "float32" not in where \
-            or any(rec["flash_launches"].values()):
-        fail("pure AMP on the LM did not stop at the flash wrapper's dtype "
-             "check: %s" % rec)
-    return rec
-
-
 def phase_amp(dev, root, f32_images_s, tuned):
-    """AMP: the bfloat16 faces of rows 6 and 5 against their plain
-    versions, ResNet-50 under plain and pure AMP, the LM under plain AMP
-    on a cache of the face's fastest tilings, and pure AMP's refusal at
-    the flash kernels. Returns (kernel entries, {path: launch counts})."""
+    """AMP: the bfloat16 faces of rows 6, 5 and 2-4 against their plain
+    versions, ResNet-50 under plain and pure AMP, the LM under plain and
+    pure AMP on a cache of the matmul face's fastest tilings. Returns
+    (kernel entries, {path: launch counts})."""
     from paddle_tpu_torch import tune
     from paddle_tpu_torch.flags import FLAGS
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     entries = _amp_conv_check(dev, flush)
+    entries.update(_amp_flash_check(dev, flush))
     mm_shapes = _amp_matmul_check(dev, flush)
     del flush
     torch.cuda.empty_cache()
@@ -3414,23 +3737,35 @@ def phase_amp(dev, root, f32_images_s, tuned):
     tune.clear_memory_cache()
     L = GPT2_SMALL["num_layers"]
     per_layer = sum(MM_COUNTS)
+    runs = {}
     try:
-        rec = _lm_train(dev, "amp_train", want_matmul=per_layer * L,
-                        amp=True)
+        for label, mode in (("amp_train", True), ("pure_amp_train", "pure")):
+            runs[label] = _lm_train(dev, label, want_matmul=per_layer * L,
+                                    amp=mode)
     finally:
         FLAGS.tune_cache_dir = TUNE_EMPTY_DIR
         tune.clear_memory_cache()
-    steps = len(rec["losses"])
-    rec.update({"kernel_cache": picked,
-                "float32_tuned_tokens_per_s": tuned["tokens_per_s"],
-                "float32_tuned_step_ms_p50": tuned["step_ms_p50"]})
-    log(json.dumps({"amp_train": rec}))
-    if rec["tune"] != {"tune_hits": per_layer * L * steps, "tune_misses": 0,
-                       "tune_fallbacks": steps}:
-        fail("AMP train tune counters %s over %d steps, expected %d hits "
-             "and 1 fallback a step" % (rec["tune"], steps, per_layer * L))
-    paths["amp_train"] = rec["launches"]
-    _pure_amp_lm_refusal(dev)
+    for label, rec in runs.items():
+        steps = len(rec["losses"])
+        rec.update({"kernel_cache": picked,
+                    "float32_tuned_tokens_per_s": tuned["tokens_per_s"],
+                    "float32_tuned_step_ms_p50": tuned["step_ms_p50"]})
+        log(json.dumps({label: rec}))
+        if rec["tune"] != {"tune_hits": per_layer * L * steps,
+                           "tune_misses": 0, "tune_fallbacks": steps}:
+            fail("%s tune counters %s over %d steps, expected %d hits and "
+                 "1 fallback a step" % (label, rec["tune"], steps,
+                                        per_layer * L))
+        paths[label] = rec["launches"]
+    log(json.dumps({"lm_train": {
+        kind: {"tokens_per_s": r["tokens_per_s"],
+               "step_ms_p50": r["step_ms_p50"],
+               "device_kernel_ms_two_steps":
+                   r["profile"].get("device_kernel_ms"),
+               "device_busy_share": r["profile"].get("device_busy_share")}
+        for kind, r in (("float32_tuned", tuned),
+                        ("amp", runs["amp_train"]),
+                        ("pure_amp", runs["pure_amp_train"]))}}))
     weights = {}
     for shape, n in zip(MM_SHAPES, MM_COUNTS):
         sig = tune.signature({"m": shape[0], "k": shape[1], "n": shape[2],

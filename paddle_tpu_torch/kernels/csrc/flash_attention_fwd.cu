@@ -1,5 +1,5 @@
 // Flash attention forward on Hopper's tensor cores, float32-exact through
-// 3xTF32, for sm_90a.
+// 3xTF32, for sm_90a, with a bfloat16 face.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py, `_fa_forward` (its
 // pallas_call) with the kernel body `_fa_kernel`, reached through
@@ -62,14 +62,26 @@
 //   first. Determinism: no atomics, each output written once by one
 //   thread after sums in a fixed order, so relaunches agree bit for bit.
 //
+// The bfloat16 face (flash_attention_fwd_bf16, pure AMP: the q / k / v
+// projections keep their outputs in bfloat16): `_fa_kernel` on bfloat16
+// refs, all arithmetic float32 on the bfloat16 values and o rounded once
+// to bfloat16. The same walk, tiles, causal skip and double buffer on
+// bfloat16 tiles; q k^T on bf16 mma.sync.m16n8k16 (exact products), p
+// kept float32 and split into two bfloat16 terms against V (see the
+// kernel). Bound: the larger of 4 * S * D * 2 bytes a head over 3.35 TB/s
+// and the flops over 989 TFLOP/s dense bf16, 0.0151 ms at the LM step's
+// shape (bytes); the split p v makes the tensor-core work 1.5x those
+// flops.
+//
 // Tensors are [B, S, H, D], contiguous, 16-byte aligned: the layout the
 // prefill's projections produce, so no transpose is needed. lse is
-// [B, H, S]. The kernel allocates nothing. The entry point launches on the
+// [B, H, S], float32 on both faces. The kernel allocates nothing. The entry point launches on the
 // stream it is given and returns a CUDA error code (0 on success).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -282,6 +294,202 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// -- the bfloat16 face -------------------------------------------------------
+//
+// q, k, v and o bfloat16, lse float32: `_fa_kernel` on bfloat16 refs, which
+// casts its tiles to float32, computes in float32 and writes o once in
+// q's dtype. The float32 kernel's walk, tiles, causal skip and double
+// buffer, on tiles of [BN][D + 8] bfloat16 (a 16-byte cp.async moves 8
+// values; rows 16 bytes + D * 2 apart put the 32-bit fragment loads of a
+// warp on 32 distinct banks and keep every row 16-byte aligned for
+// ldmatrix). q k^T takes one bf16 mma.sync.m16n8k16 a 16-wide step of the
+// head dim (bfloat16 products are exact in float32), q's A fragments held
+// in registers for the whole walk at every D (D / 4 registers), K's B
+// fragments read straight from its rows. p stays float32, as the JAX
+// kernel keeps it: two C fragments of p are split into a bfloat16 hi and
+// lo (bf16.cuh) and taken against V in two mmas, V's B fragments by
+// ldmatrix.trans (its k index, the key, runs along the tile's rows). Each
+// tile's p v is summed from zero on the tensor cores and added in float32
+// to the rescaled accumulator; o is rounded once to bfloat16 (to nearest
+// even).
+template <int D>
+constexpr int fwd_bf16_smem_bytes() {
+  return 4 * BN * (D + 8) * (int)sizeof(bf16);  // K and V, two buffers each
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int S, int H, int causal,
+                      float scale) {
+  constexpr int LD = D + 8;
+  constexpr int NT = BN / 8;   // 8-key column tiles of s
+  constexpr int KT = BN / 16;  // 16-key steps of p v
+  constexpr int DK = D / 16;   // 16-wide steps of the head dim in q k^T
+  constexpr int DT = D / 8;    // 8-wide column tiles of o
+  extern __shared__ __align__(16) float smem_f[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_f);  // [2][BN][LD]
+  bf16* vs = ks + 2 * BN * LD;                 // [2][BN][LD]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const size_t stride = (size_t)H * D;
+  const size_t head = (size_t)b * S * stride + (size_t)h * D;
+
+  const int k_end = causal ? min(S, q0 + BR) : S;
+  const int n_tiles = (k_end + BN - 1) / BN;
+
+  auto copy_tile = [&](int it) {
+    const int buf = it & 1;
+    copy_rows_bf16<D, BN, THREADS>(ks + buf * BN * LD, k + head, it * BN, S,
+                                   stride);
+    copy_rows_bf16<D, BN, THREADS>(vs + buf * BN * LD, v + head, it * BN, S,
+                                   stride);
+  };
+  copy_tile(0);
+  cp_async_commit();
+
+  // the warp's q as the A fragments of every k16 step, straight from
+  // device memory: row g, columns 2 t, 2 t + 1; row g + 8; both at + 8
+  const int w0 = q0 + warp * 16;
+  const int row = w0 + g;  // and row + 8
+  uint32_t qa[DK][4];
+  {
+    const bf16* r0 = q + head + (size_t)min(row, S - 1) * stride;
+    const bf16* r1 = q + head + (size_t)min(row + 8, S - 1) * stride;
+    const bool in0 = row < S, in1 = row + 8 < S;
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk) {
+      const int c = kk * 16 + 2 * t;
+      qa[kk][0] = in0 ? ld32(r0 + c) : 0u;
+      qa[kk][1] = in1 ? ld32(r1 + c) : 0u;
+      qa[kk][2] = in0 ? ld32(r0 + c + 8) : 0u;
+      qa[kk][3] = in1 ? ld32(r1 + c + 8) : 0u;
+    }
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int dn = 0; dn < DT; ++dn)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[dn][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float den[2] = {0.f, 0.f};
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kt0 = it * BN;
+    if (it + 1 < n_tiles) copy_tile(it + 1);
+    cp_async_commit();  // an empty group on the last tile keeps the count
+    cp_async_wait<1>();
+    __syncthreads();
+    if (!causal || kt0 <= w0 + 15) {
+      const bf16* kt = ks + (it & 1) * BN * LD;
+      const bf16* vt = vs + (it & 1) * BN * LD;
+
+      // s = q k^T: 16 queries x BN keys a warp
+      float s[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          uint32_t kb[2];
+          load_b16_t<LD>(kb, kt + n * 8 * LD + kk * 16, g, t);
+          mma_bf16_k16(s[n], qa[kk], kb);
+        }
+      }
+
+      const bool masked = (causal && kt0 + BN - 1 > w0) || kt0 + BN > S;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x = s[n][i] * scale_log2;
+          if (masked) {
+            const int kpos = kt0 + n * 8 + 2 * t + (i & 1);
+            if (kpos >= S || (causal && kpos > row + 8 * (i >> 1)))
+              x = -INFINITY;
+          }
+          s[n][i] = x;
+          mx[i >> 1] = fmaxf(mx[i >> 1], x);
+        }
+      }
+      float alpha[2], m_use[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float x = mx[half];
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        const float m_new = fmaxf(m[half], x);
+        m_use[half] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[half] = exp2f(m[half] - m_use[half]);
+        m[half] = m_new;
+        den[half] *= alpha[half];
+      }
+
+      // p in place (float32), then split into the A fragments of p v
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = exp2f(s[n][i] - m_use[i >> 1]);
+          den[i >> 1] += p;
+          s[n][i] = p;
+        }
+      }
+      FragA16 pa[KT];
+#pragma unroll
+      for (int j = 0; j < KT; ++j) pa[j] = a_of_c2(s[2 * j], s[2 * j + 1]);
+
+      // o = o * alpha + p v, the tile's sum taken from zero on the tensor
+      // cores and added in float32
+#pragma unroll
+      for (int dn = 0; dn < DT; ++dn) {
+        float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          uint32_t vb[2];
+          load_b16<LD>(vb, vt + j * 16 * LD + dn * 8, lane);
+          mma_split(pv, pa[j], vb);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[dn][i] = fmaf(acc[dn][i], alpha[i >> 1], pv[i]);
+      }
+    }
+    __syncthreads();  // the tile's buffer is refilled next iteration
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float d = den[half];
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    const int r = row + 8 * half;
+    if (r >= S) continue;
+    const float den_safe = fmaxf(d, 1e-20f);
+    const size_t off = head + (size_t)r * stride + 2 * t;
+#pragma unroll
+    for (int dn = 0; dn < DT; ++dn)
+      store2(o + off + dn * 8, acc[dn][2 * half] / den_safe,
+             acc[dn][2 * half + 1] / den_safe, true, true, true);
+    if (t == 0)
+      lse[(size_t)bh * S + r] = m[half] * LN2 + logf(den_safe);
+  }
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -292,6 +500,21 @@ int launch(const float* q, const float* k, const float* v, float* o,
            cudaStream_t stream) {
   constexpr int smem = fwd_smem_bytes<D>();
   auto kernel = flash_fwd_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (S + BR - 1) / BR);
+  kernel<<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, S, H, causal,
+                                          scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                float* lse, int B, int S, int H, int causal, float scale,
+                cudaStream_t stream) {
+  constexpr int smem = fwd_bf16_smem_bytes<D>();
+  auto kernel = flash_fwd_bf16_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -329,13 +552,42 @@ int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
   }
 }
 
-// Dynamic shared memory a block takes at head dim D (0 for a D without a
-// kernel).
-int flash_attention_fwd_smem_bytes(int D) {
+// The same on bfloat16 q, k, v and o; lse float32.
+int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
+                             void* o, void* lse, int B, int S, int H, int D,
+                             int causal, float scale, void* stream) {
+  if (B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
+    return (int)cudaErrorMisalignedAddress;
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  bf16* ob = static_cast<bf16*>(o);
+  float* lf = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return fwd_smem_bytes<32>();
-    case 64: return fwd_smem_bytes<64>();
-    case 128: return fwd_smem_bytes<128>();
+    case 32:
+      return launch_bf16<32>(qb, kb, vb, ob, lf, B, S, H, causal, scale, st);
+    case 64:
+      return launch_bf16<64>(qb, kb, vb, ob, lf, B, S, H, causal, scale, st);
+    case 128:
+      return launch_bf16<128>(qb, kb, vb, ob, lf, B, S, H, causal, scale,
+                              st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory a block takes at head dim D, of the bfloat16 face
+// when `bf16_face` is non-zero, else of the float32 one (0 for a D without
+// a kernel).
+int flash_attention_fwd_smem_bytes(int D, int bf16_face) {
+  switch (D) {
+    case 32:
+      return bf16_face ? fwd_bf16_smem_bytes<32>() : fwd_smem_bytes<32>();
+    case 64:
+      return bf16_face ? fwd_bf16_smem_bytes<64>() : fwd_smem_bytes<64>();
+    case 128:
+      return bf16_face ? fwd_bf16_smem_bytes<128>() : fwd_smem_bytes<128>();
     default: return 0;
   }
 }

@@ -19,8 +19,14 @@ layout); the result is ``(o [B, S, H, D], lse [B, H, S])`` with
   hand-written kernels of ``csrc/flash_attention_fwd.cu`` and
   ``csrc/flash_attention_bwd.cu`` or an exception, never the plain
   versions.
+- Two faces, as the JAX kernels are dtype-generic: float32 q, k, v (and
+  dO), and bfloat16 ones (pure AMP), whose kernels compute in float32
+  and write o, dq, dk and dv once in bfloat16; ``lse`` and ``delta`` are
+  float32 on both. A mixed set of dtypes is refused.
 - ``launches``, ``launches_bwd_dkv`` and ``launches_bwd_dq`` count the
-  kernel launches of the forward, dK/dV and dQ kernels.
+  kernel launches of the float32 forward, dK/dV and dQ kernels;
+  ``launches_bf16``, ``launches_bwd_dkv_bf16`` and
+  ``launches_bwd_dq_bf16`` those of the bfloat16 faces.
 """
 from __future__ import annotations
 
@@ -32,29 +38,48 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_reference", "flash_attention_reference",
-           "flash_attention_with_lse", "launches", "launches_bwd_dkv",
-           "launches_bwd_dq"]
+           "flash_attention_with_lse", "launches", "launches_bf16",
+           "launches_bwd_dkv", "launches_bwd_dkv_bf16", "launches_bwd_dq",
+           "launches_bwd_dq_bf16"]
 
-# kernel launches since the last reset: forward, dK/dV and dQ
+# kernel launches since the last reset: forward, dK/dV and dQ, of the
+# float32 and the bfloat16 faces
 launches = 0
 launches_bwd_dkv = 0
 launches_bwd_dq = 0
+launches_bf16 = 0
+launches_bwd_dkv_bf16 = 0
+launches_bwd_dq_bf16 = 0
 
 _NAME = "flash_attention_fwd"
 _BWD_NAME = "flash_attention_bwd"
 _HEAD_DIMS = (32, 64, 128)
+# the entry points' suffix by operand dtype
+_FACES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _acc_dtype(dtype):
+    """The dtype the plain versions compute in: float32 for bfloat16 (the
+    kernels cast their tiles to float32), the operands' own otherwise."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def flash_attention_reference(q, k, v, causal=False, scale=None,
                               block=256):
     """Plain version: ``(o [B, S, H, D], lse [B, H, S])`` from dense
-    softmax attention over blocks of ``block`` query rows."""
+    softmax attention over blocks of ``block`` query rows. Scores,
+    softmax and ``p v`` are computed in float32 on bfloat16 operands (in
+    float64 on float64 ones), ``o`` is rounded once to q's dtype and
+    ``lse`` stays in the computing dtype, as ``_fa_kernel`` writes
+    them."""
     B, S, H, D = q.shape
     Sk = k.shape[1]
     if causal and S != Sk:
         raise ValueError("causal flash attention needs q/k aligned lengths")
     scale = scale if scale is not None else D ** -0.5
-    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, S, D]
+    acc = _acc_dtype(q.dtype)
+    qh, kh, vh = (t.permute(0, 2, 1, 3).to(acc)
+                  for t in (q, k, v))  # [B, H, S, D]
     outs, lses = [], []
     cols = torch.arange(Sk, device=q.device)
     for r0 in range(0, S, block):
@@ -66,7 +91,7 @@ def flash_attention_reference(q, k, v, causal=False, scale=None,
         lses.append(torch.logsumexp(s, dim=-1))
         outs.append(torch.einsum("bhqk,bhkd->bhqd",
                                  torch.softmax(s, dim=-1), vh))
-    o = torch.cat(outs, dim=2).permute(0, 2, 1, 3)
+    o = torch.cat(outs, dim=2).permute(0, 2, 1, 3).to(q.dtype)
     return o, torch.cat(lses, dim=2)
 
 
@@ -80,12 +105,17 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, dlse=None,
                                   causal=False, scale=None, block=256):
     """Plain backward: ``(dq, dk, dv)``, each ``[B, S, H, D]``, from the
     recompute formulas over blocks of ``block`` query rows. ``dlse``
-    ([B, H, S] or None) is the cotangent of ``lse``."""
+    ([B, H, S] or None) is the cotangent of ``lse``. On bfloat16
+    operands every product and sum is taken in float32 and dq, dk and dv
+    are rounded once to q's, k's and v's dtypes, as the JAX kernels
+    write them."""
     B, S, H, D = q.shape
     Sk = k.shape[1]
     scale = scale if scale is not None else D ** -0.5
-    qh, kh, vh, doh = (t.permute(0, 2, 1, 3) for t in (q, k, v, do))
-    delta = _delta(o, do, dlse)
+    acc = _acc_dtype(q.dtype)
+    qh, kh, vh, doh = (t.permute(0, 2, 1, 3).to(acc) for t in (q, k, v, do))
+    delta = _delta(o, do, dlse).to(acc)
+    lse = lse.to(acc)
     dq = torch.empty_like(qh)
     dk = torch.zeros_like(kh)
     dv = torch.zeros_like(vh)
@@ -102,22 +132,33 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, dlse=None,
         ds = p * (dp - delta[:, :, r0:r1, None]) * scale
         dq[:, :, r0:r1] = torch.einsum("bhqk,bhkd->bhqd", ds, kh)
         dk += torch.einsum("bhqk,bhqd->bhkd", ds, qh[:, :, r0:r1])
-    return tuple(t.permute(0, 2, 1, 3) for t in (dq, dk, dv))
+    return tuple(g.permute(0, 2, 1, 3).to(t.dtype)
+                 for g, t in ((dq, q), (dk, k), (dv, v)))
 
 
-def _check_kernel_operands(what, D, **named):
-    for name, t in named.items():
+def _check_kernel_operands(what, D, floats=(), **named):
+    """The ``named`` operands must be all float32 or all bfloat16, and
+    ``floats`` (lse, delta) float32; returns the face's suffix."""
+    dtypes = {t.dtype for t in named.values()}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in _FACES:
+        raise ValueError(
+            "%s: the kernels take q, k, v (and dO) all float32 or all "
+            "bfloat16, got %s" % (what, ", ".join(
+                "%s %s" % (n, t.dtype) for n, t in named.items())))
+    for name, t in floats:
         if t.dtype != torch.float32:
-            raise ValueError("%s: the kernel takes float32 operands, %s is "
-                             "%s" % (what, name, t.dtype))
+            raise ValueError("%s: %s must be float32, it is %s"
+                             % (what, name, t.dtype))
     if D not in _HEAD_DIMS:
         raise ValueError("%s: head_dim %d has no kernel (supported: %s)"
                          % (what, D, _HEAD_DIMS))
+    return _FACES[next(iter(dtypes))]
 
 
 def _forward(q, k, v, causal, scale):
-    """(o, lse): the plain version on the CPU, the kernel on CUDA."""
-    global launches
+    """(o, lse): the plain version on the CPU, the kernel of the operands'
+    face on CUDA."""
+    global launches, launches_bf16
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          scale=scale)
@@ -128,13 +169,13 @@ def _forward(q, k, v, causal, scale):
         raise ValueError("%s: the kernel takes q, k, v of one shape, got "
                          "%s/%s/%s" % (_NAME, tuple(q.shape),
                                        tuple(k.shape), tuple(v.shape)))
-    _check_kernel_operands(_NAME, D, q=q, k=k, v=v)
+    face = _check_kernel_operands(_NAME, D, q=q, k=k, v=v)
     _build.check_cuda_operands(_NAME, q.device, q=q, k=k, v=v)
     scale = scale if scale is not None else D ** -0.5
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = _build.load(_NAME)
-    fn = lib.flash_attention_fwd_f32
+    fn = getattr(lib, "flash_attention_fwd_" + face)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
         [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -142,7 +183,10 @@ def _forward(q, k, v, causal, scale):
               lse.data_ptr(), B, S, H, D, int(bool(causal)), float(scale),
               _build.stream_handle(q.device))
     _build.check(lib, code, _NAME)
-    launches += 1
+    if face == "bf16":
+        launches_bf16 += 1
+    else:
+        launches += 1
     return o, lse
 
 
@@ -155,43 +199,55 @@ def _bwd_fn(lib, name, n_out):
 
 
 def _bwd_dkv(q, k, v, do, lse, delta, causal, scale):
-    """Launch the dK/dV kernel on checked operands; returns (dk, dv)."""
-    global launches_bwd_dkv
+    """Launch the dK/dV kernel of the operands' face on checked operands;
+    returns (dk, dv)."""
+    global launches_bwd_dkv, launches_bwd_dkv_bf16
     B, S, H, D = q.shape
+    face = _FACES[q.dtype]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _build.load(_BWD_NAME)
-    code = _bwd_fn(lib, "flash_attention_bwd_dkv_f32", 2)(
+    code = _bwd_fn(lib, "flash_attention_bwd_dkv_" + face, 2)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, S, H, D, int(bool(causal)), float(scale),
         _build.stream_handle(q.device))
     _build.check(lib, code, "flash_attention_bwd_dkv")
-    launches_bwd_dkv += 1
+    if face == "bf16":
+        launches_bwd_dkv_bf16 += 1
+    else:
+        launches_bwd_dkv += 1
     return dk, dv
 
 
 def _bwd_dq(q, k, v, do, lse, delta, causal, scale):
-    """Launch the dQ kernel on checked operands; returns dq."""
-    global launches_bwd_dq
+    """Launch the dQ kernel of the operands' face on checked operands;
+    returns dq."""
+    global launches_bwd_dq, launches_bwd_dq_bf16
     B, S, H, D = q.shape
+    face = _FACES[q.dtype]
     dq = torch.empty_like(q)
     lib = _build.load(_BWD_NAME)
-    code = _bwd_fn(lib, "flash_attention_bwd_dq_f32", 1)(
+    code = _bwd_fn(lib, "flash_attention_bwd_dq_" + face, 1)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         B, S, H, D, int(bool(causal)), float(scale),
         _build.stream_handle(q.device))
     _build.check(lib, code, "flash_attention_bwd_dq")
-    launches_bwd_dq += 1
+    if face == "bf16":
+        launches_bwd_dq_bf16 += 1
+    else:
+        launches_bwd_dq += 1
     return dq
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, dlse=None, causal=False,
                         scale=None):
     """``(dq, dk, dv)`` of :func:`flash_attention_bwd_reference`. On CUDA:
-    the dK/dV and dQ kernels, after ``delta`` is formed with two torch
-    elementwise ops; float32 ``[B, S, H, D]`` tensors of one shape and
-    ``D`` in (32, 64, 128), anything else raises."""
+    the dK/dV and dQ kernels of the operands' face, after the float32
+    ``delta`` is formed with two torch elementwise ops; ``[B, S, H, D]``
+    q, k, v, o and dO of one shape, q, k, v and dO all float32 or all
+    bfloat16, ``lse`` float32, ``D`` in (32, 64, 128); anything else
+    raises."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do, dlse,
                                              causal=causal, scale=scale)
@@ -205,8 +261,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, dlse=None, causal=False,
     do = do.contiguous()
     delta = _delta(o, do, dlse).contiguous()
     lse = lse.contiguous()
-    _check_kernel_operands(_BWD_NAME, D, q=q, k=k, v=v, do=do, lse=lse,
-                           delta=delta)
+    _check_kernel_operands(_BWD_NAME, D, (("lse", lse), ("delta", delta)),
+                           q=q, k=k, v=v, do=do)
     _build.check_cuda_operands(_BWD_NAME, q.device, q=q, k=k, v=v, do=do,
                                lse=lse, delta=delta)
     scale = scale if scale is not None else D ** -0.5
@@ -240,8 +296,9 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention_with_lse(q, k, v, causal=False, scale=None):
     """``(o, lse)`` as :func:`flash_attention_reference` returns them,
     differentiable in q, k and v through the flash backward. On CUDA:
-    float32, contiguous, 16-byte aligned ``[B, S, H, D]`` q/k/v of one
-    shape on one device, ``D`` in (32, 64, 128); anything else raises."""
+    contiguous, 16-byte aligned ``[B, S, H, D]`` q/k/v of one shape on
+    one device, all float32 or all bfloat16 (o in their dtype, lse
+    float32), ``D`` in (32, 64, 128); anything else raises."""
     return _FlashAttention.apply(q, k, v, causal, scale)
 
 

@@ -9,7 +9,15 @@ dq, dk and dv (values of size ~1), float32 on both sides; the JAX
 kernels recompute the probabilities over 128-wide blocks and the port's
 plain version over dense rows, which sums in other orders and moves
 results by ~1e-6.
+
+On bfloat16 q, k, v and dO (pure AMP) both packages compute in float32
+and round dq, dk and dv once to bfloat16; ``lse``, its cotangent and
+``delta`` are float32. Each gradient is held within one bfloat16 ulp as
+``test_torch_flash_attention_cuda.bf16_errors`` measures it: every element
+within one ulp of its own magnitude plus SUM_TOL of the largest, the
+largest error within one ulp of the largest magnitude.
 """
+import ml_dtypes
 import numpy as np
 import pytest
 
@@ -22,8 +30,10 @@ from paddle_tpu.kernels.flash_attention import (  # noqa: E402
     flash_attention_with_lse as jax_flash_attention_with_lse)
 from paddle_tpu_torch import kernels  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as tfa  # noqa: E402
+from test_torch_flash_attention_cuda import bf16_errors  # noqa: E402
 
 TOL = 5e-5
+BF16 = np.dtype(ml_dtypes.bfloat16)
 
 
 def _inputs(B, S, H, D, seed):
@@ -86,3 +96,38 @@ def test_cpu_backward_counts_no_launch():
     o, lse = tfa.flash_attention_with_lse(*leaves, causal=True)
     torch.autograd.grad([o, lse], leaves, [do, dlse])
     assert set(kernels.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,D", [(17, 32), (130, 64), (100, 32)])
+def test_backward_on_bfloat16_matches_jax_vjp(S, D, causal):
+    """The plain backward on bfloat16 operands against ``jax.vjp`` of the
+    JAX function, with cotangents on both o (bfloat16) and lse (float32):
+    dq, dk and dv bfloat16, each within one ulp. The port's backward is
+    fed the JAX forward's o and lse, the residuals its vjp keeps; the
+    autograd wrapper, on its own forward, takes the same plain
+    backward."""
+    q, k, v, do, dlse = _inputs(2, S, 2, D, seed=S + D + causal)
+    q, k, v, do = (a.astype(BF16) for a in (q, k, v, do))
+    (o_j, lse_j), vjp = jax.vjp(
+        lambda q, k, v: jax_flash_attention_with_lse(q, k, v, causal=causal),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(g) for g in vjp((jnp.asarray(do), jnp.asarray(dlse)))]
+    assert all(w.dtype == BF16 for w in want)
+    qt, kt, vt, dot, o_t = (torch.from_numpy(np.asarray(a, np.float32))
+                            .bfloat16() for a in (q, k, v, do, o_j))
+    lse_t, dlt = torch.from_numpy(np.array(lse_j)), torch.from_numpy(dlse)
+    plain = tfa.flash_attention_bwd_reference(qt, kt, vt, o_t, lse_t, dot,
+                                              dlt, causal=causal, block=64)
+    for name, g, w in zip(("dq", "dk", "dv"), plain, want):
+        assert g.dtype == torch.bfloat16, name
+        max_ulps, own_ulps, _ = bf16_errors(g.float().numpy(), w)
+        assert max_ulps <= 1 and own_ulps <= 1, (name, max_ulps, own_ulps)
+    leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    o2, lse2 = tfa.flash_attention_with_lse(*leaves, causal=causal)
+    auto = torch.autograd.grad([o2, lse2], leaves, [dot, dlt])
+    again = tfa.flash_attention_bwd_reference(qt, kt, vt, o2.detach(),
+                                              lse2.detach(), dot, dlt,
+                                              causal=causal)
+    for a, b in zip(auto, again):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)

@@ -1,13 +1,21 @@
 """Flash attention forward on the card: the CUDA kernel against its
 plain version, causal and not, at ragged lengths and at every head dim's
 template (D 32 non-causal, D 64, D 128 causal), with a second launch that
-must equal the first bit for bit, and its refusal of misaligned operands.
+must equal the first bit for bit, and its refusal of misaligned operands;
+its bfloat16 face (pure AMP) at every head dim, causal and not, and the
+refusal of a mixed set of dtypes.
 
 JAX-free, so that it runs where the card is. Tolerance: 2e-5 absolute on
 ``o`` and ``lse``, float32 on both sides; the kernel takes its products
 in 3xTF32 on the tensor cores, float32-exact, and its online softmax and
 the plain version's dense one sum in other orders, which moves results
 of size ~1 by ~1e-6.
+
+The bfloat16 face computes in float32 and rounds o once, as its plain
+version does (float32 on the card, TF32 off): o within one bfloat16 ulp
+(:func:`bf16_errors`), lse within TOL. The CPU tests of the plain
+versions against the JAX package import the tolerance from here, the
+JAX-free module.
 """
 import numpy as np
 import pytest
@@ -17,6 +25,32 @@ torch = pytest.importorskip("torch")
 from paddle_tpu_torch.kernels import flash_attention as tfa  # noqa: E402
 
 TOL = 2e-5
+# the float32 noise term of a bfloat16 output's tolerance, over the
+# largest magnitude (the float32 backward kernels' tolerance)
+SUM_TOL = 2e-5
+
+
+def bf16_ulp(m):
+    """One bfloat16 ulp at magnitude ``m`` (8 significant bits), elementwise
+    on an array; 0 at 0."""
+    m = np.abs(np.asarray(m, np.float64))
+    e = np.floor(np.log2(np.where(m > 0, m, 1.0))) - 7
+    return np.where(m > 0, np.exp2(e), 0.0)
+
+
+def bf16_errors(got, want):
+    """How far a bfloat16 output is from its reference: (the largest error
+    over one ulp of the largest magnitude, the largest error of an
+    element over one ulp of its own magnitude plus SUM_TOL of the
+    largest, the number of elements that differ). Both ratios are at
+    most 1 for two computations in float32 rounded once."""
+    g = np.asarray(got, np.float64)
+    w = np.asarray(want, np.float64)
+    err = np.abs(g - w)
+    m = float(np.abs(w).max())
+    own = err / (bf16_ulp(w) + SUM_TOL * m)
+    return (float(err.max() / bf16_ulp(m)), float(own.max()),
+            int(np.count_nonzero(err)))
 
 
 @pytest.fixture
@@ -88,3 +122,41 @@ def test_kernel_refuses_misaligned_operands(cuda_device):
     with pytest.raises(RuntimeError, match="misaligned"):
         tfa.flash_attention_with_lse(q_off, k, v, causal=True)
     assert tfa.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bfloat16_face_matches_plain_version(cuda_device, D, causal):
+    # each case launched twice: the second must equal the first bit for
+    # bit; the float32 face is not launched
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for S in (1, 17, 130, 300):
+        q, k, v = [torch.from_numpy(a).to(cuda_device).bfloat16()
+                   for a in _qkv(2, S, 3, D, seed=S + D)]
+        before = (tfa.launches, tfa.launches_bf16)
+        o, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal)
+        o2, lse2 = tfa.flash_attention_with_lse(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert (tfa.launches, tfa.launches_bf16) == (before[0],
+                                                     before[1] + 2)
+        assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        o_r, lse_r = tfa.flash_attention_reference(q, k, v, causal=causal)
+        max_ulps, own_ulps, _ = bf16_errors(o.float().cpu().numpy(),
+                                            o_r.float().cpu().numpy())
+        assert max_ulps <= 1 and own_ulps <= 1, (S, max_ulps, own_ulps)
+        assert float((lse - lse_r).abs().max()) <= TOL, S
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_a_mixed_set_of_dtypes(cuda_device):
+    q, k, v = [torch.from_numpy(a).to(cuda_device)
+               for a in _qkv(1, 8, 1, 32, seed=6)]
+    before = (tfa.launches, tfa.launches_bf16)
+    with pytest.raises(ValueError, match="k torch.bfloat16") as e:
+        tfa.flash_attention_with_lse(q, k.bfloat16(), v, causal=True)
+    assert "q torch.float32" in str(e.value)
+    with pytest.raises(ValueError, match="float16"):
+        tfa.flash_attention_with_lse(q.half(), k.half(), v.half())
+    assert (tfa.launches, tfa.launches_bf16) == before

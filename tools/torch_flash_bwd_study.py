@@ -24,6 +24,9 @@ kernel but the two recurrences has these:
   three, so the split's lo halves go unused: not float32-exact (its
   errors are ~1e-3), timed to show what the 3xTF32 scheme costs.
 
+The flash forward and backward also have ``p_once``: their bfloat16
+faces with p and ds rounded to one bfloat16 (FlashAttention-2's
+products) instead of split into a bfloat16 hi and lo (``bf16.cuh``).
 The backward also has ``bn64`` (streamed tiles of 64 rows instead of 32,
 timed at D 64; the D 128 templates spill at this size) and ``planes``
 (the dK/dV kernel's q and dO tiles split once as they land, into hi (in
@@ -63,11 +66,18 @@ For each it prints the registers and spills ``-Xptxas -v`` reports and:
 - bwd: the largest error of dq, dk and dv over the largest magnitude of a
   float64 plain backward at causal S 1024 (B 8, H 12, D 64: the LM
   step's shape) and S 2048 (B 2, H 4), and at S 1024 the time of each
-  kernel;
+  kernel; the same of the bfloat16 faces at S 1024 (a library without
+  them, a parent's, is skipped); and whether each variant's float32
+  outputs equal the source's bit for bit at the LM step's shape and the
+  D 32 (non-causal) and D 128 (causal) templates, S 130
+  (``FLASH_SAME_CASES``; with ``--against``: the float32 faces left as
+  they were);
 - fwd: the largest error of o and lse against a float64 plain forward
   (o over its largest magnitude, lse absolute) at causal S 1024 (B 8, H
   12, D 64) and S 4096 (B 1, H 4), and the time at the prefill's shape
-  (B 1, S 1024, H 12, D 64, causal) and the LM step's (B 8);
+  (B 1, S 1024, H 12, D 64, causal) and the LM step's (B 8); the same of
+  the bfloat16 face at the LM step's shape; and the float32 outputs' bit
+  identity with the source's, as for bwd;
 - matmul: at the LM step's gemm shapes (8192 x 768 x 768, 8192 x 768 x
   3072, 8192 x 3072 x 768) the largest error over the largest magnitude
   of a float64 product, worst over the tilings, the time of every
@@ -184,7 +194,12 @@ COMMON = {
     "tf32_once": [("  mma_tf32(d, a.lo, b.hi);\n  mma_tf32(d, a.hi, b.lo);\n",
                    "")],
 }
+# the bfloat16 faces with p and ds rounded to one bfloat16 (FlashAttention-2's
+# products) instead of split into a bfloat16 hi and lo
+P_ONCE = [("  mma_bf16_k16(d, a.lo, b);\n  mma_bf16_k16(d, a.hi, b);\n",
+           "  mma_bf16_k16(d, a.hi, b);\n")]
 BWD_VARIANTS = {
+    "p_once": P_ONCE,
     "mma_accumulator": [
         ("      float cv[4] = {0.f, 0.f, 0.f, 0.f}, "
          "ck[4] = {0.f, 0.f, 0.f, 0.f};\n",
@@ -218,6 +233,7 @@ BWD_VARIANTS = {
 
 
 FWD_VARIANTS = {
+    "p_once": P_ONCE,
     "tf32_once": COMMON["tf32_once"] + [
         ("  mma_tf32(e, a.lo, b.hi);\n  mma_tf32(e, a.hi, b.lo);\n", "")],
     "mma_accumulator": [
@@ -430,6 +446,37 @@ def _randn(rng, shape, dev, scale=1.0):
         np.float32)).to(dev)
 
 
+# (B, S, H, D, causal) at which every variant's float32 outputs are held
+# to the source's bit for bit: the LM step's shape and the other head
+# dims' templates (chip_smoke's phase 2 cases)
+FLASH_SAME_CASES = ((8, 1024, 12, 64, True), (2, 130, 12, 32, False),
+                    (2, 130, 12, 128, True))
+
+
+def _bit_identity(libs, lib_name, run, dev):
+    """{variant: whether ``run(q, k, v, do, causal)`` under the variant's
+    library gives the source's outputs bit for bit at every case of
+    FLASH_SAME_CASES (float32 operands)}."""
+    rng = np.random.RandomState(1)
+    same = {name: True for name in libs if name != "source"}
+    for B, S, H, D, causal in FLASH_SAME_CASES:
+        args = [_randn(rng, (B, S, H, D), dev) for _ in range(4)]
+        with using(lib_name, libs["source"]):
+            want = run(*args, causal)
+        for name in same:
+            with using(lib_name, libs[name]):
+                got = run(*args, causal)
+            same[name] = same[name] and all(
+                torch.equal(g, w) for g, w in zip(got, want))
+        del args, want
+    torch.cuda.synchronize()
+    return same
+
+
+def _bf16_inputs(rng, shape, n, dev):
+    return [_randn(rng, shape, dev).bfloat16() for _ in range(n)]
+
+
 def study_bwd(libs, result, dev, flush):
     rng = np.random.RandomState(0)
     for B, S, H, D in ((8, 1024, 12, 64), (2, 2048, 4, 64)):
@@ -455,6 +502,40 @@ def study_bwd(libs, result, dev, flush):
             print(json.dumps({name: {"S%d" % S: rec}}), flush=True)
         del q, k, v, do, o, lse, want, delta
         torch.cuda.empty_cache()
+    # the bfloat16 faces at the LM step's shape (a library without them,
+    # a parent's, is skipped): errors against the float64 backward on the
+    # same bfloat16 values, over each gradient's largest magnitude
+    B, S, H, D = 8, 1024, 12, 64
+    q, k, v, do = _bf16_inputs(rng, (B, S, H, D), 4, dev)
+    o, lse = fa.flash_attention_reference(q, k, v, causal=True)
+    want = fa.flash_attention_bwd_reference(
+        *(t.double() for t in (q, k, v, o, lse, do)), causal=True)
+    delta = fa._delta(o, do, None).contiguous()
+    for name, lib in libs.items():
+        if not hasattr(lib, "flash_attention_bwd_dq_bf16"):
+            continue
+        with using("flash_attention_bwd", lib):
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+            torch.cuda.synchronize()
+            rec = {n: float((g.double() - w).abs().max() / w.abs().max())
+                   for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+            args = (q, k, v, do, lse, delta, True, D ** -0.5)
+            rec["dkv_ms"] = time_ms(lambda: fa._bwd_dkv(*args), flush)
+            rec["dq_ms"] = time_ms(lambda: fa._bwd_dq(*args), flush)
+        result[name]["bf16_S1024"] = rec
+        print(json.dumps({name: {"bf16_S1024": rec}}), flush=True)
+    del q, k, v, do, o, lse, want, delta
+    torch.cuda.empty_cache()
+
+    def bwd(q, k, v, do, causal):
+        o, lse = fa.flash_attention_reference(q, k, v, causal=causal)
+        return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+
+    for name, same in _bit_identity(libs, "flash_attention_bwd", bwd,
+                                    dev).items():
+        result[name]["bit_identical_to_source"] = same
+        print(json.dumps({name: {"bit_identical_to_source": same}}),
+              flush=True)
 
 
 def study_fwd(libs, result, dev, flush):
@@ -480,6 +561,36 @@ def study_fwd(libs, result, dev, flush):
             print(json.dumps({name: {tag: rec}}), flush=True)
         del q, k, v, o_want, lse_want
         torch.cuda.empty_cache()
+    # the bfloat16 face at the LM step's shape, against the float64
+    # forward on the same bfloat16 values (a parent's library without it
+    # is skipped)
+    q, k, v = _bf16_inputs(rng, (8, 1024, 12, 64), 3, dev)
+    o_want, lse_want = fa.flash_attention_reference(
+        *(t.double() for t in (q, k, v)), causal=True)
+    for name, lib in libs.items():
+        if not hasattr(lib, "flash_attention_fwd_bf16"):
+            continue
+        with using("flash_attention_fwd", lib):
+            o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            rec = {"o": float((o.double() - o_want).abs().max()
+                              / o_want.abs().max()),
+                   "lse": float((lse.double() - lse_want).abs().max()),
+                   "ms": time_ms(lambda: fa.flash_attention_with_lse(
+                       q, k, v, causal=True), flush)}
+        result[name]["bf16_B8_S1024"] = rec
+        print(json.dumps({name: {"bf16_B8_S1024": rec}}), flush=True)
+    del q, k, v, o_want, lse_want
+    torch.cuda.empty_cache()
+
+    def fwd(q, k, v, do, causal):
+        return fa.flash_attention_with_lse(q, k, v, causal=causal)
+
+    for name, same in _bit_identity(libs, "flash_attention_fwd", fwd,
+                                    dev).items():
+        result[name]["bit_identical_to_source"] = same
+        print(json.dumps({name: {"bit_identical_to_source": same}}),
+              flush=True)
 
 
 def study_matmul(libs, result, dev, flush):
