@@ -116,11 +116,15 @@ Phases, in order; any failure exits non-zero at once:
 9. amp: hold the bfloat16 faces of the conv3x3 kernel (forward with a
    bfloat16 and a float32 output, and dx, at ResNet-50's stage shapes
    and ``CONV_EDGE_SHAPES``, the tilings held to the mirror) and of the
-   matmul kernel (every tiling, the LM's three gemm shapes and a ragged
-   one, both outputs) against their plain versions within one bfloat16
-   ulp (float32 out: ``AMP_F32_REL_TOL``), each relaunched
-   bit-identically, a plain variant that sums in bfloat16 shown to miss,
-   with kernel, plain, library (on bfloat16) and bfloat16-bound times;
+   matmul kernel (its TMA-fed wgmma kernel at every tiling at the LM's
+   three gemm shapes, its ragged path at ``MM_RAGGED_SHAPE``, both
+   outputs, each launch counted on the path its shape takes) against
+   their plain versions within one bfloat16 ulp (float32 out:
+   ``AMP_F32_REL_TOL``), each relaunched bit-identically, a plain
+   variant that sums in bfloat16 shown to miss, with kernel, plain,
+   library (on bfloat16) and bfloat16-bound times, the matmul face's
+   registers and spills (none allowed) and the host microseconds its
+   two TMA maps add to a launch;
    hold the bfloat16 faces of the flash forward, dK/dV and dQ kernels
    against their plain versions at ``FLASH_BF16_CASES`` (the LM step's
    shape, the prefill's, D 32 non-causal and D 128 causal) within one
@@ -138,8 +142,9 @@ Phases, in order; any failure exits non-zero at once:
    against a cache of the matmul face's fastest tilings: step 1 held op
    by op (every mul, and under pure AMP every flash_attention and its
    generic grad, on the step's own tensors; the end-to-end gradients
-   against float64 references reported), exactly 72 bfloat16 matmul
-   launches a step, and under pure AMP 24 bfloat16 flash forward, 12
+   against float64 references reported), exactly 72 launches a step of
+   the bfloat16 matmul's wgmma kernel and none of its ragged path, and
+   under pure AMP 24 bfloat16 flash forward, 12
    dK/dV and 12 dQ launches a step and no float32 flash launch, the loss
    falling; tokens/s, step p50 and device time of both beside phase 8's
    tuned float32 run.
@@ -1428,7 +1433,8 @@ def _lm_train(dev, label, after=None, want_matmul=0,
             prof_wall = time.monotonic() - t1
         profile_window = _device_kernels(prof, prof_wall)
         profile_window["steps"] = 2
-        for kernel in ("matmul_kernel", "matmul_bf16_kernel",
+        for kernel in ("matmul_kernel", "matmul_bf16_wgmma_kernel",
+                       "matmul_bf16_ragged_kernel",
                        "flash_fwd_kernel", "flash_bwd_dkv_kernel",
                        "flash_bwd_dq_kernel", "flash_fwd_bf16_kernel",
                        "flash_bwd_dkv_bf16_kernel",
@@ -3149,9 +3155,9 @@ def _bf16_step_sums_conv(x, w):
     return acc.reshape(N, H, W, w.shape[3])
 
 
-def _bf16_step_sums_mm(x, w, bk=32):
+def _bf16_step_sums_mm(x, w, bk=64):
     """The plain gemm with the running sum rounded to bfloat16 after each
-    k tile."""
+    k tile (the wgmma face's 64-deep stage)."""
     acc = None
     for k0 in range(0, x.shape[1], bk):
         t = x[:, k0:k0 + bk].float() @ w[k0:k0 + bk].float()
@@ -3544,34 +3550,79 @@ def _amp_conv_check(dev, flush):
     return out
 
 
-def _amp_matmul_check(dev, flush):
-    """Row 5's bfloat16 face against its plain version at every compiled
-    tiling, at the LM step's three gemm shapes and a ragged one, with a
-    bfloat16 and a float32 output, each launched twice (bit-identical),
-    the bfloat16 step-sum variant shown to miss; every tiling's, the
-    plain version's, torch.matmul's (bfloat16) and the bound's times at
-    the step's shapes. Returns {shape: record}."""
+def _amp_matmul_templates(dev):
+    """The bfloat16 face's templates: the library's shared memory held to
+    the mirror's, registers and spills (``-Xptxas -v``) of each wgmma
+    tiling and of the ragged path, and the host microseconds that
+    encoding the two TMA maps adds to a launch at the LM's shapes."""
+    from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import matmul as mm
-    for t in mm.TILINGS:
-        if mm.kernel_smem_bytes(*t, dtype=torch.bfloat16) != \
-                mm.smem_bytes(*t, torch.bfloat16):
+    lib = _build.load("matmul")
+    out = {}
+    for t in mm.TILINGS_BF16 + (mm.RAGGED_TILING,):
+        got = mm.kernel_smem_bytes(*t, dtype=torch.bfloat16)
+        if got != mm.smem_bytes(*t, torch.bfloat16):
             fail("matmul bf16 tiling %s: the library's shared memory %d, "
-                 "the mirror's %d" % (t, mm.kernel_smem_bytes(
-                     *t, dtype=torch.bfloat16),
-                     mm.smem_bytes(*t, torch.bfloat16)))
+                 "the mirror's %d" % (t, got,
+                                      mm.smem_bytes(*t, torch.bfloat16)))
+        ragged = t == mm.RAGGED_TILING
+        name = ("matmul_bf16_ragged_kernelILi%dELi%dELi%dEE" % t
+                if ragged else "matmul_bf16_wgmma_kernelILi%dELi%dE" % t[:2])
+        out["ragged %dx%dx%d" % t if ragged else "%dx%dx%d" % t] = {
+            "smem_bytes": got, "ptxas": _ptxas("matmul", name)}
+    for rec in out.values():
+        if not rec["ptxas"] or any(
+                part.split()[0] != "0" for ln in rec["ptxas"]
+                for part in ln.split(",") if "spill" in part):
+            fail("a matmul bf16 template spills (or has no ptxas "
+                 "lines): %s" % out)
+    fn = lib.matmul_bf16_encode_us
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+    fn.restype = ctypes.c_double
+    encode = {}
+    for M, K, N in MM_SHAPES:
+        x = torch.empty(M, K, dtype=torch.bfloat16, device=dev)
+        w = torch.empty(K, N, dtype=torch.bfloat16, device=dev)
+        for bm in (64, 128):
+            us = fn(x.data_ptr(), w.data_ptr(), M, N, K, bm, 2000)
+            if not us > 0:
+                fail("encoding the matmul bf16 TMA maps failed at %s"
+                     % ((M, K, N),))
+            encode["%dx%dx%d bm %d" % (M, K, N, bm)] = us
+    return {"templates": out, "host_us_to_encode_the_maps": encode}
+
+
+def _amp_matmul_check(dev, flush):
+    """Row 5's bfloat16 face against its plain version at every wgmma
+    tiling, at the LM step's three gemm shapes, and its ragged path at
+    MM_RAGGED_SHAPE (every tiling asked for), with a bfloat16 and a
+    float32 output, each launched twice (bit-identical) and counted on
+    the path the shape takes; the bfloat16 step-sum variant shown to
+    miss; every tiling's, the plain version's, torch.matmul's (bfloat16)
+    and the bound's times at the step's shapes, and the ragged path's at
+    its shape. Returns {shape: record}."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import matmul as mm
+    log(json.dumps({"matmul_bf16_templates": _amp_matmul_templates(dev)}))
     per_shape = {}
     for i, shape in enumerate(MM_SHAPES + [MM_RAGGED_SHAPE]):
         M, K, N = shape
         x, w = (t.bfloat16() for t in _mm_inputs(shape, 95 + i, dev))
-        rec = {"max_err_over_tol": 0.0, "max_abs_err": 0.0, "ms": {},
-               "relaunch_bit_identical": True}
-        for t in mm.TILINGS:
+        path = "matmul_bf16" if shape in MM_SHAPES else "matmul_bf16_ragged"
+        rec = {"path": path, "max_err_over_tol": 0.0, "max_abs_err": 0.0,
+               "ms": {}, "relaunch_bit_identical": True}
+        for t in mm.TILINGS_BF16:
             cfg = _mm_config(t)
             for out_dtype in (None, torch.float32):
+                kernels.reset_launches()
                 got = mm.matmul(x, w, out_dtype, cfg)
-                again = mm._launch(x, w, t, out_dtype)
+                again = mm.matmul(x, w, out_dtype, cfg)
                 want = mm.matmul_reference(x, w, cfg, out_dtype)
                 torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                if counts != dict(_no_launches(), **{path: 2}):
+                    fail("matmul bf16 at %s, tiling %s: launches %s, "
+                         "expected 2 on %s" % (shape, t, counts, path))
                 err, tol = _face_err(got, want)
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 rec["max_err_over_tol"] = max(rec["max_err_over_tol"],
@@ -3586,24 +3637,26 @@ def _amp_matmul_check(dev, flush):
             if shape in MM_SHAPES:
                 rec["ms"]["%dx%dx%d" % t] = time_ms(
                     lambda: mm._launch(x, w, t), flush=flush)
+        b_ms, b_by = bf16_bound(2 * (M * K + K * N + M * N), 2 * M * N * K)
+        rec.update({
+            "plain_ms": time_ms(lambda: mm.matmul_reference(x, w),
+                                flush=flush),
+            "library_ms": time_ms(lambda: torch.matmul(x, w), flush=flush),
+            "bound_ms": b_ms, "bound_by": b_by})
         if shape in MM_SHAPES:
-            # at the step's shapes (24 or 96 k tiles; the ragged K 130
-            # has 5, too few to leave an ulp)
-            want = mm.matmul_reference(x, w, {"block_k": 32})
+            # at the step's shapes (12 or 48 k tiles of 64; the ragged K
+            # 130 has 5 tiles of 32, too few to leave an ulp)
+            want = mm.matmul_reference(x, w)
             err, tol = _face_err(_bf16_step_sums_mm(x, w), want)
             rec["bf16_step_sums_err_over_tol"] = err / tol
             if not err > tol:
                 fail("at %s a gemm summed in bfloat16 errs by only %g <= "
                      "one ulp %g: the tolerance cannot tell the face from "
                      "it" % (shape, err, tol))
-            b_ms, b_by = bf16_bound(2 * (M * K + K * N + M * N),
-                                    2 * M * N * K)
-            rec.update({
-                "plain_ms": time_ms(lambda: mm.matmul_reference(x, w),
-                                    flush=flush),
-                "library_ms": time_ms(lambda: torch.matmul(x, w),
-                                      flush=flush),
-                "bound_ms": b_ms, "bound_by": b_by})
+        else:  # the entry point takes its ragged path at any tiling
+            rec["ms"]["ragged %dx%dx%d" % mm.RAGGED_TILING] = time_ms(
+                lambda: mm._launch(x, w, mm.normalize_config(
+                    None, torch.bfloat16)), flush=flush)
         per_shape["x".join(str(d) for d in shape)] = rec
         log(json.dumps({"matmul_bf16_check": {"shape": shape, **rec}}))
         del x, w, got, again, want
@@ -3777,20 +3830,21 @@ def phase_amp(dev, root, f32_images_s, tuned):
         return sum(f(mm_shapes[k], tag) * n
                    for k, (n, tag) in weights.items()) / per_layer
 
+    tolerance = ("one bfloat16 ulp of the largest magnitude (bfloat16 "
+                 "out); %g of it (float32 out)" % AMP_F32_REL_TOL)
+    step = [mm_shapes[k] for k in weights]
     entries["matmul_bf16"] = {
         "name": "matmul_bf16", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/matmul.cu",
         "replaces": "paddle_tpu/kernels/matmul.py:91",
         "role": "a tuned gemm under AMP: bfloat16 operands, written in "
-                "bfloat16 (x.dtype) as the JAX kernel with out_dtype None",
-        "max_abs_err": max(r["max_abs_err"] for r in mm_shapes.values()),
-        "max_err_over_tol": max(r["max_err_over_tol"]
-                                for r in mm_shapes.values()),
-        "tolerance": "one bfloat16 ulp of the largest magnitude (bfloat16 "
-                     "out); %g of it (float32 out)" % AMP_F32_REL_TOL,
+                "bfloat16 (x.dtype) as the JAX kernel with out_dtype None; "
+                "TMA-fed, warp-specialised wgmma",
+        "max_abs_err": max(r["max_abs_err"] for r in step),
+        "max_err_over_tol": max(r["max_err_over_tol"] for r in step),
+        "tolerance": tolerance,
         "bf16_step_sums_min_err_over_tol": min(
-            r["bf16_step_sums_err_over_tol"] for r in mm_shapes.values()
-            if "bf16_step_sums_err_over_tol" in r),
+            r["bf16_step_sums_err_over_tol"] for r in step),
         "ms": per_launch(lambda r, t: r["ms"][t]),
         "plain_ms": per_launch(lambda r, t: r["plain_ms"]),
         "bound_ms": per_launch(lambda r, t: r["bound_ms"]),
@@ -3801,7 +3855,30 @@ def phase_amp(dev, root, f32_images_s, tuned):
                     "8192x768x768, 12 each at 8192x768x3072 and "
                     "8192x3072x768), each at the tiling the AMP run used",
         "tilings_used": {k: t for k, (_, t) in weights.items()},
-        "per_shape": mm_shapes}
+        "per_shape": {k: mm_shapes[k] for k in weights}}
+    # the face's ragged path: no main path takes it (every LM gemm is
+    # aligned, and the LM runs above fail on any ragged launch), so its
+    # launches are 0 and main() does not require one
+    from paddle_tpu_torch.kernels import matmul as mm
+    ragged = mm_shapes["x".join(str(d) for d in MM_RAGGED_SHAPE)]
+    entries["matmul_bf16_ragged"] = {
+        "name": "matmul_bf16_ragged", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/matmul.cu",
+        "replaces": "paddle_tpu/kernels/matmul.py:91",
+        "role": "the bfloat16 face's path for operands TMA cannot take "
+                "(K or N not a multiple of 8, a pointer not 16-byte "
+                "aligned): mma.sync at one tiling, 128x128x32",
+        "main_path": False,
+        "max_abs_err": ragged["max_abs_err"],
+        "max_err_over_tol": ragged["max_err_over_tol"],
+        "tolerance": tolerance,
+        "ms": ragged["ms"]["ragged %dx%dx%d" % mm.RAGGED_TILING],
+        "plain_ms": ragged["plain_ms"], "bound_ms": ragged["bound_ms"],
+        "bound_by": ragged["bound_by"],
+        "library_ms": ragged["library_ms"],
+        "library": "torch.matmul on bfloat16 (cuBLAS)",
+        "timed_as": "one launch at %s" % (MM_RAGGED_SHAPE,),
+        "per_shape": {"x".join(str(d) for d in MM_RAGGED_SHAPE): ragged}}
     return entries, paths
 
 
@@ -3865,7 +3942,7 @@ def main():
         # each main path is read with the counts set to 0 just before it
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
-        if entry["launches"] == 0:
+        if entry["launches"] == 0 and entry.get("main_path", True):
             fail("kernel %s was launched on no main path" % name)
         entry["kernel_ms"] = entry["ms"]
     log(card)

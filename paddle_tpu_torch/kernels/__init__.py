@@ -35,9 +35,11 @@ KERNEL_COUNTERS = {
     "fused_lstm": (fused_lstm, "launches"),
     "fused_gru": (fused_gru, "launches"),
     # the blocked gemm of a mul under a cached tune winner, float32 and
-    # bfloat16 (AMP) faces
+    # bfloat16 (AMP) faces; the bfloat16 face's ragged path (operands TMA
+    # cannot take) counted apart
     "matmul": (matmul, "launches"),
     "matmul_bf16": (matmul, "launches_bf16"),
+    "matmul_bf16_ragged": (matmul, "launches_bf16_ragged"),
 }
 
 

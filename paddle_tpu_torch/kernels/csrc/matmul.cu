@@ -51,14 +51,51 @@
 // MatmulSpace (paddle_tpu_torch/tune/space.py); the entry point selects
 // one by a switch and refuses any other.
 //
-// The bfloat16 face (matmul_bf16, a tuned gemm under AMP): the same
-// tilings, ring and sum order on bfloat16 tiles, one bf16 mma.sync
-// (m16n8k16, or m16n8k8 at BK 8) a product in place of the 3xTF32 triple,
-// B fragments by ldmatrix.trans from the [k][n] tile, the output written
-// in bfloat16 (rounded to nearest even) or float32: `_kernel` on bf16
-// operands, its f32 scratch flushed as `out_dtype or x.dtype`. Bound:
-// 2*M*N*K over 989 TFLOP/s dense bf16, 0.0391 ms at 8192 x 768 x 3072
-// (the bytes, 2 per value, take about two thirds of that).
+// The bfloat16 face (matmul_bf16, a tuned gemm under AMP) computes `_kernel`
+// on bf16 operands, its f32 scratch flushed as `out_dtype or x.dtype`: each
+// product exact in float32, summed in float32, written once in bfloat16
+// (rounded to nearest even) or float32. Bound: 2*M*N*K over 989 TFLOP/s
+// dense bf16, 0.0391 ms at 8192 x 768 x 3072, 0.0195 ms a launch on mean
+// over a GPT-2-small step's 72 gemms (the bytes, 2 per value, take about
+// two thirds of that). mma.sync cannot reach that rate on Hopper; only
+// wgmma can. So the face is a warp-specialised wgmma GEMM fed by TMA
+// (hopper.cuh):
+// - Loads. One producer warp issues TMA: x's BM x 64 box (K-major, the
+//   rows 128 bytes) and w's BN / 64 boxes of 64 k x 64 n as w lies in
+//   device memory (N-major), all with the 128-byte swizzle, into a ring
+//   of RING_BF16 stages with a full and an empty mbarrier each. wgmma
+//   reads the N-major B through its transpose operand (16-bit types
+//   allow it; TF32 would need a K-major copy), so w needs no transposed
+//   copy. The boxes past the edges of M, N and K are zero-filled.
+// - Products. BM / 64 consumer warpgroups each own 64 rows x BN: four
+//   wgmma.m64n{BN}k16 a 64-deep stage, both operands by shared-memory
+//   descriptor. The producer warpgroup drops to 40 registers, the
+//   consumers rise to 232 (setmaxnreg).
+// - Sum order. The tensor cores truncate as they accumulate, so each
+//   stage is summed from zero (scale-d 0 on its first wgmma) and added in
+//   float32 to a second accumulator in registers: the plain version's
+//   float32 sum of 64-deep tiles. BN / 2 + BN / 2 registers a thread.
+// - Epilogue. Rounded in registers (bf16 RNE, or float32 kept) and
+//   stored, masked at the ragged M and N edges; no atomics, no split-K,
+//   each output written once, so relaunches agree bit for bit.
+// - Grid. One block an output tile, the N tiles fastest, so the blocks in
+//   flight share x's rows (at 8192 x 3072 x 768, x is 48 MiB and would
+//   not stay in the L2 between columns). On 132 SMs, one block an SM:
+//   128 x 128 takes 384 tiles (2.9 waves) at N 768 and 1536 (11.6) at N
+//   3072; 64 x 192 512 (3.9) and 2048 (15.5). A persistent tile
+//   scheduler is a later step.
+// - Tilings: BM 64 with BN 64, 128 or 192, BM 128 with BN 64 or 128; BK
+//   64 (one swizzled row of bf16). Two accumulators of BN / 2 registers
+//   must fit a consumer's budget: 128 x 192 spills (its 384 threads
+//   compile at 168 registers), 64 x 256 would need 256.
+// TMA needs 16-byte-aligned bases and row pitches that are multiples of
+// 16 bytes: K % 8 == 0 and N % 8 == 0 (the population supports_matmul
+// admits always meets the pitch rule). Other operands (a misaligned
+// view, ragged K or N, K 0) take the face's ragged path, the mma.sync
+// kernel of the float32 design with bf16 tiles (matmul_bf16_ragged_kernel,
+// one tiling, 128 x 128 x 32): B fragments by ldmatrix.trans from the
+// [k][n] tile, tiles staged by plain loads where cp.async cannot take
+// them. The entry point picks the path by that rule and reports it.
 //
 // Tensors are contiguous, row-major. The kernel allocates nothing. The
 // entry point launches on the stream it is given and returns a CUDA error
@@ -66,7 +103,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <chrono>
+
 #include "bf16.cuh"
+#include "hopper.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -229,12 +269,12 @@ matmul_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 
-// -- the bfloat16 face ------------------------------------------------------
+// -- the bfloat16 face's ragged path ------------------------------------------
 //
-// Tiles x [BM][BK + 8] and w [BK][BN + 8] in bfloat16. A 16-byte copy holds
-// 8 values, so the copies are asynchronous when K and N are multiples of 8
-// and the pointers 16-byte aligned; any other shape is staged by plain
-// loads and stores, zeros past every edge, into the same ring.
+// Tiles x [BM][BK + 8] and w [BK][BN + 8] in bfloat16, staged by plain
+// loads and stores, zeros past every edge, into the ring: an operand that
+// comes here (K or N not a multiple of 8, or a pointer not 16-byte
+// aligned; K 0 loads nothing) is one a 16-byte copy cannot take either.
 constexpr int X_PAD_BF16 = 8;
 constexpr int W_PAD_BF16 = 8;
 
@@ -252,45 +292,30 @@ struct TileB {
   static_assert(BM % 32 == 0 && BN % 32 == 0 && BK % 8 == 0, "tiling");
 };
 
-template <int BM, int BN, int BK, bool VEC>
+template <int BM, int BN, int BK>
 __device__ __forceinline__ void load_stage_bf16(
     bf16* xs, bf16* ws, const bf16* __restrict__ x,
     const bf16* __restrict__ w, int M, int N, int K, int m0, int n0,
     int k0) {
   using T = TileB<BM, BN, BK>;
-  if (VEC) {  // K % 8 == 0 and N % 8 == 0: a chunk is all in or all out
-    for (int i = threadIdx.x; i < BM * BK / 8; i += THREADS) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const bool in = m0 + r < M && k0 + c < K;
-      cp_async16(xs + r * T::XLD + c,
-                 x + (in ? (size_t)(m0 + r) * K + k0 + c : 0), in);
-    }
-    for (int i = threadIdx.x; i < BK * BN / 8; i += THREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      const bool in = k0 + r < K && n0 + c < N;
-      cp_async16(ws + r * T::WLD + c,
-                 w + (in ? (size_t)(k0 + r) * N + n0 + c : 0), in);
-    }
-  } else {
-    const bf16 zero = __float2bfloat16_rn(0.f);
-    for (int i = threadIdx.x; i < BM * BK; i += THREADS) {
-      const int r = i / BK, c = i % BK;
-      xs[r * T::XLD + c] = m0 + r < M && k0 + c < K
-                               ? x[(size_t)(m0 + r) * K + k0 + c]
-                               : zero;
-    }
-    for (int i = threadIdx.x; i < BK * BN; i += THREADS) {
-      const int r = i / BN, c = i % BN;
-      ws[r * T::WLD + c] = k0 + r < K && n0 + c < N
-                               ? w[(size_t)(k0 + r) * N + n0 + c]
-                               : zero;
-    }
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (int i = threadIdx.x; i < BM * BK; i += THREADS) {
+    const int r = i / BK, c = i % BK;
+    xs[r * T::XLD + c] = m0 + r < M && k0 + c < K
+                             ? x[(size_t)(m0 + r) * K + k0 + c]
+                             : zero;
+  }
+  for (int i = threadIdx.x; i < BK * BN; i += THREADS) {
+    const int r = i / BN, c = i % BN;
+    ws[r * T::WLD + c] = k0 + r < K && n0 + c < N
+                             ? w[(size_t)(k0 + r) * N + n0 + c]
+                             : zero;
   }
 }
 
-template <int BM, int BN, int BK, bool VEC>
+template <int BM, int BN, int BK>
 __global__ void __launch_bounds__(THREADS)
-matmul_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+matmul_bf16_ragged_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                    void* __restrict__ out, bool out_f32, int M, int N,
                    int K) {
   using T = TileB<BM, BN, BK>;
@@ -311,7 +336,7 @@ matmul_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk)
-      load_stage_bf16<BM, BN, BK, VEC>(xs + s * T::XS, ws + s * T::WS, x, w,
+      load_stage_bf16<BM, BN, BK>(xs + s * T::XS, ws + s * T::WS, x, w,
                                        M, N, K, m0, n0, s * BK);
     cp_async_commit();
   }
@@ -329,7 +354,7 @@ matmul_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     __syncthreads();
     const int nxt = kt + STAGES - 1;
     if (nxt < nk)
-      load_stage_bf16<BM, BN, BK, VEC>(xs + (nxt % STAGES) * T::XS,
+      load_stage_bf16<BM, BN, BK>(xs + (nxt % STAGES) * T::XS,
                                        ws + (nxt % STAGES) * T::WS, x, w, M,
                                        N, K, m0, n0, nxt * BK);
     cp_async_commit();
@@ -389,14 +414,120 @@ matmul_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         const float v0 = acc[mi][ni][2 * half];
         const float v1 = acc[mi][ni][2 * half + 1];
         const size_t o = (size_t)m * N + n;
-        // VEC: N % 8 == 0, so n + 1 < N with n and the pair aligned
         if (out_f32)
           store2(static_cast<float*>(out) + o, v0, v1, n < N, n + 1 < N,
-                 VEC && n < N);
+                 false);
         else
           store2(static_cast<bf16*>(out) + o, v0, v1, n < N, n + 1 < N,
-                 VEC && n < N);
+                 false);
       }
+    }
+  }
+}
+
+// -- the bfloat16 face: TMA + wgmma --------------------------------------------
+
+constexpr int BK_BF16 = 64;   // one 128-byte swizzled row of bfloat16
+constexpr int RING_BF16 = 4;  // stages of the ring
+
+template <int BM, int BN>
+struct TileW {
+  static constexpr int CONSUMERS = BM / 64;  // warpgroups of 64 rows
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  static constexpr int XS = BM * BK_BF16;    // values of a stage's x box
+  static constexpr int WS = BK_BF16 * BN;    // of its w boxes
+  static constexpr int STAGE_BYTES = (XS + WS) * (int)sizeof(bf16);
+  // the ring, and slack to align it to the swizzle's 1024 bytes
+  static constexpr int SMEM_BYTES = RING_BF16 * STAGE_BYTES + 1024;
+  static_assert(BM == 64 || BM == 128, "one or two consumer warpgroups");
+  static_assert(BN % 64 == 0 && BN <= 192, "wgmma width");
+};
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(TileW<BM, BN>::THREADS, 1)
+matmul_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap wmap,
+                         void* __restrict__ out, bool out_f32, int M, int N,
+                         int K) {
+  using T = TileW<BM, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[RING_BF16], empty[RING_BF16];
+  // the ring: RING_BF16 x boxes, then RING_BF16 x w stages, 1024-aligned
+  bf16* xs = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  bf16* ws = xs + RING_BF16 * T::XS;
+
+  const int wg = threadIdx.x / 128;  // 0 the producer, 1.. the consumers
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int nk = (K + BK_BF16 - 1) / BK_BF16;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < RING_BF16; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * T::CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      tma_prefetch(&xmap);
+      tma_prefetch(&wmap);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % RING_BF16;
+        mbar_wait(&empty[s], ((kt / RING_BF16) & 1) ^ 1);
+        mbar_expect_tx(&full[s], T::STAGE_BYTES);
+        tma_load_2d(xs + s * T::XS, &xmap, &full[s], kt * BK_BF16, m0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_2d(ws + s * T::WS + j * 64 * BK_BF16, &wmap, &full[s],
+                      n0 + 64 * j, kt * BK_BF16);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int rows = (wg - 1) * 64;  // the warpgroup's rows in the tile
+    float acc[BN / 2], part[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % RING_BF16;
+      mbar_wait(&full[s], (kt / RING_BF16) & 1);
+      const uint32_t a = smem_u32(xs + s * T::XS + rows * BK_BF16);
+      const uint32_t b = smem_u32(ws + s * T::WS);
+      // the stage's sum, from zero on the tensor cores
+      wgmma_fence();
+      wgmma_fence_operands(part);
+#pragma unroll
+      for (int kk = 0; kk < BK_BF16 / 16; ++kk)
+        wgmma_bf16<BN>(part, desc_sw128(a + 32 * kk, 16, 1024),
+                       desc_sw128(b + 2048 * kk, 64 * BK_BF16 * 2, 1024),
+                       kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_operands(part);
+      mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+    }
+
+    const int lane = threadIdx.x % 32;
+    const int m = m0 + rows + 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+#pragma unroll
+    for (int i = 0; i < BN / 2; i += 2) {
+      const int r = m + 8 * ((i / 2) % 2);
+      const int n = n0 + 8 * (i / 4) + 2 * (lane % 4);
+      if (r >= M || n >= N) continue;  // N % 8 == 0: n + 1 < N too
+      const size_t o = (size_t)r * N + n;
+      if (out_f32)
+        store2(static_cast<float*>(out) + o, acc[i], acc[i + 1], true, true,
+               true);
+      else
+        store2(static_cast<bf16*>(out) + o, acc[i], acc[i + 1], true, true,
+               true);
     }
   }
 }
@@ -423,21 +554,51 @@ int launch(const float* x, const float* w, float* out, int M, int N, int K,
   return (int)cudaGetLastError();
 }
 
-template <int BM, int BN, int BK>
-int launch_bf16(const bf16* x, const bf16* w, void* out, bool out_f32, int M,
-                int N, int K, bool vec, cudaStream_t st) {
-  using T = TileB<BM, BN, BK>;
-  const long long mblocks = ((long long)M + BM - 1) / BM;
-  const long long nblocks = ((long long)N + BN - 1) / BN;
+// the ragged path: one tiling
+constexpr int RBM = 128, RBN = 128, RBK = 32;
+
+int launch_bf16_ragged(const bf16* x, const bf16* w, void* out, bool out_f32,
+                       int M, int N, int K, cudaStream_t st) {
+  using T = TileB<RBM, RBN, RBK>;
+  const long long mblocks = ((long long)M + RBM - 1) / RBM;
+  const long long nblocks = ((long long)N + RBN - 1) / RBN;
   if (mblocks > 0x7fffffffLL || nblocks > 65535)
     return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)mblocks, (unsigned)nblocks);
-  auto kernel = vec ? matmul_bf16_kernel<BM, BN, BK, true>
-                    : matmul_bf16_kernel<BM, BN, BK, false>;
+  auto kernel = matmul_bf16_ragged_kernel<RBM, RBN, RBK>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   kernel<<<grid, THREADS, T::SMEM_BYTES, st>>>(x, w, out, out_f32, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// x [M, K] in BM x 64 boxes, w [K, N] in 64 x 64 ones
+template <int BM>
+int encode_maps(CUtensorMap* xmap, CUtensorMap* wmap, const void* x,
+                const void* w, int M, int N, int K) {
+  int e = encode_tma_2d(xmap, x, K, M, (uint64_t)K * 2, BK_BF16, BM);
+  return e ? e : encode_tma_2d(wmap, w, N, K, (uint64_t)N * 2, 64, BK_BF16);
+}
+
+template <int BM, int BN>
+int launch_wgmma(const void* x, const void* w, void* out, bool out_f32,
+                 int M, int N, int K, cudaStream_t st) {
+  using T = TileW<BM, BN>;
+  const long long mblocks = ((long long)M + BM - 1) / BM;
+  const long long nblocks = ((long long)N + BN - 1) / BN;
+  if (nblocks > 0x7fffffffLL || mblocks > 65535)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap;
+  int code = encode_maps<BM>(&xmap, &wmap, x, w, M, N, K);
+  if (code) return code;
+  auto kernel = matmul_bf16_wgmma_kernel<BM, BN>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)nblocks, (unsigned)mblocks);
+  kernel<<<grid, T::THREADS, T::SMEM_BYTES, st>>>(xmap, wmap, out, out_f32,
+                                                  M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -467,40 +628,66 @@ int matmul_f32(const void* x, const void* w, void* out, int M, int N, int K,
   return (int)cudaErrorInvalidValue;   // not a compiled tiling
 }
 
+// The compiled tilings of the bfloat16 face, (BM, BN): BK is 64.
+#define BF16_TILINGS(X) \
+  X(64, 64) X(64, 128) X(64, 192) X(128, 64) X(128, 128)
+
 // x [M, K] and w [K, N] bfloat16, out [M, N] float32 when out_f32 is
 // non-zero, else bfloat16; contiguous, on one device; (bm, bn, bk) one of
-// the compiled tilings.
+// the compiled tilings. Operands TMA can take (K and N multiples of 8, K
+// not 0, every pointer 16-byte aligned) run the wgmma kernel at that
+// tiling, any other the ragged path; *ragged says which.
 int matmul_bf16(const void* x, const void* w, void* out, int M, int N, int K,
-                int bm, int bn, int bk, int out_f32, void* stream) {
+                int bm, int bn, int bk, int out_f32, int* ragged,
+                void* stream) {
   if (M < 1 || N < 1 || K < 0) return (int)cudaErrorInvalidValue;
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* wb = static_cast<const bf16*>(w);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool f32 = out_f32 != 0;
-  const bool vec = K % 8 == 0 && N % 8 == 0 && aligned16(x) &&
-                   aligned16(w) && aligned16(out);
-#define TILING(BM_, BN_, BK_)                                        \
-  if (bm == BM_ && bn == BN_ && bk == BK_)                           \
-    return launch_bf16<BM_, BN_, BK_>(xb, wb, out, f32, M, N, K, vec, st);
-  TILING(64, 64, 8) TILING(64, 64, 16) TILING(64, 64, 32)
-  TILING(64, 128, 8) TILING(64, 128, 16) TILING(64, 128, 32)
-  TILING(128, 64, 8) TILING(128, 64, 16) TILING(128, 64, 32)
-  TILING(128, 128, 8) TILING(128, 128, 16) TILING(128, 128, 32)
+  bool compiled = false;
+#define IS_TILING(BM_, BN_) compiled |= bm == BM_ && bn == BN_;
+  BF16_TILINGS(IS_TILING)
+#undef IS_TILING
+  if (!compiled || bk != BK_BF16) return (int)cudaErrorInvalidValue;
+  *ragged = !(K > 0 && K % 8 == 0 && N % 8 == 0 && aligned16(x) &&
+              aligned16(w) && aligned16(out));
+  if (*ragged)
+    return launch_bf16_ragged(static_cast<const bf16*>(x),
+                              static_cast<const bf16*>(w), out, f32, M, N,
+                              K, st);
+#define TILING(BM_, BN_) \
+  if (bm == BM_ && bn == BN_) \
+    return launch_wgmma<BM_, BN_>(x, w, out, f32, M, N, K, st);
+  BF16_TILINGS(TILING)
 #undef TILING
-  return (int)cudaErrorInvalidValue;   // not a compiled tiling
+  return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of one bfloat16 tiling's block, or -1.
+// Dynamic shared memory of one bfloat16 block: the wgmma kernel's at its
+// tilings, the ragged path's at 128 x 128 x 32; -1 for any other.
 int matmul_bf16_smem_bytes(int bm, int bn, int bk) {
-#define TILING(BM_, BN_, BK_)              \
-  if (bm == BM_ && bn == BN_ && bk == BK_) \
-    return TileB<BM_, BN_, BK_>::SMEM_BYTES;
-  TILING(64, 64, 8) TILING(64, 64, 16) TILING(64, 64, 32)
-  TILING(64, 128, 8) TILING(64, 128, 16) TILING(64, 128, 32)
-  TILING(128, 64, 8) TILING(128, 64, 16) TILING(128, 64, 32)
-  TILING(128, 128, 8) TILING(128, 128, 16) TILING(128, 128, 32)
+#define TILING(BM_, BN_) \
+  if (bm == BM_ && bn == BN_ && bk == BK_BF16) return TileW<BM_, BN_>::SMEM_BYTES;
+  BF16_TILINGS(TILING)
 #undef TILING
+  if (bm == RBM && bn == RBN && bk == RBK)
+    return TileB<RBM, RBN, RBK>::SMEM_BYTES;
   return -1;
+}
+
+// Host microseconds, on mean over `reps`, to encode the two tensor maps a
+// launch of the wgmma kernel at row tiling bm needs; negative on an error.
+double matmul_bf16_encode_us(const void* x, const void* w, int M, int N,
+                             int K, int bm, int reps) {
+  CUtensorMap xmap, wmap;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i) {
+    const int e = bm == 64 ? encode_maps<64>(&xmap, &wmap, x, w, M, N, K)
+                           : encode_maps<128>(&xmap, &wmap, x, w, M, N, K);
+    if (e) return -1.0;
+  }
+  const std::chrono::duration<double, std::micro> took =
+      std::chrono::steady_clock::now() - t0;
+  return took.count() / reps;
 }
 
 // Dynamic shared memory of one tiling's block, or -1 for a tiling that is

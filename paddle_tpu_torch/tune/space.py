@@ -4,7 +4,8 @@
 A :class:`KernelSpace` declares, for one of the port's CUDA kernels:
 
 - ``params``: the tunable axes and their values, which here are the
-  tilings the kernel's source is compiled for;
+  tilings the kernel's source is compiled for (``params_for(key)``
+  where they differ by the key's dtype);
 - ``is_valid``: the hard constraints on a config at a shape key, and
   ``smem_bytes``: the shared memory one thread block of it takes, which
   must fit :data:`SMEM_BUDGET` (the JAX spaces model VMEM instead);
@@ -101,7 +102,7 @@ class KernelSpace(object):
         (the default survives any positive cap; 0 means no kernel
         candidate at all; None is uncapped)."""
         out, seen = [], set()
-        for cfg in [self.default_config(key)] + self._enumerate():
+        for cfg in [self.default_config(key)] + self._enumerate(key):
             frozen = tuple(sorted(cfg.items()))
             if frozen in seen:
                 continue
@@ -113,16 +114,24 @@ class KernelSpace(object):
             out = out[:max(int(budget), 0)]
         return out
 
-    def _enumerate(self):
-        names = sorted(self.params)
+    def params_for(self, key):
+        """The tunable axes at ``key``: ``params`` unless a space's
+        values differ by the key."""
+        return self.params
+
+    def _enumerate(self, key):
+        params = self.params_for(key)
+        names = sorted(params)
         return [dict(zip(names, vals)) for vals in
-                itertools.product(*(self.params[n] for n in names))]
+                itertools.product(*(params[n] for n in names))]
 
 
 class MatmulSpace(KernelSpace):
     """Tiling space of ``kernels/matmul.py`` (2-D gemm). key: {m, k, n,
     dtype}. The values are exactly the template instantiations of
-    ``csrc/matmul.cu``; the kernel masks its ragged edges, so every
+    ``csrc/matmul.cu`` for the key's dtype: the float32 face's
+    (``params``) or the bfloat16 face's wgmma kernel's
+    (``params_bf16``); the kernel masks its ragged edges, so every
     tiling is right at every shape. A block wider than its extent is
     pruned as idle threads, unless it is the narrowest value or the
     default tiling (which stays valid everywhere, as the JAX default's
@@ -134,23 +143,34 @@ class MatmulSpace(KernelSpace):
         "block_n": (64, 128),
         "block_k": (8, 16, 32),
     }
+    params_bf16 = {
+        "block_m": (64, 128),
+        "block_n": (64, 128, 192),
+        "block_k": (64,),
+    }
+
+    def params_for(self, key):
+        from ..core.types import torch_dtype
+        return self.params_bf16 if torch_dtype(key["dtype"]) == \
+            torch.bfloat16 else self.params
 
     def default_config(self, key):
-        from ..kernels.matmul import DEFAULT_CONFIG
-        return dict(DEFAULT_CONFIG)
+        from ..kernels.matmul import default_config
+        return default_config(key["dtype"])
 
     def is_valid(self, config, key):
-        from ..kernels.matmul import TILINGS, normalize_config
+        from ..kernels.matmul import normalize_config, tilings
         try:
             bm, bn, bk = (int(config[k])
                           for k in ("block_m", "block_n", "block_k"))
         except (KeyError, TypeError, ValueError):
             return False
-        if (bm, bn, bk) not in TILINGS:
+        if (bm, bn, bk) not in tilings(key["dtype"]):
             return False
-        if (bm, bn, bk) == normalize_config():
+        if (bm, bn, bk) == normalize_config(None, key["dtype"]):
             return True
-        lo = {name: min(vals) for name, vals in self.params.items()}
+        lo = {name: min(vals)
+              for name, vals in self.params_for(key).items()}
         return ((bm == lo["block_m"] or bm <= key["m"])
                 and (bn == lo["block_n"] or bn <= key["n"])
                 and (bk == lo["block_k"] or bk <= key["k"]))

@@ -438,7 +438,7 @@ def _cache_winners(key):
         {"block_m": 8, "block_n": 128, "block_k": 128})
     ttune.WinnerCache().put(
         ttune.cache_key(ttune.device_kind(), "matmul", ttune.signature(key)),
-        {"block_m": 64, "block_n": 128, "block_k": 32})
+        {"block_m": 64, "block_n": 128, "block_k": 64})
 
 
 def test_a_tuned_bfloat16_gemm_is_rounded_to_bfloat16_in_both_packages():

@@ -35,6 +35,9 @@ SHAPES = [(64, 256, 128), (24, 384, 256), (8, 128, 384), (10, 100, 30),
 JAX_TILINGS = [None, {"block_m": 8, "block_n": 128, "block_k": 128}]
 # tilings of the port's kernel (the plain version's k-tile order)
 PORT_TILINGS = [None, {"block_m": 64, "block_n": 128, "block_k": 32}]
+# the same of the bfloat16 face, whose tilings sum 64-deep k tiles
+JAX_TILINGS_BF16 = [None, {"block_m": 8, "block_n": 128, "block_k": 64}]
+PORT_TILINGS_BF16 = [None, {"block_m": 64, "block_n": 192, "block_k": 64}]
 
 
 def _inputs(shape, seed):
@@ -187,7 +190,8 @@ def _jnp(t):
 @pytest.mark.parametrize("out_dtype", [None, torch.float32],
                          ids=["bf16_out", "f32_out"])
 @pytest.mark.parametrize("shape", SHAPES[:3])
-@pytest.mark.parametrize("tilings", list(zip(JAX_TILINGS, PORT_TILINGS)),
+@pytest.mark.parametrize("tilings",
+                         list(zip(JAX_TILINGS_BF16, PORT_TILINGS_BF16)),
                          ids=["default", "blocked"])
 def test_bf16_reference_matches_jax_kernel(shape, tilings, out_dtype):
     jax_cfg, port_cfg = tilings
@@ -213,7 +217,7 @@ def test_bf16_wrapper_matches_jax_and_its_vjp(shape):
                        _jnp(x), _jnp(w))
     want_dx, want_dw = vjp(_jnp(g))
     xt, wt = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-    got = tmm.matmul(xt, wt, config={"block_k": 32})
+    got = tmm.matmul(xt, wt, config={"block_m": 64})
     _close_bf16(got.detach(), out)
     dx, dw = torch.autograd.grad(got, (xt, wt), g)
     _close_bf16(dx, want_dx)
@@ -221,25 +225,79 @@ def test_bf16_wrapper_matches_jax_and_its_vjp(shape):
 
 
 def test_bf16_k_tile_partial_sums_miss_the_tolerance():
-    # rounding the sum to bfloat16 after each k tile (a kernel whose
-    # scratch were bfloat16) is several ulps off at K 3072 (96 tiles)
+    # rounding the sum to bfloat16 after each 64-deep k tile (a kernel
+    # whose scratch were bfloat16) is several ulps off at K 3072 (48
+    # tiles)
     x, w, _ = _bf16_inputs((64, 3072, 128), seed=11)
     want = np.asarray(jax_matmul(_jnp(x), _jnp(w)))
     acc = None
-    for k0 in range(0, 3072, 32):
-        t = torch.matmul(x[:, k0:k0 + 32].float(), w[k0:k0 + 32].float())
+    for k0 in range(0, 3072, 64):
+        t = torch.matmul(x[:, k0:k0 + 64].float(), w[k0:k0 + 64].float())
         acc = (t if acc is None else acc.float() + t).bfloat16()
     with pytest.raises(AssertionError):
         _close_bf16(acc, want)
-    _close_bf16(tmm.matmul_reference(x, w, {"block_k": 32}), want)
+    _close_bf16(tmm.matmul_reference(x, w), want)
 
 
 def test_bf16_smem_bytes_of_every_tiling_fits_a_block():
-    for t in tmm.TILINGS:
+    # the wgmma kernel: a ring of four stages of the x box (bm x 64) and
+    # the w boxes (64 x bn), and 1024 bytes to align it for the swizzle
+    for t in tmm.TILINGS_BF16:
         assert 0 < tmm.smem_bytes(*t, torch.bfloat16) <= 227 * 1024
         assert tmm.smem_bytes(*t, "bfloat16") == \
-            3 * (t[0] * (t[2] + 8) + t[2] * (t[1] + 8)) * 2
-    assert tmm.smem_bytes(128, 128, 32, "bfloat16") == 56832
+            4 * (t[0] * t[2] + t[2] * t[1]) * 2 + 1024
+    assert tmm.smem_bytes(128, 128, 64, "bfloat16") == 132096
+    assert tmm.smem_bytes(64, 192, 64, "bfloat16") == 132096
+    # the ragged path's one tiling keeps its three padded stages
+    assert tmm.smem_bytes(*tmm.RAGGED_TILING, "bfloat16") == 56832
+
+
+def test_bf16_tilings_are_the_wgmma_kernels_instantiations():
+    # one or two consumer warpgroups of 64 rows, a wgmma width the
+    # registers hold twice (the stage's sum and the running one), one
+    # 128-byte swizzled row of bfloat16 a k step
+    assert len(tmm.TILINGS_BF16) <= 12
+    assert tmm.normalize_config(None, torch.bfloat16) == (128, 128, 64)
+    for bm, bn, bk in tmm.TILINGS_BF16:
+        assert bm in (64, 128) and bn in (64, 128, 192) and bk == 64
+    # two accumulators of bn / 2 registers: 128 x 192 spills at the 168
+    # registers its 384 threads compile with
+    assert (128, 192, 64) not in tmm.TILINGS_BF16
+    assert tmm.RAGGED_TILING not in tmm.TILINGS_BF16
+    assert tmm.tilings("bfloat16") == tmm.TILINGS_BF16
+    assert tmm.tilings(torch.float32) == tmm.TILINGS
+    assert tmm.default_config(torch.bfloat16) == tmm.DEFAULT_CONFIG_BF16
+    assert tmm.default_config("float32") == tmm.DEFAULT_CONFIG
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, "bfloat16"])
+def test_normalize_config_is_dtype_aware(dtype):
+    default = (128, 128, 64)
+    assert tmm.normalize_config(None, dtype) == default
+    assert tmm.normalize_config(
+        {"block_m": 64, "block_n": 192, "block_k": 64}, dtype) == \
+        (64, 192, 64)
+    # a partial config takes the rest from the bfloat16 default
+    assert tmm.normalize_config({"block_n": 64}, dtype) == (128, 64, 64)
+    # stale entries degrade to the bfloat16 default: a triple of the
+    # face before its wgmma kernel (128 x 128 x 32, 64 x 64 x 8), a
+    # float32 one, the ragged path's, a JAX tiling, garbage
+    for stale in ({"block_m": 128, "block_n": 128, "block_k": 32},
+                  {"block_m": 64, "block_n": 64, "block_k": 8},
+                  dict(tmm.DEFAULT_CONFIG),
+                  dict(zip(("block_m", "block_n", "block_k"),
+                           tmm.RAGGED_TILING)),
+                  {"block_m": 0, "block_n": 0, "block_k": 0},
+                  {"block_k": "x"}):
+        assert tmm.normalize_config(stale, dtype) == default
+    # and a bfloat16 tiling is stale for the float32 face
+    assert tmm.normalize_config({"block_m": 64, "block_n": 192,
+                                 "block_k": 64}) == (128, 128, 8)
+    # the plain version of a stale bfloat16 tiling sums in the default's
+    # k order
+    x, w, _ = _bf16_inputs((16, 256, 128), seed=5)
+    assert torch.equal(tmm.matmul_reference(x, w, {"block_k": 32}),
+                       tmm.matmul_reference(x, w))
 
 
 def test_bf16_cpu_call_counts_no_launch():
@@ -249,3 +307,6 @@ def test_bf16_cpu_call_counts_no_launch():
     assert tmm.matmul(x, w, torch.float32).dtype == torch.float32
     counts = kernels.launch_counts()
     assert counts["matmul"] == counts["matmul_bf16"] == 0
+    assert counts["matmul_bf16_ragged"] == 0
+    assert kernels.KERNEL_COUNTERS["matmul_bf16_ragged"] == (
+        tmm, "launches_bf16_ragged")

@@ -108,6 +108,35 @@ def test_matmul_space_candidates_are_compiled_tilings_default_first():
                            MM_KEY)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_matmul_space_bf16_candidates_are_the_wgmma_tilings(dtype):
+    # a bfloat16 key races the face's wgmma tilings, default first; a
+    # float32 key at the same shape keeps the float32 face's 12
+    sp = tune.get_space("matmul")
+    key = {"m": 8192, "k": 3072, "n": 768, "dtype": dtype}
+    cands = sp.candidates(key)
+    want = tmm.TILINGS_BF16 if dtype == "bfloat16" else tmm.TILINGS
+    default = tmm.default_config(dtype)
+    assert cands[0] == sp.default_config(key) == default
+    assert len(cands) == len(want)
+    assert {(c["block_m"], c["block_n"], c["block_k"])
+            for c in cands} == set(want)
+    for cfg in cands:
+        assert sp.smem_bytes(cfg, key) == tmm.smem_bytes(
+            cfg["block_m"], cfg["block_n"], cfg["block_k"], dtype)
+        assert sp.smem_bytes(cfg, key) <= tune.space.SMEM_BUDGET
+    # a tiling of the other face is not valid for this one
+    other = tmm.TILINGS if dtype == "bfloat16" else tmm.TILINGS_BF16
+    assert not any(sp.is_valid(dict(zip(("block_m", "block_n", "block_k"),
+                                        t)), key) for t in other)
+    if dtype == "bfloat16":
+        assert cands[0] == {"block_m": 128, "block_n": 128, "block_k": 64}
+        # m 64 prunes the 128-row blocks but keeps the default
+        small = sp.candidates(dict(key, m=64))
+        assert small[0] == default
+        assert [c["block_m"] for c in small[1:]] == [64, 64, 64]
+
+
 def test_conv3x3_space_has_the_kernels_one_tiling():
     sp = tune.get_space("conv3x3")
     assert sp.candidates(CONV_KEY) == [{}]

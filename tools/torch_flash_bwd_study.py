@@ -39,7 +39,11 @@ on every tile at every D, as the source does at D 128 only),
 ``min_blocks3`` (registers capped for 3 blocks an SM) and ``one_chain``
 (each 3xTF32 product's three terms in one mma accumulator, instead of
 the large term and the two small ones in separate chains); the matmul
-``stages2`` (a ring of two stages instead of three). The GRU has
+``stages2`` (a ring of two stages instead of three), and for its
+bfloat16 face ``wgmma_accumulator`` (the sum over all of K left in the
+wgmma accumulator, instead of each 64-deep stage summed from zero and
+added in float32), ``ring3`` and ``ring5`` (a ring of three or five
+stages instead of four). The GRU has
 ``dj4``: 4 units a block instead of 8 (at D 512, N 64: 128 unit groups
 of all 64 rows, instead of 64 unit groups by 2 row groups of 32 rows);
 ``w_split_at_load``: W kept as its floats and split at each load, the
@@ -83,7 +87,15 @@ For each it prints the registers and spills ``-Xptxas -v`` reports and:
   of a float64 product, worst over the tilings, the time of every
   tiling, and whether each variant's outputs equal the source's bit for
   bit at every tiling (with ``--against``: a change left the float32
-  face as it was);
+  face as it was); then the bfloat16 face (bfloat16 out) of the source,
+  of its variants and of ``--against``'s checkout (a parent's face
+  before its wgmma kernel is called with its own arguments and
+  tilings): the same errors and times, ``torch.matmul`` on bfloat16
+  beside them, the mean over the LM step's 72 launches at each
+  library's fastest tiling a shape (also with the L2 flushed by a read),
+  and a sweep over K at M 8192, N 768 whose straight line splits a
+  launch's time into what every 64-deep stage costs and what is left at
+  no stage;
 - gru, lstm: the largest error of hs (and the LSTM's cs) over its
   largest magnitude against a float64 plain recurrence at T 100, N 64,
   D 512 (the sequence slice's shape), ragged and full, and the time at
@@ -131,8 +143,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (R50_CONV_SHAPES, RNN_EDGE_SHAPES,  # noqa: E402
-                        _paged_inputs)
+from chip_smoke import (MM_COUNTS, MM_SHAPES,  # noqa: E402
+                        R50_CONV_SHAPES, RNN_EDGE_SHAPES, _paged_inputs)
 from paddle_tpu_torch.kernels import _build  # noqa: E402
 from paddle_tpu_torch.kernels import conv3x3 as conv  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
@@ -259,7 +271,32 @@ FWD_VARIANTS = {
     "min_blocks3": [("__launch_bounds__(THREADS)\nflash_fwd_kernel",
                      "__launch_bounds__(THREADS, 3)\nflash_fwd_kernel")],
 }
+# variants of the bfloat16 face's wgmma kernel (the float32 face as in
+# the source)
+MATMUL_BF16_VARIANTS = {
+    "wgmma_accumulator": [
+        ("""      wgmma_fence();
+      wgmma_fence_operands(part);
+""", """      wgmma_fence();
+      wgmma_fence_operands(acc);
+"""),
+        ("""        wgmma_bf16<BN>(part, desc_sw128(""",
+         """        wgmma_bf16<BN>(acc, desc_sw128("""),
+        ("""                       kk > 0);
+""", """                       kt > 0 || kk > 0);
+"""),
+        ("""      wgmma_fence_operands(part);
+      mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+""", """      wgmma_fence_operands(acc);
+      mbar_arrive(&empty[s]);
+""")],
+    "ring3": [("constexpr int RING_BF16 = 4;", "constexpr int RING_BF16 = 3;")],
+    "ring5": [("constexpr int RING_BF16 = 4;", "constexpr int RING_BF16 = 5;")],
+}
 MATMUL_VARIANTS = {
+    **MATMUL_BF16_VARIANTS,
     "mma_accumulator": [
         ("""    float c[MI][NI][4];
 #pragma unroll
@@ -593,20 +630,149 @@ def study_fwd(libs, result, dev, flush):
               flush=True)
 
 
+def _parent_bf16(lib, x, w, t):
+    """A launch of a parent's bfloat16 face (before its wgmma kernel: no
+    ragged flag, the float32 face's tilings), bfloat16 out."""
+    M, K = x.shape
+    N = w.shape[1]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    fn = lib.matmul_bf16
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(lib, fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N,
+                         K, *t, 0, _build.stream_handle(x.device)), "matmul")
+    return out
+
+
+def study_matmul_bf16(libs, result, dev, flush):
+    """The bfloat16 face at the LM step's gemm shapes: the source's, each
+    bf16 variant's and (with --against) a parent's, every tiling timed,
+    errors against a float64 product, torch.matmul on bfloat16 beside
+    them, and the mean over a step's 72 launches at each library's
+    fastest tiling a shape."""
+    rng = np.random.RandomState(2)
+    names = [n for n in libs
+             if n in ("source", "against") or n in MATMUL_BF16_VARIANTS]
+    means = {n: 0.0 for n in names + ["torch.matmul"]}
+    means_read = dict(means)
+    for (M, K, N), count in zip(MM_SHAPES, MM_COUNTS):
+        x = _randn(rng, (M, K), dev).bfloat16()
+        w = _randn(rng, (K, N), dev, 0.1).bfloat16()
+        want = torch.matmul(x.double(), w.double())
+        tag = "%dx%dx%d" % (M, K, N)
+        lib_ms = time_ms(lambda: torch.matmul(x, w), flush)
+        means["torch.matmul"] += count * lib_ms / sum(MM_COUNTS)
+        for name in names:
+            lib = libs[name]
+            parent = not hasattr(lib, "matmul_bf16_encode_us")
+            rec = {"max_rel_err": 0.0, "ms": {}}
+            with using("matmul", lib):
+                for t in (mm.TILINGS if parent else mm.TILINGS_BF16):
+                    def call():
+                        return (_parent_bf16(lib, x, w, t) if parent
+                                else mm._launch(x, w, t)[0])
+                    got = call()
+                    torch.cuda.synchronize()
+                    rec["max_rel_err"] = max(rec["max_rel_err"], float(
+                        (got.double() - want).abs().max()
+                        / want.abs().max()))
+                    rec["ms"]["%dx%dx%d" % t] = time_ms(call, flush)
+                best = min(rec["ms"], key=rec["ms"].get)
+                t = tuple(int(v) for v in best.split("x"))  # call reads t
+                # the L2 flushed by a read: no dirty line of the flush is
+                # written back during the launch
+                rec["best_ms_read_flush"] = time_ms(call, flush,
+                                                    by_read=True)
+            rec["best"] = {best: rec["ms"][best]}
+            rec["torch_matmul_ms"] = lib_ms
+            rec["torch_matmul_ms_read_flush"] = time_ms(
+                lambda: torch.matmul(x, w), flush, by_read=True)
+            means[name] += count * rec["ms"][best] / sum(MM_COUNTS)
+            means_read[name] += count * rec["best_ms_read_flush"] / \
+                sum(MM_COUNTS)
+            if name == "source":
+                means_read["torch.matmul"] += count * \
+                    rec["torch_matmul_ms_read_flush"] / sum(MM_COUNTS)
+            result[name]["bf16 " + tag] = rec
+            print(json.dumps({name: {"bf16 " + tag: {
+                k: rec[k] for k in ("max_rel_err", "best",
+                                    "best_ms_read_flush", "torch_matmul_ms",
+                                    "torch_matmul_ms_read_flush")}}}),
+                  flush=True)
+        del x, w, want
+        torch.cuda.empty_cache()
+    for name, ms in means.items():
+        if name in result:
+            result[name]["bf16 step mean ms"] = ms
+            result[name]["bf16 step mean ms, read flush"] = means_read[name]
+    result["source"]["bf16 step mean ms, torch.matmul"] = \
+        means["torch.matmul"]
+    result["source"]["bf16 step mean ms, read flush, torch.matmul"] = \
+        means_read["torch.matmul"]
+    print(json.dumps({"bf16 step mean ms": means,
+                      "bf16 step mean ms, read flush": means_read}),
+          flush=True)
+    _bf16_k_sweep(libs, result, dev, flush)
+
+
+# K of the sweep at M 8192, N 768 (each a multiple of the 64-deep stage)
+K_SWEEP = (64, 128, 256, 512, 768, 1536, 3072)
+
+
+def _bf16_k_sweep(libs, result, dev, flush):
+    """Where a launch's time goes: the source's default tiling and a
+    parent's 128 x 128 x 32 at M 8192, N 768 over K_SWEEP, and a least
+    squares line of ms against the 64-deep stages a tile walks (K / 64):
+    the intercept is what a launch costs whatever its depth (filling the
+    ring, the epilogue, the waves' tails), the slope what a stage of
+    every tile costs; with the L2 flushed by a write (the default, whose
+    dirty lines are written back during the launch) and by a read."""
+    rng = np.random.RandomState(3)
+    M, N = 8192, 768
+    for name in [n for n in ("source", "against") if n in libs]:
+        lib = libs[name]
+        parent = not hasattr(lib, "matmul_bf16_encode_us")
+        t = (128, 128, 32) if parent else mm.normalize_config(
+            None, torch.bfloat16)
+        ms, ms_read = {}, {}
+        with using("matmul", lib):
+            for K in K_SWEEP:
+                x = _randn(rng, (M, K), dev).bfloat16()
+                w = _randn(rng, (K, N), dev, 0.1).bfloat16()
+
+                def call():
+                    return (_parent_bf16(lib, x, w, t) if parent
+                            else mm._launch(x, w, t))
+                ms[K] = time_ms(call, flush)
+                ms_read[K] = time_ms(call, flush, by_read=True)
+        rec = {"tiling": "%dx%dx%d" % t}
+        for label, by_k in (("", ms), ("read_flush_", ms_read)):
+            slope, intercept = np.polyfit([K / 64 for K in K_SWEEP],
+                                          [by_k[K] for K in K_SWEEP], 1)
+            rec.update({label + "ms_by_K": by_k,
+                        label + "ms_per_stage": float(slope),
+                        label + "ms_at_no_stage": float(intercept)})
+        result[name]["bf16 K sweep, M 8192, N 768"] = rec
+        print(json.dumps({name: {"bf16 K sweep": rec}}), flush=True)
+
+
 def study_matmul(libs, result, dev, flush):
     rng = np.random.RandomState(0)
-    for M, K, N in ((8192, 768, 768), (8192, 768, 3072), (8192, 3072, 768)):
+    for M, K, N in MM_SHAPES:
         x = _randn(rng, (M, K), dev)
         w = _randn(rng, (K, N), dev, 0.1)
         want = torch.matmul(x.double(), w.double())
         tag = "%dx%dx%d" % (M, K, N)
         source_out = {}
         for name, lib in libs.items():
+            if name in MATMUL_BF16_VARIANTS:
+                continue
             rec = {"max_rel_err": 0.0, "ms": {}}
             same = True
             with using("matmul", lib):
                 for t in mm.TILINGS:
-                    got = mm._launch(x, w, t)
+                    got = mm._launch(x, w, t)[0]
                     torch.cuda.synchronize()
                     rec["max_rel_err"] = max(rec["max_rel_err"], float(
                         (got.double() - want).abs().max()
@@ -628,6 +794,7 @@ def study_matmul(libs, result, dev, flush):
                     "bit_identical_to_source")}}}), flush=True)
         del x, w, want, source_out
         torch.cuda.empty_cache()
+    study_matmul_bf16(libs, result, dev, flush)
 
 
 def rnn_study(mod, name, gates):
