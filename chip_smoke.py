@@ -7,8 +7,9 @@ ResNet-50, its sequence training path on the stacked-RNN text
 classifier of ``benchmark/rnn_bench.py``, its autotune path (the
 ``tune`` verb, the winner cache, the tuned dispatch of ``mul`` and
 ``conv2d``) and AMP (bfloat16) training of ResNet-50 and the LM, and
-holds each hand-written CUDA kernel against its plain PyTorch version.
-Run from the root of a checkout:
+holds each hand-written CUDA kernel against its plain PyTorch version;
+and pure-AMP training of the bias-free LSTM classifier. Run from the
+root of a checkout:
 
     python3 chip_smoke.py
 
@@ -147,7 +148,20 @@ Phases, in order; any failure exits non-zero at once:
    under pure AMP 24 bfloat16 flash forward, 12
    dK/dV and 12 dQ launches a step and no float32 flash launch, the loss
    falling; tokens/s, step p50 and device time of both beside phase 8's
-   tuned float32 run.
+   tuned float32 run; hold the fused LSTM's bfloat16 face (bfloat16 xs,
+   h0, c0, hs and cs, float32 w and mask) against the plain recurrence
+   at phase 7's shapes and ``RNN_EDGE_SHAPES`` within one ulp of each
+   element's own magnitude, each relaunched bit-identically, a
+   recurrence carrying h and c in bfloat16 shown to miss, with the
+   face's, the cast-around yardstick's (widen, the float32 face, round),
+   the plain version's and cuDNN's LSTM on bfloat16 times and the bound;
+   train phase 7's LSTM classifier without biases (``bias=False``) under
+   pure AMP: step 1 held op by op (every mul, and every lstm's Hidden
+   and Cell against the plain recurrence on the op's own inputs, the
+   bfloat16-state recurrence shown to miss), exactly 2 launches of the
+   bfloat16 face per layer a step and no float32 LSTM launch, the loss
+   falling; tokens/s, step p50 and device time beside phase 7's float32
+   LSTM run.
 
 Each phase prints its wall time. Before phase 1 the tune cache is set
 to a fresh, empty directory under ``build/`` (printed), so that no
@@ -402,6 +416,15 @@ PEAK_BF16_FLOPS = 989e12
 # prefill's, and the other head dims' templates.
 FLASH_BF16_CASES = [(8, 1024, 12, 64, True), (1, 1024, 12, 64, True),
                     (2, 130, 12, 32, False), (2, 130, 12, 128, True)]
+# The fused LSTM's bfloat16 face (row 7-bf16: bfloat16 xs, h0, c0, hs
+# and cs, float32 w and mask) against the plain recurrence, which widens
+# the operands and rounds hs and cs once: both carry the state in
+# float32, so an element lands at most one ulp of its own magnitude
+# apart (plus BWD_REL_TOL of the largest: float32 noise near 0), the
+# flash faces' rule. The same recurrence with h and c carried in
+# bfloat16 (rounded every step: what staging the rounded hs would give)
+# must miss it, at the slice's shape and on the pure-AMP step's own
+# tensors.
 
 # the tune cache of phases 1-7: a fresh, empty directory, so that no
 # winner left in the home directory reroutes them
@@ -1877,13 +1900,14 @@ def _op_err(got, want, rounded):
     return err, (_bf16_ulp(m) if rounded else AMP_F32_REL_TOL * max(1.0, m))
 
 
-def _amp_op_check(trainer, feed, label):
+def _amp_op_check(trainer, feed, label, tuned=True):
     """One step under plain or pure AMP fetching every mul's, conv2d's
     and flash_attention's inputs, output, output gradient and input
-    gradients (the scope put back as it was before the step); each op
-    against the same op rounded as AMP rounds (:class:`_AmpMm`,
-    :class:`_AmpConv`, in float32 with TF32 off) on those tensors and the
-    parameters the step started from. A gemm inside the matmul kernel's
+    gradients, and every lstm's Input, Hidden and Cell (the scope put
+    back as it was before the step); each op against the same op rounded
+    as AMP rounds (:class:`_AmpMm`, :class:`_AmpConv`, in float32 with
+    TF32 off) on those tensors and the parameters the step started from.
+    With ``tuned`` (a cache of winners) a gemm inside the matmul kernel's
     population runs tuned here (its output rounded to bfloat16); the LM
     head and the fc of ResNet-50 lie outside it; a value the step wrote
     in bfloat16 (pure AMP: every mul's output, dX of a bfloat16 X) is
@@ -1892,11 +1916,19 @@ def _amp_op_check(trainer, feed, label):
     grad are held against the plain forward and backward (float32, o
     and the gradients rounded once to the operands' dtype) on the
     step's q, k, v, o and dO: within one ulp (:func:`_flash_bf16_err`)
-    on bfloat16 operands, KERNEL_TOL and BWD_REL_TOL on float32 ones.
+    on bfloat16 operands, KERNEL_TOL and BWD_REL_TOL on float32 ones. An
+    lstm op (bias-free, no initial state: the fused kernel's bfloat16
+    face under pure AMP) is held against the plain recurrence on its own
+    Input and Weight, Hidden and Cell within one ulp of each element's
+    own magnitude plus BWD_REL_TOL of the largest (:func:`_flash_bf16_err`),
+    and the recurrence with h and c carried in bfloat16 must miss that.
     Returns the worst error over tolerance by role."""
+    from paddle_tpu_torch.core.executor import raw_data
     from paddle_tpu_torch.core.scope import global_scope
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_lstm
     from paddle_tpu_torch.kernels.matmul import supports_matmul
+    from paddle_tpu_torch.ops import sequence_ops
     from paddle_tpu_torch.ops.common import flatten_to_2d
     F = torch.nn.functional
     prog = trainer.main_program
@@ -1917,8 +1949,15 @@ def _amp_op_check(trainer, feed, label):
     flash_grads = {tuple(op.input(s_)[0] for s_ in ("Q", "K", "V")): op
                    for op in ops if op.type == "generic_grad"
                    and op.attr("__fwd_type__") == "flash_attention"}
-    checks, fetch, flash = [], [], []
+    checks, fetch, flash, lstms = [], [], [], []
     for op in ops:
+        if op.type == "lstm":
+            if op.input("Bias") or op.input("H0") or op.input("C0"):
+                fail("%s: the op check takes a bias-free lstm with no "
+                     "initial state" % label)
+            lstms.append(op)
+            fetch += [op.input("Input")[0], op.output("Hidden")[0],
+                      op.output("Cell")[0]]
         if op.type == "flash_attention":
             qkv = tuple(op.input(s_)[0] for s_ in ("Q", "K", "V"))
             g = flash_grads.get(qkv)
@@ -1942,9 +1981,11 @@ def _amp_op_check(trainer, feed, label):
         if g is not None:
             fetch += [dout] + dx + dw
     fetch = sorted(set(fetch))
-    vals = dict(zip(fetch, trainer.exe.run(prog, feed=feed,
-                                           fetch_list=fetch,
-                                           return_numpy=False)))
+    # ragged values (an lstm's Input) keep their LoD; the rest are tensors
+    lod_vals = dict(zip(fetch, trainer.exe.run(prog, feed=feed,
+                                               fetch_list=fetch,
+                                               return_numpy=False)))
+    vals = {n: raw_data(v) for n, v in lod_vals.items()}
     for n, t in state.items():
         scope.set_var(n, t.clone())
     vals.update(start)
@@ -1988,6 +2029,37 @@ def _amp_op_check(trainer, feed, label):
                 hold_flash(role, vals[name], w, out)
         del o_ref, lse_ref, want_grads
 
+    control = []
+    for op in lstms:
+        x = lod_vals[op.input("Input")[0]]
+        w = vals[op.input("Weight")[0]]
+        rev = bool(op.attr("is_reverse", False))
+        xs, ms, layout = sequence_ops._ragged_time_major(x, rev)
+        zeros = xs.new_zeros((xs.shape[1], w.shape[0]))
+        args = (xs, w, zeros, zeros, ms.to(torch.float32))
+        for outs, kind in ((fused_lstm.fused_lstm_reference(*args), "plain"),
+                           (_bf16_state_lstm(*args), "bf16_state")):
+            for slot, t in zip(("Hidden", "Cell"), outs):
+                want = raw_data(sequence_ops._back_to_lod(x, t, rev, layout))
+                got = vals[op.output(slot)[0]]
+                if got.dtype != want.dtype:
+                    fail("%s: lstm %s is %s, its plain version %s"
+                         % (label, slot, got.dtype, want.dtype))
+                ratio = _flash_bf16_err(got, want)[1]
+                role = "lstm_" + slot.lower()
+                if kind == "bf16_state":
+                    control.append(ratio)
+                    continue
+                worst[role] = max(worst.get(role, 0.0), ratio)
+                if not ratio <= 1:
+                    fail("%s: lstm %s of %s differs from the plain "
+                         "recurrence by %g of its tolerance"
+                         % (label, slot, op.output(slot)[0], ratio))
+    if control and not min(control) > 1:
+        fail("%s: an lstm carrying h and c in bfloat16 errs by only %g of "
+             "the tolerance: it cannot tell the face from it"
+             % (label, min(control)))
+
     for op, out, dout, dx_name, dw_name in checks:
         a = op.attr
         if op.type == "conv2d":
@@ -2011,12 +2083,13 @@ def _amp_op_check(trainer, feed, label):
             continue
         x2 = flatten_to_2d(vals[op.input("X")[0]], a("x_num_col_dims", 1))
         w2 = flatten_to_2d(vals[op.input("Y")[0]], a("y_num_col_dims", 1))
-        tuned = supports_matmul(tuple(x2.shape), tuple(w2.shape), "bfloat16")
+        on_kernel = tuned and supports_matmul(
+            tuple(x2.shape), tuple(w2.shape), "bfloat16")
         xb, wb = _bf16_values(x2).float(), _bf16_values(w2).float()
         want = xb @ wb
         got = vals[out].reshape(want.shape)
-        rounded = tuned or got.dtype == torch.bfloat16
-        hold("mul_out_tuned" if tuned else "mul_out", got,
+        rounded = on_kernel or got.dtype == torch.bfloat16
+        hold("mul_out_tuned" if on_kernel else "mul_out", got,
              _bf16_values(want) if rounded else want, rounded, out)
         if dout is not None:
             gb = _bf16_values(vals[dout].reshape(want.shape)).float()
@@ -2034,6 +2107,9 @@ def _amp_op_check(trainer, feed, label):
     torch.cuda.empty_cache()
     rec = {"ops": len(checks), "flash_ops": len(flash),
            "max_err_over_tol": worst}
+    if lstms:
+        rec["lstm_ops"] = len(lstms)
+        rec["lstm_bf16_state_min_err_over_tol"] = min(control)
     log(json.dumps({label + "_op_check": rec}))
     return rec
 
@@ -2257,17 +2333,32 @@ def _ptxas(name, *kernel):
     return out
 
 
+def _rnn_ptxas(name, elem=""):
+    """The registers and spills of each of a recurrence kernel's three
+    forms: W split once (the main path), split at each load (where the
+    split fragments do not fit) and read from global memory by blocks of
+    two unit groups (where the groups outnumber the SMs); ``elem``: the
+    mangled element type that the LSTM's kernel takes first ("f" float32,
+    "13__nv_bfloat16" its bfloat16 face)."""
+    return {form: _ptxas(name, name + "_kernelI" + elem, tag)
+            for form, tag in (("w_split_once", "5uint4"),
+                              ("w_split_at_load", "6float2"),
+                              ("w_global_two_groups", "7WGlobal"))}
+
+
 def _cudnn_lstm(xs, w, h0, c0):
     """One cuDNN ``torch.nn.LSTM`` layer computing the fused LSTM on an
     unmasked batch: input size 4D, an input weight that permutes
     Paddle's gate slabs (c~, i, f, o) to PyTorch's (i, f, g, o), the
-    recurrent weight in the same order, no biases. Returns a call that
-    runs it on ``xs`` from (h0, c0)."""
+    recurrent weight in the same order, no biases, in xs's dtype (on
+    bfloat16 its weights and state are rounded to bfloat16). Returns a
+    call that runs it on ``xs`` from (h0, c0)."""
     T, N, D4 = xs.shape
     D = D4 // 4
-    lstm = torch.nn.LSTM(D4, D, num_layers=1, bias=False).to(xs.device)
+    lstm = torch.nn.LSTM(D4, D, num_layers=1, bias=False).to(
+        xs.device, xs.dtype)
     order = [1, 2, 0, 3]            # PyTorch's i, f, g, o in Paddle's slabs
-    eye = torch.eye(D4, device=xs.device)
+    eye = torch.eye(D4, device=xs.device, dtype=xs.dtype)
     with torch.no_grad():
         lstm.weight_ih_l0.copy_(torch.cat([eye[k * D:(k + 1) * D]
                                            for k in order]))
@@ -2384,15 +2475,7 @@ def _rnn_kernel_check(dev):
             "bound_ms": b_ms, "bound_by": b_by,
             "tc_bound_ms": tc_bound(nbytes, flops),
             "launch": mod.launch_plan(N, D),
-            # each kernel's three forms: W split once (the main path),
-            # split at each load (where the split fragments do not fit)
-            # and read from global memory by blocks of two unit groups
-            # (where the groups outnumber the SMs)
-            "ptxas": {
-                form: _ptxas(name, name + "_kernelI", tag)
-                for form, tag in (("w_split_once", "5uint4"),
-                                  ("w_split_at_load", "6float2"),
-                                  ("w_global_two_groups", "7WGlobal"))},
+            "ptxas": _rnn_ptxas(name, "f" if gates == 4 else ""),
             "shape": {"T": T, "N": N, "D": D, "timed_lengths": "all T"},
             "checks": checks}
         if gates == 4:
@@ -2560,12 +2643,19 @@ def _rnn_share(prof, kernel):
     return out
 
 
-def phase_rnn(dev, cell):
+def phase_rnn(dev, cell, amp=False):
     """``configs/text_rnn.model`` at ``benchmark/rnn_bench.py``'s widths
     (vocab 30000, hidden 512, 100 words, batch 64, 2 layers, the second
     reversed, Adam 0.002, float32) with ``cell``: step-1 gradients
     against the plain reference, RNN_STEPS steps on one fixed batch
-    through Trainer.train, then two profiled steps."""
+    through Trainer.train, then two profiled steps. ``amp="pure"`` (phase
+    9, LSTM): the bias-free net (``bias=False``) under pure AMP, its
+    lstm ops on the fused kernel's bfloat16 face, step 1 held op by op
+    (every mul, and every lstm's Hidden and Cell against the plain
+    recurrence on the op's own inputs: :func:`_amp_op_check`). Returns
+    (the launch counts, a summary of the run: tokens/s, step p50, device
+    time and busy share of the profiled steps, the fused kernel's
+    share)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.configs import text_rnn
@@ -2574,13 +2664,17 @@ def phase_rnn(dev, cell):
     from paddle_tpu_torch.kernels import fused_gru, fused_lstm
     from paddle_tpu_torch.trainer import BeginIteration, EndIteration, \
         Trainer
+    label = "rnn_%s%s" % (cell, "_pure_amp" if amp else "")
     t0 = time.monotonic()
     main_prog, startup = ir.Program(), ir.Program()
     with unique_name.guard(), ir.program_guard(main_prog, startup):
         spec = text_rnn.model(cell=cell, samples=RNN_BENCH["batch"],
-                              **RNN_BENCH)
+                              bias=not amp, **RNN_BENCH)
         trainer = Trainer(spec["cost"], spec["optimizer"],
                           spec["feed_list"], device=dev)
+    if amp:
+        from paddle_tpu_torch import amp as amp_mod
+        amp_mod.enable(main_prog, pure=True)
     build_s = time.monotonic() - t0
     n_ops = len(main_prog.global_block().ops)
     # the config's first batch is rnn_bench's: RandomState(0) word ids
@@ -2596,7 +2690,9 @@ def phase_rnn(dev, cell):
         startup_s = time.monotonic() - t0
         n_params = sum(global_scope().find_var(v.name).numel()
                        for v in main_prog.all_parameters() if v.trainable)
-        checks = _rnn_grad_check(trainer, spec, trainer.feeder.feed(batch))
+        feed = trainer.feeder.feed(batch)
+        checks = (_amp_op_check(trainer, feed, label, tuned=False) if amp
+                  else _rnn_grad_check(trainer, spec, feed))
         torch.cuda.empty_cache()
         losses, step_s, marks = [], [], {}
 
@@ -2618,16 +2714,20 @@ def phase_rnn(dev, cell):
         steps = len(losses)
         # per RNN layer a step: the forward, and its replay in the generic
         # grad, which the plain backward loop then differentiates
+        kernel = "fused_" + cell + ("_bf16" if amp else "")
         want = dict(_no_launches(), **{
-            "fused_" + cell: 2 * RNN_BENCH["layers"] * steps})
-        log(json.dumps({"rnn_%s_losses" % cell: losses,
-                        "launches": launches}))
+            kernel: 2 * RNN_BENCH["layers"] * steps})
+        log(json.dumps({label + "_losses": losses, "launches": launches}))
         if steps != RNN_STEPS or launches != want:
-            fail("rnn %s launch counts %s over %d steps, expected %s"
-                 % (cell, launches, steps, want))
-        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            fail("%s launch counts %s over %d steps, expected %s"
+                 % (label, launches, steps, want))
+        # under pure AMP the loss is a bfloat16 value: it falls only by
+        # more than one bfloat16 ulp
+        fall = _bf16_ulp(abs(losses[0])) if amp else 0.0
+        if not (np.all(np.isfinite(losses))
+                and losses[-1] < losses[0] - fall):
             fail("the %s text classifier's loss did not fall on the fixed "
-                 "batch: %s" % (cell, losses))
+                 "batch: %s" % (label, losses))
         mod = fused_lstm if cell == "lstm" else fused_gru
         bwd_name = "fused_%s_bwd" % cell
         plain_bwd = getattr(mod, bwd_name)
@@ -2654,8 +2754,11 @@ def phase_rnn(dev, cell):
             "device_busy_share"]
     p50 = float(np.median(step_s))
     tokens = RNN_BENCH["batch"] * RNN_BENCH["seq_len"]
-    log(json.dumps({"rnn_train_" + cell: {
-        "config": dict(RNN_BENCH, cell=cell, dtype="float32",
+    log(json.dumps({"rnn_train_" + label[4:]: {
+        "config": dict(RNN_BENCH, cell=cell,
+                       dtype="pure AMP (bfloat16 projections and "
+                             "recurrence outputs), no biases" if amp
+                       else "float32",
                        optimizer="adam", use_peepholes=False,
                        lstm_impl="pallas",
                        data="one fixed batch, RandomState(0) randint "
@@ -2667,12 +2770,18 @@ def phase_rnn(dev, cell):
         "peak_memory_bytes": peak, "launches": launches,
         "launches_per_step": {k: v / steps for k, v in launches.items()},
         "profile": profile_window}}))
-    log("rnn_%s_train_tokens_per_sec %.3f (batch %d x %d words, step p50 "
-        "%.3f ms)" % (cell, tokens / p50, RNN_BENCH["batch"],
+    log("%s_train_tokens_per_sec %.3f (batch %d x %d words, step p50 "
+        "%.3f ms)" % (label, tokens / p50, RNN_BENCH["batch"],
                       RNN_BENCH["seq_len"], p50 * 1e3))
     del trainer
     torch.cuda.empty_cache()
-    return launches
+    return launches, {
+        "tokens_per_s": tokens / p50, "step_ms_p50": p50 * 1e3,
+        "device_kernel_ms_two_steps": profile_window["device_kernel_ms"],
+        "device_busy_share": profile_window["device_busy_share"],
+        "kernel_share_of_device_time":
+            profile_window["by_kind"]["rnn_kernel"]["share"],
+        "kernel_ms_two_steps": profile_window["by_kind"]["rnn_kernel"]["ms"]}
 
 
 # -- phase 8 -----------------------------------------------------------------
@@ -3194,6 +3303,146 @@ def _bf16_scores_forward(q, k, v, causal):
                                      device=q.device).triu(1), float("-inf"))
     return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
                         vh).transpose(1, 2)
+
+
+def _bf16_state_lstm(xs, w, h0, c0, mask):
+    """The LSTM recurrence with h and c carried in bfloat16, rounded
+    every step, its arithmetic in float32: another function than the
+    bfloat16 face's, which must miss the face's tolerance."""
+    D = w.shape[0]
+    h, c = h0, c0
+    hs, cs = [], []
+    for t in range(xs.shape[0]):
+        g = xs[t].float() + h.float() @ w
+        cand, i, f, o = (torch.tanh(g[:, :D]), torch.sigmoid(g[:, D:2 * D]),
+                         torch.sigmoid(g[:, 2 * D:3 * D]),
+                         torch.sigmoid(g[:, 3 * D:]))
+        c_new = f * c.float() + i * cand
+        m = mask[t][:, None]
+        h = (o * torch.tanh(c_new) * m + h.float() * (1.0 - m)).bfloat16()
+        c = (c_new * m + c.float() * (1.0 - m)).bfloat16()
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs), torch.stack(cs)
+
+
+def _amp_lstm_check(dev, flush):
+    """Row 7-bf16, the fused LSTM's bfloat16 face, against the plain
+    recurrence on the same bfloat16 operands (float32 w and mask) at the
+    slice's shape (ragged and full), the odd one and RNN_EDGE_SHAPES:
+    hs and cs within one ulp of each element's own magnitude
+    (:func:`_flash_bf16_err`), each launched twice (the second launch
+    bit-identical); the recurrence carrying h and c in bfloat16 must
+    miss at the slice's shape. At the slice's shape (full lengths) the
+    face's time, the cast-around yardstick's (xs, h0 and c0 widened, the
+    float32 face, hs and cs rounded: one timed call), the plain
+    version's and cuDNN's LSTM on bfloat16 (its weights and state
+    rounded to bfloat16: not the same function, its error reported), the
+    bound and the registers of the face's three forms. Returns the
+    kernels line's entry."""
+    from paddle_tpu_torch.kernels import fused_lstm
+    bf = torch.bfloat16
+
+    def face_args(T, N, D, seed, ragged):
+        xs, w, h0, c0, mask = _rnn_inputs(4, T, N, D, seed, ragged, dev)
+        return [xs.to(bf), w, h0.to(bf), c0.to(bf), mask]
+
+    checks = []
+    for seed, (T, N, D) in enumerate((RNN_SHAPE, RNN_ODD_SHAPE)
+                                     + RNN_EDGE_SHAPES):
+        for ragged in (True, False):
+            args = face_args(T, N, D, 70 + seed, ragged)
+            got = fused_lstm.fused_lstm(*args)
+            again = fused_lstm.fused_lstm(*args)
+            want = fused_lstm.fused_lstm_reference(*args)
+            torch.cuda.synchronize()
+            errs = [_flash_bf16_err(g, w_) for g, w_ in zip(got, want)]
+            rec = {"shape": [T, N, D], "ragged": ragged,
+                   "dtypes": [str(g.dtype) for g in got],
+                   "max_abs_err": max(float((g.double() - w_.double())
+                                            .abs().max())
+                                      for g, w_ in zip(got, want)),
+                   "max_err_over_ulp_of_max": max(e[0] for e in errs),
+                   "max_err_over_own_tol": max(e[1] for e in errs),
+                   "elements_differing": sum(e[2] for e in errs),
+                   "second_launch_bit_identical": all(
+                       torch.equal(a, b) for a, b in zip(got, again))}
+            if (T, N, D) == RNN_SHAPE:
+                control = _bf16_state_lstm(*args)
+                rec["bf16_state_err_over_own_tol"] = min(
+                    _flash_bf16_err(c, w_)[1] for c, w_ in zip(control,
+                                                               want))
+                del control
+            checks.append(rec)
+            log(json.dumps({"fused_lstm_bf16_check": rec}))
+            if rec["dtypes"] != ["torch.bfloat16"] * 2:
+                fail("fused_lstm_bf16 wrote %s" % rec["dtypes"])
+            if not rec["max_err_over_own_tol"] <= 1:
+                fail("fused_lstm_bf16 disagrees with the plain recurrence at "
+                     "%s: %g of its tolerance" % (rec["shape"],
+                                                  rec["max_err_over_own_tol"]))
+            if not rec["second_launch_bit_identical"]:
+                fail("fused_lstm_bf16: a second launch at %s is not "
+                     "bit-identical to the first" % (rec["shape"],))
+            if (T, N, D) == RNN_SHAPE and \
+                    not rec["bf16_state_err_over_own_tol"] > 1:
+                fail("a recurrence carrying h and c in bfloat16 errs by only "
+                     "%g of the tolerance: it cannot tell the face from it"
+                     % rec["bf16_state_err_over_own_tol"])
+            del args, got, again, want
+    T, N, D = RNN_SHAPE
+    xs, w, h0, c0, mask = args = face_args(T, N, D, 70, False)
+    # the bound: each input read once (xs, h0, c0 in bfloat16; w and the
+    # mask in float32), hs and cs written once in bfloat16; the recurrent
+    # products of every step (full lengths), in 3xTF32 on float32 W
+    nbytes = 2 * (xs.numel() + h0.numel() + c0.numel() + 2 * T * N * D) \
+        + 4 * (w.numel() + mask.numel())
+    flops = 2 * T * N * D * 4 * D
+
+    def cast_around():
+        hs, cs = fused_lstm._launch(xs.float(), w, h0.float(), c0.float(),
+                                    mask)
+        return hs.to(bf), cs.to(bf)
+
+    lib = _cudnn_lstm(xs, w, h0, c0)
+    plain = fused_lstm.fused_lstm_reference(*args)
+    rec = {
+        "name": "fused_lstm_bf16", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/fused_lstm.cu",
+        "replaces": "paddle_tpu/kernels/fused_lstm.py:73",
+        "role": "the fused LSTM on bfloat16 xs, h0 and c0 with float32 w "
+                "and mask (pure AMP, no bias): the state in float32, hs "
+                "and cs rounded once, h exchanged between blocks in "
+                "float32",
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "max_err_over_own_tol": max(c["max_err_over_own_tol"]
+                                    for c in checks),
+        "tolerance": "one bfloat16 ulp of each element's own magnitude "
+                     "plus %g of the largest" % BWD_REL_TOL,
+        "bf16_state_min_err_over_own_tol": min(
+            c["bf16_state_err_over_own_tol"] for c in checks
+            if "bf16_state_err_over_own_tol" in c),
+        "ms": time_ms(lambda: fused_lstm._launch(*args), flush=flush),
+        "cast_around_ms": time_ms(cast_around, flush=flush),
+        "plain_ms": time_ms(lambda: fused_lstm.fused_lstm_reference(*args),
+                            iters=5, flush=flush),
+        "bound_ms": tc_bound(nbytes, flops), "bound_by": "operations",
+        "f32_bound_ms": bound(nbytes, flops)[0],
+        "library_ms": time_ms(lib, flush=flush),
+        "library_max_abs_err": float((lib() - plain[0]).abs().max()),
+        "library": "cuDNN torch.nn.LSTM on bfloat16 (weights and state "
+                   "rounded to bfloat16), one layer, input 4D with a "
+                   "gate-permuting identity input weight (one extra "
+                   "[T*N, 4D] x [4D, 4D] GEMM), no biases, unmasked",
+        "launch": fused_lstm.launch_plan(N, D),
+        "ptxas": _rnn_ptxas("fused_lstm", "13__nv_bfloat16"),
+        "shape": {"T": T, "N": N, "D": D, "timed_lengths": "all T"},
+        "checks": checks}
+    log(json.dumps({"fused_lstm_bf16": {k: v for k, v in rec.items()
+                                        if k != "checks"}}))
+    del args, xs, w, h0, c0, mask, lib, plain
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _p_rounded_flash(q, k, v, do, causal):
@@ -3762,16 +4011,19 @@ def _seed_bf16_cache(per_shape, cache_dir):
     return picked
 
 
-def phase_amp(dev, root, f32_images_s, tuned):
-    """AMP: the bfloat16 faces of rows 6, 5 and 2-4 against their plain
-    versions, ResNet-50 under plain and pure AMP, the LM under plain and
-    pure AMP on a cache of the matmul face's fastest tilings. Returns
-    (kernel entries, {path: launch counts})."""
+def phase_amp(dev, root, f32_images_s, tuned, rnn32):
+    """AMP: the bfloat16 faces of rows 6, 5, 2-4 and 7 against their
+    plain versions, ResNet-50 under plain and pure AMP, the LM under plain
+    and pure AMP on a cache of the matmul face's fastest tilings, and the
+    bias-free LSTM text classifier under pure AMP beside phase 7's
+    float32 run (``rnn32``). Returns (kernel entries, {path: launch
+    counts})."""
     from paddle_tpu_torch import tune
     from paddle_tpu_torch.flags import FLAGS
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     entries = _amp_conv_check(dev, flush)
     entries.update(_amp_flash_check(dev, flush))
+    entries["fused_lstm_bf16"] = _amp_lstm_check(dev, flush)
     mm_shapes = _amp_matmul_check(dev, flush)
     del flush
     torch.cuda.empty_cache()
@@ -3810,6 +4062,10 @@ def phase_amp(dev, root, f32_images_s, tuned):
                  "1 fallback a step" % (label, rec["tune"], steps,
                                         per_layer * L))
         paths[label] = rec["launches"]
+    paths["rnn_train_lstm_pure_amp"], rnn_pure = phase_rnn(dev, "lstm",
+                                                           amp="pure")
+    log(json.dumps({"rnn_train_lstm": {"float32": rnn32,
+                                       "pure_amp": rnn_pure}}))
     log(json.dumps({"lm_train": {
         kind: {"tokens_per_s": r["tokens_per_s"],
                "step_ms_p50": r["step_ms_p50"],
@@ -3921,7 +4177,7 @@ def main():
     conv_kernels, (convnet_launches, f32_images_s) = timed(
         6, lambda: (_conv3x3_kernel_check(dev), phase_convnet(dev)))
     kernels.update(conv_kernels)
-    rnn_kernels, lstm_launches, gru_launches = timed(
+    rnn_kernels, (lstm_launches, lstm_run), (gru_launches, _) = timed(
         7, lambda: (_rnn_kernel_check(dev), phase_rnn(dev, "lstm"),
                     phase_rnn(dev, "gru")))
     kernels.update(rnn_kernels)
@@ -3929,7 +4185,7 @@ def main():
         8, phase_tune, dev, root, train5)
     kernels.update(mm_kernels)
     amp_kernels, amp_paths = timed(9, phase_amp, dev, root, f32_images_s,
-                                   tuned)
+                                   tuned, lstm_run)
     kernels.update(amp_kernels)
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
     paths = {"serve": serve_launches, "train": train5["launches"],

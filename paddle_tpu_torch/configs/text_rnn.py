@@ -18,6 +18,12 @@ gate refuses), and every lstm (or gru) op carries ``lstm_impl`` as its
 attr, so only this program opts in (``FLAGS.lstm_impl`` stays
 ``"scan"``). With ``cell="gru"`` each layer is an fc to ``3 * hidden``
 and a ``dynamic_gru`` instead, the encoder of ``benchmark/nmt_bench.py``.
+``bias=False`` builds each LSTM layer's projection and recurrence
+without biases, the net that reaches the fused LSTM kernel's bfloat16
+face under pure AMP (``amp.enable(program, pure=True)``, the caller's
+choice): the projection's output stays bfloat16 and no float32 bias
+widens it. The GRU has no such form, as ``dynamic_gru`` always makes its
+bias.
 
 The reader draws each batch as rnn_bench draws its one: ``batch`` word
 sequences of ``seq_len`` ids with ``RandomState(0).randint(0, vocab)``,
@@ -32,21 +38,28 @@ from paddle_tpu_torch import optimizer, reader
 
 
 def model(cell="lstm", vocab=1000, hidden=128, layers=2, seq_len=16,
-          batch=8, samples=32, learning_rate=0.002, lstm_impl="pallas"):
+          batch=8, samples=32, learning_rate=0.002, lstm_impl="pallas",
+          bias=True):
     """The train config dict of the CLI's contract: ``cost``,
     ``metrics``, ``feed_list``, ``reader`` (batched), ``optimizer``,
     ``num_passes``. ``cell`` is 'lstm' or 'gru'; ``lstm_impl`` ('pallas'
-    or 'scan') rides on every recurrent op of the program."""
+    or 'scan') rides on every recurrent op of the program; ``bias=False``
+    (LSTM only) drops the biases of each layer's fc and dynamic_lstm."""
     if cell not in ("lstm", "gru"):
         raise ValueError("cell must be 'lstm' or 'gru', got %r" % (cell,))
+    if not bias and cell == "gru":
+        raise ValueError("bias=False is for cell='lstm': dynamic_gru "
+                         "always makes its bias")
+    bias_attr = None if bias else False
     words = L.data(name="words", shape=[1], dtype="int64", lod_level=1)
     label = L.data(name="label", shape=[1], dtype="int64")
     inp = L.embedding(input=words, size=[vocab, hidden])
     for i in range(layers):
         if cell == "lstm":
-            proj = L.fc(input=inp, size=hidden * 4)
+            proj = L.fc(input=inp, size=hidden * 4, bias_attr=bias_attr)
             inp, _ = L.dynamic_lstm(input=proj, size=hidden * 4,
                                     use_peepholes=False,
+                                    bias_attr=bias_attr,
                                     is_reverse=(i % 2 == 1))
         else:
             proj = L.fc(input=inp, size=hidden * 3)

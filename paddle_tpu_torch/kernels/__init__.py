@@ -31,8 +31,10 @@ KERNEL_COUNTERS = {
     "conv3x3_dx": (conv3x3, "launches_dx"),
     "conv3x3_fwd_bf16": (conv3x3, "launches_bf16"),
     "conv3x3_dx_bf16": (conv3x3, "launches_dx_bf16"),
-    # the whole recurrence of an lstm / gru op, one launch a call
+    # the whole recurrence of an lstm / gru op, one launch a call; the
+    # LSTM with a float32 and a bfloat16 (pure AMP, no bias) face
     "fused_lstm": (fused_lstm, "launches"),
+    "fused_lstm_bf16": (fused_lstm, "launches_bf16"),
     "fused_gru": (fused_gru, "launches"),
     # the blocked gemm of a mul under a cached tune winner, float32 and
     # bfloat16 (AMP) faces; the bfloat16 face's ragged path (operands TMA

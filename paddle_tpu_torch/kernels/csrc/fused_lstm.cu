@@ -17,7 +17,9 @@
 // ms at 495 TFLOP/s against 83.1 MB (0.025 ms at 3.35 TB/s). In fact the
 // serial chain bounds it: a step needs every unit's h_{t-1}, so each
 // step reads the whole of h that all blocks wrote in the step before,
-// behind a grid-wide barrier, T - 1 of them in all.
+// behind a grid-wide barrier, T - 1 of them in all. The bfloat16 face
+// (below) does the same operations on 43.6 MB (xs 26.2, hs and cs 13.1,
+// W 4.2): 0.013 ms of bytes, so 0.0813 ms of operations bounds it too.
 //
 // Design: one persistent cooperative launch, the design of the GRU kernel
 // (fused_gru.cu) with one phase a step where the GRU has two. A block
@@ -67,9 +69,30 @@
 // load; the partial sums then have room of their own. That reaches D 2112
 // on an H100 (the CUDA-core kernel this replaced took D up to 1320).
 //
-// Tensors are contiguous float32. The kernel allocates nothing; the
-// entry point zeroes the barrier counter on the stream, launches on it
-// and returns the CUDA error code.
+// The bfloat16 face (fused_lstm_bf16) is the same kernel on bfloat16 xs,
+// h0, c0, hs and cs with float32 W and mask, as the JAX kernel computes
+// them under pure AMP: h0 and c0 are widened as they are loaded (the
+// kernel's h_scr / c_scr start as float32 copies of h0 / c0), x_t where
+// the gate math takes it (loaded a step ahead, its 16 bits kept as they
+// lie: widening at the load made each step wait for the read of xs, 0.7
+// us a step on an H100), the products, gates and state stay float32
+// through all T steps, and hs[t] and cs[t] are rounded once to nearest
+// even as they are stored. The blocks cannot exchange h through the
+// rounded hs, which would multiply W by another h than the JAX kernel's
+// float32 scratch: each step also writes its float32 h to the exchange
+// hx [2, N, D], and step t stages h_{t-1} from slot (t - 1) & 1. Two
+// slots suffice: every block has staged slot (t - 1) & 1 before it
+// arrives at step t's barrier, so no block writes that slot again (at
+// step t + 1) before all have read it.
+// cp.async copies bytes and cannot widen, so step 0's h0 reaches slot 1
+// widened by the threads that own its pairs (each its own), behind one
+// grid barrier more a piece. The staged rows stay float32, so shared
+// memory and the plan are the float32 face's.
+//
+// Tensors are contiguous. The kernel allocates nothing; the entry point
+// zeroes the barrier counter on the stream, launches on it and returns
+// the CUDA error code.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -96,31 +119,67 @@ __device__ __forceinline__ int w_col(int nt, int n, int j0, int D) {
   return j0 + n < D ? nt * D + j0 + n : -1;
 }
 
-// the gate inputs and the mask of step t at a thread's pairs
-__device__ __forceinline__ void load_x(float (&x)[PAIRS][GATES],
-                                       float (&m)[PAIRS],
-                                       const float* __restrict__ xs,
-                                       const float* __restrict__ mask,
-                                       const int (&at)[PAIRS], int t, int N,
-                                       int D) {
+// The gate inputs of the next step are loaded under the products and
+// kept as they lie (Bits: a bfloat16's 16 bits) until the gate math
+// widens them: an instruction that uses a load's value waits for it, so
+// widening at the load would stall the step on the read of xs.
+template <typename E>
+struct Bits {
+  typedef float type;
+};
+template <>
+struct Bits<__nv_bfloat16> {
+  typedef unsigned short type;
+};
+// an element of xs, h0 or c0 in float32 (bfloat16 widens exactly: its
+// bits are the high half of the float's); and a state stored in the
+// outputs' type (bfloat16 rounded to nearest even)
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(unsigned short v) {
+  return __uint_as_float((unsigned int)v << 16);
+}
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float ldg_bits(const float* p) { return __ldg(p); }
+__device__ __forceinline__ Bits<__nv_bfloat16>::type ldg_bits(
+    const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// the gate inputs (as they lie) and the mask of step t at a thread's
+// pairs
+template <typename E>
+__device__ __forceinline__ void load_x(
+    typename Bits<E>::type (&x)[PAIRS][GATES], float (&m)[PAIRS],
+    const E* __restrict__ xs, const float* __restrict__ mask,
+    const int (&at)[PAIRS], int t, int N, int D) {
 #pragma unroll
   for (int i = 0; i < PAIRS; ++i) {
     if (at[i] < 0) continue;
     const int row = at[i] / D, j = at[i] - row * D;
-    const float* p = xs + ((size_t)t * N + row) * GATES * D + j;
+    const E* p = xs + ((size_t)t * N + row) * GATES * D + j;
 #pragma unroll
-    for (int q = 0; q < GATES; ++q) x[i][q] = __ldg(p + q * D);
+    for (int q = 0; q < GATES; ++q) x[i][q] = ldg_bits(p + q * D);
     m[i] = __ldg(mask + (size_t)t * N + row);
   }
 }
 
-// WS: the form of W (setup_w); G: the unit groups a block owns
-template <typename WS, int G>
+// E: the type of xs, h0, c0, hs and cs (float, or __nv_bfloat16 with the
+// exchange hx); WS: the form of W (setup_w); G: the unit groups a block
+// owns
+template <typename E, typename WS, int G>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_lstm_kernel(const float* __restrict__ xs, const float* __restrict__ w,
-                  const float* __restrict__ h0, const float* __restrict__ c0,
-                  const float* __restrict__ mask, float* hs, float* cs,
+fused_lstm_kernel(const E* __restrict__ xs, const float* __restrict__ w,
+                  const E* __restrict__ h0, const E* __restrict__ c0,
+                  const float* __restrict__ mask, E* hs, E* cs, float* hx,
                   unsigned int* barrier, int T, int N, int D, int rows) {
+  // h crosses blocks through hx in float32 where the outputs are narrower
+  constexpr bool EXCHANGE = sizeof(E) < sizeof(float);
   extern __shared__ __align__(16) unsigned char smem[];
   const int KT = (D + 7) >> 3;             // k8 tiles of D
   // row pitch of the staged rows: 8 banks apart, so that a fragment's
@@ -157,8 +216,8 @@ fused_lstm_kernel(const float* __restrict__ xs, const float* __restrict__ w,
     // this thread's (row, unit) pairs of each unit group: their state and
     // gate inputs
     int at[G][PAIRS];                      // row * D + unit, or -1
-    float h[G][PAIRS], c[G][PAIRS], x[G][PAIRS][GATES], m[G][PAIRS];
-    float nx[G][PAIRS][GATES], nm[G][PAIRS];
+    float h[G][PAIRS], c[G][PAIRS], m[G][PAIRS], nm[G][PAIRS];
+    typename Bits<E>::type x[G][PAIRS][GATES], nx[G][PAIRS][GATES];
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -166,16 +225,31 @@ fused_lstm_kernel(const float* __restrict__ xs, const float* __restrict__ w,
         const int p = threadIdx.x + i * THREADS, n = p / DJ,
                   j = j0[g] + p % DJ;
         at[g][i] = n < nr && j < D ? (r0 + n) * D + j : -1;
-        h[g][i] = at[g][i] >= 0 ? h0[at[g][i]] : 0.f;
-        c[g][i] = at[g][i] >= 0 ? c0[at[g][i]] : 0.f;
+        h[g][i] = at[g][i] >= 0 ? widen(h0[at[g][i]]) : 0.f;
+        c[g][i] = at[g][i] >= 0 ? widen(c0[at[g][i]]) : 0.f;
         m[g][i] = nm[g][i] = 0.f;
 #pragma unroll
-        for (int q = 0; q < GATES; ++q) x[g][i][q] = nx[g][i][q] = 0.f;
+        for (int q = 0; q < GATES; ++q) x[g][i][q] = nx[g][i][q] = 0;
       }
 #pragma unroll
     for (int g = 0; g < G; ++g) load_x(x[g], m[g], xs, mask, at[g], 0, N, D);
+    if constexpr (EXCHANGE) {
+      // h0 widened into slot 1, which step 0 stages, each pair by its
+      // owner; then all blocks meet
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int i = 0; i < PAIRS; ++i)
+          if (at[g][i] >= 0) hx[ND + at[g][i]] = h[g][i];
+      grid_arrive(barrier);
+      grid_wait(barrier, gridDim.x * ++passed);
+    }
     for (int t = 0; t < T; ++t) {
-      const float* hprev = t == 0 ? h0 : hs + (size_t)(t - 1) * ND;
+      const float* hprev;
+      if constexpr (EXCHANGE)
+        hprev = hx + (size_t)((t + 1) & 1) * ND;   // slot (t - 1) & 1
+      else
+        hprev = t == 0 ? h0 : hs + (size_t)(t - 1) * ND;
       __syncthreads();                     // hb's last readers are done
       stage_slice(hb, ldh, hprev, r0, nr, D, walks);
       // the next step's gate inputs, landing under the products
@@ -196,18 +270,20 @@ fused_lstm_kernel(const float* __restrict__ xs, const float* __restrict__ w,
           if (at[g][i] < 0) continue;
           const int p = threadIdx.x + i * THREADS, n = p / DJ, jl = p % DJ;
           const float cand =
-              tanhf(x[g][i][0] + gather<ROWS, RP>(red, n, jl));
-          const float ig =
-              sigmoid_f(x[g][i][1] + gather<ROWS, RP>(red, n, DJ + jl));
-          const float fg =
-              sigmoid_f(x[g][i][2] + gather<ROWS, RP>(red, n, 2 * DJ + jl));
-          const float og =
-              sigmoid_f(x[g][i][3] + gather<ROWS, RP>(red, n, 3 * DJ + jl));
+              tanhf(widen(x[g][i][0]) + gather<ROWS, RP>(red, n, jl));
+          const float ig = sigmoid_f(widen(x[g][i][1]) +
+                                     gather<ROWS, RP>(red, n, DJ + jl));
+          const float fg = sigmoid_f(widen(x[g][i][2]) +
+                                     gather<ROWS, RP>(red, n, 2 * DJ + jl));
+          const float og = sigmoid_f(widen(x[g][i][3]) +
+                                     gather<ROWS, RP>(red, n, 3 * DJ + jl));
           const float cn = fg * c[g][i] + ig * cand;
           const float hn = og * tanhf(cn);
           h[g][i] = hn * m[g][i] + h[g][i] * (1.f - m[g][i]);
           c[g][i] = cn * m[g][i] + c[g][i] * (1.f - m[g][i]);
-          hs[(size_t)t * ND + at[g][i]] = h[g][i];
+          put(hs + (size_t)t * ND + at[g][i], h[g][i]);
+          if constexpr (EXCHANGE)              // what the others stage
+            hx[(size_t)(t & 1) * ND + at[g][i]] = h[g][i];
         }
       }
       if (t + 1 < T) grid_arrive(barrier);
@@ -216,7 +292,7 @@ fused_lstm_kernel(const float* __restrict__ xs, const float* __restrict__ w,
       for (int g = 0; g < G; ++g)
 #pragma unroll
         for (int i = 0; i < PAIRS; ++i) {
-          if (at[g][i] >= 0) cs[(size_t)t * ND + at[g][i]] = c[g][i];
+          if (at[g][i] >= 0) put(cs + (size_t)t * ND + at[g][i], c[g][i]);
           m[g][i] = nm[g][i];
 #pragma unroll
           for (int q = 0; q < GATES; ++q) x[g][i][q] = nx[g][i][q];
@@ -226,19 +302,62 @@ fused_lstm_kernel(const float* __restrict__ xs, const float* __restrict__ w,
   }
 }
 
-// the kernel's three forms, in plan's order
+// the kernel's three forms of each face, in plan's order
 const void* const FORMS[3] = {
-    (const void*)fused_lstm_kernel<const uint4*, 1>,
-    (const void*)fused_lstm_kernel<const float2*, 1>,
-    (const void*)fused_lstm_kernel<WGlobal<NF>, 2>};
+    (const void*)fused_lstm_kernel<float, const uint4*, 1>,
+    (const void*)fused_lstm_kernel<float, const float2*, 1>,
+    (const void*)fused_lstm_kernel<float, WGlobal<NF>, 2>};
+const void* const FORMS_BF16[3] = {
+    (const void*)fused_lstm_kernel<__nv_bfloat16, const uint4*, 1>,
+    (const void*)fused_lstm_kernel<__nv_bfloat16, const float2*, 1>,
+    (const void*)fused_lstm_kernel<__nv_bfloat16, WGlobal<NF>, 2>};
+
+// One launch of the face of type E (its forms) on the stream; hx: the
+// exchange of the bfloat16 face, unused by the float32 one.
+template <typename E>
+int launch(const void* const (&forms)[3], const void* xs, const void* w,
+           const void* h0, const void* c0, const void* mask, void* hs,
+           void* cs, void* hx, void* barrier, int T, int N, int D,
+           void* stream) {
+  if (T < 1 || N < 1 || D < 4 || D % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const void* kernel;
+  int blocks, units, rows, per_sm, sms;
+  size_t smem;
+  cudaError_t e =
+      plan<DJ, ROWS, NF, RP>(N, D, forms, &kernel, &blocks, &units,
+                             &rows, &smem, &per_sm, &sms);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((e = cudaMemsetAsync(barrier, 0, sizeof(unsigned int), st)) !=
+      cudaSuccess)
+    return (int)e;
+  const E* xe = static_cast<const E*>(xs);
+  const float* wf = static_cast<const float*>(w);
+  const E* h0e = static_cast<const E*>(h0);
+  const E* c0e = static_cast<const E*>(c0);
+  const float* mf = static_cast<const float*>(mask);
+  E* hse = static_cast<E*>(hs);
+  E* cse = static_cast<E*>(cs);
+  float* hxf = static_cast<float*>(hx);
+  unsigned int* bar = static_cast<unsigned int*>(barrier);
+  void* args[] = {(void*)&xe,  (void*)&wf,  (void*)&h0e, (void*)&c0e,
+                  (void*)&mf,  (void*)&hse, (void*)&cse, (void*)&hxf,
+                  (void*)&bar, (void*)&T,   (void*)&N,   (void*)&D,
+                  (void*)&rows};
+  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(THREADS), args,
+                                  smem, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-// The launch shape of N rows of D units on the current device: info[7]
-// receives blocks, units a block, rows a block's piece, shared bytes,
-// threads, co-resident blocks per SM and SMs.
+// The launch shape of N rows of D units on the current device (either
+// face): info[7] receives blocks, units a block, rows a block's piece,
+// shared bytes, threads, co-resident blocks per SM and SMs.
 int fused_lstm_plan(int N, int D, int* info) {
   if (N < 1 || D < 4 || D % 4 != 0) return (int)cudaErrorInvalidValue;
   const void* kernel;
@@ -258,34 +377,19 @@ int fused_lstm_plan(int N, int D, int* info) {
 int fused_lstm_f32(const void* xs, const void* w, const void* h0,
                    const void* c0, const void* mask, void* hs, void* cs,
                    void* barrier, int T, int N, int D, void* stream) {
-  if (T < 1 || N < 1 || D < 4 || D % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  const void* kernel;
-  int blocks, units, rows, per_sm, sms;
-  size_t smem;
-  cudaError_t e =
-      plan<DJ, ROWS, NF, RP>(N, D, FORMS, &kernel, &blocks, &units,
-                             &rows, &smem, &per_sm, &sms);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((e = cudaMemsetAsync(barrier, 0, sizeof(unsigned int), st)) !=
-      cudaSuccess)
-    return (int)e;
-  const float* xf = static_cast<const float*>(xs);
-  const float* wf = static_cast<const float*>(w);
-  const float* h0f = static_cast<const float*>(h0);
-  const float* c0f = static_cast<const float*>(c0);
-  const float* mf = static_cast<const float*>(mask);
-  float* hsf = static_cast<float*>(hs);
-  float* csf = static_cast<float*>(cs);
-  unsigned int* bar = static_cast<unsigned int*>(barrier);
-  void* args[] = {(void*)&xf, (void*)&wf, (void*)&h0f, (void*)&c0f,
-                  (void*)&mf, (void*)&hsf, (void*)&csf, (void*)&bar,
-                  (void*)&T, (void*)&N, (void*)&D, (void*)&rows};
-  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(THREADS), args,
-                                  smem, st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch<float>(FORMS, xs, w, h0, c0, mask, hs, cs, nullptr,
+                       barrier, T, N, D, stream);
+}
+
+// The same shapes with xs, h0, c0, hs and cs bfloat16 and w and mask
+// float32; hx: float32 scratch of 2 * N * D, the exchange of h.
+int fused_lstm_bf16(const void* xs, const void* w, const void* h0,
+                    const void* c0, const void* mask, void* hs, void* cs,
+                    void* hx, void* barrier, int T, int N, int D,
+                    void* stream) {
+  if (hx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<__nv_bfloat16>(FORMS_BF16, xs, w, h0, c0, mask, hs, cs,
+                               hx, barrier, T, N, D, stream);
 }
 
 const char* error_string(int code) {

@@ -270,7 +270,9 @@ def lstm(ctx):
 
     if (lstm_impl(ctx.attr("lstm_impl")) == "pallas" and not use_peep
             and acts == ("sigmoid", "tanh", "tanh") and D % 128 == 0):
-        hs, cs = fused_lstm(xs, w, h, c, mf)
+        # the mask goes in as float32, as the JAX lowering gives it: the
+        # kernel's bfloat16 face (pure AMP, no bias) takes a float32 mask
+        hs, cs = fused_lstm(xs, w, h, c, ms.to(torch.float32))
     else:
         hs, cs = [], []
         for t in range(xs.shape[0]):

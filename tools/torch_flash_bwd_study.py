@@ -106,7 +106,10 @@ For each it prints the registers and spills ``-Xptxas -v`` reports and:
   outputs equal the source's bit for bit at every shape of
   ``chip_smoke.RNN_EDGE_SHAPES`` (ragged lengths), which with
   ``--against`` shows a refactoring left a kernel's results as they
-  were;
+  were; and the LSTM's bfloat16 face (where a library has one) at T 100,
+  N 64, D 512: its error over one ulp of each element's own magnitude
+  and its time beside the cast-around yardstick's (widen, the float32
+  face, round), in turns;
 - conv3x3: at ResNet-50's four stage shapes at batch 32
   (``chip_smoke.R50_CONV_SHAPES``) the largest error of the forward and
   of dx (the kernel on the output gradient and the rotated filter) over
@@ -322,6 +325,42 @@ GRU_VARIANTS = {
 }
 LSTM_VARIANTS = {
     "w_split_at_load": W_SPLIT_AT_LOAD,
+    # the bfloat16 face storing its rounded h after the barrier's arrive
+    # (with c) instead of before it, beside the exchange
+    "hs_after_arrive": [
+        ('''          put(hs + (size_t)t * ND + at[g][i], h[g][i]);
+          if constexpr (EXCHANGE)              // what the others stage
+            hx[(size_t)(t & 1) * ND + at[g][i]] = h[g][i];
+''', '''          if constexpr (EXCHANGE)
+            hx[(size_t)(t & 1) * ND + at[g][i]] = h[g][i];
+          else
+            put(hs + (size_t)t * ND + at[g][i], h[g][i]);
+'''),
+        ('''          if (at[g][i] >= 0) put(cs + (size_t)t * ND + at[g][i], c[g][i]);
+''', '''          if (at[g][i] >= 0) {
+            put(cs + (size_t)t * ND + at[g][i], c[g][i]);
+            if constexpr (EXCHANGE)
+              put(hs + (size_t)t * ND + at[g][i], h[g][i]);
+          }
+''')],
+    # the bfloat16 face widening the next step's gate inputs as it loads
+    # them (its first form), instead of where the gate math uses them
+    "widen_at_load": [
+        ('''struct Bits<__nv_bfloat16> {
+  typedef unsigned short type;''', '''struct Bits<__nv_bfloat16> {
+  typedef float type;'''),
+        ("  return __ldg(reinterpret_cast<const unsigned short*>(p));",
+         "  return widen(__ldg(reinterpret_cast<const unsigned short*>(p)));")],
+    # the bfloat16 face exchanging h through T + 1 slots, a fresh one a
+    # step (h0 in slot 0, h_t in slot t + 1), as the float32 face stages
+    # the fresh hs[t - 1], instead of a ring of two
+    "exchange_per_step": [
+        ("if (at[g][i] >= 0) hx[ND + at[g][i]] = h[g][i];",
+         "if (at[g][i] >= 0) hx[at[g][i]] = h[g][i];"),
+        ("hprev = hx + (size_t)((t + 1) & 1) * ND;",
+         "hprev = hx + (size_t)t * ND;"),
+        ("hx[(size_t)(t & 1) * ND + at[g][i]] = h[g][i];",
+         "hx[(size_t)(t + 1) * ND + at[g][i]] = h[g][i];")],
     "two_passes": [
         ("constexpr int ROWS = 32; ", "constexpr int ROWS = 64; "),
         ("""        float acc[MT][NF][4];
@@ -884,7 +923,83 @@ def rnn_study(mod, name, gates):
                 result[vname]["edges_bit_identical_to_source"] = same
                 print(json.dumps({vname: {"edges_bit_identical_to_source":
                                           same}}), flush=True)
+        if gates == 4:
+            lstm_bf16_study(libs, result, dev, flush)
     return study
+
+
+def _own_ulp_ratio(got, want, sum_tol=2e-5):
+    """The largest error of a bfloat16 element over one bfloat16 ulp of
+    its reference's own magnitude plus ``sum_tol`` of the largest."""
+    g, w = got.double(), want.double()
+    mag = w.abs()
+    own = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(
+        torch.where(mag > 0, mag, torch.ones_like(mag)))) - 7),
+        torch.zeros_like(mag))
+    return float(((g - w).abs() / (own + sum_tol * float(mag.max()))).max())
+
+
+def lstm_bf16_study(libs, result, dev, flush):
+    """The LSTM's bfloat16 face of each library that has one (a parent's
+    without it is skipped) at T 100, N 64, D 512, full lengths: the
+    largest error of hs and cs over one ulp of each element's own
+    magnitude plus 2e-5 of the largest, against the plain recurrence on
+    the same operands; the face's time and the cast-around yardstick's
+    (xs, h0 and c0 widened, the float32 face, hs and cs rounded), timed
+    in turns (face, yardstick, yardstick, face)."""
+    T, N, D = 100, 64, 512
+    bf = torch.bfloat16
+    rng = np.random.RandomState(42)
+    xs = _randn(rng, (T, N, 4 * D), dev, 0.5).to(bf)
+    w = _randn(rng, (D, 4 * D), dev, 1 / np.sqrt(D))
+    h0, c0 = (_randn(rng, (N, D), dev, 0.2).to(bf) for _ in range(2))
+    mask = torch.ones((T, N), device=dev)
+    args = (xs, w, h0, c0, mask)
+    want = lstm.fused_lstm_reference(*args)
+    # the exchange: T + 1 slots, which every variant's layout fits in
+    hx = torch.empty((T + 1, N, D), dtype=torch.float32, device=dev)
+    barrier = torch.empty((1,), dtype=torch.int32, device=dev)
+    stream = _build.stream_handle(dev)
+
+    def face(a=args):
+        fn = _build.load("fused_lstm").fused_lstm_bf16
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        t_ = a[0].shape[0]
+        hs = torch.empty((t_, N, D), dtype=bf, device=dev)
+        cs = torch.empty_like(hs)
+        code = fn(*(t.data_ptr() for t in a + (hs, cs, hx, barrier)),
+                  t_, N, D, stream)
+        if code:
+            raise RuntimeError("fused_lstm_bf16: CUDA error %d" % code)
+        return hs, cs
+
+    # ten steps: the cost of a step, from T 10 to 100
+    args10 = tuple(t[:10].contiguous() if t.dim() == 3 or t is mask
+                   else t for t in args)
+
+    def cast_around():
+        hs, cs = lstm._launch(xs.float(), w, h0.float(), c0.float(), mask)
+        return hs.to(bf), cs.to(bf)
+
+    for vname, lib in libs.items():
+        if not hasattr(lib, "fused_lstm_bf16"):
+            continue
+        with using("fused_lstm", lib):
+            got = face()
+            torch.cuda.synchronize()
+            runs = [time_ms(f, flush) for f in (face, cast_around,
+                                                cast_around, face)]
+            ms10 = time_ms(lambda: face(args10), flush)
+        rec = {"max_err_over_own_tol": max(_own_ulp_ratio(g, w_) for g, w_
+                                           in zip(got, want)),
+               "ms": (runs[0] + runs[3]) / 2,
+               "cast_around_ms": (runs[1] + runs[2]) / 2, "ms_runs": runs,
+               "T10_ms": ms10}
+        rec["us_per_step"] = 1e3 * (rec["ms"] - ms10) / (T - 10)
+        result[vname]["bf16_face"] = rec
+        print(json.dumps({vname: {"bf16_face": rec}}), flush=True)
 
 
 def study_conv3x3(libs, result, dev, flush):
