@@ -114,10 +114,14 @@ Phases, in order; any failure exits non-zero at once:
    stage's 3x3 population and the kernel for the second's
    (``conv_impl=conv``): the conv3x3 kernel runs forward and dx for
    exactly the second stage's 4 convs;
-9. amp: hold the bfloat16 faces of the conv3x3 kernel (forward with a
-   bfloat16 and a float32 output, and dx, at ResNet-50's stage shapes
-   and ``CONV_EDGE_SHAPES``, the tilings held to the mirror) and of the
-   matmul kernel (its TMA-fed wgmma kernel at every tiling at the LM's
+9. amp: hold the bfloat16 faces of the conv3x3 kernel (its TMA-fed
+   wgmma implicit GEMM and its ragged path, forward with a bfloat16 and
+   a float32 output, and dx, at ResNet-50's stage shapes and
+   ``CONV_EDGE_SHAPES``, each launch counted on the path its shape
+   takes, the paths and tilings held to the mirror, the face's parent
+   design timed beside it at the stage shapes, every template's
+   registers and spills (none allowed) and the host microseconds of its
+   two TMA maps) and of the matmul kernel (its TMA-fed wgmma kernel at every tiling at the LM's
    three gemm shapes, its ragged path at ``MM_RAGGED_SHAPE``, both
    outputs, each launch counted on the path its shape takes) against
    their plain versions within one bfloat16 ulp (float32 out:
@@ -136,8 +140,9 @@ Phases, in order; any failure exits non-zero at once:
    times at B 8 and B 1 and every template's registers, spills and
    shared memory; train ResNet-50 as phase 6 does under plain AMP
    (step-1 gradients against a plain reference rounded as AMP rounds,
-   the unrounded one measured beside it; exactly 16 bfloat16 forward and
-   16 dx launches a step) and under pure AMP (conv and batch-norm
+   the unrounded one measured beside it; exactly 16 forward and 16 dx
+   launches a step of the bfloat16 face's wgmma kernel, none of its
+   ragged path, the kernel's symbol in the profile) and under pure AMP (conv and batch-norm
    outputs fetched as bfloat16, parameters float32), images/s beside
    phase 6's; train phase 5's LM under plain AMP and under pure AMP
    against a cache of the matmul face's fastest tilings: step 1 held op
@@ -378,8 +383,9 @@ LOSS_REL_TOL = 1e-3
 # the plain output (2^(floor(log2 max) - 7)): both sum the exact products
 # in float32 in other orders, so an output within float32 noise of a
 # rounding boundary may land one ulp apart. A plain variant that rounds
-# the running sum to bfloat16 after each k step (a tap's 32 channels, or
-# a k tile of 32) errs by several ulps and is shown to miss it. A float32
+# the running sum to bfloat16 after each k step (a tap's 64 channels, or
+# a k tile of 64: the wgmma faces' stages) errs by several ulps and is
+# shown to miss it. A float32
 # output (bfloat16 operands) within AMP_F32_REL_TOL of the largest
 # magnitude: the sum orders only.
 AMP_F32_REL_TOL = 1e-5
@@ -2173,7 +2179,7 @@ def _conv_share(prof):
         t = getattr(e, "self_device_time_total", None)
         t = (e.self_cuda_time_total if t is None else t) / 1e3
         k = e.key.lower()
-        if "conv3x3_kernel" in k or "conv3x3_bf16_kernel" in k:
+        if "conv3x3_kernel" in k or "conv3x3_bf16_" in k:
             kinds["conv3x3"] += t
         elif any(s in k for s in ("conv", "cudnn", "xmma", "implicit",
                                   "dgrad", "wgrad", "fprop")):
@@ -2279,6 +2285,16 @@ def phase_convnet(dev, amp=False):
         profile_window = _device_kernels(prof, prof_wall)
         profile_window["steps"] = 2
         profile_window["by_kind"] = _conv_share(prof)
+        if amp:
+            # the bfloat16 face's symbol in the profile: the wgmma kernel,
+            # 16 launches a role a step, and no launch of the ragged path
+            wgmma = _kernel_share(prof, "conv3x3_bf16_wgmma_kernel")
+            ragged = _kernel_share(prof, "conv3x3_bf16_ragged_kernel")
+            profile_window["conv3x3_bf16_wgmma"] = wgmma
+            if wgmma["count"] != 2 * 2 * 16 or ragged["count"] != 0:
+                fail("%s profile: %d launches of conv3x3_bf16_wgmma_kernel "
+                     "and %d of the ragged kernel over two steps, expected "
+                     "64 and 0" % (label, wgmma["count"], ragged["count"]))
     p50 = float(np.median(step_s))
     log(json.dumps({label: {
         "config": {"model": "resnet_imagenet", "depth": 50, "image": 224,
@@ -3249,17 +3265,18 @@ def bf16_bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _bf16_step_sums_conv(x, w):
+def _bf16_step_sums_conv(x, w, ck=64):
     """The plain forward with the running sum rounded to bfloat16 after
-    each k step (a tap's 32 channels): what a bfloat16 accumulator
-    would give, which must miss the faces' tolerance."""
+    each k step (a tap's ``ck`` channels: the wgmma face's 64-deep
+    stage): what a bfloat16 accumulator would give, which must miss the
+    faces' tolerance."""
     from paddle_tpu_torch.kernels import conv3x3
     N, H, W, C = x.shape
     xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
     acc = None
     for dy, dx, patch in conv3x3._taps(xp, H, W):
-        for c0 in range(0, C, 32):
-            t = patch[:, c0:c0 + 32].float() @ w[dy, dx, c0:c0 + 32].float()
+        for c0 in range(0, C, ck):
+            t = patch[:, c0:c0 + ck].float() @ w[dy, dx, c0:c0 + ck].float()
             acc = (t if acc is None else acc.float() + t).bfloat16()
     return acc.reshape(N, H, W, w.shape[3])
 
@@ -3667,25 +3684,114 @@ def _amp_flash_check(dev, flush):
     return out
 
 
+# the bfloat16 face's ragged path is timed at this shape (C 36: not a
+# multiple of 8), where the entry point takes it
+CONV_RAGGED_SHAPE = (2, 9, 11, 36, 64)
+
+
+def _amp_conv_templates(dev):
+    """The bfloat16 face's templates: the library's shared memory held to
+    the mirror's, registers and spills (``-Xptxas -v``) of each wgmma
+    tiling and of each ragged one, and the host microseconds that
+    encoding the two TMA maps adds to a launch at ResNet-50's stage
+    shapes."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import conv3x3
+    lib = _build.load("conv3x3")
+    out = {}
+    for path, tilings in (("wgmma", conv3x3.TILINGS_BF16),
+                          ("ragged", conv3x3.TILINGS)):
+        for t in tilings:
+            got = conv3x3.kernel_smem_bytes(*t, torch.bfloat16, path)
+            want = conv3x3.smem_bytes_wgmma(*t) if path == "wgmma" \
+                else conv3x3.smem_bytes(*t, torch.bfloat16)
+            if got != want:
+                fail("conv3x3 bf16 %s tiling %s: the library's shared "
+                     "memory %d, the mirror's %d" % (path, t, got, want))
+            if path == "wgmma":
+                lines = {"": _ptxas("conv3x3", "conv3x3_bf16_wgmma_kernel"
+                                    "ILi%dELi%dE" % t)}
+            else:
+                lines = {vec: _ptxas("conv3x3", "conv3x3_bf16_ragged_kernel"
+                                     "ILi%dELi%dELb%dE" % (t + (b,)))
+                         for vec, b in (("vec", 1), ("plain", 0))}
+            for kind, ptxas in lines.items():
+                out[" ".join(filter(None, (path, "%dx%d" % t, kind)))] = {
+                    "smem_bytes": got, "ptxas": ptxas}
+    # the wgmma kernel's templates may not spill; the ragged path's are
+    # the face's first kernel, unchanged (its 128 x 128 cp.async form
+    # spilled 24 bytes there too, and no main path takes it), reported
+    for key, rec in out.items():
+        if not rec["ptxas"] or (key.startswith("wgmma") and any(
+                part.split()[0] != "0" for ln in rec["ptxas"]
+                for part in ln.split(",") if "spill" in part)):
+            fail("a conv3x3 bf16 wgmma template spills (or a template has "
+                 "no ptxas lines): %s" % out)
+    fn = lib.conv3x3_bf16_encode_us
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+    fn.restype = ctypes.c_double
+    encode = {}
+    for N, H, W, C, O in R50_CONV_SHAPES:
+        x = torch.empty(N, H, W, C, dtype=torch.bfloat16, device=dev)
+        w = torch.empty(3, 3, C, O, dtype=torch.bfloat16, device=dev)
+        for bm in (64, 128):
+            us = fn(x.data_ptr(), w.data_ptr(), N, H, W, C, O, bm, 2000)
+            if not us > 0:
+                fail("encoding the conv3x3 bf16 TMA maps failed at %s"
+                     % ((N, H, W, C, O),))
+            encode["%dx%dx%dx%dx%d bm %d" % (N, H, W, C, O, bm)] = us
+    return {"templates": out, "host_us_to_encode_the_maps": encode}
+
+
 def _amp_conv_check(dev, flush):
     """Row 6's bfloat16 face against its plain version at ResNet-50's
     stage shapes (batch 32) and the edge shapes: the forward with a
     bfloat16 and a float32 output and dx on the rotated filter, each
-    launched twice (bit-identical), the tilings held to the rule's
-    mirror, the bfloat16 step-sum variant shown to miss; kernel, plain,
-    cuDNN-on-bfloat16 and bound times at the stage shapes. Returns the
-    two entries of the kernels line."""
+    launched twice (bit-identical) and counted on the path its shape
+    takes, the path and tiling held to the rule's mirror, the bfloat16
+    step-sum variant shown to miss; the face's, its parent design's (the
+    ragged path's mma.sync kernel, which the face ran before its wgmma
+    kernel, timed in the same call), the plain version's, cuDNN on
+    bfloat16's and the bound's times at the stage shapes, and the ragged
+    path's at CONV_RAGGED_SHAPE. Returns the four entries of the kernels
+    line."""
+    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import conv3x3
     F = torch.nn.functional
+    log(json.dumps({"conv3x3_bf16_templates": _amp_conv_templates(dev)}))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_shape = {}
     for i, shape in enumerate(R50_CONV_SHAPES + CONV_EDGE_SHAPES):
         N, H, W, C, O = shape
         x, w, g = (t.bfloat16() for t in _conv_inputs(shape, 90 + i, dev))
         w_rot = conv3x3.rotate_filter(w)
-        got = {"fwd": conv3x3.conv3x3_s1_nhwc(x, w),
-               "fwd_f32": conv3x3.conv3x3_s1_nhwc(x, w, torch.float32),
-               "dx": conv3x3.conv3x3_bwd(x, w, g, want_dw=False)[0]}
+        tilings = {"fwd": conv3x3.kernel_tiling(N, H, W, C, O,
+                                                torch.bfloat16),
+                   "dx": conv3x3.kernel_tiling(N, H, W, O, C,
+                                               torch.bfloat16)}
+        mirror = {"fwd": conv3x3.tiling_bf16(N, H, W, C, O, sms),
+                  "dx": conv3x3.tiling_bf16(N, H, W, O, C, sms)}
+        if tilings != mirror:
+            fail("conv3x3 bf16 at %s took the paths and tilings %s, the "
+                 "rule's mirror says %s" % (shape, tilings, mirror))
+        got, counts = {}, {}
+        for k, call in (
+                ("fwd", lambda: conv3x3.conv3x3_s1_nhwc(x, w)),
+                ("fwd_f32", lambda: conv3x3.conv3x3_s1_nhwc(
+                    x, w, torch.float32)),
+                ("dx", lambda: conv3x3.conv3x3_bwd(x, w, g,
+                                                   want_dw=False)[0])):
+            kernels.reset_launches()
+            got[k] = call()
+            counts[k] = {n: c for n, c in kernels.launch_counts().items()
+                         if c}
+            role = "dx" if k == "dx" else "fwd"
+            path = tilings[role][0]
+            want_count = {"conv3x3_%s_bf16%s" % (
+                role, "_ragged" if path == "ragged" else ""): 1}
+            if counts[k] != want_count:
+                fail("conv3x3 bf16 %s at %s counted %s, its path %s wants "
+                     "%s" % (k, shape, counts[k], path, want_count))
         again = {"fwd": conv3x3._launch(x, w),
                  "fwd_f32": conv3x3._launch(x, w, torch.float32),
                  "dx": conv3x3._launch(g, w_rot)}
@@ -3693,11 +3799,8 @@ def _amp_conv_check(dev, flush):
                 "fwd_f32": conv3x3.conv3x3_reference(x, w, torch.float32),
                 "dx": conv3x3.conv3x3_reference(g, w_rot)}
         torch.cuda.synchronize()
-        tilings = {"fwd": conv3x3.kernel_tiling(N, H, W, C, O),
-                   "dx": conv3x3.kernel_tiling(N, H, W, O, C)}
-        mirror = {"fwd": conv3x3.tiling(N, H, W, C, O, sms),
-                  "dx": conv3x3.tiling(N, H, W, O, C, sms)}
-        rec = {"tiling": {k: "%dx%d" % t for k, t in tilings.items()},
+        rec = {"path": {k: t[0] for k, t in tilings.items()},
+               "tiling": {k: "%dx%d" % t[1] for k, t in tilings.items()},
                "relaunch_bit_identical": all(
                    torch.equal(got[k], again[k]) for k in got)}
         for k in got:
@@ -3712,11 +3815,11 @@ def _amp_conv_check(dev, flush):
         if not rec["relaunch_bit_identical"]:
             fail("conv3x3 bf16 relaunched at %s differs from its first "
                  "launch" % (shape,))
-        if tilings != mirror:
-            fail("conv3x3 bf16 at %s took the tilings %s, the rule's mirror "
-                 "says %s" % (shape, tilings, mirror))
         tag = "x".join(str(d) for d in shape)
         per_shape[tag] = rec
+        b_ms, b_by = bf16_bound(2 * (N * H * W * (C + O) + 9 * C * O),
+                                2 * N * H * W * C * O * 9)
+        timed = shape in R50_CONV_SHAPES or shape == CONV_RAGGED_SHAPE
         if shape in R50_CONV_SHAPES:
             step_sums = _bf16_step_sums_conv(x, w)
             rec["bf16_step_sums_max_abs_err"], _ = _face_err(step_sums,
@@ -3726,11 +3829,20 @@ def _amp_conv_check(dev, flush):
                      "one ulp %g: the tolerance cannot tell the face from "
                      "it" % (shape, rec["bf16_step_sums_max_abs_err"],
                              rec["fwd_tol"]))
+            del step_sums
+            # the parent's design: the face's first kernel, now its
+            # ragged path, on the same aligned operands
+            rec.update({
+                "fwd_parent_ms": time_ms(
+                    lambda: conv3x3._launch(x, w, None, "ragged"),
+                    flush=flush),
+                "dx_parent_ms": time_ms(
+                    lambda: conv3x3._launch(g, w_rot, None, "ragged"),
+                    flush=flush)})
+        if timed:
             x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
             w_cl = w.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
-            b_ms, b_by = bf16_bound(2 * (N * H * W * (C + O) + 9 * C * O),
-                                    2 * N * H * W * C * O * 9)
             rec.update({
                 "fwd_ms": time_ms(lambda: conv3x3._launch(x, w),
                                   flush=flush),
@@ -3749,7 +3861,7 @@ def _amp_conv_check(dev, flush):
                         g_cl, x_cl, w_cl, None, [1, 1], [1, 1], [1, 1],
                         False, [0, 0], 1, [True, False, False]),
                     flush=flush)})
-            del step_sums, x_cl, g_cl, w_cl
+            del x_cl, g_cl, w_cl
         log(json.dumps({"conv3x3_bf16_check": {"shape": shape, **rec}}))
         del x, w, g, w_rot, got, again, want
     torch.cuda.empty_cache()
@@ -3763,39 +3875,66 @@ def _amp_conv_check(dev, flush):
     by = {b: sum(n for k, n in weights.items()
                  if per_shape[k]["bound_by"] == b)
           for b in ("bytes", "operations")}
+    tolerance = ("one bfloat16 ulp of the largest magnitude (bfloat16 "
+                 "out); %g of it (float32 out)" % AMP_F32_REL_TOL)
+    ragged_tag = "x".join(str(d) for d in CONV_RAGGED_SHAPE)
     out = {}
-    for name, role in (("conv3x3_fwd_bf16", "fwd"), ("conv3x3_dx_bf16", "dx")):
+    for role in ("fwd", "dx"):
         keys = ("fwd", "fwd_f32") if role == "fwd" else ("dx",)
-        out[name] = {
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/kernels/csrc/conv3x3.cu",
-            "replaces": "paddle_tpu/kernels/conv3x3.py:97",
-            "role": ("forward, bfloat16 operands (AMP)" if role == "fwd"
-                     else "dx of the backward under AMP, the same face on "
-                     "the rotated filter (_vjp_bwd, conv3x3.py:165)"),
-            "max_abs_err": max(r[k + "_max_abs_err"] for r in
-                               per_shape.values() for k in keys),
-            "max_err_over_tol": max(r[k + "_max_abs_err"] / r[k + "_tol"]
-                                    for r in per_shape.values()
-                                    for k in keys),
-            "tolerance": "one bfloat16 ulp of the largest magnitude "
-                         "(bfloat16 out); %g of it (float32 out)"
-                         % AMP_F32_REL_TOL,
-            "bf16_step_sums_min_err_over_tol": min(
-                r["bf16_step_sums_max_abs_err"] / r["fwd_tol"]
-                for r in per_shape.values()
-                if "bf16_step_sums_max_abs_err" in r),
-            "ms": per_launch(role + "_ms"),
-            "plain_ms": per_launch(role + "_plain_ms"),
-            "bound_ms": per_launch("bound_ms"),
-            "bound_by": max(by, key=by.get),
-            "library_ms": per_launch(role + "_library_ms"),
-            "library": "cuDNN on bfloat16 through F.conv2d" if role == "fwd"
-                       else "cuDNN on bfloat16 through convolution_backward "
-                            "(dx only)",
-            "timed_as": "mean over a ResNet-50 step's 16 launches: the "
-                        "stage shapes weighted 3, 4, 6, 3",
-            "per_shape": per_shape}
+        library = ("cuDNN on bfloat16 through F.conv2d" if role == "fwd"
+                   else "cuDNN on bfloat16 through convolution_backward "
+                        "(dx only)")
+        for path in ("wgmma", "ragged"):
+            recs = [r for r in per_shape.values() if r["path"][role] == path]
+            name = "conv3x3_%s_bf16%s" % (role, "_ragged" * (path ==
+                                                             "ragged"))
+            entry = {
+                "name": name, "route": "cuda",
+                "source": "paddle_tpu_torch/kernels/csrc/conv3x3.cu",
+                "replaces": "paddle_tpu/kernels/conv3x3.py:97",
+                "role": ("forward" if role == "fwd" else
+                         "dx of the backward, the same face on the rotated "
+                         "filter (_vjp_bwd, conv3x3.py:165)")
+                + (", bfloat16 operands (AMP): the TMA-fed, "
+                   "warp-specialised wgmma implicit GEMM" if path == "wgmma"
+                   else ", bfloat16 operands TMA cannot take (C or O not a "
+                        "multiple of 8, a misaligned pointer): the "
+                        "mma.sync kernel"),
+                "max_abs_err": max(r[k + "_max_abs_err"] for r in recs
+                                   for k in keys),
+                "max_err_over_tol": max(r[k + "_max_abs_err"] / r[k + "_tol"]
+                                        for r in recs for k in keys),
+                "tolerance": tolerance, "library": library,
+                "shapes": [k for k, r in per_shape.items()
+                           if r["path"][role] == path]}
+            if path == "wgmma":
+                entry.update({
+                    "bf16_step_sums_min_err_over_tol": min(
+                        r["bf16_step_sums_max_abs_err"] / r["fwd_tol"]
+                        for r in recs if "bf16_step_sums_max_abs_err" in r),
+                    "ms": per_launch(role + "_ms"),
+                    "parent_ms": per_launch(role + "_parent_ms"),
+                    "plain_ms": per_launch(role + "_plain_ms"),
+                    "bound_ms": per_launch("bound_ms"),
+                    "bound_by": max(by, key=by.get),
+                    "library_ms": per_launch(role + "_library_ms"),
+                    "tilings": {k: per_shape[k]["tiling"][role]
+                                for k in weights},
+                    "timed_as": "mean over a ResNet-50 step's 16 launches: "
+                                "the stage shapes weighted 3, 4, 6, 3; "
+                                "parent_ms the face's parent design (the "
+                                "ragged path's kernel) on the same "
+                                "operands",
+                    "per_shape": per_shape})
+            else:
+                r = per_shape[ragged_tag]
+                entry.update({
+                    "main_path": False,
+                    "ms": r[role + "_ms"], "plain_ms": r[role + "_plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": r[role + "_library_ms"],
+                    "timed_as": "one launch at %s" % (CONV_RAGGED_SHAPE,)})
+            out[name] = entry
     return out
 
 

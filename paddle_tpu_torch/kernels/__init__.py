@@ -26,11 +26,14 @@ KERNEL_COUNTERS = {
     "flash_attention_bwd_dq_bf16": (flash_attention, "launches_bwd_dq_bf16"),
     "paged_attention": (paged_attention, "launches"),
     # one kernel in two roles: the conv's forward and its backward's dx,
-    # each with a float32 and a bfloat16 (AMP) face
+    # each with a float32 and a bfloat16 (AMP) face; the bfloat16 face's
+    # ragged path (operands TMA cannot take) counted apart
     "conv3x3_fwd": (conv3x3, "launches"),
     "conv3x3_dx": (conv3x3, "launches_dx"),
     "conv3x3_fwd_bf16": (conv3x3, "launches_bf16"),
     "conv3x3_dx_bf16": (conv3x3, "launches_dx_bf16"),
+    "conv3x3_fwd_bf16_ragged": (conv3x3, "launches_bf16_ragged"),
+    "conv3x3_dx_bf16_ragged": (conv3x3, "launches_dx_bf16_ragged"),
     # the whole recurrence of an lstm / gru op, one launch a call; the
     # LSTM with a float32 and a bfloat16 (pure AMP, no bias) face
     "fused_lstm": (fused_lstm, "launches"),

@@ -22,15 +22,23 @@ call, as the JAX op does.
 - Two faces, as the JAX kernel is dtype-generic: float32 operands
   (``conv3x3_s1_nhwc_f32``, float32 out) and bfloat16 operands under AMP
   (``conv3x3_s1_nhwc_bf16``, float32 sums, bfloat16 or float32 out).
+  The bfloat16 face has two paths, picked by the C entry point before
+  the launch: a TMA-fed ``wgmma`` kernel for operands TMA can take (C
+  and O multiples of 8, every pointer 16-byte aligned: every ResNet-50
+  3x3 conv), and the ragged path, an ``mma.sync`` kernel, for any other
+  (:func:`bf16_path`).
 - ``launches`` and ``launches_dx`` count the float32 face's launches of
   the forward and of dx, ``launches_bf16`` and ``launches_dx_bf16`` the
-  bfloat16 face's.
+  bfloat16 face's ``wgmma`` kernel's, ``launches_bf16_ragged`` and
+  ``launches_dx_bf16_ragged`` its ragged path's.
 
 The JAX wrapper takes a tiling ``config`` of the TPU schedule
 (``block_n``, ``block_o``, ``grid_order``); it means nothing to this
 kernel, and the wrapper accepts and ignores it. The kernel picks its own
-tiling by a rule in its source, which :func:`tiling` mirrors, with the
-shared memory of each tiling in :func:`smem_bytes`.
+tiling by a rule in its source, which :func:`tiling` mirrors (the
+float32 face and the ragged path) and :func:`tiling_bf16` (the bfloat16
+face's path and tiling), with the shared memory of each tiling in
+:func:`smem_bytes` and :func:`smem_bytes_wgmma`.
 """
 from __future__ import annotations
 
@@ -43,27 +51,39 @@ from . import _build
 from ..core.types import torch_dtype
 from ..amp import matmul_f32
 
-__all__ = ["H100_SMS", "TILINGS", "conv3x3_bwd", "conv3x3_bwd_reference",
-           "conv3x3_reference", "conv3x3_s1_nhwc", "kernel_smem_bytes",
-           "kernel_tiling", "launches", "launches_bf16", "launches_dx",
-           "launches_dx_bf16", "rotate_filter", "smem_bytes",
-           "supports_conv3x3", "tiling"]
+__all__ = ["H100_SMS", "TILINGS", "TILINGS_BF16", "bf16_path",
+           "conv3x3_bwd", "conv3x3_bwd_reference", "conv3x3_reference",
+           "conv3x3_s1_nhwc", "kernel_smem_bytes", "kernel_tiling",
+           "launches", "launches_bf16", "launches_bf16_ragged",
+           "launches_dx", "launches_dx_bf16", "launches_dx_bf16_ragged",
+           "rotate_filter", "smem_bytes", "smem_bytes_wgmma",
+           "supports_conv3x3", "tiling", "tiling_bf16"]
 
 # kernel launches since the last reset: forward and dx, of the float32
-# and of the bfloat16 face
+# face, of the bfloat16 face's wgmma kernel and of its ragged path
 launches = 0
 launches_dx = 0
 launches_bf16 = 0
 launches_dx_bf16 = 0
+launches_bf16_ragged = 0
+launches_dx_bf16_ragged = 0
 
 _NAME = "conv3x3"
 
 # the kernel's tilings (BM pixels x BN output channels a block), largest
 # first, each at BK = 32 input channels a step in a ring of 3 stages
-# (csrc/conv3x3.cu)
+# (csrc/conv3x3.cu): the float32 face's and the bfloat16 face's ragged
+# path's
 TILINGS = ((128, 128), (128, 64), (64, 64))
 _BK = 32
 _STAGES = 3
+# the bfloat16 face's wgmma tilings, largest first: BM / 64 consumer
+# warpgroups, BN the wgmma width; 64 input channels a stage (one 128-byte
+# swizzled row) in a ring of 4 stages of unpadded boxes, and 1024 bytes
+# to align the ring for the swizzle
+TILINGS_BF16 = ((128, 128), (128, 64), (64, 128), (64, 64))
+_CK = 64
+_RING_W = 4
 # row paddings of the A and B tiles, in elements, by face
 _PADS = {torch.float32: (4, 8), torch.bfloat16: (8, 8)}
 _FACES = {torch.float32: "conv3x3_s1_nhwc_f32",
@@ -87,12 +107,48 @@ def tiling(N, H, W, C, O, sms=H100_SMS):
     return TILINGS[-1]
 
 
+def bf16_path(N, H, W, C, O, aligned=True):
+    """``"wgmma"`` where the bfloat16 face's TMA can take the operands (C
+    and O multiples of 8, every pointer 16-byte aligned: ``aligned``),
+    else ``"ragged"`` (``tma_path`` of the source). N, H and W do not
+    enter the rule."""
+    del N, H, W
+    return "wgmma" if aligned and C % 8 == 0 and O % 8 == 0 else "ragged"
+
+
+def tiling_bf16(N, H, W, C, O, sms=H100_SMS, aligned=True):
+    """``(path, (BM, BN))`` the bfloat16 face takes for x ``[N, H, W,
+    C]`` and O output channels on a card of ``sms`` SMs: the ragged path
+    at :func:`tiling`; the wgmma kernel at the first of
+    :data:`TILINGS_BF16` whose BN is at most ``max(64, O)`` and whose
+    grid has blocks for at least half the SMs, else 64 x 64
+    (``pick_tiling_wgmma`` of the source)."""
+    path = bf16_path(N, H, W, C, O, aligned)
+    if path == "ragged":
+        return path, tiling(N, H, W, C, O, sms)
+    M = N * H * W
+    for bm, bn in TILINGS_BF16:
+        blocks = -(-M // bm) * -(-O // bn)
+        if bn <= max(64, O) and blocks >= (sms + 1) // 2:
+            return path, (bm, bn)
+    return path, TILINGS_BF16[-1]
+
+
+def smem_bytes_wgmma(bm, bn):
+    """Dynamic shared memory of one block of a wgmma tiling: four stages
+    of the ``bm x 64`` pixel box and the ``64 x bn`` filter boxes,
+    bfloat16, and 1024 bytes of alignment (``TileW::SMEM_BYTES``)."""
+    return _RING_W * (bm * _CK + _CK * bn) * 2 + 1024
+
+
 def smem_bytes(bm, bn, dtype=torch.float32):
     """Dynamic shared memory of one block of the tiling: three stages of
     the A tile and the B tile, ``bm x (32 + 4)`` and ``32 x (bn + 8)``
     float32 values (``Tile::SMEM_BYTES`` of the source), or ``bm x (32 +
-    8)`` and ``32 x (bn + 8)`` bfloat16 ones (``TileB::SMEM_BYTES``).
-    ``dtype`` may be a torch dtype or its name."""
+    8)`` and ``32 x (bn + 8)`` bfloat16 ones, the bfloat16 face's ragged
+    path (``TileB::SMEM_BYTES``; its wgmma kernel's:
+    :func:`smem_bytes_wgmma`). ``dtype`` may be a torch dtype or its
+    name."""
     dtype = torch_dtype(dtype)
     if dtype not in _PADS:      # no face: priced as the float32 one
         dtype = torch.float32
@@ -163,46 +219,68 @@ def conv3x3_bwd_reference(x, w, g):
             _dw_taps(x, g, w.dtype))
 
 
-def _launch(x, w, out_dtype=None):
+def _launch(x, w, out_dtype=None, path=None, tiling=None):
     """One launch of the face of ``x``'s dtype on checked operands;
     returns the ``[N, H, W, O]`` output in ``out_dtype`` (default
-    ``x``'s dtype)."""
+    ``x``'s dtype). The bfloat16 face takes the path and tiling of its
+    rule, or a ``path`` forced: ``"ragged"`` at any operands, or
+    ``"wgmma"`` at ``tiling`` (one of :data:`TILINGS_BF16`; default the
+    rule's) on operands TMA can take."""
     N, H, W, C = x.shape
     O = w.shape[3]
     out_dtype = out_dtype or x.dtype
     out = torch.empty((N, H, W, O), dtype=out_dtype, device=x.device)
     lib = _build.load(_NAME)
-    fn = getattr(lib, _FACES[x.dtype])
     bf16 = x.dtype == torch.bfloat16
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (6 if bf16
-                                                            else 5) + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    name = _FACES[x.dtype]
     extra = (int(out_dtype == torch.float32),) if bf16 else ()
+    if bf16 and path is not None:
+        name += "_" + path
+        if path == "wgmma":
+            extra += tuple(tiling or kernel_tiling(N, H, W, C, O,
+                                                   torch.bfloat16)[1])
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * 3 + \
+        [ctypes.c_int] * (5 + len(extra)) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W, C, O,
               *extra, _build.stream_handle(x.device))
     _build.check(lib, code, _NAME)
     return out
 
 
-def kernel_tiling(N, H, W, C, O):
-    """``(BM, BN)`` the built kernel takes at the shape on the current
-    card: its own rule, asked through the library (needs the card)."""
+def kernel_tiling(N, H, W, C, O, dtype=torch.float32, aligned=True):
+    """The tiling the built kernel takes at the shape on the current
+    card, its own rule asked through the library (needs the card):
+    ``(BM, BN)`` of the float32 face, or ``(path, (BM, BN))`` of the
+    bfloat16 face (as :func:`tiling_bf16`), its pointers 16-byte
+    ``aligned`` or not."""
     lib = _build.load(_NAME)
-    fn = lib.conv3x3_tiling
-    fn.argtypes = [ctypes.c_int] * 5
+    bf16 = torch_dtype(dtype) == torch.bfloat16
+    fn = lib.conv3x3_bf16_tiling if bf16 else lib.conv3x3_tiling
+    fn.argtypes = [ctypes.c_int] * (6 if bf16 else 5)
     fn.restype = ctypes.c_int
-    code = fn(N, H, W, C, O)
+    code = fn(N, H, W, C, O, *((int(aligned),) if bf16 else ()))
     if code < 0:
         raise ValueError("%s: no tiling for shape %s"
                          % (_NAME, (N, H, W, C, O)))
-    return code // 1000, code % 1000
+    t = (code % 1000000 // 1000, code % 1000)
+    if not bf16:
+        return t
+    return ("wgmma" if code >= 1000000 else "ragged"), t
 
 
-def kernel_smem_bytes(bm, bn, dtype=torch.float32):
-    """The built library's shared memory of a tiling's block, float32 or
-    bfloat16 face (needs the card's toolchain)."""
+def kernel_smem_bytes(bm, bn, dtype=torch.float32, path="ragged"):
+    """The built library's shared memory of a tiling's block: the float32
+    face's, or the bfloat16 face's on ``path`` (``"ragged"`` or
+    ``"wgmma"``); -1 for a tiling it does not compile (needs the card's
+    toolchain)."""
     lib = _build.load(_NAME)
+    if torch_dtype(dtype) == torch.bfloat16 and path == "wgmma":
+        fn = lib.conv3x3_bf16_wgmma_smem_bytes
+        fn.argtypes = [ctypes.c_int] * 2
+        fn.restype = ctypes.c_int
+        return fn(bm, bn)
     fn = lib.conv3x3_smem_bytes
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
@@ -230,16 +308,28 @@ def _check(x, w, out_dtype=None):
     _build.check_cuda_operands(_NAME, x.device, x=x, w=w)
 
 
-def _count(dx, bf16):
-    global launches, launches_dx, launches_bf16, launches_dx_bf16
-    if dx and bf16:
-        launches_dx_bf16 += 1
+def _count(dx, x, w):
+    """One more launch of the role (forward or ``dx``) on the path the
+    checked operands ``x`` and ``w`` take (the output, a fresh tensor, is
+    aligned)."""
+    global launches, launches_dx, launches_bf16, launches_dx_bf16, \
+        launches_bf16_ragged, launches_dx_bf16_ragged
+    if x.dtype != torch.bfloat16:
+        if dx:
+            launches_dx += 1
+        else:
+            launches += 1
+        return
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    ragged = bf16_path(*x.shape, w.shape[3], aligned) == "ragged"
+    if dx and ragged:
+        launches_dx_bf16_ragged += 1
     elif dx:
-        launches_dx += 1
-    elif bf16:
-        launches_bf16 += 1
+        launches_dx_bf16 += 1
+    elif ragged:
+        launches_bf16_ragged += 1
     else:
-        launches += 1
+        launches_bf16 += 1
 
 
 def _forward(x, w, out_dtype=None):
@@ -248,7 +338,7 @@ def _forward(x, w, out_dtype=None):
         return conv3x3_reference(x, w, out_dtype)
     _check(x, w, out_dtype)
     out = _launch(x, w, out_dtype)
-    _count(False, x.dtype == torch.bfloat16)
+    _count(False, x, w)
     return out
 
 
@@ -267,7 +357,7 @@ def conv3x3_bwd(x, w, g, want_dx=True, want_dw=True):
         else:
             _check(gx, w_rot)
             dx = _launch(gx, w_rot)
-            _count(True, x.dtype == torch.bfloat16)
+            _count(True, gx, w_rot)
     if want_dw:
         dw = _dw_taps(x, g, w.dtype)
     return dx, dw

@@ -58,16 +58,54 @@
 // blocks). paddle_tpu_torch/kernels/conv3x3.py mirrors the rule and the
 // shared memory of each tiling.
 //
-// The bfloat16 face (conv3x3_s1_nhwc_bf16, under AMP): the same walk,
-// ring, tilings and rule on bfloat16 tiles, one bf16 mma.sync.m16n8k16 a
-// product (a bfloat16 product is exact in float32) in place of the 3xTF32
-// triple, the sums in float32 as above, the output written in bfloat16
-// (rounded to nearest even) or float32. The JAX kernel is dtype-generic:
-// `_kernel` sums `jnp.dot(..., preferred_element_type=float32)` of the
-// bf16 operands and writes `out_dtype`. Its bound is operations too, now
-// at the card's 989 TFLOP/s dense bf16: 7.40 GFLOP a stage-shape call
-// over that is 0.0075 ms, and the bytes (half of float32's) about as
-// much, so the bound is the larger of the two, shape by shape.
+// The bfloat16 face (conv3x3_s1_nhwc_bf16, under AMP) computes the same
+// function on bf16 operands: the JAX kernel is dtype-generic, `_kernel`
+// sums `jnp.dot(..., preferred_element_type=float32)` of the bf16 tap
+// products and writes `out_dtype`. Each product is exact in float32, the
+// sums are float32, and the output is written once, in bfloat16 (rounded
+// to nearest even) or float32.
+// - What bounds it: at ResNet-50's stage shapes at batch 32 a call does
+//   7.40 GFLOP, 7.48 us at the card's 989 TFLOP/s dense bf16; the bytes
+//   (x and out read and written once, 2 bytes a value) take 7.69 us at
+//   3.35 TB/s in the first stage (C = O = 64, bytes-bound) and 3.8 us or
+//   less in the others (operations-bound).
+// - Why a redesign: mma.sync cannot reach Hopper's bf16 rate (only wgmma
+//   can); the float32 design's 32-channel steps cost a barrier and a
+//   cp.async group each, its copies take every thread's issue slots and
+//   registers, and its A fragments come through 32-bit shared loads.
+// - Design: matmul.cu's warp-specialised wgmma GEMM (hopper.cuh) as an
+//   implicit GEMM of M = N*H*W output pixels by O over K = 9*C, walked
+//   tap-major, then channels in stages of CK = 64 (one 128-byte swizzled
+//   row of bf16): 9 * ceil(C / 64) stages, none straddling two taps.
+//   One producer thread issues TMA: A, the stage's shifted pixels, is one
+//   im2col load of x as a 4-D [N, H, W, C] map (BM pixels of 64
+//   channels; the tap is the load's offset, the walk's corners one pixel
+//   in for pad 1, so the halo, the pixels past the last image and the
+//   channels past C arrive as zeros, and a box runs on across image
+//   boundaries: 128 pixels of 7 x 7 images span three). B is w [3, 3, C,
+//   O] as a 3-D map {O, C, 9}, boxes of 64 o x 64 c x 1 tap, so the
+//   channels past C zero-fill and never read the next tap's rows; wgmma
+//   reads this N-major B through its transpose operand. A ring of RING_W
+//   stages with a full and an empty mbarrier each; BM / 64 consumer
+//   warpgroups on wgmma.m64n{BN}k16; the producer warpgroup drops to 40
+//   registers, the consumers rise to 232 (setmaxnreg).
+// - Sum order: each stage is summed from zero on the tensor cores (which
+//   truncate as they accumulate) and added in float32 to a register
+//   accumulator; the epilogue rounds in registers and stores pairs,
+//   masked at the M and O edges. No atomics, no split of K: each output
+//   is written once, so relaunches and all tilings agree bit for bit.
+// - Tilings: BM in {128, 64} x BN in {128, 64}, template instances. The
+//   rule (pick_tiling_wgmma): the first, largest first, whose BN is at
+//   most max(64, O) and whose grid has blocks for at least half the SMs;
+//   else 64 x 64. kernels/conv3x3.py mirrors it (tiling_bf16).
+// - The ragged path: TMA needs 16-byte-aligned bases and pitches that
+//   are multiples of 16 bytes, so C % 8 == 0 and O % 8 == 0 (and out
+//   aligned). Other operands (C 3, C 36, O 7, a misaligned view) take
+//   the face's first design, unchanged: the float32 design's walk, ring,
+//   tilings and rule on bfloat16 tiles with mma.sync.m16n8k16
+//   (conv3x3_bf16_ragged_kernel). The entry point picks the path by that
+//   rule before the launch; conv3x3_s1_nhwc_bf16_ragged takes the ragged
+//   path at any shape.
 //
 // Tensors are contiguous: x [N, H, W, C], w [3, 3, C, O], out [N, H, W, O].
 // The kernel allocates nothing. The entry point launches on the stream it
@@ -75,7 +113,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <chrono>
+
 #include "bf16.cuh"
+#include "hopper.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -302,16 +343,17 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 
-// -- the bfloat16 face ------------------------------------------------------
+// -- the bfloat16 face's ragged path: mma.sync ---------------------------------
 //
-// The same walk, ring and tilings on bfloat16 tiles: A [BM][BK + 8] and
-// B [BK][BN + 8] (pitches of 80 bytes and 2 BN + 16 bytes keep the 32-bit A
-// fragment loads and the ldmatrix rows of B on distinct banks), one
-// mma.sync.m16n8k16 a 16-deep slice, each step summed from zero on the
-// tensor cores and added in float32. A 16-byte copy holds 8 channels, so
-// the copies are asynchronous when C and O are multiples of 8 and the
-// pointers 16-byte aligned; any other shape (C 3, 36; O 7) is staged by
-// plain loads and stores, zeros past every edge, into the same ring.
+// The float32 design's walk, ring and tilings on bfloat16 tiles: A
+// [BM][BK + 8] and B [BK][BN + 8] (pitches of 80 bytes and 2 BN + 16
+// bytes keep the 32-bit A fragment loads and the ldmatrix rows of B on
+// distinct banks), one mma.sync.m16n8k16 a 16-deep slice, each step
+// summed from zero on the tensor cores and added in float32. A 16-byte
+// copy holds 8 channels, so the copies are asynchronous when C and O are
+// multiples of 8 and the pointers 16-byte aligned; any other shape (C 3,
+// 36; O 7) is staged by plain loads and stores, zeros past every edge,
+// into the same ring.
 constexpr int X_PAD_BF16 = 8;  // row padding of the A tile, bfloat16
 constexpr int W_PAD_BF16 = 8;  // row padding of the B tile, bfloat16
 
@@ -371,9 +413,10 @@ __device__ __forceinline__ void load_stage_bf16(
 
 template <int BM, int BN, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                    void* __restrict__ out, bool out_f32, int H, int W,
-                    int C, int O, long long M) {
+conv3x3_bf16_ragged_kernel(const bf16* __restrict__ x,
+                           const bf16* __restrict__ w,
+                           void* __restrict__ out, bool out_f32, int H,
+                           int W, int C, int O, long long M) {
   using T = TileB<BM, BN>;
   constexpr int MI = T::MI, NI = T::NI;
   extern __shared__ __align__(16) float smem[];
@@ -497,14 +540,162 @@ conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
+// -- the bfloat16 face: TMA + wgmma --------------------------------------------
+
+constexpr int CK = 64;     // input channels a stage: one 128-byte swizzled row
+constexpr int RING_W = 4;  // stages of the ring
+
+template <int BM, int BN>
+struct TileW {
+  static constexpr int CONSUMERS = BM / 64;  // warpgroups of 64 rows
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  static constexpr int XS = BM * CK;         // values of a stage's pixel box
+  static constexpr int WS = CK * BN;         // of its filter boxes
+  static constexpr int STAGE_BYTES = (XS + WS) * (int)sizeof(bf16);
+  // the ring, and slack to align it to the swizzle's 1024 bytes
+  static constexpr int SMEM_BYTES = RING_W * STAGE_BYTES + 1024;
+  // blocks an SM, and the registers a thread of the producer and of the
+  // consumer warpgroups hold after setmaxnreg
+  static constexpr int BLOCKS_PER_SM = 1;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+  static_assert(BM == 64 || BM == 128, "one or two consumer warpgroups");
+  static_assert(BN == 64 || BN == 128, "wgmma width");
+};
+
+// The pixel the im2col walk of an output tile starts from: its first
+// output pixel m0 as (n, h, w), less one row and one column (pad 1).
+struct WalkStart {
+  int n, h, w;
+};
+
+__device__ __forceinline__ WalkStart walk_start(long long m0, int H, int W) {
+  const long long hw = (long long)H * W;
+  const int n = (int)(m0 / hw);
+  const int p = (int)(m0 - n * hw);
+  const int h = p / W;
+  return WalkStart{n, h - 1, p - h * W - 1};
+}
+
+// the tile's shifted pixels of one stage: tap (dy, dx) = (tap / 3,
+// tap % 3), channels c0 .. c0 + 63
+__device__ __forceinline__ void load_pixels(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar,
+                                            const WalkStart& at, int tap,
+                                            int c0) {
+  tma_load_im2col_4d(dst, map, bar, c0, at.w, at.h, at.n,
+                     (uint16_t)(tap % 3), (uint16_t)(tap / 3));
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(TileW<BM, BN>::THREADS,
+                                  TileW<BM, BN>::BLOCKS_PER_SM)
+conv3x3_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap wmap,
+                          void* __restrict__ out, bool out_f32, int H, int W,
+                          int C, int O, long long M) {
+  using T = TileW<BM, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[RING_W], empty[RING_W];
+  // the ring: RING_W pixel boxes, then RING_W filter stages, 1024-aligned
+  bf16* xs = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  bf16* ws = xs + RING_W * T::XS;
+
+  const int wg = threadIdx.x / 128;  // 0 the producer, 1.. the consumers
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int o0 = blockIdx.y * BN;
+  const int nk = 9 * ((C + CK - 1) / CK);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < RING_W; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * T::CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<T::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      tma_prefetch(&xmap);
+      tma_prefetch(&wmap);
+      const WalkStart at = walk_start(m0, H, W);
+      int tap = 0, c0 = 0;  // the stage's tap and first channel
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % RING_W;
+        mbar_wait(&empty[s], ((kt / RING_W) & 1) ^ 1);
+        mbar_expect_tx(&full[s], T::STAGE_BYTES);
+        load_pixels(xs + s * T::XS, &xmap, &full[s], at, tap, c0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_3d(ws + s * T::WS + j * 64 * CK, &wmap, &full[s],
+                      o0 + 64 * j, c0, tap);
+        c0 += CK;
+        if (c0 >= C) {
+          c0 = 0;
+          ++tap;
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<T::CONSUMER_REGS>();
+    const int rows = (wg - 1) * 64;  // the warpgroup's rows in the tile
+    float acc[BN / 2], part[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % RING_W;
+      mbar_wait(&full[s], (kt / RING_W) & 1);
+      const uint32_t a = smem_u32(xs + s * T::XS + rows * CK);
+      const uint32_t b = smem_u32(ws + s * T::WS);
+      // the stage's sum, from zero on the tensor cores
+      wgmma_fence();
+      wgmma_fence_operands(part);
+#pragma unroll
+      for (int kk = 0; kk < CK / 16; ++kk)
+        wgmma_bf16<BN>(part, desc_sw128(a + 32 * kk, 16, 1024),
+                       desc_sw128(b + 2048 * kk, 64 * CK * 2, 1024), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_operands(part);
+      mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+    }
+
+    const int lane = threadIdx.x % 32;
+    const long long m = m0 + rows + 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+#pragma unroll
+    for (int i = 0; i < BN / 2; i += 2) {
+      const long long r = m + 8 * ((i / 2) % 2);
+      const int n = o0 + 8 * (i / 4) + 2 * (lane % 4);
+      if (r >= M || n >= O) continue;  // O % 8 == 0: n + 1 < O too
+      const long long o = r * O + n;
+      if (out_f32)
+        store2(static_cast<float*>(out) + o, acc[i], acc[i + 1], true, true,
+               true);
+      else
+        store2(static_cast<bf16*>(out) + o, acc[i], acc[i + 1], true, true,
+               true);
+    }
+  }
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// the compiled tilings, largest first
+// the compiled tilings, largest first: the float32 face's and the bfloat16
+// face's ragged path's, and the bfloat16 face's wgmma kernel's
 constexpr int NTILINGS = 3;
 constexpr int TILING_BM[NTILINGS] = {128, 128, 64};
 constexpr int TILING_BN[NTILINGS] = {128, 64, 64};
+constexpr int NTILINGS_W = 4;
+constexpr int TILING_W_BM[NTILINGS_W] = {128, 128, 64, 64};
+constexpr int TILING_W_BN[NTILINGS_W] = {128, 64, 128, 64};
 
 // the SM count of the current device, read once
 int sm_count() {
@@ -531,6 +722,29 @@ int pick_tiling(long long M, int O) {
   return NTILINGS - 1;
 }
 
+// The wgmma kernel's rule (one block an SM): the first tiling, largest
+// first, whose BN is at most max(64, O) and whose grid has blocks for at
+// least half the SMs; else 64 x 64. A larger tile reads fewer bytes from
+// the L2 a product, which at these shapes is worth more than the idle
+// SMs of a wave that is not full.
+int pick_tiling_wgmma(long long M, int O) {
+  const long long want = (sm_count() + 1) / 2;
+  for (int i = 0; i < NTILINGS_W; ++i) {
+    const long long blocks = (M + TILING_W_BM[i] - 1) / TILING_W_BM[i] *
+                             ((O + TILING_W_BN[i] - 1) / TILING_W_BN[i]);
+    if (TILING_W_BN[i] <= (O > 64 ? O : 64) && blocks >= want) return i;
+  }
+  return NTILINGS_W - 1;
+}
+
+// The path of the bfloat16 face: the wgmma kernel where TMA can take the
+// operands (C and O multiples of 8, every pointer 16-byte aligned), else
+// the ragged path.
+bool tma_path(int C, int O, const void* x, const void* w, const void* out) {
+  return C % 8 == 0 && O % 8 == 0 && aligned16(x) && aligned16(w) &&
+         aligned16(out);
+}
+
 template <int BM, int BN>
 int launch(const float* x, const float* w, float* out, int H, int W, int C,
            int O, long long M, bool vec, cudaStream_t st) {
@@ -550,21 +764,53 @@ int launch(const float* x, const float* w, float* out, int H, int W, int C,
 }
 
 template <int BM, int BN>
-int launch_bf16(const bf16* x, const bf16* w, void* out, bool out_f32, int H,
-                int W, int C, int O, long long M, bool vec, cudaStream_t st) {
+int launch_bf16_ragged(const bf16* x, const bf16* w, void* out, bool out_f32,
+                       int H, int W, int C, int O, long long M, bool vec,
+                       cudaStream_t st) {
   using T = TileB<BM, BN>;
   const long long mblocks = (M + BM - 1) / BM;
   const long long oblocks = ((long long)O + BN - 1) / BN;
   if (mblocks > 0x7fffffffLL || oblocks > 65535)
     return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)mblocks, (unsigned)oblocks);
-  auto kernel = vec ? conv3x3_bf16_kernel<BM, BN, true>
-                    : conv3x3_bf16_kernel<BM, BN, false>;
+  auto kernel = vec ? conv3x3_bf16_ragged_kernel<BM, BN, true>
+                    : conv3x3_bf16_ragged_kernel<BM, BN, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   kernel<<<grid, THREADS, T::SMEM_BYTES, st>>>(x, w, out, out_f32, H, W, C,
                                                 O, M);
+  return (int)cudaGetLastError();
+}
+
+// x [N, H, W, C] in im2col boxes of BM pixels x 64 channels, w [3, 3, C,
+// O] as {O, C, 9} in boxes of 64 x 64 x 1
+template <int BM>
+int encode_maps(CUtensorMap* xmap, CUtensorMap* wmap, const void* x,
+                const void* w, int N, int H, int W, int C, int O) {
+  int e = encode_im2col_3x3(xmap, x, N, H, W, C, CK, BM);
+  return e ? e : encode_tma_3d(wmap, w, O, C, 9, 64, CK);
+}
+
+template <int BM, int BN>
+int launch_wgmma(const void* x, const void* w, void* out, bool out_f32,
+                 int N, int H, int W, int C, int O, cudaStream_t st) {
+  using T = TileW<BM, BN>;
+  const long long M = (long long)N * H * W;
+  const long long mblocks = (M + BM - 1) / BM;
+  const long long oblocks = ((long long)O + BN - 1) / BN;
+  if (mblocks > 0x7fffffffLL || oblocks > 65535)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap;
+  int code = encode_maps<BM>(&xmap, &wmap, x, w, N, H, W, C, O);
+  if (code) return code;
+  auto kernel = conv3x3_bf16_wgmma_kernel<BM, BN>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)mblocks, (unsigned)oblocks);
+  kernel<<<grid, T::THREADS, T::SMEM_BYTES, st>>>(xmap, wmap, out, out_f32,
+                                                  H, W, C, O, M);
   return (int)cudaGetLastError();
 }
 
@@ -593,12 +839,11 @@ int conv3x3_s1_nhwc_f32(const void* x, const void* w, void* out, int N,
   }
 }
 
-// x [N, H, W, C] and w [3, 3, C, O] bfloat16, out [N, H, W, O] float32
-// when out_f32 is non-zero, else bfloat16; contiguous, on one device. The
-// tiling rule is the float32 face's.
-int conv3x3_s1_nhwc_bf16(const void* x, const void* w, void* out, int N,
-                         int H, int W, int C, int O, int out_f32,
-                         void* stream) {
+// The bfloat16 face's ragged path at any shape: the float32 face's tiling
+// rule, mma.sync; the arguments of conv3x3_s1_nhwc_bf16.
+int conv3x3_s1_nhwc_bf16_ragged(const void* x, const void* w, void* out,
+                                int N, int H, int W, int C, int O,
+                                int out_f32, void* stream) {
   if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1)
     return (int)cudaErrorInvalidValue;
   const long long M = (long long)N * H * W;
@@ -610,16 +855,58 @@ int conv3x3_s1_nhwc_bf16(const void* x, const void* w, void* out, int N,
   const bool f32 = out_f32 != 0;
   switch (pick_tiling(M, O)) {
     case 0:
-      return launch_bf16<128, 128>(xb, wb, out, f32, H, W, C, O, M, vec, st);
+      return launch_bf16_ragged<128, 128>(xb, wb, out, f32, H, W, C, O, M,
+                                          vec, st);
     case 1:
-      return launch_bf16<128, 64>(xb, wb, out, f32, H, W, C, O, M, vec, st);
+      return launch_bf16_ragged<128, 64>(xb, wb, out, f32, H, W, C, O, M,
+                                         vec, st);
     default:
-      return launch_bf16<64, 64>(xb, wb, out, f32, H, W, C, O, M, vec, st);
+      return launch_bf16_ragged<64, 64>(xb, wb, out, f32, H, W, C, O, M,
+                                        vec, st);
   }
 }
 
+// The bfloat16 face's wgmma kernel at the tiling bm x bn (one of the
+// compiled ones), on operands TMA can take; the arguments of
+// conv3x3_s1_nhwc_bf16, then the tiling. Refuses any other tiling or
+// operands.
+int conv3x3_s1_nhwc_bf16_wgmma(const void* x, const void* w, void* out,
+                               int N, int H, int W, int C, int O,
+                               int out_f32, int bm, int bn, void* stream) {
+  if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1 ||
+      !tma_path(C, O, x, w, out))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool f32 = out_f32 != 0;
+#define TILING(BM_, BN_)      \
+  if (bm == BM_ && bn == BN_) \
+    return launch_wgmma<BM_, BN_>(x, w, out, f32, N, H, W, C, O, st);
+  TILING(128, 128) TILING(128, 64) TILING(64, 128) TILING(64, 64)
+#undef TILING
+  return (int)cudaErrorInvalidValue;
+}
+
+// x [N, H, W, C] and w [3, 3, C, O] bfloat16, out [N, H, W, O] float32
+// when out_f32 is non-zero, else bfloat16; contiguous, on one device.
+// Operands TMA can take (C and O multiples of 8, every pointer 16-byte
+// aligned) run the wgmma kernel at the tiling of pick_tiling_wgmma, any
+// other the ragged path.
+int conv3x3_s1_nhwc_bf16(const void* x, const void* w, void* out, int N,
+                         int H, int W, int C, int O, int out_f32,
+                         void* stream) {
+  if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1)
+    return (int)cudaErrorInvalidValue;
+  if (!tma_path(C, O, x, w, out))
+    return conv3x3_s1_nhwc_bf16_ragged(x, w, out, N, H, W, C, O, out_f32,
+                                       stream);
+  const int i = pick_tiling_wgmma((long long)N * H * W, O);
+  return conv3x3_s1_nhwc_bf16_wgmma(x, w, out, N, H, W, C, O, out_f32,
+                                    TILING_W_BM[i], TILING_W_BN[i], stream);
+}
+
 // Dynamic shared memory of a tiling's block, float32 (bf16_face 0) or
-// bfloat16 face, or -1 for a tiling that is not compiled.
+// the bfloat16 face's ragged path, or -1 for a tiling that is not
+// compiled.
 int conv3x3_smem_bytes(int bm, int bn, int bf16_face) {
 #define TILING(BM_, BN_)                                  \
   if (bm == BM_ && bn == BN_)                             \
@@ -630,12 +917,54 @@ int conv3x3_smem_bytes(int bm, int bn, int bf16_face) {
   return -1;
 }
 
-// The tiling the entry point takes at a shape, as bm * 1000 + bn
+// Dynamic shared memory of a wgmma tiling's block, or -1 for a tiling
+// that is not compiled.
+int conv3x3_bf16_wgmma_smem_bytes(int bm, int bn) {
+#define TILING(BM_, BN_) \
+  if (bm == BM_ && bn == BN_) return TileW<BM_, BN_>::SMEM_BYTES;
+  TILING(128, 128) TILING(128, 64) TILING(64, 128) TILING(64, 64)
+#undef TILING
+  return -1;
+}
+
+// The tiling the float32 entry point takes at a shape, as bm * 1000 + bn
 // (128128, 128064 or 64064), or -1 for a shape it refuses.
 int conv3x3_tiling(int N, int H, int W, int C, int O) {
   if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1) return -1;
   const int i = pick_tiling((long long)N * H * W, O);
   return TILING_BM[i] * 1000 + TILING_BN[i];
+}
+
+// The path and tiling the bfloat16 entry point takes at a shape, its
+// pointers 16-byte aligned or not: 1000000 + bm * 1000 + bn for the
+// wgmma kernel, bm * 1000 + bn for the ragged path, -1 for a shape it
+// refuses.
+int conv3x3_bf16_tiling(int N, int H, int W, int C, int O, int aligned) {
+  if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1) return -1;
+  const long long M = (long long)N * H * W;
+  if (!(aligned && C % 8 == 0 && O % 8 == 0)) {
+    const int i = pick_tiling(M, O);
+    return TILING_BM[i] * 1000 + TILING_BN[i];
+  }
+  const int i = pick_tiling_wgmma(M, O);
+  return 1000000 + TILING_W_BM[i] * 1000 + TILING_W_BN[i];
+}
+
+// Host microseconds, on mean over `reps`, to encode the two tensor maps a
+// launch of the wgmma kernel at row tiling bm needs; negative on an error.
+double conv3x3_bf16_encode_us(const void* x, const void* w, int N, int H,
+                              int W, int C, int O, int bm, int reps) {
+  CUtensorMap xmap, wmap;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i) {
+    const int e = bm == 64
+                      ? encode_maps<64>(&xmap, &wmap, x, w, N, H, W, C, O)
+                      : encode_maps<128>(&xmap, &wmap, x, w, N, H, W, C, O);
+    if (e) return -1.0;
+  }
+  const std::chrono::duration<double, std::micro> took =
+      std::chrono::steady_clock::now() - t0;
+  return took.count() / reps;
 }
 
 const char* error_string(int code) {

@@ -1,21 +1,36 @@
 // Hopper's asynchronous machinery for hand-written kernels on sm_90a: TMA
 // tensor maps and loads, mbarrier rings, wgmma descriptors and products,
 // and the register hand-over of warp specialisation. Shared by the
-// bfloat16 face of matmul.cu; written so that the bfloat16 faces of
-// conv3x3.cu and the flash kernels can stand on it.
+// bfloat16 faces of matmul.cu and conv3x3.cu; written so that the flash
+// kernels' bfloat16 faces can stand on it.
 //
-// TMA. A tensor map (CUtensorMap, 128 bytes) describes a 2-D row-major
-// bfloat16 array in device memory and the box one load copies. It is
-// encoded on the host at each launch (encode_tma_2d) and passed to the
-// kernel as a `const __grid_constant__ CUtensorMap` parameter, so the
-// copy engine reads it from the parameter space. One thread issues a
-// load (tma_load_2d); the bytes land in shared memory with the 128-byte
-// swizzle (the 16-byte chunk c of row r of a 128-byte-wide box stored at
-// chunk c ^ (r % 8)), zeros where the box lies past an edge of the array,
-// and their arrival is counted on an mbarrier. cuTensorMapEncodeTiled is
-// a driver function: it is fetched through the runtime's entry-point
-// query, so the library needs no -lcuda. The rules it checks: the base
-// address 16-byte aligned, each row pitch a multiple of 16 bytes.
+// TMA. A tensor map (CUtensorMap, 128 bytes) describes a 2-D or 3-D
+// row-major bfloat16 array in device memory and the box one load copies.
+// It is encoded on the host at each launch (encode_tma_2d, encode_tma_3d)
+// and passed to the kernel as a `const __grid_constant__ CUtensorMap`
+// parameter, so the copy engine reads it from the parameter space. One
+// thread issues a load (tma_load_2d, tma_load_3d); the bytes land in
+// shared memory with the 128-byte swizzle (the 16-byte chunk c of row r
+// of a 128-byte-wide box stored at chunk c ^ (r % 8)), zeros where the
+// box lies past an edge of the array, and their arrival is counted on an
+// mbarrier. The tensor-map encoders are driver functions: they are
+// fetched through the runtime's entry-point query, so the library needs
+// no -lcuda. The rules they check: the base address 16-byte aligned,
+// each pitch a multiple of 16 bytes.
+//
+// TMA in im2col mode (encode_im2col_3x3, tma_load_im2col_4d) copies the
+// shifted pixels of a convolution: the map describes an NHWC tensor
+// [N, H, W, C] and a bounding box of the pixels a walk may start from; a
+// load names a starting pixel (w, h, n), the first channel and the
+// filter tap (dw, dh) as an offset, and copies `pixels` rows of
+// `channels` values: row i is the pixel the walk reaches after i steps
+// (along W, wrapping at the box's edge to the next row of H, then to the
+// next image), shifted by the tap. For a 3 x 3, stride-1, pad-1
+// convolution the box's corners are one pixel inside each lower and
+// upper edge (-1, -1), so the walk visits exactly the output pixels in
+// order, the load's starting pixel is the output pixel less one row and
+// one column, and the halo, the images past the last and the channels
+// past C arrive as zeros.
 //
 // mbarrier rings. A ring of stages has a "full" barrier a stage (one
 // arrival, the producer's expect_tx, plus the bytes of the loads) and an
@@ -127,6 +142,33 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// the box at (c0, c1, c2), innermost first, of a 3-D `map` into `dst`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the im2col box of `map` whose walk starts at pixel (w, h, n), channel
+// c, each pixel shifted by the tap (dw, dh), into `dst`
+__device__ __forceinline__ void tma_load_im2col_4d(void* dst,
+                                                   const CUtensorMap* map,
+                                                   uint64_t* bar, int c,
+                                                   int w, int h, int n,
+                                                   uint16_t dw, uint16_t dh) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(bar)), "r"(c), "r"(w), "r"(h), "r"(n), "h"(dw), "h"(dh)
       : "memory");
 }
 
@@ -292,23 +334,36 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a,
 
 // -- host: tensor maps ---------------------------------------------------------
 
+// a driver function by name, through the runtime's entry-point query
+// (null if the driver has none)
+inline void* driver_entry(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t e = cudaGetDriverEntryPointByVersion(name, &p, 12000,
+                                                   cudaEnableDefault, &found);
+#else
+  cudaError_t e = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault,
+                                          &found);
+#endif
+  return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? p
+                                                                  : nullptr;
+}
+
 // cuTensorMapEncodeTiled from the driver, fetched once (null if the driver
 // has none)
 inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
-               : nullptr;
-  }();
+  static PFN_cuTensorMapEncodeTiled_v12000 fn =
+      reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(
+          driver_entry("cuTensorMapEncodeTiled"));
+  return fn;
+}
+
+// cuTensorMapEncodeIm2col likewise
+inline decltype(&cuTensorMapEncodeIm2col) encode_im2col_fn() {
+  static decltype(&cuTensorMapEncodeIm2col) fn =
+      reinterpret_cast<decltype(&cuTensorMapEncodeIm2col)>(
+          driver_entry("cuTensorMapEncodeIm2col"));
   return fn;
 }
 
@@ -330,6 +385,51 @@ inline int encode_tma_2d(CUtensorMap* map, const void* base, uint64_t inner,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A contiguous 3-D bfloat16 array [d2][d1][d0] at `base`, loaded in boxes
+// of 1 x box1 x box0 values with the 128-byte swizzle (box0 * 2 <= 128),
+// zeros past the edges: a box never reads across an edge of d1 into the
+// next d2.
+inline int encode_tma_3d(CUtensorMap* map, const void* base, uint64_t d0,
+                         uint64_t d1, uint64_t d2, uint32_t box0,
+                         uint32_t box1) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled_fn();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A contiguous NHWC bfloat16 tensor [N][H][W][C] at `base` in im2col mode
+// for a 3 x 3 / stride-1 / pad-1 walk: the box's corners one pixel in
+// from each edge, `pixels` rows of `channels` values a load (channels * 2
+// <= 128), the 128-byte swizzle, zeros past every edge.
+inline int encode_im2col_3x3(CUtensorMap* map, const void* base, int N,
+                             int H, int W, int C, uint32_t channels,
+                             uint32_t pixels) {
+  decltype(&cuTensorMapEncodeIm2col) encode = encode_im2col_fn();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)N};
+  const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
+                                 dims[0] * dims[1] * dims[2] * 2};
+  const int lower[2] = {-1, -1};  // {W, H}
+  const int upper[2] = {-1, -1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, lower, upper, channels, pixels, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

@@ -41,7 +41,7 @@ import ctypes
 import torch
 
 from . import _build
-from .fused_lstm import plan
+from .fused_lstm import max_units, plan
 
 __all__ = ["fused_gru", "fused_gru_bwd", "fused_gru_reference",
            "launch_plan", "launches"]
@@ -126,6 +126,10 @@ def _check(xs, w, h0, mask):
                              "%s" % (_NAME, name, t.dtype))
     _build.check_cuda_operands(_NAME, xs.device, xs=xs, w=w, h0=h0,
                                mask=mask)
+    limit = max_units(xs.device)
+    if D > limit:
+        raise ValueError("%s: the kernel takes D up to 16 units an SM, %d "
+                         "on this card, got %d" % (_NAME, limit, D))
 
 
 def launch_plan(N, D):
@@ -185,6 +189,7 @@ class _FusedGRU(torch.autograd.Function):
 
 def fused_gru(xs, w, h0, mask):
     """hs of the GRU recurrence, differentiable in xs, w and h0. On CUDA:
-    float32, shapes as in the module docstring, D a multiple of 4;
-    anything else raises."""
+    float32, shapes as in the module docstring, D a multiple of 4 up to
+    :func:`fused_lstm.max_units` (two unit groups of 8 a block, one
+    block an SM); anything else raises before the launch."""
     return _FusedGRU.apply(xs, w, h0, mask)

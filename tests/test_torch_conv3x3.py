@@ -282,3 +282,127 @@ def test_bf16_cpu_call_counts_no_launch():
     counts = kernels.launch_counts()
     assert {"conv3x3_fwd_bf16", "conv3x3_dx_bf16"} <= set(counts)
     assert set(counts.values()) == {0}
+
+
+# -- the bfloat16 face's two paths --------------------------------------------
+#
+# (N, H, W, C, O), the path and tiling the face's forward takes on 132 SMs
+# and its blocks: ResNet-50's stage shapes at batch 32 (the wgmma kernel,
+# one block an SM, blocks for at least half the SMs), chip_smoke.py's
+# edge shapes (C 3 and 36 take the ragged path at the float32 face's
+# tiling), a dx of them (C and O swapped), and a shape whose rule reaches
+# 64 x 128 (O 136: 128 x 64 would have 3 column blocks to 64 x 128's 2)
+BF16_RULE_PICKS = [
+    ((32, 56, 56, 64, 64), ("wgmma", (128, 64)), 784),
+    ((32, 28, 28, 128, 128), ("wgmma", (128, 128)), 196),
+    ((32, 14, 14, 256, 256), ("wgmma", (128, 128)), 98),
+    ((32, 7, 7, 512, 512), ("wgmma", (128, 64)), 104),
+    ((3, 7, 9, 24, 40), ("wgmma", (64, 64)), 3),
+    ((2, 5, 6, 3, 7), ("ragged", (64, 64)), 1),
+    ((2, 9, 11, 36, 64), ("ragged", (64, 64)), 4),
+    ((2, 7, 7, 512, 512), ("wgmma", (64, 64)), 16),
+    ((4, 95, 97, 64, 40), ("wgmma", (128, 64)), 288),
+    ((16, 33, 33, 32, 200), ("wgmma", (128, 128)), 274),
+    ((16, 33, 33, 200, 32), ("wgmma", (128, 64)), 137),
+    ((2, 30, 40, 64, 136), ("wgmma", (64, 128)), 76),
+]
+
+
+@pytest.mark.parametrize("shape,want,blocks", BF16_RULE_PICKS)
+def test_bf16_path_and_tiling_rule_picks(shape, want, blocks):
+    N, H, W, C, O = shape
+    path, (bm, bn) = tconv.tiling_bf16(*shape)
+    assert (path, (bm, bn)) == want
+    assert path == tconv.bf16_path(*shape)
+    assert -(-N * H * W // bm) * -(-O // bn) == blocks
+    if path == "ragged":
+        assert (bm, bn) == tconv.tiling(*shape)
+        return
+    # the largest wgmma tiling within the rule's limits: BN <= max(64, O)
+    # and blocks for half the SMs, or 64 x 64 where none has the blocks
+    larger = tconv.TILINGS_BF16[:tconv.TILINGS_BF16.index((bm, bn))]
+    for lbm, lbn in larger:
+        assert lbn > max(64, O) or \
+            -(-N * H * W // lbm) * -(-O // lbn) < tconv.H100_SMS // 2
+
+
+@pytest.mark.parametrize("shape", [s for s, _, _ in BF16_RULE_PICKS])
+def test_bf16_misaligned_operands_take_the_ragged_path(shape):
+    assert tconv.tiling_bf16(*shape, aligned=False) == \
+        ("ragged", tconv.tiling(*shape))
+
+
+def test_bf16_tiling_rule_follows_the_sm_count():
+    # twice the SMs: the deep stage has blocks for half of them only at
+    # 64 x 64; half the SMs: it has them at 128 x 128
+    assert tconv.tiling_bf16(32, 7, 7, 512, 512, sms=264) == \
+        ("wgmma", (64, 64))
+    assert tconv.tiling_bf16(32, 7, 7, 512, 512, sms=66) == \
+        ("wgmma", (128, 128))
+    assert tconv.tiling_bf16(32, 56, 56, 64, 64, sms=66) == \
+        ("wgmma", (128, 64))
+
+
+def test_bf16_wgmma_smem_bytes_is_four_stages_of_unpadded_boxes():
+    for bm, bn in tconv.TILINGS_BF16:
+        assert tconv.smem_bytes_wgmma(bm, bn) == \
+            4 * (bm * 64 + 64 * bn) * 2 + 1024
+    assert [tconv.smem_bytes_wgmma(*t) for t in tconv.TILINGS_BF16] == \
+        [132096, 99328, 99328, 66560]
+    # every tiling fits one block an SM (227 KB of shared memory)
+    assert max(tconv.smem_bytes_wgmma(*t) for t in tconv.TILINGS_BF16) \
+        <= 232448
+
+
+def test_bf16_wgmma_mirror_matches_the_source():
+    """The wgmma tilings, the stage depth, the ring, the shared memory and
+    the rule (blocks for half the SMs) of csrc/conv3x3.cu are those the
+    mirror computes with; the float32 face's are unchanged."""
+    path = os.path.join(os.path.dirname(tconv.__file__), "csrc",
+                        "conv3x3.cu")
+    with open(path) as fh:
+        src = fh.read()
+
+    def ints(name):
+        m = re.search(r"constexpr int %s(?:\[\w+\])? = \{?([\d, ]+)\}?;"
+                      % name, src)
+        return [int(v) for v in m.group(1).split(",")]
+
+    assert list(zip(ints("TILING_W_BM"), ints("TILING_W_BN"))) == \
+        list(tconv.TILINGS_BF16)
+    assert ints("CK") == [64] and ints("RING_W") == [4]
+    assert "SMEM_BYTES = RING_W * STAGE_BYTES + 1024" in src
+    assert "STAGE_BYTES = (XS + WS) * (int)sizeof(bf16)" in src
+    assert "XS = BM * CK" in src and "WS = CK * BN" in src
+    rule = src[src.index("int pick_tiling_wgmma("):]
+    rule = rule[:rule.index("\n}\n")]
+    assert "want = (sm_count() + 1) / 2;" in rule
+    assert "(O > 64 ? O : 64) && blocks >= want" in rule
+    # the path rule, and the float32 face's rule and tilings as they were
+    assert "C % 8 == 0 && O % 8 == 0 && aligned16(x) && aligned16(w) &&" \
+        in src
+    assert list(zip(ints("TILING_BM"), ints("TILING_BN"))) == \
+        list(tconv.TILINGS) == [(128, 128), (128, 64), (64, 64)]
+    assert "2LL * sm_count()" in src
+
+
+def test_bf16_ragged_counters_are_kernel_counters():
+    counts = kernels.launch_counts()
+    for name, attr in (("conv3x3_fwd_bf16_ragged", "launches_bf16_ragged"),
+                       ("conv3x3_dx_bf16_ragged",
+                        "launches_dx_bf16_ragged")):
+        assert kernels.KERNEL_COUNTERS[name] == (tconv, attr)
+        assert name in counts
+    setattr(tconv, "launches_bf16_ragged", 3)
+    kernels.reset_launches()
+    assert tconv.launches_bf16_ragged == 0
+
+
+def test_float32_face_pins_unchanged():
+    # the float32 face's tilings, rule and shared memory, as before the
+    # bfloat16 face had its own
+    assert tconv.TILINGS == ((128, 128), (128, 64), (64, 64))
+    assert [tconv.smem_bytes(*t) for t in tconv.TILINGS] == \
+        [107520, 82944, 55296]
+    assert [tconv.tiling(*s) for s, _, _ in RULE_PICKS] == \
+        [t for _, t, _ in RULE_PICKS]

@@ -344,6 +344,21 @@ def test_lstm_faces_refuse_more_units_than_two_groups_an_sm(cuda_device,
 
 
 @pytest.mark.cuda
+def test_gru_refuses_more_units_than_two_groups_an_sm(cuda_device):
+    # D = 16 units an SM + 8, refused before the launch (no cooperative
+    # launch of more blocks than the card holds)
+    limit = tlstm.max_units(cuda_device)
+    a = _inputs(3, 26, 2, 2, limit + 8)
+    xs, w, h0, mask = (torch.tensor(x, device=cuda_device)
+                       for x in (a[0], a[1], a[2], a[4]))
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="up to 16 units an SM, %d on this "
+                       "card, got %d" % (limit, limit + 8)):
+        tgru.fused_gru(xs, w, h0, mask)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_other_dtypes(cuda_device):
     xs, w, h0, c0, mask = (torch.tensor(a, device=cuda_device)
                            for a in _inputs(4, 8))

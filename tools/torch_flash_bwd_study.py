@@ -53,9 +53,11 @@ to 64 rows (4 m tiles, where the source caps them at 32 for its
 registers), each step's four gate columns multiplied in two passes of
 two over the same staged rows (the A fragments loaded and split twice),
 instead of one pass of four. The conv3x3 has ``t128x128``, ``t128x64``
-and ``t64x64`` (that tiling forced at every shape, in place of the
-source's rule), ``stages2`` (a ring of two stages instead of three) and
-``tf32_once``. The paged attention has ``split32``, ``split128`` and
+and ``t64x64`` (that tiling of the float32 face forced at every shape,
+in place of the source's rule), ``stages2`` (a ring of two stages
+instead of three) and ``tf32_once``, and for its bfloat16 face
+``walk``, ``ring3``, ``ring6``, ``split32``, ``two_blocks``, ``cluster2``
+and ``pipelined`` (below). The paged attention has ``split32``, ``split128`` and
 ``split256`` (splits of that many columns instead of 64), ``unroll2``
 and ``unroll8`` (2 or 8 loads of K and as many of V in flight a lane
 instead of 4).
@@ -90,7 +92,9 @@ For each it prints the registers and spills ``-Xptxas -v`` reports and:
   face as it was); then the bfloat16 face (bfloat16 out) of the source,
   of its variants and of ``--against``'s checkout (a parent's face
   before its wgmma kernel is called with its own arguments and
-  tilings): the same errors and times, ``torch.matmul`` on bfloat16
+  tilings): the same errors and times, whether each variant's (and
+  ``--against``'s, where it has the wgmma kernel) outputs equal the
+  source's bit for bit at every tiling, ``torch.matmul`` on bfloat16
   beside them, the mean over the LM step's 72 launches at each
   library's fastest tiling a shape (also with the L2 flushed by a read),
   and a sweep over K at M 8192, N 768 whose straight line splits a
@@ -115,7 +119,24 @@ For each it prints the registers and spills ``-Xptxas -v`` reports and:
   of dx (the kernel on the output gradient and the rotated filter) over
   the largest magnitude of a float64 plain conv, the time of each, the
   tiling the source's rule takes there, and whether each variant's
-  outputs equal the source's bit for bit;
+  outputs equal the source's bit for bit (the float32 face); then the
+  bfloat16 face: first its im2col walk alone (variant ``walk``: a kernel
+  that lands each box of the face's pixel loads and writes it out, at
+  every edge shape TMA can take, 128-pixel boxes across three 7 x 7
+  images and the stage shapes, every tap and channel chunk, BM 64 and
+  128, against the padded input's slice), then at the stage shapes the
+  source's face at its rule's tiling and at each wgmma tiling forced
+  (times, and their outputs bit-identical), its variants ``ring3`` and
+  ``ring6`` (a ring of three or six stages instead of four),
+  ``split32`` (each 64-deep stage summed as two 32-deep groups from
+  zero), ``two_blocks`` (the BN 64 tilings at two blocks an SM, their
+  registers split to fit), ``cluster2`` (clusters of two M tiles, each
+  block loading half of every stage's filter rows and multicasting them
+  to both, so the filter's L2 reads halve) and ``pipelined`` (stage k's
+  products issued before stage k - 1's sum is added, one wgmma group in
+  flight), and ``--against``'s face: errors against a float64 conv, fwd
+  and dx times, cuDNN on bfloat16 beside them, and the mean over a
+  ResNet-50 step's 16 launches;
 - paged: at the decode step's shape (``chip_smoke._paged_inputs``: MB
   64, T 16, nh 12, dh 64) with R 16 (phase 2's positions) and R 1 and
   4 (every row at the last column), the largest error against a float64
@@ -146,8 +167,9 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (MM_COUNTS, MM_SHAPES,  # noqa: E402
-                        R50_CONV_SHAPES, RNN_EDGE_SHAPES, _paged_inputs)
+from chip_smoke import (CONV_EDGE_SHAPES, MM_COUNTS,  # noqa: E402
+                        MM_SHAPES, R50_CONV_COUNTS, R50_CONV_SHAPES,
+                        RNN_EDGE_SHAPES, _paged_inputs)
 from paddle_tpu_torch.kernels import _build  # noqa: E402
 from paddle_tpu_torch.kernels import conv3x3 as conv  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
@@ -377,7 +399,254 @@ LSTM_VARIANTS = {
 }
 
 PICK = "  const int tiling = pick_tiling(M, O);\n"
+# the im2col walk alone: a kernel that lands one box of the bfloat16
+# face's pixel loads (load_pixels from walk_start, as the wgmma kernel
+# issues them) and writes it out unswizzled, [tiles * BM][64]
+CONV_WALK_KERNEL = """template <int BM>
+__global__ void __launch_bounds__(128)
+conv3x3_im2col_walk_kernel(const __grid_constant__ CUtensorMap xmap,
+                           bf16* __restrict__ out, int H, int W, int tap,
+                           int c0) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar;
+  bf16* xs = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const long long m0 = (long long)blockIdx.x * BM;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&bar, BM * CK * 2);
+    load_pixels(xs, &xmap, &bar, walk_start(m0, H, W), tap, c0);
+  }
+  mbar_wait(&bar, 0);
+  for (int i = threadIdx.x; i < BM * CK; i += 128) {
+    const int r = i / CK, k = i % CK;
+    out[(m0 + r) * CK + k] = xs[r * CK + (((k / 8) ^ (r % 8)) * 8) + k % 8];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+"""
+CONV_WALK_ENTRY = """int conv3x3_im2col_walk(const void* x, void* out, int N, int H, int W,
+                        int C, int bm, int tap, int c0, void* stream) {
+  CUtensorMap xmap;
+  const long long M = (long long)N * H * W;
+  const int e = encode_im2col_3x3(&xmap, x, N, H, W, C, CK, bm);
+  if (e) return e;
+  const int smem = bm * CK * 2 + 1024;
+  auto kernel = bm == 64 ? conv3x3_im2col_walk_kernel<64>
+                         : conv3x3_im2col_walk_kernel<128>;
+  cudaError_t r = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (r != cudaSuccess) return (int)r;
+  kernel<<<(unsigned)((M + bm - 1) / bm), 128, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      xmap, static_cast<bf16*>(out), H, W, tap, c0);
+  return (int)cudaGetLastError();
+}
+
+const char* error_string(int code) {"""
+# variants of the bfloat16 face's wgmma kernel (the float32 face and the
+# ragged path as in the source), and the walk
+# the filter's boxes shared by a cluster of two M tiles: each block loads
+# half of each stage's filter rows and multicasts them to both
+CONV_CLUSTER_HELPERS = """__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\\n"
+      "barrier.cluster.wait.acquire.aligned;\\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar,
+                                                 uint32_t cta) {
+  asm volatile(
+      "{\\n.reg .b32 ra;\\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\\n}\\n" ::"r"(
+          smem_u32(bar)), "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d_mc(void* dst,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int c0, int c1,
+                                               int c2, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The pixel the im2col walk of an output tile starts from"""
+CONV_CLUSTER2 = [
+    ("// The pixel the im2col walk of an output tile starts from",
+     CONV_CLUSTER_HELPERS),
+    ("""__global__ void __launch_bounds__(TileW<BM, BN>::THREADS,
+                                  TileW<BM, BN>::BLOCKS_PER_SM)
+conv3x3_bf16_wgmma_kernel(""", """__global__ void __cluster_dims__(2, 1, 1)
+    __launch_bounds__(TileW<BM, BN>::THREADS, TileW<BM, BN>::BLOCKS_PER_SM)
+conv3x3_bf16_wgmma_kernel("""),
+    ("      mbar_init(&empty[s], 128 * T::CONSUMERS);",
+     "      mbar_init(&empty[s], 2 * 4 * T::CONSUMERS);"),
+    ("""  __syncthreads();
+
+  if (wg == 0) {""", """  cluster_sync_all();
+  const uint32_t rank = cluster_rank();
+
+  if (wg == 0) {"""),
+    ("""#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_3d(ws + s * T::WS + j * 64 * CK, &wmap, &full[s],
+                      o0 + 64 * j, c0, tap);""", """#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_3d_mc(ws + s * T::WS + j * 64 * CK + rank * 32 * 64,
+                         &wmap, &full[s], o0 + 64 * j, c0 + 32 * rank, tap,
+                         (uint16_t)3);"""),
+    ("""      wgmma_fence_operands(part);
+      mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];""", """      wgmma_fence_operands(part);
+      __syncwarp();
+      if (threadIdx.x % 32 == 0) {
+        mbar_arrive(&empty[s]);
+        // the peer's producer waits for this stage only to refill it
+        if (kt < nk - RING_W) mbar_arrive_peer(&empty[s], rank ^ 1);
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];"""),
+    ("  return e ? e : encode_tma_3d(wmap, w, O, C, 9, 64, CK);",
+     "  return e ? e : encode_tma_3d(wmap, w, O, C, 9, 64, CK / 2);"),
+    ("""  dim3 grid((unsigned)mblocks, (unsigned)oblocks);
+  kernel<<<grid, T::THREADS""", """  dim3 grid((unsigned)((mblocks + 1) / 2 * 2), (unsigned)oblocks);
+  kernel<<<grid, T::THREADS"""),
+]
+# stage k's products issued before stage k - 1's sum is added (one wgmma
+# group kept in flight, two stage sums in registers), the same order of
+# float32 adds
+CONV_PIPELINED = [("""    float acc[BN / 2], part[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % RING_W;
+      mbar_wait(&full[s], (kt / RING_W) & 1);
+      const uint32_t a = smem_u32(xs + s * T::XS + rows * CK);
+      const uint32_t b = smem_u32(ws + s * T::WS);
+      // the stage's sum, from zero on the tensor cores
+      wgmma_fence();
+      wgmma_fence_operands(part);
+#pragma unroll
+      for (int kk = 0; kk < CK / 16; ++kk)
+        wgmma_bf16<BN>(part, desc_sw128(a + 32 * kk, 16, 1024),
+                       desc_sw128(b + 2048 * kk, 64 * CK * 2, 1024), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_operands(part);
+      mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+    }
+""", """    float acc[BN / 2], p0[BN / 2], p1[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = p0[i] = p1[i] = 0.f;
+    auto issue = [&](float (&d)[BN / 2], int kt) {
+      const int s = kt % RING_W;
+      mbar_wait(&full[s], (kt / RING_W) & 1);
+      const uint32_t a = smem_u32(xs + s * T::XS + rows * CK);
+      const uint32_t b = smem_u32(ws + s * T::WS);
+      wgmma_fence();
+      wgmma_fence_operands(d);
+#pragma unroll
+      for (int kk = 0; kk < CK / 16; ++kk)
+        wgmma_bf16<BN>(d, desc_sw128(a + 32 * kk, 16, 1024),
+                       desc_sw128(b + 2048 * kk, 64 * CK * 2, 1024), kk > 0);
+      wgmma_commit();
+    };
+    auto retire = [&](float (&d)[BN / 2], int kt) {
+      wgmma_fence_operands(d);
+      mbar_arrive(&empty[kt % RING_W]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += d[i];
+    };
+    for (int kt = 0; kt < nk; kt += 2) {
+      issue(p0, kt);
+      if (kt > 0) {
+        wgmma_wait<1>();
+        retire(p1, kt - 1);
+      }
+      if (kt + 1 < nk) {
+        issue(p1, kt + 1);
+        wgmma_wait<1>();
+        retire(p0, kt);
+      } else {
+        wgmma_wait<0>();
+        retire(p0, kt);
+      }
+    }
+    if (nk % 2 == 0) {
+      wgmma_wait<0>();
+      retire(p1, nk - 1);
+    }
+""")]
+CONV_BF16_VARIANTS = {
+    "pipelined": CONV_PIPELINED,
+    "cluster2": CONV_CLUSTER2,
+    "two_blocks": [("""  static constexpr int BLOCKS_PER_SM = 1;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;""", """  static constexpr int BLOCKS_PER_SM = BN == 64 ? 2 : 1;
+  static constexpr int PRODUCER_REGS = BLOCKS_PER_SM == 2 ? 24 : 40;
+  static constexpr int CONSUMER_REGS =
+      BLOCKS_PER_SM == 2
+          ? ((65536 / (2 * THREADS) / 8 * 8) * THREADS - 24 * 128) /
+                (THREADS - 128) / 8 * 8
+          : 232;""")],
+    "ring3": [("constexpr int RING_W = 4;", "constexpr int RING_W = 3;")],
+    "ring6": [("constexpr int RING_W = 4;", "constexpr int RING_W = 6;")],
+    "split32": [("""      wgmma_fence();
+      wgmma_fence_operands(part);
+#pragma unroll
+      for (int kk = 0; kk < CK / 16; ++kk)
+        wgmma_bf16<BN>(part, desc_sw128(a + 32 * kk, 16, 1024),
+                       desc_sw128(b + 2048 * kk, 64 * CK * 2, 1024), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_operands(part);
+      mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+""", """#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        wgmma_fence();
+        wgmma_fence_operands(part);
+#pragma unroll
+        for (int kk = 2 * h; kk < 2 * h + 2; ++kk)
+          wgmma_bf16<BN>(part, desc_sw128(a + 32 * kk, 16, 1024),
+                         desc_sw128(b + 2048 * kk, 64 * CK * 2, 1024),
+                         kk > 2 * h);
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_fence_operands(part);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+      }
+      mbar_arrive(&empty[s]);
+""")],
+    "walk": [("}  // namespace\n\nextern \"C\" {\n", CONV_WALK_KERNEL),
+             ("const char* error_string(int code) {", CONV_WALK_ENTRY)],
+}
 CONV_VARIANTS = {
+    **CONV_BF16_VARIANTS,
     "t128x128": [(PICK, "  const int tiling = 0;\n")],
     "t128x64": [(PICK, "  const int tiling = 1;\n")],
     "t64x64": [(PICK, "  const int tiling = 2;\n")],
@@ -702,10 +971,12 @@ def study_matmul_bf16(libs, result, dev, flush):
         tag = "%dx%dx%d" % (M, K, N)
         lib_ms = time_ms(lambda: torch.matmul(x, w), flush)
         means["torch.matmul"] += count * lib_ms / sum(MM_COUNTS)
+        source_out = {}
         for name in names:
             lib = libs[name]
             parent = not hasattr(lib, "matmul_bf16_encode_us")
             rec = {"max_rel_err": 0.0, "ms": {}}
+            same = True
             with using("matmul", lib):
                 for t in (mm.TILINGS if parent else mm.TILINGS_BF16):
                     def call():
@@ -716,6 +987,12 @@ def study_matmul_bf16(libs, result, dev, flush):
                     rec["max_rel_err"] = max(rec["max_rel_err"], float(
                         (got.double() - want).abs().max()
                         / want.abs().max()))
+                    # the wgmma face's outputs at every tiling against the
+                    # source's (with --against: a change left it as it was)
+                    if name == "source":
+                        source_out[t] = got
+                    elif not parent:
+                        same = same and torch.equal(got, source_out[t])
                     rec["ms"]["%dx%dx%d" % t] = time_ms(call, flush)
                 best = min(rec["ms"], key=rec["ms"].get)
                 t = tuple(int(v) for v in best.split("x"))  # call reads t
@@ -723,6 +1000,8 @@ def study_matmul_bf16(libs, result, dev, flush):
                 # written back during the launch
                 rec["best_ms_read_flush"] = time_ms(call, flush,
                                                     by_read=True)
+            if name != "source" and not parent:
+                rec["bit_identical_to_source"] = same
             rec["best"] = {best: rec["ms"][best]}
             rec["torch_matmul_ms"] = lib_ms
             rec["torch_matmul_ms_read_flush"] = time_ms(
@@ -735,11 +1014,13 @@ def study_matmul_bf16(libs, result, dev, flush):
                     rec["torch_matmul_ms_read_flush"] / sum(MM_COUNTS)
             result[name]["bf16 " + tag] = rec
             print(json.dumps({name: {"bf16 " + tag: {
-                k: rec[k] for k in ("max_rel_err", "best",
-                                    "best_ms_read_flush", "torch_matmul_ms",
-                                    "torch_matmul_ms_read_flush")}}}),
+                k: rec.get(k) for k in ("max_rel_err", "best",
+                                        "best_ms_read_flush",
+                                        "torch_matmul_ms",
+                                        "torch_matmul_ms_read_flush",
+                                        "bit_identical_to_source")}}}),
                   flush=True)
-        del x, w, want
+        del x, w, want, source_out
         torch.cuda.empty_cache()
     for name, ms in means.items():
         if name in result:
@@ -1003,6 +1284,8 @@ def lstm_bf16_study(libs, result, dev, flush):
 
 
 def study_conv3x3(libs, result, dev, flush):
+    f32_libs = {n: lib for n, lib in libs.items()
+                if n not in CONV_BF16_VARIANTS}
     for i, shape in enumerate(R50_CONV_SHAPES):
         N, H, W, C, O = shape
         rng = np.random.RandomState(60 + i)
@@ -1013,7 +1296,7 @@ def study_conv3x3(libs, result, dev, flush):
         want = conv.conv3x3_reference(x.double(), w.double())
         want_dx = conv.conv3x3_reference(g.double(), w_rot.double())
         tag = "x".join(str(d) for d in shape)
-        for name, lib in libs.items():
+        for name, lib in f32_libs.items():
             with using("conv3x3", lib):
                 got = conv._launch(x, w)
                 got_dx = conv._launch(g, w_rot)
@@ -1038,6 +1321,143 @@ def study_conv3x3(libs, result, dev, flush):
             print(json.dumps({name: {tag: rec}}), flush=True)
         del x, w, g, w_rot, want, want_dx, got, got_dx, source_out
         torch.cuda.empty_cache()
+    study_conv3x3_bf16(libs, result, dev, flush)
+
+
+# the walk's shapes: the edge shapes TMA can take (C a multiple of 8),
+# 128-pixel boxes across three 7 x 7 images, and the stage shapes
+WALK_SHAPES = [s for s in CONV_EDGE_SHAPES if s[3] % 8 == 0] + \
+    [(4, 7, 7, 64, 64)] + R50_CONV_SHAPES
+
+
+def _im2col_walk(lib, rec, dev):
+    """Every box of the bfloat16 face's im2col walk (BM 64 and 128, each
+    tap and channel chunk) at WALK_SHAPES, landed and written out,
+    against the padded input's slice: the same bits, zeros past C, in the
+    halo and past the last pixel."""
+    fn = lib.conv3x3_im2col_walk
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rng = np.random.RandomState(4)
+    for shape in WALK_SHAPES:
+        N, H, W, C, _ = shape
+        M = N * H * W
+        x = _randn(rng, (N, H, W, C), dev).bfloat16()
+        xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+        boxes = loads = same = 0
+        for bm in (64, 128):
+            rows = -(-M // bm) * bm
+            out = torch.empty((rows, 64), dtype=torch.bfloat16, device=dev)
+            for tap in range(9):
+                dy, dx = divmod(tap, 3)
+                patch = xp[:, dy:dy + H, dx:dx + W, :].reshape(M, C)
+                for c0 in range(0, C, 64):
+                    _build.check(lib, fn(x.data_ptr(), out.data_ptr(), N, H,
+                                         W, C, bm, tap, c0,
+                                         _build.stream_handle(dev)),
+                                 "conv3x3_im2col_walk")
+                    want = torch.zeros_like(out)
+                    cs = min(64, C - c0)
+                    want[:M, :cs] = patch[:, c0:c0 + cs]
+                    torch.cuda.synchronize()
+                    boxes += rows // bm
+                    loads += 1
+                    same += int(torch.equal(out, want))
+        tag = "x".join(str(d) for d in shape)
+        rec["walk " + tag] = {"boxes": boxes, "launches": loads,
+                              "every_box_equal": same == loads}
+        print(json.dumps({"walk": {tag: rec["walk " + tag]}}), flush=True)
+        if not rec["walk " + tag]["every_box_equal"]:
+            sys.exit("torch_flash_bwd_study: the im2col walk differs from "
+                     "the padded input at %s" % (shape,))
+
+
+def study_conv3x3_bf16(libs, result, dev, flush):
+    """The bfloat16 face at ResNet-50's stage shapes: the walk proved
+    first; then the source's face at its rule's tiling and at every
+    wgmma tiling forced (all bit-identical), each bfloat16 variant's and
+    (with --against) a parent's face, errors against a float64 conv
+    (bfloat16 out), fwd and dx times, cuDNN on bfloat16 beside them, and
+    the mean over a ResNet-50 step's 16 launches."""
+    _im2col_walk(libs["walk"], result["walk"], dev)
+    names = [n for n in libs if n in ("source", "against")
+             or (n in CONV_BF16_VARIANTS and n != "walk")]
+    means = {n: {"fwd": 0.0, "dx": 0.0} for n in names + ["cudnn"]}
+    total = sum(R50_CONV_COUNTS)
+    F = torch.nn.functional
+    for i, (shape, count) in enumerate(zip(R50_CONV_SHAPES,
+                                           R50_CONV_COUNTS)):
+        N, H, W, C, O = shape
+        rng = np.random.RandomState(70 + i)
+        x = _randn(rng, (N, H, W, C), dev).bfloat16()
+        w = _randn(rng, (3, 3, C, O), dev, (2.0 / (9 * C)) ** 0.5
+                   ).bfloat16()
+        g = _randn(rng, (N, H, W, O), dev).bfloat16()
+        w_rot = conv.rotate_filter(w)
+        want = conv.conv3x3_reference(x.double(), w.double())
+        want_dx = conv.conv3x3_reference(g.double(), w_rot.double())
+        tag = "bf16 " + "x".join(str(d) for d in shape)
+        x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        w_cl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        cudnn = {"fwd": time_ms(lambda: F.conv2d(x_cl, w_cl, padding=1),
+                                flush),
+                 "dx": time_ms(lambda: torch.ops.aten.convolution_backward(
+                     g_cl, x_cl, w_cl, None, [1, 1], [1, 1], [1, 1], False,
+                     [0, 0], 1, [True, False, False]), flush)}
+        for role in ("fwd", "dx"):
+            means["cudnn"][role] += count * cudnn[role] / total
+        for name in names:
+            lib = libs[name]
+            with using("conv3x3", lib):
+                got = conv._launch(x, w)
+                got_dx = conv._launch(g, w_rot)
+                torch.cuda.synchronize()
+                rec = {"fwd_max_rel_err": float(
+                           (got.double() - want).abs().max()
+                           / want.abs().max()),
+                       "dx_max_rel_err": float(
+                           (got_dx.double() - want_dx).abs().max()
+                           / want_dx.abs().max()),
+                       "fwd_ms": time_ms(lambda: conv._launch(x, w), flush),
+                       "dx_ms": time_ms(lambda: conv._launch(g, w_rot),
+                                        flush),
+                       "cudnn_ms": cudnn}
+                if hasattr(lib, "conv3x3_bf16_tiling"):
+                    rec["rule"] = {
+                        "fwd": conv.kernel_tiling(N, H, W, C, O,
+                                                  torch.bfloat16),
+                        "dx": conv.kernel_tiling(N, H, W, O, C,
+                                                 torch.bfloat16)}
+                if name == "source":
+                    rec["ms_by_tiling"], same = {}, True
+                    for t in conv.TILINGS_BF16:
+                        f = conv._launch(x, w, None, "wgmma", t)
+                        d = conv._launch(g, w_rot, None, "wgmma", t)
+                        torch.cuda.synchronize()
+                        same = same and torch.equal(f, got) and \
+                            torch.equal(d, got_dx)
+                        rec["ms_by_tiling"]["%dx%d" % t] = {
+                            "fwd": time_ms(lambda: conv._launch(
+                                x, w, None, "wgmma", t), flush),
+                            "dx": time_ms(lambda: conv._launch(
+                                g, w_rot, None, "wgmma", t), flush)}
+                    rec["tilings_bit_identical"] = same
+                    source_out = (got, got_dx)
+                else:
+                    rec["bit_identical_to_source"] = torch.equal(
+                        got, source_out[0]) and torch.equal(
+                        got_dx, source_out[1])
+            for role in ("fwd", "dx"):
+                means[name][role] += count * rec[role + "_ms"] / total
+            result[name][tag] = rec
+            print(json.dumps({name: {tag: rec}}), flush=True)
+        del x, w, g, w_rot, want, want_dx, got, got_dx, x_cl, g_cl, w_cl
+        torch.cuda.empty_cache()
+    for name, ms in means.items():
+        result.setdefault(name, {})["bf16 step mean ms"] = ms
+    print(json.dumps({"bf16 step mean ms": means}), flush=True)
 
 
 PAGED_VARIANTS = {
