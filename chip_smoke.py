@@ -419,9 +419,13 @@ PEAK_BF16_FLOPS = 989e12
 # ulps of the small outputs' own, which the first part catches. lse,
 # float32, within KERNEL_TOL (the float32 face's tolerance).
 # The faces' shapes (B, S, H, D, causal): the LM step's and the
-# prefill's, and the other head dims' templates.
+# prefill's, a length that is no multiple of the forward's 128-row tiles
+# in a batch of two (the first batch's last tiles lie across the end of S,
+# where the second batch's rows follow), and the other head dims'
+# templates (the forward's mma.sync path).
 FLASH_BF16_CASES = [(8, 1024, 12, 64, True), (1, 1024, 12, 64, True),
-                    (2, 130, 12, 32, False), (2, 130, 12, 128, True)]
+                    (2, 300, 12, 64, False), (2, 130, 12, 32, False),
+                    (2, 130, 12, 128, True)]
 # The fused LSTM's bfloat16 face (row 7-bf16: bfloat16 xs, h0, c0, hs
 # and cs, float32 w and mask) against the plain recurrence, which widens
 # the operands and rounds hs and cs once: both carry the state in
@@ -490,6 +494,29 @@ def _device_ms(fn, name, flush, iters=20):
             fn()
         torch.cuda.synchronize()
     return _kernel_share(prof, name)["ms"] / iters
+
+
+def _device_ms_all(fn, flush, iters=20):
+    """Device ms a call of ``fn`` spends in all the kernels it launches
+    (torch.profiler; the flush's fill kernel left out), ``flush`` zeroed
+    before each call: for a library call whose kernels' names are not
+    known in advance."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                "Fill" in e.key:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        total += (e.self_cuda_time_total if t is None else t) / 1e3
+    return total / iters
 
 
 def _no_launches():
@@ -1462,13 +1489,27 @@ def _lm_train(dev, label, after=None, want_matmul=0,
             prof_wall = time.monotonic() - t1
         profile_window = _device_kernels(prof, prof_wall)
         profile_window["steps"] = 2
+        flash_kernels = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                         "flash_bwd_dq_kernel", "flash_fwd_bf16_wgmma_kernel",
+                         "flash_fwd_bf16_mma_kernel",
+                         "flash_bwd_dkv_bf16_kernel",
+                         "flash_bwd_dq_bf16_kernel")
         for kernel in ("matmul_kernel", "matmul_bf16_wgmma_kernel",
-                       "matmul_bf16_ragged_kernel",
-                       "flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                       "flash_bwd_dq_kernel", "flash_fwd_bf16_kernel",
-                       "flash_bwd_dkv_bf16_kernel",
-                       "flash_bwd_dq_bf16_kernel"):
+                       "matmul_bf16_ragged_kernel") + flash_kernels:
             profile_window[kernel] = _kernel_share(prof, kernel)
+        profile_window["flash_ms"] = sum(profile_window[k]["ms"]
+                                         for k in flash_kernels)
+        if amp == "pure":
+            # the forward's wgmma kernel in the profile, 24 launches a step
+            # and none of the mma.sync path
+            got = (profile_window["flash_fwd_bf16_wgmma_kernel"]["count"],
+                   profile_window["flash_fwd_bf16_mma_kernel"]["count"])
+            if got != (2 * 2 * L, 0):
+                fail("%s profile shows %d flash_fwd_bf16_wgmma_kernel and %d "
+                     "flash_fwd_bf16_mma_kernel launches over two steps, "
+                     "expected %d and 0" % (label, got[0], got[1], 4 * L))
+            profile_window["parent_face"] = _parent_face_window(trainer,
+                                                                spec)
         extra = after(cfg, global_scope()) if after else None
     p50 = float(np.median(step_s))
     tokens = TRAIN_BATCH * cfg.max_seq
@@ -1492,6 +1533,37 @@ def _lm_train(dev, label, after=None, want_matmul=0,
     del trainer
     torch.cuda.empty_cache()
     return rec
+
+
+def _parent_face_window(trainer, spec):
+    """Two more profiled steps of the pure-AMP LM with each bfloat16
+    flash forward sent to the mma.sync kernel (the face's design before
+    its wgmma kernel, the parent's source under a new name): the device
+    time and the forward's share beside the face's, in the same run. A
+    measurement only: the main path's launches were read before it."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    launch = fa._launch_fwd
+
+    def mma_launch(q, k, v, causal, scale, mma=False):
+        return launch(q, k, v, causal, scale,
+                      mma=mma or q.dtype == torch.bfloat16)
+
+    fa._launch_fwd = mma_launch
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            trainer.train(spec["reader"], num_passes=1)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    finally:
+        fa._launch_fwd = launch
+    window = _device_kernels(prof, wall)
+    window["steps"] = 2
+    for kernel in ("flash_fwd_bf16_wgmma_kernel", "flash_fwd_bf16_mma_kernel"):
+        window[kernel] = _kernel_share(prof, kernel)
+    return window
 
 
 def _kernel_share(prof, name):
@@ -3505,13 +3577,11 @@ def _amp_flash_check(dev, flush):
     (on bfloat16) times and the bfloat16 bound; every template's
     registers, spills and shared memory. Returns the three entries of
     the kernels line."""
+    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_attention as fa
     F = torch.nn.functional
-    fwd_lib = _build.load("flash_attention_fwd")
     bwd_lib = _build.load("flash_attention_bwd")
-    fwd_lib.flash_attention_fwd_smem_bytes.argtypes = [ctypes.c_int] * 2
-    fwd_lib.flash_attention_fwd_smem_bytes.restype = ctypes.c_int
     bwd_lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     bwd_lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
     rng = np.random.RandomState(14)
@@ -3520,8 +3590,21 @@ def _amp_flash_check(dev, flush):
         scale = D ** -0.5
         q, k, v, do = [torch.from_numpy(rng.randn(B, S, H, D).astype(
             np.float32)).to(dev).bfloat16() for _ in range(4)]
+        # the forward's path: the library's rule, the mirror's, and the
+        # counter its two launches land on
+        path = fa.fwd_bf16_path(D)
+        if fa.kernel_fwd_bf16_path(D) != path:
+            fail("flash bf16 forward at D %d takes the %s path, its mirror "
+                 "says %s" % (D, fa.kernel_fwd_bf16_path(D), path))
+        kernels.reset_launches()
         o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
         o2, lse2 = fa.flash_attention_with_lse(q, k, v, causal=causal)
+        counts = {n: c for n, c in kernels.launch_counts().items() if c}
+        want_counts = {"flash_attention_fwd_bf16" + (
+            "" if path == "wgmma" else "_mma"): 2}
+        if counts != want_counts:
+            fail("flash bf16 forward at D %d (%s path) counted %s, expected "
+                 "%s" % (D, path, counts, want_counts))
         grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=causal)
@@ -3530,6 +3613,7 @@ def _amp_flash_check(dev, flush):
         torch.cuda.synchronize()
         case = "B%d_S%d_D%d_%s" % (B, S, D, "causal" if causal else "full")
         rec = {"B": B, "S": S, "H": H, "D": D, "causal": causal,
+               "fwd_path": path,
                "lse_max_abs_err": float((lse - lse_ref).abs().max()),
                "lse_tolerance": KERNEL_TOL,
                "relaunch_bit_identical": {
@@ -3571,22 +3655,65 @@ def _amp_flash_check(dev, flush):
             for n, g, w in zip(names, (po,) + pg, (o_ref,) + want)}
         del po, pg, o2, lse2, again
         rec["smem_bytes"] = {
-            "fwd": fwd_lib.flash_attention_fwd_smem_bytes(D, 1),
+            "fwd": fa.kernel_fwd_smem_bytes(D, "bf16"),
             "dkv": bwd_lib.flash_attention_bwd_smem_bytes(D, 0, 1),
             "dq": bwd_lib.flash_attention_bwd_smem_bytes(D, 1, 1)}
+        if rec["smem_bytes"]["fwd"] != fa.fwd_bf16_smem_bytes(D):
+            fail("flash bf16 forward at D %d takes %d bytes of shared "
+                 "memory, its mirror says %d" % (
+                     D, rec["smem_bytes"]["fwd"], fa.fwd_bf16_smem_bytes(D)))
         rec["ptxas"] = {
             "fwd": _ptxas("flash_attention_fwd",
-                          "flash_fwd_bf16_kernelILi%dE" % D),
+                          "flash_fwd_bf16_wgmma_kernel" if path == "wgmma"
+                          else "flash_fwd_bf16_mma_kernelILi%dE" % D),
             "dkv": _ptxas("flash_attention_bwd",
                           "flash_bwd_dkv_bf16_kernelILi%dE" % D),
             "dq": _ptxas("flash_attention_bwd",
                          "flash_bwd_dq_bf16_kernelILi%dE" % D)}
+        if not rec["ptxas"]["fwd"] or any(
+                part.split()[0] != "0" for ln in rec["ptxas"]["fwd"]
+                for part in ln.split(",") if "spill" in part):
+            fail("the flash bf16 forward's template at D %d spills (or has "
+                 "no ptxas lines): %s" % (D, rec["ptxas"]["fwd"]))
+        # the forward at every case: kernel, the face's parent design (the
+        # mma.sync kernel, forced at D 64), plain, SDPA on bfloat16, bound
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        pairs = S * (S + 1) // 2 if causal else S * S
+        fwd_work = (B * H * (4 * S * D * 2 + S * 4), B * H * pairs * 4 * D)
+        b_ms, b_by = bf16_bound(*fwd_work)
+        rec["fwd_times"] = {
+            "ms": time_ms(lambda: fa.flash_attention_with_lse(
+                q, k, v, causal=causal), flush=flush),
+            "plain_ms": time_ms(lambda: fa.flash_attention_reference(
+                q, k, v, causal=causal), flush=flush),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=causal), flush=flush),
+            "bound_ms": b_ms, "bound_by": b_by}
+        if path == "wgmma":
+            rec["fwd_times"]["parent_ms"] = time_ms(
+                lambda: fa._launch_fwd(q, k, v, causal, scale, mma=True),
+                flush=flush)
+        if S == 1024:
+            # the kernels' own device time (the profiler): at B 1 a CUDA
+            # event pair around the call also reads the host's launch path
+            rec["fwd_times"].update({
+                "device_ms": _device_ms(
+                    lambda: fa.flash_attention_with_lse(q, k, v,
+                                                        causal=causal),
+                    "flash_fwd_bf16_wgmma_kernel", flush),
+                "parent_device_ms": _device_ms(
+                    lambda: fa._launch_fwd(q, k, v, causal, scale,
+                                           mma=True),
+                    "flash_fwd_bf16_mma_kernel", flush),
+                "library_device_ms": _device_ms_all(
+                    lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, is_causal=causal), flush)})
+        del qh, kh, vh
         if S == 1024:
             delta = fa._delta(o, do, None).contiguous()
             pairs = S * (S + 1) // 2 if causal else S * S
             head, vec = S * D * 2, S * 4
-            work = {"fwd": (B * H * (4 * head + vec), B * H * pairs * 4 * D),
-                    "dkv": (B * H * (6 * head + 2 * vec),
+            work = {"dkv": (B * H * (6 * head + 2 * vec),
                             B * H * pairs * 8 * D),
                     "dq": (B * H * (5 * head + 2 * vec),
                            B * H * pairs * 6 * D)}
@@ -3596,20 +3723,13 @@ def _amp_flash_check(dev, flush):
                                                      is_causal=causal)
             doh = do.transpose(1, 2)
             rec["times"] = {
-                "fwd_ms": time_ms(lambda: fa.flash_attention_with_lse(
-                    q, k, v, causal=causal), flush=flush),
                 "dkv_ms": time_ms(lambda: fa._bwd_dkv(
                     q, k, v, do, lse, delta, causal, scale), flush=flush),
                 "dq_ms": time_ms(lambda: fa._bwd_dq(
                     q, k, v, do, lse, delta, causal, scale), flush=flush),
-                "fwd_plain_ms": time_ms(lambda: fa.flash_attention_reference(
-                    q, k, v, causal=causal), flush=flush),
                 "bwd_plain_ms": time_ms(
                     lambda: fa.flash_attention_bwd_reference(
                         q, k, v, o, lse, do, causal=causal), flush=flush),
-                "fwd_library_ms": time_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        qh, kh, vh, is_causal=causal), flush=flush),
                 "bwd_library_ms": time_ms(lambda: torch.autograd.grad(
                     lib_out, (qh, kh, vh), doh, retain_graph=True),
                     flush=flush)}
@@ -3625,62 +3745,105 @@ def _amp_flash_check(dev, flush):
     torch.cuda.empty_cache()
     lm = per_case["B8_S1024_D64_causal"]
     prefill = per_case["B1_S1024_D64_causal"]
+    # the forward's mma.sync path is timed at the D 128 case
+    mma_case = per_case["B2_S130_D128_causal"]
+    tolerance = ("one bfloat16 ulp: every element within one ulp of its own "
+                 "magnitude plus %g of the largest, the largest error within "
+                 "one ulp of the largest magnitude" % BWD_REL_TOL)
     out = {}
     for name, line, key, what, split in (
             ("flash_attention_fwd_bf16", 119, "fwd", ("o",), 1.5),
+            ("flash_attention_fwd_bf16_mma", 119, "fwd_mma", ("o",), 1.5),
             ("flash_attention_bwd_dkv_bf16", 231, "dkv", ("dk", "dv"), 1.5),
             ("flash_attention_bwd_dq_bf16", 254, "dq", ("dq",), 4 / 3)):
-        plain = "fwd_plain_ms" if key == "fwd" else "bwd_plain_ms"
-        lib_key = "fwd_library_ms" if key == "fwd" else "bwd_library_ms"
-        out[name] = {
+        fwd = key.startswith("fwd")
+        cases = {c: r for c, r in per_case.items()
+                 if not fwd or r["fwd_path"] == ("wgmma" if key == "fwd"
+                                                 else "mma")}
+        entry = {
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/flash_attention_%s.cu"
-                      % ("fwd" if key == "fwd" else "bwd"),
+                      % ("fwd" if fwd else "bwd"),
             "replaces": "paddle_tpu/kernels/flash_attention.py:%d" % line,
             "role": "the bfloat16 face (pure AMP): bfloat16 q, k, v%s, "
-                    "float32 arithmetic, %s rounded once to bfloat16"
-                    % ("" if key == "fwd" else " and dO",
-                       "/".join(what)),
-            "max_abs_err": max(r[n]["max_abs_err"] for r in per_case.values()
+                    "float32 arithmetic, %s rounded once to bfloat16%s"
+                    % ("" if fwd else " and dO", "/".join(what),
+                       {"fwd": "; D 64: the TMA-fed, warp-specialised "
+                               "wgmma kernel",
+                        "fwd_mma": "; D 32 and 128: the mma.sync kernel"}
+                       .get(key, "")),
+            "max_abs_err": max(r[n]["max_abs_err"] for r in cases.values()
                                for n in what),
             "max_err_over_tol": max(max(r[n]["err_over_max_ulp"],
                                         r[n]["err_over_own_tol"])
-                                    for r in per_case.values() for n in what),
-            "tolerance": "one bfloat16 ulp: every element within one ulp of "
-                         "its own magnitude plus %g of the largest, the "
-                         "largest error within one ulp of the largest "
-                         "magnitude" % BWD_REL_TOL,
+                                    for r in cases.values() for n in what),
+            "tolerance": tolerance,
             "bf16_scores_forward_min_err_over_tol": min(
                 max(r["bf16_scores_forward"]["err_over_max_ulp"],
                     r["bf16_scores_forward"]["err_over_own_tol"])
-                for r in per_case.values()),
+                for r in cases.values()),
             "p_ds_rounded_once_max_err_over_tol": max(
                 max(r["p_ds_rounded_once"][n]["err_over_max_ulp"],
                     r["p_ds_rounded_once"][n]["err_over_own_tol"])
-                for r in per_case.values() for n in what),
-            "ms": lm["times"][key + "_ms"],
-            "plain_ms": lm["times"][plain],
-            "plain": "flash_attention_reference" if key == "fwd" else
+                for r in cases.values() for n in what),
+            "plain": "flash_attention_reference" if fwd else
                      "flash_attention_bwd_reference (dq, dk and dv)",
-            "bound_ms": lm["bound"][key]["ms"],
-            "bound_by": lm["bound"][key]["by"],
             "bound_note": "bytes over 3.35 TB/s or flops over 989 TFLOP/s "
                           "dense bf16; the face's split products (p or ds "
                           "as two bfloat16 terms) take %.3gx those flops"
                           % split,
-            "library_ms": lm["times"][lib_key],
-            "library": "scaled_dot_product_attention(is_causal=True) on "
-                       "bfloat16" if key == "fwd" else
-                       "autograd.grad through scaled_dot_product_attention"
-                       "(is_causal=True) on bfloat16: dq, dk and dv, to be "
-                       "compared with the sum of both kernels",
-            "shape": {"B": 8, "H": 12, "D": 64, "causal": True, "S": 1024},
-            "prefill_B1": {"ms": prefill["times"][key + "_ms"],
-                           "plain_ms": prefill["times"][plain],
-                           "bound_ms": prefill["bound"][key]["ms"],
-                           "library_ms": prefill["times"][lib_key]},
+            "library": "scaled_dot_product_attention on bfloat16" if fwd
+                       else "autograd.grad through scaled_dot_product_"
+                            "attention(is_causal=True) on bfloat16: dq, dk "
+                            "and dv, to be compared with the sum of both "
+                            "kernels",
             "per_case": {c: {n: r[n] for n in what}
-                         for c, r in per_case.items()}}
+                         for c, r in cases.items()}}
+        if key == "fwd_mma":
+            t = mma_case["fwd_times"]
+            entry.update({
+                "main_path": False,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"],
+                "shape": {"B": 2, "H": 12, "D": 128, "causal": True,
+                          "S": 130},
+                "per_case_ms": {c: r["fwd_times"] for c, r in cases.items()}})
+        elif key == "fwd":
+            t, t1 = lm["fwd_times"], prefill["fwd_times"]
+            entry.update({
+                "ms": t["ms"], "parent_ms": t["parent_ms"],
+                "parent": "the face's design before its wgmma kernel (the "
+                          "mma.sync kernel, forced at D 64) on the same "
+                          "operands",
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"],
+                "shape": {"B": 8, "H": 12, "D": 64, "causal": True,
+                          "S": 1024},
+                "device_ms": t["device_ms"],
+                "parent_device_ms": t["parent_device_ms"],
+                "library_device_ms": t["library_device_ms"],
+                "prefill_B1": {k: t1[k] for k in (
+                    "ms", "parent_ms", "plain_ms", "bound_ms",
+                    "library_ms", "device_ms", "parent_device_ms",
+                    "library_device_ms")},
+                "per_case_ms": {c: r["fwd_times"] for c, r in cases.items()}})
+        else:
+            entry.update({
+                "ms": lm["times"][key + "_ms"],
+                "plain_ms": lm["times"]["bwd_plain_ms"],
+                "bound_ms": lm["bound"][key]["ms"],
+                "bound_by": lm["bound"][key]["by"],
+                "library_ms": lm["times"]["bwd_library_ms"],
+                "shape": {"B": 8, "H": 12, "D": 64, "causal": True,
+                          "S": 1024},
+                "prefill_B1": {"ms": prefill["times"][key + "_ms"],
+                               "plain_ms": prefill["times"]["bwd_plain_ms"],
+                               "bound_ms": prefill["bound"][key]["ms"],
+                               "library_ms":
+                                   prefill["times"]["bwd_library_ms"]}})
+        out[name] = entry
     return out
 
 
@@ -4210,10 +4373,23 @@ def phase_amp(dev, root, f32_images_s, tuned, rnn32):
                "step_ms_p50": r["step_ms_p50"],
                "device_kernel_ms_two_steps":
                    r["profile"].get("device_kernel_ms"),
-               "device_busy_share": r["profile"].get("device_busy_share")}
+               "device_busy_share": r["profile"].get("device_busy_share"),
+               "flash_ms_two_steps": r["profile"].get("flash_ms")}
         for kind, r in (("float32_tuned", tuned),
                         ("amp", runs["amp_train"]),
                         ("pure_amp", runs["pure_amp_train"]))}}))
+    pure = runs["pure_amp_train"]["profile"]
+    parent = pure["parent_face"]
+    log(json.dumps({"pure_amp_lm_flash_forward": {
+        "device_kernel_ms_two_steps": pure["device_kernel_ms"],
+        "fwd_wgmma_ms": pure["flash_fwd_bf16_wgmma_kernel"]["ms"],
+        "fwd_wgmma_share": pure["flash_fwd_bf16_wgmma_kernel"]["share"],
+        "parent_face_device_kernel_ms_two_steps":
+            parent["device_kernel_ms"],
+        "parent_face_fwd_mma_ms": parent["flash_fwd_bf16_mma_kernel"]["ms"],
+        "parent_face_fwd_mma_share":
+            parent["flash_fwd_bf16_mma_kernel"]["share"],
+        "pr15_device_kernel_ms_two_steps": 137.99}}))
     weights = {}
     for shape, n in zip(MM_SHAPES, MM_COUNTS):
         sig = tune.signature({"m": shape[0], "k": shape[1], "n": shape[2],

@@ -1,8 +1,8 @@
 // Hopper's asynchronous machinery for hand-written kernels on sm_90a: TMA
 // tensor maps and loads, mbarrier rings, wgmma descriptors and products,
-// and the register hand-over of warp specialisation. Shared by the
-// bfloat16 faces of matmul.cu and conv3x3.cu; written so that the flash
-// kernels' bfloat16 faces can stand on it.
+// named barriers, and the register hand-over of warp specialisation.
+// Shared by the bfloat16 faces of matmul.cu, conv3x3.cu and the flash
+// forward (flash_attention_fwd.cu).
 //
 // TMA. A tensor map (CUtensorMap, 128 bytes) describes a 2-D or 3-D
 // row-major bfloat16 array in device memory and the box one load copies.
@@ -53,6 +53,11 @@
 //   the k16 slice kk starts 2048 kk bytes on. For 16-bit types wgmma
 //   takes this MN-major B as it lies through its transpose operand
 //   (imm-trans-b 1); only TF32 operands must be K-major.
+// - A K-major B (imm-trans-b 0: k contiguous, as the keys of q k^T lie,
+//   [key][d]) takes A's descriptor: rows 128 bytes apart, 8-row groups
+//   1024, the k16 slice kk 32 kk bytes in.
+// - A may also come from registers (wgmma_m64n64k16_rs): the thread's
+//   bfloat16 pairs in mma.sync's A fragment layout.
 // The sum of a wgmma stays in registers: element i of a thread's
 // accumulator is row 16 (warp % 4) + lane / 4 + 8 ((i / 2) % 2), column
 // 8 (i / 4) + 2 (lane % 4) + i % 2 of the 64 x N tile. wgmma_fence
@@ -186,6 +191,18 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
 }
 
+// Named barriers (1..15; 0 is __syncthreads): `count` threads, a multiple
+// of 32, meet at barrier `id`. bar_arrive counts the caller and goes on;
+// bar_sync counts it and waits for the rest. Two consumer warpgroups take
+// turns on the tensor cores this way.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // -- wgmma -------------------------------------------------------------------
 
 // a shared-memory operand with the 128-byte swizzle; offsets in bytes
@@ -218,10 +235,21 @@ __device__ __forceinline__ void wgmma_fence_operands(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// the same for register A operands: pinned after the wait, they are not
+// reused while a product may still read them
+template <int N, int M>
+__device__ __forceinline__ void wgmma_fence_operands(uint32_t (&a)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
 // The products d (+)= A B of bfloat16 operands summed in float32: A 64 x 16
 // K-major, B 16 x N MN-major (imm-trans-b 1), both from shared memory;
 // `add` false (scale-d 0) overwrites d with the product.
 // m64n64k16
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
     uint64_t b, bool add) {
   asm volatile(
@@ -231,7 +259,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -240,10 +268,11 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"((int)add));
+        : "l"(a), "l"(b), "r"((int)add), "n"(TRANS_B));
 }
 
 // m64n128k16
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
     uint64_t b, bool add) {
   asm volatile(
@@ -257,7 +286,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -274,10 +303,11 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"((int)add));
+        : "l"(a), "l"(b), "r"((int)add), "n"(TRANS_B));
 }
 
 // m64n192k16
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t a,
     uint64_t b, bool add) {
   asm volatile(
@@ -295,7 +325,7 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t a,
       "%72, %73, %74, %75, %76, %77, %78, %79, "
       "%80, %81, %82, %83, %84, %85, %86, %87, "
       "%88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+      "}, %96, %97, p, 1, 1, 0, %99;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -320,16 +350,47 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t a,
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
         "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "l"(a), "l"(b), "r"((int)add));
+        : "l"(a), "l"(b), "r"((int)add), "n"(TRANS_B));
 }
 
-template <int N>
+template <int N, int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a,
                                            uint64_t b, bool add) {
   static_assert(N == 64 || N == 128 || N == 192, "wgmma width");
-  if constexpr (N == 64) wgmma_m64n64k16(d, a, b, add);
-  if constexpr (N == 128) wgmma_m64n128k16(d, a, b, add);
-  if constexpr (N == 192) wgmma_m64n192k16(d, a, b, add);
+  if constexpr (N == 64) wgmma_m64n64k16<TRANS_B>(d, a, b, add);
+  if constexpr (N == 128) wgmma_m64n128k16<TRANS_B>(d, a, b, add);
+  if constexpr (N == 192) wgmma_m64n192k16<TRANS_B>(d, a, b, add);
+}
+
+// d (+)= A B with A 64 x 16 from registers: the four bfloat16 pairs a
+// thread holds, in the layout of an mma.sync m16n8k16 A fragment for the
+// warp's 16 rows (a[0] row g, columns 2t and 2t + 1; a[1] row g + 8;
+// a[2], a[3] the same at columns + 8). B 16 x 64 MN-major from shared
+// memory (imm-trans-b 1). For 16-bit types, the accumulator elements 8j
+// .. 8j + 7 of a product (columns 16j .. 16j + 15) are that fragment as
+// they lie, once packed in pairs: a product's output goes back into the
+// tensor cores as the A of the next with no shuffle.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, bool add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"((int)add));
 }
 
 // -- host: tensor maps ---------------------------------------------------------

@@ -27,6 +27,10 @@ layout); the result is ``(o [B, S, H, D], lse [B, H, S])`` with
   kernel launches of the float32 forward, dK/dV and dQ kernels;
   ``launches_bf16``, ``launches_bwd_dkv_bf16`` and
   ``launches_bwd_dq_bf16`` those of the bfloat16 faces.
+- The bfloat16 forward takes one of two kernels by head dim
+  (:func:`fwd_bf16_path`, the source's rule): at D 64 the TMA-fed,
+  warp-specialised ``wgmma`` kernel (counted on ``launches_bf16``), at
+  D 32 and 128 the ``mma.sync`` kernel (``launches_bf16_mma``).
 """
 from __future__ import annotations
 
@@ -38,16 +42,20 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_reference", "flash_attention_reference",
-           "flash_attention_with_lse", "launches", "launches_bf16",
-           "launches_bwd_dkv", "launches_bwd_dkv_bf16", "launches_bwd_dq",
-           "launches_bwd_dq_bf16"]
+           "flash_attention_with_lse", "fwd_bf16_path",
+           "fwd_bf16_smem_bytes", "kernel_fwd_bf16_path",
+           "kernel_fwd_smem_bytes", "launches", "launches_bf16",
+           "launches_bf16_mma", "launches_bwd_dkv", "launches_bwd_dkv_bf16",
+           "launches_bwd_dq", "launches_bwd_dq_bf16"]
 
 # kernel launches since the last reset: forward, dK/dV and dQ, of the
-# float32 and the bfloat16 faces
+# float32 and the bfloat16 faces; the bfloat16 forward's mma.sync path
+# (D 32 and 128) apart
 launches = 0
 launches_bwd_dkv = 0
 launches_bwd_dq = 0
 launches_bf16 = 0
+launches_bf16_mma = 0
 launches_bwd_dkv_bf16 = 0
 launches_bwd_dq_bf16 = 0
 
@@ -56,6 +64,59 @@ _BWD_NAME = "flash_attention_bwd"
 _HEAD_DIMS = (32, 64, 128)
 # the entry points' suffix by operand dtype
 _FACES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the bfloat16 forward's wgmma kernel (``BM_W``, ``BN_W``, ``RING_W`` and
+# ``DW`` of the source): query rows a block, keys a tile, K / V stages of
+# its ring, and the one head dim it takes
+_BM_W, _BN_W, _RING_W, _DW = 128, 128, 4, 64
+# the mma.sync kernel's keys a tile (``BN``)
+_BN_MMA = 32
+
+
+def fwd_bf16_path(D):
+    """The kernel the bfloat16 forward takes at head dim ``D``:
+    ``"wgmma"`` at D 64, ``"mma"`` at D 32 and 128 (``wgmma_path`` of the
+    source, picked before the launch)."""
+    if D not in _HEAD_DIMS:
+        raise ValueError("%s: head_dim %d has no kernel (supported: %s)"
+                         % (_NAME, D, _HEAD_DIMS))
+    return "wgmma" if D == _DW else "mma"
+
+
+def fwd_bf16_smem_bytes(D, path=None):
+    """Dynamic shared memory of one block of the bfloat16 forward at head
+    dim ``D`` on ``path`` (default :func:`fwd_bf16_path`): the wgmma
+    kernel's q box, ``RING_W`` stages of a K and a V box and 1024 bytes
+    of alignment (``SMEM_BYTES_W``), or the mma.sync kernel's two
+    buffers of K and V tiles of ``[32][D + 8]``
+    (``fwd_bf16_mma_smem_bytes``)."""
+    path = path or fwd_bf16_path(D)
+    if path == "wgmma":
+        if D != _DW:
+            raise ValueError("%s: the wgmma kernel takes D %d only, not %d"
+                             % (_NAME, _DW, D))
+        return (_BM_W * _DW + _RING_W * 2 * _BN_W * _DW) * 2 + 1024
+    return 4 * _BN_MMA * (D + 8) * 2
+
+
+def kernel_fwd_bf16_path(D):
+    """The path the built library's bfloat16 forward takes at head dim
+    ``D`` (``flash_attention_fwd_bf16_path``; needs the card's
+    toolchain)."""
+    lib = _build.load(_NAME)
+    fn = lib.flash_attention_fwd_bf16_path
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return {1: "wgmma", 0: "mma"}.get(fn(D))
+
+
+def kernel_fwd_smem_bytes(D, face):
+    """The built library's shared memory of a forward block at head dim
+    ``D``: ``face`` "f32", "bf16" (the path of D) or "bf16_mma"."""
+    lib = _build.load(_NAME)
+    fn = lib.flash_attention_fwd_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return fn(D, {"f32": 0, "bf16": 1, "bf16_mma": 2}[face])
 
 
 def _acc_dtype(dtype):
@@ -155,10 +216,30 @@ def _check_kernel_operands(what, D, floats=(), **named):
     return _FACES[next(iter(dtypes))]
 
 
+def _launch_fwd(q, k, v, causal, scale, mma=False):
+    """One launch of the forward of the operands' face on checked
+    operands, counted nowhere; ``mma`` forces the bfloat16 face's
+    mma.sync kernel at any head dim. Returns (o, lse)."""
+    B, S, H, D = q.shape
+    face = _FACES[q.dtype]
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib = _build.load(_NAME)
+    fn = getattr(lib, "flash_attention_fwd_" + face + "_mma" * mma)
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
+        [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+              lse.data_ptr(), B, S, H, D, int(bool(causal)), float(scale),
+              _build.stream_handle(q.device))
+    _build.check(lib, code, _NAME)
+    return o, lse
+
+
 def _forward(q, k, v, causal, scale):
     """(o, lse): the plain version on the CPU, the kernel of the operands'
-    face on CUDA."""
-    global launches, launches_bf16
+    face on CUDA, counted on its path's counter."""
+    global launches, launches_bf16, launches_bf16_mma
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          scale=scale)
@@ -172,21 +253,13 @@ def _forward(q, k, v, causal, scale):
     face = _check_kernel_operands(_NAME, D, q=q, k=k, v=v)
     _build.check_cuda_operands(_NAME, q.device, q=q, k=k, v=v)
     scale = scale if scale is not None else D ** -0.5
-    o = torch.empty_like(q)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    lib = _build.load(_NAME)
-    fn = getattr(lib, "flash_attention_fwd_" + face)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
-        [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-              lse.data_ptr(), B, S, H, D, int(bool(causal)), float(scale),
-              _build.stream_handle(q.device))
-    _build.check(lib, code, _NAME)
-    if face == "bf16":
+    o, lse = _launch_fwd(q, k, v, causal, scale)
+    if face == "f32":
+        launches += 1
+    elif fwd_bf16_path(D) == "wgmma":
         launches_bf16 += 1
     else:
-        launches += 1
+        launches_bf16_mma += 1
     return o, lse
 
 

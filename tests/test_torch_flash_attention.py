@@ -15,6 +15,8 @@ it, and at most 1 % of its elements may differ at all (about 1e-4 do: 4
 of 32768 at B 2, S 128, H 2, D 64, causal).
 """
 import math
+import os
+import re
 
 import ml_dtypes
 import numpy as np
@@ -26,6 +28,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from paddle_tpu.kernels.flash_attention import (  # noqa: E402
     flash_attention_with_lse as jax_flash_attention_with_lse)
+from paddle_tpu_torch import kernels  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as tfa  # noqa: E402
 from test_torch_flash_attention_cuda import bf16_errors  # noqa: E402
 
@@ -135,3 +138,72 @@ def test_wrapper_refuses_grad():
         tpa.paged_attention(q[:, 0], pool, pool,
                             torch.zeros(1, 1, dtype=torch.int32),
                             torch.zeros(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("D,path", [(32, "mma"), (64, "wgmma"),
+                                    (128, "mma")])
+def test_bf16_forward_path_mirror(D, path):
+    """The bfloat16 forward's wgmma kernel takes D 64 only; D 32 and 128
+    keep the mma.sync kernel. The mirror's shared memory follows."""
+    assert tfa.fwd_bf16_path(D) == path
+    mma = 4 * 32 * (D + 8) * 2
+    assert tfa.fwd_bf16_smem_bytes(D, "mma") == mma
+    want = (128 * 64 + 4 * 2 * 128 * 64) * 2 + 1024 if path == "wgmma" \
+        else mma
+    assert tfa.fwd_bf16_smem_bytes(D) == want
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.fwd_bf16_path(D + 1)
+    if path == "mma":
+        with pytest.raises(ValueError, match="D 64 only"):
+            tfa.fwd_bf16_smem_bytes(D, "wgmma")
+
+
+def test_bf16_wgmma_mirror_matches_the_source():
+    """The wgmma kernel's rows a block, keys a tile, ring, head dim and
+    shared memory in csrc/flash_attention_fwd.cu are those the mirror
+    computes with; the path rule picks it by D; the mma.sync kernel's
+    tile is as it was."""
+    path = os.path.join(os.path.dirname(tfa.__file__), "csrc",
+                        "flash_attention_fwd.cu")
+    with open(path) as fh:
+        src = fh.read()
+
+    def ints(name):
+        m = re.search(r"constexpr int %s = (\d+);" % name, src)
+        return int(m.group(1))
+
+    assert (ints("BM_W"), ints("BN_W"), ints("RING_W"), ints("DW")) == \
+        (tfa._BM_W, tfa._BN_W, tfa._RING_W, tfa._DW) == (128, 128, 4, 64)
+    assert ints("BN") == tfa._BN_MMA == 32
+    assert ints("THREADS_W") == 384
+    assert "Q_TILE_W = BM_W * DW" in src and "KV_TILE_W = BN_W * DW" in src
+    assert "STAGE_BYTES_W = 2 * KV_TILE_W * (int)sizeof(bf16)" in src
+    assert "Q_TILE_W * (int)sizeof(bf16) + RING_W * STAGE_BYTES_W + 1024" \
+        in src
+    assert "bool wgmma_path(int D) { return D == DW; }" in src
+    assert "return 4 * BN * (D + 8) * (int)sizeof(bf16);" in src
+    # the turns of the two consumer warpgroups and the register-A p v
+    assert "bar_sync(mine, 256);" in src
+    assert "wgmma_m64n64k16_rs(pv, ph[j], vd, j > 0);" in src
+    assert "wgmma_bf16<BN_W, 0>(s," in src
+
+
+def test_bf16_mma_counter_is_a_kernel_counter():
+    assert kernels.KERNEL_COUNTERS["flash_attention_fwd_bf16_mma"] == (
+        tfa, "launches_bf16_mma")
+    tfa.launches_bf16_mma = 3
+    assert kernels.launch_counts()["flash_attention_fwd_bf16_mma"] == 3
+    kernels.reset_launches()
+    assert tfa.launches_bf16_mma == 0
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_bf16_on_cpu_counts_no_launch_on_either_path(D):
+    q, k, v = [torch.from_numpy(a).bfloat16()
+               for a in _qkv(1, 9, 2, D, seed=D)]
+    before = kernels.launch_counts()
+    o, lse = tfa.flash_attention_with_lse(q, k, v, causal=True)
+    assert kernels.launch_counts() == before
+    o_r, lse_r = tfa.flash_attention_reference(q, k, v, causal=True)
+    assert o.dtype == torch.bfloat16 and torch.equal(o, o_r)
+    assert torch.equal(lse, lse_r)

@@ -2,8 +2,12 @@
 plain version, causal and not, at ragged lengths and at every head dim's
 template (D 32 non-causal, D 64, D 128 causal), with a second launch that
 must equal the first bit for bit, and its refusal of misaligned operands;
-its bfloat16 face (pure AMP) at every head dim, causal and not, and the
-refusal of a mixed set of dtypes.
+its bfloat16 face (pure AMP) at every head dim, causal and not, on the
+path its rule takes (D 64 the TMA-fed wgmma kernel, at lengths on both
+sides of its 128-row tiles; D 32 and 128 the mma.sync kernel, counted
+apart), a batch beside NaN rows of the next one, the mma.sync kernel
+forced at D 64, the templates free of spills, and the refusal of a
+mixed set of dtypes.
 
 JAX-free, so that it runs where the card is. Tolerance: 2e-5 absolute on
 ``o`` and ``lse``, float32 on both sides; the kernel takes its products
@@ -22,6 +26,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from paddle_tpu_torch import kernels  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as tfa  # noqa: E402
 
 TOL = 2e-5
@@ -124,39 +129,121 @@ def test_kernel_refuses_misaligned_operands(cuda_device):
     assert tfa.launches == before
 
 
+def _check_bf16(o, lse, o_r, lse_r, what):
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    max_ulps, own_ulps, _ = bf16_errors(o.float().cpu().numpy(),
+                                        o_r.float().cpu().numpy())
+    assert max_ulps <= 1 and own_ulps <= 1, (what, max_ulps, own_ulps)
+    assert float((lse - lse_r).abs().max()) <= TOL, what
+
+
+# lengths of the bfloat16 face's cases: at D 64 (the wgmma kernel) on
+# both sides of its 128-row query and key tiles
+BF16_LENGTHS = {32: (1, 17, 130, 300), 64: (1, 17, 127, 128, 129, 300, 1024),
+                128: (1, 17, 130, 300)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_bfloat16_face_matches_plain_version(cuda_device, D, causal):
     # each case launched twice: the second must equal the first bit for
-    # bit; the float32 face is not launched
+    # bit; each launch counted on the counter of the path the rule takes
+    # (the library's own rule agrees with the mirror), the float32 face
+    # not launched
     torch.backends.cuda.matmul.allow_tf32 = False
-    for S in (1, 17, 130, 300):
+    path = tfa.fwd_bf16_path(D)
+    assert tfa.kernel_fwd_bf16_path(D) == path
+    assert tfa.kernel_fwd_smem_bytes(D, "bf16") == tfa.fwd_bf16_smem_bytes(D)
+    assert tfa.kernel_fwd_smem_bytes(D, "bf16_mma") == \
+        tfa.fwd_bf16_smem_bytes(D, "mma")
+    counters = ("flash_attention_fwd", "flash_attention_fwd_bf16",
+                "flash_attention_fwd_bf16_mma")
+    want = [0, 2, 0] if path == "wgmma" else [0, 0, 2]
+    for S in BF16_LENGTHS[D]:
         q, k, v = [torch.from_numpy(a).to(cuda_device).bfloat16()
                    for a in _qkv(2, S, 3, D, seed=S + D)]
-        before = (tfa.launches, tfa.launches_bf16)
+        before = kernels.launch_counts()
         o, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal)
         o2, lse2 = tfa.flash_attention_with_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        assert (tfa.launches, tfa.launches_bf16) == (before[0],
-                                                     before[1] + 2)
-        assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+        after = kernels.launch_counts()
+        assert [after[c] - before[c] for c in counters] == want, S
         assert torch.equal(o, o2) and torch.equal(lse, lse2)
         o_r, lse_r = tfa.flash_attention_reference(q, k, v, causal=causal)
-        max_ulps, own_ulps, _ = bf16_errors(o.float().cpu().numpy(),
-                                            o_r.float().cpu().numpy())
-        assert max_ulps <= 1 and own_ulps <= 1, (S, max_ulps, own_ulps)
-        assert float((lse - lse_r).abs().max()) <= TOL, S
+        _check_bf16(o, lse, o_r, lse_r, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [100, 129, 300])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bfloat16_face_reads_nothing_of_the_next_batch(cuda_device, S,
+                                                        causal):
+    # the wgmma kernel's tiles cross the end of S; the next batch's rows,
+    # NaN, must not reach the first batch's o and lse: they equal those of
+    # the first batch alone, bit for bit
+    q, k, v = [torch.from_numpy(a).to(cuda_device).bfloat16()
+               for a in _qkv(2, S, 3, 64, seed=S)]
+    for t in (q, k, v):
+        t[1] = float("nan")
+    o, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal)
+    alone = tfa.flash_attention_with_lse(
+        *(t[:1].contiguous() for t in (q, k, v)), causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o[:1], alone[0]) and torch.equal(lse[:1], alone[1])
+    assert bool(torch.isfinite(o[:1].float()).all())
+    o_r, lse_r = tfa.flash_attention_reference(
+        *(t[:1] for t in (q, k, v)), causal=causal)
+    _check_bf16(o[:1], lse[:1], o_r, lse_r, S)
+
+
+@pytest.mark.cuda
+def test_mma_kernel_forced_at_d64_matches_plain_version(cuda_device):
+    # the face's design before its wgmma kernel, which chip_smoke times
+    # beside it, on the same operands; counted nowhere
+    q, k, v = [torch.from_numpy(a).to(cuda_device).bfloat16()
+               for a in _qkv(2, 300, 3, 64, seed=9)]
+    before = kernels.launch_counts()
+    o, lse = tfa._launch_fwd(q, k, v, True, 64 ** -0.5, mma=True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == before
+    o_r, lse_r = tfa.flash_attention_reference(q, k, v, causal=True)
+    _check_bf16(o, lse, o_r, lse_r, "mma")
+
+
+@pytest.mark.cuda
+def test_bf16_templates_do_not_spill(cuda_device):
+    # the wgmma kernel and the mma.sync kernel's three templates:
+    # registers reported, no spill
+    from paddle_tpu_torch.kernels import _build
+    _build.load("flash_attention_fwd")
+    entries, name = {}, None
+    for ln in _build.build_log("flash_attention_fwd").splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+            entries[name] = []
+        elif name is not None and ("registers" in ln or "spill" in ln):
+            entries[name].append(ln)
+    bf16 = {k: v for k, v in entries.items()
+            if "flash_fwd_bf16_wgmma_kernel" in k
+            or "flash_fwd_bf16_mma_kernel" in k}
+    assert len(bf16) == 4, list(entries)
+    for k, lines in bf16.items():
+        assert any("registers" in ln for ln in lines), k
+        for ln in lines:
+            for part in ln.split(","):
+                if "spill" in part:
+                    assert part.split()[0] == "0", (k, ln)
 
 
 @pytest.mark.cuda
 def test_kernel_refuses_a_mixed_set_of_dtypes(cuda_device):
     q, k, v = [torch.from_numpy(a).to(cuda_device)
                for a in _qkv(1, 8, 1, 32, seed=6)]
-    before = (tfa.launches, tfa.launches_bf16)
+    before = kernels.launch_counts()
     with pytest.raises(ValueError, match="k torch.bfloat16") as e:
         tfa.flash_attention_with_lse(q, k.bfloat16(), v, causal=True)
     assert "q torch.float32" in str(e.value)
     with pytest.raises(ValueError, match="float16"):
         tfa.flash_attention_with_lse(q.half(), k.half(), v.half())
-    assert (tfa.launches, tfa.launches_bf16) == before
+    assert kernels.launch_counts() == before

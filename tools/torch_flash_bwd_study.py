@@ -269,6 +269,156 @@ BWD_VARIANTS = {
 }
 
 
+# the flash forward's wgmma kernel with clock64 marks: each consumer
+# warpgroup sums the cycles of its walk spent waiting for a stage (0),
+# waiting for its turn (1), on the previous tile's p v (2), from issuing
+# q k^T to holding s (3) and on the softmax (4), with its whole walk (5)
+# and its tiles (6), into a device array that flash_fwd_timeline copies
+# out (one row of 8 a warpgroup, blocks in launch order)
+FWD_TIMELINE = [
+    ("// 2^x on the special-function unit",
+     """__device__ unsigned long long g_timeline[4096][2][8];
+
+__device__ __forceinline__ unsigned long long clk() {
+  unsigned long long c;
+  asm volatile("mov.u64 %0, %%clock64;\\n" : "=l"(c));
+  return c;
+}
+
+// 2^x on the special-function unit"""),
+    ("    mbar_wait(&qfull, 0);\n",
+     "    mbar_wait(&qfull, 0);\n"
+     "    unsigned long long tl[8] = {0, 0, 0, 0, 0, 0, 0, 0}, t_a;\n"
+     "    const unsigned long long t_0 = clk();\n"),
+    ("""      mbar_wait(&full[st], (it / RING_W) & 1);
+      bar_sync(mine, 256);
+      if (it > 0) {
+        pv_issue((it - 1) % RING_W, phi, plo);
+        wgmma_wait<0>();
+        pv_done((it - 1) % RING_W, phi, plo);
+      }
+""", """      t_a = clk();
+      mbar_wait(&full[st], (it / RING_W) & 1);
+      tl[0] += clk() - t_a;
+      t_a = clk();
+      bar_sync(mine, 256);
+      tl[1] += clk() - t_a;
+      t_a = clk();
+      if (it > 0) {
+        pv_issue((it - 1) % RING_W, phi, plo);
+        wgmma_wait<0>();
+        pv_done((it - 1) % RING_W, phi, plo);
+      }
+      tl[2] += clk() - t_a;
+      t_a = clk();
+"""),
+    ("""      wgmma_wait<0>();
+      wgmma_fence_operands(s);
+      softmax(it, phi, plo);
+    }
+""", """      wgmma_wait<0>();
+      wgmma_fence_operands(s);
+      tl[3] += clk() - t_a;
+      t_a = clk();
+      softmax(it, phi, plo);
+      tl[4] += clk() - t_a;
+    }
+"""),
+    ("""    rescale_add(alpha[0], alpha[1]);
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {""",
+     """    rescale_add(alpha[0], alpha[1]);
+    tl[5] = clk() - t_0;
+    tl[6] = n_tiles;
+    if (threadIdx.x % 128 == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        g_timeline[(blockIdx.x * gridDim.y + blockIdx.y) % 4096][wq][i] =
+            tl[i];
+    }
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {"""),
+    ("const char* error_string(int code) {",
+     """int flash_fwd_timeline(void* dst, int bytes) {
+  return (int)cudaMemcpyFromSymbol(dst, g_timeline, bytes);
+}
+
+const char* error_string(int code) {"""),
+]
+
+# the flash forward wgmma kernel's consumer loop as the source has it
+# (turns between the two warpgroups), and the overlap within one
+# warpgroup that the intra_wg variant puts in its place
+FWD_PINGPONG_LOOP = """\
+    const int mine = 1 + wq, other = 2 - wq;
+    if (wq == 1) bar_arrive(1, 256);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % RING_W;
+      mbar_wait(&full[st], (it / RING_W) & 1);
+      bar_sync(mine, 256);
+      if (it > 0) {
+        pv_issue((it - 1) % RING_W, phi, plo);
+        wgmma_wait<0>();
+        pv_done((it - 1) % RING_W, phi, plo);
+      }
+      qk_issue(st);
+      bar_arrive(other, 256);
+      if (it > 0) rescale_add(alpha[0], alpha[1]);
+      wgmma_wait<0>();
+      wgmma_fence_operands(s);
+      softmax(it, phi, plo);
+    }
+    // the last tile's p v, in a turn of its own; every turn of warpgroup
+    // 1 meets one of warpgroup 2, whose last turn hands nothing on
+    bar_sync(mine, 256);
+    pv_issue((n_tiles - 1) % RING_W, phi, plo);
+    wgmma_wait<0>();
+    pv_done((n_tiles - 1) % RING_W, phi, plo);
+    if (wq == 0) bar_arrive(other, 256);
+    rescale_add(alpha[0], alpha[1]);
+"""
+FWD_INTRA_WG_LOOP = """\
+    uint32_t ph2[KS][4], pl2[KS][4];
+    mbar_wait(&full[0], 0);
+    qk_issue(0);
+    wgmma_wait<0>();
+    wgmma_fence_operands(s);
+    softmax(0, phi, plo);
+    auto step = [&](int it, uint32_t(&ph)[KS][4], uint32_t(&pl)[KS][4],
+                    uint32_t(&nh)[KS][4], uint32_t(&nl)[KS][4]) INLINE {
+      const int st = it % RING_W, sp = (it - 1) % RING_W;
+      mbar_wait(&full[st], (it / RING_W) & 1);
+      qk_issue(st);
+      pv_issue(sp, ph, pl);
+      wgmma_wait<1>();
+      wgmma_fence_operands(s);
+      const float a0 = alpha[0], a1 = alpha[1];
+      softmax(it, nh, nl);
+      wgmma_wait<0>();
+      pv_done(sp, ph, pl);
+      rescale_add(a0, a1);
+    };
+    auto last = [&](uint32_t(&ph)[KS][4], uint32_t(&pl)[KS][4]) INLINE {
+      const int sp = (n_tiles - 1) % RING_W;
+      pv_issue(sp, ph, pl);
+      wgmma_wait<0>();
+      pv_done(sp, ph, pl);
+      rescale_add(alpha[0], alpha[1]);
+    };
+    int it = 1;
+    for (; it + 1 < n_tiles; it += 2) {
+      step(it, phi, plo, ph2, pl2);
+      step(it + 1, ph2, pl2, phi, plo);
+    }
+    if (it < n_tiles) {
+      step(it, phi, plo, ph2, pl2);
+      last(ph2, pl2);
+    } else {
+      last(phi, plo);
+    }
+"""
 FWD_VARIANTS = {
     "p_once": P_ONCE,
     "tf32_once": COMMON["tf32_once"] + [
@@ -295,6 +445,88 @@ FWD_VARIANTS = {
                    "constexpr bool Q_IN_REGS = false;")],
     "min_blocks3": [("__launch_bounds__(THREADS)\nflash_fwd_kernel",
                      "__launch_bounds__(THREADS, 3)\nflash_fwd_kernel")],
+    # the bfloat16 face's wgmma kernel (D 64)
+    "no_pingpong": [
+        ("      bar_sync(mine, 256);\n      if (it > 0) {\n",
+         "      if (it > 0) {\n"),
+        ("      bar_arrive(other, 256);\n", ""),
+        ("    bar_sync(mine, 256);\n    pv_issue(", "    pv_issue("),
+        ("    if (wq == 0) bar_arrive(other, 256);\n", ""),
+        ("    if (wq == 1) bar_arrive(1, 256);\n", "")],
+    "p_once_wgmma": [
+        ("        wgmma_m64n64k16_rs(pv, pl[j], vd, true);\n", "")],
+    # the other overlap: within each warpgroup, tile it's q k^T and tile
+    # it - 1's p v issued together and tile it's softmax run under the
+    # p v (p double-buffered in registers), no turns between warpgroups
+    "intra_wg": [(FWD_PINGPONG_LOOP, FWD_INTRA_WG_LOOP)],
+    # the same on 64-key tiles, whose s and two p buffers fit the 168
+    # registers ptxas gives a thread of a 384-thread block
+    "intra_wg_bn64": [(FWD_PINGPONG_LOOP, FWD_INTRA_WG_LOOP),
+                      ("constexpr int BN_W = 128;", "constexpr int BN_W = 64;")],
+    # the same on 128-key tiles with the consumers asking for 240
+    # registers and the producer keeping 24
+    "intra_wg_240": [(FWD_PINGPONG_LOOP, FWD_INTRA_WG_LOOP),
+                     ("constexpr int PRODUCER_REGS_W = 40;",
+                      "constexpr int PRODUCER_REGS_W = 24;"),
+                     ("constexpr int CONSUMER_REGS_W = 232;",
+                      "constexpr int CONSUMER_REGS_W = 240;")],
+    "bn64_wgmma": [("constexpr int BN_W = 128;", "constexpr int BN_W = 64;")],
+    "timeline": FWD_TIMELINE,
+    # timing only: lo taken as zero (its conversion and subtraction gone,
+    # its products kept), so the outputs are p's hi alone; what the split
+    # costs the softmax, apart from the products it adds
+    "lo_zero": [("          split_bf16(p0, p1, ph[j][r], pl[j][r]);", """\
+          ph[j][r] = pack_bf16(p0, p1);
+          pl[j][r] = 0u;""")],
+    # each row half's maximum in four chains of 16 instead of two of 32
+    "max_tree": [("""      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+""", """      float mx4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        mx4[(i >> 1) & 3] = fmaxf(mx4[(i >> 1) & 3], s[i]);
+      const float mx[2] = {fmaxf(mx4[0], mx4[2]), fmaxf(mx4[1], mx4[3])};
+""")],
+    # the row sum takes p0 + p1 as one add: a chain half as long
+    "den_pairs": [("""          den[r & 1] += p0;
+          den[r & 1] += p1;
+""", """          den[r & 1] += p0 + p1;
+""")],
+    # p's hi on the FMA pipe (Veltkamp's split by 2^16 + 1: hi rounded to
+    # nearest at 8 significant bits, packed by a byte permute) and only lo
+    # converted: one conversion a pair instead of two
+    "hi_fma": [("          split_bf16(p0, p1, ph[j][r], pl[j][r]);", """\
+          {
+            const float c0 = __fmul_rn(p0, 65537.f);
+            const float c1 = __fmul_rn(p1, 65537.f);
+            const float h0 = __fsub_rn(c0, __fsub_rn(c0, p0));
+            const float h1 = __fsub_rn(c1, __fsub_rn(c1, p1));
+            ph[j][r] = __byte_perm(__float_as_uint(h0), __float_as_uint(h1),
+                                   0x7632);
+            pl[j][r] = pack_bf16(__fsub_rn(p0, h0), __fsub_rn(p1, h1));
+          }""")],
+    # lo truncated to bfloat16 by a byte permute instead of rounded: no
+    # conversion for lo (p then carries 16 bits, not 17)
+    "lo_trunc": [("          split_bf16(p0, p1, ph[j][r], pl[j][r]);", """\
+          {
+            const __nv_bfloat162 hh = __floats2bfloat162_rn(p0, p1);
+            ph[j][r] = *reinterpret_cast<const uint32_t*>(&hh);
+            pl[j][r] = __byte_perm(
+                __float_as_uint(__fsub_rn(p0, __low2float(hh))),
+                __float_as_uint(__fsub_rn(p1, __high2float(hh))), 0x7632);
+          }""")],
+    "ring2": [("constexpr int RING_W = 4;", "constexpr int RING_W = 2;")],
+    "ring3": [("constexpr int RING_W = 4;", "constexpr int RING_W = 3;")],
+    # timing only: p taken as the exponent itself (no ex2), so the
+    # outputs are wrong; what the exponentials cost
+    "no_exp": [("          const float p0 = ex2(fmaf(s[i], scale_log2, "
+                "neg_m[r & 1]));\n          const float p1 = ex2(fmaf(s[i + 1],"
+                " scale_log2, neg_m[r & 1]));\n",
+                "          const float p0 = fmaf(s[i], scale_log2, "
+                "neg_m[r & 1]);\n          const float p1 = fmaf(s[i + 1], "
+                "scale_log2, neg_m[r & 1]);\n")],
 }
 # variants of the bfloat16 face's wgmma kernel (the float32 face as in
 # the source)
@@ -720,6 +952,8 @@ def ptxas_summary(log):
             out[cur] = regs + " registers" + out.get(cur, "")
         elif cur and "spill" in ln and "0 bytes spill stores" not in ln:
             out[cur] = out.get(cur, "") + ", " + ln.strip()
+        elif "Performance Loss" in ln or "setmaxnreg" in ln:
+            out.setdefault("performance_loss", []).append(ln.strip())
     return out
 
 
@@ -770,6 +1004,29 @@ def time_ms(fn, flush, iters=20, warmup=3, by_read=False):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, flush, iters=20):
+    """Mean device ms of the kernels ``fn`` launches (torch.profiler; the
+    flush's fill kernel left out), the L2 flushed before each call: the
+    kernels alone, without the host's time to reach them, which CUDA
+    events around a short launch also read."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                "Fill" in e.key:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        total += (e.self_cuda_time_total if t is None else t) / 1e3
+    return total / iters
 
 
 class using:
@@ -856,6 +1113,7 @@ def study_bwd(libs, result, dev, flush):
     want = fa.flash_attention_bwd_reference(
         *(t.double() for t in (q, k, v, o, lse, do)), causal=True)
     delta = fa._delta(o, do, None).contiguous()
+    source_got = None
     for name, lib in libs.items():
         if not hasattr(lib, "flash_attention_bwd_dq_bf16"):
             continue
@@ -864,6 +1122,14 @@ def study_bwd(libs, result, dev, flush):
             torch.cuda.synchronize()
             rec = {n: float((g.double() - w).abs().max() / w.abs().max())
                    for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+            # the bfloat16 faces' outputs against the source's, given the
+            # same o and lse (with --against: a change left them as they
+            # were)
+            if name == "source":
+                source_got = got
+            elif source_got is not None:
+                rec["bit_identical_to_source"] = all(
+                    torch.equal(g, s) for g, s in zip(got, source_got))
             args = (q, k, v, do, lse, delta, True, D ** -0.5)
             rec["dkv_ms"] = time_ms(lambda: fa._bwd_dkv(*args), flush)
             rec["dq_ms"] = time_ms(lambda: fa._bwd_dq(*args), flush)
@@ -906,27 +1172,50 @@ def study_fwd(libs, result, dev, flush):
             print(json.dumps({name: {tag: rec}}), flush=True)
         del q, k, v, o_want, lse_want
         torch.cuda.empty_cache()
-    # the bfloat16 face at the LM step's shape, against the float64
-    # forward on the same bfloat16 values (a parent's library without it
-    # is skipped)
-    q, k, v = _bf16_inputs(rng, (8, 1024, 12, 64), 3, dev)
-    o_want, lse_want = fa.flash_attention_reference(
-        *(t.double() for t in (q, k, v)), causal=True)
-    for name, lib in libs.items():
-        if not hasattr(lib, "flash_attention_fwd_bf16"):
-            continue
-        with using("flash_attention_fwd", lib):
-            o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
-            torch.cuda.synchronize()
-            rec = {"o": float((o.double() - o_want).abs().max()
-                              / o_want.abs().max()),
-                   "lse": float((lse.double() - lse_want).abs().max()),
-                   "ms": time_ms(lambda: fa.flash_attention_with_lse(
-                       q, k, v, causal=True), flush)}
-        result[name]["bf16_B8_S1024"] = rec
-        print(json.dumps({name: {"bf16_B8_S1024": rec}}), flush=True)
-    del q, k, v, o_want, lse_want
-    torch.cuda.empty_cache()
+    # the bfloat16 face at the LM step's shape and the prefill's, against
+    # the float64 forward on the same bfloat16 values (a parent's library
+    # without it is skipped; a parent's face at D 64 is the mma.sync
+    # kernel); the source's mma.sync kernel forced at D 64 and SDPA on
+    # bfloat16 beside them
+    F = torch.nn.functional
+    for B in (8, 1):
+        tag = "bf16_B%d_S1024" % B
+        q, k, v = _bf16_inputs(rng, (B, 1024, 12, 64), 3, dev)
+        o_want, lse_want = fa.flash_attention_reference(
+            *(t.double() for t in (q, k, v)), causal=True)
+        for name, lib in libs.items():
+            if not hasattr(lib, "flash_attention_fwd_bf16"):
+                continue
+            with using("flash_attention_fwd", lib):
+                o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+                torch.cuda.synchronize()
+                rec = {"o": float((o.double() - o_want).abs().max()
+                                  / o_want.abs().max()),
+                       "lse": float((lse.double() - lse_want).abs().max()),
+                       "ms": time_ms(lambda: fa.flash_attention_with_lse(
+                           q, k, v, causal=True), flush),
+                       "device_ms": device_ms(
+                           lambda: fa.flash_attention_with_lse(
+                               q, k, v, causal=True), flush)}
+                if name == "source":
+                    def mma():
+                        return fa._launch_fwd(q, k, v, True, 64 ** -0.5,
+                                              mma=True)
+                    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+
+                    def sdpa():
+                        return F.scaled_dot_product_attention(
+                            qh, kh, vh, is_causal=True)
+                    rec["mma_forced_ms"] = time_ms(mma, flush)
+                    rec["mma_forced_device_ms"] = device_ms(mma, flush)
+                    rec["sdpa_ms"] = time_ms(sdpa, flush)
+                    rec["sdpa_device_ms"] = device_ms(sdpa, flush)
+            result[name][tag] = rec
+            print(json.dumps({name: {tag: rec}}), flush=True)
+        del q, k, v, o_want, lse_want
+        torch.cuda.empty_cache()
+
+    _fwd_timeline(libs, result, dev)
 
     def fwd(q, k, v, do, causal):
         return fa.flash_attention_with_lse(q, k, v, causal=causal)
@@ -936,6 +1225,45 @@ def study_fwd(libs, result, dev, flush):
         result[name]["bit_identical_to_source"] = same
         print(json.dumps({name: {"bit_identical_to_source": same}}),
               flush=True)
+
+
+def _fwd_timeline(libs, result, dev):
+    """Where a tile's cycles go in the bfloat16 face's wgmma kernel
+    (variant ``timeline``): at B 8 and B 1 (S 1024, H 12, D 64, causal),
+    each consumer warpgroup's cycles a tile waiting for a stage, for its
+    turn, on p v, from q k^T's issue to s, on the softmax, and its whole
+    walk a tile, over all blocks; and the walk's cycles of the blocks of
+    the longest walk."""
+    lib = libs.get("timeline")
+    if lib is None:
+        return
+    rng = np.random.RandomState(5)
+    fn = lib.flash_fwd_timeline
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    names = ("stage_wait", "turn_wait", "pv", "qk_to_s", "softmax")
+    for B in (8, 1):
+        q, k, v = _bf16_inputs(rng, (B, 1024, 12, 64), 3, dev)
+        with using("flash_attention_fwd", lib):
+            fa.flash_attention_with_lse(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            buf = np.zeros((4096, 2, 8), np.uint64)
+            _build.check(lib, fn(buf.ctypes.data, buf.nbytes), "timeline")
+        used = buf[:B * 12 * 8].astype(np.float64)
+        tiles = used[:, :, 6].sum()
+        rec = {n: float(used[:, :, i].sum() / tiles)
+               for i, n in enumerate(names)}
+        rec["walk_per_tile"] = float(used[:, :, 5].sum() / tiles)
+        longest = used[used[:, 0, 6] == used[:, 0, 6].max()]
+        rec["longest_walk_tiles"] = int(longest[0, 0, 6])
+        rec["longest_walk_cycles_mean"] = float(longest[:, :, 5].mean())
+        rec["sm_clock_mhz"] = torch.cuda.get_device_properties(
+            dev).clock_rate / 1e3 if hasattr(
+            torch.cuda.get_device_properties(dev), "clock_rate") else None
+        result["timeline"]["cycles_per_tile_B%d" % B] = rec
+        print(json.dumps({"timeline": {"cycles_per_tile_B%d" % B: rec}}),
+              flush=True)
+        del q, k, v
 
 
 def _parent_bf16(lib, x, w, t):
@@ -1567,6 +1895,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", nargs="+", choices=sorted(STUDIES),
                     default=["bwd"])
+    ap.add_argument("--variants", nargs="+", metavar="NAME",
+                    help="build only these variants beside the source "
+                    "(default: all of each kernel's)")
     ap.add_argument("--against", metavar="DIR",
                     help="the root of another checkout whose source of "
                     "each kernel is built as the variant 'against'")
@@ -1580,6 +1911,9 @@ def main():
     for kernel in args.kernel:
         name, variants, study, common = STUDIES[kernel]
         sources = variant_sources(name, variants, common)
+        if args.variants:
+            sources = {v: t for v, t in sources.items()
+                       if v == "source" or v in args.variants}
         if args.against:
             sources["against"] = against_sources(args.against, name)
         libs, ptxas = build(name, sources)
