@@ -1489,25 +1489,28 @@ def _lm_train(dev, label, after=None, want_matmul=0,
             prof_wall = time.monotonic() - t1
         profile_window = _device_kernels(prof, prof_wall)
         profile_window["steps"] = 2
-        flash_kernels = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                         "flash_bwd_dq_kernel", "flash_fwd_bf16_wgmma_kernel",
-                         "flash_fwd_bf16_mma_kernel",
-                         "flash_bwd_dkv_bf16_kernel",
-                         "flash_bwd_dq_bf16_kernel")
         for kernel in ("matmul_kernel", "matmul_bf16_wgmma_kernel",
-                       "matmul_bf16_ragged_kernel") + flash_kernels:
+                       "matmul_bf16_ragged_kernel") + FLASH_KERNELS:
             profile_window[kernel] = _kernel_share(prof, kernel)
         profile_window["flash_ms"] = sum(profile_window[k]["ms"]
-                                         for k in flash_kernels)
+                                         for k in FLASH_KERNELS)
         if amp == "pure":
-            # the forward's wgmma kernel in the profile, 24 launches a step
-            # and none of the mma.sync path
-            got = (profile_window["flash_fwd_bf16_wgmma_kernel"]["count"],
-                   profile_window["flash_fwd_bf16_mma_kernel"]["count"])
-            if got != (2 * 2 * L, 0):
-                fail("%s profile shows %d flash_fwd_bf16_wgmma_kernel and %d "
-                     "flash_fwd_bf16_mma_kernel launches over two steps, "
-                     "expected %d and 0" % (label, got[0], got[1], 4 * L))
+            # the faces' wgmma kernels in the profile (over two steps: 24
+            # forwards a step, 12 of each backward kernel) and none of
+            # the mma.sync path
+            for kernel, n in (("flash_fwd_bf16", 4 * L),
+                              ("flash_bwd_dkv_bf16", 2 * L),
+                              ("flash_bwd_dq_bf16", 2 * L)):
+                got = (profile_window[kernel + "_wgmma_kernel"]["count"],
+                       profile_window[kernel + "_mma_kernel"]["count"])
+                if got != (n, 0):
+                    fail("%s profile shows %d %s_wgmma_kernel and %d "
+                         "%s_mma_kernel launches over two steps, expected "
+                         "%d and 0" % (label, got[0], kernel, got[1],
+                                       kernel, n))
+            profile_window["bwd_bf16_ms"] = sum(
+                profile_window[k]["ms"] for k in FLASH_KERNELS
+                if k.startswith("flash_bwd_d") and "_bf16_" in k)
             profile_window["parent_face"] = _parent_face_window(trainer,
                                                                 spec)
         extra = after(cfg, global_scope()) if after else None
@@ -1537,19 +1540,23 @@ def _lm_train(dev, label, after=None, want_matmul=0,
 
 def _parent_face_window(trainer, spec):
     """Two more profiled steps of the pure-AMP LM with each bfloat16
-    flash forward sent to the mma.sync kernel (the face's design before
-    its wgmma kernel, the parent's source under a new name): the device
-    time and the forward's share beside the face's, in the same run. A
-    measurement only: the main path's launches were read before it."""
+    flash forward, dK/dV and dQ sent to the mma.sync kernels (the faces'
+    design before their wgmma kernels, the parents' sources under new
+    names): the device time and the faces' shares beside theirs, in the
+    same run. A measurement only: the main path's launches were read
+    before it."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.kernels import flash_attention as fa
-    launch = fa._launch_fwd
+    saved = {n: getattr(fa, n) for n in ("_launch_fwd", "_bwd_dkv",
+                                         "_bwd_dq")}
 
-    def mma_launch(q, k, v, causal, scale, mma=False):
-        return launch(q, k, v, causal, scale,
-                      mma=mma or q.dtype == torch.bfloat16)
+    def forced(fn):
+        def call(q, *args, mma=False):
+            return fn(q, *args, mma=mma or q.dtype == torch.bfloat16)
+        return call
 
-    fa._launch_fwd = mma_launch
+    for n, fn in saved.items():
+        setattr(fa, n, forced(fn))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1558,12 +1565,27 @@ def _parent_face_window(trainer, spec):
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
     finally:
-        fa._launch_fwd = launch
+        for n, fn in saved.items():
+            setattr(fa, n, fn)
     window = _device_kernels(prof, wall)
     window["steps"] = 2
-    for kernel in ("flash_fwd_bf16_wgmma_kernel", "flash_fwd_bf16_mma_kernel"):
-        window[kernel] = _kernel_share(prof, kernel)
+    for kernel in FLASH_KERNELS:
+        if "_bf16_" in kernel:
+            window[kernel] = _kernel_share(prof, kernel)
+    window["bwd_bf16_ms"] = sum(
+        window[k]["ms"] for k in window if k.startswith("flash_bwd_d"))
     return window
+
+
+# the flash kernels by name in a profile: the float32 faces', then the
+# bfloat16 faces' on both paths
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                 "flash_bwd_dq_kernel", "flash_fwd_bf16_wgmma_kernel",
+                 "flash_fwd_bf16_mma_kernel",
+                 "flash_bwd_dkv_bf16_wgmma_kernel",
+                 "flash_bwd_dkv_bf16_mma_kernel",
+                 "flash_bwd_dq_bf16_wgmma_kernel",
+                 "flash_bwd_dq_bf16_mma_kernel")
 
 
 def _kernel_share(prof, name):
@@ -3574,16 +3596,15 @@ def _amp_flash_check(dev, flush):
     second launch bit-identical), the bfloat16-score forward shown to
     miss, the error of faces that round p and ds to one bfloat16
     reported; at B 8 and B 1 the kernels', the plain versions' and SDPA's
-    (on bfloat16) times and the bfloat16 bound; every template's
-    registers, spills and shared memory. Returns the three entries of
-    the kernels line."""
+    (on bfloat16) times and the bfloat16 bound, and the backward's
+    parent design (its mma.sync kernels forced at D 64) and device
+    times beside them; at the D 128 case the mma.sync path's times;
+    every template's registers, spills and shared memory, each path held
+    to its mirror. Returns the six entries of the kernels line."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_attention as fa
     F = torch.nn.functional
-    bwd_lib = _build.load("flash_attention_bwd")
-    bwd_lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
-    bwd_lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
     rng = np.random.RandomState(14)
     per_case = {}
     for B, S, H, D, causal in FLASH_BF16_CASES:
@@ -3605,15 +3626,28 @@ def _amp_flash_check(dev, flush):
         if counts != want_counts:
             fail("flash bf16 forward at D %d (%s path) counted %s, expected "
                  "%s" % (D, path, counts, want_counts))
+        # the backward's path likewise: both kernels, twice each
+        bwd_path = fa.bwd_bf16_path(D)
+        if fa.kernel_bwd_bf16_path(D) != bwd_path:
+            fail("flash bf16 backward at D %d takes the %s path, its mirror "
+                 "says %s" % (D, fa.kernel_bwd_bf16_path(D), bwd_path))
+        kernels.reset_launches()
         grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        counts = {n: c for n, c in kernels.launch_counts().items() if c}
+        tail = "" if bwd_path == "wgmma" else "_mma"
+        want_counts = {"flash_attention_bwd_dkv_bf16" + tail: 2,
+                       "flash_attention_bwd_dq_bf16" + tail: 2}
+        if counts != want_counts:
+            fail("flash bf16 backward at D %d (%s path) counted %s, "
+                 "expected %s" % (D, bwd_path, counts, want_counts))
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=causal)
         want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
                                                 causal=causal)
         torch.cuda.synchronize()
         case = "B%d_S%d_D%d_%s" % (B, S, D, "causal" if causal else "full")
         rec = {"B": B, "S": S, "H": H, "D": D, "causal": causal,
-               "fwd_path": path,
+               "fwd_path": path, "bwd_path": bwd_path,
                "lse_max_abs_err": float((lse - lse_ref).abs().max()),
                "lse_tolerance": KERNEL_TOL,
                "relaunch_bit_identical": {
@@ -3656,25 +3690,29 @@ def _amp_flash_check(dev, flush):
         del po, pg, o2, lse2, again
         rec["smem_bytes"] = {
             "fwd": fa.kernel_fwd_smem_bytes(D, "bf16"),
-            "dkv": bwd_lib.flash_attention_bwd_smem_bytes(D, 0, 1),
-            "dq": bwd_lib.flash_attention_bwd_smem_bytes(D, 1, 1)}
-        if rec["smem_bytes"]["fwd"] != fa.fwd_bf16_smem_bytes(D):
-            fail("flash bf16 forward at D %d takes %d bytes of shared "
-                 "memory, its mirror says %d" % (
-                     D, rec["smem_bytes"]["fwd"], fa.fwd_bf16_smem_bytes(D)))
+            "dkv": fa.kernel_bwd_smem_bytes(D, "dkv", "bf16"),
+            "dq": fa.kernel_bwd_smem_bytes(D, "dq", "bf16")}
+        mirror = {"fwd": fa.fwd_bf16_smem_bytes(D),
+                  "dkv": fa.bwd_bf16_smem_bytes(D, "dkv"),
+                  "dq": fa.bwd_bf16_smem_bytes(D, "dq")}
+        if rec["smem_bytes"] != mirror:
+            fail("the flash bf16 faces at D %d take %s bytes of shared "
+                 "memory, their mirrors say %s" % (D, rec["smem_bytes"],
+                                                   mirror))
         rec["ptxas"] = {
             "fwd": _ptxas("flash_attention_fwd",
                           "flash_fwd_bf16_wgmma_kernel" if path == "wgmma"
                           else "flash_fwd_bf16_mma_kernelILi%dE" % D),
-            "dkv": _ptxas("flash_attention_bwd",
-                          "flash_bwd_dkv_bf16_kernelILi%dE" % D),
-            "dq": _ptxas("flash_attention_bwd",
-                         "flash_bwd_dq_bf16_kernelILi%dE" % D)}
-        if not rec["ptxas"]["fwd"] or any(
-                part.split()[0] != "0" for ln in rec["ptxas"]["fwd"]
-                for part in ln.split(",") if "spill" in part):
-            fail("the flash bf16 forward's template at D %d spills (or has "
-                 "no ptxas lines): %s" % (D, rec["ptxas"]["fwd"]))
+            **{which: _ptxas("flash_attention_bwd",
+                             "flash_bwd_%s_bf16_wgmma_kernel" % which
+                             if bwd_path == "wgmma" else
+                             "flash_bwd_%s_bf16_mma_kernelILi%dE" % (which, D))
+               for which in ("dkv", "dq")}}
+        for which, lines in rec["ptxas"].items():
+            if not lines or any(part.split()[0] != "0" for ln in lines
+                                for part in ln.split(",") if "spill" in part):
+                fail("the flash bf16 %s template at D %d spills (or has no "
+                     "ptxas lines): %s" % (which, D, lines))
         # the forward at every case: kernel, the face's parent design (the
         # mma.sync kernel, forced at D 64), plain, SDPA on bfloat16, bound
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
@@ -3709,7 +3747,10 @@ def _amp_flash_check(dev, flush):
                     lambda: F.scaled_dot_product_attention(
                         qh, kh, vh, is_causal=causal), flush)})
         del qh, kh, vh
-        if S == 1024:
+        if S == 1024 or D == 128:
+            # the backward at the LM step's and the prefill's shapes (the
+            # wgmma path, its parent design beside it), and at the D 128
+            # case (the mma.sync path)
             delta = fa._delta(o, do, None).contiguous()
             pairs = S * (S + 1) // 2 if causal else S * S
             head, vec = S * D * 2, S * 4
@@ -3722,23 +3763,38 @@ def _amp_flash_check(dev, flush):
             lib_out = F.scaled_dot_product_attention(qh, kh, vh,
                                                      is_causal=causal)
             doh = do.transpose(1, 2)
+            args = (q, k, v, do, lse, delta, causal, scale)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+                                           retain_graph=True)
             rec["times"] = {
-                "dkv_ms": time_ms(lambda: fa._bwd_dkv(
-                    q, k, v, do, lse, delta, causal, scale), flush=flush),
-                "dq_ms": time_ms(lambda: fa._bwd_dq(
-                    q, k, v, do, lse, delta, causal, scale), flush=flush),
+                "dkv_ms": time_ms(lambda: fa._bwd_dkv(*args), flush=flush),
+                "dq_ms": time_ms(lambda: fa._bwd_dq(*args), flush=flush),
                 "bwd_plain_ms": time_ms(
                     lambda: fa.flash_attention_bwd_reference(
                         q, k, v, o, lse, do, causal=causal), flush=flush),
-                "bwd_library_ms": time_ms(lambda: torch.autograd.grad(
-                    lib_out, (qh, kh, vh), doh, retain_graph=True),
-                    flush=flush)}
+                "bwd_library_ms": time_ms(sdpa_bwd, flush=flush)}
+            if bwd_path == "wgmma":
+                # the faces' parent design: the mma.sync kernels forced at
+                # D 64, same operands; and every time by the profiler too
+                t = rec["times"]
+                for which, fn in (("dkv", fa._bwd_dkv), ("dq", fa._bwd_dq)):
+                    t[which + "_parent_ms"] = time_ms(
+                        lambda: fn(*args, mma=True), flush=flush)
+                    t[which + "_device_ms"] = _device_ms(
+                        lambda: fn(*args),
+                        "flash_bwd_%s_bf16_wgmma_kernel" % which, flush)
+                    t[which + "_parent_device_ms"] = _device_ms(
+                        lambda: fn(*args, mma=True),
+                        "flash_bwd_%s_bf16_mma_kernel" % which, flush)
+                t["bwd_library_device_ms"] = _device_ms_all(sdpa_bwd, flush)
             rec["bound"] = {}
             for kname, (nbytes, flops) in work.items():
                 b_ms, b_by = bf16_bound(nbytes, flops)
                 rec["bound"][kname] = {"ms": b_ms, "by": b_by,
                                        "bytes": nbytes, "flops": flops}
-            del delta, qh, kh, vh, lib_out
+            del delta, qh, kh, vh, lib_out, args
         log(json.dumps({"flash_bf16_check": {case: rec}}))
         per_case[case] = rec
         del q, k, v, do, o, lse, grads, o_ref, lse_ref, want
@@ -3755,23 +3811,26 @@ def _amp_flash_check(dev, flush):
             ("flash_attention_fwd_bf16", 119, "fwd", ("o",), 1.5),
             ("flash_attention_fwd_bf16_mma", 119, "fwd_mma", ("o",), 1.5),
             ("flash_attention_bwd_dkv_bf16", 231, "dkv", ("dk", "dv"), 1.5),
-            ("flash_attention_bwd_dq_bf16", 254, "dq", ("dq",), 4 / 3)):
+            ("flash_attention_bwd_dq_bf16", 254, "dq", ("dq",), 4 / 3),
+            ("flash_attention_bwd_dkv_bf16_mma", 231, "dkv_mma",
+             ("dk", "dv"), 1.5),
+            ("flash_attention_bwd_dq_bf16_mma", 254, "dq_mma", ("dq",),
+             4 / 3)):
         fwd = key.startswith("fwd")
+        mma = key.endswith("_mma")
         cases = {c: r for c, r in per_case.items()
-                 if not fwd or r["fwd_path"] == ("wgmma" if key == "fwd"
-                                                 else "mma")}
+                 if r["fwd_path" if fwd else "bwd_path"] ==
+                 ("mma" if mma else "wgmma")}
         entry = {
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/flash_attention_%s.cu"
                       % ("fwd" if fwd else "bwd"),
             "replaces": "paddle_tpu/kernels/flash_attention.py:%d" % line,
             "role": "the bfloat16 face (pure AMP): bfloat16 q, k, v%s, "
-                    "float32 arithmetic, %s rounded once to bfloat16%s"
+                    "float32 arithmetic, %s rounded once to bfloat16; %s"
                     % ("" if fwd else " and dO", "/".join(what),
-                       {"fwd": "; D 64: the TMA-fed, warp-specialised "
-                               "wgmma kernel",
-                        "fwd_mma": "; D 32 and 128: the mma.sync kernel"}
-                       .get(key, "")),
+                       "D 32 and 128: the mma.sync kernel" if mma else
+                       "D 64: the TMA-fed, warp-specialised wgmma kernel"),
             "max_abs_err": max(r[n]["max_abs_err"] for r in cases.values()
                                for n in what),
             "max_err_over_tol": max(max(r[n]["err_over_max_ulp"],
@@ -3799,16 +3858,23 @@ def _amp_flash_check(dev, flush):
                             "kernels",
             "per_case": {c: {n: r[n] for n in what}
                          for c, r in cases.items()}}
+        d128 = {"B": 2, "H": 12, "D": 128, "causal": True, "S": 130}
         if key == "fwd_mma":
             t = mma_case["fwd_times"]
             entry.update({
                 "main_path": False,
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"],
-                "shape": {"B": 2, "H": 12, "D": 128, "causal": True,
-                          "S": 130},
+                "library_ms": t["library_ms"], "shape": d128,
                 "per_case_ms": {c: r["fwd_times"] for c, r in cases.items()}})
+        elif mma:
+            t, kind = mma_case["times"], key[:-4]
+            entry.update({
+                "main_path": False,
+                "ms": t[kind + "_ms"], "plain_ms": t["bwd_plain_ms"],
+                "bound_ms": mma_case["bound"][kind]["ms"],
+                "bound_by": mma_case["bound"][kind]["by"],
+                "library_ms": t["bwd_library_ms"], "shape": d128})
         elif key == "fwd":
             t, t1 = lm["fwd_times"], prefill["fwd_times"]
             entry.update({
@@ -3830,19 +3896,29 @@ def _amp_flash_check(dev, flush):
                     "library_device_ms")},
                 "per_case_ms": {c: r["fwd_times"] for c, r in cases.items()}})
         else:
+            t, t1 = lm["times"], prefill["times"]
             entry.update({
-                "ms": lm["times"][key + "_ms"],
-                "plain_ms": lm["times"]["bwd_plain_ms"],
+                "ms": t[key + "_ms"], "parent_ms": t[key + "_parent_ms"],
+                "parent": "the face's design before its wgmma kernel (the "
+                          "mma.sync kernel, forced at D 64) on the same "
+                          "operands",
+                "plain_ms": t["bwd_plain_ms"],
                 "bound_ms": lm["bound"][key]["ms"],
                 "bound_by": lm["bound"][key]["by"],
-                "library_ms": lm["times"]["bwd_library_ms"],
+                "library_ms": t["bwd_library_ms"],
                 "shape": {"B": 8, "H": 12, "D": 64, "causal": True,
                           "S": 1024},
-                "prefill_B1": {"ms": prefill["times"][key + "_ms"],
-                               "plain_ms": prefill["times"]["bwd_plain_ms"],
-                               "bound_ms": prefill["bound"][key]["ms"],
-                               "library_ms":
-                                   prefill["times"]["bwd_library_ms"]}})
+                "device_ms": t[key + "_device_ms"],
+                "parent_device_ms": t[key + "_parent_device_ms"],
+                "library_device_ms": t["bwd_library_device_ms"],
+                "prefill_B1": {
+                    "ms": t1[key + "_ms"], "parent_ms": t1[key + "_parent_ms"],
+                    "plain_ms": t1["bwd_plain_ms"],
+                    "bound_ms": prefill["bound"][key]["ms"],
+                    "library_ms": t1["bwd_library_ms"],
+                    "device_ms": t1[key + "_device_ms"],
+                    "parent_device_ms": t1[key + "_parent_device_ms"],
+                    "library_device_ms": t1["bwd_library_device_ms"]}})
         out[name] = entry
     return out
 
@@ -4380,16 +4456,20 @@ def phase_amp(dev, root, f32_images_s, tuned, rnn32):
                         ("pure_amp", runs["pure_amp_train"]))}}))
     pure = runs["pure_amp_train"]["profile"]
     parent = pure["parent_face"]
-    log(json.dumps({"pure_amp_lm_flash_forward": {
+    log(json.dumps({"pure_amp_lm_flash_faces": {
         "device_kernel_ms_two_steps": pure["device_kernel_ms"],
         "fwd_wgmma_ms": pure["flash_fwd_bf16_wgmma_kernel"]["ms"],
         "fwd_wgmma_share": pure["flash_fwd_bf16_wgmma_kernel"]["share"],
-        "parent_face_device_kernel_ms_two_steps":
+        "bwd_ms": pure["bwd_bf16_ms"],
+        "bwd_launches": {k: pure[k]["count"] for k in FLASH_KERNELS
+                         if k.startswith("flash_bwd_d") and "_bf16_" in k},
+        "parent_faces_device_kernel_ms_two_steps":
             parent["device_kernel_ms"],
-        "parent_face_fwd_mma_ms": parent["flash_fwd_bf16_mma_kernel"]["ms"],
-        "parent_face_fwd_mma_share":
-            parent["flash_fwd_bf16_mma_kernel"]["share"],
-        "pr15_device_kernel_ms_two_steps": 137.99}}))
+        "parent_faces_fwd_mma_ms": parent["flash_fwd_bf16_mma_kernel"]["ms"],
+        "parent_faces_bwd_ms": parent["bwd_bf16_ms"],
+        "parent_faces_bwd_launches": {
+            k: parent[k]["count"] for k in FLASH_KERNELS
+            if k.startswith("flash_bwd_d") and "_bf16_" in k}}}))
     weights = {}
     for shape, n in zip(MM_SHAPES, MM_COUNTS):
         sig = tune.signature({"m": shape[0], "k": shape[1], "n": shape[2],

@@ -16,8 +16,8 @@ __all__ = ["KERNEL_COUNTERS", "launch_counts", "reset_launches"]
 # kernel name -> (wrapper module, name of its count there)
 KERNEL_COUNTERS = {
     # the flash forward, dK/dV and dQ kernels, each with a float32 and a
-    # bfloat16 (pure AMP) face; the bfloat16 forward's mma.sync path (D 32
-    # and 128) counted apart from its wgmma kernel (D 64)
+    # bfloat16 (pure AMP) face; the bfloat16 faces' mma.sync path (D 32
+    # and 128) counted apart from their wgmma kernels (D 64)
     "flash_attention_fwd": (flash_attention, "launches"),
     "flash_attention_bwd_dkv": (flash_attention, "launches_bwd_dkv"),
     "flash_attention_bwd_dq": (flash_attention, "launches_bwd_dq"),
@@ -26,6 +26,10 @@ KERNEL_COUNTERS = {
     "flash_attention_bwd_dkv_bf16": (flash_attention,
                                      "launches_bwd_dkv_bf16"),
     "flash_attention_bwd_dq_bf16": (flash_attention, "launches_bwd_dq_bf16"),
+    "flash_attention_bwd_dkv_bf16_mma": (flash_attention,
+                                         "launches_bwd_dkv_bf16_mma"),
+    "flash_attention_bwd_dq_bf16_mma": (flash_attention,
+                                        "launches_bwd_dq_bf16_mma"),
     "paged_attention": (paged_attention, "launches"),
     # one kernel in two roles: the conv's forward and its backward's dx,
     # each with a float32 and a bfloat16 (AMP) face; the bfloat16 face's

@@ -86,22 +86,25 @@
 //
 // The bfloat16 faces (flash_attention_bwd_dkv_bf16 / _dq_bf16, pure AMP):
 // the kernel bodies on bfloat16 refs, all arithmetic float32 on the
-// bfloat16 values and each gradient rounded once to bfloat16; the same
-// walks, tiles, causal skips and double buffers on bfloat16 tiles (see
-// the kernels). Bound: the larger of the bytes (q, k, v, dO and the
+// bfloat16 values and each gradient rounded once to bfloat16. Two paths,
+// picked by head dim before the launch: at D 64 (every main path) two
+// TMA-fed, warp-specialised wgmma kernels, at D 32 and 128 the float32
+// kernels' walks, tiles, causal skips and double buffers on bfloat16
+// tiles with mma.sync (see the kernels). Bound: the larger of the bytes (q, k, v, dO and the
 // gradients at 2 bytes, lse and delta at 4) over 3.35 TB/s and the flops
 // over 989 TFLOP/s dense bf16: 0.026 ms (dK/dV) and 0.0195 ms (dQ) at the
 // LM step's shape, both by operations; the split products of p and ds
 // make the tensor-core work 1.5x (dK/dV) and 1.33x (dQ) those flops.
 //
 // Tensors are [B, S, H, D], contiguous, 16-byte aligned (the layout of the
-// forward's inputs); lse and delta are [B, H, S], float32 on both faces. The kernels allocate
-// nothing. The entry points launch on the stream they are given and return
+// forward's inputs); lse and delta are [B, H, S], float32 on both faces.
+// The kernels allocate nothing. The entry points launch on the stream they are given and return
 // a CUDA error code (0 on success).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bf16.cuh"
+#include "hopper.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -421,7 +424,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// -- the bfloat16 faces -------------------------------------------------------
+// -- the bfloat16 faces on mma.sync: D 32 and 128 -------------------------
 //
 // q, k, v, dO, dk, dv and dq bfloat16; lse and delta float32:
 // `_fa_bwd_dkv_kernel` and `_fa_bwd_dq_kernel` on bfloat16 refs, which
@@ -444,7 +447,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //   float32; the gradients are rounded once to bfloat16 (to nearest even).
 
 template <int D>
-constexpr int dkv_bf16_smem_bytes() {
+constexpr int dkv_bf16_mma_smem_bytes() {
   // K and V of the block, q and dO two buffers each; then lse and delta
   return (2 * BR + 4 * BN) * (D + 8) * (int)sizeof(bf16) +
          4 * BN * (int)sizeof(float);
@@ -452,14 +455,14 @@ constexpr int dkv_bf16_smem_bytes() {
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
-                          int H, int causal, float scale) {
+flash_bwd_dkv_bf16_mma_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const bf16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv,
+                              int S, int H, int causal, float scale) {
   constexpr int LD = D + 8;
   constexpr int NT = BN / 8;   // 8-query column tiles of s^T
   constexpr int KT = BN / 16;  // 16-query steps of p^T dO and ds^T q
@@ -610,21 +613,21 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
 }
 
 template <int D>
-constexpr int dq_bf16_smem_bytes() {
+constexpr int dq_bf16_mma_smem_bytes() {
   // q and dO of the block, K and V two buffers each
   return (2 * BR + 4 * BN) * (D + 8) * (int)sizeof(bf16);
 }
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int S, int H, int causal,
-                         float scale) {
+flash_bwd_dq_bf16_mma_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             bf16* __restrict__ dq, int S, int H, int causal,
+                             float scale) {
   constexpr int LD = D + 8;
   constexpr int NT = BN / 8;   // 8-key column tiles of s
   constexpr int KT = BN / 16;  // 16-key steps of ds k
@@ -761,6 +764,576 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   }
 }
 
+// -- the bfloat16 faces at D 64: TMA + wgmma ---------------------------------
+//
+// The same functions as the mma.sync kernels above, for the head dim of
+// GPT-2 small and every main path: D 64, one 128-byte swizzled row of
+// bfloat16. Each kernel is FlashAttention-3's skeleton, as the forward's
+// flash_fwd_bf16_wgmma_kernel: warpgroup 0 is the producer (one thread
+// issues TMA), warpgroups 1 and 2 the consumers, 64 owned rows each.
+// q, k, v and dO are 3-D maps {H D, S, B} loaded in boxes of 64 values
+// by 64 (or BQ_W) rows at (h D, row, b): rows past S arrive as zeros and
+// no box reads the next batch's rows. The owned rows land once; the
+// streamed tiles come through a ring of RING_W stages (a full and an
+// empty mbarrier a stage).
+// - dK/dV: a block owns BK_W = 128 keys and walks the query tiles of
+//   BQ_W rows from the causal diagonal to S. A stage holds the tile's q
+//   and dO and its lse and delta, each a box of a 1-D float32 map over
+//   [B H S] (a 2-D map [B H][S] would want S * 4 a multiple of 16 bytes).
+//   A box must start on 16 bytes (one that started elsewhere made the
+//   launch fault), so it starts at the tile's first entry rounded down to
+//   4 and holds BQ_W + 4 values; past S they are the next head's, and the masks drop
+//   them by select. For each tile a consumer warpgroup takes
+//   - s^T = k q^T and dp^T = v dO^T on wgmma m64nBQ_Wk16, A its k or v
+//     rows from shared memory, B the q or dO tile as it lands ([query][d],
+//     K-major: imm-trans-b 0);
+//   - p^T = 2^(s^T scale log2 e - lse log2 e) and ds^T = p^T (dp^T -
+//     delta) scale in registers, lse and delta read from the stage as
+//     they are used, masked by select only on the tiles that the
+//     diagonal or the end of S cuts, each split into a bfloat16 hi and
+//     lo pair (bf16.cuh): s^T is kept transposed so that its accumulator's
+//     elements 8j .. 8j + 7 are the A fragment of k16 step j as they lie;
+//   - dv += p^T dO and dk += ds^T q on wgmma m64n64k16 with A from
+//     registers, B the same dO or q tile read MN-major (imm-trans-b 1),
+//     summed in the wgmma accumulator over the whole walk (below).
+// - dQ: a block owns BM_W = 128 queries (the last block first: the
+//   longest causal walks start first) and walks the key tiles of BN_W
+//   rows up to the diagonal; lse and delta of its rows are read once
+//   into registers. For each tile: s = q k^T and dp = dO v^T (B the K or
+//   V tile K-major), ds in registers, dq += ds k (B the K tile MN-major,
+//   summed in the accumulator over the walk).
+// The two consumer warpgroups take turns on the tensor cores (named
+// barriers 1 and 2), as the forward's do: in its turn a warpgroup issues
+// this tile's s (and dp) and the previous tile's register-A products as
+// one group, waits for it and hands the turn over; its exponentials and
+// splits then run while the other warpgroup's group does. (Handing the
+// turn over before the wait let both groups queue back to back on the
+// tensor cores, and both warpgroups then formed p and ds at once while
+// the tensor cores idled: ~1900 cycles a tile a warpgroup against the
+// group's ~360, clock64 marks of the study's timeline variant.) A warpgroup skips a tile that lies wholly above the diagonal of
+// its own 64 rows (dK/dV: warpgroup 2's first 64 queries; dQ: warpgroup
+// 1's last key tile) but still takes its turn and releases the tile's
+// stage, so the turns and the ring's parities stay matched.
+// Registers and sums, a measured decision. ptxas gives a thread of a
+// 384-thread block 168 registers whatever setmaxnreg asks. A dK/dV
+// consumer holds dk and dv (64 floats) for its whole walk and, in a
+// turn's group, the previous tile's p^T and ds^T pairs and this tile's
+// s^T and dp^T: 128 floats of arrays at BQ_W = 32 (the forward's
+// budget), 192 at 64. Each tile's sum taken from zero and added in
+// float32, as the float32 faces do (the accumulator truncates), needs a
+// 32-float temporary beside them and a wait for each sum: that form
+// spent ~2200 cycles a 32-query tile a warpgroup, three round trips to
+// the tensor cores in series (0.146 ms at the LM step's shape on an
+// H100). Summed straight in the accumulator, the bfloat16 gradients
+// still meet the faces' gate on a walk of S 2048 (B 2, H 4; largest
+// error over one ulp of its own magnitude plus 2e-5 of the largest: dq
+// 0.980, dk 0.989, dv 0.988, against 0.980, 0.978, 0.977 with each tile
+// from zero; tools/torch_flash_bwd_study.py), so dk, dv and dq stay in
+// the accumulator and a tile takes one group and one wait.
+constexpr int DW = 64;          // the head dim: one 128-byte swizzled row
+constexpr int THREADS_W = 384;  // a producer warpgroup and two consumers
+constexpr int RING_W = 4;       // stages of either kernel's ring
+constexpr int BK_W = 128;       // dK/dV: keys a block, 64 a warpgroup
+constexpr int BQ_W = 32;        // dK/dV: queries a streamed tile
+constexpr int BM_W = 128;       // dQ: queries a block, 64 a warpgroup
+constexpr int BN_W = 64;        // dQ: keys a streamed tile
+constexpr int BOX_W = 64 * DW;  // values of a 64-row box
+constexpr int QT_W = BQ_W * DW;  // of a dK/dV stage's q or dO tile
+constexpr int KT_W = BN_W * DW;  // of a dQ stage's K or V tile
+constexpr int LBOX_W = BQ_W + 4;  // lse or delta values a dK/dV stage loads
+constexpr int LPAD_W = BQ_W + 32;  // and the floats it keeps for them
+// the bytes a dK/dV stage loads: the q and dO tiles, lse and delta
+constexpr int DKV_STAGE_BYTES_W =
+    2 * QT_W * (int)sizeof(bf16) + 2 * LBOX_W * (int)sizeof(float);
+// K and V of the block, the ring (lse and delta 128-byte aligned), and
+// slack to align them to 1024 bytes
+constexpr int DKV_SMEM_BYTES_W = 2 * BK_W * DW * (int)sizeof(bf16) +
+                                 RING_W * 2 * QT_W * (int)sizeof(bf16) +
+                                 RING_W * 2 * LPAD_W * (int)sizeof(float) +
+                                 1024;
+constexpr int DQ_STAGE_BYTES_W = 2 * KT_W * (int)sizeof(bf16);
+// q and dO of the block, the ring, and the slack
+constexpr int DQ_SMEM_BYTES_W =
+    2 * BM_W * DW * (int)sizeof(bf16) + RING_W * DQ_STAGE_BYTES_W + 1024;
+constexpr int PRODUCER_REGS_W = 40;
+constexpr int CONSUMER_REGS_W = 232;
+static_assert(RING_W >= 2, "a warpgroup waits for a stage before its turn");
+static_assert(BQ_W % 16 == 0 && 64 % BQ_W == 0, "k16 steps; skipped tiles");
+static_assert(BN_W == 64, "dQ's s and dp: m64n64");
+
+// a lambda inlined at every call, so that the register arrays it takes by
+// reference stay in registers
+#define INLINE __attribute__((always_inline))
+
+// 2^x on the special-function unit (outputs below 2^-126 flushed to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// shared memory from its first 1024-byte boundary (the 128-byte swizzle's
+// period)
+__device__ __forceinline__ bf16* align1024(uint8_t* raw) {
+  return reinterpret_cast<bf16*>(raw +
+                                ((1024 - (smem_u32(raw) & 1023)) & 1023));
+}
+
+// d (float32) of the accumulator elements of a 64 x 64 product: element i
+// of a thread is row 16 (warp % 4) + lane / 4 + 8 ((i / 2) % 2), column
+// 8 (i / 4) + 2 (lane % 4) + i % 2; `row` is the thread's first row
+__device__ __forceinline__ void store_rows(bf16* out, const float (&d)[32],
+                                           int row, int S, int H, int b,
+                                           int h, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row + 8 * half;
+    if (r >= S) continue;
+    const size_t off = ((size_t)b * S + r) * H * DW + (size_t)h * DW + 2 * t;
+#pragma unroll
+    for (int c = 0; c < DW / 8; ++c)
+      store2(out + off + 8 * c, d[4 * c + 2 * half], d[4 * c + 2 * half + 1],
+             true, true, true);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS_W, 1)
+flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                                const __grid_constant__ CUtensorMap kmap,
+                                const __grid_constant__ CUtensorMap vmap,
+                                const __grid_constant__ CUtensorMap dmap,
+                                const __grid_constant__ CUtensorMap lmap,
+                                const __grid_constant__ CUtensorMap emap,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                int S, int H, int causal, float scale) {
+  constexpr int NS = BQ_W / 2;   // s^T and dp^T accumulator floats a thread
+  constexpr int KS = BQ_W / 16;  // k16 steps of p^T dO and ds^T q
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t kvfull, full[RING_W], empty[RING_W];
+  bf16* ks = align1024(smem_raw);  // [BK_W][DW]
+  bf16* vs = ks + BK_W * DW;       // [BK_W][DW]
+  bf16* qs = vs + BK_W * DW;       // [RING_W][BQ_W][DW]
+  bf16* os = qs + RING_W * QT_W;   // dO [RING_W][BQ_W][DW]
+  // lse and delta [RING_W][LPAD_W]
+  float* ls = reinterpret_cast<float*>(os + RING_W * QT_W);
+  float* es = ls + RING_W * LPAD_W;
+
+  // 0 the producer, 1 and 2 consumers, taken from lane 0 so that ptxas
+  // knows it is the same across the warp (else it serialises every
+  // wgmma of the kernel, C7518)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  // block 0 has the longest causal walk, and is issued first
+  const int k0 = blockIdx.y * BK_W;
+  const int q_first = causal ? k0 : 0;
+  const int n_tiles = (S - q_first + BQ_W - 1) / BQ_W;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&kvfull, 1);
+#pragma unroll
+    for (int s = 0; s < RING_W; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS_W>();
+    if (threadIdx.x == 0) {
+      tma_prefetch(&qmap);
+      tma_prefetch(&kmap);
+      tma_prefetch(&vmap);
+      tma_prefetch(&dmap);
+      tma_prefetch(&lmap);
+      tma_prefetch(&emap);
+      // the boxes of 64 keys that start before S (a box wholly past S
+      // is not issued: its rows are keys no thread stores)
+      const int boxes = min(BK_W, S - k0 + 63) / 64;
+      mbar_expect_tx(&kvfull, boxes * 2 * BOX_W * (int)sizeof(bf16));
+      for (int r = 0; r < boxes * 64; r += 64) {
+        tma_load_3d(ks + r * DW, &kmap, &kvfull, h * DW, k0 + r, b);
+        tma_load_3d(vs + r * DW, &vmap, &kvfull, h * DW, k0 + r, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % RING_W;
+        const int q0 = q_first + it * BQ_W;
+        mbar_wait(&empty[s], ((it / RING_W) & 1) ^ 1);
+        mbar_expect_tx(&full[s], DKV_STAGE_BYTES_W);
+        tma_load_3d(qs + s * QT_W, &qmap, &full[s], h * DW, q0, b);
+        tma_load_3d(os + s * QT_W, &dmap, &full[s], h * DW, q0, b);
+        const int c = (bh * S + q0) & ~3;  // 16-byte aligned
+        tma_load_1d(ls + s * LPAD_W, &lmap, &full[s], c);
+        tma_load_1d(es + s * LPAD_W, &emap, &full[s], c);
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS_W>();
+    const int wk = wg - 1;  // the warpgroup's keys: k0 + 64 wk ..
+    const int lane = threadIdx.x % 32;
+    const int t = lane % 4;
+    const int kw0 = k0 + 64 * wk;
+    const int key = kw0 + 16 * ((threadIdx.x / 32) % 4) + lane / 4;  // + 8
+    // the tiles before `first` lie wholly above the diagonal of the
+    // warpgroup's keys
+    const int first = causal ? 64 * wk / BQ_W : 0;
+    float dka[32], dva[32], st[NS], dpt[NS];
+    uint32_t ph[KS][4], pl[KS][4], dh[KS][4], dl[KS][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) st[i] = dpt[i] = 0.f;
+    const float scale_log2 = scale * LOG2E;
+    const uint32_t ka = smem_u32(ks + 64 * wk * DW);
+    const uint32_t va = smem_u32(vs + 64 * wk * DW);
+    mbar_wait(&kvfull, 0);
+
+    // The products of a turn go out as one group and are waited for once,
+    // each group's issue and wait on one straight path (C7518).
+    // s^T = k q^T and dp^T = v dO^T of the tile in ring stage `s`
+    auto s_products = [&](int s) INLINE {
+      const uint32_t qa = smem_u32(qs + s * QT_W);
+      const uint32_t oa = smem_u32(os + s * QT_W);
+      wgmma_fence_operands(st);
+      wgmma_fence_operands(dpt);
+#pragma unroll
+      for (int kk = 0; kk < DW / 16; ++kk)
+        wgmma_bf16<BQ_W, 0>(st, desc_sw128(ka + 32 * kk, 16, 1024),
+                            desc_sw128(qa + 32 * kk, 16, 1024), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DW / 16; ++kk)
+        wgmma_bf16<BQ_W, 0>(dpt, desc_sw128(va + 32 * kk, 16, 1024),
+                            desc_sw128(oa + 32 * kk, 16, 1024), kk > 0);
+    };
+    // d += A Y over the tile's queries: A split in hi / lo, Y the tile `y`
+    // ([query][d], MN-major)
+    auto sum_into = [&](float(&d)[32], uint32_t(&hi)[KS][4],
+                        uint32_t(&lo)[KS][4], const bf16* y) INLINE {
+      const uint32_t ya = smem_u32(y);
+      wgmma_fence_operands(d);
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        const uint64_t yd = desc_sw128(ya + 2048 * j, QT_W * 2, 1024);
+        wgmma_m64n64k16_rs(d, hi[j], yd, true);
+        wgmma_m64n64k16_rs(d, lo[j], yd, true);
+      }
+    };
+    // dv += p^T dO and dk += ds^T q of the tile in stage `s`
+    auto dkv_products = [&](int s) INLINE {
+      sum_into(dva, ph, pl, os + s * QT_W);
+      sum_into(dka, dh, dl, qs + s * QT_W);
+    };
+    // after a group's wait: the registers of its products pinned
+    auto pin_s = [&]() INLINE {
+      wgmma_fence_operands(st);
+      wgmma_fence_operands(dpt);
+    };
+    auto pin_dkv = [&]() INLINE {
+      wgmma_fence_operands(dka);
+      wgmma_fence_operands(dva);
+      wgmma_fence_operands(ph);
+      wgmma_fence_operands(pl);
+      wgmma_fence_operands(dh);
+      wgmma_fence_operands(dl);
+    };
+    // p^T and ds^T of tile `it` in stage `s` (s^T and dp^T waited for),
+    // split into the A fragments; element i: key `key` + 8 ((i / 2) % 2),
+    // query q0 + 8 (i / 4) + 2 t + i % 2
+    auto p_ds = [&](int it, int s) INLINE {
+      const int q0 = q_first + it * BQ_W;
+      const int at = (bh * S + q0) & 3;  // the tile's first entry in the box
+      const float* lt = ls + s * LPAD_W + at;
+      const float* et = es + s * LPAD_W + at;
+      const bool masked = (causal && q0 < kw0 + 63) || q0 + BQ_W > S;
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * j + 2 * r;
+          const int qi = 16 * j + 8 * (r >> 1) + 2 * t;
+          float p0 = ex2(fmaf(st[i], scale_log2, lt[qi] * -LOG2E));
+          float p1 = ex2(fmaf(st[i + 1], scale_log2, lt[qi + 1] * -LOG2E));
+          float d0 = p0 * (dpt[i] - et[qi]) * scale;
+          float d1 = p1 * (dpt[i + 1] - et[qi + 1]) * scale;
+          if (masked) {
+            // selects, not branches; past S, lse and delta are another
+            // head's, and any value they give is dropped
+            const int kr = key + 8 * (r & 1);
+            const int qp = q0 + qi;
+            const bool out0 = qp >= S || (causal && kr > qp);
+            const bool out1 = qp + 1 >= S || (causal && kr > qp + 1);
+            p0 = out0 ? 0.f : p0;
+            d0 = out0 ? 0.f : d0;
+            p1 = out1 ? 0.f : p1;
+            d1 = out1 ? 0.f : d1;
+          }
+          split_bf16(p0, p1, ph[j][r], pl[j][r]);
+          split_bf16(d0, d1, dh[j][r], dl[j][r]);
+        }
+      }
+    };
+
+    // The turns: warpgroup 1 waits on barrier 1, warpgroup 2 on barrier
+    // 2, each hands the turn to the other once its group is done;
+    // warpgroup 1 goes first. Turn it: s^T and dp^T of tile it and the dv
+    // and dk of tile it - 1, one group; p^T and ds^T of tile it run under
+    // the other's group.
+    const int mine = 1 + wk, other = 2 - wk;
+    if (wk == 1) bar_arrive(1, 256);
+    const int n_first = min(first, n_tiles);
+    for (int it = 0; it < n_first; ++it) {  // above the diagonal
+      const int s = it % RING_W;
+      mbar_wait(&full[s], (it / RING_W) & 1);
+      bar_sync(mine, 256);
+      mbar_arrive(&empty[s]);  // released unread
+      bar_arrive(other, 256);
+    }
+    for (int it = n_first; it < n_tiles; ++it) {
+      const int s = it % RING_W;
+      mbar_wait(&full[s], (it / RING_W) & 1);
+      bar_sync(mine, 256);
+      if (it > first) {
+        wgmma_fence();
+        s_products(s);
+        dkv_products((it - 1) % RING_W);
+        wgmma_commit();
+        wgmma_wait<0>();
+        bar_arrive(other, 256);
+        pin_s();
+        pin_dkv();
+        mbar_arrive(&empty[(it - 1) % RING_W]);
+      } else {
+        wgmma_fence();
+        s_products(s);
+        wgmma_commit();
+        wgmma_wait<0>();
+        bar_arrive(other, 256);
+        pin_s();
+      }
+      p_ds(it, s);
+    }
+    // the last tile's dv and dk, in a turn of their own; every turn of
+    // warpgroup 1 meets one of warpgroup 2, whose last hands nothing on
+    bar_sync(mine, 256);
+    if (n_tiles > first) {
+      wgmma_fence();
+      dkv_products((n_tiles - 1) % RING_W);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin_dkv();
+      mbar_arrive(&empty[(n_tiles - 1) % RING_W]);
+    }
+    if (wk == 0) bar_arrive(other, 256);
+    store_rows(dk, dka, key, S, H, b, h, t);
+    store_rows(dv, dva, key, S, H, b, h, t);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS_W, 1)
+flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const __grid_constant__ CUtensorMap dmap,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               bf16* __restrict__ dq, int S, int H,
+                               int causal, float scale) {
+  constexpr int KS = BN_W / 16;  // k16 steps of ds k
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t qfull, full[RING_W], empty[RING_W];
+  bf16* qs = align1024(smem_raw);  // [BM_W][DW]
+  bf16* os = qs + BM_W * DW;       // dO [BM_W][DW]
+  bf16* ks = os + BM_W * DW;       // [RING_W][BN_W][DW]
+  bf16* vs = ks + RING_W * KT_W;   // [RING_W][BN_W][DW]
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  // the last query tile first: the longest causal walks start first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM_W;
+  const int k_end = causal ? min(S, q0 + BM_W) : S;
+  const int n_tiles = (k_end + BN_W - 1) / BN_W;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&qfull, 1);
+#pragma unroll
+    for (int s = 0; s < RING_W; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS_W>();
+    if (threadIdx.x == 0) {
+      tma_prefetch(&qmap);
+      tma_prefetch(&kmap);
+      tma_prefetch(&vmap);
+      tma_prefetch(&dmap);
+      // the boxes of 64 queries that start before S
+      const int boxes = min(BM_W, S - q0 + 63) / 64;
+      mbar_expect_tx(&qfull, boxes * 2 * BOX_W * (int)sizeof(bf16));
+      for (int r = 0; r < boxes * 64; r += 64) {
+        tma_load_3d(qs + r * DW, &qmap, &qfull, h * DW, q0 + r, b);
+        tma_load_3d(os + r * DW, &dmap, &qfull, h * DW, q0 + r, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % RING_W;
+        mbar_wait(&empty[s], ((it / RING_W) & 1) ^ 1);
+        mbar_expect_tx(&full[s], DQ_STAGE_BYTES_W);
+        tma_load_3d(ks + s * KT_W, &kmap, &full[s], h * DW, it * BN_W, b);
+        tma_load_3d(vs + s * KT_W, &vmap, &full[s], h * DW, it * BN_W, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS_W>();
+    const int wq = wg - 1;  // the warpgroup's queries: q0 + 64 wq ..
+    const int lane = threadIdx.x % 32;
+    const int t = lane % 4;
+    const int rw0 = q0 + 64 * wq;
+    const int row = rw0 + 16 * ((threadIdx.x / 32) % 4) + lane / 4;  // + 8
+    // the tiles from `last` on lie wholly above the diagonal of the
+    // warpgroup's queries
+    const int last = causal ? min(n_tiles, rw0 / BN_W + 1) : n_tiles;
+    // the thread's two rows' lse (base 2) and delta
+    float l2[2], dl[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row + 8 * half;
+      const size_t off = (size_t)bh * S + r;
+      l2[half] = r < S ? lse[off] * LOG2E : 0.f;
+      dl[half] = r < S ? delta[off] : 0.f;
+    }
+    float dqa[32], sc[32], dp[32];
+    uint32_t dsh[KS][4], dsl[KS][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[i] = sc[i] = dp[i] = 0.f;
+    const float scale_log2 = scale * LOG2E;
+    const uint32_t qa = smem_u32(qs + 64 * wq * DW);
+    const uint32_t oa = smem_u32(os + 64 * wq * DW);
+    mbar_wait(&qfull, 0);
+
+    // s = q k^T and dp = dO v^T of the tile in ring stage `s`
+    auto s_products = [&](int s) INLINE {
+      const uint32_t kt = smem_u32(ks + s * KT_W);
+      const uint32_t vt = smem_u32(vs + s * KT_W);
+      wgmma_fence_operands(sc);
+      wgmma_fence_operands(dp);
+#pragma unroll
+      for (int kk = 0; kk < DW / 16; ++kk)
+        wgmma_bf16<BN_W, 0>(sc, desc_sw128(qa + 32 * kk, 16, 1024),
+                            desc_sw128(kt + 32 * kk, 16, 1024), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DW / 16; ++kk)
+        wgmma_bf16<BN_W, 0>(dp, desc_sw128(oa + 32 * kk, 16, 1024),
+                            desc_sw128(vt + 32 * kk, 16, 1024), kk > 0);
+    };
+    // dq += ds k over the tile's keys in stage `s` (K MN-major)
+    auto dq_products = [&](int s) INLINE {
+      const uint32_t kt = smem_u32(ks + s * KT_W);
+      wgmma_fence_operands(dqa);
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        const uint64_t kd = desc_sw128(kt + 2048 * j, KT_W * 2, 1024);
+        wgmma_m64n64k16_rs(dqa, dsh[j], kd, true);
+        wgmma_m64n64k16_rs(dqa, dsl[j], kd, true);
+      }
+    };
+    auto pin_s = [&]() INLINE {
+      wgmma_fence_operands(sc);
+      wgmma_fence_operands(dp);
+    };
+    auto pin_dq = [&]() INLINE {
+      wgmma_fence_operands(dqa);
+      wgmma_fence_operands(dsh);
+      wgmma_fence_operands(dsl);
+    };
+    // ds of tile `it` (s and dp waited for), split into the A fragments;
+    // element i: query `row` + 8 ((i / 2) % 2), key kt0 + 8 (i / 4) + 2 t
+    // + i % 2
+    auto ds_pairs = [&](int it) INLINE {
+      const int kt0 = it * BN_W;
+      const bool masked = (causal && kt0 + BN_W - 1 > rw0) || kt0 + BN_W > S;
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * j + 2 * r;
+          const int half = r & 1;
+          const float p0 = ex2(fmaf(sc[i], scale_log2, -l2[half]));
+          const float p1 = ex2(fmaf(sc[i + 1], scale_log2, -l2[half]));
+          float d0 = p0 * (dp[i] - dl[half]) * scale;
+          float d1 = p1 * (dp[i + 1] - dl[half]) * scale;
+          if (masked) {
+            const int kp = kt0 + 16 * j + 8 * (r >> 1) + 2 * t;
+            const int rr = row + 8 * half;
+            d0 = kp >= S || (causal && kp > rr) ? 0.f : d0;
+            d1 = kp + 1 >= S || (causal && kp + 1 > rr) ? 0.f : d1;
+          }
+          split_bf16(d0, d1, dsh[j][r], dsl[j][r]);
+        }
+      }
+    };
+
+    // The turns, as the dK/dV kernel's: turn it takes s and dp of tile it
+    // and dq of tile it - 1, one group.
+    const int mine = 1 + wq, other = 2 - wq;
+    if (wq == 1) bar_arrive(1, 256);
+    for (int it = 0; it < last; ++it) {
+      const int s = it % RING_W;
+      mbar_wait(&full[s], (it / RING_W) & 1);
+      bar_sync(mine, 256);
+      if (it > 0) {
+        wgmma_fence();
+        s_products(s);
+        dq_products((it - 1) % RING_W);
+        wgmma_commit();
+        wgmma_wait<0>();
+        bar_arrive(other, 256);
+        pin_s();
+        pin_dq();
+        mbar_arrive(&empty[(it - 1) % RING_W]);
+      } else {
+        wgmma_fence();
+        s_products(s);
+        wgmma_commit();
+        wgmma_wait<0>();
+        bar_arrive(other, 256);
+        pin_s();
+      }
+      ds_pairs(it);
+    }
+    // the tiles from `last` on (above the diagonal) and the final turn:
+    // tile last - 1's dq in the first of them
+    for (int it = last; it <= n_tiles; ++it) {
+      const int s = it % RING_W;
+      if (it < n_tiles) mbar_wait(&full[s], (it / RING_W) & 1);
+      bar_sync(mine, 256);
+      if (it == last) {
+        wgmma_fence();
+        dq_products((it - 1) % RING_W);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin_dq();
+        mbar_arrive(&empty[(it - 1) % RING_W]);
+      }
+      if (it < n_tiles) {
+        mbar_arrive(&empty[s]);  // released unread
+        bar_arrive(other, 256);
+      } else if (wq == 0) {
+        bar_arrive(other, 256);
+      }
+    }
+    store_rows(dq, dqa, row, S, H, b, h, t);
+  }
+}
+
 // -- launch ------------------------------------------------------------------
 
 struct Args {
@@ -842,8 +1415,8 @@ ArgsB make_args_bf16(const void* q, const void* k, const void* v,
 
 template <int D>
 int launch_dkv_bf16(const ArgsB& a, bf16* dk, bf16* dv) {
-  constexpr int smem = dkv_bf16_smem_bytes<D>();
-  auto kernel = flash_bwd_dkv_bf16_kernel<D>;
+  constexpr int smem = dkv_bf16_mma_smem_bytes<D>();
+  auto kernel = flash_bwd_dkv_bf16_mma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -856,8 +1429,8 @@ int launch_dkv_bf16(const ArgsB& a, bf16* dk, bf16* dv) {
 
 template <int D>
 int launch_dq_bf16(const ArgsB& a, bf16* dq) {
-  constexpr int smem = dq_bf16_smem_bytes<D>();
-  auto kernel = flash_bwd_dq_bf16_kernel<D>;
+  constexpr int smem = dq_bf16_mma_smem_bytes<D>();
+  auto kernel = flash_bwd_dq_bf16_mma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -866,6 +1439,104 @@ int launch_dq_bf16(const ArgsB& a, bf16* dq) {
                                             a.delta, dq, a.S, a.H, a.causal,
                                             a.scale);
   return (int)cudaGetLastError();
+}
+
+// q, k, v and dO [B, S, H, 64] as 3-D maps {H 64, S, B} in boxes of 64
+// values by `rows` rows
+int encode_heads(CUtensorMap* map, const bf16* x, const ArgsB& a,
+                 uint32_t rows) {
+  return encode_tma_3d(map, x, (uint64_t)a.H * DW, a.S, a.B, DW, rows);
+}
+
+int launch_dkv_bf16_wgmma(const ArgsB& a, bf16* dk, bf16* dv) {
+  CUtensorMap qmap, kmap, vmap, dmap, lmap, emap;
+  const uint64_t n = (uint64_t)a.B * a.H * a.S;
+  int code = encode_heads(&qmap, a.q, a, BQ_W);
+  if (!code) code = encode_heads(&kmap, a.k, a, 64);
+  if (!code) code = encode_heads(&vmap, a.v, a, 64);
+  if (!code) code = encode_heads(&dmap, a.dout, a, BQ_W);
+  if (!code) code = encode_tma_1d_f32(&lmap, a.lse, n, LBOX_W);
+  if (!code) code = encode_tma_1d_f32(&emap, a.delta, n, LBOX_W);
+  if (code) return code;
+  auto kernel = flash_bwd_dkv_bf16_wgmma_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM_BYTES_W);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.B * a.H, (a.S + BK_W - 1) / BK_W);
+  kernel<<<grid, THREADS_W, DKV_SMEM_BYTES_W, a.stream>>>(
+      qmap, kmap, vmap, dmap, lmap, emap, dk, dv, a.S, a.H, a.causal,
+      a.scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_dq_bf16_wgmma(const ArgsB& a, bf16* dq) {
+  CUtensorMap qmap, kmap, vmap, dmap;
+  int code = encode_heads(&qmap, a.q, a, 64);
+  if (!code) code = encode_heads(&kmap, a.k, a, BN_W);
+  if (!code) code = encode_heads(&vmap, a.v, a, BN_W);
+  if (!code) code = encode_heads(&dmap, a.dout, a, 64);
+  if (code) return code;
+  auto kernel = flash_bwd_dq_bf16_wgmma_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM_BYTES_W);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.B * a.H, (a.S + BM_W - 1) / BM_W);
+  kernel<<<grid, THREADS_W, DQ_SMEM_BYTES_W, a.stream>>>(
+      qmap, kmap, vmap, dmap, a.lse, a.delta, dq, a.S, a.H, a.causal,
+      a.scale);
+  return (int)cudaGetLastError();
+}
+
+// The path of the bfloat16 faces by head dim: the wgmma kernels at D 64,
+// the mma.sync kernels at D 32 and 128.
+bool wgmma_path(int D) { return D == DW; }
+
+// the bfloat16 entry points' checks and casts; `mma` forces the mma.sync
+// kernel, else the path of D. The wgmma dK/dV kernel also reads lse and
+// delta through TMA, which wants them 16-byte aligned.
+int bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dk, void* dv, int B, int S, int H, int D, int causal,
+                 float scale, void* stream, bool mma) {
+  if (B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
+      !aligned16(dk) || !aligned16(dv))
+    return (int)cudaErrorMisalignedAddress;
+  const ArgsB a = make_args_bf16(q, k, v, dout, lse, delta, B, S, H, causal,
+                                 scale, stream);
+  bf16* dkb = static_cast<bf16*>(dk);
+  bf16* dvb = static_cast<bf16*>(dv);
+  if (!mma && wgmma_path(D)) {
+    if (!aligned16(lse) || !aligned16(delta))
+      return (int)cudaErrorMisalignedAddress;
+    return launch_dkv_bf16_wgmma(a, dkb, dvb);
+  }
+  switch (D) {
+    case 32: return launch_dkv_bf16<32>(a, dkb, dvb);
+    case 64: return launch_dkv_bf16<64>(a, dkb, dvb);
+    case 128: return launch_dkv_bf16<128>(a, dkb, dvb);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int bwd_dq_bf16(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                void* dq, int B, int S, int H, int D, int causal, float scale,
+                void* stream, bool mma) {
+  if (B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
+      !aligned16(dq))
+    return (int)cudaErrorMisalignedAddress;
+  const ArgsB a = make_args_bf16(q, k, v, dout, lse, delta, B, S, H, causal,
+                                 scale, stream);
+  bf16* dqb = static_cast<bf16*>(dq);
+  if (!mma && wgmma_path(D)) return launch_dq_bf16_wgmma(a, dqb);
+  switch (D) {
+    case 32: return launch_dq_bf16<32>(a, dqb);
+    case 64: return launch_dq_bf16<64>(a, dqb);
+    case 128: return launch_dq_bf16<128>(a, dqb);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -917,26 +1588,16 @@ int flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
   }
 }
 
-// The same on bfloat16 q, k, v, dout, dk and dv; lse and delta float32.
+// The same on bfloat16 q, k, v, dout, dk and dv; lse and delta float32
+// (16-byte aligned at D 64). D 64 runs the wgmma kernel, D 32 and 128 the
+// mma.sync kernel (the path is picked by D before the launch).
 int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dk, void* dv, int B,
                                  int S, int H, int D, int causal, float scale,
                                  void* stream) {
-  if (B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
-      !aligned16(dk) || !aligned16(dv))
-    return (int)cudaErrorMisalignedAddress;
-  const ArgsB a = make_args_bf16(q, k, v, dout, lse, delta, B, S, H, causal,
-                                 scale, stream);
-  bf16* dkb = static_cast<bf16*>(dk);
-  bf16* dvb = static_cast<bf16*>(dv);
-  switch (D) {
-    case 32: return launch_dkv_bf16<32>(a, dkb, dvb);
-    case 64: return launch_dkv_bf16<64>(a, dkb, dvb);
-    case 128: return launch_dkv_bf16<128>(a, dkb, dvb);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return bwd_dkv_bf16(q, k, v, dout, lse, delta, dk, dv, B, S, H, D, causal,
+                      scale, stream, false);
 }
 
 // The same inputs, bfloat16; dq [B, S, H, D] bfloat16.
@@ -945,33 +1606,53 @@ int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                 const void* delta, void* dq, int B, int S,
                                 int H, int D, int causal, float scale,
                                 void* stream) {
-  if (B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
-      !aligned16(dq))
-    return (int)cudaErrorMisalignedAddress;
-  const ArgsB a = make_args_bf16(q, k, v, dout, lse, delta, B, S, H, causal,
-                                 scale, stream);
-  bf16* dqb = static_cast<bf16*>(dq);
-  switch (D) {
-    case 32: return launch_dq_bf16<32>(a, dqb);
-    case 64: return launch_dq_bf16<64>(a, dqb);
-    case 128: return launch_dq_bf16<128>(a, dqb);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return bwd_dq_bf16(q, k, v, dout, lse, delta, dq, B, S, H, D, causal, scale,
+                     stream, false);
+}
+
+// The same two on the mma.sync kernels at any of their head dims: the
+// faces' design before their wgmma kernels, timed beside them.
+int flash_attention_bwd_dkv_bf16_mma(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     void* dk, void* dv, int B, int S, int H,
+                                     int D, int causal, float scale,
+                                     void* stream) {
+  return bwd_dkv_bf16(q, k, v, dout, lse, delta, dk, dv, B, S, H, D, causal,
+                      scale, stream, true);
+}
+
+int flash_attention_bwd_dq_bf16_mma(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dq, int B, int S, int H, int D,
+                                    int causal, float scale, void* stream) {
+  return bwd_dq_bf16(q, k, v, dout, lse, delta, dq, B, S, H, D, causal, scale,
+                     stream, true);
+}
+
+// The path the bfloat16 entry points take at head dim D: 1 the wgmma
+// kernels, 0 the mma.sync kernels, -1 none.
+int flash_attention_bwd_bf16_path(int D) {
+  if (D != 32 && D != 64 && D != 128) return -1;
+  return wgmma_path(D) ? 1 : 0;
 }
 
 // Dynamic shared memory a block of either kernel takes at head dim D
-// (0 for a D without a kernel): which 0 is dK/dV, 1 dQ; of the bfloat16
-// face when `bf16_face` is non-zero, else of the float32 one.
-int flash_attention_bwd_smem_bytes(int D, int which, int bf16_face) {
-  if (bf16_face) {
+// (0 for a D without a kernel): which 0 is dK/dV, 1 dQ; face 0 the
+// float32 kernels', 1 the bfloat16 face's on the path of D, 2 the
+// bfloat16 mma.sync kernels'.
+int flash_attention_bwd_smem_bytes(int D, int which, int face) {
+  if (face == 1 && wgmma_path(D)) return which ? DQ_SMEM_BYTES_W
+                                               : DKV_SMEM_BYTES_W;
+  if (face != 0) {
     switch (D) {
-      case 32: return which ? dq_bf16_smem_bytes<32>()
-                            : dkv_bf16_smem_bytes<32>();
-      case 64: return which ? dq_bf16_smem_bytes<64>()
-                            : dkv_bf16_smem_bytes<64>();
-      case 128: return which ? dq_bf16_smem_bytes<128>()
-                             : dkv_bf16_smem_bytes<128>();
+      case 32: return which ? dq_bf16_mma_smem_bytes<32>()
+                            : dkv_bf16_mma_smem_bytes<32>();
+      case 64: return which ? dq_bf16_mma_smem_bytes<64>()
+                            : dkv_bf16_mma_smem_bytes<64>();
+      case 128: return which ? dq_bf16_mma_smem_bytes<128>()
+                             : dkv_bf16_mma_smem_bytes<128>();
       default: return 0;
     }
   }

@@ -2,21 +2,22 @@
 // tensor maps and loads, mbarrier rings, wgmma descriptors and products,
 // named barriers, and the register hand-over of warp specialisation.
 // Shared by the bfloat16 faces of matmul.cu, conv3x3.cu and the flash
-// forward (flash_attention_fwd.cu).
+// forward and backward (flash_attention_fwd.cu, flash_attention_bwd.cu).
 //
 // TMA. A tensor map (CUtensorMap, 128 bytes) describes a 2-D or 3-D
-// row-major bfloat16 array in device memory and the box one load copies.
-// It is encoded on the host at each launch (encode_tma_2d, encode_tma_3d)
-// and passed to the kernel as a `const __grid_constant__ CUtensorMap`
+// row-major bfloat16 array in device memory (or a 1-D float32 vector,
+// unswizzled) and the box one load copies. It is encoded on the host at
+// each launch (encode_tma_2d, encode_tma_3d, encode_tma_1d_f32) and
+// passed to the kernel as a `const __grid_constant__ CUtensorMap`
 // parameter, so the copy engine reads it from the parameter space. One
-// thread issues a load (tma_load_2d, tma_load_3d); the bytes land in
-// shared memory with the 128-byte swizzle (the 16-byte chunk c of row r
-// of a 128-byte-wide box stored at chunk c ^ (r % 8)), zeros where the
-// box lies past an edge of the array, and their arrival is counted on an
-// mbarrier. The tensor-map encoders are driver functions: they are
-// fetched through the runtime's entry-point query, so the library needs
-// no -lcuda. The rules they check: the base address 16-byte aligned,
-// each pitch a multiple of 16 bytes.
+// thread issues a load (tma_load_1d, tma_load_2d, tma_load_3d); the bytes
+// land in shared memory with the 128-byte swizzle (the 16-byte chunk c
+// of row r of a 128-byte-wide box stored at chunk c ^ (r % 8)), zeros
+// where the box lies past an edge of the array, and their arrival is
+// counted on an mbarrier. The tensor-map encoders are driver functions:
+// they are fetched through the runtime's entry-point query, so the
+// library needs no -lcuda. The rules they check: the base address
+// 16-byte aligned, each pitch a multiple of 16 bytes.
 //
 // TMA in im2col mode (encode_im2col_3x3, tma_load_im2col_4d) copies the
 // shifted pixels of a convolution: the map describes an NHWC tensor
@@ -162,6 +163,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the box at c0 of a 1-D `map` into `dst` (128-byte aligned)
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 // the im2col box of `map` whose walk starts at pixel (w, h, n), channel
 // c, each pixel shifted by the tap (dw, dh), into `dst`
 __device__ __forceinline__ void tma_load_im2col_4d(void* dst,
@@ -248,6 +259,23 @@ __device__ __forceinline__ void wgmma_fence_operands(uint32_t (&a)[N][M]) {
 // The products d (+)= A B of bfloat16 operands summed in float32: A 64 x 16
 // K-major, B 16 x N MN-major (imm-trans-b 1), both from shared memory;
 // `add` false (scale-d 0) overwrites d with the product.
+// m64n32k16
+template <int TRANS_B = 1>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a,
+    uint64_t b, bool add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"((int)add), "n"(TRANS_B));
+}
+
 // m64n64k16
 template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
@@ -356,7 +384,8 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t a,
 template <int N, int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a,
                                            uint64_t b, bool add) {
-  static_assert(N == 64 || N == 128 || N == 192, "wgmma width");
+  static_assert(N == 32 || N == 64 || N == 128 || N == 192, "wgmma width");
+  if constexpr (N == 32) wgmma_m64n32k16<TRANS_B>(d, a, b, add);
   if constexpr (N == 64) wgmma_m64n64k16<TRANS_B>(d, a, b, add);
   if constexpr (N == 128) wgmma_m64n128k16<TRANS_B>(d, a, b, add);
   if constexpr (N == 192) wgmma_m64n192k16<TRANS_B>(d, a, b, add);
@@ -466,6 +495,28 @@ inline int encode_tma_3d(CUtensorMap* map, const void* base, uint64_t d0,
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A contiguous float32 vector of n values at `base`, loaded in boxes of
+// `box` values (box * 4 a multiple of 16 bytes), no swizzle, zeros past
+// its end. A 1-D map takes any length: a 2-D one would want its pitch a
+// multiple of 16 bytes. A load's first value must lie on 16 bytes (c0 a
+// multiple of 4): a load that started elsewhere made the launch fault on
+// an H100.
+inline int encode_tma_1d_f32(CUtensorMap* map, const void* base, uint64_t n,
+                             uint32_t box) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled_fn();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[1] = {n};
+  const cuuint64_t strides[1] = {n * 4};  // unread at rank 1
+  const cuuint32_t boxes[1] = {box};
+  const cuuint32_t elem[1] = {1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), dims,
+      strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -30,7 +30,11 @@ layout); the result is ``(o [B, S, H, D], lse [B, H, S])`` with
 - The bfloat16 forward takes one of two kernels by head dim
   (:func:`fwd_bf16_path`, the source's rule): at D 64 the TMA-fed,
   warp-specialised ``wgmma`` kernel (counted on ``launches_bf16``), at
-  D 32 and 128 the ``mma.sync`` kernel (``launches_bf16_mma``).
+  D 32 and 128 the ``mma.sync`` kernel (``launches_bf16_mma``). The
+  bfloat16 backward does the same (:func:`bwd_bf16_path`): its dK/dV and
+  dQ kernels at D 64 on ``launches_bwd_dkv_bf16`` and
+  ``launches_bwd_dq_bf16``, the ``mma.sync`` ones at D 32 and 128 on
+  ``launches_bwd_dkv_bf16_mma`` and ``launches_bwd_dq_bf16_mma``.
 """
 from __future__ import annotations
 
@@ -40,17 +44,19 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_reference", "flash_attention_reference",
-           "flash_attention_with_lse", "fwd_bf16_path",
-           "fwd_bf16_smem_bytes", "kernel_fwd_bf16_path",
+__all__ = ["bwd_bf16_path", "bwd_bf16_smem_bytes", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_reference",
+           "flash_attention_reference", "flash_attention_with_lse",
+           "fwd_bf16_path", "fwd_bf16_smem_bytes", "kernel_bwd_bf16_path",
+           "kernel_bwd_smem_bytes", "kernel_fwd_bf16_path",
            "kernel_fwd_smem_bytes", "launches", "launches_bf16",
            "launches_bf16_mma", "launches_bwd_dkv", "launches_bwd_dkv_bf16",
-           "launches_bwd_dq", "launches_bwd_dq_bf16"]
+           "launches_bwd_dkv_bf16_mma", "launches_bwd_dq",
+           "launches_bwd_dq_bf16", "launches_bwd_dq_bf16_mma"]
 
 # kernel launches since the last reset: forward, dK/dV and dQ, of the
-# float32 and the bfloat16 faces; the bfloat16 forward's mma.sync path
-# (D 32 and 128) apart
+# float32 and the bfloat16 faces; the bfloat16 faces' mma.sync path (D 32
+# and 128) apart
 launches = 0
 launches_bwd_dkv = 0
 launches_bwd_dq = 0
@@ -58,6 +64,8 @@ launches_bf16 = 0
 launches_bf16_mma = 0
 launches_bwd_dkv_bf16 = 0
 launches_bwd_dq_bf16 = 0
+launches_bwd_dkv_bf16_mma = 0
+launches_bwd_dq_bf16_mma = 0
 
 _NAME = "flash_attention_fwd"
 _BWD_NAME = "flash_attention_bwd"
@@ -70,6 +78,13 @@ _FACES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _BM_W, _BN_W, _RING_W, _DW = 128, 128, 4, 64
 # the mma.sync kernel's keys a tile (``BN``)
 _BN_MMA = 32
+# the bfloat16 backward's wgmma kernels (``BK_W``, ``BQ_W``, ``BM_W``,
+# ``BN_W`` and ``RING_W`` of csrc/flash_attention_bwd.cu): keys a dK/dV
+# block, queries a dK/dV tile, queries a dQ block, keys a dQ tile, and
+# the stages of either ring
+_BK_BWD_W, _BQ_BWD_W, _BM_BWD_W, _BN_BWD_W, _RING_BWD_W = 128, 32, 128, 64, 4
+# the mma.sync kernels' rows a block (``BR``) and rows a tile (``BN``)
+_BR_BWD_MMA, _BN_BWD_MMA = 64, 32
 
 
 def fwd_bf16_path(D):
@@ -96,6 +111,68 @@ def fwd_bf16_smem_bytes(D, path=None):
                              % (_NAME, _DW, D))
         return (_BM_W * _DW + _RING_W * 2 * _BN_W * _DW) * 2 + 1024
     return 4 * _BN_MMA * (D + 8) * 2
+
+
+def bwd_bf16_path(D):
+    """The kernels the bfloat16 backward takes at head dim ``D``:
+    ``"wgmma"`` at D 64, ``"mma"`` at D 32 and 128 (``wgmma_path`` of
+    ``csrc/flash_attention_bwd.cu``, picked before the launch)."""
+    if D not in _HEAD_DIMS:
+        raise ValueError("%s: head_dim %d has no kernel (supported: %s)"
+                         % (_BWD_NAME, D, _HEAD_DIMS))
+    return "wgmma" if D == _DW else "mma"
+
+
+def bwd_bf16_smem_bytes(D, which, path=None):
+    """Dynamic shared memory of one block of the bfloat16 dK/dV
+    (``which`` "dkv") or dQ (``"dq"``) kernel at head dim ``D`` on
+    ``path`` (default :func:`bwd_bf16_path`). The wgmma kernels: the
+    block's two 128-row boxes (K and V, or q and dO), ``RING_W`` stages
+    (dK/dV: a q and a dO tile of ``BQ_W`` rows and their lse and delta,
+    each in ``BQ_W + 32`` floats;
+    dQ: a K and a V tile of ``BN_W`` rows) and 1024 bytes of alignment.
+    The mma.sync kernels: two 64-row tiles and two buffers of a pair of
+    32-row tiles of ``[rows][D + 8]`` bfloat16, and for dK/dV two
+    buffers of 32 lse and delta."""
+    if which not in ("dkv", "dq"):
+        raise ValueError("which is 'dkv' or 'dq', not %r" % (which,))
+    path = path or bwd_bf16_path(D)
+    if path == "wgmma":
+        if D != _DW:
+            raise ValueError("%s: the wgmma kernels take D %d only, not %d"
+                             % (_BWD_NAME, _DW, D))
+        if which == "dkv":
+            # lse and delta: BQ_W + 4 values a stage loads, kept in
+            # 128-byte aligned rows of BQ_W + 32 floats
+            stage = 2 * _BQ_BWD_W * _DW * 2 + 2 * (_BQ_BWD_W + 32) * 4
+            return 2 * _BK_BWD_W * _DW * 2 + _RING_BWD_W * stage + 1024
+        stage = 2 * _BN_BWD_W * _DW * 2
+        return 2 * _BM_BWD_W * _DW * 2 + _RING_BWD_W * stage + 1024
+    tiles = (2 * _BR_BWD_MMA + 4 * _BN_BWD_MMA) * (D + 8) * 2
+    return tiles + (4 * _BN_BWD_MMA * 4 if which == "dkv" else 0)
+
+
+def kernel_bwd_bf16_path(D):
+    """The path the built library's bfloat16 backward takes at head dim
+    ``D`` (``flash_attention_bwd_bf16_path``; needs the card's
+    toolchain)."""
+    lib = _build.load(_BWD_NAME)
+    fn = lib.flash_attention_bwd_bf16_path
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return {1: "wgmma", 0: "mma"}.get(fn(D))
+
+
+def kernel_bwd_smem_bytes(D, which, face):
+    """The built library's shared memory of a backward block at head dim
+    ``D``: ``which`` "dkv" or "dq", ``face`` "f32", "bf16" (the path of
+    D) or "bf16_mma"."""
+    lib = _build.load(_BWD_NAME)
+    fn = lib.flash_attention_bwd_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(D, {"dkv": 0, "dq": 1}[which],
+              {"f32": 0, "bf16": 1, "bf16_mma": 2}[face])
 
 
 def kernel_fwd_bf16_path(D):
@@ -271,45 +348,56 @@ def _bwd_fn(lib, name, n_out):
     return fn
 
 
-def _bwd_dkv(q, k, v, do, lse, delta, causal, scale):
-    """Launch the dK/dV kernel of the operands' face on checked operands;
-    returns (dk, dv)."""
-    global launches_bwd_dkv, launches_bwd_dkv_bf16
+def _bwd_dkv(q, k, v, do, lse, delta, causal, scale, mma=False):
+    """Launch the dK/dV kernel of the operands' face on checked operands,
+    counted on its path's counter; ``mma`` forces the bfloat16 face's
+    mma.sync kernel at any head dim, counted nowhere. Returns (dk, dv)."""
+    global launches_bwd_dkv, launches_bwd_dkv_bf16, launches_bwd_dkv_bf16_mma
     B, S, H, D = q.shape
     face = _FACES[q.dtype]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _build.load(_BWD_NAME)
-    code = _bwd_fn(lib, "flash_attention_bwd_dkv_" + face, 2)(
+    name = "flash_attention_bwd_dkv_" + face + "_mma" * mma
+    code = _bwd_fn(lib, name, 2)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, S, H, D, int(bool(causal)), float(scale),
         _build.stream_handle(q.device))
     _build.check(lib, code, "flash_attention_bwd_dkv")
-    if face == "bf16":
+    if mma:
+        pass
+    elif face == "f32":
+        launches_bwd_dkv += 1
+    elif bwd_bf16_path(D) == "wgmma":
         launches_bwd_dkv_bf16 += 1
     else:
-        launches_bwd_dkv += 1
+        launches_bwd_dkv_bf16_mma += 1
     return dk, dv
 
 
-def _bwd_dq(q, k, v, do, lse, delta, causal, scale):
-    """Launch the dQ kernel of the operands' face on checked operands;
-    returns dq."""
-    global launches_bwd_dq, launches_bwd_dq_bf16
+def _bwd_dq(q, k, v, do, lse, delta, causal, scale, mma=False):
+    """Launch the dQ kernel of the operands' face on checked operands, as
+    :func:`_bwd_dkv` does; returns dq."""
+    global launches_bwd_dq, launches_bwd_dq_bf16, launches_bwd_dq_bf16_mma
     B, S, H, D = q.shape
     face = _FACES[q.dtype]
     dq = torch.empty_like(q)
     lib = _build.load(_BWD_NAME)
-    code = _bwd_fn(lib, "flash_attention_bwd_dq_" + face, 1)(
+    name = "flash_attention_bwd_dq_" + face + "_mma" * mma
+    code = _bwd_fn(lib, name, 1)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         B, S, H, D, int(bool(causal)), float(scale),
         _build.stream_handle(q.device))
     _build.check(lib, code, "flash_attention_bwd_dq")
-    if face == "bf16":
+    if mma:
+        pass
+    elif face == "f32":
+        launches_bwd_dq += 1
+    elif bwd_bf16_path(D) == "wgmma":
         launches_bwd_dq_bf16 += 1
     else:
-        launches_bwd_dq += 1
+        launches_bwd_dq_bf16_mma += 1
     return dq
 
 

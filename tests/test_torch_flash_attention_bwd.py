@@ -16,7 +16,15 @@ and round dq, dk and dv once to bfloat16; ``lse``, its cotangent and
 ``test_torch_flash_attention_cuda.bf16_errors`` measures it: every element
 within one ulp of its own magnitude plus SUM_TOL of the largest, the
 largest error within one ulp of the largest magnitude.
+
+The bfloat16 backward's path rule (the wgmma kernels at D 64, the
+mma.sync kernels at D 32 and 128) and its shared memory are mirrored in
+Python; the mirror's constants are read back from the CUDA source here,
+where the kernels cannot run.
 """
+import os
+import re
+
 import ml_dtypes
 import numpy as np
 import pytest
@@ -131,3 +139,112 @@ def test_backward_on_bfloat16_matches_jax_vjp(S, D, causal):
                                               causal=causal)
     for a, b in zip(auto, again):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D,path", [(32, "mma"), (64, "wgmma"),
+                                    (128, "mma")])
+def test_bf16_backward_path_mirror(D, path):
+    """The bfloat16 backward's wgmma kernels take D 64 only; D 32 and 128
+    keep the mma.sync kernels. The mirror's shared memory follows: the
+    wgmma dK/dV block holds K and V (128 rows each), 4 stages of a q and
+    a dO tile of 32 rows and their lse and delta; the dQ block q and dO
+    (128 rows each) and 4 stages of a K and a V tile of 64 rows."""
+    assert tfa.bwd_bf16_path(D) == path
+    mma = {"dkv": (2 * 64 + 4 * 32) * (D + 8) * 2 + 4 * 32 * 4,
+           "dq": (2 * 64 + 4 * 32) * (D + 8) * 2}
+    wgmma = {"dkv": 2 * 128 * 64 * 2 + 4 * (2 * 32 * 64 * 2 + 2 * 64 * 4)
+             + 1024,
+             "dq": 2 * 128 * 64 * 2 + 4 * 2 * 64 * 64 * 2 + 1024}
+    for which in ("dkv", "dq"):
+        assert tfa.bwd_bf16_smem_bytes(D, which, "mma") == mma[which]
+        want = wgmma[which] if path == "wgmma" else mma[which]
+        assert tfa.bwd_bf16_smem_bytes(D, which) == want
+        if path == "mma":
+            with pytest.raises(ValueError, match="D 64 only"):
+                tfa.bwd_bf16_smem_bytes(D, which, "wgmma")
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.bwd_bf16_path(D + 1)
+    with pytest.raises(ValueError, match="'dkv' or 'dq'"):
+        tfa.bwd_bf16_smem_bytes(D, "dk")
+
+
+def test_bf16_bwd_wgmma_mirror_matches_the_source():
+    """The wgmma kernels' blocks, tiles, ring, threads, head dim and shared
+    memory in csrc/flash_attention_bwd.cu are those the mirror computes
+    with; the path rule picks them by D; the mma.sync kernels' tiles are
+    as they were; the products and sums are those of the design."""
+    path = os.path.join(os.path.dirname(tfa.__file__), "csrc",
+                        "flash_attention_bwd.cu")
+    with open(path) as fh:
+        src = fh.read()
+
+    def ints(name):
+        m = re.search(r"constexpr int %s = (\d+);" % name, src)
+        return int(m.group(1))
+
+    assert (ints("BK_W"), ints("BQ_W"), ints("BM_W"), ints("BN_W"),
+            ints("RING_W"), ints("DW")) == \
+        (tfa._BK_BWD_W, tfa._BQ_BWD_W, tfa._BM_BWD_W, tfa._BN_BWD_W,
+         tfa._RING_BWD_W, tfa._DW) == (128, 32, 128, 64, 4, 64)
+    assert ints("THREADS_W") == 384
+    assert (ints("BN"), 16 * ints("WARPS")) == \
+        (tfa._BN_BWD_MMA, tfa._BR_BWD_MMA) == (32, 64)
+    assert "QT_W = BQ_W * DW" in src and "KT_W = BN_W * DW" in src
+    flat = " ".join(src.split())
+    assert "LBOX_W = BQ_W + 4;" in flat and "LPAD_W = BQ_W + 32;" in flat
+    assert "2 * QT_W * (int)sizeof(bf16) + 2 * LBOX_W * (int)sizeof(float)" \
+        in flat
+    assert "DKV_SMEM_BYTES_W = 2 * BK_W * DW * (int)sizeof(bf16) + RING_W * " \
+        "2 * QT_W * (int)sizeof(bf16) + RING_W * 2 * LPAD_W * " \
+        "(int)sizeof(float) + 1024;" in flat
+    assert "DQ_STAGE_BYTES_W = 2 * KT_W * (int)sizeof(bf16)" in src
+    assert "2 * BM_W * DW * (int)sizeof(bf16) + RING_W * DQ_STAGE_BYTES_W " \
+        "+ 1024" in src
+    assert "bool wgmma_path(int D) { return D == DW; }" in src
+    assert "return (2 * BR + 4 * BN) * (D + 8) * (int)sizeof(bf16) +\n" \
+        "         4 * BN * (int)sizeof(float);" in src
+    assert "return (2 * BR + 4 * BN) * (D + 8) * (int)sizeof(bf16);" in src
+    # the turns of the two consumer warpgroups, s^T and s K-major, the
+    # register-A products on the MN-major tiles
+    assert src.count("bar_sync(mine, 256);") == 5
+    assert "wgmma_bf16<BQ_W, 0>(st, desc_sw128(ka + 32 * kk" in src
+    assert "wgmma_bf16<BN_W, 0>(sc, desc_sw128(qa + 32 * kk" in src
+    # dk, dv and dq summed in the wgmma accumulator over the walk, a
+    # turn's products one group (the source's measured decision)
+    assert "wgmma_m64n64k16_rs(d, hi[j], yd, true);" in src
+    assert "wgmma_m64n64k16_rs(dqa, dsh[j], kd, true);" in src
+    assert src.count("wgmma_commit();") == 6
+    # no atomics on either path
+    assert "atomicAdd" not in src and "red.global" not in src
+
+
+def test_bf16_bwd_mma_counters_are_kernel_counters():
+    for which in ("dkv", "dq"):
+        name = "flash_attention_bwd_%s_bf16_mma" % which
+        attr = "launches_bwd_%s_bf16_mma" % which
+        assert kernels.KERNEL_COUNTERS[name] == (tfa, attr)
+        setattr(tfa, attr, 3)
+        assert kernels.launch_counts()[name] == 3
+        kernels.reset_launches()
+        assert getattr(tfa, attr) == 0
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_bf16_backward_on_cpu_counts_no_launch_on_either_path(D):
+    """On CPU tensors the bfloat16 backward is the plain version on both
+    paths' head dims, and no counter moves."""
+    q, k, v, do, dlse = [torch.from_numpy(a)
+                         for a in _inputs(1, 9, 2, D, seed=D)]
+    q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+    o, lse = tfa.flash_attention_with_lse(q, k, v, causal=True)
+    before = kernels.launch_counts()
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, dlse, causal=True)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o2, lse2 = tfa.flash_attention_with_lse(*leaves, causal=True)
+    auto = torch.autograd.grad([o2, lse2], leaves, [do, dlse])
+    assert kernels.launch_counts() == before
+    want = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do, dlse,
+                                             causal=True)
+    for g, a, w in zip(got, auto, want):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w) and torch.equal(a, w)

@@ -32,7 +32,13 @@ timed at D 64; the D 128 templates spill at this size) and ``planes``
 (the dK/dV kernel's q and dO tiles split once as they land, into hi (in
 place) and lo planes in shared memory that the fragment loads then read,
 instead of each warp splitting every fragment it loads; the dQ kernel as
-in the source). The forward has ``bn64`` (key tiles of 64 rows),
+in the source), and for its bfloat16 faces' wgmma kernels (D 64)
+``timeline`` (clock64 marks: each consumer warpgroup's cycles a tile
+waiting for a stage, for its turn, from issuing a turn's group of
+products to holding it, and forming p and ds), ``no_pingpong`` (the
+named barriers of the turns made no-ops), ``ring6`` (a ring of six
+stages instead of four) and ``bq64`` (dK/dV tiles of 64 queries, a
+turn's products then two groups). The forward has ``bn64`` (key tiles of 64 rows),
 ``br32`` (blocks of 2 warps and 32 query rows instead of 4 and 64),
 ``q_in_smem`` (the block's q in shared memory and its fragments split
 on every tile at every D, as the source does at D 128 only),
@@ -73,7 +79,11 @@ For each it prints the registers and spills ``-Xptxas -v`` reports and:
   float64 plain backward at causal S 1024 (B 8, H 12, D 64: the LM
   step's shape) and S 2048 (B 2, H 4), and at S 1024 the time of each
   kernel; the same of the bfloat16 faces at S 1024 (a library without
-  them, a parent's, is skipped); and whether each variant's float32
+  them is skipped), with phase 9's gate against the float32 plain
+  backward, each kernel's time by CUDA events and by device time and,
+  beside the source, its mma.sync kernels forced at D 64 and SDPA's
+  backward on bfloat16; the gate at S 2048 (B 2, H 4); and whether each
+  variant's float32
   outputs equal the source's bit for bit at the LM step's shape and the
   D 32 (non-causal) and D 128 (causal) templates, S 130
   (``FLASH_SAME_CASES``; with ``--against``: the float32 faces left as
@@ -235,6 +245,81 @@ COMMON = {
 # products) instead of split into a bfloat16 hi and lo
 P_ONCE = [("  mma_bf16_k16(d, a.lo, b);\n  mma_bf16_k16(d, a.hi, b);\n",
            "  mma_bf16_k16(d, a.hi, b);\n")]
+# the bfloat16 backward's wgmma kernels with clock64 marks: each consumer
+# warpgroup sums the cycles of its walk spent waiting for a stage (0),
+# waiting for its turn (1), from issuing a turn's group (s and dp of this
+# tile, the register-A products of the last) to holding it (2) and
+# forming p and ds (3), with its whole walk (5) and the tiles it took
+# (6), into a device array per kernel that flash_bwd_timeline copies out
+# (one row of 8 a warpgroup, blocks in launch order)
+def _bwd_marks(array, loop_head, turn, pairs, tail, tiles):
+    wait, sync, rest = turn.split("\n", 2)
+    return [
+        (loop_head, loop_head + "    unsigned long long tl[8] = {0, 0, 0, 0, "
+         "0, 0, 0, 0}, t_a;\n    const unsigned long long t_0 = clk();\n"),
+        (turn, """      t_a = clk();
+%s
+      tl[0] += clk() - t_a;
+      t_a = clk();
+%s
+      tl[1] += clk() - t_a;
+      t_a = clk();
+%s""" % (wait, sync, rest)),
+        (pairs, "      tl[2] += clk() - t_a;\n      t_a = clk();\n" + pairs
+         + "      tl[3] += clk() - t_a;\n"),
+        (tail, tail + """    tl[5] = clk() - t_0;
+    tl[6] = %s;
+    if (threadIdx.x %% 128 == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        %s[(blockIdx.x * gridDim.y + blockIdx.y) %% 4096][wg - 1][i] =
+            tl[i];
+    }
+""" % (tiles, array))]
+
+
+BWD_TIMELINE = [
+    ("// 2^x on the special-function unit",
+     """__device__ unsigned long long g_tl_dkv[4096][2][8];
+__device__ unsigned long long g_tl_dq[4096][2][8];
+
+__device__ __forceinline__ unsigned long long clk() {
+  unsigned long long c;
+  asm volatile("mov.u64 %0, %%clock64;\\n" : "=l"(c));
+  return c;
+}
+
+// 2^x on the special-function unit"""),
+    ("const char* error_string(int code) {",
+     """int flash_bwd_timeline(void* dst, int bytes, int which) {
+  return (int)(which ? cudaMemcpyFromSymbol(dst, g_tl_dq, bytes)
+                     : cudaMemcpyFromSymbol(dst, g_tl_dkv, bytes));
+}
+
+const char* error_string(int code) {"""),
+] + _bwd_marks(
+    "g_tl_dkv", "    mbar_wait(&kvfull, 0);\n",
+    """      mbar_wait(&full[s], (it / RING_W) & 1);
+      bar_sync(mine, 256);
+      if (it > first) {
+""", "      p_ds(it, s);\n", "    if (wk == 0) bar_arrive(other, 256);\n",
+    "max(0, n_tiles - first)") + _bwd_marks(
+    "g_tl_dq", "    mbar_wait(&qfull, 0);\n",
+    """      mbar_wait(&full[s], (it / RING_W) & 1);
+      bar_sync(mine, 256);
+      if (it > 0) {
+""", "      ds_pairs(it);\n", """        bar_arrive(other, 256);
+      }
+    }
+""", "last")
+# the turns' named barriers made no-ops (in hopper.cuh; the backward's
+# only named barriers)
+NO_TURNS = [
+    ('  asm volatile("bar.sync %0, %1;\\n" ::"r"(id), "r"(count) : '
+     '"memory");\n', ""),
+    ('  asm volatile("bar.arrive %0, %1;\\n" ::"r"(id), "r"(count) : '
+     '"memory");\n', "")]
+
 BWD_VARIANTS = {
     "p_once": P_ONCE,
     "mma_accumulator": [
@@ -247,6 +332,38 @@ BWD_VARIANTS = {
         ("      add4(dqa[dn], c);\n", ""),
     ],
     "bn64": [("constexpr int BN = 32; ", "constexpr int BN = 64; ")],
+    # the bfloat16 faces' wgmma kernels (D 64): clock64 marks a tile by
+    # phase; the two consumer warpgroups without turns (the named
+    # barriers made no-ops); a ring of 6 stages instead of 4; dK/dV
+    # tiles of 64 queries, a turn's products then two groups (the last
+    # tile's dv and dk waited for before this tile's s^T and dp^T are
+    # issued: one group would hold 192 floats of arrays a thread)
+    "timeline": BWD_TIMELINE,
+    "no_pingpong": NO_TURNS,
+    "ring6": [("constexpr int RING_W = 4; ", "constexpr int RING_W = 6; ")],
+    "bq64": [("constexpr int BQ_W = 32; ", "constexpr int BQ_W = 64; "),
+             ("""        wgmma_fence();
+        s_products(s);
+        dkv_products((it - 1) % RING_W);
+        wgmma_commit();
+        wgmma_wait<0>();
+        bar_arrive(other, 256);
+        pin_s();
+        pin_dkv();
+        mbar_arrive(&empty[(it - 1) % RING_W]);
+""", """        wgmma_fence();
+        dkv_products((it - 1) % RING_W);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin_dkv();
+        mbar_arrive(&empty[(it - 1) % RING_W]);
+        wgmma_fence();
+        s_products(s);
+        wgmma_commit();
+        wgmma_wait<0>();
+        bar_arrive(other, 256);
+        pin_s();
+""")],
     "planes": [
         ("\n// -- asynchronous copies", "\n" + PLANE_LOADS),
         ("  return ((2 * BR + 4 * BN) * (D + 4) + 4 * BN) * 4;",
@@ -1104,15 +1221,24 @@ def study_bwd(libs, result, dev, flush):
             print(json.dumps({name: {"S%d" % S: rec}}), flush=True)
         del q, k, v, do, o, lse, want, delta
         torch.cuda.empty_cache()
-    # the bfloat16 faces at the LM step's shape (a library without them,
-    # a parent's, is skipped): errors against the float64 backward on the
-    # same bfloat16 values, over each gradient's largest magnitude
+    # the bfloat16 faces at the LM step's shape (a library without them
+    # is skipped): errors against the float64 backward on the same
+    # bfloat16 values, over each gradient's largest magnitude, and the
+    # gate of chip_smoke's phase 9 against the float32 plain backward
+    # (at most 1 passes); each kernel's time by CUDA events and by device
+    # time; beside the source, its mma.sync kernels forced at D 64 (the
+    # faces' design before their wgmma kernels) and SDPA's backward on
+    # bfloat16 (dq, dk and dv, one library call for both kernels)
+    F = torch.nn.functional
     B, S, H, D = 8, 1024, 12, 64
     q, k, v, do = _bf16_inputs(rng, (B, S, H, D), 4, dev)
     o, lse = fa.flash_attention_reference(q, k, v, causal=True)
     want = fa.flash_attention_bwd_reference(
         *(t.double() for t in (q, k, v, o, lse, do)), causal=True)
+    plain = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                             causal=True)
     delta = fa._delta(o, do, None).contiguous()
+    args = (q, k, v, do, lse, delta, True, D ** -0.5)
     source_got = None
     for name, lib in libs.items():
         if not hasattr(lib, "flash_attention_bwd_dq_bf16"):
@@ -1122,6 +1248,7 @@ def study_bwd(libs, result, dev, flush):
             torch.cuda.synchronize()
             rec = {n: float((g.double() - w).abs().max() / w.abs().max())
                    for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+            rec["gate"] = max(_bf16_gate(g, w) for g, w in zip(got, plain))
             # the bfloat16 faces' outputs against the source's, given the
             # same o and lse (with --against: a change left them as they
             # were)
@@ -1130,13 +1257,52 @@ def study_bwd(libs, result, dev, flush):
             elif source_got is not None:
                 rec["bit_identical_to_source"] = all(
                     torch.equal(g, s) for g, s in zip(got, source_got))
-            args = (q, k, v, do, lse, delta, True, D ** -0.5)
-            rec["dkv_ms"] = time_ms(lambda: fa._bwd_dkv(*args), flush)
-            rec["dq_ms"] = time_ms(lambda: fa._bwd_dq(*args), flush)
+            for kname, fn in (("dkv", fa._bwd_dkv), ("dq", fa._bwd_dq)):
+                rec[kname + "_ms"] = time_ms(lambda: fn(*args), flush)
+                rec[kname + "_device_ms"] = device_ms(lambda: fn(*args),
+                                                      flush)
+                if name == "source" and hasattr(
+                        lib, "flash_attention_bwd_dq_bf16_mma"):
+                    rec[kname + "_mma_forced_ms"] = time_ms(
+                        lambda: fn(*args, mma=True), flush)
+                    rec[kname + "_mma_forced_device_ms"] = device_ms(
+                        lambda: fn(*args, mma=True), flush)
+        if name == "source":
+            qh, kh, vh = (t.transpose(1, 2).detach().clone()
+                          .requires_grad_(True) for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+            doh = do.transpose(1, 2)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(out, (qh, kh, vh), doh,
+                                           retain_graph=True)
+            rec["sdpa_bwd_ms"] = time_ms(sdpa_bwd, flush)
+            rec["sdpa_bwd_device_ms"] = device_ms(sdpa_bwd, flush)
+            del qh, kh, vh, out, doh
         result[name]["bf16_S1024"] = rec
         print(json.dumps({name: {"bf16_S1024": rec}}), flush=True)
-    del q, k, v, do, o, lse, want, delta
+    del q, k, v, do, o, lse, want, plain, delta, args, source_got
     torch.cuda.empty_cache()
+    # the gate on a long walk (S 2048, B 2, H 4): what decides whether a
+    # sum may stay in the wgmma accumulator (variant straight)
+    q, k, v, do = _bf16_inputs(rng, (2, 2048, 4, 64), 4, dev)
+    o, lse = fa.flash_attention_reference(q, k, v, causal=True)
+    plain = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                             causal=True)
+    for name, lib in libs.items():
+        if not hasattr(lib, "flash_attention_bwd_dq_bf16"):
+            continue
+        with using("flash_attention_bwd", lib):
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+            torch.cuda.synchronize()
+        rec = {n: _bf16_gate(g, w)
+               for n, g, w in zip(("dq", "dk", "dv"), got, plain)}
+        result[name]["bf16_gate_S2048"] = rec
+        print(json.dumps({name: {"bf16_gate_S2048": rec}}), flush=True)
+    del q, k, v, do, o, lse, plain
+    torch.cuda.empty_cache()
+
+    _bwd_timeline(libs, result, dev)
 
     def bwd(q, k, v, do, causal):
         o, lse = fa.flash_attention_reference(q, k, v, causal=causal)
@@ -1147,6 +1313,55 @@ def study_bwd(libs, result, dev, flush):
         result[name]["bit_identical_to_source"] = same
         print(json.dumps({name: {"bit_identical_to_source": same}}),
               flush=True)
+
+
+def _bf16_gate(got, want):
+    """Phase 9's gate of a bfloat16 output against its plain version: the
+    larger of its largest error over one ulp of the largest magnitude and
+    the largest error of an element over one ulp of its own magnitude
+    plus 2e-5 of the largest (at most 1 passes)."""
+    err = float((got.double() - want.double()).abs().max())
+    m = float(want.double().abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+    return max(err / ulp if ulp else float(err > 0) * float("inf"),
+               _own_ulp_ratio(got, want))
+
+
+def _bwd_timeline(libs, result, dev):
+    """Where a tile's cycles go in the bfloat16 backward's wgmma kernels
+    (variant ``timeline``): at the LM step's shape (B 8, S 1024, H 12, D
+    64, causal), each consumer warpgroup's cycles a tile it takes waiting
+    for a stage, for its turn, from issuing the turn's group of products
+    to holding it, and forming p and ds; its whole walk a tile, over all
+    blocks of each kernel."""
+    lib = libs.get("timeline")
+    if lib is None:
+        return
+    rng = np.random.RandomState(5)
+    fn = lib.flash_bwd_timeline
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    names = ("stage_wait", "turn_wait", "group_issue_to_ready", "p_ds")
+    B = 8
+    q, k, v, do = _bf16_inputs(rng, (B, 1024, 12, 64), 4, dev)
+    o, lse = fa.flash_attention_reference(q, k, v, causal=True)
+    with using("flash_attention_bwd", lib):
+        fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        torch.cuda.synchronize()
+        for which, kname in enumerate(("dkv", "dq")):
+            buf = np.zeros((4096, 2, 8), np.uint64)
+            _build.check(lib, fn(buf.ctypes.data, buf.nbytes, which),
+                         "timeline")
+            used = buf[:B * 12 * 8].astype(np.float64)
+            tiles = used[:, :, 6].sum()
+            rec = {n: float(used[:, :, i].sum() / tiles)
+                   for i, n in enumerate(names)}
+            rec["walk_per_tile"] = float(used[:, :, 5].sum() / tiles)
+            rec["tiles"] = int(tiles)
+            result["timeline"]["%s_cycles_per_tile_B%d" % (kname, B)] = rec
+            print(json.dumps({"timeline": {
+                "%s_cycles_per_tile_B%d" % (kname, B): rec}}), flush=True)
+    del q, k, v, do, o, lse
 
 
 def study_fwd(libs, result, dev, flush):
@@ -1183,6 +1398,7 @@ def study_fwd(libs, result, dev, flush):
         q, k, v = _bf16_inputs(rng, (B, 1024, 12, 64), 3, dev)
         o_want, lse_want = fa.flash_attention_reference(
             *(t.double() for t in (q, k, v)), causal=True)
+        source_out = None
         for name, lib in libs.items():
             if not hasattr(lib, "flash_attention_fwd_bf16"):
                 continue
@@ -1192,12 +1408,19 @@ def study_fwd(libs, result, dev, flush):
                 rec = {"o": float((o.double() - o_want).abs().max()
                                   / o_want.abs().max()),
                        "lse": float((lse.double() - lse_want).abs().max()),
+                       # (with --against: a change left the face as it
+                       # was)
+                       "bit_identical_to_source": None if source_out is None
+                       else bool(torch.equal(o, source_out[0])
+                                 and torch.equal(lse, source_out[1])),
                        "ms": time_ms(lambda: fa.flash_attention_with_lse(
                            q, k, v, causal=True), flush),
                        "device_ms": device_ms(
                            lambda: fa.flash_attention_with_lse(
                                q, k, v, causal=True), flush)}
                 if name == "source":
+                    source_out = (o, lse)
+
                     def mma():
                         return fa._launch_fwd(q, k, v, True, 64 ** -0.5,
                                               mma=True)
@@ -1708,7 +1931,8 @@ def study_conv3x3_bf16(libs, result, dev, flush):
     (with --against) a parent's face, errors against a float64 conv
     (bfloat16 out), fwd and dx times, cuDNN on bfloat16 beside them, and
     the mean over a ResNet-50 step's 16 launches."""
-    _im2col_walk(libs["walk"], result["walk"], dev)
+    if "walk" in libs:  # built unless --variants leaves it out
+        _im2col_walk(libs["walk"], result["walk"], dev)
     names = [n for n in libs if n in ("source", "against")
              or (n in CONV_BF16_VARIANTS and n != "walk")]
     means = {n: {"fwd": 0.0, "dx": 0.0} for n in names + ["cudnn"]}
