@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of paddle_tpu_torch on one NVIDIA card (an H100).
 
-Drives the port's generative serving path and its Fluid training path
+Drives the port's generative serving path (plain, speculative and
+prefix-shared) and its Fluid training path
 at the widths of GPT-2 small, its conv-net training path on ImageNet
 ResNet-50, its sequence training path on the stacked-RNN text
 classifier of ``benchmark/rnn_bench.py``, its autotune path (the
@@ -27,7 +28,13 @@ Phases, in order; any failure exits non-zero at once:
    ``by_R``) and at its edges (``PAGED_EDGE_SHAPES``: dh 32 and 128, T
    24, one split, positions past the table), each launched twice (the
    second launch bit-identical) and its split count held to the mirror
-   (``paged_attention.splits``);
+   (``paged_attention.splits``); its k-wide face
+   (``paged_attention_kwide``) at phase 10's verify shape, 16 rows of
+   ``SPEC_K`` + 1 lanes at phase 3's prompt lengths plus 0 .. ``SPEC_K``
+   (one launch on the lanes flattened onto 80 rows, each row's table
+   repeated), held to its plain version in the same way and timed beside
+   it and a gather + SDPA, its bound from the pages that shape reads
+   (the entry's ``kwide``);
    the flash forward and backward also at the templates of D 32
    (non-causal) and D 128 (causal), a second launch of each of their
    kernels must equal the first bit for bit, and their TF32-rounded
@@ -166,7 +173,28 @@ Phases, in order; any failure exits non-zero at once:
    bfloat16-state recurrence shown to miss), exactly 2 launches of the
    bfloat16 face per layer a step and no float32 LSTM launch, the loss
    falling; tokens/s, step p50 and device time beside phase 7's float32
-   LSTM run.
+   LSTM run;
+10. speculative: export phase 3's weights as two speculative pairings at
+   ``SPEC_K`` 4 (``export_speculative``): a self-draft, and a draft of
+   the same weights plus seeded noise at the first of
+   ``DRAFT_NOISE_SCALES`` whose greedy agreement with the target is at
+   most ``DRAFT_AGREE_MAX`` (printed); serve phase 3's 16 greedy prompts
+   through each (``load_speculative``, the engine's rounds: the draft's
+   propose steps and the target's verify step through the paged kernel,
+   the prefills of both through the flash forward), then 4 tempered
+   requests twice: the greedy tokens must equal phase 3's, unless a
+   request diverges where the plain step's top-two logit margin is
+   within ``LOGIT_TOL`` (each divergence printed with that margin); the
+   self-draft's greedy drafts all accepted but for at most ``SPEC_K``
+   for each plain step with such a margin (the bound printed beside the
+   count), the perturbed draft's acceptance strictly between 0 and 1; the tempered repeats identical;
+   exactly L paged launches at 80 rows and (k + 1) x L at 16 rows a
+   round and no other, (L + L) flash launches a prefill, no
+   ``speculation_degraded`` or ``prefix_degraded`` event; then 8 greedy
+   requests sharing a 512-token prefix (tails of 16 to 64), queued
+   before admission, with prefix sharing off and on: tokens identical,
+   prefix hits, a lower peak of live pages; tokens/s, inter-token p50
+   and acceptance of each engine beside phase 3's plain engine.
 
 Each phase prints its wall time. Before phase 1 the tune cache is set
 to a fresh, empty directory under ``build/`` (printed), so that no
@@ -180,6 +208,7 @@ them), the ``{"kernels": [...]}`` line, and then
 package beside it, the script exits non-zero and prints no result.
 """
 import argparse
+import collections
 import ctypes
 import json
 import math
@@ -214,8 +243,8 @@ GPT2_SMALL = dict(vocab_size=50257, hidden=768, num_layers=12, num_heads=12,
 # inputs of the products to TF32 (10-bit mantissa) errs by ~1e-3.
 KERNEL_TOL = 5e-5
 # The paged attention kernel timed at R 1, 4 and 16 rows (phase 2): one
-# user's long context, a small batch (a speculative verify step), and
-# the engine's full batch of the serving drive
+# user's long context, a small batch, and the engine's full batch of the
+# serving drive
 PAGED_BY_R = (1, 4, 16)
 # and held at its edges (R, MB, T, nh, dh, positions of rows 2..; row 0
 # is inactive, row 1 at position 0): the other head dims, T 24 (splits
@@ -234,6 +263,20 @@ PAGED_EDGE_SHAPES = [
 # TF32 kernel computes) is measured in the same run and must miss this
 # tolerance, so a kernel run in TF32 or bf16 would fail it.
 LOGIT_TOL = 1e-3
+# Phase 10 (speculative and prefix-shared serving): the speculation
+# depth of both pairings; the perturbed draft's noise, relative to each
+# weight array's standard deviation, is the first of these scales whose
+# greedy tokens agree with the target's on at most DRAFT_AGREE_MAX of
+# two prompts' positions (so that its acceptance lies strictly between 0
+# and 1); 4 tempered requests (prompts, seeds), each served twice
+SPEC_K = 4
+DRAFT_NOISE_SCALES = (0.05, 0.1, 0.2, 0.4, 0.8, 1.6)
+DRAFT_AGREE_MAX = 0.8
+SPEC_TEMPERATURE = 0.8
+# 8 greedy requests sharing a 512-token prefix (32 pages of 16) with
+# distinct tails of 16 to 64 tokens, served with sharing off, then on
+PREFIX_TOKENS = 512
+PREFIX_TAILS = (16, 23, 30, 37, 44, 51, 58, 64)
 # Flash backward kernels against the plain backward, same inputs, both
 # float32: max abs error over the largest magnitude of the plain dq, dk
 # or dv. Only sum orders differ (~1e-6 relative); the plain backward on
@@ -650,6 +693,101 @@ def _paged_library(q, kp, vp, tables, positions):
     return library
 
 
+def _kwide_inputs(dev, K1):
+    """The verify step's attention operands at phase 10's first round:
+    16 rows at phase 3's prompt lengths (the first draw of its seed-1
+    stream), lane i of a row at its length + i, each row on 64 pages of
+    its own (T 16, nh 12, dh 64; seed 13)."""
+    R, MB, T, nh, dh = 16, 64, 16, 12, 64
+    P = R * MB
+    lengths = np.random.RandomState(1).randint(16, 901, R)
+    rng = np.random.RandomState(13)
+    kp = rng.randn(P + 1, T, nh, dh).astype(np.float32)
+    vp = rng.randn(P + 1, T, nh, dh).astype(np.float32)
+    q = rng.randn(R, K1, nh, dh).astype(np.float32)
+    tables = rng.permutation(P).reshape(R, MB).astype(np.int32)
+    positions = (lengths[:, None] + np.arange(K1)[None, :]).astype(np.int32)
+    return [torch.from_numpy(a).to(dev)
+            for a in (q, kp, vp, tables, positions)]
+
+
+def _kwide_bound(q, tables, positions, T):
+    """(bytes, flops) of the k-wide face: the K and V rows of each row's
+    columns up to its last lane's position read once (the lanes of a row
+    share them), q and out, positions and the table entries of the pages
+    those columns lie in; each lane's products over its own columns."""
+    R, K1, nh, dh = q.shape
+    last = positions.long().clamp(max=tables.shape[1] * T - 1)
+    cols = int((last.max(dim=1).values + 1).sum())
+    pages = int((last.max(dim=1).values // T + 1).sum())
+    nbytes = (cols * nh * dh * 2 * 4 + 2 * R * K1 * nh * dh * 4
+              + R * K1 * 4 + pages * 4)
+    return nbytes, 4 * int((last + 1).sum()) * nh * dh
+
+
+def _kwide_library(q, kp, vp, tables, positions):
+    """One library call computing the k-wide face: gather each row's
+    pages once, then scaled_dot_product_attention of its K1 lanes under
+    each lane's column mask."""
+    F = torch.nn.functional
+    R, K1, nh, dh = q.shape
+    C = tables.shape[1] * kp.shape[1]
+    colmask = (torch.arange(C, device=q.device)[None, None, :]
+               <= positions.long()[:, :, None])[:, None]
+    qt = q.transpose(1, 2)
+
+    def library():
+        kc = kp[tables.long()].reshape(R, C, nh, dh).transpose(1, 2)
+        vc = vp[tables.long()].reshape(R, C, nh, dh).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            qt, kc, vc, attn_mask=colmask).transpose(1, 2)
+    return library
+
+
+def _kwide_record(pa, dev, flush):
+    """The k-wide face at the verify shape: one kernel launch a call,
+    held to its plain version within KERNEL_TOL, a second call
+    bit-identical, timed beside its plain version and the library call,
+    and its bound from the pages that shape reads."""
+    K1 = SPEC_K + 1
+    ops = _kwide_inputs(dev, K1)
+    q, kp, vp, tables, positions = ops
+    before = pa.launches
+    got = pa.paged_attention_kwide(*ops)
+    again = pa.paged_attention_kwide(*ops)
+    want = pa.paged_attention_kwide_reference(*ops)
+    torch.cuda.synchronize()
+    launched = pa.launches - before
+    err = float((got - want).abs().max())
+    if launched != 2:
+        fail("paged_attention_kwide: 2 calls made %d kernel launches"
+             % launched)
+    if not np.isfinite(err) or err > KERNEL_TOL:
+        fail("paged_attention_kwide disagrees with its plain version at "
+             "the verify shape: max abs err %g > %g" % (err, KERNEL_TOL))
+    if not torch.equal(got, again):
+        fail("paged_attention_kwide: a second call differs from the first")
+    library = _kwide_library(*ops)
+    nbytes, flops = _kwide_bound(q, tables, positions, kp.shape[1])
+    rec = {
+        "shape": {"R": q.shape[0], "K1": K1, "MB": tables.shape[1],
+                  "T": kp.shape[1], "nh": q.shape[2], "dh": q.shape[3],
+                  "kernel_rows": q.shape[0] * K1,
+                  "positions": positions.tolist()},
+        "max_abs_err": err, "tolerance": KERNEL_TOL,
+        "second_call_bit_identical": True,
+        "ms": time_ms(lambda: pa.paged_attention_kwide(*ops), flush=flush),
+        "device_ms": _device_ms(lambda: pa.paged_attention_kwide(*ops),
+                                "paged_attention", flush),
+        "plain_ms": time_ms(
+            lambda: pa.paged_attention_kwide_reference(*ops), flush=flush),
+        "library": "gather once a row + scaled_dot_product_attention",
+        "library_ms": time_ms(library, flush=flush),
+        "library_max_abs_err": float((library() - want).abs().max())}
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+    return rec
+
+
 def phase_kernels(dev):
     from paddle_tpu_torch.kernels import paged_attention as pa
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
@@ -702,6 +840,8 @@ def phase_kernels(dev):
                           % (r, mb, t, h, d))})
         del ops
     out["paged_attention"]["edges"] = edges
+    kwide = out["paged_attention"]["kwide"] = _kwide_record(pa, dev, flush)
+    log(json.dumps({"paged_attention_kwide": kwide}))
     torch.cuda.empty_cache()
 
     out.update(_flash_fwd_kernel(dev, flush))
@@ -1160,7 +1300,7 @@ def phase_engine(dev, art_dir):
     log(json.dumps({"engine": metrics}))
     del model
     torch.cuda.empty_cache()
-    return prompts, results, launches
+    return prompts, results, launches, metrics
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -4533,6 +4673,341 @@ def phase_amp(dev, root, f32_images_s, tuned, rnn32):
     return entries, paths
 
 
+# -- phase 10 -----------------------------------------------------------------
+
+def _paged_rows_spy():
+    """Count the paged attention kernel's launches by the rows each took:
+    wraps the wrapper where the model's steps call it (the decode step
+    and the k-wide face). Returns (Counter, restore)."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.models import transformer as tt
+    orig = pa.paged_attention
+    rows = collections.Counter()
+
+    def spy(q, *args):
+        before = pa.launches
+        out = orig(q, *args)
+        if pa.launches != before:
+            rows[int(q.shape[0])] += 1
+        return out
+
+    def restore():
+        pa.paged_attention = tt.paged_attention = orig
+
+    pa.paged_attention = tt.paged_attention = spy
+    return rows, restore
+
+
+def _plain_margins(model, prompts, results):
+    """The plain full forward's top-two logit margin at each generated
+    step of each request, over prompt + the plain engine's tokens."""
+    out = []
+    with torch.no_grad():
+        for pr, r in zip(prompts, results):
+            ids = torch.tensor([list(pr) + list(r.tokens)],
+                               dtype=torch.int32, device=model.device)
+            n = len(pr)
+            logits = model(ids)[0, n - 1:n - 1 + len(r.tokens)]
+            top = torch.topk(logits, 2, dim=-1).values
+            out.append((top[:, 0] - top[:, 1]).cpu().numpy())
+    return out
+
+
+def _perturbed_params(params, model, dev, prompts):
+    """The target's weights plus seeded noise at the first scale of
+    DRAFT_NOISE_SCALES whose greedy argmax agrees with the target's on at
+    most DRAFT_AGREE_MAX of two prompts' positions. Returns (params,
+    scale, agreement by scale)."""
+    from paddle_tpu_torch.models import transformer as tt
+    rng = np.random.RandomState(5)
+    noise = {n: rng.randn(*a.shape).astype(np.float32) * float(a.std())
+             for n, a in params.items()}
+    ids = [torch.tensor([list(p)], dtype=torch.int32, device=dev)
+           for p in prompts[:2]]
+    with torch.no_grad():
+        want = [model(i)[0].argmax(-1) for i in ids]
+        agree = {}
+        for scale in DRAFT_NOISE_SCALES:
+            cand = {n: a + scale * noise[n] for n, a in params.items()}
+            m = tt.TransformerLM.from_numpy(cand, model.config, device=dev)
+            same = sum(int((m(i)[0].argmax(-1) == w).sum())
+                       for i, w in zip(ids, want))
+            agree[scale] = same / float(sum(w.numel() for w in want))
+            del m
+            if agree[scale] <= DRAFT_AGREE_MAX:
+                return cand, scale, agree
+    fail("no draft noise scale of %s brings the greedy agreement to %g "
+         "or below: %s" % (DRAFT_NOISE_SCALES, DRAFT_AGREE_MAX, agree))
+
+
+def _round_times(target, draft, k, dev, prompts):
+    """CUDA-event ms of one plain decode step, one propose round (k + 1
+    draft decode steps) and one verify step at the engine's 16 rows, all
+    rows at phase 3's prompt lengths over a pool of their own (what a
+    round costs against the step it replaces; launches of the steps, not
+    of the kernels alone)."""
+    from paddle_tpu_torch.models import transformer as tt
+    from paddle_tpu_torch.serving import PagePool
+    R, MB, T = 16, 64, 16
+    kp, vp = PagePool(R * MB, T, *target.kv_spec).zeros(dev)
+    dkp, dvp = PagePool(R * MB, T, *draft.kv_spec).zeros(dev)
+    tables = torch.arange(R * MB, dtype=torch.int32,
+                          device=dev).reshape(R, MB)
+    pos = torch.tensor([len(p) for p in prompts[:R]], dtype=torch.int32,
+                       device=dev)
+    toks = torch.zeros((R,), dtype=torch.int32, device=dev)
+    active = torch.ones((R,), dtype=torch.bool, device=dev)
+    temps = torch.zeros((R,), dtype=torch.float32, device=dev)
+    seeds = torch.zeros((R,), dtype=torch.int32, device=dev)
+    caps = torch.full((R,), k, dtype=torch.int32, device=dev)
+    tp, dp = target.params, draft.params
+    with torch.no_grad():
+        drafts, dlogits = tt.draft_propose_step(
+            dp, dkp, dvp, tables, pos, toks, active, temps, seeds, caps, k,
+            draft.config)
+        return {
+            "rows": R, "lanes": k + 1,
+            "decode_step_ms": time_ms(lambda: tt.decode_step_sampled(
+                tp, kp, vp, tables, pos, toks, active, temps, seeds,
+                target.config), iters=10),
+            "propose_ms": time_ms(lambda: tt.draft_propose_step(
+                dp, dkp, dvp, tables, pos, toks, active, temps, seeds, caps,
+                k, draft.config), iters=10),
+            "verify_ms": time_ms(lambda: tt.verify_step_sampled(
+                tp, kp, vp, tables, pos, toks, drafts, dlogits, active,
+                temps, seeds, caps, target.config), iters=10)}
+
+
+def _spec_serve(dev, pair_dir, name, prompts, results, margins, L):
+    """Serve phase 3's greedy prompts and 4 tempered requests (twice)
+    through a speculative pairing loaded with load_speculative; hold the
+    tokens, the launches and the events. Returns (metrics, launches)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.inference import load_speculative
+    from paddle_tpu_torch.resilience import events
+    from paddle_tpu_torch.serving import GenerationEngine
+    target, draft, k = load_speculative(pair_dir, device=dev)
+    L_d = draft.config.num_layers
+    engine = GenerationEngine(target, max_running=16, kv_pages=1024,
+                              page_tokens=16, queue_depth=64, warm=True,
+                              name=name, draft_model=draft, spec_k=k)
+    rows, restore = _paged_rows_spy()
+    try:
+        torch.cuda.synchronize()
+        events.clear_events()
+        kernels.reset_launches()
+        rows.clear()
+        t0 = time.monotonic()
+        handles = [engine.submit(pr, max_new_tokens=32) for pr in prompts]
+        got = [h.wait(timeout=600) for h in handles]
+        wall = time.monotonic() - t0
+        st_greedy = engine.stats
+        tempered = []
+        for _ in range(2):
+            hs = [engine.submit(prompts[j], max_new_tokens=32,
+                                temperature=SPEC_TEMPERATURE, seed=100 + j)
+                  for j in range(4)]
+            tempered.append([h.wait(timeout=600).tokens for h in hs])
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        st = engine.stats
+    finally:
+        restore()
+        engine.close()
+    round_ms = _round_times(target, draft, k, dev, prompts)
+    del target, draft
+    degraded = [e for e in events.events()
+                if e["kind"] in ("speculation_degraded", "prefix_degraded")]
+    if degraded:
+        fail("%s: degraded during phase 10: %s" % (name, degraded))
+    if not st["speculative"] or st["failed"] or st["spec_k"] != SPEC_K:
+        fail("%s: speculative %s, spec_k %d, failed %d"
+             % (name, st["speculative"], st["spec_k"], st["failed"]))
+    diverged = []
+    for j, (r, g) in enumerate(zip(results, got)):
+        if g.tokens == r.tokens:
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(r.tokens, g.tokens))
+                 if a != b)
+        diverged.append({"request": j, "step": t,
+                         "plain_top2_margin": float(margins[j][t])})
+        log("%s: request %d diverges from the plain engine at step %d, "
+            "the plain step's top-two logit margin there %g"
+            % (name, j, t, margins[j][t]))
+        if not margins[j][t] <= LOGIT_TOL:
+            fail("%s: request %d diverges at step %d where the plain "
+                 "step's top-two margin %g is past LOGIT_TOL %g"
+                 % (name, j, t, margins[j][t], LOGIT_TOL))
+    if tempered[0] != tempered[1]:
+        fail("%s: the tempered repeats differ" % name)
+    want = dict(_no_launches(),
+                paged_attention=(L + (k + 1) * L_d) * st["spec_steps"],
+                flash_attention_fwd=(L + L_d) * st["prefills"])
+    want_rows = {16 * (k + 1): L * st["spec_steps"],
+                 16: (k + 1) * L_d * st["spec_steps"]}
+    if launches != want or dict(rows) != want_rows or \
+            st["spec_steps"] != st["decode_steps"]:
+        fail("%s: launches %s (rows %s), expected %s (rows %s): %d rounds, "
+             "%d decode steps, %d prefills"
+             % (name, launches, dict(rows), want, want_rows,
+                st["spec_steps"], st["decode_steps"], st["prefills"]))
+    tokens = sum(len(g.tokens) for g in got)
+    metrics = {
+        "pairing": name, "spec_k": k, "draft_layers": L_d,
+        "requests": len(prompts), "tempered_requests": 4,
+        "tempered_repeats_identical": True,
+        "diverged_requests": len(diverged), "divergences": diverged,
+        "wall_s": wall, "tokens_per_s": tokens / wall,
+        "intertoken_ms_p50": st_greedy["intertoken_ms_p50"],
+        "ttft_ms_p50": st_greedy["ttft_ms_p50"],
+        "rounds_greedy": st_greedy["spec_steps"],
+        "acceptance_rate_greedy": st_greedy["acceptance_rate"],
+        "draft_tokens_greedy": st_greedy["draft_tokens"],
+        "accepted_tokens_greedy": st_greedy["accepted_tokens"],
+        "acceptance_rate": st["acceptance_rate"],
+        "draft_tokens": st["draft_tokens"],
+        "accepted_tokens": st["accepted_tokens"],
+        "rounds": st["spec_steps"], "prefills": st["prefills"],
+        "engine_busy_s_greedy": st_greedy["busy_s"],
+        "round_times": round_ms, "warmup_ms": engine.warmup_ms,
+        "paged_launch_rows": {str(r): c for r, c in sorted(rows.items())},
+        "launches": {n: c for n, c in launches.items() if c}}
+    return metrics, launches, st_greedy
+
+
+def _prefix_serve(dev, art_dir, cfg):
+    """8 greedy requests sharing a PREFIX_TOKENS-token prefix, queued
+    before the engine admits any, with sharing off and then on: the
+    tokens identical, hits, and a lower peak of live pages with it on."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.inference import load_generative
+    from paddle_tpu_torch.resilience import events
+    from paddle_tpu_torch.serving import GenerationEngine
+    rng = np.random.RandomState(2)
+    prefix = list(rng.randint(0, cfg.vocab_size, PREFIX_TOKENS))
+    prompts = [prefix + list(rng.randint(0, cfg.vocab_size, n))
+               for n in PREFIX_TAILS]
+    model = load_generative(art_dir, device=dev)
+    L = cfg.num_layers
+    runs, paths = {}, {}
+    for sharing in (False, True):
+        engine = GenerationEngine(model, max_running=16, kv_pages=1024,
+                                  page_tokens=16, queue_depth=64, warm=True,
+                                  name="gpt2_prefix", prefix_sharing=sharing)
+        try:
+            torch.cuda.synchronize()
+            events.clear_events()
+            kernels.reset_launches()
+            t0 = time.monotonic()
+            with engine._cond:    # every request queued before admission
+                handles = [engine.submit(p, max_new_tokens=32)
+                           for p in prompts]
+            got = [h.wait(timeout=600).tokens for h in handles]
+            wall = time.monotonic() - t0
+            launches = kernels.launch_counts()
+            st = engine.stats
+        finally:
+            engine.close()
+        if [e for e in events.events() if e["kind"] == "prefix_degraded"] \
+                or st["prefix_degraded"] or st["failed"]:
+            fail("prefix sharing %s: degraded or failed: %s"
+                 % (sharing, events.events()))
+        want = dict(_no_launches(), flash_attention_fwd=L * st["prefills"],
+                    paged_attention=L * st["decode_steps"])
+        if launches != want:
+            fail("prefix sharing %s: launches %s, expected %s"
+                 % (sharing, launches, want))
+        runs[sharing] = {
+            "tokens": got, "wall_s": wall,
+            "tokens_per_s": sum(len(t) for t in got) / wall,
+            "intertoken_ms_p50": st["intertoken_ms_p50"],
+            "ttft_ms_p50": st["ttft_ms_p50"],
+            "max_live_pages": st["page_utilization"]["max_live"],
+            "prefix_hits": st["prefix_hits"],
+            "prefix_hit_requests": st["prefix_hit_requests"],
+            "prefix_published": st["prefix_published"],
+            "cow_copies": st["cow_copies"]}
+        paths["serve_prefix_" + ("on" if sharing else "off")] = launches
+    del model
+    off, on = runs[False], runs[True]
+    if on["tokens"] != off["tokens"]:
+        fail("prefix sharing changed the greedy tokens")
+    if not on["prefix_hits"] > 0:
+        fail("prefix sharing made no hit")
+    if not on["max_live_pages"] < off["max_live_pages"]:
+        fail("prefix sharing did not lower the peak of live pages: %d "
+             "against %d" % (on["max_live_pages"], off["max_live_pages"]))
+    for r in runs.values():
+        del r["tokens"]
+    out = {"requests": len(prompts), "prefix_tokens": PREFIX_TOKENS,
+           "tails": list(PREFIX_TAILS), "new_tokens_each": 32,
+           "off": off, "on": on,
+           "pages_saved": off["max_live_pages"] - on["max_live_pages"]}
+    return out, paths
+
+
+def phase_speculative(dev, root, art_dir, prompts, results, plain):
+    """Phase 10: speculative serving through two pairings exported with
+    SPEC_K (a self-draft and a perturbed draft) and prefix-shared
+    serving, each beside phase 3's plain engine."""
+    from paddle_tpu_torch.inference import export_speculative, \
+        load_generative
+    from paddle_tpu_torch.models import transformer as tt
+    cfg = tt.TransformerConfig(**GPT2_SMALL)
+    params = tt.init_params(cfg, seed=0)
+    model = load_generative(art_dir, device=dev)
+    margins = _plain_margins(model, prompts, results)
+    noisy, scale, agree = _perturbed_params(params, model, dev, prompts)
+    del model
+    torch.cuda.empty_cache()
+    base = os.path.join(root, "build", "chip_smoke")
+    out, paths = {"noise_scale": scale, "greedy_agreement_by_scale": {
+        str(k): v for k, v in agree.items()},
+        "plain": {k: plain[k] for k in ("tokens_per_s", "intertoken_ms_p50",
+                                        "ttft_ms_p50", "decode_steps",
+                                        "engine_busy_s")},
+        "min_plain_top2_margin": float(min(m.min() for m in margins))}, {}
+    for name, draft_params in (("self_draft", params),
+                               ("perturbed_draft", noisy)):
+        pair_dir = os.path.join(base, "gpt2_small_spec_" + name)
+        export_speculative(pair_dir, cfg, cfg, SPEC_K, params=params,
+                           draft_params=draft_params)
+        metrics, launches, st = _spec_serve(
+            dev, pair_dir, "gpt2_" + name, prompts, results, margins,
+            cfg.num_layers)
+        out[name] = metrics
+        paths["serve_speculative_" + name] = launches
+        torch.cuda.empty_cache()
+    # The self-draft's greedy drafts are the plain step's argmax; the
+    # verify step can reject one only where its products, on 5x the
+    # rows, flip a near tie. A rejection costs its round at most SPEC_K
+    # drafts and settles that step, so the greedy pass may fall short of
+    # full acceptance by SPEC_K drafts for each plain step whose top-two
+    # margin is within LOGIT_TOL, and by no more
+    gs = out["self_draft"]
+    near_ties = sum(int((m <= LOGIT_TOL).sum()) for m in margins)
+    shortfall = gs["draft_tokens_greedy"] - gs["accepted_tokens_greedy"]
+    out["plain_steps_within_logit_tol"] = near_ties
+    out["self_draft_greedy_shortfall"] = shortfall
+    out["self_draft_greedy_shortfall_bound"] = SPEC_K * near_ties
+    log("self-draft greedy acceptance %g: %d of %d drafts rejected, at "
+        "most %d allowed (SPEC_K x %d plain steps with a top-two margin "
+        "within LOGIT_TOL)"
+        % (gs["acceptance_rate_greedy"], shortfall,
+           gs["draft_tokens_greedy"], SPEC_K * near_ties, near_ties))
+    if shortfall > SPEC_K * near_ties:
+        fail("the self-draft rejected %d greedy drafts, past SPEC_K x %d "
+             "near-tie plain steps" % (shortfall, near_ties))
+    rate = out["perturbed_draft"]["acceptance_rate"]
+    if not 0.0 < rate < 1.0:
+        fail("the perturbed draft's acceptance %g is not strictly between "
+             "0 and 1" % rate)
+    out["prefix"], prefix_paths = _prefix_serve(dev, art_dir, cfg)
+    paths.update(prefix_paths)
+    log(json.dumps({"speculative": out}))
+    return paths
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -4565,7 +5040,8 @@ def main():
                     "tune": FLAGS.tune}))
     timed(1, phase_build)
     kernels = timed(2, phase_kernels, dev)
-    prompts, results, serve_launches = timed(3, phase_engine, dev, art_dir)
+    prompts, results, serve_launches, plain_serving = timed(
+        3, phase_engine, dev, art_dir)
     timed(4, phase_http, dev, art_dir, prompts, results)
     train5 = timed(5, phase_train, dev, os.path.join(
         root, "build", "chip_smoke", "gpt2_small_trained"))
@@ -4582,8 +5058,11 @@ def main():
     amp_kernels, amp_paths = timed(9, phase_amp, dev, root, f32_images_s,
                                    tuned, lstm_run)
     kernels.update(amp_kernels)
+    spec_paths = timed(10, phase_speculative, dev, root, art_dir, prompts,
+                       results, plain_serving)
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
-    paths = {"serve": serve_launches, "train": train5["launches"],
+    paths = {"serve": serve_launches, **spec_paths,
+             "train": train5["launches"],
              "convnet_train": convnet_launches,
              "rnn_train_lstm": lstm_launches,
              "rnn_train_gru": gru_launches,

@@ -12,9 +12,13 @@ prints ``pass P batch B cost C`` for every K-th batch and a line at the
 end of each pass.
 
     python -m paddle_tpu_torch serve <artifact_dir> --port 0 [--device cuda]
+        [--draft_dir DIR] [--spec_k K] [--prefix_sharing]
 
-validates the artifact (exit 1 with the problems on a bad one), loads it
-onto the device, warms the engine, prints one JSON readiness line
+validates the artifact (exit 1 with the problems on a bad one; a
+``--draft_dir`` that is not a generative artifact is refused too), loads
+it onto the device (a speculative pairing with its draft; ``--draft_dir``
+pairs the artifact with that draft, at ``--spec_k`` or
+``FLAGS.serve_spec_k``), warms the engine, prints one JSON readiness line
 ``{"serving": {"host", "port", ...}}`` (``--port 0`` binds a free port
 and this line names it), and serves ``POST /v1/models/<name>:generate``
 until SIGTERM or SIGINT. Then it drains in-flight generations, prints
@@ -72,34 +76,56 @@ def cmd_train(args):
     return 0
 
 
+def _artifact_problems(dirname, role):
+    """Problems of ``dirname`` as a generative artifact to serve."""
+    from . import inference
+    problems = inference.validate_generative_artifact(dirname)
+    if not problems and not inference.is_generative_artifact(dirname):
+        problems = ["not a generative artifact (no %s)%s"
+                    % (inference.GEN_CONFIG_FILE,
+                       "; speculation drafts are export_generative "
+                       "directories" if role == "--draft_dir" else "")]
+    return problems
+
+
 def cmd_serve(args):
     from . import inference, serving
-    problems = inference.validate_generative_artifact(args.artifact_dir)
-    if not problems and not inference.is_generative_artifact(
-            args.artifact_dir):
-        problems = ["not a generative artifact (no %s)"
-                    % inference.GEN_CONFIG_FILE]
-    if problems:
-        print("serve: cannot serve %r:" % args.artifact_dir,
-              file=sys.stderr)
-        for p in problems:
-            print("  - " + p, file=sys.stderr)
-        return 1
+    from .flags import FLAGS
+    draft_dir = args.draft_dir or FLAGS.serve_draft_dir or None
+    for role, dirname in (("artifact", args.artifact_dir),
+                          ("--draft_dir", draft_dir)):
+        problems = _artifact_problems(dirname, role) if dirname else []
+        if problems:
+            print("serve: cannot serve %s %r:" % (role, dirname),
+                  file=sys.stderr)
+            for p in problems:
+                print("  - " + p, file=sys.stderr)
+            return 1
     service = serving.InferenceService(queue_depth=args.queue_depth or None)
     knobs = {k: getattr(args, k) for k in ("max_running", "kv_pages",
-                                           "page_tokens")
+                                           "page_tokens", "spec_k")
              if getattr(args, k)}
+    if args.prefix_sharing:
+        knobs["prefix_sharing"] = True
+    loading = args.artifact_dir
     try:
+        if draft_dir:
+            loading = draft_dir
+            knobs["draft_model"] = inference.load_generative(
+                draft_dir, device=args.device)
+            knobs.setdefault("spec_k", FLAGS.serve_spec_k)
+            loading = args.artifact_dir
         entry = service.load_model(args.name, args.artifact_dir,
                                    device=args.device, **knobs)
     except Exception as e:
         print("serve: failed to load %r: %s: %s"
-              % (args.artifact_dir, type(e).__name__, e), file=sys.stderr)
+              % (loading, type(e).__name__, e), file=sys.stderr)
         service.close()
         return 1
     server = serving.make_server(service, host=args.host, port=args.port)
     host, port = server.server_address[:2]
     eng = entry.engine
+    st = eng.stats
     print(json.dumps({"serving": {
         "host": host, "port": port, "model": args.name,
         "kind": "generative", "version": entry.version,
@@ -107,7 +133,11 @@ def cmd_serve(args):
         "device": str(eng.device), "max_running": eng.max_running,
         "kv_pages": eng.pool.num_pages,
         "page_tokens": eng.pool.page_tokens,
-        "max_context": eng.max_context}}), flush=True)
+        "max_context": eng.max_context,
+        "speculative": st["speculative"], "spec_k": st["spec_k"],
+        "spec_degraded": st["spec_degraded"],
+        "prefix_sharing": st["prefix_sharing"],
+        "prefix_degraded": st["prefix_degraded"]}}), flush=True)
     try:
         signum = serving.serve_until_shutdown(server)
     finally:
@@ -319,6 +349,18 @@ def _parser():
                    help="0 = FLAGS.serve_page_tokens")
     s.add_argument("--queue_depth", type=int, default=0,
                    help="0 = FLAGS.serve_queue_depth")
+    s.add_argument("--draft_dir", default="",
+                   help="a generative artifact to load as the draft "
+                        "model of speculative decoding; empty defers to "
+                        "FLAGS.serve_draft_dir or a speculative "
+                        "artifact's own draft")
+    s.add_argument("--spec_k", type=int, default=0,
+                   help="speculation depth (0 = the pairing's k or "
+                        "FLAGS.serve_spec_k)")
+    s.add_argument("--prefix_sharing", "--prefix-sharing",
+                   action="store_true",
+                   help="copy-on-write prefix sharing over the KV pool "
+                        "(default FLAGS.serve_prefix_sharing)")
     s.set_defaults(fn=cmd_serve)
     tn = sub.add_parser("tune", help="autotune the kernels a train config "
                                      "uses; winners persist per device "

@@ -43,6 +43,31 @@ _DEFS = {
         True, _parse_bool, "sample the next token on the device inside "
         "the step (only [R] tokens and logprobs reach the host); false "
         "samples on the host from the [R, V] logits"),
+    "serve_draft_dir": (
+        "", str, "directory of a generative artifact to load as the draft "
+        "model of speculative decoding (the target's vocabulary, a "
+        "context at least as long; typically much smaller). Empty "
+        "disables speculation unless the served artifact is a speculative "
+        "pairing (inference.export_speculative), which carries its own "
+        "draft. The draft gets its own page pool of serve_kv_pages x "
+        "serve_page_tokens"),
+    "serve_spec_k": (
+        4, int, "speculation depth: tokens the draft proposes a round "
+        "before one target step verifies them all. A request's spec_k can "
+        "only lower it. Greedy output is the plain engine's at any k; a "
+        "higher k pays while the draft's acceptance_rate holds up. 0 "
+        "disables speculation even with a draft"),
+    "serve_prefix_sharing": (
+        False, _parse_bool, "key prompt pages by content (a rolling "
+        "blake2b chain over serve_page_tokens-sized chunks) and let "
+        "requests pin one physical copy of a shared prompt prefix; the "
+        "first write into a shared page copies that page. Admission "
+        "discounts the cached full pages a request will pin; an LRU keeps "
+        "unreferenced prefix pages until allocation pressure reclaims "
+        "them. Greedy output is the same with sharing on or off. A "
+        "failure in the sharing layer degrades that engine to private "
+        "pages with a recorded prefix_degraded event (fault site "
+        "serving.prefix)"),
     "conv_impl": (
         "conv", str, "dense conv2d lowering: 'conv' (torch's conv2d) or "
         "'pallas3x3' (the hand-written 3x3 / s1 / p1 kernel for that "

@@ -7,6 +7,12 @@ The format is the JAX package's own: ``__gen_params__.pkl`` (a pickled
 {...}}``). An artifact written by ``paddle_tpu.inference.export_generative``
 therefore loads here unchanged, and one written here loads there.
 
+A speculative pairing (:func:`export_speculative`) is one directory in
+the JAX package's layout: the target as a generative artifact at the
+top, the draft as a whole generative artifact in ``__draft__/``, and
+``__spec__.json`` (``{"spec_k": k}``), the depth the pairing was
+exported at. Either package loads a pairing the other wrote.
+
 The pickle is trusted input: load only artifacts this project wrote.
 """
 from __future__ import annotations
@@ -17,12 +23,18 @@ import pickle
 
 import numpy as np
 
-__all__ = ["ArtifactError", "GEN_CONFIG_FILE", "GEN_PARAMS_FILE",
-           "export_generative", "is_generative_artifact", "load_generative",
+__all__ = ["ArtifactError", "DRAFT_SUBDIR", "GEN_CONFIG_FILE",
+           "GEN_PARAMS_FILE", "SPEC_CONFIG_FILE", "export_generative",
+           "export_speculative", "is_generative_artifact",
+           "is_speculative_artifact", "load_generative", "load_speculative",
            "validate_generative_artifact"]
 
 GEN_PARAMS_FILE = "__gen_params__.pkl"
 GEN_CONFIG_FILE = "__gen_config__.json"
+# a speculative pairing: the draft's artifact in DRAFT_SUBDIR beside the
+# target's files, and the pairing's depth in SPEC_CONFIG_FILE
+SPEC_CONFIG_FILE = "__spec__.json"
+DRAFT_SUBDIR = "__draft__"
 
 
 class ArtifactError(ValueError):
@@ -38,8 +50,16 @@ def is_generative_artifact(dirname):
 
 def validate_generative_artifact(dirname):
     """Problem list (empty = valid): the integrity half of the JAX
-    package's validator (both files present and not empty). Pool sizing
-    against a memory budget is not ported."""
+    package's validator (both files present and not empty), and for a
+    speculative pairing its draft's files and the pairing rules. Pool
+    sizing against a memory budget is not ported."""
+    problems = _integrity_problems(dirname)
+    if not problems and is_speculative_artifact(dirname):
+        problems += _spec_problems(dirname)
+    return problems
+
+
+def _integrity_problems(dirname):
     if not os.path.isdir(dirname):
         return ["artifact directory %r does not exist (expected the "
                 "directory export_generative wrote)" % dirname]
@@ -119,3 +139,108 @@ def load_generative(dirname, device="cuda"):
         return _tm.TransformerLM.from_numpy(params, config, device=device)
     except ValueError as e:
         raise ArtifactError("artifact %r: %s" % (dirname, e)) from e
+
+
+def _spec_pairing_problems(config, draft_config, spec_k):
+    """The pairing rules, shared by export (refuse to write a broken
+    pairing) and validation: identical vocabularies (the accept rule
+    compares token ids), a draft context that covers every position
+    the target can decode at, and k >= 1."""
+    problems = []
+    try:
+        k = int(spec_k)
+    except (TypeError, ValueError):
+        k = 0
+    if k < 1:
+        problems.append("speculation depth k must be an int >= 1, got "
+                        "%r" % (spec_k,))
+    if config.vocab_size != draft_config.vocab_size:
+        problems.append(
+            "draft vocab_size=%d != target vocab_size=%d — speculative "
+            "accept compares token ids, the vocabularies must be "
+            "identical" % (draft_config.vocab_size, config.vocab_size))
+    if draft_config.max_seq < config.max_seq:
+        problems.append(
+            "draft max_seq=%d < target max_seq=%d — the draft must "
+            "cover every position the target can decode at"
+            % (draft_config.max_seq, config.max_seq))
+    return problems
+
+
+def is_speculative_artifact(dirname):
+    """True when ``dirname`` looks like an export_speculative directory
+    (a generative artifact carrying a ``__spec__.json`` pairing)."""
+    return (is_generative_artifact(dirname)
+            and os.path.isfile(os.path.join(dirname, SPEC_CONFIG_FILE)))
+
+
+def _spec_problems(dirname):
+    """The pairing's problem list, for a speculative artifact whose
+    target side is intact."""
+    from .models import transformer as _tm
+    try:
+        with open(os.path.join(dirname, SPEC_CONFIG_FILE)) as f:
+            spec_k = json.load(f)["spec_k"]
+    except (OSError, ValueError, KeyError, TypeError) as e:
+        return ["%s is corrupt or incomplete (%s: %s) — re-export with "
+                "export_speculative" % (SPEC_CONFIG_FILE,
+                                        type(e).__name__, e)]
+    draft_dir = os.path.join(dirname, DRAFT_SUBDIR)
+    problems = ["draft artifact (%s/): %s" % (DRAFT_SUBDIR, p)
+                for p in _integrity_problems(draft_dir)]
+    if problems:
+        return problems
+    try:
+        configs = []
+        for d in (dirname, draft_dir):
+            with open(os.path.join(d, GEN_CONFIG_FILE)) as f:
+                configs.append(_tm.TransformerConfig.from_dict(
+                    json.load(f)["config"]))
+    except (OSError, ValueError, KeyError, TypeError) as e:
+        return ["config JSON unreadable while checking the speculative "
+                "pairing (%s: %s)" % (type(e).__name__, e)]
+    return _spec_pairing_problems(configs[0], configs[1], spec_k)
+
+
+def export_speculative(dirname, config, draft_config, spec_k, params=None,
+                       draft_params=None, scope=None, draft_scope=None):
+    """Write a target + draft pairing for speculative decoding as one
+    directory (the JAX package's layout and signature). Refuses a
+    pairing the engine would refuse to build (vocabularies differ, the
+    draft's context is shorter, k < 1)."""
+    from .models import transformer as _tm
+    if isinstance(config, dict):
+        config = _tm.TransformerConfig.from_dict(config)
+    if isinstance(draft_config, dict):
+        draft_config = _tm.TransformerConfig.from_dict(draft_config)
+    problems = _spec_pairing_problems(config, draft_config, spec_k)
+    if problems:
+        raise ValueError("cannot export speculative pairing:\n  - %s"
+                         % "\n  - ".join(problems))
+    export_generative(dirname, config, scope=scope, params=params)
+    export_generative(os.path.join(dirname, DRAFT_SUBDIR), draft_config,
+                      scope=draft_scope, params=draft_params)
+    with open(os.path.join(dirname, SPEC_CONFIG_FILE), "w") as f:
+        json.dump({"spec_k": int(spec_k)}, f)
+    return dirname
+
+
+def load_speculative(dirname, device="cuda"):
+    """Load a speculative pairing as ``(target, draft, spec_k)``, both
+    :class:`~paddle_tpu_torch.models.transformer.TransformerLM` on
+    ``device``. Raises :class:`ArtifactError` naming every problem, the
+    pairing's included: the two load together or not at all."""
+    if is_speculative_artifact(dirname):
+        problems = validate_generative_artifact(dirname)
+    else:
+        problems = ["missing %s (speculative pairing metadata) — export "
+                    "with export_speculative" % SPEC_CONFIG_FILE]
+    if problems:
+        raise ArtifactError("cannot load speculative artifact %r:\n  - %s"
+                            % (dirname, "\n  - ".join(problems)))
+    target = load_generative(dirname, device=device)
+    draft = load_generative(os.path.join(dirname, DRAFT_SUBDIR),
+                            device=device)
+    with open(os.path.join(dirname, SPEC_CONFIG_FILE)) as f:
+        spec_k = int(json.load(f)["spec_k"])
+    return target, draft, spec_k

@@ -18,6 +18,13 @@ through its block table from one layer's page pool
 - :func:`splits` mirrors the kernel's rule for the number of splits of a
   row (``SPLIT`` columns each), which sizes the workspace the wrapper
   allocates; :func:`kernel_splits` asks the built library.
+- :func:`paged_attention_kwide` is the speculative verify step's face:
+  K1 query lanes a row, each with its own position. It opens no kernel
+  of its own: on CUDA the lanes are flattened onto R * K1 rows, each
+  row's table repeated, and the rows go through :func:`paged_attention`
+  (one launch); on the CPU it runs
+  :func:`paged_attention_kwide_reference`, the JAX package's gather
+  path, one gather a row shared by its lanes.
 
 The JAX package's tune configs and their degrade-to-reference validator
 (``resolve_block_config``) do not carry over: the kernel takes every
@@ -32,6 +39,7 @@ import torch
 from . import _build
 
 __all__ = ["SPLIT", "kernel_splits", "launches", "paged_attention",
+           "paged_attention_kwide", "paged_attention_kwide_reference",
            "paged_attention_reference", "splits"]
 
 # calls of paged_attention that launched the kernels since the last reset
@@ -136,3 +144,50 @@ def paged_attention(q, k_pages, v_pages, block_tables, positions):
     _build.check(lib, code, _NAME)
     launches += 1
     return out
+
+
+def paged_attention_kwide_reference(q, k_pages, v_pages, block_tables,
+                                    positions):
+    """Plain version of the k-wide face: ``q`` [R, K1, nh, dh] (lane i
+    is the token fed at ``positions[r, i]``), pools [P + 1, T, nh, dh],
+    ``block_tables`` [R, max_blocks], ``positions`` [R, K1]. The pool is
+    gathered once a row and the row's K1 lanes attend against it, each
+    masking the columns past its own position -> [R, K1, nh, dh]."""
+    R, K1, nh, dh = q.shape
+    T = k_pages.shape[1]
+    C = block_tables.shape[1] * T
+    tables = block_tables.long()
+    kc = k_pages[tables].reshape(R, C, nh, dh)
+    vc = v_pages[tables].reshape(R, C, nh, dh)
+    s = torch.einsum("rlhd,rchd->rlhc", q, kc) * dh ** -0.5
+    cols = torch.arange(C, device=q.device)
+    colmask = cols[None, None, :] <= positions.long()[:, :, None]
+    s = s.masked_fill(~colmask[:, :, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("rlhc,rchd->rlhd", p, vc)
+
+
+def paged_attention_kwide(q, k_pages, v_pages, block_tables, positions):
+    """The speculative verify step's attention; the arguments and result
+    of :func:`paged_attention_kwide_reference`. On CUDA the lanes are
+    flattened onto R * K1 rows (q and positions reshaped, each row's
+    table repeated K1 times, int32 and contiguous) and the row-1 kernel
+    runs once through :func:`paged_attention`, under its conditions; a
+    lane's result is then what a decode step at that position computes.
+    It never runs the gather on the card."""
+    _build.refuse_grad(_NAME, q, k_pages, v_pages)
+    if q.device.type == "cpu":
+        return paged_attention_kwide_reference(q, k_pages, v_pages,
+                                               block_tables, positions)
+    R, K1, nh, dh = q.shape
+    if tuple(positions.shape) != (R, K1) or block_tables.dim() != 2 or \
+            block_tables.shape[0] != R:
+        raise ValueError("%s: positions %s / tables %s do not match q's "
+                         "%d rows of %d lanes"
+                         % (_NAME, tuple(positions.shape),
+                            tuple(block_tables.shape), R, K1))
+    tables = block_tables.repeat_interleave(K1, dim=0).contiguous()
+    out = paged_attention(q.reshape(R * K1, nh, dh).contiguous(), k_pages,
+                          v_pages, tables,
+                          positions.reshape(R * K1).contiguous())
+    return out.reshape(R, K1, nh, dh)

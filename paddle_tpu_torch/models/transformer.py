@@ -32,7 +32,13 @@ device:
   through the paged-attention kernel;
 - :func:`device_sample`, :func:`decode_step_sampled`,
   :func:`prefill_step_sampled`: the same with the next token sampled
-  on the device.
+  on the device;
+- :func:`draft_propose_step`, :func:`verify_step`,
+  :func:`speculative_accept`, :func:`verify_step_sampled`: speculative
+  decoding's round, a draft model's k proposals (k + 1 decode steps over
+  its own pool) and one target step over the k + 1 lanes whose
+  attention is the k-wide face of the paged-attention kernel, then the
+  accept rule on the device.
 
 The KV pool is updated in place. The JAX engine donates the pool
 buffers to each jitted step and gets new ones back; PyTorch tensors are
@@ -47,7 +53,20 @@ counter-based hash of (seed, position, vocab id) computed on the
 device. The two packages' tempered tokens therefore agree only in
 distribution; within the port the draw is a pure function of
 (seed, position), so a preempted request that is resumed replays the
-same stream.
+same stream. The speculative round's draws (the draft's proposal, the
+accept uniform, the residual draw) are salted variants of the same hash,
+as the JAX package salts its ``fold_in`` keys; a plain or bonus draw
+uses the unsalted counter, so a row with no draft lanes reproduces the
+plain stream bit for bit.
+
+Positions past the context. A speculative round computes lanes past a
+row's cap, whose positions can reach ``max_seq`` or more near the end of
+the context; their writes go to the trash page and their outputs are
+never read. The JAX package's ``take`` and gathers clamp or fill such
+an index; PyTorch's embedding and advanced indexing raise (a device-side
+assert on CUDA, which ends the process's CUDA context). So every
+position-embedding row and block-table column is looked up at a clamped
+index; a live position is never clamped.
 """
 from __future__ import annotations
 
@@ -60,7 +79,8 @@ from ..core.scope import global_scope
 from ..device import resolve_device
 from ..kernels.flash_attention import (flash_attention_reference,
                                        flash_attention_with_lse)
-from ..kernels.paged_attention import paged_attention
+from ..kernels.paged_attention import (paged_attention,
+                                       paged_attention_kwide)
 from ..layers import nn as L
 from ..layers import ops as OPS
 from ..layers import tensor as T
@@ -70,8 +90,9 @@ from ..param_attr import ParamAttr
 __all__ = ["LN_EPS", "TransformerConfig", "TransformerLM", "param_names",
            "init_params", "params_from_scope", "forward", "prefill_step",
            "decode_step", "device_sample", "decode_step_sampled",
-           "prefill_step_sampled", "causal_flash_attention",
-           "transformer_block", "transformer_lm"]
+           "prefill_step_sampled", "draft_propose_step", "verify_step",
+           "speculative_accept", "verify_step_sampled",
+           "causal_flash_attention", "transformer_block", "transformer_lm"]
 
 
 def causal_flash_attention(q, k, v, num_heads):
@@ -291,21 +312,25 @@ def forward(params, tokens, config):
     return x @ params["lm_head"]
 
 
-def prefill_step(params, k_pages, v_pages, tokens, length, pages, config):
+def prefill_step(params, k_pages, v_pages, tokens, length, pages, config,
+                 covered=0):
     """One prompt (``tokens`` [S_bucket], real length ``length``, an int)
     through the full forward with the flash kernel's causal attention.
     Its K/V are written in place into the pools ``[L, P + 1, T, nh, dh]``
     at the sequence's ``pages`` ([max_blocks], trash-padded); positions
     >= ``length`` go to the trash page. Padding sits after the real
-    positions, so causality keeps it out of every real row. Returns the
+    positions, so causality keeps it out of every real row. Positions
+    below ``covered`` (an int: the run of pages a prefix match pinned)
+    go to the trash page too, so that no shared page is written; the
+    JAX package writes them again with what they hold. Returns the
     logits [V] of the last real position (the head runs on that row
     only: the other rows' logits are never read)."""
     T = k_pages.shape[2]
     trash = k_pages.shape[1] - 1
     x, ks, vs = _forward_hidden(params, tokens[None], config, _kernel_causal)
     pos = torch.arange(tokens.shape[0], device=tokens.device)
-    page = torch.where(pos < length, pages.long()[pos // T],
-                       torch.full_like(pos, trash))
+    page = torch.where((pos >= covered) & (pos < length),
+                       pages.long()[pos // T], torch.full_like(pos, trash))
     slot = pos % T
     for i in range(config.num_layers):
         # padded positions all land on the trash page, some at the same
@@ -334,8 +359,9 @@ def decode_step(params, k_pages, v_pages, block_tables, positions, tokens,
     pos = positions.long()
     rows = torch.arange(R, device=tokens.device)
     x = F.embedding(tokens.long(), params["tok_emb"]) \
-        + F.embedding(pos, params["pos_emb"])
-    page = torch.where(active, block_tables[rows, pos // T].long(),
+        + F.embedding(pos.clamp(max=config.max_seq - 1), params["pos_emb"])
+    blk = (pos // T).clamp(max=block_tables.shape[1] - 1)
+    page = torch.where(active, block_tables[rows, blk].long(),
                        torch.full_like(pos, trash))
     slot = pos % T
     for i in range(config.num_layers):
@@ -379,15 +405,44 @@ def _hash32(x):
     return x ^ (x >> 16)
 
 
-def gumbel_noise(seeds, counters, vocab_size):
-    """[R, V] standard Gumbel noise, a pure function of each row's
-    (seed, counter) and the vocab id, computed on the seeds' device."""
+# salts of the speculative round's draws (the JAX package's
+# _DRAFT_SALT, _ACCEPT_SALT and _RESID_SALT): the draft model's proposal,
+# the accept uniform of a draft lane, the residual draw after a rejection
+DRAFT_SALT = 0x5D
+ACCEPT_SALT = 0x5A
+RESID_SALT = 0x5E
+
+
+def _row_key(seeds, counters, salt=0):
+    """The 32-bit key of each row's draw at ``counters``; a salt keys an
+    independent stream, salt 0 the plain one."""
     row = _hash32(_hash32(seeds.long()) ^ counters.long())
+    if salt:
+        row = _hash32(row ^ _hash32(torch.full_like(row, salt)))
+    return row
+
+
+def _unit(bits):
+    """24 random bits -> a uniform strictly inside (0, 1), float64."""
+    return ((bits >> 8).double() + 0.5) * (1.0 / (1 << 24))
+
+
+def gumbel_noise(seeds, counters, vocab_size, salt=0):
+    """[R, V] standard Gumbel noise, a pure function of each row's
+    (seed, counter), the salt and the vocab id, computed on the seeds'
+    device."""
+    row = _row_key(seeds, counters, salt)
     ids = torch.arange(vocab_size, device=seeds.device, dtype=torch.long)
     bits = _hash32(row[:, None] ^ _hash32(ids + 0x9E3779B9)[None, :])
-    # 24 random bits -> a uniform strictly inside (0, 1)
-    u = ((bits >> 8).double() + 0.5) * (1.0 / (1 << 24))
-    return (-torch.log(-torch.log(u))).float()
+    return (-torch.log(-torch.log(_unit(bits)))).float()
+
+
+def uniform_noise(seeds, counters, salt):
+    """A uniform in (0, 1) of each entry's (seed, counter, salt):
+    ``seeds`` and ``counters`` broadcast to one shape; float32."""
+    seeds, counters = torch.broadcast_tensors(seeds, counters)
+    return _unit(_hash32(_row_key(seeds, counters, salt)
+                         ^ 0x2545F491)).float()
 
 
 def device_sample(logits, temperatures, seeds, counters):
@@ -419,12 +474,12 @@ def decode_step_sampled(params, k_pages, v_pages, block_tables, positions,
 
 
 def prefill_step_sampled(params, k_pages, v_pages, tokens, length, pages,
-                         temperature, seed, config):
+                         temperature, seed, config, covered=0):
     """:func:`prefill_step` + sampling of the first token on the device,
     its counter being ``length`` (its position in the full sequence).
     Returns (token, logprob) as 0-d tensors."""
     last = prefill_step(params, k_pages, v_pages, tokens, length, pages,
-                        config)
+                        config, covered=covered)
     dev = last.device
     toks, logps = device_sample(
         last[None], torch.tensor([temperature], dtype=torch.float32,
@@ -432,6 +487,187 @@ def prefill_step_sampled(params, k_pages, v_pages, tokens, length, pages,
         torch.tensor([seed], dtype=torch.int32, device=dev),
         torch.tensor([length], dtype=torch.int32, device=dev))
     return toks[0], logps[0]
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding (serving/speculative.py and the engine drive these).
+#
+# One round: the DRAFT model proposes k tokens a row (k + 1 decode steps
+# over its own page pool), then the TARGET runs ONE step over the k + 1
+# lanes of every row, which writes all lanes' K/V and attends every lane
+# at once, accepts the longest valid draft prefix and samples the
+# correction or bonus token on the device. Only a packed [R, 2 * K1 + 1]
+# float32 row crosses to the host; the draft logits stay on the device.
+#
+# Stale writes need no rollback: a lane past the accepted point wrote
+# K/V that attention masks (columns past a lane's position), and the
+# next round starts at the first unaccepted position and writes it again
+# before any unmasked read.
+
+def draft_propose_step(params, k_pages, v_pages, block_tables, positions,
+                       tokens, active, temperatures, seeds, spec_caps, k,
+                       config):
+    """Propose ``k`` tokens a row with the DRAFT model: k + 1
+    :func:`decode_step` substeps over the draft's own pool (the JAX
+    package's ``lax.scan`` as a Python loop). Substep j feeds the row's
+    current token at ``positions + j`` (substep 0 the pending last token,
+    later ones the row's own proposals) and writes its K/V only while
+    ``j <= spec_caps`` (the rest go to the trash page); it then draws the
+    next proposal: argmax, or for a tempered row a Gumbel-max keyed by
+    (seed, ``positions + j + 1``, ``DRAFT_SALT``). Both draws are
+    computed for every row and selected per row, so nothing waits on
+    the host. The last substep only writes K/V, which keeps the draft's
+    cache level with the target's. Returns (drafts [R, k] int32,
+    draft_logits [R, k, V] float32), both on the device."""
+    pos0 = positions.long()
+    temp = torch.clamp(temperatures, min=1e-6)[:, None]
+    tempered = temperatures > 0.0
+    cur = tokens
+    drafts, logits_k = [], []
+    for j in range(k + 1):
+        write_ok = active & (spec_caps >= j)
+        logits = decode_step(params, k_pages, v_pages, block_tables,
+                             positions + j, cur, write_ok, config)
+        if j == k:
+            break
+        greedy = torch.argmax(logits, dim=-1)
+        noise = gumbel_noise(seeds, pos0 + j + 1, logits.shape[-1],
+                             DRAFT_SALT)
+        sampled = torch.argmax(logits / temp + noise, dim=-1)
+        cur = torch.where(tempered, sampled, greedy).int()
+        drafts.append(cur)
+        logits_k.append(logits)
+    return torch.stack(drafts, dim=1), torch.stack(logits_k, dim=1)
+
+
+def verify_step(params, k_pages, v_pages, block_tables, positions, tokens,
+                active, spec_caps, config):
+    """ONE target step over ``K1 = k + 1`` lanes a row: lane i feeds
+    ``tokens[r, i]`` at position ``positions[r] + i`` (lane 0 the pending
+    last token, lanes 1..k the proposals). Per layer every lane's K/V is
+    written first, then every lane attends through the block table with
+    its own position mask (:func:`paged_attention_kwide`), so lane i
+    computes what a plain decode step computes after accepting the lanes
+    before it. Lanes past ``spec_caps[r]`` and inactive rows write to the
+    trash page. The projections run on R * K1 rows. Returns the logits
+    [R, K1, V]."""
+    nh, dh = config.num_heads, config.head_dim
+    R, K1 = tokens.shape
+    T = k_pages.shape[2]
+    trash = k_pages.shape[1] - 1
+    lanes = torch.arange(K1, device=tokens.device)
+    pos = positions.long()[:, None] + lanes[None, :]            # [R, K1]
+    live = active[:, None] & (lanes[None, :] <= spec_caps.long()[:, None])
+    x = F.embedding(tokens.long(), params["tok_emb"]) \
+        + F.embedding(pos.clamp(max=config.max_seq - 1), params["pos_emb"])
+    blk = (pos // T).clamp(max=block_tables.shape[1] - 1)
+    page = torch.where(live, torch.gather(block_tables.long(), 1, blk),
+                       torch.full_like(pos, trash))
+    slot = pos % T
+    pos32 = pos.int()
+    for i in range(config.num_layers):
+        pre = "blk%d" % i
+        h = _ln(x, params[pre + "_ln1_w"], params[pre + "_ln1_b"])
+        q = (h @ params[pre + "_q"]).view(R, K1, nh, dh)
+        k_new = (h @ params[pre + "_k"]).view(R, K1, nh, dh)
+        v_new = (h @ params[pre + "_v"]).view(R, K1, nh, dh)
+        # dead lanes share the trash page (and slots): unspecified which
+        # duplicate wins, never read by a live lane
+        k_pages[i, page, slot] = k_new
+        v_pages[i, page, slot] = v_new
+        att = paged_attention_kwide(q, k_pages[i], v_pages[i],
+                                    block_tables, pos32)
+        x = x + att.reshape(R, K1, nh * dh) @ params[pre + "_proj"]
+        h2 = _ln(x, params[pre + "_ln2_w"], params[pre + "_ln2_b"])
+        up = torch.relu(h2 @ params[pre + "_up"])
+        x = x + up @ params[pre + "_down"]
+    x = _ln(x, params["final_ln_w"], params["final_ln_b"])
+    return x @ params["lm_head"]
+
+
+def speculative_accept(logits, drafts, draft_logits, positions,
+                       temperatures, seeds, spec_caps):
+    """The accept rule, on the device. ``logits`` [R, K1, V] the target's
+    verify logits; ``drafts`` [R, K] and ``draft_logits`` [R, K, V] the
+    proposals; ``spec_caps`` [R]: draft i counts only while ``i < cap``
+    (cap 0 is a plain row).
+
+    A greedy row (temperature <= 0) accepts the longest prefix with
+    ``drafts[i] == argmax(logits[:, i])`` and emits
+    ``argmax(logits[:, a])`` after it: the tokens plain greedy decode
+    emits. A tempered row uses rejection sampling: draft i is accepted
+    when ``log u <= log q(d) - log p(d)`` (q the tempered target, p the
+    tempered draft, u keyed by the draft's position and ``ACCEPT_SALT``);
+    the first rejection draws from ``norm(max(q - p, 0))`` keyed
+    ``RESID_SALT``; a row that accepted all its lanes draws its bonus
+    token with the plain, unsalted key at that position. Greedy and
+    tempered results are both computed and selected per row.
+
+    Returns (emitted [R, K1] int32, n_out [R] int32 in 1..K1, logprobs
+    [R, K1] float32: the untempered log-softmax at each emitted token)."""
+    R, K1, V = logits.shape
+    K = K1 - 1
+    pos0 = positions.long()
+    lanes = torch.arange(K, device=logits.device)
+    lanes1 = torch.arange(K1, device=logits.device)
+    temp = torch.clamp(temperatures, min=1e-6)[:, None]          # [R, 1]
+    is_greedy = temperatures <= 0.0
+    dl = drafts.long()
+
+    greedy_t = torch.argmax(logits, dim=-1)                      # [R, K1]
+    g_acc = dl == greedy_t[:, :K]
+    lq = torch.log_softmax(logits[:, :K] / temp[:, :, None], dim=-1)
+    lp = torch.log_softmax(draft_logits / temp[:, :, None], dim=-1)
+    lq_d = torch.gather(lq, 2, dl[..., None])[..., 0]
+    lp_d = torch.gather(lp, 2, dl[..., None])[..., 0]
+    u = uniform_noise(seeds.long()[:, None],
+                      pos0[:, None] + 1 + lanes[None, :], ACCEPT_SALT)
+    t_acc = torch.log(u) <= lq_d - lp_d
+    acc = torch.where(is_greedy[:, None], g_acc, t_acc)
+    acc = acc & (lanes[None, :] < spec_caps.long()[:, None])
+    a = torch.cumprod(acc.long(), dim=1).sum(dim=1)               # [R]
+
+    # the correction or bonus token, from lane a's distributions
+    lt_a = torch.gather(logits, 1, a[:, None, None].expand(R, 1, V))[:, 0]
+    ld_a = torch.gather(draft_logits, 1, a.clamp(max=K - 1)[:, None, None]
+                        .expand(R, 1, V))[:, 0]
+    qa = torch.softmax(lt_a / temp, dim=-1)
+    pa = torch.softmax(ld_a / temp, dim=-1)
+    resid = torch.clamp(qa - pa, min=0.0)
+    resid = torch.where(resid.sum(dim=-1, keepdim=True) > 0.0, resid, qa)
+    idx = pos0 + a + 1
+    t_resid = torch.argmax(torch.log(resid + 1e-38)
+                           + gumbel_noise(seeds, idx, V, RESID_SALT), dim=-1)
+    t_plain = torch.argmax(lt_a / temp + gumbel_noise(seeds, idx, V),
+                           dim=-1)
+    final_t = torch.where(a < spec_caps.long(), t_resid, t_plain)
+    final_g = torch.gather(greedy_t, 1, a[:, None])[:, 0]
+    final = torch.where(is_greedy, final_g, final_t)
+
+    drafts_pad = torch.cat([dl, dl[:, :1]], dim=1)
+    emitted = torch.where(lanes1[None, :] < a[:, None], drafts_pad,
+                          final[:, None])
+    logps = torch.gather(torch.log_softmax(logits, dim=-1), 2,
+                         emitted[..., None])[..., 0]
+    return emitted.int(), (a + 1).int(), logps
+
+
+def verify_step_sampled(params, k_pages, v_pages, block_tables, positions,
+                        tokens, drafts, draft_logits, active, temperatures,
+                        seeds, spec_caps, config):
+    """:func:`verify_step` over ``[last token, drafts...]`` and
+    :func:`speculative_accept`. Returns the packed [R, 2 * K1 + 1]
+    float32 rows (emitted tokens [K1], n_out, logprobs [K1]), the one
+    tensor a round copies to the host (token ids are exact in float32
+    up to a vocab of 2**24)."""
+    tokens_k1 = torch.cat([tokens.int()[:, None], drafts.int()], dim=1)
+    logits = verify_step(params, k_pages, v_pages, block_tables, positions,
+                         tokens_k1, active, spec_caps, config)
+    emitted, n_out, logps = speculative_accept(
+        logits, drafts, draft_logits, positions, temperatures, seeds,
+        spec_caps)
+    return torch.cat([emitted.float(), n_out.float()[:, None], logps],
+                     dim=1)
 
 
 class TransformerLM(nn.Module):
@@ -484,3 +720,34 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens):
         return forward(self.params, tokens, self.config)
+
+    def draft_propose_fn(self, k):
+        """This model as the DRAFT: ``fn(params, k_pages, v_pages,
+        block_tables, positions, tokens, active, temperatures, seeds,
+        spec_caps)`` -> (drafts, draft_logits) of :func:`draft_propose_step`
+        at depth ``k``."""
+        cfg = self.config
+
+        def fn(params, k_pages, v_pages, block_tables, positions, tokens,
+               active, temperatures, seeds, spec_caps):
+            return draft_propose_step(params, k_pages, v_pages,
+                                      block_tables, positions, tokens,
+                                      active, temperatures, seeds,
+                                      spec_caps, k, cfg)
+        return fn
+
+    def verify_sample_fn(self):
+        """This model as the TARGET: ``fn(params, k_pages, v_pages,
+        block_tables, positions, tokens, drafts, draft_logits, active,
+        temperatures, seeds, spec_caps)`` -> the packed rows of
+        :func:`verify_step_sampled` (k is the drafts' width)."""
+        cfg = self.config
+
+        def fn(params, k_pages, v_pages, block_tables, positions, tokens,
+               drafts, draft_logits, active, temperatures, seeds,
+               spec_caps):
+            return verify_step_sampled(params, k_pages, v_pages,
+                                       block_tables, positions, tokens,
+                                       drafts, draft_logits, active,
+                                       temperatures, seeds, spec_caps, cfg)
+        return fn

@@ -3,14 +3,31 @@
 
 Code calls ``fault_point("site.name", payload)`` at a failure-relevant
 edge; a test arms the site to raise, or to corrupt the payload, at the
-Nth hit. A disarmed site costs one dict lookup. The port has two sites:
+Nth hit. A disarmed site costs one dict lookup. The port has five sites:
 
-``tune.candidate``  the autotune loop, once per candidate before it is
-                    built (``tune/loop.py``): a raise is a candidate
-                    failure, recorded and skipped
-``tune.cache``      the winner cache's bytes between their CRC and the
-                    disk (``tune/cache.py``): a corrupt models bit rot
-                    after the integrity data was derived
+``tune.candidate``     the autotune loop, once per candidate before it
+                       is built (``tune/loop.py``): a raise is a
+                       candidate failure, recorded and skipped
+``tune.cache``         the winner cache's bytes between their CRC and the
+                       disk (``tune/cache.py``): a corrupt models bit rot
+                       after the integrity data was derived
+``serving.generate``   the generation engine's device edges
+                       (``serving/generator.py``), once per prefill and
+                       once per decode step or speculative round: a raise
+                       at a prefill fails that request, at a step the
+                       running sequences (``generate_failed`` event), and
+                       the engine keeps serving
+``serving.speculate``  the draft side of speculative decoding
+                       (``serving/speculative.py``), at the draft
+                       engine's build, per draft prefill and per propose
+                       round: a raise degrades that engine to plain decode
+                       for its lifetime (``speculation_degraded`` event);
+                       running sequences and greedy output are unchanged
+``serving.prefix``     copy-on-write prefix sharing
+                       (``serving/prefix.py``), at the cache's build and
+                       per match: a raise degrades that engine to private
+                       pages for its lifetime (``prefix_degraded`` event);
+                       greedy output is unchanged
 
 The ``delay`` action and the ``PADDLE_TPU_FAULT_SPEC`` grammar of the
 JAX package are not ported.
@@ -25,7 +42,8 @@ from .events import record_event
 __all__ = ["FaultError", "SITES", "arm", "disarm", "fault_point", "hits",
            "reset"]
 
-SITES = ("tune.candidate", "tune.cache")
+SITES = ("tune.candidate", "tune.cache", "serving.generate",
+         "serving.speculate", "serving.prefix")
 _ACTIONS = ("raise", "corrupt")
 
 

@@ -1,6 +1,7 @@
 """Generative serving of the port (counterpart of ``paddle_tpu/serving``):
-paged KV cache, continuous-batching engine, in-process service and the
-``:generate`` HTTP endpoint."""
+paged KV cache with refcounted pages, copy-on-write prefix sharing,
+continuous-batching engine with speculative decoding, in-process service
+and the ``:generate`` HTTP endpoint."""
 from __future__ import annotations
 
 from .admission import (AdmissionController, DeadlineExceededError,
@@ -10,11 +11,14 @@ from .generator import (GenerationEngine, GenRequest, GenResult,
                         reference_decode, sample_token)
 from .httpd import make_server, serve_until_shutdown
 from .kvcache import BlockTable, PagePool, PoolExhausted, pages_for
+from .prefix import PrefixCache, chunk_keys
 from .service import InferenceService
+from .speculative import DraftEngine
 
 __all__ = ["AdmissionController", "BlockTable", "DeadlineExceededError",
-           "GenRequest", "GenResult", "GenerationEngine", "InferenceService",
-           "ModelUnavailableError", "OverloadError", "PagePool",
-           "PoolExhausted", "ServingError", "bucket_for", "make_server",
-           "padding_buckets", "pages_for", "reference_decode",
-           "sample_token", "serve_until_shutdown"]
+           "DraftEngine", "GenRequest", "GenResult", "GenerationEngine",
+           "InferenceService", "ModelUnavailableError", "OverloadError",
+           "PagePool", "PoolExhausted", "PrefixCache", "ServingError",
+           "bucket_for", "chunk_keys", "make_server", "padding_buckets",
+           "pages_for", "reference_decode", "sample_token",
+           "serve_until_shutdown"]

@@ -26,9 +26,39 @@ the device sampler's stream is keyed by position), or sheds it when
 preemption cannot help. An exception in a step fails that step's
 sequences and the loop keeps serving.
 
+**Speculative decoding** (``draft_model=`` and ``spec_k``; flags
+``serve_draft_dir`` / ``serve_spec_k``): each decode step becomes a
+round. A small draft model proposes up to k tokens a row into its own
+page pool (``serving/speculative.DraftEngine``), then one target step
+over the k + 1 lanes of every row verifies them, accepts the longest
+valid prefix and samples the correction on the device
+(``models/transformer.verify_step_sampled``, whose attention is the
+k-wide face of the paged-attention kernel). Greedy output is the plain
+engine's; tempered rows use rejection sampling keyed by position, so a
+preempted request replays its history. Rejected lanes cost a page-table
+trim (``BlockTable.trim``), never a cache rollback. Fault site
+``serving.speculate`` degrades to plain decode with a
+``speculation_degraded`` event.
+
+**Prefix sharing** (``prefix_sharing=`` / ``FLAGS.serve_prefix_sharing``,
+``serving/prefix.py``): prompt pages are keyed by content and published
+to a per-engine cache; a later request whose prompt starts with the
+same chunks pins the same physical pages (``PagePool.ref``) and its
+prefill writes only the positions past them. Admission discounts the
+full pages it will pin, while exhaustion stays priced in physical
+pages. The first write into a still-shared page (a generated token in a
+shared partial tail page) copies that one page on the device and swaps
+it into the table: copy-on-write. Greedy output is the same with
+sharing on or off. Fault site ``serving.prefix`` degrades the engine to
+private pages with a ``prefix_degraded`` event.
+
+Fault site ``serving.generate`` is hit once per prefill and once per
+decode step or round: a raise fails that request or the running ones
+(``generate_failed`` event) and the loop keeps serving.
+
 Left out of this port for now, each listed in ``ROADMAP.md``:
-speculative decoding, prefix sharing and copy-on-write, disaggregated
-prefill/decode handoff, fault points and the tune-cache lookup.
+disaggregated prefill/decode handoff (``submit_prefilled``, fault site
+``serving.ship``) and the tune-cache lookup of the paged attention.
 
 The engine thread drives the card: it makes the model's device current
 before its first step, the kernels launch on that thread's current
@@ -46,11 +76,15 @@ import numpy as np
 import torch
 
 from ..models import transformer as _tm
+from ..resilience.events import record_event
+from ..resilience.faults import fault_point
 from .admission import (AdmissionController, DeadlineExceededError,
                         OverloadError, ServingError)
 from .batcher import bucket_for, padding_buckets
 from .kvcache import BlockTable, PagePool, PoolExhausted, pages_for
+from .prefix import PrefixCache
 from .service import _WINDOW, _percentile
+from .speculative import DraftEngine
 
 __all__ = ["GenRequest", "GenResult", "GenerationEngine", "sample_token",
            "reference_decode"]
@@ -131,12 +165,16 @@ class GenRequest(object):
 
     __slots__ = ("prompt", "max_new_tokens", "temperature", "seed",
                  "deadline_t", "enqueue_t", "tokens", "logprobs",
-                 "preemptions", "model_version", "_rng", "_ttft_ms",
-                 "_done", "_result", "_error")
+                 "preemptions", "model_version", "spec_k", "_rng",
+                 "_ttft_ms", "_done", "_result", "_error")
 
     def __init__(self, prompt, max_new_tokens, temperature=0.0, seed=0,
-                 deadline_t=None):
+                 deadline_t=None, spec_k=None):
         self.prompt = [int(t) for t in prompt]
+        # the request's cap on the speculation depth (None: the engine's;
+        # 0: plain decode). Part of the request's identity: a resumed
+        # preemption derives the same round boundaries from it
+        self.spec_k = None if spec_k is None else int(spec_k)
         # stamped by InferenceService.generate_async
         self.model_version = None
         self.max_new_tokens = int(max_new_tokens)
@@ -193,7 +231,8 @@ class GenRequest(object):
 class _Running(object):
     """One occupied engine slot."""
 
-    __slots__ = ("req", "slot", "table", "cached", "last_token", "last_t")
+    __slots__ = ("req", "slot", "table", "cached", "last_token", "last_t",
+                 "spec_cap")
 
     def __init__(self, req, slot, table):
         self.req = req
@@ -202,6 +241,7 @@ class _Running(object):
         self.cached = 0          # positions written into the paged cache
         self.last_token = None   # next decode step's input token
         self.last_t = time.monotonic()
+        self.spec_cap = 0        # draft lanes this row runs this round
 
 
 class GenerationEngine(object):
@@ -217,13 +257,19 @@ class GenerationEngine(object):
       (recompute-on-resume).
 
     ``device_sample``: sample on the device (None reads
-    ``FLAGS.serve_device_sample``). Knobs left None read the
-    ``FLAGS.serve_*`` defaults.
+    ``FLAGS.serve_device_sample``). ``draft_model`` and ``spec_k``:
+    speculative decoding with that draft at that depth (``spec_k`` None
+    reads ``FLAGS.serve_spec_k``); it needs device sampling. A draft
+    that cannot be built degrades to plain decode with a recorded
+    ``speculation_degraded`` event. ``prefix_sharing``: copy-on-write
+    prefix sharing (None reads ``FLAGS.serve_prefix_sharing``). Knobs
+    left None read the ``FLAGS.serve_*`` defaults.
     """
 
     def __init__(self, model, max_running=None, kv_pages=None,
                  page_tokens=None, queue_depth=None, reserve="full",
-                 eos_id=None, name="model", warm=False, device_sample=None):
+                 eos_id=None, name="model", warm=False, device_sample=None,
+                 draft_model=None, spec_k=None, prefix_sharing=None):
         from ..flags import FLAGS
         if reserve not in ("full", "prompt"):
             raise ValueError("reserve must be 'full' or 'prompt'")
@@ -246,11 +292,51 @@ class GenerationEngine(object):
         L, nh, dh = model.kv_spec
         self.pool = PagePool(kv_pages, page_tokens, L, nh, dh)
         self._kp, self._vp = self.pool.zeros(self.device)
+        # copy-on-write prefix sharing: a cache over THIS pool; a failed
+        # build (fault site serving.prefix) degrades to private pages
+        if prefix_sharing is None:
+            prefix_sharing = bool(FLAGS.serve_prefix_sharing)
+        self._prefix = None
+        self._prefix_degraded = False
+        if prefix_sharing:
+            try:
+                self._prefix = PrefixCache(self.pool, name=name)
+            except Exception as e:
+                self._prefix_degraded = True
+                record_event("prefix_degraded", site="serving.prefix",
+                             model=name, phase="build", error=repr(e))
         self.device_sample = bool(FLAGS.serve_device_sample
                                   if device_sample is None
                                   else device_sample)
         self._sample_meta = None   # cached (temps, seeds) device copies
         self._buckets = padding_buckets(self.max_context)
+        # speculative decoding: a DraftEngine (its own pool and propose
+        # step) and the target's verify step. Verification IS device
+        # sampling, so it needs that path; any failure here (an armed
+        # serving.speculate site included) degrades to plain decode
+        if spec_k is None:
+            spec_k = int(FLAGS.serve_spec_k)
+        self.spec_k = int(spec_k) if draft_model is not None else 0
+        self._spec = None
+        self._spec_degraded = False
+        self._verify = None
+        if draft_model is not None and self.spec_k >= 1:
+            try:
+                if not self.device_sample:
+                    raise ServingError(
+                        "speculative decoding needs device sampling, "
+                        "which is off on this engine")
+                self._spec = DraftEngine(
+                    draft_model, self.spec_k, cfg, kv_pages, page_tokens,
+                    self.max_context, self._buckets, self.device,
+                    name=name)
+                self._verify = model.verify_sample_fn()
+            except Exception as e:
+                self._spec = None
+                self._spec_degraded = True
+                record_event("speculation_degraded",
+                             site="serving.speculate", model=name,
+                             phase="build", error=repr(e))
         self._queue = collections.deque()
         self._seqs = []            # _Running, slot-ordered
         self._admitting = 0        # popped from the queue, prefill underway
@@ -276,27 +362,44 @@ class GenerationEngine(object):
     def _i32(self, a):
         return torch.as_tensor(np.asarray(a, np.int32)).to(self.device)
 
-    def _prefill(self, padded, length, table_row, temperature, seed):
-        """One prefill; returns (token, logprob) on the device-sampling
-        path, else the [V] logits as numpy."""
+    def _sample_operands(self, temps, seeds):
+        """Device copies of the rows' temperatures and seeds, cached: they
+        change only when the running set does."""
+        cached = self._sample_meta
+        if (cached is None or not np.array_equal(temps, cached[0])
+                or not np.array_equal(seeds, cached[1])):
+            cached = (temps, seeds,
+                      torch.as_tensor(temps).to(self.device),
+                      self._i32(seeds))
+            self._sample_meta = cached
+        return cached[2], cached[3]
+
+    def _prefill(self, padded, length, table_row, temperature, seed,
+                 covered=0):
+        """One prefill (positions below ``covered`` are not written);
+        returns (token, logprob) on the device-sampling path, else the
+        [V] logits as numpy."""
         p = self.model.params
         cfg = self.model.config
         if self.device_sample:
             tok, logp = _tm.prefill_step_sampled(
                 p, self._kp, self._vp, self._i32(padded), length,
-                self._i32(table_row), temperature, seed, cfg)
+                self._i32(table_row), temperature, seed, cfg,
+                covered=covered)
             packed = torch.stack([tok.float(), logp]).cpu()
             return int(packed[0]), float(packed[1])
         last = _tm.prefill_step(p, self._kp, self._vp, self._i32(padded),
-                                length, self._i32(table_row), cfg)
+                                length, self._i32(table_row), cfg,
+                                covered=covered)
         return last.cpu().numpy()
 
     def warm_up(self, buckets=None):
-        """Run every prefill bucket and one decode step with all-trash
-        block tables, so the kernels are built and loaded before the
-        first request; the writes land on the trash page only. Returns
-        the wall time in ms. Call before the engine thread starts (the
-        constructor's ``warm=True``)."""
+        """Run every prefill bucket and one decode step (and, when
+        speculative, the draft's prefills, one propose and one verify)
+        with all-trash block tables, so the kernels are built and loaded
+        before the first request; the writes land on the trash page only.
+        Returns the wall time in ms. Call before the engine thread starts
+        (the constructor's ``warm=True``)."""
         t0 = time.monotonic()
         trash_row = np.full((self.max_blocks,), self.pool.trash_page,
                             np.int32)
@@ -305,18 +408,32 @@ class GenerationEngine(object):
                 self._prefill(np.zeros((S_b,), np.int32), 1, trash_row,
                               0.0, 0)
             R = self.max_running
-            self._decode(np.tile(trash_row, (R, 1)),
-                         np.zeros((R,), np.int32), np.zeros((R,), np.int32),
-                         np.zeros((R,), bool), np.zeros((R,), np.float32),
-                         np.zeros((R,), np.int32))
+            tables = np.tile(trash_row, (R, 1))
+            zeros_i = np.zeros((R,), np.int32)
+            self._decode(tables, zeros_i, zeros_i, np.zeros((R,), bool),
+                         np.zeros((R,), np.float32), zeros_i)
+            if self._spec is not None:
+                try:
+                    drafts, dlogits = self._spec.warm(R)
+                    z = self._i32(zeros_i)
+                    self._verify(
+                        self.model.params, self._kp, self._vp,
+                        self._i32(tables), z, z, drafts, dlogits,
+                        torch.zeros((R,), dtype=torch.bool,
+                                    device=self.device),
+                        torch.zeros((R,), dtype=torch.float32,
+                                    device=self.device), z, z).cpu()
+                except Exception as e:
+                    self._degrade_spec("warm", e)
         return (time.monotonic() - t0) * 1e3
 
     # -- submit side ---------------------------------------------------------
     def submit(self, prompt, max_new_tokens=16, temperature=0.0, seed=0,
-               deadline_ms=None):
+               deadline_ms=None, spec_k=None):
         """Queue one prompt; returns the :class:`GenRequest` handle.
         Sheds now when the queue is full, the request could never fit
-        the pool, or it exceeds the model's context window."""
+        the pool, or it exceeds the model's context window. ``spec_k``
+        caps this request's speculation depth (0: plain decode)."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("prompt must hold at least one token id")
@@ -332,6 +449,11 @@ class GenerationEngine(object):
             # would fail every other in-flight generation of the step
             raise ValueError("temperature must be finite and >= 0.0, "
                              "got %r" % temperature)
+        if spec_k is not None:
+            spec_k = int(spec_k)
+            if spec_k < 0:
+                raise ValueError("spec_k must be >= 0 (0 disables "
+                                 "speculation for this request)")
         total = len(prompt) + max_new_tokens
         if total > self.max_context:
             raise ValueError(
@@ -339,6 +461,10 @@ class GenerationEngine(object):
                 "context window (%d)" % (len(prompt), max_new_tokens,
                                          self.max_context))
         if not self.pool.can_fit(total):
+            record_event("kv_pool_exhausted", site="serving.generate",
+                         action="shed", model=self.name,
+                         want_pages=pages_for(total, self.pool.page_tokens),
+                         pool_pages=self.pool.num_pages)
             with self._cond:
                 self._counts["shed_pool"] += 1
             raise PoolExhausted(
@@ -348,7 +474,8 @@ class GenerationEngine(object):
                 % (total, self.pool.num_pages * self.pool.page_tokens,
                    self.pool.num_pages, self.pool.page_tokens))
         req = GenRequest(prompt, max_new_tokens, temperature, seed,
-                         AdmissionController.deadline_from(deadline_ms))
+                         AdmissionController.deadline_from(deadline_ms),
+                         spec_k=spec_k)
         with self._cond:
             if not self._alive:
                 raise ServingError("generation engine is closed")
@@ -369,10 +496,10 @@ class GenerationEngine(object):
         return req
 
     def generate(self, prompt, max_new_tokens=16, temperature=0.0, seed=0,
-                 deadline_ms=None, timeout=None):
+                 deadline_ms=None, timeout=None, spec_k=None):
         """Blocking convenience: submit + wait -> :class:`GenResult`."""
         return self.submit(prompt, max_new_tokens, temperature, seed,
-                           deadline_ms).wait(timeout)
+                           deadline_ms, spec_k=spec_k).wait(timeout)
 
     # -- engine loop ---------------------------------------------------------
     def _loop(self):
@@ -442,6 +569,12 @@ class GenerationEngine(object):
                 s.req.fail(ServingError("generation engine shut down "
                                         "mid-flight"))
         del self._seqs[:]
+        if self._spec is not None:
+            self._spec.close()
+            self._spec = None
+        if self._prefix is not None:
+            self._prefix.clear()
+            self._prefix = None
 
     def __enter__(self):
         return self
@@ -459,6 +592,17 @@ class GenerationEngine(object):
             return len(req.pending_prompt) + req.budget_left
         return len(req.pending_prompt)
 
+    def _reservation(self, req):
+        """Pages admission must see free before ``req`` may start, in
+        effective pages: leading full prompt pages already cached will be
+        pinned, not allocated. A cached partial tail page is not
+        discounted, since copy-on-write buys it back at the first
+        generated token."""
+        pages = pages_for(self._reserve_tokens(req), self.pool.page_tokens)
+        if self._prefix is not None:
+            pages -= self._prefix.probe(req.pending_prompt)
+        return max(pages, 0)
+
     def _admit(self):
         """Move queued requests into free slots while their reservation
         fits (FIFO: a big head request waits rather than starves)."""
@@ -471,19 +615,28 @@ class GenerationEngine(object):
                     self._queue.popleft()
                     self._shed_deadline(req)
                     continue
-                if pages_for(self._reserve_tokens(req),
-                             self.pool.page_tokens) > self.pool.available:
+                need = self._reservation(req)
+                if need > self.pool.available and self._prefix is not None:
+                    # pages only the cache pins come back here too: an
+                    # idle engine never allocates, so the pool's own hook
+                    # would never fire
+                    self._prefix.reclaim(need - self.pool.available,
+                                         keep=req.pending_prompt)
+                if need > self.pool.available:
                     return
                 self._queue.popleft()
                 slot = self._free_slots.pop(0)
                 self._admitting += 1
             try:
                 self._start(req, slot)
-            except PoolExhausted:
+            except PoolExhausted as e:
                 with self._cond:
                     self._queue.appendleft(req)
                     self._free_slots.insert(0, slot)
                     self._free_slots.sort()
+                record_event("kv_pool_exhausted", site="serving.generate",
+                             action="requeue", model=self.name,
+                             error=repr(e))
                 return
             finally:
                 with self._cond:
@@ -491,44 +644,102 @@ class GenerationEngine(object):
                     self._cond.notify_all()
 
     def _start(self, req, slot):
-        """Prefill ``req`` into a fresh block table and take its first
-        token; may retire it at once (budget 1 or eos). The first token's
+        """Prefill ``req`` into its block table and take its first token;
+        may retire it at once (budget 1 or eos). The first token's
         sampling counter is its position in the full sequence, so a
-        resumed request continues its stream."""
+        resumed request continues its stream. With prefix sharing the
+        table starts with the pages of the longest cached run of the
+        prompt, which the prefill does not write; the prompt's pages are
+        published after it."""
         prompt = req.pending_prompt
         table = BlockTable(self.pool)
+        matched = covered = 0
+        if self._prefix is not None:
+            try:
+                shared, covered = self._prefix.match(prompt)
+                table.pages.extend(shared)
+                matched = len(shared)
+            except Exception as e:
+                self._degrade_prefix("match", e)
         try:
             table.ensure(self._reserve_tokens(req))
         except PoolExhausted:
-            table.release()
+            table.release()   # drops the prefix pins too
             raise
+        if self._spec is not None:
+            # the draft's reservation: admit on both pools or on neither
+            try:
+                self._spec.ensure_slot(slot, self._reserve_tokens(req))
+            except PoolExhausted:
+                self._spec.release_slot(slot)
+                table.release()
+                raise
+        if matched:
+            with self._cond:
+                self._counts["prefix_hits"] += matched
+                self._counts["prefix_hit_requests"] += 1
         S_b = bucket_for(len(prompt), self._buckets)
         padded = np.zeros((S_b,), np.int32)
         padded[:len(prompt)] = prompt
         t0 = time.monotonic()
         try:
+            fault_point("serving.generate")
             first = self._prefill(padded, len(prompt),
                                   table.as_row(self.max_blocks),
-                                  req.temperature, req.seed & 0x7FFFFFFF)
+                                  req.temperature, req.seed & 0x7FFFFFFF,
+                                  covered=covered)
         except Exception as e:
             table.release()
+            if self._spec is not None:
+                self._spec.release_slot(slot)
             with self._cond:
                 self._free_slots.append(slot)
                 self._free_slots.sort()
                 self._counts["failed"] += 1
+            record_event("generate_failed", site="serving.generate",
+                         model=self.name, phase="prefill", error=repr(e))
             req.fail(e)
             return
         self._busy_s += time.monotonic() - t0
+        if self._spec is not None:
+            # the draft mirrors the prompt into its own pool; a failure
+            # degrades speculation engine-wide and the request runs plain
+            try:
+                self._spec.prefill(slot, padded, len(prompt))
+            except Exception as e:
+                self._degrade_spec("prefill", e)
+        if self._prefix is not None:
+            try:
+                published = self._prefix.publish(prompt, table.pages)
+            except Exception as e:
+                self._degrade_prefix("publish", e)
+            else:
+                if published:
+                    with self._cond:
+                        self._counts["prefix_published"] += published
         run = _Running(req, slot, table)
         run.cached = len(prompt)
+        # A resumed request on a speculative engine drops the prefill's
+        # draw: its stream's token at the resume position came from an
+        # accept or residual draw (another salt), so the row re-enters
+        # the rounds pending its last token, and the next round replays
+        # the same draws (caps are pure functions of request and
+        # progress)
+        resumed_spec = self._spec is not None and len(req.tokens) > 0
+        if resumed_spec:
+            run.cached = len(prompt) - 1
+            run.last_token = req.tokens[-1]
         with self._cond:
             self._counts["prefills"] += 1
             self._counts["prompt_tokens"] += len(prompt)
-            self._counts["tokens"] += 1
+            if not resumed_spec:
+                self._counts["tokens"] += 1
             self._seqs.append(run)
             self._seqs.sort(key=lambda s: s.slot)
             self._max_running_seen = max(self._max_running_seen,
                                          len(self._seqs))
+        if resumed_spec:
+            return
         if self.device_sample:
             self._record_token(run, first[0], first[1])
         else:
@@ -548,17 +759,8 @@ class GenerationEngine(object):
                 torch.as_tensor(active).to(self.device))
         if not self.device_sample:
             return _tm.decode_step(*args, cfg).cpu().numpy()
-        # temps/seeds change only when the running set does: their
-        # device copies are cached between steps
-        cached = self._sample_meta
-        if (cached is None or not np.array_equal(temps, cached[0])
-                or not np.array_equal(seeds, cached[1])):
-            cached = (temps, seeds,
-                      torch.as_tensor(temps).to(self.device),
-                      self._i32(seeds))
-            self._sample_meta = cached
-        toks, logps = _tm.decode_step_sampled(*args, cached[2], cached[3],
-                                              cfg)
+        toks, logps = _tm.decode_step_sampled(
+            *args, *self._sample_operands(temps, seeds), cfg)
         # one [2R] float32 row crosses to the host (tokens are exact in
         # float32 up to a vocab of 2**24)
         packed = torch.cat([toks.float(), logps]).cpu().numpy()
@@ -566,6 +768,9 @@ class GenerationEngine(object):
         return packed[:R].astype(np.int32), packed[R:]
 
     def _step(self):
+        if self._spec is not None:
+            self._step_spec()
+            return
         self._grow_tables()
         seqs = list(self._seqs)
         if not seqs:
@@ -586,6 +791,7 @@ class GenerationEngine(object):
             seeds[s.slot] = s.req.seed & 0x7FFFFFFF
         t0 = time.monotonic()
         try:
+            fault_point("serving.generate")
             out = self._decode(tables, positions, tokens, active, temps,
                                seeds)
         except Exception as e:
@@ -609,23 +815,208 @@ class GenerationEngine(object):
                 self._accept_token(s, out[s.slot])
 
     def _grow_tables(self):
-        """Make room for each running row's next position; starvation
-        preempts (or sheds, when preemption cannot help)."""
+        """Make room for each running row's next position, copying a
+        still-shared page the write would land in; starvation preempts
+        (or sheds, when preemption cannot help)."""
         for s in list(self._seqs):
             try:
                 s.table.ensure(s.cached + 1)
+                self._unshare_for_write(s.table, s.cached, s.cached + 1)
             except PoolExhausted:
-                if len(self._seqs) > 1 and \
-                        s.req.preemptions < _PREEMPT_LIMIT:
-                    self._preempt(s)
-                else:
-                    self._shed_pool(s)
+                self._starved(s)
+
+    def _starved(self, s):
+        if len(self._seqs) > 1 and s.req.preemptions < _PREEMPT_LIMIT:
+            self._preempt(s)
+        else:
+            self._shed_pool(s)
+
+    # -- the speculative round ----------------------------------------------
+    def _grow_tables_spec(self):
+        """Grow both pools to each row's round window ``cached + cap +
+        1``, where ``cap``, the draft lanes the row runs this round, is a
+        pure function of the request and its progress (the engine's k,
+        the request's, the budget left, the context). That purity lets a
+        resumed request replay its tempered stream; so starvation
+        preempts or sheds, and never shrinks a row's cap."""
+        for s in list(self._seqs):
+            req_k = (s.req.spec_k if s.req.spec_k is not None
+                     else self.spec_k)
+            cap = max(0, min(self.spec_k, req_k, s.req.budget_left - 1,
+                             self.max_context - 1 - s.cached))
+            try:
+                s.table.ensure(s.cached + cap + 1)
+                self._spec.ensure_slot(s.slot, s.cached + cap + 1)
+                # the verify step writes positions cached .. cached + cap
+                self._unshare_for_write(s.table, s.cached,
+                                        s.cached + cap + 1)
+            except PoolExhausted:
+                self._starved(s)
+                continue
+            s.spec_cap = cap
+
+    def _step_spec(self):
+        """One speculative round for the running batch: the draft
+        proposes up to k tokens a row, the target verifies every lane in
+        one step, and one packed row crosses to the host; then each row
+        takes its accepted tokens and the correction or bonus token, and
+        the pages past its accepted point go back to both pools. A
+        propose failure degrades speculation and skips the round (the
+        loop steps plain next); a verify failure fails the running rows
+        as a plain step's failure does."""
+        self._grow_tables_spec()
+        seqs = list(self._seqs)
+        if not seqs:
+            return
+        spec = self._spec
+        R, MB = self.max_running, self.max_blocks
+        K1 = self.spec_k + 1
+        tables = np.full((R, MB), self.pool.trash_page, np.int32)
+        dtables = np.full((R, spec.max_blocks), spec.pool.trash_page,
+                          np.int32)
+        positions = np.zeros((R,), np.int32)
+        tokens = np.zeros((R,), np.int32)
+        active = np.zeros((R,), bool)
+        temps = np.zeros((R,), np.float32)
+        seeds = np.zeros((R,), np.int32)
+        caps = np.zeros((R,), np.int32)
+        for s in seqs:
+            tables[s.slot] = s.table.as_row(MB)
+            dtables[s.slot] = spec.row(s.slot)
+            positions[s.slot] = s.cached
+            tokens[s.slot] = s.last_token
+            active[s.slot] = True
+            temps[s.slot] = s.req.temperature
+            seeds[s.slot] = s.req.seed & 0x7FFFFFFF
+            caps[s.slot] = s.spec_cap
+        t0 = time.monotonic()
+        try:
+            fault_point("serving.generate")
+            temps_d, seeds_d = self._sample_operands(temps, seeds)
+            pos_d = self._i32(positions)
+            tok_d = self._i32(tokens)
+            act_d = torch.as_tensor(active).to(self.device)
+            caps_d = self._i32(caps)
+            try:
+                drafts, dlogits = spec.propose(
+                    self._i32(dtables), pos_d, tok_d, act_d, temps_d,
+                    seeds_d, caps_d)
+            except Exception as pe:
+                self._degrade_spec("propose", pe)
+                return
+            packed = self._verify(
+                self.model.params, self._kp, self._vp, self._i32(tables),
+                pos_d, tok_d, drafts, dlogits, act_d, temps_d, seeds_d,
+                caps_d).cpu().numpy()
+        except Exception as e:
+            self._fail_running(e)
+            return
+        self._busy_s += time.monotonic() - t0
+        tok_rows = packed[:, :K1].astype(np.int32)
+        n_out = packed[:, K1].astype(np.int32)
+        logp_rows = packed[:, K1 + 1:]
+        drafted = int(sum(s.spec_cap for s in seqs))
+        accepted = int(sum(max(int(n_out[s.slot]) - 1, 0) for s in seqs))
+        consumed = 0
+        now = time.monotonic()
+        for s in seqs:
+            n = int(n_out[s.slot])
+            # a round's tokens land together: each takes an even share
+            # of the row's gap, so the inter-token statistics read per
+            # token as a plain step's do
+            gap_ms = (now - s.last_t) * 1e3 / max(n, 1)
+            for j in range(n):
+                if s.req.done:
+                    break   # retired mid-round; the rest is discarded
+                s.cached += 1
+                consumed += 1
+                self._record_token(s, int(tok_rows[s.slot, j]),
+                                   float(logp_rows[s.slot, j]), gap_ms)
+            if s.req.done:
+                continue
+            # pages past the accepted point (and the reserve policy's
+            # floor) go back to both pools before the next admission
+            floor = max(s.cached + 1, self._reserve_tokens(s.req))
+            s.table.trim(floor)
+            spec.trim_slot(s.slot, floor)
+        util = self.pool.utilization()["frac"]
+        with self._cond:
+            self._counts["decode_steps"] += 1
+            self._counts["spec_steps"] += 1
+            self._counts["tokens"] += consumed
+            self._counts["draft_tokens"] += drafted
+            self._counts["accepted_tokens"] += accepted
+            self._counts["device_sample_steps"] += 1
+            self._occupancy_sum += len(seqs)
+            self._page_util_max = max(self._page_util_max, util)
+
+    def _degrade_spec(self, phase, exc):
+        """Speculation failed (fault site ``serving.speculate``): drop the
+        draft engine and keep serving plain decode. Running rows are
+        unharmed: the draft pool is the only state a draft failure can
+        consume, and the target's cache never depended on it."""
+        spec = self._spec
+        if spec is None:
+            return
+        self._spec = None
+        self._spec_degraded = True
+        try:
+            spec.close()
+        except Exception:
+            pass
+        record_event("speculation_degraded", site="serving.speculate",
+                     model=self.name, phase=phase, error=repr(exc))
+
+    def _degrade_prefix(self, phase, exc):
+        """Prefix sharing failed (fault site ``serving.prefix``): drop
+        the cache and keep serving private pages. Tables that already
+        share pages keep them; :meth:`_unshare_for_write` runs whether
+        the cache is there or not."""
+        cache = self._prefix
+        if cache is None:
+            return
+        self._prefix = None
+        self._prefix_degraded = True
+        try:
+            cache.clear()
+        except Exception:
+            pass
+        record_event("prefix_degraded", site="serving.prefix",
+                     model=self.name, phase=phase, error=repr(exc))
+
+    def _unshare_for_write(self, table, start, upto):
+        """Copy-on-write: before a step writes positions ``[start,
+        upto)``, each covering page that is still shared (another table
+        or the prefix cache pins it) is replaced by a private copy: one
+        page allocated, copied on the device on the engine thread's
+        stream (so before the step that writes it), swapped into the
+        table, and the shared original freed of this table's reference.
+        May raise :class:`PoolExhausted` part way; pages already copied
+        stay consistently private."""
+        T = self.pool.page_tokens
+        last = min((upto - 1) // T + 1, len(table.pages))
+        copies = 0
+        for i in range(start // T, last):
+            old = table.pages[i]
+            if self.pool.refcount(old) <= 1:
+                continue
+            new = self.pool.alloc(1)[0]
+            self._kp[:, new] = self._kp[:, old]
+            self._vp[:, new] = self._vp[:, old]
+            table.pages[i] = new
+            self.pool.free([old])
+            copies += 1
+        if copies:
+            with self._cond:
+                self._counts["cow_copies"] += copies
 
     def _evict(self, s, counter=None, requeue=False):
-        """The one eviction primitive: release the row's pages, recycle
-        its slot, optionally count it and re-queue its request at the
-        front, and wake drain()/admission waiters."""
+        """The one eviction primitive: release the row's pages on both
+        pools, recycle its slot, optionally count it and re-queue its
+        request at the front, and wake drain()/admission waiters."""
         s.table.release()
+        if self._spec is not None:
+            self._spec.release_slot(s.slot)
         with self._cond:
             if s in self._seqs:
                 self._seqs.remove(s)
@@ -640,10 +1031,17 @@ class GenerationEngine(object):
     def _preempt(self, s):
         """Recompute-on-resume: free the row's pages and re-queue the
         request carrying its progress."""
+        record_event("kv_pool_exhausted", site="serving.generate",
+                     action="preempt", model=self.name,
+                     generated=len(s.req.tokens),
+                     preemptions=s.req.preemptions + 1)
         s.req.preemptions += 1
         self._evict(s, counter="preemptions", requeue=True)
 
     def _shed_pool(self, s):
+        record_event("kv_pool_exhausted", site="serving.generate",
+                     action="shed", model=self.name,
+                     generated=len(s.req.tokens))
         self._evict(s, counter="shed_pool")
         s.req.fail(PoolExhausted(
             "kv page pool exhausted mid-flight after %d generated "
@@ -657,9 +1055,10 @@ class GenerationEngine(object):
         tok = sample_token(logits, s.req.temperature, s.req._rng)
         self._record_token(s, tok, None)
 
-    def _record_token(self, s, tok, logp=None):
-        """Bookkeeping for one accepted token: append it, stamp latency,
-        retire on eos/length/deadline."""
+    def _record_token(self, s, tok, logp=None, gap_ms=None):
+        """Bookkeeping for one accepted token: append it, stamp latency
+        (``gap_ms``, when given, is its inter-token gap), retire on
+        eos/length/deadline."""
         req = s.req
         now = time.monotonic()
         req.tokens.append(tok)
@@ -670,7 +1069,8 @@ class GenerationEngine(object):
             req._ttft_ms = (now - req.enqueue_t) * 1e3
             self._ttft_ms.append(req._ttft_ms)
         else:
-            self._intertoken_ms.append((now - s.last_t) * 1e3)
+            self._intertoken_ms.append(
+                (now - s.last_t) * 1e3 if gap_ms is None else gap_ms)
         s.last_t = now
         if self.eos_id is not None and tok == self.eos_id:
             self._retire(s, "eos")
@@ -686,6 +1086,9 @@ class GenerationEngine(object):
 
     def _shed_deadline(self, req, generated=0):
         late_ms = (time.monotonic() - req.deadline_t) * 1e3
+        record_event("request_shed", site="serving.generate",
+                     reason="deadline", model=self.name, late_ms=late_ms,
+                     generated=generated)
         with self._cond:
             self._counts["shed_deadline"] += 1
         req.fail(DeadlineExceededError(
@@ -696,7 +1099,13 @@ class GenerationEngine(object):
     def _fail_running(self, exc):
         """A raise in a step fails the running sequences (their cache
         rows are suspect) and the loop keeps serving."""
-        for s in list(self._seqs):
+        seqs = list(self._seqs)
+        if not seqs:
+            return
+        record_event("generate_failed", site="serving.generate",
+                     model=self.name, phase="decode",
+                     sequences=len(seqs), error=repr(exc))
+        for s in seqs:
             self._evict(s, counter="failed")
             s.req.fail(exc)
 
@@ -709,6 +1118,7 @@ class GenerationEngine(object):
             steps = c.get("decode_steps", 0)
             ttft = list(self._ttft_ms)
             itl = list(self._intertoken_ms)
+            drafted = c.get("draft_tokens", 0)
             snap = {
                 "submitted": c.get("submitted", 0),
                 "completed": c.get("completed", 0),
@@ -741,6 +1151,25 @@ class GenerationEngine(object):
                 "host_logit_syncs": c.get("host_logit_syncs", 0),
                 "page_release_rate": self.pool.release_rate(),
                 "device": str(self.device),
+                "prefix_sharing": self._prefix is not None,
+                "prefix_degraded": self._prefix_degraded,
+                "prefix_hits": c.get("prefix_hits", 0),
+                "prefix_hit_requests": c.get("prefix_hit_requests", 0),
+                "prefix_published": c.get("prefix_published", 0),
+                "cow_copies": c.get("cow_copies", 0),
+                "prefix_cache": (self._prefix.stats()
+                                 if self._prefix is not None else None),
+                "speculative": self._spec is not None,
+                "spec_k": self.spec_k,
+                "spec_degraded": self._spec_degraded,
+                "spec_steps": c.get("spec_steps", 0),
+                "draft_tokens": drafted,
+                "accepted_tokens": c.get("accepted_tokens", 0),
+                "acceptance_rate": (c.get("accepted_tokens", 0)
+                                    / float(drafted) if drafted else 0.0),
+                "draft_page_utilization": (
+                    self._spec.pool.utilization()
+                    if self._spec is not None else None),
             }
         snap["shed"] = (snap["shed_overload"] + snap["shed_deadline"]
                         + snap["shed_pool"])

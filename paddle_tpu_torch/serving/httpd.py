@@ -8,7 +8,8 @@ method path                             body / response
 POST   ``/v1/models/<name>:generate``   ``{"tokens": [ids],
                                         "max_new_tokens": N,
                                         "temperature": t, "seed": s,
-                                        "deadline_ms": optional}`` ->
+                                        "deadline_ms": optional,
+                                        "spec_k": optional}`` ->
                                         ``{"model": name, "version": v,
                                         "tokens": [...],
                                         "finish_reason": ...,
@@ -16,6 +17,9 @@ POST   ``/v1/models/<name>:generate``   ``{"tokens": [ids],
 GET    ``/healthz``                     liveness, models, readiness
 GET    ``/statz``                       ``InferenceService.stats``
 ====== ================================ ===================================
+
+``spec_k`` caps the request's speculation depth on a speculative engine
+(0: plain decode); other engines ignore it.
 
 Errors: 429 overload and kv-pool exhaustion (with a ``Retry-After``
 header and a ``retry_after_ms`` body field), 504 deadline, 404 unknown
@@ -121,12 +125,14 @@ class _Handler(BaseHTTPRequestHandler):
             if not isinstance(tokens, list) or not tokens:
                 raise ValueError('body must carry {"tokens": '
                                  "[token ids]}")
+            spec_k = body.get("spec_k")
             req = self.service.generate_async(
                 name, tokens,
                 max_new_tokens=int(body.get("max_new_tokens", 16)),
                 temperature=float(body.get("temperature", 0.0)),
                 seed=int(body.get("seed", 0)),
-                deadline_ms=body.get("deadline_ms"))
+                deadline_ms=body.get("deadline_ms"),
+                spec_k=None if spec_k is None else int(spec_k))
             res = req.wait()
         except ModelUnavailableError as e:
             return self._reply(404, {"error": str(e),

@@ -89,9 +89,21 @@ class InferenceService(object):
         """Load the generative artifact ``dirname`` onto ``device`` and
         stand its engine up under ``name``; ``engine_kwargs``
         (max_running, kv_pages, ...) go to the engine. A name already
-        served is replaced: the previous engine drains, then closes."""
-        from ..inference import load_generative
-        model = load_generative(dirname, device=device)
+        served is replaced: the previous engine drains, then closes.
+
+        A speculative pairing (``inference.export_speculative``) pairs
+        itself: its draft and k go to the engine, unless the caller
+        passed ``draft_model`` (an explicit ``spec_k`` still wins over
+        the pairing's k)."""
+        from ..inference import (is_speculative_artifact, load_generative,
+                                 load_speculative)
+        if is_speculative_artifact(dirname) and \
+                "draft_model" not in engine_kwargs:
+            model, draft, spec_k = load_speculative(dirname, device=device)
+            engine_kwargs["draft_model"] = draft
+            engine_kwargs.setdefault("spec_k", spec_k)
+        else:
+            model = load_generative(dirname, device=device)
         return self._publish(name, dirname, model, warm, engine_kwargs)
 
     def register_generative(self, name, model, warm=False,
@@ -172,16 +184,20 @@ class InferenceService(object):
 
     # -- request path --------------------------------------------------------
     def generate_async(self, name, tokens, max_new_tokens=16,
-                       temperature=0.0, seed=0, deadline_ms=None):
+                       temperature=0.0, seed=0, deadline_ms=None,
+                       spec_k=None):
         """Queue one generation on ``name``'s engine; returns its
         :class:`~paddle_tpu_torch.serving.generator.GenRequest` (``.wait()``
         for the result). Sheds raise now (OverloadError, PoolExhausted).
-        The handle's ``model_version`` is the version that took it."""
+        The handle's ``model_version`` is the version that took it.
+        ``spec_k`` caps the request's speculation depth on a speculative
+        engine (0: plain decode)."""
         entry = self._gen_entry(name)
         try:
             req = entry.engine.submit(
                 tokens, max_new_tokens=max_new_tokens,
-                temperature=temperature, seed=seed, deadline_ms=deadline_ms)
+                temperature=temperature, seed=seed, deadline_ms=deadline_ms,
+                spec_k=spec_k)
         except ServingError as e:
             if not entry.engine.draining:
                 raise
@@ -192,16 +208,17 @@ class InferenceService(object):
                 raise e
             req = entry.engine.submit(
                 tokens, max_new_tokens=max_new_tokens,
-                temperature=temperature, seed=seed, deadline_ms=deadline_ms)
+                temperature=temperature, seed=seed, deadline_ms=deadline_ms,
+                spec_k=spec_k)
         req.model_version = entry.version
         return req
 
     def generate(self, name, tokens, max_new_tokens=16, temperature=0.0,
-                 seed=0, deadline_ms=None, timeout=None):
+                 seed=0, deadline_ms=None, timeout=None, spec_k=None):
         """Blocking generation -> GenResult."""
         return self.generate_async(name, tokens, max_new_tokens,
-                                   temperature, seed,
-                                   deadline_ms).wait(timeout)
+                                   temperature, seed, deadline_ms,
+                                   spec_k=spec_k).wait(timeout)
 
     # -- metrics -------------------------------------------------------------
     @property

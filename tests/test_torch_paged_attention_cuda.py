@@ -142,3 +142,30 @@ def test_kernel_refuses_a_misaligned_query(cuda_device):
     q.copy_(ops[0])
     with pytest.raises(ValueError, match="16-byte aligned"):
         tpa.paged_attention(q, *ops[1:])
+
+
+@pytest.mark.cuda
+def test_kwide_face_launches_the_kernel_once_on_flattened_rows(cuda_device):
+    # the verify step's shape at small widths: R rows of K1 lanes at
+    # consecutive positions, the last row's lanes running past the table
+    R, K1, pages, MB, T, nh, dh = 4, 5, 40, 8, 16, 4, 64
+    rng = np.random.RandomState(33)
+    q = rng.randn(R, K1, nh, dh).astype(np.float32)
+    kp = rng.randn(pages + 1, T, nh, dh).astype(np.float32)
+    vp = rng.randn(pages + 1, T, nh, dh).astype(np.float32)
+    tables = rng.randint(0, pages, (R, MB)).astype(np.int32)
+    start = np.array([0, T - 1, 37, MB * T - 3])
+    positions = (start[:, None] + np.arange(K1)).astype(np.int32)
+    ops = [torch.from_numpy(a).to(cuda_device)
+           for a in (q, kp, vp, tables, positions)]
+    before = tpa.launches
+    got = tpa.paged_attention_kwide(*ops)
+    again = tpa.paged_attention_kwide(*ops)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 2
+    assert torch.equal(got, again)
+    want = tpa.paged_attention_kwide_reference(*ops)
+    assert got.shape == (R, K1, nh, dh) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= TOL
+    with pytest.raises(ValueError):           # int64 positions: refused
+        tpa.paged_attention_kwide(*ops[:4], ops[4].long())
