@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of paddle_tpu_torch on one NVIDIA card (an H100).
 
-Drives the port's generative serving path (plain, speculative and
-prefix-shared) and its Fluid training path
+Drives the port's generative serving path (plain, speculative,
+prefix-shared and disaggregated) and its Fluid training path
 at the widths of GPT-2 small, its conv-net training path on ImageNet
 ResNet-50, its sequence training path on the stacked-RNN text
 classifier of ``benchmark/rnn_bench.py``, its autotune path (the
@@ -194,7 +194,29 @@ Phases, in order; any failure exits non-zero at once:
    requests sharing a 512-token prefix (tails of 16 to 64), queued
    before admission, with prefix sharing off and on: tokens identical,
    prefix hits, a lower peak of live pages; tokens/s, inter-token p50
-   and acceptance of each engine beside phase 3's plain engine.
+   and acceptance of each engine beside phase 3's plain engine;
+11. disaggregated: two ``InferenceService``s in this process,
+   ``tier="prefill"`` and ``tier="decode"``, each behind its own server
+   at phase 3's geometry; POST phase 3's 16 prompts to ``:prefill`` (32
+   new tokens, greedy), then all 16 artifacts at once to ``:decode``:
+   the prefill tier launches exactly L x 16 flash forwards and no paged
+   attention, the decode tier L paged launches a decode step and no
+   flash forward, 16 handoff installs and no prefill, no
+   ``handoff_failed`` event, the tokens phase 3's (a divergence only
+   where the plain step's top-two margin is within ``LOGIT_TOL``), and
+   the longest request's installed pages, read back through its block
+   table, the artifact's bytes exactly; 4 tempered requests with
+   distinct seeds through both hops equal to the same 4 through the
+   decode tier's ``:generate``; ``serving.ship`` armed for 2 handoffs
+   (``decode_handoff`` in process): 2 ``handoff_failed`` events, 2
+   prefills and L x 2 flash forwards on the decode tier, the tokens
+   phase 3's; ``python -m paddle_tpu_torch serve --tier prefill`` as a
+   subprocess: its readiness line and ``/statz`` say the tier, one
+   ``:prefill`` answer decodes in this process's decode tier to phase
+   3's tokens, SIGTERM exits 0; PT034: the artifact validates against
+   the card's memory and fails at a 0.5 GB budget. It prints the
+   artifacts' bytes, the ms of each hop's pieces and the two-hop TTFT
+   beside the single-hop one, and the decode tier's tokens/s.
 
 Each phase prints its wall time. Before phase 1 the tune cache is set
 to a fresh, empty directory under ``build/`` (printed), so that no
@@ -219,6 +241,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -1305,12 +1328,22 @@ def phase_engine(dev, art_dir):
 
 # -- phase 4 -----------------------------------------------------------------
 
-def _post(base, body, timeout=600):
+def _post(base, body, timeout=600, route="generate"):
+    """POST ``body`` (a dict, or JSON already encoded) to
+    ``/v1/models/gpt2:<route>``; returns (status, answer)."""
+    data = body if isinstance(body, bytes) else json.dumps(body).encode()
     req = urllib.request.Request(
-        base + "/v1/models/gpt2:generate", data=json.dumps(body).encode(),
+        base + "/v1/models/gpt2:" + route, data=data,
         headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=timeout) as r:
         return r.status, json.loads(r.read())
+
+
+def _client_ttft_ms(wall_ms, answer):
+    """Client-side ms from a POST to its engine's first sampled token:
+    the POST's wall time less what the answer says the engine spent
+    after that token (``latency_ms - ttft_ms``)."""
+    return wall_ms - (answer["latency_ms"] - answer["ttft_ms"])
 
 
 def phase_http(dev, art_dir, prompts, results):
@@ -1335,13 +1368,19 @@ def phase_http(dev, art_dir, prompts, results):
     def client():
         try:
             for j in (0, 1):
+                t0 = time.monotonic()
                 code, out = _post(base, {"tokens": [int(t) for t in
                                                     prompts[j]],
                                          "max_new_tokens": 32})
+                wall_ms = (time.monotonic() - t0) * 1e3
                 if code != 200 or out["tokens"] != results[j].tokens:
                     outcome["errors"].append(
                         "POST %d answered %d with tokens that differ from "
                         "the engine's" % (j, code))
+                    continue
+                outcome.setdefault("ttft_ms", []).append(out["ttft_ms"])
+                outcome.setdefault("client_ttft_ms", []).append(
+                    _client_ttft_ms(wall_ms, out))
             t = threading.Thread(target=inflight_post, daemon=True)
             t.start()
             in_flight["thread"] = t
@@ -1374,10 +1413,13 @@ def phase_http(dev, art_dir, prompts, results):
             ans[1]["tokens"] != results[2].tokens:
         fail("the request in flight at SIGTERM was not drained: %r"
              % (in_flight.get("error") or ans,))
-    log(json.dumps({"http": {"posts": 3, "signal": "SIGTERM",
-                             "running_at_signal":
-                                 outcome["running_at_signal"],
-                             "drained_tokens": len(ans[1]["tokens"])}}))
+    ttft = {"ttft_ms": outcome["ttft_ms"],
+            "client_ttft_ms": outcome["client_ttft_ms"]}
+    log(json.dumps({"http": dict(ttft, posts=3, signal="SIGTERM",
+                                 running_at_signal=outcome[
+                                     "running_at_signal"],
+                                 drained_tokens=len(ans[1]["tokens"]))}))
+    return ttft
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -5008,6 +5050,444 @@ def phase_speculative(dev, root, art_dir, prompts, results, plain):
     return paths
 
 
+# -- phase 11 -----------------------------------------------------------------
+
+def _near_tie(label, model, prompt, want, got):
+    """None when ``got`` equals ``want``; else the first divergence, which
+    is admitted only where the plain full forward's top-two logit margin
+    over prompt + ``want`` is within LOGIT_TOL (printed either way)."""
+    if list(got) == list(want):
+        return None
+    t = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+             min(len(want), len(got)))
+    if t >= min(len(want), len(got)):
+        fail("%s: %d tokens where %d were expected"
+             % (label, len(got), len(want)))
+    margin = float(_plain_margins(
+        model, [prompt], [types.SimpleNamespace(tokens=list(want))])[0][t])
+    log("%s diverges at step %d, the plain step's top-two logit margin "
+        "there %g" % (label, t, margin))
+    if not margin <= LOGIT_TOL:
+        fail("%s diverges at step %d where the plain step's top-two "
+             "margin %g is past LOGIT_TOL %g" % (label, t, margin,
+                                                 LOGIT_TOL))
+    return {"request": label, "step": t, "plain_top2_margin": margin}
+
+
+def _pcts(values):
+    v = np.asarray(values, np.float64)
+    return {"p50": float(np.percentile(v, 50)),
+            "p99": float(np.percentile(v, 99)), "n": int(v.size)}
+
+
+def _tier_servers(dev, art_dir):
+    """A prefill-class and a decode-class InferenceService over phase 3's
+    artifact at its geometry, each behind its own server on port 0:
+    ({tier: (service, base URL)}, stop)."""
+    from paddle_tpu_torch.serving import InferenceService, make_server
+    tiers, servers = {}, []
+
+    def stop():
+        for srv, svc in servers:
+            srv.shutdown()
+            srv.server_close()
+            svc.close()
+
+    try:
+        for tier in ("prefill", "decode"):
+            svc = InferenceService(tier=tier)
+            servers.append((None, svc))
+            svc.load_model("gpt2", art_dir, device=dev, max_running=16,
+                           kv_pages=1024, page_tokens=16)
+            srv = make_server(svc, host="127.0.0.1", port=0)
+            servers[-1] = (srv, svc)
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            tiers[tier] = (svc, "http://127.0.0.1:%d"
+                           % srv.server_address[1])
+    except BaseException:
+        for srv, svc in servers:
+            if srv is not None:
+                srv.server_close()
+            svc.close()
+        raise
+    return tiers, stop
+
+
+def _install_spy(engine, readback_prompt=None):
+    """Wrap the engine's install: time each (device synchronized around
+    it), stamp its end on the monotonic clock, and read the pages of the
+    request whose prompt is ``readback_prompt`` back through its block
+    table right after its install, before it can retire. Returns
+    (install ms, end stamps, readback dict, restore)."""
+    orig = engine._install_handoff
+    install_ms, ends, readback = [], [], {}
+
+    def install(table, artifact):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        orig(table, artifact)
+        torch.cuda.synchronize()
+        ends.append(time.monotonic())
+        install_ms.append((ends[-1] - t0) * 1e3)
+        if artifact.prompt == readback_prompt and not readback:
+            ids = torch.as_tensor(table.pages[:artifact.pages],
+                                  dtype=torch.int64, device=engine.device)
+            readback.update(k=engine._kp[:, ids].cpu().numpy(),
+                            v=engine._vp[:, ids].cpu().numpy(),
+                            artifact=artifact)
+
+    def restore():
+        del engine._install_handoff
+
+    engine._install_handoff = install
+    return install_ms, ends, readback, restore
+
+
+def _disagg_greedy(tiers, model, prompts, results, L):
+    """The greedy leg: phase 3's prompts through :prefill one after
+    another, then every artifact to :decode at once; the gates of both
+    tiers. Returns (metrics, prefill launches, decode launches,
+    artifacts)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.resilience import events
+    from paddle_tpu_torch.serving import HandoffArtifact
+    pre_base = tiers["prefill"][1]
+    dec_svc, dec_base = tiers["decode"]
+    engine = dec_svc._gen_entry("gpt2").engine
+    events.clear_events()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    payloads, hop_ms = [], []
+    for pr in prompts:
+        t0 = time.monotonic()
+        code, ans = _post(pre_base, {"tokens": [int(t) for t in pr],
+                                     "max_new_tokens": 32},
+                          route="prefill")
+        hop_ms.append((time.monotonic() - t0) * 1e3)
+        if code != 200:
+            fail(":prefill answered %d: %s" % (code, ans))
+        payloads.append(ans["artifact"])
+    torch.cuda.synchronize()
+    pre_launches = kernels.launch_counts()
+    want = dict(_no_launches(), flash_attention_fwd=L * len(prompts))
+    if pre_launches != want:
+        fail("prefill tier launches %s, expected %s"
+             % (pre_launches, want))
+    # what the servers do to each artifact, timed here on the same
+    # bodies: the decode side's parse, the prefill side's encode
+    bodies = [json.dumps({"artifact": p}).encode() for p in payloads]
+    del payloads
+    parse_ms, encode_ms, arts = [], [], []
+    for b in bodies:
+        t0 = time.monotonic()
+        art = HandoffArtifact.from_payload(json.loads(b)["artifact"])
+        parse_ms.append((time.monotonic() - t0) * 1e3)
+        t0 = time.monotonic()
+        json.dumps({"model": "gpt2", "artifact": art.to_payload()})
+        encode_ms.append((time.monotonic() - t0) * 1e3)
+        arts.append(art)
+    check = int(np.argmax([len(p) for p in prompts]))
+    install_ms, _, readback, restore = _install_spy(
+        engine, [int(t) for t in prompts[check]])
+    answers = [None] * len(bodies)
+
+    def post(j):
+        try:
+            answers[j] = _post(dec_base, bodies[j], route="decode")
+        except Exception as e:          # reported below
+            answers[j] = (None, repr(e))
+
+    st0 = engine.stats
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    try:
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=post, args=(j,))
+                   for j in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        decode_wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        dec_launches = kernels.launch_counts()
+        st = engine.stats
+    finally:
+        restore()
+    steps = st["decode_steps"] - st0["decode_steps"]
+    installs = st["handoff_installs"] - st0["handoff_installs"]
+    prefills = st["prefills"] - st0["prefills"]
+    failed = [e for e in events.events() if e["kind"] == "handoff_failed"]
+    want = dict(_no_launches(), paged_attention=L * steps)
+    if dec_launches != want or steps < 31:
+        fail("decode tier launches %s, expected %s (%d decode steps)"
+             % (dec_launches, want, steps))
+    if installs != len(prompts) or prefills or failed:
+        fail("decode tier: %d handoff installs, %d prefills, "
+             "handoff_failed %s" % (installs, prefills, failed))
+    diverged = []
+    for j, (code, ans) in enumerate(answers):
+        if code != 200:
+            fail(":decode of request %d answered %s: %s" % (j, code, ans))
+        d = _near_tie("disagg greedy request %d" % j, model, prompts[j],
+                      results[j].tokens, ans["tokens"])
+        if d:
+            diverged.append(d)
+    ra = readback.get("artifact")
+    if ra is None or not (np.array_equal(readback["k"], ra.k_pages)
+                          and np.array_equal(readback["v"], ra.v_pages)):
+        fail("the installed pages of request %d differ from its "
+             "artifact's bytes" % check)
+    kv = [a.kv_bytes for a in arts]
+    generated = st["tokens_generated"] - st0["tokens_generated"]
+    # the engine thread's time in installs and steps (device time and
+    # its host bookkeeping), without the uploads and parses
+    busy = st["busy_s"] - st0["busy_s"]
+    metrics = {
+        "requests": len(prompts), "new_tokens_each": 32,
+        "artifact_kv_bytes": {"p50": float(np.percentile(kv, 50)),
+                              "max": int(max(kv)), "total": int(sum(kv))},
+        "payload_body_bytes": {"p50": float(np.percentile(
+            [len(b) for b in bodies], 50)),
+            "max": max(len(b) for b in bodies),
+            "total": sum(len(b) for b in bodies)},
+        "decode_body_limit": dec_svc.handoff_body_limit("gpt2"),
+        "prefill_hop_ms": _pcts(hop_ms),
+        "to_payload_and_json_ms": _pcts(encode_ms),
+        "decode_parse_ms": _pcts(parse_ms),
+        "decode_install_ms": _pcts(install_ms),
+        "decode_parse_and_install_ms": _pcts(
+            [a + b for a, b in zip(parse_ms, install_ms)]),
+        "decode_wall_s": decode_wall,
+        "decode_tier_tokens_generated": generated,
+        "decode_tier_tokens_per_s": generated / decode_wall,
+        "decode_tier_busy_s": busy,
+        "decode_tier_tokens_per_busy_s": generated / busy,
+        "decode_steps": steps, "handoff_installs": installs,
+        "readback_request": check,
+        "readback_pages": int(readback["artifact"].pages),
+        "diverged_requests": len(diverged), "divergences": diverged}
+    return metrics, pre_launches, dec_launches, arts
+
+
+def _few(values):
+    """Each value of a leg of a few requests, their median and n (no
+    tail: a p99 of 4 samples is their maximum)."""
+    return {"values": [float(v) for v in values],
+            "p50": float(np.percentile(values, 50)), "n": len(values)}
+
+
+def _disagg_seeded(tiers, model, prompts):
+    """4 tempered requests (distinct seeds) through both hops, one after
+    another, and the same 4 through the decode tier's :generate: tokens
+    equal, and the client's times of each path.
+
+    A handoff's first token is sampled on the prefill tier, so the
+    decode engine's ``ttft_ms`` stamps the second token. The two-hop
+    TTFT is therefore the :prefill POST's wall time plus the time from
+    the :decode POST to the end of the row's install (upload, parse,
+    queue, install: the point from which the decode tier owns the
+    request); the time to the second token is reported beside it, with
+    the one-hop TTFT of :generate."""
+    from paddle_tpu_torch.resilience import events
+    pre_base, dec_base = tiers["prefill"][1], tiers["decode"][1]
+    engine = tiers["decode"][0]._gen_entry("gpt2").engine
+    events.clear_events()
+    two_hop, second, one_hop, diverged = [], [], [], []
+    _, ends, _, restore = _install_spy(engine)
+    try:
+        for j in range(4):
+            body = {"tokens": [int(t) for t in prompts[j]],
+                    "max_new_tokens": 32,
+                    "temperature": SPEC_TEMPERATURE, "seed": 300 + j}
+            t0 = time.monotonic()
+            code, pre = _post(pre_base, body, route="prefill")
+            pre_ms = (time.monotonic() - t0) * 1e3
+            if code != 200:
+                fail("seeded :prefill %d answered %d" % (j, code))
+            t0 = time.monotonic()
+            code, hop = _post(dec_base, {"artifact": pre["artifact"]},
+                              route="decode")
+            dec_ms = (time.monotonic() - t0) * 1e3
+            if code != 200 or len(ends) != j + 1:
+                fail("seeded :decode %d answered %d after %d installs"
+                     % (j, code, len(ends)))
+            two_hop.append(pre_ms + (ends[j] - t0) * 1e3)
+            second.append(pre_ms + _client_ttft_ms(dec_ms, hop))
+            t0 = time.monotonic()
+            code, gen = _post(dec_base, body)
+            gen_ms = (time.monotonic() - t0) * 1e3
+            if code != 200:
+                fail("seeded :generate %d answered %d" % (j, code))
+            one_hop.append(_client_ttft_ms(gen_ms, gen))
+            d = _near_tie("disagg seeded request %d" % j, model,
+                          prompts[j], gen["tokens"], hop["tokens"])
+            if d:
+                diverged.append(d)
+    finally:
+        restore()
+    failed = [e for e in events.events() if e["kind"] == "handoff_failed"]
+    if failed:
+        fail("seeded leg: handoff_failed %s" % failed)
+    return {"requests": 4, "temperature": SPEC_TEMPERATURE,
+            "two_hop_ttft_ms": _few(two_hop),
+            "two_hop_second_token_ms": _few(second),
+            "one_hop_ttft_ms": _few(one_hop),
+            "diverged_requests": len(diverged), "divergences": diverged}
+
+
+def _disagg_fault(tiers, model, prompts, results, arts, L):
+    """``serving.ship`` armed for 2 handoffs through decode_handoff in
+    process: both prefill again on the decode tier, recorded."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.resilience import events, faults
+    dec_svc = tiers["decode"][0]
+    engine = dec_svc._gen_entry("gpt2").engine
+    picks = [int(j) for j in np.argsort([len(p) for p in prompts])[:2]]
+    events.clear_events()
+    st0 = engine.stats
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    faults.arm("serving.ship", "raise", nth=1, times=2)
+    try:
+        got = [dec_svc.decode_handoff("gpt2", arts[j], timeout=600)
+               for j in picks]
+    finally:
+        faults.disarm("serving.ship")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    st = engine.stats
+    failed = [e for e in events.events() if e["kind"] == "handoff_failed"]
+    prefills = st["prefills"] - st0["prefills"]
+    steps = st["decode_steps"] - st0["decode_steps"]
+    want = dict(_no_launches(), flash_attention_fwd=L * 2,
+                paged_attention=L * steps)
+    if len(failed) != 2 or prefills != 2 or launches != want or \
+            st["handoff_installs"] != st0["handoff_installs"]:
+        fail("armed serving.ship: %d handoff_failed, %d prefills, "
+             "launches %s (expected %s)"
+             % (len(failed), prefills, launches, want))
+    for j, res in zip(picks, got):
+        _near_tie("disagg re-prefilled request %d" % j, model, prompts[j],
+                  results[j].tokens, res.tokens)
+    return {"armed_handoffs": 2, "handoff_failed": len(failed),
+            "reprefills": prefills, "requests": picks}
+
+
+def _disagg_cli(root, art_dir, tiers, model, prompts, results):
+    """``serve --tier prefill`` as a subprocess: readiness line and /statz
+    carry the tier, one :prefill answer decodes in this process's decode
+    tier to phase 3's tokens, SIGTERM exits 0."""
+    err_path = os.path.join(os.path.dirname(art_dir), "serve_tier.err")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch", "serve", art_dir,
+           "--tier", "prefill", "--port", "0", "--device", "cuda",
+           "--name", "gpt2", "--max_running", "16", "--kv_pages", "1024",
+           "--page_tokens", "16"]
+    t0 = time.monotonic()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                stderr=err, text=True,
+                                env=dict(os.environ, PYTHONPATH=root))
+    killer = threading.Timer(600, proc.kill)
+    killer.start()
+    try:
+        line = proc.stdout.readline()
+        try:
+            ready = json.loads(line)["serving"]
+        except ValueError:
+            fail("serve --tier prefill printed %r; stderr: %s"
+                 % (line, open(err_path).read()[-4000:]))
+        ready_s = time.monotonic() - t0
+        base = "http://%s:%d" % (ready["host"], ready["port"])
+        with urllib.request.urlopen(base + "/statz", timeout=60) as r:
+            statz_tier = json.loads(r.read())["tier"]
+        if ready.get("tier") != "prefill" or statz_tier != "prefill":
+            fail("serve --tier prefill: readiness tier %r, /statz tier %r"
+                 % (ready.get("tier"), statz_tier))
+        code, pre = _post(base, {"tokens": [int(t) for t in prompts[0]],
+                                 "max_new_tokens": 32}, route="prefill")
+        if code != 200:
+            fail("the CLI's :prefill answered %d" % code)
+        res = tiers["decode"][0].decode_handoff("gpt2", pre["artifact"],
+                                                timeout=600)
+        _near_tie("disagg CLI request 0", model, prompts[0],
+                  results[0].tokens, res.tokens)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        fail("serve --tier prefill exited %d after SIGTERM: %s"
+             % (proc.returncode, open(err_path).read()[-4000:]))
+    stopped = json.loads(out.strip().splitlines()[-1])["serving_stopped"]
+    return {"ready_s": ready_s, "tier": ready["tier"],
+            "exit_code": proc.returncode,
+            "prefills": stopped["stats"]["prefill"]["gpt2"]["prefills"]}
+
+
+def _disagg_pt034(dev, art_dir, peak_bytes):
+    """PT034 on the card: the artifact passes against the card's memory
+    with no flag, and fails at a 0.5 GB budget."""
+    from paddle_tpu_torch.analysis import memory as mem
+    from paddle_tpu_torch.flags import FLAGS
+    from paddle_tpu_torch.inference import generative_memory_bytes, \
+        validate_generative_artifact
+    geo = dict(kv_pages=1024, page_tokens=16)
+    prev = FLAGS.memory_budget_gb
+    try:
+        FLAGS.memory_budget_gb = 0.0
+        budget = mem.resolve_budget_bytes(device=dev)
+        loose = validate_generative_artifact(art_dir, **geo)
+        FLAGS.memory_budget_gb = 0.5
+        tight = validate_generative_artifact(art_dir, **geo)
+    finally:
+        FLAGS.memory_budget_gb = prev
+    if not budget or loose:
+        fail("PT034 against the card's memory (%s bytes): %s"
+             % (budget, loose))
+    if len(tight) != 1 or not tight[0].startswith("PT034 error"):
+        fail("PT034 at a 0.5 GB budget: %s" % tight)
+    log(tight[0])
+    return {"card_budget_bytes": budget,
+            "generative_memory_bytes": generative_memory_bytes(art_dir,
+                                                               **geo),
+            "phase3_peak_memory_bytes": peak_bytes,
+            "problem_at_0_5_gb": tight[0]}
+
+
+def phase_disagg(dev, root, art_dir, prompts, results, plain, http):
+    """Phase 11: disaggregated serving, a prefill tier and a decode tier
+    over phase 3's artifact, through the HTTP routes, the service, the
+    ``serve --tier`` verb and the PT034 check."""
+    from paddle_tpu_torch.models import transformer as tt
+    L = tt.TransformerConfig(**GPT2_SMALL).num_layers
+    tiers, stop = _tier_servers(dev, art_dir)
+    try:
+        model = tiers["decode"][0]._gen_entry("gpt2").engine.model
+        greedy, pre_l, dec_l, arts = _disagg_greedy(tiers, model, prompts,
+                                                    results, L)
+        seeded = _disagg_seeded(tiers, model, prompts)
+        fault = _disagg_fault(tiers, model, prompts, results, arts, L)
+        del arts
+        cli = _disagg_cli(root, art_dir, tiers, model, prompts, results)
+        prefill_stats = tiers["prefill"][0].stats["prefill"]["gpt2"]
+    finally:
+        stop()
+    out = {"card": card_line(), "greedy": greedy, "seeded": seeded,
+           "fault": fault, "cli": cli, "prefill_engine": prefill_stats,
+           "pt034": _disagg_pt034(dev, art_dir,
+                                  plain["peak_memory_bytes"]),
+           "single_hop": {"phase3_ttft_ms_p50": plain["ttft_ms_p50"],
+                          "phase3_tokens_per_s": plain["tokens_per_s"],
+                          "phase4_ttft_ms": http["ttft_ms"],
+                          "phase4_client_ttft_ms": http["client_ttft_ms"]}}
+    log(json.dumps({"disaggregated": out}))
+    return {"disagg_prefill": pre_l, "disagg_decode": dec_l}
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -5042,7 +5522,7 @@ def main():
     kernels = timed(2, phase_kernels, dev)
     prompts, results, serve_launches, plain_serving = timed(
         3, phase_engine, dev, art_dir)
-    timed(4, phase_http, dev, art_dir, prompts, results)
+    http = timed(4, phase_http, dev, art_dir, prompts, results)
     train5 = timed(5, phase_train, dev, os.path.join(
         root, "build", "chip_smoke", "gpt2_small_trained"))
     conv_kernels, (convnet_launches, f32_images_s) = timed(
@@ -5060,8 +5540,10 @@ def main():
     kernels.update(amp_kernels)
     spec_paths = timed(10, phase_speculative, dev, root, art_dir, prompts,
                        results, plain_serving)
+    disagg_paths = timed(11, phase_disagg, dev, root, art_dir, prompts,
+                         results, plain_serving, http)
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
-    paths = {"serve": serve_launches, **spec_paths,
+    paths = {"serve": serve_launches, **spec_paths, **disagg_paths,
              "train": train5["launches"],
              "convnet_train": convnet_launches,
              "rnn_train_lstm": lstm_launches,

@@ -7,9 +7,11 @@ are ported, the serving path, three training paths and the autotune
 path, over shared kernels, with AMP on the training paths:
 
 - the generative serving path: ``models/transformer.py``'s serving face,
-  ``serving/`` (paged KV pool, continuous-batching engine, service and
-  the ``:generate`` HTTP endpoint), ``inference.py`` (the generative
-  artifact, the JAX package's format);
+  ``serving/`` (paged KV pool, continuous-batching engine, disaggregated
+  prefill and decode tiers, service and the ``:generate`` /
+  ``:prefill`` / ``:decode`` HTTP endpoint), ``inference.py`` (the
+  generative artifact, the JAX package's format) and
+  ``analysis/memory.py`` (its PT034 memory-budget check);
 - the Fluid training path: ``core/`` (Program IR, registry, scope, the
   per-op ``Executor``, ``append_backward``), ``layers/``, ``ops/`` (the
   lowerings of the transformer LM's training step), ``optimizer.py``

@@ -13,15 +13,21 @@ end of each pass.
 
     python -m paddle_tpu_torch serve <artifact_dir> --port 0 [--device cuda]
         [--draft_dir DIR] [--spec_k K] [--prefix_sharing]
+        [--tier prefill|decode]
 
 validates the artifact (exit 1 with the problems on a bad one; a
-``--draft_dir`` that is not a generative artifact is refused too), loads
+``--draft_dir`` that is not a generative artifact is refused too), with
+the PT034 check of the pool the run would allocate (``--kv_pages`` x
+``--page_tokens``) plus the weights against the card's memory or
+``FLAGS.memory_budget_gb``, each model alone and the target and its
+``--draft_dir`` draft together, loads
 it onto the device (a speculative pairing with its draft; ``--draft_dir``
 pairs the artifact with that draft, at ``--spec_k`` or
 ``FLAGS.serve_spec_k``), warms the engine, prints one JSON readiness line
 ``{"serving": {"host", "port", ...}}`` (``--port 0`` binds a free port
-and this line names it), and serves ``POST /v1/models/<name>:generate``
-until SIGTERM or SIGINT. Then it drains in-flight generations, prints
+and this line names it; ``tier`` when ``--tier`` is set), and serves
+``POST /v1/models/<name>:generate``, ``:prefill`` and ``:decode`` until
+SIGTERM or SIGINT. Then it drains in-flight generations, prints
 ``{"serving_stopped": {"signal", "stats"}}`` and exits 0.
 
     python -m paddle_tpu_torch tune <config.py> [--device cuda|cpu]
@@ -76,32 +82,67 @@ def cmd_train(args):
     return 0
 
 
-def _artifact_problems(dirname, role):
-    """Problems of ``dirname`` as a generative artifact to serve."""
+def _validate_artifacts(artifact_dir, draft_dir, kv_pages, page_tokens,
+                        budget):
+    """The JAX verb's up-front check: print the problems of the artifact
+    and of a ``--draft_dir`` draft (PT034 at this run's pool geometry
+    against ``budget`` included) and return False on a bad one; then,
+    with a draft, the aggregate: the two load into one process, so each
+    fitting alone proves nothing."""
     from . import inference
-    problems = inference.validate_generative_artifact(dirname)
-    if not problems and not inference.is_generative_artifact(dirname):
-        problems = ["not a generative artifact (no %s)%s"
-                    % (inference.GEN_CONFIG_FILE,
-                       "; speculation drafts are export_generative "
-                       "directories" if role == "--draft_dir" else "")]
-    return problems
-
-
-def cmd_serve(args):
-    from . import inference, serving
-    from .flags import FLAGS
-    draft_dir = args.draft_dir or FLAGS.serve_draft_dir or None
-    for role, dirname in (("artifact", args.artifact_dir),
+    from .analysis import memory as memory_mod
+    total, labels = 0, []
+    for role, dirname in (("artifact", artifact_dir),
                           ("--draft_dir", draft_dir)):
-        problems = _artifact_problems(dirname, role) if dirname else []
+        if not dirname:
+            continue
+        problems = inference.validate_generative_artifact(
+            dirname, kv_pages=kv_pages, page_tokens=page_tokens,
+            budget_bytes=budget, check_pool=bool(budget))
+        if not problems and not inference.is_generative_artifact(dirname):
+            problems = ["not a generative artifact (no %s)%s"
+                        % (inference.GEN_CONFIG_FILE,
+                           "; speculation drafts are export_generative "
+                           "directories" if role == "--draft_dir" else "")]
         if problems:
             print("serve: cannot serve %s %r:" % (role, dirname),
                   file=sys.stderr)
             for p in problems:
                 print("  - " + p, file=sys.stderr)
-            return 1
-    service = serving.InferenceService(queue_depth=args.queue_depth or None)
+            return False
+        nb = inference.generative_memory_bytes(
+            dirname, kv_pages=kv_pages, page_tokens=page_tokens)
+        if budget and nb is not None:
+            total += nb
+            labels.append("%s=%s" % (role, memory_mod.fmt_bytes(nb)))
+    if budget and len(labels) > 1 and total > budget:
+        print("serve: cannot serve: PT034 the co-hosted generative models "
+              "need %s together (%s) on a %s budget — each fits alone, "
+              "one process loads them all"
+              % (memory_mod.fmt_bytes(total), ", ".join(labels),
+                 memory_mod.fmt_bytes(budget)), file=sys.stderr)
+        return False
+    return True
+
+
+def cmd_serve(args):
+    from . import inference, serving
+    from .analysis import memory as memory_mod
+    from .device import resolve_device
+    from .flags import FLAGS
+    draft_dir = args.draft_dir or FLAGS.serve_draft_dir or None
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        print("serve: %s" % e, file=sys.stderr)
+        return 1
+    budget = memory_mod.resolve_budget_bytes(device=device)
+    if not _validate_artifacts(args.artifact_dir, draft_dir,
+                               args.kv_pages or None,
+                               args.page_tokens or None, budget):
+        return 1
+    service = serving.InferenceService(queue_depth=args.queue_depth or None,
+                                       tier=args.tier or None)
     knobs = {k: getattr(args, k) for k in ("max_running", "kv_pages",
                                            "page_tokens", "spec_k")
              if getattr(args, k)}
@@ -112,11 +153,11 @@ def cmd_serve(args):
         if draft_dir:
             loading = draft_dir
             knobs["draft_model"] = inference.load_generative(
-                draft_dir, device=args.device)
+                draft_dir, device=device)
             knobs.setdefault("spec_k", FLAGS.serve_spec_k)
             loading = args.artifact_dir
         entry = service.load_model(args.name, args.artifact_dir,
-                                   device=args.device, **knobs)
+                                   device=device, **knobs)
     except Exception as e:
         print("serve: failed to load %r: %s: %s"
               % (loading, type(e).__name__, e), file=sys.stderr)
@@ -126,7 +167,7 @@ def cmd_serve(args):
     host, port = server.server_address[:2]
     eng = entry.engine
     st = eng.stats
-    print(json.dumps({"serving": {
+    info = {
         "host": host, "port": port, "model": args.name,
         "kind": "generative", "version": entry.version,
         "warmup_ms": round(entry.warmup_ms, 3),
@@ -137,7 +178,10 @@ def cmd_serve(args):
         "speculative": st["speculative"], "spec_k": st["spec_k"],
         "spec_degraded": st["spec_degraded"],
         "prefix_sharing": st["prefix_sharing"],
-        "prefix_degraded": st["prefix_degraded"]}}), flush=True)
+        "prefix_degraded": st["prefix_degraded"]}
+    if service.tier:
+        info["tier"] = service.tier
+    print(json.dumps({"serving": info}), flush=True)
     try:
         signum = serving.serve_until_shutdown(server)
     finally:
@@ -361,6 +405,11 @@ def _parser():
                    action="store_true",
                    help="copy-on-write prefix sharing over the KV pool "
                         "(default FLAGS.serve_prefix_sharing)")
+    s.add_argument("--tier", default="", choices=["", "prefill", "decode"],
+                   help="serving class in a disaggregated fleet, "
+                        "advertised through /statz and /healthz (empty = "
+                        "FLAGS.serve_tier, a do-everything replica by "
+                        "default); every route stays served")
     s.set_defaults(fn=cmd_serve)
     tn = sub.add_parser("tune", help="autotune the kernels a train config "
                                      "uses; winners persist per device "

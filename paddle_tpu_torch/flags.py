@@ -1,6 +1,7 @@
 """The knobs of the port (the ``serve_*`` part of ``paddle_tpu/flags.py``,
 its ``log_period``, ``conv_impl``, ``lstm_impl``, ``tune``,
-``tune_cache_dir`` and ``tune_budget``, same names and defaults).
+``tune_cache_dir``, ``tune_budget`` and ``memory_budget_gb``, same names
+and defaults).
 
 Read as attributes of :data:`FLAGS`. A value can be overridden per
 process with the environment variable ``PADDLE_TPU_FLAG_<NAME>`` (read
@@ -68,6 +69,19 @@ _DEFS = {
         "failure in the sharing layer degrades that engine to private "
         "pages with a recorded prefix_degraded event (fault site "
         "serving.prefix)"),
+    "serve_tier": (
+        "", str, "serving tier class for a disaggregated fleet "
+        "(serving/disagg.py): empty = a do-everything replica; 'prefill' "
+        "advertises a prefill-class replica (it runs the prompt pass and "
+        "exports the finished KV pages with the request state); 'decode' "
+        "a decode-class replica (it installs handoff artifacts and runs "
+        "the token loop). The class is advertised through /statz and "
+        "/healthz; a replica of either class still serves every route"),
+    "memory_budget_gb": (
+        0.0, float, "per-device memory budget (GiB) the PT034 check "
+        "(analysis/memory.py) holds the KV pool plus the weights "
+        "against. 0 = the card's memory (torch.cuda.mem_get_info); on "
+        "the CPU no budget is known and the check stays silent"),
     "conv_impl": (
         "conv", str, "dense conv2d lowering: 'conv' (torch's conv2d) or "
         "'pallas3x3' (the hand-written 3x3 / s1 / p1 kernel for that "

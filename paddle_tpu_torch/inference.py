@@ -7,6 +7,11 @@ The format is the JAX package's own: ``__gen_params__.pkl`` (a pickled
 {...}}``). An artifact written by ``paddle_tpu.inference.export_generative``
 therefore loads here unchanged, and one written here loads there.
 
+:func:`validate_generative_artifact` also runs the PT034 check
+(``analysis/memory.py``): the KV pool the engine would preallocate plus
+the resident weights (a speculative pairing's draft and its own pool
+folded in) must fit the device's memory budget.
+
 A speculative pairing (:func:`export_speculative`) is one directory in
 the JAX package's layout: the target as a generative artifact at the
 top, the draft as a whole generative artifact in ``__draft__/``, and
@@ -25,8 +30,9 @@ import numpy as np
 
 __all__ = ["ArtifactError", "DRAFT_SUBDIR", "GEN_CONFIG_FILE",
            "GEN_PARAMS_FILE", "SPEC_CONFIG_FILE", "export_generative",
-           "export_speculative", "is_generative_artifact",
-           "is_speculative_artifact", "load_generative", "load_speculative",
+           "export_speculative", "generative_memory_bytes",
+           "is_generative_artifact", "is_speculative_artifact",
+           "load_generative", "load_speculative",
            "validate_generative_artifact"]
 
 GEN_PARAMS_FILE = "__gen_params__.pkl"
@@ -48,15 +54,100 @@ def is_generative_artifact(dirname):
     return os.path.isfile(os.path.join(dirname, GEN_CONFIG_FILE))
 
 
-def validate_generative_artifact(dirname):
-    """Problem list (empty = valid): the integrity half of the JAX
-    package's validator (both files present and not empty), and for a
-    speculative pairing its draft's files and the pairing rules. Pool
-    sizing against a memory budget is not ported."""
+def validate_generative_artifact(dirname, kv_pages=None, page_tokens=None,
+                                 budget_bytes=None, check_pool=True):
+    """Problem list (empty = valid), the JAX package's validator: both
+    files present and not empty; for a speculative pairing its draft's
+    files and the pairing rules; and, with ``check_pool``, PT034: the
+    pool the engine would preallocate at ``kv_pages`` x ``page_tokens``
+    (defaults ``FLAGS.serve_kv_pages`` / ``FLAGS.serve_page_tokens``)
+    plus the resident weights must fit the budget (``budget_bytes``,
+    else ``FLAGS.memory_budget_gb``, else the memory of the card this
+    process serves on; silent on a process without one). Callers that
+    know the deployment's geometry pass it (the serve verb forwards its
+    ``--kv_pages`` / ``--page_tokens``); the loaders pass
+    ``check_pool=False``."""
     problems = _integrity_problems(dirname)
     if not problems and is_speculative_artifact(dirname):
         problems += _spec_problems(dirname)
+    if not problems and check_pool:
+        problems += _kv_pool_problems(dirname, kv_pages=kv_pages,
+                                      page_tokens=page_tokens,
+                                      budget_bytes=budget_bytes)
     return problems
+
+
+def _gen_geometry(dirname, kv_pages=None, page_tokens=None):
+    """The one reader of a generative artifact's sizing inputs:
+    ``(layers, heads, head_dim, model_bytes, kv_pages, page_tokens)``,
+    the pool knobs defaulted from the flags and the weights priced at
+    the size of the params file; None when the artifact is unreadable
+    (integrity problems are the validator's findings)."""
+    from .flags import FLAGS
+    try:
+        with open(os.path.join(dirname, GEN_CONFIG_FILE)) as f:
+            cfg = json.load(f)["config"]
+        hidden, heads = int(cfg["hidden"]), int(cfg["num_heads"])
+        layers = int(cfg["num_layers"])
+        model_bytes = os.path.getsize(os.path.join(dirname,
+                                                   GEN_PARAMS_FILE))
+    except Exception:
+        return None
+    return (layers, heads, hidden // max(heads, 1), model_bytes,
+            kv_pages if kv_pages else FLAGS.serve_kv_pages,
+            page_tokens if page_tokens else FLAGS.serve_page_tokens)
+
+
+def generative_memory_bytes(dirname, kv_pages=None, page_tokens=None):
+    """Resident bytes one generative artifact costs a serve process: the
+    weights plus the KV pool at ``kv_pages`` x ``page_tokens`` (defaults
+    from the flags), and for a speculative pairing the draft's weights
+    and its own pool of the same geometry. None when the artifact is
+    unreadable. The serve verb sums it over the models one process
+    loads."""
+    from .analysis import memory as _mem
+    geo = _gen_geometry(dirname, kv_pages=kv_pages,
+                        page_tokens=page_tokens)
+    if geo is None:
+        return None
+    layers, heads, head_dim, model_bytes, pages, ptokens = geo
+    total = int(model_bytes) + _mem.kv_pool_bytes(layers, heads, head_dim,
+                                                  pages, ptokens)
+    if is_speculative_artifact(dirname):
+        draft = generative_memory_bytes(
+            os.path.join(dirname, DRAFT_SUBDIR), kv_pages=kv_pages,
+            page_tokens=page_tokens)
+        if draft is None:
+            return None
+        total += draft
+    return total
+
+
+def _kv_pool_problems(dirname, kv_pages=None, page_tokens=None,
+                      budget_bytes=None):
+    """The PT034 leg of the validator: [] when no budget is known or the
+    artifact is unreadable; a pairing's draft side (weights and pool) is
+    folded into the resident bytes."""
+    from .analysis import memory as _mem
+    budget = (int(budget_bytes) if budget_bytes
+              else _mem.resolve_budget_bytes(device=_mem.card()))
+    if not budget:
+        return []
+    geo = _gen_geometry(dirname, kv_pages=kv_pages,
+                        page_tokens=page_tokens)
+    if geo is None:
+        return []
+    layers, heads, head_dim, model_bytes, pages, ptokens = geo
+    if is_speculative_artifact(dirname):
+        draft = generative_memory_bytes(
+            os.path.join(dirname, DRAFT_SUBDIR), kv_pages=kv_pages,
+            page_tokens=page_tokens)
+        if draft is not None:
+            model_bytes = int(model_bytes) + int(draft)
+    diags = _mem.check_kv_pool(layers, heads, head_dim, pages, ptokens,
+                               model_bytes=model_bytes,
+                               budget_bytes=budget)
+    return [str(d) for d in diags]
 
 
 def _integrity_problems(dirname):
@@ -109,7 +200,7 @@ def load_generative(dirname, device="cuda"):
     weights on ``device``. Raises :class:`ArtifactError` naming every
     problem."""
     from .models import transformer as _tm
-    problems = validate_generative_artifact(dirname)
+    problems = validate_generative_artifact(dirname, check_pool=False)
     if problems:
         raise ArtifactError("cannot load generative artifact %r:\n  - %s"
                             % (dirname, "\n  - ".join(problems)))
@@ -231,7 +322,7 @@ def load_speculative(dirname, device="cuda"):
     ``device``. Raises :class:`ArtifactError` naming every problem, the
     pairing's included: the two load together or not at all."""
     if is_speculative_artifact(dirname):
-        problems = validate_generative_artifact(dirname)
+        problems = validate_generative_artifact(dirname, check_pool=False)
     else:
         problems = ["missing %s (speculative pairing metadata) — export "
                     "with export_speculative" % SPEC_CONFIG_FILE]

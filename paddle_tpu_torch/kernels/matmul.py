@@ -116,19 +116,32 @@ def supports_matmul(x_shape, y_shape, dtype):
     return M % 8 == 0 and K % 128 == 0 and N % 128 == 0
 
 
+def _config_triple(config, dtype):
+    """``(block_m, block_n, block_k)`` of ``config`` with missing keys
+    from the ``dtype`` face's default; None when a value is not an int."""
+    cfg = default_config(dtype)
+    cfg.update(dict(config) if config else {})
+    try:
+        return (int(cfg["block_m"]), int(cfg["block_n"]),
+                int(cfg["block_k"]))
+    except (TypeError, ValueError):
+        return None
+
+
+def is_tiling(config, dtype=torch.float32):
+    """True when ``config`` (missing keys from the face's default) names
+    one of the ``dtype`` face's compiled tilings: the tune dispatch's
+    test of a cached winner."""
+    return _config_triple(config, dtype) in tilings(dtype)
+
+
 def normalize_config(config=None, dtype=torch.float32):
     """``(block_m, block_n, block_k)`` of the ``config`` dict (missing
     keys from the ``dtype`` face's default), or that default when the
     triple is not one of the face's tilings."""
-    default = default_config(dtype)
-    cfg = dict(default)
-    cfg.update(dict(config) if config else {})
-    try:
-        triple = (int(cfg["block_m"]), int(cfg["block_n"]),
-                  int(cfg["block_k"]))
-    except (TypeError, ValueError):
-        triple = None
+    triple = _config_triple(config, dtype)
     if triple not in tilings(dtype):
+        default = default_config(dtype)
         triple = (default["block_m"], default["block_n"],
                   default["block_k"])
     return triple

@@ -43,18 +43,20 @@ def acc_matmul(a, b):
 def _gemm_dispatch(x2, y2):
     """The mul op's 2-D gemm. Inside the kernel's population the tune
     cache decides (``enabled=False``: no flag opts this kernel in): a
-    winner tiling runs the kernel with it, written in ``x2``'s dtype; no
-    winner (a fallback) or a ``use: xla`` winner (a hit) runs
-    :func:`acc_matmul`. Outside the population it is :func:`acc_matmul`
-    with a recorded fallback."""
+    winner tiling runs the kernel with it, written in ``x2``'s dtype; a
+    cached triple that is not one of the face's tilings is a miss and
+    runs the face's default tiling; no winner (a fallback) or a ``use:
+    xla`` winner (a hit) runs :func:`acc_matmul`. Outside the population
+    it is :func:`acc_matmul` with a recorded fallback."""
     M, K = (int(v) for v in x2.shape)
     N = int(y2.shape[-1])
     if matmul_kernel.supports_matmul((M, K), (K, N), x2.dtype):
         cfg = tune.lookup(
             "matmul", {"m": M, "k": K, "n": N,
                        "dtype": str(x2.dtype).replace("torch.", "")},
-            enabled=False)
-        if cfg:
+            enabled=False,
+            valid=lambda c: matmul_kernel.is_tiling(c, x2.dtype))
+        if cfg is not None:
             return matmul_kernel.matmul(x2.contiguous(), y2.contiguous(),
                                         None, cfg)
     else:

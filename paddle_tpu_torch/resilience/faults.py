@@ -3,7 +3,7 @@
 
 Code calls ``fault_point("site.name", payload)`` at a failure-relevant
 edge; a test arms the site to raise, or to corrupt the payload, at the
-Nth hit. A disarmed site costs one dict lookup. The port has five sites:
+Nth hit. A disarmed site costs one dict lookup. The port has six sites:
 
 ``tune.candidate``     the autotune loop, once per candidate before it
                        is built (``tune/loop.py``): a raise is a
@@ -28,6 +28,10 @@ Nth hit. A disarmed site costs one dict lookup. The port has five sites:
                        per match: a raise degrades that engine to private
                        pages for its lifetime (``prefix_degraded`` event);
                        greedy output is unchanged
+``serving.ship``       the disaggregated hop (``serving/disagg.ship``),
+                       once per handoff: a raise re-submits the prompt to
+                       the decode engine, which prefills it again
+                       (``handoff_failed`` event); tokens are unchanged
 
 The ``delay`` action and the ``PADDLE_TPU_FAULT_SPEC`` grammar of the
 JAX package are not ported.
@@ -43,7 +47,7 @@ __all__ = ["FaultError", "SITES", "arm", "disarm", "fault_point", "hits",
            "reset"]
 
 SITES = ("tune.candidate", "tune.cache", "serving.generate",
-         "serving.speculate", "serving.prefix")
+         "serving.speculate", "serving.prefix", "serving.ship")
 _ACTIONS = ("raise", "corrupt")
 
 

@@ -52,13 +52,21 @@ it into the table: copy-on-write. Greedy output is the same with
 sharing on or off. Fault site ``serving.prefix`` degrades the engine to
 private pages with a ``prefix_degraded`` event.
 
-Fault site ``serving.generate`` is hit once per prefill and once per
-decode step or round: a raise fails that request or the running ones
-(``generate_failed`` event) and the loop keeps serving.
+**Disaggregated handoff** (``serving/disagg.py``):
+:meth:`GenerationEngine.submit_prefilled` queues a prefill-tier
+engine's artifact, whose finished K/V pages the admission installs into
+this pool in place of a prefill (:meth:`GenerationEngine._install_handoff`);
+the row then decodes from the next position with the preloaded first
+token, plainly (``spec_k=0``) and on private pages that are never
+published to the prefix cache. A preempted handoff row resumes by
+prefilling prompt + progress, as any row does.
 
-Left out of this port for now, each listed in ``ROADMAP.md``:
-disaggregated prefill/decode handoff (``submit_prefilled``, fault site
-``serving.ship``) and the tune-cache lookup of the paged attention.
+Fault site ``serving.generate`` is hit once per prefill or install and
+once per decode step or round: a raise fails that request or the
+running ones (``generate_failed`` event) and the loop keeps serving.
+
+Left out of this port for now (``ROADMAP.md``): the tune-cache lookup
+of the paged attention.
 
 The engine thread drives the card: it makes the model's device current
 before its first step, the kernels launch on that thread's current
@@ -87,11 +95,43 @@ from .service import _WINDOW, _percentile
 from .speculative import DraftEngine
 
 __all__ = ["GenRequest", "GenResult", "GenerationEngine", "sample_token",
-           "reference_decode"]
+           "reference_decode", "prefill_first", "check_request"]
 
 # how many preemptions one request may absorb before the engine calls
 # the pool too small for it and sheds instead of thrashing
 _PREEMPT_LIMIT = 2
+
+
+def check_request(prompt, max_new_tokens, temperature, vocab_size,
+                  max_context):
+    """The checks of one generation request, made on the caller's thread
+    by every entry point that takes one (``GenerationEngine.submit`` and
+    ``submit_prefilled``, ``PrefillEngine.prefill``): a non-empty prompt
+    of ids in [0, V), a budget >= 1, a finite temperature >= 0 and the
+    context window. ValueError otherwise: an id out of range would fire
+    a device-side assert in the embedding, which ends the process's CUDA
+    context, and a NaN temperature reaching the host sampler would fail
+    every other in-flight generation of the step. Returns the
+    normalised (prompt, max_new_tokens, temperature)."""
+    prompt = [int(t) for t in prompt]
+    if not prompt:
+        raise ValueError("prompt must hold at least one token id")
+    if min(prompt) < 0 or max(prompt) >= vocab_size:
+        raise ValueError("prompt token ids must be in [0, %d)"
+                         % vocab_size)
+    max_new_tokens = int(max_new_tokens)
+    if max_new_tokens < 1:
+        raise ValueError("max_new_tokens must be >= 1")
+    temperature = float(temperature or 0.0)
+    if not np.isfinite(temperature) or temperature < 0.0:
+        raise ValueError("temperature must be finite and >= 0.0, "
+                         "got %r" % temperature)
+    if len(prompt) + max_new_tokens > max_context:
+        raise ValueError(
+            "prompt (%d) + max_new_tokens (%d) exceeds the model "
+            "context window (%d)" % (len(prompt), max_new_tokens,
+                                     max_context))
+    return prompt, max_new_tokens, temperature
 
 
 def sample_token(logits, temperature, rng):
@@ -105,6 +145,31 @@ def sample_token(logits, temperature, rng):
     p = np.exp(z)
     p /= p.sum()
     return int(rng.choice(len(p), p=p))
+
+
+def prefill_first(model, k_pages, v_pages, padded, length, table_row,
+                  temperature, seed, device_sample, covered=0):
+    """One prompt pass (``padded`` [S_bucket], real ``length``) into the
+    pools at ``table_row``'s pages (positions below ``covered`` are not
+    written), the one prefill of the engine and of the prefill tier
+    (``serving/disagg.py``). Returns (token, logprob) sampled on the
+    device, the token's counter being its position, with
+    ``device_sample``; else the [V] logits as numpy."""
+    dev = model.device
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+
+    p, cfg = model.params, model.config
+    if device_sample:
+        tok, logp = _tm.prefill_step_sampled(
+            p, k_pages, v_pages, i32(padded), length, i32(table_row),
+            temperature, seed, cfg, covered=covered)
+        packed = torch.stack([tok.float(), logp]).cpu()
+        return int(packed[0]), float(packed[1])
+    return _tm.prefill_step(p, k_pages, v_pages, i32(padded), length,
+                            i32(table_row), cfg,
+                            covered=covered).cpu().numpy()
 
 
 def reference_decode(model, prompt, max_new_tokens, temperature=0.0,
@@ -165,8 +230,8 @@ class GenRequest(object):
 
     __slots__ = ("prompt", "max_new_tokens", "temperature", "seed",
                  "deadline_t", "enqueue_t", "tokens", "logprobs",
-                 "preemptions", "model_version", "spec_k", "_rng",
-                 "_ttft_ms", "_done", "_result", "_error")
+                 "preemptions", "model_version", "spec_k", "handoff",
+                 "_rng", "_ttft_ms", "_done", "_result", "_error")
 
     def __init__(self, prompt, max_new_tokens, temperature=0.0, seed=0,
                  deadline_t=None, spec_k=None):
@@ -177,6 +242,10 @@ class GenRequest(object):
         self.spec_k = None if spec_k is None else int(spec_k)
         # stamped by InferenceService.generate_async
         self.model_version = None
+        # a disaggregated handoff artifact (serving/disagg.py) whose pages
+        # the admission installs in place of a prefill; cleared once
+        # installed, so a preempted request resumes by prefilling
+        self.handoff = None
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature or 0.0)
         self.seed = int(seed or 0)
@@ -376,22 +445,10 @@ class GenerationEngine(object):
 
     def _prefill(self, padded, length, table_row, temperature, seed,
                  covered=0):
-        """One prefill (positions below ``covered`` are not written);
-        returns (token, logprob) on the device-sampling path, else the
-        [V] logits as numpy."""
-        p = self.model.params
-        cfg = self.model.config
-        if self.device_sample:
-            tok, logp = _tm.prefill_step_sampled(
-                p, self._kp, self._vp, self._i32(padded), length,
-                self._i32(table_row), temperature, seed, cfg,
-                covered=covered)
-            packed = torch.stack([tok.float(), logp]).cpu()
-            return int(packed[0]), float(packed[1])
-        last = _tm.prefill_step(p, self._kp, self._vp, self._i32(padded),
-                                length, self._i32(table_row), cfg,
-                                covered=covered)
-        return last.cpu().numpy()
+        """:func:`prefill_first` into this engine's pools."""
+        return prefill_first(self.model, self._kp, self._vp, padded, length,
+                             table_row, temperature, seed,
+                             self.device_sample, covered=covered)
 
     def warm_up(self, buckets=None):
         """Run every prefill bucket and one decode step (and, when
@@ -434,32 +491,24 @@ class GenerationEngine(object):
         Sheds now when the queue is full, the request could never fit
         the pool, or it exceeds the model's context window. ``spec_k``
         caps this request's speculation depth (0: plain decode)."""
-        prompt = [int(t) for t in prompt]
-        if not prompt:
-            raise ValueError("prompt must hold at least one token id")
-        V = self.model.config.vocab_size
-        if min(prompt) < 0 or max(prompt) >= V:
-            raise ValueError("prompt token ids must be in [0, %d)" % V)
-        max_new_tokens = int(max_new_tokens)
-        if max_new_tokens < 1:
-            raise ValueError("max_new_tokens must be >= 1")
-        temperature = float(temperature or 0.0)
-        if not np.isfinite(temperature) or temperature < 0.0:
-            # reject on the caller's thread: a NaN reaching the sampler
-            # would fail every other in-flight generation of the step
-            raise ValueError("temperature must be finite and >= 0.0, "
-                             "got %r" % temperature)
+        prompt, max_new_tokens, temperature = check_request(
+            prompt, max_new_tokens, temperature,
+            self.model.config.vocab_size, self.max_context)
         if spec_k is not None:
             spec_k = int(spec_k)
             if spec_k < 0:
                 raise ValueError("spec_k must be >= 0 (0 disables "
                                  "speculation for this request)")
-        total = len(prompt) + max_new_tokens
-        if total > self.max_context:
-            raise ValueError(
-                "prompt (%d) + max_new_tokens (%d) exceeds the model "
-                "context window (%d)" % (len(prompt), max_new_tokens,
-                                         self.max_context))
+        req = GenRequest(prompt, max_new_tokens, temperature, seed,
+                         AdmissionController.deadline_from(deadline_ms),
+                         spec_k=spec_k)
+        return self._enqueue(req)
+
+    def _enqueue(self, req):
+        """The submit tail shared by :meth:`submit` and
+        :meth:`submit_prefilled`: the pool-feasibility shed (in physical
+        pages), the liveness, drain and queue-depth checks, the append."""
+        total = len(req.pending_prompt) + req.budget_left
         if not self.pool.can_fit(total):
             record_event("kv_pool_exhausted", site="serving.generate",
                          action="shed", model=self.name,
@@ -473,9 +522,6 @@ class GenerationEngine(object):
                 "instead of wedging the engine"
                 % (total, self.pool.num_pages * self.pool.page_tokens,
                    self.pool.num_pages, self.pool.page_tokens))
-        req = GenRequest(prompt, max_new_tokens, temperature, seed,
-                         AdmissionController.deadline_from(deadline_ms),
-                         spec_k=spec_k)
         with self._cond:
             if not self._alive:
                 raise ServingError("generation engine is closed")
@@ -494,6 +540,70 @@ class GenerationEngine(object):
             self._queue.append(req)
             self._cond.notify_all()
         return req
+
+    def submit_prefilled(self, artifact, deadline_ms=None):
+        """Queue a disaggregated handoff (``serving/disagg.py``): the
+        artifact carries a prefill-tier engine's finished K/V pages and
+        the request state that makes the continuation exact (first token
+        and logprob, temperature, seed: the position-keyed device stream
+        needs nothing else). The admission installs the pages instead of
+        prefilling. The request runs plain (``spec_k=0``): the draft's
+        pool never saw the prompt. Resolves at once when the first token
+        is ``eos`` or the budget is 1; otherwise sheds as :meth:`submit`
+        does. A geometry other than this pool's raises
+        :class:`ServingError`. The artifact comes off the network, so it
+        gets :meth:`submit`'s checks on the caller's thread, and its
+        first token must be in [0, V) and its pages exactly the prompt's
+        (fewer would decode over pages it never wrote): ValueError
+        otherwise."""
+        pool = self.pool
+        if (int(artifact.page_tokens) != pool.page_tokens
+                or int(artifact.num_layers) != pool.num_layers
+                or int(artifact.num_heads) != pool.num_heads
+                or int(artifact.head_dim) != pool.head_dim):
+            raise ServingError(
+                "handoff artifact geometry (layers=%s heads=%s "
+                "head_dim=%s page_tokens=%s) does not match this "
+                "engine's pool (layers=%d heads=%d head_dim=%d "
+                "page_tokens=%d) — the tiers must serve the same model "
+                "geometry" % (artifact.num_layers, artifact.num_heads,
+                              artifact.head_dim, artifact.page_tokens,
+                              pool.num_layers, pool.num_heads,
+                              pool.head_dim, pool.page_tokens))
+        V = self.model.config.vocab_size
+        prompt, max_new_tokens, temperature = check_request(
+            artifact.prompt, artifact.max_new_tokens, artifact.temperature,
+            V, self.max_context)
+        first = int(artifact.first_token)
+        if not 0 <= first < V:
+            raise ValueError("handoff first token %d is not in [0, %d)"
+                             % (first, V))
+        n = pages_for(len(prompt), pool.page_tokens)
+        if any(a.ndim != 5 or a.shape[1] != n
+               for a in (artifact.k_pages, artifact.v_pages)):
+            raise ValueError(
+                "handoff pages %r/%r do not hold the %d page(s) of a "
+                "%d-token prompt" % (artifact.k_pages.shape,
+                                     artifact.v_pages.shape, n,
+                                     len(prompt)))
+        req = GenRequest(prompt, max_new_tokens, temperature,
+                         int(artifact.seed),
+                         AdmissionController.deadline_from(deadline_ms),
+                         spec_k=0)
+        req.tokens = [first]
+        if artifact.first_logprob is not None:
+            req.logprobs = [float(artifact.first_logprob)]
+        eos = self.eos_id is not None and req.tokens[0] == self.eos_id
+        if eos or req.budget_left <= 0:
+            # the prefill tier's one token already finished the request
+            with self._cond:
+                self._counts["submitted"] += 1
+                self._counts["completed"] += 1
+            req._ttft_ms = 0.0
+            req.resolve("eos" if eos else "length")
+            return req
+        req.handoff = artifact
+        return self._enqueue(req)
 
     def generate(self, prompt, max_new_tokens=16, temperature=0.0, seed=0,
                  deadline_ms=None, timeout=None, spec_k=None):
@@ -599,7 +709,7 @@ class GenerationEngine(object):
         discounted, since copy-on-write buys it back at the first
         generated token."""
         pages = pages_for(self._reserve_tokens(req), self.pool.page_tokens)
-        if self._prefix is not None:
+        if req.handoff is None and self._prefix is not None:
             pages -= self._prefix.probe(req.pending_prompt)
         return max(pages, 0)
 
@@ -650,11 +760,14 @@ class GenerationEngine(object):
         resumed request continues its stream. With prefix sharing the
         table starts with the pages of the longest cached run of the
         prompt, which the prefill does not write; the prompt's pages are
-        published after it."""
+        published after it. A handoff request installs its artifact's
+        pages instead, on private pages, and skips the prefix cache and
+        the draft's prompt mirror."""
         prompt = req.pending_prompt
+        handoff = req.handoff
         table = BlockTable(self.pool)
         matched = covered = 0
-        if self._prefix is not None:
+        if handoff is None and self._prefix is not None:
             try:
                 shared, covered = self._prefix.match(prompt)
                 table.pages.extend(shared)
@@ -684,10 +797,14 @@ class GenerationEngine(object):
         t0 = time.monotonic()
         try:
             fault_point("serving.generate")
-            first = self._prefill(padded, len(prompt),
-                                  table.as_row(self.max_blocks),
-                                  req.temperature, req.seed & 0x7FFFFFFF,
-                                  covered=covered)
+            if handoff is not None:
+                self._install_handoff(table, handoff)
+            else:
+                first = self._prefill(padded, len(prompt),
+                                      table.as_row(self.max_blocks),
+                                      req.temperature,
+                                      req.seed & 0x7FFFFFFF,
+                                      covered=covered)
         except Exception as e:
             table.release()
             if self._spec is not None:
@@ -701,14 +818,16 @@ class GenerationEngine(object):
             req.fail(e)
             return
         self._busy_s += time.monotonic() - t0
-        if self._spec is not None:
+        if handoff is None and self._spec is not None:
             # the draft mirrors the prompt into its own pool; a failure
-            # degrades speculation engine-wide and the request runs plain
+            # degrades speculation engine-wide and the request runs
+            # plain. A handoff row runs spec_k=0, so its draft lanes
+            # never propose and the draft never needs its prompt
             try:
                 self._spec.prefill(slot, padded, len(prompt))
             except Exception as e:
                 self._degrade_spec("prefill", e)
-        if self._prefix is not None:
+        if handoff is None and self._prefix is not None:
             try:
                 published = self._prefix.publish(prompt, table.pages)
             except Exception as e:
@@ -725,20 +844,32 @@ class GenerationEngine(object):
         # the rounds pending its last token, and the next round replays
         # the same draws (caps are pure functions of request and
         # progress)
-        resumed_spec = self._spec is not None and len(req.tokens) > 0
-        if resumed_spec:
+        resumed_spec = (handoff is None and self._spec is not None
+                        and len(req.tokens) > 0)
+        if handoff is not None:
+            # the pages cover the original prompt; pending already holds
+            # the prefill tier's first token, so the next decode step
+            # writes that token's K/V at position len(prompt) and the
+            # stream continues where a local prefill would have left it
+            run.cached = len(prompt) - len(req.tokens)
+            run.last_token = req.tokens[-1]
+            req.handoff = None    # a preemption resumes by re-prefill
+        elif resumed_spec:
             run.cached = len(prompt) - 1
             run.last_token = req.tokens[-1]
         with self._cond:
-            self._counts["prefills"] += 1
-            self._counts["prompt_tokens"] += len(prompt)
-            if not resumed_spec:
-                self._counts["tokens"] += 1
+            if handoff is not None:
+                self._counts["handoff_installs"] += 1
+            else:
+                self._counts["prefills"] += 1
+                self._counts["prompt_tokens"] += len(prompt)
+                if not resumed_spec:
+                    self._counts["tokens"] += 1
             self._seqs.append(run)
             self._seqs.sort(key=lambda s: s.slot)
             self._max_running_seen = max(self._max_running_seen,
                                          len(self._seqs))
-        if resumed_spec:
+        if handoff is not None or resumed_spec:
             return
         if self.device_sample:
             self._record_token(run, first[0], first[1])
@@ -1010,6 +1141,32 @@ class GenerationEngine(object):
             with self._cond:
                 self._counts["cow_copies"] += copies
 
+    def _install_handoff(self, table, artifact):
+        """The decode tier's receive side of the hop: write the
+        artifact's ``n`` exported K/V pages into this pool at the
+        table's first ``n`` pages, one ``index_copy_`` along the page
+        axis each, on the pool's device (the engine thread's stream)."""
+        k, v = artifact.k_pages, artifact.v_pages
+        pool = self.pool
+        n = int(k.shape[1])
+        expect = (pool.num_layers, n, pool.page_tokens, pool.num_heads,
+                  pool.head_dim)
+        if tuple(k.shape) != expect or tuple(v.shape) != expect:
+            raise ServingError(
+                "handoff page content shape %r/%r does not match the "
+                "pool layout %r" % (tuple(k.shape), tuple(v.shape),
+                                    expect))
+        if n > len(table.pages):
+            raise ServingError(
+                "handoff carries %d page(s) but the table only holds "
+                "%d" % (n, len(table.pages)))
+        ids = torch.as_tensor(np.asarray(table.pages[:n], np.int64)).to(
+            self.device)
+        for pages, content in ((self._kp, k), (self._vp, v)):
+            pages.index_copy_(1, ids, torch.as_tensor(
+                np.ascontiguousarray(content)).to(self.device,
+                                                  pages.dtype))
+
     def _evict(self, s, counter=None, requeue=False):
         """The one eviction primitive: release the row's pages on both
         pools, recycle its slot, optionally count it and re-queue its
@@ -1159,6 +1316,7 @@ class GenerationEngine(object):
                 "cow_copies": c.get("cow_copies", 0),
                 "prefix_cache": (self._prefix.stats()
                                  if self._prefix is not None else None),
+                "handoff_installs": c.get("handoff_installs", 0),
                 "speculative": self._spec is not None,
                 "spec_k": self.spec_k,
                 "spec_degraded": self._spec_degraded,

@@ -1,6 +1,6 @@
 """Stdlib JSON/HTTP front end over :class:`InferenceService` (the
-``:generate`` part of ``paddle_tpu/serving/httpd.py``, same bodies and
-answers).
+``:generate``, ``:prefill`` and ``:decode`` part of
+``paddle_tpu/serving/httpd.py``, same bodies and answers).
 
 ====== ================================ ===================================
 method path                             body / response
@@ -14,16 +14,35 @@ POST   ``/v1/models/<name>:generate``   ``{"tokens": [ids],
                                         "tokens": [...],
                                         "finish_reason": ...,
                                         "ttft_ms": ..., ...}``
-GET    ``/healthz``                     liveness, models, readiness
+POST   ``/v1/models/<name>:prefill``    ``{"tokens": [ids],
+                                        "max_new_tokens": N,
+                                        "temperature": t, "seed": s}`` ->
+                                        ``{"model": name, "artifact":
+                                        payload}``, the handoff artifact's
+                                        wire payload (the prefill tier's
+                                        half of the disaggregated hop)
+POST   ``/v1/models/<name>:decode``     ``{"artifact": payload,
+                                        "deadline_ms": optional}`` -> the
+                                        ``:generate`` answer (the decode
+                                        tier's half; a hop that fails
+                                        prefills here again)
+GET    ``/healthz``                     liveness, tier, models, readiness
 GET    ``/statz``                       ``InferenceService.stats``
+                                        (``tier`` among them)
 ====== ================================ ===================================
 
 ``spec_k`` caps the request's speculation depth on a speculative engine
-(0: plain decode); other engines ignore it.
+(0: plain decode); other engines ignore it. A ``:decode`` body may be
+as large as the largest handoff payload of the named model's pool
+geometry (``InferenceService.handoff_body_limit``: the base64 K/V pages
+of a prompt that fills the context, about 100 MB for GPT-2 small),
+since a long prompt's pages are past ``_MAX_BODY``, the limit of the
+other bodies and of a ``:decode`` to a model not served.
 
 Errors: 429 overload and kv-pool exhaustion (with a ``Retry-After``
-header and a ``retry_after_ms`` body field), 504 deadline, 404 unknown
-model or route, 400 malformed input, 500 anything else; each body is
+header and a ``retry_after_ms`` body field), 504 deadline (``:generate``
+and ``:decode``), 404 unknown model or route, 400 malformed input (a
+malformed artifact included), 500 anything else; each body is
 ``{"error": ..., "kind": ...}``. One thread per connection blocks in
 ``generate`` while the engine thread batches across them.
 """
@@ -58,11 +77,11 @@ def write_json_reply(handler, code, payload, retry_after_ms=None):
     handler.wfile.write(body)
 
 
-def read_json_body(handler):
-    """One request's JSON object body; ValueError on an oversized or
-    non-object body (the caller answers 400)."""
+def read_json_body(handler, limit=_MAX_BODY):
+    """One request's JSON object body; ValueError on a body past
+    ``limit`` bytes or not an object (the caller answers 400)."""
     n = int(handler.headers.get("Content-Length") or 0)
-    if n > _MAX_BODY:
+    if n > limit:
         raise ValueError("request body too large (%d bytes)" % n)
     raw = handler.rfile.read(n) if n else b"{}"
     body = json.loads(raw.decode("utf-8"))
@@ -94,7 +113,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_GET(self):
         if self.path == "/healthz":
-            self._reply(200, {"ok": True,
+            self._reply(200, {"ok": True, "tier": self.service.tier,
                               "models": self.service.model_info(),
                               "ready": self.service.readiness()})
         elif self.path == "/statz":
@@ -104,23 +123,60 @@ class _Handler(BaseHTTPRequestHandler):
                               "kind": "not_found"})
 
     def do_POST(self):
+        route = name = None
+        if self.path.startswith("/v1/models/") and ":" in self.path:
+            name, _, route = self.path[len("/v1/models/"):].rpartition(":")
+        handler = {"generate": self._generate, "prefill": self._prefill,
+                   "decode": self._decode}.get(route)
         try:
-            body = read_json_body(self)
+            body = read_json_body(self, limit=self._body_limit(route, name))
         except Exception as e:
             # the body may be partly unread: replying on a keep-alive
             # connection would parse the rest as the next request
             self.close_connection = True
             return self._reply(400, {"error": "bad JSON body: %s" % e,
                                      "kind": "bad_request"})
-        if self.path.startswith("/v1/models/") and \
-                self.path.endswith(":generate"):
-            name = self.path[len("/v1/models/"):-len(":generate")]
-            return self._generate(name, body)
-        self._reply(404, {"error": "no route %r" % self.path,
-                          "kind": "not_found"})
+        if handler is None or not name:
+            return self._reply(404, {"error": "no route %r" % self.path,
+                                     "kind": "not_found"})
+        handler(name, body)
+
+    def _body_limit(self, route, name):
+        """A ``:decode`` body carries K/V pages: its limit follows the
+        named model's pool geometry. Every other body, and a ``:decode``
+        to a model not served (answered 404 once read), gets
+        ``_MAX_BODY``."""
+        if route == "decode" and name:
+            try:
+                return self.service.handoff_body_limit(name)
+            except ModelUnavailableError:
+                pass
+        return _MAX_BODY
+
+    def _answer(self, name, call):
+        """Run ``call`` and map its exceptions to the error answers: the
+        one error mapping of every POST route. Returns the call's value,
+        or None once an error answer is sent."""
+        try:
+            return call()
+        except ModelUnavailableError as e:
+            self._reply(404, {"error": str(e), "kind": "model_unavailable"})
+        except PoolExhausted as e:
+            self._reply(429, {"error": str(e), "kind": "kv_pool_exhausted"},
+                        retry_after_ms=self._retry_hint(name))
+        except OverloadError as e:
+            self._reply(429, {"error": str(e), "kind": "overload"},
+                        retry_after_ms=self._retry_hint(name))
+        except DeadlineExceededError as e:
+            self._reply(504, {"error": str(e), "kind": "deadline"})
+        except (TypeError, ValueError) as e:
+            self._reply(400, {"error": str(e), "kind": "bad_request"})
+        except Exception as e:
+            self._reply(500, {"error": repr(e), "kind": "dispatch"})
+        return None
 
     def _generate(self, name, body):
-        try:
+        def call():
             tokens = body.get("tokens")
             if not isinstance(tokens, list) or not tokens:
                 raise ValueError('body must carry {"tokens": '
@@ -133,24 +189,45 @@ class _Handler(BaseHTTPRequestHandler):
                 seed=int(body.get("seed", 0)),
                 deadline_ms=body.get("deadline_ms"),
                 spec_k=None if spec_k is None else int(spec_k))
-            res = req.wait()
-        except ModelUnavailableError as e:
-            return self._reply(404, {"error": str(e),
-                                     "kind": "model_unavailable"})
-        except PoolExhausted as e:
-            return self._reply(429, {"error": str(e),
-                                     "kind": "kv_pool_exhausted"},
-                               retry_after_ms=self._retry_hint(name))
-        except OverloadError as e:
-            return self._reply(429, {"error": str(e), "kind": "overload"},
-                               retry_after_ms=self._retry_hint(name))
-        except DeadlineExceededError as e:
-            return self._reply(504, {"error": str(e), "kind": "deadline"})
-        except (TypeError, ValueError) as e:
-            return self._reply(400, {"error": str(e),
-                                     "kind": "bad_request"})
-        except Exception as e:
-            return self._reply(500, {"error": repr(e), "kind": "dispatch"})
+            return req, req.wait()
+        self._reply_result(name, self._answer(name, call))
+
+    def _prefill(self, name, body):
+        """The prefill tier's half of the hop: only the prompt pass,
+        answered with the handoff artifact's wire payload."""
+        def call():
+            tokens = body.get("tokens")
+            if not isinstance(tokens, list) or not tokens:
+                raise ValueError('body must carry {"tokens": '
+                                 "[token ids]}")
+            return self.service.prefill(
+                name, tokens,
+                max_new_tokens=int(body.get("max_new_tokens", 16)),
+                temperature=float(body.get("temperature", 0.0)),
+                seed=int(body.get("seed", 0)))
+        art = self._answer(name, call)
+        if art is not None:
+            self._reply(200, {"model": name, "artifact": art.to_payload()})
+
+    def _decode(self, name, body):
+        """The decode tier's half: install a shipped artifact into
+        ``name``'s engine and decode to the end. A malformed artifact is
+        the sender's fault (400); a failed install prefills here again
+        and still answers 200."""
+        def call():
+            payload = body.get("artifact")
+            if not isinstance(payload, dict):
+                raise ValueError('body must carry {"artifact": '
+                                 "handoff payload}")
+            req = self.service.decode_handoff_async(
+                name, payload, deadline_ms=body.get("deadline_ms"))
+            return req, req.wait()
+        self._reply_result(name, self._answer(name, call))
+
+    def _reply_result(self, name, done):
+        if done is None:
+            return
+        req, res = done
         out = {"model": name, "version": req.model_version}
         out.update(res.describe())
         self._reply(200, out)

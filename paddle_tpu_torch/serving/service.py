@@ -7,6 +7,15 @@ non-blocking :meth:`InferenceService.generate_async` and a metrics
 surface (:attr:`InferenceService.stats`). The HTTP endpoint
 (:mod:`~paddle_tpu_torch.serving.httpd`) and the ``serve`` CLI verb are
 thin shells over it.
+
+For a disaggregated fleet (``serving/disagg.py``) a service carries a
+tier class (``tier``, default ``FLAGS.serve_tier``): :meth:`prefill`
+runs the prompt pass on a
+:class:`~paddle_tpu_torch.serving.disagg.PrefillEngine` over the served
+model and returns the handoff artifact, and
+:meth:`decode_handoff` installs one into the model's engine and
+decodes. The class is advertised through :attr:`stats` and
+:meth:`readiness`; a replica of either class still serves every path.
 """
 from __future__ import annotations
 
@@ -74,13 +83,22 @@ class InferenceService(object):
     # cap on how long close() waits for an engine's in-flight generations
     _DRAIN_TIMEOUT_S = 60.0
 
-    def __init__(self, queue_depth=None):
+    def __init__(self, queue_depth=None, tier=None):
         from ..flags import FLAGS
+        self.tier = str(tier if tier is not None else FLAGS.serve_tier)
+        if self.tier not in ("", "prefill", "decode"):
+            raise ValueError("tier must be '', 'prefill' or 'decode', "
+                             "got %r" % self.tier)
         self.queue_depth = int(queue_depth if queue_depth is not None
                                else FLAGS.serve_queue_depth)
         self._lock = threading.Lock()
         self._generators = {}       # name -> GenEntry
         self._versions = collections.Counter()
+        # name -> (entry version, PrefillEngine): the prefill-tier face
+        # over the model an entry serves, built on the first prefill;
+        # keyed by version, so a replaced model never exports K/V of the
+        # previous weights
+        self._prefill_engines = {}
         self._closed = False
 
     # -- model management ----------------------------------------------------
@@ -220,16 +238,92 @@ class InferenceService(object):
                                    temperature, seed, deadline_ms,
                                    spec_k=spec_k).wait(timeout)
 
+    # -- disaggregated tier path ---------------------------------------------
+    def _prefill_for(self, entry):
+        """The prefill engine for ``entry``, built on first use over the
+        entry's own model, page geometry and sampling path; a stale one
+        (an earlier version of the name) is closed."""
+        with self._lock:
+            cached = self._prefill_engines.get(entry.name)
+            if cached is not None and cached[0] == entry.version:
+                return cached[1]
+        from .disagg import PrefillEngine
+        eng = entry.engine
+        pre = PrefillEngine(eng.model, page_tokens=eng.pool.page_tokens,
+                            name=entry.name, eos_id=eng.eos_id,
+                            device_sample=eng.device_sample,
+                            device=eng.device)
+        with self._lock:
+            cached = self._prefill_engines.get(entry.name)
+            if cached is not None and cached[0] == entry.version:
+                stale, pre = pre, cached[1]   # lost a build race
+            else:
+                stale = cached[1] if cached is not None else None
+                self._prefill_engines[entry.name] = (entry.version, pre)
+        if stale is not None:
+            stale.close()
+        return pre
+
+    def prefill(self, name, tokens, max_new_tokens=16, temperature=0.0,
+                seed=0):
+        """Prefill-tier entry point (``:prefill``): run only the prompt
+        pass on ``name``'s weights and return the
+        :class:`~paddle_tpu_torch.serving.disagg.HandoffArtifact`."""
+        entry = self._gen_entry(name)
+        return self._prefill_for(entry).prefill(
+            tokens, max_new_tokens=max_new_tokens,
+            temperature=temperature, seed=seed)
+
+    def decode_handoff_async(self, name, payload, deadline_ms=None):
+        """Decode-tier entry point (``:decode``): ship an artifact (a
+        wire payload or a HandoffArtifact) into ``name``'s engine and
+        return the request handle. A failed hop prefills here again
+        (``disagg.ship``); overload and pool exhaustion propagate. A
+        malformed payload raises ValueError."""
+        from .disagg import HandoffArtifact, ship
+        artifact = (payload if isinstance(payload, HandoffArtifact)
+                    else HandoffArtifact.from_payload(payload))
+        entry = self._gen_entry(name)
+        try:
+            req = ship(artifact, entry.engine, deadline_ms=deadline_ms)
+        except ServingError:
+            # lost the race with a replacement: retry once on the engine
+            # published now
+            entry = self._gen_entry(name)
+            req = ship(artifact, entry.engine, deadline_ms=deadline_ms)
+        req.model_version = entry.version
+        return req
+
+    def handoff_body_limit(self, name):
+        """Bytes a ``:decode`` body for ``name`` may take: the largest
+        handoff payload of its engine's pool geometry
+        (``disagg.max_payload_bytes``). ModelUnavailableError for a name
+        not served."""
+        from .disagg import max_payload_bytes
+        eng = self._gen_entry(name).engine
+        return max_payload_bytes(eng.pool, eng.max_context)
+
+    def decode_handoff(self, name, payload, deadline_ms=None, timeout=None):
+        """Blocking :meth:`decode_handoff_async` -> GenResult."""
+        return self.decode_handoff_async(
+            name, payload, deadline_ms=deadline_ms).wait(timeout)
+
     # -- metrics -------------------------------------------------------------
     @property
     def stats(self):
-        """{"models": {name: version}, "generation": {name: engine
-        stats}}."""
+        """{"models": {name: version}, "tier": class, "generation": {name:
+        engine stats}}, and "prefill": {name: prefill engine stats} once
+        a prefill ran."""
         with self._lock:
             gens = dict(self._generators)
-        return {"models": {n: e.version for n, e in gens.items()},
+            pre = {n: v[1] for n, v in self._prefill_engines.items()}
+        snap = {"models": {n: e.version for n, e in gens.items()},
+                "tier": self.tier,
                 "generation": {n: e.engine.stats
                                for n, e in sorted(gens.items())}}
+        if pre:
+            snap["prefill"] = {n: e.stats for n, e in sorted(pre.items())}
+        return snap
 
     # -- lifecycle -----------------------------------------------------------
     def close(self):
@@ -240,6 +334,10 @@ class InferenceService(object):
             self._closed = True
             gens = list(self._generators.values())
             self._generators.clear()
+            pre = [v[1] for v in self._prefill_engines.values()]
+            self._prefill_engines.clear()
+        for p in pre:
+            p.close()
         for e in gens:
             e.engine.drain(timeout=self._DRAIN_TIMEOUT_S)
             e.engine.close()

@@ -74,7 +74,7 @@ def reset_counters():
             _counters[k] = 0
 
 
-def lookup(kernel, key, enabled=False):
+def lookup(kernel, key, enabled=False, valid=None):
     """Kernel-dispatch decision for one call.
 
     ``key`` is the shape key dict (see tune/space.py); ``enabled`` says
@@ -85,6 +85,11 @@ def lookup(kernel, key, enabled=False):
     - a cached winner for (device, kernel, signature) -> that config
       (``tune_hits``; a winner of ``{"use": "xla"}`` says the stock
       lowering is fastest: None, still a hit);
+    - a cached winner that ``valid(config)`` refuses (a tiling the
+      kernel does not compile, say one cached before its tilings
+      changed)                                  -> ``{}``, the kernel's
+      default config (``tune_misses``): what runs is not what was
+      cached, so it is not a hit;
     - no winner, the site enabled              -> ``{}``, the kernel's
       default config (``tune_misses``);
     - no winner, not enabled (or FLAGS.tune 0) -> None
@@ -102,9 +107,13 @@ def lookup(kernel, key, enabled=False):
         except Exception:
             cfg = None  # cache trouble must never fail a step
         if cfg is not None:
-            _bump("tune_hits")
             if cfg.get("use") == "xla":
+                _bump("tune_hits")
                 return None
+            if valid is not None and not valid(cfg):
+                _bump("tune_misses")
+                return {}
+            _bump("tune_hits")
             return cfg
     if enabled:
         _bump("tune_misses")

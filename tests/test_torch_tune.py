@@ -460,6 +460,39 @@ def test_mul_dispatch_fallback_hit_and_winner(monkeypatch):
     assert len(calls) == 1
 
 
+def test_a_cached_bf16_triple_outside_the_tilings_is_a_miss_on_the_default(
+        monkeypatch):
+    """A winner whose triple is not one of the bfloat16 face's tilings (a
+    triple of the face before its wgmma kernel) counts as a miss, not a
+    hit, and the kernel runs the face's default tiling."""
+    from paddle_tpu_torch import amp as tamp
+    main, startup, out = _fc_program(256)
+    tamp.enable(main)
+    feed = {"x": np.random.RandomState(0).randn(64, 256).astype(np.float32)}
+    calls = _spy(monkeypatch, tmm, "matmul")
+    stale = {"block_m": 128, "block_n": 128, "block_k": 32}
+    assert not tmm.is_tiling(stale, torch.bfloat16)
+    tune.WinnerCache().put(_ck("matmul", dict(MM_KEY, dtype="bfloat16")),
+                           stale)
+    prev = tamp.force(True)           # the AMP casts on the CPU too
+    try:
+        v_stale, stats = _run(main, startup, out, feed)
+        assert stats["tune_misses"] == 1 and stats["tune_hits"] == 0
+        assert len(calls) == 1 and calls[0][0][3] == {}
+        assert calls[0][0][0].dtype == torch.bfloat16
+        # the same product as a winner of the default tiling, a hit
+        tune.WinnerCache().put(
+            _ck("matmul", dict(MM_KEY, dtype="bfloat16")),
+            tmm.default_config(torch.bfloat16))
+        tune.reset_counters()
+        v_default, stats = _run(main, startup, out, feed)
+    finally:
+        tamp.force(prev)
+    assert stats["tune_hits"] == 1 and stats["tune_misses"] == 0
+    assert len(calls) == 2
+    np.testing.assert_array_equal(v_stale, v_default)
+
+
 def test_mul_outside_the_population_is_a_recorded_fallback(monkeypatch):
     main, startup, out = _fc_program(100)
     calls = _spy(monkeypatch, tmm, "matmul")
