@@ -216,7 +216,44 @@ Phases, in order; any failure exits non-zero at once:
    3's tokens, SIGTERM exits 0; PT034: the artifact validates against
    the card's memory and fails at a 0.5 GB budget. It prints the
    artifacts' bytes, the ms of each hop's pieces and the two-hop TTFT
-   beside the single-hop one, and the decode tier's tokens/s.
+   beside the single-hop one, and the decode tier's tokens/s;
+12. compiled: the Executor's compiled step (a step captured as a CUDA
+   graph and replayed) against its per-op path, each from one saved
+   state, ``COMPILED_STEPS`` steps of each then ``PROFILE_STEPS``
+   profiled ones, on the LM at GPT-2 small's widths in float32 (also
+   ``repeat=REPEAT_K`` against as many single runs, the state bit for
+   bit) and under pure AMP, ResNet-50 at 224 x 224, batch 32 (cuDNN's
+   algorithms deterministic in both runs: two eager steps with its
+   default ones differ, and the first op output that differs is
+   printed), and the text classifier at rnn_bench widths with LSTM and
+   with GRU cells: the losses and the state after the steps bit-identical
+   to the eager run's, one capture, a replay a step from the capture on,
+   no eager fallback, every launch count equal to the eager run's; the
+   captured graph's kernel nodes of each symbol, read from the driver,
+   equal to the launches its wrappers add a replay (so the counts a
+   replay adds are what the card launches; the profiler's counts of
+   each symbol in both modes are printed, as it misses a record now and
+   then); ragged LSTM batches of
+   ``RAGGED_LENS`` longest sequences, each a key of its own, run twice
+   then once more in turn, compiled against eager: losses bit-identical,
+   one capture and two replays a key, the graphs in one shared pool,
+   step time, peak memory and the pool's bytes after each run printed;
+   printed beside the eager run, not gated: step p50 by CUDA events,
+   device busy share and device ms by kind over the profiled steps,
+   peak memory, the tune consults; the pipelined Trainer (depth
+   ``PIPE_DEPTH``, ``PIPE_BATCHES`` batches) on the LSTM classifier
+   bit-identical to the synchronous one, its feed wait printed; a
+   program with a ``save`` between two device segments on the hybrid
+   path (both captured, the file the eager run's); a test-only op that
+   reads a value to the host: its capture fails with a warning, the run
+   is right, and the next program captures.
+
+Phases 5-9 train through ``Trainer.train``, which runs the compiled
+path: each holds its steps to one capture and a replay a step, and the
+tune consults of phases 8 and 9 to the steps that ran their lowerings
+(the warm-up and the capture). Their windows that patch a wrapper or
+mark a Python range (phase 7's backward loop, phase 9's parent faces)
+and phase 8's tiling sweep run on the per-op path.
 
 Each phase prints its wall time. Before phase 1 the tune cache is set
 to a fresh, empty directory under ``build/`` (printed), so that no
@@ -232,6 +269,7 @@ package beside it, the script exits non-zero and prints no result.
 import argparse
 import collections
 import ctypes
+import gc
 import json
 import math
 import os
@@ -1638,11 +1676,13 @@ def _lm_train(dev, label, after=None, want_matmul=0,
         torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launches()
         tune_before = tune.counters()
+        exe_before = dict(trainer.exe.stats)
         t0 = time.monotonic()
         trainer.train(spec["reader"], num_passes=TRAIN_PASSES,
                       event_handler=handler)
         wall = time.monotonic() - t0
         launches = kernels.launch_counts()
+        exe_runs = _exe_delta(trainer.exe, exe_before)
         # Executor.stats mirror the process counters: this run's share
         tune_stats = {k: trainer.exe.stats[k] - v
                       for k, v in tune_before.items()}
@@ -1657,6 +1697,7 @@ def _lm_train(dev, label, after=None, want_matmul=0,
         if steps != 2 * TRAIN_PASSES or launches != want:
             fail("%s launch counts %s over %d steps, expected %s"
                  % (label, launches, steps, want))
+        _compiled_gate(label, exe_runs, steps)
         # under pure AMP the loss is a bfloat16 value: it falls only by
         # more than one bfloat16 ulp
         fall = _bf16_ulp(abs(losses[0])) if amp == "pure" else 0.0
@@ -1712,9 +1753,11 @@ def _lm_train(dev, label, after=None, want_matmul=0,
         "tokens_per_s": tokens / p50, "wall_s": wall,
         "peak_memory_bytes": peak, "launches": launches,
         "launches_per_step": {k: v / steps for k, v in launches.items()},
-        "tune": tune_stats, "profile": profile_window}
+        "tune": tune_stats, "executor": exe_runs,
+        "traces": _traces(exe_runs, steps), "profile": profile_window}
     if after:
         rec["served"] = extra
+    trainer.exe.close()
     del trainer
     torch.cuda.empty_cache()
     return rec
@@ -1725,8 +1768,8 @@ def _parent_face_window(trainer, spec):
     flash forward, dK/dV and dQ sent to the mma.sync kernels (the faces'
     design before their wgmma kernels, the parents' sources under new
     names): the device time and the faces' shares beside theirs, in the
-    same run. A measurement only: the main path's launches were read
-    before it."""
+    same run, on the per-op path (so that the patched wrappers run). A
+    measurement only: the main path's launches were read before it."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.kernels import flash_attention as fa
     saved = {n: getattr(fa, n) for n in ("_launch_fwd", "_bwd_dkv",
@@ -1743,7 +1786,8 @@ def _parent_face_window(trainer, spec):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
-            trainer.train(spec["reader"], num_passes=1)
+            # on the per-op path: a replay would not call the wrappers
+            _eager_steps(trainer, spec["reader"]())
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
     finally:
@@ -2536,10 +2580,13 @@ def phase_convnet(dev, amp=False):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launches()
+        exe_before = dict(trainer.exe.stats)
         t0 = time.monotonic()
         trainer.train(fixed(R50_STEPS), num_passes=1, event_handler=handler)
         wall = time.monotonic() - t0
         launches = kernels.launch_counts()
+        _compiled_gate(label, _exe_delta(trainer.exe, exe_before),
+                       len(losses))
         peak = torch.cuda.max_memory_allocated(dev)
         steps = len(losses)
         face = "_bf16" if amp else ""
@@ -2589,6 +2636,7 @@ def phase_convnet(dev, amp=False):
         "profile": profile_window}}))
     log("%s %.3f (batch %d, step p50 %.3f ms)"
         % (metric, R50_BATCH / p50, R50_BATCH, p50 * 1e3))
+    trainer.exe.close()
     del trainer
     torch.cuda.empty_cache()
     return launches, R50_BATCH / p50
@@ -2998,10 +3046,13 @@ def phase_rnn(dev, cell, amp=False):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launches()
+        exe_before = dict(trainer.exe.stats)
         t0 = time.monotonic()
         trainer.train(fixed(RNN_STEPS), num_passes=1, event_handler=handler)
         wall = time.monotonic() - t0
         launches = kernels.launch_counts()
+        _compiled_gate(label, _exe_delta(trainer.exe, exe_before),
+                       len(losses))
         peak = torch.cuda.max_memory_allocated(dev)
         steps = len(losses)
         # per RNN layer a step: the forward, and its replay in the generic
@@ -3033,7 +3084,9 @@ def phase_rnn(dev, cell, amp=False):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t1 = time.monotonic()
-                trainer.train(fixed(2), num_passes=1)
+                # on the per-op path, so that the marked loop runs (phase
+                # 12 profiles the compiled steps)
+                _eager_steps(trainer, fixed(2)())
                 torch.cuda.synchronize()
                 prof_wall = time.monotonic() - t1
         finally:
@@ -3065,6 +3118,7 @@ def phase_rnn(dev, cell, amp=False):
     log("%s_train_tokens_per_sec %.3f (batch %d x %d words, step p50 "
         "%.3f ms)" % (label, tokens / p50, RNN_BENCH["batch"],
                       RNN_BENCH["seq_len"], p50 * 1e3))
+    trainer.exe.close()
     del trainer
     torch.cuda.empty_cache()
     return launches, {
@@ -3284,8 +3338,11 @@ def _tiling_grad_sweep(dev, work, rows):
                 for n in params:
                     scope.set_var(n, start[n].clone())
                 kernels.reset_launches()
+                # per-op: a compiled step would replay the first
+                # tiling's kernels whatever the cache says
                 outs = trainer.exe.run(main_prog, feed=feed, fetch_list=[
-                    n + "@GRAD" for n in params], return_numpy=False)
+                    n + "@GRAD" for n in params], return_numpy=False,
+                    use_jit=False)
                 torch.cuda.synchronize()
                 launches = kernels.launch_counts()
                 got = dict(zip(params, outs))
@@ -3416,6 +3473,7 @@ def _conv_consult(dev, cache_dir):
              "miss" % (stats, 2 * (kernel_convs + stock_convs)))
     if not (len(losses) == 1 and np.isfinite(losses[0])):
         fail("conv3x3 consult: the step's loss is %s" % losses)
+    trainer.exe.close()
     del trainer
     torch.cuda.empty_cache()
     return launches
@@ -3466,10 +3524,14 @@ def phase_tune(dev, root, train5):
         "phase5_tokens_per_s": train5["tokens_per_s"],
         "phase5_peak_memory_bytes": train5["peak_memory_bytes"]})
     log(json.dumps({"tuned_train": rec}))
-    if rec["tune"] != {"tune_hits": per_layer * L * steps, "tune_misses": 0,
-                       "tune_fallbacks": steps}:
-        fail("tuned train tune counters %s over %d steps, expected %d hits "
-             "and 1 fallback a step" % (rec["tune"], steps, per_layer * L))
+    # the consults run where the lowerings run: the warm-up and the
+    # capture, not the replays (ROADMAP Queue 3 #4)
+    traces = rec["traces"]
+    if rec["tune"] != {"tune_hits": per_layer * L * traces,
+                       "tune_misses": 0, "tune_fallbacks": traces}:
+        fail("tuned train tune counters %s over %d steps (%d traced), "
+             "expected %d hits and 1 fallback a traced step"
+             % (rec["tune"], steps, traces, per_layer * L))
     if not loss_rel <= LOSS_REL_TOL:
         fail("tuned train losses differ from phase 5's by %g > %g"
              % (loss_rel, LOSS_REL_TOL))
@@ -4616,11 +4678,12 @@ def phase_amp(dev, root, f32_images_s, tuned, rnn32):
                     "float32_tuned_tokens_per_s": tuned["tokens_per_s"],
                     "float32_tuned_step_ms_p50": tuned["step_ms_p50"]})
         log(json.dumps({label: rec}))
-        if rec["tune"] != {"tune_hits": per_layer * L * steps,
-                           "tune_misses": 0, "tune_fallbacks": steps}:
-            fail("%s tune counters %s over %d steps, expected %d hits and "
-                 "1 fallback a step" % (label, rec["tune"], steps,
-                                        per_layer * L))
+        traces = rec["traces"]
+        if rec["tune"] != {"tune_hits": per_layer * L * traces,
+                           "tune_misses": 0, "tune_fallbacks": traces}:
+            fail("%s tune counters %s over %d steps (%d traced), expected "
+                 "%d hits and 1 fallback a traced step"
+                 % (label, rec["tune"], steps, traces, per_layer * L))
         paths[label] = rec["launches"]
     paths["rnn_train_lstm_pure_amp"], rnn_pure = phase_rnn(dev, "lstm",
                                                            amp="pure")
@@ -5488,6 +5551,730 @@ def phase_disagg(dev, root, art_dir, prompts, results, plain, http):
     return {"disagg_prefill": pre_l, "disagg_decode": dec_l}
 
 
+# -- phase 12 -----------------------------------------------------------------
+
+# Phase 12 (compiled): each training path runs COMPILED_STEPS steps on the
+# per-op path (use_jit=False) and COMPILED_STEPS on the compiled path
+# (warm-up, capture, replays) from one saved state, then PROFILE_STEPS
+# profiled steps of each
+COMPILED_STEPS = 6
+PROFILE_STEPS = 2
+# repeat=K on the LM; the pipelined Trainer's batches and ring depth
+REPEAT_K = 4
+PIPE_BATCHES = 8
+PIPE_DEPTH = 2
+# the longest sequences of the ragged LSTM batches: one key each
+RAGGED_LENS = (90, 64, 100, 77)
+# kernel symbol on the card -> the launch counts its wrappers keep (one
+# kernel in two roles counts under both)
+KERNEL_SYMBOLS = {
+    "flash_fwd_kernel": ("flash_attention_fwd",),
+    "flash_bwd_dkv_kernel": ("flash_attention_bwd_dkv",),
+    "flash_bwd_dq_kernel": ("flash_attention_bwd_dq",),
+    "flash_fwd_bf16_wgmma_kernel": ("flash_attention_fwd_bf16",),
+    "flash_fwd_bf16_mma_kernel": ("flash_attention_fwd_bf16_mma",),
+    "flash_bwd_dkv_bf16_wgmma_kernel": ("flash_attention_bwd_dkv_bf16",),
+    "flash_bwd_dq_bf16_wgmma_kernel": ("flash_attention_bwd_dq_bf16",),
+    "flash_bwd_dkv_bf16_mma_kernel": ("flash_attention_bwd_dkv_bf16_mma",),
+    "flash_bwd_dq_bf16_mma_kernel": ("flash_attention_bwd_dq_bf16_mma",),
+    "paged_attention_split_kernel": ("paged_attention",),
+    "conv3x3_kernel": ("conv3x3_fwd", "conv3x3_dx"),
+    "conv3x3_bf16_wgmma_kernel": ("conv3x3_fwd_bf16", "conv3x3_dx_bf16"),
+    "conv3x3_bf16_ragged_kernel": ("conv3x3_fwd_bf16_ragged",
+                                   "conv3x3_dx_bf16_ragged"),
+    "fused_lstm_kernel": ("fused_lstm", "fused_lstm_bf16"),
+    "fused_gru_kernel": ("fused_gru",),
+    "matmul_kernel": ("matmul",),
+    "matmul_bf16_wgmma_kernel": ("matmul_bf16",),
+    "matmul_bf16_ragged_kernel": ("matmul_bf16_ragged",),
+}
+# the Executor's run counters a compiled path is held to
+_EXE_KEYS = ("jit_runs", "eager_runs", "hybrid_runs", "graph_captures",
+             "graph_replays")
+
+
+def _exe_delta(exe, before):
+    return {k: exe.stats[k] - before[k] for k in _EXE_KEYS}
+
+
+def _compiled_gate(label, delta, steps):
+    """``steps`` Trainer steps ran compiled: the warm-up, the capture,
+    one replay a step from the capture on, and no eager fallback."""
+    want = {"jit_runs": steps, "eager_runs": 0, "hybrid_runs": 0,
+            "graph_captures": 1 if steps > 1 else 0,
+            "graph_replays": steps - 1}
+    if delta != want:
+        fail("%s: the Executor's runs %s over %d steps, expected %s (a "
+             "capture failed or a step left the compiled path)"
+             % (label, delta, steps, want))
+
+
+def _traces(delta, steps):
+    """How many of ``steps`` compiled steps ran their lowerings (and so
+    the tune consults): the eager ones and the captures."""
+    return steps - delta["graph_replays"] + delta["graph_captures"]
+
+
+def _eager_steps(trainer, batches):
+    """Run ``batches`` through the trainer's program on the per-op path
+    (a window that patches a Python function needs its lowerings run)."""
+    for data in batches:
+        trainer.exe.run(trainer.main_program,
+                        feed=trainer.feeder.feed(data),
+                        fetch_list=trainer.fetch_list, use_jit=False)
+
+
+def _by_kind(prof):
+    """Device ms by kind of kernel over a profile."""
+    kinds = collections.OrderedDict((k, 0.0) for k in (
+        "gemm", "flash", "conv", "rnn", "copy", "other"))
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = (e.self_cuda_time_total if t is None else t) / 1e3
+        k = e.key.lower()
+        if "flash_" in k:
+            kinds["flash"] += t
+        elif "fused_lstm" in k or "fused_gru" in k:
+            kinds["rnn"] += t
+        elif any(w in k for w in ("conv", "cudnn", "implicit", "dgrad",
+                                  "wgrad", "fprop")):
+            kinds["conv"] += t
+        elif any(w in k for w in ("gemm", "cutlass", "gemv", "matmul",
+                                  "xmma")):
+            kinds["gemm"] += t
+        elif "memcpy" in k or "memset" in k:
+            kinds["copy"] += t
+        else:
+            kinds["other"] += t
+    return kinds
+
+
+def _symbol_launches(prof, counted):
+    """Device launches of each kernel symbol over a profile against the
+    launches its wrappers ``counted`` over the same steps: {symbol:
+    (device, counted)} for every symbol either saw."""
+    import re
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {}
+    for sym, names in KERNEL_SYMBOLS.items():
+        pat = re.compile(r"(^|[\s:])%s[<(]" % sym)
+        dev_n = sum(e.count for e in device if pat.search(e.key))
+        want = sum(counted[n] for n in names)
+        if dev_n or want:
+            out[sym] = (dev_n, want)
+    return out
+
+
+def _kept_graph_class():
+    """A CUDA graph class whose graphs keep their ``cudaGraph_t`` after
+    the capture (``keep_graph``), so that their nodes can be read; each
+    is instantiated at its first replay."""
+
+    class KeptGraph(torch.cuda.CUDAGraph):
+        def __new__(cls, keep_graph=False):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph=False):
+            super().__init__(True)
+
+    return KeptGraph
+
+
+def _graph_symbol_nodes(graph, delta):
+    """What one replay of a captured step launches, read from the
+    driver: {symbol: (kernel nodes of the graph that run it, launches
+    its wrappers add a replay)} for every symbol either has."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(g, None, ctypes.byref(n)):
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)):
+        fail("cuGraphGetNodes failed")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            fail("cuGraphNodeGetType failed")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = (ctypes.c_char * 256)()  # CUDA_KERNEL_NODE_PARAMS_v2
+        if cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params):
+            fail("cuGraphKernelNodeGetParams_v2 failed")
+        func = ctypes.c_void_p.from_buffer(params).value
+        name = ctypes.c_char_p()
+        if cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)):
+            fail("cuFuncGetName failed")
+        names.append(name.value.decode())
+    out = {}
+    for sym, counters in KERNEL_SYMBOLS.items():
+        # a mangled name holds the symbol after its length
+        tag = "%d%s" % (len(sym), sym)
+        got = sum(1 for nm in names if tag in nm)
+        want = sum(delta.get(c, 0) for c in counters)
+        if got or want:
+            out[sym] = (got, want)
+    return out
+
+
+def _persistables(program, scope):
+    return {v.name: scope.find_var(v.name).clone()
+            for v in program.list_vars() if v.persistable
+            and isinstance(scope.find_var(v.name), torch.Tensor)}
+
+
+def _mode_run(dev, program, cost, feed, state, use_jit, keep=False):
+    """COMPILED_STEPS steps of ``program`` on ``feed`` from ``state`` in a
+    fresh scope and Executor, then PROFILE_STEPS profiled ones: the loss
+    tensors, each step's CUDA-event ms, the launch counts, the
+    Executor's run and tune counters, the peak memory, the state after
+    the timed steps and the profile window. ``keep``: also return the
+    Executor and scope."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import kernels, tune
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    exe, scope = Executor(dev), Scope()
+    for n, t in state.items():
+        scope.set_var(n, t.clone())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    before, tune0 = dict(exe.stats), tune.counters()
+    losses, ms = [], []
+    plain_graph = torch.cuda.CUDAGraph
+    torch.cuda.CUDAGraph = _kept_graph_class()
+    try:
+        for _ in range(COMPILED_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = exe.run(program, feed=feed, fetch_list=[cost],
+                          scope=scope, use_jit=use_jit, return_numpy=False)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(out[0])
+    finally:
+        torch.cuda.CUDAGraph = plain_graph
+    steps = [e for e in exe._cache.values() if e.graph is not None]
+    rec = {"launches": kernels.launch_counts(),
+           "executor": _exe_delta(exe, before),
+           "tune": {k: v - tune0[k] for k, v in tune.counters().items()},
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+           "step_ms": ms, "step_ms_p50": float(np.median(ms)),
+           "step_ms_p50_from_step3": float(np.median(ms[2:]))}
+    if steps:
+        rec["graph_kernel_nodes"] = _graph_symbol_nodes(steps[-1].graph,
+                                                        steps[-1].delta)
+    final = _persistables(program, scope)
+    counts0 = kernels.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(PROFILE_STEPS):
+            exe.run(program, feed=feed, fetch_list=[cost], scope=scope,
+                    use_jit=use_jit, return_numpy=False)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    counted = {k: v - counts0[k] for k, v in kernels.launch_counts().items()}
+    window = _device_kernels(prof, wall)
+    window["by_kind_ms"] = _by_kind(prof)
+    window["steps"] = PROFILE_STEPS
+    window["symbol_launches"] = _symbol_launches(prof, counted)
+    rec["profile"] = window
+    if keep:
+        return rec, losses, final, exe, scope
+    exe.close()
+    return rec, losses, final
+
+
+def _compiled_path(dev, label, program, cost, feed, state, kernel,
+                   repeat=False):
+    """One path of phase 12: eager against compiled from ``state``, the
+    gates, and (``repeat``) repeat=REPEAT_K against REPEAT_K single
+    compiled runs. Returns the record and the compiled run's launches."""
+    eager, e_losses, e_final = _mode_run(dev, program, cost, feed, state,
+                                         use_jit=False)
+    comp, c_losses, c_final, exe, scope = _mode_run(
+        dev, program, cost, feed, state, use_jit=True, keep=True)
+    diffs = [float((a.double() - b.double()).abs().max())
+             for a, b in zip(e_losses, c_losses)]
+    same_loss = all(torch.equal(a, b) for a, b in zip(e_losses, c_losses))
+    state_diff = {n: float((t.double() - c_final[n].double()).abs().max())
+                  for n, t in e_final.items()}
+    same_state = all(torch.equal(t, c_final[n]) for n, t in e_final.items())
+    rec = {"losses": [float(l.float().reshape(-1)[0]) for l in c_losses],
+           "max_abs_loss_diff_vs_eager": max(diffs),
+           "losses_bit_identical": same_loss,
+           "state_bit_identical": same_state,
+           "max_abs_state_diff_vs_eager": max(state_diff.values()),
+           "eager": eager, "compiled": comp}
+    if repeat:
+        snap = _persistables(program, scope)
+        exe.run(program, feed=feed, fetch_list=[cost], scope=scope,
+                repeat=REPEAT_K)
+        rep = _persistables(program, scope)
+        for n, t in snap.items():
+            scope.set_var(n, t.clone())
+        for _ in range(REPEAT_K):
+            exe.run(program, feed=feed, fetch_list=[cost], scope=scope)
+        single = _persistables(program, scope)
+        rec["repeat"] = {
+            "k": REPEAT_K,
+            "state_bit_identical": all(torch.equal(t, single[n])
+                                       for n, t in rep.items()),
+            "executor_after": {k: exe.stats[k] for k in _EXE_KEYS}}
+        del snap, rep, single
+    exe.close()
+    del exe, scope, e_final, c_final
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps({"compiled_" + label: rec}))
+    if not (same_loss and same_state):
+        fail("%s: compiled steps differ from the eager ones (losses %s, "
+             "largest loss difference %g, largest state difference %g)"
+             % (label, "identical" if same_loss else "different",
+                max(diffs), rec["max_abs_state_diff_vs_eager"]))
+    _compiled_gate(label + " (phase 12)", comp["executor"], COMPILED_STEPS)
+    if eager["executor"]["eager_runs"] != COMPILED_STEPS:
+        fail("%s: the eager run took another path: %s"
+             % (label, eager["executor"]))
+    if comp["launches"] != eager["launches"] or \
+            not comp["launches"][kernel]:
+        fail("%s: compiled launches %s, eager %s (kernel %s expected)"
+             % (label, comp["launches"], eager["launches"], kernel))
+    # the kernel nodes of the captured graph, which every replay launches,
+    # against the launches the wrappers add a replay; the profiler's
+    # counts are printed, not gated: in both modes it misses a record now
+    # and then (47 of 48 flash forwards in the LM's 2-step windows)
+    nodes = comp.get("graph_kernel_nodes", {})
+    off = {sym: n for sym, n in nodes.items() if n[0] != n[1]}
+    if off or not nodes:
+        fail("%s: the captured graph's kernel nodes of each symbol differ "
+             "from the launches its wrappers add a replay {symbol: (graph, "
+             "counted)}: %s" % (label, off or nodes))
+    for sym, (got, _) in nodes.items():
+        if comp["profile"]["symbol_launches"].get(sym, (0, 0))[1] != \
+                got * PROFILE_STEPS:
+            fail("%s: the wrappers counted %s over %d replays, the graph "
+                 "launches %d %s a replay"
+                 % (label, comp["profile"]["symbol_launches"].get(sym),
+                    PROFILE_STEPS, got, sym))
+    if repeat and not rec["repeat"]["state_bit_identical"]:
+        fail("%s: repeat=%d left another state than %d single compiled "
+             "runs" % (label, REPEAT_K, REPEAT_K))
+    return rec, comp["launches"]
+
+
+def _compiled_lm(dev, amp=False):
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    widths, cfg, spec, trainer, main_prog = _lm_build(dev)
+    if amp:
+        from paddle_tpu_torch import amp as amp_mod
+        amp_mod.enable(main_prog, pure=True)
+    with scope_guard(Scope()) as _:
+        trainer._maybe_init()
+        from paddle_tpu_torch.core.scope import global_scope
+        state = _persistables(main_prog, global_scope())
+        feed = trainer.feeder.feed(next(iter(spec["reader"]())))
+    label = "lm_pure_amp" if amp else "lm"
+    kernel = "flash_attention_fwd" + ("_bf16" if amp else "")
+    out = _compiled_path(dev, label, main_prog, spec["cost"], feed, state,
+                         kernel, repeat=not amp)
+    trainer.exe.close()
+    return out
+
+
+def _first_divergence(dev, program, feed, state):
+    """Run one step's lowerings twice on the per-op path from ``state``
+    and compare every op output by name, in program order: (index, op
+    type, var, largest difference) of the first that differs and how many
+    do, or None. Two runs of one step differ only where a library's
+    algorithm is not deterministic."""
+    from paddle_tpu_torch.core.executor import raw_data, trace_ops
+    block = program.global_block()
+
+    def run():
+        env = dict(feed)
+        env.update({n: t.clone() for n, t in state.items()})
+        with torch.no_grad():
+            trace_ops(block, env, torch.Generator(device=dev).manual_seed(0),
+                      dev)
+        torch.cuda.synchronize()
+        return env
+
+    a, b = run(), run()
+    first, n_diff = None, 0
+    for i, op in enumerate(block.ops):
+        for n in op.output_arg_names:
+            x, y = raw_data(a.get(n)), raw_data(b.get(n))
+            if isinstance(x, torch.Tensor) and not torch.equal(x, y):
+                n_diff += 1
+                if first is None:
+                    first = {"op_index": i, "op": op.type, "var": n,
+                             "max_abs_diff": float((x.double() - y.double())
+                                                   .abs().max())}
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"first": first, "outputs_differing": n_diff}
+
+
+def _compiled_resnet(dev):
+    from paddle_tpu_torch.configs import resnet_cifar
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    from paddle_tpu_torch.trainer import Trainer
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        spec = resnet_cifar.model(variant="imagenet", depth=50, image=224,
+                                  class_dim=1000, batch=R50_BATCH,
+                                  learning_rate=R50_LR)
+        trainer = Trainer(spec["cost"], spec["optimizer"],
+                          spec["feed_list"], device=dev)
+    rng = np.random.RandomState(0)
+    batch = list(zip(rng.rand(R50_BATCH, 3, 224, 224).astype(np.float32),
+                     rng.randint(0, 1000, (R50_BATCH, 1)).astype(np.int64)))
+    with scope_guard(Scope()):
+        trainer._maybe_init()
+        state = _persistables(main_prog, global_scope())
+    feed = trainer.feeder.feed(batch)
+    # cuDNN's default algorithms for the convs' weight gradients are not
+    # deterministic: two eager runs of one step differ (printed), so the
+    # compiled run is held to the eager one with deterministic algorithms
+    # in both
+    probe = _first_divergence(dev, main_prog, feed, state)
+    log(json.dumps({"resnet50_eager_vs_eager": probe}))
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = _compiled_path(dev, "resnet50", main_prog, spec["cost"], feed,
+                             state, "conv3x3_fwd")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    out[0]["eager_vs_eager"] = probe
+    out[0]["cudnn_deterministic"] = True
+    trainer.exe.close()
+    return out
+
+
+def _rnn_trainer(dev, cell, samples):
+    from paddle_tpu_torch.configs import text_rnn
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.trainer import Trainer
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        spec = text_rnn.model(cell=cell, samples=samples, **RNN_BENCH)
+        trainer = Trainer(spec["cost"], spec["optimizer"],
+                          spec["feed_list"], device=dev)
+    return spec, trainer, main_prog
+
+
+def _compiled_rnn(dev, cell):
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    spec, trainer, main_prog = _rnn_trainer(dev, cell, RNN_BENCH["batch"])
+    with scope_guard(Scope()):
+        trainer._maybe_init()
+        state = _persistables(main_prog, global_scope())
+    feed = trainer.feeder.feed(next(iter(spec["reader"]())))
+    out = _compiled_path(dev, "rnn_" + cell, main_prog, spec["cost"], feed,
+                         state, "fused_" + cell)
+    trainer.exe.close()
+    return out
+
+
+def _pool_bytes(pool):
+    """Bytes the caching allocator holds in a graph memory pool."""
+    if pool is None:
+        return 0
+    return sum(seg["total_size"] for seg in
+               torch.cuda.memory._snapshot()["segments"]
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def _ragged_feeds(trainer, rng):
+    """One LSTM batch for each of RAGGED_LENS: sequence lengths drawn up
+    to the longest, which one sequence has."""
+    vocab, batch = RNN_BENCH["vocab"], RNN_BENCH["batch"]
+    feeds = []
+    for top in RAGGED_LENS:
+        lens = rng.randint(top // 2, top + 1, batch)
+        lens[rng.randint(batch)] = top
+        samples = [(rng.randint(0, vocab, (n, 1)).astype(np.int64),
+                    rng.randint(0, 2, (1,)).astype(np.int64)) for n in lens]
+        feeds.append(trainer.feeder.feed(samples))
+    return feeds
+
+
+def _compiled_ragged(dev):
+    """Ragged LSTM batches whose longest sequences differ, so each is a
+    key of its own: each twice (warm-up, capture and replay) then each
+    once more (a replay), compiled against eager from one state. The
+    losses bit-identical, one capture and two replays a key, the graphs
+    in the Executor's one pool; step ms and memory printed."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    spec, trainer, main_prog = _rnn_trainer(dev, "lstm", RNN_BENCH["batch"])
+    with scope_guard(Scope()):
+        trainer._maybe_init()
+        state = _persistables(main_prog, global_scope())
+    feeds = _ragged_feeds(trainer, np.random.RandomState(3))
+    order = [i for i in range(len(feeds)) for _ in range(2)] + \
+        list(range(len(feeds)))
+    runs = {}
+    for use_jit in (False, True):
+        exe, scope = Executor(dev), Scope()
+        for n, t in state.items():
+            scope.set_var(n, t.clone())
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reserved0 = torch.cuda.memory_reserved(dev)
+        losses, ms, reserved, pool = [], [], [], []
+        for i in order:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = exe.run(main_prog, feed=feeds[i],
+                          fetch_list=[spec["cost"]], scope=scope,
+                          use_jit=use_jit, return_numpy=False)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(out[0])
+            reserved.append(torch.cuda.memory_reserved(dev) - reserved0)
+            pool.append(_pool_bytes(exe._pool))
+        k = len(feeds)
+        runs[use_jit] = {
+            "losses": losses, "step_ms": ms,
+            "step_ms_p50_last_pass": float(np.median(ms[2 * k:])),
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev),
+            "reserved_growth_bytes": reserved, "graph_pool_bytes": pool,
+            "graphs_in_pool": exe._pool_graphs.get(exe._pool, 0),
+            "executor": {n: exe.stats[n] for n in _EXE_KEYS}}
+        exe.close()
+        del exe, scope
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = all(torch.equal(a, b) for a, b in zip(runs[False]["losses"],
+                                                 runs[True]["losses"]))
+    rec = {"longest": list(RAGGED_LENS), "order": order,
+           "losses_bit_identical": same}
+    for use_jit, r in runs.items():
+        r["losses"] = [float(l.reshape(-1)[0]) for l in r["losses"]]
+        rec["compiled" if use_jit else "eager"] = r
+    log(json.dumps({"compiled_ragged": rec}))
+    k = len(RAGGED_LENS)
+    want = {"jit_runs": 3 * k, "eager_runs": 0, "hybrid_runs": 0,
+            "graph_captures": k, "graph_replays": 2 * k}
+    if not same or rec["compiled"]["executor"] != want \
+            or rec["compiled"]["graphs_in_pool"] != k:
+        fail("ragged LSTM keys: losses %s, executor %s (expected %s), %d "
+             "graphs in the shared pool"
+             % ("identical" if same else "different",
+                rec["compiled"]["executor"], want,
+                rec["compiled"]["graphs_in_pool"]))
+    trainer.exe.close()
+    return rec
+
+
+def _compiled_pipeline(dev):
+    """The pipelined Trainer (depth PIPE_DEPTH) on the LSTM classifier
+    over PIPE_BATCHES distinct batches against the synchronous Trainer
+    from the same state: losses bit-identical."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    from paddle_tpu_torch.trainer import EndIteration
+    spec, trainer, main_prog = _rnn_trainer(
+        dev, "lstm", PIPE_BATCHES * RNN_BENCH["batch"])
+    with scope_guard(Scope()):
+        trainer._maybe_init()
+        state = _persistables(main_prog, global_scope())
+    runs = {}
+    for pipelined in (False, True):
+        trainer.exe.close()
+        trainer.exe = Executor(dev)
+        with scope_guard(Scope()):
+            for n, t in state.items():
+                global_scope().set_var(n, t.clone())
+            trainer._initialized = True
+            costs = []
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            trainer.train(spec["reader"], num_passes=1,
+                          event_handler=lambda e: costs.append(e)
+                          if isinstance(e, EndIteration) else None,
+                          pipeline=pipelined, pipeline_depth=PIPE_DEPTH)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            runs[pipelined] = {
+                "losses": [e.cost for e in costs], "wall_s": wall,
+                "executor": {k: trainer.exe.stats[k] for k in
+                             _EXE_KEYS + ("lazy_fetches", "feed_wait_ms",
+                                          "dispatch_depth")},
+                "feed_pipeline": trainer.pipeline_stats}
+    trainer.exe.close()
+    rec = {"sync": runs[False], "pipelined": runs[True],
+           "depth": PIPE_DEPTH, "batches": PIPE_BATCHES}
+    log(json.dumps({"compiled_pipeline": rec}))
+    if runs[True]["losses"] != runs[False]["losses"] or \
+            len(runs[True]["losses"]) != PIPE_BATCHES:
+        fail("pipelined Trainer losses %s differ from the synchronous %s"
+             % (runs[True]["losses"], runs[False]["losses"]))
+    piped = runs[True]["feed_pipeline"] or {}
+    if piped.get("slot_reuse") != PIPE_BATCHES - PIPE_DEPTH \
+            or piped.get("fallback_sync"):
+        fail("pipelined Trainer's ring: %s, expected %d slot reuses and no "
+             "fallback" % (piped, PIPE_BATCHES - PIPE_DEPTH))
+    for mode, r in runs.items():
+        _compiled_gate("pipeline=%s" % mode, {
+            k: r["executor"][k] for k in _EXE_KEYS}, PIPE_BATCHES)
+    return rec
+
+
+def _compiled_hybrid(dev, work):
+    """A save between two device segments: hybrid runs, both segments
+    captured, the file the eager run's."""
+    import pickle
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    xs = np.random.RandomState(0).rand(1024, 1024).astype(np.float32)
+    files, outs, stats = {}, {}, {}
+    for use_jit in (True, False):
+        path = os.path.join(work, "hybrid_%s" % use_jit, "a")
+        prog = ir.Program()
+        blk = prog.global_block()
+        x = blk.create_var(name="x", shape=(1024, 1024), dtype="float32")
+        a = blk.create_var(name="a", shape=(1024, 1024), dtype="float32")
+        b = blk.create_var(name="b", shape=(1024, 1024), dtype="float32")
+        blk.append_op("scale", inputs={"X": [x]}, outputs={"Out": [a]},
+                      attrs={"scale": 2.0, "bias": 1.0})
+        blk.append_op("save", inputs={"X": [a]}, attrs={"file_path": path})
+        blk.append_op("scale", inputs={"X": [a]}, outputs={"Out": [b]},
+                      attrs={"scale": 3.0})
+        exe, scope = Executor(dev), Scope()
+        for _ in range(3):
+            outs[use_jit] = exe.run(prog, feed={"x": xs}, fetch_list=[b],
+                                    scope=scope, use_jit=use_jit)[0]
+        stats[use_jit] = {k: exe.stats[k] for k in _EXE_KEYS}
+        exe.close()
+        with open(path, "rb") as f:
+            files[use_jit] = pickle.load(f)["data"]
+    rec = {"compiled": stats[True], "eager": stats[False],
+           "file_equal": bool(np.array_equal(files[True], files[False])),
+           "fetch_equal": bool(np.array_equal(outs[True], outs[False]))}
+    log(json.dumps({"compiled_hybrid": rec}))
+    if not (rec["file_equal"] and rec["fetch_equal"]
+            and stats[True]["hybrid_runs"] == 3
+            and stats[True]["graph_captures"] == 2
+            and stats[True]["graph_replays"] == 4):
+        fail("hybrid program: %s" % rec)
+    return rec
+
+
+def _compiled_fallback(dev):
+    """A test-only op that reads a value back to the host: the capture
+    fails, warns, the run falls back and is right; then another program
+    captures."""
+    import warnings
+    from paddle_tpu_torch.configs import fit_a_line
+    from paddle_tpu_torch.core import ir, registry, unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+
+    if registry.lookup("smoke_host_read") is None:
+        @registry.register_op("smoke_host_read", no_gradient=True)
+        def _host_read(ctx):
+            x = ctx.input("X")
+            ctx.set_output("Out", x * float(x.abs().max().item()))
+
+    prog = ir.Program()
+    blk = prog.global_block()
+    x = blk.create_var(name="x", shape=(4,), dtype="float32")
+    out = blk.create_var(name="out", shape=(4,), dtype="float32")
+    blk.append_op("smoke_host_read", inputs={"X": [x]},
+                  outputs={"Out": [out]})
+    exe, scope = Executor(dev), Scope()
+    xs = np.array([1.0, -3.0, 2.0, 0.5], np.float32)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = [exe.run(prog, feed={"x": xs}, fetch_list=[out],
+                       scope=scope)[0] for _ in range(3)]
+    msgs = [str(w.message) for w in caught
+            if issubclass(w.category, RuntimeWarning)]
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        spec = fit_a_line.model()
+        spec["optimizer"].minimize(spec["cost"])
+    b = next(iter(spec["reader"]()))
+    feed = {"x": np.stack([r[0] for r in b]),
+            "y": np.stack([r[1] for r in b])}
+    exe.run(startup, scope=scope)
+    for _ in range(3):
+        exe.run(main_prog, feed=feed, fetch_list=[spec["cost"]],
+                scope=scope)
+    rec = {"warnings": msgs, "executor": {k: exe.stats[k]
+                                          for k in _EXE_KEYS},
+           "results_right": all(np.array_equal(g, xs * 3.0) for g in got)}
+    exe.close()
+    log(json.dumps({"compiled_fallback": rec}))
+    if not (len(msgs) == 1 and "smoke_host_read" in msgs[0]
+            and rec["results_right"]
+            and rec["executor"]["eager_runs"] == 2
+            and rec["executor"]["graph_captures"] == 1):
+        fail("capture fallback: %s" % rec)
+    return rec
+
+
+def phase_compiled(dev, root):
+    """Phase 12: the Executor's compiled step against its per-op path on
+    every training path, in one call. Returns ({path: launches}, the
+    summary)."""
+    t0 = time.monotonic()
+    work = _fresh_dir(os.path.join(root, "build", "chip_smoke", "compiled"))
+    paths, summary = {}, {}
+    for label, fn in (("lm", lambda: _compiled_lm(dev)),
+                      ("lm_pure_amp", lambda: _compiled_lm(dev, amp=True)),
+                      ("resnet50", lambda: _compiled_resnet(dev)),
+                      ("rnn_lstm", lambda: _compiled_rnn(dev, "lstm")),
+                      ("rnn_gru", lambda: _compiled_rnn(dev, "gru"))):
+        rec, launches = fn()
+        paths["compiled_" + label] = launches
+        summary[label] = {
+            mode: {"step_ms_p50": rec[mode]["step_ms_p50"],
+                   "step_ms_p50_from_step3":
+                       rec[mode]["step_ms_p50_from_step3"],
+                   "device_busy_share":
+                       rec[mode]["profile"]["device_busy_share"],
+                   "device_kernel_ms_two_steps":
+                       rec[mode]["profile"]["device_kernel_ms"],
+                   "peak_memory_bytes": rec[mode]["peak_memory_bytes"],
+                   "tune": rec[mode]["tune"]}
+            for mode in ("eager", "compiled")}
+        summary[label]["max_abs_loss_diff_vs_eager"] = \
+            rec["max_abs_loss_diff_vs_eager"]
+        if "eager_vs_eager" in rec:
+            summary[label]["eager_vs_eager"] = rec["eager_vs_eager"]
+    summary["ragged"] = _compiled_ragged(dev)
+    summary["pipeline"] = _compiled_pipeline(dev)
+    summary["hybrid"] = _compiled_hybrid(dev, work)
+    summary["fallback"] = _compiled_fallback(dev)
+    summary["wall_s"] = time.monotonic() - t0
+    log(json.dumps({"compiled": summary}))
+    return paths
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -5542,6 +6329,7 @@ def main():
                        results, plain_serving)
     disagg_paths = timed(11, phase_disagg, dev, root, art_dir, prompts,
                          results, plain_serving, http)
+    compiled_paths = timed(12, phase_compiled, dev, root)
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
     paths = {"serve": serve_launches, **spec_paths, **disagg_paths,
              "train": train5["launches"],
@@ -5549,7 +6337,8 @@ def main():
              "rnn_train_lstm": lstm_launches,
              "rnn_train_gru": gru_launches,
              "tuned_train": tuned_launches,
-             "convnet_conv3x3_consult": consult_launches, **amp_paths}
+             "convnet_conv3x3_consult": consult_launches, **amp_paths,
+             **compiled_paths}
     for name, entry in kernels.items():
         # each main path is read with the counts set to 0 just before it
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -13,10 +13,13 @@ path, over shared kernels, with AMP on the training paths:
   generative artifact, the JAX package's format) and
   ``analysis/memory.py`` (its PT034 memory-budget check);
 - the Fluid training path: ``core/`` (Program IR, registry, scope, the
-  per-op ``Executor``, ``append_backward``), ``layers/``, ``ops/`` (the
-  lowerings of the transformer LM's training step), ``optimizer.py``
-  (SGD, Momentum, Adam), ``reader/``, ``data_feeder.py``,
-  ``trainer.py`` and the ``transformer_lm`` Program builder;
+  ``Executor`` with its compiled step captured as a CUDA graph, its
+  per-op and hybrid paths, ``append_backward``), ``layers/``, ``ops/``
+  (the lowerings of the transformer LM's training step, the host IO
+  ops), ``optimizer.py`` (SGD, Momentum, Adam), ``reader/``,
+  ``data_feeder.py``, ``io.py`` (save and load), ``pipeline.py`` (the
+  feed pipeline), ``trainer.py`` and the ``transformer_lm`` Program
+  builder;
 - the conv-net training path: the conv2d, pool2d, batch_norm, softmax,
   cross_entropy and metric ops and ``models/resnet.py``;
 - the sequence (LoD) training path: ``core/lod.py``, ragged feeds and

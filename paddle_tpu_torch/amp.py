@@ -32,12 +32,14 @@ def enable(program=None, pure=False):
     program = program or ir.default_main_program()
     program._amp = True
     program._amp_pure = bool(pure)
+    program._bump_version()  # a compiled step of the old marks is stale
     return program
 
 
 def disable(program=None):
     program = program or ir.default_main_program()
     program._amp = False
+    program._bump_version()
     return program
 
 

@@ -4,11 +4,15 @@ A ``Program`` is a list of ``Block``s; a ``Block`` holds named
 ``Variable``s and a sequence of ``Operator``s. The port's Executor
 interprets a block op by op over ``torch.Tensor``s, so the IR here is
 the JAX package's as it is, minus the sharding and mesh annotations and
-the operator sugar on ``Variable`` (later slices).
+the operator sugar on ``Variable`` (later slices). A Program carries a
+process-unique ``_uid`` (a clone gets a fresh one) and a ``_version``
+that every appended or inserted op bumps: the Executor keys its compiled
+steps on both, so a mutated program never replays a stale step.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 from typing import Any, Dict, List, Optional
 
 from . import unique_name
@@ -182,6 +186,15 @@ class Block(object):
                 if v is not None:
                     v.op = op
         self._infer_shape(op)
+        self.program._bump_version()
+        return op
+
+    def insert_op(self, index, type, inputs=None, outputs=None,
+                  attrs=None) -> Operator:
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(index, op)
+        self._infer_shape(op)
+        self.program._bump_version()
         return op
 
     def _infer_shape(self, op):
@@ -209,11 +222,19 @@ class Program(object):
     """The model: a list of Blocks, block 0 global; a startup program
     holds the init ops, a main program the train step."""
 
+    _uid_counter = [0]
+
     def __init__(self):
         self.blocks: List[Block] = [Block(self, 0)]
         self._current_block_idx = 0
+        self._version = 0
+        Program._uid_counter[0] += 1
+        self._uid = Program._uid_counter[0]  # the Executor's cache identity
         self._seed = None
         self._shape_infer_failures = []
+
+    def _bump_version(self):
+        self._version += 1
 
     def global_block(self) -> Block:
         return self.blocks[0]
@@ -238,6 +259,14 @@ class Program(object):
         for blk in self.blocks:
             for v in blk.vars.values():
                 yield v
+
+    def clone(self) -> "Program":
+        """A deep copy under a fresh uid (``paddle_tpu/core/ir.py:440``;
+        ``for_test`` is not ported yet)."""
+        p = copy.deepcopy(self)
+        Program._uid_counter[0] += 1
+        p._uid = Program._uid_counter[0]
+        return p
 
     def to_string(self, throw_on_error=False):
         return "\n".join(repr(b) for b in self.blocks)

@@ -24,6 +24,9 @@ class Scope(object):
     def __init__(self, parent: "Scope" = None):
         self.parent = parent
         self._vars: Dict[str, Any] = {}
+        # bumped when the set of names changes (not on a value update):
+        # the Executor keys its memo of a program's state inputs on it
+        self._names_version = 0
 
     def find_var(self, name: str):
         s = self
@@ -50,6 +53,12 @@ class Scope(object):
                 return
             s = s.parent
         self._vars[name] = value
+        self._names_version += 1
+
+    def erase(self, name: str):
+        if name in self._vars:
+            self._names_version += 1
+        self._vars.pop(name, None)
 
     def local_var_names(self):
         return list(self._vars)
@@ -90,8 +99,8 @@ def scope_from_numpy(state, device="cuda", scope=None):
 
 def scope_to_numpy(scope, names=None):
     """{name: np.ndarray} of the tensors in ``scope`` (its own and its
-    parents'), or of ``names`` only. Non-tensor entries (the Executor's
-    generator) are left out."""
+    parents'), or of ``names`` only, copied out. Non-tensor entries (the
+    Executor's generator) are left out."""
     if names is None:
         names, s = set(), scope
         while s is not None:
@@ -101,5 +110,7 @@ def scope_to_numpy(scope, names=None):
     for n in sorted(names):
         v = scope.find_var(n)
         if isinstance(v, torch.Tensor):
-            out[n] = v.detach().cpu().numpy()
+            # a copy: the Executor's compiled path updates state tensors
+            # in place, and a CPU tensor's numpy() shares its memory
+            out[n] = v.detach().cpu().numpy().copy()
     return out

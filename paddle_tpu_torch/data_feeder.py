@@ -73,9 +73,11 @@ class DataFeeder(object):
                                           if s != -1))
             self.feed_dtypes.append(convert_dtype(var.dtype))
 
-    def feed(self, iterable):
+    def feed(self, iterable, device=None):
         """Minibatch (iterable of per-sample field tuples) -> {name:
-        tensor, or ``LoDValue`` for a ragged field, on the device}."""
+        tensor, or ``LoDValue`` for a ragged field, on the feeder's
+        device, or on ``device`` (the feed pipeline builds on the host)}."""
+        device = self.device if device is None else torch.device(device)
         fields = [[] for _ in self.feed_names]
         for sample in iterable:
             if len(sample) != len(fields):
@@ -91,10 +93,10 @@ class DataFeeder(object):
                 conv = DataToLoDTensorConverter(lod_level, shape, dtype)
                 for value in acc:
                     conv.feed(value)
-                out[name] = to_lod_value(conv.done(), self.device)
+                out[name] = to_lod_value(conv.done(), device)
                 continue
             arr = np.array(acc, dtype=dtype)
             if shape and arr.ndim == 1:
                 arr = arr.reshape((-1,) + shape)
-            out[name] = torch.as_tensor(arr, device=self.device)
+            out[name] = torch.as_tensor(arr, device=device)
         return out

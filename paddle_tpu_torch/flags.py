@@ -1,18 +1,22 @@
 """The knobs of the port (the ``serve_*`` part of ``paddle_tpu/flags.py``,
 its ``log_period``, ``conv_impl``, ``lstm_impl``, ``tune``,
-``tune_cache_dir``, ``tune_budget`` and ``memory_budget_gb``, same names
-and defaults).
+``tune_cache_dir``, ``tune_budget``, ``memory_budget_gb``,
+``check_nan_inf``, ``pipeline`` and ``pipeline_depth``, same names and
+defaults).
 
 Read as attributes of :data:`FLAGS`. A value can be overridden per
-process with the environment variable ``PADDLE_TPU_FLAG_<NAME>`` (read
-at first use, the JAX package's convention) or in code by assignment.
+process through the environment, read at first use as the JAX package
+reads it: ``PADDLE_TPU_FLAGS="pipeline=true,pipeline_depth=3"``, or one
+flag at a time with ``PADDLE_TPU_FLAG_<NAME>`` (which wins); in code by
+assignment, or for a block with :func:`flags_guard`.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 
-__all__ = ["FLAGS"]
+__all__ = ["FLAGS", "flags_guard"]
 
 _TRUE = frozenset(("1", "true", "yes", "on"))
 _FALSE = frozenset(("0", "false", "no", "off", ""))
@@ -113,6 +117,21 @@ _DEFS = {
     "log_period": (
         100, int, "Trainer.train prints a progress line every this many "
         "batches (0: never)"),
+    "check_nan_inf": (
+        False, _parse_bool, "scan every op output for NaN/Inf on the "
+        "per-op path (FloatingPointError naming the variable); forces the "
+        "eager path and a synchronous Trainer"),
+    "pipeline": (
+        False, _parse_bool, "default Trainer.train execution mode: True "
+        "feeds batch k+1 on a feed thread (DataFeeder.feed and a pinned "
+        "host-to-device copy on its own stream) while the card computes "
+        "batch k, and leaves fetches on the card until a real sync point "
+        "(paddle_tpu_torch.pipeline; Trainer.train(pipeline=...) "
+        "overrides it). Losses are bit-identical to the synchronous "
+        "mode; check_nan_inf forces synchronous"),
+    "pipeline_depth": (
+        2, int, "device feed slots the pipeline reuses in a ring (2 = "
+        "double buffering; below 1 disables the pipeline)"),
 }
 
 
@@ -128,6 +147,10 @@ class _Flags(object):
         with self._lock:
             if self._env_loaded:
                 return
+            for pair in os.environ.get("PADDLE_TPU_FLAGS", "").split(","):
+                k, _, v = pair.strip().partition("=")
+                if k.strip() in _DEFS:
+                    self._values[k.strip()] = _DEFS[k.strip()][1](v.strip())
             for name, (_, parse, _h) in _DEFS.items():
                 key = "PADDLE_TPU_FLAG_" + name.upper()
                 if key in os.environ:
@@ -151,3 +174,16 @@ class _Flags(object):
 
 
 FLAGS = _Flags()
+
+
+@contextlib.contextmanager
+def flags_guard(**overrides):
+    """Set flags for a block and put the old values back after it."""
+    saved = {k: getattr(FLAGS, k) for k in overrides}
+    try:
+        for k, v in overrides.items():
+            setattr(FLAGS, k, v)
+        yield FLAGS
+    finally:
+        for k, v in saved.items():
+            setattr(FLAGS, k, v)

@@ -4,14 +4,21 @@ version (counterpart of ``paddle_tpu/kernels``).
 Every kernel has a launch count on its wrapper module that the wrapper
 raises by one per launch, and nowhere else; :func:`launch_counts` and
 :func:`reset_launches` read and clear all of them, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels. A step the Executor
+captures as a CUDA graph runs its wrappers once, at the capture, and
+then only replays: the Executor takes each count's delta over the
+capture (:func:`launch_counts` before and after), puts the counts back
+with :func:`restore_launches`, and adds the delta at every replay with
+:func:`add_launches`, so the counts stay those of the launches the card
+made.
 """
 from __future__ import annotations
 
 from . import (conv3x3, flash_attention, fused_gru, fused_lstm, matmul,
                paged_attention)
 
-__all__ = ["KERNEL_COUNTERS", "launch_counts", "reset_launches"]
+__all__ = ["KERNEL_COUNTERS", "add_launches", "launch_counts",
+           "reset_launches", "restore_launches"]
 
 # kernel name -> (wrapper module, name of its count there)
 KERNEL_COUNTERS = {
@@ -63,3 +70,19 @@ def launch_counts():
 def reset_launches():
     for mod, attr in KERNEL_COUNTERS.values():
         setattr(mod, attr, 0)
+
+
+def restore_launches(counts):
+    """Set every count to its value in ``counts`` (a
+    :func:`launch_counts` snapshot)."""
+    for name, (mod, attr) in KERNEL_COUNTERS.items():
+        setattr(mod, attr, counts[name])
+
+
+def add_launches(delta):
+    """Add ``delta`` ({kernel name: launches}) to the counts: one replay
+    of a captured step."""
+    for name, n in delta.items():
+        if n:
+            mod, attr = KERNEL_COUNTERS[name]
+            setattr(mod, attr, getattr(mod, attr) + n)

@@ -14,7 +14,7 @@ from .layer_helper import LayerHelper
 __all__ = ["accuracy", "batch_norm", "conv2d", "cross_entropy",
            "elementwise_add", "embedding", "fc", "layer_norm", "mean",
            "pool2d", "relu", "reshape", "scale", "softmax",
-           "softmax_with_cross_entropy", "topk"]
+           "softmax_with_cross_entropy", "square_error_cost", "topk"]
 
 
 def _pair(v):
@@ -249,6 +249,17 @@ def _simple(op_type, x, attrs=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(type=op_type, inputs={"X": [x]},
                      outputs={"Out": [out]}, attrs=attrs or {})
+    return out
+
+
+def square_error_cost(input, label):
+    """(input - label) ** 2 elementwise (``paddle_tpu/layers/nn.py:434``)."""
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type="square_error_cost",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]})
     return out
 
 

@@ -1,7 +1,7 @@
 """Importing this package registers every op lowering of the port
 (counterpart of ``paddle_tpu/ops/__init__.py``). The ported slices hold
-the ops of the transformer LM's, ResNet's and the stacked-RNN text
-classifier's training steps."""
+the ops of the transformer LM's, ResNet's, the stacked-RNN text
+classifier's and fit_a_line's training steps, and the host IO ops."""
 from . import (  # noqa: F401
     common,
     generic_grad,
@@ -13,6 +13,7 @@ from . import (  # noqa: F401
     optimizer_ops,
     attention_ops,
     sequence_ops,
+    io_ops,
     explicit_grads,  # last: attaches grad makers to the ops above
 )
 

@@ -27,7 +27,16 @@ from ..core.executor import FunctionalContext, raw_data, with_lod_of
 __all__ = []
 
 
-@registry.register_op("generic_grad")
+def _generic_grad_is_host(op):
+    """A generic grad replays its forward lowering, so it runs on the
+    host exactly when the forward op does (the forward's attrs are on the
+    grad op, so a predicate evaluates unchanged;
+    ``paddle_tpu/ops/generic_grad.py:22``)."""
+    fwd = registry.lookup(op.attr("__fwd_type__"))
+    return fwd is not None and registry.op_is_host(fwd, op)
+
+
+@registry.register_op("generic_grad", host=_generic_grad_is_host)
 def generic_grad(ctx):
     fwd_type = ctx.attr("__fwd_type__")
     in_slots = list(ctx.attr("__fwd_input_slots__"))

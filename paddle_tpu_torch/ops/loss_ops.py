@@ -1,9 +1,11 @@
 """Losses (counterparts in ``paddle_tpu/ops/loss_ops.py``:
-``cross_entropy`` :28, ``softmax_with_cross_entropy`` :49)."""
+``cross_entropy`` :28, ``softmax_with_cross_entropy`` :49,
+``square_error_cost`` :76, whose grad is the generic one)."""
 from __future__ import annotations
 
 import torch
 
+from ..core.executor import raw_data
 from ..core.registry import register_op
 
 __all__ = []
@@ -51,3 +53,19 @@ def softmax_with_cross_entropy(ctx):
         lab = label.long().reshape(label.shape[0], 1)
         loss = -torch.gather(logp, 1, lab)
     ctx.set_output("Loss", loss.to(logits.dtype))
+
+
+def _infer_same_as_x(op, block):
+    xv = block._find_var_recursive(op.input("X")[0])
+    ov = block._find_var_recursive(op.output("Out")[0])
+    if xv is not None and ov is not None and xv.shape is not None:
+        ov.shape = xv.shape
+        ov.dtype = xv.dtype
+
+
+@register_op("square_error_cost", infer_shape=_infer_same_as_x)
+def square_error_cost(ctx):
+    """(X - Y) ** 2, elementwise."""
+    x = raw_data(ctx.input("X"))
+    y = raw_data(ctx.input("Y"))
+    ctx.set_output("Out", torch.square(x - y))

@@ -3,7 +3,7 @@
 
 Code calls ``fault_point("site.name", payload)`` at a failure-relevant
 edge; a test arms the site to raise, or to corrupt the payload, at the
-Nth hit. A disarmed site costs one dict lookup. The port has six sites:
+Nth hit. A disarmed site costs one dict lookup. The port has seven sites:
 
 ``tune.candidate``     the autotune loop, once per candidate before it
                        is built (``tune/loop.py``): a raise is a
@@ -32,6 +32,10 @@ Nth hit. A disarmed site costs one dict lookup. The port has six sites:
                        once per handoff: a raise re-submits the prompt to
                        the decode engine, which prefills it again
                        (``handoff_failed`` event); tokens are unchanged
+``pipeline.feed_next`` the feed thread of ``pipeline.FeedPipeline``, once
+                       per batch before it is prepared: a raise degrades
+                       the pass to synchronous feeding from that batch
+                       (``pipeline_degraded`` event); no batch is lost
 
 The ``delay`` action and the ``PADDLE_TPU_FAULT_SPEC`` grammar of the
 JAX package are not ported.
@@ -47,7 +51,8 @@ __all__ = ["FaultError", "SITES", "arm", "disarm", "fault_point", "hits",
            "reset"]
 
 SITES = ("tune.candidate", "tune.cache", "serving.generate",
-         "serving.speculate", "serving.prefix", "serving.ship")
+         "serving.speculate", "serving.prefix", "serving.ship",
+         "pipeline.feed_next")
 _ACTIONS = ("raise", "corrupt")
 
 

@@ -818,7 +818,10 @@ def test_tiny_lm_trains_alike_with_a_matmul_winner_in_each_package(
                for feed in batches]
     np.testing.assert_allclose(tlosses, jlosses, rtol=LOSS_TOL, atol=0)
     # the JAX package counts once per trace: 12 gemms in population hit,
-    # the head falls back; the port counts per call, per step
+    # the head falls back; the port counts per call, where its lowerings
+    # run: on the CPU every step, the compiled path's stand-in for a
+    # replay included; on the card the warm-up and the capture, as a
+    # replay consults nothing (ROADMAP Queue 3 #4)
     # (its tune_misses come from the flash op's consult, not ported)
     assert jstats["tune_hits"] == 12 and jstats["tune_fallbacks"] == 1
     assert texe.stats["tune_hits"] == 12 * LM_STEPS
