@@ -246,7 +246,35 @@ Phases, in order; any failure exits non-zero at once:
    program with a ``save`` between two device segments on the hybrid
    path (both captured, the file the eager run's); a test-only op that
    reads a value to the host: its capture fails with a warning, the run
-   is right, and the next program captures.
+   is right, and the next program captures;
+13. checkpoint: the LM at GPT-2 small's widths (float32, 8 x 1024 tokens
+   a step, Adam, the compiled Trainer): run A trains ``CKPT_BATCHES``
+   distinct batches, run B on a ``checkpoint_dir`` calls
+   ``request_preempt()`` from its handler at batch ``CKPT_PREEMPT_AT``
+   (one ``preempt_checkpoint`` event there), run C (a new Trainer,
+   Executor and scope on the same directory) resumes and trains the rest:
+   C's losses and final persistables bit-identical to A's; an async save
+   at step k and step k + 1 at once (a replay writing the state in place):
+   the files bit-equal to the host copy of step k's state; three saves
+   with ``keep_last=2`` leave two directories and ``load_latest`` the
+   newest; ``Trainer.test`` on a held-out batch three times: one capture,
+   12 flash forwards a run and no backward, the cost within
+   ``TEST_COST_REL_TOL`` of the next training step's on that batch; the
+   logits' inference model loaded in a new Executor and scope and run
+   twice: bit-equal to the test program's logits, 12 flash forwards a
+   run, no Adam moment among its files; ResNet-50 at 224 x 224, batch 32,
+   trained 2 steps and exported: 16 conv3x3 forwards a run of the loaded
+   model, image 0's logits alone within ``R50_TEST_REL_TOL`` of row 0 of
+   the batch's (``batch_norm`` on its running statistics), and the
+   loaded program's logits within it of the same program's with every
+   conv on cuDNN; ``python -m
+   paddle_tpu_torch train`` of text_rnn with ``--checkpoint_dir`` as a
+   subprocess, SIGTERM after its first logged batch: exit 0, and the
+   checkpoint resumes in this process (2 batches on the fused LSTM
+   kernel); the book config recognize_digits_conv trained by the CLI,
+   exit 0. It prints the save and load ms, bytes and MB/s of each
+   checkpoint, the async save's snapshot ms beside its write ms, and the
+   test program's ms at its warm-up, capture and replay.
 
 Phases 5-9 train through ``Trainer.train``, which runs the compiled
 path: each holds its steps to one capture and a replay a step, and the
@@ -6275,6 +6303,555 @@ def phase_compiled(dev, root):
     return paths
 
 
+# -- phase 13 -----------------------------------------------------------------
+
+# Phase 13 (checkpoint): run A trains CKPT_BATCHES distinct batches of the
+# GPT-2-small LM; run B preempts at batch CKPT_PREEMPT_AT; run C resumes
+# from B's checkpoint and trains the rest
+CKPT_BATCHES = 8
+CKPT_PREEMPT_AT = 3
+# Trainer.test's cost against the cost the next training step fetches on
+# the same batch: the same forward ops, kernels and parameters
+TEST_COST_REL_TOL = 1e-6
+# ResNet-50's test-mode logits: image 0 alone against row 0 of the batch,
+# and the conv3x3 kernel against every conv on cuDNN; the relative norm
+# of the difference, at phase 6's tolerance on forward quantities
+R50_TEST_REL_TOL = R50_STAT_REL_TOL
+
+
+def _dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)
+               if os.path.isfile(os.path.join(d, f)))
+
+
+def _rate(nbytes, seconds):
+    return {"bytes": nbytes, "ms": seconds * 1e3,
+            "mb_per_s": nbytes / 1e6 / seconds if seconds > 0 else None}
+
+
+def _ckpt_lm(dev, checkpoint_dir=None):
+    """``configs/tiny_lm.model`` at GPT-2-small widths, CKPT_BATCHES
+    distinct batches of TRAIN_BATCH sequences, Adam, a compiled
+    Trainer: (spec, trainer, main program)."""
+    from paddle_tpu_torch.configs import tiny_lm
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.trainer import Trainer
+    widths = dict(vocab=GPT2_SMALL["vocab_size"], seq=GPT2_SMALL["max_seq"],
+                  hidden=GPT2_SMALL["hidden"],
+                  num_layers=GPT2_SMALL["num_layers"],
+                  num_heads=GPT2_SMALL["num_heads"],
+                  ffn_mult=GPT2_SMALL["ffn_mult"])
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        spec = tiny_lm.model(batch=TRAIN_BATCH,
+                             samples=CKPT_BATCHES * TRAIN_BATCH,
+                             learning_rate=TRAIN_LR, seed=0, **widths)
+        trainer = Trainer(spec["cost"], spec["optimizer"],
+                          spec["feed_list"], device=dev,
+                          checkpoint_dir=checkpoint_dir)
+    return spec, trainer, main_prog
+
+
+def _train_losses(trainer, reader, preempt_at=None):
+    """Train one pass, the handler reading each cost (and preempting at
+    ``preempt_at``): the losses."""
+    from paddle_tpu_torch.trainer import EndIteration
+    losses = []
+
+    def handler(e):
+        if isinstance(e, EndIteration):
+            losses.append(e.cost)
+            if e.batch_id == preempt_at:
+                trainer.request_preempt()
+
+    trainer.train(reader, num_passes=1, event_handler=handler,
+                  pipeline=False)
+    return losses
+
+
+def _free(trainer):
+    trainer.exe.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ckpt_resume(dev, work):
+    """Runs A (uninterrupted), B (preempted at CKPT_PREEMPT_AT) and C
+    (resumed on B's directory); C's losses and final persistables must be
+    A's bit for bit. Returns (record, the launches of the three runs,
+    run C's trainer and spec, live in the current global scope)."""
+    from itertools import islice
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    from paddle_tpu_torch.resilience import events
+    kernels.reset_launches()
+    with scope_guard(Scope()):
+        spec, tr_a, prog = _ckpt_lm(dev)
+        tr_a._maybe_init()
+        init = _persistables(prog, global_scope())
+        losses_a = _train_losses(tr_a, spec["reader"])
+        final_a = _persistables(prog, global_scope())
+        _free(tr_a)
+    ck = _fresh_dir(os.path.join(work, "lm_preempt"))
+    events.clear_events()
+    with scope_guard(Scope()):
+        spec, tr_b, prog = _ckpt_lm(dev, checkpoint_dir=ck)
+        tr_b._maybe_init(load=False)
+        for n, t in init.items():
+            global_scope().set_var(n, t.clone())
+        del init
+        losses_b = _train_losses(tr_b, spec["reader"],
+                                 preempt_at=CKPT_PREEMPT_AT)
+        save_s = tr_b._last_ckpt_secs
+        _free(tr_b)
+    evs = events.events(kind="preempt_checkpoint")
+    if not tr_b.preempted or len(losses_b) != CKPT_PREEMPT_AT + 1 or \
+            [(e["pass_id"], e["batch_id"]) for e in evs] != \
+            [(0, CKPT_PREEMPT_AT)]:
+        fail("checkpoint: run B preempted=%s after %d batches, "
+             "preempt_checkpoint events %s" % (tr_b.preempted,
+                                                len(losses_b), evs))
+    nbytes, n_files = _dir_bytes(ck), len(os.listdir(ck))
+    scope_c = Scope()
+    with scope_guard(scope_c):
+        spec, tr_c, prog = _ckpt_lm(dev, checkpoint_dir=ck)
+        tr_c._maybe_init(load=False)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        tr_c._load_checkpoint_state()
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        rest = lambda: islice(spec["reader"](), CKPT_PREEMPT_AT + 1, None)
+        losses_c = _train_losses(tr_c, rest)
+        final_c = _persistables(prog, global_scope())
+    launches = kernels.launch_counts()
+    want = losses_a[CKPT_PREEMPT_AT + 1:]
+    if losses_b != losses_a[:CKPT_PREEMPT_AT + 1] or losses_c != want:
+        fail("checkpoint: the resumed losses %s are not run A's %s"
+             % (losses_b + losses_c, losses_a))
+    differ = [n for n, t in final_a.items()
+              if not torch.equal(t, final_c[n])]
+    if sorted(final_a) != sorted(final_c) or differ:
+        fail("checkpoint: %d persistables of the resumed run differ from "
+             "run A's (%s)" % (len(differ), differ[:5]))
+    del final_a, final_c
+    torch.cuda.empty_cache()
+    shutil.rmtree(ck)
+    rec = {"losses_a": losses_a, "losses_b": losses_b, "losses_c": losses_c,
+           "persistables": sum(1 for v in prog.list_vars() if v.persistable),
+           "preempt_event": {k: evs[0][k] for k in ("pass_id", "batch_id")},
+           "preempt_save": _rate(nbytes, save_s),
+           "resume_load": _rate(nbytes, load_s), "files": n_files}
+    return rec, launches, (tr_c, spec, scope_c)
+
+
+def _ckpt_async_and_retention(trainer, spec, work):
+    """An async save at step k, then step k + 1 at once: the files must
+    be the host copy of step k's state, bit for bit. Then three saves
+    with keep_last=2: two directories left, load_latest the newest."""
+    from paddle_tpu_torch import checkpoint
+    from paddle_tpu_torch.core.scope import Scope, global_scope, \
+        scope_to_numpy
+    prog = trainer.main_program
+    names = sorted(v.name for v in prog.list_vars() if v.persistable)
+    want = scope_to_numpy(global_scope(), names)
+    d = os.path.join(work, "lm_async")
+    shutil.rmtree(d, ignore_errors=True)
+    batch = next(iter(spec["reader"]()))
+    t0 = time.monotonic()
+    handle = trainer.save_checkpoint(d, async_=True, step=CKPT_BATCHES)
+    snapshot_s = trainer._last_ckpt_secs
+    trainer.exe.run(prog, feed=trainer.feeder.feed(batch),
+                    fetch_list=trainer.fetch_list)  # step k + 1, replayed
+    torch.cuda.synchronize()
+    step_s = time.monotonic() - t0 - snapshot_s
+    handle.result(timeout=600)
+    write_s = time.monotonic() - t0 - snapshot_s
+    nbytes = _dir_bytes(d)
+    t0 = time.monotonic()
+    host = Scope()
+    step = checkpoint.load_checkpoint(d, prog, scope=host, device="cpu")
+    load_s = time.monotonic() - t0
+    got = scope_to_numpy(host, names)
+    del host
+    differ = [n for n in names if not np.array_equal(got[n], want[n])]
+    moved = scope_to_numpy(global_scope(), names[:4])
+    if step != CKPT_BATCHES or sorted(got) != sorted(want) or differ:
+        fail("checkpoint: the async save at step %d holds %d values that "
+             "differ from the host copy of that step (%s)"
+             % (CKPT_BATCHES, len(differ), differ[:5]))
+    if all(np.array_equal(moved[n], want[n]) for n in moved):
+        fail("checkpoint: step k + 1 moved no state (the race was not run)")
+    del got, want
+    t0 = time.monotonic()
+    card = Scope()
+    checkpoint.load_checkpoint(d, prog, scope=card, device=trainer.exe.device)
+    torch.cuda.synchronize()
+    card_load_s = time.monotonic() - t0
+    del card
+    shutil.rmtree(d)
+    root = os.path.join(work, "lm_keep2")
+    shutil.rmtree(root, ignore_errors=True)
+    save_ms = []
+    for _ in range(3):
+        t0 = time.monotonic()
+        last = checkpoint.save_checkpoint(root, prog, keep_last=2)
+        save_ms.append((time.monotonic() - t0) * 1e3)
+    left = sorted(os.listdir(root))
+    newest = checkpoint.load_latest(root, prog, scope=Scope(),
+                                    device=trainer.exe.device)
+    if left != ["ckpt-00000001", "ckpt-00000002"] or newest != (last, 2):
+        fail("checkpoint: keep_last=2 left %s, load_latest gave %s"
+             % (left, newest))
+    shutil.rmtree(root)
+    return {"async": {"snapshot_ms": snapshot_s * 1e3,
+                      "next_step_ms": step_s * 1e3,
+                      "write": _rate(nbytes, write_s),
+                      "load_to_host": _rate(nbytes, load_s),
+                      "load_to_card": _rate(nbytes, card_load_s)},
+            "retention": {"left": left, "load_latest_step": newest[1],
+                          "save_ms": save_ms}}
+
+
+def _ckpt_test_and_export(trainer, spec, work):
+    """Trainer.test on a held-out batch (one capture, 12 flash forwards a
+    run, no backward; the cost within TEST_COST_REL_TOL of the next
+    training step's), then the logits' inference model loaded in a new
+    Executor and scope, run twice: bit-equal to the test program's
+    logits, 12 flash forwards a run, no Adam moment in the directory.
+    Returns (record, {path: launches})."""
+    from paddle_tpu_torch import io, kernels
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    prog, cost = trainer.main_program, spec["cost"]
+    layers_n = GPT2_SMALL["num_layers"]
+    rng = np.random.RandomState(99)
+    vocab, seq = GPT2_SMALL["vocab_size"], GPT2_SMALL["max_seq"]
+    held = []
+    for _ in range(TRAIN_BATCH):
+        xs = rng.randint(0, vocab, (seq,)).astype(np.int64)
+        held.append((xs, (xs + 1) % vocab))
+    paths = {}
+    before = dict(trainer.exe.stats)
+    kernels.reset_launches()
+    results, per_run, test_ms = [], [], []
+    for _ in range(3):  # warm-up, capture, replay
+        c0 = kernels.launch_counts()
+        t0 = time.monotonic()
+        results.append(trainer.test(lambda: iter([held]), pipeline=False))
+        torch.cuda.synchronize()
+        test_ms.append((time.monotonic() - t0) * 1e3)
+        per_run.append({k: v - c0[k] for k, v in
+                        kernels.launch_counts().items() if v - c0[k]})
+    paths["ckpt_lm_test"] = kernels.launch_counts()
+    delta = _exe_delta(trainer.exe, before)
+    if delta["graph_captures"] != 1 or delta["eager_runs"] != 0 or \
+            any(r != {"flash_attention_fwd": layers_n} for r in per_run):
+        fail("checkpoint: Trainer.test ran %s with launches %s a run, "
+             "expected one capture and %d flash forwards a run"
+             % (delta, per_run, layers_n))
+    if len({r[0] for r in results}) != 1:
+        fail("checkpoint: Trainer.test gave %s over three runs" % results)
+    test_cost = results[0][0]
+    t_step = trainer.exe.run(prog, feed=trainer.feeder.feed(held),
+                             fetch_list=[cost])[0]
+    step_cost = float(np.asarray(t_step).reshape(-1)[0])
+    cost_rel = abs(test_cost - step_cost) / abs(step_cost)
+    if not cost_rel <= TEST_COST_REL_TOL:
+        fail("checkpoint: Trainer.test's cost %r vs the training step's %r:"
+             " %g relative > %g" % (test_cost, step_cost, cost_rel,
+                                   TEST_COST_REL_TOL))
+    # the logits: the reshape feeding softmax_with_cross_entropy reads them
+    block = cost.block
+    ce = block.var(cost.op.input("X")[0]).op
+    logits = block.var(ce.input("Logits")[0]).op.input("X")[0]
+    d = _fresh_dir(os.path.join(work, "lm_inference"))
+    t0 = time.monotonic()
+    trainer.save_inference_model(d, ["toks"], [logits])
+    export_s = time.monotonic() - t0
+    feed = {"toks": np.stack([s[0] for s in held])}
+    test_prog = trainer._test_program([logits])
+    want = [trainer.exe.run(test_prog, feed=feed, fetch_list=[logits],
+                            return_numpy=False)[0] for _ in range(2)]
+    files = sorted(os.listdir(d))
+    if any("moment" in f for f in files):
+        fail("checkpoint: the inference model holds Adam moments: %s"
+             % [f for f in files if "moment" in f][:4])
+    with scope_guard(Scope()):
+        exe = Executor(trainer.exe.device)
+        t0 = time.monotonic()
+        program, feeds, fetches = io.load_inference_model(d, exe)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        kernels.reset_launches()
+        got, per_run = [], []
+        for _ in range(2):
+            c0 = kernels.launch_counts()
+            got.append(exe.run(program, feed=feed, fetch_list=fetches,
+                               return_numpy=False)[0])
+            torch.cuda.synchronize()
+            per_run.append({k: v - c0[k] for k, v in
+                            kernels.launch_counts().items() if v - c0[k]})
+        paths["ckpt_lm_inference"] = kernels.launch_counts()
+        st = dict(exe.stats)
+        exe.close()
+    equal = [bool(torch.equal(g, w)) for g, w in zip(got, want)]
+    if not all(equal) or st["graph_captures"] != 1 or \
+            any(r != {"flash_attention_fwd": layers_n} for r in per_run):
+        fail("checkpoint: the loaded LM's logits bit-equal %s, runs %s, "
+             "launches %s a run" % (equal, {k: st[k] for k in _EXE_KEYS},
+                                    per_run))
+    del got, want
+    shutil.rmtree(d)
+    torch.cuda.empty_cache()
+    return {"test_cost": test_cost, "next_step_cost": step_cost,
+            "test_cost_rel_diff": cost_rel,
+            "test_ms_warmup_capture_replay": test_ms,
+            "test_executor": delta,
+            "inference": {"files": len(files), "export_ms": export_s * 1e3,
+                          "load_ms": load_s * 1e3, "feeds": feeds,
+                          "fetches": fetches, "logits_bit_equal": equal,
+                          "launches_a_run": per_run}}, paths
+
+
+def _rel_norm(got, want):
+    return float((got.double() - want.double()).norm()
+                 / want.double().norm())
+
+
+def _ckpt_resnet(dev, work):
+    """Phase 6's ResNet-50 trained 2 steps, its inference model saved and
+    loaded: 16 conv3x3 forwards a run and no dx; image 0 alone gives row
+    0 of the batch output; and the loaded program against itself with
+    every conv on cuDNN (TF32 off). Returns (record, launches)."""
+    from paddle_tpu_torch import io, kernels
+    from paddle_tpu_torch.configs import resnet_cifar
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.trainer import Trainer
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        spec = resnet_cifar.model(variant="imagenet", depth=50, image=224,
+                                  class_dim=1000, batch=R50_BATCH,
+                                  learning_rate=R50_LR)
+        trainer = Trainer(spec["cost"], spec["optimizer"],
+                          spec["feed_list"], device=dev)
+    rng = np.random.RandomState(0)
+    imgs = rng.rand(R50_BATCH, 3, 224, 224).astype(np.float32)
+    labels = rng.randint(0, 1000, (R50_BATCH, 1)).astype(np.int64)
+    batch = list(zip(imgs, labels))
+    cost = spec["cost"]
+    pred = cost.block.var(cost.op.input("X")[0]).op.input("X")[0]
+    # the softmax's input: the gates compare these, as the probabilities
+    # of a net this young sit near 0 or 1
+    logits = cost.block.var(pred).op.input("X")[0]
+    d = _fresh_dir(os.path.join(work, "resnet50_inference"))
+    with scope_guard(Scope()):
+        trainer.train(lambda: iter([batch, batch]), pipeline=False)
+        trainer.save_inference_model(d, ["img"], [pred])
+        _free(trainer)
+    with scope_guard(Scope()):
+        exe = Executor(dev)
+        program, feeds, fetches = io.load_inference_model(d, exe)
+        feed = {"img": imgs}
+        both = fetches + [logits]
+        kernels.reset_launches()
+        per_run, outs = [], []
+        for _ in range(2):
+            c0 = kernels.launch_counts()
+            outs.append(exe.run(program, feed=feed, fetch_list=both,
+                                return_numpy=False))
+            torch.cuda.synchronize()
+            per_run.append({k: v - c0[k] for k, v in
+                            kernels.launch_counts().items() if v - c0[k]})
+        launches = kernels.launch_counts()
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        if any(r != {"conv3x3_fwd": 16} for r in per_run) or not same:
+            fail("checkpoint: the loaded ResNet-50 launched %s a run "
+                 "(expected 16 conv3x3 forwards), runs bit-equal %s"
+                 % (per_run, same))
+        bns = [op for op in program.global_block().ops
+               if op.type == "batch_norm"]
+        if not bns or not all(op.attrs.get("is_test") for op in bns):
+            fail("checkpoint: the inference program's batch norms are not "
+                 "in test mode")
+        one = exe.run(program, feed={"img": imgs[:1]}, fetch_list=both,
+                      return_numpy=False)
+        alone = _rel_norm(one[1][0], outs[1][1][0])
+        alone_probs = _rel_norm(one[0][0], outs[1][0][0])
+        cudnn = program.clone()
+        for op in cudnn.global_block().ops:
+            if op.type == "conv2d":
+                op.attrs["conv_impl"] = "conv"
+        kernels.reset_launches()
+        ref = exe.run(cudnn, feed=feed, fetch_list=both,
+                      return_numpy=False)
+        ref_conv3x3 = kernels.launch_counts()["conv3x3_fwd"]
+        vs_cudnn = _rel_norm(outs[1][1], ref[1])
+        vs_cudnn_probs = _rel_norm(outs[1][0], ref[0])
+        logit_spread = float(outs[1][1].std())
+        exe.close()
+    if not (alone <= R50_TEST_REL_TOL and vs_cudnn <= R50_TEST_REL_TOL) \
+            or ref_conv3x3 != 0:
+        fail("checkpoint: ResNet-50 in test mode: image 0 alone vs row 0 "
+             "%g, kernel vs cuDNN %g (tolerance %g), conv3x3 launches in "
+             "the cuDNN run %d" % (alone, vs_cudnn, R50_TEST_REL_TOL,
+                                   ref_conv3x3))
+    files = len(os.listdir(d))
+    shutil.rmtree(d)
+    torch.cuda.empty_cache()
+    return {"batch_norms_in_test_mode": len(bns), "files": files,
+            "launches_a_run": per_run,
+            "logits_std": logit_spread,
+            "image0_alone_vs_row0_logits_rel_norm": alone,
+            "image0_alone_vs_row0_probs_rel_norm": alone_probs,
+            "kernel_vs_cudnn_logits_rel_norm": vs_cudnn,
+            "kernel_vs_cudnn_probs_rel_norm": vs_cudnn_probs,
+            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}, launches
+
+
+def _start_cli(root, args, err_path):
+    err = open(err_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch", "train"] + args,
+        cwd=root, stdout=subprocess.PIPE, stderr=err, text=True,
+        env=dict(os.environ, PYTHONPATH=root))
+    err.close()
+    return proc
+
+
+def _ckpt_cli_start(root, work):
+    """Start the two CLI runs: text_rnn with --checkpoint_dir, sent
+    SIGTERM after its first logged batch (by a thread), and the book
+    config recognize_digits_conv."""
+    ck = _fresh_dir(os.path.join(work, "text_rnn_cli"))
+    rnn = _start_cli(root, [os.path.join(root, "paddle_tpu_torch", "configs",
+                                         "text_rnn.py"),
+                            "--checkpoint_dir", ck, "--num_passes", "100000",
+                            "--log_period", "1"],
+                     os.path.join(work, "text_rnn_cli.err"))
+    book = _start_cli(root, [os.path.join(root, "paddle_tpu_torch", "configs",
+                                          "recognize_digits_conv.py"),
+                             "--log_period", "1"],
+                      os.path.join(work, "recognize_digits_cli.err"))
+    state = {"t0": time.monotonic(), "lines": []}
+
+    def watch():
+        for line in rnn.stdout:
+            state["lines"].append(line.rstrip("\n"))
+            if "first" not in state and line.startswith("pass 0 batch 0"):
+                state["first"] = time.monotonic() - state["t0"]
+                rnn.send_signal(signal.SIGTERM)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    return {"ck": ck, "rnn": rnn, "book": book, "state": state,
+            "watcher": watcher}
+
+
+def _ckpt_cli_finish(dev, work, cli):
+    """Wait for both CLI runs, then resume text_rnn in this process from
+    the checkpoint the SIGTERM wrote (2 batches on the fused LSTM
+    kernel). Returns (record, launches of the resume)."""
+    from itertools import islice
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.configs import text_rnn
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    from paddle_tpu_torch.trainer import Trainer
+    rnn, book, state = cli["rnn"], cli["book"], cli["state"]
+    for proc in (rnn, book):
+        try:
+            proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    cli["watcher"].join(timeout=60)
+    book_out = book.stdout.read()
+    rnn_s = time.monotonic() - state["t0"]
+    if rnn.returncode != 0 or "first" not in state or \
+            not any(ln.startswith("preempted at pass") for ln in
+                    state["lines"]):
+        fail("checkpoint: train text_rnn --checkpoint_dir exited %s after "
+             "SIGTERM (first batch after %s s): %s %s"
+             % (rnn.returncode, state.get("first"), state["lines"][-3:],
+                open(os.path.join(work, "text_rnn_cli.err")).read()[-4000:]))
+    if book.returncode != 0 or "pass 0 done" not in book_out:
+        fail("checkpoint: train recognize_digits_conv exited %s: %s %s"
+             % (book.returncode, book_out[-2000:],
+                open(os.path.join(work,
+                                  "recognize_digits_cli.err")).read()[-4000:]))
+    ck = cli["ck"]
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        spec = text_rnn.model()
+        trainer = Trainer(spec["cost"], spec["optimizer"],
+                          spec["feed_list"], device=dev, checkpoint_dir=ck)
+    params = [p.name for p in main_prog.all_parameters()]
+    with scope_guard(Scope()):
+        trainer._maybe_init(load=False)
+        fresh = _persistables(main_prog, global_scope())
+        trainer._load_checkpoint_state()
+        loaded = _persistables(main_prog, global_scope())
+        moved = [n for n in params if not torch.equal(fresh[n], loaded[n])]
+        beta1 = float(loaded["beta1_pow_acc_0"].reshape(-1)[0])
+        # each step launches each layer's kernel twice: the forward and
+        # the generic grad's replay
+        kernels.reset_launches()
+        losses = _train_losses(trainer,
+                               lambda: islice(spec["reader"](), 0, 2))
+        launches = kernels.launch_counts()
+        _free(trainer)
+    if len(moved) != len(params) or not beta1 < 0.9 or \
+            launches["fused_lstm"] != 2 * 2 * 2 or \
+            not np.all(np.isfinite(losses)):
+        fail("checkpoint: the CLI's text_rnn checkpoint: %d of %d "
+             "parameters trained, beta1_pow %r, resumed losses %s, "
+             "fused_lstm launches %d (expected 8)"
+             % (len(moved), len(params), beta1, losses,
+                launches["fused_lstm"]))
+    shutil.rmtree(ck)
+    return {"text_rnn": {"exit_code": rnn.returncode,
+                         "first_batch_s": state["first"],
+                         "process_s": rnn_s,
+                         "preempted_line": [ln for ln in state["lines"]
+                                            if ln.startswith("preempted")],
+                         "checkpoint_persistables": len(loaded),
+                         "resumed_losses": losses},
+            "recognize_digits_conv": {
+                "exit_code": book.returncode,
+                "last_line": book_out.strip().splitlines()[-1]}}, launches
+
+
+def phase_checkpoint(dev, root):
+    """Phase 13: resume, preemption, async and retained checkpoints,
+    Trainer.test and inference models on the card, and the CLI's
+    --checkpoint_dir. Returns {path: launches}."""
+    t0 = time.monotonic()
+    work = _fresh_dir(os.path.join(root, "build", "chip_smoke", "checkpoint"))
+    rec, paths = {}, {}
+    rec["resume"], paths["ckpt_lm_train"], (trainer, spec, scope) = \
+        _ckpt_resume(dev, work)
+    from paddle_tpu_torch.core.scope import scope_guard
+    with scope_guard(scope):
+        rec.update(_ckpt_async_and_retention(trainer, spec, work))
+        rec["test"], more = _ckpt_test_and_export(trainer, spec, work)
+        paths.update(more)
+        trainer.checkpoint_dir = None
+        _free(trainer)
+    del trainer, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = _ckpt_cli_start(root, work)
+    rec["resnet50"], paths["ckpt_resnet_inference"] = _ckpt_resnet(dev, work)
+    rec["cli"], paths["ckpt_rnn_resume"] = _ckpt_cli_finish(dev, work, cli)
+    shutil.rmtree(work, ignore_errors=True)
+    rec["wall_s"] = time.monotonic() - t0
+    log(json.dumps({"checkpoint": rec}))
+    return paths
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -6330,6 +6907,7 @@ def main():
     disagg_paths = timed(11, phase_disagg, dev, root, art_dir, prompts,
                          results, plain_serving, http)
     compiled_paths = timed(12, phase_compiled, dev, root)
+    checkpoint_paths = timed(13, phase_checkpoint, dev, root)
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
     paths = {"serve": serve_launches, **spec_paths, **disagg_paths,
              "train": train5["launches"],
@@ -6338,7 +6916,7 @@ def main():
              "rnn_train_gru": gru_launches,
              "tuned_train": tuned_launches,
              "convnet_conv3x3_consult": consult_launches, **amp_paths,
-             **compiled_paths}
+             **compiled_paths, **checkpoint_paths}
     for name, entry in kernels.items():
         # each main path is read with the counts set to 0 just before it
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

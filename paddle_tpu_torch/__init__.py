@@ -17,9 +17,11 @@ path, over shared kernels, with AMP on the training paths:
   per-op and hybrid paths, ``append_backward``), ``layers/``, ``ops/``
   (the lowerings of the transformer LM's training step, the host IO
   ops), ``optimizer.py`` (SGD, Momentum, Adam), ``reader/``,
-  ``data_feeder.py``, ``io.py`` (save and load), ``pipeline.py`` (the
-  feed pipeline), ``trainer.py`` and the ``transformer_lm`` Program
-  builder;
+  ``data_feeder.py``, ``io.py`` (save and load, inference models),
+  ``checkpoint.py`` (async, atomic, CRC-checked checkpoints),
+  ``core/serialize.py`` (the protostr), ``pipeline.py`` (the feed
+  pipeline), ``trainer.py`` (with resume, preemption and ``test``), the
+  ``transformer_lm`` Program builder and ``models/lenet.py``;
 - the conv-net training path: the conv2d, pool2d, batch_norm, softmax,
   cross_entropy and metric ops and ``models/resnet.py``;
 - the sequence (LoD) training path: ``core/lod.py``, ragged feeds and
@@ -28,7 +30,7 @@ path, over shared kernels, with AMP on the training paths:
 - the autotune path: ``tune/`` (search spaces over the kernels'
   compiled tilings, the autotune loop, the CRC-checked winner cache,
   the dispatch counters), its consult in ``mul`` and ``conv2d``, and
-  ``resilience/`` (the event log and the two tune fault sites);
+  ``resilience/`` (the event log, durable events and the fault sites);
 - ``kernels/``: hand-written CUDA kernels (paged-attention decode,
   flash-attention forward and backward, the 3x3 / s1 / p1 convolution,
   the fused LSTM and GRU recurrences, the blocked matmul), each beside

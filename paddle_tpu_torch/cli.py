@@ -4,12 +4,16 @@ generative artifacts and of ``cmd_tune`` for train configs).
 
     python -m paddle_tpu_torch train <config.py> [--device cuda|cpu]
         [--num_passes N] [--log_period K] [--learning_rate LR]
+        [--checkpoint_dir DIR]
 
 loads the config file, calls its ``model()`` (a dict with ``cost``,
 ``feed_list``, ``reader`` and optionally ``optimizer`` and
 ``num_passes``), trains it with the port's Trainer on the device and
 prints ``pass P batch B cost C`` for every K-th batch and a line at the
-end of each pass.
+end of each pass. With ``--checkpoint_dir`` the run resumes from the
+newest state in DIR, saves there at the end of each pass, and a SIGTERM
+lets the running batch finish, saves, prints ``preempted at pass P
+batch B: checkpoint in DIR`` and exits 0.
 
     python -m paddle_tpu_torch serve <artifact_dir> --port 0 [--device cuda]
         [--draft_dir DIR] [--spec_k K] [--prefix_sharing]
@@ -66,10 +70,13 @@ def cmd_train(args):
     opt = spec.get("optimizer") or optimizer.SGD(
         learning_rate=args.learning_rate)
     tr = trainer.Trainer(cost=spec["cost"], optimizer=opt,
-                         feed_list=spec["feed_list"], device=args.device)
+                         feed_list=spec["feed_list"], device=args.device,
+                         checkpoint_dir=args.checkpoint_dir or None)
+    last = {}
 
     def handler(e):
         if isinstance(e, trainer.EndIteration):
+            last["at"] = (e.pass_id, e.batch_id)
             if e.batch_id % args.log_period == 0:
                 print("pass %d batch %d cost %.5f"
                       % (e.pass_id, e.batch_id, e.cost), flush=True)
@@ -79,6 +86,10 @@ def cmd_train(args):
     tr.train(spec["reader"],
              num_passes=args.num_passes or spec.get("num_passes", 1),
              event_handler=handler)
+    if tr.preempted:
+        print("preempted at pass %d batch %d: checkpoint in %s"
+              % (last.get("at", (0, -1)) + (args.checkpoint_dir,)),
+              flush=True)
     return 0
 
 
@@ -374,6 +385,9 @@ def _parser():
     t.add_argument("--learning_rate", type=float, default=0.01,
                    help="SGD's rate when the config names no optimizer")
     t.add_argument("--log_period", type=int, default=10)
+    t.add_argument("--checkpoint_dir", default="",
+                   help="resume from, save to and preempt into this "
+                        "directory")
     t.set_defaults(fn=cmd_train)
     s = sub.add_parser("serve", help="serve a generative artifact over "
                                      "HTTP")

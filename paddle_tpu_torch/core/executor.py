@@ -564,6 +564,9 @@ class Executor(object):
     run) scans every op output on the per-op path."""
 
     def __init__(self, device=DEFAULT_DEVICE, check_nan_inf=None):
+        # the lowerings: a program loaded from a file (an inference model)
+        # reaches the Executor with no layers module imported
+        from .. import ops  # noqa: F401
         self.device = resolve_device(device)
         self._check_nan_inf_arg = check_nan_inf
         # jit_runs / eager_runs / hybrid_runs: which path each run() took

@@ -8,19 +8,26 @@ the operator sugar on ``Variable`` (later slices). A Program carries a
 process-unique ``_uid`` (a clone gets a fresh one) and a ``_version``
 that every appended or inserted op bumps: the Executor keys its compiled
 steps on both, so a mutated program never replays a stale step.
+
+``Program.clone(for_test=True)`` flips ``is_test`` on the ops that
+behave differently in inference (``batch_norm`` here: its running
+statistics instead of the batch's), and ``Program.prune(feeds,
+fetches)`` keeps only the ops the fetches depend on, on such a clone:
+the test program of ``Trainer.test`` and the program of an inference
+model (``io.save_inference_model``).
 """
 from __future__ import annotations
 
 import contextlib
 import copy
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 from . import unique_name
 from .types import VarType, convert_dtype
 
 __all__ = ["GRAD_SUFFIX", "Block", "Operator", "Parameter", "Program",
            "Variable", "default_main_program", "default_startup_program",
-           "grad_var_name", "program_guard"]
+           "grad_var_name", "program_guard", "sub_block_read_names"]
 
 GRAD_SUFFIX = "@GRAD"
 
@@ -30,6 +37,34 @@ SHAPE_INFER_FAILURE_CAP = 64
 
 def grad_var_name(name: str) -> str:
     return name + GRAD_SUFFIX
+
+
+def sub_block_read_names(op: "Operator", program: "Program") -> set:
+    """Every name the sub-blocks of a control-flow op read, recursively
+    and cycle-safe: keeping the op keeps its body's producers. A
+    sub-block is an attr holding a Block of ``program``, or an int under
+    ``sub_block`` / ``block``."""
+
+    def subs(o):
+        for key, a in o.attrs.items():
+            if isinstance(a, Block) and a.program is program:
+                yield a
+            elif isinstance(a, int) and not isinstance(a, bool) \
+                    and key in ("sub_block", "block") \
+                    and 0 <= a < len(program.blocks):
+                yield program.blocks[a]
+
+    names, seen = set(), set()
+    stack = list(subs(op))
+    while stack:
+        blk = stack.pop()
+        if blk.idx in seen:
+            continue
+        seen.add(blk.idx)
+        for sop in blk.ops:
+            names.update(n for n in sop.input_arg_names if n)
+            stack.extend(subs(sop))
+    return names
 
 
 class Variable(object):
@@ -260,12 +295,37 @@ class Program(object):
             for v in blk.vars.values():
                 yield v
 
-    def clone(self) -> "Program":
-        """A deep copy under a fresh uid (``paddle_tpu/core/ir.py:440``;
-        ``for_test`` is not ported yet)."""
+    def clone(self, for_test=False) -> "Program":
+        """A deep copy under a fresh uid. ``for_test=True`` sets
+        ``is_test`` on every op of ``_TEST_SENSITIVE_OPS`` (inference
+        mode)."""
         p = copy.deepcopy(self)
         Program._uid_counter[0] += 1
         p._uid = Program._uid_counter[0]
+        if for_test:
+            for blk in p.blocks:
+                for op in blk.ops:
+                    if "is_test" in _TEST_SENSITIVE_OPS.get(op.type, ()):
+                        op.attrs["is_test"] = True
+        return p
+
+    def prune(self, feeds: Sequence[str], fetches: Sequence[str]) \
+            -> "Program":
+        """A test clone holding only the global block's ops that the
+        ``fetches`` depend on, walking back from the last op: an op is
+        kept when it writes a needed name, and then its inputs (and its
+        sub-blocks' reads) are needed too. Every variable is kept.
+        ``feeds`` is the JAX package's argument and cuts nothing there
+        either."""
+        p = self.clone(for_test=True)
+        blk = p.global_block()
+        needed, kept = set(fetches), []
+        for op in reversed(blk.ops):
+            if set(op.output_arg_names) & needed:
+                kept.append(op)
+                needed |= set(op.input_arg_names)
+                needed |= sub_block_read_names(op, p)
+        blk.ops = list(reversed(kept))
         return p
 
     def to_string(self, throw_on_error=False):
@@ -274,6 +334,15 @@ class Program(object):
     __str__ = to_string
     __repr__ = to_string
 
+
+# op type -> the attrs clone(for_test=True) sets; of these the port
+# registers batch_norm only
+_TEST_SENSITIVE_OPS = {
+    "dropout": ("is_test",),
+    "batch_norm": ("is_test",),
+    "lrn": ("is_test",),
+    "nce": ("is_test",),
+}
 
 _main_program = Program()
 _startup_program = Program()

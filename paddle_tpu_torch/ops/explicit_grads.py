@@ -1,6 +1,6 @@
 """Explicit grad ops of the transformer LM's and ResNet's backward
 (counterpart of the matching part of ``paddle_tpu/ops/explicit_grads.py``:
-``relu_grad``, ``softmax_grad`` :113, ``mul_grad``,
+``relu_grad``, ``tanh_grad`` :94, ``softmax_grad`` :113, ``mul_grad``,
 ``elementwise_add_grad``, ``conv2d_grad`` :285, ``pool2d_grad`` :366,
 ``batch_norm_grad`` :408, ``cross_entropy_grad`` :478,
 ``softmax_with_cross_entropy_grad``, ``mean_grad``, ``scale_grad``).
@@ -82,6 +82,15 @@ def relu_grad(ctx):
 
 
 _attach("relu", "relu_grad", need_outputs=("Out",))
+
+
+@register_op("tanh_grad", no_gradient=True)
+def tanh_grad(ctx):
+    out = ctx.input("Out")
+    ctx.set_output("X@GRAD", ctx.input("Out@GRAD") * (1.0 - out * out))
+
+
+_attach("tanh", "tanh_grad", need_outputs=("Out",))
 
 
 @register_op("softmax_grad", no_gradient=True)

@@ -1,5 +1,5 @@
-"""NN ops (counterparts in ``paddle_tpu/ops/nn_ops.py``: ``relu``
-:48/67, ``softmax`` :147, ``conv2d`` :387 with ``conv2d_apply`` :345,
+"""NN ops (counterparts in ``paddle_tpu/ops/nn_ops.py``: ``relu`` and
+``tanh`` :47-67, ``softmax`` :147, ``conv2d`` :387 with ``conv2d_apply`` :345,
 ``pool2d`` :614 with ``pool2d_apply`` :584, ``batch_norm`` :697 with
 ``_bn_grad_maker`` :744, ``layer_norm`` :774).
 
@@ -54,6 +54,11 @@ def _infer_same(op, block):
 @register_op("relu", infer_shape=_infer_same)
 def relu(ctx):
     ctx.set_output("Out", torch.relu(ctx.input("X")))
+
+
+@register_op("tanh", infer_shape=_infer_same)
+def tanh(ctx):
+    ctx.set_output("Out", torch.tanh(ctx.input("X")))
 
 
 @register_op("layer_norm", infer_shape=_infer_same)

@@ -1,19 +1,26 @@
 """Structured, process-local event log (counterpart of
-``paddle_tpu/resilience/events.py:30-99``: ``record_event``, ``events``,
-``clear_events``).
+``paddle_tpu/resilience/events.py``: ``record_event``,
+``record_durable_event``, ``events``, ``clear_events``).
 
 Every degraded-mode continuation is recorded here, so a test can prove
 that a failure was handled rather than swallowed: a tune candidate that
 failed (``tune_candidate_failed``), a corrupt winner cache
-(``tune_cache_corrupt``), a fired fault (``fault_injected``).
+(``tune_cache_corrupt``), a fired fault (``fault_injected``), a
+checkpoint that fell back past a corrupt one (``checkpoint_fallback``),
+a preemption checkpoint (``preempt_checkpoint``). An event that must
+outlive the process (``preempt_truncated``: SIGKILL may follow) is also
+appended to ``<state_dir>/events.jsonl``.
 """
 from __future__ import annotations
 
 import collections
+import json
+import os
 import threading
 import time
 
-__all__ = ["clear_events", "events", "record_event"]
+__all__ = ["clear_events", "events", "record_durable_event",
+           "record_event"]
 
 # bounded: the log must not become a leak of its own; oldest drop first
 _MAX_EVENTS = 10_000
@@ -29,6 +36,43 @@ def record_event(kind, site=None, **info):
     ev.update(info)
     with _lock:
         _events.append(ev)
+    return ev
+
+
+def _json_line(ev):
+    """Strict JSON for the file: a non-finite float is written as its
+    repr string (``json.dumps`` would write bare ``NaN``)."""
+    try:
+        return json.dumps(ev, allow_nan=False)
+    except ValueError:
+        def fix(v):
+            if isinstance(v, float) and (v != v or v in
+                                         (float("inf"), float("-inf"))):
+                return repr(v)
+            if isinstance(v, dict):
+                return {k: fix(x) for k, x in v.items()}
+            if isinstance(v, (list, tuple)):
+                return [fix(x) for x in v]
+            return v
+        return json.dumps(fix(ev), allow_nan=False)
+
+
+def record_durable_event(kind, site=None, state_dir=None, **info):
+    """:func:`record_event`, and one line appended (and fsynced) to
+    ``<state_dir>/events.jsonl`` when there is a state directory:
+    ``state_dir`` or ``PADDLE_TPU_ELASTIC_STATE``. A failure to write
+    leaves the in-memory record standing."""
+    ev = record_event(kind, site=site, **info)
+    state_dir = state_dir or os.environ.get("PADDLE_TPU_ELASTIC_STATE")
+    if state_dir:
+        try:
+            os.makedirs(state_dir, exist_ok=True)
+            with open(os.path.join(state_dir, "events.jsonl"), "a") as f:
+                f.write(_json_line(ev) + "\n")
+                f.flush()
+                os.fsync(f.fileno())
+        except OSError:
+            pass
     return ev
 
 

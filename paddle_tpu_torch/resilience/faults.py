@@ -3,7 +3,7 @@
 
 Code calls ``fault_point("site.name", payload)`` at a failure-relevant
 edge; a test arms the site to raise, or to corrupt the payload, at the
-Nth hit. A disarmed site costs one dict lookup. The port has seven sites:
+Nth hit. A disarmed site costs one dict lookup. The port has nine sites:
 
 ``tune.candidate``     the autotune loop, once per candidate before it
                        is built (``tune/loop.py``): a raise is a
@@ -36,6 +36,11 @@ Nth hit. A disarmed site costs one dict lookup. The port has seven sites:
                        per batch before it is prepared: a raise degrades
                        the pass to synchronous feeding from that batch
                        (``pipeline_degraded`` event); no batch is lost
+``checkpoint.write``   ``checkpoint.py``, once per shard and once for the
+                       manifest, between the bytes' CRC32 and the disk: a
+                       corrupt is the bit rot the load's CRC check finds
+``checkpoint.load``    ``checkpoint.py``, once per shard read: a raise is
+                       a failed read of the checkpoint
 
 The ``delay`` action and the ``PADDLE_TPU_FAULT_SPEC`` grammar of the
 JAX package are not ported.
@@ -52,7 +57,7 @@ __all__ = ["FaultError", "SITES", "arm", "disarm", "fault_point", "hits",
 
 SITES = ("tune.candidate", "tune.cache", "serving.generate",
          "serving.speculate", "serving.prefix", "serving.ship",
-         "pipeline.feed_next")
+         "pipeline.feed_next", "checkpoint.write", "checkpoint.load")
 _ACTIONS = ("raise", "corrupt")
 
 

@@ -406,3 +406,73 @@ def test_float32_face_pins_unchanged():
         [107520, 82944, 55296]
     assert [tconv.tiling(*s) for s, _, _ in RULE_PICKS] == \
         [t for _, t, _ in RULE_PICKS]
+
+
+@pytest.mark.parametrize("attr", ["pallas3x3", "conv"])
+def test_a_convs_conv_impl_attr_routes_the_port_and_not_jax(attr, tmp_path,
+                                                            monkeypatch):
+    """ROADMAP Queue 3 #6 (deliberate): a conv2d op's own ``conv_impl``
+    attr picks the port's lowering over ``FLAGS.conv_impl`` ("conv" in
+    both packages here), so one program opts in without a process-wide
+    flag; the JAX lowering reads the environment and the flag only. Both
+    compute the same conv (1e-5)."""
+    import paddle_tpu as jpt
+    import paddle_tpu.kernels.conv3x3 as jconv
+    from paddle_tpu import tune as jtune
+    from paddle_tpu.core import unique_name as jun
+    from paddle_tpu_torch import layers as tl
+    from paddle_tpu_torch import tune as ttune
+    from paddle_tpu_torch.core import ir as tir
+    from paddle_tpu_torch.core import unique_name as tun
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.flags import FLAGS, flags_guard
+    from paddle_tpu_torch.ops import nn_ops
+    monkeypatch.delenv("PADDLE_TPU_CONV_IMPL", raising=False)
+    calls = {"port": 0, "jax": 0}
+
+    def spy(mod, key):
+        real = getattr(mod, "conv3x3_s1_nhwc")
+
+        def f(*a, **k):
+            calls[key] += 1
+            return real(*a, **k)
+        monkeypatch.setattr(mod, "conv3x3_s1_nhwc", f)
+
+    spy(nn_ops.conv3x3, "port")
+    spy(jconv, "jax")
+    rng = np.random.RandomState(12)
+    x = rng.rand(2, 4, 6, 6).astype(np.float32)
+    outs = {}
+    for pkg in ("jax", "port"):
+        L = jpt.layers if pkg == "jax" else tl
+        Program = jpt.Program if pkg == "jax" else tir.Program
+        guard = jpt.program_guard if pkg == "jax" else tir.program_guard
+        main, start = Program(), Program()
+        with (jun if pkg == "jax" else tun).guard(), guard(main, start):
+            img = L.data("img", shape=[4, 6, 6], dtype="float32")
+            out = L.conv2d(img, num_filters=5, filter_size=3, padding=1)
+        for op in main.global_block().ops:
+            if op.type == "conv2d":
+                op.attrs["conv_impl"] = attr
+        if pkg == "jax":
+            with jpt.flags_guard(tune_cache_dir=str(tmp_path / "j")), \
+                    jpt.scope_guard(jpt.Scope()):
+                jtune.clear_memory_cache()
+                exe = jpt.Executor(jpt.CPUPlace())
+                exe.run(start)
+                w = {v.name: np.asarray(jpt.global_scope().find_var(v.name))
+                     for v in main.all_parameters()}
+                outs[pkg] = np.asarray(exe.run(main, feed={"img": x},
+                                               fetch_list=[out])[0])
+        else:
+            with flags_guard(tune_cache_dir=str(tmp_path / "t")):
+                ttune.clear_memory_cache()
+                assert FLAGS.conv_impl == "conv"
+                scope = Scope()
+                for n, v in w.items():
+                    scope.set_var(n, torch.from_numpy(v.copy()))
+                outs[pkg] = Executor("cpu").run(
+                    main, feed={"img": x}, fetch_list=[out], scope=scope)[0]
+    assert calls == {"port": 1 if attr == "pallas3x3" else 0, "jax": 0}
+    assert np.abs(outs["port"] - outs["jax"]).max() <= 1e-5

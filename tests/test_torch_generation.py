@@ -269,3 +269,27 @@ def test_serve_cli_readiness_generate_and_sigterm_drain(tmp_path, model):
 def test_serve_cli_refuses_a_directory_that_is_not_an_artifact(tmp_path):
     from paddle_tpu_torch.cli import main
     assert main(["serve", str(tmp_path), "--device", "cpu"]) == 1
+
+
+def test_an_untuned_decode_calls_the_paged_kernels_wrapper(model,
+                                                           monkeypatch):
+    """ROADMAP Queue 3 #5 (deliberate): with no tune winner the JAX
+    engine's decode runs the gather reference, while the port's decode
+    step calls the paged-attention kernel's wrapper once a layer (its
+    plain version on the CPU, the kernel on a CUDA tensor); the tokens
+    are the JAX engine's either way (the flood test above)."""
+    calls = []
+    real = ttm.paged_attention
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(ttm, "paged_attention", spy)
+    prompt = [3, 1, 4, 1, 5]
+    with _engine(model) as eng:
+        res = eng.generate(prompt, max_new_tokens=6, timeout=120)
+        steps = eng.stats["decode_steps"]
+    assert res.tokens == reference_decode(model, prompt, 6)
+    assert steps > 0
+    assert len(calls) >= model.config.num_layers * steps

@@ -16,6 +16,11 @@ package's, on the CPU.
    The random initializers draw from different generators (threefry in
    JAX, a ``torch.Generator`` here) and are compared by their bounds and
    moments instead.
+3. Test programs: ``Program.clone(for_test=True)`` and ``Program.prune``
+   on each book config (``tests/torch_book.py``) keep the same ops, in
+   the same order, as the JAX package's on its twin, with ``is_test``
+   set on every ``batch_norm``; ``sub_block_read_names`` gives the JAX
+   package's names on a program with nested sub-blocks.
 """
 import numpy as np
 import pytest
@@ -300,3 +305,97 @@ def test_random_initializer_matches_jax_in_distribution(op_type, attrs):
     assert abs(float(got.std()) - spread) < 0.03 * spread
     if op_type == "uniform_random":
         assert got.min() >= attrs["min"] and got.max() <= attrs["max"]
+
+
+# -- 3. test programs ----------------------------------------------------------
+
+import torch_book as book  # noqa: E402
+
+
+def _kept(program):
+    return [(op.type, sorted(op.inputs.items()), sorted(op.outputs.items()),
+             op.attrs.get("is_test"))
+            for op in program.global_block().ops]
+
+
+@pytest.mark.parametrize("kind", book.KINDS)
+def test_prune_keeps_the_jax_ops_in_order(kind):
+    jmain, _, jspec = book.build("jax", kind)
+    tmain, _, tspec = book.build("port", kind)
+    feeds = [v.name for v in tspec["feed_list"]]
+    for fetch in ([tspec["prediction_name"]], [tspec["cost"].name]):
+        want = jmain.prune(feeds=feeds, fetches=fetch)
+        got = tmain.prune(feeds=feeds, fetches=fetch)
+        assert _kept(got) == _kept(want)
+        types = [op.type for op in got.global_block().ops]
+        assert not any(t.endswith("_grad") or t in ("sgd", "adam",
+                                                    "momentum")
+                       for t in types), types
+        assert len(types) < len(tmain.global_block().ops)
+        # every variable stays; the source is untouched
+        assert set(got.global_block().vars) == set(tmain.global_block().vars)
+        assert got._uid != tmain._uid
+    bns = [op for op in got.global_block().ops if op.type == "batch_norm"]
+    assert all(op.attrs["is_test"] is True for op in bns)
+    assert all(not op.attrs.get("is_test") for op in
+               tmain.global_block().ops if op.type == "batch_norm")
+    if kind == "resnet_cifar":
+        assert len(bns) == 9
+
+
+def test_clone_for_test_flips_is_test_only():
+    jmain, _, _ = book.build("jax", "resnet_cifar")
+    tmain, _, _ = book.build("port", "resnet_cifar")
+    for for_test in (False, True):
+        got, want = tmain.clone(for_test), jmain.clone(for_test)
+        assert _kept(got) == _kept(want)
+        assert got._uid != tmain._uid
+        n_bn = sum(op.type == "batch_norm" for op in got.global_block().ops)
+        n_test = sum(bool(op.attrs.get("is_test"))
+                     for op in got.global_block().ops)
+        assert n_test == (n_bn if for_test else 0)
+        # the grad ops keep their own attrs
+        assert len(got.global_block().ops) == len(tmain.global_block().ops)
+    assert not any(op.attrs.get("is_test")
+                   for op in tmain.global_block().ops)
+
+
+def _nested(pkg):
+    """An op whose BLOCK attr holds a block whose op's int ``sub_block``
+    names a third block that points back (a cycle)."""
+    program = jpt.Program() if pkg == "jax" else tir.Program()
+    gb = program.global_block()
+    b1 = (program.create_block() if pkg == "jax"
+          else _add_block(program, 0))
+    if pkg == "jax":
+        program.rollback()
+    b2 = program.create_block() if pkg == "jax" else _add_block(program, 0)
+    if pkg == "jax":
+        program.rollback()
+    b1.ops.append(_op(pkg, b1, "scale", {"X": ["a", "b"]}, {"Out": ["c"]},
+                      {"sub_block": b2.idx}))
+    b2.ops.append(_op(pkg, b2, "scale", {"X": ["d"]}, {"Out": ["e"]},
+                      {"block": b1}))
+    top = _op(pkg, gb, "while", {"X": ["x"]}, {"Out": ["y"]},
+              {"body": b1, "flag": True, "sub_block": 7})
+    return top, program
+
+
+def _add_block(program, parent):
+    blk = tir.Block(program, len(program.blocks), parent)
+    program.blocks.append(blk)
+    return blk
+
+
+def _op(pkg, block, type_, inputs, outputs, attrs):
+    cls = jpt.core.ir.Operator if pkg == "jax" else tir.Operator
+    return cls(block, type_, inputs, outputs, attrs)
+
+
+def test_sub_block_read_names_match_jax():
+    from paddle_tpu.core import ir as jir
+    jtop, jprog = _nested("jax")
+    ttop, tprog = _nested("port")
+    want = jir.sub_block_read_names(jtop, jprog)
+    got = tir.sub_block_read_names(ttop, tprog)
+    assert got == want == {"a", "b", "d"}

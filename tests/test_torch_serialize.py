@@ -1,0 +1,165 @@
+"""Program serialization (``paddle_tpu_torch/core/serialize.py``) against
+the JAX package's (``paddle_tpu/core/serialize.py``), on the CPU.
+
+1. Round trip in the port: each book config (fit_a_line, tiny_lm,
+   resnet_cifar, text_rnn, recognize_digits_conv) built, dumped to a
+   protostr, loaded and run (startup and 3 training steps): losses and
+   persistables equal to the original program's bit for bit.
+2. Across packages: a protostr the JAX package wrote loads in the port
+   and trains to the JAX outputs, and the port's loads in the JAX
+   package and trains to the port's; each from the JAX startup's state.
+3. The ``main_program`` / ``startup_program`` dicts of ``tests/golden``
+   (the JAX package's output) load in the port and run to the JAX
+   package's cost.
+4. An unknown format version raises.
+
+Tolerance: losses within 1e-5 relative, persistables within 1e-5 of
+max(1, the largest magnitude) (float32 on both sides, sums in other
+orders); the round trip within one package is exact.
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from paddle_tpu.core import lod as jlod  # noqa: E402
+from paddle_tpu.core import serialize as jser  # noqa: E402
+from paddle_tpu_torch.core import lod as tlod  # noqa: E402
+from paddle_tpu_torch.core import serialize as tser  # noqa: E402
+from paddle_tpu_torch.core.executor import Executor  # noqa: E402
+from paddle_tpu_torch.core.scope import Scope, scope_to_numpy  # noqa: E402
+
+import torch_book as book  # noqa: E402
+
+STEPS = 3
+GOLDEN = os.path.join(book.ROOT, "tests", "golden")
+
+
+def _port_train(main, start, cost, feeds):
+    exe, scope = Executor("cpu"), Scope()
+    exe.run(start, scope=scope)
+    losses = [float(exe.run(main, feed=f, fetch_list=[cost],
+                            scope=scope)[0].reshape(-1)[0]) for f in feeds]
+    return losses, scope_to_numpy(scope, book.persist_names(main))
+
+
+@pytest.mark.parametrize("kind", book.KINDS)
+def test_port_round_trip_runs_bit_identically(kind):
+    main, start, spec = book.build("port", kind)
+    main.random_seed = start.random_seed = 7
+    feeds = book.feeds(kind, "port", STEPS)
+    want = _port_train(main, start, spec["cost"].name, feeds)
+    text_main = tser.program_to_protostr(main)
+    text_start = tser.program_to_protostr(start)
+    main2 = tser.program_from_protostr(text_main)
+    start2 = tser.program_from_protostr(text_start)
+    assert tser.program_to_protostr(main2) == text_main
+    assert main2.random_seed == 7
+    assert [op.type for op in main2.global_block().ops] == \
+        [op.type for op in main.global_block().ops]
+    got = _port_train(main2, start2, spec["cost"].name, feeds)
+    assert got[0] == want[0]
+    assert sorted(got[1]) == sorted(want[1])
+    for n in want[1]:
+        assert np.array_equal(got[1][n], want[1][n]), n
+
+
+@pytest.mark.parametrize("kind", book.KINDS)
+def test_jax_protostr_loads_in_the_port_and_trains_alike(kind):
+    jmain, jstart, jspec = book.build("jax", kind)
+    main = tser.program_from_protostr(jser.program_to_protostr(jmain))
+    state = book.jax_startup_state(jmain, jstart)
+    cost = jspec["cost"].name
+    jouts, jfinal = book.jax_run(jmain, state, book.feeds(kind, "jax", STEPS),
+                                 [cost])
+    touts, tfinal = book.port_run(main, state,
+                                  book.feeds(kind, "port", STEPS), [cost])
+    assert book.loss_rel([o[0] for o in touts], [o[0] for o in jouts]) \
+        <= book.REL_TOL
+    for n in jfinal:
+        assert book.rel(tfinal[n], jfinal[n]) <= book.REL_TOL, n
+
+
+@pytest.mark.parametrize("kind", book.KINDS)
+def test_port_protostr_loads_in_jax_and_trains_alike(kind):
+    tmain, tstart, tspec = book.build("port", kind)
+    jmain = jser.program_from_protostr(tser.program_to_protostr(tmain))
+    jstart = jser.program_from_protostr(tser.program_to_protostr(tstart))
+    state = book.jax_startup_state(jmain, jstart)
+    assert sorted(state) == book.persist_names(tmain)
+    cost = tspec["cost"].name
+    jouts, jfinal = book.jax_run(jmain, state, book.feeds(kind, "jax", STEPS),
+                                 [cost])
+    touts, tfinal = book.port_run(tmain, state,
+                                  book.feeds(kind, "port", STEPS), [cost])
+    assert book.loss_rel([o[0] for o in jouts], [o[0] for o in touts]) \
+        <= book.REL_TOL
+    for n in tfinal:
+        assert book.rel(jfinal[n], tfinal[n]) <= book.REL_TOL, n
+
+
+def _golden_feed(name, pkg):
+    rng = np.random.RandomState(3)
+    if name == "mlp":
+        return {"x": rng.rand(6, 16).astype("float32"),
+                "y": rng.randint(0, 4, (6, 1)).astype("int64")}
+    if name == "convnet":
+        return {"img": rng.rand(4, 64).astype("float32"),
+                "y": rng.randint(0, 3, (4, 1)).astype("int64")}
+    lengths = [3, 5, 2, 4]
+    lod_mod = jlod if pkg == "jax" else tlod
+    seqs = [rng.randint(0, 100, (n, 1)).astype("int64") for n in lengths]
+    return {"words": lod_mod.build_lod_tensor(seqs),
+            "label": rng.randint(0, 2, (len(lengths), 1)).astype("int64")}
+
+
+@pytest.mark.parametrize("name", ["mlp", "convnet", "lstm_seq"])
+def test_golden_dicts_load_and_run_to_the_jax_cost(name):
+    with open(os.path.join(GOLDEN, name + ".json")) as f:
+        golden = json.load(f)
+    jmain = jser.program_from_dict(golden["main_program"])
+    jstart = jser.program_from_dict(golden["startup_program"])
+    tmain = tser.program_from_dict(golden["main_program"])
+    tser.program_from_dict(golden["startup_program"])
+    assert tser.program_to_dict(tmain) == jser.program_to_dict(jmain)
+    cost = golden["output_var_names"][0]
+    state = book.jax_startup_state(jmain, jstart)
+    assert sorted(state) == sorted(golden["parameter_names"])
+    jouts, _ = book.jax_run(jmain, state, [_golden_feed(name, "jax")], [cost])
+    touts, _ = book.port_run(tmain, state, [_golden_feed(name, "port")],
+                             [cost])
+    assert np.isfinite(touts[0][0]).all()
+    assert book.loss_rel(touts[0][0].reshape(-1), jouts[0][0].reshape(-1)) \
+        <= book.REL_TOL
+
+
+def test_unknown_format_version_raises():
+    main, _, _ = book.build("port", "fit_a_line")
+    d = tser.program_to_dict(main)
+    assert d["format_version"] == 1
+    d["format_version"] = 2
+    with pytest.raises(ValueError, match="unsupported program format 2"):
+        tser.program_from_dict(d)
+    del d["format_version"]
+    with pytest.raises(ValueError):
+        tser.program_from_dict(d)
+
+
+def test_unserializable_attr_raises():
+    main, _, _ = book.build("port", "fit_a_line", minimize=False)
+    main.global_block().ops[0].attrs["bad"] = object()
+    with pytest.raises(TypeError, match="not serializable"):
+        tser.program_to_protostr(main)
+
+
+def test_port_protostr_text_equals_the_jax_one():
+    """Built alike, the two packages' programs render to the same text
+    (fit_a_line: no attr either package adds of its own)."""
+    jmain, jstart, _ = book.build("jax", "fit_a_line")
+    tmain, tstart, _ = book.build("port", "fit_a_line")
+    assert tser.program_to_protostr(tmain) == jser.program_to_protostr(jmain)
+    assert tser.program_to_protostr(tstart) == \
+        jser.program_to_protostr(jstart)
