@@ -2,8 +2,9 @@
 """Chip smoke of paddle_tpu_torch on one NVIDIA card (an H100).
 
 Drives the port's generative serving path (plain, speculative,
-prefix-shared and disaggregated) and its Fluid training path
-at the widths of GPT-2 small, its conv-net training path on ImageNet
+prefix-shared and disaggregated) and its Fluid training path (with
+gradient clipping, weight decay, learning-rate schedules and every
+optimizer) at the widths of GPT-2 small, its conv-net training path on ImageNet
 ResNet-50, its sequence training path on the stacked-RNN text
 classifier of ``benchmark/rnn_bench.py``, its autotune path (the
 ``tune`` verb, the winner cache, the tuned dispatch of ``mul`` and
@@ -115,8 +116,8 @@ Phases, in order; any failure exits non-zero at once:
    cache whose winner for each gemm population is the race's fastest
    kernel tiling (whatever the race cached) and train phase 5's 8 Adam
    steps against it: step-1 gradients against the plain
-   reference, exactly 72 matmul launches and 72 tune hits and 1 fallback
-   a step, the losses within 1e-3 of phase 5's, and two profiled steps;
+   reference, exactly 72 matmul launches a step, 72 tune hits and 1
+   fallback for the run's one step key, the losses within 1e-3 of phase 5's, and two profiled steps;
    then one ResNet-50 step against a cache that says stock for the first
    stage's 3x3 population and the kernel for the second's
    (``conv_impl=conv``): the conv3x3 kernel runs forward and dx for
@@ -274,12 +275,44 @@ Phases, in order; any failure exits non-zero at once:
    kernel); the book config recognize_digits_conv trained by the CLI,
    exit 0. It prints the save and load ms, bytes and MB/s of each
    checkpoint, the async save's snapshot ms beside its write ms, and the
-   test program's ms at its warm-up, capture and replay.
+   test program's ms at its warm-up, capture and replay;
+14. optimization: the training recipes of clipping, weight decay and
+   learning-rate schedules, each compiled (a warm-up, a capture,
+   replays) from one saved state: the LM at GPT-2
+   small's widths (float32, 8 x 1024 tokens a step) under Adam on a
+   ``polynomial_decay`` schedule with ``GradientClipByGlobalNorm(1.0)``
+   on every parameter and ``L2Decay(0.01)``, and ResNet-50 at 224 x 224,
+   batch 32 (cuDNN deterministic) under Momentum 0.9, ``L2Decay(1e-4)``
+   and a ``piecewise_decay`` schedule: ``OPT_STEPS`` compiled steps
+   bit-identical to as many per-op steps in losses, LRs and every
+   persistable (the int64 step counter included), one capture, a replay
+   a step, no fallback; every LR at its closed form in float64 (the
+   pieces exactly); each parameter's update at every LM step and at
+   ResNet-50's step 1 within ``OPT_UPDATE_TOL`` of max(1, |p|) of its
+   float64 recomputation from the step's fetched gradients (global
+   norm, clip scale, decay, the update op's formula; the steps where
+   the clip binds printed), and, as the recipe's clip does not bind at
+   the LM's first steps, the same LM with a clip of
+   ``OPT_LM_BIND_CLIP`` held so over ``OPT_LM_BIND_STEPS`` steps, its
+   clip binding at each; 24 flash forward
+   and 12 of each flash backward launch a LM step, 16 conv3x3 forward
+   and 16 dx a ResNet-50 step; the step p50 and the captured graph's
+   kernel nodes printed beside phase 12's plain-Adam and plain-Momentum
+   steps; the LSTM classifier at rnn_bench widths once under each of
+   ``OPT_RNN_RECIPES`` (Adagrad, RMSProp with momentum, Adamax,
+   DecayedAdagrad, Ftrl with l1, Adadelta clipped by value, SGD clipped
+   by norm, each on its schedule), compiled (warm-up, capture, 2
+   replays, 2 fused LSTM launches a layer a step): the update at the
+   capture's replay within ``OPT_RNN_UPDATE_TOL`` of its float64
+   recomputation and every LR at its closed form; ``ModelAverage`` on
+   the LM (2 steps, ``apply``, ``Trainer.test``, ``restore``, 2 steps):
+   the losses bit-identical to a run without it, ``apply`` and
+   ``restore`` ms printed.
 
 Phases 5-9 train through ``Trainer.train``, which runs the compiled
 path: each holds its steps to one capture and a replay a step, and the
-tune consults of phases 8 and 9 to the steps that ran their lowerings
-(the warm-up and the capture). Their windows that patch a wrapper or
+tune consults of phases 8 and 9 to one count a step key (its warm-up),
+as the JAX package counts once a trace. Their windows that patch a wrapper or
 mark a Python range (phase 7's backward loop, phase 9's parent faces)
 and phase 8's tiling sweep run on the per-op path.
 
@@ -1782,7 +1815,7 @@ def _lm_train(dev, label, after=None, want_matmul=0,
         "peak_memory_bytes": peak, "launches": launches,
         "launches_per_step": {k: v / steps for k, v in launches.items()},
         "tune": tune_stats, "executor": exe_runs,
-        "traces": _traces(exe_runs, steps), "profile": profile_window}
+        "traces": _traces(exe_runs), "profile": profile_window}
     if after:
         rec["served"] = extra
     trainer.exe.close()
@@ -3552,13 +3585,14 @@ def phase_tune(dev, root, train5):
         "phase5_tokens_per_s": train5["tokens_per_s"],
         "phase5_peak_memory_bytes": train5["peak_memory_bytes"]})
     log(json.dumps({"tuned_train": rec}))
-    # the consults run where the lowerings run: the warm-up and the
-    # capture, not the replays (ROADMAP Queue 3 #4)
+    # the consults count once a step key, at its warm-up: the capture
+    # and the replays count nothing (ROADMAP Queue 3 #4)
     traces = rec["traces"]
-    if rec["tune"] != {"tune_hits": per_layer * L * traces,
-                       "tune_misses": 0, "tune_fallbacks": traces}:
-        fail("tuned train tune counters %s over %d steps (%d traced), "
-             "expected %d hits and 1 fallback a traced step"
+    if traces != 1 or rec["tune"] != {"tune_hits": per_layer * L,
+                                      "tune_misses": 0,
+                                      "tune_fallbacks": 1}:
+        fail("tuned train tune counters %s over %d steps (%d keys), "
+             "expected %d hits and 1 fallback for its one key"
              % (rec["tune"], steps, traces, per_layer * L))
     if not loss_rel <= LOSS_REL_TOL:
         fail("tuned train losses differ from phase 5's by %g > %g"
@@ -4707,10 +4741,11 @@ def phase_amp(dev, root, f32_images_s, tuned, rnn32):
                     "float32_tuned_step_ms_p50": tuned["step_ms_p50"]})
         log(json.dumps({label: rec}))
         traces = rec["traces"]
-        if rec["tune"] != {"tune_hits": per_layer * L * traces,
-                           "tune_misses": 0, "tune_fallbacks": traces}:
-            fail("%s tune counters %s over %d steps (%d traced), expected "
-                 "%d hits and 1 fallback a traced step"
+        if traces != 1 or rec["tune"] != {"tune_hits": per_layer * L,
+                                          "tune_misses": 0,
+                                          "tune_fallbacks": 1}:
+            fail("%s tune counters %s over %d steps (%d keys), expected "
+                 "%d hits and 1 fallback for its one key"
                  % (label, rec["tune"], steps, traces, per_layer * L))
         paths[label] = rec["launches"]
     paths["rnn_train_lstm_pure_amp"], rnn_pure = phase_rnn(dev, "lstm",
@@ -5637,10 +5672,11 @@ def _compiled_gate(label, delta, steps):
              % (label, delta, steps, want))
 
 
-def _traces(delta, steps):
-    """How many of ``steps`` compiled steps ran their lowerings (and so
-    the tune consults): the eager ones and the captures."""
-    return steps - delta["graph_replays"] + delta["graph_captures"]
+def _traces(delta):
+    """How many step keys a compiled run warmed up: the runs that were
+    not replays. The tune consults count there and only there, once a
+    key, as the JAX package counts once a trace (ROADMAP Queue 3 #4)."""
+    return delta["jit_runs"] - delta["graph_replays"]
 
 
 def _eager_steps(trainer, batches):
@@ -5711,10 +5747,9 @@ def _kept_graph_class():
     return KeptGraph
 
 
-def _graph_symbol_nodes(graph, delta):
-    """What one replay of a captured step launches, read from the
-    driver: {symbol: (kernel nodes of the graph that run it, launches
-    its wrappers add a replay)} for every symbol either has."""
+def _graph_kernel_names(graph):
+    """The function name of every kernel node of a captured graph, read
+    from the driver."""
     import ctypes
     cu = ctypes.CDLL("libcuda.so.1")
     g = ctypes.c_void_p(graph.raw_cuda_graph())
@@ -5739,6 +5774,14 @@ def _graph_symbol_nodes(graph, delta):
         if cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)):
             fail("cuFuncGetName failed")
         names.append(name.value.decode())
+    return names
+
+
+def _graph_symbol_nodes(graph, delta):
+    """What one replay of a captured step launches, read from the
+    driver: {symbol: (kernel nodes of the graph that run it, launches
+    its wrappers add a replay)} for every symbol either has."""
+    names = _graph_kernel_names(graph)
     out = {}
     for sym, counters in KERNEL_SYMBOLS.items():
         # a mangled name holds the symbol after its length
@@ -5802,6 +5845,8 @@ def _mode_run(dev, program, cost, feed, state, use_jit, keep=False):
     if steps:
         rec["graph_kernel_nodes"] = _graph_symbol_nodes(steps[-1].graph,
                                                         steps[-1].delta)
+        rec["graph_kernel_nodes_total"] = len(
+            _graph_kernel_names(steps[-1].graph))
     final = _persistables(program, scope)
     counts0 = kernels.launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
@@ -5917,6 +5962,7 @@ def _compiled_lm(dev, amp=False):
     kernel = "flash_attention_fwd" + ("_bf16" if amp else "")
     out = _compiled_path(dev, label, main_prog, spec["cost"], feed, state,
                          kernel, repeat=not amp)
+    out[0]["program_ops"] = len(main_prog.global_block().ops)
     trainer.exe.close()
     return out
 
@@ -5990,6 +6036,7 @@ def _compiled_resnet(dev):
         torch.backends.cudnn.deterministic = saved
     out[0]["eager_vs_eager"] = probe
     out[0]["cudnn_deterministic"] = True
+    out[0]["program_ops"] = len(main_prog.global_block().ops)
     trainer.exe.close()
     return out
 
@@ -6292,6 +6339,9 @@ def phase_compiled(dev, root):
             for mode in ("eager", "compiled")}
         summary[label]["max_abs_loss_diff_vs_eager"] = \
             rec["max_abs_loss_diff_vs_eager"]
+        summary[label]["graph_kernel_nodes_total"] = \
+            rec["compiled"].get("graph_kernel_nodes_total")
+        summary[label]["program_ops"] = rec.get("program_ops")
         if "eager_vs_eager" in rec:
             summary[label]["eager_vs_eager"] = rec["eager_vs_eager"]
     summary["ragged"] = _compiled_ragged(dev)
@@ -6300,7 +6350,14 @@ def phase_compiled(dev, root):
     summary["fallback"] = _compiled_fallback(dev)
     summary["wall_s"] = time.monotonic() - t0
     log(json.dumps({"compiled": summary}))
-    return paths
+    # the plain-Adam LM and plain-Momentum ResNet-50 steps that phase 14
+    # prints its recipes' steps beside
+    plain = {label: {"step_ms_p50": summary[label]["compiled"]["step_ms_p50"],
+                     "graph_kernel_nodes_total":
+                         summary[label]["graph_kernel_nodes_total"],
+                     "program_ops": summary[label].get("program_ops")}
+             for label in ("lm", "resnet50")}
+    return paths, plain
 
 
 # -- phase 13 -----------------------------------------------------------------
@@ -6852,6 +6909,710 @@ def phase_checkpoint(dev, root):
     return paths
 
 
+# -- phase 14 -----------------------------------------------------------------
+
+# Phase 14 (optimization): the training recipes that clipping, weight
+# decay and schedules make possible, compiled against eager on the card.
+# The LM at GPT-2 small's widths: Adam on a polynomial schedule,
+# global-norm clipping on every parameter, L2 decay on the optimizer
+OPT_STEPS = 6
+OPT_LM_CLIP = 1.0
+OPT_LM_DECAY = 0.01
+# the recipe's clip does not bind at this LM's first steps (global norms
+# 0.29-0.96 on the card): the same program with a clip of 0.1, which
+# binds, is held to its float64 recomputation over OPT_LM_BIND_STEPS
+OPT_LM_BIND_CLIP = 0.1
+OPT_LM_BIND_STEPS = 2
+OPT_LM_SCHEDULE = ("polynomial_decay",
+                   dict(learning_rate=6e-4, decay_steps=8,
+                        end_learning_rate=6e-5))
+# ResNet-50: Momentum 0.9, L2 1e-4, a step schedule over OPT_STEPS steps
+OPT_R50_DECAY = 1e-4
+OPT_R50_SCHEDULE = ("piecewise_decay",
+                    dict(boundaries=[2, 4],
+                         values=[0.0125, 0.00125, 0.000125]))
+# a parameter's update against its float64 recomputation from the
+# step's fetched gradients, over max(1, |p|): a few float32 ulps of a
+# weight on the LM and ResNet-50; the classifier runs' Ftrl writes p
+# afresh rather than as a step
+OPT_UPDATE_TOL = 1e-6
+OPT_RNN_UPDATE_TOL = 1e-5
+# a fetched LR against its closed form in float64, relative
+OPT_LR_TOL = 1e-6
+# the LM steps whose update is recomputed on the host: all of them, so
+# that the steps where the global-norm clip binds are among them
+OPT_CHECK_STEPS = tuple(range(1, OPT_STEPS + 1))
+# the LSTM classifier's runs: warm-up, capture, 2 replays; the update
+# is recomputed at the capture's replay (step 2)
+OPT_RNN_STEPS = 4
+OPT_RNN_CHECK_STEP = 2
+# (label, optimizer, its kwargs, schedule or None, clip or None)
+OPT_RNN_RECIPES = [
+    ("adagrad_exponential", "Adagrad", {},
+     ("exponential_decay", dict(learning_rate=0.01, decay_steps=2,
+                                decay_rate=0.5)), None),
+    ("rmsprop_momentum_natural_exp", "RMSProp", dict(momentum=0.9),
+     ("natural_exp_decay", dict(learning_rate=0.001, decay_steps=2,
+                                decay_rate=0.5)), None),
+    ("adamax_polynomial_power2", "Adamax", {},
+     ("polynomial_decay", dict(learning_rate=0.002, decay_steps=4,
+                               end_learning_rate=0.0002, power=2.0)),
+     None),
+    ("decayed_adagrad_piecewise", "DecayedAdagrad", {},
+     ("piecewise_decay", dict(boundaries=[1, 3],
+                              values=[0.001, 0.0005, 0.0001])), None),
+    ("ftrl_l1_exponential_staircase", "Ftrl", dict(l1=1e-4),
+     ("exponential_decay", dict(learning_rate=0.01, decay_steps=2,
+                                decay_rate=0.5, staircase=True)), None),
+    ("adadelta_clip_by_value", "Adadelta", {}, None, ("value", 1.0)),
+    ("sgd_inverse_time_clip_by_norm", "SGD", {},
+     ("inverse_time_decay", dict(learning_rate=0.1, decay_steps=2,
+                                 decay_rate=0.5)), ("norm", 5.0)),
+]
+OPT_RNN_LR = 1.0  # the learning rate of a recipe with no schedule
+# ModelAverage on the LM: steps before apply / test / restore, and after
+OPT_AVG_STEPS = (2, 2)
+
+
+def lr_closed_form(kind, kw, s):
+    """A schedule of ``learning_rate_decay.py`` at step ``s`` (the
+    counter's first value is 0), in float64."""
+    if kind == "piecewise_decay":
+        return float(kw["values"][sum(1 for b in kw["boundaries"]
+                                      if b <= s)])
+    lr = kw["learning_rate"]
+    ds = float(kw["decay_steps"])
+    if kind == "polynomial_decay":
+        end, power = kw.get("end_learning_rate", 1e-4), kw.get("power", 1.0)
+        if kw.get("cycle"):
+            ds, step = ds * max(math.ceil(s / ds), 1.0), s
+        else:
+            step = min(s, ds)
+        frac = 1.0 - step / ds
+        if power != 1.0:
+            frac = min(max(frac, 1e-12), 1.0)  # the schedule's clip
+        return (lr - end) * frac ** power + end
+    div = s / ds
+    if kw.get("staircase"):
+        div = math.floor(div)
+    if kind == "exponential_decay":
+        return lr * kw["decay_rate"] ** div
+    if kind == "natural_exp_decay":
+        return lr * math.exp(-kw["decay_rate"] * div)
+    if kind == "inverse_time_decay":
+        return lr / (1.0 + kw["decay_rate"] * div)
+    raise ValueError(kind)
+
+
+def recipe_grads(grads, params, clip=None, decay=None):
+    """The gradients the update ops read, recomputed in float64 from the
+    raw ones (``{param: grad}``): clipped as ``clip`` says (``("value",
+    v)``, ``("norm", v)`` each alone, ``("global_norm", v)`` over all of
+    them), then ``decay`` x p added (L2). Returns (grads, the global
+    norm, the scale; both None without a global-norm clip)."""
+    g = {n: t.double() for n, t in grads.items()}
+    norm = scale = None
+    if clip and clip[0] == "global_norm":
+        norm = math.sqrt(sum(float(torch.sum(t * t)) for t in g.values()))
+        scale = clip[1] / max(clip[1], norm)
+    out = {}
+    for n, t in g.items():
+        if clip is None:
+            c = t
+        elif clip[0] == "value":
+            c = torch.clamp(t, -clip[1], clip[1])
+        elif clip[0] == "norm":
+            nrm = float(torch.sqrt(torch.sum(t * t)))
+            c = t * (clip[1] / nrm) if nrm > clip[1] else t
+        else:
+            c = t * scale
+        if decay:
+            c = c + decay * params[n].double()
+        out[n] = c
+    return out, norm, scale
+
+
+def update_float64(op, p, g, state, lr):
+    """The new value of parameter ``p`` under update op ``op`` (its type
+    and attrs), in float64 from float64 ``g``, the op's accumulator
+    inputs ``state`` ({slot: tensor}, before the step) and ``lr``."""
+    t, a = op.type, op.attrs
+    p = p.double()
+    s = {k: v.double() for k, v in state.items()}
+    if t == "sgd":
+        return p - lr * g
+    if t == "momentum":
+        v = a["mu"] * s["Velocity"] + g
+        if a.get("use_nesterov", False):
+            return p - (g + a["mu"] * v) * lr
+        return p - lr * v
+    if t == "adam":
+        b1, b2 = a.get("beta1", 0.9), a.get("beta2", 0.999)
+        b1p, b2p = float(s["Beta1Pow"].reshape(-1)[0]), \
+            float(s["Beta2Pow"].reshape(-1)[0])
+        lr_t = lr * math.sqrt(1.0 - b2p) / (1.0 - b1p)
+        m1 = b1 * s["Moment1"] + (1.0 - b1) * g
+        m2 = b2 * s["Moment2"] + (1.0 - b2) * g * g
+        return p - lr_t * m1 / (torch.sqrt(m2) + a.get("epsilon", 1e-8))
+    if t == "adamax":
+        b1, b2 = a.get("beta1", 0.9), a.get("beta2", 0.999)
+        b1p = float(s["Beta1Pow"].reshape(-1)[0])
+        m = b1 * s["Moment"] + (1.0 - b1) * g
+        inf = torch.maximum(b2 * s["InfNorm"], torch.abs(g))
+        return p - lr / (1.0 - b1p) * m / (inf + a.get("epsilon", 1e-8))
+    if t == "adagrad":
+        m = s["Moment"] + g * g
+        return p - lr * g / (torch.sqrt(m) + a.get("epsilon", 1e-6))
+    if t == "decayed_adagrad":
+        d = a.get("decay", 0.95)
+        m = d * s["Moment"] + (1.0 - d) * g * g
+        return p - lr * g / (torch.sqrt(m) + a.get("epsilon", 1e-6))
+    if t == "adadelta":
+        rho, eps = a.get("rho", 0.95), a.get("epsilon", 1e-6)
+        ag = rho * s["AvgSquaredGrad"] + (1.0 - rho) * g * g
+        return p - torch.sqrt((s["AvgSquaredUpdate"] + eps) / (ag + eps)) * g
+    if t == "rmsprop":
+        rho, eps = a.get("decay", 0.9), a.get("epsilon", 1e-10)
+        ms = rho * s["MeanSquare"] + (1.0 - rho) * g * g
+        mom = a.get("momentum", 0.0) * s["Moment"] + lr * g / torch.sqrt(
+            ms + eps)
+        return p - mom
+    if t == "ftrl":
+        l1, l2 = a.get("l1", 0.0), a.get("l2", 0.0)
+        power = -a.get("lr_power", -0.5)
+        sq, lin = s["SquaredAccumulator"], s["LinearAccumulator"]
+        new_sq = sq + g * g
+        sigma = (new_sq ** power - sq ** power) / lr
+        new_lin = lin + g - sigma * p
+        denom = new_sq ** power / lr + 2.0 * l2
+        return (torch.clamp(new_lin, -l1, l1) - new_lin) / denom
+    raise ValueError("no float64 update for op %r" % t)
+
+
+_UPDATE_STATE_SLOTS = ("Velocity", "Moment1", "Moment2", "Beta1Pow",
+                       "Beta2Pow", "Moment", "InfNorm", "AvgSquaredGrad",
+                       "AvgSquaredUpdate", "MeanSquare",
+                       "SquaredAccumulator", "LinearAccumulator")
+
+
+def update_state_names(program):
+    """{param: (update op, {slot: var name})} of every update op."""
+    out = {}
+    for op in program.global_block().ops:
+        if op.output("ParamOut"):
+            out[op.output("ParamOut")[0]] = (op, {
+                s: op.input(s)[0] for s in _UPDATE_STATE_SLOTS
+                if op.input(s)})
+    return out
+
+
+def update_errors(program, before, grads, after, lr, clip=None,
+                  decay=None):
+    """Each parameter's update against its float64 recomputation:
+    ``before`` / ``after`` hold every parameter and accumulator before
+    and after the step, ``grads`` the raw gradients ({param: tensor}),
+    ``lr`` the step's fetched learning rate. Returns ({param: largest
+    difference over max(1, |p|)}, the global norm, the clip scale)."""
+    ops = update_state_names(program)
+    params = {n: before[n] for n in grads}
+    g64, norm, scale = recipe_grads(grads, params, clip, decay)
+    errs = {}
+    for n, g in g64.items():
+        op, slots = ops[n]
+        want = update_float64(op, before[n], g,
+                              {s: before[v] for s, v in slots.items()}, lr)
+        got = after[n].double()
+        # an element NaN on both sides agrees (the JAX ftrl formula
+        # divides 0 by 0 where a row's squared accumulator stays 0); NaN
+        # on one side only fails
+        d = (got - want).abs().masked_fill(
+            torch.isnan(got) & torch.isnan(want), 0.0)
+        errs[n] = float(d.max()) / max(
+            1.0, float(torch.nan_to_num(before[n].double()).abs().max()))
+    return errs, norm, scale
+
+
+def _opt_state_names(program):
+    ops = update_state_names(program)
+    names = set(ops)
+    for _, slots in ops.values():
+        names.update(slots.values())
+    return sorted(names)
+
+
+def _clone_state(scope, names):
+    return {n: scope.find_var(n).detach().clone() for n in names}
+
+
+def _opt_build(dev, kind, recipe=None, lm_clip=OPT_LM_CLIP):
+    """A Trainer of ``kind`` ('lm', 'resnet50' or 'rnn') under its phase
+    14 recipe (the LM's global-norm clip at ``lm_clip``): (spec, trainer,
+    main program, LR var, recipe record)."""
+    from paddle_tpu_torch import clip as clip_mod
+    from paddle_tpu_torch import learning_rate_decay as lrd
+    from paddle_tpu_torch import optimizer as opt_mod
+    from paddle_tpu_torch import regularizer
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.trainer import Trainer
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        if kind == "lm":
+            from paddle_tpu_torch.configs import tiny_lm
+            widths = dict(vocab=GPT2_SMALL["vocab_size"],
+                          seq=GPT2_SMALL["max_seq"],
+                          hidden=GPT2_SMALL["hidden"],
+                          num_layers=GPT2_SMALL["num_layers"],
+                          num_heads=GPT2_SMALL["num_heads"],
+                          ffn_mult=GPT2_SMALL["ffn_mult"])
+            spec = tiny_lm.model(batch=TRAIN_BATCH, samples=8 * TRAIN_BATCH,
+                                 learning_rate=TRAIN_LR, seed=0, **widths)
+            clip_mod.set_gradient_clip(
+                clip_mod.GradientClipByGlobalNorm(lm_clip))
+            schedule = OPT_LM_SCHEDULE
+            lr = getattr(lrd, schedule[0])(**schedule[1])
+            opt = opt_mod.Adam(learning_rate=lr,
+                               regularization=regularizer.L2Decay(
+                                   OPT_LM_DECAY))
+            rec = {"optimizer": "Adam", "schedule": schedule,
+                   "clip": ("global_norm", lm_clip),
+                   "decay": OPT_LM_DECAY}
+        elif kind == "resnet50":
+            from paddle_tpu_torch.configs import resnet_cifar
+            spec = resnet_cifar.model(variant="imagenet", depth=50,
+                                      image=224, class_dim=1000,
+                                      batch=R50_BATCH, learning_rate=R50_LR)
+            schedule = OPT_R50_SCHEDULE
+            lr = getattr(lrd, schedule[0])(**schedule[1])
+            opt = opt_mod.Momentum(learning_rate=lr, momentum=0.9,
+                                   regularization=regularizer.L2Decay(
+                                       OPT_R50_DECAY))
+            rec = {"optimizer": "Momentum(0.9)", "schedule": schedule,
+                   "clip": None, "decay": OPT_R50_DECAY}
+        else:
+            from paddle_tpu_torch.configs import text_rnn
+            _, opt_name, kw, schedule, clip = recipe
+            spec = text_rnn.model(cell="lstm", samples=RNN_BENCH["batch"],
+                                  **RNN_BENCH)
+            if clip is not None:
+                clip_mod.set_gradient_clip(
+                    clip_mod.GradientClipByValue(clip[1])
+                    if clip[0] == "value"
+                    else clip_mod.GradientClipByNorm(clip[1]))
+            lr = (getattr(lrd, schedule[0])(**schedule[1]) if schedule
+                  else OPT_RNN_LR)
+            opt = getattr(opt_mod, opt_name)(learning_rate=lr, **kw)
+            rec = {"optimizer": opt_name, "kwargs": kw, "schedule": schedule,
+                   "clip": clip, "decay": None}
+        trainer = Trainer(spec["cost"], opt, spec["feed_list"], device=dev)
+        lr_var = opt._global_learning_rate(main_prog)
+    if not any(op.input("LearningRate") == [lr_var.name]
+               for op, _ in update_state_names(main_prog).values()):
+        lr_var = None  # adadelta reads no learning rate
+    return spec, trainer, main_prog, lr_var, rec
+
+
+def _opt_run(dev, program, head, feed, state, use_jit, steps, grads=(),
+             check_steps=(), names=(), check=None, keep_graph=False):
+    """``steps`` runs of ``program`` on ``feed`` from ``state`` in a fresh
+    Executor and scope, fetching ``head`` (the cost, and the LR var
+    where an update op reads one) and ``grads``. At each of
+    ``check_steps``, ``check(step, before, grads, after, lr)`` gets the
+    state ``names`` before and after the step, its fetched gradients and
+    its LR. Returns the record, the ``head`` fetches of each step, the
+    final persistables and {step: what ``check`` returned}."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    exe, scope = Executor(dev), Scope()
+    for n, t in state.items():
+        scope.set_var(n, t.clone())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    before = dict(exe.stats)
+    outs, ms, checks = [], [], {}
+    plain_graph = torch.cuda.CUDAGraph
+    if keep_graph:
+        torch.cuda.CUDAGraph = _kept_graph_class()
+    try:
+        for step in range(1, steps + 1):
+            pre = _clone_state(scope, names) if step in check_steps else None
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = exe.run(program, feed=feed,
+                          fetch_list=list(head) + list(grads), scope=scope,
+                          use_jit=use_jit, return_numpy=False)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            outs.append(out[:len(head)])
+            if pre is not None:
+                lr = (float(out[1].reshape(-1)[0]) if len(head) > 1
+                      else OPT_RNN_LR)
+                checks[step] = check(step, pre, out[len(head):],
+                                     _clone_state(scope, names), lr)
+                del pre
+            del out
+    finally:
+        torch.cuda.CUDAGraph = plain_graph
+    rec = {"launches": kernels.launch_counts(),
+           "executor": _exe_delta(exe, before),
+           "step_ms": ms, "step_ms_p50": float(np.median(ms))}
+    graphs = [e for e in exe._cache.values() if e.graph is not None]
+    if keep_graph and graphs:
+        rec["graph_kernel_nodes"] = len(_graph_kernel_names(graphs[-1].graph))
+    final = _persistables(program, scope)
+    exe.close()
+    del exe, scope
+    return rec, outs, final, checks
+
+
+def _opt_lr_check(label, schedule, lrs, first_step=0):
+    """Each fetched LR against the schedule's closed form (``first_step``
+    is the counter's value at the first): the largest relative error."""
+    worst = 0.0
+    for i, got in enumerate(lrs):
+        want = (lr_closed_form(schedule[0], schedule[1], first_step + i)
+                if schedule else OPT_RNN_LR)
+        worst = max(worst, abs(got - want) / abs(want))
+    if not worst <= OPT_LR_TOL:
+        fail("%s: the fetched LRs %s miss the closed form of %s by %g "
+             "relative > %g" % (label, lrs, schedule, worst, OPT_LR_TOL))
+    return worst
+
+
+def _opt_compare(label, eager, compiled):
+    """Compiled against eager: losses, LRs and every persistable (the
+    step counter included) bit for bit, one capture, a replay a step."""
+    (e_rec, e_outs, e_final, _), (c_rec, c_outs, c_final, _) = \
+        eager, compiled
+    same_loss = all(all(torch.equal(x, y) for x, y in zip(a, b))
+                    for a, b in zip(e_outs, c_outs))
+    diff = {n: float((t.double() - c_final[n].double()).abs().max())
+            for n, t in e_final.items()}
+    same_state = set(e_final) == set(c_final) and all(
+        torch.equal(t, c_final[n]) for n, t in e_final.items())
+    if not (same_loss and same_state):
+        fail("%s: the compiled steps differ from the eager ones (losses "
+             "and LRs %s, largest state difference %g)"
+             % (label, "identical" if same_loss else "different",
+                max(diff.values())))
+    if "@LR_DECAY_COUNTER@" in c_final and \
+            c_final["@LR_DECAY_COUNTER@"].dtype != torch.int64:
+        fail("%s: the step counter is %s, not int64"
+             % (label, c_final["@LR_DECAY_COUNTER@"].dtype))
+    _compiled_gate(label + " (phase 14)", c_rec["executor"],
+                   len(c_outs))
+    if e_rec["executor"]["eager_runs"] != len(e_outs):
+        fail("%s: the eager run took another path: %s"
+             % (label, e_rec["executor"]))
+    if c_rec["launches"] != e_rec["launches"]:
+        fail("%s: compiled launches %s, eager %s"
+             % (label, c_rec["launches"], e_rec["launches"]))
+
+
+def _opt_update_gate(label, program, tol, clip=None, decay=None):
+    """A ``check`` for :func:`_opt_run`: the step's update of every
+    parameter against its float64 recomputation, within ``tol`` of
+    max(1, |p|); returns the step's record."""
+    names = [p.name for p in program.all_parameters()
+             if p.name in update_state_names(program)]
+
+    def check(step, pre, grads, post, lr):
+        errs, norm, scale = update_errors(
+            program, pre, dict(zip(names, grads)), post, lr, clip, decay)
+        worst = max(errs, key=errs.get)
+        rec = {"max_err_over_max1_p": errs[worst], "param": worst,
+               "params": len(errs), "lr": lr, "global_norm": norm,
+               "clip_scale": scale}
+        if not errs[worst] <= tol:
+            fail("%s step %d: %s's update misses its float64 "
+                 "recomputation by %g of max(1, |p|) > %g (global norm "
+                 "%s, scale %s)" % (label, step, worst, errs[worst], tol,
+                                    norm, scale))
+        return rec
+
+    return check
+
+
+def _opt_grad_fetch(program):
+    """The raw gradient of every parameter an update op reads, in the
+    order of ``program.all_parameters()``."""
+    ops = update_state_names(program)
+    return [p.name + "@GRAD" for p in program.all_parameters()
+            if p.name in ops]
+
+
+def _opt_lm(dev, plain):
+    """The LM under its recipe: eager then compiled from one state; the
+    update at each of OPT_CHECK_STEPS recomputed from the eager run's
+    fetched gradients. ``plain`` is phase 12's plain-Adam LM record."""
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    spec, trainer, main_prog, lr_var, recipe = _opt_build(dev, "lm")
+    with scope_guard(Scope()):
+        trainer._maybe_init()
+        state = _persistables(main_prog, global_scope())
+    feed = trainer.feeder.feed(next(iter(spec["reader"]())))
+    trainer.exe.close()
+    L = GPT2_SMALL["num_layers"]
+    head = [spec["cost"].name, lr_var.name]
+    eager = _opt_run(dev, main_prog, head, feed, state, False, OPT_STEPS,
+                     grads=_opt_grad_fetch(main_prog),
+                     check_steps=OPT_CHECK_STEPS,
+                     names=_opt_state_names(main_prog),
+                     check=_opt_update_gate("optim lm", main_prog,
+                                            OPT_UPDATE_TOL, recipe["clip"],
+                                            recipe["decay"]))
+    updates = eager[3]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the compiled run fetches the cost and the LR alone, so that its
+    # step time holds no copy of the gradients
+    compiled = _opt_run(dev, main_prog, head, feed, state, True, OPT_STEPS,
+                        keep_graph=True)
+    _opt_compare("optim lm", eager, compiled)
+    c_rec, c_outs = compiled[0], compiled[1]
+    lrs = [float(o[1].reshape(-1)[0]) for o in c_outs]
+    lr_err = _opt_lr_check("optim lm", recipe["schedule"], lrs)
+    want = dict(_no_launches(), **{
+        "flash_attention_fwd": 2 * L * OPT_STEPS,
+        "flash_attention_bwd_dkv": L * OPT_STEPS,
+        "flash_attention_bwd_dq": L * OPT_STEPS})
+    if c_rec["launches"] != want:
+        fail("optim lm: launches %s over %d steps, expected %s"
+             % (c_rec["launches"], OPT_STEPS, want))
+    losses = [float(o[0].reshape(-1)[0]) for o in c_outs]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail("optim lm: the loss did not fall: %s" % losses)
+    # the same program with a clip that binds, from the same state
+    e_p50 = eager[0]["step_ms_p50"]
+    del eager, compiled
+    gc.collect()
+    torch.cuda.empty_cache()
+    bspec, btrainer, bprog, blr, brecipe = _opt_build(
+        dev, "lm", lm_clip=OPT_LM_BIND_CLIP)
+    btrainer.exe.close()
+    bound = _opt_run(dev, bprog, [bspec["cost"].name, blr.name], feed, state,
+                     False, OPT_LM_BIND_STEPS, grads=_opt_grad_fetch(bprog),
+                     check_steps=range(1, OPT_LM_BIND_STEPS + 1),
+                     names=_opt_state_names(bprog),
+                     check=_opt_update_gate("optim lm (clip %g)"
+                                            % OPT_LM_BIND_CLIP, bprog,
+                                            OPT_UPDATE_TOL, brecipe["clip"],
+                                            brecipe["decay"]))[3]
+    if not all(u["clip_scale"] < 1.0 for u in bound.values()):
+        fail("optim lm: a global-norm clip of %g did not bind: %s"
+             % (OPT_LM_BIND_CLIP, bound))
+    types_ = [op.type for op in main_prog.global_block().ops]
+    rec = {"recipe": recipe, "params": len(main_prog.all_parameters()),
+           "program_ops": len(types_),
+           "clip_and_decay_ops": {t: types_.count(t) for t in (
+               "squared_l2_norm", "sum", "sqrt", "elementwise_max",
+               "elementwise_div", "elementwise_mul", "scale")},
+           "losses": losses, "lrs": lrs, "lr_max_rel_err": lr_err,
+           "update_check": updates,
+           # the steps whose global norm passed the clip (scale < 1)
+           "clip_bound_steps": [k for k, u in sorted(updates.items())
+                                if u["clip_scale"] < 1.0],
+           "update_check_clip_%g" % OPT_LM_BIND_CLIP: bound,
+           "launches_per_step": {k: v / OPT_STEPS
+                                 for k, v in c_rec["launches"].items() if v},
+           "step_ms_p50": c_rec["step_ms_p50"],
+           "step_ms": c_rec["step_ms"],
+           "eager_step_ms_p50": e_p50,
+           "graph_kernel_nodes": c_rec.get("graph_kernel_nodes"),
+           "phase12_plain_adam_step_ms_p50": plain.get("step_ms_p50"),
+           "phase12_plain_adam_graph_kernel_nodes":
+               plain.get("graph_kernel_nodes_total"),
+           "phase12_plain_adam_program_ops": plain.get("program_ops")}
+    return rec, c_rec["launches"]
+
+
+def _opt_resnet(dev, plain):
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    spec, trainer, main_prog, lr_var, recipe = _opt_build(dev, "resnet50")
+    rng = np.random.RandomState(0)
+    batch = list(zip(rng.rand(R50_BATCH, 3, 224, 224).astype(np.float32),
+                     rng.randint(0, 1000, (R50_BATCH, 1)).astype(np.int64)))
+    with scope_guard(Scope()):
+        trainer._maybe_init()
+        state = _persistables(main_prog, global_scope())
+    feed = trainer.feeder.feed(batch)
+    trainer.exe.close()
+    head = [spec["cost"].name, lr_var.name]
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = _opt_run(dev, main_prog, head, feed, state, False,
+                         OPT_STEPS, grads=_opt_grad_fetch(main_prog),
+                         check_steps=(1,),
+                         names=_opt_state_names(main_prog),
+                         check=_opt_update_gate(
+                             "optim resnet50", main_prog, OPT_UPDATE_TOL,
+                             recipe["clip"], recipe["decay"]))
+        updates = eager[3]
+        gc.collect()
+        torch.cuda.empty_cache()
+        compiled = _opt_run(dev, main_prog, head, feed, state, True,
+                            OPT_STEPS, keep_graph=True)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    _opt_compare("optim resnet50", eager, compiled)
+    c_rec, c_outs = compiled[0], compiled[1]
+    lrs = [float(o[1].reshape(-1)[0]) for o in c_outs]
+    # each piece at its step, exactly (the table is float64, as declared)
+    want_lrs = [lr_closed_form(recipe["schedule"][0], recipe["schedule"][1],
+                               s) for s in range(OPT_STEPS)]
+    if lrs != want_lrs:
+        fail("optim resnet50: LRs %s, the pieces are %s" % (lrs, want_lrs))
+    want = dict(_no_launches(), conv3x3_fwd=16 * OPT_STEPS,
+                conv3x3_dx=16 * OPT_STEPS)
+    if c_rec["launches"] != want:
+        fail("optim resnet50: launches %s over %d steps, expected %s"
+             % (c_rec["launches"], OPT_STEPS, want))
+    losses = [float(o[0].reshape(-1)[0]) for o in c_outs]
+    if not np.all(np.isfinite(losses)):
+        fail("optim resnet50: losses %s" % losses)
+    rec = {"recipe": recipe, "losses": losses, "lrs": lrs,
+           "update_check": updates, "cudnn_deterministic": True,
+           "launches_per_step": {k: v / OPT_STEPS
+                                 for k, v in c_rec["launches"].items() if v},
+           "step_ms_p50": c_rec["step_ms_p50"], "step_ms": c_rec["step_ms"],
+           "eager_step_ms_p50": eager[0]["step_ms_p50"],
+           "graph_kernel_nodes": c_rec.get("graph_kernel_nodes"),
+           "phase12_plain_momentum_step_ms_p50": plain.get("step_ms_p50"),
+           "phase12_plain_momentum_graph_kernel_nodes":
+               plain.get("graph_kernel_nodes_total"),
+           "program_ops": len(main_prog.global_block().ops),
+           "phase12_plain_momentum_program_ops": plain.get("program_ops")}
+    return rec, c_rec["launches"]
+
+
+def _opt_rnn(dev, recipe):
+    """One classifier run under ``recipe``, compiled: warm-up, capture,
+    2 replays, the raw gradients fetched every step; the update at the
+    capture's replay recomputed in float64."""
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    label = recipe[0]
+    spec, trainer, main_prog, lr_var, rec = _opt_build(dev, "rnn", recipe)
+    with scope_guard(Scope()):
+        trainer._maybe_init()
+        state = _persistables(main_prog, global_scope())
+    feed = trainer.feeder.feed(next(iter(spec["reader"]())))
+    trainer.exe.close()
+    head = [spec["cost"].name] + ([lr_var.name] if lr_var else [])
+    run = _opt_run(dev, main_prog, head, feed, state, True, OPT_RNN_STEPS,
+                   grads=_opt_grad_fetch(main_prog),
+                   check_steps=(OPT_RNN_CHECK_STEP,),
+                   names=_opt_state_names(main_prog),
+                   check=_opt_update_gate("optim rnn " + label, main_prog,
+                                          OPT_RNN_UPDATE_TOL, rec["clip"],
+                                          rec["decay"]))
+    r, outs, updates = run[0], run[1], run[3]
+    _compiled_gate("optim rnn " + label + " (phase 14)", r["executor"],
+                   OPT_RNN_STEPS)
+    lrs = [float(o[1].reshape(-1)[0]) if lr_var else None for o in outs]
+    lr_err = (_opt_lr_check("optim rnn " + label, rec["schedule"], lrs)
+              if lr_var else None)
+    want = dict(_no_launches(), fused_lstm=2 * RNN_BENCH["layers"]
+                * OPT_RNN_STEPS)
+    if r["launches"] != want:
+        fail("optim rnn %s: launches %s over %d steps, expected %s"
+             % (label, r["launches"], OPT_RNN_STEPS, want))
+    losses = [float(o[0].reshape(-1)[0]) for o in outs]
+    if not np.all(np.isfinite(losses)):
+        fail("optim rnn %s: losses %s" % (label, losses))
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"recipe": rec, "losses": losses, "lrs": lrs,
+            "lr_max_rel_err": lr_err, "update_check": updates,
+            "step_ms": r["step_ms"]}, r["launches"]
+
+
+def _opt_average(dev):
+    """ModelAverage on the LM: 2 steps (``update()`` after each),
+    ``apply()``, ``Trainer.test``, ``restore()``, 2 more steps; against
+    4 steps of a run with no average from the same state."""
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    from paddle_tpu_torch.optimizer import ModelAverage
+    from paddle_tpu_torch.trainer import EndIteration
+    n1, n2 = OPT_AVG_STEPS
+    runs = {}
+    for mode in ("plain", "average"):
+        spec, trainer, main_prog, _, _ = _opt_build(dev, "lm")
+        batches = list(spec["reader"]())[:n1 + n2 + 1]
+        with scope_guard(Scope()):
+            trainer._maybe_init()
+            losses, avg, rec = [], None, {}
+            if mode == "average":
+                avg = ModelAverage(min_average_window=2,
+                                   max_average_window=4,
+                                   program=main_prog, scope=global_scope())
+
+            def handler(e):
+                if isinstance(e, EndIteration):
+                    losses.append(e.cost)
+                    if avg is not None:
+                        avg.update()
+
+            trainer.train(lambda: iter(batches[:n1]), num_passes=1,
+                          event_handler=handler, pipeline=False)
+            if avg is not None:
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                avg.apply()
+                torch.cuda.synchronize()
+                rec["apply_ms"] = (time.monotonic() - t0) * 1e3
+                test = trainer.test(lambda: iter(batches[n1 + n2:]))
+                rec["test_cost_averaged"] = float(np.asarray(
+                    test[0]).reshape(-1)[0])
+                t0 = time.monotonic()
+                avg.restore()
+                torch.cuda.synchronize()
+                rec["restore_ms"] = (time.monotonic() - t0) * 1e3
+                avg = None  # no update over the last steps
+            trainer.train(lambda: iter(batches[n1:n1 + n2]), num_passes=1,
+                          event_handler=handler, pipeline=False)
+            rec["losses"] = losses
+            rec["executor"] = {k: trainer.exe.stats[k] for k in _EXE_KEYS}
+        trainer.exe.close()
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[mode] = rec
+    plain, averaged = runs["plain"]["losses"], runs["average"]["losses"]
+    if averaged[n1:] != plain[n1:] or averaged[:n1] != plain[:n1]:
+        fail("ModelAverage: the losses after restore %s differ from a run "
+             "without the average %s" % (averaged, plain))
+    return runs
+
+
+def phase_optimization(dev, plain):
+    """Phase 14: clipping, weight decay, schedules and the optimizers on
+    the card. ``plain`` holds phase 12's LM and ResNet-50 records.
+    Returns {path: launches}."""
+    t0 = time.monotonic()
+    rec, paths = {}, {}
+    rec["lm"], paths["optim_lm"] = _opt_lm(dev, plain.get("lm", {}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["resnet50"], paths["optim_resnet50"] = _opt_resnet(
+        dev, plain.get("resnet50", {}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["rnn"] = {}
+    for recipe in OPT_RNN_RECIPES:
+        rec["rnn"][recipe[0]], paths["optim_rnn_" + recipe[0]] = \
+            _opt_rnn(dev, recipe)
+    rec["model_average"] = _opt_average(dev)
+    rec["wall_s"] = time.monotonic() - t0
+    log(json.dumps({"optimization": rec}))
+    return paths
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -6906,8 +7667,9 @@ def main():
                        results, plain_serving)
     disagg_paths = timed(11, phase_disagg, dev, root, art_dir, prompts,
                          results, plain_serving, http)
-    compiled_paths = timed(12, phase_compiled, dev, root)
+    compiled_paths, plain_steps = timed(12, phase_compiled, dev, root)
     checkpoint_paths = timed(13, phase_checkpoint, dev, root)
+    optim_paths = timed(14, phase_optimization, dev, plain_steps)
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
     paths = {"serve": serve_launches, **spec_paths, **disagg_paths,
              "train": train5["launches"],
@@ -6916,7 +7678,7 @@ def main():
              "rnn_train_gru": gru_launches,
              "tuned_train": tuned_launches,
              "convnet_conv3x3_consult": consult_launches, **amp_paths,
-             **compiled_paths, **checkpoint_paths}
+             **compiled_paths, **checkpoint_paths, **optim_paths}
     for name, entry in kernels.items():
         # each main path is read with the counts set to 0 just before it
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -16,7 +16,9 @@ path, over shared kernels, with AMP on the training paths:
   ``Executor`` with its compiled step captured as a CUDA graph, its
   per-op and hybrid paths, ``append_backward``), ``layers/``, ``ops/``
   (the lowerings of the transformer LM's training step, the host IO
-  ops), ``optimizer.py`` (SGD, Momentum, Adam), ``reader/``,
+  ops), ``optimizer.py`` (the nine optimizers and ``ModelAverage``),
+  ``clip.py``, ``regularizer.py``, ``learning_rate_decay.py``,
+  ``reader/``,
   ``data_feeder.py``, ``io.py`` (save and load, inference models),
   ``checkpoint.py`` (async, atomic, CRC-checked checkpoints),
   ``core/serialize.py`` (the protostr), ``pipeline.py`` (the feed

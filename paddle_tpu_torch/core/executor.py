@@ -579,7 +579,8 @@ class Executor(object):
         # (a replay executes none); feed_wait_ms / dispatch_depth: the
         # feed pipeline's, folded in by Trainer.train; tune_*: the
         # process-level kernel-dispatch counters of paddle_tpu_torch.tune,
-        # refreshed after every run() (a replay consults nothing)
+        # refreshed after every run(): a compiled step counts its key's
+        # first lowering pass only, as the JAX package counts a trace
         self.stats = {"jit_runs": 0, "eager_runs": 0, "hybrid_runs": 0,
                       "lazy_fetches": 0, "fetch_sync_count": 0,
                       "compile_cache_hits": 0, "graph_captures": 0,
@@ -697,18 +698,20 @@ class Executor(object):
                   _nan_inf_hook if nan_scan else None)
         self.stats["ops_run"] += len(block.ops)
         self._writeback(program, scope, env)
-        return self._fetches(env, fetch_names, inputs)
+        return self._fetches(env, fetch_names, inputs,
+                             self._program_facts(program).persist)
 
     @staticmethod
-    def _fetches(env, fetch_names, inputs=()):
-        """The fetched values; one that is a feed or a state tensor is
-        copied, as a later compiled run may write into that tensor."""
+    def _fetches(env, fetch_names, inputs=(), persist=()):
+        """The fetched values; one that is a feed, a state tensor or a
+        persistable this run writes back (a later compiled run writes
+        into the scope's tensor in place) is copied."""
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError("fetch %s: no op of the program produced it "
                            "and it was not fed" % missing)
-        return [_own(env[n]) if id(env[n]) in inputs else env[n]
-                for n in fetch_names]
+        return [_own(env[n]) if id(env[n]) in inputs or n in persist
+                else env[n] for n in fetch_names]
 
     def _writeback(self, program, scope, env):
         persist = self._program_facts(program).persist
@@ -827,10 +830,15 @@ class Executor(object):
                 self._free(old)
         else:
             self._cache.move_to_end(key)
+        from .. import tune
         if entry.runs == 0:
+            # the key's first lowering pass, the JAX package's trace: the
+            # tune consults count here and nowhere else (Queue 3 #4)
             before = _gen_state(generator)
-            for _ in range(repeat):
-                outs = eager()
+            outs = eager()
+            with tune.quiet():
+                for _ in range(repeat - 1):
+                    outs = eager()
             after = _gen_state(generator)
             entry.draws = before is not None and not torch.equal(before,
                                                                  after)
@@ -838,8 +846,9 @@ class Executor(object):
             return outs
         entry.runs += 1
         if not entry.ready:
-            outs = self._capture(entry, feed, scope, state_names, generator,
-                                 body)
+            with tune.quiet():
+                outs = self._capture(entry, feed, scope, state_names,
+                                     generator, body)
             if outs is not None:
                 # the CPU ran the step while standing in for the capture
                 repeat -= 1
@@ -856,9 +865,10 @@ class Executor(object):
                 self.stats["graph_replays"] += 1
             outs, extra = entry.outs, entry.extra
         else:
-            for _ in range(repeat):
-                outs, extra = body(self._static_env(entry),
-                                   entry.state_bufs)
+            with tune.quiet():
+                for _ in range(repeat):
+                    outs, extra = body(self._static_env(entry),
+                                       entry.state_bufs)
         for n, v in extra.items():
             # out of the shared pool, which another graph's replay reuses
             scope.set_var(n, _own(v))
@@ -1073,7 +1083,8 @@ class Executor(object):
                 self.stats["ops_run"] += len(rest)
                 break
         self._writeback(program, scope, env)
-        return self._fetches(env, fetch_names, inputs)
+        return self._fetches(env, fetch_names, inputs,
+                             self._program_facts(program).persist)
 
     @staticmethod
     def _partition_segments(block):

@@ -3,8 +3,9 @@
 A ``Program`` is a list of ``Block``s; a ``Block`` holds named
 ``Variable``s and a sequence of ``Operator``s. The port's Executor
 interprets a block op by op over ``torch.Tensor``s, so the IR here is
-the JAX package's as it is, minus the sharding and mesh annotations and
-the operator sugar on ``Variable`` (later slices). A Program carries a
+the JAX package's as it is, minus the sharding and mesh annotations; a
+``Variable``'s operator sugar (``a + b``, ``1.0 - a``, ``a <= b``)
+appends ops through ``layers/math_op_patch.py``. A Program carries a
 process-unique ``_uid`` (a clone gets a fresh one) and a ``_version``
 that every appended or inserted op bumps: the Executor keys its compiled
 steps on both, so a mutated program never replays a stale step.
@@ -27,7 +28,8 @@ from .types import VarType, convert_dtype
 
 __all__ = ["GRAD_SUFFIX", "Block", "Operator", "Parameter", "Program",
            "Variable", "default_main_program", "default_startup_program",
-           "grad_var_name", "program_guard", "sub_block_read_names"]
+           "grad_var_name", "program_guard", "sub_block_read_names",
+           "switch_main_program"]
 
 GRAD_SUFFIX = "@GRAD"
 
@@ -92,6 +94,42 @@ class Variable(object):
             self.lod_level, ", persistable" if self.persistable else "")
 
     __str__ = __repr__
+
+    # operator sugar (``layers/math_op_patch.py``): each appends an op
+    def _binary(self, other, op, reverse=False):
+        from ..layers import math_op_patch
+        return math_op_patch.binary(self, other, op, reverse=reverse)
+
+    def __add__(self, other):
+        return self._binary(other, "elementwise_add")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        return self._binary(other, "elementwise_sub", reverse=True)
+
+    def __mul__(self, other):
+        return self._binary(other, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
+
+    def __lt__(self, other):
+        return self._binary(other, "less_than")
+
+    def __le__(self, other):
+        return self._binary(other, "less_equal")
+
+    def __gt__(self, other):
+        return self._binary(other, "greater_than")
+
+    def __ge__(self, other):
+        return self._binary(other, "greater_equal")
 
 
 class Parameter(Variable):
@@ -354,6 +392,14 @@ def default_main_program() -> Program:
 
 def default_startup_program() -> Program:
     return _startup_program
+
+
+def switch_main_program(program):
+    """Make ``program`` the default main program; returns the old one."""
+    global _main_program
+    old = _main_program
+    _main_program = program
+    return old
 
 
 @contextlib.contextmanager

@@ -1,6 +1,8 @@
 """NN layers of the transformer LM, of ResNet and their losses and
-metrics (the matching part of ``paddle_tpu/layers/nn.py``): each appends
-ops to the current block.
+metrics, and the math layers of the optimization surface (``log``,
+``reduce_*``, ``clip``, ``clip_by_norm``, ``elementwise_*``; the
+matching part of ``paddle_tpu/layers/nn.py``): each appends ops to the
+current block.
 Names are generated in the JAX package's order, so a program built in
 both packages under ``unique_name.guard()`` has the same variables."""
 from __future__ import annotations
@@ -11,10 +13,13 @@ from ..initializer import ConstantInitializer, NormalInitializer
 from ..param_attr import ParamAttr
 from .layer_helper import LayerHelper
 
-__all__ = ["accuracy", "batch_norm", "conv2d", "cross_entropy",
-           "elementwise_add", "embedding", "fc", "layer_norm", "mean",
-           "pool2d", "relu", "reshape", "scale", "softmax",
-           "softmax_with_cross_entropy", "square_error_cost", "topk"]
+__all__ = ["accuracy", "batch_norm", "clip", "clip_by_norm", "conv2d",
+           "cross_entropy", "elementwise_add", "elementwise_div",
+           "elementwise_mul", "elementwise_sub", "embedding", "fc",
+           "layer_norm", "log", "mean", "pool2d", "reduce_max",
+           "reduce_mean", "reduce_min", "reduce_sum", "relu",
+           "reshape", "scale", "softmax", "softmax_with_cross_entropy",
+           "square_error_cost", "topk"]
 
 
 def _pair(v):
@@ -282,13 +287,71 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
     return helper.append_activation(out)
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", name=name)
+def log(x, name=None):
+    return _simple("log", x)
+
+
+def _reduce(op_type, input, dim, keep_dim, name):
+    """``dim`` None reduces every dim (``reduce_all``)."""
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is None:
+        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+    else:
+        attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
+                 "keep_dim": keep_dim, "reduce_all": False}
+    helper.append_op(type=op_type, inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def clip(x, min, max, name=None):
+    return _simple("clip", x, {"min": min, "max": max})
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _simple("clip_by_norm", x, {"max_norm": max_norm})
+
+
+def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     out.shape = x.shape
-    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
                      outputs={"Out": [out]}, attrs={"axis": axis})
     return helper.append_activation(out) if act else out
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=True, name=None):

@@ -1,11 +1,18 @@
-"""Tensor layers of the transformer LM (the matching part of
-``paddle_tpu/layers/tensor.py``)."""
+"""Tensor layers (the matching part of ``paddle_tpu/layers/tensor.py``):
+``cast``, ``sums``, ``assign`` (of a Variable, or of a Python or numpy
+value through ``assign_value``), ``fill_constant``,
+``fill_constant_batch_size_like``, ``autoincreased_step_counter`` and
+``increment``."""
 from __future__ import annotations
 
+import numpy as np
+
+from ..core import ir
 from ..core.types import convert_dtype
 from .layer_helper import LayerHelper
 
-__all__ = ["cast", "fill_constant", "fill_constant_batch_size_like"]
+__all__ = ["assign", "autoincreased_step_counter", "cast", "fill_constant",
+           "fill_constant_batch_size_like", "increment", "sums"]
 
 
 def cast(x, dtype):
@@ -44,4 +51,63 @@ def fill_constant_batch_size_like(input, shape, dtype, value,
                             "input_dim_idx": input_dim_idx,
                             "output_dim_idx": output_dim_idx})
     out.stop_gradient = True
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            dtype=helper.input_dtype())
+    helper.append_op(type="sum", inputs={"X": input}, outputs={"Out": [out]})
+    return out
+
+
+def assign(input, output=None):
+    """A copy of a Variable (``assign``), or a Python or numpy value as a
+    constant of its own dtype (``assign_value``)."""
+    helper = LayerHelper("assign")
+    if isinstance(input, ir.Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=input.dtype)
+        helper.append_op(type="assign", inputs={"X": [input]},
+                         outputs={"Out": [output]})
+    else:
+        value = np.asarray(input)
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=str(value.dtype))
+        helper.append_op(type="assign_value", outputs={"Out": [output]},
+                         attrs={"shape": list(value.shape), "values": value,
+                                "dtype": str(value.dtype)})
+    return output
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 counter, incremented by ``step`` once a run;
+    the first value a run reads is ``begin``. The default name is the
+    fixed ``@STEP_COUNTER@``, and a counter that exists is returned as it
+    is, with no second ``increment``: every caller shares one step."""
+    from ..initializer import ConstantInitializer
+    name = counter_name or "@STEP_COUNTER@"
+    block = ir.default_main_program().global_block()
+    if block.has_var(name):
+        return block.var(name)
+    helper = LayerHelper("global_step_counter")
+    counter = helper.create_global_variable(
+        name=name, shape=(1,), dtype="int64", persistable=True)
+    helper.set_variable_initializer(
+        counter, ConstantInitializer(begin - step))
+    increment(counter, value=step, in_place=True)
+    counter.stop_gradient = True
+    return counter
+
+
+def increment(x, value=1.0, in_place=True):
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_variable_for_type_inference(
+        x.dtype)
+    helper.append_op(type="increment", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"step": float(value)})
     return out

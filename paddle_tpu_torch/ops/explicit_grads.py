@@ -1,8 +1,10 @@
 """Explicit grad ops of the transformer LM's and ResNet's backward
 (counterpart of the matching part of ``paddle_tpu/ops/explicit_grads.py``:
-``relu_grad``, ``tanh_grad`` :94, ``softmax_grad`` :113, ``mul_grad``,
-``elementwise_add_grad``, ``conv2d_grad`` :285, ``pool2d_grad`` :366,
-``batch_norm_grad`` :408, ``cross_entropy_grad`` :478,
+``relu_grad``, the output-form activation grads :90-110 (``tanh``,
+``sigmoid``, ``exp``, ``sqrt``, ``reciprocal``), ``softmax_grad`` :113,
+``mul_grad``, ``elementwise_{add,sub,mul}_grad`` :238-281,
+``conv2d_grad`` :285, ``pool2d_grad`` :366, ``batch_norm_grad`` :408,
+``cross_entropy_grad`` :478,
 ``softmax_with_cross_entropy_grad``, ``mean_grad``, ``scale_grad``).
 
 Each forward op here gets a grad maker that emits one closed-form grad
@@ -20,7 +22,7 @@ from ..core.executor import raw_data, with_lod_of
 from ..core.ir import grad_var_name
 from ..core.registry import register_op
 from ..core.types import is_floating
-from .common import flatten_to_2d
+from .common import bcast_y_to_x, flatten_to_2d
 from .math_ops import acc_matmul
 from .nn_ops import _bn_grad_maker, bn_axes, conv3x3_config, pool2d_apply
 
@@ -84,13 +86,27 @@ def relu_grad(ctx):
 _attach("relu", "relu_grad", need_outputs=("Out",))
 
 
-@register_op("tanh_grad", no_gradient=True)
-def tanh_grad(ctx):
+# the activations whose grad reads Out (``paddle_tpu/ops/explicit_grads.py:
+# 90-110``); the rest take the generic grad, as in the JAX package
+_ACT_GRADS = {
+    "tanh": lambda dy, out: dy * (1.0 - out * out),
+    "sigmoid": lambda dy, out: dy * out * (1.0 - out),
+    "exp": lambda dy, out: dy * out,
+    "sqrt": lambda dy, out: dy * 0.5 / out,
+    "reciprocal": lambda dy, out: -dy * out * out,
+}
+
+
+def _act_grad(ctx, fn):
     out = ctx.input("Out")
-    ctx.set_output("X@GRAD", ctx.input("Out@GRAD") * (1.0 - out * out))
+    ctx.set_output("X@GRAD", with_lod_of(
+        out, fn(raw_data(ctx.input("Out@GRAD")), raw_data(out))))
 
 
-_attach("tanh", "tanh_grad", need_outputs=("Out",))
+for _name, _fn in _ACT_GRADS.items():
+    register_op(_name + "_grad", no_gradient=True)(
+        lambda ctx, f=_fn: _act_grad(ctx, f))
+    _attach(_name, _name + "_grad", need_outputs=("Out",))
 
 
 @register_op("softmax_grad", no_gradient=True)
@@ -164,8 +180,38 @@ def elementwise_add_grad(ctx):
                        .to(y.dtype))
 
 
-_attach("elementwise_add", "elementwise_add_grad", need_inputs=("X", "Y"),
-        diff_slots=("X", "Y"))
+@register_op("elementwise_sub_grad", no_gradient=True)
+def elementwise_sub_grad(ctx):
+    """dX is dOut; dY is -dOut summed over the broadcast dims."""
+    x_v = ctx.input("X")
+    y = raw_data(ctx.input("Y"))
+    dy = raw_data(ctx.input("Out@GRAD"))
+    if ctx.op.output("X@GRAD"):
+        ctx.set_output("X@GRAD", with_lod_of(x_v, dy))
+    if ctx.op.output("Y@GRAD"):
+        ctx.set_output("Y@GRAD", -_unbcast_to(dy, y.shape,
+                                              ctx.attr("axis", -1)))
+
+
+@register_op("elementwise_mul_grad", no_gradient=True)
+def elementwise_mul_grad(ctx):
+    """dX = dOut * Y (broadcast); dY = dOut * X summed over the broadcast
+    dims."""
+    x_v = ctx.input("X")
+    x = raw_data(x_v)
+    y = raw_data(ctx.input("Y"))
+    dy = raw_data(ctx.input("Out@GRAD"))
+    axis = ctx.attr("axis", -1)
+    if ctx.op.output("X@GRAD"):
+        ctx.set_output("X@GRAD",
+                       with_lod_of(x_v, dy * bcast_y_to_x(x, y, axis)))
+    if ctx.op.output("Y@GRAD"):
+        ctx.set_output("Y@GRAD", _unbcast_to(dy * x, y.shape, axis))
+
+
+for _n in ("elementwise_add", "elementwise_sub", "elementwise_mul"):
+    _attach(_n, _n + "_grad", need_inputs=("X", "Y"),
+            diff_slots=("X", "Y"))
 
 
 @register_op("conv2d_grad", no_gradient=True)

@@ -1,6 +1,7 @@
 """Losses (counterparts in ``paddle_tpu/ops/loss_ops.py``:
 ``cross_entropy`` :28, ``softmax_with_cross_entropy`` :49,
-``square_error_cost`` :76, whose grad is the generic one)."""
+``square_error_cost`` :76, whose grad is the generic one;
+``squared_l2_norm`` :92, the global-norm clip's per-gradient term)."""
 from __future__ import annotations
 
 import torch
@@ -69,3 +70,10 @@ def square_error_cost(ctx):
     x = raw_data(ctx.input("X"))
     y = raw_data(ctx.input("Y"))
     ctx.set_output("Out", torch.square(x - y))
+
+
+@register_op("squared_l2_norm")
+def squared_l2_norm(ctx):
+    """sum(X * X) as a [1] tensor."""
+    x = raw_data(ctx.input("X"))
+    ctx.set_output("Out", torch.sum(x * x).reshape((1,)))

@@ -1,6 +1,8 @@
 """Math ops (counterparts in ``paddle_tpu/ops/math_ops.py``: ``mul`` :61
-with ``_gemm_dispatch`` :27, ``elementwise_add`` :132, ``sum`` :154,
-``scale`` :176, ``cumsum`` :201, ``mean`` :279, ``top_k`` :325).
+with ``_gemm_dispatch`` :27, the elementwise family :132-142, ``minus``
+:145, ``sum`` :154, ``scale`` :176, ``clip`` :187, ``clip_by_norm``
+:193, ``cumsum`` :201, the reductions :217-268, ``mean`` :279, the
+comparisons and logicals :297-323, ``top_k`` :325).
 
 ``mul`` is one gemm of the flattened operands, routed through
 ``paddle_tpu_torch.tune`` as the JAX op is: only a cached
@@ -27,7 +29,7 @@ from .. import amp, tune
 from ..core.executor import raw_data, with_lod_of
 from ..core.registry import register_op
 from ..kernels import matmul as matmul_kernel
-from .common import elementwise, flatten_to_2d
+from .common import bcast_y_to_x, elementwise, flatten_to_2d
 
 __all__ = []
 
@@ -105,9 +107,25 @@ def _infer_ew(op, block):
         ov.dtype = xv.dtype
 
 
-@register_op("elementwise_add", infer_shape=_infer_ew)
-def elementwise_add(ctx):
-    elementwise(ctx, torch.add)
+for _name, _fn in [
+    ("elementwise_add", torch.add),
+    ("elementwise_sub", torch.sub),
+    ("elementwise_mul", torch.mul),
+    ("elementwise_div", torch.div),
+    ("elementwise_max", torch.maximum),
+    ("elementwise_min", torch.minimum),
+    ("elementwise_pow", torch.pow),
+]:
+    register_op(_name, infer_shape=_infer_ew)(
+        lambda ctx, f=_fn: elementwise(ctx, f))
+
+
+@register_op("minus", infer_shape=_infer_ew)
+def minus(ctx):
+    """Out = X - Y, with no axis broadcast."""
+    x = ctx.input("X")
+    ctx.set_output("Out", with_lod_of(
+        x, raw_data(x) - raw_data(ctx.input("Y"))))
 
 
 @register_op("sum", infer_shape=_infer_ew)
@@ -144,6 +162,95 @@ def cumsum(ctx):
     ctx.set_output("Out", out)
 
 
+@register_op("clip", infer_shape=_infer_ew)
+def clip(ctx):
+    ctx.set_output("Out", torch.clamp(raw_data(ctx.input("X")),
+                                      ctx.attr("min"), ctx.attr("max")))
+
+
+@register_op("clip_by_norm", infer_shape=_infer_ew)
+def clip_by_norm(ctx):
+    """X scaled to L2 norm ``max_norm`` where its norm is larger; both
+    branches computed and one selected on the device, as ``jnp.where``
+    does, so no value is read back to the host."""
+    x = raw_data(ctx.input("X"))
+    mn = ctx.attr("max_norm")
+    norm = torch.sqrt(torch.sum(x * x))
+    ctx.set_output("Out", torch.where(
+        norm > mn, x * (mn / torch.clamp(norm, min=1e-12)), x))
+
+
+# -- reductions (``paddle_tpu/ops/math_ops.py:217-268``) -----------------------
+
+def _sum(x, dim, keepdim):
+    # an integer sum keeps its dtype, as jnp.sum does
+    dtype = x.dtype if not (x.is_floating_point() or x.is_complex()
+                            or x.dtype == torch.bool) else None
+    return torch.sum(x, dim=dim, keepdim=keepdim, dtype=dtype)
+
+
+def _prod(x, dim, keepdim):
+    for d in sorted((d % x.ndim for d in dim), reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
+_REDUCERS = {
+    "reduce_sum": _sum,
+    "reduce_mean": lambda x, dim, keepdim: torch.mean(x, dim=dim,
+                                                      keepdim=keepdim),
+    "reduce_max": lambda x, dim, keepdim: torch.amax(x, dim=dim,
+                                                     keepdim=keepdim),
+    "reduce_min": lambda x, dim, keepdim: torch.amin(x, dim=dim,
+                                                     keepdim=keepdim),
+    "reduce_prod": _prod,
+}
+
+
+def _reduce(ctx, fn):
+    """Reduce X over ``dim`` (a list; every dim with ``reduce_all``),
+    keeping the reduced dims as 1 with ``keep_dim``. Out keeps X's LoD
+    when dim 0, the batch dim, is not reduced."""
+    xv = ctx.input("X")
+    x = raw_data(xv)
+    reduce_all = ctx.attr("reduce_all", False)
+    if reduce_all:
+        dim = tuple(range(x.ndim))
+    else:
+        dim = ctx.attr("dim", [0])
+        dim = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
+    out = fn(x, dim, ctx.attr("keep_dim", False)) if dim else x
+    if not reduce_all and dim and 0 not in {d % x.ndim for d in dim}:
+        out = with_lod_of(xv, out)
+    ctx.set_output("Out", out)
+
+
+def _infer_reduce(op, block):
+    xv = block._find_var_recursive(op.input("X")[0])
+    ov = block._find_var_recursive(op.output("Out")[0])
+    if None in (xv, ov) or xv.shape is None:
+        return
+    if op.attr("reduce_all", False):
+        ov.shape = (1,) if op.attr("keep_dim", False) else ()
+        ov.dtype = xv.dtype
+        return
+    dim = op.attr("dim", [0])
+    dims = set(dim if isinstance(dim, (list, tuple)) else [dim])
+    dims = {d % len(xv.shape) for d in dims}
+    if op.attr("keep_dim", False):
+        shape = tuple(1 if i in dims else d
+                      for i, d in enumerate(xv.shape))
+    else:
+        shape = tuple(d for i, d in enumerate(xv.shape) if i not in dims)
+    ov.shape = shape
+    ov.dtype = xv.dtype
+
+
+for _name, _fn in _REDUCERS.items():
+    register_op(_name, infer_shape=_infer_reduce)(
+        lambda ctx, f=_fn: _reduce(ctx, f))
+
+
 def _infer_mean(op, block):
     ov = block._find_var_recursive(op.output("Out")[0])
     xv = block._find_var_recursive(op.input("X")[0])
@@ -156,6 +263,30 @@ def _infer_mean(op, block):
 @register_op("mean", infer_shape=_infer_mean)
 def mean(ctx):
     ctx.set_output("Out", torch.mean(raw_data(ctx.input("X"))).reshape((1,)))
+
+
+# -- comparisons and logicals (``paddle_tpu/ops/math_ops.py:297-323``) ---------
+
+def _compare(ctx, fn):
+    x = raw_data(ctx.input("X"))
+    y = raw_data(ctx.input("Y"))
+    ctx.set_output("Out", fn(x, bcast_y_to_x(x, y, ctx.attr("axis", -1))))
+
+
+for _name, _fn in [
+    ("less_than", torch.lt), ("less_equal", torch.le),
+    ("greater_than", torch.gt), ("greater_equal", torch.ge),
+    ("equal", torch.eq), ("not_equal", torch.ne),
+    ("logical_and", torch.logical_and), ("logical_or", torch.logical_or),
+    ("logical_xor", torch.logical_xor),
+]:
+    register_op(_name, no_gradient=True)(
+        lambda ctx, f=_fn: _compare(ctx, f))
+
+
+@register_op("logical_not", no_gradient=True)
+def logical_not(ctx):
+    ctx.set_output("Out", torch.logical_not(raw_data(ctx.input("X"))))
 
 
 @register_op("top_k", no_gradient=True)

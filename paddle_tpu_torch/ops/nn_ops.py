@@ -1,5 +1,5 @@
-"""NN ops (counterparts in ``paddle_tpu/ops/nn_ops.py``: ``relu`` and
-``tanh`` :47-67, ``softmax`` :147, ``conv2d`` :387 with ``conv2d_apply`` :345,
+"""NN ops (counterparts in ``paddle_tpu/ops/nn_ops.py``: the
+activation table :44-134, ``softmax`` :147, ``conv2d`` :387 with ``conv2d_apply`` :345,
 ``pool2d`` :614 with ``pool2d_apply`` :584, ``batch_norm`` :697 with
 ``_bn_grad_maker`` :744, ``layer_norm`` :774).
 
@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import amp, tune
+from ..core.executor import raw_data, with_lod_of
 from ..core.registry import register_op
 from ..flags import FLAGS
 from ..kernels import conv3x3
@@ -59,6 +60,114 @@ def relu(ctx):
 @register_op("tanh", infer_shape=_infer_same)
 def tanh(ctx):
     ctx.set_output("Out", torch.tanh(ctx.input("X")))
+
+
+# -- the activation table (``paddle_tpu/ops/nn_ops.py:44-134``) --------------
+# each formula as the JAX lowering writes it; Out keeps X's LoD
+
+def _act(ctx, fn):
+    x = ctx.input("X")
+    ctx.set_output("Out", with_lod_of(x, fn(raw_data(x))))
+
+
+def _softplus(x):
+    # jax.nn.softplus: logaddexp(x, 0)
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+_ACTIVATIONS = {
+    "sigmoid": torch.sigmoid,
+    "logsigmoid": F.logsigmoid,
+    "relu6": lambda x: torch.clamp(x, 0.0, 6.0),
+    "exp": torch.exp,
+    "abs": torch.abs,
+    "ceil": torch.ceil,
+    "floor": torch.floor,
+    "round": torch.round,  # half to even, as jnp.round
+    "log": torch.log,
+    "square": torch.square,
+    "sqrt": torch.sqrt,
+    "reciprocal": lambda x: 1.0 / x,
+    "softplus": _softplus,
+    "softsign": lambda x: x / (1.0 + torch.abs(x)),
+    "sin": torch.sin,
+    "cos": torch.cos,
+    "tanh_shrink": lambda x: x - torch.tanh(x),
+    # the JAX lowering's fixed threshold 0.5 (it reads no attr)
+    "softshrink": lambda x: torch.sign(x) * torch.clamp(
+        torch.abs(x) - 0.5, min=0.0),
+    "sign": torch.sign,
+}
+for _name, _fn in _ACTIVATIONS.items():
+    register_op(_name, infer_shape=_infer_same)(
+        lambda ctx, f=_fn: _act(ctx, f))
+
+
+@register_op("hard_shrink", infer_shape=_infer_same)
+def hard_shrink(ctx):
+    """X outside [-threshold, threshold], 0 inside."""
+    t = ctx.attr("threshold", 0.5)
+    _act(ctx, lambda x: torch.where((x > t) | (x < -t), x,
+                                    torch.zeros((), dtype=x.dtype,
+                                                device=x.device)))
+
+
+@register_op("leaky_relu", infer_shape=_infer_same)
+def leaky_relu(ctx):
+    a = ctx.attr("alpha", 0.02)
+    _act(ctx, lambda x: torch.where(x > 0, x, a * x))
+
+
+@register_op("elu", infer_shape=_infer_same)
+def elu(ctx):
+    a = ctx.attr("alpha", 1.0)
+    _act(ctx, lambda x: torch.where(x > 0, x, a * (torch.exp(x) - 1.0)))
+
+
+@register_op("brelu", infer_shape=_infer_same)
+def brelu(ctx):
+    lo, hi = ctx.attr("t_min", 0.0), ctx.attr("t_max", 24.0)
+    _act(ctx, lambda x: torch.clamp(x, lo, hi))
+
+
+@register_op("soft_relu", infer_shape=_infer_same)
+def soft_relu(ctx):
+    t = ctx.attr("threshold", 40.0)
+    _act(ctx, lambda x: torch.log1p(torch.exp(torch.clamp(x, -t, t))))
+
+
+@register_op("hard_sigmoid", infer_shape=_infer_same)
+def hard_sigmoid(ctx):
+    s = ctx.attr("slope", 0.2)
+    o = ctx.attr("offset", 0.5)
+    _act(ctx, lambda x: torch.clamp(s * x + o, 0.0, 1.0))
+
+
+@register_op("swish", infer_shape=_infer_same)
+def swish(ctx):
+    b = ctx.attr("beta", 1.0)
+    _act(ctx, lambda x: x * torch.sigmoid(b * x))
+
+
+@register_op("thresholded_relu", infer_shape=_infer_same)
+def thresholded_relu(ctx):
+    t = ctx.attr("threshold", 1.0)
+    _act(ctx, lambda x: torch.where(x > t, x, torch.zeros(
+        (), dtype=x.dtype, device=x.device)))
+
+
+@register_op("stanh", infer_shape=_infer_same)
+def stanh(ctx):
+    a = ctx.attr("scale_a", 0.67)
+    b = ctx.attr("scale_b", 1.7159)
+    _act(ctx, lambda x: b * torch.tanh(a * x))
+
+
+@register_op("pow", infer_shape=_infer_same)
+def pow_op(ctx):
+    f = ctx.attr("factor", 1.0)
+    _act(ctx, lambda x: torch.pow(x, f))
 
 
 @register_op("layer_norm", infer_shape=_infer_same)

@@ -2,7 +2,8 @@
 ``paddle_tpu/ops/tensor_ops.py``: ``fill_constant`` :34,
 ``fill_constant_batch_size_like`` :63, ``uniform_random`` :106,
 ``gaussian_random`` :115, ``assign`` :132, ``cast`` :143, ``reshape``
-:198, ``lookup_table`` :376).
+:198, ``gather`` :290, ``lookup_table`` :376, ``increment`` :395,
+``assign_value`` :447).
 
 Random ops draw from the Executor's ``torch.Generator`` (seeded from
 ``Program.random_seed``), so they differ from the JAX package's threefry
@@ -11,13 +12,14 @@ ignored, as the JAX package ignores it.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core import registry
 from ..core.executor import raw_data, with_lod_of
 from ..core.registry import register_op
-from .common import prod, tdt
+from .common import np_dtype, prod, tdt
 
 __all__ = []
 
@@ -145,3 +147,50 @@ def lookup_table(ctx):
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
     ctx.set_output("Out", with_lod_of(ids_v, out))
+
+
+@register_op("gather")
+def gather(ctx):
+    """Rows of X at Index (any shape, read as a flat list)."""
+    x = raw_data(ctx.input("X"))
+    idx = raw_data(ctx.input("Index")).reshape(-1).long()
+    ctx.set_output("Out", torch.index_select(x, 0, idx))
+
+
+@register_op("increment", stateful_outputs=("Out",))
+def increment(ctx):
+    """X + step in X's dtype: an int64 step counter stays int64 (the JAX
+    lowering adds ``jnp.asarray(step, x.dtype)``; in PyTorch an int64
+    tensor plus a Python float would be float32). The JAX lowering's
+    concrete-counter branch serves control flow, which is not ported."""
+    x = raw_data(ctx.input("X"))
+    step = ctx.attr("step", 1.0)
+    if not (x.is_floating_point() or x.is_complex()):
+        step = int(step)  # truncates toward zero, as the cast to X's type
+    ctx.set_output("Out", x + step)
+
+
+# device copies of assign_value tables, made once per (device, values)
+# at a key's eager warm-up: a capture may not copy from pageable host
+# memory, so the captured step clones the table on the device instead
+_CONSTANTS = {}
+
+
+def _constant(vals, device):
+    key = (str(device), vals.dtype.str, vals.shape, vals.tobytes())
+    t = _CONSTANTS.get(key)
+    if t is None:
+        if len(_CONSTANTS) > 256:
+            _CONSTANTS.clear()
+        t = _CONSTANTS[key] = torch.from_numpy(vals.copy()).to(device)
+    return t.clone()
+
+
+@register_op("assign_value", no_gradient=True,
+             infer_shape=_infer_from_shape_attr)
+def assign_value(ctx):
+    """Out = the ``values`` attr in the ``dtype`` attr (the values' own
+    dtype by default)."""
+    vals = np.asarray(ctx.attr("values"))
+    vals = vals.astype(np_dtype(ctx.attr("dtype"), str(vals.dtype)))
+    ctx.set_output("Out", _constant(vals, ctx.device))

@@ -22,17 +22,20 @@ persistent per-(device, shape) winner cache (counterpart of
   lowering otherwise. The counters ``tune_hits``, ``tune_misses`` and
   ``tune_fallbacks`` surface through ``Executor.stats``.
 
-Counting differs from the JAX package's: there dispatch happens while a
-program traces, so a counter moves once per compile; the port runs
-eagerly and dispatches every op on every run, so a counter moves once
-per call, per step. Compare the two packages by which populations hit,
-miss or fall back, not by the raw counts.
+Counting follows the JAX package's, where dispatch happens while a
+program traces, so a counter moves once per compile. The Executor's
+compiled path counts the first lowering pass of a step key (the warm-up
+on the card, the first run on the CPU) and runs its captures, replays
+and the CPU's stand-in for a replay under :func:`quiet`, which counts
+nothing; the per-op path (``use_jit=False``), which the JAX package runs
+op by op too, counts every run.
 
 Surface: ``python -m paddle_tpu_torch tune <config.py>`` (``cli.py``)
 tunes the kernels a train config's program uses.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 from .cache import (WinnerCache, cache_key, clear_memory_cache,
@@ -50,16 +53,35 @@ __all__ = [
     "default_timer", "WinnerCache", "cache_key", "default_cache_dir",
     "clear_memory_cache", "wall_timer", "model_timer", "table_timer",
     "time_best", "parity_ok", "parity_report", "lookup", "record_fallback",
-    "counters", "reset_counters",
+    "counters", "quiet", "reset_counters",
 ]
 
 _counters_lock = threading.Lock()
 _counters = {"tune_hits": 0, "tune_misses": 0, "tune_fallbacks": 0}
 
 
+# per thread: a lowering pass under quiet() (a capture, a replay's
+# stand-in) consults the cache but counts nothing
+_quiet = threading.local()
+
+
 def _bump(name):
+    if getattr(_quiet, "depth", 0):
+        return
     with _counters_lock:
         _counters[name] += 1
+
+
+@contextlib.contextmanager
+def quiet():
+    """Consults in this thread count nothing while the block runs: a
+    lowering pass of a step key after its first is a replay of that
+    trace, which the JAX package does not trace again."""
+    _quiet.depth = getattr(_quiet, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _quiet.depth -= 1
 
 
 def counters():

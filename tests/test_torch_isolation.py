@@ -79,6 +79,40 @@ print(json.dumps(sorted(k for k in sys.modules
 """
 
 
+# the optimization slice's modules, copies of the JAX package's
+OPTIMIZATION_MODULES = ("clip", "regularizer", "learning_rate_decay",
+                        "optimizer", "layers.math_op_patch")
+
+_OPT_PROBE = """
+import importlib, json, sys
+mods = [importlib.import_module("paddle_tpu_torch." + m) for m in %r]
+print(json.dumps([sorted(k for k in sys.modules
+                         if k.split(".")[0] in ("jax", "jaxlib",
+                                                "paddle_tpu")),
+                  [m.__file__ for m in mods]]))
+""" % (OPTIMIZATION_MODULES,)
+
+
+def test_the_optimization_modules_stand_alone():
+    """clip.py, regularizer.py, learning_rate_decay.py (and the optimizer
+    and operator sugar they drive) import neither JAX nor the JAX
+    package, alone or through what they import."""
+    files = [os.path.join(ROOT, "paddle_tpu_torch",
+                          *m.split(".")) + ".py"
+             for m in OPTIMIZATION_MODULES]
+    assert all(f in _port_files() for f in files)
+    assert not _forbidden_imports(files)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _OPT_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded, paths = json.loads(out.stdout.strip().splitlines()[-1])
+    assert loaded == []
+    assert sorted(paths) == sorted(files)
+
+
 def test_importing_every_port_module_loads_no_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT
