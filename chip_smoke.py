@@ -307,7 +307,36 @@ Phases, in order; any failure exits non-zero at once:
    recomputation and every LR at its closed form; ``ModelAverage`` on
    the LM (2 steps, ``apply``, ``Trainer.test``, ``restore``, 2 steps):
    the losses bit-identical to a run without it, ``apply`` and
-   ``restore`` ms printed.
+   ``restore`` ms printed;
+15. memory: the verifier and the memory planner with ``FLAGS.verify``
+   on, at phase 5's LM (GPT-2 small's widths, Adam 1e-3, 8 x 1024
+   tokens): the main and startup programs verify with 0 errors (the
+   warnings by code, the host ms of each verify and of
+   ``append_backward``'s post-pass printed), and the Executor's hook
+   walks the program once an Executor; the plan (peak, classes,
+   high-water op, PT033 count) equal to ``LM_PLAN_PEAK_BYTES``, which
+   the CPU tests compute in both packages; from one saved state, one
+   step through ``trace_ops`` keeping every value (the parent's
+   Executor) against one through ``Executor.run(use_jit=False)``, which
+   frees each value at its last use: the loss and every persistable
+   bit-identical, the release's peak at most ``RELEASE_PEAK_SHARE`` of
+   the keep-all peak and at least the plan's, 24 / 12 / 12 flash
+   launches; ``MEM_STEPS`` compiled runs with the release and as many
+   keeping every value: bit-identical, one capture each, the peak
+   allocated and reserved bytes, the graph pool's bytes and the replay
+   p50 of both printed; the LM at ``MEM_REFUSE_BATCH`` against the
+   card's own memory refused with PT030 naming the high-water op, with
+   no CUDA OOM, no step run and under ``MEM_REFUSED_BYTES`` allocated;
+   the batch-8 step refused at a budget 1 MiB under its preflight's
+   peak and run 1 MiB over; ResNet-50 at batch 32, one compiled step
+   under the hook and the preflight, 16 conv3x3 forward and 16 dx
+   launches, the plan's peak beside the measured one; ``python -m
+   paddle_tpu_torch lint`` of the conv-net config with ``--memory
+   --batch 32`` exits 0 and prints the residency table.
+
+Since phase 15's slice every path of the Executor frees each value at
+its last use, so phases 1-14 run on the freeing Executor and their
+peaks are those of the step that frees.
 
 Phases 5-9 train through ``Trainer.train``, which runs the compiled
 path: each holds its steps to one capture and a replay a step, and the
@@ -329,6 +358,7 @@ package beside it, the script exits non-zero and prints no result.
 """
 import argparse
 import collections
+import contextlib
 import ctypes
 import gc
 import json
@@ -7613,6 +7643,429 @@ def phase_optimization(dev, plain):
     return paths
 
 
+# -- phase 15 -----------------------------------------------------------------
+
+# Phase 15 (verifier and memory). The memory planner's predicted peak of
+# the GPT-2-small LM's training step (Adam, TRAIN_BATCH x 1024 tokens,
+# the cost fetched), which tests/test_torch_memory_plan.py computes in
+# both packages on the CPU: a lower bound (199 vars of unknown size,
+# PT033)
+LM_PLAN_PEAK_BYTES = 10386670672
+# the release's per-op peak against keeping every value (the parent's
+# Executor): at most this share
+RELEASE_PEAK_SHARE = 0.8
+# the LM at this batch must be refused by the preflight against the
+# card's own memory, before it allocates more than MEM_REFUSED_BYTES
+MEM_REFUSE_BATCH = 128
+MEM_REFUSED_BYTES = 64 << 20
+MEM_STEPS = 5  # a compiled run: warm-up, capture, 3 replays
+FLASH_PER_STEP = {"flash_attention_fwd": 24, "flash_attention_bwd_dkv": 12,
+                  "flash_attention_bwd_dq": 12}
+CONV_PER_STEP = {"conv3x3_fwd": 16, "conv3x3_dx": 16}
+
+
+def _tensor_bytes(values):
+    from paddle_tpu_torch.core.executor import raw_data
+    return sum(raw_data(v).numel() * raw_data(v).element_size()
+               for v in values)
+
+
+def _footprint(dev, run, resident):
+    """(result of ``run()``, the bytes the step held at its peak): the
+    allocator's peak during ``run`` over what was allocated before it,
+    plus ``resident`` (the state and feeds the step holds from its
+    start), so that tensors of no concern to the step do not count."""
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = run()
+    torch.cuda.synchronize(dev)
+    return out, torch.cuda.max_memory_allocated(dev) - base + resident
+
+
+@contextlib.contextmanager
+def _keep_every_value():
+    """The parent's Executor: a release schedule that drops nothing."""
+    from paddle_tpu_torch.analysis import memory as mem
+    real = mem.release_schedule
+    mem.release_schedule = lambda block, ops, keep: [()] * len(ops)
+    try:
+        yield
+    finally:
+        mem.release_schedule = real
+
+
+def _mem_verify(main_prog, startup):
+    """Step 1: the verifier on the LM's programs, timed, and the
+    post-pass of append_backward timed on the built program."""
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.core import backward
+    rec = {}
+    for label, prog in (("main", main_prog), ("startup", startup)):
+        t0 = time.perf_counter()
+        diags = analysis.verify(prog)
+        rec[label + "_verify_ms"] = (time.perf_counter() - t0) * 1e3
+        rec[label + "_errors"] = sum(1 for d in diags if d.is_error)
+        rec[label + "_warnings_by_code"] = dict(collections.Counter(
+            d.code for d in diags if not d.is_error))
+        if rec[label + "_errors"]:
+            fail("phase 15: the %s program verifies with errors:\n%s"
+                 % (label, analysis.render_diagnostics(diags)))
+    t0 = time.perf_counter()
+    backward._check_backward_pass(main_prog)
+    rec["append_backward_post_pass_ms"] = (time.perf_counter() - t0) * 1e3
+    return rec
+
+
+def _mem_plan(main_prog, cost):
+    """Step 2: the plan at TRAIN_BATCH, held to the CPU test's peak."""
+    from paddle_tpu_torch.analysis import memory as mem
+    plan, diags = mem.check_memory(main_prog, batch=TRAIN_BATCH,
+                                   fetches=[cost])
+    rec = {"plan": plan.summary(), "pt033_unknown_vars": len(plan.unknown),
+           "codes": sorted({d.code for d in diags}),
+           "top_residents": [(r.name, r.nbytes, r.cls)
+                             for r in plan.top_residents(5)]}
+    log(plan.table())
+    if plan.peak_bytes != LM_PLAN_PEAK_BYTES:
+        fail("phase 15: the plan's peak %d differs from the CPU test's %d"
+             % (plan.peak_bytes, LM_PLAN_PEAK_BYTES))
+    return plan, rec
+
+
+def _mem_per_op(dev, main_prog, cost, feed, state, plan):
+    """Step 3: one step from ``state`` through trace_ops with no schedule
+    (every value kept) and one through Executor.run(use_jit=False): the
+    same bits, the release's peak at most RELEASE_PEAK_SHARE of the
+    keep-all peak and at least the plan's."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core.executor import Executor, trace_ops
+    from paddle_tpu_torch.core.scope import Scope
+    resident = _tensor_bytes(list(state.values()) + list(feed.values()))
+
+    def keep_all():
+        env = dict(feed)
+        env.update({n: t.clone() for n, t in state.items()})
+        with torch.no_grad():
+            trace_ops(main_prog.global_block(), env,
+                      torch.Generator(device=dev).manual_seed(0), dev)
+        return env[cost].clone(), {n: env[n] for n in state}
+
+    (k_loss, k_state), k_peak = _footprint(dev, keep_all, resident)
+    gc.collect()
+    torch.cuda.empty_cache()
+    scope = Scope()
+    for n, t in state.items():
+        scope.set_var(n, t.clone())
+    exe = Executor(dev)
+    kernels.reset_launches()
+    (r_loss,), r_peak = _footprint(dev, lambda: exe.run(
+        main_prog, feed=feed, fetch_list=[cost], scope=scope, use_jit=False,
+        return_numpy=False), resident)
+    launches = kernels.launch_counts()
+    same = torch.equal(k_loss, r_loss) and all(
+        torch.equal(k_state[n], scope.find_var(n)) for n in state)
+    rec = {"keep_all_peak_bytes": k_peak, "release_peak_bytes": r_peak,
+           "release_over_keep_all": r_peak / k_peak,
+           "plan_peak_bytes": plan.peak_bytes,
+           "plan_over_release": plan.peak_bytes / r_peak,
+           "preflight_predicted_peak_bytes":
+               exe.stats["mem_predicted_peak_bytes"],
+           "loss": float(r_loss.reshape(-1)[0]), "bit_identical": same}
+    del k_state, scope, exe
+    if not same:
+        fail("phase 15: the release changed the step's loss or state")
+    if r_peak > RELEASE_PEAK_SHARE * k_peak:
+        fail("phase 15: the release's peak %d is above %.2f of the "
+             "keep-all peak %d" % (r_peak, RELEASE_PEAK_SHARE, k_peak))
+    if plan.peak_bytes > r_peak:
+        fail("phase 15: the plan's peak %d is above the measured %d (it "
+             "is a lower bound)" % (plan.peak_bytes, r_peak))
+    for name, n in FLASH_PER_STEP.items():
+        if launches[name] != n:
+            fail("phase 15: the per-op step launched %s %d times, expected "
+                 "%d" % (name, launches[name], n))
+    return rec, launches
+
+
+def _mem_compiled(dev, main_prog, cost, feed, state, keep_all=False):
+    """Step 4: MEM_STEPS compiled runs from ``state`` (a warm-up, the
+    capture, replays): the peak allocated and reserved bytes, the graph
+    pool's bytes and the replays' step p50 by CUDA events."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    scope = Scope()
+    for n, t in state.items():
+        scope.set_var(n, t.clone())
+    exe = Executor(dev)
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    alloc0 = torch.cuda.memory_allocated(dev)
+    reserved0 = torch.cuda.memory_reserved(dev)
+    kernels.reset_launches()
+    ms, losses = [], []
+    with (_keep_every_value() if keep_all else contextlib.nullcontext()):
+        for _ in range(MEM_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = exe.run(main_prog, feed=feed, fetch_list=[cost],
+                          scope=scope, return_numpy=False)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(out[0])
+    launches = kernels.launch_counts()
+    rec = {"peak_allocated_bytes":
+               torch.cuda.max_memory_allocated(dev) - alloc0,
+           "peak_reserved_bytes":
+               torch.cuda.max_memory_reserved(dev) - reserved0,
+           "graph_pool_bytes": _pool_bytes(exe._pool),
+           "step_ms": ms, "replay_ms_p50": float(np.median(ms[2:])),
+           "executor": {k: exe.stats[k] for k in _EXE_KEYS}}
+    _compiled_gate("memory_lm" + ("_keep_all" if keep_all else ""),
+                   rec["executor"], MEM_STEPS)
+    for name, n in FLASH_PER_STEP.items():
+        if launches[name] != n * MEM_STEPS:
+            fail("phase 15: %d compiled steps launched %s %d times, "
+                 "expected %d a step" % (MEM_STEPS, name, launches[name], n))
+    final = _persistables(main_prog, scope)
+    exe.close()
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, losses, final, launches
+
+
+def _mem_refusals(dev, state, predicted, main8, cost8, feed8):
+    """Step 5: the LM at MEM_REFUSE_BATCH against the card's memory (no
+    budget flag) refused with PT030 before it allocates; then the
+    batch-8 step just under (refused) and just over (runs) the peak its
+    preflight ``predicted``."""
+    from paddle_tpu_torch.analysis import ProgramVerifyError
+    from paddle_tpu_torch.analysis import memory as mem
+    from paddle_tpu_torch.configs import tiny_lm
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.flags import flags_guard
+    widths = dict(vocab=GPT2_SMALL["vocab_size"], seq=GPT2_SMALL["max_seq"],
+                  hidden=GPT2_SMALL["hidden"],
+                  num_layers=GPT2_SMALL["num_layers"],
+                  num_heads=GPT2_SMALL["num_heads"],
+                  ffn_mult=GPT2_SMALL["ffn_mult"])
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        spec = tiny_lm.model(batch=MEM_REFUSE_BATCH, samples=1,
+                             learning_rate=TRAIN_LR, seed=0, **widths)
+        spec["optimizer"].minimize(spec["cost"])
+    cost = spec["cost"].name
+    big = mem.plan_memory(main_prog, batch=MEM_REFUSE_BATCH, fetches=[cost],
+                          vmem=False)
+    toks = np.random.RandomState(0).randint(
+        0, widths["vocab"], (MEM_REFUSE_BATCH, widths["seq"])).astype(np.int64)
+    exe, scope = Executor(dev), Scope()
+    for n, t in state.items():
+        scope.set_var(n, t)
+    feed = exe.prepare_feed({"toks": toks, "tgt": (toks + 1) % widths["vocab"]})
+    budget = mem.resolve_budget_bytes(device=dev)
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    jit0 = exe.stats["jit_runs"]
+    t0 = time.perf_counter()
+    try:
+        with flags_guard(verify=True, memory_budget_gb=0.0):
+            exe.run(main_prog, feed=feed, fetch_list=[cost], scope=scope)
+        fail("phase 15: the batch-%d LM (plan %d bytes) ran against the "
+             "card's %d" % (MEM_REFUSE_BATCH, big.peak_bytes, budget))
+    except torch.cuda.OutOfMemoryError as e:
+        fail("phase 15: the batch-%d LM met a CUDA OOM instead of PT030: %s"
+             % (MEM_REFUSE_BATCH, e))
+    except ProgramVerifyError as e:
+        msg = str(e)
+    refuse_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize(dev)
+    grown = torch.cuda.memory_allocated(dev) - before
+    rec = {"refused_batch": MEM_REFUSE_BATCH,
+           "refused_plan_peak_bytes": big.peak_bytes,
+           "refused_plan_peak_op": big.peak_op_ref(),
+           "card_budget_bytes": budget, "refusal_host_ms": refuse_ms,
+           "allocated_growth_bytes": grown,
+           "jit_runs_moved": exe.stats["jit_runs"] - jit0}
+    if "PT030" not in msg or big.peak_op_ref() not in msg:
+        fail("phase 15: the refusal does not name PT030 and the high-water "
+             "op %s:\n%s" % (big.peak_op_ref(), msg[:2000]))
+    if grown >= MEM_REFUSED_BYTES or rec["jit_runs_moved"]:
+        fail("phase 15: the refused run allocated %d bytes / ran %d steps"
+             % (grown, rec["jit_runs_moved"]))
+    del feed, scope, exe
+    # the batch-8 step just under and just over its own plan
+    for label, delta in (("under", -(1 << 20)), ("over", 1 << 20)):
+        exe, scope = Executor(dev), Scope()
+        for n, t in state.items():
+            scope.set_var(n, t.clone())
+        gb = (predicted + delta) / float(1 << 30)
+        try:
+            with flags_guard(verify=True, memory_budget_gb=gb):
+                out = exe.run(main8, feed=feed8, fetch_list=[cost8],
+                              scope=scope, use_jit=False)
+            ran = bool(np.isfinite(np.asarray(out[0])).all())
+        except ProgramVerifyError:
+            ran = False
+        rec["budget_%s_ran" % label] = ran
+        if ran != (label == "over"):
+            fail("phase 15: at a budget %s the plan (%.6f GiB) the step %s"
+                 % (label, gb, "ran" if ran else "was refused"))
+        del exe, scope
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _mem_resnet(dev):
+    """Step 6: ResNet-50 at R50_BATCH, one compiled step (its warm-up)
+    with the verifier and the preflight on: the plan's peak beside the
+    measured one, and the conv3x3 launches."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.configs import resnet_cifar
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    from paddle_tpu_torch.flags import flags_guard
+    from paddle_tpu_torch.trainer import Trainer
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        spec = resnet_cifar.model(variant="imagenet", depth=50, image=224,
+                                  class_dim=1000, batch=R50_BATCH,
+                                  learning_rate=R50_LR)
+        trainer = Trainer(spec["cost"], spec["optimizer"],
+                          spec["feed_list"], device=dev)
+    rng = np.random.RandomState(0)
+    batch = list(zip(rng.rand(R50_BATCH, 3, 224, 224).astype(np.float32),
+                     rng.randint(0, 1000, (R50_BATCH, 1)).astype(np.int64)))
+    with scope_guard(Scope()):
+        trainer._maybe_init()
+        state = _persistables(main_prog, global_scope())
+    trainer.exe.close()
+    feed = trainer.feeder.feed(batch)
+    exe, scope = Executor(dev), Scope()
+    for n, t in state.items():
+        scope.set_var(n, t)
+    resident = _tensor_bytes(list(state.values()) + list(feed.values()))
+    kernels.reset_launches()
+    with flags_guard(verify=True):
+        (loss,), peak = _footprint(dev, lambda: exe.run(
+            main_prog, feed=feed, fetch_list=[spec["cost"]], scope=scope,
+            return_numpy=False), resident)
+    launches = kernels.launch_counts()
+    rec = {"plan_peak_bytes": exe.stats["mem_predicted_peak_bytes"],
+           "measured_peak_bytes": peak,
+           "plan_over_measured":
+               exe.stats["mem_predicted_peak_bytes"] / peak,
+           "loss": float(loss.reshape(-1)[0]),
+           "launches": {k: launches[k] for k in CONV_PER_STEP},
+           "executor": {k: exe.stats[k] for k in _EXE_KEYS}}
+    if {k: launches[k] for k in CONV_PER_STEP} != CONV_PER_STEP:
+        fail("phase 15: ResNet-50's step launched %s, expected %s"
+             % (rec["launches"], CONV_PER_STEP))
+    if not math.isfinite(rec["loss"]) or rec["executor"]["jit_runs"] != 1:
+        fail("phase 15: ResNet-50's step: %s" % rec)
+    exe.close()
+    del exe, scope, state, feed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def _mem_cli(root):
+    """Step 7: the lint verb with the memory pass on the conv-net
+    config."""
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch", "lint",
+         os.path.join("paddle_tpu_torch", "configs", "resnet_cifar.py"),
+         "--memory", "--batch", "32"], cwd=root, capture_output=True,
+        text=True, timeout=600, env=dict(os.environ, PYTHONPATH=root))
+    rec = {"rc": out.returncode, "seconds": time.monotonic() - t0}
+    if out.returncode != 0 or \
+            "predicted per-device HBM residency (batch=32" not in out.stdout:
+        fail("phase 15: lint --memory exited %d:\n%s\n%s"
+             % (out.returncode, out.stdout[-3000:], out.stderr[-3000:]))
+    log(out.stdout.strip())
+    return rec
+
+
+def phase_memory(dev, root, plain):
+    """Phase 15: the verifier and the memory planner on the card, with
+    ``FLAGS.verify`` on. ``plain`` holds phase 12's LM and ResNet-50
+    records. Returns {path: launches}."""
+    from paddle_tpu_torch.analysis import runner
+    from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
+    from paddle_tpu_torch.flags import flags_guard
+    t0 = time.monotonic()
+    rec, paths = {}, {}
+    widths, cfg, spec, trainer, main_prog = _lm_build(dev)
+    cost = spec["cost"].name
+    rec["verify"] = _mem_verify(main_prog, trainer.startup_program)
+    plan, rec["plan"] = _mem_plan(main_prog, cost)
+    with scope_guard(Scope()):
+        trainer._maybe_init()
+        state = _persistables(main_prog, global_scope())
+    trainer.exe.close()
+    feed = trainer.feeder.feed(next(iter(spec["reader"]())))
+    # the hook verifies a program version once: count its walks
+    calls, real = [], runner.verify
+
+    def counted(program, *a, **kw):
+        calls.append(program._uid)
+        return real(program, *a, **kw)
+
+    runner.verify = counted
+    try:
+        with flags_guard(verify=True):
+            rec["per_op"], paths["memory_lm_per_op"] = _mem_per_op(
+                dev, main_prog, cost, feed, state, plan)
+            comp, c_losses, c_final, paths["memory_lm_compiled"] = \
+                _mem_compiled(dev, main_prog, cost, feed, state)
+    finally:
+        runner.verify = real
+    rec["verify"]["hook_walks"] = calls.count(main_prog._uid)
+    if rec["verify"]["hook_walks"] != 2:
+        # one for the per-op Executor, one for the compiled one: a second
+        # run of a program on an Executor does not verify it again
+        fail("phase 15: the verify hook walked the LM %d times over two "
+             "Executors" % rec["verify"]["hook_walks"])
+    keep, k_losses, k_final, _ = _mem_compiled(dev, main_prog, cost, feed,
+                                               state, keep_all=True)
+    if not (all(torch.equal(a, b) for a, b in zip(c_losses, k_losses))
+            and all(torch.equal(t, k_final[n]) for n, t in c_final.items())):
+        fail("phase 15: compiled steps with the release differ from those "
+             "keeping every value")
+    rec["compiled"] = {"release": comp, "keep_all": keep,
+                       "pool_release_over_keep_all":
+                           comp["graph_pool_bytes"]
+                           / max(keep["graph_pool_bytes"], 1),
+                       "phase12_step_ms_p50":
+                           plain.get("lm", {}).get("step_ms_p50")}
+    del c_final, k_final
+    rec["refusals"] = _mem_refusals(
+        dev, state, rec["per_op"]["preflight_predicted_peak_bytes"],
+        main_prog, cost, feed)
+    del state, feed
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["resnet50"], paths["memory_resnet50"] = _mem_resnet(dev)
+    rec["cli"] = _mem_cli(root)
+    rec["wall_s"] = time.monotonic() - t0
+    log(json.dumps({"memory": rec}))
+    return paths
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -7670,6 +8123,7 @@ def main():
     compiled_paths, plain_steps = timed(12, phase_compiled, dev, root)
     checkpoint_paths = timed(13, phase_checkpoint, dev, root)
     optim_paths = timed(14, phase_optimization, dev, plain_steps)
+    memory_paths = timed(15, phase_memory, dev, root, plain_steps)
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
     paths = {"serve": serve_launches, **spec_paths, **disagg_paths,
              "train": train5["launches"],
@@ -7678,7 +8132,8 @@ def main():
              "rnn_train_gru": gru_launches,
              "tuned_train": tuned_launches,
              "convnet_conv3x3_consult": consult_launches, **amp_paths,
-             **compiled_paths, **checkpoint_paths, **optim_paths}
+             **compiled_paths, **checkpoint_paths, **optim_paths,
+             **memory_paths}
     for name, entry in kernels.items():
         # each main path is read with the counts set to 0 just before it
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

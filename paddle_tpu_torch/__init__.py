@@ -10,11 +10,16 @@ path, over shared kernels, with AMP on the training paths:
   ``serving/`` (paged KV pool, continuous-batching engine, disaggregated
   prefill and decode tiers, service and the ``:generate`` /
   ``:prefill`` / ``:decode`` HTTP endpoint), ``inference.py`` (the
-  generative artifact, the JAX package's format) and
-  ``analysis/memory.py`` (its PT034 memory-budget check);
+  generative artifact, the JAX package's format) and the PT034
+  memory-budget check;
+- static checks: ``analysis/`` (the program verifier's rules
+  PT001-PT017, the memory planner PT030-PT034, the Executor's verify
+  hook and memory preflight under ``FLAGS.verify``) and ``debugger.py``
+  (pseudo-code printer, graphviz ``.dot`` drawer);
 - the Fluid training path: ``core/`` (Program IR, registry, scope, the
   ``Executor`` with its compiled step captured as a CUDA graph, its
-  per-op and hybrid paths, ``append_backward``), ``layers/``, ``ops/``
+  per-op and hybrid paths, each value freed at its last use,
+  ``append_backward`` and ``calc_gradient``), ``layers/``, ``ops/``
   (the lowerings of the transformer LM's training step, the host IO
   ops), ``optimizer.py`` (the nine optimizers and ``ModelAverage``),
   ``clip.py``, ``regularizer.py``, ``learning_rate_decay.py``,
@@ -41,7 +46,8 @@ path, over shared kernels, with AMP on the training paths:
   float32 sums in ``mul`` and ``conv2d`` and their grads, the bfloat16
   faces of the conv3x3 and matmul kernels);
 - ``cli.py``: ``python -m paddle_tpu_torch train <config.py>``,
-  ``serve <artifact_dir>`` and ``tune <config.py>``.
+  ``serve <artifact_dir>``, ``tune <config.py>`` and ``lint
+  <config.py>``.
 
 Entry points take ``device`` (default ``"cuda"``) and raise when no card
 is present, unless the caller passes ``device="cpu"``.
@@ -49,6 +55,8 @@ is present, unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 from . import amp
+from .core.backward import append_backward, calc_gradient
 from .device import DEFAULT_DEVICE, NoDeviceError, resolve_device
 
-__all__ = ["DEFAULT_DEVICE", "NoDeviceError", "amp", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "NoDeviceError", "amp", "append_backward",
+           "calc_gradient", "resolve_device"]

@@ -1,6 +1,7 @@
-"""Command line of the port: the ``train``, ``serve`` and ``tune`` verbs
-(counterparts of ``paddle_tpu/cli.py:cmd_train``, of ``cmd_serve`` for
-generative artifacts and of ``cmd_tune`` for train configs).
+"""Command line of the port: the ``train``, ``serve``, ``tune`` and
+``lint`` verbs (counterparts of ``paddle_tpu/cli.py:cmd_train``, of
+``cmd_serve`` for generative artifacts, of ``cmd_tune`` for train configs
+and of ``cmd_lint`` without its mesh passes).
 
     python -m paddle_tpu_torch train <config.py> [--device cuda|cpu]
         [--num_passes N] [--log_period K] [--learning_rate LR]
@@ -44,6 +45,19 @@ tilings against the stock rung on the device, caches the winners
 (``tune/cache.py``) and prints the winners table. Exit 0 on success, 1
 when a population has no eligible candidate, 2 when the config fails to
 build.
+
+    python -m paddle_tpu_torch lint <config.py> [--strict] [--dot PATH]
+        [--memory [--budget-gb G] [--batch 16] [--mesh dp=N]]
+
+builds the config's program and runs the static verifier over it and
+its startup program (``paddle_tpu_torch.analysis``, PT001-PT017); with
+``--memory`` it appends the backward and the config's optimizer (SGD if
+it names none) and prints the memory planner's residency table
+(PT030-PT033) at ``--batch`` over ``--mesh dp=N``. Exit 0 when clean or
+with warnings only, 1 on an error (or any diagnostic under
+``--strict``), 2 when the config fails to build. ``--comm``,
+``--sharding``, ``--spec`` and ``--all`` exit 2: their passes need
+collectives and a mesh (ROADMAP.md Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -292,6 +306,127 @@ def _tune_populations(program, batch, compute_dtype=None):
     return out, flash
 
 
+def _parse_mesh(spec, verb):
+    """``'dp=4'`` -> {axis: size}. A malformed entry (no ``=``, a size
+    that is not an integer of at least 1, an empty segment) is refused
+    with a message (None): skipping it would price another mesh than the
+    one asked for."""
+    spec = (spec or "").strip()
+    if not spec:
+        return {}
+    mesh = {}
+    for pair in spec.split(","):
+        k, eq, v = pair.partition("=")
+        try:
+            if not (eq and k.strip()):
+                raise ValueError("missing '='")
+            size = int(v)
+            if size < 1:
+                raise ValueError("size < 1")
+            mesh[k.strip()] = size
+        except ValueError:
+            print("%s: bad --mesh entry %r (want axis=size with "
+                  "size >= 1, e.g. 'dp=8')" % (verb, pair))
+            return None
+    return mesh
+
+
+def _append_train_step(verb, spec, main, startup):
+    """Append the backward and the optimizer ops to ``main`` so that the
+    memory pass prices the training step, not the forward alone: the
+    config's optimizer, else the SGD ``train`` would use. True on
+    success; a failing ``minimize`` is reported and leaves the forward
+    program."""
+    from . import optimizer
+    from .core import ir
+    if not (isinstance(spec, dict) and spec.get("cost") is not None):
+        return False
+    opt = spec.get("optimizer") or optimizer.SGD(learning_rate=0.01)
+    try:
+        with ir.program_guard(main, startup):
+            opt.minimize(spec["cost"])
+    except Exception as e:
+        print("%s: could not append the backward (%s: %s); analysing "
+              "the forward program only" % (verb, type(e).__name__, e))
+        return False
+    return True
+
+
+def cmd_lint(args):
+    """Statically verify the program a train config builds (the
+    ``train`` contract: the file defines ``model()``); nothing runs.
+    ``--memory`` adds the memory planner over the training step, its
+    peak checked against ``--budget-gb`` or ``FLAGS.memory_budget_gb``
+    (none known by default: lint touches no device). Exit 0 clean or
+    warnings only, 1 on an error (any diagnostic with ``--strict``), 2
+    when the config fails to build or a pass is asked for that the port
+    lacks."""
+    from . import analysis
+    from .core import ir
+
+    if args.comm or args.sharding or args.spec or args.all:
+        print("lint: --comm, --sharding, --spec and --all need "
+              "collectives and a mesh, which the port does not have yet "
+              "(ROADMAP.md Queue 1 item 6)")
+        return 2
+    main, startup = ir.Program(), ir.Program()
+    try:
+        cfg = _load_config(args.config)
+        with ir.program_guard(main, startup):
+            spec = cfg.model()
+    except Exception as e:
+        print("lint: config %r failed to build: %s: %s"
+              % (args.config, type(e).__name__, e))
+        return 2
+    fetches = None
+    if isinstance(spec, dict) and spec.get("cost") is not None:
+        # metrics count as fetch roots too: a trainer fetches them
+        fetches = [spec["cost"]] + list(spec.get("metrics", ()))
+    diags = analysis.verify(main, fetches=fetches)
+    startup_diags = analysis.verify(startup)
+    memory_diags = []
+    reports = [("main program", diags), ("startup program", startup_diags)]
+    if args.memory:
+        from .analysis import memory as memory_mod
+        mesh = _parse_mesh(args.mesh, "lint")
+        if mesh is None:
+            return 2
+        ignored = sorted(a for a in mesh if a != "dp")
+        if ignored:
+            print("lint: --memory shards the batch over 'dp' only; "
+                  "mesh axis(es) %s ignored (params priced replicated)"
+                  % ", ".join(ignored))
+        # the residency question is about the training step: the
+        # structural rules above ran on the program as built
+        train_step = _append_train_step("lint", spec, main, startup)
+        budget = memory_mod.resolve_budget_bytes(
+            budget_gb=args.budget_gb or None)
+        plan, memory_diags = memory_mod.check_memory(
+            main, budget_bytes=budget, batch=args.batch, fetches=fetches,
+            dp=mesh.get("dp", 1))
+        print("memory pass (%s program):"
+              % ("train-step" if train_step else "forward-only"))
+        print(plan.table(budget))
+        reports.append(("memory pass", memory_diags))
+    for label, ds in reports:
+        report = analysis.render_diagnostics(ds, label=label)
+        print(report if report else "%s: clean" % label)
+    if args.dot:
+        from . import debugger
+        # errors fill red; the PT015+ dataflow findings at any severity
+        bad_ops = {d.op_idx for d in diags
+                   if d.block_idx == 0 and d.op_idx is not None
+                   and (d.is_error or d.code >= "PT015")}
+        debugger.draw_block_graphviz(main.global_block(),
+                                     op_highlights=bad_ops, path=args.dot)
+        print("lint: wrote %s (%d op(s) highlighted)"
+              % (args.dot, len(bad_ops)))
+    all_diags = diags + startup_diags + memory_diags
+    failed = any(d.is_error for d in all_diags) \
+        or (args.strict and all_diags)
+    return 1 if failed else 0
+
+
 def _fmt_config(cfg):
     if cfg.get("use") == "xla":
         return "xla"
@@ -452,6 +587,38 @@ def _parser():
                     help="evidence-record path (default "
                          "build/tune/tune_<device>.json)")
     tn.set_defaults(fn=cmd_tune)
+    li = sub.add_parser("lint", help="statically verify a train config's "
+                                     "program (exit 1 on PT errors)")
+    li.add_argument("config")
+    li.add_argument("--dot", default=None, metavar="PATH",
+                    help="write a graphviz .dot of the main block with "
+                         "the failing ops highlighted")
+    li.add_argument("--strict", action="store_true",
+                    help="treat warnings as failures")
+    li.add_argument("--memory", action="store_true",
+                    help="run the static memory planner (PT030-PT033) "
+                         "over the training step (backward and optimizer "
+                         "appended) and print the residency table")
+    li.add_argument("--budget-gb", type=float, default=0.0,
+                    dest="budget_gb",
+                    help="per-device budget for --memory (GiB; 0 = "
+                         "FLAGS.memory_budget_gb, which at 0 leaves PT030 "
+                         "unchecked)")
+    li.add_argument("--batch", type=int, default=16,
+                    help="global batch for the feed wildcard dim (-1) in "
+                         "the --memory pass")
+    li.add_argument("--mesh", default="dp=1",
+                    help="mesh of the --memory pass, 'dp=N': the batch "
+                         "shards over dp, params replicate")
+    for flag in ("--comm", "--sharding", "--all"):
+        li.add_argument(flag, action="store_true",
+                        help="not in the port yet: exits 2 (ROADMAP.md "
+                             "Queue 1 item 6)")
+    li.add_argument("--spec", action="append", default=None,
+                    metavar="VAR=SPEC",
+                    help="not in the port yet: exits 2 (ROADMAP.md Queue "
+                         "1 item 6)")
+    li.set_defaults(fn=cmd_lint)
     return p
 
 

@@ -15,8 +15,11 @@ with the forward value's offsets, and an output of an op whose
 gradient nobody produced gets no cotangent in the generic grad (zero,
 as in the JAX package), LoD or not.
 
-Not ported yet: the post-pass ``_check_backward_pass``, which needs the
-``analysis`` package.
+``append_backward`` ends with the post-pass ``_check_backward_pass``:
+the verifier's structural rules raise if the pass broke the dataflow,
+and an orphan ``@GRAD`` (PT007) is one ``RuntimeWarning``.
+``calc_gradient`` takes the gradient of a target against any inputs,
+parameters or not.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from . import ir, registry, unique_name
 from .ir import grad_var_name
 from .types import is_floating
 
-__all__ = ["append_backward", "default_grad_maker"]
+__all__ = ["append_backward", "calc_gradient", "default_grad_maker"]
 
 
 def _op_path_to_loss(block: ir.Block, loss_name: str) -> List[int]:
@@ -183,4 +186,37 @@ def append_backward(loss: ir.Variable, parameter_list=None, no_grad_set=None,
                             outputs={"Out": [canon]})
             g = canon
         params_and_grads.append((p, block.var(g)))
+    _check_backward_pass(program)
     return params_and_grads
+
+
+def _check_backward_pass(program):
+    """The post-pass self-check (``paddle_tpu/core/backward.py:196``):
+    the cheap structural rules prove backward kept the graph
+    well-formed (an error raises ProgramVerifyError), and PT007 catches
+    an orphan ``@GRAD`` where gradients are made; its findings surface
+    as one RuntimeWarning."""
+    import warnings
+
+    from ..analysis import check_after_pass, render_diagnostics
+    diags = check_after_pass(program, "append_backward",
+                             extra_rules=("PT007",))
+    orphans = [d for d in diags if d.code == "PT007"]
+    if orphans:
+        warnings.warn("append_backward left orphan gradient vars:\n%s"
+                      % render_diagnostics(orphans), RuntimeWarning)
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Gradient vars of one target against ``inputs`` (Variables, any of
+    them, not only parameters), None for an input the target does not
+    depend on (``paddle_tpu/core/backward.py:215``). ``target_gradients``
+    is the JAX package's argument, unused there too."""
+    targets = targets if isinstance(targets, (list, tuple)) else [targets]
+    inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    assert len(targets) == 1, "calc_gradient currently supports one target"
+    pg = append_backward(targets[0],
+                         parameter_list=[v.name for v in inputs],
+                         no_grad_set=no_grad_set)
+    by_name = {p.name: g for p, g in pg}
+    return [by_name.get(v.name) for v in inputs]

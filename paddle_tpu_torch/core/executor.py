@@ -58,8 +58,30 @@ reads an offset back to the host. Lowerings take ``raw_data`` of their
 inputs and wrap a sequence-preserving output with ``with_lod_of``;
 fetching a LoD value gives back a host ``LoDTensor``.
 
-Not ported yet (later slices): the explicit-comm and distributed paths,
-the memory and sharding preflights and the verifier hook.
+Every path frees a value after its last use, as XLA frees a buffer
+inside the JAX package's jitted step: ``trace_ops`` takes a release
+schedule (:func:`analysis.memory.release_schedule`, found once per
+program version and fetch list) and drops from the environment, after
+each op, the names whose last reader or writer that op is. A fetch, a
+persistable and what a later host segment reads are never dropped; a
+fed value stays the caller's. In a capture, the private pool then reuses
+the dropped blocks within the graph. A lowering that reads a dropped
+name raises (``KeyError``); nothing falls back to keeping everything.
+
+Under ``FLAGS.verify`` (or ``PADDLE_TPU_VERIFY=1``) ``run`` verifies a
+program once per (uid, version) before any path (ProgramVerifyError on
+an error, one RuntimeWarning with the warnings), and runs the memory
+preflight before the first run of each (program version, feed
+signature, fetches): the memory planner prices state and feeds from
+their tensors and the rest from declared shapes, and a predicted peak
+above ``FLAGS.memory_budget_gb`` (else the card's memory) raises one
+ProgramVerifyError with the residency table before the step allocates
+anything; ``stats["mem_predicted_peak_bytes"]`` holds the last
+prediction.
+
+Not ported yet (ROADMAP.md Queue 1 item 6, which needs collectives and a
+mesh): the explicit-comm and distributed paths and the sharding
+preflight.
 """
 from __future__ import annotations
 
@@ -67,6 +89,7 @@ import collections
 import gc
 import itertools
 import logging
+import os
 import threading
 import warnings
 import weakref
@@ -218,11 +241,13 @@ class LowerContext(object):
 
 
 def trace_ops(block: ir.Block, env: Dict[str, Any], generator, device,
-              value_hook=None):
+              value_hook=None, release=None):
     """Run every op's lowering over ``env``, in program order.
     ``value_hook(name, value)`` sees every value an op sets (the NaN/Inf
-    scan)."""
-    for op in block.ops:
+    scan). ``release``: one tuple of names for each op of the block, the
+    names dropped from ``env`` after that op
+    (:func:`analysis.memory.release_schedule`); None keeps every value."""
+    for i, op in enumerate(block.ops):
         opdef = registry.lookup_checked(op.type)
         try:
             opdef.lower(LowerContext(op, env, generator, block, device,
@@ -232,6 +257,9 @@ def trace_ops(block: ir.Block, env: Dict[str, Any], generator, device,
                        % (op.type, op.input_arg_names,
                           op.output_arg_names))
             raise
+        if release is not None:
+            for n in release[i]:
+                env.pop(n, None)
 
 
 class FunctionalContext(LowerContext):
@@ -316,12 +344,15 @@ def _is_host_block(block) -> bool:
 class _ProgramFacts(object):
     """What a run needs to know of a program's ops and vars, found once
     per (uid, version): whether it holds a host op, its persistables,
-    the names its ops read or write, and the names they write."""
+    the names its ops read or write, the names they write, and the
+    release schedule of each fetch list."""
 
-    __slots__ = ("host", "persist", "referenced", "written")
+    __slots__ = ("host", "persist", "referenced", "written", "block",
+                 "_releases")
 
     def __init__(self, program):
         block = program.global_block()
+        self.block = block
         self.host = _is_host_block(block)
         self.persist = frozenset(v.name for v in program.list_vars()
                                  if v.persistable)
@@ -329,6 +360,20 @@ class _ProgramFacts(object):
                                  for n in op.output_arg_names)
         self.referenced = tuple(sorted(self.written | {
             n for op in block.ops for n in op.input_arg_names}))
+        self._releases = {}
+
+    def release(self, fetch_names):
+        """The global block's release schedule when ``fetch_names`` are
+        fetched: fetches and persistables are kept."""
+        key = tuple(fetch_names)
+        got = self._releases.get(key)
+        if got is None:
+            from ..analysis.memory import release_schedule
+            if len(self._releases) > 16:
+                self._releases.clear()
+            got = self._releases[key] = release_schedule(
+                self.block, self.block.ops, self.persist | set(key))
+        return got
 
 
 def _value_sig(v):
@@ -378,6 +423,24 @@ def _own(v):
 
 def _storage(t):
     return t.untyped_storage().data_ptr()
+
+
+def _nbytes(v):
+    """Bytes of a tensor's (or a LoD value's data tensor's) elements."""
+    data = raw_data(v)
+    if isinstance(data, torch.Tensor):
+        return data.numel() * data.element_size()
+    return 0
+
+
+def _verify_requested():
+    """Whether the static verifier is on: ``PADDLE_TPU_VERIFY`` set to a
+    true word, or ``FLAGS.verify`` (``paddle_tpu/core/executor.py:449``)."""
+    if os.environ.get("PADDLE_TPU_VERIFY", "").lower() in (
+            "1", "true", "yes", "on"):
+        return True
+    from ..flags import FLAGS
+    return bool(FLAGS.verify)
 
 
 def _nan_inf_hook(name, value):
@@ -586,13 +649,21 @@ class Executor(object):
                       "compile_cache_hits": 0, "graph_captures": 0,
                       "graph_replays": 0, "ops_run": 0,
                       "feed_wait_ms": 0.0, "dispatch_depth": 0,
-                      "tune_hits": 0, "tune_misses": 0, "tune_fallbacks": 0}
+                      "tune_hits": 0, "tune_misses": 0, "tune_fallbacks": 0,
+                      # the memory preflight's last predicted peak
+                      # (FLAGS.verify; analysis.memory PT030)
+                      "mem_predicted_peak_bytes": 0}
         self.graph_cache_limit = GRAPH_CACHE_LIMIT
         self._cache = collections.OrderedDict()
         self._analysis = {}
         self._facts = {}
         # programs whose capture failed: the per-op path from then on
         self._force_eager = set()
+        # (uid, version) of the programs the verify hook passed, and the
+        # (uid, version, feed signature, fetches) the memory preflight
+        # passed: each is checked once, not every step
+        self._verified = set()
+        self._preflighted = set()
         self._degradation_logged = set()
         # scope (weak) -> its serial, the first part of every cache key;
         # the serials of scopes gone, whose steps are freed at the next run
@@ -645,6 +716,9 @@ class Executor(object):
         feed = self.prepare_feed(feed or {})
         if self._dead_serials:
             self._free_dead_scopes()
+        if _verify_requested():
+            self._maybe_verify(program)
+            self._memory_preflight(program, feed, scope, fetch_names)
         block = program.global_block()
         host = self._program_facts(program).host
         nan_scan = self.check_nan_inf
@@ -695,7 +769,8 @@ class Executor(object):
             env[n] = scope.find_var(n)
         inputs = {id(v) for v in env.values()}
         trace_ops(block, env, self._generator(program, scope), self.device,
-                  _nan_inf_hook if nan_scan else None)
+                  _nan_inf_hook if nan_scan else None,
+                  self._release(program, fetch_names))
         self.stats["ops_run"] += len(block.ops)
         self._writeback(program, scope, env)
         return self._fetches(env, fetch_names, inputs,
@@ -752,9 +827,10 @@ class Executor(object):
         extra_names = sorted((written & persist) - set(state_names)
                              - set(feed))
         generator = self._generator(program, scope)
+        release = self._release(program, fetch_names)
 
         def body(env, bufs):
-            trace_ops(block, env, generator, self.device)
+            trace_ops(block, env, generator, self.device, release=release)
             self.stats["ops_run"] += len(block.ops)
             self._write_state(env, state_names, bufs, written)
             missing = [n for n in fetch_names if n not in env]
@@ -1058,19 +1134,28 @@ class Executor(object):
                 for op in ops:
                     acc.update(op.input_arg_names)
             later_reads.reverse()
+            # the block's release schedule, cut at the segments
+            release, at = self._release(program, fetch_names), 0
+            releases = []
+            for _, ops in segments:
+                releases.append(release[at:at + len(ops)])
+                at += len(ops)
             if len(self._analysis) > 64:
                 self._analysis.clear()
-            cached = self._analysis[akey] = (segments, later_reads)
-        segments, later_reads = cached
+            cached = self._analysis[akey] = (segments, later_reads,
+                                             releases)
+        segments, later_reads, releases = cached
         generator = self._generator(program, scope)
         for idx, (kind, ops) in enumerate(segments):
             if kind == "host":
-                trace_ops(_SegView(block, ops), env, generator, self.device)
+                trace_ops(_SegView(block, ops), env, generator, self.device,
+                          release=releases[idx])
                 self.stats["ops_run"] += len(ops)
                 continue
             try:
                 self._run_segment(program, scope, block, ops, idx, env,
-                                  later_reads[idx], generator)
+                                  later_reads[idx], generator,
+                                  releases[idx])
             except _Fallback as e:
                 warnings.warn(
                     "program %d left the hybrid path (%s%s) and runs on the "
@@ -1079,7 +1164,8 @@ class Executor(object):
                     RuntimeWarning)
                 self._force_eager.add(program._uid)
                 rest = [op for _, seg in segments[idx:] for op in seg]
-                trace_ops(_SegView(block, rest), env, generator, self.device)
+                trace_ops(_SegView(block, rest), env, generator, self.device,
+                          release=[r for rel in releases[idx:] for r in rel])
                 self.stats["ops_run"] += len(rest)
                 break
         self._writeback(program, scope, env)
@@ -1099,7 +1185,7 @@ class Executor(object):
         return segs
 
     def _run_segment(self, program, scope, block, ops, idx, env, keep_after,
-                     generator):
+                     generator, release):
         reads = {}
         for op in ops:
             for n in op.input_arg_names:
@@ -1116,7 +1202,7 @@ class Executor(object):
                "hyb", idx, _feed_signature(reads), out_names)
 
         def body(seg_env, _bufs):
-            trace_ops(view, seg_env, generator, self.device)
+            trace_ops(view, seg_env, generator, self.device, release=release)
             self.stats["ops_run"] += len(ops)
             return [seg_env[n] for n in out_names], {}
 
@@ -1126,8 +1212,73 @@ class Executor(object):
 
         outs = self._step(key, reads, scope, (), generator, body, eager)
         env.update(zip(out_names, outs))
+        for names in release:
+            for n in names:
+                env.pop(n, None)
+
+    # -- the verify hook and the memory preflight ---------------------------
+    def _maybe_verify(self, program):
+        """The static verifier, once per (uid, version)
+        (``paddle_tpu/core/executor.py:1665``): a malformed program
+        raises one ProgramVerifyError listing every diagnostic; warnings
+        alone surface as one RuntimeWarning."""
+        key = (program._uid, program._version)
+        if key in self._verified:
+            return
+        from ..analysis import render_diagnostics, verify_or_raise
+        diags = verify_or_raise(program, context="pre-run verify")
+        if diags:
+            warnings.warn("program %d verification warnings:\n%s"
+                          % (program._uid, render_diagnostics(diags)),
+                          RuntimeWarning)
+        self._verified.add(key)
+
+    def _memory_preflight(self, program, feed, scope, fetch_names):
+        """The memory check before a step's first run
+        (``paddle_tpu/core/executor.py:1685``, one device): state and
+        feeds priced from their tensors, the values in between from
+        their declared shapes, against ``resolve_budget_bytes`` (the
+        flag, else the card's memory). A predicted peak over it raises
+        one ProgramVerifyError with the residency table; the estimate is
+        a lower bound, the right direction for a refusal."""
+        key = (program._uid, program._version, _feed_signature(feed),
+               tuple(fetch_names))
+        if key in self._preflighted:
+            return
+        from ..analysis import memory as _mem
+        budget = _mem.resolve_budget_bytes(device=self.device)
+        sizes = {}
+        for n in self._state_inputs(program, scope, feed):
+            nb = _nbytes(scope.find_var(n))
+            if nb:
+                sizes[n] = nb
+        batch = None
+        block = program.global_block()
+        for n, v in feed.items():
+            shape = tuple(raw_data(v).shape)
+            declared = block._find_var_recursive(n)
+            if (shape and declared is not None and declared.shape
+                    and int(declared.shape[0]) == -1):
+                batch = max(batch or 0, int(shape[0]))
+            nb = _nbytes(v)
+            if nb:
+                sizes[n] = nb
+        plan = _mem.verify_memory_or_raise(
+            program, budget, batch=batch, fetches=fetch_names,
+            sizes_override=sizes,
+            context="executor memory preflight (before the step's first "
+                    "run, program %d)" % program._uid)
+        self.stats["mem_predicted_peak_bytes"] = plan.peak_bytes
+        if len(self._preflighted) > 256:
+            self._preflighted.clear()
+        self._preflighted.add(key)
 
     # -- helpers --------------------------------------------------------------
+    def _release(self, program, fetch_names):
+        """The release schedule of ``program``'s global block for these
+        fetches (:meth:`_ProgramFacts.release`)."""
+        return self._program_facts(program).release(fetch_names)
+
     def _program_facts(self, program):
         key = (program._uid, program._version)
         facts = self._facts.get(key)

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import os
+import warnings
 from typing import Any, Dict, List, Optional, Sequence
 
 from . import unique_name
@@ -94,6 +96,16 @@ class Variable(object):
             self.lod_level, ", persistable" if self.persistable else "")
 
     __str__ = __repr__
+
+    def numel(self):
+        """Elements of the declared shape (-1 counts as 1); None while
+        the shape is unknown."""
+        if self.shape is None:
+            return None
+        n = 1
+        for d in self.shape:
+            n *= max(d, 1) if d != -1 else 1
+        return n
 
     # operator sugar (``layers/math_op_patch.py``): each appends an op
     def _binary(self, other, op, reverse=False):
@@ -212,10 +224,44 @@ class Block(object):
     def create_var(self, **kwargs) -> Variable:
         name = kwargs.get("name")
         if name is not None and name in self.vars:
-            return self.vars[name]
+            existing = self.vars[name]
+            self._check_var_redefinition(existing, kwargs)
+            return existing
         var = Variable(self, **kwargs)
         self.vars[var.name] = var
         return var
+
+    def _check_var_redefinition(self, existing, kwargs):
+        """``create_var`` on an existing name returns the existing var; a
+        request with another fixed shape or dtype warns and is recorded
+        for the PT012 rule (``paddle_tpu/core/ir.py:245``)."""
+        conflicts = []
+        shape = kwargs.get("shape")
+        if shape is not None and existing.shape is not None:
+            req, cur = tuple(shape), tuple(existing.shape)
+            # -1 is the batch wildcard: only fixed dims can conflict
+            if len(req) != len(cur) or any(
+                    a != b for a, b in zip(cur, req) if a != -1 and b != -1):
+                conflicts.append(("shape", cur, req))
+        dtype = kwargs.get("dtype")
+        if dtype is not None and existing.type == VarType.LOD_TENSOR \
+                and kwargs.get("type", VarType.LOD_TENSOR) \
+                == VarType.LOD_TENSOR:
+            req_dt = convert_dtype(dtype)
+            if req_dt != existing.dtype:
+                conflicts.append(("dtype", existing.dtype, req_dt))
+        if not conflicts:
+            return
+        rec = getattr(self.program, "_var_def_conflicts", None)
+        if rec is None:
+            rec = self.program._var_def_conflicts = []
+        for field, cur, req in conflicts:
+            if len(rec) < SHAPE_INFER_FAILURE_CAP:
+                rec.append((self.idx, existing.name, field, cur, req))
+            warnings.warn(
+                "create_var(%r) requested %s %s but an existing var with "
+                "%s %s was returned" % (existing.name, field, req, field,
+                                        cur), RuntimeWarning)
 
     def create_parameter(self, **kwargs) -> Parameter:
         shape = kwargs.pop("shape")
@@ -272,7 +318,10 @@ class Block(object):
 
     def _infer_shape(self, op):
         """Best effort: real shapes come from the run. A failure is
-        recorded on the program (bounded), never raised."""
+        recorded on the program (bounded, the rest counted in
+        ``_shape_infer_dropped``; the PT013 rule reports both), never
+        raised; ``FLAGS.debug_shapes`` or ``PADDLE_TPU_DEBUG_SHAPES``
+        also warns at the failing op."""
         from . import registry
         opdef = registry.lookup(op.type)
         if opdef is None or opdef.infer_shape is None:
@@ -283,6 +332,14 @@ class Block(object):
             rec = self.program._shape_infer_failures
             if len(rec) < SHAPE_INFER_FAILURE_CAP:
                 rec.append((op.type, str(e)))
+            else:
+                self.program._shape_infer_dropped = getattr(
+                    self.program, "_shape_infer_dropped", 0) + 1
+            from ..flags import FLAGS
+            if os.environ.get("PADDLE_TPU_DEBUG_SHAPES") or \
+                    FLAGS.debug_shapes:
+                warnings.warn("shape inference failed for %s: %s"
+                              % (op, e), RuntimeWarning)
 
     def __repr__(self):
         lines = ["Block %d (parent %d):" % (self.idx, self.parent_idx)]
@@ -314,6 +371,20 @@ class Program(object):
 
     def current_block(self) -> Block:
         return self.blocks[self._current_block_idx]
+
+    def create_block(self, parent_idx=None) -> Block:
+        """A new block under ``parent_idx`` (default the current block),
+        made current; a control-flow op names it in a ``sub_block``
+        attr."""
+        parent = self._current_block_idx if parent_idx is None \
+            else parent_idx
+        blk = Block(self, len(self.blocks), parent)
+        self.blocks.append(blk)
+        self._current_block_idx = blk.idx
+        return blk
+
+    def rollback(self):
+        self._current_block_idx = self.current_block().parent_idx
 
     @property
     def random_seed(self):

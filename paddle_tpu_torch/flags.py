@@ -1,8 +1,8 @@
 """The knobs of the port (the ``serve_*`` part of ``paddle_tpu/flags.py``,
 its ``log_period``, ``conv_impl``, ``lstm_impl``, ``tune``,
 ``tune_cache_dir``, ``tune_budget``, ``memory_budget_gb``,
-``check_nan_inf``, ``pipeline`` and ``pipeline_depth``, same names and
-defaults).
+``check_nan_inf``, ``verify``, ``debug_shapes``, ``pipeline`` and
+``pipeline_depth``, same names and defaults).
 
 Read as attributes of :data:`FLAGS`. A value can be overridden per
 process through the environment, read at first use as the JAX package
@@ -82,10 +82,22 @@ _DEFS = {
         "the token loop). The class is advertised through /statz and "
         "/healthz; a replica of either class still serves every route"),
     "memory_budget_gb": (
-        0.0, float, "per-device memory budget (GiB) the PT034 check "
-        "(analysis/memory.py) holds the KV pool plus the weights "
-        "against. 0 = the card's memory (torch.cuda.mem_get_info); on "
-        "the CPU no budget is known and the check stays silent"),
+        0.0, float, "per-device memory budget (GiB) the memory checks "
+        "(analysis/memory.py) hold a step's predicted peak (PT030) and "
+        "the KV pool plus the weights (PT034) against. 0 = the card's "
+        "memory (torch.cuda.mem_get_info); on the CPU no budget is "
+        "known and the checks stay silent"),
+    "verify": (
+        False, _parse_bool, "run the paddle_tpu_torch.analysis static "
+        "verifier on every program before its first run (also enabled "
+        "by PADDLE_TPU_VERIFY=1): a malformed program raises "
+        "ProgramVerifyError with the full PT-code list instead of an "
+        "error deep in a lowering, and every new step key runs the "
+        "memory preflight (PT030) before its first run"),
+    "debug_shapes": (
+        False, _parse_bool, "warn at the failing append_op when shape "
+        "inference fails (also enabled by PADDLE_TPU_DEBUG_SHAPES); "
+        "the failure is recorded for PT013 either way"),
     "conv_impl": (
         "conv", str, "dense conv2d lowering: 'conv' (torch's conv2d) or "
         "'pallas3x3' (the hand-written 3x3 / s1 / p1 kernel for that "

@@ -39,6 +39,10 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
         w = helper.create_parameter(param_attr_, shape=param_shape,
                                     dtype=dtype)
         tmp = helper.create_variable_for_type_inference(dtype)
+        # the mul keeps its input's sequences (the reference's mul shares
+        # X's LoD); the JAX package drops the level here (ROADMAP.md
+        # Queue 3 #23)
+        tmp.lod_level = input_var.lod_level
         helper.append_op(type="mul", inputs={"X": [input_var], "Y": [w]},
                          outputs={"Out": [tmp]},
                          attrs={"x_num_col_dims": num_flatten_dims,
@@ -48,6 +52,7 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
         pre_bias = mul_results[0]
     else:
         pre_bias = helper.create_variable_for_type_inference(dtype)
+        pre_bias.lod_level = mul_results[0].lod_level
         helper.append_op(type="sum", inputs={"X": mul_results},
                          outputs={"Out": [pre_bias]})
     pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)

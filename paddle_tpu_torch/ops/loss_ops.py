@@ -56,15 +56,7 @@ def softmax_with_cross_entropy(ctx):
     ctx.set_output("Loss", loss.to(logits.dtype))
 
 
-def _infer_same_as_x(op, block):
-    xv = block._find_var_recursive(op.input("X")[0])
-    ov = block._find_var_recursive(op.output("Out")[0])
-    if xv is not None and ov is not None and xv.shape is not None:
-        ov.shape = xv.shape
-        ov.dtype = xv.dtype
-
-
-@register_op("square_error_cost", infer_shape=_infer_same_as_x)
+@register_op("square_error_cost")
 def square_error_cost(ctx):
     """(X - Y) ** 2, elementwise."""
     x = raw_data(ctx.input("X"))

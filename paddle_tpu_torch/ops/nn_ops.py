@@ -376,7 +376,7 @@ def bn_axes(x, layout):
     return axes, cshape
 
 
-@register_op("batch_norm")
+@register_op("batch_norm", infer_shape=_infer_same)
 def batch_norm(ctx):
     """Batch norm with the running statistics updated in the program:
     ``MeanOut``/``VarianceOut`` are the persistable ``Mean``/``Variance``
