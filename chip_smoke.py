@@ -332,7 +332,34 @@ Phases, in order; any failure exits non-zero at once:
    under the hook and the preflight, 16 conv3x3 forward and 16 dx
    launches, the plan's peak beside the measured one; ``python -m
    paddle_tpu_torch lint`` of the conv-net config with ``--memory
-   --batch 32`` exits 0 and prints the residency table.
+   --batch 32`` exits 0 and prints the residency table;
+16. resilience: the step watchdog, the numeric guardrails and the
+   profiler at phase 5's LM (GPT-2 small's widths, Adam 1e-3, 8 x 1024
+   tokens, compiled, ``checkpoint_dir`` under ``build/chip_smoke/``):
+   a clean pipelined pass of 3 batches ends with a save (its first two
+   batches' warm-up plus capture ms printed); a pass of 6 under
+   ``loss_skip_budget=2``, ``pipeline=True``, with a NaN written
+   through the scope into a weight before batch 2: batches 2 and 3
+   skipped (``nonfinite``), one ``guard_rewind``, batches 4-5 accepted
+   and finite, ``graph_captures`` unmoved and one replay a step, the
+   profiler's ``batches_skipped`` 2 and ``guard_rewinds`` 1, the flash
+   forward and backward launched; the accepted losses bit-identical to
+   a rerun of batches 4-5 from the same checkpoint on the same Trainer;
+   the rewind's ms and the step p50 with the guard on and off
+   (``RESILIENCE_TIMED`` pipelined steps each) printed; ``python -m
+   paddle_tpu_torch train`` of the fit_a_line config under
+   ``PADDLE_TPU_FLAGS=step_timeout_s=2`` and
+   ``PADDLE_TPU_FAULT_SPEC=trainer.step:delay:nth=3,delay=3600`` exits
+   75 within the deadline plus the clean run's wall plus 30 s, with one
+   ``step_hung`` line at ``pass0/batch2`` in ``events.jsonl`` and a
+   timeline of ``trainer.steps_hung`` 1; the same command without the
+   fault spec exits 0; a fresh LM Trainer trains 3 batches under a
+   watchdog of ``DEADLINE_MULTIPLE`` times the warm-up plus capture ms,
+   with an injected ``on_hang``, which must not fire; a fresh LM
+   Trainer trains 3 batches under ``profiler(timeline_path=...)`` and
+   one more under ``cuda_profiler``: the ``programs`` entry's flash
+   nodes equal phase 12's captured graph's, ``host_events`` holds the
+   3 runs, and the trace names the three flash kernels.
 
 Since phase 15's slice every path of the Executor frees each value at
 its last use, so phases 1-14 run on the freeing Executor and their
@@ -5779,32 +5806,9 @@ def _kept_graph_class():
 
 def _graph_kernel_names(graph):
     """The function name of every kernel node of a captured graph, read
-    from the driver."""
-    import ctypes
-    cu = ctypes.CDLL("libcuda.so.1")
-    g = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(g, None, ctypes.byref(n)):
-        fail("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    if cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)):
-        fail("cuGraphGetNodes failed")
-    names = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
-            fail("cuGraphNodeGetType failed")
-        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
-            continue
-        params = (ctypes.c_char * 256)()  # CUDA_KERNEL_NODE_PARAMS_v2
-        if cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params):
-            fail("cuGraphKernelNodeGetParams_v2 failed")
-        func = ctypes.c_void_p.from_buffer(params).value
-        name = ctypes.c_char_p()
-        if cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)):
-            fail("cuFuncGetName failed")
-        names.append(name.value.decode())
-    return names
+    from the driver (``profiler.graph_kernel_names``)."""
+    from paddle_tpu_torch import profiler
+    return profiler.graph_kernel_names(graph)
 
 
 def _graph_symbol_nodes(graph, delta):
@@ -6098,11 +6102,8 @@ def _compiled_rnn(dev, cell):
 
 def _pool_bytes(pool):
     """Bytes the caching allocator holds in a graph memory pool."""
-    if pool is None:
-        return 0
-    return sum(seg["total_size"] for seg in
-               torch.cuda.memory._snapshot()["segments"]
-               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+    from paddle_tpu_torch import profiler
+    return profiler.graph_pool_bytes(pool)
 
 
 def _ragged_feeds(trainer, rng):
@@ -6374,6 +6375,9 @@ def phase_compiled(dev, root):
         summary[label]["program_ops"] = rec.get("program_ops")
         if "eager_vs_eager" in rec:
             summary[label]["eager_vs_eager"] = rec["eager_vs_eager"]
+        summary[label]["graph_kernel_nodes"] = {
+            sym: n[0] for sym, n in
+            rec["compiled"].get("graph_kernel_nodes", {}).items()}
     summary["ragged"] = _compiled_ragged(dev)
     summary["pipeline"] = _compiled_pipeline(dev)
     summary["hybrid"] = _compiled_hybrid(dev, work)
@@ -6385,6 +6389,8 @@ def phase_compiled(dev, root):
     plain = {label: {"step_ms_p50": summary[label]["compiled"]["step_ms_p50"],
                      "graph_kernel_nodes_total":
                          summary[label]["graph_kernel_nodes_total"],
+                     "graph_kernel_nodes":
+                         summary[label]["graph_kernel_nodes"],
                      "program_ops": summary[label].get("program_ops")}
              for label in ("lm", "resnet50")}
     return paths, plain
@@ -8066,6 +8072,360 @@ def phase_memory(dev, root, plain):
     return paths
 
 
+# -- phase 16 -----------------------------------------------------------------
+
+# Phase 16 (resilience): the LM's clean pass, its guarded pass with a NaN
+# written into a weight before batch RESILIENCE_NAN_AT, the step timings
+RESILIENCE_CLEAN = 3
+RESILIENCE_GUARDED = 6
+RESILIENCE_NAN_AT = 2
+RESILIENCE_BUDGET = 2
+RESILIENCE_TIMED = 6
+# the hang subprocess's deadline, and the deadline of the LM's watched
+# pass as a multiple of its first two batches' warm-up plus capture
+HANG_TIMEOUT_S = 2
+DEADLINE_MULTIPLE = 3.0
+FLASH_SYMBOLS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                 "flash_bwd_dq_kernel")
+
+
+def _res_lm(dev, checkpoint_dir=None):
+    """The GPT-2-small LM of phase 13, enough distinct batches for the
+    phase: (spec, trainer, main program, the batches)."""
+    from paddle_tpu_torch.configs import tiny_lm
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.trainer import Trainer
+    widths = dict(vocab=GPT2_SMALL["vocab_size"], seq=GPT2_SMALL["max_seq"],
+                  hidden=GPT2_SMALL["hidden"],
+                  num_layers=GPT2_SMALL["num_layers"],
+                  num_heads=GPT2_SMALL["num_heads"],
+                  ffn_mult=GPT2_SMALL["ffn_mult"])
+    n = RESILIENCE_CLEAN + RESILIENCE_GUARDED
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        spec = tiny_lm.model(batch=TRAIN_BATCH, samples=n * TRAIN_BATCH,
+                             learning_rate=TRAIN_LR, seed=0, **widths)
+        trainer = Trainer(spec["cost"], spec["optimizer"],
+                          spec["feed_list"], device=dev,
+                          checkpoint_dir=checkpoint_dir)
+    return spec, trainer, main_prog, list(spec["reader"]())
+
+
+def _res_reader(batches):
+    return lambda: iter(list(batches))
+
+
+def _res_pass(trainer, batches, pipeline=True, nan_into=None):
+    """One pass through ``Trainer.train``: ({batch: loss} as the handler
+    reads them, [ms from the pass start to each EndIteration], the
+    skipped batches' losses included). ``nan_into`` names a weight that
+    gets a NaN through the scope before batch RESILIENCE_NAN_AT."""
+    from paddle_tpu_torch.core.scope import global_scope
+    losses, marks = {}, []
+    t0 = [None]
+
+    def handler(e):
+        name = type(e).__name__
+        if name == "BeginPass":
+            t0[0] = time.perf_counter()
+        elif name == "BeginIteration" and nan_into and \
+                e.batch_id == RESILIENCE_NAN_AT:
+            global_scope().find_var(nan_into)[0, 0] = float("nan")
+        elif name == "EndIteration":
+            losses[e.batch_id] = e.cost          # a sync point
+            marks.append((time.perf_counter() - t0[0]) * 1e3)
+
+    trainer.train(_res_reader(batches), num_passes=1, event_handler=handler,
+                  pipeline=pipeline)
+    return losses, marks
+
+
+def _res_step_ms(trainer, batches, guarded):
+    """``batches`` pipelined steps of a captured key, the guard on or
+    off, the handler reading nothing: the p50 of the per-step intervals
+    between BeginIterations and the pass's mean step (its wall, the
+    pass-end sync included, over the steps)."""
+    from paddle_tpu_torch.flags import flags_guard
+    stamps = []
+
+    def handler(e):
+        if type(e).__name__ == "BeginIteration":
+            stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with flags_guard(loss_skip_budget=RESILIENCE_BUDGET if guarded else 0):
+        trainer.train(_res_reader(batches), num_passes=1,
+                      event_handler=handler, pipeline=True)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    gaps = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    return {"step_ms_p50": float(np.median(gaps)),
+            "step_ms_mean": wall / len(batches), "steps": len(batches),
+            "gaps_ms": gaps, "first_step_from_start_ms":
+                (stamps[0] - t0) * 1e3}
+
+
+def _res_guarded(dev, work):
+    """Step a: the guarded LM. Returns (record, launches of the path,
+    the warm-up plus capture ms)."""
+    from paddle_tpu_torch import kernels, profiler
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.flags import flags_guard
+    from paddle_tpu_torch.resilience import events
+    ck = _fresh_dir(os.path.join(work, "lm_guarded"))
+    clean = os.path.join(work, "lm_clean_copy")
+    shutil.rmtree(clean, ignore_errors=True)
+    rec = {}
+    with scope_guard(Scope()):
+        spec, tr, prog, batches = _res_lm(dev, checkpoint_dir=ck)
+        tr._maybe_init()
+        weight = sorted(p.name for p in
+                        prog.global_block().all_parameters()
+                        if len(p.shape) == 2)[0]
+        kernels.reset_launches()
+        losses0, marks0 = _res_pass(tr, batches[:RESILIENCE_CLEAN])
+        # batch 0 ran the warm-up, batch 1 the capture and its replay
+        warm_capture_ms = marks0[1]
+        rec["clean_pass"] = {"losses": [losses0[b] for b in sorted(losses0)],
+                             "warmup_plus_capture_ms": warm_capture_ms,
+                             "save_ms": tr._last_ckpt_secs * 1e3}
+        shutil.copytree(ck, clean)
+        events.clear_events()
+        profiler.reset_trainer_counters()
+        before = {k: tr.exe.stats[k] for k in _EXE_KEYS}
+        rewinds = []
+        real_rewind = tr._guard_rewind
+
+        def timed_rewind():
+            t0 = time.perf_counter()
+            ok = real_rewind()
+            torch.cuda.synchronize()
+            rewinds.append((time.perf_counter() - t0) * 1e3)
+            return ok
+
+        tr._guard_rewind = timed_rewind
+        with flags_guard(loss_skip_budget=RESILIENCE_BUDGET):
+            losses, marks = _res_pass(
+                tr, batches[RESILIENCE_CLEAN:], nan_into=weight)
+        del tr._guard_rewind
+        delta = _exe_delta(tr.exe, before)
+        trail = [(e["kind"], e.get("reason"), e["pass_id"], e["batch_id"])
+                 for e in events.events()
+                 if e["kind"] in ("batch_skipped", "guard_rewind",
+                                  "checkpoint_skipped_tainted")]
+        counters = profiler.trainer_counters()
+        accepted = [losses[b] for b in range(RESILIENCE_NAN_AT + 2,
+                                             RESILIENCE_GUARDED)]
+        # the same batches again, from the same checkpoint, same Trainer
+        tr.checkpoint_dir = clean
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr._load_checkpoint_state()
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        tr.checkpoint_dir = None
+        rerun, _ = _res_pass(
+            tr, batches[RESILIENCE_CLEAN + RESILIENCE_NAN_AT + 2:])
+        rerun = [rerun[b] for b in sorted(rerun)]
+        timed = batches[RESILIENCE_CLEAN:RESILIENCE_CLEAN + RESILIENCE_TIMED]
+        rec["steps_guard_off"] = _res_step_ms(tr, timed, guarded=False)
+        rec["steps_guard_on"] = _res_step_ms(tr, timed, guarded=True)
+        rec["steps_guard_off_again"] = _res_step_ms(tr, timed, guarded=False)
+        launches = kernels.launch_counts()
+        tr.exe.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(clean, ignore_errors=True)
+    shutil.rmtree(ck, ignore_errors=True)
+    n = RESILIENCE_NAN_AT
+    rec.update({"trail": trail, "trainer_counters": counters,
+                "losses": [losses[b] for b in sorted(losses)],
+                "accepted_after_rewind": accepted, "rerun": rerun,
+                "executor_delta": delta, "rewind_ms": rewinds,
+                "reload_ms": load_ms,
+                "flash_launches": {k: launches[k] for k in (
+                    "flash_attention_fwd", "flash_attention_bwd_dkv",
+                    "flash_attention_bwd_dq")}})
+    want_trail = [("batch_skipped", "nonfinite", 0, n),
+                  ("batch_skipped", "nonfinite", 0, n + 1),
+                  ("guard_rewind", "nonfinite", 0, n + 1)]
+    if trail != want_trail:
+        fail("phase 16: the guard's trail %s, expected %s"
+             % (trail, want_trail))
+    if counters != {"batches_skipped": 2.0, "guard_rewinds": 1.0}:
+        fail("phase 16: profiler.trainer_counters() %s" % counters)
+    if not all(math.isfinite(v) for v in accepted) or len(rewinds) != 1:
+        fail("phase 16: after the rewind the losses %s (%d rewinds)"
+             % (accepted, len(rewinds)))
+    # the rewind's load and the pass end's save are programs of host ops,
+    # each a hybrid run on the Trainer's Executor
+    if delta != {"jit_runs": RESILIENCE_GUARDED, "eager_runs": 0,
+                 "hybrid_runs": 2, "graph_captures": 0,
+                 "graph_replays": RESILIENCE_GUARDED}:
+        fail("phase 16: the guarded pass's runs %s: a recapture, a "
+             "fallback, or not one replay a step" % delta)
+    if rerun != accepted:
+        fail("phase 16: the accepted losses after the rewind %s differ "
+             "from a rerun from the same checkpoint %s" % (accepted, rerun))
+    if not all(rec["flash_launches"].values()):
+        fail("phase 16: the flash kernels did not launch on the guarded "
+             "path: %s" % rec["flash_launches"])
+    return rec, launches, warm_capture_ms
+
+
+def _res_cli(root, work, spec):
+    """One ``train`` subprocess of the fit_a_line config on the card:
+    (exit code, wall s, the state dir, stderr's tail)."""
+    state = _fresh_dir(os.path.join(work, "hang_state"))
+    env = dict(os.environ, PYTHONPATH=root,
+               PADDLE_TPU_FLAGS="step_timeout_s=%d" % HANG_TIMEOUT_S,
+               PADDLE_TPU_ELASTIC_STATE=state)
+    env.pop("PADDLE_TPU_FAULT_SPEC", None)
+    if spec:
+        env["PADDLE_TPU_FAULT_SPEC"] = spec
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch", "train",
+         os.path.join("paddle_tpu_torch", "configs", "fit_a_line.py")],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    return out.returncode, time.monotonic() - t0, state, out.stderr[-3000:]
+
+
+def _res_hang(root, work):
+    """Step b: a wedged step of the CLI's Trainer exits 75."""
+    rc0, wall0, state0, err0 = _res_cli(root, work, None)
+    if rc0 != 0 or os.path.exists(os.path.join(state0, "events.jsonl")):
+        fail("phase 16: train without the fault exited %d:\n%s" % (rc0, err0))
+    rc, wall, state, err = _res_cli(
+        root, work, "trainer.step:delay:nth=3,delay=3600")
+    rec = {"clean_rc": rc0, "clean_wall_s": wall0, "hang_rc": rc,
+           "hang_wall_s": wall, "deadline_s": HANG_TIMEOUT_S}
+    if rc != 75 or wall > HANG_TIMEOUT_S + wall0 + 30:
+        fail("phase 16: the wedged step exited %d after %.1f s (clean run "
+             "%.1f s):\n%s" % (rc, wall, wall0, err))
+    rows = [json.loads(ln) for ln in
+            open(os.path.join(state, "events.jsonl"))]
+    hung = [r for r in rows if r["kind"] == "step_hung"]
+    if len(hung) != 1 or hung[0]["label"] != "pass0/batch2":
+        fail("phase 16: step_hung events %s" % hung)
+    with open(hung[0]["timeline"]) as f:
+        art = json.load(f)
+    rec["timeline"] = os.path.basename(hung[0]["timeline"])
+    rec["timeline_trainer"] = art.get("trainer")
+    if art.get("schema") != "paddle_tpu.timeline.v1" or \
+            art.get("trainer", {}).get("steps_hung") != 1.0:
+        fail("phase 16: the hang's timeline: schema %s, trainer %s"
+             % (art.get("schema"), art.get("trainer")))
+    shutil.rmtree(state, ignore_errors=True)
+    return rec
+
+
+def _res_deadline(dev, warm_capture_ms):
+    """Step c: a fresh LM Trainer under a watchdog of DEADLINE_MULTIPLE
+    times the warm-up plus capture, with an injected on_hang."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import trainer as trainer_mod
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.flags import flags_guard
+    from paddle_tpu_torch.resilience.watchdog import StepWatchdog
+    fired = []
+    deadline = DEADLINE_MULTIPLE * warm_capture_ms / 1e3
+    real = trainer_mod.StepWatchdog
+    trainer_mod.StepWatchdog = lambda t, **kw: StepWatchdog(
+        t, on_hang=fired.append, poll_s=0.02)
+    try:
+        with scope_guard(Scope()):
+            spec, tr, prog, batches = _res_lm(dev)
+            tr._maybe_init()
+            kernels.reset_launches()
+            with flags_guard(step_timeout_s=deadline):
+                losses, marks = _res_pass(tr, batches[:RESILIENCE_CLEAN],
+                                          pipeline=False)
+            launches = kernels.launch_counts()
+            tr.exe.close()
+    finally:
+        trainer_mod.StepWatchdog = real
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"step_timeout_s": deadline, "multiple": DEADLINE_MULTIPLE,
+           "fired": fired, "batch_end_ms": marks}
+    if fired:
+        fail("phase 16: the watchdog fired on the LM's pass: %s" % fired)
+    return rec, launches
+
+
+def _res_profiler(dev, work, plain):
+    """Step d: profiler(timeline_path=...) around 3 compiled LM steps of a
+    fresh Trainer, cuda_profiler around one more."""
+    from paddle_tpu_torch import kernels, profiler
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    timeline = os.path.join(work, "lm_timeline.json")
+    trace = os.path.join(work, "lm_trace.json")
+    with scope_guard(Scope()):
+        spec, tr, prog, batches = _res_lm(dev)
+        tr._maybe_init()
+        kernels.reset_launches()
+        with profiler.profiler(timeline_path=timeline):
+            tr.train(_res_reader(batches[:3]), num_passes=1, pipeline=False)
+        with profiler.cuda_profiler(output_file=trace):
+            tr.train(_res_reader(batches[3:4]), num_passes=1,
+                     pipeline=False)
+        launches = kernels.launch_counts()
+        uid = prog._uid
+        tr.exe.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(timeline) as f:
+        art = json.load(f)
+    with open(trace) as f:
+        text = f.read()
+    entry = art["programs"].get("program_%d" % uid, {})
+    nodes = {s: entry.get("kernel_nodes", {}).get(s, 0)
+             for s in FLASH_SYMBOLS}
+    want = {s: plain.get("lm", {}).get("graph_kernel_nodes", {}).get(s)
+            for s in FLASH_SYMBOLS}
+    runs = [r for r in art["host_events"]
+            if r["name"] == "program_%d_run" % uid]
+    rec = {"programs_flash_nodes": nodes, "phase12_flash_nodes": want,
+           "kernel_nodes_total": entry.get("kernel_nodes_total"),
+           "pool_bytes": entry.get("pool_bytes"),
+           "feed_shapes": entry.get("feed_shapes"),
+           "launches_a_replay": {k: v for k, v in
+                                 entry.get("launches", {}).items()},
+           "host_runs": runs, "trace_bytes": len(text),
+           "trace_names": {s: text.count(s) for s in FLASH_SYMBOLS},
+           "timeline_sections": sorted(art)}
+    if nodes != want or not all(nodes.values()):
+        fail("phase 16: the programs entry's flash nodes %s, phase 12's "
+             "graph %s (entry %s)" % (nodes, want, entry))
+    if not runs or runs[0]["calls"] != 3:
+        fail("phase 16: host_events %s" % art["host_events"])
+    if not all(rec["trace_names"].values()):
+        fail("phase 16: the trace names %s" % rec["trace_names"])
+    os.remove(trace)
+    return rec, launches
+
+
+def phase_resilience(dev, root, plain):
+    """Phase 16: the step watchdog, the numeric guardrails and the
+    profiler on the LM. ``plain`` holds phase 12's LM record. Returns
+    {path: launches}."""
+    t0 = time.monotonic()
+    work = _fresh_dir(os.path.join(root, "build", "chip_smoke", "resilience"))
+    paths = {}
+    guarded, paths["resilience_lm_guarded"], warm = _res_guarded(dev, work)
+    log(json.dumps({"resilience_guarded": guarded}))
+    deadline, paths["resilience_lm_deadline"] = _res_deadline(dev, warm)
+    log(json.dumps({"resilience_deadline": deadline}))
+    prof, paths["resilience_lm_profiled"] = _res_profiler(dev, work, plain)
+    log(json.dumps({"resilience_profiler": prof}))
+    log(json.dumps({"resilience_hang": _res_hang(root, work)}))
+    log(json.dumps({"resilience_wall_s": time.monotonic() - t0,
+                    "card": card_line()}))
+    return paths
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -8124,6 +8484,7 @@ def main():
     checkpoint_paths = timed(13, phase_checkpoint, dev, root)
     optim_paths = timed(14, phase_optimization, dev, plain_steps)
     memory_paths = timed(15, phase_memory, dev, root, plain_steps)
+    resilience_paths = timed(16, phase_resilience, dev, root, plain_steps)
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
     paths = {"serve": serve_launches, **spec_paths, **disagg_paths,
              "train": train5["launches"],
@@ -8133,7 +8494,7 @@ def main():
              "tuned_train": tuned_launches,
              "convnet_conv3x3_consult": consult_launches, **amp_paths,
              **compiled_paths, **checkpoint_paths, **optim_paths,
-             **memory_paths}
+             **memory_paths, **resilience_paths}
     for name, entry in kernels.items():
         # each main path is read with the counts set to 0 just before it
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -36,8 +36,13 @@ path, over shared kernels, with AMP on the training paths:
   lstm, gru) and ``layers/sequence.py``;
 - the autotune path: ``tune/`` (search spaces over the kernels'
   compiled tilings, the autotune loop, the CRC-checked winner cache,
-  the dispatch counters), its consult in ``mul`` and ``conv2d``, and
-  ``resilience/`` (the event log, durable events and the fault sites);
+  the dispatch counters) and its consult in ``mul`` and ``conv2d``;
+- resilience and observability: ``resilience/`` (the event log, durable
+  events, the fault sites and the ``PADDLE_TPU_FAULT_SPEC`` grammar, the
+  step watchdog and the numeric guardrails the Trainer arms under
+  ``FLAGS.step_timeout_s`` / ``loss_skip_budget``) and ``profiler.py``
+  (every subsystem's counters, the timeline artifact, a
+  ``torch.profiler`` trace of the card);
 - ``kernels/``: hand-written CUDA kernels (paged-attention decode,
   flash-attention forward and backward, the 3x3 / s1 / p1 convolution,
   the fused LSTM and GRU recurrences, the blocked matmul), each beside

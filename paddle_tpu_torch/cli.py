@@ -14,7 +14,14 @@ prints ``pass P batch B cost C`` for every K-th batch and a line at the
 end of each pass. With ``--checkpoint_dir`` the run resumes from the
 newest state in DIR, saves there at the end of each pass, and a SIGTERM
 lets the running batch finish, saves, prints ``preempted at pass P
-batch B: checkpoint in DIR`` and exits 0.
+batch B: checkpoint in DIR`` and exits 0. ``PADDLE_TPU_FLAGS=
+step_timeout_s=S`` arms the step watchdog (a step wedged past S
+seconds writes a durable ``step_hung`` line to
+``$PADDLE_TPU_ELASTIC_STATE/events.jsonl`` and the profiler's timeline
+beside it, and exits 75); ``loss_skip_budget=B`` (and
+``loss_spike_factor=F``) the numeric guardrails;
+``PADDLE_TPU_FAULT_SPEC=trainer.step:delay:nth=3,delay=3600`` seeds a
+wedged third step.
 
     python -m paddle_tpu_torch serve <artifact_dir> --port 0 [--device cuda]
         [--draft_dir DIR] [--spec_k K] [--prefix_sharing]
@@ -479,6 +486,7 @@ def cmd_tune(args):
         return 0
     timer = {"wall": tune_mod.wall_timer, "model": tune_mod.model_timer,
              "auto": lambda: tune_mod.default_timer(device)}[args.timer]()
+    from . import profiler as _prof
     rows, failed = [], 0
     cache = tune_mod.WinnerCache()
     print("%-10s %-44s %-34s %12s %6s" % ("kernel", "signature", "winner",
@@ -486,6 +494,8 @@ def cmd_tune(args):
     for kernel, key in pops:
         res = tune_mod.autotune(kernel, key, timer=timer, budget=budget,
                                 cache=cache, device=device)
+        _prof.update_tune_counters(tune_loops=1,
+                                   tune_candidates=len(res.records))
         rows.append(res.row())
         if not res.ok:
             failed += 1

@@ -77,7 +77,17 @@ their tensors and the rest from declared shapes, and a predicted peak
 above ``FLAGS.memory_budget_gb`` (else the card's memory) raises one
 ProgramVerifyError with the residency table before the step allocates
 anything; ``stats["mem_predicted_peak_bytes"]`` holds the last
-prediction.
+prediction, and the profiler's memory section counts the preflight
+beside the live bytes then (``torch.cuda.memory_allocated`` on the
+card, the scope's tensors' bytes on the CPU).
+
+While the profiler is on (``paddle_tpu_torch.profiler``), ``run``
+records each program run's wall time (the card synchronized first),
+``trace_ops`` each op's host span (phase ``trace`` inside a capture),
+and a compiled step captured then keeps its graph's nodes, from which
+its ``programs`` entry is read after its first replay: the kernel nodes
+by symbol, the pool's bytes, the feed shapes and the launches a replay.
+A materialized ``AsyncFetch`` counts in the profiler's pipeline section.
 
 Not ported yet (ROADMAP.md Queue 1 item 6, which needs collectives and a
 mesh): the explicit-comm and distributed paths and the sharding
@@ -91,6 +101,7 @@ import itertools
 import logging
 import os
 import threading
+import time
 import warnings
 import weakref
 from typing import Any, Dict, List
@@ -98,6 +109,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from .. import profiler as _prof
 from ..device import DEFAULT_DEVICE, resolve_device
 from . import ir, registry, types
 from .lod import LoDTensor
@@ -246,9 +258,14 @@ def trace_ops(block: ir.Block, env: Dict[str, Any], generator, device,
     ``value_hook(name, value)`` sees every value an op sets (the NaN/Inf
     scan). ``release``: one tuple of names for each op of the block, the
     names dropped from ``env`` after that op
-    (:func:`analysis.memory.release_schedule`); None keeps every value."""
+    (:func:`analysis.memory.release_schedule`); None keeps every value.
+    While profiling is on, each op's host span is recorded
+    (``profiler.record_op_event``; on the card a span is the launch, not
+    the kernel)."""
+    timing = _prof.profiler_enabled()
     for i, op in enumerate(block.ops):
         opdef = registry.lookup_checked(op.type)
+        t0 = time.perf_counter() if timing else 0.0
         try:
             opdef.lower(LowerContext(op, env, generator, block, device,
                                      value_hook))
@@ -257,6 +274,10 @@ def trace_ops(block: ir.Block, env: Dict[str, Any], generator, device,
                        % (op.type, op.input_arg_names,
                           op.output_arg_names))
             raise
+        if timing:
+            _prof.record_op_event(op.type, op.output_arg_names[0]
+                                  if op.output_arg_names else op.type,
+                                  t0, time.perf_counter())
         if release is not None:
             for n in release[i]:
                 env.pop(n, None)
@@ -512,7 +533,8 @@ class AsyncFetch(object):
 
     - ``value()`` / ``numpy()`` / ``float(h)`` / ``np.asarray(h)`` copy it
       to the host once, at first access, and count one
-      ``fetch_sync_count`` on the Executor;
+      ``fetch_sync_count`` on the Executor and in the profiler's
+      pipeline counters;
     - ``block()`` waits for the event without a copy;
     - ``ready`` queries the event without waiting.
     """
@@ -555,6 +577,7 @@ class AsyncFetch(object):
             self._value = self._event = None
             if self._stats is not None:
                 self._stats["fetch_sync_count"] += 1
+            _prof.update_pipeline_counters(fetch_sync_count=1)
         return self._host
 
     def numpy(self):
@@ -582,7 +605,8 @@ class _Step(object):
     kernel launches of one replay."""
 
     __slots__ = ("runs", "ready", "draws", "graph", "pool", "feed_bufs",
-                 "state_names", "state_bufs", "outs", "extra", "delta")
+                 "state_names", "state_bufs", "outs", "extra", "delta",
+                 "kept", "prof")
 
     def __init__(self):
         self.runs = 0
@@ -596,6 +620,10 @@ class _Step(object):
         self.outs = ()
         self.extra = {}
         self.delta = {}
+        # the graph kept its nodes (captured while profiling was on), and
+        # the profiler's programs entry recorded from it
+        self.kept = False
+        self.prof = None
 
     def free(self):
         if self.graph is not None:
@@ -722,6 +750,8 @@ class Executor(object):
         block = program.global_block()
         host = self._program_facts(program).host
         nan_scan = self.check_nan_inf
+        timing = _prof.profiler_enabled()
+        t0 = time.perf_counter() if timing else 0.0
         with torch.no_grad():
             if (host or not use_jit or nan_scan
                     or program._uid in self._force_eager):
@@ -751,6 +781,11 @@ class Executor(object):
             else:
                 outs = self._run_compiled(program, feed, fetch_names, scope,
                                           repeat)
+        if timing:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            _prof.record_run("program_%d_run" % program._uid,
+                             time.perf_counter() - t0)
         from .. import tune
         self.stats.update(tune.counters())
         if not sync:
@@ -763,6 +798,7 @@ class Executor(object):
 
     # -- the per-op path ------------------------------------------------------
     def _run_eager(self, program, feed, fetch_names, scope, nan_scan=False):
+        _prof.set_phase("eager")
         block = program.global_block()
         env = dict(feed)
         for n in self._state_inputs(program, scope, feed):
@@ -929,6 +965,7 @@ class Executor(object):
                 # the CPU ran the step while standing in for the capture
                 repeat -= 1
                 if repeat == 0:
+                    self._profile_step(entry, key, feed)
                     return [_own(o) for o in outs]
         for n, v in feed.items():
             _copy_in(entry.feed_bufs[n], v)
@@ -948,7 +985,31 @@ class Executor(object):
         for n, v in extra.items():
             # out of the shared pool, which another graph's replay reuses
             scope.set_var(n, _own(v))
+        self._profile_step(entry, key, feed)
         return [_own(o) for o in outs]
+
+    @staticmethod
+    def _profile_step(entry, key, feed):
+        """While profiling is on, the profiler's ``programs`` entry of a
+        compiled step (``paddle_tpu/core/executor.py:1621-1646``): taken
+        once, after the first replay, from a graph captured with its nodes
+        kept, then put back at every later replay so that a
+        ``reset_profiler`` between sessions keeps it. Label
+        ``program_<uid>`` (a hybrid segment's ``program_<uid>_seg<i>``)."""
+        if not _prof.profiler_enabled():
+            return
+        label = "program_%d" % key[1]
+        if len(key) > 4 and key[3] == "hyb":
+            label += "_seg%d" % key[4]
+        if entry.prof is None:
+            entry.prof = _prof.record_program_analysis(
+                label, graph=entry.graph if entry.kept else None,
+                pool=entry.pool,
+                feed_shapes={n: tuple(raw_data(v).shape)
+                             for n, v in feed.items()},
+                launches=entry.delta)
+        else:
+            _prof.put_program_analysis(label, entry.prof)
 
     @staticmethod
     def _static_env(entry):
@@ -995,13 +1056,20 @@ class Executor(object):
         saved_gen = generator.get_state() if generator is not None else None
         from .. import kernels
         counts0 = kernels.launch_counts()
-        graph = torch.cuda.CUDAGraph() if cuda else None
+        # while profiling, the graph keeps its nodes for the profiler's
+        # programs entry (it is instantiated at its first replay)
+        entry.kept = cuda and _prof.profiler_enabled()
+        graph = (torch.cuda.CUDAGraph(entry.kept) if entry.kept
+                 else torch.cuda.CUDAGraph()) if cuda else None
         error = None
         if not cuda:
+            _prof.set_phase("trace")
             try:
                 outs, extra = body(env, entry.state_bufs)
             except Exception as e:
                 error = e
+            finally:
+                _prof.set_phase("eager")
         else:
             if entry.draws:
                 if not hasattr(graph, "register_generator_state"):
@@ -1010,9 +1078,13 @@ class Executor(object):
                         "this torch cannot register a generator with a "
                         "graph (CUDAGraph.register_generator_state)")
                 graph.register_generator_state(generator)
-            with CAPTURE_LOCK:
-                error, outs, extra = self._capture_on_card(
-                    graph, env, entry.state_bufs, body)
+            _prof.set_phase("trace")
+            try:
+                with CAPTURE_LOCK:
+                    error, outs, extra = self._capture_on_card(
+                        graph, env, entry.state_bufs, body)
+            finally:
+                _prof.set_phase("eager")
         counts1 = kernels.launch_counts()
         if cuda or error is not None:
             kernels.restore_launches(counts0)
@@ -1115,6 +1187,7 @@ class Executor(object):
         (``paddle_tpu/core/executor.py:925``). A segment whose capture
         fails finishes this run on the per-op path from that segment on,
         so the host ops already run do not run again."""
+        _prof.set_phase("eager")
         block = program.global_block()
         env = dict(feed)
         state_names = self._state_inputs(program, scope, feed)
@@ -1269,9 +1342,32 @@ class Executor(object):
             context="executor memory preflight (before the step's first "
                     "run, program %d)" % program._uid)
         self.stats["mem_predicted_peak_bytes"] = plan.peak_bytes
+        # the measured half of the predicted-vs-actual pair of the
+        # timeline's memory section (paddle_tpu/core/executor.py:1746):
+        # the live bytes at this step boundary, before the step allocates
+        _prof.update_memory_counters(
+            mem_preflights=1, mem_predicted_peak_bytes=plan.peak_bytes,
+            mem_measured_live_bytes=self._live_bytes(scope))
         if len(self._preflighted) > 256:
             self._preflighted.clear()
         self._preflighted.add(key)
+
+    def _live_bytes(self, scope):
+        """The memory preflight's measured live bytes: on the card
+        ``torch.cuda.memory_allocated``; on the CPU the bytes of the
+        scope's tensors (its parents' too), each storage once."""
+        if self.device.type == "cuda":
+            return torch.cuda.memory_allocated(self.device)
+        seen, total, sc = set(), 0, scope
+        while sc is not None:
+            for n in sc.local_var_names():
+                data = raw_data(sc.find_var(n))
+                if isinstance(data, torch.Tensor) and \
+                        _storage(data) not in seen:
+                    seen.add(_storage(data))
+                    total += _nbytes(data)
+            sc = sc.parent
+        return total
 
     # -- helpers --------------------------------------------------------------
     def _release(self, program, fetch_names):

@@ -1,8 +1,9 @@
 """The knobs of the port (the ``serve_*`` part of ``paddle_tpu/flags.py``,
 its ``log_period``, ``conv_impl``, ``lstm_impl``, ``tune``,
 ``tune_cache_dir``, ``tune_budget``, ``memory_budget_gb``,
-``check_nan_inf``, ``verify``, ``debug_shapes``, ``pipeline`` and
-``pipeline_depth``, same names and defaults).
+``check_nan_inf``, ``verify``, ``debug_shapes``, ``pipeline``,
+``pipeline_depth``, ``step_timeout_s``, ``loss_skip_budget`` and
+``loss_spike_factor``, same names and defaults).
 
 Read as attributes of :data:`FLAGS`. A value can be overridden per
 process through the environment, read at first use as the JAX package
@@ -144,6 +145,44 @@ _DEFS = {
     "pipeline_depth": (
         2, int, "device feed slots the pipeline reuses in a ring (2 = "
         "double buffering; below 1 disables the pipeline)"),
+    "step_timeout_s": (
+        0.0, float, "per-step deadline for the Trainer loop's hang "
+        "watchdog (paddle_tpu_torch.resilience.watchdog). 0 (default) = "
+        "off. When set, a monitor thread checks that the training loop "
+        "makes progress (every batch and every declared materialization "
+        "point re-arms the deadline); a step that exceeds it (a stalled "
+        "reader, a hung card) records a durable step_hung event, writes "
+        "the profiler timeline artifact next to the elastic state dir, "
+        "and exits the process with code 75 (EX_TEMPFAIL) so a "
+        "supervisor classifies the death as TRANSIENT and restarts it "
+        "from the last checkpoint: a hang becomes a restart. Size it to "
+        "several times the slowest legitimate step. Before it arms the "
+        "deadline train() builds every kernel library (on a CUDA device) "
+        "and makes the process's first autograd call, so the deadline "
+        "covers the first batch's warm-up and capture but neither an nvcc "
+        "build nor torch's lazy import"),
+    "loss_spike_factor": (
+        0.0, float, "numeric guardrail "
+        "(paddle_tpu_torch.resilience.guardrails): a batch whose loss "
+        "exceeds this factor times the running median of recent accepted "
+        "losses is treated like a non-finite loss: the batch is SKIPPED "
+        "(not counted into pass metrics, recorded as a batch_skipped "
+        "event) under the loss_skip_budget. 0 (default) = spike detection "
+        "off (non-finite detection is governed by loss_skip_budget "
+        "alone). The comparison starts after 3 accepted batches; values "
+        "below ~2 will false-positive on normal early-training noise"),
+    "loss_skip_budget": (
+        0, int, "numeric guardrail: how many CONSECUTIVE batches the "
+        "Trainer loop may skip (non-finite loss, or a spike past "
+        "loss_spike_factor) before escalating. 0 (default) = guardrails "
+        "off: a non-finite loss flows through exactly as before "
+        "(check_nan_inf keeps its per-op raise semantics). On budget "
+        "exhaustion the loop REWINDS model + optimizer state to the last "
+        "checkpoint once per budget window and keeps training; a second "
+        "consecutive exhaustion with no accepted batch in between gives "
+        "up with FloatingPointError. Each batch's loss is materialized "
+        "for the check: under pipeline=True the guardrail check is a "
+        "declared sync point"),
 }
 
 

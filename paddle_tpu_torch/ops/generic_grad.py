@@ -24,7 +24,18 @@ import torch
 from ..core import registry
 from ..core.executor import FunctionalContext, raw_data, with_lod_of
 
-__all__ = []
+__all__ = ["warm_up"]
+
+
+def warm_up():
+    """Pay once, outside any step, what the process's first
+    ``torch.autograd.grad`` with cotangents costs on the host: torch
+    imports its symbolic-shape module (and sympy) there, about 4.3 s of a
+    fresh process's first training step on an H100 machine, none of it
+    device work. ``Trainer.train`` calls this before it arms a step
+    deadline."""
+    x = torch.zeros((), requires_grad=True)
+    torch.autograd.grad(x * 1.0, x, grad_outputs=torch.ones(()))
 
 
 def _generic_grad_is_host(op):

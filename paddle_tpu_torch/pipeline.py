@@ -23,6 +23,12 @@ k+1 while the card computes batch k, and lazy fetches.
   only at a real sync point; :func:`materialize` and
   :func:`materialize_scalar` force them.
 
+Observability: :attr:`FeedPipeline.stats`, which ``Trainer.train`` and
+``Trainer.test`` fold into ``Executor.stats`` and the profiler's
+pipeline section (``feed_wait_ms``, ``dispatch_depth``,
+``pipeline_batches``, ``slot_reuse``, ``fallback_sync``), as the JAX
+Trainer does; each materialized fetch adds ``fetch_sync_count`` there.
+
 The JAX package's persistent compile cache (``enable_compile_cache``)
 has no counterpart: a CUDA graph does not outlive its process.
 """

@@ -16,8 +16,10 @@ from __future__ import annotations
 import collections
 import json
 import os
+import sys
 import threading
 import time
+import types
 
 __all__ = ["clear_events", "events", "record_durable_event",
            "record_event"]
@@ -90,3 +92,14 @@ def events(kind=None, site=None):
 def clear_events():
     with _lock:
         _events.clear()
+
+
+class _EventsModule(types.ModuleType):
+    """This module, callable as its :func:`events`: the package exports
+    it as ``resilience.events``, which the JAX package's callers call."""
+
+    def __call__(self, kind=None, site=None):
+        return events(kind=kind, site=site)
+
+
+sys.modules[__name__].__class__ = _EventsModule

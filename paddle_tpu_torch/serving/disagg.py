@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from .. import profiler as _prof
 from ..resilience.events import record_event
 from ..resilience.faults import fault_point
 from .admission import OverloadError, ServingError
@@ -278,6 +279,7 @@ def ship(artifact, decode_engine, deadline_ms=None):
     except (OverloadError, PoolExhausted):
         raise
     except Exception as e:
+        _prof.update_generation_counters(gen_handoff_failed=1)
         record_event("handoff_failed", site="serving.ship",
                      model=getattr(decode_engine, "name", "?"),
                      pages=artifact.pages, error=repr(e))

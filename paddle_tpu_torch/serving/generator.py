@@ -65,6 +65,15 @@ Fault site ``serving.generate`` is hit once per prefill or install and
 once per decode step or round: a raise fails that request or the
 running ones (``generate_failed`` event) and the loop keeps serving.
 
+Besides its own :attr:`GenerationEngine.stats`, the engine bumps the
+profiler's generation counters (``profiler.generation_counters()``:
+``gen_requests``, ``gen_prefills``, ``gen_decode_steps``,
+``gen_tokens``, the sheds, the speculation and prefix counters,
+``gen_handoff_installs``, ...) at every site the JAX engine does, the
+token counters once a step, never a row; ``gen_kernel_hits`` counts the
+decode steps that launched the paged-attention kernel (each step on the
+card, none on the CPU).
+
 Left out of this port for now (``ROADMAP.md``): the tune-cache lookup
 of the paged attention.
 
@@ -84,6 +93,7 @@ import numpy as np
 import torch
 
 from ..models import transformer as _tm
+from .. import profiler as _prof
 from ..resilience.events import record_event
 from ..resilience.faults import fault_point
 from .admission import (AdmissionController, DeadlineExceededError,
@@ -346,6 +356,11 @@ class GenerationEngine(object):
         self.name = name
         self.reserve = reserve
         self.device = model.device
+        # a decode step on the card launches the paged-attention kernel
+        # (ROADMAP.md Queue 3 #5); the profiler's gen_kernel_hits counts
+        # those steps, 0 on the CPU's plain version
+        self._kernel_hit = 1 if torch.device(self.device).type == "cuda" \
+            else 0
         self.max_running = int(max_running if max_running is not None
                                else FLAGS.serve_max_running)
         self.queue_depth = int(queue_depth if queue_depth is not None
@@ -516,6 +531,7 @@ class GenerationEngine(object):
                          pool_pages=self.pool.num_pages)
             with self._cond:
                 self._counts["shed_pool"] += 1
+            self._update_prof(gen_shed_pool=1)
             raise PoolExhausted(
                 "request needs %d token(s) of cache; the pool holds %d "
                 "(serve_kv_pages=%d x serve_page_tokens=%d) — shed "
@@ -531,6 +547,7 @@ class GenerationEngine(object):
                     "replacement engine")
             if len(self._queue) >= self.queue_depth:
                 self._counts["shed_overload"] += 1
+                self._update_prof(gen_shed_overload=1)
                 raise OverloadError(
                     "generation queue full (%d pending >= queue_depth="
                     "%d); request shed — retry with backoff or raise "
@@ -539,6 +556,7 @@ class GenerationEngine(object):
             self._counts["submitted"] += 1
             self._queue.append(req)
             self._cond.notify_all()
+        self._update_prof(gen_requests=1)
         return req
 
     def submit_prefilled(self, artifact, deadline_ms=None):
@@ -599,6 +617,7 @@ class GenerationEngine(object):
             with self._cond:
                 self._counts["submitted"] += 1
                 self._counts["completed"] += 1
+            self._update_prof(gen_requests=1, gen_completed=1)
             req._ttft_ms = 0.0
             req.resolve("eos" if eos else "length")
             return req
@@ -791,6 +810,7 @@ class GenerationEngine(object):
             with self._cond:
                 self._counts["prefix_hits"] += matched
                 self._counts["prefix_hit_requests"] += 1
+            self._update_prof(gen_prefix_hits=matched)
         S_b = bucket_for(len(prompt), self._buckets)
         padded = np.zeros((S_b,), np.int32)
         padded[:len(prompt)] = prompt
@@ -815,6 +835,7 @@ class GenerationEngine(object):
                 self._counts["failed"] += 1
             record_event("generate_failed", site="serving.generate",
                          model=self.name, phase="prefill", error=repr(e))
+            self._update_prof(gen_failed=1)
             req.fail(e)
             return
         self._busy_s += time.monotonic() - t0
@@ -836,6 +857,7 @@ class GenerationEngine(object):
                 if published:
                     with self._cond:
                         self._counts["prefix_published"] += published
+                    self._update_prof(gen_prefix_published=published)
         run = _Running(req, slot, table)
         run.cached = len(prompt)
         # A resumed request on a speculative engine drops the prefill's
@@ -869,11 +891,22 @@ class GenerationEngine(object):
             self._seqs.sort(key=lambda s: s.slot)
             self._max_running_seen = max(self._max_running_seen,
                                          len(self._seqs))
-        if handoff is not None or resumed_spec:
+            running = len(self._seqs)
+        if handoff is not None:
+            self._update_prof(gen_handoff_installs=1,
+                              gen_max_running=running)
+            return
+        if resumed_spec:
+            self._update_prof(gen_prefills=1, gen_max_running=running)
             return
         if self.device_sample:
+            self._update_prof(gen_prefills=1, gen_tokens=1,
+                              gen_max_running=running)
             self._record_token(run, first[0], first[1])
         else:
+            self._update_prof(gen_prefills=1, gen_tokens=1,
+                              gen_max_running=running,
+                              gen_host_logit_syncs=1)
             with self._cond:
                 self._counts["host_logit_syncs"] += 1
             self._accept_token(run, first)
@@ -937,6 +970,12 @@ class GenerationEngine(object):
                          else "host_logit_syncs"] += 1
             self._occupancy_sum += len(seqs)
             self._page_util_max = max(self._page_util_max, util)
+        # the profiler's token counters flush once a step, never a row
+        prof = {"gen_decode_steps": 1, "gen_page_util_max": util,
+                "gen_tokens": len(seqs), "gen_kernel_hits": self._kernel_hit}
+        prof["gen_device_sample_steps" if self.device_sample
+             else "gen_host_logit_syncs"] = 1
+        self._update_prof(**prof)
         for s in seqs:
             s.cached += 1
             if self.device_sample:
@@ -1080,6 +1119,11 @@ class GenerationEngine(object):
             self._counts["device_sample_steps"] += 1
             self._occupancy_sum += len(seqs)
             self._page_util_max = max(self._page_util_max, util)
+        self._update_prof(
+            gen_decode_steps=1, gen_page_util_max=util,
+            gen_tokens=consumed, gen_kernel_hits=self._kernel_hit,
+            gen_device_sample_steps=1, gen_spec_steps=1,
+            gen_draft_tokens=drafted, gen_accepted_tokens=accepted)
 
     def _degrade_spec(self, phase, exc):
         """Speculation failed (fault site ``serving.speculate``): drop the
@@ -1097,6 +1141,7 @@ class GenerationEngine(object):
             pass
         record_event("speculation_degraded", site="serving.speculate",
                      model=self.name, phase=phase, error=repr(exc))
+        self._update_prof(gen_spec_degraded=1)
 
     def _degrade_prefix(self, phase, exc):
         """Prefix sharing failed (fault site ``serving.prefix``): drop
@@ -1114,6 +1159,7 @@ class GenerationEngine(object):
             pass
         record_event("prefix_degraded", site="serving.prefix",
                      model=self.name, phase=phase, error=repr(exc))
+        self._update_prof(gen_prefix_degraded=1)
 
     def _unshare_for_write(self, table, start, upto):
         """Copy-on-write: before a step writes positions ``[start,
@@ -1140,6 +1186,7 @@ class GenerationEngine(object):
         if copies:
             with self._cond:
                 self._counts["cow_copies"] += copies
+            self._update_prof(gen_cow_copies=copies)
 
     def _install_handoff(self, table, artifact):
         """The decode tier's receive side of the hop: write the
@@ -1194,12 +1241,14 @@ class GenerationEngine(object):
                      preemptions=s.req.preemptions + 1)
         s.req.preemptions += 1
         self._evict(s, counter="preemptions", requeue=True)
+        self._update_prof(gen_preemptions=1)
 
     def _shed_pool(self, s):
         record_event("kv_pool_exhausted", site="serving.generate",
                      action="shed", model=self.name,
                      generated=len(s.req.tokens))
         self._evict(s, counter="shed_pool")
+        self._update_prof(gen_shed_pool=1)
         s.req.fail(PoolExhausted(
             "kv page pool exhausted mid-flight after %d generated "
             "token(s) and preemption could not help — shrink "
@@ -1239,6 +1288,7 @@ class GenerationEngine(object):
 
     def _retire(self, s, reason):
         self._evict(s, counter="completed")
+        self._update_prof(gen_completed=1)
         s.req.resolve(reason)
 
     def _shed_deadline(self, req, generated=0):
@@ -1248,6 +1298,7 @@ class GenerationEngine(object):
                      generated=generated)
         with self._cond:
             self._counts["shed_deadline"] += 1
+        self._update_prof(gen_shed_deadline=1)
         req.fail(DeadlineExceededError(
             "generation deadline exceeded %.1f ms ago (%d token(s) "
             "generated); shed instead of serving a dead client"
@@ -1265,6 +1316,11 @@ class GenerationEngine(object):
         for s in seqs:
             self._evict(s, counter="failed")
             s.req.fail(exc)
+        self._update_prof(gen_failed=len(seqs))
+
+    @staticmethod
+    def _update_prof(**kw):
+        _prof.update_generation_counters(**kw)
 
     # -- metrics --------------------------------------------------------------
     @property

@@ -16,6 +16,12 @@ model and returns the handoff artifact, and
 :meth:`decode_handoff` installs one into the model's engine and
 decodes. The class is advertised through :attr:`stats` and
 :meth:`readiness`; a replica of either class still serves every path.
+
+The JAX service's ``update_serving_counters`` sites are on its
+``:predict`` path (the micro-batcher: requests, batches, padded rows,
+sheds), which the port has not yet (ROADMAP.md Queue 1 item 6); the
+generative path counts in the profiler's generation section, through
+the engine.
 """
 from __future__ import annotations
 

@@ -28,8 +28,36 @@ program pruned for test (no backward, no optimizer, ``batch_norm`` on
 its running statistics), synchronous or pipelined;
 ``save_inference_model`` exports the pruned program.
 
-Not ported yet: the step watchdog and numeric guardrails and elastic
-workers.
+Two loop-level failure policies (``paddle_tpu/trainer.py:318-530``),
+both off by default. ``FLAGS.step_timeout_s`` arms the step watchdog
+(:class:`~paddle_tpu_torch.resilience.watchdog.StepWatchdog`): armed at
+each pass start, so the deadline covers the first batch's feed, warm-up
+and capture; pinged at each batch, at the guardrail's sync point and at
+the progress line; paused around a rewind and at the pass end. A wedged
+step writes a durable ``step_hung`` event and the profiler's timeline
+and exits 75. Before it arms the deadline ``train`` pays the process's
+one-time costs that are not a step's: on a CUDA device it builds every
+kernel library (``kernels/_build.build_all``, a hash check when they
+exist), and it makes the process's first ``torch.autograd.grad``
+(``ops/generic_grad.warm_up``: torch's lazy symbolic-shape import,
+seconds), so neither counts against a step (ROADMAP.md Queue 3 #25). ``FLAGS.loss_skip_budget`` arms the numeric guardrails
+(:class:`~paddle_tpu_torch.resilience.guardrails.NumericGuard`): each
+batch's loss is materialized (a declared sync point under the
+pipeline); a non-finite loss, or one past ``FLAGS.loss_spike_factor``
+times the running median, skips the batch (its cost stays out of the
+pass metrics), and budget exhaustion rewinds to the newest checkpoint
+in ``checkpoint_dir`` once a window (``_guard_rewind``) before giving up
+with ``FloatingPointError``. A rewind installs through
+``scope.set_var``, after the card has finished the step, and the
+compiled step copies the restored values into its captured tensors
+before its next replay: no recapture. A pass that ends with a skipped
+batch's update possibly still in the parameters records
+``checkpoint_skipped_tainted`` and keeps the last clean save, a
+preemption included. ``fault_point("trainer.step")`` runs before each
+step; ``profiler.timer("pass")`` / ``timer("batch")`` time the loop.
+
+Not ported yet: ``train(elastic=True)`` (the elastic worker needs a
+mesh, ``comm`` and the task master: ROADMAP.md Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -41,6 +69,7 @@ import time
 import numpy as np
 
 from . import io as _io
+from . import profiler as _prof
 from .core import ir
 from .core.executor import Executor
 from .data_feeder import DataFeeder
@@ -48,6 +77,9 @@ from .device import DEFAULT_DEVICE
 from .flags import FLAGS
 from .pipeline import FeedPipeline, materialize, materialize_scalar
 from .resilience.events import record_durable_event, record_event
+from .resilience.faults import fault_point
+from .resilience.guardrails import NumericGuard
+from .resilience.watchdog import StepWatchdog
 
 __all__ = ["BeginIteration", "BeginPass", "EndIteration", "EndPass",
            "Trainer"]
@@ -217,6 +249,7 @@ class Trainer(object):
         truncated = remaining is not None and (
             remaining <= 0 or (est is not None and est * 1.2 > remaining))
         if truncated:
+            _prof.update_trainer_counters(preempts_truncated=1)
             record_durable_event(
                 "preempt_truncated", site="trainer.train", phase="pre",
                 remaining_sec=round(remaining, 3), last_save_sec=est,
@@ -224,6 +257,7 @@ class Trainer(object):
         self.save_checkpoint()
         took = time.monotonic() - t0
         if not truncated and remaining is not None and took > remaining:
+            _prof.update_trainer_counters(preempts_truncated=1)
             record_durable_event(
                 "preempt_truncated", site="trainer.train", phase="post",
                 overran_sec=round(took - remaining, 3), pass_id=pass_id,
@@ -231,6 +265,20 @@ class Trainer(object):
         record_event("preempt_checkpoint", site="trainer.train",
                      dirname=self.checkpoint_dir, pass_id=pass_id,
                      batch_id=batch_id)
+
+    def _guard_rewind(self):
+        """The numeric guardrail's rewind (``paddle_tpu/trainer.py:237``):
+        reload the newest state from ``checkpoint_dir``; True when a
+        restore happened. The guard has just materialized the step's
+        loss; on the card the load also waits for the stream, so the
+        restored tensors replace the state only after every launched
+        step, and the next replay copies them in first."""
+        if not self.checkpoint_dir:
+            return False
+        if self.exe.device.type == "cuda":
+            import torch
+            torch.cuda.synchronize(self.exe.device)
+        return self._load_checkpoint_state()
 
     def train(self, reader, num_passes=1, event_handler=None, pipeline=None,
               pipeline_depth=None):
@@ -240,7 +288,9 @@ class Trainer(object):
         ``FLAGS.pipeline_depth``) run the feed pipeline (module
         docstring). With ``checkpoint_dir`` each pass ends with a
         checkpoint and a preemption ends the run after its batch with
-        one."""
+        one. ``FLAGS.step_timeout_s`` arms the step watchdog and
+        ``FLAGS.loss_skip_budget`` the numeric guardrails (module
+        docstring)."""
         self._maybe_init()
         handler = event_handler or (lambda e: None)
         log_period = FLAGS.log_period
@@ -250,6 +300,33 @@ class Trainer(object):
         if use_pipe and (depth < 1 or self.exe.check_nan_inf):
             # the NaN/Inf scan needs the synchronous per-op path
             use_pipe = False
+        watchdog = None
+        if FLAGS.step_timeout_s > 0:
+            # a step's deadline counts neither an nvcc build nor the
+            # process's first autograd import (Queue 3 #25)
+            if self.exe.device.type == "cuda":
+                from .kernels import _build
+                _build.build_all()
+            from .ops import generic_grad
+            generic_grad.warm_up()
+            watchdog = StepWatchdog(FLAGS.step_timeout_s)
+        guard = None
+        if FLAGS.loss_skip_budget > 0:
+
+            def rewind_fn():
+                # a checkpoint restore is recovery, not a step: the step
+                # deadline pauses around it as around a save
+                if watchdog is not None:
+                    watchdog.disarm()
+                try:
+                    return self._guard_rewind()
+                finally:
+                    if watchdog is not None:
+                        watchdog.arm("guard-rewind")
+
+            guard = NumericGuard(FLAGS.loss_skip_budget,
+                                 spike_factor=FLAGS.loss_spike_factor,
+                                 rewind_fn=rewind_fn)
         # a fresh train() starts unpreempted
         self.preempted = False
         self._preempt_at = None
@@ -259,28 +336,48 @@ class Trainer(object):
         try:
             for pass_id in range(num_passes):
                 handler(BeginPass(pass_id))
-                costs, batch_id = self._train_pass(
-                    reader, pass_id, handler, log_period, use_pipe, depth)
+                if watchdog is not None:
+                    # the deadline covers the first batch's feed, warm-up
+                    # and capture: a reader wedged before its first batch
+                    # is a hang too
+                    watchdog.arm("pass%d/start" % pass_id)
+                with _prof.timer("pass"):
+                    costs, batch_id = self._train_pass(
+                        reader, pass_id, handler, log_period, use_pipe,
+                        depth, watchdog, guard)
                 # the pass's end is a sync point, and it comes before every
                 # checkpoint: a pipelined pass's fetches are resolved here
                 costs = [materialize_scalar(c) for c in costs]
+                if watchdog is not None:
+                    watchdog.disarm()
+                # a skipped batch's update may still sit in the parameters
+                # until a rewind or an accepted batch clears it: saving
+                # that state would make the poison the newest resume point
+                tainted = guard is not None and guard.tainted
+                if tainted and self.checkpoint_dir:
+                    record_durable_event(
+                        "checkpoint_skipped_tainted", site="trainer.guard",
+                        pass_id=pass_id, batch_id=batch_id,
+                        preempted=self.preempted)
                 if self.preempted:
-                    if self.checkpoint_dir:
+                    if self.checkpoint_dir and not tainted:
                         self._preempt_checkpoint(pass_id, batch_id)
                     return
-                if self.checkpoint_dir:
+                if self.checkpoint_dir and not tainted:
                     self.save_checkpoint()
                 handler(EndPass(pass_id, {"avg_cost": float(np.mean(costs))
                                           if costs else float("nan")}))
         finally:
+            if watchdog is not None:
+                watchdog.close()
             if hook_installed:
                 signal.signal(signal.SIGTERM, old_sigterm)
 
     def _train_pass(self, reader, pass_id, handler, log_period, use_pipe,
-                    depth):
+                    depth, watchdog, guard):
         """One pass over ``reader``, stopping after the batch in which a
-        preemption came: (the costs, lazy under the pipeline, and the
-        last batch id)."""
+        preemption came: (the accepted costs, lazy under the pipeline
+        unless the guard read them, and the last batch id)."""
         costs, batch_id, pipe = [], -1, None
         try:
             if use_pipe:
@@ -290,24 +387,45 @@ class Trainer(object):
                 batches = reader()
             for batch_id, data in enumerate(batches):
                 handler(BeginIteration(pass_id, batch_id))
-                if use_pipe:
-                    # data is a feed dict on the device already
-                    outs = self.exe.run(self.main_program, feed=data,
-                                        fetch_list=self.fetch_list,
-                                        sync=False)
-                    cost = outs[0]
-                else:
-                    outs = self.exe.run(self.main_program,
-                                        feed=self.feeder.feed(data),
-                                        fetch_list=self.fetch_list)
-                    cost = float(np.asarray(outs[0]).reshape(-1)[0])
-                costs.append(cost)
+                if watchdog is not None:
+                    watchdog.ping("pass%d/batch%d" % (pass_id, batch_id))
+                # a delay here is a wedged step (the watchdog's quarry), a
+                # raise a step failure that leaves train()
+                fault_point("trainer.step")
+                with _prof.timer("batch"):
+                    if use_pipe:
+                        # data is a feed dict on the device already
+                        outs = self.exe.run(self.main_program, feed=data,
+                                            fetch_list=self.fetch_list,
+                                            sync=False)
+                        cost = outs[0]
+                    else:
+                        outs = self.exe.run(self.main_program,
+                                            feed=self.feeder.feed(data),
+                                            fetch_list=self.fetch_list)
+                        cost = float(np.asarray(outs[0]).reshape(-1)[0])
+                skipped = False
+                if guard is not None:
+                    # the guardrail's sync point: a wedged card surfaces
+                    # here under the pipeline, inside the armed deadline
+                    cost = materialize_scalar(cost)
+                    skipped = guard.check(cost, pass_id=pass_id,
+                                          batch_id=batch_id) != "ok"
+                    if watchdog is not None:
+                        watchdog.ping("pass%d/batch%d/guarded"
+                                      % (pass_id, batch_id))
+                if not skipped:
+                    costs.append(cost)
                 if log_period and (batch_id + 1) % log_period == 0:
                     window = [materialize_scalar(c)
                               for c in costs[-log_period:]]
-                    print("pass %d batch %d: cost=%.6f (avg %.6f)"
-                          % (pass_id, batch_id, window[-1],
-                             float(np.mean(window))))
+                    if window:
+                        print("pass %d batch %d: cost=%.6f (avg %.6f)"
+                              % (pass_id, batch_id, window[-1],
+                                 float(np.mean(window))))
+                    if watchdog is not None:
+                        watchdog.ping("pass%d/batch%d/log"
+                                      % (pass_id, batch_id))
                 handler(EndIteration(pass_id, batch_id, cost,
                                      {"fetches": outs[1:]}))
                 if self.preempted:
@@ -320,13 +438,20 @@ class Trainer(object):
 
     def _merge_pipeline_stats(self, pipe):
         """Fold one pass's feed-pipeline counters into Executor.stats and
-        keep the pass's own (``pipeline_stats``: ``slot_reuse``,
-        ``max_in_flight``, ``fallback_sync``, ...)."""
+        the profiler's pipeline section, and keep the pass's own
+        (``pipeline_stats``: ``slot_reuse``, ``max_in_flight``,
+        ``fallback_sync``, ...)."""
         self.pipeline_stats = dict(pipe.stats)
         st, es = pipe.stats, self.exe.stats
         es["feed_wait_ms"] += st["feed_wait_ms"]
         es["dispatch_depth"] = max(es["dispatch_depth"],
                                    st["max_in_flight"])
+        _prof.update_pipeline_counters(
+            feed_wait_ms=st["feed_wait_ms"],
+            dispatch_depth=st["max_in_flight"],
+            pipeline_batches=st["batches"],
+            slot_reuse=st["slot_reuse"],
+            fallback_sync=1 if st["fallback_sync"] else 0)
 
     def _test_program(self, fetches):
         """The main program pruned for test to ``fetches`` (no backward

@@ -20,7 +20,10 @@ persistent per-(device, shape) winner cache (counterpart of
   the kernel with the winning config; a miss runs the kernel's default
   config where a flag already enables the kernel, and the stock PyTorch
   lowering otherwise. The counters ``tune_hits``, ``tune_misses`` and
-  ``tune_fallbacks`` surface through ``Executor.stats``.
+  ``tune_fallbacks`` surface through ``Executor.stats`` and the
+  profiler's ``tune`` section (``profiler.tune_counters()``, which the
+  ``tune`` verb adds ``tune_loops`` / ``tune_candidates`` to);
+  :func:`reset_counters` clears both.
 
 Counting follows the JAX package's, where dispatch happens while a
 program traces, so a counter moves once per compile. The Executor's
@@ -38,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import threading
 
+from .. import profiler
 from .cache import (WinnerCache, cache_key, clear_memory_cache,
                     default_cache_dir)
 from .loop import TuneResult, XLA_CONFIG, autotune, default_timer
@@ -70,6 +74,8 @@ def _bump(name):
         return
     with _counters_lock:
         _counters[name] += 1
+    # the profiler's tune timeline section mirrors the tally
+    profiler.update_tune_counters(**{name: 1})
 
 
 @contextlib.contextmanager
@@ -94,6 +100,7 @@ def reset_counters():
     with _counters_lock:
         for k in _counters:
             _counters[k] = 0
+    profiler.reset_tune_counters()
 
 
 def lookup(kernel, key, enabled=False, valid=None):
