@@ -10,8 +10,9 @@ classifier of ``benchmark/rnn_bench.py``, its autotune path (the
 ``tune`` verb, the winner cache, the tuned dispatch of ``mul`` and
 ``conv2d``) and AMP (bfloat16) training of ResNet-50 and the LM, and
 holds each hand-written CUDA kernel against its plain PyTorch version;
-and pure-AMP training of the bias-free LSTM classifier. Run from the
-root of a checkout:
+and pure-AMP training of the bias-free LSTM classifier; and the dense
+tensor and loss ops, on the word2vec and recommender book models and
+at GPT-2 small's attention shapes. Run from the root of a checkout:
 
     python3 chip_smoke.py
 
@@ -359,7 +360,34 @@ Phases, in order; any failure exits non-zero at once:
    Trainer trains 3 batches under ``profiler(timeline_path=...)`` and
    one more under ``cuda_profiler``: the ``programs`` entry's flash
    nodes equal phase 12's captured graph's, ``host_events`` holds the
-   3 runs, and the trace names the three flash kernels.
+   3 runs, and the trace names the three flash kernels;
+17. dense: every op of the dense slice (the 24 tensor ops, ``matmul``,
+   ``norm``, ``maximum``, ``isfinite``, the 12 losses) and its grad
+   (``matmul_grad``, or the generic one) run on the card and on the CPU
+   on the same seeded inputs, at the op-contract suite's shapes, their
+   edges and the book models' shapes (``_dense_cases``): data movement,
+   index and bool outputs bit-identical, float ones within
+   ``DENSE_OP_TOL`` of max(1, |CPU value|), the largest error printed
+   per op; ``range`` on the hybrid path; the random ops' 2^16 draws
+   within 5 standard errors of their law's mean and variance on both
+   devices; ``matmul`` at GPT-2 small's attention shapes (q, k, v of
+   [8, 12, 1024, 64], TF32 off): q kᵀ (``transpose_Y``, alpha 1/8), the
+   [8, 12, 1024, 1024] product with v and ``matmul_grad`` of both
+   against float64 (``DENSE_MM_TOL`` of the largest magnitude), again
+   under pure AMP (one bfloat16 ulp of it plus 2e-5 of it), and a
+   [64, 1024] Y broadcast over the batch dims (dY summed over both),
+   each timed; word2vec at fluid's book widths (``W2V_BOOK``: 2074
+   words, embeddings 32, hidden 256, batch 32, SGD) and the
+   recommender at MovieLens-1M's id ranges and chapter 5's widths
+   (``REC_BOOK``: batch 256 of one fixed ragged batch): step-1
+   gradients of every parameter against float64 autograd of each model
+   written out in torch (``shared_w``'s the sum over its four lookups;
+   ``BOOK_GRAD_REL_TOL``), ``BOOK_STEPS`` steps through
+   ``Trainer.train`` (the loss falls; one capture and a replay a step),
+   the step p50 and samples/s compiled and on the per-op path;
+   ``python -m paddle_tpu_torch train`` of ``configs/word2vec.py``
+   exits 0. The tune cache is a fresh directory of its own for the
+   phase.
 
 Since phase 15's slice every path of the Executor frees each value at
 its last use, so phases 1-14 run on the freeing Executor and their
@@ -8426,6 +8454,913 @@ def phase_resilience(dev, root, plain):
     return paths
 
 
+# -- phase 17 ------------------------------------------------------------------
+
+# card against CPU: a float32 arithmetic output or gradient within this of
+# max(1, the CPU value's largest magnitude) (sums and transcendentals in
+# other orders and libraries); data movement, index and bool outputs equal
+DENSE_OP_TOL = 1e-5
+# matmul against float64 on the card: float32 within this of the
+# largest magnitude (TF32 off); bfloat16 (pure AMP) within one bfloat16
+# ulp of it plus 2e-5 of it
+DENSE_MM_TOL = 2e-5
+DENSE_MM_SHAPE = (8, 12, 1024, 64)  # GPT-2 small's q, k, v at batch 8
+DENSE_EXACT = ("concat", "split", "slice", "transpose", "squeeze",
+               "unsqueeze", "expand", "pad", "crop", "one_hot", "scatter",
+               "shape", "range", "fill", "fill_zeros_like", "reverse",
+               "arg_max", "arg_min", "argsort", "is_empty", "isfinite",
+               "maximum")
+DENSE_RANDOM = ("uniform_random_batch_size_like",
+                "gaussian_random_batch_size_like",
+                "truncated_gaussian_random", "sampling_id")
+DENSE_DRAWS = 1 << 16
+# fluid's tests/book/test_word2vec.py: EMBED_SIZE 32, HIDDEN_SIZE 256,
+# N 5, over paddle_tpu.dataset.imikolov.build_dict()'s 2074 words
+# (the config's own batch of 32 and SGD at 0.001)
+W2V_BOOK = dict(vocab=2074, emb=32, hidden=256, batch=32)
+# tests/book/test_recommender_system.py's model at MovieLens-1M's id
+# ranges and the widths of the Paddle book's chapter 5
+REC_BOOK = dict(users=6040, movies=3952, jobs=21, ages=7, categories=18,
+                titles=5175, emb=32, small_emb=16, user_fc=32, small_fc=16,
+                fused=200, batch=256, max_categories=6, max_title=15,
+                learning_rate=0.2)
+BOOK_STEPS = 8
+# step-1 gradients of the book models against float64 autograd: the
+# relative norm of each parameter's error
+BOOK_GRAD_REL_TOL = 1e-5
+
+
+def _dense_array(seed, *shape, kind="normal"):
+    rng = np.random.RandomState(seed)
+    if kind == "uniform":
+        return rng.rand(*shape).astype(np.float32)
+    if kind == "bits":
+        return rng.randint(0, 2, shape).astype(np.float32)
+    if kind == "ties":
+        return rng.randint(0, 3, shape).astype(np.float32)
+    return rng.randn(*shape).astype(np.float32)
+
+
+def _dense_cases():
+    """(label, op, inputs {slot: [(name, array or (array, lod))]}, outputs
+    {slot: [name]}, attrs, differentiated input names, the output the
+    loss reads): every new op at the op-contract suite's small shapes,
+    its edges, and the shapes the two book models give it."""
+    a = _dense_array
+    lod_x = (a(2, 5, 4), [[0, 2, 5]])
+    ties = a(27, 4, 6, kind="ties")
+    w2v, rec = W2V_BOOK, REC_BOOK
+    embs = [("e%d" % i, a(40 + i, w2v["batch"], w2v["emb"]))
+            for i in range(4)]
+    usr = a(50, rec["batch"], rec["fused"])
+    mov = a(51, rec["batch"], rec["fused"])
+    rank = np.array([[80.0], [-3.0], [0.5], [84.0]], np.float32)
+    return [
+        ("fill", "fill", {}, {"Out": ["o"]},
+         {"shape": [2, 3], "value": [0.5, -1.0, 2.0, 3.5, 0.0, 1.25],
+          "dtype": "float32"}, (), None),
+        ("fill_zeros_like", "fill_zeros_like", {"X": [("x", lod_x)]},
+         {"Out": ["o"]}, {}, (), None),
+        ("shape", "shape", {"Input": [("x", a(1, 2, 3, 4))]},
+         {"Out": ["o"]}, {}, (), None),
+        ("squeeze", "squeeze", {"X": [("x", a(3, 2, 1, 3, 1))]},
+         {"Out": ["o"]}, {"axes": []}, ("x",), None),
+        ("unsqueeze", "unsqueeze", {"X": [("x", a(5, 2, 3))]},
+         {"Out": ["o"]}, {"axes": [0, 2]}, ("x",), None),
+        ("transpose", "transpose", {"X": [("x", a(1, 2, 3, 4))]},
+         {"Out": ["o"]}, {"axis": [2, 0, 1]}, ("x",), None),
+        ("transpose_heads", "transpose",
+         {"X": [("x", a(6, 8, 1024, 12, 64))]}, {"Out": ["o"]},
+         {"axis": [0, 2, 1, 3]}, ("x",), None),
+        ("expand", "expand", {"X": [("x", a(6, 2, 3))]}, {"Out": ["o"]},
+         {"expand_times": [2, 1, 2]}, ("x",), None),
+        ("concat", "concat",
+         {"X": [("a", a(8, 2, 3)), ("b", a(9, 2, 4)), ("c", a(10, 2, 1))]},
+         {"Out": ["o"]}, {"axis": 1}, ("a", "b", "c"), None),
+        ("concat_lod", "concat",
+         {"X": [("a", lod_x), ("b", (a(11, 5, 2), [[0, 2, 5]]))]},
+         {"Out": ["o"]}, {"axis": 1}, ("a", "b"), None),
+        ("concat_word2vec", "concat", {"X": embs}, {"Out": ["o"]},
+         {"axis": 1}, tuple(n for n, _ in embs), None),
+        ("concat_recommender", "concat",
+         {"X": [("u", a(52, rec["batch"], rec["user_fc"])),
+                ("g", a(53, rec["batch"], rec["small_fc"])),
+                ("ag", a(54, rec["batch"], rec["small_fc"])),
+                ("j", a(55, rec["batch"], rec["small_fc"]))]},
+         {"Out": ["o"]}, {"axis": 1}, ("u", "g", "ag", "j"), None),
+        ("split_num", "split", {"X": [("x", a(13, 2, 6))]},
+         {"Out": ["o0", "o1"]}, {"axis": 1, "num": 2, "sections": []},
+         ("x",), "o1"),
+        ("split_sections", "split", {"X": [("x", a(14, 2, 6))]},
+         {"Out": ["o0", "o1", "o2"]},
+         {"axis": 1, "num": 0, "sections": [1, 2, 3]}, ("x",), "o2"),
+        ("scatter", "scatter",
+         {"X": [("x", a(17, 5, 3))],
+          "Ids": [("i", np.array([[0], [-1], [2]], np.int64))],
+          "Updates": [("u", a(18, 3, 3))]}, {"Out": ["o"]}, {},
+         ("x", "u"), None),
+        ("one_hot", "one_hot",
+         {"X": [("x", np.array([[0], [3], [-1], [4], [2], [-4]],
+                               np.int64))]},
+         {"Out": ["o"]}, {"depth": 4}, (), None),
+        ("pad", "pad", {"X": [("x", a(19, 2, 3))]}, {"Out": ["o"]},
+         {"paddings": [1, 0, 2, 1], "pad_value": 0.5}, ("x",), None),
+        ("slice", "slice", {"Input": [("x", a(20, 4, 5, 6))]},
+         {"Out": ["o"]}, {"axes": [1, 2], "starts": [-3, 1],
+                          "ends": [10, -1]}, ("x",), None),
+        ("slice_lod", "slice", {"Input": [("x", lod_x)]}, {"Out": ["o"]},
+         {"axes": [1], "starts": [1], "ends": [3]}, ("x",), None),
+        ("crop", "crop",
+         {"X": [("x", a(22, 4, 5))],
+          "Y": [("y", np.zeros((3, 2), np.float32))]},
+         {"Out": ["o"]}, {"offsets": [0, 3], "shape": [1, 1]}, ("x",),
+         None),
+        ("reverse", "reverse", {"X": [("x", a(23, 3, 4))]}, {"Out": ["o"]},
+         {"axis": [0, 1]}, ("x",), None),
+        ("is_empty", "is_empty", {"X": [("x", a(24, 2, 3))]},
+         {"Out": ["o"]}, {}, (), None),
+        ("arg_max", "arg_max", {"X": [("x", ties)]}, {"Out": ["o"]},
+         {"axis": 1}, (), None),
+        ("arg_min", "arg_min", {"X": [("x", ties)]}, {"Out": ["o"]},
+         {"axis": 0}, (), None),
+        ("argsort", "argsort", {"X": [("x", a(28, 3, 5000, kind="ties"))]},
+         {"Out": ["o"], "Indices": ["i"]}, {"axis": -1}, (), None),
+        ("maximum", "maximum", {"X": [("x", ties)], "Y": [("y", ties.T.copy()
+                                                              .reshape(4, 6))]},
+         {"Out": ["o"]}, {}, ("x", "y"), None),
+        ("norm", "norm", {"X": [("x", a(30, 3, 4))]},
+         {"Norm": ["n"], "Out": ["o"]}, {"axis": 1, "epsilon": 1e-10},
+         ("x",), "o"),
+        ("isfinite", "isfinite",
+         {"X": [("x", a(31, 3, 4)),
+                ("y", np.array([1.0, np.inf], np.float32))]},
+         {"Out": ["o"]}, {}, (), None),
+        ("matmul_ty_alpha", "matmul",
+         {"X": [("x", a(33, 2, 3, 4, 5))], "Y": [("y", a(34, 2, 3, 6, 5))]},
+         {"Out": ["o"]}, {"transpose_X": False, "transpose_Y": True,
+                          "alpha": 0.125}, ("x", "y"), None),
+        ("matmul_bcast", "matmul",
+         {"X": [("x", a(35, 3, 4, 5))], "Y": [("y", a(36, 2, 1, 5, 6))]},
+         {"Out": ["o"]}, {"transpose_X": False, "transpose_Y": False,
+                          "alpha": 2.0}, ("x", "y"), None),
+        ("matmul_vec", "matmul",
+         {"X": [("x", a(37, 5))], "Y": [("y", a(38, 5, 6))]},
+         {"Out": ["o"]}, {"transpose_X": False, "transpose_Y": False,
+                          "alpha": 1.0}, ("x", "y"), None),
+        ("sigmoid_ce", "sigmoid_cross_entropy_with_logits",
+         {"X": [("x", a(60, 4, 5))],
+          "Label": [("l", a(61, 4, 5, kind="uniform"))]},
+         {"Out": ["o"]}, {}, ("x",), None),
+        ("squared_l2_distance", "squared_l2_distance",
+         {"X": [("x", a(62, 4, 5))], "Y": [("y", a(63, 1, 5))]},
+         {"sub_result": ["s"], "Out": ["o"]}, {}, ("x", "y"), "o"),
+        ("label_smooth", "label_smooth",
+         {"X": [("x", a(64, 4, 5, kind="bits"))],
+          "PriorDist": [("p", a(65, 1, 5, kind="uniform"))]},
+         {"Out": ["o"]}, {"epsilon": 0.2}, ("x", "p"), None),
+        ("l1_norm", "l1_norm", {"X": [("x", a(66, 4, 5))]},
+         {"Out": ["o"]}, {}, ("x",), None),
+        ("modified_huber_loss", "modified_huber_loss",
+         {"X": [("x", a(67, 8, 1) * 2)], "Y": [("y", a(68, 8, 1,
+                                                       kind="bits"))]},
+         {"IntermediateVal": ["v"], "Out": ["o"]}, {}, ("x",), "o"),
+        ("hinge_loss", "hinge_loss",
+         {"Logits": [("x", a(69, 6, 1))],
+          "Labels": [("y", a(70, 6, 1, kind="bits"))]},
+         {"Loss": ["o"]}, {}, ("x",), None),
+        ("huber_loss", "huber_loss",
+         {"X": [("x", a(71, 6, 3) * 2)], "Y": [("y", a(72, 6, 3))]},
+         {"Residual": ["r"], "Out": ["o"]}, {"delta": 1.0}, ("x", "y"),
+         "o"),
+        ("smooth_l1_loss", "smooth_l1_loss",
+         {"X": [("x", a(73, 4, 2, 3))], "Y": [("y", a(74, 4, 2, 3))],
+          "InsideWeight": [("iw", a(75, 4, 2, 3, kind="uniform"))],
+          "OutsideWeight": [("ow", a(76, 4, 2, 3, kind="uniform"))]},
+         {"Diff": ["d"], "Out": ["o"]}, {"sigma": 2.0}, ("x", "y"), "o"),
+        ("log_loss", "log_loss",
+         {"Predicted": [("p", a(77, 6, 1, kind="uniform") * 0.9 + 0.05)],
+          "Labels": [("y", a(78, 6, 1, kind="bits"))]},
+         {"Loss": ["o"]}, {"epsilon": 1e-4}, ("p",), None),
+        ("rank_loss", "rank_loss",
+         {"Label": [("l", a(79, 4, 1, kind="bits"))],
+          "Left": [("x", rank)], "Right": [("y", np.zeros_like(rank))]},
+         {"Out": ["o"]}, {}, ("x", "y"), None),
+        ("margin_rank_loss", "margin_rank_loss",
+         {"Label": [("l", np.array([[1], [-1], [1], [-1]], np.float32))],
+          "X1": [("x", a(80, 4, 1))], "X2": [("y", a(81, 4, 1))]},
+         {"Out": ["o"], "Activated": ["act"]}, {"margin": 0.1},
+         ("x", "y"), "o"),
+        ("cos_sim", "cos_sim",
+         {"X": [("x", a(82, 4, 5))], "Y": [("y", a(83, 1, 5))]},
+         {"Out": ["o"], "XNorm": ["xn"], "YNorm": ["yn"]}, {}, ("x", "y"),
+         "o"),
+        ("cos_sim_recommender", "cos_sim",
+         {"X": [("x", usr)], "Y": [("y", mov)]},
+         {"Out": ["o"], "XNorm": ["xn"], "YNorm": ["yn"]}, {}, ("x", "y"),
+         "o"),
+    ]
+
+
+def _dense_program(op_type, inputs, outputs, attrs, diff=(), loss_of=None,
+                   loss_w=None):
+    """``op_type`` alone in a program; with ``diff``, the backward of
+    mean(``loss_of`` * w) appended (w fed as ``loss_w``)."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.core.backward import append_backward
+    main = ir.Program()
+    with unique_name.guard(), ir.program_guard(main, ir.Program()):
+        blk = main.global_block()
+        ins = {}
+        for slot, items in inputs.items():
+            ins[slot] = []
+            for name, v in items:
+                arr = v[0] if isinstance(v, tuple) else v
+                var = blk.create_var(name=name, shape=arr.shape,
+                                     dtype=str(arr.dtype),
+                                     lod_level=1 if isinstance(v, tuple)
+                                     else 0)
+                var.stop_gradient = name not in diff
+                ins[slot].append(name)
+        for names in outputs.values():
+            for n in names:
+                blk.create_var(name=n, dtype=None)
+        blk.append_op(type=op_type, inputs=ins, outputs=dict(outputs),
+                      attrs=dict(attrs))
+        if diff:
+            w = blk.create_var(name="loss_w", shape=loss_w.shape,
+                               dtype="float32")
+            w.stop_gradient = True
+            append_backward(layers.mean(layers.elementwise_mul(
+                blk.var(loss_of), w)))
+    return main
+
+
+def _dense_feed(inputs, loss_w=None):
+    from paddle_tpu_torch.core.lod import LoDTensor
+    feed = {n: (LoDTensor(v[0], v[1]) if isinstance(v, tuple) else v)
+            for items in inputs.values() for n, v in items}
+    if loss_w is not None:
+        feed["loss_w"] = loss_w
+    return feed
+
+
+def _fetched(v):
+    return np.asarray(v.numpy()) if hasattr(v, "lod") and \
+        not isinstance(v, np.ndarray) else np.asarray(v)
+
+
+def _dense_compare(label, op, names, card, cpu, exact):
+    """Largest errors of the card's fetches against the CPU's; fails on
+    a shape, dtype, LoD, inf or NaN mismatch, an exact output that
+    differs, or a float one past DENSE_OP_TOL."""
+    worst = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for i, (n, g, w) in enumerate(zip(names, card, cpu)):
+        lg = g.lod() if hasattr(g, "lod") and not isinstance(
+            g, np.ndarray) else None
+        lw = w.lod() if hasattr(w, "lod") and not isinstance(
+            w, np.ndarray) else None
+        g, w = _fetched(g), _fetched(w)
+        if lg != lw or g.shape != w.shape or g.dtype != w.dtype:
+            fail("dense op %s (%s) output %s: card %s %s lod %s, CPU %s %s "
+                 "lod %s" % (op, label, n, g.shape, g.dtype, lg, w.shape,
+                             w.dtype, lw))
+        is_grad = n.endswith("@GRAD")
+        if not np.issubdtype(w.dtype, np.floating) or (exact and not is_grad):
+            if not np.array_equal(g, w, equal_nan=np.issubdtype(
+                    w.dtype, np.floating)):
+                fail("dense op %s (%s) output %s is not bit-identical to "
+                     "the CPU's" % (op, label, n))
+            continue
+        g64, w64 = g.astype(np.float64), w.astype(np.float64)
+        if not (np.array_equal(np.isnan(g64), np.isnan(w64))
+                and np.array_equal(g64[np.isinf(g64)], w64[np.isinf(w64)])
+                and np.array_equal(np.isinf(g64), np.isinf(w64))):
+            fail("dense op %s (%s) output %s: inf / NaN places differ from "
+                 "the CPU's" % (op, label, n))
+        fin = np.isfinite(w64)
+        if not fin.any():
+            continue
+        err = float(np.abs(g64[fin] - w64[fin]).max())
+        rel = err / max(1.0, float(np.abs(w64[fin]).max()))
+        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+        worst["max_rel_err"] = max(worst["max_rel_err"], rel)
+        if not rel <= DENSE_OP_TOL:
+            fail("dense op %s (%s) output %s differs from the CPU's by %g "
+                 "of max(1, |value|) > %g" % (op, label, n, rel,
+                                               DENSE_OP_TOL))
+    return worst
+
+
+def _dense_random_check(dev):
+    """The random ops on the card and the CPU: shapes, bounds, and the
+    mean and variance of DENSE_DRAWS draws within 5 standard errors of
+    the law's (the devices' generators differ: distribution only)."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    n = DENSE_DRAWS
+    trunc_var = 1.0 - 4.0 * math.exp(-2.0) / (
+        math.sqrt(2 * math.pi) * math.erf(2.0 / math.sqrt(2.0)))
+    cases = [
+        ("uniform_random_batch_size_like",
+         {"Input": [("ref", np.zeros((n // 4, 3), np.float32))]},
+         {"shape": [-1, 4], "min": -2.0, "max": 3.0},
+         (0.5, 25.0 / 12.0, -2.0, 3.0)),
+        ("gaussian_random_batch_size_like",
+         {"Input": [("ref", np.zeros((n // 4, 3), np.float32))]},
+         {"shape": [-1, 4], "mean": 1.5, "std": 0.5},
+         (1.5, 0.25, None, None)),
+        ("truncated_gaussian_random", {},
+         {"shape": [n // 16, 16], "mean": 1.0, "std": 2.0},
+         (1.0, 4.0 * trunc_var, -3.0, 5.0)),
+    ]
+    out = {}
+    for op, inputs, attrs, (mean, var, lo, hi) in cases:
+        main = _dense_program(op, inputs, {"Out": ["o"]}, attrs)
+        main.random_seed = 11
+        rec = {}
+        for d in (dev, torch.device("cpu")):
+            v = Executor(d).run(main, feed=_dense_feed(inputs),
+                                fetch_list=["o"], scope=Scope(),
+                                use_jit=False)[0].astype(np.float64)
+            if v.size != n or (lo is not None and (v.min() < lo
+                                                   or v.max() > hi)):
+                fail("%s on %s: %d draws in [%g, %g]" % (
+                    op, d, v.size, v.min(), v.max()))
+            z_mean = abs(v.mean() - mean) / math.sqrt(var / n)
+            z_var = abs(v.var() - var) / math.sqrt(2 * var * var / n)
+            if not (z_mean <= 5 and z_var <= 5):
+                fail("%s on %s: mean %g, variance %g, against %g and %g "
+                     "(%g and %g standard errors)" % (
+                         op, d, v.mean(), v.var(), mean, var, z_mean,
+                         z_var))
+            rec[d.type] = {"mean": float(v.mean()), "var": float(v.var()),
+                           "z_mean": z_mean, "z_var": z_var}
+        out[op] = rec
+    weights = np.tile(np.array([[1.0, 2.0, 5.0]], np.float32), (n, 1))
+    p = np.array([1.0, 2.0, 5.0]) / 8.0
+    hot = np.eye(5, dtype=np.float32)[[3, 0, 4, 1]]
+    rec = {}
+    for d in (dev, torch.device("cpu")):
+        for x, check in ((hot, "hot"), (weights, "weights")):
+            inputs = {"X": [("x", x)]}
+            main = _dense_program("sampling_id", inputs, {"Out": ["o"]}, {})
+            ids = Executor(d).run(main, feed=_dense_feed(inputs),
+                                  fetch_list=["o"], scope=Scope(),
+                                  use_jit=False)[0]
+            if check == "hot":
+                if ids.tolist() != [3, 0, 4, 1]:
+                    fail("sampling_id on %s of one-hot rows gave %s"
+                         % (d, ids.tolist()))
+                continue
+            share = np.bincount(ids, minlength=3) / n
+            z = np.abs(share - p) / np.sqrt(p * (1 - p) / n)
+            if ids.dtype != np.int64 or not (z <= 5).all():
+                fail("sampling_id on %s: shares %s against %s" % (
+                    d, share.tolist(), p.tolist()))
+            rec[d.type] = {"shares": share.tolist(), "z": z.tolist()}
+    out["sampling_id"] = rec
+    return out
+
+
+def _dense_ops_check(dev):
+    """Every case of :func:`_dense_cases` (its op and, where it has
+    differentiated inputs, their grads) on the card and on the CPU on the
+    same inputs, per op: the largest error, by op."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    per_op = collections.OrderedDict()
+    cpu = torch.device("cpu")
+    for label, op, inputs, outputs, attrs, diff, loss_of in _dense_cases():
+        fetch = [n for ns in outputs.values() for n in ns]
+        loss_w = None
+        if diff:
+            loss_of = loss_of or fetch[0]
+            probe = _dense_program(op, inputs, outputs, attrs)
+            shape = np.shape(_fetched(Executor(cpu).run(
+                probe, feed=_dense_feed(inputs), fetch_list=[loss_of],
+                scope=Scope(), use_jit=False)[0]))
+            loss_w = np.asarray(np.random.RandomState(7).randn(*shape),
+                                np.float32)
+            fetch = fetch + [n + "@GRAD" for n in diff]
+        main = _dense_program(op, inputs, outputs, attrs, diff, loss_of,
+                              loss_w)
+        got = {}
+        for d in (dev, cpu):
+            got[d.type] = Executor(d).run(
+                main, feed=_dense_feed(inputs, loss_w), fetch_list=fetch,
+                scope=Scope(), use_jit=False, return_numpy=True)
+        worst = _dense_compare(label, op, fetch, got[dev.type], got["cpu"],
+                               op in DENSE_EXACT)
+        types_ = [o.type for o in main.global_block().ops]
+        rec = per_op.setdefault(op, {"cases": 0, "max_abs_err": 0.0,
+                                     "max_rel_err": 0.0, "grad": None,
+                                     "bit_identical": op in DENSE_EXACT})
+        rec["cases"] += 1
+        rec["max_abs_err"] = max(rec["max_abs_err"], worst["max_abs_err"])
+        rec["max_rel_err"] = max(rec["max_rel_err"], worst["max_rel_err"])
+        if diff:
+            kind = "matmul_grad" if "matmul_grad" in types_ \
+                else "generic_grad"
+            rec["grad"] = sorted(set(rec["grad"] or []) | {kind})
+            if kind == "matmul_grad":
+                g = per_op.setdefault("matmul_grad", {
+                    "cases": 0, "max_abs_err": 0.0, "max_rel_err": 0.0,
+                    "grad": None, "bit_identical": False})
+                g["cases"] += 1
+                g["max_abs_err"] = max(g["max_abs_err"],
+                                       worst["max_abs_err"])
+                g["max_rel_err"] = max(g["max_rel_err"],
+                                       worst["max_rel_err"])
+    # range is a host op: a program of its own, on the hybrid path
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.core import ir
+    main, start = ir.Program(), ir.Program()
+    with ir.program_guard(main, start):
+        bounds = [layers.fill_constant([1], "float32", v)
+                  for v in (2.0, 11.0, 3.0)]
+        r = main.global_block().create_var(name="r", dtype=None)
+        main.global_block().append_op(
+            type="range", inputs={"Start": [bounds[0]], "End": [bounds[1]],
+                                  "Step": [bounds[2]]},
+            outputs={"Out": [r]})
+    got = {}
+    for d in (dev, cpu):
+        exe = Executor(d)
+        got[d.type] = exe.run(main, fetch_list=["r"], scope=Scope())
+        if exe.stats["hybrid_runs"] != 1:
+            fail("range on %s did not run on the hybrid path: %s"
+                 % (d, exe.stats))
+    _dense_compare("hybrid", "range", ["r"], got[dev.type], got["cpu"], True)
+    if got["cpu"][0].tolist() != [2, 5, 8]:
+        fail("range gave %s" % got["cpu"][0].tolist())
+    per_op["range"] = {"cases": 1, "max_abs_err": 0.0, "max_rel_err": 0.0,
+                       "grad": None, "bit_identical": True}
+    return per_op
+
+
+def _op_fn(op_type, in_slots, out_slots, attrs, dev, pure=None):
+    """The lowering of ``op_type`` as a function of tensors on ``dev``
+    (``run(slot=tensor, ...) -> [output tensors]``), its program marked
+    for AMP when ``pure`` is not None."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import ir, registry
+    from paddle_tpu_torch.core.executor import FunctionalContext
+    main = ir.Program()
+    blk = main.global_block()
+    ins = {s: [blk.create_var(name="in_" + s).name] for s in in_slots}
+    outs = {s: [blk.create_var(name="out_" + s).name] for s in out_slots}
+    op = blk.append_op(type=op_type, inputs=ins, outputs=outs,
+                       attrs=dict(attrs))
+    if pure is not None:
+        amp.enable(main, pure=pure)
+    lower = registry.lookup_checked(op_type).lower
+
+    def run(**vals):
+        ctx = FunctionalContext(op, {s: [vals[s]] for s in in_slots},
+                                dict(op.attrs), dev, type=op_type)
+        lower(ctx)
+        return [ctx.collected[s][0] for s in out_slots]
+    return run
+
+
+def _mm_err(got, want, bf16):
+    """(relative error, gate): the largest error over the largest
+    magnitude of ``want``; a bfloat16 output's gate is one bfloat16 ulp
+    of that magnitude plus 2e-5 of it."""
+    m = float(want.abs().max())
+    err = float((got.double() - want).abs().max())
+    gate = (_bf16_ulp(m) + 2e-5 * m) if bf16 else DENSE_MM_TOL * m
+    return err / m, gate / m
+
+
+def _dense_matmul(dev):
+    """``matmul`` and ``matmul_grad`` at GPT-2 small's attention shapes,
+    float32 and pure AMP, against float64 on the card, timed."""
+    B, H, S, D = DENSE_MM_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = []
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    q, k, v = rand(B, H, S, D), rand(B, H, S, D), rand(B, H, S, D)
+    ds, do = rand(B, H, S, S), rand(B, H, S, D)
+    w2 = rand(D, S)
+    alpha = 1.0 / math.sqrt(D)
+    for mode, pure in (("float32", None), ("pure_amp", True)):
+        cast = (lambda t: t.to(torch.bfloat16)) if pure else (lambda t: t)
+        bf16 = pure is not None
+        qk, qk_grad = _mm_fns(dev, pure, transpose_Y=True, alpha=alpha)
+        sv, sv_grad = _mm_fns(dev, pure)
+        xq, xk, xv, xds, xdo = (cast(t) for t in (q, k, v, ds, do))
+        s, = qk(X=xq, Y=xk)
+        o, = sv(X=s, Y=xv)
+        dq, dk = qk_grad(X=xq, Y=xk, **{"Out@GRAD": xds})
+        dsv, dv = sv_grad(X=s, Y=xv, **{"Out@GRAD": xdo})
+        q64, k64, v64, s64 = (t.double() for t in (xq, xk, xv, s))
+        ds64, do64 = xds.double(), xdo.double()
+        refs = {
+            "qk": (s, torch.matmul(q64, k64.transpose(-1, -2)) * alpha),
+            "sv": (o, torch.matmul(s64, v64)),
+            "qk_grad_dx": (dq, torch.matmul(ds64, k64) * alpha),
+            "qk_grad_dy": (dk, torch.matmul(ds64.transpose(-1, -2), q64)
+                           * alpha),
+            "sv_grad_dx": (dsv, torch.matmul(do64, v64.transpose(-1, -2))),
+            "sv_grad_dy": (dv, torch.matmul(s64.transpose(-1, -2), do64)),
+        }
+        errs = {}
+        for name, (got, want) in refs.items():
+            if (got.dtype == torch.bfloat16) != bf16:
+                fail("matmul %s %s came out %s" % (mode, name, got.dtype))
+            errs[name] = _mm_err(got, want, bf16)
+        ms = {
+            "qk": time_ms(lambda: qk(X=xq, Y=xk)),
+            "sv": time_ms(lambda: sv(X=s, Y=xv)),
+            "qk_grad": time_ms(lambda: qk_grad(X=xq, Y=xk,
+                                               **{"Out@GRAD": xds})),
+            "sv_grad": time_ms(lambda: sv_grad(X=s, Y=xv,
+                                               **{"Out@GRAD": xdo})),
+        }
+        rows.append({"mode": mode, "shape": list(DENSE_MM_SHAPE),
+                     "rel_err": {n: e for n, (e, _) in errs.items()},
+                     "gate": {n: g for n, (_, g) in errs.items()},
+                     "ms": ms})
+        for name, (e, g) in errs.items():
+            if not e <= g:
+                fail("matmul %s %s: error %g of the largest magnitude > "
+                     "%g against float64" % (mode, name, e, g))
+        del s, o, dq, dk, dsv, dv, refs
+        torch.cuda.empty_cache()
+    # Y of one [64, 1024] matrix broadcast over the 8 x 12 batch
+    bc, bc_grad = _mm_fns(dev, None)
+    out, = bc(X=q, Y=w2)
+    dout = rand(B, H, S, S)
+    dx, dw = bc_grad(X=q, Y=w2, **{"Out@GRAD": dout})
+    q64, w64, d64 = q.double(), w2.double(), dout.double()
+    errs = {"bcast": _mm_err(out, torch.matmul(q64, w64), False),
+            "bcast_grad_dx": _mm_err(dx, torch.matmul(
+                d64, w64.transpose(-1, -2)), False),
+            "bcast_grad_dy": _mm_err(dw, torch.matmul(
+                q64.transpose(-1, -2), d64).sum(dim=(0, 1)), False)}
+    if tuple(dw.shape) != (D, S):
+        fail("broadcast matmul_grad dY has shape %s" % (tuple(dw.shape),))
+    rows.append({"mode": "float32", "shape": [list(q.shape),
+                                              list(w2.shape)],
+                 "rel_err": {n: e for n, (e, _) in errs.items()},
+                 "gate": {n: g for n, (_, g) in errs.items()},
+                 "ms": {"bcast": time_ms(lambda: bc(X=q, Y=w2)),
+                        "bcast_grad": time_ms(lambda: bc_grad(
+                            X=q, Y=w2, **{"Out@GRAD": dout}))}})
+    for name, (e, g) in errs.items():
+        if not e <= g:
+            fail("matmul %s: error %g of the largest magnitude > %g "
+                 "against float64" % (name, e, g))
+    del q, k, v, ds, do, dout, out, dx, dw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _mm_fns(dev, pure, **extra):
+    """``matmul`` and ``matmul_grad`` under the attrs ``extra`` sets, as
+    functions of tensors (:func:`_op_fn`)."""
+    attrs = dict({"transpose_X": False, "transpose_Y": False,
+                  "alpha": 1.0}, **extra)
+    return (_op_fn("matmul", ("X", "Y"), ("Out",), attrs, dev, pure),
+            _op_fn("matmul_grad", ("X", "Y", "Out@GRAD"),
+                   ("X@GRAD", "Y@GRAD"), attrs, dev, pure))
+
+
+def _rec_model(w):
+    """``tests/book/test_recommender_system.py``'s model (the titles and
+    categories pooled by ``sequence_pool(sum)``, as there) at the widths
+    ``w``: embeddings of ``emb`` for user, movie, category and title and
+    of ``small_emb`` for gender, age and job; fcs of ``user_fc`` (user),
+    ``small_fc`` (gender, age, job) and ``emb`` (movie); both fused fcs
+    ``fused`` wide with tanh; ``cos_sim``, ``scale`` 5,
+    ``square_error_cost``, SGD."""
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch import optimizer
+
+    def ids(name, lod_level=0):
+        return L.data(name=name, shape=[1], dtype="int64",
+                      lod_level=lod_level)
+
+    def emb_fc(v, rows, width, size):
+        return L.fc(input=L.embedding(input=v, size=[rows, width]),
+                    size=size)
+
+    uid, gender, age, job = (ids(n) for n in ("user_id", "gender_id",
+                                               "age_id", "job_id"))
+    usr = L.fc(input=L.concat(input=[
+        emb_fc(uid, w["users"] + 1, w["emb"], w["user_fc"]),
+        emb_fc(gender, 2, w["small_emb"], w["small_fc"]),
+        emb_fc(age, w["ages"], w["small_emb"], w["small_fc"]),
+        emb_fc(job, w["jobs"], w["small_emb"], w["small_fc"])], axis=1),
+        size=w["fused"], act="tanh")
+    mov_id = ids("movie_id")
+    mov_fc = emb_fc(mov_id, w["movies"] + 1, w["emb"], w["emb"])
+    category = ids("category_id", lod_level=1)
+    mov_cat = L.sequence_pool(input=L.embedding(
+        input=category, size=[w["categories"], w["emb"]]), pool_type="sum")
+    title = ids("title_ids", lod_level=1)
+    title_pool = L.sequence_pool(input=L.embedding(
+        input=title, size=[w["titles"], w["emb"]]), pool_type="sum")
+    mov = L.fc(input=L.concat(input=[mov_fc, mov_cat, title_pool], axis=1),
+               size=w["fused"], act="tanh")
+    scale_infer = L.scale(x=L.cos_sim(X=usr, Y=mov), scale=5.0)
+    label = L.data(name="score", shape=[1], dtype="float32")
+    cost = L.mean(L.square_error_cost(input=scale_infer, label=label))
+    return {"cost": cost,
+            "feed_list": [uid, gender, age, job, mov_id, category, title,
+                          label],
+            "optimizer": optimizer.SGD(learning_rate=w["learning_rate"])}
+
+
+def _rec_batch(w, seed=0):
+    """One fixed batch of ``w["batch"]`` MovieLens-1M-shaped rows from a
+    seed: ids in the corpus' ranges, 1 to ``max_categories`` distinct
+    categories and 1 to ``max_title`` title words a row, scores 1-5."""
+    rng = np.random.RandomState(seed)
+    rows = []
+    for _ in range(w["batch"]):
+        cats = sorted(rng.choice(w["categories"], rng.randint(
+            1, w["max_categories"] + 1), replace=False).tolist())
+        title = rng.randint(0, w["titles"], rng.randint(
+            1, w["max_title"] + 1)).tolist()
+        rows.append((int(rng.randint(1, w["users"] + 1)),
+                     int(rng.randint(0, 2)), int(rng.randint(0, w["ages"])),
+                     int(rng.randint(0, w["jobs"])),
+                     int(rng.randint(1, w["movies"] + 1)), cats, title,
+                     np.array([float(rng.randint(1, 6))], np.float32)))
+    return rows
+
+
+def _book_param_shapes(kind, w):
+    """The parameters of ``kind`` at the widths ``w``, by name in the
+    order the layers create them: {name: shape}."""
+    if kind == "word2vec":
+        return {"shared_w": (w["vocab"], w["emb"]),
+                "fc_0.w_0": (4 * w["emb"], w["hidden"]),
+                "fc_0.b_0": (w["hidden"],),
+                "fc_1.w_0": (w["hidden"], w["vocab"]),
+                "fc_1.b_0": (w["vocab"],)}
+    e, s = w["emb"], w["small_emb"]
+    # (rows, width) of embedding_i; (in, out) of fc_i
+    tables = [(w["users"] + 1, e), (2, s), (w["ages"], s), (w["jobs"], s),
+              (w["movies"] + 1, e), (w["categories"], e), (w["titles"], e)]
+    fcs = [(e, w["user_fc"]), (s, w["small_fc"]), (s, w["small_fc"]),
+           (s, w["small_fc"]), (w["user_fc"] + 3 * w["small_fc"], w["fused"]),
+           (e, e), (3 * e, w["fused"])]
+    shapes = {"embedding_%d.w_0" % i: t for i, t in enumerate(tables)}
+    for i, (n_in, n_out) in enumerate(fcs):
+        shapes["fc_%d.w_0" % i] = (n_in, n_out)
+        shapes["fc_%d.b_0" % i] = (n_out,)
+    return shapes
+
+
+def _feed_ids(feed, name):
+    v = feed[name]
+    return (v.data if hasattr(v, "lod") else v).reshape(-1).long()
+
+
+def _plain_w2v_loss(p, feed):
+    """The word2vec N-gram model written out in torch from its
+    parameters ``p``: the four context words looked up in one table,
+    concatenated, fc + sigmoid, fc + softmax, the mean cross entropy
+    against the next word."""
+    w = p["shared_w"]
+    emb = torch.cat([w[_feed_ids(feed, "w%d" % i)] for i in range(4)], 1)
+    h = torch.sigmoid(emb @ p["fc_0.w_0"] + p["fc_0.b_0"])
+    prob = torch.softmax(h @ p["fc_1.w_0"] + p["fc_1.b_0"], dim=1)
+    label = _feed_ids(feed, "next_word").reshape(-1, 1)
+    return -torch.log(prob.gather(1, label)).mean()
+
+
+def _plain_rec_loss(p, feed):
+    """``tests/book/test_recommender_system.py``'s model written out in
+    torch from its parameters ``p``: each id's embedding through a
+    linear fc, the user's four and the movie's id fc with the summed
+    category and title embeddings concatenated, each through an fc with
+    tanh; 5 x their cosine against the score, the mean squared error."""
+    def fc(x, i):
+        return x @ p["fc_%d.w_0" % i] + p["fc_%d.b_0" % i]
+
+    def look(i, name):
+        return p["embedding_%d.w_0" % i][_feed_ids(feed, name)]
+
+    def sum_pool(i, name):
+        rows = look(i, name)
+        offs = feed[name].lod[0].to(rows.device).long()
+        seg = torch.repeat_interleave(
+            torch.arange(offs.numel() - 1, device=rows.device),
+            offs[1:] - offs[:-1])
+        return torch.zeros((offs.numel() - 1, rows.shape[1]),
+                           dtype=rows.dtype, device=rows.device) \
+            .index_add(0, seg, rows)
+
+    usr = torch.tanh(fc(torch.cat([
+        fc(look(0, "user_id"), 0), fc(look(1, "gender_id"), 1),
+        fc(look(2, "age_id"), 2), fc(look(3, "job_id"), 3)], 1), 4))
+    mov = torch.tanh(fc(torch.cat([
+        fc(look(4, "movie_id"), 5), sum_pool(5, "category_id"),
+        sum_pool(6, "title_ids")], 1), 6))
+    cos = (usr * mov).sum(1, keepdim=True) / (
+        usr.norm(dim=1, keepdim=True) * mov.norm(dim=1, keepdim=True)
+        + 1e-12)
+    score = feed["score"].to(cos.dtype).reshape(-1, 1)
+    return ((5.0 * cos - score) ** 2).mean()
+
+
+def _book_grad_check(trainer, spec, feed, label, kind, width):
+    """Step 1 through the Executor, fetching every parameter's @GRAD,
+    against float64 torch.autograd of the model written out in torch
+    (:func:`_plain_w2v_loss`, :func:`_plain_rec_loss`) on the state the
+    step started from; the program's parameters must be that model's,
+    at the widths ``width``."""
+    from paddle_tpu_torch.core.scope import global_scope
+    scope = global_scope()
+    prog = trainer.main_program
+    cost = spec["cost"].name
+    params = [p.name for p in prog.all_parameters() if p.trainable]
+    shapes = {n: tuple(scope.find_var(n).shape) for n in params}
+    want_shapes = _book_param_shapes(kind, width)
+    if shapes != want_shapes:
+        fail("%s: the program's parameters %s are not the model's %s"
+             % (label, shapes, want_shapes))
+    start = {n: scope.find_var(n).detach().double().clone()
+             .requires_grad_(True) for n in params}
+    outs = trainer.exe.run(prog, feed=feed,
+                           fetch_list=[cost] + [n + "@GRAD" for n in params],
+                           return_numpy=False)
+    plain = _plain_w2v_loss if kind == "word2vec" else _plain_rec_loss
+    loss = plain(start, feed)
+    want = dict(zip(params, torch.autograd.grad(
+        loss, [start[n] for n in params])))
+    rel = {n: float((g.double() - want[n]).norm() / want[n].norm())
+           for n, g in zip(params, outs[1:])}
+    worst = max(rel, key=rel.get)
+    checks = {"params_checked": len(params),
+              "tolerance_rel": BOOK_GRAD_REL_TOL,
+              "norm_rel_err": rel[worst], "worst_param": worst,
+              "norm_rel_err_median": float(np.median(list(rel.values()))),
+              "loss": float(outs[0].reshape(-1)[0]),
+              "loss_abs_err": abs(float(outs[0].reshape(-1)[0])
+                                  - float(loss.detach()))}
+    if "shared_w" in rel:
+        checks["shared_w_norm_rel_err"] = rel["shared_w"]
+    log(json.dumps({label + "_grad_check": checks}))
+    if not rel[worst] <= BOOK_GRAD_REL_TOL:
+        fail("%s: step-1 gradient of %s differs from float64 autograd by "
+             "%g (relative norm) > %g" % (label, worst, rel[worst],
+                                          BOOK_GRAD_REL_TOL))
+    return checks
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _dense_book(dev, kind):
+    """``kind`` ("word2vec" or "recommender") at its book widths: step-1
+    gradients against float64 autograd, BOOK_STEPS compiled steps on one
+    fixed batch through ``Trainer.train`` (the loss falls; one capture
+    and a replay a step), then BOOK_STEPS steps on the per-op path:
+    (launch counts of the compiled run, a summary)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.configs import word2vec
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.trainer import BeginIteration, EndIteration, \
+        Trainer
+    label = "dense_" + kind
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        if kind == "word2vec":
+            spec = word2vec.model(vocab=W2V_BOOK["vocab"],
+                                  emb=W2V_BOOK["emb"],
+                                  hidden=W2V_BOOK["hidden"])
+            batch = next(iter(spec["reader"]()))
+            width = W2V_BOOK
+            if len(batch) != width["batch"]:
+                fail("word2vec: the config's batch is %d, not %d"
+                     % (len(batch), width["batch"]))
+        else:
+            spec = _rec_model(REC_BOOK)
+            batch = _rec_batch(REC_BOOK)
+            width = REC_BOOK
+        trainer = Trainer(spec["cost"], spec["optimizer"],
+                          spec["feed_list"], device=dev)
+    names = [p.name for p in main_prog.all_parameters()]
+    if kind == "word2vec" and names.count("shared_w") != 1:
+        fail("word2vec: %d parameters named shared_w"
+             % names.count("shared_w"))
+    with scope_guard(Scope()):
+        trainer._maybe_init()
+        feed = trainer.feeder.feed(batch)
+        checks = _book_grad_check(trainer, spec, feed, label, kind,
+                                  width)
+        losses, step_s, marks = [], [], {}
+
+        def handler(e):
+            if isinstance(e, BeginIteration):
+                marks["t"] = time.monotonic()
+            elif isinstance(e, EndIteration):
+                step_s.append(time.monotonic() - marks["t"])
+                losses.append(e.cost)
+
+        _sync(dev)
+        kernels.reset_launches()
+        exe_before = dict(trainer.exe.stats)
+        trainer.train(lambda: (batch for _ in range(BOOK_STEPS)),
+                      num_passes=1, event_handler=handler)
+        launches = kernels.launch_counts()
+        delta = _exe_delta(trainer.exe, exe_before)
+        _compiled_gate(label, delta, len(losses))
+        if len(losses) != BOOK_STEPS or not (
+                np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            fail("%s: the loss did not fall on the fixed batch: %s"
+                 % (label, losses))
+        eager_s = []
+        for _ in range(BOOK_STEPS):
+            t0 = time.monotonic()
+            trainer.exe.run(main_prog, feed=trainer.feeder.feed(batch),
+                            fetch_list=[spec["cost"]], use_jit=False)
+            _sync(dev)
+            eager_s.append(time.monotonic() - t0)
+    p50, ep50 = float(np.median(step_s)), float(np.median(eager_s))
+    rec = {"config": {k: v for k, v in width.items()},
+           "program_ops": len(main_prog.global_block().ops),
+           "grad_check": checks, "losses": losses, "executor": delta,
+           "step_ms_compiled": [t * 1e3 for t in step_s],
+           "step_ms_p50_compiled": p50 * 1e3,
+           "step_ms_p50_eager": ep50 * 1e3,
+           "samples_per_s_compiled": width["batch"] / p50,
+           "samples_per_s_eager": width["batch"] / ep50,
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(json.dumps({label: rec}))
+    log("%s_train_samples_per_sec %.3f compiled, %.3f eager (batch %d, "
+        "step p50 %.3f / %.3f ms)" % (
+            label, width["batch"] / p50, width["batch"] / ep50,
+            width["batch"], p50 * 1e3, ep50 * 1e3))
+    trainer.exe.close()
+    del trainer
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, rec
+
+
+def _dense_cli(root):
+    """``python -m paddle_tpu_torch train`` of the word2vec config (its
+    own widths and reader), on the card by default: exit 0."""
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch", "train",
+         os.path.join("paddle_tpu_torch", "configs", "word2vec.py")],
+        cwd=root, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=root))
+    rec = {"rc": out.returncode, "seconds": time.monotonic() - t0,
+           "last_line": (out.stdout.strip().splitlines() or [""])[-1]}
+    if out.returncode != 0:
+        fail("phase 17: train word2vec.py exited %d:\n%s\n%s"
+             % (out.returncode, out.stdout[-3000:], out.stderr[-3000:]))
+    return rec
+
+
+def phase_dense(dev, root):
+    """Phase 17: the dense tensor and loss ops and their grads on the
+    card against the CPU, ``matmul`` at GPT-2 small's attention shapes
+    against float64, and the word2vec and recommender book models.
+    Returns {path: launches}."""
+    from paddle_tpu_torch import tune
+    from paddle_tpu_torch.flags import FLAGS
+    t0 = time.monotonic()
+    old_dir = FLAGS.tune_cache_dir
+    FLAGS.tune_cache_dir = _fresh_dir(os.path.join(
+        root, "build", "chip_smoke", "tune_dense"))
+    tune.clear_memory_cache()
+    try:
+        per_op = _dense_ops_check(dev)
+        log(json.dumps({"dense_ops": per_op}))
+        log(json.dumps({"dense_random": _dense_random_check(dev)}))
+        log(json.dumps({"dense_matmul": _dense_matmul(dev)}))
+        paths, books = {}, {}
+        for kind in ("word2vec", "recommender"):
+            paths["dense_" + kind], books[kind] = _dense_book(dev, kind)
+        log(json.dumps({"dense_cli_word2vec": _dense_cli(root)}))
+    finally:
+        FLAGS.tune_cache_dir = old_dir
+        tune.clear_memory_cache()
+    log(json.dumps({"dense_wall_s": time.monotonic() - t0,
+                    "word2vec_step_ms_p50": books["word2vec"][
+                        "step_ms_p50_compiled"],
+                    "recommender_step_ms_p50": books["recommender"][
+                        "step_ms_p50_compiled"],
+                    "card": card_line()}))
+    return paths
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -8485,6 +9420,7 @@ def main():
     optim_paths = timed(14, phase_optimization, dev, plain_steps)
     memory_paths = timed(15, phase_memory, dev, root, plain_steps)
     resilience_paths = timed(16, phase_resilience, dev, root, plain_steps)
+    dense_paths = timed(17, phase_dense, dev, root)
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
     paths = {"serve": serve_launches, **spec_paths, **disagg_paths,
              "train": train5["launches"],
@@ -8494,7 +9430,7 @@ def main():
              "tuned_train": tuned_launches,
              "convnet_conv3x3_consult": consult_launches, **amp_paths,
              **compiled_paths, **checkpoint_paths, **optim_paths,
-             **memory_paths, **resilience_paths}
+             **memory_paths, **resilience_paths, **dense_paths}
     for name, entry in kernels.items():
         # each main path is read with the counts set to 0 just before it
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -1,9 +1,10 @@
 """The layers DSL (counterpart of ``paddle_tpu/layers``): the layers the
-transformer LM, ResNet, the stacked-RNN text classifier, their losses
-and the optimization surface (clipping, regularization, learning-rate
-schedules) call. Importing it registers the op lowerings, whose shape
-inference runs as the ops are appended. Variables get their operator
-sugar (``math_op_patch.py``) here."""
+transformer LM, ResNet, the stacked-RNN text classifier, their losses,
+the optimization surface (clipping, regularization, learning-rate
+schedules) and the dense tensor and loss ops call. Importing it
+registers the op lowerings, whose shape inference runs as the ops are
+appended. Variables get their operator sugar (``math_op_patch.py``)
+here."""
 from .. import ops as _registered_ops  # noqa: F401
 from . import io, math_op_patch, nn, sequence, tensor  # noqa: F401
 from . import ops as _ops_mod

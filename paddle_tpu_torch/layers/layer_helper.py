@@ -98,6 +98,9 @@ class LayerHelper(object):
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, stop_gradient=stop_gradient)
 
+    def create_variable(self, *args, **kwargs):
+        return self.main_block.create_var(*args, **kwargs)
+
     def create_global_variable(self, persistable=False, *args, **kwargs):
         return self.main_program.global_block().create_var(
             *args, persistable=persistable, **kwargs)

@@ -1,8 +1,13 @@
 """NN layers of the transformer LM, of ResNet and their losses and
-metrics, and the math layers of the optimization surface (``log``,
-``reduce_*``, ``clip``, ``clip_by_norm``, ``elementwise_*``; the
-matching part of ``paddle_tpu/layers/nn.py``): each appends ops to the
-current block.
+metrics, the math layers of the optimization surface (``log``,
+``reduce_*``, ``clip``, ``clip_by_norm``, ``elementwise_*``), and the
+dense tensor and loss layers (``smooth_l1`` :294,
+``sigmoid_cross_entropy_with_logits`` :425, ``matmul`` :488, ``mul``
+:498, ``dot`` :508, ``slice`` :605, ``cos_sim`` :616, ``one_hot`` :629,
+``pad`` :668, ``label_smooth`` :676, ``transpose`` :693, ``split`` :701,
+``concat_nn`` :721, ``expand`` :725, ``squeeze`` :729, ``unsqueeze`` :733; the matching part
+of ``paddle_tpu/layers/nn.py``): each appends ops to the current
+block.
 Names are generated in the JAX package's order, so a program built in
 both packages under ``unique_name.guard()`` has the same variables."""
 from __future__ import annotations
@@ -13,13 +18,16 @@ from ..initializer import ConstantInitializer, NormalInitializer
 from ..param_attr import ParamAttr
 from .layer_helper import LayerHelper
 
-__all__ = ["accuracy", "batch_norm", "clip", "clip_by_norm", "conv2d",
-           "cross_entropy", "elementwise_add", "elementwise_div",
-           "elementwise_mul", "elementwise_sub", "embedding", "fc",
-           "layer_norm", "log", "mean", "pool2d", "reduce_max",
-           "reduce_mean", "reduce_min", "reduce_sum", "relu",
-           "reshape", "scale", "softmax", "softmax_with_cross_entropy",
-           "square_error_cost", "topk"]
+__all__ = ["accuracy", "batch_norm", "clip", "clip_by_norm", "concat_nn",
+           "conv2d", "cos_sim", "cross_entropy", "dot", "elementwise_add",
+           "elementwise_div", "elementwise_mul", "elementwise_sub",
+           "embedding", "expand", "fc", "label_smooth", "layer_norm", "log",
+           "matmul", "mean", "mul", "one_hot", "pad", "pool2d",
+           "reduce_max", "reduce_mean", "reduce_min", "reduce_sum", "relu",
+           "reshape", "scale", "sigmoid_cross_entropy_with_logits", "slice",
+           "smooth_l1", "softmax", "softmax_with_cross_entropy", "split",
+           "square_error_cost", "squeeze", "topk", "transpose",
+           "unsqueeze"]
 
 
 def _pair(v):
@@ -365,3 +373,151 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=True, name=None):
     helper.append_op(type="reshape", inputs={"X": [x]},
                      outputs={"Out": [out]}, attrs={"shape": list(shape)})
     return helper.append_activation(out) if act else out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=1.0):
+    """Per-row smooth-L1 loss [N, 1], built of elementwise ops as the
+    JAX layer builds it: with a = |(x - y) * inside_weight| and t =
+    1 / sigma^2, 0.5 sigma^2 min(a, t)^2 + (a - min(a, t)), times
+    outside_weight, summed over dim 1."""
+    from .. import layers as _F
+    diff = _F.elementwise_sub(x, y)
+    if inside_weight is not None:
+        diff = _F.elementwise_mul(diff, inside_weight)
+    s2 = float(sigma) * float(sigma)
+    t = 1.0 / s2
+    a = _F.abs(diff)
+    amin = _F.clip(a, 0.0, t)
+    quad = _F.scale(_F.elementwise_mul(amin, amin), scale=0.5 * s2)
+    per_elem = _F.elementwise_add(quad, _F.elementwise_sub(a, amin))
+    if outside_weight is not None:
+        per_elem = _F.elementwise_mul(per_elem, outside_weight)
+    return _F.reduce_sum(per_elem, dim=1, keep_dim=True)
+
+
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="matmul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y, "alpha": alpha})
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1):
+    helper = LayerHelper("mul")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="mul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def dot(x, y, name=None):
+    """sum(x * y) over the last dim, kept as a dim of 1."""
+    helper = LayerHelper("dot", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="reduce_sum", inputs={"X": [x * y]},
+                     outputs={"Out": [out]},
+                     attrs={"dim": [-1], "keep_dim": True})
+    return out
+
+
+def slice(input, axes, starts, ends, name=None):
+    helper = LayerHelper("slice", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends)})
+    return out
+
+
+def cos_sim(X, Y):
+    """Row-wise cosine similarity [N, 1] of X and Y."""
+    helper = LayerHelper("cos_sim", **locals())
+    out = helper.create_variable_for_type_inference(dtype=X.dtype)
+    xnorm = helper.create_variable_for_type_inference(dtype=X.dtype)
+    ynorm = helper.create_variable_for_type_inference(dtype=X.dtype)
+    out.shape = (X.shape[0], 1) if X.shape else None
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xnorm],
+                              "YNorm": [ynorm]})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _simple("pad", x, {"paddings": paddings, "pad_value": pad_value})
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    """(1 - epsilon) label + epsilon prior, the prior uniform when
+    ``prior_dist`` is None: ``scale`` and ``elementwise_add`` ops, as the
+    JAX layer appends (not the ``label_smooth`` op)."""
+    if prior_dist is None:
+        return scale(label, 1.0 - epsilon, epsilon / label.shape[-1])
+    prior_term = scale(prior_dist, epsilon)
+    return elementwise_add(scale(label, 1.0 - epsilon), prior_term)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="transpose", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": list(perm)})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """``input`` cut along ``dim`` into ``num_or_sections`` equal pieces
+    (an int) or pieces of the listed sizes: the list of outputs."""
+    helper = LayerHelper("split", **locals())
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        num, sections = num_or_sections, []
+    else:
+        num, sections = 0, list(num_or_sections)
+    n_out = num if num else len(sections)
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n_out)]
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs},
+                     attrs={"axis": dim, "num": num, "sections": sections})
+    return outs
+
+
+def concat_nn(input, axis=0, name=None):
+    from .tensor import concat as _concat
+    return _concat(input, axis, name)
+
+
+def expand(x, expand_times, name=None):
+    return _simple("expand", x, {"expand_times": list(expand_times)})
+
+
+def squeeze(input, axes, name=None):
+    return _simple("squeeze", input, {"axes": list(axes)})
+
+
+def unsqueeze(input, axes, name=None):
+    return _simple("unsqueeze", input, {"axes": list(axes)})

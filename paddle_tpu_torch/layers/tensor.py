@@ -1,8 +1,10 @@
-"""Tensor layers (the matching part of ``paddle_tpu/layers/tensor.py``):
-``cast``, ``sums``, ``assign`` (of a Variable, or of a Python or numpy
-value through ``assign_value``), ``fill_constant``,
-``fill_constant_batch_size_like``, ``autoincreased_step_counter`` and
-``increment``."""
+"""Tensor layers (``paddle_tpu/layers/tensor.py``): ``create_tensor`` :22,
+``create_parameter`` :28, ``create_global_var`` :37, ``cast``,
+``concat`` :58, ``sums``, ``assign`` (of a Variable, or of a Python or
+numpy value through ``assign_value``), ``fill_constant``,
+``fill_constant_batch_size_like``, ``ones`` :120, ``zeros`` :124,
+``argmax`` :128, ``argmin`` :136, ``reverse`` :144,
+``autoincreased_step_counter`` and ``increment``."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,8 +13,40 @@ from ..core import ir
 from ..core.types import convert_dtype
 from .layer_helper import LayerHelper
 
-__all__ = ["assign", "autoincreased_step_counter", "cast", "fill_constant",
-           "fill_constant_batch_size_like", "increment", "sums"]
+__all__ = ["argmax", "argmin", "assign", "autoincreased_step_counter",
+           "cast", "concat", "create_global_var", "create_parameter",
+           "create_tensor", "fill_constant", "fill_constant_batch_size_like",
+           "increment", "ones", "reverse", "sums", "zeros"]
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_variable(name=helper.name, dtype=dtype,
+                                  persistable=persistable)
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """A parameter of ``shape`` in both programs, initialized in the
+    startup program by ``default_initializer`` (else the default weight
+    or bias initializer)."""
+    from ..param_attr import ParamAttr
+    helper = LayerHelper("create_parameter", name=name)
+    attr = ParamAttr.to_attr(attr) if attr else ParamAttr(name=name)
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A global variable filled with ``value`` by the startup program."""
+    from ..initializer import ConstantInitializer
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(dtype=dtype, shape=shape,
+                                        persistable=persistable,
+                                        name=name)
+    helper.set_variable_initializer(var, ConstantInitializer(value))
+    return var
 
 
 def cast(x, dtype):
@@ -54,6 +88,15 @@ def fill_constant_batch_size_like(input, shape, dtype, value,
     return out
 
 
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(
+        dtype=helper.input_dtype())
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
 def sums(input, out=None):
     helper = LayerHelper("sum")
     if out is None:
@@ -82,6 +125,40 @@ def assign(input, output=None):
                          attrs={"shape": list(value.shape), "values": value,
                                 "dtype": str(value.dtype)})
     return output
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=1.0)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=0.0)
+
+
+def argmax(x, axis=0):
+    helper = LayerHelper("arg_max")
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="arg_max", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def argmin(x, axis=0):
+    helper = LayerHelper("arg_min")
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="arg_min", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def reverse(x, axis):
+    helper = LayerHelper("reverse")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="reverse", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"axis": axis if isinstance(axis, (list, tuple))
+                            else [axis]})
+    return out
 
 
 def autoincreased_step_counter(counter_name=None, begin=1, step=1):

@@ -1,7 +1,8 @@
 """Importing this package registers every op lowering of the port
 (counterpart of ``paddle_tpu/ops/__init__.py``). The ported slices hold
 the ops of the transformer LM's, ResNet's, the stacked-RNN text
-classifier's and fit_a_line's training steps, and the host IO ops."""
+classifier's and fit_a_line's training steps, the host IO ops, and the
+dense tensor and loss ops (word2vec's, the recommender's)."""
 from . import (  # noqa: F401
     common,
     generic_grad,

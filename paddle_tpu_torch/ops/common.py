@@ -1,5 +1,7 @@
 """Shared lowering helpers (counterpart of ``paddle_tpu/ops/common.py``):
-Paddle's elementwise broadcasting and the mul op's 2-D flattening."""
+Paddle's elementwise broadcasting, the mul op's 2-D flattening, and
+``abs`` and ``clip`` with the gradients JAX gives them where the
+function has a corner (ROADMAP Queue 3 #27)."""
 from __future__ import annotations
 
 import torch
@@ -8,8 +10,8 @@ from .. import amp
 from ..core.executor import raw_data, with_lod_of
 from ..core.types import convert_dtype, torch_dtype
 
-__all__ = ["bcast_y_to_x", "elementwise", "flatten_to_2d", "np_dtype",
-           "prod", "tdt"]
+__all__ = ["bcast_y_to_x", "elementwise", "flatten_to_2d", "jax_abs",
+           "jax_clip", "np_dtype", "prod", "tdt"]
 
 
 def np_dtype(attr_val, default="float32"):
@@ -64,3 +66,21 @@ def prod(it):
     for v in it:
         p *= int(v)
     return p
+
+
+def jax_abs(x):
+    """|x| with ``jnp.abs``'s gradient: +1 at 0 (``torch.abs`` gives 0
+    there); ``x + 0.0`` makes -0.0 into +0.0, as ``jnp.abs`` does."""
+    return torch.where(x >= 0, x + 0.0, -x)
+
+
+def jax_clip(x, lo=None, hi=None):
+    """``jnp.clip``: min(max(x, lo), hi), so that at a bound each side
+    takes half the gradient (``torch.clamp`` passes all of it)."""
+    # each bound filled on the device (``new_full``): a tensor made from
+    # a host value would be a copy, which a CUDA graph capture refuses
+    if lo is not None:
+        x = torch.maximum(x, x.new_full((), lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_full((), hi))
+    return x

@@ -2,7 +2,8 @@
 (counterpart of the matching part of ``paddle_tpu/ops/explicit_grads.py``:
 ``relu_grad``, the output-form activation grads :90-110 (``tanh``,
 ``sigmoid``, ``exp``, ``sqrt``, ``reciprocal``), ``softmax_grad`` :113,
-``mul_grad``, ``elementwise_{add,sub,mul}_grad`` :238-281,
+``mul_grad``, ``matmul_grad`` :159 with its maker :199,
+``elementwise_{add,sub,mul}_grad`` :238-281,
 ``conv2d_grad`` :285, ``pool2d_grad`` :366, ``batch_norm_grad`` :408,
 ``cross_entropy_grad`` :478,
 ``softmax_with_cross_entropy_grad``, ``mean_grad``, ``scale_grad``).
@@ -23,7 +24,7 @@ from ..core.ir import grad_var_name
 from ..core.registry import register_op
 from ..core.types import is_floating
 from .common import bcast_y_to_x, flatten_to_2d
-from .math_ops import acc_matmul
+from .math_ops import acc_matmul, swap_last
 from .nn_ops import _bn_grad_maker, bn_axes, conv3x3_config, pool2d_apply
 
 __all__ = ["simple_grad_maker"]
@@ -143,6 +144,64 @@ def mul_grad(ctx):
 
 
 _attach("mul", "mul_grad", need_inputs=("X", "Y"), diff_slots=("X", "Y"))
+
+
+def _unbcast(g, shape):
+    """``g`` summed over the leading dims it has beyond ``shape`` and
+    over each dim that ``shape`` broadcast from 1."""
+    extra = g.ndim - len(shape)
+    if extra > 0:
+        g = torch.sum(g, dim=tuple(range(extra)))
+    for i, (gs, s) in enumerate(zip(g.shape, shape)):
+        if s == 1 and gs != 1:
+            g = torch.sum(g, dim=i, keepdim=True)
+    return g.reshape(shape)
+
+
+@register_op("matmul_grad", no_gradient=True)
+def matmul_grad(ctx):
+    """dX and dY of ``matmul`` with its ``transpose_X`` / ``transpose_Y``
+    and ``alpha`` (dOut scaled by ``alpha`` first); the gradient of an
+    operand whose batch dims were broadcast is summed over them. Under
+    AMP X, Y and dOut are cast to bfloat16 and the products summed in
+    float32; dX / dY are written in X's / Y's dtype."""
+    x = raw_data(ctx.input("X"))
+    y = raw_data(ctx.input("Y"))
+    dy = raw_data(ctx.input("Out@GRAD"))
+    xdt, ydt = x.dtype, y.dtype
+    x, y, dy = amp.cast_inputs(ctx, x, y, dy)
+    alpha = ctx.attr("alpha", 1.0)
+    if alpha != 1.0:
+        dy = dy * alpha
+    tx = ctx.attr("transpose_X", False)
+    ty = ctx.attr("transpose_Y", False)
+    xo = swap_last(x) if tx else x
+    yo = swap_last(y) if ty else y
+    if ctx.op.output("X@GRAD"):
+        dxo = acc_matmul(dy, swap_last(yo))
+        dx = swap_last(dxo) if tx else dxo
+        ctx.set_output("X@GRAD", _unbcast(dx, x.shape).to(xdt))
+    if ctx.op.output("Y@GRAD"):
+        dyo = acc_matmul(swap_last(xo), dy)
+        dw = swap_last(dyo) if ty else dyo
+        ctx.set_output("Y@GRAD", _unbcast(dw, y.shape).to(ydt))
+
+
+def _matmul_grad_maker(op, block, grad_of, no_grad):
+    """``matmul_grad`` for operands of 2 dims or more; a 1-D operand
+    (``jnp.matmul``'s vector rules) takes the generic grad."""
+    xv = block._find_var_recursive(op.input("X")[0])
+    yv = block._find_var_recursive(op.input("Y")[0])
+    if (xv is None or yv is None or xv.shape is None or yv.shape is None
+            or len(xv.shape) < 2 or len(yv.shape) < 2):
+        from ..core.backward import default_grad_maker
+        return default_grad_maker(op, block, grad_of, no_grad)
+    return simple_grad_maker("matmul_grad", need_inputs=("X", "Y"),
+                             diff_slots=("X", "Y"))(op, block, grad_of,
+                                                    no_grad)
+
+
+registry.lookup_checked("matmul").grad_maker = _matmul_grad_maker
 
 
 def _unbcast_to(g, shape, axis):

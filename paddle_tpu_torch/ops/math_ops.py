@@ -1,8 +1,9 @@
 """Math ops (counterparts in ``paddle_tpu/ops/math_ops.py``: ``mul`` :61
-with ``_gemm_dispatch`` :27, the elementwise family :132-142, ``minus``
-:145, ``sum`` :154, ``scale`` :176, ``clip`` :187, ``clip_by_norm``
-:193, ``cumsum`` :201, the reductions :217-268, ``mean`` :279, the
-comparisons and logicals :297-323, ``top_k`` :325).
+with ``_gemm_dispatch`` :27, ``matmul`` :103 with ``_infer_matmul`` :85,
+the elementwise family :132-142, ``minus`` :145, ``sum`` :154, ``scale``
+:176, ``clip`` :187, ``clip_by_norm`` :193, ``cumsum`` :201, the
+reductions :217-268, ``mean`` :279, ``norm`` :285, the comparisons and
+logicals :297-323, ``top_k`` :325, ``maximum`` :335, ``isfinite`` :342).
 
 ``mul`` is one gemm of the flattened operands, routed through
 ``paddle_tpu_torch.tune`` as the JAX op is: only a cached
@@ -20,6 +21,12 @@ which writes ``x.dtype`` (bfloat16) as the JAX kernel called with
 bfloat16 once before the cast back to float32, and an untuned one's is
 not (``ROADMAP.md``, faults of the reference). Pure AMP keeps the
 output bfloat16.
+
+``matmul`` is ``jnp.matmul``'s product (batch dims broadcast, 1-D
+operands by the vector rules) with no kernel of its own in either
+package: it is :func:`acc_matmul`, a library product, whose bfloat16
+operands under AMP are summed and written in float32
+(``amp.matmul_f32``) before the cast to the output's dtype.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ from .. import amp, tune
 from ..core.executor import raw_data, with_lod_of
 from ..core.registry import register_op
 from ..kernels import matmul as matmul_kernel
-from .common import bcast_y_to_x, elementwise, flatten_to_2d
+from .common import bcast_y_to_x, elementwise, flatten_to_2d, jax_clip
 
 __all__ = []
 
@@ -99,6 +106,51 @@ def mul(ctx):
         tuple(x.shape[:xn]) + tuple(y.shape[yn:]))))
 
 
+def _infer_matmul(op, block):
+    xv = block._find_var_recursive(op.input("X")[0])
+    yv = block._find_var_recursive(op.input("Y")[0])
+    ov = block._find_var_recursive(op.output("Out")[0])
+    if None in (xv, yv, ov) or xv.shape is None or yv.shape is None:
+        return
+    xs, ys = list(xv.shape), list(yv.shape)
+    if op.attr("transpose_X", False) and len(xs) > 1:
+        xs[-1], xs[-2] = xs[-2], xs[-1]
+    if op.attr("transpose_Y", False) and len(ys) > 1:
+        ys[-1], ys[-2] = ys[-2], ys[-1]
+    if len(xs) == 1 or len(ys) == 1:
+        return  # the vector cases: left unset
+    batch = xs[:-2] if len(xs) >= len(ys) else ys[:-2]
+    ov.shape = tuple(batch) + (xs[-2], ys[-1])
+    ov.dtype = xv.dtype
+
+
+def swap_last(t):
+    """``t`` with its last two dims swapped (a 1-D ``t`` as it is)."""
+    return t.transpose(-1, -2) if t.ndim > 1 else t
+
+
+@register_op("matmul", infer_shape=_infer_matmul)
+def matmul(ctx):
+    """X @ Y after ``transpose_X`` / ``transpose_Y``, times ``alpha``.
+    Under AMP the operands are bfloat16 and the product is summed in
+    float32, then cast to X's dtype (kept bfloat16 under pure AMP);
+    ``alpha`` scales after the cast, as in the JAX lowering."""
+    x = raw_data(ctx.input("X"))
+    y = raw_data(ctx.input("Y"))
+    out_dtype = x.dtype
+    x, y = amp.cast_inputs(ctx, x, y)
+    if ctx.attr("transpose_X", False):
+        x = swap_last(x)
+    if ctx.attr("transpose_Y", False):
+        y = swap_last(y)
+    out = acc_matmul(x, y).to(torch.bfloat16 if amp.keep_bf16(ctx, out_dtype)
+                              else out_dtype)
+    alpha = ctx.attr("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    ctx.set_output("Out", out)
+
+
 def _infer_ew(op, block):
     xv = block._find_var_recursive(op.input("X")[0])
     ov = block._find_var_recursive(op.output("Out")[0])
@@ -164,8 +216,8 @@ def cumsum(ctx):
 
 @register_op("clip", infer_shape=_infer_ew)
 def clip(ctx):
-    ctx.set_output("Out", torch.clamp(raw_data(ctx.input("X")),
-                                      ctx.attr("min"), ctx.attr("max")))
+    ctx.set_output("Out", jax_clip(raw_data(ctx.input("X")),
+                                   ctx.attr("min"), ctx.attr("max")))
 
 
 @register_op("clip_by_norm", infer_shape=_infer_ew)
@@ -296,3 +348,32 @@ def top_k(ctx):
     vals, idx = torch.topk(ctx.input("X"), ctx.attr("k", 1), dim=-1)
     ctx.set_output("Out", vals)
     ctx.set_output("Indices", idx)
+
+
+@register_op("norm")
+def norm(ctx):
+    """Norm = sqrt(sum(X * X) along ``axis`` + ``epsilon``), kept as a
+    dim of 1; Out = X / Norm."""
+    x = raw_data(ctx.input("X"))
+    n = torch.sqrt(torch.sum(x * x, dim=ctx.attr("axis", 1), keepdim=True)
+                   + ctx.attr("epsilon", 1e-10))
+    ctx.set_output("Norm", n)
+    ctx.set_output("Out", x / n)
+
+
+@register_op("maximum")
+def maximum(ctx):
+    """The larger of X and Y elementwise; at a tie each gets half the
+    gradient, in torch as in JAX."""
+    ctx.set_output("Out", torch.maximum(raw_data(ctx.input("X")),
+                                        raw_data(ctx.input("Y"))))
+
+
+@register_op("isfinite", no_gradient=True)
+def isfinite(ctx):
+    """A 0-d bool: whether every element of every tensor of the X list
+    is finite (computed on the device, nothing read back)."""
+    ok = torch.ones((), dtype=torch.bool, device=ctx.device)
+    for v in ctx.inputs("X"):
+        ok = torch.logical_and(ok, torch.all(torch.isfinite(raw_data(v))))
+    ctx.set_output("Out", ok)

@@ -32,6 +32,7 @@ from ..core.executor import raw_data, with_lod_of
 from ..core.registry import register_op
 from ..flags import FLAGS
 from ..kernels import conv3x3
+from .common import jax_abs, jax_clip
 
 __all__ = ["conv2d_apply", "conv3x3_config", "conv_impl", "pool2d_apply"]
 
@@ -79,9 +80,9 @@ def _softplus(x):
 _ACTIVATIONS = {
     "sigmoid": torch.sigmoid,
     "logsigmoid": F.logsigmoid,
-    "relu6": lambda x: torch.clamp(x, 0.0, 6.0),
+    "relu6": lambda x: jax_clip(x, 0.0, 6.0),
     "exp": torch.exp,
-    "abs": torch.abs,
+    "abs": jax_abs,
     "ceil": torch.ceil,
     "floor": torch.floor,
     "round": torch.round,  # half to even, as jnp.round
@@ -95,8 +96,8 @@ _ACTIVATIONS = {
     "cos": torch.cos,
     "tanh_shrink": lambda x: x - torch.tanh(x),
     # the JAX lowering's fixed threshold 0.5 (it reads no attr)
-    "softshrink": lambda x: torch.sign(x) * torch.clamp(
-        torch.abs(x) - 0.5, min=0.0),
+    "softshrink": lambda x: torch.sign(x) * jax_clip(
+        jax_abs(x) - 0.5, 0.0),
     "sign": torch.sign,
 }
 for _name, _fn in _ACTIVATIONS.items():
@@ -128,20 +129,20 @@ def elu(ctx):
 @register_op("brelu", infer_shape=_infer_same)
 def brelu(ctx):
     lo, hi = ctx.attr("t_min", 0.0), ctx.attr("t_max", 24.0)
-    _act(ctx, lambda x: torch.clamp(x, lo, hi))
+    _act(ctx, lambda x: jax_clip(x, lo, hi))
 
 
 @register_op("soft_relu", infer_shape=_infer_same)
 def soft_relu(ctx):
     t = ctx.attr("threshold", 40.0)
-    _act(ctx, lambda x: torch.log1p(torch.exp(torch.clamp(x, -t, t))))
+    _act(ctx, lambda x: torch.log1p(torch.exp(jax_clip(x, -t, t))))
 
 
 @register_op("hard_sigmoid", infer_shape=_infer_same)
 def hard_sigmoid(ctx):
     s = ctx.attr("slope", 0.2)
     o = ctx.attr("offset", 0.5)
-    _act(ctx, lambda x: torch.clamp(s * x + o, 0.0, 1.0))
+    _act(ctx, lambda x: jax_clip(s * x + o, 0.0, 1.0))
 
 
 @register_op("swish", infer_shape=_infer_same)

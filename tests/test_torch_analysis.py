@@ -3,10 +3,9 @@ JAX package's (``paddle_tpu.analysis``).
 
 Every defect program of ``tests/test_analysis.py`` (PT001-PT017) is built
 alike in both packages and verified by both: the findings must agree in
-(code, severity, block, op, var) and render to the same text. Where the
-JAX test's op is not registered in the port (``concat``), the shape
-failure is made with ``fill_constant``'s shape attr, which fails in both
-registries alike. Then: no diagnostic on the port's configs and the tiny
+(code, severity, block, op, var) and render to the same text; a shape
+failure is a ``concat`` on an axis out of range, as in the JAX test.
+Then: no diagnostic on the port's configs and the tiny
 LM; the Executor's verify hook (flag, environment, once per program
 version); ``append_backward``'s post-pass; ``calc_gradient`` against the
 JAX package's on a non-parameter input.
@@ -39,7 +38,13 @@ PORT = types.SimpleNamespace(
     append_backward=__import__("paddle_tpu_torch").append_backward,
     calc_gradient=__import__("paddle_tpu_torch").calc_gradient)
 
-BAD_SHAPE = {"shape": ["bad", 3], "value": 0.0, "dtype": "float32"}
+def _bad_concat(blk, out):
+    """A ``concat`` whose shape inference raises (axis 5 of 2-D inputs),
+    as ``tests/test_analysis.py:224`` makes it."""
+    a = blk.create_var(name="a", shape=(2, 3), dtype="float32")
+    b = blk.create_var(name="b", shape=(2, 3), dtype="float32")
+    blk.append_op("concat", inputs={"X": [a, b]}, outputs={"Out": out},
+                  attrs={"axis": 5})
 
 
 def codes(diags):
@@ -99,8 +104,7 @@ def d_pt003(P):
 
 def d_pt004(P):
     prog, blk = _fresh(P)
-    out = blk.create_var(name="out", dtype="float32")
-    blk.append_op("fill_constant", outputs={"Out": out}, attrs=BAD_SHAPE)
+    _bad_concat(blk, blk.create_var(name="out", dtype="float32"))
     return prog, {"rules": ["PT004"]}
 
 
@@ -240,8 +244,7 @@ def d_pt012(P):
 def d_pt013(P):
     prog, blk = _fresh(P)
     for i in range(P.ir.SHAPE_INFER_FAILURE_CAP + 10):
-        out = blk.create_var(name="out%d" % i, dtype="float32")
-        blk.append_op("fill_constant", outputs={"Out": out}, attrs=BAD_SHAPE)
+        _bad_concat(blk, blk.create_var(name="out%d" % i, dtype="float32"))
     assert len(prog._shape_infer_failures) == P.ir.SHAPE_INFER_FAILURE_CAP
     assert prog._shape_infer_dropped == 10
     return prog, {"rules": ["PT013"]}
@@ -502,11 +505,10 @@ def test_debug_shapes_warns_at_the_failing_op(monkeypatch):
     out = blk.create_var(name="out", dtype="float32")
     with tflags_guard(debug_shapes=True):
         with pytest.warns(RuntimeWarning, match="shape inference failed"):
-            blk.append_op("fill_constant", outputs={"Out": out},
-                          attrs=BAD_SHAPE)
+            _bad_concat(blk, out)
     monkeypatch.setenv("PADDLE_TPU_DEBUG_SHAPES", "1")
     with pytest.warns(RuntimeWarning, match="shape inference failed"):
-        blk.append_op("fill_constant", outputs={"Out": out}, attrs=BAD_SHAPE)
+        _bad_concat(blk, out)
 
 
 # ---------------------------------------------------------------------------

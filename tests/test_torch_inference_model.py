@@ -44,7 +44,8 @@ STEPS = 2
 def _feed_names(kind):
     return {"fit_a_line": ["x"], "tiny_lm": ["toks"],
             "recognize_digits_conv": ["img"], "resnet_cifar": ["img"],
-            "text_rnn": ["words"]}[kind]
+            "text_rnn": ["words"], "word2vec": ["w0", "w1", "w2", "w3"],
+            "recommender": list(book.REC_FEEDS[:-1])}[kind]
 
 
 def _only(feed, names):

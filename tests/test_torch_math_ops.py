@@ -434,3 +434,33 @@ def test_variable_sugar_appends_the_jax_ops(name, expr):
         np.testing.assert_array_equal(t[0], j[0])
     else:
         _assert_close(j, t, [name])
+
+
+# -- gradients at corners (ROADMAP Queue 3 #27) --------------------------------
+
+CORNERS = [
+    ("abs", {}, [0.0, -0.0, 1.5, -2.0]),
+    ("relu6", {}, [0.0, 6.0, 3.0, -1.0]),
+    ("brelu", {"t_min": -1.0, "t_max": 2.0}, [-1.0, 2.0, 0.5, 3.0]),
+    ("hard_sigmoid", {"slope": 0.5, "offset": 0.5}, [-1.0, 1.0, 0.0, 2.0]),
+    ("soft_relu", {"threshold": 2.0}, [-2.0, 2.0, 0.5, 3.0]),
+    ("softshrink", {}, [0.5, -0.5, 1.0, 0.0]),
+    ("clip", {"min": -0.5, "max": 1.0}, [-0.5, 1.0, 0.25, 2.0]),
+]
+
+
+@pytest.mark.parametrize("name,attrs,corner", CORNERS,
+                         ids=[c[0] for c in CORNERS])
+def test_gradient_at_a_corner_matches_jax(name, attrs, corner):
+    """|x| at 0 passes the whole gradient and a clip at its bound half of
+    it in JAX (``jnp.abs``, ``jnp.clip``); ``torch.abs`` and
+    ``torch.clamp`` would pass none and all of it. |-0.0| is +0.0 in
+    both."""
+    x = np.tile(np.asarray(corner, np.float32), (3, 1))[:, :4]
+    x = np.concatenate([x, _inputs(40)[0][:, :1]], axis=1)
+    w = _inputs(41)[1]
+    j, t, _, _ = run_both(_act_program(name, attrs), {"x": x, "w": w},
+                          lambda out: [out.name, "x@GRAD"])
+    _assert_close(j, t, ["out", "x@GRAD"])
+    if name == "abs":
+        np.testing.assert_array_equal(np.signbit(t[0]), np.signbit(j[0]))

@@ -7,9 +7,18 @@ two initializers draw from different generators).
 
 Kinds: ``fit_a_line``, ``tiny_lm`` and ``recognize_digits_conv`` (the
 JAX configs of ``examples/configs`` beside the port's), ``resnet_cifar``
-(a ResNet-8 at 16 x 16, batch 4, its convs on the plain path in both)
-and ``text_rnn`` (the LSTM classifier at small widths on ragged words,
-the recurrence on its scan path in both).
+(a ResNet-8 at 16 x 16, batch 4, its convs on the plain path in both),
+``text_rnn`` (the LSTM classifier at small widths on ragged words,
+the recurrence on its scan path in both), ``word2vec`` (the port's
+``configs/word2vec.py`` at the widths of ``tests/book/test_word2vec.py``
+over the dictionary of the JAX package's synthetic ``imikolov`` corpus,
+its 5-grams the feeds, its SGD at 0.01 set here; the JAX twin is
+``examples/configs/word2vec.py``'s program at those widths) and
+``recommender`` (the model of
+``tests/book/test_recommender_system.py:16-63`` built alike in both,
+the JAX package's synthetic ``movielens`` rows the feeds: titles and
+categories ragged, pooled by ``sequence_pool(sum)``, a ``cos_sim``
+head). Both book kinds train in batches of 16.
 """
 import importlib.util
 import os
@@ -21,11 +30,15 @@ from paddle_tpu import layers as jlayers
 from paddle_tpu import models as jmodels
 from paddle_tpu.core import lod as jlod
 from paddle_tpu.core import unique_name as jun
+from paddle_tpu.dataset import imikolov as jimikolov
+from paddle_tpu.dataset import movielens as jmovielens
+from paddle_tpu_torch import optimizer as toptimizer
 from paddle_tpu_torch.configs import fit_a_line as tfit
 from paddle_tpu_torch.configs import recognize_digits_conv as tdigits
 from paddle_tpu_torch.configs import resnet_cifar as tresnet
 from paddle_tpu_torch.configs import text_rnn as trnn
 from paddle_tpu_torch.configs import tiny_lm as ttiny
+from paddle_tpu_torch.configs import word2vec as tw2v
 from paddle_tpu_torch.core import ir as tir
 from paddle_tpu_torch.core import lod as tlod
 from paddle_tpu_torch.core import unique_name as tun
@@ -35,12 +48,25 @@ from paddle_tpu_torch.core.scope import scope_from_numpy, scope_to_numpy
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = ("fit_a_line", "tiny_lm", "resnet_cifar", "text_rnn",
-         "recognize_digits_conv")
+         "recognize_digits_conv", "word2vec", "recommender")
 # losses within 1e-5 relative, persistables within 1e-5 of max(1, the
 # largest magnitude): float32 on both sides, sums in other orders
 REL_TOL = 1e-5
 RNN = dict(vocab=200, hidden=32, layers=2, batch=4, learning_rate=0.002)
 RESNET = dict(variant="cifar", depth=8, image=16, class_dim=10, batch=4)
+# tests/book/test_word2vec.py's widths over imikolov's dictionary
+W2V = dict(vocab=len(jimikolov.build_dict()), emb=16, hidden=64,
+           learning_rate=0.01)
+BOOK_BATCH = 16
+BOOK_BATCHES = 4
+# tests/book/test_recommender_system.py's id ranges, from the corpus
+REC = dict(users=jmovielens.max_user_id() + 1,
+           movies=jmovielens.max_movie_id() + 1,
+           jobs=jmovielens.max_job_id() + 1,
+           ages=len(jmovielens.age_table), categories=18, titles=512,
+           learning_rate=0.2)
+REC_FEEDS = ("user_id", "gender_id", "age_id", "job_id", "movie_id",
+             "category_id", "title_ids", "score")
 
 
 def jax_config(name):
@@ -83,7 +109,99 @@ def _jax_resnet():
                                                 momentum=0.9)}
 
 
+def _jax_w2v():
+    """``examples/configs/word2vec.py``'s program at ``W2V``'s widths."""
+    words = [jlayers.data(name="w%d" % i, shape=[1], dtype="int64")
+             for i in range(4)]
+    next_word = jlayers.data(name="next_word", shape=[1], dtype="int64")
+    embs = [jlayers.embedding(
+        w, size=[W2V["vocab"], W2V["emb"]], dtype="float32",
+        param_attr=jpt.ParamAttr(name="shared_w")) for w in words]
+    concat = jlayers.concat(input=embs, axis=1)
+    hidden = jlayers.fc(input=concat, size=W2V["hidden"], act="sigmoid")
+    predict = jlayers.fc(input=hidden, size=W2V["vocab"], act="softmax")
+    cost = jlayers.mean(jlayers.cross_entropy(input=predict,
+                                              label=next_word))
+    return {"cost": cost, "feed_list": words + [next_word],
+            "prediction": predict,
+            "optimizer": jpt.optimizer.SGD(
+                learning_rate=W2V["learning_rate"])}
+
+
+def _w2v_samples():
+    """The first BOOK_BATCHES batches of imikolov's training 5-grams."""
+    out = []
+    for gram in jimikolov.train(jimikolov.build_dict(), 5)():
+        out.append(tuple(np.array([w], np.int64) for w in gram))
+        if len(out) == BOOK_BATCHES * BOOK_BATCH:
+            return out
+    return out
+
+
+def recommender(L, optimizer):
+    """``tests/book/test_recommender_system.py:16-63`` through the layers
+    module ``L`` of either package, its ids in ``REC``'s ranges."""
+    def ids(name, lod_level=0):
+        return L.data(name=name, shape=[1], dtype="int64",
+                      lod_level=lod_level)
+
+    uid = ids("user_id")
+    usr_fc = L.fc(input=L.embedding(input=uid, size=[REC["users"], 16]),
+                  size=16)
+    gender = ids("gender_id")
+    g_fc = L.fc(input=L.embedding(input=gender, size=[2, 8]), size=8)
+    age = ids("age_id")
+    a_fc = L.fc(input=L.embedding(input=age, size=[REC["ages"], 8]), size=8)
+    job = ids("job_id")
+    j_fc = L.fc(input=L.embedding(input=job, size=[REC["jobs"], 8]), size=8)
+    usr = L.fc(input=L.concat(input=[usr_fc, g_fc, a_fc, j_fc], axis=1),
+               size=32, act="tanh")
+    mov_id = ids("movie_id")
+    mov_fc = L.fc(input=L.embedding(input=mov_id, size=[REC["movies"], 16]),
+                  size=16)
+    category = ids("category_id", lod_level=1)
+    mov_cat = L.sequence_pool(
+        input=L.embedding(input=category, size=[REC["categories"], 16]),
+        pool_type="sum")
+    title = ids("title_ids", lod_level=1)
+    title_pool = L.sequence_pool(
+        input=L.embedding(input=title, size=[REC["titles"], 16]),
+        pool_type="sum")
+    mov = L.fc(input=L.concat(input=[mov_fc, mov_cat, title_pool], axis=1),
+               size=32, act="tanh")
+    scale_infer = L.scale(x=L.cos_sim(X=usr, Y=mov), scale=5.0)
+    label = L.data(name="score", shape=[1], dtype="float32")
+    cost = L.mean(L.square_error_cost(input=scale_infer, label=label))
+    return {"cost": cost,
+            "feed_list": [uid, gender, age, job, mov_id, category, title,
+                          label],
+            "prediction": scale_infer,
+            "optimizer": optimizer.SGD(learning_rate=REC["learning_rate"])}
+
+
+def _rec_samples():
+    """The first BOOK_BATCHES batches of movielens' training rows."""
+    rows = list(jmovielens.train()())[:BOOK_BATCHES * BOOK_BATCH]
+    return [tuple(r[:7]) + (np.asarray(r[7], np.float32).reshape(1),)
+            for r in rows]
+
+
 def _port_spec(kind):
+    if kind == "word2vec":
+        spec = tw2v.model(vocab=W2V["vocab"], emb=W2V["emb"],
+                          hidden=W2V["hidden"])
+        spec["optimizer"] = toptimizer.SGD(learning_rate=W2V["learning_rate"])
+        samples = _w2v_samples()
+        spec["reader"] = lambda: (samples[i:i + BOOK_BATCH] for i in range(
+            0, len(samples), BOOK_BATCH))
+        return spec
+    if kind == "recommender":
+        from paddle_tpu_torch import layers, optimizer
+        spec = recommender(layers, optimizer)
+        samples = _rec_samples()
+        spec["reader"] = lambda: (samples[i:i + BOOK_BATCH] for i in range(
+            0, len(samples), BOOK_BATCH))
+        return spec
     if kind == "fit_a_line":
         return tfit.model()
     if kind == "tiny_lm":
@@ -98,6 +216,10 @@ def _port_spec(kind):
 
 
 def _jax_spec(kind):
+    if kind == "word2vec":
+        return _jax_w2v()
+    if kind == "recommender":
+        return recommender(jlayers, jpt.optimizer)
     if kind == "resnet_cifar":
         return _jax_resnet()
     if kind == "text_rnn":
@@ -209,14 +331,24 @@ def feeds(kind, pkg, n):
     names = {"fit_a_line": ("x", "y"), "tiny_lm": ("toks", "tgt"),
              "recognize_digits_conv": ("img", "label"),
              "resnet_cifar": ("img", "label"),
-             "text_rnn": ("words", "label")}[kind]
+             "text_rnn": ("words", "label"),
+             "word2vec": ("w0", "w1", "w2", "w3", "next_word"),
+             "recommender": REC_FEEDS}[kind]
+    lod_mod = jlod if pkg == "jax" else tlod
     out = []
     for i in range(n):
         b = batches[i % len(batches)]
         if kind == "text_rnn":
-            lod_mod = jlod if pkg == "jax" else tlod
             out.append({"words": lod_mod.build_lod_tensor([s[0] for s in b]),
                         "label": np.stack([s[1] for s in b])})
+        elif kind == "recommender":
+            f = {nm: np.array([[s[j]] for s in b], np.int64)
+                 for j, nm in enumerate(names[:5])}
+            for j, nm in ((5, "category_id"), (6, "title_ids")):
+                f[nm] = lod_mod.build_lod_tensor(
+                    [np.array(s[j], np.int64).reshape(-1, 1) for s in b])
+            f["score"] = np.stack([s[7] for s in b])
+            out.append(f)
         else:
             out.append({nm: np.stack([s[j] for s in b])
                         for j, nm in enumerate(names)})

@@ -1,9 +1,10 @@
-"""Shared by the optimization tests of the port (clipping, weight decay,
-learning-rate schedules, the optimizers and their update ops): each
-package's modules under one name, programs built alike in both under
-each package's ``unique_name.guard()`` (so every variable has the same
-name), and runs of a program in each package from one state (the JAX
-startup's, carried into the port's scope).
+"""Shared by the op and optimization tests of the port (clipping, weight
+decay, learning-rate schedules, the optimizers and their update ops, the
+dense tensor and loss ops): each package's modules under one name,
+programs built alike in both under each package's ``unique_name.guard()``
+(so every variable has the same name), runs of a program in each package
+from one state (the JAX startup's, carried into the port's scope), and
+one-op programs run in both on the same feeds (:func:`one_op`).
 
 Tolerances (float32 on both sides, sums in other orders):
 - an op's output within 1e-6 of max(1, |the JAX value|) (``OP_TOL``);
@@ -22,6 +23,7 @@ from paddle_tpu import layers as jlayers
 from paddle_tpu import learning_rate_decay as jlrd
 from paddle_tpu import optimizer as jopt
 from paddle_tpu import regularizer as jreg
+from paddle_tpu.core import lod as jlod
 from paddle_tpu.core import unique_name as jun
 from paddle_tpu.core.backward import append_backward as jbackward
 from paddle_tpu.param_attr import ParamAttr as JParamAttr
@@ -31,6 +33,7 @@ from paddle_tpu_torch import learning_rate_decay as tlrd
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch import regularizer as treg
 from paddle_tpu_torch.core import ir as tir
+from paddle_tpu_torch.core import lod as tlod
 from paddle_tpu_torch.core import unique_name as tun
 from paddle_tpu_torch.core.backward import append_backward as tbackward
 from paddle_tpu_torch.core.executor import Executor as TExecutor
@@ -165,3 +168,111 @@ def run_both(fn, feed, fetch_of):
             got = port_run(main, {}, [feed], fetch)[0][0]
         out.append((got, main))
     return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+# -- one-op programs in both packages ------------------------------------------
+
+def _split_value(v):
+    """(array, lod) of a feed value: an array, or an (array, lod) pair."""
+    return (np.asarray(v[0]), v[1]) if isinstance(v, tuple) else \
+        (np.asarray(v), None)
+
+
+def one_op_program(pkg, op_type, inputs, outputs, attrs=None, diff=(),
+                   loss_of=None, loss_w=None):
+    """``op_type`` alone in a main program of ``pkg``. ``inputs``:
+    {slot: [(name, value)]}, a value an array or an (array, lod) pair;
+    ``outputs``: {slot: [name]}. With ``diff`` (input names), the
+    program also appends the backward of mean(``loss_of`` * w), w the
+    fed ``loss_w`` (name ``loss_w``), so that ``<name>@GRAD`` of each
+    name in ``diff`` can be fetched."""
+    main = pkg.Program()
+    with pkg.unique_name.guard(), pkg.program_guard(main, pkg.Program()):
+        blk = main.global_block()
+        ins = {}
+        for slot, items in inputs.items():
+            ins[slot] = []
+            for name, v in items:
+                arr, lod = _split_value(v)
+                var = blk.create_var(name=name, shape=arr.shape,
+                                     dtype=str(arr.dtype),
+                                     lod_level=len(lod) if lod else 0)
+                var.stop_gradient = name not in diff
+                ins[slot].append(name)
+        for names in outputs.values():
+            for n in names:
+                blk.create_var(name=n, dtype=None)
+        blk.append_op(type=op_type, inputs=ins, outputs=dict(outputs),
+                      attrs=dict(attrs or {}))
+        if diff:
+            w = blk.create_var(name="loss_w", shape=loss_w.shape,
+                               dtype="float32")
+            w.stop_gradient = True
+            pkg.append_backward(pkg.layers.mean(pkg.layers.elementwise_mul(
+                blk.var(loss_of), w)))
+    return main
+
+
+def feed_of(pkg, inputs, loss_w=None):
+    """The feed dict of ``inputs`` for ``pkg``: an (array, lod) pair as
+    the package's LoDTensor."""
+    feed = {}
+    for items in inputs.values():
+        for name, v in items:
+            arr, lod = _split_value(v)
+            mod = jlod if pkg is JAX else tlod
+            feed[name] = mod.LoDTensor(arr, lod) if lod else arr
+    if loss_w is not None:
+        feed["loss_w"] = loss_w
+    return feed
+
+
+def run_once(pkg, main, feed, fetch, use_jit=True):
+    """One run of ``main`` in ``pkg`` on the CPU in a fresh scope: the
+    fetches as each package returns them (a LoD value as its
+    LoDTensor)."""
+    if pkg is JAX:
+        with jpt.scope_guard(jpt.Scope()):
+            return list(jpt.Executor(jpt.CPUPlace()).run(
+                main, feed=feed, fetch_list=fetch))
+    return list(TExecutor("cpu").run(main, feed=feed, fetch_list=fetch,
+                                     scope=TScope(), use_jit=use_jit))
+
+
+def one_op(op_type, inputs, outputs, attrs=None, diff=(), loss_of=None,
+           seed=0):
+    """Run ``op_type`` alone in both packages on the same feeds; with
+    ``diff``, also the gradients of mean(``loss_of`` * w) (w seeded,
+    of ``loss_of``'s shape, read from a forward run of the port).
+    Returns (jax fetches, port fetches, fetch names, jax main, port
+    main): every output, then ``<name>@GRAD`` of each name in ``diff``."""
+    fetch = [n for names in outputs.values() for n in names]
+    loss_w = None
+    if diff:
+        loss_of = loss_of or fetch[0]
+        main = one_op_program(PORT, op_type, inputs, outputs, attrs)
+        shape = np.shape(value_of(run_once(
+            PORT, main, feed_of(PORT, inputs), [loss_of])[0]))
+        loss_w = np.asarray(np.random.RandomState(seed).randn(*shape),
+                            np.float32)
+        fetch = fetch + [n + "@GRAD" for n in diff]
+    got, mains = {}, {}
+    for pkg in PKGS:
+        mains[pkg.name] = one_op_program(pkg, op_type, inputs, outputs,
+                                         attrs, diff, loss_of, loss_w)
+        got[pkg.name] = run_once(pkg, mains[pkg.name],
+                                 feed_of(pkg, inputs, loss_w), fetch)
+    return got["jax"], got["port"], fetch, mains["jax"], mains["port"]
+
+
+def value_of(v):
+    """The array of a fetch (a LoDTensor's data)."""
+    return np.asarray(v.numpy()) if hasattr(v, "lod") and \
+        hasattr(v, "numpy") and not isinstance(v, np.ndarray) \
+        else np.asarray(v)
+
+
+def lod_of(v):
+    """A fetch's LoD (None for a plain array)."""
+    return v.lod() if hasattr(v, "lod") and not isinstance(v, np.ndarray) \
+        else None
