@@ -12,7 +12,9 @@ classifier of ``benchmark/rnn_bench.py``, its autotune path (the
 holds each hand-written CUDA kernel against its plain PyTorch version;
 and pure-AMP training of the bias-free LSTM classifier; and the dense
 tensor and loss ops, on the word2vec and recommender book models and
-at GPT-2 small's attention shapes. Run from the root of a checkout:
+at GPT-2 small's attention shapes; and the rest of the conv-net path
+(its ops, the conv knobs) on VGG-16, GoogLeNet and AlexNet at ImageNet
+widths. Run from the root of a checkout:
 
     python3 chip_smoke.py
 
@@ -387,7 +389,46 @@ Phases, in order; any failure exits non-zero at once:
    the step p50 and samples/s compiled and on the per-op path;
    ``python -m paddle_tpu_torch train`` of ``configs/word2vec.py``
    exits 0. The tune cache is a fresh directory of its own for the
-   phase.
+   phase;
+18. convnet zoo: the rest of the conv-net path. Every op of the slice
+   (``prelu``, ``log_softmax``, ``maxout``, ``lrn``, ``l2_normalize``,
+   ``scale_sub_region``, ``depthwise_conv2d``, ``conv2d_transpose``,
+   ``conv3d``, ``conv3d_transpose``, ``pool3d``, ``dropout`` at
+   ``is_test``, ``dropout_grad`` on one fed mask, and the metric ops
+   ``auc``, ``precision_recall``, ``edit_distance``,
+   ``positive_negative_pair``) and its grad on the card and on the CPU
+   on the same seeded inputs (``_convnet_cases``): counts, distances,
+   masks and selections bit-identical, floats within
+   ``CONVNET_OP_TOL`` of max(1, |CPU value|), the largest error printed
+   per op; the dropout train mask's kept share over 2^16 draws within
+   ``DROPOUT_Z`` standard errors on both devices, Out = X * Mask, a
+   seeded rerun equal; the conv knobs (``conv_impl=matmul``,
+   ``PADDLE_TPU_CONV_LAYOUT=nhwc``, ``PADDLE_TPU_CONV_S2D=1``) each
+   against the default conv at ResNet-50's stem ([32, 3, 224, 224],
+   7x7 / s2 / p3 -> 64) and first 3x3 stage ([32, 64, 56, 56]), output
+   and both gradients within ``KNOB_REL_TOL``, each with its ms; the
+   conv3x3 kernel at VGG-16's first conv ([32, 224, 224, 3] -> 64, K
+   27) against its plain version at full shape, its ms beside
+   ``F.conv2d``'s and the bound of its 411 MB output write; the kernel
+   forward and dx against its plain version at every other conv3x3
+   shape of VGG-16, GoogLeNet and AlexNet (``CONV_REL_TOL``, a TF32
+   control missing it at each); VGG-16 with batch norm at ImageNet
+   widths (``models.vgg16``, 224 x 224, 1000 classes, float32, batch
+   32, TF32 off, ``conv_impl=pallas3x3``, ``Momentum(0.1, 0.9)``):
+   step-1 gradients of every parameter against torch.autograd through a
+   plain VGG-16 written here (``F.conv2d``, the step's fetched dropout
+   masks; ``VGG_GRAD_REL_TOL``, which the same model on TF32-rounded
+   conv operands must miss), ``VGG_STEPS`` compiled steps on one fixed
+   batch through ``Trainer.train`` (the loss falls; one capture and a
+   replay a step; 13 conv3x3 forward and 12 dx launches a step, the
+   image wanting no dx), the step p50 and images/s compiled and on the
+   per-op path, each step feeding the batch from the host, and both
+   again on the batch fed once, the peak memory, one per-op step's
+   device time by kind of kernel;
+   GoogLeNet and AlexNet the same at 224 x 224, batch 32,
+   ``Momentum(0.01, 0.9)``, ``ZOO_STEPS`` steps, their conv3x3 launches
+   a step equal to the 3x3 / s1 / p1 convs the smoke counts in each
+   program (10 and 3). The tune cache is a fresh directory of its own.
 
 Since phase 15's slice every path of the Executor frees each value at
 its last use, so phases 1-14 run on the freeing Executor and their
@@ -9361,6 +9402,819 @@ def phase_dense(dev, root):
     return paths
 
 
+# -- phase 18 ------------------------------------------------------------------
+
+# card against CPU for the conv-net slice's ops: float outputs within this
+# of max(1, |CPU value|) (convolutions, pools, norms and the AUC's sums in
+# other orders and libraries); counts, distances, masks and selections
+# bit-identical
+CONVNET_OP_TOL = 1e-5
+CONVNET_EXACT = ("maxout", "scale_sub_region", "dropout", "dropout_grad",
+                 "edit_distance", "positive_negative_pair")
+# the dropout train mask's kept share over DROPOUT_DRAWS draws: within
+# this many standard errors of 1 - p
+DROPOUT_DRAWS = 1 << 16
+DROPOUT_Z = 4.0
+# each conv knob against the default conv (cuDNN, TF32 off), output and
+# both gradients, at ResNet-50's stem and its first 3x3 stage: the
+# largest error over the largest magnitude of the default's value (sums
+# of 147 / 576 products in the forward and dx, of 401,408 / 100,352 in
+# dW, in other orders)
+KNOB_REL_TOL = 1e-4
+KNOB_SHAPES = [("stem_7x7_s2", (32, 3, 224, 224), (64, 3, 7, 7), 2, 3),
+               ("stage_3x3", (32, 64, 56, 56), (64, 64, 3, 3), 1, 1)]
+KNOBS = [("matmul", {"PADDLE_TPU_CONV_IMPL": "matmul"}),
+         ("nhwc", {"PADDLE_TPU_CONV_LAYOUT": "nhwc"}),
+         ("s2d", {"PADDLE_TPU_CONV_S2D": "1"})]
+KNOB_ENV = ("PADDLE_TPU_CONV_IMPL", "PADDLE_TPU_CONV_LAYOUT",
+            "PADDLE_TPU_CONV_S2D")
+# VGG-16 with batch norm at ImageNet widths (``models.vgg16``: 224 x 224,
+# 1000 classes), float32, one fixed batch of 32, Momentum(0.1, 0.9) as
+# ``benchmark/image_bench.py:45``, conv_impl=pallas3x3: all 13 convs are
+# 3x3 / s1 / p1, the first at C = 3
+VGG_CFG = [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]
+VGG_BATCH = 32
+# a warm-up, the capture and 3 replays: at 0.1 with momentum 0.9 the loss
+# on one fixed batch turns up again after ~5 steps (momentum overshoot)
+VGG_STEPS = 5
+VGG_LR = 0.1
+# step-1 gradients of every parameter against torch.autograd through a
+# plain VGG-16 written here (F.conv2d, F.batch_norm, the step's fetched
+# dropout masks), float32 on both sides: the relative norm of each
+# parameter's error. As for ResNet-50 (R50_GRAD_REL_TOL), a relu whose
+# input lies within the sums' float32 noise of 0 opens in one and stays
+# shut in the other through 14 batch norms, moving that pixel's whole
+# gradient (7.67e-3 measured on an H100). A reference whose conv
+# operands are rounded to TF32 moves them by ~0.35; it is measured in
+# the same run and must miss this tolerance.
+VGG_GRAD_REL_TOL = 5e-2
+# GoogLeNet and AlexNet at 224 x 224, batch 32, float32, Momentum(0.01,
+# 0.9) (phase 6's rate), a few compiled steps on one fixed batch
+ZOO_STEPS = 6
+ZOO_LR = 0.01
+ZOO_BATCH = 32
+ZOO_IMAGE = 224
+
+
+def _convnet_cases():
+    """(label, op, inputs, outputs, attrs, differentiated input names,
+    the output the loss reads) of every op of the slice at the
+    op-contract suite's shapes (``tests/test_op_contract_suite.py``) and
+    the ones ``tests/test_torch_convnet_ops.py`` adds."""
+    a = _dense_array
+    x = a(1, 2, 4, 5, 5)
+    v = a(2, 2, 4, 5, 5, 5)
+    zrow = a(3, 3, 4)
+    zrow[1] = 0.0
+    rng = np.random.RandomState(4)
+    p = rng.rand(40).astype(np.float32)
+
+    def ints(seed, hi, *shape):
+        return np.random.RandomState(seed).randint(0, hi, shape).astype(
+            np.int64)
+
+    conv2 = {"strides": [1, 1], "paddings": [1, 1], "dilations": [1, 1]}
+    return [
+        ("all", "prelu", {"X": [("x", x)], "Alpha": [
+            ("al", np.array([0.2], np.float32))]}, {"Out": ["o"]},
+         {"mode": "all"}, ("x", "al"), None),
+        ("channel", "prelu", {"X": [("x", x)], "Alpha": [
+            ("al", np.array([0.2, 0.3, 0.1, 0.5], np.float32))]},
+         {"Out": ["o"]}, {"mode": "channel"}, ("x", "al"), None),
+        ("element", "prelu", {"X": [("x", x)], "Alpha": [
+            ("al", a(5, 4, 5, 5))]}, {"Out": ["o"]}, {"mode": "element"},
+         ("x", "al"), None),
+        ("rows", "log_softmax", {"X": [("x", a(6, 3, 7))]}, {"Out": ["o"]},
+         {}, ("x",), None),
+        ("groups2", "maxout", {"X": [("x", x)]}, {"Out": ["o"]},
+         {"groups": 2}, ("x",), None),
+        ("n5", "lrn", {"X": [("x", x)]}, {"Out": ["o"], "MidOut": ["m"]},
+         {"n": 5, "k": 2.0, "alpha": 1e-2, "beta": 0.75}, ("x",), "o"),
+        ("zero_row", "l2_normalize", {"X": [("x", zrow)]}, {"Out": ["o"]},
+         {"axis": 1, "epsilon": 1e-12}, ("x",), None),
+        ("regions", "scale_sub_region", {"X": [("x", x)], "Indices": [
+            ("i", np.array([[1, 2, 2, 4, 1, 3], [2, 4, 1, 5, 3, 5]],
+                           np.int64))]}, {"Out": ["o"]}, {"value": 2.5},
+         ("x",), None),
+        ("groups4", "depthwise_conv2d", {"Input": [("x", x)],
+                                         "Filter": [("w", a(9, 4, 1, 3, 3))]},
+         {"Output": ["o"]}, dict(conv2, groups=4), ("x", "w"), None),
+        ("mult2_strided", "depthwise_conv2d", {
+            "Input": [("x", x)], "Filter": [("w", a(10, 8, 1, 3, 3))]},
+         {"Output": ["o"]}, {"strides": [2, 2], "paddings": [1, 0],
+                             "dilations": [1, 2], "groups": 4},
+         ("x", "w"), None),
+        ("s2", "conv2d_transpose", {"Input": [("x", x)],
+                                    "Filter": [("w", a(11, 4, 3, 3, 3))]},
+         {"Output": ["o"]}, {"strides": [2, 2], "paddings": [1, 1],
+                             "dilations": [1, 1]}, ("x", "w"), None),
+        ("dilated_grouped", "conv2d_transpose", {
+            "Input": [("x", x)], "Filter": [("w", a(12, 4, 3, 3, 2))]},
+         {"Output": ["o"]}, {"strides": [2, 3], "paddings": [1, 0],
+                             "dilations": [2, 1], "groups": 2},
+         ("x", "w"), None),
+        ("p1", "conv3d", {"Input": [("x", v)],
+                          "Filter": [("w", a(13, 6, 4, 3, 3, 3))]},
+         {"Output": ["o"]}, {"strides": [1, 1, 1], "paddings": [1, 1, 1],
+                             "dilations": [1, 1, 1], "groups": 1},
+         ("x", "w"), None),
+        ("strided_dilated_grouped", "conv3d", {
+            "Input": [("x", v)], "Filter": [("w", a(14, 6, 2, 3, 3, 3))]},
+         {"Output": ["o"]}, {"strides": [2, 1, 1], "paddings": [1, 0, 1],
+                             "dilations": [1, 1, 2], "groups": 2},
+         ("x", "w"), None),
+        ("s2", "conv3d_transpose", {
+            "Input": [("x", v)], "Filter": [("w", a(15, 4, 2, 2, 2, 2))]},
+         {"Output": ["o"]}, {"strides": [2, 2, 2], "paddings": [0, 0, 0],
+                             "dilations": [1, 1, 1]}, ("x", "w"), None),
+        ("dilated_grouped", "conv3d_transpose", {
+            "Input": [("x", v)], "Filter": [("w", a(16, 4, 3, 2, 3, 2))]},
+         {"Output": ["o"]}, {"strides": [2, 1, 2], "paddings": [0, 1, 1],
+                             "dilations": [1, 2, 1], "groups": 2},
+         ("x", "w"), None),
+        ("max", "pool3d", {"X": [("x", v)]}, {"Out": ["o"]},
+         {"pooling_type": "max", "ksize": [2, 2, 2], "strides": [2, 2, 2],
+          "paddings": [0, 0, 0]}, ("x",), None),
+        ("max_ceil_pad", "pool3d", {"X": [("x", v)]}, {"Out": ["o"]},
+         {"pooling_type": "max", "ksize": [3, 3, 2], "strides": [2, 2, 2],
+          "paddings": [1, 1, 0], "ceil_mode": True}, ("x",), None),
+        ("avg_pad", "pool3d", {"X": [("x", v)]}, {"Out": ["o"]},
+         {"pooling_type": "avg", "ksize": [3, 3, 3], "strides": [2, 2, 2],
+          "paddings": [1, 1, 1]}, ("x",), None),
+        ("avg_ceil_pad", "pool3d", {"X": [("x", v)]}, {"Out": ["o"]},
+         {"pooling_type": "avg", "ksize": [3, 2, 3], "strides": [2, 2, 2],
+          "paddings": [1, 0, 1], "ceil_mode": True}, ("x",), None),
+        ("global_avg", "pool3d", {"X": [("x", v)]}, {"Out": ["o"]},
+         {"pooling_type": "avg", "ksize": [1, 1, 1],
+          "global_pooling": True}, ("x",), None),
+        ("is_test", "dropout", {"X": [("x", x)]},
+         {"Out": ["o"], "Mask": ["m"]},
+         {"dropout_prob": 0.3, "is_test": True}, ("x",), "o"),
+        ("fed_mask", "dropout_grad", {
+            "Mask": [("m", (rng.rand(2, 4, 5, 5) >= 0.3).astype(
+                np.float32))], "Out@GRAD": [("g", x)]},
+         {"X@GRAD": ["o"]}, {"dropout_prob": 0.3}, (), None),
+        ("two_columns", "auc", {"Out": [("p", np.stack([1 - p, p], 1))],
+                                "Label": [("l", ints(18, 2, 40, 1))]},
+         {"AUC": ["o"]}, {"num_thresholds": 200}, (), None),
+        ("classes4", "precision_recall", {
+            "MaxProbs": [("mp", rng.rand(9, 1).astype(np.float32))],
+            "Indices": [("i", ints(21, 4, 9, 1))],
+            "Labels": [("l", ints(22, 4, 9, 1))]},
+         {"BatchMetrics": ["o"]}, {"class_number": 4}, (), None),
+        ("ids_out_of_range", "precision_recall", {
+            "MaxProbs": [("mp", rng.rand(6, 1).astype(np.float32))],
+            "Indices": [("i", np.array([[0], [5], [-1], [2], [-4], [1]],
+                                       np.int64))],
+            "Labels": [("l", np.array([[0], [2], [3], [-2], [1], [9]],
+                                      np.int64))]},
+         {"BatchMetrics": ["o"]}, {"class_number": 3}, (), None),
+        ("unequal", "edit_distance", {"Hyps": [("h", ints(23, 4, 3, 6))],
+                                      "Refs": [("r", ints(24, 4, 3, 4))]},
+         {"Out": ["o"], "SequenceNum": ["n"]}, {"normalized": False}, (),
+         None),
+        ("normalized", "edit_distance", {"Hyps": [("h", ints(25, 3, 4, 3))],
+                                         "Refs": [("r", ints(26, 3, 4, 7))]},
+         {"Out": ["o"], "SequenceNum": ["n"]}, {"normalized": True}, (),
+         None),
+        ("query_id", "positive_negative_pair", {
+            "Score": [("s", np.round(rng.rand(12, 1), 1).astype(
+                np.float32))],
+            "Label": [("l", ints(30, 3, 12, 1).astype(np.float32))],
+            "QueryID": [("q", ints(31, 3, 12, 1))]},
+         {"PositivePair": ["pp"], "NegativePair": ["np"],
+          "NeutralPair": ["nt"]}, {}, (), None),
+        ("lod", "positive_negative_pair", {
+            "Score": [("s", (np.round(rng.rand(9, 1), 1).astype(np.float32),
+                             [[0, 4, 4, 9]]))],
+            "Label": [("l", ints(33, 3, 9, 1).astype(np.float32))]},
+         {"PositivePair": ["pp"], "NegativePair": ["np"],
+          "NeutralPair": ["nt"]}, {}, (), None),
+    ]
+
+
+def _convnet_ops_check(dev):
+    """Every case of :func:`_convnet_cases` (and its grads) on the card
+    and on the CPU on the same inputs: the largest error per op; then
+    the dropout train mask's kept share over DROPOUT_DRAWS draws on both
+    devices, Out = X * Mask exactly, and a second run from the seed
+    equal."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    per_op = collections.OrderedDict()
+    cpu = torch.device("cpu")
+    for label, op, inputs, outputs, attrs, diff, loss_of in \
+            _convnet_cases():
+        fetch = [n for ns in outputs.values() for n in ns]
+        loss_w = None
+        if diff:
+            loss_of = loss_of or fetch[0]
+            probe = _dense_program(op, inputs, outputs, attrs)
+            shape = np.shape(_fetched(Executor(cpu).run(
+                probe, feed=_dense_feed(inputs), fetch_list=[loss_of],
+                scope=Scope(), use_jit=False)[0]))
+            loss_w = np.asarray(np.random.RandomState(7).randn(*shape),
+                                np.float32)
+            fetch = fetch + [n + "@GRAD" for n in diff]
+        main = _dense_program(op, inputs, outputs, attrs, diff, loss_of,
+                              loss_w)
+        got = {}
+        for d in (dev, cpu):
+            got[d.type] = Executor(d).run(
+                main, feed=_dense_feed(inputs, loss_w), fetch_list=fetch,
+                scope=Scope(), use_jit=False, return_numpy=True)
+        exact = op in CONVNET_EXACT and not attrs.get("normalized")
+        worst = _dense_compare(op + " " + label, op, fetch, got[dev.type],
+                               got["cpu"], exact)
+        if not worst["max_rel_err"] <= CONVNET_OP_TOL:
+            fail("convnet op %s (%s) differs from the CPU by %g > %g"
+                 % (op, label, worst["max_rel_err"], CONVNET_OP_TOL))
+        rec = per_op.setdefault(op, {"cases": 0, "max_abs_err": 0.0,
+                                     "max_rel_err": 0.0,
+                                     "bit_identical": exact, "grads": []})
+        rec["cases"] += 1
+        rec["max_abs_err"] = max(rec["max_abs_err"], worst["max_abs_err"])
+        rec["max_rel_err"] = max(rec["max_rel_err"], worst["max_rel_err"])
+        for o in main.global_block().ops:
+            if o.type.endswith("_grad") and o.type not in rec["grads"] \
+                    and o.type not in ("mean_grad", "elementwise_mul_grad"):
+                rec["grads"].append(o.type)
+    n = DROPOUT_DRAWS
+    masks = {}
+    for p in (0.1, 0.5):
+        inputs = {"X": [("x", np.random.RandomState(5).rand(n).astype(
+            np.float32) + 1.0)]}
+        main = _dense_program("dropout", inputs,
+                              {"Out": ["o"], "Mask": ["m"]},
+                              {"dropout_prob": p, "is_test": False})
+        main.random_seed = 11
+        for d in (dev, cpu):
+            runs = [Executor(d).run(main, feed=_dense_feed(inputs),
+                                    fetch_list=["o", "m"], scope=Scope(),
+                                    use_jit=False) for _ in range(2)]
+            (o, m), (o2, m2) = runs
+            kept = float(m.mean())
+            z = abs(kept - (1 - p)) / math.sqrt(p * (1 - p) / n)
+            if not (z <= DROPOUT_Z and np.array_equal(o, inputs["X"][0][1]
+                                                      * m)
+                    and np.array_equal(m, m2) and np.array_equal(o, o2)):
+                fail("dropout train mask on %s at p %g: kept %g (%g "
+                     "standard errors), Out = X * Mask %s, seeded rerun "
+                     "equal %s" % (d, p, kept, z, np.array_equal(
+                         o, inputs["X"][0][1] * m), np.array_equal(m, m2)))
+            masks["%s_p%g" % (d.type, p)] = {"kept": kept, "z": z}
+    per_op["dropout"]["train_mask"] = masks
+    return per_op
+
+
+def _knob_env(env):
+    for k in KNOB_ENV:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+
+
+def _knob_check(dev):
+    """Each conv knob (matmul, nhwc, s2d) against the default conv at
+    ResNet-50's stem and first 3x3 stage, batch 32: a one-op conv2d
+    program with its grads (the loss mean(y * w)), on the per-op path;
+    the largest error of y, dX and dW over the default's largest
+    magnitude, and the ms of the program's run (forward and both grads,
+    median of 5 after a warm-up)."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    out = {}
+    saved = {k: os.environ.get(k) for k in KNOB_ENV}
+    try:
+        for label, xs, ws, s, p in KNOB_SHAPES:
+            rng = np.random.RandomState(len(label))
+            x = rng.randn(*xs).astype(np.float32)
+            w = (rng.randn(*ws) * np.sqrt(2.0 / np.prod(ws[1:]))).astype(
+                np.float32)
+            attrs = {"strides": [s, s], "paddings": [p, p],
+                     "dilations": [1, 1], "groups": 1}
+            oh = (xs[2] + 2 * p - ws[2]) // s + 1
+            loss_w = rng.randn(xs[0], ws[0], oh, oh).astype(np.float32)
+            inputs = {"Input": [("x", x)], "Filter": [("w", w)]}
+            main = _dense_program("conv2d", inputs, {"Output": ["y"]},
+                                  attrs, ("x", "w"), "y", loss_w)
+            feed = {n: torch.from_numpy(a).to(dev) for n, a in
+                    _dense_feed(inputs, loss_w).items()}
+            fetch = ["y", "x@GRAD", "w@GRAD"]
+            rec = {}
+            base = None
+            for knob, env in [("default", {})] + KNOBS:
+                _knob_env(env)
+                exe = Executor(dev)
+
+                def run():
+                    return exe.run(main, feed=feed, fetch_list=fetch,
+                                   scope=Scope(), use_jit=False,
+                                   return_numpy=False)
+                got = run()
+                torch.cuda.synchronize()
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                r = {"ms": float(np.median(times))}
+                if base is None:
+                    base = got
+                else:
+                    for n, g, b in zip(fetch, got, base):
+                        err = float((g - b).abs().max())
+                        r[n + "_rel_err"] = err / float(b.abs().max())
+                    worst = max(v for k, v in r.items()
+                                if k.endswith("_rel_err"))
+                    if not worst <= KNOB_REL_TOL:
+                        fail("conv knob %s at %s differs from the default "
+                             "conv by %g > %g: %s" % (knob, label, worst,
+                                                      KNOB_REL_TOL, r))
+                rec[knob] = r
+                del got
+            out[label] = rec
+            log(json.dumps({"conv_knobs": {label: rec}}))
+            del base, feed
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vgg_first_conv(dev):
+    """The conv3x3 kernel at VGG-16's first conv, [32, 224, 224, 3] ->
+    64 (K 27, 1.6 M output rows), forward only (the image wants no dx),
+    against its plain version at full shape; its ms beside ``F.conv2d``'s
+    (cuDNN, TF32 off) and the bound: the 411 MB output write over the
+    card's memory rate."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import conv3x3
+    F = torch.nn.functional
+    shape = (VGG_BATCH, 224, 224, 3, 64)
+    N, H, W, C, O = shape
+    x, w, _ = _conv_inputs(shape, 60, dev)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    # launches made to compare the kernel with its plain version count
+    # toward no main path
+    before = kernels.launch_counts()
+    got = conv3x3._launch(x, w)
+    want = conv3x3.conv3x3_reference(x, w)
+    torch.cuda.synchronize()
+    err = _rel_err([got], [want])
+    if not err <= CONV_REL_TOL:
+        fail("conv3x3 at VGG-16's first conv %s differs from its plain "
+             "version by %g > %g" % (shape, err, CONV_REL_TOL))
+    x_cl = x.permute(0, 3, 1, 2)
+    w_cl = w.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    work = (4 * (N * H * W * (C + O) + 9 * C * O),
+            2 * N * H * W * C * O * 9)
+    b_ms, b_by = bound(*work)
+    rec = {"shape": list(shape), "max_rel_err": err,
+           "max_abs_err": float((got - want).abs().max()),
+           "tolerance_rel": CONV_REL_TOL,
+           "tiling": "%dx%d" % conv3x3.kernel_tiling(N, H, W, C, O),
+           "ms": time_ms(lambda: conv3x3._launch(x, w), flush=flush),
+           "plain_ms": time_ms(lambda: conv3x3.conv3x3_reference(x, w),
+                               flush=flush),
+           "library_ms": time_ms(lambda: F.conv2d(x_cl, w_cl, padding=1),
+                                 flush=flush),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "output_bytes": 4 * N * H * W * O}
+    kernels.restore_launches(before)
+    log(json.dumps({"vgg16_first_conv": rec}))
+    del x, w, got, want, flush, x_cl, w_cl
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _plain_vgg16_loss(p, img, label, masks, conv_round=None):
+    """VGG-16 with batch norm (``models.vgg16``) written out in torch:
+    13 3x3 / s1 / p1 convs by ``F.conv2d`` (no bias), each followed by
+    ``F.batch_norm`` on the batch's statistics and relu, a 2x2 max pool
+    after each block; the first dropout as ``* masks[0]``, fc 4096, batch
+    norm over its features, relu, ``* masks[1]``, fc 4096 relu, fc 1000
+    softmax, and the mean cross entropy. ``p``: {parameter name:
+    tensor}. ``conv_round`` maps each conv operand before the conv."""
+    F = torch.nn.functional
+    x, i = img, 0
+    for _, convs in VGG_CFG:
+        for _ in range(convs):
+            w = p["conv2d_%d.w_0" % i]
+            if conv_round is not None:
+                x, w = conv_round(x), conv_round(w)
+            x = F.conv2d(x, w, None, 1, 1)
+            x = F.relu(F.batch_norm(
+                x, None, None, p["batch_norm_%d.w_0" % i],
+                p["batch_norm_%d.b_0" % i], True, 0.0, 1e-5))
+            i += 1
+        x = F.max_pool2d(x, 2, 2)
+    x = (x * masks[0]).reshape(x.shape[0], -1)
+    x = x @ p["fc_0.w_0"] + p["fc_0.b_0"]
+    x = F.relu(F.batch_norm(x, None, None, p["batch_norm_%d.w_0" % i],
+                            p["batch_norm_%d.b_0" % i], True, 0.0, 1e-5))
+    x = F.relu((x * masks[1]) @ p["fc_1.w_0"] + p["fc_1.b_0"])
+    prob = torch.softmax(x @ p["fc_2.w_0"] + p["fc_2.b_0"], dim=1)
+    lab = label.long().reshape(-1, 1)
+    return -torch.log(torch.clamp(prob, 1e-15, 1.0)).gather(1, lab).mean()
+
+
+def _vgg_grad_check(trainer, spec, feed):
+    """Step 1 through the Executor, fetching the loss, every parameter's
+    @GRAD and the two dropout masks the step drew, against
+    torch.autograd through :func:`_plain_vgg16_loss` from the state the
+    step started at, fed those masks; and the same reference with every
+    conv operand rounded to TF32, which must miss the tolerance."""
+    from paddle_tpu_torch.core.scope import global_scope
+    scope = global_scope()
+    prog = trainer.main_program
+    params = [q.name for q in prog.all_parameters() if q.trainable]
+    masks = [op.output("Mask")[0] for op in prog.global_block().ops
+             if op.type == "dropout"]
+    if len(masks) != 2:
+        fail("vgg16 holds %d dropout ops, not 2" % len(masks))
+    start = {n: scope.find_var(n).detach().clone() for n in params}
+    outs = trainer.exe.run(prog, feed=feed, fetch_list=[spec["cost"].name]
+                           + masks + [n + "@GRAD" for n in params],
+                           return_numpy=False)
+    loss = float(outs[0].reshape(-1)[0])
+    got_masks, got = outs[1:3], dict(zip(params, outs[3:]))
+    img = feed["img"] if isinstance(feed["img"], torch.Tensor) else \
+        torch.as_tensor(np.asarray(feed["img"]), device=got_masks[0].device)
+    label = feed["label"] if isinstance(feed["label"], torch.Tensor) else \
+        torch.as_tensor(np.asarray(feed["label"]),
+                        device=got_masks[0].device)
+
+    def reference(conv_round):
+        leaves = {n: t.clone().requires_grad_(True) for n, t in start.items()}
+        want_loss = _plain_vgg16_loss(leaves, img, label, got_masks,
+                                      conv_round)
+        want = dict(zip(params, torch.autograd.grad(
+            want_loss, [leaves[n] for n in params])))
+        return float(want_loss.detach()), want
+
+    want_loss, want = reference(None)
+    largest = max(float(w.norm()) for w in want.values())
+    # the bias of the fc ahead of a batch norm: zero but for float32
+    # noise (the norm takes its mean away); the port's must be as small
+    zero = [n for n in params
+            if float(want[n].norm()) <= ZERO_GRAD_FRAC * largest]
+
+    def rel_errs(ref):
+        return {n: float((got[n] - ref[n]).norm() / ref[n].norm())
+                for n in params if n not in zero}
+    rel = rel_errs(want)
+    worst = max(rel, key=rel.get)
+    kept = [float(m.float().mean()) for m in got_masks]
+    zero_err = max([float((got[n] - want[n]).abs().max()) for n in zero]
+                   or [0.0])
+    del want
+    _, tf32_want = reference(_tf32_straight)
+    tf32_rel = rel_errs(tf32_want)
+    tf32_worst = max(tf32_rel, key=tf32_rel.get)
+    del tf32_want
+    rec = {"params_checked": len(rel), "tolerance_rel": VGG_GRAD_REL_TOL,
+           "norm_rel_err": rel[worst], "worst_param": worst,
+           "norm_rel_err_median": float(np.median(list(rel.values()))),
+           "tf32_convs_norm_rel_err": tf32_rel[tf32_worst],
+           "tf32_convs_worst_param": tf32_worst,
+           "tf32_convs_norm_rel_err_median": float(
+               np.median(list(tf32_rel.values()))),
+           "zero_grad_params": zero, "zero_grad_max_abs_err": zero_err,
+           "largest_grad_norm": largest,
+           "loss": loss, "loss_abs_err": abs(loss - want_loss),
+           "dropout_kept": kept}
+    log(json.dumps({"vgg16_grad_check": rec}))
+    if not rel[worst] <= VGG_GRAD_REL_TOL:
+        fail("vgg16 step-1 gradient of %s differs from the plain model's "
+             "autograd by %g (relative norm) > %g" % (
+                 worst, rel[worst], VGG_GRAD_REL_TOL))
+    if not zero_err <= ZERO_GRAD_FRAC * largest:
+        fail("vgg16: a gradient that is zero in the plain model is %g in "
+             "the port" % zero_err)
+    if not all(0.4 < k < 0.6 for k in kept):
+        fail("vgg16's dropout masks keep %s, not about half" % kept)
+    if not tf32_rel[tf32_worst] > VGG_GRAD_REL_TOL:
+        fail("vgg16: TF32 convs move the gradients by only %g <= %g: the "
+             "tolerance cannot tell float32 from TF32"
+             % (tf32_rel[tf32_worst], VGG_GRAD_REL_TOL))
+    del start, got, outs
+    return rec
+
+
+def _conv3x3_convs(prog, batch):
+    """((N, H, W, C, O), wants dx) of each conv of ``prog`` that the
+    conv3x3 population takes under pallas3x3 (every 3x3 / s1 / p1 conv),
+    in program order, at batch ``batch``."""
+    from paddle_tpu_torch.kernels import conv3x3
+    blk = prog.global_block()
+    convs = []
+    for op in blk.ops:
+        if op.type != "conv2d":
+            continue
+        w = blk._find_var_recursive(op.input("Filter")[0])
+        if conv3x3.supports_conv3x3(
+                tuple(w.shape), op.attr("strides"), op.attr("paddings"),
+                op.attr("dilations"), op.attr("groups") or 1):
+            x = blk._find_var_recursive(op.input("Input")[0])
+            _, C, H, W = x.shape
+            convs.append(((batch, H, W, C, w.shape[0]), not x.stop_gradient))
+    return convs
+
+
+def _n_conv3x3(prog):
+    """(forward, dx) launches a step of the conv3x3 population of
+    ``prog``'s conv2d ops under pallas3x3: every 3x3 / s1 / p1 conv, and
+    those whose input wants a gradient."""
+    convs = _conv3x3_convs(prog, 1)
+    return len(convs), sum(dx for _, dx in convs)
+
+
+def _conv_inputs_on(shape, seed, dev):
+    """:func:`_conv_inputs` drawn on ``dev`` (a [32, 224, 224, 64] input
+    takes seconds to draw on the host)."""
+    N, H, W, C, O = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(*s, generator=gen, device=dev)
+    return (randn(N, H, W, C),
+            randn(3, 3, C, O) * (2.0 / (9 * C)) ** 0.5,
+            randn(N, H, W, O))
+
+
+def _zoo_conv_check(dev, prog, batch, seen):
+    """The conv3x3 kernel against its plain version at each distinct
+    shape of ``prog``'s conv3x3 population not in ``seen`` (which it
+    extends): the forward, and the dx where the conv's input wants one,
+    within CONV_REL_TOL; the plain version on TF32-rounded inputs must
+    miss it; the tilings those of the rule's mirror. Launches made here
+    count toward no main path. Returns {shape: record}."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import conv3x3
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    wants = {}
+    for shape, dx in _conv3x3_convs(prog, batch):
+        wants[shape] = wants.get(shape, False) or dx
+    before = kernels.launch_counts()
+    out = {}
+    for i, (shape, dx) in enumerate(wants.items()):
+        if (shape, dx) in seen or (shape, True) in seen:
+            continue
+        seen.add((shape, dx))
+        N, H, W, C, O = shape
+        x, w, g = _conv_inputs_on(shape, 80 + i, dev)
+        got = conv3x3.conv3x3_s1_nhwc(x, w)
+        want = conv3x3.conv3x3_reference(x, w)
+        tf32 = conv3x3.conv3x3_reference(_tf32_round(x), _tf32_round(w))
+        rec = {"fwd_max_rel_err": _rel_err([got], [want]),
+               "tf32_fwd_max_rel_err": _rel_err([tf32], [want]),
+               "tiling": {"fwd": "%dx%d" % conv3x3.kernel_tiling(
+                   N, H, W, C, O)}}
+        mirror = {"fwd": "%dx%d" % conv3x3.tiling(N, H, W, C, O, sms)}
+        del got, want, tf32
+        if dx:
+            w_rot = conv3x3.rotate_filter(w)
+            got, _ = conv3x3.conv3x3_bwd(x, w, g, want_dw=False)
+            want = conv3x3.conv3x3_reference(g, w_rot)
+            tf32 = conv3x3.conv3x3_reference(_tf32_round(g),
+                                             _tf32_round(w_rot))
+            rec.update({"dx_max_rel_err": _rel_err([got], [want]),
+                        "tf32_dx_max_rel_err": _rel_err([tf32], [want])})
+            rec["tiling"]["dx"] = "%dx%d" % conv3x3.kernel_tiling(
+                N, H, W, O, C)
+            mirror["dx"] = "%dx%d" % conv3x3.tiling(N, H, W, O, C, sms)
+            del got, want, tf32, w_rot
+        torch.cuda.synchronize()
+        del x, w, g
+        out["x".join(str(d) for d in shape)] = rec
+        errs = [v for k, v in rec.items() if k in ("fwd_max_rel_err",
+                                                   "dx_max_rel_err")]
+        tf32s = [v for k, v in rec.items() if k.startswith("tf32_")]
+        if not max(errs) <= CONV_REL_TOL:
+            fail("conv3x3 disagrees with its plain version at %s: %s > %g"
+                 % (shape, rec, CONV_REL_TOL))
+        if not min(tf32s) > CONV_REL_TOL:
+            fail("a TF32 conv errs by only %s <= CONV_REL_TOL %g at %s: the "
+                 "tolerance cannot tell float32 from TF32"
+                 % (rec, CONV_REL_TOL, shape))
+        if rec["tiling"] != mirror:
+            fail("conv3x3 at %s took the tilings %s, its rule's mirror "
+                 "says %s" % (shape, rec["tiling"], mirror))
+    kernels.restore_launches(before)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _one_step_profile(trainer, prog, feed, cost, dev):
+    """One step on the per-op path under ``torch.profiler``: device ms by
+    kind (:func:`_conv_share`) and the eight kernels with the most
+    device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.exe.run(prog, feed=feed, fetch_list=[cost], use_jit=False)
+        _sync(dev)
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = (e.self_cuda_time_total if t is None else t) / 1e3
+        top.append((t, e.count, e.key[:90]))
+    top.sort(reverse=True)
+    return {"by_kind": _conv_share(prof),
+            "top_kernels": [{"ms": t, "launches": n, "kernel": k}
+                            for t, n, k in top[:8]]}
+
+
+def _zoo_train(dev, name, seen):
+    """``models.<name>`` (vgg16, googlenet or alexnet) at 224 x 224, 1000
+    classes, float32, every 3x3 / s1 / p1 conv on the conv3x3 kernel
+    (``conv_impl=pallas3x3``). The kernel is first held to its plain
+    version at each of the program's conv3x3 shapes not in ``seen``
+    (:func:`_zoo_conv_check`). Then the model trains on one fixed seeded
+    batch through ``Trainer.train``, compiled: the loss finite and
+    falling, one capture and a replay a step, the conv3x3 launches a
+    step equal to the program's 3x3 / s1 / p1 convs (forward) and those
+    whose input wants a gradient (dx). VGG-16 holds step 1's gradients
+    to the plain model first. Each step is then timed on the per-op path
+    doing the Trainer's work (the batch fed from the host, the loss read
+    back), and both paths once more on the batch fed once (the device's
+    work and the dispatch alone). Returns (launches, record)."""
+    from paddle_tpu_torch import kernels, layers, models, optimizer
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.trainer import BeginIteration, EndIteration, \
+        Trainer
+    vgg = name == "vgg16"
+    batch, steps = (VGG_BATCH, VGG_STEPS) if vgg else (ZOO_BATCH, ZOO_STEPS)
+    label = "convnet_" + name
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        img = layers.data("img", shape=[3, ZOO_IMAGE, ZOO_IMAGE],
+                          dtype="float32")
+        lab = layers.data("label", shape=[1], dtype="int64")
+        pred = getattr(models, name)(img, class_dim=1000)
+        cost = layers.mean(layers.cross_entropy(pred, lab))
+        for op in main_prog.global_block().ops:
+            if op.type == "conv2d":
+                op.attrs["conv_impl"] = "pallas3x3"
+        spec = {"cost": cost}
+        trainer = Trainer(cost, optimizer.Momentum(
+            learning_rate=VGG_LR if vgg else ZOO_LR, momentum=0.9),
+            [img, lab], device=dev)
+    n_fwd, n_dx = _n_conv3x3(main_prog)
+    if vgg and (n_fwd, n_dx) != (13, 12):
+        fail("vgg16 holds %d 3x3 / s1 / p1 convs, %d wanting dx, not 13 "
+             "and 12" % (n_fwd, n_dx))
+    rng = np.random.RandomState(len(name))
+    sample = [(rng.rand(3, ZOO_IMAGE, ZOO_IMAGE).astype(np.float32),
+               rng.randint(0, 1000, (1,)).astype(np.int64))
+              for _ in range(batch)]
+    rec = {"batch": batch, "steps": steps,
+           "program_ops": len(main_prog.global_block().ops),
+           "conv3x3_per_step": {"fwd": n_fwd, "dx": n_dx},
+           "conv3x3_checks": _zoo_conv_check(dev, main_prog, batch, seen)}
+    with scope_guard(Scope()):
+        trainer._maybe_init()
+        feed = trainer.feeder.feed(sample)
+        if vgg:
+            rec["grad_check"] = _vgg_grad_check(trainer, spec, feed)
+        losses, step_s, marks = [], [], {}
+
+        def handler(e):
+            if isinstance(e, BeginIteration):
+                marks["t"] = time.monotonic()
+            elif isinstance(e, EndIteration):
+                step_s.append(time.monotonic() - marks["t"])
+                losses.append(e.cost)
+
+        _sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        exe_before = dict(trainer.exe.stats)
+        trainer.train(lambda: (sample for _ in range(steps)),
+                      num_passes=1, event_handler=handler)
+        launches = kernels.launch_counts()
+        rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+        delta = _exe_delta(trainer.exe, exe_before)
+        _compiled_gate(label, delta, len(losses))
+        if len(losses) != steps or not (np.all(np.isfinite(losses))
+                                        and losses[-1] < losses[0]):
+            fail("%s: the loss did not fall on the fixed batch: %s"
+                 % (label, losses))
+        want = {"conv3x3_fwd": n_fwd * steps, "conv3x3_dx": n_dx * steps}
+        got = {k: launches[k] for k in want}
+        others = {k: v for k, v in launches.items() if v and k not in want}
+        if got != want or others:
+            fail("%s: conv3x3 launches %s in %d steps, expected %s (%d "
+                 "forward and %d dx a step); other kernels %s"
+                 % (label, got, steps, want, n_fwd, n_dx, others))
+        fetch = trainer.fetch_list
+
+        def timed_steps(fed, use_jit):
+            out = []
+            for _ in range(steps):
+                t0 = time.monotonic()
+                trainer.exe.run(main_prog, feed=feed if fed else
+                                trainer.feeder.feed(sample),
+                                fetch_list=fetch, use_jit=use_jit)
+                _sync(dev)
+                out.append(time.monotonic() - t0)
+            return out
+        eager_s = timed_steps(False, False)
+        # the Trainer's graph replayed on the batch fed once
+        exe_before = dict(trainer.exe.stats)
+        fed_s = timed_steps(True, True)
+        fed_delta = _exe_delta(trainer.exe, exe_before)
+        want_fed = {"jit_runs": steps, "eager_runs": 0, "hybrid_runs": 0,
+                    "graph_captures": 0, "graph_replays": steps}
+        if fed_delta != want_fed:
+            fail("%s: the batch fed once ran %s, expected %s (the "
+                 "Trainer's graph replayed)" % (label, fed_delta, want_fed))
+        eager_fed_s = timed_steps(True, False)
+        if vgg:
+            rec["profile_eager_step"] = _one_step_profile(
+                trainer, main_prog, feed, cost, dev)
+    # the replays' p50 (the steps from the third on: the first two are
+    # the warm-up and the capture); the per-op path's over all its steps
+    p50 = float(np.median(step_s[2:]))
+    ep50 = float(np.median(eager_s))
+    fp50, efp50 = float(np.median(fed_s)), float(np.median(eager_fed_s))
+    rec.update({"losses": losses, "executor": delta,
+                "step_ms_compiled": [t * 1e3 for t in step_s],
+                "step_ms_eager": [t * 1e3 for t in eager_s],
+                "step_ms_p50_compiled": p50 * 1e3,
+                "step_ms_p50_eager": ep50 * 1e3,
+                "images_per_s_compiled": batch / p50,
+                "images_per_s_eager": batch / ep50,
+                # the batch fed once: no host batch, no copy
+                "fed_once": {"executor": fed_delta,
+                             "step_ms_p50_compiled": fp50 * 1e3,
+                             "step_ms_p50_eager": efp50 * 1e3,
+                             "images_per_s_compiled": batch / fp50,
+                             "images_per_s_eager": batch / efp50},
+                "launches": {k: v for k, v in launches.items() if v}})
+    log(json.dumps({label: rec}))
+    log("%s_train_images_per_sec %.3f compiled, %.3f eager (batch %d, step "
+        "p50 %.3f / %.3f ms, each feeding the batch; fed once %.3f / %.3f "
+        "ms; peak %.3f GB; %s)" % (
+            label, batch / p50, batch / ep50, batch, p50 * 1e3, ep50 * 1e3,
+            fp50 * 1e3, efp50 * 1e3, rec["peak_memory_bytes"] / 1e9,
+            card_line()))
+    trainer.exe.close()
+    del trainer, feed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def phase_convnet_zoo(dev, root):
+    """Phase 18: the rest of the conv-net path. Every new op and grad on
+    the card against the CPU; the conv knobs against the default conv at
+    ResNet-50's stem and first stage; the conv3x3 kernel at VGG-16's
+    first conv (C = 3) against its plain version; VGG-16, GoogLeNet and
+    AlexNet at ImageNet widths through ``Trainer.train``. Returns
+    ({path: launches}, the first-conv record)."""
+    from paddle_tpu_torch import tune
+    from paddle_tpu_torch.flags import FLAGS
+    t0 = time.monotonic()
+    old_dir = FLAGS.tune_cache_dir
+    FLAGS.tune_cache_dir = _fresh_dir(os.path.join(
+        root, "build", "chip_smoke", "tune_convnet_zoo"))
+    tune.clear_memory_cache()
+    paths, recs = {}, {}
+    try:
+        log(json.dumps({"convnet_ops": _convnet_ops_check(dev)}))
+        knobs = _knob_check(dev)
+        first = _vgg_first_conv(dev)
+        # the first conv's forward is held above (its image wants no dx)
+        seen = {(tuple(first["shape"]), False)}
+        for name in ("vgg16", "googlenet", "alexnet"):
+            paths["convnet_" + name], recs[name] = _zoo_train(dev, name,
+                                                              seen)
+    finally:
+        FLAGS.tune_cache_dir = old_dir
+        tune.clear_memory_cache()
+    log(json.dumps({
+        "convnet_zoo_wall_s": time.monotonic() - t0,
+        "vgg16_step_ms_p50": recs["vgg16"]["step_ms_p50_compiled"],
+        "vgg16_images_per_s": recs["vgg16"]["images_per_s_compiled"],
+        "googlenet_step_ms_p50": recs["googlenet"]["step_ms_p50_compiled"],
+        "alexnet_step_ms_p50": recs["alexnet"]["step_ms_p50_compiled"],
+        "vgg16_first_conv_ms": first["ms"],
+        "knob_ms": {k: {n: r["ms"] for n, r in v.items()}
+                    for k, v in knobs.items()},
+        "card": card_line()}))
+    return paths, first
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -9421,6 +10275,8 @@ def main():
     memory_paths = timed(15, phase_memory, dev, root, plain_steps)
     resilience_paths = timed(16, phase_resilience, dev, root, plain_steps)
     dense_paths = timed(17, phase_dense, dev, root)
+    zoo_paths, first_conv = timed(18, phase_convnet_zoo, dev, root)
+    kernels["conv3x3_fwd"]["vgg16_first_conv"] = first_conv
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
     paths = {"serve": serve_launches, **spec_paths, **disagg_paths,
              "train": train5["launches"],
@@ -9430,7 +10286,8 @@ def main():
              "tuned_train": tuned_launches,
              "convnet_conv3x3_consult": consult_launches, **amp_paths,
              **compiled_paths, **checkpoint_paths, **optim_paths,
-             **memory_paths, **resilience_paths, **dense_paths}
+             **memory_paths, **resilience_paths, **dense_paths,
+             **zoo_paths}
     for name, entry in kernels.items():
         # each main path is read with the counts set to 0 just before it
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

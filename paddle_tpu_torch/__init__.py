@@ -30,7 +30,11 @@ path, over shared kernels, with AMP on the training paths:
   pipeline), ``trainer.py`` (with resume, preemption and ``test``), the
   ``transformer_lm`` Program builder and ``models/lenet.py``;
 - the conv-net training path: the conv2d, pool2d, batch_norm, softmax,
-  cross_entropy and metric ops and ``models/resnet.py``;
+  cross_entropy and metric ops and ``models/resnet.py``; the conv knobs
+  (``matmul``, ``nhwc``, the s2d stem), the transposed, 3-D and
+  depthwise convs, ``pool3d``, dropout, ``lrn`` and the rest of the nn
+  and metric ops, ``nets.py``, ``evaluator.py`` and
+  ``models/{mlp,vgg,alexnet,googlenet}.py``;
 - the sequence (LoD) training path: ``core/lod.py``, ragged feeds and
   the Executor's ``LoDValue``, ``ops/sequence_ops.py`` (sequence_pool,
   lstm, gru) and ``layers/sequence.py``;

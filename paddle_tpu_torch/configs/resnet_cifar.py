@@ -28,7 +28,7 @@ import numpy as np
 
 from paddle_tpu_torch import amp as amp_mod
 from paddle_tpu_torch import layers, optimizer, reader
-from paddle_tpu_torch.models import resnet
+from paddle_tpu_torch import models
 
 
 def model(variant="cifar", depth=20, image=32, class_dim=10, batch=8,
@@ -42,7 +42,7 @@ def model(variant="cifar", depth=20, image=32, class_dim=10, batch=8,
     enables it."""
     img = layers.data(name="img", shape=[3, image, image], dtype="float32")
     label = layers.data(name="label", shape=[1], dtype="int64")
-    pred = resnet.resnet(img, class_dim=class_dim, depth=depth,
+    pred = models.resnet(img, class_dim=class_dim, depth=depth,
                          variant=variant)
     cost = layers.cross_entropy(input=pred, label=label)
     avg_cost = layers.mean(x=cost)

@@ -1,5 +1,6 @@
 """The knobs of the port (the ``serve_*`` part of ``paddle_tpu/flags.py``,
-its ``log_period``, ``conv_impl``, ``lstm_impl``, ``tune``,
+its ``log_period``, ``conv_impl``, ``conv_layout``,
+``conv_first_s2d``, ``lstm_impl``, ``tune``,
 ``tune_cache_dir``, ``tune_budget``, ``memory_budget_gb``,
 ``check_nan_inf``, ``verify``, ``debug_shapes``, ``pipeline``,
 ``pipeline_depth``, ``step_timeout_s``, ``loss_skip_budget`` and
@@ -100,11 +101,28 @@ _DEFS = {
         "inference fails (also enabled by PADDLE_TPU_DEBUG_SHAPES); "
         "the failure is recorded for PT013 either way"),
     "conv_impl": (
-        "conv", str, "dense conv2d lowering: 'conv' (torch's conv2d) or "
-        "'pallas3x3' (the hand-written 3x3 / s1 / p1 kernel for that "
+        "conv", str, "dense conv2d lowering: 'conv' (torch's conv2d), "
+        "'matmul' (KH*KW shifted matmuls for groups 1 without dilation) "
+        "or 'pallas3x3' (the hand-written 3x3 / s1 / p1 kernel for that "
         "population, torch's conv2d for the rest); PADDLE_TPU_CONV_IMPL "
         "overrides it, and a conv2d op's own 'conv_impl' attr takes "
-        "precedence over it. 'matmul' (shifted matmuls) is not ported"),
+        "precedence over it. On an H100 'matmul' is slower than 'conv' "
+        "at every shape chip_smoke.py measures (ResNet-50's stem and "
+        "first 3x3 stage): kept for parity with the JAX package"),
+    "conv_layout": (
+        "nchw", str, "internal conv execution layout: 'nchw' (the API "
+        "contract layout, passed through) or 'nhwc' (the conv runs on "
+        "channels_last tensors; the op's inputs and outputs stay NCHW); "
+        "PADDLE_TPU_CONV_LAYOUT overrides it. On an H100 'nhwc' is slower "
+        "than 'nchw' at every shape chip_smoke.py measures: kept for "
+        "parity with the JAX package"),
+    "conv_first_s2d": (
+        False, _parse_bool, "rewrite the ImageNet stem conv (7x7/s2/p3, "
+        "C_in<=4, even H and W) as space-to-depth + 4x4/s1 conv: 4x the "
+        "input channels, numerically exact; PADDLE_TPU_CONV_S2D "
+        "overrides it. On an H100 the rewritten stem is slower than the "
+        "plain one (chip_smoke.py phase 18): kept for parity with the JAX "
+        "package"),
     "lstm_impl": (
         "scan", str, "whole-sequence lstm and gru lowering: 'scan' (the "
         "plain time loop) or 'pallas' (the hand-written fused recurrence "

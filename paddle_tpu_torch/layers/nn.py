@@ -5,9 +5,10 @@ dense tensor and loss layers (``smooth_l1`` :294,
 ``sigmoid_cross_entropy_with_logits`` :425, ``matmul`` :488, ``mul``
 :498, ``dot`` :508, ``slice`` :605, ``cos_sim`` :616, ``one_hot`` :629,
 ``pad`` :668, ``label_smooth`` :676, ``transpose`` :693, ``split`` :701,
-``concat_nn`` :721, ``expand`` :725, ``squeeze`` :729, ``unsqueeze`` :733; the matching part
-of ``paddle_tpu/layers/nn.py``): each appends ops to the current
-block.
+``concat_nn`` :721, ``expand`` :725, ``squeeze`` :729, ``unsqueeze``
+:733), and the rest of the conv-net path's layers (``dropout`` :86 to ``edit_distance`` :755,
+listed where they are defined); the matching part of
+``paddle_tpu/layers/nn.py``: each appends ops to the current block.
 Names are generated in the JAX package's order, so a program built in
 both packages under ``unique_name.guard()`` has the same variables."""
 from __future__ import annotations
@@ -18,16 +19,18 @@ from ..initializer import ConstantInitializer, NormalInitializer
 from ..param_attr import ParamAttr
 from .layer_helper import LayerHelper
 
-__all__ = ["accuracy", "batch_norm", "clip", "clip_by_norm", "concat_nn",
-           "conv2d", "cos_sim", "cross_entropy", "dot", "elementwise_add",
-           "elementwise_div", "elementwise_mul", "elementwise_sub",
-           "embedding", "expand", "fc", "label_smooth", "layer_norm", "log",
-           "matmul", "mean", "mul", "one_hot", "pad", "pool2d",
-           "reduce_max", "reduce_mean", "reduce_min", "reduce_sum", "relu",
-           "reshape", "scale", "sigmoid_cross_entropy_with_logits", "slice",
-           "smooth_l1", "softmax", "softmax_with_cross_entropy", "split",
-           "square_error_cost", "squeeze", "topk", "transpose",
-           "unsqueeze"]
+__all__ = ["accuracy", "auc", "batch_norm", "clip", "clip_by_norm",
+           "concat_nn", "conv2d", "conv2d_transpose", "conv3d",
+           "conv3d_transpose", "cos_sim", "cross_entropy", "dot", "dropout",
+           "edit_distance", "elementwise_add", "elementwise_div",
+           "elementwise_mul", "elementwise_sub", "embedding", "expand", "fc",
+           "l2_normalize", "label_smooth", "layer_norm", "log", "lrn",
+           "matmul", "maxout", "mean", "mul", "one_hot", "pad", "pool2d",
+           "pool3d", "prelu", "reduce_max", "reduce_mean", "reduce_min",
+           "reduce_sum", "relu", "reshape", "scale",
+           "sigmoid_cross_entropy_with_logits", "slice", "smooth_l1",
+           "softmax", "softmax_with_cross_entropy", "split",
+           "square_error_cost", "squeeze", "topk", "transpose", "unsqueeze"]
 
 
 def _pair(v):
@@ -521,3 +524,207 @@ def squeeze(input, axes, name=None):
 
 def unsqueeze(input, axes, name=None):
     return _simple("unsqueeze", input, {"axes": list(axes)})
+
+
+# -- the rest of the conv-net path (``paddle_tpu/layers/nn.py``: dropout
+# :86, conv2d_transpose :136, conv3d_transpose :176, conv3d :239, pool3d
+# :273, auc :461, l2_normalize :601, lrn :645, prelu :655, maxout :672,
+# edit_distance :755)
+
+def _triple(v):
+    return [v] * 3 if isinstance(v, int) else v
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None):
+    """A ``dropout`` op: Out, and the Mask its grad reads."""
+    helper = LayerHelper("dropout", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    out.shape = x.shape
+    mask = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op(type="dropout", inputs={"X": [x]},
+                     outputs={"Out": [out], "Mask": [mask]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "seed": seed if seed is not None else 0})
+    return out
+
+
+def _check_groups(layer, num_filters, num_channels, groups):
+    if num_filters % groups or num_channels % groups:
+        raise ValueError(
+            "%s: num_filters (%d) and input channels (%d) must both be "
+            "divisible by groups (%d)"
+            % (layer, num_filters, num_channels, groups))
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, param_attr=None,
+                     bias_attr=None, use_cudnn=True, act=None, name=None,
+                     groups=None):
+    """A ``conv2d_transpose`` op with an IOHW filter [C, F / G, kh, kw]
+    (its size from ``output_size`` when ``filter_size`` is None), then
+    bias and act."""
+    helper = LayerHelper("conv2d_transpose", **locals())
+    dtype = helper.input_dtype()
+    num_channels = input.shape[1]
+    groups = groups or 1
+    _check_groups("conv2d_transpose", num_filters, num_channels, groups)
+    stride, padding, dilation = (_pair(v) for v in (stride, padding,
+                                                    dilation))
+    if filter_size is None:
+        h, w = input.shape[2], input.shape[3]
+        oh, ow = output_size if isinstance(output_size, (list, tuple)) \
+            else (output_size, output_size)
+        filter_size = [oh - (h - 1) * stride[0] + 2 * padding[0],
+                       ow - (w - 1) * stride[1] + 2 * padding[1]]
+    else:
+        filter_size = _pair(filter_size)
+    w = helper.create_parameter(
+        helper.param_attr, dtype=dtype,
+        shape=[num_channels, num_filters // groups] + list(filter_size))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="conv2d_transpose",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [pre_bias]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, param_attr=None,
+                     bias_attr=None, act=None, name=None, groups=None):
+    """conv2d_transpose one dim up: NCDHW, filter IODHW."""
+    helper = LayerHelper("conv3d_transpose", **locals())
+    dtype = helper.input_dtype()
+    num_channels = input.shape[1]
+    stride, padding, dilation = (_triple(v) for v in (stride, padding,
+                                                      dilation))
+    if filter_size is None:
+        dims = input.shape[2:5]
+        osz = output_size if isinstance(output_size, (list, tuple)) \
+            else [output_size] * 3
+        filter_size = [osz[i] - (dims[i] - 1) * stride[i] + 2 * padding[i]
+                       for i in range(3)]
+    else:
+        filter_size = _triple(filter_size)
+    groups = groups or 1
+    _check_groups("conv3d_transpose", num_filters, num_channels, groups)
+    w = helper.create_parameter(
+        helper.param_attr, dtype=dtype,
+        shape=[num_channels, num_filters // groups] + list(filter_size))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="conv3d_transpose",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [pre_bias]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, act=None,
+           name=None):
+    """A ``conv3d`` op, NCDHW input and OIDHW filter initialized
+    ``Normal(0, sqrt(2 / fan_in))``, then bias and act."""
+    helper = LayerHelper("conv3d", **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    filter_size, stride, padding, dilation = (
+        _triple(v) for v in (filter_size, stride, padding, dilation))
+    filter_shape = [num_filters, input.shape[1] // groups] + list(filter_size)
+    fan_in = int(np.prod(filter_shape[1:]))
+    w = helper.create_parameter(
+        helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, (2.0 / fan_in) ** 0.5))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="conv3d",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [pre_bias]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, ceil_mode=False,
+           name=None):
+    helper = LayerHelper("pool3d", **locals())
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    helper.append_op(type="pool3d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type,
+                            "ksize": _triple(pool_size),
+                            "strides": _triple(pool_stride),
+                            "paddings": _triple(pool_padding),
+                            "global_pooling": global_pooling,
+                            "ceil_mode": ceil_mode})
+    return out
+
+
+def auc(input, label, curve="ROC", num_thresholds=200, topk=1):
+    """An ``auc`` op over the (N, 2) softmax or (N, 1) sigmoid
+    probability: a scalar."""
+    helper = LayerHelper("auc")
+    auc_out = helper.create_variable_for_type_inference("float32")
+    auc_out.shape = ()
+    auc_out.stop_gradient = True
+    helper.append_op(type="auc", inputs={"Out": [input], "Label": [label]},
+                     outputs={"AUC": [auc_out]},
+                     attrs={"curve": curve,
+                            "num_thresholds": num_thresholds})
+    return auc_out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    return _simple("l2_normalize", x, {"axis": axis, "epsilon": epsilon})
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    """An ``lrn`` op (the layer's k defaults to 1.0, the op's to 2.0)."""
+    helper = LayerHelper("lrn", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op(type="lrn", inputs={"X": [input]},
+                     outputs={"Out": [out], "MidOut": [mid]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """A ``prelu`` op with its Alpha parameter (0.25): one slope
+    (``all``), one a channel (``channel``), or X's shape past the batch
+    dim (``element``)."""
+    helper = LayerHelper("prelu", **locals())
+    alpha_shape = [1] if mode == "all" else \
+        ([x.shape[1]] if mode == "channel" else list(x.shape[1:]))
+    alpha = helper.create_parameter(
+        helper.param_attr, shape=alpha_shape, dtype=x.dtype,
+        default_initializer=ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return out
+
+
+def maxout(x, groups, name=None):
+    return _simple("maxout", x, {"groups": groups})
+
+
+def edit_distance(input, label, normalized=False, ignored_tokens=None,
+                  name=None):
+    """The Levenshtein distance of each dense hypothesis row to its
+    reference: ([N, 1] distances, [1] the row count). ``ignored_tokens``
+    rides along as an attr, as in the JAX layer."""
+    helper = LayerHelper("edit_distance", **locals())
+    out = helper.create_variable_for_type_inference("float32")
+    seq_num = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="edit_distance",
+                     inputs={"Hyps": [input], "Refs": [label]},
+                     outputs={"Out": [out], "SequenceNum": [seq_num]},
+                     attrs={"normalized": normalized,
+                            "ignored_tokens": list(ignored_tokens or [])})
+    return out, seq_num

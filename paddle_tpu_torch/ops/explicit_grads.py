@@ -4,7 +4,8 @@
 ``sigmoid``, ``exp``, ``sqrt``, ``reciprocal``), ``softmax_grad`` :113,
 ``mul_grad``, ``matmul_grad`` :159 with its maker :199,
 ``elementwise_{add,sub,mul}_grad`` :238-281,
-``conv2d_grad`` :285, ``pool2d_grad`` :366, ``batch_norm_grad`` :408,
+``conv2d_grad`` :285 (also ``depthwise_conv2d``'s, :359-361),
+``pool2d_grad`` :366, ``batch_norm_grad`` :408,
 ``cross_entropy_grad`` :478,
 ``softmax_with_cross_entropy_grad``, ``mean_grad``, ``scale_grad``).
 
@@ -15,6 +16,7 @@ after the forward ops it attaches to are registered.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .. import amp
 from ..core import registry
@@ -25,7 +27,8 @@ from ..core.registry import register_op
 from ..core.types import is_floating
 from .common import bcast_y_to_x, flatten_to_2d
 from .math_ops import acc_matmul, swap_last
-from .nn_ops import _bn_grad_maker, bn_axes, conv3x3_config, pool2d_apply
+from .nn_ops import _bn_grad_maker, _conv_taps, _in_layout, \
+    _native_operands, bn_axes, conv3x3_config, conv_uses_taps, pool2d_apply
 
 __all__ = ["simple_grad_maker"]
 
@@ -277,15 +280,24 @@ for _n in ("elementwise_add", "elementwise_sub", "elementwise_mul"):
 def conv2d_grad(ctx):
     """dInput and dFilter without replaying the forward (the JAX grad
     replays it under ``jax.vjp``, where XLA drops the dead primal; here
-    it would be a real launch). A conv whose tune dispatch decision
-    (``nn_ops.conv3x3_config``, asked again as the JAX grad's replay
-    asks it) runs the conv3x3 kernel takes that wrapper's backward
-    through the NHWC/HWIO transposes: dx by the kernel, dw by the 9 tap
-    contractions. Every other conv takes ``convolution_backward``, the
-    backward of torch's conv2d. Under AMP Input, Filter and the output
-    gradient are cast to bfloat16 (the kernel's bfloat16 face writes dx
-    in bfloat16, the dw taps are rounded to bfloat16), and dInput /
-    dFilter are written in their declared dtypes."""
+    it would be a real launch), on the forward dispatch's path:
+    - under ``conv_impl=matmul``, groups 1 without dilation and off the
+      s2d stem (``nn_ops.conv_uses_taps``), the per-tap products of the
+      JAX grad's ``use_taps`` path, summed in float32;
+    - a conv whose tune dispatch decision (``nn_ops.conv3x3_config``,
+      asked again as the JAX grad's replay asks it) runs the conv3x3
+      kernel: that wrapper's backward through the NHWC/HWIO transposes,
+      dx by the kernel, dw by the 9 tap contractions;
+    - every other conv: ``convolution_backward``, the backward of
+      torch's conv2d, on the operands the forward conv ran on (the s2d
+      stem's rewrite, the layout's memory format), and the cheap
+      reshapes between those and Input / Filter taken back by autograd.
+    ``groups`` is the attr, else Input's channels over Filter's (a
+    ``depthwise_conv2d`` without the attr is one group a channel).
+    Under AMP Input, Filter and the output gradient are cast to bfloat16
+    (the kernel's bfloat16 face writes dx in bfloat16, the dw taps are
+    rounded to bfloat16), and dInput / dFilter are written in their
+    declared dtypes."""
     x = ctx.input("Input")
     w = ctx.input("Filter")
     dy = ctx.input("Output@GRAD")
@@ -294,11 +306,14 @@ def conv2d_grad(ctx):
     s = ctx.attr("strides", [1, 1])
     p = ctx.attr("paddings", [0, 0])
     d = ctx.attr("dilations", [1, 1])
-    groups = ctx.attr("groups", 1) or 1
+    groups = ctx.attr("groups") or x.shape[1] // w.shape[1]
+    choice = ctx.attr("conv_impl")
     want_dx = bool(ctx.op.output("Input@GRAD"))
     want_dw = bool(ctx.op.output("Filter@GRAD"))
-    if conv3x3_config(x.shape, w.shape, s, p, d, groups, x.dtype,
-                      ctx.attr("conv_impl")) is not None:
+    if conv_uses_taps(x, w, s, p, d, groups, choice):
+        dx, dw = _conv_taps_grad(x, w, dy, s, p, want_dx, want_dw)
+    elif conv3x3_config(x.shape, w.shape, s, p, d, groups, x.dtype,
+                        choice) is not None:
         dx, dw = conv3x3.conv3x3_bwd(
             x.permute(0, 2, 3, 1).contiguous(),
             w.permute(2, 3, 1, 0).contiguous(),
@@ -306,16 +321,63 @@ def conv2d_grad(ctx):
         dx = dx.permute(0, 3, 1, 2).contiguous() if want_dx else None
         dw = dw.permute(3, 2, 0, 1).contiguous() if want_dw else None
     else:
-        dx, dw, _ = torch.ops.aten.convolution_backward(
-            dy.to(x.dtype), x, w, None, list(s), list(p), list(d), False,
-            [0, 0], groups, [want_dx, want_dw, False])
+        dx, dw = _conv_native_grad(x, w, dy, s, p, d, groups, want_dx,
+                                   want_dw)
     # each a no-op when not wired
     ctx.set_output("Input@GRAD", dx.to(xdt) if want_dx else None)
     ctx.set_output("Filter@GRAD", dw.to(wdt) if want_dw else None)
 
 
-_attach("conv2d", "conv2d_grad", need_inputs=("Input", "Filter"),
-        diff_slots=("Input", "Filter"), out_slot="Output")
+def _conv_taps_grad(x, w, dy, s, p, want_dx, want_dw):
+    """The JAX grad's per-tap path (``paddle_tpu/ops/explicit_grads.py:
+    329-357``): dW one [O, C] product a tap, dX one product a tap added
+    into the strided window of the padded input's gradient; float32
+    sums (float64 for float64)."""
+    _, C, H, W = x.shape
+    O, _, KH, KW = w.shape
+    xp, wins = _conv_taps(x, w, s, p, dy.shape[2], dy.shape[3])
+    wa, g = w.to(xp.dtype), dy.to(xp.dtype)
+    dxp = torch.zeros_like(xp) if want_dx else None
+    dw_taps = []
+    for ky, kx, win in wins:
+        if want_dw:
+            dw_taps.append(torch.einsum("bohw,bchw->oc", g, xp[win]))
+        if want_dx:
+            dxp[win] += torch.einsum("bohw,oc->bchw", g, wa[:, :, ky, kx])
+    dw = torch.stack(dw_taps, dim=-1).reshape(O, C, KH, KW) \
+        if want_dw else None
+    dx = dxp[:, :, p[0]:p[0] + H, p[1]:p[1] + W] if want_dx else None
+    return dx, dw
+
+
+def _conv_native_grad(x, w, dy, s, p, d, groups, want_dx, want_dw):
+    """dx and dw of ``nn_ops._conv_native`` by ``convolution_backward``
+    on the operands it convolves; where those are not Input and Filter
+    themselves (the s2d stem, the nhwc layout), autograd carries the
+    gradients back through the reshapes, pads and copies."""
+    with torch.enable_grad():
+        xl = x.detach().requires_grad_(want_dx)
+        wl = w.detach().requires_grad_(want_dw)
+        xo, wo, so, po, do, go = _native_operands(xl, wl, s, p, d, groups)
+        dxo, dwo, _ = torch.ops.aten.convolution_backward(
+            _in_layout(dy.to(x.dtype)), xo.detach(), wo.detach(), None,
+            list(so), list(po), list(do), False, [0, 0], go,
+            [want_dx, want_dw, False])
+        if xo is xl and wo is wl:
+            return (dxo.contiguous() if want_dx else None,
+                    dwo.contiguous() if want_dw else None)
+        outs = [(t, gt) for t, gt, want in ((xo, dxo, want_dx),
+                                           (wo, dwo, want_dw)) if want]
+        leaves = [t for t, want in ((xl, want_dx), (wl, want_dw)) if want]
+        got = list(torch.autograd.grad([o for o, _ in outs], leaves,
+                                       [gt for _, gt in outs]))
+    return (got.pop(0).contiguous() if want_dx else None,
+            got.pop(0).contiguous() if want_dw else None)
+
+
+for _conv in ("conv2d", "depthwise_conv2d"):
+    _attach(_conv, "conv2d_grad", need_inputs=("Input", "Filter"),
+            diff_slots=("Input", "Filter"), out_slot="Output")
 
 
 @register_op("pool2d_grad", no_gradient=True)

@@ -45,7 +45,9 @@ def _feed_names(kind):
     return {"fit_a_line": ["x"], "tiny_lm": ["toks"],
             "recognize_digits_conv": ["img"], "resnet_cifar": ["img"],
             "text_rnn": ["words"], "word2vec": ["w0", "w1", "w2", "w3"],
-            "recommender": list(book.REC_FEEDS[:-1])}[kind]
+            "recommender": list(book.REC_FEEDS[:-1]),
+            "image_classification_vgg": ["pixel"],
+            "recognize_digits_nets": ["img"]}[kind]
 
 
 def _only(feed, names):

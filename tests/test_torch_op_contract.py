@@ -61,12 +61,17 @@ def test_grad(name, op_type, spec):
 
 
 def test_the_sweep_covers_every_registered_case():
-    """Every case whose op type the port registers runs, and the 41 op
-    types of the dense slice that the suite holds are among them."""
-    assert len(PORT_CASES) >= 144 and len(GRAD_CASES) >= 59
+    """Every case whose op type the port registers runs: the op types of
+    the dense slice and of the conv-net slice that the suite holds are
+    among them."""
+    assert len(PORT_CASES) >= 159 and len(GRAD_CASES) >= 62
     covered = {c[1] for c in PORT_CASES}
     for op in ("matmul", "concat", "split", "slice", "cos_sim", "scatter",
-               "one_hot", "argsort", "rank_loss", "smooth_l1_loss"):
+               "one_hot", "argsort", "rank_loss", "smooth_l1_loss",
+               "prelu", "log_softmax", "maxout", "dropout",
+               "depthwise_conv2d", "conv2d_transpose", "conv3d",
+               "conv3d_transpose", "pool3d", "lrn", "l2_normalize",
+               "auc", "precision_recall", "edit_distance"):
         assert op in covered, op
 
 

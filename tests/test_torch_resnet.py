@@ -143,15 +143,22 @@ def test_conv2d_routes_only_its_population_to_the_kernel(monkeypatch):
 
 
 def test_conv_knobs_that_are_not_ported_raise(monkeypatch):
+    """The three knobs that raised until the port had them (matmul, nhwc,
+    s2d) now run: under each, a 3x3 conv's dispatch decision is made
+    without raising, and with the cache off no knob but ``pallas3x3``
+    routes it to the kernel (``tests/test_torch_conv_variants.py`` holds
+    each knob's numbers)."""
+    monkeypatch.setattr(FLAGS, "tune", False)
     monkeypatch.delenv("PADDLE_TPU_CONV_IMPL", raising=False)
     assert FLAGS.conv_impl == "conv" and nn_ops.conv_impl() == "conv"
-    for env, value, what in (("PADDLE_TPU_CONV_IMPL", "matmul", "matmul"),
-                             ("PADDLE_TPU_CONV_LAYOUT", "nhwc", "nhwc"),
-                             ("PADDLE_TPU_CONV_S2D", "1", "s2d")):
+    for env, value in (("PADDLE_TPU_CONV_IMPL", "matmul"),
+                       ("PADDLE_TPU_CONV_LAYOUT", "nhwc"),
+                       ("PADDLE_TPU_CONV_S2D", "1")):
         monkeypatch.setenv(env, value)
-        with pytest.raises(NotImplementedError, match=what):
-            _conv3x3_config((6, 4, 3, 3), [1, 1], [1, 1], [1, 1], 1)
+        assert _conv3x3_config((6, 4, 3, 3), [1, 1], [1, 1], [1, 1],
+                               1) is None
         monkeypatch.delenv(env)
+    assert nn_ops.conv_impl("matmul") == "matmul"
 
 
 POOL_CASES = [

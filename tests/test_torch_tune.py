@@ -44,7 +44,7 @@ from paddle_tpu_torch.core.scope import (Scope as TScope,  # noqa: E402
 from paddle_tpu_torch.flags import FLAGS  # noqa: E402
 from paddle_tpu_torch.kernels import conv3x3 as tconv  # noqa: E402
 from paddle_tpu_torch.kernels import matmul as tmm  # noqa: E402
-from paddle_tpu_torch.models import resnet as tresnet  # noqa: E402
+from paddle_tpu_torch import models as tmodels  # noqa: E402
 from paddle_tpu_torch.models import transformer as ttransformer  # noqa: E402
 from paddle_tpu_torch.resilience import faults  # noqa: E402
 from paddle_tpu_torch.resilience.events import (  # noqa: E402
@@ -731,7 +731,7 @@ def _resnet_program(pkg):
         main, startup = tir.Program(), tir.Program()
         with tun.guard(), tir.program_guard(main, startup):
             img = tlayers.data("img", shape=[3, 16, 16], dtype="float32")
-            tresnet.resnet(img, class_dim=10, depth=20, variant="cifar")
+            tmodels.resnet(img, class_dim=10, depth=20, variant="cifar")
     return main
 
 

@@ -18,7 +18,20 @@ its 5-grams the feeds, its SGD at 0.01 set here; the JAX twin is
 ``tests/book/test_recommender_system.py:16-63`` built alike in both,
 the JAX package's synthetic ``movielens`` rows the feeds: titles and
 categories ragged, pooled by ``sequence_pool(sum)``, a ``cos_sim``
-head). Both book kinds train in batches of 16.
+head), ``image_classification_vgg`` (the ``vgg_small`` of
+``tests/book/test_image_classification.py:12-23``: two
+``nets.img_conv_group`` blocks with batch norm, fc, batch norm, fc, a
+softmax classifier; Momentum at 0.01, 0.9, as ``resnet_cifar``: in
+float32 the book's Adam would move each bias ahead of a batch norm,
+whose gradient is zero but for float32 noise, by +-lr at random in each
+package; built in float64, ``dtype="float64"``, the kind trains alike
+under both, ``book_adam=True`` taking the book's Adam) and
+``recognize_digits_nets`` (the
+conv net of ``tests/book/test_recognize_digits.py:18-26``: two
+``nets.simple_img_conv_pool``, a softmax classifier, Adam at 0.003),
+both fed seeded synthetic images of the datasets' shapes (CIFAR-10's
+3 x 32 x 32, MNIST's 784) made here. The book kinds train in batches of
+16.
 """
 import importlib.util
 import os
@@ -28,10 +41,13 @@ import numpy as np
 import paddle_tpu as jpt
 from paddle_tpu import layers as jlayers
 from paddle_tpu import models as jmodels
+from paddle_tpu import nets as jnets
 from paddle_tpu.core import lod as jlod
 from paddle_tpu.core import unique_name as jun
 from paddle_tpu.dataset import imikolov as jimikolov
 from paddle_tpu.dataset import movielens as jmovielens
+from paddle_tpu_torch import layers as tlayers
+from paddle_tpu_torch import nets as tnets
 from paddle_tpu_torch import optimizer as toptimizer
 from paddle_tpu_torch.configs import fit_a_line as tfit
 from paddle_tpu_torch.configs import recognize_digits_conv as tdigits
@@ -48,7 +64,9 @@ from paddle_tpu_torch.core.scope import scope_from_numpy, scope_to_numpy
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = ("fit_a_line", "tiny_lm", "resnet_cifar", "text_rnn",
-         "recognize_digits_conv", "word2vec", "recommender")
+         "recognize_digits_conv", "word2vec", "recommender",
+         "image_classification_vgg", "recognize_digits_nets")
+IMAGE_KINDS = ("image_classification_vgg", "recognize_digits_nets")
 # losses within 1e-5 relative, persistables within 1e-5 of max(1, the
 # largest magnitude): float32 on both sides, sums in other orders
 REL_TOL = 1e-5
@@ -186,7 +204,75 @@ def _rec_samples():
             for r in rows]
 
 
-def _port_spec(kind):
+def image_classification_vgg(L, nets, optimizer, dtype="float32",
+                             book_adam=False):
+    """``vgg_small`` (``tests/book/test_image_classification.py:12-23``)
+    and the test's head, through the layers module ``L`` and the nets
+    module ``nets`` of either package. ``dtype``: the image's, which
+    every parameter takes; ``book_adam``: the book's Adam at 0.002
+    (``:64``) instead of Momentum."""
+    def conv_block(ipt, num_filter, groups):
+        return nets.img_conv_group(
+            input=ipt, pool_size=2, pool_stride=2,
+            conv_num_filter=[num_filter] * groups, conv_filter_size=3,
+            conv_act="relu", conv_with_batchnorm=True, pool_type="max")
+
+    images = L.data(name="pixel", shape=[3, 32, 32], dtype=dtype)
+    label = L.data(name="label", shape=[1], dtype="int64")
+    conv2 = conv_block(conv_block(images, 8, 2), 16, 2)
+    bn = L.batch_norm(input=L.fc(input=conv2, size=32, act=None),
+                      act="relu")
+    feat = L.fc(input=bn, size=32, act=None)
+    predict = L.fc(input=feat, size=10, act="softmax")
+    cost = L.mean(L.cross_entropy(input=predict, label=label))
+    acc = L.accuracy(input=predict, label=label)
+    opt = optimizer.Adam(learning_rate=0.002) if book_adam else \
+        optimizer.Momentum(learning_rate=0.01, momentum=0.9)
+    return {"cost": cost, "metrics": [acc], "feed_list": [images, label],
+            "prediction": predict, "optimizer": opt}
+
+
+def recognize_digits_nets(L, nets, optimizer):
+    """The conv net of ``tests/book/test_recognize_digits.py:18-26`` and
+    the test's head."""
+    img = L.data(name="img", shape=[784], dtype="float32")
+    label = L.data(name="label", shape=[1], dtype="int64")
+    img2d = L.reshape(img, [-1, 1, 28, 28])
+    conv_pool_1 = nets.simple_img_conv_pool(
+        input=img2d, filter_size=5, num_filters=8, pool_size=2,
+        pool_stride=2, act="relu")
+    conv_pool_2 = nets.simple_img_conv_pool(
+        input=conv_pool_1, filter_size=5, num_filters=16, pool_size=2,
+        pool_stride=2, act="relu")
+    predict = L.fc(input=conv_pool_2, size=10, act="softmax")
+    cost = L.mean(L.cross_entropy(input=predict, label=label))
+    acc = L.accuracy(input=predict, label=label)
+    return {"cost": cost, "metrics": [acc], "feed_list": [img, label],
+            "prediction": predict,
+            "optimizer": optimizer.Adam(learning_rate=0.003)}
+
+
+IMAGE_SHAPES = {"image_classification_vgg": (3, 32, 32),
+                "recognize_digits_nets": (784,)}
+
+
+def _image_samples(kind):
+    """BOOK_BATCHES batches of seeded synthetic (image, label) samples of
+    the dataset's shape, pixels in [0, 1)."""
+    rng = np.random.RandomState(len(kind))
+    n = BOOK_BATCHES * BOOK_BATCH
+    imgs = rng.rand(n, *IMAGE_SHAPES[kind]).astype(np.float32)
+    labels = rng.randint(0, 10, (n, 1)).astype(np.int64)
+    return [(imgs[i], labels[i]) for i in range(n)]
+
+
+def _port_spec(kind, **kind_kw):
+    if kind in IMAGE_KINDS:
+        spec = globals()[kind](tlayers, tnets, toptimizer, **kind_kw)
+        samples = _image_samples(kind)
+        spec["reader"] = lambda: (samples[i:i + BOOK_BATCH] for i in range(
+            0, len(samples), BOOK_BATCH))
+        return spec
     if kind == "word2vec":
         spec = tw2v.model(vocab=W2V["vocab"], emb=W2V["emb"],
                           hidden=W2V["hidden"])
@@ -215,7 +301,9 @@ def _port_spec(kind):
                       seq_len=8, **RNN)
 
 
-def _jax_spec(kind):
+def _jax_spec(kind, **kind_kw):
+    if kind in IMAGE_KINDS:
+        return globals()[kind](jlayers, jnets, jpt.optimizer, **kind_kw)
     if kind == "word2vec":
         return _jax_w2v()
     if kind == "recommender":
@@ -246,21 +334,21 @@ def prediction_name(kind, spec):
     return ce.input("X")[0]
 
 
-def build(pkg, kind, minimize=True):
+def build(pkg, kind, minimize=True, **kind_kw):
     """(main, startup, spec) of ``kind`` in ``pkg`` ('jax' or 'port'),
     with the optimizer's ops appended when ``minimize``; ``spec`` gains
-    ``prediction_name``."""
+    ``prediction_name``. ``kind_kw`` goes to an image kind's builder."""
     if pkg == "jax":
         main, start = jpt.Program(), jpt.Program()
         with jun.guard(), jpt.program_guard(main, start):
-            spec = _jax_spec(kind)
+            spec = _jax_spec(kind, **kind_kw)
             spec["prediction_name"] = prediction_name(kind, spec)
             if minimize:
                 spec["optimizer"].minimize(spec["cost"])
     else:
         main, start = tir.Program(), tir.Program()
         with tun.guard(), tir.program_guard(main, start):
-            spec = _port_spec(kind)
+            spec = _port_spec(kind, **kind_kw)
             spec["prediction_name"] = prediction_name(kind, spec)
             if minimize:
                 spec["optimizer"].minimize(spec["cost"])
@@ -333,7 +421,9 @@ def feeds(kind, pkg, n):
              "resnet_cifar": ("img", "label"),
              "text_rnn": ("words", "label"),
              "word2vec": ("w0", "w1", "w2", "w3", "next_word"),
-             "recommender": REC_FEEDS}[kind]
+             "recommender": REC_FEEDS,
+             "image_classification_vgg": ("pixel", "label"),
+             "recognize_digits_nets": ("img", "label")}[kind]
     lod_mod = jlod if pkg == "jax" else tlod
     out = []
     for i in range(n):
