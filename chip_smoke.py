@@ -14,7 +14,8 @@ and pure-AMP training of the bias-free LSTM classifier; and the dense
 tensor and loss ops, on the word2vec and recommender book models and
 at GPT-2 small's attention shapes; and the rest of the conv-net path
 (its ops, the conv knobs) on VGG-16, GoogLeNet and AlexNet at ImageNet
-widths. Run from the root of a checkout:
+widths; and the sequence stack (its ops, the book's sentiment nets and
+semantic role tagger). Run from the root of a checkout:
 
     python3 chip_smoke.py
 
@@ -428,7 +429,44 @@ Phases, in order; any failure exits non-zero at once:
    GoogLeNet and AlexNet the same at 224 x 224, batch 32,
    ``Momentum(0.01, 0.9)``, ``ZOO_STEPS`` steps, their conv3x3 launches
    a step equal to the 3x3 / s1 / p1 convs the smoke counts in each
-   program (10 and 3). The tune cache is a fresh directory of its own.
+   program (10 and 3). The tune cache is a fresh directory of its own;
+19. sequence: the sequence stack. Every op of the slice (the 25 of
+   ``ops/sequence_ops.py``, ``im2sequence``, ``hierarchical_sigmoid``,
+   ``sequence_pool``'s stride windows) and its grad on the card and on
+   the CPU on the same seeded inputs (``_sequence_cases``: the shapes of
+   the three models below and the CPU tests' edges): offsets, paths,
+   selections and chunk counts bit-identical, floats within
+   ``SEQ_OP_TOL`` of max(1, |CPU value|), the largest error printed per
+   op; the three int samplers' 2^16 draws within ``SEQ_Z`` standard
+   errors a bucket of their laws on both devices (widened by Bonferroni
+   for the bucket count at ``SEQ_FAMILY_ALPHA``); the book's
+   ``convolution_net`` (embedding and hidden 32, two
+   ``nets.sequence_conv_pool``) and ``stacked_lstm_net`` (embedding 128,
+   hidden 512, 3 LSTMs with peepholes on the time loop) over imdb's 5147
+   words, batch 128 reviews of 20 to 250 words, Adam 0.002, and the same
+   LSTM net without peepholes under ``lstm_impl="pallas"`` (row 7 at
+   N 128, D 128: 2 launches a layer a step, held against the time loop
+   at step 1, loss, Hidden and every gradient, on the card); ``db_lstm``
+   of the book's semantic role labelling (word embedding 32, mark 5,
+   hidden 512, depth 8, vocabularies of 44068 words, 3162 predicates and
+   59 labels, batch 10 sentences of 4 to 60 words, SGD 0.01, ``crfw`` at
+   learning rate 1e-3, tanh fcs and the word embedding not trained, as
+   upstream) with its CRF: each at float32, TF32 off, step-1
+   gradients of every parameter within ``SEQ_GRAD_REL_TOL`` (relative
+   norm) of the port's own CPU run of the same program built in
+   float64 (``SEQ_FLIP_GRAD_REL_TOL`` where a max pool picked another
+   row, each such flip at a near tie: ``SEQ_TIE_TOL``), ``SEQ_STEPS``
+   compiled steps on one fixed batch through ``Trainer.train`` (the
+   loss falls; one capture and a replay a step),
+   as many per-op steps, the step p50, sequences/s, tokens/s and peak
+   memory; the tagger's decoded path against the CPU's on the same
+   emissions where the CPU's float64 margin exceeds
+   ``VITERBI_MARGIN_TOL`` (the skipped positions printed), and the chunk
+   counts of a ``ChunkEvaluator`` program (on the hybrid path) over it;
+   row 7 at that population against its plain version, its time beside
+   the plain version's, cuDNN's and the bound (the kernels line's
+   ``fused_lstm.d128_n128``). The tune cache is a fresh directory of its
+   own.
 
 Since phase 15's slice every path of the Executor frees each value at
 its last use, so phases 1-14 run on the freeing Executor and their
@@ -462,6 +500,7 @@ import math
 import os
 import shutil
 import signal
+import statistics
 import subprocess
 import sys
 import threading
@@ -8719,8 +8758,8 @@ def _dense_program(op_type, inputs, outputs, attrs, diff=(), loss_of=None,
                 arr = v[0] if isinstance(v, tuple) else v
                 var = blk.create_var(name=name, shape=arr.shape,
                                      dtype=str(arr.dtype),
-                                     lod_level=1 if isinstance(v, tuple)
-                                     else 0)
+                                     lod_level=len(v[1]) if isinstance(
+                                         v, tuple) else 0)
                 var.stop_gradient = name not in diff
                 ins[slot].append(name)
         for names in outputs.values():
@@ -8751,10 +8790,11 @@ def _fetched(v):
         not isinstance(v, np.ndarray) else np.asarray(v)
 
 
-def _dense_compare(label, op, names, card, cpu, exact):
+def _dense_compare(label, op, names, card, cpu, exact, tol=DENSE_OP_TOL,
+                   what="dense op"):
     """Largest errors of the card's fetches against the CPU's; fails on
     a shape, dtype, LoD, inf or NaN mismatch, an exact output that
-    differs, or a float one past DENSE_OP_TOL."""
+    differs, or a float one past ``tol``."""
     worst = {"max_abs_err": 0.0, "max_rel_err": 0.0}
     for i, (n, g, w) in enumerate(zip(names, card, cpu)):
         lg = g.lod() if hasattr(g, "lod") and not isinstance(
@@ -8763,22 +8803,22 @@ def _dense_compare(label, op, names, card, cpu, exact):
             w, np.ndarray) else None
         g, w = _fetched(g), _fetched(w)
         if lg != lw or g.shape != w.shape or g.dtype != w.dtype:
-            fail("dense op %s (%s) output %s: card %s %s lod %s, CPU %s %s "
-                 "lod %s" % (op, label, n, g.shape, g.dtype, lg, w.shape,
-                             w.dtype, lw))
+            fail("%s %s (%s) output %s: card %s %s lod %s, CPU %s %s "
+                 "lod %s" % (what, op, label, n, g.shape, g.dtype, lg,
+                             w.shape, w.dtype, lw))
         is_grad = n.endswith("@GRAD")
         if not np.issubdtype(w.dtype, np.floating) or (exact and not is_grad):
             if not np.array_equal(g, w, equal_nan=np.issubdtype(
                     w.dtype, np.floating)):
-                fail("dense op %s (%s) output %s is not bit-identical to "
-                     "the CPU's" % (op, label, n))
+                fail("%s %s (%s) output %s is not bit-identical to "
+                     "the CPU's" % (what, op, label, n))
             continue
         g64, w64 = g.astype(np.float64), w.astype(np.float64)
         if not (np.array_equal(np.isnan(g64), np.isnan(w64))
                 and np.array_equal(g64[np.isinf(g64)], w64[np.isinf(w64)])
                 and np.array_equal(np.isinf(g64), np.isinf(w64))):
-            fail("dense op %s (%s) output %s: inf / NaN places differ from "
-                 "the CPU's" % (op, label, n))
+            fail("%s %s (%s) output %s: inf / NaN places differ from "
+                 "the CPU's" % (what, op, label, n))
         fin = np.isfinite(w64)
         if not fin.any():
             continue
@@ -8786,10 +8826,9 @@ def _dense_compare(label, op, names, card, cpu, exact):
         rel = err / max(1.0, float(np.abs(w64[fin]).max()))
         worst["max_abs_err"] = max(worst["max_abs_err"], err)
         worst["max_rel_err"] = max(worst["max_rel_err"], rel)
-        if not rel <= DENSE_OP_TOL:
-            fail("dense op %s (%s) output %s differs from the CPU's by %g "
-                 "of max(1, |value|) > %g" % (op, label, n, rel,
-                                               DENSE_OP_TOL))
+        if not rel <= tol:
+            fail("%s %s (%s) output %s differs from the CPU's by %g "
+                 "of max(1, |value|) > %g" % (what, op, label, n, rel, tol))
     return worst
 
 
@@ -10215,6 +10254,961 @@ def phase_convnet_zoo(dev, root):
     return paths, first
 
 
+# -- phase 19 -----------------------------------------------------------------
+
+# card against CPU for the sequence slice's ops: float outputs and
+# gradients within this of max(1, |CPU value|) (recurrences, context
+# products and log-sum-exps summed in other orders); offsets, paths,
+# selections, counts and data movement bit-identical
+SEQ_OP_TOL = 1e-5
+SEQ_EXACT = ("sequence_expand", "sequence_concat", "sequence_reshape",
+             "lod_reset", "sequence_reverse", "kmax_seq_score",
+             "sub_nested_seq", "sequence_slice", "sequence_erase",
+             "ctc_align", "chunk_eval", "crf_decoding", "context_project",
+             "im2sequence")
+SEQ_SAMPLERS = ("uniform_random_int", "log_uniform_random_int",
+                "custom_dist_random_int")
+SEQ_DRAWS = 1 << 16
+# a sampler's bucket shares: within SEQ_Z standard errors a bucket,
+# widened (Bonferroni) so that the buckets of a right sampler all pass
+# but once in 1 / SEQ_FAMILY_ALPHA runs (50 buckets: 4.75)
+SEQ_Z = 4.0
+SEQ_FAMILY_ALPHA = 1e-4
+# upstream book test_understand_sentiment.py: imdb's 5147 words
+# (paddle_tpu/dataset/imdb.py:24), Adam 0.002; batch 128 reviews of 20
+# to 250 words; convolution_net at embedding and hidden 32,
+# stacked_lstm_net at embedding 128, hidden 512 (LSTM D 128), 3 layers
+SENT_BOOK = dict(vocab=5147, batch=128, min_len=20, max_len=250,
+                 learning_rate=0.002)
+SENT_CONV = dict(emb=32, hid=32)
+SENT_LSTM = dict(emb=128, hid=512, stacked=3)
+# upstream book test_label_semantic_roles.py's db_lstm defaults and the
+# CoNLL-05 dictionary sizes it prints; batch 10 sentences of 4 to 60
+SRL_BOOK = dict(words=44068, preds=3162, labels=59, marks=2, word_dim=32,
+                mark_dim=5, hidden=512, depth=8, mix_hidden_lr=1e-3,
+                learning_rate=0.01, batch=10, min_len=4, max_len=60)
+SRL_FEED_NAMES = ("word_data", "ctx_n2_data", "ctx_n1_data", "ctx_0_data",
+                  "ctx_p1_data", "ctx_p2_data", "verb_data", "mark_data",
+                  "target")
+SEQ_STEPS = 8
+# step-1 gradients of the card's float32 step against the port's own
+# CPU run of the same program built in float64, from the same weights
+# and feed: the relative norm of each parameter's error
+SEQ_GRAD_REL_TOL = 1e-4
+# a max pool over a sequence may pick another row on the card where its
+# two largest inputs lie within SEQ_TIE_TOL of max(1, |value|) on the
+# reference side; one such flip routes a feature's gradient to another
+# step (1.57e-3 of fc_0's weight gradient in the LSTM net on an H100),
+# so a step with flips, all at such ties, is held to
+# SEQ_FLIP_GRAD_REL_TOL instead
+SEQ_TIE_TOL = 1e-5
+SEQ_FLIP_GRAD_REL_TOL = 1e-2
+# the peephole-free LSTM net through row 7 against the same net on the
+# time loop, on the card: loss, Hidden and every parameter's gradient
+FUSED_LOOP_REL_TOL = 1e-4
+# Viterbi: a position whose CPU (float64) best-path margin is under this
+# may decode either way on the card
+VITERBI_MARGIN_TOL = 1e-3
+
+
+def _seq_array(seed, *shape, scale=1.0):
+    return (np.random.RandomState(seed).randn(*shape) * scale).astype(
+        np.float32)
+
+
+def _seq_lod(lengths):
+    return [[int(v) for v in np.concatenate([[0], np.cumsum(lengths)])]]
+
+
+def _seq_ragged(seed, lengths, width, scale=1.0):
+    return (_seq_array(seed, int(sum(lengths)), width, scale=scale),
+            _seq_lod(lengths))
+
+
+def _seq_ids(seed, lengths, high):
+    return (np.random.RandomState(seed).randint(
+        0, high, (int(sum(lengths)), 1)).astype(np.int64), _seq_lod(lengths))
+
+
+def _sent_lengths(seed=0):
+    return np.random.RandomState(seed).randint(
+        SENT_BOOK["min_len"], SENT_BOOK["max_len"] + 1, SENT_BOOK["batch"])
+
+
+def _srl_lengths(seed=0):
+    return np.random.RandomState(seed).randint(
+        SRL_BOOK["min_len"], SRL_BOOK["max_len"] + 1, SRL_BOOK["batch"])
+
+
+def _sequence_cases():
+    """(label, op, inputs, outputs, attrs, differentiated inputs, the
+    output the loss reads): every op of the sequence slice at the shapes
+    of the sentiment nets and the role tagger, and at the CPU tests'
+    edges (an empty and a length-1 sequence, 2-level LoD, the CTC and
+    CRF corner cases, stride windows)."""
+    r, ragged, ids = _seq_array, _seq_ragged, _seq_ids
+    lens = [3, 1, 0, 5, 2]
+    nested = (r(1, 12, 3), [[0, 2, 5], [0, 1, 3, 3, 7, 12]])
+    sent, srl = _sent_lengths(7), _srl_lengths(7)
+    K = SRL_BOOK["labels"]
+    emb = SENT_CONV["emb"]
+    crf = {"Emission": [("em", ragged(2, srl, K))],
+           "Transition": [("tr", r(3, K + 2, K, scale=0.1))],
+           "Label": [("lab", ids(4, srl, K))]}
+    edge_crf = {"Emission": [("em", ragged(5, lens, 4))],
+                "Transition": [("tr", r(6, 6, 4, scale=0.5))],
+                "Label": [("lab", ids(7, lens, 4))]}
+    tags = ids(8, srl, K)
+    pred = (np.where(np.random.RandomState(9).rand(*tags[0].shape) < 0.3,
+                     np.random.RandomState(10).randint(0, K, tags[0].shape),
+                     tags[0]).astype(np.int64), tags[1])
+
+    def ctc(seed, xl, yl, k, labels=None):
+        y = ids(seed + 1, yl, k) if labels is None else (
+            np.asarray(labels, np.int64).reshape(-1, 1), _seq_lod(yl))
+        return {"Logits": [("x", ragged(seed, xl, k))], "Label": [("y", y)]}
+
+    rng = np.random.RandomState(11)
+    nce_in = {"Input": [("x", r(12, 64, 32))],
+              "Label": [("lab", rng.randint(0, 1000, (64, 1)))],
+              "Weight": [("w", r(13, 1000, 32, scale=0.1))],
+              "Bias": [("b", r(14, 1000, 1, scale=0.1))],
+              "Samples": [("s", rng.randint(0, 1000, (20,)))]}
+    probs = rng.rand(1000).astype(np.float32) + 0.01
+    cases = [
+        ("softmax", "sequence_softmax", {"X": [("x", ragged(15, lens, 1))]},
+         {"Out": ["o"]}, {}, ("x",), None),
+        ("softmax_nested", "sequence_softmax",
+         {"X": [("x", (r(16, 12, 1), nested[1]))]}, {"Out": ["o"]}, {},
+         ("x",), None),
+        ("expand_rows", "sequence_expand",
+         {"X": [("x", r(17, 5, 4))], "Y": [("y", ragged(18, lens, 2))]},
+         {"Out": ["o"]}, {}, ("x",), None),
+        ("expand_seqs", "sequence_expand",
+         {"X": [("x", ragged(19, [2, 1, 1, 3, 1], 4))],
+          "Y": [("y", ragged(20, [4, 3, 0, 3, 2], 2))]},
+         {"Out": ["o"]}, {}, ("x",), None),
+        ("concat", "sequence_concat",
+         {"X": [("a", ragged(21, lens, 3)),
+                ("b", ragged(22, [0, 2, 1, 1, 3], 3))]},
+         {"Out": ["o"]}, {}, ("a", "b"), None),
+        ("reshape", "sequence_reshape",
+         {"X": [("x", ragged(23, [2, 4, 0, 2], 3))]}, {"Out": ["o"]},
+         {"new_dim": 6}, ("x",), None),
+        ("lod_reset_target", "lod_reset", {"X": [("x", r(24, 11, 2))]},
+         {"Out": ["o"]}, {"target_lod": [0, 4, 4, 5, 11]}, ("x",), None),
+        ("lod_reset_y", "lod_reset",
+         {"X": [("x", ragged(25, [5, 6], 2))],
+          "Y": [("y", ragged(26, lens, 1))]}, {"Out": ["o"]}, {}, ("x",),
+         None),
+        ("lod_reset_plain_y", "lod_reset",
+         {"X": [("x", r(27, 11, 2))],
+          "Y": [("y", np.array([0, 2, 2, 7, 11], np.int64))]},
+         {"Out": ["o"]}, {}, ("x",), None),
+        ("reverse_nested", "sequence_reverse", {"X": [("x", nested)]},
+         {"Y": ["o"]}, {}, ("x",), None),
+        ("kmax_ties", "kmax_seq_score",
+         {"X": [("x", (np.array([[1.], [2.], [2.], [1.], [2.], [0.], [0.]],
+                                np.float32), [[0, 5, 7]]))]},
+         {"Out": ["o"]}, {"beam_size": 4}, (), None),
+        ("sub_nested", "sub_nested_seq",
+         {"X": [("x", nested)],
+          "SelectedIndices": [("sel", np.array([[1, 0, -1], [2, 5, 0]],
+                                               np.int64))]},
+         {"Out": ["o"]}, {}, ("x",), None),
+        ("slice", "sequence_slice",
+         {"X": [("x", ragged(28, lens, 2))],
+          "Offset": [("off", np.array([[1], [0], [0], [2], [1]], np.int64))],
+          "Length": [("len", np.array([[2], [1], [0], [3], [0]],
+                                      np.int64))]},
+         {"Out": ["o"]}, {}, ("x",), None),
+        ("erase", "sequence_erase", {"X": [("x", ids(29, lens, 5))]},
+         {"Out": ["o"]}, {"tokens": [0, 3]}, (), None),
+        ("ctc_align", "ctc_align", {"Input": [("x", ids(30, lens, 4))]},
+         {"Output": ["o"]}, {"blank": 2, "merge_repeated": True}, (), None),
+        ("chunk_eval_srl", "chunk_eval",
+         {"Inference": [("inf", pred)], "Label": [("lab", tags)]},
+         {"Precision": ["p"], "Recall": ["rc"], "F1-Score": ["f"],
+          "NumInferChunks": ["ni"], "NumLabelChunks": ["nl"],
+          "NumCorrectChunks": ["nc"]},
+         {"num_chunk_types": (K - 1) // 2, "chunk_scheme": "IOB"}, (), None),
+        ("conv_sentiment_3", "sequence_conv",
+         {"X": [("x", ragged(31, sent, emb))],
+          "Filter": [("f", r(32, 3 * emb, SENT_CONV["hid"], scale=0.1))]},
+         {"Out": ["o"]}, {"contextLength": 3, "contextStart": -1,
+                          "contextStride": 1}, ("x", "f"), None),
+        ("conv_sentiment_4", "sequence_conv",
+         {"X": [("x", ragged(33, sent, emb))],
+          "Filter": [("f", r(34, 4 * emb, SENT_CONV["hid"], scale=0.1))]},
+         {"Out": ["o"]}, {"contextLength": 4, "contextStart": -2,
+                          "contextStride": 1}, ("x", "f"), None),
+        ("context_project_padding", "context_project",
+         {"X": [("x", ragged(35, [1, 2, 0, 3], 2))],
+          "PaddingData": [("pad", r(36, 4, 2))]}, {"Out": ["o"]},
+         {"contextLength": 5, "contextStart": -2}, ("x", "pad"), None),
+        ("row_conv", "row_conv",
+         {"X": [("x", ragged(37, lens, 3))],
+          "Filter": [("f", r(38, 3, 3, scale=0.5))]},
+         {"Out": ["o"]}, {}, ("x", "f"), None),
+        ("lstmp", "lstmp",
+         {"Input": [("x", ragged(39, lens, 12, scale=0.5))],
+          "Weight": [("w", r(40, 2, 12, scale=0.4))],
+          "ProjWeight": [("wp", r(41, 3, 2, scale=0.4))],
+          "Bias": [("b", r(42, 1, 21, scale=0.2))]},
+         {"Projection": ["o"], "Cell": ["c"]}, {"is_reverse": True},
+         ("x", "w", "wp", "b"), None),
+        ("lstm_unit", "lstm_unit",
+         {"X": [("x", r(43, 4, 12))], "C_prev": [("c", r(44, 4, 3))]},
+         {"C": ["cn"], "H": ["o"]}, {"forget_bias": 0.5}, ("x", "c"), None),
+        ("gru_unit", "gru_unit",
+         {"Input": [("x", r(45, 4, 9))], "HiddenPrev": [("h", r(46, 4, 3))],
+          "Weight": [("w", r(47, 3, 9, scale=0.5))],
+          "Bias": [("b", r(48, 1, 9, scale=0.2))]},
+         {"Gate": ["g"], "ResetHiddenPrev": ["rh"], "Hidden": ["o"]}, {},
+         ("x", "h", "w", "b"), None),
+        ("simple_rnn", "simple_rnn",
+         {"Input": [("x", ragged(49, lens, 3))],
+          "Weight": [("w", r(50, 3, 3, scale=0.5))]},
+         {"Hidden": ["o"]}, {"is_reverse": True}, ("x", "w"), None),
+        ("crf_srl", "linear_chain_crf", crf, {"LogLikelihood": ["o"]}, {},
+         ("em", "tr"), None),
+        ("crf_edges", "linear_chain_crf", edge_crf,
+         {"LogLikelihood": ["o"], "Alpha": ["a"]}, {}, ("em", "tr"), None),
+        ("crf_t1", "linear_chain_crf",
+         {"Emission": [("em", ragged(51, [1, 1], 3))],
+          "Transition": [("tr", r(52, 5, 3))],
+          "Label": [("lab", ids(53, [1, 1], 3))]},
+         {"LogLikelihood": ["o"]}, {}, ("em", "tr"), None),
+        ("decode_edges", "crf_decoding",
+         {k: v for k, v in edge_crf.items() if k != "Label"},
+         {"ViterbiPath": ["o"]}, {}, (), None),
+        ("decode_label", "crf_decoding", edge_crf, {"ViterbiPath": ["o"]},
+         {}, (), None),
+        ("ctc", "warpctc", ctc(54, [6, 4, 7], [3, 2, 4], 5),
+         {"Loss": ["o"]}, {}, ("x",), None),
+        ("ctc_repeats_blank3_norm", "warpctc",
+         ctc(55, [6, 5], [3, 2], 5, labels=[1, 1, 2, 4, 4]),
+         {"Loss": ["o"]}, {"blank": 3, "norm_by_times": True}, ("x",), None),
+        # the loss only: its gradient is float32 noise (ROADMAP Queue 3 #31)
+        ("ctc_longer_label", "warpctc", ctc(56, [2, 5], [4, 2], 5),
+         {"Loss": ["o"]}, {}, (), None),
+        ("ctc_empty_label", "warpctc",
+         ctc(57, [4, 3], [0, 2], 4, labels=[2, 1]), {"Loss": ["o"]}, {},
+         ("x",), None),
+        ("nce_uniform", "nce_core", nce_in, {"Cost": ["o"]},
+         {"num_total_classes": 1000, "num_neg_samples": 20}, ("x", "w", "b"),
+         None),
+        ("nce_log_uniform", "nce_core", nce_in, {"Cost": ["o"]},
+         {"num_total_classes": 1000, "num_neg_samples": 20,
+          "sampler": "log_uniform"}, ("x", "w"), None),
+        ("nce_custom_dist", "nce_core",
+         dict(nce_in, CustomDistProbs=[("p", probs / probs.sum())]),
+         {"Cost": ["o"]}, {"num_total_classes": 1000, "num_neg_samples": 20,
+                           "sampler": "custom_dist"}, ("x", "w"), None),
+        ("lambda_rank", "lambda_rank_cost",
+         {"Score": [("s", ragged(58, [4, 1, 5], 1))],
+          "Label": [("r", (rng.randint(0, 3, (10, 1)).astype(np.float32),
+                           [[0, 4, 5, 10]]))]},
+         {"Out": ["o"]}, {"ndcg_num": 3}, ("s",), None),
+        ("im2sequence", "im2sequence", {"X": [("x", r(59, 2, 2, 7, 5))]},
+         {"Out": ["o"]}, {"kernels": [3, 2], "strides": [2, 3],
+                          "paddings": [1, 0, 2, 1]}, ("x",), None),
+        ("hsigmoid", "hierarchical_sigmoid",
+         {"X": [("x", r(60, 6, 4))], "W": [("w", r(61, 6, 4, scale=0.5))],
+          "Label": [("lab", np.array([[0], [6], [3], [5], [1], [2]],
+                                     np.int64))],
+          "Bias": [("b", r(62, 6, 1, scale=0.3))]},
+         {"Out": ["o"]}, {"num_classes": 7}, ("x", "w", "b"), None),
+    ]
+    for ptype in ("sum", "max", "last"):
+        for stride in (1, 3, 9):
+            cases.append(("stride_%s_%d" % (ptype, stride), "sequence_pool",
+                          {"X": [("x", ragged(63 + stride, lens, 3))]},
+                          {"Out": ["o"]}, {"pooltype": ptype.upper(),
+                                           "stride": stride}, ("x",), None))
+    return cases
+
+
+def _sequence_ops_check(dev):
+    """Every case of :func:`_sequence_cases` and its grads on the card
+    and on the CPU on the same inputs (the per-op path, where the host
+    ops run between the others), and the three int samplers' 2^16 draws
+    on both devices against their laws: by op, the largest error."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    per_op = collections.OrderedDict()
+    cpu = torch.device("cpu")
+    for label, op, inputs, outputs, attrs, diff, loss_of in \
+            _sequence_cases():
+        fetch = [n for ns in outputs.values() for n in ns]
+        loss_w = None
+        if diff:
+            loss_of = loss_of or fetch[0]
+            probe = _dense_program(op, inputs, outputs, attrs)
+            shape = np.shape(_fetched(Executor(cpu).run(
+                probe, feed=_dense_feed(inputs), fetch_list=[loss_of],
+                scope=Scope(), use_jit=False)[0]))
+            loss_w = np.asarray(np.random.RandomState(7).randn(*shape),
+                                np.float32)
+            fetch = fetch + [n + "@GRAD" for n in diff]
+        main = _dense_program(op, inputs, outputs, attrs, diff, loss_of,
+                              loss_w)
+        got = {}
+        for d in (dev, cpu):
+            got[d.type] = Executor(d).run(
+                main, feed=_dense_feed(inputs, loss_w), fetch_list=fetch,
+                scope=Scope(), use_jit=False)
+        worst = _dense_compare(label, op, fetch, got[dev.type], got["cpu"],
+                               op in SEQ_EXACT, tol=SEQ_OP_TOL,
+                               what="sequence op")
+        rec = per_op.setdefault(op, {"cases": 0, "max_abs_err": 0.0,
+                                     "max_rel_err": 0.0, "grad": bool(diff),
+                                     "bit_identical": op in SEQ_EXACT})
+        rec["cases"] += 1
+        rec["grad"] = rec["grad"] or bool(diff)
+        rec["max_abs_err"] = max(rec["max_abs_err"], worst["max_abs_err"])
+        rec["max_rel_err"] = max(rec["max_rel_err"], worst["max_rel_err"])
+    per_op.update(_sequence_sampler_check(dev))
+    return per_op
+
+
+def _sequence_sampler_check(dev):
+    """2^16 draws of each int sampler on each device: in range, int64,
+    and each bucket's share within SEQ_Z standard errors of the law's."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    n = SEQ_DRAWS
+    probs = np.array([0.1, 0.0, 0.5, 0.15, 0.25], np.float32)
+    k = np.arange(50)
+    laws = [("uniform_random_int", {}, {"shape": [n], "low": 2, "high": 9},
+             np.r_[np.zeros(2), np.full(7, 1 / 7)]),
+            ("log_uniform_random_int", {}, {"shape": [n], "range": 50},
+             np.log((k + 2.0) / (k + 1.0)) / math.log(51.0)),
+            ("custom_dist_random_int", {"Probs": [("p", probs)]},
+             {"shape": [n]}, probs / probs.sum())]
+    out = {}
+    for op, inputs, attrs, p in laws:
+        main = _dense_program(op, inputs, {"Out": ["o"]}, attrs)
+        main.random_seed = 11
+        rec = {"cases": 1, "max_abs_err": 0.0, "max_rel_err": 0.0,
+               "grad": False, "bit_identical": False}
+        for d in (dev, torch.device("cpu")):
+            v = Executor(d).run(main, feed=_dense_feed(inputs),
+                                fetch_list=["o"], scope=Scope(),
+                                use_jit=False)[0]
+            counts = np.bincount(v, minlength=len(p)).astype(np.float64)
+            live = p > 0
+            gate = max(SEQ_Z, statistics.NormalDist().inv_cdf(
+                1 - SEQ_FAMILY_ALPHA / (2 * int(live.sum()))))
+            z = np.zeros_like(p)
+            z[live] = np.abs(counts[live] / n - p[live]) / np.sqrt(
+                p[live] * (1 - p[live]) / n)
+            if (v.dtype != np.int64 or v.shape != (n,) or v.min() < 0
+                    or v.max() >= len(p) or counts[~live].any()
+                    or not (z <= gate).all()):
+                fail("%s on %s: dtype %s, range [%d, %d], z %s (gate %g)"
+                     % (op, d, v.dtype, v.min(), v.max(), z.tolist(), gate))
+            rec["z_max_" + d.type] = float(z.max())
+            rec["z_gate"] = gate
+        out[op] = rec
+    return out
+
+
+def _sent_model(net, dtype="float32", use_peepholes=True, lstm_impl=None):
+    """The book's ``convolution_net`` (``net="conv"``) or
+    ``stacked_lstm_net`` (``"lstm"``) at SENT_BOOK's widths, in
+    ``dtype``; ``lstm_impl`` set on every lstm op."""
+    from paddle_tpu_torch import layers, nets, optimizer
+    data = layers.data(name="words", shape=[1], dtype="int64", lod_level=1)
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    if net == "conv":
+        emb = layers.embedding(input=data, dtype=dtype,
+                               size=[SENT_BOOK["vocab"], SENT_CONV["emb"]])
+        convs = [nets.sequence_conv_pool(input=emb,
+                                         num_filters=SENT_CONV["hid"],
+                                         filter_size=fs, act="tanh",
+                                         pool_type="sqrt") for fs in (3, 4)]
+        prediction = layers.fc(input=convs, size=2, act="softmax")
+    else:
+        hid = SENT_LSTM["hid"]
+        emb = layers.embedding(input=data, dtype=dtype,
+                               size=[SENT_BOOK["vocab"], SENT_LSTM["emb"]])
+        fc1 = layers.fc(input=emb, size=hid)
+        lstm1, _ = layers.dynamic_lstm(input=fc1, size=hid, dtype=dtype,
+                                       use_peepholes=use_peepholes)
+        inputs = [fc1, lstm1]
+        for i in range(2, SENT_LSTM["stacked"] + 1):
+            fc = layers.fc(input=inputs, size=hid)
+            lstm, _ = layers.dynamic_lstm(input=fc, size=hid, dtype=dtype,
+                                          is_reverse=(i % 2) == 0,
+                                          use_peepholes=use_peepholes)
+            inputs = [fc, lstm]
+        pools = [layers.sequence_pool(input=v, pool_type="max")
+                 for v in inputs]
+        prediction = layers.fc(input=pools, size=2, act="softmax")
+    cost = layers.mean(layers.cross_entropy(input=prediction, label=label))
+    if lstm_impl is not None:
+        for op in cost.block.ops:
+            if op.type == "lstm":
+                op.attrs["lstm_impl"] = lstm_impl
+    return {"cost": cost, "feed_list": [data, label],
+            "optimizer": optimizer.Adam(
+                learning_rate=SENT_BOOK["learning_rate"])}
+
+
+def _srl_model(dtype="float32"):
+    """``db_lstm`` of the book's test_label_semantic_roles.py at
+    SRL_BOOK's widths in ``dtype``, with its CRF head: the cost the mean
+    of ``linear_chain_crf`` over ``crfw`` (learning rate
+    ``mix_hidden_lr``), ``crf_decoding`` the decoded path. As upstream,
+    every fc is tanh and the word embedding ``emb`` is not trained (the
+    book loads it pretrained; here it keeps its seeded values)."""
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.param_attr import ParamAttr
+    w = SRL_BOOK
+    feeds = [layers.data(name=n, shape=[1], dtype="int64", lod_level=1)
+             for n in SRL_FEED_NAMES]
+    words, predicate, mark, target = feeds[:6], feeds[6], feeds[7], feeds[8]
+    embs = [layers.embedding(input=x, size=[w["words"], w["word_dim"]],
+                             dtype=dtype, param_attr=ParamAttr(
+                                 name="emb", trainable=False))
+            for x in words]
+    embs.append(layers.embedding(input=predicate, dtype=dtype,
+                                 size=[w["preds"], w["word_dim"]],
+                                 param_attr=ParamAttr(name="vemb")))
+    embs.append(layers.embedding(input=mark, dtype=dtype,
+                                 size=[w["marks"], w["mark_dim"]]))
+    hidden_0 = layers.sums(input=[layers.fc(input=e, size=w["hidden"],
+                                            act="tanh") for e in embs])
+    lstm_0, _ = layers.dynamic_lstm(input=hidden_0, size=w["hidden"],
+                                    dtype=dtype, candidate_activation="relu",
+                                    gate_activation="sigmoid",
+                                    cell_activation="sigmoid")
+    tmp = [hidden_0, lstm_0]
+    for i in range(1, w["depth"]):
+        mix = layers.sums(input=[
+            layers.fc(input=tmp[0], size=w["hidden"], act="tanh"),
+            layers.fc(input=tmp[1], size=w["hidden"], act="tanh")])
+        lstm, _ = layers.dynamic_lstm(input=mix, size=w["hidden"],
+                                      dtype=dtype,
+                                      candidate_activation="relu",
+                                      gate_activation="sigmoid",
+                                      cell_activation="sigmoid",
+                                      is_reverse=((i % 2) == 1))
+        tmp = [mix, lstm]
+    feature_out = layers.sums(input=[
+        layers.fc(input=tmp[0], size=w["labels"], act="tanh"),
+        layers.fc(input=tmp[1], size=w["labels"], act="tanh")])
+    crf_cost = layers.linear_chain_crf(
+        input=feature_out, label=target,
+        param_attr=ParamAttr(name="crfw",
+                             learning_rate=w["mix_hidden_lr"]))
+    decode = layers.crf_decoding(input=feature_out,
+                                 param_attr=ParamAttr(name="crfw"))
+    return {"cost": layers.mean(crf_cost), "feed_list": feeds,
+            "decode": decode, "feature_out": feature_out,
+            "optimizer": optimizer.SGD(learning_rate=w["learning_rate"])}
+
+
+def _sent_batch(seed=0):
+    """One fixed batch: SENT_BOOK["batch"] reviews of seeded lengths and
+    ids, labels 0 / 1."""
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, SENT_BOOK["vocab"], (int(n), 1)).astype(
+        np.int64), rng.randint(0, 2, (1,)).astype(np.int64))
+        for n in _sent_lengths(seed)]
+
+
+def _srl_batch(seed=0):
+    """One fixed batch of SRL_BOOK["batch"] seeded CoNLL-05-shaped rows:
+    words, the predicate's +-2 context broadcast over the sentence, the
+    predicate, the 0 / 1 mark near it, the labels."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for n in _srl_lengths(seed):
+        n = int(n)
+        words = rng.randint(0, SRL_BOOK["words"], n)
+        v = rng.randint(0, n)
+        ctx = [np.full(n, words[min(max(v + o, 0), n - 1)])
+               for o in (-2, -1, 0, 1, 2)]
+        mark = (np.abs(np.arange(n) - v) <= 1).astype(np.int64)
+        rows = [words] + ctx + [np.full(n, rng.randint(
+            0, SRL_BOOK["preds"])), mark,
+            rng.randint(0, SRL_BOOK["labels"], n)]
+        out.append(tuple(np.asarray(r_, np.int64).reshape(-1, 1)
+                         for r_ in rows))
+    return out
+
+
+def _seq_host_feed(names, batch):
+    """The batch as host feeds: a LoDTensor a ragged slot, an array a
+    dense one."""
+    from paddle_tpu_torch.core.lod import build_lod_tensor
+    feed = {}
+    for j, n in enumerate(names):
+        vals = [s[j] for s in batch]
+        feed[n] = np.stack(vals) if n == "label" else \
+            build_lod_tensor(vals)
+    return feed
+
+
+def _seq_build(build, device, dtype="float32"):
+    """(main, startup, spec, trainer) of ``build(dtype)`` on ``device``,
+    under a name guard."""
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.trainer import Trainer
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        spec = build(dtype)
+        fetch = [spec["decode"]] if "decode" in spec else None
+        trainer = Trainer(spec["cost"], spec["optimizer"],
+                          spec["feed_list"], device=device,
+                          fetch_list=fetch, main_program=main_prog,
+                          startup_program=startup)
+    return main_prog, startup, spec, trainer
+
+
+def _max_pools(prog):
+    """(MaxIndex, X) names of each max ``sequence_pool`` of ``prog``."""
+    return [(op.output("MaxIndex")[0], op.input("X")[0])
+            for op in prog.global_block().ops if op.type == "sequence_pool"
+            and str(op.attrs.get("pooltype", "")).upper() == "MAX"
+            and op.output("MaxIndex")]
+
+
+def _pool_flips(pools, got, ref):
+    """Each max pool position where ``got``'s MaxIndex differs from
+    ``ref``'s: the gap between the two largest inputs there in ``ref``
+    over max(1, |the largest|)."""
+    gaps = []
+    for mi, x in pools:
+        a, b = _fetched(got[mi]), _fetched(ref[mi])
+        xv, offs = _fetched(ref[x]).astype(np.float64), ref[x].lod()[-1]
+        for i, f in zip(*np.nonzero(a != b)):
+            col = np.sort(xv[offs[i]:offs[i + 1], f])
+            gaps.append(float((col[-1] - col[-2])
+                              / max(1.0, abs(col[-1]))))
+    return gaps
+
+
+def _grad_gate(label, what, rel, gaps):
+    """The gate of a step's gradients: SEQ_GRAD_REL_TOL (``tol``) with
+    no max-pool flip, else every flip at a tie and SEQ_FLIP_GRAD_REL_TOL.
+    Returns the gate."""
+    worst = max(rel, key=rel.get)
+    if gaps and not max(gaps) <= SEQ_TIE_TOL:
+        fail("%s: a max pool picked another row where its inputs are %g "
+             "apart (> %g)" % (label, max(gaps), SEQ_TIE_TOL))
+    tol = SEQ_FLIP_GRAD_REL_TOL if gaps else SEQ_GRAD_REL_TOL
+    if not rel[worst] <= tol:
+        fail("%s: step-1 gradient of %s differs from %s by %g (relative "
+             "norm) > %g, with %d max-pool flips" % (
+                 label, worst, what, rel[worst], tol, len(gaps)))
+    return tol
+
+
+def _seq_grad_check(label, trainer, spec, feed, build):
+    """Step 1 on the card (float32), fetching every parameter's @GRAD,
+    against the port's own CPU run of ``build`` in float64 from the same
+    weights and feed: the relative norm of each parameter's error, and
+    the max pools that picked another row (``_grad_gate``)."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, global_scope
+    scope = global_scope()
+    prog = trainer.main_program
+    params = [p.name for p in prog.all_parameters() if p.trainable]
+    # every parameter's value, the frozen ones too
+    start = {p.name: scope.find_var(p.name).detach().cpu().double()
+             for p in prog.all_parameters()}
+    pools = _max_pools(prog)
+    fetch = ([spec["cost"].name] + [n + "@GRAD" for n in params]
+             + [n for pair in pools for n in pair])
+    outs = trainer.exe.run(prog, feed=feed, fetch_list=fetch)
+    main64, start64, spec64, tr64 = _seq_build(build, "cpu", "float64")
+    scope64, exe64 = Scope(), Executor("cpu")
+    exe64.run(start64, scope=scope64)
+    for n, v in start.items():
+        if tuple(scope64.find_var(n).shape) != tuple(v.shape):
+            fail("%s: the float64 program's %s is %s, not %s" % (
+                label, n, tuple(scope64.find_var(n).shape), tuple(v.shape)))
+        scope64.set_var(n, v.clone())
+    want = exe64.run(main64, feed=feed, fetch_list=fetch, scope=scope64,
+                     use_jit=False)
+    tr64.exe.close()
+    rel = {}
+    for n, g, w in zip(params, outs[1:], want[1:]):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        rel[n] = float(np.linalg.norm(g - w) / max(np.linalg.norm(w),
+                                                   1e-30))
+    gaps = _pool_flips(pools, dict(zip(fetch, outs)), dict(zip(fetch, want)))
+    worst = max(rel, key=rel.get)
+    checks = {"params_checked": len(params), "reference": "port, CPU, "
+              "float64", "norm_rel_err": rel[worst], "worst_param": worst,
+              "norm_rel_err_median": float(np.median(list(rel.values()))),
+              "max_pool_flips": len(gaps), "flip_gaps": gaps,
+              "loss": float(np.asarray(outs[0]).reshape(-1)[0]),
+              "loss_abs_err": abs(float(np.asarray(outs[0]).reshape(-1)[0])
+                                  - float(np.asarray(want[0]).reshape(-1)[0]))}
+    log(json.dumps({label + "_grad_check": checks}))
+    checks["tolerance_rel"] = _grad_gate(label, "the CPU's float64 run", rel,
+                                         gaps)
+    return checks, outs
+
+
+def _seq_fused_vs_loop(label, trainer, spec, feed):
+    """The peephole-free LSTM net through row 7 against the same program
+    on the time loop (``lstm_impl="scan"``, its generic grads too), on
+    the card from the same state and feed: the loss and each lstm's
+    Hidden within FUSED_LOOP_REL_TOL (relative norm), every @GRAD under
+    ``_grad_gate``. The state is put back."""
+    from paddle_tpu_torch.core.scope import global_scope
+    scope = global_scope()
+    prog = trainer.main_program
+    persist = [v.name for v in prog.list_vars() if v.persistable
+               and scope.find_var(v.name) is not None]
+    saved = {n: scope.find_var(n).clone() for n in persist}
+    ops = prog.global_block().ops
+    lstms = [op for op in ops if op.type == "lstm"]
+    # the lstms and the generic grads that replay them
+    routed = lstms + [op for op in ops if op.type == "generic_grad"
+                      and op.attrs.get("__fwd_type__") == "lstm"]
+    params = [p.name for p in prog.all_parameters() if p.trainable]
+    pools = _max_pools(prog)
+    heads = [spec["cost"].name] + [op.output("Hidden")[0] for op in lstms]
+    grads = [n + "@GRAD" for n in params]
+    fetch = heads + grads + [n for pair in pools for n in pair]
+    got = {}
+    for impl in ("pallas", "scan"):
+        for op in routed:
+            op.attrs["lstm_impl"] = impl
+        for n, v in saved.items():
+            scope.find_var(n).copy_(v)
+        got[impl] = dict(zip(fetch, trainer.exe.run(
+            prog, feed=feed, fetch_list=fetch, use_jit=False)))
+    for op in routed:
+        op.attrs["lstm_impl"] = "pallas"
+    for n, v in saved.items():
+        scope.find_var(n).copy_(v)
+    rel = {}
+    for n in heads + grads:
+        a = _fetched(got["pallas"][n]).astype(np.float64)
+        b = _fetched(got["scan"][n]).astype(np.float64)
+        rel[n] = float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+    gaps = _pool_flips(pools, got["pallas"], got["scan"])
+    rec = {"loss_rel_err": rel[heads[0]],
+           "hidden_rel_err": max(rel[n] for n in heads[1:]),
+           "forward_tolerance_rel": FUSED_LOOP_REL_TOL,
+           "grad_rel_err": max(rel[n] for n in grads),
+           "grad_worst": max(grads, key=rel.get),
+           "max_pool_flips": len(gaps), "flip_gaps": gaps}
+    log(json.dumps({label + "_fused_vs_loop": rec}))
+    worst_head = max(heads, key=rel.get)
+    if not rel[worst_head] <= FUSED_LOOP_REL_TOL:
+        fail("%s: %s through row 7 differs from the time loop by %g > %g"
+             % (label, worst_head, rel[worst_head], FUSED_LOOP_REL_TOL))
+    rec["grad_tolerance_rel"] = _grad_gate(
+        label, "the time loop's", {n: rel[n] for n in grads}, gaps)
+    return rec
+
+
+def _seq_train(label, trainer, spec, batch, feed):
+    """SEQ_STEPS compiled steps on the fixed batch through
+    ``Trainer.train`` (one capture, a replay a step, the loss falls), then
+    SEQ_STEPS per-op steps, each feeding the batch: (launch counts of the
+    compiled run, a summary)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.trainer import BeginIteration, EndIteration
+    dev = trainer.exe.device
+    losses, step_s, marks = [], [], {}
+
+    def handler(e):
+        if isinstance(e, BeginIteration):
+            marks["t"] = time.monotonic()
+        elif isinstance(e, EndIteration):
+            step_s.append(time.monotonic() - marks["t"])
+            losses.append(e.cost)
+
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    exe_before = dict(trainer.exe.stats)
+    trainer.train(lambda: (batch for _ in range(SEQ_STEPS)), num_passes=1,
+                  event_handler=handler)
+    launches = kernels.launch_counts()
+    delta = _exe_delta(trainer.exe, exe_before)
+    _compiled_gate(label, delta, len(losses))
+    if len(losses) != SEQ_STEPS or not (
+            np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail("%s: the loss did not fall on the fixed batch: %s"
+             % (label, losses))
+    peak = torch.cuda.max_memory_allocated(dev)
+    eager_s = []
+    for _ in range(SEQ_STEPS):
+        t0 = time.monotonic()
+        trainer.exe.run(trainer.main_program,
+                        feed=trainer.feeder.feed(batch),
+                        fetch_list=[spec["cost"]], use_jit=False)
+        _sync(dev)
+        eager_s.append(time.monotonic() - t0)
+    p50, ep50 = float(np.median(step_s)), float(np.median(eager_s))
+    n_seq = len(batch)
+    tokens = int(sum(s[0].shape[0] for s in batch))
+    rec = {"losses": losses, "executor": delta,
+           "program_ops": len(trainer.main_program.global_block().ops),
+           "step_ms_compiled": [t * 1e3 for t in step_s],
+           "step_ms_p50_compiled": p50 * 1e3,
+           "step_ms_p50_eager": ep50 * 1e3,
+           "sequences_per_s_compiled": n_seq / p50,
+           "sequences_per_s_eager": n_seq / ep50,
+           "tokens_per_s_compiled": tokens / p50,
+           "tokens_per_s_eager": tokens / ep50,
+           "tokens": tokens, "peak_mem_bytes": peak,
+           "launches": {k: v for k, v in launches.items() if v}}
+    return launches, rec
+
+
+def _viterbi_margins(em, trans, offs):
+    """The CPU's float64 max-marginal margin of each position of each
+    sequence: the best path's score less the best score of a path with
+    another tag there; and the best paths."""
+    start, end, tr = trans[0], trans[1], trans[2:]
+    margins, paths = [], []
+    for a, b in zip(offs, offs[1:]):
+        e = em[a:b]
+        T, K = e.shape
+        fwd, bwd = np.zeros((T, K)), np.zeros((T, K))
+        fwd[0] = start + e[0]
+        for t in range(1, T):
+            fwd[t] = (fwd[t - 1][:, None] + tr).max(0) + e[t]
+        bwd[T - 1] = end
+        for t in range(T - 2, -1, -1):
+            bwd[t] = (tr + (e[t + 1] + bwd[t + 1])[None, :]).max(1)
+        tot = fwd + bwd                       # best score through (t, k)
+        best = tot.max(1)
+        srt = np.sort(tot, axis=1)
+        margins.append(best - srt[:, -2] if K > 1 else np.full(T, np.inf))
+        paths.append(tot.argmax(1))
+    return (np.concatenate(margins) if margins else np.zeros(0),
+            np.concatenate(paths) if paths else np.zeros(0, np.int64))
+
+
+def _srl_decode_check(trainer, spec, batch, feed):
+    """The card's decoded path of the step's emissions against the
+    CPU's (the same emissions and transition), compared where the CPU's
+    float64 margin exceeds VITERBI_MARGIN_TOL; the chunk counts of a
+    ``ChunkEvaluator`` program over the card's paths (the hybrid path)
+    against the CPU's chunk_eval of the same paths, and of the CPU's
+    own paths where no position was skipped."""
+    from paddle_tpu_torch import evaluator, layers
+    from paddle_tpu_torch.core import ir, unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.lod import LoDTensor
+    from paddle_tpu_torch.core.scope import Scope, global_scope
+    dev = trainer.exe.device
+    em, path = trainer.exe.run(
+        trainer.main_program, feed=feed,
+        fetch_list=[spec["feature_out"], spec["decode"]], use_jit=False)
+    offs = em.lod()[0]
+    em_np = np.asarray(em.numpy())
+    trans = global_scope().find_var("crfw").detach().cpu().numpy()
+    margins, cpu_best = _viterbi_margins(em_np.astype(np.float64),
+                                         trans.astype(np.float64), offs)
+    card_path = np.asarray(path.numpy()).reshape(-1)
+    sure = margins > VITERBI_MARGIN_TOL
+    if not np.array_equal(card_path[sure], cpu_best[sure]):
+        bad = int(np.flatnonzero(card_path[sure] != cpu_best[sure])[0])
+        fail("srl: the card's decoded path differs from the CPU's at a "
+             "position with margin %g > %g" % (margins[sure][bad],
+                                               VITERBI_MARGIN_TOL))
+    # the port's crf_decoding on the CPU, on the same emissions
+    dec = _dense_program("crf_decoding",
+                         {"Emission": [("em", (em_np, [offs]))],
+                          "Transition": [("tr", trans)]},
+                         {"ViterbiPath": ["o"]}, {})
+    cpu_path = np.asarray(Executor("cpu").run(
+        dec, feed=_dense_feed({"Emission": [("em", (em_np, [offs]))],
+                               "Transition": [("tr", trans)]}),
+        fetch_list=["o"], scope=Scope(), use_jit=False)[0]).reshape(-1)
+    if not np.array_equal(cpu_path[sure], card_path[sure]):
+        fail("srl: the port's CPU decode differs from the card's at a "
+             "position past the margin")
+    labels = np.concatenate([s[8] for s in batch])
+    n_types = (SRL_BOOK["labels"] - 1) // 2
+    main_prog, startup = ir.Program(), ir.Program()
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        inf = layers.data("inf", shape=[1], dtype="int64", lod_level=1)
+        lab = layers.data("lab", shape=[1], dtype="int64", lod_level=1)
+        ev = evaluator.ChunkEvaluator(inf, lab, "IOB", n_types)
+    counts = {}
+    for name, d, p in (("card", dev, card_path), ("cpu", "cpu", cpu_path)):
+        exe, scope = Executor(d), Scope()
+        exe.run(startup, scope=scope)
+        exe.run(main_prog, feed={
+            "inf": LoDTensor(p.reshape(-1, 1).astype(np.int64), [offs]),
+            "lab": LoDTensor(labels, [offs])},
+            fetch_list=[ev.metrics[0]], scope=scope)
+        if exe.stats["hybrid_runs"] != 1:
+            fail("srl: the ChunkEvaluator program did not run on the hybrid "
+                 "path on %s: %s" % (d, exe.stats))
+        counts[name] = [int(scope.find_var(s.name).cpu().numpy()[0])
+                        for s in ev.states]
+        exe.close()
+    skipped = int((~sure).sum())
+    if skipped == 0 and counts["card"] != counts["cpu"]:
+        fail("srl: chunk counts %s on the card, %s on the CPU" % (
+            counts["card"], counts["cpu"]))
+    return {"positions": int(len(card_path)), "skipped_near_ties": skipped,
+            "min_margin": float(margins.min()) if len(margins) else None,
+            "chunk_counts_card": counts["card"],
+            "chunk_counts_cpu": counts["cpu"],
+            "paths_equal": bool(np.array_equal(card_path, cpu_path))}
+
+
+def _seq_model(dev, label, build, names, batch, fused=False):
+    """One model of phase 19: built on the card, step-1 gradients against
+    the CPU's float64 run, (the fused net against the time loop), the
+    compiled and per-op runs: (launches, record)."""
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    main_prog, startup, spec, trainer = _seq_build(build, dev)
+    feed = _seq_host_feed(names, batch)
+    seconds, extra, t0 = {}, {}, [time.monotonic()]
+
+    def lap(name):
+        seconds[name] = time.monotonic() - t0[0]
+        t0[0] += seconds[name]
+
+    with scope_guard(Scope()):
+        trainer._maybe_init()
+        if fused:
+            extra["fused_vs_loop"] = _seq_fused_vs_loop(label, trainer, spec,
+                                                        feed)
+        lap("init")
+        checks, _ = _seq_grad_check(label, trainer, spec, feed, build)
+        lap("grad_check")
+        launches, rec = _seq_train(label, trainer, spec, batch, feed)
+        lap("train")
+        if "decode" in spec:
+            extra["decode"] = _srl_decode_check(trainer, spec, batch, feed)
+            lap("decode")
+    rec.update(extra, grad_check=checks, seconds=seconds)
+    log(json.dumps({label: rec}))
+    trainer.exe.close()
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def _d128_record(dev, lengths):
+    """Row 7 at the peephole-free sentiment LSTM's population (N 128
+    ragged rows, D 128, T the longest review): against its plain version
+    (a second launch bit-identical), the kernel's, the plain version's
+    and cuDNN's times, and the bound of this batch's work (each input
+    read once, each output written once; the recurrent products of the
+    steps inside the sequences)."""
+    from paddle_tpu_torch.kernels import fused_lstm
+    N, D, T = len(lengths), SENT_LSTM["hid"] // 4, int(max(lengths))
+    rng = np.random.RandomState(3)
+    xs = torch.from_numpy((rng.randn(T, N, 4 * D) * 0.5).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(D, 4 * D) / np.sqrt(D)).astype(
+        np.float32)).to(dev)
+    h0 = torch.zeros(N, D, device=dev)
+    c0 = torch.zeros(N, D, device=dev)
+    mask = torch.from_numpy((np.arange(T)[:, None] < np.asarray(
+        lengths)[None, :]).astype(np.float32)).to(dev)
+    got = fused_lstm.fused_lstm(xs, w, h0, c0, mask)
+    again = fused_lstm.fused_lstm(xs, w, h0, c0, mask)
+    want = fused_lstm.fused_lstm_reference(xs, w, h0, c0, mask)
+    err = _rel_err(list(got), list(want))
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    nbytes = 4 * (xs.numel() + w.numel() + h0.numel() + c0.numel()
+                  + mask.numel() + 2 * T * N * D)
+    flops = 2 * int(sum(lengths)) * D * 4 * D
+    b_ms, b_by = bound(nbytes, flops)
+    lib = _cudnn_lstm(xs, w, h0, c0)
+    rec = {"shape": {"T": T, "N": N, "D": D,
+                     "lengths_sum": int(sum(lengths))},
+           "max_rel_err": err, "tolerance_rel": RNN_REL_TOL,
+           "max_abs_err": max(float((g - w_).abs().max())
+                              for g, w_ in zip(got, want)),
+           "second_launch_bit_identical": all(
+               torch.equal(a, b) for a, b in zip(got, again)),
+           "launch": fused_lstm.launch_plan(N, D),
+           "ms": time_ms(lambda: fused_lstm._launch(xs, w, h0, c0, mask),
+                         flush=flush),
+           "plain_ms": time_ms(lambda: fused_lstm.fused_lstm_reference(
+               xs, w, h0, c0, mask), iters=5, flush=flush),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "tc_bound_ms": tc_bound(nbytes, flops),
+           "library_ms": time_ms(lib, flush=flush),
+           "library": "cuDNN torch.nn.LSTM as in phase 7 (unmasked, all T "
+                      "steps of every row)"}
+    del flush
+    log(json.dumps({"fused_lstm_d128_n128": rec}))
+    if not err <= RNN_REL_TOL or not rec["second_launch_bit_identical"]:
+        fail("row 7 at D 128, N 128: error %g (gate %g), relaunch "
+             "bit-identical %s" % (err, RNN_REL_TOL,
+                                   rec["second_launch_bit_identical"]))
+    return rec
+
+
+def phase_sequence(dev, root):
+    """Phase 19: the sequence stack. Every new op and grad on the card
+    against the CPU (and the samplers against their laws); the two
+    sentiment nets and the semantic role tagger at the book's widths
+    through ``Trainer.train``; row 7 at the peephole-free sentiment LSTM's
+    population. Returns ({path: launches}, row 7's D 128 record)."""
+    from paddle_tpu_torch import tune
+    from paddle_tpu_torch.flags import FLAGS
+    t0 = time.monotonic()
+    old_dir = FLAGS.tune_cache_dir
+    FLAGS.tune_cache_dir = _fresh_dir(os.path.join(
+        root, "build", "chip_smoke", "tune_sequence"))
+    tune.clear_memory_cache()
+    paths, recs = {}, {}
+    try:
+        t_ops = time.monotonic()
+        log(json.dumps({"sequence_ops": _sequence_ops_check(dev),
+                        "seconds": time.monotonic() - t_ops}))
+        sent = _sent_batch(0)
+        for label, build, fused in (
+                ("sentiment_conv", lambda dt: _sent_model("conv", dt),
+                 False),
+                ("sentiment_lstm", lambda dt: _sent_model("lstm", dt),
+                 False),
+                ("sentiment_lstm_fused", lambda dt: _sent_model(
+                    "lstm", dt, use_peepholes=False, lstm_impl="pallas"),
+                 True)):
+            paths["sequence_" + label], recs[label] = _seq_model(
+                dev, label, build, ("words", "label"), sent, fused)
+        fused = recs["sentiment_lstm_fused"]["launches"].get("fused_lstm", 0)
+        want = 2 * SENT_LSTM["stacked"] * SEQ_STEPS
+        if fused != want:
+            fail("sentiment_lstm_fused: %d fused_lstm launches over %d "
+                 "steps, expected %d (%d layers, the forward and its replay "
+                 "in the generic grad)" % (fused, SEQ_STEPS, want,
+                                           SENT_LSTM["stacked"]))
+        if recs["sentiment_lstm"]["launches"].get("fused_lstm", 0):
+            fail("sentiment_lstm (peepholes) launched the fused LSTM")
+        paths["sequence_srl"], recs["srl"] = _seq_model(
+            dev, "srl", _srl_model, SRL_FEED_NAMES, _srl_batch(0))
+        d128 = _d128_record(dev, [s[0].shape[0] for s in sent])
+    finally:
+        FLAGS.tune_cache_dir = old_dir
+        tune.clear_memory_cache()
+    log(json.dumps({
+        "sequence_wall_s": time.monotonic() - t0,
+        "summary": {k: {"step_ms_p50_compiled": r["step_ms_p50_compiled"],
+                        "step_ms_p50_eager": r["step_ms_p50_eager"],
+                        "sequences_per_s": r["sequences_per_s_compiled"],
+                        "tokens_per_s": r["tokens_per_s_compiled"],
+                        "peak_mem_bytes": r["peak_mem_bytes"]}
+                    for k, r in recs.items()},
+        "fused_lstm_d128_n128_ms": d128["ms"],
+        "card": card_line()}))
+    return paths, d128
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -10277,6 +11271,8 @@ def main():
     dense_paths = timed(17, phase_dense, dev, root)
     zoo_paths, first_conv = timed(18, phase_convnet_zoo, dev, root)
     kernels["conv3x3_fwd"]["vgg16_first_conv"] = first_conv
+    seq_paths, d128 = timed(19, phase_sequence, dev, root)
+    kernels["fused_lstm"]["d128_n128"] = d128
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
     paths = {"serve": serve_launches, **spec_paths, **disagg_paths,
              "train": train5["launches"],
@@ -10287,7 +11283,7 @@ def main():
              "convnet_conv3x3_consult": consult_launches, **amp_paths,
              **compiled_paths, **checkpoint_paths, **optim_paths,
              **memory_paths, **resilience_paths, **dense_paths,
-             **zoo_paths}
+             **zoo_paths, **seq_paths}
     for name, entry in kernels.items():
         # each main path is read with the counts set to 0 just before it
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -96,6 +96,7 @@ preflight.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import itertools
 import logging
@@ -117,7 +118,7 @@ from .scope import global_scope
 
 __all__ = ["CAPTURE_LOCK", "GRAPH_CACHE_LIMIT", "RNG_VAR", "AsyncFetch",
            "Executor", "FunctionalContext", "LoDValue", "LowerContext",
-           "raw_data", "to_lod_value", "trace_ops", "with_lod_of"]
+           "in_compiled_step", "raw_data", "to_lod_value", "trace_ops", "with_lod_of"]
 
 _LOG = logging.getLogger("paddle_tpu_torch.executor")
 
@@ -483,6 +484,29 @@ def _gen_state(gen):
 
 
 _CAPTURE_STREAMS = {}
+
+# the depth of compiled steps the calling thread is in (see
+# in_compiled_step)
+_COMPILED = threading.local()
+
+
+def in_compiled_step() -> bool:
+    """Whether the calling thread runs a compiled step: its warm-up, its
+    capture or a replay (on the CPU, the step function). There a
+    lowering sees what the JAX package's trace sees, no concrete offset,
+    so a sequence op whose input's longest sequence is unknown raises as
+    the JAX op does under ``jit``; on the per-op path it may count it
+    from the offsets."""
+    return getattr(_COMPILED, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _compiled_step():
+    _COMPILED.depth = getattr(_COMPILED, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _COMPILED.depth -= 1
 
 # held while a step is captured: a capture in the global mode refuses
 # every thread's unsafe CUDA calls (a pinned allocation among them), so
@@ -880,8 +904,9 @@ class Executor(object):
             return self._run_eager(program, feed, fetch_names, scope)
 
         try:
-            outs = self._step(key, feed, scope, state_names, generator,
-                              body, eager, repeat)
+            with _compiled_step():
+                outs = self._step(key, feed, scope, state_names,
+                                  generator, body, eager, repeat)
         except _StaleState:
             if not retry:
                 raise
@@ -1283,7 +1308,8 @@ class Executor(object):
             seg_env = dict(reads)
             return body(seg_env, ())[0]
 
-        outs = self._step(key, reads, scope, (), generator, body, eager)
+        with _compiled_step():
+            outs = self._step(key, reads, scope, (), generator, body, eager)
         env.update(zip(out_names, outs))
         for names in release:
             for n in names:

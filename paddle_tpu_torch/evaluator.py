@@ -5,9 +5,10 @@ of ``paddle_tpu/evaluator.py``: ``Evaluator`` :23, ``Accuracy`` :67,
 The states are persistable vars of the main program: each batch's ops
 add the batch's statistic to them inside the same step (captured with
 it), ``reset`` zeroes them through a small program of its own, and
-``eval`` reads them back from the scope. ``ChunkEvaluator`` needs the
-``chunk_eval`` op (ROADMAP.md Queue 1 item 5) and raises until it
-lands."""
+``eval`` reads them back from the scope. ``ChunkEvaluator``'s
+``chunk_eval`` is a host op, so a program that holds one runs on the
+Executor's hybrid path: its device segments captured, the op between
+them."""
 from __future__ import annotations
 
 import numpy as np
@@ -86,13 +87,35 @@ class Accuracy(Evaluator):
 
 
 class ChunkEvaluator(Evaluator):
-    """Chunk precision, recall and F1 (NER-style)."""
+    """Chunk precision, recall and F1 (NER-style) over every batch since
+    the last reset, from the accumulated chunk counts."""
 
     def __init__(self, input, label, chunk_scheme, num_chunk_types,
                  excluded_chunk_types=None, **kwargs):
-        raise NotImplementedError(
-            "ChunkEvaluator needs the chunk_eval op, which is not ported to "
-            "paddle_tpu_torch yet (ROADMAP.md Queue 1 item 5)")
+        super(ChunkEvaluator, self).__init__("chunk_eval", **kwargs)
+        self.num_infer_chunks = self._create_state("num_infer", "int64", (1,))
+        self.num_label_chunks = self._create_state("num_label", "int64", (1,))
+        self.num_correct_chunks = self._create_state("num_correct", "int64",
+                                                     (1,))
+        (precision, recall, f1, num_infer, num_label,
+         num_correct) = layers.chunk_eval(
+            input=input, label=label, chunk_scheme=chunk_scheme,
+            num_chunk_types=num_chunk_types,
+            excluded_chunk_types=excluded_chunk_types)
+        self._accumulate(self.num_infer_chunks, num_infer)
+        self._accumulate(self.num_label_chunks, num_label)
+        self._accumulate(self.num_correct_chunks, num_correct)
+        self.metrics.extend([precision, recall, f1])
+
+    def eval(self, executor, eval_program=None):
+        num_infer = float(self._state_value(self.num_infer_chunks)[0])
+        num_label = float(self._state_value(self.num_label_chunks)[0])
+        num_correct = float(self._state_value(self.num_correct_chunks)[0])
+        precision = num_correct / num_infer if num_infer else 0.0
+        recall = num_correct / num_label if num_label else 0.0
+        f1 = (2 * precision * recall / (precision + recall)
+              if num_correct else 0.0)
+        return (np.float32(precision), np.float32(recall), np.float32(f1))
 
 
 class EditDistance(Evaluator):

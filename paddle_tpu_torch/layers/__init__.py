@@ -1,7 +1,9 @@
 """The layers DSL (counterpart of ``paddle_tpu/layers``): the layers the
 transformer LM, ResNet, the stacked-RNN text classifier, their losses,
 the optimization surface (clipping, regularization, learning-rate
-schedules) and the dense tensor and loss ops call. Importing it
+schedules), the dense tensor and loss ops, the rest of the conv-net
+path and the sequence stack (RNN units, the sequence ops, CRF, CTC,
+NCE, ``hsigmoid``) call. Importing it
 registers the op lowerings, whose shape inference runs as the ops are
 appended. Variables get their operator sugar (``math_op_patch.py``)
 here."""

@@ -93,6 +93,15 @@ class LayerHelper(object):
         return self.main_block.create_parameter(shape=shape, dtype=dtype,
                                                 **attr.to_kwargs())
 
+    def get_parameter(self, name):
+        """The main program's variable ``name`` (a parameter another
+        layer created, as ``crf_decoding`` shares ``linear_chain_crf``'s
+        transition)."""
+        v = self.main_program.global_block()._find_var_recursive(name)
+        if v is None:
+            raise ValueError("parameter %r not found" % name)
+        return v
+
     def create_variable_for_type_inference(self, dtype, stop_gradient=False):
         return self.main_block.create_var(
             name=unique_name.generate(".".join([self.name, "tmp"])),

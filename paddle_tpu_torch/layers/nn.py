@@ -6,8 +6,10 @@ dense tensor and loss layers (``smooth_l1`` :294,
 :498, ``dot`` :508, ``slice`` :605, ``cos_sim`` :616, ``one_hot`` :629,
 ``pad`` :668, ``label_smooth`` :676, ``transpose`` :693, ``split`` :701,
 ``concat_nn`` :721, ``expand`` :725, ``squeeze`` :729, ``unsqueeze``
-:733), and the rest of the conv-net path's layers (``dropout`` :86 to ``edit_distance`` :755,
-listed where they are defined); the matching part of
+:733), the rest of the conv-net path's layers (``dropout`` :86 to
+``edit_distance`` :755, listed where they are defined), and
+``im2sequence`` :737 and ``hsigmoid`` :775 of the sequence layers; the
+matching part of
 ``paddle_tpu/layers/nn.py``: each appends ops to the current block.
 Names are generated in the JAX package's order, so a program built in
 both packages under ``unique_name.guard()`` has the same variables."""
@@ -24,7 +26,7 @@ __all__ = ["accuracy", "auc", "batch_norm", "clip", "clip_by_norm",
            "conv3d_transpose", "cos_sim", "cross_entropy", "dot", "dropout",
            "edit_distance", "elementwise_add", "elementwise_div",
            "elementwise_mul", "elementwise_sub", "embedding", "expand", "fc",
-           "l2_normalize", "label_smooth", "layer_norm", "log", "lrn",
+           "hsigmoid", "im2sequence", "l2_normalize", "label_smooth", "layer_norm", "log", "lrn",
            "matmul", "maxout", "mean", "mul", "one_hot", "pad", "pool2d",
            "pool3d", "prelu", "reduce_max", "reduce_mean", "reduce_min",
            "reduce_sum", "relu", "reshape", "scale",
@@ -728,3 +730,49 @@ def edit_distance(input, label, normalized=False, ignored_tokens=None,
                      attrs={"normalized": normalized,
                             "ignored_tokens": list(ignored_tokens or [])})
     return out, seq_num
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    """Each ``filter_size`` window of the image a row: ``[N * oh * ow,
+    C * kh * kw]``. ``padding``: one int, (h, w), or (up, left, down,
+    right)."""
+    helper = LayerHelper("im2sequence", **locals())
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    if isinstance(stride, int):
+        stride = [stride, stride]
+    if isinstance(padding, int):
+        padding = [padding, padding]
+    if len(padding) == 2:
+        padding = padding + padding
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="im2sequence", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"kernels": filter_size, "strides": stride,
+                            "paddings": padding})
+    return out
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """The hierarchical sigmoid cost over a complete binary tree of
+    ``num_classes`` leaves: W ``[num_classes - 1, D]`` and, unless
+    ``bias_attr`` is False, a bias ``[num_classes - 1, 1]``."""
+    helper = LayerHelper("hierarchical_sigmoid", **locals())
+    dtype = helper.input_dtype()
+    dim = input.shape[-1]
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[num_classes - 1, dim], dtype=dtype)
+    b = None
+    if bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                    shape=[num_classes - 1, 1], dtype=dtype,
+                                    is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = (input.shape[0], 1)
+    helper.append_op(type="hierarchical_sigmoid",
+                     inputs={"X": [input], "W": [w], "Label": [label],
+                             "Bias": [b] if b is not None else []},
+                     outputs={"Out": [out]},
+                     attrs={"num_classes": num_classes})
+    return out

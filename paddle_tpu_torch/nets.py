@@ -3,10 +3,7 @@
 :25, ``sequence_conv_pool`` :64, ``glu`` :74,
 ``scaled_dot_product_attention`` :80). Each is a composition of layer
 calls, so a block built in both packages under ``unique_name.guard()``
-has the same ops and variables.
-
-``sequence_conv_pool`` needs the ``sequence_conv`` layer (ROADMAP.md
-Queue 1 item 5) and raises until it lands."""
+has the same ops and variables."""
 from __future__ import annotations
 
 from . import layers
@@ -67,9 +64,10 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
 def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                        act="sigmoid", pool_type="max"):
     """sequence_conv then sequence_pool: the text-CNN block."""
-    raise NotImplementedError(
-        "nets.sequence_conv_pool needs the sequence_conv layer, which is "
-        "not ported to paddle_tpu_torch yet (ROADMAP.md Queue 1 item 5)")
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
 
 
 def glu(input, dim=-1):

@@ -1,16 +1,18 @@
 """Shared lowering helpers (counterpart of ``paddle_tpu/ops/common.py``):
 Paddle's elementwise broadcasting, the mul op's 2-D flattening, and
 ``abs`` and ``clip`` with the gradients JAX gives them where the
-function has a corner (ROADMAP Queue 3 #27)."""
+function has a corner (ROADMAP Queue 3 #27), and device copies of host
+tables that a captured step may read."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import amp
 from ..core.executor import raw_data, with_lod_of
 from ..core.types import convert_dtype, torch_dtype
 
-__all__ = ["bcast_y_to_x", "elementwise", "flatten_to_2d", "jax_abs",
+__all__ = ["bcast_y_to_x", "constant", "elementwise", "flatten_to_2d", "jax_abs",
            "jax_clip", "np_dtype", "prod", "tdt"]
 
 
@@ -84,3 +86,22 @@ def jax_clip(x, lo=None, hi=None):
     if hi is not None:
         x = torch.minimum(x, x.new_full((), hi))
     return x
+
+
+# device copies of host tables (assign_value's values, index tables),
+# made once per (device, values) at a key's eager warm-up: a capture may
+# not copy from pageable host memory, so the captured step clones the
+# table on the device instead
+_CONSTANTS = {}
+
+
+def constant(vals, device):
+    """A fresh device tensor holding the numpy array ``vals``."""
+    vals = np.asarray(vals)
+    key = (str(device), vals.dtype.str, vals.shape, vals.tobytes())
+    t = _CONSTANTS.get(key)
+    if t is None:
+        if len(_CONSTANTS) > 256:
+            _CONSTANTS.clear()
+        t = _CONSTANTS[key] = torch.from_numpy(vals.copy()).to(device)
+    return t.clone()

@@ -84,7 +84,8 @@ def _attach(fwd_type, grad_type, **maker_kw):
 @register_op("relu_grad", no_gradient=True)
 def relu_grad(ctx):
     out = ctx.input("Out")
-    ctx.set_output("X@GRAD", ctx.input("Out@GRAD") * (out > 0))
+    ctx.set_output("X@GRAD", with_lod_of(
+        out, raw_data(ctx.input("Out@GRAD")) * (raw_data(out) > 0)))
 
 
 _attach("relu", "relu_grad", need_outputs=("Out",))

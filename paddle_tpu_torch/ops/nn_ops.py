@@ -8,7 +8,8 @@ activation table :44-134, ``prelu`` :137, ``softmax`` :147,
 ``conv2d_transpose`` :444, ``conv3d_transpose`` :506, ``conv3d`` :546,
 ``pool2d`` :614 with ``pool2d_apply`` :584, ``pool3d`` :657,
 ``batch_norm`` :697 with ``_bn_grad_maker`` :744, ``layer_norm`` :774,
-``lrn`` :792, ``l2_normalize`` :809, ``scale_sub_region`` :836).
+``lrn`` :792, ``l2_normalize`` :809, ``im2sequence`` :818,
+``scale_sub_region`` :836).
 
 Convolutions are NCHW with OIHW filters. ``conv2d_apply`` keeps the
 JAX dispatch's order: the ImageNet stem's space-to-depth rewrite when
@@ -64,12 +65,14 @@ def _infer_same(op, block):
 
 @register_op("relu", infer_shape=_infer_same)
 def relu(ctx):
-    ctx.set_output("Out", torch.relu(ctx.input("X")))
+    x = ctx.input("X")
+    ctx.set_output("Out", with_lod_of(x, torch.relu(raw_data(x))))
 
 
 @register_op("tanh", infer_shape=_infer_same)
 def tanh(ctx):
-    ctx.set_output("Out", torch.tanh(ctx.input("X")))
+    x = ctx.input("X")
+    ctx.set_output("Out", with_lod_of(x, torch.tanh(raw_data(x))))
 
 
 # -- the activation table (``paddle_tpu/ops/nn_ops.py:44-134``) --------------
@@ -821,6 +824,24 @@ def l2_normalize(ctx):
     ss = torch.sum(x * x, dim=ctx.attr("axis", 1), keepdim=True)
     ctx.set_output("Out", x / torch.sqrt(torch.maximum(
         ss, ss.new_full((), ctx.attr("epsilon", 1e-12)))))
+
+
+@register_op("im2sequence")
+def im2sequence(ctx):
+    """Each ``kernels`` window of the padded image becomes a row: X
+    ``[N, C, H, W]`` -> ``[N * oh * ow, C * kh * kw]``, the windows of an
+    image in row-major order, a row's features channel-major
+    (``F.unfold``, the counterpart of
+    ``lax.conv_general_dilated_patches``)."""
+    x = raw_data(ctx.input("X"))
+    k = [int(v) for v in ctx.attr("kernels")]
+    s = [int(v) for v in ctx.attr("strides", [1, 1])]
+    p = [int(v) for v in ctx.attr("paddings", [0, 0, 0, 0])]
+    n, c = x.shape[0], x.shape[1]
+    xp = F.pad(x, (p[1], p[3], p[0], p[2]))
+    patches = F.unfold(xp, kernel_size=k, stride=s)   # [N, C*kh*kw, L]
+    ctx.set_output("Out", patches.transpose(1, 2).reshape(
+        -1, c * k[0] * k[1]))
 
 
 @register_op("scale_sub_region", infer_shape=_infer_same)

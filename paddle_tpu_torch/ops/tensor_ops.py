@@ -20,7 +20,8 @@ Index outputs (``arg_max``, ``arg_min``, ``argsort``'s Indices, ``shape``,
 ``range``) are int64, the dtype each JAX lowering asks for; JAX, with
 64-bit types off, holds them in int32 (the values agree). Tensors made
 from host values (``fill``, ``shape``, ``is_empty``, ``range``) come from
-:func:`_constant`, so a captured step copies nothing from host memory.
+:func:`.common.constant`, so a captured step copies nothing from host
+memory.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ import torch.nn.functional as F
 from ..core import registry
 from ..core.executor import raw_data, with_lod_of
 from ..core.registry import register_op
-from .common import np_dtype, prod, tdt
+from .common import constant, np_dtype, prod, tdt
 
 __all__ = []
 
@@ -184,22 +185,6 @@ def increment(ctx):
     ctx.set_output("Out", x + step)
 
 
-# device copies of assign_value tables, made once per (device, values)
-# at a key's eager warm-up: a capture may not copy from pageable host
-# memory, so the captured step clones the table on the device instead
-_CONSTANTS = {}
-
-
-def _constant(vals, device):
-    key = (str(device), vals.dtype.str, vals.shape, vals.tobytes())
-    t = _CONSTANTS.get(key)
-    if t is None:
-        if len(_CONSTANTS) > 256:
-            _CONSTANTS.clear()
-        t = _CONSTANTS[key] = torch.from_numpy(vals.copy()).to(device)
-    return t.clone()
-
-
 @register_op("assign_value", no_gradient=True,
              infer_shape=_infer_from_shape_attr)
 def assign_value(ctx):
@@ -207,7 +192,7 @@ def assign_value(ctx):
     dtype by default)."""
     vals = np.asarray(ctx.attr("values"))
     vals = vals.astype(np_dtype(ctx.attr("dtype"), str(vals.dtype)))
-    ctx.set_output("Out", _constant(vals, ctx.device))
+    ctx.set_output("Out", constant(vals, ctx.device))
 
 
 # -- creation from host values, and the random ops ----------------------------
@@ -218,8 +203,8 @@ def fill(ctx):
     ``dtype``."""
     vals = np.asarray(ctx.attr("value", []),
                       dtype=np_dtype(ctx.attr("dtype")))
-    ctx.set_output("Out", _constant(vals.reshape(_shape_attr(ctx)),
-                                    ctx.device))
+    ctx.set_output("Out", constant(vals.reshape(_shape_attr(ctx)),
+                                   ctx.device))
 
 
 @register_op("fill_zeros_like", infer_shape=_infer_elem_like)
@@ -303,8 +288,8 @@ def shape_op(ctx):
     """The int64 shape of Input (or X)."""
     x = raw_data(ctx.input("Input") if ctx.has_input("Input")
                  else ctx.input("X"))
-    ctx.set_output("Out", _constant(np.asarray(x.shape, np.int64),
-                                    ctx.device))
+    ctx.set_output("Out", constant(np.asarray(x.shape, np.int64),
+                                   ctx.device))
 
 
 @register_op("squeeze")
@@ -516,8 +501,8 @@ def reverse(ctx):
 def is_empty(ctx):
     """A 0-d bool: whether X has no element."""
     x = raw_data(ctx.input("X"))
-    ctx.set_output("Out", _constant(np.asarray(prod(x.shape) == 0),
-                                    ctx.device))
+    ctx.set_output("Out", constant(np.asarray(prod(x.shape) == 0),
+                                   ctx.device))
 
 
 @register_op("arg_max", no_gradient=True)
@@ -552,5 +537,5 @@ def range_op(ctx):
     it runs on the hybrid path), since they set the output's shape."""
     start, end, step = (int(raw_data(ctx.input(s)).reshape(()))
                         for s in ("Start", "End", "Step"))
-    ctx.set_output("Out", _constant(np.arange(start, end, step,
-                                              dtype=np.int64), ctx.device))
+    ctx.set_output("Out", constant(np.arange(start, end, step,
+                                             dtype=np.int64), ctx.device))

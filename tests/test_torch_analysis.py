@@ -522,7 +522,11 @@ def test_configs_verify_clean_like_the_jax_package(kind):
     startup program. One deliberate difference (ROADMAP.md Queue 3 #23):
     the JAX package's ``fc`` drops its input's lod_level at the mul, so
     its verifier reports PT016 on the lstm that reads the fc (a false
-    positive of the reference, pinned here); the port's keeps it."""
+    positive of the reference, pinned here); the port's keeps it. The
+    same holds for the stacked-LSTM sentiment net. The semantic role
+    tagger's ``sums`` declare no lod_level in either package, so both
+    verifiers report PT016 on each lstm that reads one (a false positive
+    of the reference that the port mirrors op for op, pinned here)."""
     for pkg, a in (("port", tanalysis), ("jax", janalysis)):
         main, start, spec = torch_book.build(pkg, kind)
         diags = a.verify(main)
@@ -531,6 +535,16 @@ def test_configs_verify_clean_like_the_jax_package(kind):
                 ("PT016", 3, "fc_0.tmp_1"), ("PT016", 6, "fc_1.tmp_1"),
                 ("PT016", 7, "lstm_1.tmp_0")]
             diags = []
+        if pkg == "jax" and kind == "understand_sentiment_lstm":
+            assert [(d.code, d.op_idx, d.var) for d in diags] == [
+                ("PT016", 3, "fc_0.tmp_1"), ("PT016", 8, "fc_1.tmp_3"),
+                ("PT016", 13, "fc_2.tmp_3"), ("PT016", 14, "fc_2.tmp_3"),
+                ("PT016", 15, "lstm_2.tmp_0")]
+            diags = []
+        if kind == "label_semantic_roles":
+            assert [(d.code, d.op_idx, d.var) for d in diags] == [
+                ("PT016", 25 + 6 * i, "sum_%d.tmp_0" % i) for i in range(4)]
+            diags = []
         assert diags == [], "%s %s: %s" % (pkg, kind,
                                            a.render_diagnostics(diags))
         diags = a.verify(start)
@@ -538,8 +552,10 @@ def test_configs_verify_clean_like_the_jax_package(kind):
             pkg, kind, a.render_diagnostics(diags))
         if pkg == "port":
             fetches = [spec["cost"]] + list(spec.get("metrics", ()))
-            assert not [d for d in a.verify(main, fetches=fetches)
-                        if d.is_error]
+            errors = [d.code for d in a.verify(main, fetches=fetches)
+                      if d.is_error]
+            assert errors == (["PT016"] * 4 if kind == "label_semantic_roles"
+                              else []), errors
 
 
 def test_tiny_lm_deepcopies_so_shapes_repropagate():

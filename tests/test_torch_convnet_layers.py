@@ -13,7 +13,8 @@ conv-net path against the JAX package's, on the CPU.
   their outputs within 1e-6 of max(1, |the JAX value|) (``OP_TOL``).
 - ``Accuracy`` and ``EditDistance`` accumulate over three batches to the
   same totals in both; ``reset`` zeroes them. ``ChunkEvaluator`` and
-  ``nets.sequence_conv_pool`` raise until ROADMAP.md Queue 1 item 5.
+  ``nets.sequence_conv_pool`` (ROADMAP.md Queue 1 item 5a) against the
+  JAX package's the same way.
 """
 import numpy as np
 import pytest
@@ -212,19 +213,74 @@ def test_layer_and_net_compute_what_jax_computes(name):
 
 
 def test_sequence_conv_pool_waits_on_item_5():
+    """Item 5 has landed: ``sequence_conv_pool`` builds the JAX program
+    and computes what it computes from the JAX startup's state, on a
+    ragged batch with a length-1 sequence (``OP_TOL``)."""
     def fn(p):
         x = p.layers.data("w", shape=[4], dtype="float32", lod_level=1)
-        return tnets.sequence_conv_pool(x, num_filters=4, filter_size=3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        build(PORT, fn)
+        return _net(p, "sequence_conv_pool", input=x, num_filters=3,
+                    filter_size=3, act="tanh", pool_type="sqrt")
+    (jmain, jstart, jout), (tmain, tstart, tout) = [build(p, fn)
+                                                    for p in PKGS]
+    assert program_of(tmain, tstart) == program_of(jmain, jstart)
+    state = jax_startup_state(jmain, jstart)
+    rows = np.random.RandomState(3).randn(7, 4).astype(np.float32)
+    lod = [[0, 3, 4, 7]]
+    want = jax_run(jmain, state, [{"w": jpt.core.lod.LoDTensor(rows, lod)}],
+                   [jout.name])[0][0][0]
+    from paddle_tpu_torch.core.lod import LoDTensor
+    got = port_run(tmain, state, [{"w": LoDTensor(rows, lod)}],
+                   [tout.name])[0][0][0]
+    assert got.shape == want.shape == (3, 3)
+    assert rel(got, want) <= OP_TOL
 
 
 def test_chunk_evaluator_waits_on_item_5():
+    """Item 5 has landed: ``ChunkEvaluator`` accumulates the chunk counts
+    of three batches to the same precision, recall and F1 in both
+    packages (its ``chunk_eval`` on the hybrid path of the port), and
+    ``reset`` zeroes them."""
     def fn(p):
-        x = p.layers.data("x", shape=[1], dtype="int64", lod_level=1)
-        return tevaluator.ChunkEvaluator(x, x, "IOB", 3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        build(PORT, fn)
+        inf = p.layers.data("inf", shape=[1], dtype="int64", lod_level=1)
+        lab = p.layers.data("lab", shape=[1], dtype="int64", lod_level=1)
+        ev = {JAX.name: jevaluator, PORT.name: tevaluator}[p.name]
+        return ev.ChunkEvaluator(inf, lab, "IOB", 3)
+    rng = np.random.RandomState(4)
+    feeds = []
+    for _ in range(3):
+        lod = [[0, 5, 6, 12]]
+        lab = rng.randint(0, 7, (12, 1)).astype(np.int64)
+        inf = np.where(rng.rand(12, 1) < 0.3, rng.randint(0, 7, (12, 1)),
+                       lab).astype(np.int64)
+        feeds.append((inf, lab, lod))
+    got = {}
+    for pkg in PKGS:
+        main, start, ev = build(pkg, fn)
+        if pkg is JAX:
+            scope, guard = jpt.Scope(), jpt.scope_guard
+            exe = jpt.Executor(jpt.CPUPlace())
+            mk = jpt.core.lod.LoDTensor
+        else:
+            from paddle_tpu_torch.core.lod import LoDTensor as mk
+            scope, guard = TScope(), tscope_guard
+            exe = TExecutor("cpu")
+        with pkg.program_guard(main, start), guard(scope):
+            exe.run(start)
+            for inf, lab, lod in feeds:
+                exe.run(main, feed={"inf": mk(inf, lod), "lab": mk(lab, lod)},
+                        fetch_list=[ev.metrics[0]])
+            out = ev.eval(exe)
+            states = [int(ev._state_value(s)[0]) for s in ev.states]
+            ev.reset(exe)
+            zeros = [ev._state_value(s) for s in ev.states]
+        got[pkg.name] = (out, states, zeros)
+        if pkg is PORT:
+            assert exe.stats["hybrid_runs"] == 3
+    (jout, jst, _), (tout, tst, tzero) = got["jax"], got["port"]
+    assert tst == jst and tst[1] > 0 and tst[2] > 0
+    np.testing.assert_allclose(np.asarray(tout, np.float64),
+                               np.asarray(jout, np.float64), rtol=1e-6)
+    assert all(not np.any(z) for z in tzero)
 
 
 def _evaluators(pkg):

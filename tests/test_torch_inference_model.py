@@ -47,7 +47,10 @@ def _feed_names(kind):
             "text_rnn": ["words"], "word2vec": ["w0", "w1", "w2", "w3"],
             "recommender": list(book.REC_FEEDS[:-1]),
             "image_classification_vgg": ["pixel"],
-            "recognize_digits_nets": ["img"]}[kind]
+            "recognize_digits_nets": ["img"],
+            "understand_sentiment_conv": ["words"],
+            "understand_sentiment_lstm": ["words"],
+            "label_semantic_roles": list(book.SRL_FEEDS[:-1])}[kind]
 
 
 def _only(feed, names):

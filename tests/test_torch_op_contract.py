@@ -6,7 +6,10 @@ differences, each with the case's own ``atol`` / ``rtol`` / ``grad_rel``
 (``tests/torch_op_test.py``, the twin of ``tests/op_test.py``). Beside
 them the port's twins of the suite's random-op property tests, of
 ``tests/test_op_contract_suite2.py``'s ``sampling_id`` and ``range``
-tests, and of the ``shape`` case with the dtype the port gives it.
+tests, of the ``shape`` case with the dtype the port gives it, and of
+the suite2 sequence contracts whose ops the port registers (the
+sequence ops, CRF, CTC, the ranking ops, ``chunk_eval``, ``hsigmoid``,
+``nce`` and the int samplers), each op fed its weights.
 
 A case the port cannot pass for a deliberate difference would be left
 out by name in ``EXCLUDED``, with its ROADMAP Queue 3 number; there is
@@ -19,6 +22,7 @@ torch = pytest.importorskip("torch")
 
 from test_op_contract_suite import CASES  # noqa: E402
 from torch_op_test import OpTest  # noqa: E402
+from paddle_tpu_torch.core import lod as tlod  # noqa: E402
 
 import paddle_tpu_torch.ops  # noqa: E402,F401
 from paddle_tpu_torch import layers as tlayers  # noqa: E402
@@ -155,3 +159,295 @@ def test_shape_case_is_int64():
     spec = next(c[2] for c in CASES if c[0] == "shape")
     (name, want, got), = _Case("shape", spec).run_outputs()
     assert got.dtype == np.int64 and got.tolist() == want.tolist()
+
+
+# -- twins of tests/test_op_contract_suite2.py's sequence contracts ------------
+# each op alone through torch_op_test.OpTest, its weights fed, against the
+# same numpy recurrence, closed form or enumeration as the JAX test
+
+def _lod(seqs):
+    return tlod.build_lod_tensor([np.asarray(s) for s in seqs])
+
+
+def _sig(v):
+    return 1 / (1 + np.exp(-v))
+
+
+class _Contract(OpTest):
+    def __init__(self, op_type, inputs, outputs, attrs=None):
+        self.op_type = op_type
+        self._io = (inputs, outputs, dict(attrs or {}))
+
+    def setup(self):
+        self.inputs, self.outputs, self.attrs = self._io
+
+
+def test_sequence_reverse_contract():
+    seqs = [np.random.RandomState(0).randn(n, 4).astype(np.float32)
+            for n in (3, 2)]
+    _Contract("sequence_reverse", {"X": _lod(seqs)},
+              {"Y": np.concatenate([s[::-1] for s in seqs])}).check_output(
+        atol=0, rtol=1e-6)
+
+
+def test_sequence_slice_contract():
+    seqs = [np.random.RandomState(1).randn(n, 2).astype(np.float32)
+            for n in (4, 3)]
+    _Contract("sequence_slice",
+              {"X": _lod(seqs), "Offset": np.array([[1], [0]], np.int64),
+               "Length": np.array([[2], [1]], np.int64)},
+              {"Out": np.concatenate([seqs[0][1:3], seqs[1][0:1]])}
+              ).check_output(atol=0, rtol=1e-6)
+
+
+def test_sequence_conv_contract():
+    """A window-3 context conv against numpy with zero-padded edges."""
+    rng = np.random.RandomState(2)
+    seqs = [rng.randn(n, 3).astype(np.float32) for n in (4, 2)]
+    w = rng.randn(9, 5).astype(np.float32)
+    want = []
+    for s in seqs:
+        pad = np.vstack([np.zeros((1, 3), np.float32), s,
+                         np.zeros((1, 3), np.float32)])
+        want += [pad[t:t + 3].reshape(-1) @ w for t in range(len(s))]
+    _Contract("sequence_conv", {"X": _lod(seqs), "Filter": w},
+              {"Out": np.asarray(want, np.float32)},
+              {"contextLength": 3, "contextStart": -1,
+               "contextStride": 1}).check_output(atol=1e-5, rtol=1e-4)
+
+
+def test_lstmp_op_contract():
+    """The standard cell and a tanh projection fed back as the recurrent
+    input, against numpy."""
+    rng = np.random.RandomState(11)
+    D, P = 3, 2
+    seq = rng.randn(4, 4 * D).astype(np.float32) * 0.5
+    w = rng.randn(P, 4 * D).astype(np.float32) * 0.5
+    wp = rng.randn(D, P).astype(np.float32) * 0.5
+    rv, cv = np.zeros(P, np.float32), np.zeros(D, np.float32)
+    want_p, want_c = [], []
+    for t in range(4):
+        g = seq[t] + rv @ w
+        cand, i, f, o = (np.tanh(g[:D]), _sig(g[D:2 * D]),
+                         _sig(g[2 * D:3 * D]), _sig(g[3 * D:]))
+        cv = f * cv + i * cand
+        rv = np.tanh((o * np.tanh(cv)) @ wp)
+        want_p.append(rv.copy())
+        want_c.append(cv.copy())
+    _Contract("lstmp", {"Input": _lod([seq]), "Weight": w, "ProjWeight": wp},
+              {"Projection": np.asarray(want_p, np.float32),
+               "Cell": np.asarray(want_c, np.float32)},
+              {"use_peepholes": False}).check_output(atol=1e-5, rtol=1e-4)
+
+
+def test_gru_and_lstm_op_contracts():
+    """``dynamic_gru``'s and ``dynamic_lstm``'s gate math (update|reset
+    then candidate, h = (1 - u) h + u c; slabs c~, i, f, o, no
+    peepholes) against numpy."""
+    rng = np.random.RandomState(3)
+    D = 3
+    seq = rng.randn(4, 3 * D).astype(np.float32) * 0.5
+    w = rng.randn(D, 3 * D).astype(np.float32) * 0.5
+    hv, want = np.zeros(D, np.float32), []
+    for t in range(4):
+        ur = _sig(seq[t, :2 * D] + hv @ w[:, :2 * D])
+        u, r = ur[:D], ur[D:]
+        c = np.tanh(seq[t, 2 * D:] + (r * hv) @ w[:, 2 * D:])
+        hv = (1 - u) * hv + u * c
+        want.append(hv.copy())
+    _Contract("gru", {"Input": _lod([seq]), "Weight": w},
+              {"Hidden": np.asarray(want, np.float32)}).check_output(
+        atol=1e-5, rtol=1e-4)
+    D = 2
+    seq = rng.randn(3, 4 * D).astype(np.float32) * 0.5
+    w = rng.randn(D, 4 * D).astype(np.float32) * 0.5
+    hv, cv, want = np.zeros(D, np.float32), np.zeros(D, np.float32), []
+    for t in range(3):
+        g = seq[t] + hv @ w
+        cand, i, f, o = (np.tanh(g[:D]), _sig(g[D:2 * D]),
+                         _sig(g[2 * D:3 * D]), _sig(g[3 * D:]))
+        cv = f * cv + i * cand
+        hv = o * np.tanh(cv)
+        want.append(hv.copy())
+    _Contract("lstm", {"Input": _lod([seq]), "Weight": w},
+              {"Hidden": np.asarray(want, np.float32)},
+              {"use_peepholes": False}).check_output(atol=1e-5, rtol=1e-4)
+
+
+def test_simple_rnn_op_contract():
+    rng = np.random.RandomState(5)
+    seq = rng.randn(3, 4).astype(np.float32) * 0.5
+    w = rng.randn(4, 4).astype(np.float32) * 0.5
+    hv, want = np.zeros(4, np.float32), []
+    for t in range(3):
+        hv = np.tanh(seq[t] + hv @ w)
+        want.append(hv.copy())
+    _Contract("simple_rnn", {"Input": _lod([seq]), "Weight": w},
+              {"Hidden": np.asarray(want, np.float32)},
+              {"activation": "tanh"}).check_output(atol=1e-6, rtol=1e-4)
+
+
+def test_warpctc_closed_form():
+    """T = 2, one label, blank 0: p = p1[l] p2[b] + p1[b] p2[l] + p1[l]
+    p2[l], the loss -log p."""
+    logits = np.array([[0.2, 1.0, -0.3], [0.5, -0.2, 0.9]], np.float32)
+    p = np.exp(logits - logits.max(1, keepdims=True))
+    p = p / p.sum(1, keepdims=True)
+    prob = p[0, 1] * p[1, 0] + p[0, 0] * p[1, 1] + p[0, 1] * p[1, 1]
+    _Contract("warpctc", {"Logits": _lod([logits]),
+                          "Label": tlod.LoDTensor(np.array([[1]], np.int64),
+                                                  [[0, 1]])},
+              {"Loss": np.array([[-np.log(prob)]], np.float32)},
+              {"blank": 0}).check_output(atol=1e-6, rtol=1e-4)
+
+
+def test_crf_forward_and_viterbi():
+    """-log-likelihood against the numpy forward algorithm, the decoded
+    path against numpy Viterbi, on one transition."""
+    rng = np.random.RandomState(6)
+    T, C = 3, 2
+    emit = rng.rand(T, C).astype(np.float32)
+    lab = rng.randint(0, C, (T, 1)).astype(np.int64)
+    w = rng.randn(C + 2, C).astype(np.float32)
+    start, end, trans = w[0], w[1], w[2:]
+    alpha = start + emit[0]
+    for t in range(1, T):
+        alpha = emit[t] + np.log(np.exp(alpha[:, None] + trans).sum(0))
+    log_z = np.log(np.exp(alpha + end).sum())
+    score = start[lab[0, 0]] + emit[0, lab[0, 0]] + end[lab[-1, 0]] + sum(
+        trans[lab[t - 1, 0], lab[t, 0]] + emit[t, lab[t, 0]]
+        for t in range(1, T))
+    ins = {"Emission": tlod.LoDTensor(emit, [[0, T]]), "Transition": w,
+           "Label": tlod.LoDTensor(lab, [[0, T]])}
+    _Contract("linear_chain_crf", ins,
+              {"LogLikelihood": np.array([[log_z - score]], np.float32)}
+              ).check_output(atol=1e-5, rtol=1e-4)
+    delta, back = start + emit[0], []
+    for t in range(1, T):
+        m = delta[:, None] + trans
+        back.append(m.argmax(0))
+        delta = emit[t] + m.max(0)
+    path = [int((delta + end).argmax())]
+    for b in reversed(back):
+        path.append(int(b[path[-1]]))
+    _Contract("crf_decoding", {k: ins[k] for k in ("Emission", "Transition")},
+              {"ViterbiPath": np.asarray(path[::-1], np.int64)[:, None]}
+              ).check_output(atol=0, rtol=0)
+
+
+def test_kmax_and_sub_nested_contract():
+    scores = np.array([[0.3], [0.9], [0.1], [0.7]], np.float32)
+    _Contract("kmax_seq_score", {"X": tlod.LoDTensor(scores, [[0, 4]])},
+              {"Out": np.array([[1, 3, 0]], np.int64)},
+              {"beam_size": 3}).check_output(atol=0, rtol=0)
+    data = np.arange(10, dtype=np.float32).reshape(5, 2)
+    case = _Contract("sub_nested_seq",
+                     {"X": tlod.LoDTensor(data, [[0, 3], [0, 1, 3, 5]]),
+                      "SelectedIndices": np.array([[2, 0]], np.int64)},
+                     {"Out": np.zeros((5, 2), np.float32)})
+    (_, _, got), = case.run_outputs()
+    np.testing.assert_allclose(got[:3], np.concatenate([data[3:5],
+                                                        data[0:1]]))
+    assert not got[3:].any()
+
+
+def test_ranking_ops_contract():
+    """positive_negative_pair and lambda_rank_cost at their hand values:
+    idcg 1, d = [1, 1 / log2(3)], cost (1 - d1) log(1 + e^-1)."""
+    s = tlod.LoDTensor(np.array([[2.0], [1.0]], np.float32), [[0, 2]])
+    r = tlod.LoDTensor(np.array([[1.0], [0.0]], np.float32), [[0, 2]])
+    d1 = 1.0 / np.log2(3.0)
+    _Contract("lambda_rank_cost", {"Score": s, "Label": r},
+              {"Out": np.array([(1 - d1) * np.log1p(np.exp(-1.0))],
+                               np.float32)},
+              {"ndcg_num": 2}).check_output(atol=1e-6, rtol=1e-4)
+    case = _Contract("positive_negative_pair", {"Score": s, "Label": r},
+                     {"PositivePair": np.array([1.0], np.float32)})
+    (_, _, got), = case.run_outputs()
+    assert float(np.asarray(got).reshape(-1)[0]) == 1.0
+
+
+def test_chunk_eval_exact():
+    """IOB chunks: inference equal to the label gives P = R = F1 = 1 (a
+    host op, on the hybrid path)."""
+    lab = tlod.LoDTensor(np.array([[0], [1], [2], [0]], np.int64), [[0, 4]])
+    _Contract("chunk_eval", {"Inference": lab, "Label": lab},
+              {"Precision": np.ones(1, np.float32),
+               "Recall": np.ones(1, np.float32),
+               "F1-Score": np.ones(1, np.float32),
+               "NumInferChunks": np.array([2], np.int64)},
+              {"num_chunk_types": 1, "chunk_scheme": "IOB"}).check_output(
+        atol=0, rtol=0)
+
+
+def test_hsigmoid_two_classes_is_sigmoid():
+    """num_classes 2: one internal node, the cost one logistic -log
+    sigmoid(+-z), class 0 taking +z."""
+    rng = np.random.RandomState(8)
+    x = rng.rand(3, 4).astype(np.float32)
+    y = np.array([[0], [1], [0]], np.int64)
+    w = rng.randn(1, 4).astype(np.float32)
+    b = rng.randn(1, 1).astype(np.float32)
+    z = x @ w[0] + b[0, 0]
+    sign = np.where(y[:, 0] == 0, 1.0, -1.0)
+    _Contract("hierarchical_sigmoid", {"X": x, "W": w, "Label": y, "Bias": b},
+              {"Out": np.log1p(np.exp(-sign * z)).astype(
+                  np.float32)[:, None]},
+              {"num_classes": 2}).check_output(atol=1e-6, rtol=1e-5)
+
+
+def test_nce_trains():
+    """The suite's sampled-op property (``test_op_contract_suite2.py
+    :656``): nce's loss is finite and falls under SGD."""
+    rng = np.random.RandomState(9)
+    main, start = tir.Program(), tir.Program()
+    with tir.program_guard(main, start):
+        x = tlayers.data("x", shape=[8], dtype="float32")
+        y = tlayers.data("y", shape=[1], dtype="int64")
+        cost = tlayers.mean(tlayers.nce(x, y, num_total_classes=10,
+                                        num_neg_samples=4))
+        from paddle_tpu_torch import optimizer as toptimizer
+        toptimizer.SGD(learning_rate=0.1).minimize(cost)
+    feed = {"x": rng.rand(6, 8).astype(np.float32),
+            "y": rng.randint(0, 10, (6, 1)).astype(np.int64)}
+    exe, scope = TExecutor("cpu"), TScope()
+    exe.run(start, scope=scope)
+    losses = [float(np.asarray(exe.run(main, feed=feed, fetch_list=[cost],
+                                       scope=scope)[0]))
+              for _ in range(6)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def test_random_int_samplers():
+    """The nce samplers' range and shape, log-uniform's skew to small
+    ids, and a one-hot custom distribution's one class; a seeded rerun
+    is equal."""
+    main = tir.Program()
+    main.random_seed = 11
+    blk = main.global_block()
+    for nm in ("u_int", "lu_int", "cd_int"):
+        blk.create_var(name=nm, shape=None, dtype="int64")
+    blk.append_op(type="uniform_random_int", inputs={},
+                  outputs={"Out": ["u_int"]},
+                  attrs={"shape": [256], "low": 2, "high": 9})
+    blk.append_op(type="log_uniform_random_int", inputs={},
+                  outputs={"Out": ["lu_int"]},
+                  attrs={"shape": [256], "range": 50})
+    blk.create_var(name="cd_probs", shape=(4,), dtype="float32")
+    blk.append_op(type="assign_value", inputs={},
+                  outputs={"Out": ["cd_probs"]},
+                  attrs={"shape": [4], "values": [0.0, 0.0, 1.0, 0.0],
+                         "dtype": "float32"})
+    blk.append_op(type="custom_dist_random_int",
+                  inputs={"Probs": ["cd_probs"]},
+                  outputs={"Out": ["cd_int"]}, attrs={"shape": [256]})
+    runs = [[np.asarray(v) for v in TExecutor("cpu").run(
+        main, fetch_list=["u_int", "lu_int", "cd_int"], scope=TScope())]
+        for _ in range(2)]
+    u, lu, cd = runs[0]
+    assert u.min() >= 2 and u.max() < 9 and u.dtype == np.int64
+    assert lu.min() >= 0 and lu.max() < 50
+    assert (lu < 10).sum() > (lu >= 40).sum()
+    assert (cd == 2).all()
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)

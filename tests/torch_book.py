@@ -30,8 +30,19 @@ under both, ``book_adam=True`` taking the book's Adam) and
 conv net of ``tests/book/test_recognize_digits.py:18-26``: two
 ``nets.simple_img_conv_pool``, a softmax classifier, Adam at 0.003),
 both fed seeded synthetic images of the datasets' shapes (CIFAR-10's
-3 x 32 x 32, MNIST's 784) made here. The book kinds train in batches of
-16.
+3 x 32 x 32, MNIST's 784) made here, ``understand_sentiment_conv`` and
+``understand_sentiment_lstm`` (``convolution_net`` and
+``stacked_lstm_net`` of ``tests/book/test_understand_sentiment.py:17-51``
+at its widths, embeddings and hidden 16, over imdb's 5147 words; Adam
+at 0.002), fed seeded synthetic reviews of 8 to 40 words, and
+``label_semantic_roles`` (``db_lstm`` of
+``tests/book/test_label_semantic_roles.py:28-95`` at its widths, depth 4,
+hidden 32, with ``linear_chain_crf`` on the shared ``crfw`` transition
+and ``crf_decoding`` the prediction; SGD at 0.01), fed seeded synthetic
+sentences of 4 to 20 words over the dictionary sizes of the JAX
+package's synthetic ``conll05`` (4000 words, 300 predicates, 30
+labels), the 9 ragged slots of a CoNLL-05 row. The book kinds train in
+batches of 16.
 """
 import importlib.util
 import os
@@ -61,11 +72,14 @@ from paddle_tpu_torch.core import unique_name as tun
 from paddle_tpu_torch.core.executor import Executor as TExecutor
 from paddle_tpu_torch.core.scope import Scope as TScope
 from paddle_tpu_torch.core.scope import scope_from_numpy, scope_to_numpy
+from paddle_tpu_torch.param_attr import ParamAttr as TParamAttr
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = ("fit_a_line", "tiny_lm", "resnet_cifar", "text_rnn",
          "recognize_digits_conv", "word2vec", "recommender",
-         "image_classification_vgg", "recognize_digits_nets")
+         "image_classification_vgg", "recognize_digits_nets",
+         "understand_sentiment_conv", "understand_sentiment_lstm",
+         "label_semantic_roles")
 IMAGE_KINDS = ("image_classification_vgg", "recognize_digits_nets")
 # losses within 1e-5 relative, persistables within 1e-5 of max(1, the
 # largest magnitude): float32 on both sides, sums in other orders
@@ -85,6 +99,18 @@ REC = dict(users=jmovielens.max_user_id() + 1,
            learning_rate=0.2)
 REC_FEEDS = ("user_id", "gender_id", "age_id", "job_id", "movie_id",
              "category_id", "title_ids", "score")
+# tests/book/test_understand_sentiment.py's widths, imdb's vocabulary
+SENT = dict(vocab=5147, emb=16, hid=16, stacked=3, learning_rate=0.002,
+            min_len=8, max_len=40)
+SENT_KINDS = ("understand_sentiment_conv", "understand_sentiment_lstm")
+# tests/book/test_label_semantic_roles.py's widths; the dictionary sizes
+# of the JAX package's synthetic conll05 (paddle_tpu/dataset/conll05.py)
+SRL = dict(words=4000, preds=300, labels=30, marks=2, word_dim=16,
+           mark_dim=4, hidden=32, depth=4, mix_hidden_lr=1.0,
+           learning_rate=0.01, min_len=4, max_len=20)
+SRL_FEEDS = ("word_data", "ctx_n2_data", "ctx_n1_data", "ctx_0_data",
+             "ctx_p1_data", "ctx_p2_data", "verb_data", "mark_data",
+             "target")
 
 
 def jax_config(name):
@@ -252,6 +278,131 @@ def recognize_digits_nets(L, nets, optimizer):
             "optimizer": optimizer.Adam(learning_rate=0.003)}
 
 
+def understand_sentiment(L, nets, optimizer, net, w=SENT):
+    """``convolution_net`` (``net="conv"``) or ``stacked_lstm_net``
+    (``"lstm"``) of ``tests/book/test_understand_sentiment.py:17-51``
+    and the test's head, at the widths ``w``; ``w["use_peepholes"]``
+    (default the book's True) goes to every LSTM."""
+    data = L.data(name="words", shape=[1], dtype="int64", lod_level=1)
+    label = L.data(name="label", shape=[1], dtype="int64")
+    emb = L.embedding(input=data, size=[w["vocab"], w["emb"]])
+    if net == "conv":
+        conv_3 = nets.sequence_conv_pool(input=emb, num_filters=w["hid"],
+                                         filter_size=3, act="tanh",
+                                         pool_type="sqrt")
+        conv_4 = nets.sequence_conv_pool(input=emb, num_filters=w["hid"],
+                                         filter_size=4, act="tanh",
+                                         pool_type="sqrt")
+        prediction = L.fc(input=[conv_3, conv_4], size=2, act="softmax")
+    else:
+        peep = w.get("use_peepholes", True)
+        fc1 = L.fc(input=emb, size=w["hid"])
+        lstm1, _ = L.dynamic_lstm(input=fc1, size=w["hid"],
+                                  use_peepholes=peep)
+        inputs = [fc1, lstm1]
+        for i in range(2, w["stacked"] + 1):
+            fc = L.fc(input=inputs, size=w["hid"])
+            lstm, _ = L.dynamic_lstm(input=fc, size=w["hid"],
+                                     is_reverse=(i % 2) == 0,
+                                     use_peepholes=peep)
+            inputs = [fc, lstm]
+        fc_last = L.sequence_pool(input=inputs[0], pool_type="max")
+        lstm_last = L.sequence_pool(input=inputs[1], pool_type="max")
+        prediction = L.fc(input=[fc_last, lstm_last], size=2, act="softmax")
+    cost = L.mean(L.cross_entropy(input=prediction, label=label))
+    acc = L.accuracy(input=prediction, label=label)
+    return {"cost": cost, "metrics": [acc], "feed_list": [data, label],
+            "prediction": prediction,
+            "optimizer": optimizer.Adam(learning_rate=w["learning_rate"])}
+
+
+def label_semantic_roles(L, optimizer, ParamAttr, w=SRL):
+    """``db_lstm`` of ``tests/book/test_label_semantic_roles.py:28-95``
+    with the test's CRF head at the widths ``w``: the cost the mean of
+    ``linear_chain_crf`` over the ``crfw`` transition, the prediction
+    ``crf_decoding`` on it."""
+    def seq_data(name):
+        return L.data(name=name, shape=[1], dtype="int64", lod_level=1)
+
+    feeds = [seq_data(n) for n in SRL_FEEDS]
+    word, ctx_n2, ctx_n1, ctx_0, ctx_p1, ctx_p2, predicate, mark, target = \
+        feeds
+    predicate_embedding = L.embedding(
+        input=predicate, size=[w["preds"], w["word_dim"]],
+        param_attr=ParamAttr(name="vemb"))
+    mark_embedding = L.embedding(input=mark,
+                                 size=[w["marks"], w["mark_dim"]])
+    emb_layers = [L.embedding(size=[w["words"], w["word_dim"]], input=x,
+                              param_attr=ParamAttr(name="word_emb"))
+                  for x in (word, ctx_n2, ctx_n1, ctx_0, ctx_p1, ctx_p2)]
+    emb_layers += [predicate_embedding, mark_embedding]
+    hidden_0 = L.sums(input=[L.fc(input=emb, size=w["hidden"])
+                             for emb in emb_layers])
+    lstm_0, _ = L.dynamic_lstm(input=hidden_0, size=w["hidden"],
+                               candidate_activation="relu",
+                               gate_activation="sigmoid",
+                               cell_activation="sigmoid")
+    input_tmp = [hidden_0, lstm_0]
+    for i in range(1, w["depth"]):
+        mix_hidden = L.sums(input=[
+            L.fc(input=input_tmp[0], size=w["hidden"]),
+            L.fc(input=input_tmp[1], size=w["hidden"])])
+        lstm, _ = L.dynamic_lstm(input=mix_hidden, size=w["hidden"],
+                                 candidate_activation="relu",
+                                 gate_activation="sigmoid",
+                                 cell_activation="sigmoid",
+                                 is_reverse=((i % 2) == 1))
+        input_tmp = [mix_hidden, lstm]
+    feature_out = L.sums(input=[
+        L.fc(input=input_tmp[0], size=w["labels"]),
+        L.fc(input=input_tmp[1], size=w["labels"])])
+    crf_cost = L.linear_chain_crf(
+        input=feature_out, label=target,
+        param_attr=ParamAttr(name="crfw",
+                             learning_rate=w["mix_hidden_lr"]))
+    avg_cost = L.mean(crf_cost)
+    crf_decode = L.crf_decoding(input=feature_out,
+                                param_attr=ParamAttr(name="crfw"))
+    return {"cost": avg_cost, "feed_list": feeds, "prediction": crf_decode,
+            "feature_out": feature_out, "target": target,
+            "optimizer": optimizer.SGD(learning_rate=w["learning_rate"])}
+
+
+def _sent_samples(kind):
+    """BOOK_BATCHES batches of seeded synthetic reviews: ids in imdb's
+    vocabulary, SENT's lengths, labels 0 / 1."""
+    rng = np.random.RandomState(len(kind))
+    out = []
+    for _ in range(BOOK_BATCHES * BOOK_BATCH):
+        n = rng.randint(SENT["min_len"], SENT["max_len"] + 1)
+        out.append((rng.randint(0, SENT["vocab"], (n, 1)).astype(np.int64),
+                    rng.randint(0, 2, (1,)).astype(np.int64)))
+    return out
+
+
+def srl_sample(rng, w=SRL):
+    """One seeded synthetic CoNLL-05 row of the 9 ragged slots: words,
+    the predicate's context of +-2 words broadcast over the sentence,
+    the predicate id, the 0 / 1 mark of the words near it, the labels."""
+    n = rng.randint(w["min_len"], w["max_len"] + 1)
+    words = rng.randint(0, w["words"], n)
+    v = rng.randint(0, n)
+
+    def ctx(off):
+        return np.full(n, words[min(max(v + off, 0), n - 1)])
+
+    mark = (np.abs(np.arange(n) - v) <= 1).astype(np.int64)
+    rows = [words, ctx(-2), ctx(-1), ctx(0), ctx(1), ctx(2),
+            np.full(n, rng.randint(0, w["preds"])), mark,
+            rng.randint(0, w["labels"], n)]
+    return tuple(np.asarray(r, np.int64).reshape(-1, 1) for r in rows)
+
+
+def _srl_samples():
+    rng = np.random.RandomState(5)
+    return [srl_sample(rng) for _ in range(BOOK_BATCHES * BOOK_BATCH)]
+
+
 IMAGE_SHAPES = {"image_classification_vgg": (3, 32, 32),
                 "recognize_digits_nets": (784,)}
 
@@ -266,28 +417,32 @@ def _image_samples(kind):
     return [(imgs[i], labels[i]) for i in range(n)]
 
 
+def _book_reader(spec, samples):
+    """``spec`` with a reader of ``samples`` in batches of BOOK_BATCH."""
+    spec["reader"] = lambda: (samples[i:i + BOOK_BATCH] for i in range(
+        0, len(samples), BOOK_BATCH))
+    return spec
+
+
 def _port_spec(kind, **kind_kw):
+    if kind in SENT_KINDS:
+        return _book_reader(understand_sentiment(
+            tlayers, tnets, toptimizer, kind.rsplit("_", 1)[1]),
+            _sent_samples(kind))
+    if kind == "label_semantic_roles":
+        return _book_reader(label_semantic_roles(tlayers, toptimizer,
+                                                 TParamAttr),
+                            _srl_samples())
     if kind in IMAGE_KINDS:
-        spec = globals()[kind](tlayers, tnets, toptimizer, **kind_kw)
-        samples = _image_samples(kind)
-        spec["reader"] = lambda: (samples[i:i + BOOK_BATCH] for i in range(
-            0, len(samples), BOOK_BATCH))
-        return spec
+        return _book_reader(globals()[kind](tlayers, tnets, toptimizer,
+                                            **kind_kw), _image_samples(kind))
     if kind == "word2vec":
         spec = tw2v.model(vocab=W2V["vocab"], emb=W2V["emb"],
                           hidden=W2V["hidden"])
         spec["optimizer"] = toptimizer.SGD(learning_rate=W2V["learning_rate"])
-        samples = _w2v_samples()
-        spec["reader"] = lambda: (samples[i:i + BOOK_BATCH] for i in range(
-            0, len(samples), BOOK_BATCH))
-        return spec
+        return _book_reader(spec, _w2v_samples())
     if kind == "recommender":
-        from paddle_tpu_torch import layers, optimizer
-        spec = recommender(layers, optimizer)
-        samples = _rec_samples()
-        spec["reader"] = lambda: (samples[i:i + BOOK_BATCH] for i in range(
-            0, len(samples), BOOK_BATCH))
-        return spec
+        return _book_reader(recommender(tlayers, toptimizer), _rec_samples())
     if kind == "fit_a_line":
         return tfit.model()
     if kind == "tiny_lm":
@@ -302,6 +457,11 @@ def _port_spec(kind, **kind_kw):
 
 
 def _jax_spec(kind, **kind_kw):
+    if kind in SENT_KINDS:
+        return understand_sentiment(jlayers, jnets, jpt.optimizer,
+                                    kind.rsplit("_", 1)[1])
+    if kind == "label_semantic_roles":
+        return label_semantic_roles(jlayers, jpt.optimizer, jpt.ParamAttr)
     if kind in IMAGE_KINDS:
         return globals()[kind](jlayers, jnets, jpt.optimizer, **kind_kw)
     if kind == "word2vec":
@@ -423,14 +583,20 @@ def feeds(kind, pkg, n):
              "word2vec": ("w0", "w1", "w2", "w3", "next_word"),
              "recommender": REC_FEEDS,
              "image_classification_vgg": ("pixel", "label"),
-             "recognize_digits_nets": ("img", "label")}[kind]
+             "recognize_digits_nets": ("img", "label"),
+             "understand_sentiment_conv": ("words", "label"),
+             "understand_sentiment_lstm": ("words", "label"),
+             "label_semantic_roles": SRL_FEEDS}[kind]
     lod_mod = jlod if pkg == "jax" else tlod
     out = []
     for i in range(n):
         b = batches[i % len(batches)]
-        if kind == "text_rnn":
+        if kind == "text_rnn" or kind in SENT_KINDS:
             out.append({"words": lod_mod.build_lod_tensor([s[0] for s in b]),
                         "label": np.stack([s[1] for s in b])})
+        elif kind == "label_semantic_roles":
+            out.append({nm: lod_mod.build_lod_tensor([s[j] for s in b])
+                        for j, nm in enumerate(names)})
         elif kind == "recommender":
             f = {nm: np.array([[s[j]] for s in b], np.int64)
                  for j, nm in enumerate(names[:5])}
