@@ -10855,11 +10855,12 @@ def _seq_grad_check(label, trainer, spec, feed, build):
     return checks, outs
 
 
-def _seq_fused_vs_loop(label, trainer, spec, feed):
+def _seq_fused_vs_loop(label, trainer, spec, feed,
+                       head_tol=FUSED_LOOP_REL_TOL):
     """The peephole-free LSTM net through row 7 against the same program
     on the time loop (``lstm_impl="scan"``, its generic grads too), on
     the card from the same state and feed: the loss and each lstm's
-    Hidden within FUSED_LOOP_REL_TOL (relative norm), every @GRAD under
+    Hidden within ``head_tol`` (relative norm), every @GRAD under
     ``_grad_gate``. The state is put back."""
     from paddle_tpu_torch.core.scope import global_scope
     scope = global_scope()
@@ -10897,15 +10898,15 @@ def _seq_fused_vs_loop(label, trainer, spec, feed):
     gaps = _pool_flips(pools, got["pallas"], got["scan"])
     rec = {"loss_rel_err": rel[heads[0]],
            "hidden_rel_err": max(rel[n] for n in heads[1:]),
-           "forward_tolerance_rel": FUSED_LOOP_REL_TOL,
+           "forward_tolerance_rel": head_tol,
            "grad_rel_err": max(rel[n] for n in grads),
            "grad_worst": max(grads, key=rel.get),
            "max_pool_flips": len(gaps), "flip_gaps": gaps}
     log(json.dumps({label + "_fused_vs_loop": rec}))
     worst_head = max(heads, key=rel.get)
-    if not rel[worst_head] <= FUSED_LOOP_REL_TOL:
+    if not rel[worst_head] <= head_tol:
         fail("%s: %s through row 7 differs from the time loop by %g > %g"
-             % (label, worst_head, rel[worst_head], FUSED_LOOP_REL_TOL))
+             % (label, worst_head, rel[worst_head], head_tol))
     rec["grad_tolerance_rel"] = _grad_gate(
         label, "the time loop's", {n: rel[n] for n in grads}, gaps)
     return rec
@@ -11064,13 +11065,19 @@ def _srl_decode_check(trainer, spec, batch, feed):
             "paths_equal": bool(np.array_equal(card_path, cpu_path))}
 
 
-def _seq_model(dev, label, build, names, batch, fused=False):
-    """One model of phase 19: built on the card, step-1 gradients against
-    the CPU's float64 run, (the fused net against the time loop), the
-    compiled and per-op runs: (launches, record)."""
+def _seq_model(dev, label, build, names, batch, fused=False,
+               grad_batch=None, loop_tol=FUSED_LOOP_REL_TOL, keep=None):
+    """One model of phase 19 (and of phase 20): built on the card, step-1
+    gradients against the CPU's float64 run on ``grad_batch`` (default
+    ``batch``), (the fused net against the time loop, its heads within
+    ``loop_tol``), the compiled and per-op runs: (launches, record).
+    ``keep(trainer, spec, feed)``, when given, runs last in the trainer's
+    scope and its result goes into the record as ``kept``."""
     from paddle_tpu_torch.core.scope import Scope, scope_guard
     main_prog, startup, spec, trainer = _seq_build(build, dev)
     feed = _seq_host_feed(names, batch)
+    grad_feed = feed if grad_batch is None else _seq_host_feed(names,
+                                                               grad_batch)
     seconds, extra, t0 = {}, {}, [time.monotonic()]
 
     def lap(name):
@@ -11081,17 +11088,20 @@ def _seq_model(dev, label, build, names, batch, fused=False):
         trainer._maybe_init()
         if fused:
             extra["fused_vs_loop"] = _seq_fused_vs_loop(label, trainer, spec,
-                                                        feed)
+                                                        feed, loop_tol)
         lap("init")
-        checks, _ = _seq_grad_check(label, trainer, spec, feed, build)
+        checks, _ = _seq_grad_check(label, trainer, spec, grad_feed, build)
         lap("grad_check")
         launches, rec = _seq_train(label, trainer, spec, batch, feed)
         lap("train")
         if "decode" in spec:
             extra["decode"] = _srl_decode_check(trainer, spec, batch, feed)
             lap("decode")
+        kept = keep(trainer, spec, feed) if keep is not None else None
     rec.update(extra, grad_check=checks, seconds=seconds)
     log(json.dumps({label: rec}))
+    if keep is not None:
+        rec["kept"] = kept
     trainer.exe.close()
     del trainer
     torch.cuda.empty_cache()
@@ -11100,13 +11110,20 @@ def _seq_model(dev, label, build, names, batch, fused=False):
 
 def _d128_record(dev, lengths):
     """Row 7 at the peephole-free sentiment LSTM's population (N 128
-    ragged rows, D 128, T the longest review): against its plain version
-    (a second launch bit-identical), the kernel's, the plain version's
-    and cuDNN's times, and the bound of this batch's work (each input
-    read once, each output written once; the recurrent products of the
-    steps inside the sequences)."""
+    ragged rows, D 128, T the longest review)."""
+    return _row7_record(dev, lengths, SENT_LSTM["hid"] // 4,
+                        "fused_lstm_d128_n128")
+
+
+def _row7_record(dev, lengths, D, name):
+    """Row 7 at a model's population (N ragged rows of ``lengths``, D, T
+    the longest): against its plain version (a second launch
+    bit-identical), the kernel's, the plain version's and cuDNN's times,
+    and the bound of this batch's work (each input read once, each
+    output written once; the recurrent products of the steps inside the
+    sequences)."""
     from paddle_tpu_torch.kernels import fused_lstm
-    N, D, T = len(lengths), SENT_LSTM["hid"] // 4, int(max(lengths))
+    N, T = len(lengths), int(max(lengths))
     rng = np.random.RandomState(3)
     xs = torch.from_numpy((rng.randn(T, N, 4 * D) * 0.5).astype(
         np.float32)).to(dev)
@@ -11144,10 +11161,10 @@ def _d128_record(dev, lengths):
            "library": "cuDNN torch.nn.LSTM as in phase 7 (unmasked, all T "
                       "steps of every row)"}
     del flush
-    log(json.dumps({"fused_lstm_d128_n128": rec}))
+    log(json.dumps({name: rec}))
     if not err <= RNN_REL_TOL or not rec["second_launch_bit_identical"]:
-        fail("row 7 at D 128, N 128: error %g (gate %g), relaunch "
-             "bit-identical %s" % (err, RNN_REL_TOL,
+        fail("row 7 at D %d, N %d: error %g (gate %g), relaunch "
+             "bit-identical %s" % (D, N, err, RNN_REL_TOL,
                                    rec["second_launch_bit_identical"]))
     return rec
 
@@ -11207,6 +11224,548 @@ def phase_sequence(dev, root):
         "fused_lstm_d128_n128_ms": d128["ms"],
         "card": card_line()}))
     return paths, d128
+
+
+# -- phase 20: control flow ---------------------------------------------------
+
+# the RNN encoder-decoder of tests/book/test_rnn_encoder_decoder.py:21-62
+# at the widths of the Paddle book's chapter 8: dictionaries of 30000
+# words (source and target), words, hidden and decoder 512; a batch of 64
+# pairs of 10 to 30 source tokens by the rule of the JAX package's
+# synthetic wmt14 (the target the shifted, reversed source). Adagrad at
+# 1e-4: at the book test's 0.05 (its widths are 16) the first step moves
+# each weight by about 0.05, and on the card the loss of the fixed batch
+# rose from 10.29 to 18.53 over 8 steps
+ENCDEC_BOOK = dict(dict_size=30000, word_dim=512, hidden=512, batch=64,
+                   min_len=10, max_len=30, learning_rate=1e-4)
+ENCDEC_FEEDS = ("source_sequence", "target_sequence", "label_sequence")
+# the step-1 gradient check's float64 CPU run takes the first 16 pairs
+ENCDEC_GRAD_PAIRS = 16
+# row 7's Hidden (and the loss) against the time loop on the same
+# program on the card, relative norm
+ROW7_LOOP_TOL = 1e-6
+# the beam-search translator of tests/book/test_machine_translation.py
+# :55-92 at the same widths: 16 sources, beam 3, 30 steps, end id 1
+# (wmt14's <e>), every beam started from <s>
+DECODE_BOOK = dict(sources=16, beam_size=3, max_length=30, end_id=1)
+DECODE_RUNS = 4
+# a step where the CPU's candidates at a source's beam edge (the beam's
+# last and the first left out, or two adjacent inside it) lie within
+# this relative gap may select either way on the card
+DECODE_TIE_TOL = 1e-5
+# the path the JAX package's Executor takes on the decode program on the
+# CPU, a run (a host op in a While body: the per-op path);
+# tests/test_torch_control_flow_book.py holds the JAX package to it
+DECODE_PATH = {"jit_runs": 0, "eager_runs": 1, "hybrid_runs": 0}
+# the op sweep's ragged batch: 64 sequences of 10 to 30, ties among them
+# and one of length 1 (a row dead from the second step)
+CF_LENGTHS = tuple([1, 30, 30] + list(np.random.RandomState(20).randint(
+    10, 31, 61)))
+CF_WIDTH = 512
+
+
+def _cf_programs(build):
+    """(main, startup, fetch names) of ``build(layers)`` under a name
+    guard, the startup seeded."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.core import ir, unique_name
+    main_prog, startup = ir.Program(), ir.Program()
+    startup.random_seed = 20
+    with unique_name.guard(), ir.program_guard(main_prog, startup):
+        fetch = build(layers)
+    return main_prog, startup, [f if isinstance(f, str) else f.name
+                                for f in fetch]
+
+
+def _cf_loss_grads(L, loss, inputs):
+    """[loss] and its gradients against every parameter of its program
+    and the vars ``inputs`` (``calc_gradient``)."""
+    from paddle_tpu_torch.core.backward import calc_gradient
+    for v in inputs:
+        v.stop_gradient = False
+    wrt = list(loss.block.program.all_parameters()) + list(inputs)
+    return [loss] + [g for g in calc_gradient(loss, wrt) if g is not None]
+
+
+def _cf_case_while_sum(L):
+    d = [L.data("d%d" % k, shape=[CF_WIDTH], append_batch_size=False)
+         for k in range(3)]
+    i = L.zeros(shape=[1], dtype="int64")
+    mem = L.array_write(x=L.zeros(shape=[CF_WIDTH], dtype="float32"), i=i)
+    data = L.array_write(x=d[0], i=i)
+    for k in (1, 2):
+        i = L.increment(i)
+        L.array_write(d[k], i, array=data)
+    i = L.zeros(shape=[1], dtype="int64")
+    n = L.fill_constant(shape=[1], dtype="int64", value=3)
+    cond = L.less_than(x=i, y=n)
+    w = L.While(cond=cond)
+    with w.block():
+        s = L.sums(input=[L.array_read(array=data, i=i),
+                          L.array_read(array=mem, i=i)])
+        i = L.increment(x=i, in_place=True)
+        L.array_write(s, i=i, array=mem)
+        L.less_than(x=i, y=n, cond=cond)
+    return [L.array_read(array=mem, i=i), L.logical_and(
+        L.greater_equal(i, n), L.logical_or(L.equal(i, n),
+                                            L.not_equal(i, n)))]
+
+
+def _cf_case_dynamic_rnn(L):
+    x = L.data("x", shape=[CF_WIDTH], dtype="float32", lod_level=1)
+    c = L.data("c", shape=[CF_WIDTH], dtype="float32")
+    context = L.fc(c, size=CF_WIDTH, act="tanh")
+    rnn = L.DynamicRNN()
+    with rnn.block():
+        w_t = rnn.step_input(x)
+        pre = rnn.memory(init=context)
+        cur = L.fc([w_t, pre], size=CF_WIDTH, act="tanh")
+        rnn.update_memory(pre, cur)
+        rnn.output(cur)
+    out = rnn()
+    last = L.sequence_last_step(out)
+    loss = L.elementwise_add(L.mean(out), L.mean(L.elementwise_mul(last,
+                                                                   last)))
+    return [out, last] + _cf_loss_grads(L, loss, [x, c])
+
+
+def _cf_case_arrays(L):
+    x = L.data("x", shape=[CF_WIDTH], dtype="float32", lod_level=1)
+    table = L.lod_rank_table(x)
+    arr = L.lod_tensor_to_array(x, table)
+    i0 = L.zeros(shape=[1], dtype="int64")
+    first = L.shrink_memory(L.array_read(arr, i0), i0, table)
+    back = L.array_to_lod_tensor(arr, table)
+    ranked = L.reorder_lod_tensor_by_rank(x, table)
+    loss = L.sums([L.mean(first), L.mean(L.elementwise_mul(back, back)),
+                   L.mean(L.scale(ranked, scale=3.0))])
+    return [back, ranked, L.array_length(arr), L.max_sequence_len(table)] \
+        + _cf_loss_grads(L, loss, [x])
+
+
+def _cf_case_static_rnn(L):
+    T, N = max(CF_LENGTHS), len(CF_LENGTHS)
+    x = L.data("xs", shape=[T, N, CF_WIDTH], append_batch_size=False)
+    boot = L.data("boot", shape=[N, CF_WIDTH], append_batch_size=False)
+    rnn = L.StaticRNN()
+    with rnn.step():
+        x_t = rnn.step_input(x)
+        h_pre = rnn.memory(init=boot)
+        h = L.fc([x_t, h_pre], size=CF_WIDTH, act="tanh")
+        rnn.update_memory(h_pre, h)
+        rnn.step_output(h)
+    out = rnn()
+    return [out] + _cf_loss_grads(L, L.mean(out), [x, boot])
+
+
+def _cf_case_ifelse(L):
+    N = len(CF_LENGTHS)
+    x = L.data("xd", shape=[N, CF_WIDTH], append_batch_size=False)
+    y = L.data("y", shape=[N, 1], dtype="int64", append_batch_size=False)
+    ie = L.IfElse(L.less_than(y, L.fill_constant(shape=[N, 1],
+                                                 dtype="int64", value=5)))
+    for block, act in ((ie.true_block, "tanh"), (ie.false_block, "relu")):
+        with block():
+            ie.output(L.fc(ie.input(x), size=CF_WIDTH, act=act))
+    out = ie()[0]
+    return [out] + _cf_loss_grads(L, L.mean(L.elementwise_mul(out, out)),
+                                  [x])
+
+
+def _cf_case_split_merge_lod(L):
+    x = L.data("x", shape=[CF_WIDTH], dtype="float32", lod_level=1)
+    m = L.data("m", shape=[len(CF_LENGTHS)], dtype="bool",
+               append_batch_size=False)
+    t, f = L.split_lod_tensor(x, m)
+    out = L.merge_lod_tensor(in_true=L.scale(t, scale=2.0),
+                             in_false=L.tanh(f), x=x, mask=m)
+    return [t, f, out] + _cf_loss_grads(L, L.reduce_sum(out), [x])
+
+
+def _cf_case_switch(L):
+    a = L.data("a", shape=[1], append_batch_size=False)
+    out = L.create_global_var(shape=[1], value=0.0, dtype="float32",
+                              persistable=True, name="cf_switch_out")
+    sw = L.Switch()
+    with sw.case(L.less_than(a, L.fill_constant([1], "float32", 0.0))):
+        L.assign(L.scale(a, scale=-1.0), out)
+    with sw.case(L.less_equal(a, L.fill_constant([1], "float32", 1.0))):
+        L.assign(L.scale(a, scale=10.0), out)
+    with sw.default():
+        L.assign(a, out)
+    return [out]
+
+
+def _cf_case_beam(L):
+    pre = L.data("pre", shape=[1], dtype="int64", lod_level=2)
+    ids = L.data("ids", shape=[3], dtype="int64")
+    sc = L.data("sc", shape=[3], dtype="float32")
+    sel_ids, sel_sc = L.beam_search(pre, ids, sc, beam_size=3, end_id=1)
+    i = L.zeros(shape=[1], dtype="int64")
+    ids_arr = L.array_write(pre, i)
+    sc_arr = L.array_write(L.data("pre_sc", shape=[1], dtype="float32",
+                                  lod_level=2), i)
+    i = L.increment(i)
+    L.array_write(sel_ids, i, array=ids_arr)
+    L.array_write(sel_sc, i, array=sc_arr)
+    sent, sent_sc = L.beam_search_decode(ids_arr, sc_arr)
+    return [sel_ids, sel_sc, sent, sent_sc]
+
+
+def _cf_feed(rng, lod_mod):
+    """The sweep's feeds, made from ``rng``."""
+    N, W = len(CF_LENGTHS), CF_WIDTH
+    T = max(CF_LENGTHS)
+    x = lod_mod.build_lod_tensor([
+        (rng.randn(n, W) * 0.5).astype(np.float32) for n in CF_LENGTHS])
+    n_pref = 2 * N
+    lod2 = [list(range(0, n_pref + 1, 2)), list(range(n_pref + 1))]
+    pre_ids = rng.randint(2, 50, (n_pref, 1)).astype(np.int64)
+    pre_ids[::7] = 1  # ended prefixes carry themselves on
+    return {"x": x, "c": rng.randn(N, W).astype(np.float32),
+            "d0": rng.randn(W).astype(np.float32),
+            "d1": rng.randn(W).astype(np.float32),
+            "d2": rng.randn(W).astype(np.float32),
+            "xs": (rng.randn(T, N, W) * 0.5).astype(np.float32),
+            "boot": rng.randn(N, W).astype(np.float32),
+            "xd": rng.randn(N, W).astype(np.float32),
+            "y": rng.randint(0, 10, (N, 1)).astype(np.int64),
+            "m": rng.rand(N) < 0.5, "a": np.array([0.5], np.float32),
+            "pre": lod_mod.LoDTensor(pre_ids, lod2),
+            "pre_sc": lod_mod.LoDTensor(rng.rand(n_pref, 1).astype(
+                np.float32), lod2),
+            "ids": rng.randint(2, 30000, (n_pref, 3)).astype(np.int64),
+            "sc": np.sort(rng.rand(n_pref, 3).astype(np.float32))[:, ::-1]
+            .copy()}
+
+
+# (label, the op types it runs beside the grads, builder)
+CF_CASES = [
+    ("while_array_sum", ("while", "write_to_array", "read_from_array",
+                         "less_than", "greater_equal", "equal",
+                         "not_equal", "logical_and", "logical_or"),
+     _cf_case_while_sum),
+    ("dynamic_rnn", ("lod_rank_table", "max_sequence_len",
+                     "lod_tensor_to_array", "lod_tensor_to_array_grad",
+                     "array_to_lod_tensor", "array_to_lod_tensor_grad",
+                     "shrink_rnn_memory", "reorder_lod_tensor_by_rank",
+                     "while", "while_grad", "write_to_array",
+                     "write_to_array_grad", "read_from_array"),
+     _cf_case_dynamic_rnn),
+    ("arrays", ("lod_rank_table", "lod_tensor_to_array",
+                "lod_tensor_to_array_grad", "read_from_array",
+                "read_from_array_grad", "shrink_rnn_memory",
+                "shrink_rnn_memory_grad", "array_to_lod_tensor",
+                "array_to_lod_tensor_grad", "reorder_lod_tensor_by_rank",
+                "lod_array_length", "max_sequence_len"), _cf_case_arrays),
+    ("static_rnn", ("recurrent",), _cf_case_static_rnn),
+    ("ifelse_dense", ("split_lod_tensor", "split_lod_tensor_grad",
+                      "merge_lod_tensor", "merge_lod_tensor_grad"),
+     _cf_case_ifelse),
+    ("split_merge_lod", ("split_lod_tensor", "split_lod_tensor_grad",
+                         "merge_lod_tensor", "merge_lod_tensor_grad"),
+     _cf_case_split_merge_lod),
+    ("switch", ("conditional_block", "less_equal"), _cf_case_switch),
+    ("beam_search", ("beam_search", "beam_search_decode"), _cf_case_beam),
+]
+
+
+def _control_flow_ops_check(dev):
+    """Every case of CF_CASES, its grads with it, on the card and on the
+    CPU from one seeded state on one seeded feed, on the per-op path:
+    ids, offsets and selections bit-identical, floats within SEQ_OP_TOL
+    of max(1, |CPU value|). By op, the largest error; every op of the
+    slice is among them."""
+    from paddle_tpu_torch.core import lod as tlod
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.registry import registered_ops
+    from paddle_tpu_torch.core.scope import (Scope, scope_from_numpy,
+                                             scope_to_numpy)
+    cpu = torch.device("cpu")
+    per_op = collections.OrderedDict()
+    for label, ops, build in CF_CASES:
+        main_prog, startup, fetch = _cf_programs(build)
+        scope = Scope()
+        Executor(cpu).run(startup, scope=scope)
+        state = scope_to_numpy(scope)
+        got = {}
+        for d in (dev, cpu):
+            feed = _cf_feed(np.random.RandomState(20), tlod)
+            sc = scope_from_numpy(state, device=d)
+            got[d.type] = Executor(d).run(main_prog, feed=feed,
+                                          fetch_list=fetch, scope=sc,
+                                          use_jit=False)
+        worst = _dense_compare(label, label, fetch, got[dev.type],
+                               got["cpu"], False, tol=SEQ_OP_TOL,
+                               what="control flow case")
+        ran = {op.type for blk in main_prog.blocks for op in blk.ops}
+        grads = {op.attr("__fwd_type__") + "_grad" for blk in
+                 main_prog.blocks for op in blk.ops
+                 if op.type == "generic_grad"}
+        for op in ops:
+            if op not in ran and op not in grads:
+                fail("control flow case %s runs no %s" % (label, op))
+        for op in sorted(ran | grads):
+            rec = per_op.setdefault(op, {"cases": [], "max_abs_err": 0.0,
+                                         "max_rel_err": 0.0})
+            rec["cases"].append(label)
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     worst["max_abs_err"])
+            rec["max_rel_err"] = max(rec["max_rel_err"],
+                                     worst["max_rel_err"])
+    from paddle_tpu_torch.core import registry
+    missing = sorted(n for n in registered_ops() if registry.lookup(
+        n).lower.__module__.endswith(".control_flow_ops") and n not in per_op)
+    if missing:
+        fail("the control flow sweep ran no %s" % missing)
+    return per_op
+
+
+def _encdec_model(dtype="float32"):
+    """The RNN encoder-decoder at ENCDEC_BOOK's widths, both encoder
+    LSTMs on row 7 (``lstm_impl="pallas"``)."""
+    from paddle_tpu_torch.models import machine_translation as tmt
+    w = ENCDEC_BOOK
+    return tmt.encoder_decoder(dict_size=w["dict_size"],
+                               word_dim=w["word_dim"], hidden=w["hidden"],
+                               dtype=dtype, lstm_impl="pallas",
+                               learning_rate=w["learning_rate"])
+
+
+def _encdec_batch(seed=0):
+    from paddle_tpu_torch.models import machine_translation as tmt
+    w = ENCDEC_BOOK
+    return tmt.wmt14_pairs(w["batch"], w["dict_size"], seed=seed,
+                           min_len=w["min_len"], max_len=w["max_len"])
+
+
+def _encdec_memory(trainer, spec, feed):
+    """The memory planner's predicted peak of the step, priced as the
+    Executor's preflight prices it (state and feeds from their tensors,
+    the batch the feeds' longest dim), and the parameters, for the
+    decode."""
+    from paddle_tpu_torch.analysis import memory as mem
+    from paddle_tpu_torch.core.scope import global_scope
+    prog = trainer.main_program
+    scope = global_scope()
+    dev_feed = trainer.exe.prepare_feed(feed)
+    sizes, batch = {}, 0
+    for n in trainer.exe._state_inputs(prog, scope, dev_feed):
+        v = scope.find_var(n)
+        sizes[n] = v.numel() * v.element_size()
+    for n, v in dev_feed.items():
+        data = v.data if hasattr(v, "lod") else v
+        sizes[n] = data.numel() * data.element_size()
+        batch = max(batch, int(data.shape[0]))
+    plan = mem.plan_memory(prog, batch=batch, fetches=[spec["cost"]],
+                           sizes_override=sizes, vmem=False)
+    params = {p.name: scope.find_var(p.name).detach().cpu().clone()
+              for p in prog.all_parameters()}
+    return {"predicted_peak_bytes": plan.peak_bytes,
+            "params": params}
+
+
+def _edge_gaps(scores, pre_ids, src_offs, beam, end_id):
+    """Per source, the smallest relative gap between adjacent candidates
+    among the best ``beam`` + 1 (the CPU's), as ``beam_search`` ranks
+    them."""
+    gaps = []
+    for s in range(len(src_offs) - 1):
+        cands = []
+        for p in range(src_offs[s], src_offs[s + 1]):
+            if pre_ids[p] == end_id:
+                cands.append(float(scores[p, 0]))
+            else:
+                cands.extend(float(v) for v in scores[p])
+        top = sorted(cands, reverse=True)[:beam + 1]
+        gaps.append(min((abs(a - b) / max(abs(a), abs(b), 1e-30)
+                         for a, b in zip(top, top[1:])), default=np.inf))
+    return gaps
+
+
+def _decode_spy():
+    """Wrap ``beam_search``'s lowering: each call's candidates, the
+    prefixes' last ids and source offsets, and its selection, as host
+    arrays, appended to the list returned; ``restore()`` unwraps."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.executor import read_on_host
+    opdef = registry.lookup_checked("beam_search")
+    real, steps = opdef.lower, []
+
+    def spy(ctx):
+        real(ctx)
+        pre = ctx.input("pre_ids")
+        steps.append({
+            "scores": read_on_host(ctx.input("scores")),
+            "pre_ids": read_on_host(pre).reshape(-1),
+            "src_offs": read_on_host(pre.lod[0]).tolist(),
+            "selected": read_on_host(ctx.env[ctx.op.output(
+                "selected_ids")[0]]).reshape(-1).tolist(),
+            "selected_lod": [l.tolist() for l in ctx.env[ctx.op.output(
+                "selected_ids")[0]].lod]})
+
+    opdef.lower = spy
+
+    def restore():
+        opdef.lower = real
+    return steps, restore
+
+
+def _decode_check(dev, trained):
+    """(c): the translator's decode program at the encoder-decoder's
+    widths over 16 synthetic sources, from one state on the card and on
+    the CPU: the seeded startup's weights, those of the trained (b)
+    where a name and a shape agree. Sentences (ids, LoD) equal but after
+    a step whose CPU candidates tie at a beam's edge (DECODE_TIE_TOL,
+    each printed), scores within SEQ_OP_TOL of max(1, |score|), each
+    run's path DECODE_PATH; ms a decoded batch."""
+    from paddle_tpu_torch.models import machine_translation as tmt
+    from paddle_tpu_torch.core import lod as tlod
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import (Scope, scope_from_numpy,
+                                             scope_to_numpy)
+    w, d = ENCDEC_BOOK, DECODE_BOOK
+    main_prog, startup, fetch = _cf_programs(lambda L: tmt.nmt_decode(
+        L, dict_size=w["dict_size"], word_dim=w["word_dim"],
+        hidden=w["hidden"], beam_size=d["beam_size"],
+        max_length=d["max_length"], end_id=d["end_id"]))
+    scope = Scope()
+    Executor("cpu").run(startup, scope=scope)
+    state = scope_to_numpy(scope)
+    taken = sorted(n for n, v in trained.items()
+                   if n in state and tuple(v.shape) == state[n].shape)
+    for n in taken:
+        state[n] = trained[n].numpy()
+    sources = [r[0] for r in tmt.wmt14_pairs(
+        d["sources"], w["dict_size"], seed=1, min_len=w["min_len"],
+        max_len=w["max_len"])]
+    spied, outs, ms = {}, {}, []
+    for where in ("cpu", "card"):
+        device = dev if where == "card" else torch.device("cpu")
+        exe = Executor(device)
+        sc = scope_from_numpy(state, device=device)
+        for run in range(DECODE_RUNS if where == "card" else 1):
+            feed = tmt.decode_feed(tlod, sources)
+            before = dict(exe.stats)
+            steps, restore = _decode_spy() if run == 0 else (None, None)
+            _sync(device)
+            t0 = time.monotonic()
+            try:
+                got = exe.run(main_prog, feed=feed, fetch_list=fetch,
+                              scope=sc)
+            finally:
+                if restore is not None:
+                    restore()
+            _sync(device)
+            if run > 0:
+                ms.append((time.monotonic() - t0) * 1e3)
+            path = {k: exe.stats[k] - before[k] for k in DECODE_PATH}
+            if path != DECODE_PATH:
+                fail("decode on the %s took %s a run, the JAX package's "
+                     "Executor %s" % (where, path, DECODE_PATH))
+            if run == 0:
+                spied[where], outs[where] = steps, got
+    ties, diverged = [], None
+    for t, (a, b) in enumerate(zip(spied["card"], spied["cpu"])):
+        gaps = _edge_gaps(b["scores"], b["pre_ids"], b["src_offs"],
+                          d["beam_size"], d["end_id"])
+        tied = [s for s, g in enumerate(gaps) if g <= DECODE_TIE_TOL]
+        if tied:
+            ties.append({"step": t, "sources": tied,
+                         "gaps": [gaps[s] for s in tied]})
+            log(json.dumps({"decode_tie": ties[-1]}))
+        if diverged is None and (a["selected"] != b["selected"] or
+                                 a["selected_lod"] != b["selected_lod"]):
+            diverged = t
+            if not tied:
+                fail("decode: step %d selects other ids on the card with "
+                     "no tie at a beam's edge on the CPU (smallest gap %g)"
+                     % (t, min(gaps)))
+    (ids_c, sc_c), (ids_h, sc_h) = outs["card"], outs["cpu"]
+    rec = {"sources": d["sources"], "beam_size": d["beam_size"],
+           "max_length": d["max_length"], "steps": len(spied["cpu"]),
+           "params_from_train": taken, "ties": ties,
+           "diverged_at_step": diverged, "path": DECODE_PATH,
+           "ms_per_batch": ms, "ms_per_batch_p50": float(np.median(ms)),
+           "sentences": len(ids_h.lod()[1]) - 1,
+           "tie_tolerance_rel": DECODE_TIE_TOL}
+    if diverged is None:
+        if ids_c.lod() != ids_h.lod() or not np.array_equal(
+                _fetched(ids_c), _fetched(ids_h)):
+            fail("decode: the card's sentences differ from the CPU's")
+        err = float(np.abs(_fetched(sc_c).astype(np.float64)
+                           - _fetched(sc_h)).max())
+        rec["score_max_abs_err"] = err
+        if not err <= SEQ_OP_TOL * max(1.0, float(np.abs(_fetched(
+                sc_h)).max())):
+            fail("decode: scores differ from the CPU's by %g" % err)
+    n_src = len(ids_h.lod()[0]) - 1
+    if n_src != d["sources"] or ids_h.lod()[0][-1] != n_src * d[
+            "beam_size"]:
+        fail("decode: %d sources, %d sentences" % (n_src,
+                                                    ids_h.lod()[0][-1]))
+    log(json.dumps({"decode": rec}))
+    return rec
+
+
+def phase_control_flow(dev, root):
+    """Phase 20: control flow. Every op of the slice and its grad on the
+    card against the CPU; the RNN encoder-decoder at the book's widths
+    (step-1 gradients against the CPU's float64 run on 16 pairs, row 7
+    against the time loop, compiled and per-op steps); the beam-search
+    translator's decode against the CPU; row 7 at the encoder's
+    population. Returns ({path: launches}, row 7's record)."""
+    from paddle_tpu_torch import tune
+    from paddle_tpu_torch.flags import FLAGS
+    t0 = time.monotonic()
+    old_dir = FLAGS.tune_cache_dir
+    FLAGS.tune_cache_dir = _fresh_dir(os.path.join(
+        root, "build", "chip_smoke", "tune_control_flow"))
+    tune.clear_memory_cache()
+    try:
+        t_ops = time.monotonic()
+        log(json.dumps({"control_flow_ops": _control_flow_ops_check(dev),
+                        "seconds": time.monotonic() - t_ops}))
+        batch = _encdec_batch(0)
+        launches, rec = _seq_model(
+            dev, "encdec", _encdec_model, ENCDEC_FEEDS, batch, fused=True,
+            grad_batch=batch[:ENCDEC_GRAD_PAIRS], loop_tol=ROW7_LOOP_TOL,
+            keep=_encdec_memory)
+        kept = rec.pop("kept")
+        want = 2 * 2 * SEQ_STEPS
+        if launches.get("fused_lstm", 0) != want:
+            fail("encdec: %d fused_lstm launches over %d steps, expected %d "
+                 "(two LSTMs, the forward and its replay in the generic "
+                 "grad)" % (launches.get("fused_lstm", 0), SEQ_STEPS, want))
+        trg_tokens = int(sum(s[1].shape[0] for s in batch))
+        rec["target_tokens"] = trg_tokens
+        rec["target_tokens_per_s_compiled"] = (
+            trg_tokens / rec["step_ms_p50_compiled"] * 1e3)
+        rec["target_tokens_per_s_eager"] = (
+            trg_tokens / rec["step_ms_p50_eager"] * 1e3)
+        rec["predicted_peak_bytes"] = kept["predicted_peak_bytes"]
+        decode = _decode_check(dev, kept["params"])
+        row7 = _row7_record(dev, [s[0].shape[0] for s in batch],
+                            ENCDEC_BOOK["hidden"],
+                            "fused_lstm_encdec_d512_n64")
+        row7["population"] = ("the encoder's forward and is_reverse LSTMs "
+                              "of phase 20 (b)")
+    finally:
+        FLAGS.tune_cache_dir = old_dir
+        tune.clear_memory_cache()
+    log(json.dumps({
+        "control_flow_wall_s": time.monotonic() - t0,
+        "summary": {"encdec": {
+            k: rec[k] for k in ("step_ms_p50_compiled", "step_ms_p50_eager",
+                                "target_tokens_per_s_compiled",
+                                "target_tokens_per_s_eager",
+                                "peak_mem_bytes", "predicted_peak_bytes")},
+            "row7_launches": launches.get("fused_lstm", 0),
+            "decode_ms_per_batch_p50": decode["ms_per_batch_p50"],
+            "decode_ties": len(decode["ties"])},
+        "fused_lstm_encdec_d512_n64_ms": row7["ms"],
+        "card": card_line()}))
+    return {"control_flow_encdec": launches}, row7
 
 
 def main():
@@ -11273,6 +11832,8 @@ def main():
     kernels["conv3x3_fwd"]["vgg16_first_conv"] = first_conv
     seq_paths, d128 = timed(19, phase_sequence, dev, root)
     kernels["fused_lstm"]["d128_n128"] = d128
+    cf_paths, encdec = timed(20, phase_control_flow, dev, root)
+    kernels["fused_lstm"]["encdec_d512_n64"] = encdec
     log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
     paths = {"serve": serve_launches, **spec_paths, **disagg_paths,
              "train": train5["launches"],
@@ -11283,7 +11844,7 @@ def main():
              "convnet_conv3x3_consult": consult_launches, **amp_paths,
              **compiled_paths, **checkpoint_paths, **optim_paths,
              **memory_paths, **resilience_paths, **dense_paths,
-             **zoo_paths, **seq_paths}
+             **zoo_paths, **seq_paths, **cf_paths}
     for name, entry in kernels.items():
         # each main path is read with the counts set to 0 just before it
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

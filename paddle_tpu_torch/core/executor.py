@@ -117,8 +117,10 @@ from .lod import LoDTensor
 from .scope import global_scope
 
 __all__ = ["CAPTURE_LOCK", "GRAPH_CACHE_LIMIT", "RNG_VAR", "AsyncFetch",
-           "Executor", "FunctionalContext", "LoDValue", "LowerContext",
-           "in_compiled_step", "raw_data", "to_lod_value", "trace_ops", "with_lod_of"]
+           "ConcreteScalar", "Executor", "FunctionalContext", "LoDValue",
+           "LowerContext", "concrete_value", "in_compiled_step", "iter_ops",
+           "raw_data", "read_on_host", "to_lod_value", "trace_ops",
+           "with_lod_of"]
 
 _LOG = logging.getLogger("paddle_tpu_torch.executor")
 
@@ -160,9 +162,66 @@ class LoDValue(object):
             tuple(self.data.shape), len(self.lod), self.max_lens)
 
 
+class ConcreteScalar(object):
+    """A scalar whose value is known on the host, riding beside its
+    one-element tensor (counterpart of ``ConcreteScalar``,
+    ``paddle_tpu/core/executor.py:69``): the reference's ``force_cpu``
+    loop counters. ``fill_constant`` of an integer scalar, ``increment``
+    of one, the comparisons of two, ``lod_array_length`` and
+    ``max_sequence_len`` keep the host value, so that a While condition,
+    an array index and a trip count are known while a step is traced and
+    the loop unrolls into the step (a captured graph replays the
+    unrolled loop). Every other lowering sees ``data``: ``LowerContext``
+    hands it the tensor. A concrete scalar never enters the scope or a
+    step's state, where a captured graph would freeze its value."""
+
+    __slots__ = ("value", "data")
+
+    def __init__(self, value, data):
+        self.value = value
+        self.data = data
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    def __repr__(self):
+        return "ConcreteScalar(%r)" % (self.value,)
+
+
+def concrete_value(v):
+    """The host value of ``v`` when it is a concrete scalar, else None."""
+    return v.value if isinstance(v, ConcreteScalar) else None
+
+
+def _no_host_value(v):
+    """``v``, a concrete scalar as its tensor: what the scope, a step's
+    state and a fetch hold."""
+    return v.data if isinstance(v, ConcreteScalar) else v
+
+
 def raw_data(v):
-    """The data tensor of a LoD value; any other value as it is."""
-    return v.data if isinstance(v, LoDValue) else v
+    """The data tensor of a LoD value or a concrete scalar; any other
+    value as it is."""
+    return v.data if isinstance(v, (LoDValue, ConcreteScalar)) else v
+
+
+def read_on_host(v):
+    """The values of tensor ``v`` as a host numpy array, for a lowering
+    that decides on them on the host (a While condition computed from
+    fed data, an array index that is no counter). In a compiled step it
+    raises ``_Fallback``: a capture cannot read the card, and the step's
+    warm-up sees the read, so the program runs on the per-op path from
+    its first run, as the JAX package's trace falls back from its
+    first."""
+    if in_compiled_step():
+        raise _Fallback("a lowering reads a device value on the host "
+                        "(data-dependent control flow)")
+    return _to_numpy(raw_data(v))
 
 
 def with_lod_of(v, data):
@@ -206,13 +265,19 @@ class LowerContext(object):
 
     # inputs -----------------------------------------------------------------
     def input(self, slot, idx=0):
+        """The value of input ``slot`` [``idx``]; a concrete scalar as its
+        tensor (:meth:`concrete_input` keeps it)."""
+        return _no_host_value(self.concrete_input(slot, idx))
+
+    def concrete_input(self, slot, idx=0):
+        """The value as the environment holds it, a concrete scalar too."""
         names = self.op.input(slot)
         if len(names) <= idx:
             return None
         return self._lookup(names[idx])
 
     def inputs(self, slot):
-        return [self._lookup(n) for n in self.op.input(slot)]
+        return [_no_host_value(self._lookup(n)) for n in self.op.input(slot)]
 
     def has_input(self, slot):
         return bool(self.op.input(slot))
@@ -243,6 +308,14 @@ class LowerContext(object):
     # misc -------------------------------------------------------------------
     def attr(self, name, default=None):
         return self.op.attr(name, default)
+
+    def sub_block(self, attr_name="sub_block"):
+        """The block a control-flow op runs (``sub_block`` holds its index
+        or the block)."""
+        blk = self.attr(attr_name)
+        if isinstance(blk, int):
+            blk = self.block.program.blocks[blk]
+        return blk
 
     def next_generator(self):
         if self.generator is None:
@@ -343,6 +416,7 @@ def _to_numpy(t):
 def _fetch_to_host(v):
     """A fetched value as numpy, or as a host ``LoDTensor`` when it
     carries LoD (``paddle_tpu/core/executor.py:566``)."""
+    v = _no_host_value(v)
     if isinstance(v, LoDValue):
         return LoDTensor(_to_numpy(v.data),
                          [l.cpu().tolist() for l in v.lod])
@@ -353,10 +427,33 @@ def _fetch_to_host(v):
 
 # -- the compiled path's helpers ----------------------------------------------
 
-def _is_host_block(block) -> bool:
-    """Whether a block holds an op that must run on the host
-    (``paddle_tpu/core/executor.py:351``)."""
+def _op_sub_blocks(op):
+    """The blocks a control-flow op runs (``paddle_tpu/core/executor.py
+    :303``): a Block attr, or an int under ``sub_block`` / ``block``."""
+    for key, a in op.attrs.items():
+        if isinstance(a, ir.Block):
+            yield a
+        elif isinstance(a, int) and key in ("sub_block", "block"):
+            yield op.block.program.blocks[a]
+
+
+def iter_ops(block):
+    """Every op of ``block`` and, depth first after each op, of the
+    blocks it runs (``paddle_tpu/core/executor.py:1822``)."""
     for op in block.ops:
+        yield op
+        for sub in _op_sub_blocks(op):
+            yield from iter_ops(sub)
+
+
+def _has_sub_blocks(block) -> bool:
+    return any(True for op in block.ops for _ in _op_sub_blocks(op))
+
+
+def _is_host_block(block) -> bool:
+    """Whether a block, or a block one of its ops runs, holds an op that
+    must run on the host (``paddle_tpu/core/executor.py:351``)."""
+    for op in iter_ops(block):
         opdef = registry.lookup(op.type)
         if opdef is not None and registry.op_is_host(opdef, op):
             return True
@@ -370,18 +467,22 @@ class _ProgramFacts(object):
     release schedule of each fetch list."""
 
     __slots__ = ("host", "persist", "referenced", "written", "block",
-                 "_releases")
+                 "sub_blocks", "_releases")
 
     def __init__(self, program):
         block = program.global_block()
         self.block = block
         self.host = _is_host_block(block)
+        self.sub_blocks = _has_sub_blocks(block)
         self.persist = frozenset(v.name for v in program.list_vars()
                                  if v.persistable)
-        self.written = frozenset(n for op in block.ops
+        # the names of the ops of the blocks a control-flow op runs too
+        # (paddle_tpu/core/executor.py:359): a parameter read only inside
+        # a While body is part of the step's state
+        self.written = frozenset(n for op in iter_ops(block)
                                  for n in op.output_arg_names)
         self.referenced = tuple(sorted(self.written | {
-            n for op in block.ops for n in op.input_arg_names}))
+            n for op in iter_ops(block) for n in op.input_arg_names}))
         self._releases = {}
 
     def release(self, fetch_names):
@@ -399,6 +500,8 @@ class _ProgramFacts(object):
 
 
 def _value_sig(v):
+    if isinstance(v, ConcreteScalar):
+        return ("concrete", v.value) + _value_sig(v.data)
     if isinstance(v, LoDValue):
         return (tuple(v.data.shape), str(v.data.dtype),
                 tuple(int(l.shape[0]) for l in v.lod), v.max_lens)
@@ -414,7 +517,10 @@ def _feed_signature(feed):
 
 
 def _static_like(v):
-    """A buffer of its own holding ``v`` (a tensor or a LoD value)."""
+    """A buffer of its own holding ``v`` (a tensor, a LoD value or a
+    concrete scalar, whose host value rides on)."""
+    if isinstance(v, ConcreteScalar):
+        return ConcreteScalar(v.value, _static_like(v.data))
     if isinstance(v, LoDValue):
         return LoDValue(torch.empty_like(v.data).copy_(v.data),
                         [torch.empty_like(l).copy_(l) for l in v.lod],
@@ -425,7 +531,10 @@ def _static_like(v):
 def _copy_in(buf, v):
     if buf is v:
         return
-    if isinstance(buf, LoDValue):
+    if isinstance(buf, ConcreteScalar):
+        # the host value is part of the step's key
+        buf.data.copy_(v.data)
+    elif isinstance(buf, LoDValue):
         buf.data.copy_(v.data)
         for b, l in zip(buf.lod, v.lod):
             b.copy_(l)
@@ -435,6 +544,8 @@ def _copy_in(buf, v):
 
 def _own(v):
     """A fetched value that no later run writes into."""
+    if isinstance(v, ConcreteScalar):
+        return ConcreteScalar(v.value, v.data.clone())
     if isinstance(v, LoDValue):
         return LoDValue(v.data.clone(), [l.clone() for l in v.lod],
                         max_lens=v.max_lens)
@@ -781,19 +892,26 @@ class Executor(object):
                     or program._uid in self._force_eager):
                 if repeat != 1:
                     raise ValueError("repeat>1 requires the jit path")
+                # a block that runs another (a While body, a Switch case)
+                # runs per-op whole (paddle_tpu/core/executor.py:850)
                 hybrid_ok = (use_jit and not nan_scan
-                             and program._uid not in self._force_eager)
+                             and program._uid not in self._force_eager
+                             and not self._program_facts(program).sub_blocks)
                 if use_jit and host and \
                         program._uid not in self._degradation_logged:
                     self._degradation_logged.add(program._uid)
+                    ops = list(iter_ops(block))
                     n_host = sum(
-                        1 for op in block.ops
+                        1 for op in ops
                         if registry.op_is_host(registry.lookup_checked(
                             op.type), op))
                     _LOG.warning(
-                        "program %d holds %d host op(s) of %d: its device "
-                        "segments are compiled, the host ops run between "
-                        "them", program._uid, n_host, len(block.ops))
+                        "program %d holds %d host op(s) of %d: %s",
+                        program._uid, n_host, len(ops),
+                        "its device segments are compiled, the host ops "
+                        "run between them" if hybrid_ok else "it runs on "
+                        "the per-op path (a block runs another, or a flag "
+                        "asks for it)")
                 if hybrid_ok:
                     outs = self._run_hybrid(program, feed, fetch_names,
                                             scope)
@@ -812,6 +930,7 @@ class Executor(object):
                              time.perf_counter() - t0)
         from .. import tune
         self.stats.update(tune.counters())
+        outs = [_no_host_value(o) for o in outs]
         if not sync:
             self.stats["lazy_fetches"] += len(outs)
             return [AsyncFetch(o, return_numpy=return_numpy,
@@ -849,10 +968,12 @@ class Executor(object):
                 else env[n] for n in fetch_names]
 
     def _writeback(self, program, scope, env):
+        """Persistables into the scope, a concrete scalar as its tensor
+        (``paddle_tpu/core/executor.py:1813``)."""
         persist = self._program_facts(program).persist
         for n, v in env.items():
             if n in persist:
-                scope.set_var(n, v)
+                scope.set_var(n, _no_host_value(v))
 
     # -- the compiled path ----------------------------------------------------
     def _state_for(self, program, scope, feed):
@@ -898,7 +1019,8 @@ class Executor(object):
                 raise KeyError("fetch %s: no op of the program produced it "
                                "and it was not fed" % missing)
             return ([env[n] for n in fetch_names],
-                    {n: env[n] for n in extra_names if n in env})
+                    {n: _no_host_value(env[n]) for n in extra_names
+                     if n in env})
 
         def eager():
             return self._run_eager(program, feed, fetch_names, scope)
@@ -940,7 +1062,9 @@ class Executor(object):
         for n, buf in zip(names, bufs):
             if n not in written or n not in env:
                 continue
-            v = env[n]
+            # the state is a tensor: a captured graph keeps no host value
+            # of it (paddle_tpu/core/executor.py:1586)
+            v = _no_host_value(env[n])
             if v is buf:
                 continue
             if not (isinstance(v, torch.Tensor) and v.shape == buf.shape
@@ -972,7 +1096,15 @@ class Executor(object):
             # the key's first lowering pass, the JAX package's trace: the
             # tune consults count here and nowhere else (Queue 3 #4)
             before = _gen_state(generator)
-            outs = eager()
+            saved = generator.get_state() if generator is not None else None
+            try:
+                outs = eager()
+            except _Fallback:
+                # the warm-up read a device value on the host: the per-op
+                # run that follows draws what this one drew
+                if saved is not None:
+                    generator.set_state(saved)
+                raise
             with tune.quiet():
                 for _ in range(repeat - 1):
                     outs = eager()
@@ -1289,7 +1421,11 @@ class Executor(object):
             for n in op.input_arg_names:
                 if n in env and n not in reads:
                     v = env[n]
-                    if not isinstance(v, (torch.Tensor, LoDValue)):
+                    # a concrete scalar's host value goes into the key
+                    # (paddle_tpu/core/executor.py:1020); a tensor array or
+                    # a rank table has no place in a captured step (:1027)
+                    if not isinstance(v, (torch.Tensor, LoDValue,
+                                          ConcreteScalar)):
                         raise _Fallback("a device op reads %r, which holds "
                                         "%s" % (n, type(v).__name__))
                     reads[n] = v

@@ -2,14 +2,17 @@
 transformer LM, ResNet, the stacked-RNN text classifier, their losses,
 the optimization surface (clipping, regularization, learning-rate
 schedules), the dense tensor and loss ops, the rest of the conv-net
-path and the sequence stack (RNN units, the sequence ops, CRF, CTC,
-NCE, ``hsigmoid``) call. Importing it
+path, the sequence stack (RNN units, the sequence ops, CRF, CTC,
+NCE, ``hsigmoid``) and control flow (While, StaticRNN, DynamicRNN,
+IfElse, Switch, the tensor arrays, beam search) call. Importing it
 registers the op lowerings, whose shape inference runs as the ops are
 appended. Variables get their operator sugar (``math_op_patch.py``)
 here."""
 from .. import ops as _registered_ops  # noqa: F401
-from . import io, math_op_patch, nn, sequence, tensor  # noqa: F401
+from . import (control_flow, io, math_op_patch, nn, sequence,  # noqa: F401
+               tensor)
 from . import ops as _ops_mod
+from .control_flow import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403

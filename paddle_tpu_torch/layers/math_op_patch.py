@@ -2,7 +2,8 @@
 ``paddle_tpu/layers/math_op_patch.py``): ``a + b``, ``1.0 - a``,
 ``a / b``, ``a <= b`` append ops. A Python scalar becomes a ``scale``
 where one can express the op, a ``fill_constant`` of X's shape
-otherwise; comparisons give ``bool``."""
+otherwise; comparisons give ``bool`` and go through the comparison
+layers of ``control_flow.py``."""
 from __future__ import annotations
 
 from ..core import ir
@@ -48,8 +49,14 @@ def _binary(x, other, op, reverse=False):
                                 "dtype": str(x.dtype)})
         other = const
     a, b = (other, x) if reverse else (x, other)
-    dtype = "bool" if op in _COMPARISONS else x.dtype
-    out = helper.create_variable_for_type_inference(dtype=dtype)
+    if op in _COMPARISONS:
+        # through the comparison layers of control_flow.py
+        from .control_flow import _cmp
+        out = _cmp(op, a, b, cond=helper.create_variable_for_type_inference(
+            dtype="bool"), helper=helper, attrs={"axis": -1})
+        out.shape = x.shape
+        return out
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
     out.shape = x.shape
     helper.append_op(type=op, inputs={"X": [a], "Y": [b]},
                      outputs={"Out": [out]}, attrs={"axis": -1})

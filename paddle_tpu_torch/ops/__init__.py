@@ -4,7 +4,8 @@ the ops of the transformer LM's, ResNet's, the stacked-RNN text
 classifier's and fit_a_line's training steps, the host IO ops, the
 dense tensor and loss ops (word2vec's, the recommender's), and the
 sequence ops with the samplers and tree softmax of the sequence layers
-(the sentiment nets', the semantic role tagger's)."""
+(the sentiment nets', the semantic role tagger's), and the control flow
+ops (While, the tensor arrays, the rank table, beam search)."""
 from . import (  # noqa: F401
     common,
     generic_grad,
@@ -17,6 +18,7 @@ from . import (  # noqa: F401
     attention_ops,
     sequence_ops,
     misc_ops,
+    control_flow_ops,
     io_ops,
     explicit_grads,  # last: attaches grad makers to the ops above
 )

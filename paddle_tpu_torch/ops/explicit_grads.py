@@ -476,9 +476,9 @@ registry.lookup_checked("batch_norm").grad_maker = _bn_explicit_grad_maker
 def cross_entropy_grad(ctx):
     """X holds probabilities; the forward clips them to [1e-15, 1], so
     the grad is zero where X lies outside that range."""
-    x = ctx.input("X")
-    label = ctx.input("Label")
-    dy = ctx.input("Y@GRAD")
+    x_v = ctx.input("X")
+    x, label = raw_data(x_v), raw_data(ctx.input("Label"))
+    dy = raw_data(ctx.input("Y@GRAD"))
     clipped = torch.clamp(x, 1e-15, 1.0)
     in_range = ((x >= 1e-15) & (x <= 1.0)).to(x.dtype)
     if ctx.attr("soft_label", False):
@@ -489,7 +489,7 @@ def cross_entropy_grad(ctx):
         dx = torch.zeros_like(x)
         dx[rows, lab] = (-dy.reshape(-1) / clipped[rows, lab]
                          * in_range[rows, lab])
-    ctx.set_output("X@GRAD", dx)
+    ctx.set_output("X@GRAD", with_lod_of(x_v, dx))
 
 
 _attach("cross_entropy", "cross_entropy_grad", need_inputs=("X", "Label"),
@@ -534,7 +534,9 @@ _attach("mean", "mean_grad", need_inputs=("X",))
 
 @register_op("scale_grad", no_gradient=True)
 def scale_grad(ctx):
-    ctx.set_output("X@GRAD", ctx.input("Out@GRAD") * ctx.attr("scale", 1.0))
+    g = ctx.input("Out@GRAD")
+    ctx.set_output("X@GRAD", with_lod_of(g, raw_data(g)
+                                         * ctx.attr("scale", 1.0)))
 
 
 _attach("scale", "scale_grad", need_inputs=())

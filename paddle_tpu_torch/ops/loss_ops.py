@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.executor import raw_data
+from ..core.executor import raw_data, with_lod_of
 from ..core.registry import register_op
 from .common import jax_abs
 
@@ -43,14 +43,15 @@ def cross_entropy(ctx):
     """X holds probabilities (after a softmax); hard labels [N, 1] int or
     soft labels [N, D]. The log is taken in float32 of X clipped to
     [1e-15, 1]; Y [N, 1] is in X's dtype."""
-    x = ctx.input("X")
-    label = ctx.input("Label")
+    x_v = ctx.input("X")
+    x, label = raw_data(x_v), raw_data(ctx.input("Label"))
     logx = torch.log(torch.clamp(x.float(), 1e-15, 1.0))
     if ctx.attr("soft_label", False):
         loss = -torch.sum(label.float() * logx, dim=-1, keepdim=True)
     else:
         loss = -torch.gather(logx, 1, label.long().reshape(-1, 1))
-    ctx.set_output("Y", loss.to(x.dtype))
+    # a LoD X (a DynamicRNN's outputs) keeps its LoD, as in the JAX op
+    ctx.set_output("Y", with_lod_of(x_v, loss.to(x.dtype)))
 
 
 @register_op("softmax_with_cross_entropy", infer_shape=_infer_loss_rowwise)

@@ -33,7 +33,8 @@ from __future__ import annotations
 import torch
 
 from .. import amp, tune
-from ..core.executor import raw_data, with_lod_of
+from ..core.executor import (ConcreteScalar, concrete_value, raw_data,
+                             with_lod_of)
 from ..core.registry import register_op
 from ..kernels import matmul as matmul_kernel
 from .common import bcast_y_to_x, elementwise, flatten_to_2d, jax_clip
@@ -193,11 +194,14 @@ def sum_op(ctx):
 
 @register_op("scale", infer_shape=_infer_ew)
 def scale(ctx):
+    """s * X + b (or s * (X + b)); a LoD input keeps its LoD, as the JAX
+    lowering's (``paddle_tpu/ops/math_ops.py:176``)."""
     x = ctx.input("X")
     s = ctx.attr("scale", 1.0)
     b = ctx.attr("bias", 0.0)
-    out = x * s + b if ctx.attr("bias_after_scale", True) else (x + b) * s
-    ctx.set_output("Out", out)
+    xd = raw_data(x)
+    out = xd * s + b if ctx.attr("bias_after_scale", True) else (xd + b) * s
+    ctx.set_output("Out", with_lod_of(x, out))
 
 
 @register_op("cumsum")
@@ -317,23 +321,36 @@ def mean(ctx):
     ctx.set_output("Out", torch.mean(raw_data(ctx.input("X"))).reshape((1,)))
 
 
-# -- comparisons and logicals (``paddle_tpu/ops/math_ops.py:297-323``) ---------
+# -- comparisons and logicals (``paddle_tpu/ops/control_flow_ops.py:44-69``,
+# whose registration wins over ``math_ops.py:297-323`` in the JAX
+# package) ------------------------------------------------------------------
 
-def _compare(ctx, fn):
-    x = raw_data(ctx.input("X"))
-    y = raw_data(ctx.input("Y"))
-    ctx.set_output("Out", fn(x, bcast_y_to_x(x, y, ctx.attr("axis", -1))))
+def _compare(ctx, fn, pyfn):
+    """``fn(X, Y)`` under the ``axis`` broadcast; when both operands are
+    concrete scalars (loop counters, ``max_sequence_len``) the result
+    carries its host value too, which is what unrolls a While."""
+    xv, yv = ctx.concrete_input("X"), ctx.concrete_input("Y")
+    x, y = raw_data(xv), raw_data(yv)
+    out = fn(x, bcast_y_to_x(x, y, ctx.attr("axis", -1)))
+    cx, cy = concrete_value(xv), concrete_value(yv)
+    if cx is not None and cy is not None:
+        out = ConcreteScalar(bool(pyfn(cx, cy)), out)
+    ctx.set_output("Out", out)
 
 
-for _name, _fn in [
-    ("less_than", torch.lt), ("less_equal", torch.le),
-    ("greater_than", torch.gt), ("greater_equal", torch.ge),
-    ("equal", torch.eq), ("not_equal", torch.ne),
-    ("logical_and", torch.logical_and), ("logical_or", torch.logical_or),
-    ("logical_xor", torch.logical_xor),
+for _name, _fn, _py in [
+    ("less_than", torch.lt, lambda a, b: a < b),
+    ("less_equal", torch.le, lambda a, b: a <= b),
+    ("greater_than", torch.gt, lambda a, b: a > b),
+    ("greater_equal", torch.ge, lambda a, b: a >= b),
+    ("equal", torch.eq, lambda a, b: a == b),
+    ("not_equal", torch.ne, lambda a, b: a != b),
+    ("logical_and", torch.logical_and, lambda a, b: bool(a) and bool(b)),
+    ("logical_or", torch.logical_or, lambda a, b: bool(a) or bool(b)),
+    ("logical_xor", torch.logical_xor, lambda a, b: bool(a) != bool(b)),
 ]:
     register_op(_name, no_gradient=True)(
-        lambda ctx, f=_fn: _compare(ctx, f))
+        lambda ctx, f=_fn, p=_py: _compare(ctx, f, p))
 
 
 @register_op("logical_not", no_gradient=True)
@@ -345,7 +362,8 @@ def logical_not(ctx):
 def top_k(ctx):
     """The ``k`` largest values of the last axis and their int64
     indices, largest first."""
-    vals, idx = torch.topk(ctx.input("X"), ctx.attr("k", 1), dim=-1)
+    vals, idx = torch.topk(raw_data(ctx.input("X")), ctx.attr("k", 1),
+                           dim=-1)
     ctx.set_output("Out", vals)
     ctx.set_output("Indices", idx)
 

@@ -207,7 +207,8 @@ def layer_norm(ctx):
 
 @register_op("softmax", infer_shape=_infer_same)
 def softmax(ctx):
-    ctx.set_output("Out", torch.softmax(ctx.input("X"), dim=-1))
+    x = ctx.input("X")
+    ctx.set_output("Out", with_lod_of(x, torch.softmax(raw_data(x), dim=-1)))
 
 
 @register_op("log_softmax", infer_shape=_infer_same)

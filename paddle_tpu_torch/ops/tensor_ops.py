@@ -32,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core import registry
-from ..core.executor import raw_data, with_lod_of
+from ..core.executor import (ConcreteScalar, concrete_value, raw_data,
+                             with_lod_of)
 from ..core.registry import register_op
 from .common import constant, np_dtype, prod, tdt
 
@@ -50,11 +51,22 @@ def _infer_from_shape_attr(op, block):
             v.shape = tuple(int(d) for d in op.attr("shape"))
 
 
+def _is_integer(dtype):
+    return not (dtype.is_floating_point or dtype.is_complex
+                or dtype == torch.bool)
+
+
 @register_op("fill_constant", infer_shape=_infer_from_shape_attr)
 def fill_constant(ctx):
-    ctx.set_output("Out", torch.full(_shape_attr(ctx), ctx.attr("value", 0.0),
-                                     dtype=tdt(ctx.attr("dtype")),
-                                     device=ctx.device))
+    """A scalar integer fill (a loop counter, an array bound) keeps its
+    host value (``paddle_tpu/ops/tensor_ops.py:34-49``): the reference's
+    ``force_cpu`` fill that ``while_op.cc`` reads on the host."""
+    shape, dt = _shape_attr(ctx), tdt(ctx.attr("dtype"))
+    value = ctx.attr("value", 0.0)
+    out = torch.full(shape, value, dtype=dt, device=ctx.device)
+    if prod(shape) == 1 and _is_integer(dt):
+        out = ConcreteScalar(int(value), out)
+    ctx.set_output("Out", out)
 
 
 @register_op("fill_constant_batch_size_like")
@@ -90,7 +102,7 @@ def gaussian_random(ctx):
 
 @register_op("assign")
 def assign(ctx):
-    ctx.set_output("Out", ctx.input("X"))
+    ctx.set_output("Out", ctx.concrete_input("X"))
 
 
 @register_op("cast")
@@ -176,13 +188,20 @@ def gather(ctx):
 def increment(ctx):
     """X + step in X's dtype: an int64 step counter stays int64 (the JAX
     lowering adds ``jnp.asarray(step, x.dtype)``; in PyTorch an int64
-    tensor plus a Python float would be float32). The JAX lowering's
-    concrete-counter branch serves control flow, which is not ported."""
-    x = raw_data(ctx.input("X"))
+    tensor plus a Python float would be float32). A concrete counter
+    stays concrete (``paddle_tpu/ops/tensor_ops.py:395-408``), so that a
+    While condition on it is known while the step is traced."""
+    xv = ctx.concrete_input("X")
+    x = raw_data(xv)
     step = ctx.attr("step", 1.0)
     if not (x.is_floating_point() or x.is_complex()):
         step = int(step)  # truncates toward zero, as the cast to X's type
-    ctx.set_output("Out", x + step)
+    out = x + step
+    cv = concrete_value(xv)
+    if cv is not None:
+        out = ConcreteScalar(cv + (int(step) if isinstance(cv, int)
+                                   else step), out)
+    ctx.set_output("Out", out)
 
 
 @register_op("assign_value", no_gradient=True,

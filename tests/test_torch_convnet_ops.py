@@ -57,7 +57,7 @@ def test_the_17_ops_are_registered_as_in_jax():
     # the port's own lowerings (a test may register an op of its own)
     port = [op for op in tregistry.registered_ops() if tregistry.lookup(
         op).lower.__module__.startswith("paddle_tpu_torch.")]
-    assert len(port) == 209 and set(port) <= set(jregistry.registered_ops())
+    assert len(port) == 233 and set(port) <= set(jregistry.registered_ops())
 
 
 def _r(seed, *shape):

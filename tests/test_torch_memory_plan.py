@@ -5,7 +5,8 @@ the JAX package's planner, on the CPU.
 1. Plan parity: ``plan_memory`` and ``compute_liveness`` give the same
    summary (peak, classes, high-water op, unknown vars) and the same live
    sets in both packages on the training steps of the tiny LM,
-   fit_a_line, a small ResNet and the LoD text classifier.
+   fit_a_line, a small ResNet, the LoD text classifier and the two
+   DynamicRNN book models (a While, its body flattened into the plan).
 2. PT030-PT033 fire as the JAX package's tests have them
    (``tests/test_memory_analysis.py``).
 3. The preflight under ``FLAGS.verify``: raises before any step, silent
@@ -45,7 +46,8 @@ from paddle_tpu_torch.flags import flags_guard
 import torch_book as book
 
 PLAN_BATCH = {"fit_a_line": 16, "tiny_lm": 4, "resnet_cifar": 4,
-              "text_rnn": 4}
+              "text_rnn": 4, "rnn_encoder_decoder": 2,
+              "machine_translation": 2}
 
 
 def codes(diags):

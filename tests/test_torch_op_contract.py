@@ -9,7 +9,8 @@ them the port's twins of the suite's random-op property tests, of
 tests, of the ``shape`` case with the dtype the port gives it, and of
 the suite2 sequence contracts whose ops the port registers (the
 sequence ops, CRF, CTC, the ranking ops, ``chunk_eval``, ``hsigmoid``,
-``nce`` and the int samplers), each op fed its weights.
+``nce`` and the int samplers), each op fed its weights, and of its
+control flow contracts (``while`` to ``beam_search``).
 
 A case the port cannot pass for a deliberate difference would be left
 out by name in ``EXCLUDED``, with its ROADMAP Queue 3 number; there is
@@ -451,3 +452,145 @@ def test_random_int_samplers():
     assert (cd == 2).all()
     for a, b in zip(*runs):
         np.testing.assert_array_equal(a, b)
+
+
+# -- twins of tests/test_op_contract_suite2.py's control flow contracts
+# (:347-470): each program built through the port's layers, run on the
+# per-op path as the JAX test runs it, against the same closed form
+
+def _cf_run(build_fn, feed, use_jit=False):
+    """(fetched values, program) of ``build_fn()`` (it returns the fetch
+    list) in a program of its own."""
+    main, start = tir.Program(), tir.Program()
+    with tir.program_guard(main, start):
+        fetch = build_fn()
+    exe, scope = TExecutor("cpu"), TScope()
+    exe.run(start, scope=scope)
+    return exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                   use_jit=use_jit), main
+
+
+def test_array_roundtrip_forward_exact():
+    """lod_tensor_to_array -> while(read, scale, write) ->
+    array_to_lod_tensor: 2x with the ragged order kept, and the array
+    length the longest sequence (``test_op_contract_suite2.py:347``)."""
+    rng = np.random.RandomState(7)
+    seqs = [rng.randn(n, 2).astype(np.float32) for n in (3, 2)]
+    F = tlayers
+
+    def build_fn():
+        x = F.data("x", shape=[2], dtype="float32", lod_level=1)
+        table = F.lod_rank_table(x)
+        arr = F.lod_tensor_to_array(x, table)
+        max_len = F.max_sequence_len(table)
+        n_arr = F.array_length(arr)
+        out_arr = F.create_array("float32")
+        i = F.zeros(shape=[1], dtype="int64")
+        cond = F.less_than(i, max_len)
+        w = F.While(cond=cond)
+        with w.block():
+            F.array_write(F.scale(F.array_read(array=arr, i=i), scale=2.0),
+                          i=i, array=out_arr)
+            i = F.increment(x=i, in_place=True)
+            F.less_than(i, max_len, cond=cond)
+        y = F.array_to_lod_tensor(out_arr, table)
+        return [F.mean(y), n_arr, y]
+    (lv, nv, y), _ = _cf_run(build_fn, {"x": _lod(seqs)})
+    total = np.concatenate(seqs)
+    np.testing.assert_allclose(float(np.asarray(lv).reshape(-1)[0]),
+                               2.0 * total.mean(), rtol=1e-5)
+    assert int(np.asarray(nv).reshape(-1)[0]) == 3
+    np.testing.assert_array_equal(y.numpy(), 2.0 * total)
+    assert y.lod() == [[0, 3, 5]]
+
+
+def test_dynamic_rnn_substrate_and_static_rnn():
+    """DynamicRNN builds on shrink_rnn_memory; its ragged sums match
+    numpy; a StaticRNN's ``recurrent`` op is a prefix sum
+    (``test_op_contract_suite2.py:385``)."""
+    rng = np.random.RandomState(17)
+    seqs = [rng.randn(n, 2).astype(np.float32) for n in (3, 1)]
+    xs = np.arange(6, dtype=np.float32).reshape(3, 1, 2)
+    F = tlayers
+
+    def build_fn():
+        x = F.data("x", shape=[2], dtype="float32", lod_level=1)
+        rnn = F.DynamicRNN()
+        with rnn.block():
+            x_t = rnn.step_input(x)
+            mem = rnn.memory(shape=[2], value=0.0)
+            acc = F.elementwise_add(x_t, mem)
+            rnn.update_memory(mem, acc)
+            rnn.output(acc)
+        last = F.sequence_last_step(rnn())
+        x2 = F.data("xs", shape=[3, 1, 2], dtype="float32",
+                    append_batch_size=False)
+        boot = F.fill_constant(shape=[1, 2], dtype="float32", value=0.0)
+        srnn = F.StaticRNN()
+        with srnn.step():
+            xt = srnn.step_input(x2)
+            h = srnn.memory(init=boot)
+            nh = F.elementwise_add(xt, h)
+            srnn.update_memory(h, nh)
+            srnn.step_output(nh)
+        return [last, srnn()]
+    for use_jit in (False, True):
+        (last, sout), main = _cf_run(build_fn, {"x": _lod(seqs), "xs": xs},
+                                     use_jit)
+        ops = {op.type for blk in main.blocks for op in blk.ops}
+        assert {"shrink_rnn_memory", "recurrent"} <= ops
+        np.testing.assert_allclose(np.asarray(last),
+                                   np.stack([s.sum(0) for s in seqs]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(np.asarray(sout).reshape(3, 1, 2),
+                                   np.cumsum(xs, axis=0), rtol=1e-6)
+
+
+def test_conditional_block_contract():
+    """Switch drives conditional_block: |a| by branch
+    (``test_op_contract_suite2.py:430``)."""
+    F = tlayers
+
+    def build_fn():
+        a = F.data("a", shape=[1], append_batch_size=False)
+        zero = F.fill_constant(shape=[1], dtype="float32", value=0.0)
+        out = F.create_global_var(shape=[1], value=0.0, dtype="float32",
+                                  persistable=True, name="cb_contract_out")
+        sw = F.Switch()
+        with sw.case(F.less_than(a, zero)):
+            F.assign(F.scale(a, scale=-1.0), out)
+        with sw.default():
+            F.assign(F.scale(a, scale=1.0), out)
+        return [out]
+    for v in (-3.0, 2.5):
+        (got,), _ = _cf_run(build_fn, {"a": np.array([v], np.float32)})
+        assert float(np.asarray(got).reshape(-1)[0]) == abs(v)
+
+
+def test_beam_search_tiny_trace():
+    """One expansion step on a hand-computed beam: the top 2 of {0.9: 3,
+    0.1: 4, 0.8: 5, 0.2: 6} are ids 3 and 5
+    (``test_op_contract_suite2.py:449``)."""
+    pre = tlod.LoDTensor(np.array([[1], [2]], np.int64),
+                         lod=[[0, 2], [0, 1, 2]])
+    F = tlayers
+
+    def build_fn():
+        pre_v = F.data("pre", shape=[1], dtype="int64", lod_level=2)
+        ids_v = F.data("ids", shape=[2], dtype="int64")
+        sc_v = F.data("sc", shape=[2], dtype="float32")
+        helper = LayerHelper("bs")
+        sel_ids = helper.create_variable_for_type_inference("int64")
+        sel_sc = helper.create_variable_for_type_inference("float32")
+        helper.append_op(type="beam_search",
+                         inputs={"pre_ids": [pre_v], "ids": [ids_v],
+                                 "scores": [sc_v]},
+                         outputs={"selected_ids": [sel_ids],
+                                  "selected_scores": [sel_sc]},
+                         attrs={"beam_size": 2, "end_id": 0, "level": 0})
+        return [sel_ids, sel_sc]
+    (si, ss), _ = _cf_run(build_fn, {
+        "pre": pre, "ids": np.array([[3, 4], [5, 6]], np.int64),
+        "sc": np.array([[0.9, 0.1], [0.8, 0.2]], np.float32)})
+    assert set(si.numpy().reshape(-1).tolist()) == {3, 5}
+    np.testing.assert_allclose(ss.numpy().reshape(-1), [0.9, 0.8])

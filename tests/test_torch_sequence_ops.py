@@ -366,11 +366,12 @@ def test_the_29_ops_are_registered_as_in_jax():
     """The slice's 29 op types, each among the JAX package's, with
     JAX's ``host`` (``sequence_pool``'s predicate too) and
     ``no_gradient`` settings, the same kind of grad maker and shape
-    inference; 209 op types in all."""
+    inference; 209 op types in all with this slice, 233 since the control
+    flow slice's 24."""
     assert len(NEW_OPS) == 29 and len(set(NEW_OPS)) == 29
     port = [op for op in treg.registered_ops() if treg.lookup(
         op).lower.__module__.startswith("paddle_tpu_torch.")]
-    assert len(port) == 209 and set(port) <= set(jreg.registered_ops())
+    assert len(port) == 233 and set(port) <= set(jreg.registered_ops())
     for op in NEW_OPS:
         t, j = treg.lookup(op), jreg.lookup(op)
         assert t is not None, op
