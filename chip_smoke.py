@@ -458,7 +458,7 @@ Phases, in order; any failure exits non-zero at once:
    row, each such flip at a near tie: ``SEQ_TIE_TOL``), ``SEQ_STEPS``
    compiled steps on one fixed batch through ``Trainer.train`` (the
    loss falls; one capture and a replay a step),
-   as many per-op steps, the step p50, sequences/s, tokens/s and peak
+   ``SEQ_EAGER_STEPS`` per-op steps, the step p50, sequences/s, tokens/s and peak
    memory; the tagger's decoded path against the CPU's on the same
    emissions where the CPU's float64 margin exceeds
    ``VITERBI_MARGIN_TOL`` (the skipped positions printed), and the chunk
@@ -467,6 +467,44 @@ Phases, in order; any failure exits non-zero at once:
    the plain version's, cuDNN's and the bound (the kernels line's
    ``fused_lstm.d128_n128``). The tune cache is a fresh directory of its
    own.
+20. control flow: every op of the slice and its grad on the card against
+   the CPU; the book's RNN encoder-decoder (step-1 gradients against the
+   CPU's float64 run, row 7 against the time loop, compiled and per-op
+   steps) and its beam-search decode against the CPU;
+21. sparse rows, CTR and ``:predict``: wide&deep at the JAX package's
+   default widths (26 slots, dense 13, embedding 16, MLP 400 x 3) over
+   10^6 ids a slot, batch 1024 from ``synthetic_click_batch``,
+   ``Adam(lazy_mode=True)``, ``CTR_STEPS`` compiled steps over
+   ``CTR_VISITS`` batches fed twice: one capture and a replay a step,
+   each step's looked-up rows and moments within ``CTR_UPDATE_TOL`` of a
+   float64 recomputation from the fetched SelectedRows gradients, the
+   rows no step looked up bit-identical over the whole tables, a second
+   visit's loss below the first; the step p50 of a second, unchecked
+   lazy run (the cost its one fetch) beside non-lazy sparse Adam and
+   the dense embedding; non-lazy sparse against dense at
+   vocabulary 10,000 over 6 steps (rtol 2e-4, atol 2e-5); DeepFM at its
+   defaults, 4 steps. Then an ImageNet ResNet-50 (224 x 224, 1000
+   classes, float32, ``conv_impl=pallas3x3``, seeded) exported with a
+   one-image feed and served in process over HTTP with
+   ``serve_max_batch`` 8: 32 concurrent ``:predict`` requests, each
+   answer bit-identical to ``CompiledModel.run`` of its image alone and
+   within ``PREDICT_EAGER_REL_TOL`` of the per-op run with every conv on
+   cuDNN, 16 conv3x3 launches a request on the ``predict`` path (a
+   batch runs its live rows alone);
+   the ``amp=True`` artifact at bucket 8 on row 6's bfloat16 face
+   (``predict_amp``) within ``PREDICT_AMP_REL_TOL`` of the float32
+   logits; row 6 at each of the program's conv3x3 shapes at batch 1,
+   float32 and bfloat16 faces, against its plain version with the
+   rounded controls that must miss; the trained wide&deep served beside it
+   (probabilities of shape [1, 1] equal to the scope's forward); a
+   ``:reload`` to a second ResNet-50 under in-flight requests (each
+   answer exactly its labelled version's), and an armed
+   ``serving.reload`` answering 409 while the version stays.
+
+``python3 chip_smoke.py --phases 21`` (a list, e.g. ``3,10``) runs the
+phases named and those they read (``PHASE_DEPS``); the kernels line then
+covers the kernels those phases launch (``PHASE_KERNELS``), with row 6's
+records made apart when phases 6 and 9 do not run.
 
 Since phase 15's slice every path of the Executor frees each value at
 its last use, so phases 1-14 run on the freeing Executor and their
@@ -809,6 +847,16 @@ def time_ms(fn, iters=20, warmup=3, flush=None):
     return float(np.median(times))
 
 
+def _averages(prof):
+    """``prof.key_averages()``, aggregated once a profile: each call
+    aggregates every event again, seconds on a per-op window, and the
+    readers below each take it."""
+    got = getattr(prof, "_smoke_averages", None)
+    if got is None:
+        got = prof._smoke_averages = prof.key_averages()
+    return got
+
+
 def _device_ms(fn, name, flush, iters=20):
     """Device ms a call of ``fn`` spends in the kernels whose name holds
     ``name``, from torch.profiler over ``iters`` calls, ``flush`` zeroed
@@ -840,7 +888,7 @@ def _device_ms_all(fn, flush, iters=20):
             fn()
         torch.cuda.synchronize()
     total = 0.0
-    for e in prof.key_averages():
+    for e in _averages(prof):
         if e.device_type != torch.autograd.DeviceType.CUDA or \
                 "Fill" in e.key:
             continue
@@ -1505,7 +1553,7 @@ def _device_kernels(prof, wall, ranges=()):
     as spans over their kernels; they are left out, or their kernels
     would count twice."""
     kern = {}
-    for e in prof.key_averages():
+    for e in _averages(prof):
         if e.device_type != torch.autograd.DeviceType.CUDA \
                 or e.key in ranges:
             continue
@@ -2045,7 +2093,7 @@ def _kernel_share(prof, name):
     profile, and their share of all device kernel time."""
     total = mine = 0.0
     count = 0
-    for e in prof.key_averages():
+    for e in _averages(prof):
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         t = getattr(e, "self_device_time_total", None)
@@ -2068,13 +2116,17 @@ def phase_train(dev, art_dir):
 # -- phase 6 -----------------------------------------------------------------
 
 def _conv_inputs(shape, seed, dev):
+    """x, w (He-scaled) and g of a 3x3 conv, drawn on ``dev`` from a
+    seeded generator (a [32, 224, 224, 64] input takes seconds to draw
+    on the host)."""
     N, H, W, C, O = shape
-    rng = np.random.RandomState(seed)
-    x = torch.from_numpy(rng.randn(N, H, W, C).astype(np.float32)).to(dev)
-    w = torch.from_numpy((rng.randn(3, 3, C, O) * (2.0 / (9 * C)) ** 0.5)
-                         .astype(np.float32)).to(dev)
-    g = torch.from_numpy(rng.randn(N, H, W, O).astype(np.float32)).to(dev)
-    return x, w, g
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(*s, generator=gen, device=dev)
+    return (randn(N, H, W, C),
+            randn(3, 3, C, O) * (2.0 / (9 * C)) ** 0.5,
+            randn(N, H, W, O))
 
 
 def _conv3x3_kernel_check(dev):
@@ -2719,7 +2771,7 @@ def _conv_share(prof):
     and their grads) and the rest (elementwise, copies, pooling)."""
     kinds = {"conv3x3": 0.0, "cudnn_conv": 0.0, "gemm": 0.0,
              "reduction": 0.0, "other": 0.0}
-    for e in prof.key_averages():
+    for e in _averages(prof):
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         t = getattr(e, "self_device_time_total", None)
@@ -2871,17 +2923,21 @@ def phase_convnet(dev, amp=False):
 # -- phase 7 -----------------------------------------------------------------
 
 def _rnn_inputs(gates, T, N, D, seed, ragged, dev):
-    """Inputs of a fused recurrence: xs at the scale of the model's fc
-    projections, W at 1/sqrt(D), h0/c0 small; lengths from a seeded
-    RandomState in [1, T] when ``ragged``, else all T."""
+    """Inputs of a fused recurrence, drawn on ``dev`` from a seeded
+    generator (a [400, 65, 4096] xs takes seconds to draw on the host):
+    xs at the scale of the model's fc projections, W at 1/sqrt(D), h0/c0
+    small; lengths from a seeded RandomState in [1, T] when ``ragged``,
+    else all T."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
     rng = np.random.RandomState(seed)
-    xs = rng.randn(T, N, gates * D).astype(np.float32) * 0.5
-    w = (rng.randn(D, gates * D) / np.sqrt(D)).astype(np.float32)
-    h0 = rng.randn(N, D).astype(np.float32) * 0.2
-    c0 = rng.randn(N, D).astype(np.float32) * 0.2
     lens = rng.randint(1, T + 1, N) if ragged else np.full(N, T)
     mask = (np.arange(T)[:, None] < lens[None, :]).astype(np.float32)
-    return [torch.from_numpy(a).to(dev) for a in (xs, w, h0, c0, mask)]
+    return [randn(T, N, gates * D) * 0.5,
+            randn(D, gates * D) / math.sqrt(D), randn(N, D) * 0.2,
+            randn(N, D) * 0.2, torch.from_numpy(mask).to(dev)]
 
 
 def _ptxas(name, *kernel):
@@ -3184,7 +3240,7 @@ def _rnn_share(prof, kernel):
     out)."""
     kinds = {"rnn_kernel": 0.0, "gemm": 0.0, "other": 0.0}
     loop_ms = 0.0
-    for e in prof.key_averages():
+    for e in _averages(prof):
         if e.key == RNN_BWD_RANGE:
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 t = getattr(e, "device_time_total", None)
@@ -3359,11 +3415,11 @@ def phase_rnn(dev, cell, amp=False):
 # -- phase 8 -----------------------------------------------------------------
 
 def _mm_inputs(shape, seed, dev):
+    """x and w of a gemm, drawn on ``dev`` from a seeded generator."""
     M, K, N = shape
-    rng = np.random.RandomState(seed)
-    x = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(dev)
-    w = torch.from_numpy((rng.randn(K, N) * 0.1).astype(np.float32)).to(dev)
-    return x, w
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(M, K, generator=gen, device=dev),
+            torch.randn(K, N, generator=gen, device=dev) * 0.1)
 
 
 def _mm_config(tiling):
@@ -5665,10 +5721,10 @@ def _disagg_fault(tiers, model, prompts, results, arts, L):
             "reprefills": prefills, "requests": picks}
 
 
-def _disagg_cli(root, art_dir, tiers, model, prompts, results):
-    """``serve --tier prefill`` as a subprocess: readiness line and /statz
-    carry the tier, one :prefill answer decodes in this process's decode
-    tier to phase 3's tokens, SIGTERM exits 0."""
+def _disagg_cli_start(root, art_dir):
+    """Start ``serve --tier prefill`` as a subprocess (it loads while
+    this process drives the tiers): (process, start time, stderr path,
+    the timer that kills it after 600 s)."""
     err_path = os.path.join(os.path.dirname(art_dir), "serve_tier.err")
     cmd = [sys.executable, "-m", "paddle_tpu_torch", "serve", art_dir,
            "--tier", "prefill", "--port", "0", "--device", "cuda",
@@ -5681,14 +5737,31 @@ def _disagg_cli(root, art_dir, tiers, model, prompts, results):
                                 env=dict(os.environ, PYTHONPATH=root))
     killer = threading.Timer(600, proc.kill)
     killer.start()
+    ready = {}
+
+    def readiness():
+        ready["line"] = proc.stdout.readline()
+        ready["s"] = time.monotonic() - t0
+
+    reader = threading.Thread(target=readiness, daemon=True)
+    reader.start()
+    return proc, t0, err_path, killer, (reader, ready)
+
+
+def _disagg_cli(started, tiers, model, prompts, results):
+    """The ``serve --tier prefill`` subprocess: readiness line and /statz
+    carry the tier, one :prefill answer decodes in this process's decode
+    tier to phase 3's tokens, SIGTERM exits 0."""
+    proc, _t0, err_path, killer, (reader, first) = started
     try:
-        line = proc.stdout.readline()
+        reader.join(timeout=600)
+        line = first.get("line", "")
         try:
             ready = json.loads(line)["serving"]
         except ValueError:
             fail("serve --tier prefill printed %r; stderr: %s"
                  % (line, open(err_path).read()[-4000:]))
-        ready_s = time.monotonic() - t0
+        ready_s = first["s"]
         base = "http://%s:%d" % (ready["host"], ready["port"])
         with urllib.request.urlopen(base + "/statz", timeout=60) as r:
             statz_tier = json.loads(r.read())["tier"]
@@ -5755,6 +5828,7 @@ def phase_disagg(dev, root, art_dir, prompts, results, plain, http):
     ``serve --tier`` verb and the PT034 check."""
     from paddle_tpu_torch.models import transformer as tt
     L = tt.TransformerConfig(**GPT2_SMALL).num_layers
+    started = _disagg_cli_start(root, art_dir)
     tiers, stop = _tier_servers(dev, art_dir)
     try:
         model = tiers["decode"][0]._gen_entry("gpt2").engine.model
@@ -5763,10 +5837,12 @@ def phase_disagg(dev, root, art_dir, prompts, results, plain, http):
         seeded = _disagg_seeded(tiers, model, prompts)
         fault = _disagg_fault(tiers, model, prompts, results, arts, L)
         del arts
-        cli = _disagg_cli(root, art_dir, tiers, model, prompts, results)
+        cli = _disagg_cli(started, tiers, model, prompts, results)
         prefill_stats = tiers["prefill"][0].stats["prefill"]["gpt2"]
     finally:
         stop()
+        started[3].cancel()
+        _stop(started[0])
     out = {"card": card_line(), "greedy": greedy, "seeded": seeded,
            "fault": fault, "cli": cli, "prefill_engine": prefill_stats,
            "pt034": _disagg_pt034(dev, art_dir,
@@ -5857,7 +5933,7 @@ def _by_kind(prof):
     """Device ms by kind of kernel over a profile."""
     kinds = collections.OrderedDict((k, 0.0) for k in (
         "gemm", "flash", "conv", "rnn", "copy", "other"))
-    for e in prof.key_averages():
+    for e in _averages(prof):
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         t = getattr(e, "self_device_time_total", None)
@@ -5885,7 +5961,7 @@ def _symbol_launches(prof, counted):
     launches its wrappers ``counted`` over the same steps: {symbol:
     (device, counted)} for every symbol either saw."""
     import re
-    device = [e for e in prof.key_averages()
+    device = [e for e in _averages(prof)
               if e.device_type == torch.autograd.DeviceType.CUDA]
     out = {}
     for sym, names in KERNEL_SYMBOLS.items():
@@ -7032,21 +7108,31 @@ def phase_checkpoint(dev, root):
     t0 = time.monotonic()
     work = _fresh_dir(os.path.join(root, "build", "chip_smoke", "checkpoint"))
     rec, paths = {}, {}
-    rec["resume"], paths["ckpt_lm_train"], (trainer, spec, scope) = \
-        _ckpt_resume(dev, work)
-    from paddle_tpu_torch.core.scope import scope_guard
-    with scope_guard(scope):
-        rec.update(_ckpt_async_and_retention(trainer, spec, work))
-        rec["test"], more = _ckpt_test_and_export(trainer, spec, work)
-        paths.update(more)
-        trainer.checkpoint_dir = None
-        _free(trainer)
-    del trainer, scope
-    gc.collect()
-    torch.cuda.empty_cache()
+    # the CLI runs (text_rnn preempted after its first batch, the book
+    # config) start first and run beside this process's steps
     cli = _ckpt_cli_start(root, work)
-    rec["resnet50"], paths["ckpt_resnet_inference"] = _ckpt_resnet(dev, work)
-    rec["cli"], paths["ckpt_rnn_resume"] = _ckpt_cli_finish(dev, work, cli)
+    try:
+        rec["resume"], paths["ckpt_lm_train"], (trainer, spec, scope) = \
+            _ckpt_resume(dev, work)
+        from paddle_tpu_torch.core.scope import scope_guard
+        with scope_guard(scope):
+            rec.update(_ckpt_async_and_retention(trainer, spec, work))
+            rec["test"], more = _ckpt_test_and_export(trainer, spec, work)
+            paths.update(more)
+            trainer.checkpoint_dir = None
+            _free(trainer)
+        del trainer, scope
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["resnet50"], paths["ckpt_resnet_inference"] = _ckpt_resnet(
+            dev, work)
+        rec["cli"], paths["ckpt_rnn_resume"] = _ckpt_cli_finish(dev, work,
+                                                                cli)
+    finally:
+        for proc in (cli["rnn"], cli["book"]):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     shutil.rmtree(work, ignore_errors=True)
     rec["wall_s"] = time.monotonic() - t0
     log(json.dumps({"checkpoint": rec}))
@@ -8382,31 +8468,60 @@ def _res_guarded(dev, work):
     return rec, launches, warm_capture_ms
 
 
-def _res_cli(root, work, spec):
-    """One ``train`` subprocess of the fit_a_line config on the card:
-    (exit code, wall s, the state dir, stderr's tail)."""
-    state = _fresh_dir(os.path.join(work, "hang_state"))
+def _res_cli(root, work, spec, name):
+    """Start one ``train`` subprocess of the fit_a_line config on the
+    card, its state in ``work/name``; :func:`_res_cli_wait` returns (exit
+    code, wall s, the state dir, stderr's tail)."""
+    state = _fresh_dir(os.path.join(work, name))
     env = dict(os.environ, PYTHONPATH=root,
                PADDLE_TPU_FLAGS="step_timeout_s=%d" % HANG_TIMEOUT_S,
                PADDLE_TPU_ELASTIC_STATE=state)
     env.pop("PADDLE_TPU_FAULT_SPEC", None)
     if spec:
         env["PADDLE_TPU_FAULT_SPEC"] = spec
-    t0 = time.monotonic()
-    out = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "paddle_tpu_torch", "train",
          os.path.join("paddle_tpu_torch", "configs", "fit_a_line.py")],
-        cwd=root, env=env, capture_output=True, text=True, timeout=600)
-    return out.returncode, time.monotonic() - t0, state, out.stderr[-3000:]
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, time.monotonic(), state
 
 
-def _res_hang(root, work):
-    """Step b: a wedged step of the CLI's Trainer exits 75."""
-    rc0, wall0, state0, err0 = _res_cli(root, work, None)
+def _stop(proc):
+    """Kill a child process still running (a phase that failed before
+    waiting for it)."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def _res_cli_wait(started):
+    proc, t0, state = started
+    try:
+        _out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        _out, err = proc.communicate()
+    return proc.returncode, time.monotonic() - t0, state, err[-3000:]
+
+
+def _res_hang_start(root, work):
+    """Step b's two processes, started side by side: the CLI's Trainer
+    without a fault, and with a wedged third step."""
+    return (_res_cli(root, work, None, "clean_state"),
+            _res_cli(root, work, "trainer.step:delay:nth=3,delay=3600",
+                     "hang_state"))
+
+
+def _res_hang(started):
+    """Step b: the wedged step exits 75 with a step_hung line and a
+    timeline, the run without the fault exits 0."""
+    clean, wedged = started
+    rc0, wall0, state0, err0 = _res_cli_wait(clean)
+    rc, wall, state, err = _res_cli_wait(wedged)
     if rc0 != 0 or os.path.exists(os.path.join(state0, "events.jsonl")):
         fail("phase 16: train without the fault exited %d:\n%s" % (rc0, err0))
-    rc, wall, state, err = _res_cli(
-        root, work, "trainer.step:delay:nth=3,delay=3600")
+    shutil.rmtree(state0, ignore_errors=True)
     rec = {"clean_rc": rc0, "clean_wall_s": wall0, "hang_rc": rc,
            "hang_wall_s": wall, "deadline_s": HANG_TIMEOUT_S}
     if rc != 75 or wall > HANG_TIMEOUT_S + wall0 + 30:
@@ -8522,13 +8637,21 @@ def phase_resilience(dev, root, plain):
     t0 = time.monotonic()
     work = _fresh_dir(os.path.join(root, "build", "chip_smoke", "resilience"))
     paths = {}
-    guarded, paths["resilience_lm_guarded"], warm = _res_guarded(dev, work)
-    log(json.dumps({"resilience_guarded": guarded}))
-    deadline, paths["resilience_lm_deadline"] = _res_deadline(dev, warm)
-    log(json.dumps({"resilience_deadline": deadline}))
-    prof, paths["resilience_lm_profiled"] = _res_profiler(dev, work, plain)
-    log(json.dumps({"resilience_profiler": prof}))
-    log(json.dumps({"resilience_hang": _res_hang(root, work)}))
+    # the CLI processes of step b run while this process drives a and c
+    hang = _res_hang_start(root, work)
+    try:
+        guarded, paths["resilience_lm_guarded"], warm = _res_guarded(dev,
+                                                                     work)
+        log(json.dumps({"resilience_guarded": guarded}))
+        deadline, paths["resilience_lm_deadline"] = _res_deadline(dev, warm)
+        log(json.dumps({"resilience_deadline": deadline}))
+        prof, paths["resilience_lm_profiled"] = _res_profiler(dev, work,
+                                                              plain)
+        log(json.dumps({"resilience_profiler": prof}))
+        log(json.dumps({"resilience_hang": _res_hang(hang)}))
+    finally:
+        for proc, _t0, _state in hang:
+            _stop(proc)
     log(json.dumps({"resilience_wall_s": time.monotonic() - t0,
                     "card": card_line()}))
     return paths
@@ -9391,20 +9514,29 @@ def _dense_book(dev, kind):
     return launches, rec
 
 
-def _dense_cli(root):
-    """``python -m paddle_tpu_torch train`` of the word2vec config (its
-    own widths and reader), on the card by default: exit 0."""
-    t0 = time.monotonic()
-    out = subprocess.run(
+def _dense_cli_start(root):
+    """Start ``python -m paddle_tpu_torch train`` of the word2vec config
+    (its own widths and reader), on the card by default."""
+    return subprocess.Popen(
         [sys.executable, "-m", "paddle_tpu_torch", "train",
          os.path.join("paddle_tpu_torch", "configs", "word2vec.py")],
-        cwd=root, capture_output=True, text=True, timeout=600,
-        env=dict(os.environ, PYTHONPATH=root))
-    rec = {"rc": out.returncode, "seconds": time.monotonic() - t0,
-           "last_line": (out.stdout.strip().splitlines() or [""])[-1]}
-    if out.returncode != 0:
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=root)), time.monotonic()
+
+
+def _dense_cli(started):
+    """The word2vec CLI run: exit 0."""
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
+    rec = {"rc": proc.returncode, "seconds": time.monotonic() - t0,
+           "last_line": (stdout.strip().splitlines() or [""])[-1]}
+    if proc.returncode != 0:
         fail("phase 17: train word2vec.py exited %d:\n%s\n%s"
-             % (out.returncode, out.stdout[-3000:], out.stderr[-3000:]))
+             % (proc.returncode, stdout[-3000:], stderr[-3000:]))
     return rec
 
 
@@ -9420,6 +9552,8 @@ def phase_dense(dev, root):
     FLAGS.tune_cache_dir = _fresh_dir(os.path.join(
         root, "build", "chip_smoke", "tune_dense"))
     tune.clear_memory_cache()
+    # the CLI's process runs while this one checks the ops and the books
+    cli = _dense_cli_start(root)
     try:
         per_op = _dense_ops_check(dev)
         log(json.dumps({"dense_ops": per_op}))
@@ -9428,10 +9562,11 @@ def phase_dense(dev, root):
         paths, books = {}, {}
         for kind in ("word2vec", "recommender"):
             paths["dense_" + kind], books[kind] = _dense_book(dev, kind)
-        log(json.dumps({"dense_cli_word2vec": _dense_cli(root)}))
+        log(json.dumps({"dense_cli_word2vec": _dense_cli(cli)}))
     finally:
         FLAGS.tune_cache_dir = old_dir
         tune.clear_memory_cache()
+        _stop(cli[0])
     log(json.dumps({"dense_wall_s": time.monotonic() - t0,
                     "word2vec_step_ms_p50": books["word2vec"][
                         "step_ms_p50_compiled"],
@@ -9974,19 +10109,6 @@ def _n_conv3x3(prog):
     return len(convs), sum(dx for _, dx in convs)
 
 
-def _conv_inputs_on(shape, seed, dev):
-    """:func:`_conv_inputs` drawn on ``dev`` (a [32, 224, 224, 64] input
-    takes seconds to draw on the host)."""
-    N, H, W, C, O = shape
-    gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def randn(*s):
-        return torch.randn(*s, generator=gen, device=dev)
-    return (randn(N, H, W, C),
-            randn(3, 3, C, O) * (2.0 / (9 * C)) ** 0.5,
-            randn(N, H, W, O))
-
-
 def _zoo_conv_check(dev, prog, batch, seen):
     """The conv3x3 kernel against its plain version at each distinct
     shape of ``prog``'s conv3x3 population not in ``seen`` (which it
@@ -10007,7 +10129,7 @@ def _zoo_conv_check(dev, prog, batch, seen):
             continue
         seen.add((shape, dx))
         N, H, W, C, O = shape
-        x, w, g = _conv_inputs_on(shape, 80 + i, dev)
+        x, w, g = _conv_inputs(shape, 80 + i, dev)
         got = conv3x3.conv3x3_s1_nhwc(x, w)
         want = conv3x3.conv3x3_reference(x, w)
         tf32 = conv3x3.conv3x3_reference(_tf32_round(x), _tf32_round(w))
@@ -10060,7 +10182,7 @@ def _one_step_profile(trainer, prog, feed, cost, dev):
         trainer.exe.run(prog, feed=feed, fetch_list=[cost], use_jit=False)
         _sync(dev)
     top = []
-    for e in prof.key_averages():
+    for e in _averages(prof):
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         t = getattr(e, "self_device_time_total", None)
@@ -10291,6 +10413,9 @@ SRL_FEED_NAMES = ("word_data", "ctx_n2_data", "ctx_n1_data", "ctx_0_data",
                   "ctx_p1_data", "ctx_p2_data", "verb_data", "mark_data",
                   "target")
 SEQ_STEPS = 8
+# per-op steps timed after the compiled ones (a median of 3; the peephole
+# net's per-op step takes ~1.5 s on an H100)
+SEQ_EAGER_STEPS = 3
 # step-1 gradients of the card's float32 step against the port's own
 # CPU run of the same program built in float64, from the same weights
 # and feed: the relative norm of each parameter's error
@@ -10915,8 +11040,8 @@ def _seq_fused_vs_loop(label, trainer, spec, feed,
 def _seq_train(label, trainer, spec, batch, feed):
     """SEQ_STEPS compiled steps on the fixed batch through
     ``Trainer.train`` (one capture, a replay a step, the loss falls), then
-    SEQ_STEPS per-op steps, each feeding the batch: (launch counts of the
-    compiled run, a summary)."""
+    SEQ_EAGER_STEPS per-op steps, each feeding the batch: (launch counts
+    of the compiled run, a summary)."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.trainer import BeginIteration, EndIteration
     dev = trainer.exe.device
@@ -10944,7 +11069,7 @@ def _seq_train(label, trainer, spec, batch, feed):
              % (label, losses))
     peak = torch.cuda.max_memory_allocated(dev)
     eager_s = []
-    for _ in range(SEQ_STEPS):
+    for _ in range(SEQ_EAGER_STEPS):
         t0 = time.monotonic()
         trainer.exe.run(trainer.main_program,
                         feed=trainer.feeder.feed(batch),
@@ -11768,11 +11893,814 @@ def phase_control_flow(dev, root):
     return {"control_flow_encdec": launches}, row7
 
 
+# -- phase 21 -----------------------------------------------------------------
+
+# Phase 21 (sparse rows, CTR and the :predict front): wide&deep at the JAX
+# package's default widths (paddle_tpu/models/ctr.py:39-41) over 10^6 ids
+# a slot (public Criteo setups hash each sparse feature into about 10^6
+# ids), batch 1024, Adam(lazy_mode=True); CTR_VISITS distinct batches,
+# each fed twice, so that the loss of a batch's second visit can be held
+# below its first
+CTR_WIDE = dict(num_sparse_slots=26, dense_dim=13, embed_dim=16,
+                hidden_sizes=(400, 400, 400))
+CTR_VOCAB = 1000000
+CTR_BATCH = 1024
+CTR_STEPS = 8
+CTR_VISITS = 4
+CTR_LR = 0.01
+# a looked-up row against its float64 recomputation from the fetched
+# SelectedRows gradient, over max(1, |p|) for the parameter (phase 14's
+# update gate) and over the recomputation's largest magnitude for each
+# moment (a moment is far below 1)
+CTR_UPDATE_TOL = 1e-6
+# non-lazy sparse against the dense embedding, tests/test_ctr.py's gate
+CTR_CHECK_VOCAB = 10000
+CTR_CHECK_STEPS = 6
+CTR_RTOL, CTR_ATOL = 2e-4, 2e-5
+DEEPFM_STEPS = 4
+# the :predict front: ImageNet ResNet-50 exported with a one-image feed,
+# served with serve_max_batch 8 (buckets 1, 2, 4, 8)
+PREDICT_IMAGE = 224
+PREDICT_CLASSES = 1000
+PREDICT_MAX_BATCH = 8
+PREDICT_TIMEOUT_MS = 10.0
+PREDICT_REQUESTS = 32
+# answers the reload's clients wait for after it published v2
+PREDICT_RELOAD_AFTER = 8
+# served logits against the per-op run of the same program with every
+# conv on cuDNN (TF32 off): phase 13's test-mode tolerance
+PREDICT_EAGER_REL_TOL = R50_TEST_REL_TOL
+# the AMP artifact's logits against the float32 ones (relative norm):
+# bfloat16 operands through 50 layers (7.66e-3 measured on an H100);
+# each conv3x3 launch is held at its own shape by _predict_conv_check
+PREDICT_AMP_REL_TOL = 3e-2
+# wide&deep requests served beside the ResNet-50
+PREDICT_CTR_REQUESTS = 8
+PREDICT_CONV3X3_PER_IMAGE = 16
+
+
+def _ctr_build(vocab, mode, model="wide_deep", seed=0, **widths):
+    """(main, startup, infer program, cost name, prob name) of a CTR
+    model under Adam: ``mode`` 'lazy' (sparse embeddings, lazy_mode),
+    'sparse' (sparse embeddings, non-lazy) or 'dense' (is_sparse=False)."""
+    from paddle_tpu_torch import models, optimizer
+    from paddle_tpu_torch.core import ir, unique_name
+    # DeepFM's default MLP is two layers of 400
+    given = widths
+    widths = dict(CTR_WIDE)
+    if model == "deepfm":
+        widths["hidden_sizes"] = (400, 400)
+    widths.update(given)
+    main, startup = ir.Program(), ir.Program()
+    startup.random_seed = seed
+    with unique_name.guard(), ir.program_guard(main, startup):
+        cost, _auc, prob, _feeds = getattr(models, model)(
+            vocab_size=vocab, is_sparse=(mode != "dense"), with_auc=False,
+            **widths)
+        infer = main.clone(for_test=True)
+        optimizer.Adam(learning_rate=CTR_LR,
+                       lazy_mode=(mode == "lazy")).minimize(cost)
+    return main, startup, infer, cost.name, prob.name
+
+
+def _ctr_batches(vocab, n, seed=0, batch=CTR_BATCH, slots=None,
+                 dense=None):
+    from paddle_tpu_torch import models
+    rng = np.random.RandomState(seed)
+    return [models.synthetic_click_batch(
+        rng, batch, slots or CTR_WIDE["num_sparse_slots"],
+        dense or CTR_WIDE["dense_dim"], vocab) for _ in range(n)]
+
+
+def _adam_slots(program):
+    """{param: {slot: var}} of every adam op of ``program``."""
+    out = {}
+    for op in program.global_block().ops:
+        if op.type == "adam":
+            out[op.input("Param")[0]] = {
+                s: op.input(s)[0] for s in ("Grad", "Moment1", "Moment2",
+                                            "Beta1Pow", "Beta2Pow")}
+    return out
+
+
+def _lazy_adam_float64(p, m1, m2, b1p, b2p, rows, values, lr,
+                       b1=0.9, b2=0.999, eps=1e-8):
+    """Lazy Adam on the looked-up rows in float64: (unique rows, new p,
+    m1, m2 rows). ``p`` / ``m1`` / ``m2`` are the rows of ``rows``'s
+    unique set, in ascending order, before the step."""
+    uniq, inv = torch.unique(rows, sorted=True, return_inverse=True)
+    g = torch.zeros((uniq.numel(),) + tuple(values.shape[1:]),
+                    dtype=torch.float64, device=values.device)
+    g.index_add_(0, inv, values.double())
+    lr_t = lr * math.sqrt(1.0 - b2p) / (1.0 - b1p)
+    m1n = b1 * m1.double() + (1.0 - b1) * g
+    m2n = b2 * m2.double() + (1.0 - b2) * g * g
+    pn = p.double() - lr_t * m1n / (torch.sqrt(m2n) + eps)
+    return uniq, pn, m1n, m2n
+
+
+def _ctr_train(dev, vocab, mode, batches, steps, check=False, keep=False,
+               model="wide_deep", state=None, **widths):
+    """Train a CTR model ``steps`` compiled steps over ``batches`` (in
+    turn) from its seeded startup (or ``state``); returns the record.
+    ``check``: fetch every table's SelectedRows gradient and hold each
+    step's looked-up rows and moments to their float64 recomputation,
+    and (with the tables cloned before the first step) the rows no step
+    looked up to their starting bits; its steps fetch more than the
+    cost, so they are not the ones to time. ``keep``: return the scope
+    and the programs too."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    main, startup, infer, cost, prob = _ctr_build(vocab, mode, model,
+                                                  **widths)
+    exe, scope = Executor(dev), Scope()
+    if state is None:
+        exe.run(startup, scope=scope)
+    else:
+        for n, t in state.items():
+            scope.set_var(n, t.clone())
+    slots = _adam_slots(main)
+    tables = sorted(n for n in slots if n.startswith(("emb_", "wide_",
+                                                      "fm_")))
+    grads = [slots[n]["Grad"] for n in tables] if check else []
+    names = [n for t in tables for n in (t, slots[t]["Moment1"],
+                                         slots[t]["Moment2"])]
+    initial = ({n: scope.find_var(n).clone() for n in names}
+               if check else None)
+    touched = {t: set() for t in tables}
+    errs = collections.defaultdict(float)
+    losses, ms = [], []
+    before = dict(exe.stats)
+    for step in range(steps):
+        feed = batches[step % len(batches)]
+        pre = None
+        if check:
+            pre = {}
+            for t in tables:
+                slot = "C" + t.rsplit("_C", 1)[1]
+                ids = np.unique(feed[slot])
+                touched[t].update(ids.tolist())
+                rows = torch.as_tensor(ids, device=dev)
+                pre[t] = (rows, scope.find_var(t)[rows].clone(),
+                          scope.find_var(slots[t]["Moment1"])[rows].clone(),
+                          scope.find_var(slots[t]["Moment2"])[rows].clone(),
+                          float(scope.find_var(slots[t]["Beta1Pow"])
+                                .reshape(-1)[0]),
+                          float(scope.find_var(slots[t]["Beta2Pow"])
+                                .reshape(-1)[0]))
+        _sync(dev)
+        t0 = time.monotonic()
+        out = exe.run(main, feed=feed, fetch_list=[cost] + grads,
+                      scope=scope, return_numpy=False)
+        _sync(dev)
+        ms.append((time.monotonic() - t0) * 1e3)
+        losses.append(float(out[0].reshape(-1)[0]))
+        for t, g in zip(tables, out[1:]):
+            rows, p0, m10, m20, b1p, b2p = pre[t]
+            uniq, pn, m1n, m2n = _lazy_adam_float64(
+                p0, m10, m20, b1p, b2p, g.rows, g.values, CTR_LR)
+            if not torch.equal(uniq, rows):
+                fail("ctr %s step %d: the fetched %s holds rows other than "
+                     "the batch's ids" % (mode, step + 1, slots[t]["Grad"]))
+            for label, got, want, scale in (
+                    ("param", scope.find_var(t)[rows], pn,
+                     max(1.0, float(p0.abs().max()))),
+                    ("moment1", scope.find_var(slots[t]["Moment1"])[rows],
+                     m1n, float(m1n.abs().max())),
+                    ("moment2", scope.find_var(slots[t]["Moment2"])[rows],
+                     m2n, float(m2n.abs().max()))):
+                e = float((got.double() - want).abs().max()) / (scale
+                                                                or 1.0)
+                errs[label] = max(errs[label], e)
+        del out
+    rec = {"mode": mode, "model": model, "vocab": vocab, "steps": steps,
+           "losses": losses, "step_ms": ms,
+           "step_ms_p50_replays": float(np.median(ms[2:] or ms)),
+           "executor": _exe_delta(exe, before)}
+    if dev.type == "cuda":
+        _compiled_gate("ctr %s %s" % (model, mode), rec["executor"], steps)
+    if not all(math.isfinite(v) for v in losses):
+        fail("ctr %s %s: a loss is not finite: %s" % (model, mode, losses))
+    if check:
+        rec["update_max_err"] = dict(errs)
+        if max(errs.values()) > CTR_UPDATE_TOL:
+            fail("ctr %s: a looked-up row's update misses its float64 "
+                 "recomputation: %s > %g" % (mode, dict(errs),
+                                              CTR_UPDATE_TOL))
+        moved = {}
+        for t in tables:
+            keep_rows = torch.ones(scope.find_var(t).shape[0],
+                                   dtype=torch.bool, device=dev)
+            keep_rows[torch.as_tensor(sorted(touched[t]), device=dev)] = False
+            for n in (t, slots[t]["Moment1"], slots[t]["Moment2"]):
+                if not torch.equal(scope.find_var(n)[keep_rows],
+                                   initial[n][keep_rows]):
+                    fail("ctr %s: %s moved a row no step looked up"
+                         % (mode, n))
+            moved[t] = len(touched[t])
+        rec["rows_looked_up_per_table"] = {
+            "min": min(moved.values()), "max": max(moved.values()),
+            "of": int(scope.find_var(tables[0]).shape[0])}
+        rec["untouched_rows_bit_identical"] = True
+        del initial
+    if keep:
+        rec["kept"] = (exe, scope, main, infer, cost, prob)
+    else:
+        exe.close()
+    return rec
+
+
+def _ctr_phase(dev, sizes):
+    """Phase 21's training half: (records, {path: launches}, the trained
+    lazy scope and its inference program)."""
+    from paddle_tpu_torch import kernels
+    vocab = sizes["vocab"]
+    widths = sizes.get("widths", {})
+    batches = _ctr_batches(vocab, CTR_VISITS, seed=0,
+                           batch=sizes["batch"],
+                           slots=widths.get("num_sparse_slots"),
+                           dense=widths.get("dense_dim"))
+    out, paths = {}, {}
+    kernels.reset_launches()
+    lazy = _ctr_train(dev, vocab, "lazy", batches, CTR_STEPS, check=True,
+                      keep=True, **widths)
+    paths["ctr_train_lazy"] = kernels.launch_counts()
+    first = lazy["losses"][:CTR_VISITS]
+    second = lazy["losses"][CTR_VISITS:2 * CTR_VISITS]
+    if not np.mean(second) < np.mean(first):
+        fail("ctr lazy: the second visit of the batches did not lower "
+             "their loss: %s" % lazy["losses"])
+    kept = lazy.pop("kept")
+    out["lazy_checked"] = lazy
+    # the three modes timed alike: each step fetches the cost alone
+    for mode in ("lazy", "sparse", "dense"):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        kernels.reset_launches()
+        out[mode] = _ctr_train(dev, vocab, mode, batches, CTR_STEPS,
+                               **widths)
+        paths["ctr_train_" + mode] = kernels.launch_counts()
+    # non-lazy sparse against the dense embedding from one state
+    small = _ctr_batches(CTR_CHECK_VOCAB, CTR_CHECK_STEPS, seed=7,
+                         batch=sizes["batch"],
+                         slots=widths.get("num_sparse_slots"),
+                         dense=widths.get("dense_dim"))
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    _m, startup, _i, _c, _p = _ctr_build(CTR_CHECK_VOCAB, "sparse",
+                                         **widths)
+    s0 = Scope()
+    Executor(dev).run(startup, scope=s0)
+    state = {n: s0.find_var(n) for n in s0.local_var_names()
+             if isinstance(s0.find_var(n), torch.Tensor)}
+    pair = {mode: _ctr_train(dev, CTR_CHECK_VOCAB, mode, small,
+                             CTR_CHECK_STEPS, state=state, **widths)
+            for mode in ("sparse", "dense")}
+    a = np.asarray(pair["sparse"]["losses"])
+    b = np.asarray(pair["dense"]["losses"])
+    if not np.allclose(a, b, rtol=CTR_RTOL, atol=CTR_ATOL):
+        fail("ctr: non-lazy sparse losses %s differ from the dense "
+             "embedding's %s past rtol %g / atol %g"
+             % (a.tolist(), b.tolist(), CTR_RTOL, CTR_ATOL))
+    out["sparse_vs_dense"] = {"vocab": CTR_CHECK_VOCAB,
+                              "sparse": a.tolist(), "dense": b.tolist(),
+                              "max_abs_diff": float(np.abs(a - b).max())}
+    fm_batches = _ctr_batches(sizes.get("deepfm_vocab", 10000), 2, seed=3,
+                              batch=sizes["batch"],
+                              slots=widths.get("num_sparse_slots"),
+                              dense=widths.get("dense_dim"))
+    kernels.reset_launches()
+    out["deepfm"] = _ctr_train(dev, sizes.get("deepfm_vocab", 10000),
+                               "lazy", fm_batches, DEEPFM_STEPS,
+                               model="deepfm", **widths)
+    paths["ctr_train_deepfm"] = kernels.launch_counts()
+    return out, paths, kept
+
+
+def _resnet50_program(image, classes, seed, depth=50):
+    """ImageNet ResNet's test program (every conv2d with
+    ``conv_impl=pallas3x3``), its startup seeded by ``seed``, and the
+    name of its logits, the softmax's input (the probabilities of a
+    seeded network saturate)."""
+    from paddle_tpu_torch import layers, models
+    from paddle_tpu_torch.core import ir, unique_name
+    main, startup = ir.Program(), ir.Program()
+    startup.random_seed = seed
+    with unique_name.guard(), ir.program_guard(main, startup):
+        img = layers.data("img", shape=[3, image, image], dtype="float32")
+        pred = models.resnet(img, class_dim=classes, depth=depth,
+                             variant="imagenet")
+    logits = None
+    for op in main.global_block().ops:
+        if op.type == "conv2d":
+            op.attrs["conv_impl"] = "pallas3x3"
+        if op.type == "softmax" and op.output("Out")[0] == pred.name:
+            logits = op.input("X")[0]
+    return main.clone(for_test=True), startup, logits
+
+
+def _export_resnet(dev, dirs, image, classes, seed, depth):
+    """Export the seeded ResNet with a one-image feed into each of
+    ``dirs`` ([(directory, amp)]); (test program, scope, logits name)."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    test, startup, pred = _resnet50_program(image, classes, seed, depth)
+    scope = Scope()
+    Executor(dev).run(startup, scope=scope)
+    one = np.zeros((1, 3, image, image), np.float32)
+    for d, amp in dirs:
+        inference.export_compiled(d, ["img"], [pred], None,
+                                  main_program=test,
+                                  example_feed={"img": one}, scope=scope,
+                                  amp=amp)
+    return test, scope, pred
+
+
+def _images(n, image, seed):
+    """``n`` seeded images of pixel values k / 256 (short in JSON)."""
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, 256, (1, 3, image, image)) / 256.0)
+            .astype(np.float32) for _ in range(n)]
+
+
+def _post_json(url, body, timeout=600):
+    req = urllib.request.Request(url, data=body,
+                                 headers={"Content-Type":
+                                          "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _rel_norm(got, want):
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    return float((got - want).norm() / want.norm())
+
+
+def _predict_conv_check(dev, prog):
+    """Row 6 against its plain version at each conv3x3 shape of the
+    served program at batch 1, the shapes the ``predict`` and
+    ``predict_amp`` paths launch: the float32 forward within
+    CONV_REL_TOL (the plain version on TF32-rounded inputs must miss);
+    the bfloat16 face's forward, bfloat16 out as under AMP, within one
+    bfloat16 ulp (a bfloat16 step-sum accumulator must miss); each
+    tiling the rule's mirror. Launches made here count toward no main
+    path. Returns {shape: record}."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import conv3x3
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    convs = _conv3x3_convs(prog, 1)
+    if len(convs) != PREDICT_CONV3X3_PER_IMAGE:
+        fail("predict: the served program has %d conv3x3 convs, %d "
+             "expected" % (len(convs), PREDICT_CONV3X3_PER_IMAGE))
+    before = kernels.launch_counts()
+    out = {}
+    for i, shape in enumerate(dict.fromkeys(s for s, _ in convs)):
+        N, H, W, C, O = shape
+        x, w, _g = _conv_inputs(shape, 120 + i, dev)
+        want = conv3x3.conv3x3_reference(x, w)
+        kernels.reset_launches()
+        got = conv3x3.conv3x3_s1_nhwc(x, w)
+        counts = [kernels.launch_counts().get("conv3x3_fwd", 0)]
+        rec = {"fwd_max_rel_err": _rel_err([got], [want]),
+               "tf32_fwd_max_rel_err": _rel_err([conv3x3.conv3x3_reference(
+                   _tf32_round(x), _tf32_round(w))], [want]),
+               "tiling": "%dx%d" % conv3x3.kernel_tiling(N, H, W, C, O)}
+        mirror = "%dx%d" % conv3x3.tiling(N, H, W, C, O, sms)
+        xb, wb = x.bfloat16(), w.bfloat16()
+        want = conv3x3.conv3x3_reference(xb, wb)
+        kernels.reset_launches()
+        got = conv3x3.conv3x3_s1_nhwc(xb, wb)
+        counts.append(sum(kernels.launch_counts().get(n, 0) for n in (
+            "conv3x3_fwd_bf16", "conv3x3_fwd_bf16_ragged")))
+        if counts != [1, 1]:
+            fail("conv3x3 at %s: the float32 and bfloat16 forwards "
+                 "counted %s launches, one each expected" % (shape, counts))
+        if got.dtype != torch.bfloat16:
+            fail("conv3x3 bf16 at %s wrote %s" % (shape, got.dtype))
+        rec["bf16_fwd_max_abs_err"], rec["bf16_fwd_tol"] = _face_err(
+            got, want)
+        rec["bf16_step_sums_max_abs_err"], _ = _face_err(
+            _bf16_step_sums_conv(xb, wb), want)
+        path, t = conv3x3.kernel_tiling(N, H, W, C, O, torch.bfloat16)
+        rec["bf16_tiling"] = "%s %dx%d" % (path, t[0], t[1])
+        path, t = conv3x3.tiling_bf16(N, H, W, C, O, sms)
+        mirror_bf16 = "%s %dx%d" % (path, t[0], t[1])
+        torch.cuda.synchronize()
+        del x, w, _g, xb, wb, want, got
+        out["x".join(str(d) for d in shape)] = rec
+        if not rec["fwd_max_rel_err"] <= CONV_REL_TOL:
+            fail("conv3x3 disagrees with its plain version at %s: %s > %g"
+                 % (shape, rec, CONV_REL_TOL))
+        if not rec["tf32_fwd_max_rel_err"] > CONV_REL_TOL:
+            fail("a TF32 conv errs by only %s <= CONV_REL_TOL %g at %s: the "
+                 "tolerance cannot tell float32 from TF32"
+                 % (rec, CONV_REL_TOL, shape))
+        if not rec["bf16_fwd_max_abs_err"] <= rec["bf16_fwd_tol"]:
+            fail("conv3x3 bf16 disagrees with its plain version at %s: %s"
+                 % (shape, rec))
+        if not rec["bf16_step_sums_max_abs_err"] > rec["bf16_fwd_tol"]:
+            fail("at %s a conv summed in bfloat16 errs by only %g <= one "
+                 "ulp %g: the tolerance cannot tell the face from it"
+                 % (shape, rec["bf16_step_sums_max_abs_err"],
+                    rec["bf16_fwd_tol"]))
+        if (rec["tiling"], rec["bf16_tiling"]) != (mirror, mirror_bf16):
+            fail("conv3x3 at %s took the tilings %s / %s, the rule's "
+                 "mirror says %s / %s" % (shape, rec["tiling"],
+                                          rec["bf16_tiling"], mirror,
+                                          mirror_bf16))
+    kernels.restore_launches(before)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _predict_phase(dev, root, sizes, ctr_kept):
+    """Phase 21's serving half: ResNet-50 and the trained wide&deep
+    behind one InferenceService and its HTTP server. Returns (record,
+    {path: launches})."""
+    from paddle_tpu_torch import inference, kernels, resilience
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.serving import InferenceService, make_server
+    image, classes, depth = sizes["image"], sizes["classes"], sizes["depth"]
+    work = _fresh_dir(os.path.join(root, "build", "chip_smoke", "predict"))
+    v1, v1_amp, v2 = (os.path.join(work, n) for n in ("resnet50_v1",
+                                                     "resnet50_v1_amp",
+                                                     "resnet50_v2"))
+    t0 = time.monotonic()
+    test, r50_scope, pred = _export_resnet(
+        dev, [(v1, False), (v1_amp, True)], image, classes, 0, depth)
+    _export_resnet(dev, [(v2, False)], image, classes, 1, depth)
+    exe, ctr_scope, _main, infer, _cost, prob = ctr_kept
+    feed_names = ["dense_input"] + ["C%d" % i for i in range(
+        sizes.get("widths", {}).get("num_sparse_slots",
+                                    CTR_WIDE["num_sparse_slots"]))]
+    ctr_art = os.path.join(work, "wide_deep")
+    ctr_req = _ctr_batches(sizes["vocab"], 1, seed=11,
+                           batch=PREDICT_CTR_REQUESTS,
+                           slots=sizes.get("widths", {}).get(
+                               "num_sparse_slots"),
+                           dense=sizes.get("widths", {}).get("dense_dim"))[0]
+    inference.export_compiled(
+        ctr_art, feed_names, [prob], None, main_program=infer,
+        example_feed={n: ctr_req[n][:1] for n in feed_names},
+        scope=ctr_scope)
+    rec = {"export_s": time.monotonic() - t0}
+    images = _images(PREDICT_REQUESTS, image, 5)
+    service = InferenceService(max_batch=PREDICT_MAX_BATCH,
+                               batch_timeout_ms=PREDICT_TIMEOUT_MS,
+                               queue_depth=64)
+    server = make_server(service, host="127.0.0.1", port=0)
+    base = "http://127.0.0.1:%d/v1/models/" % server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    paths = {}
+    try:
+        t1 = time.monotonic()
+        entry = service.load_model("resnet50", v1, device=dev)
+        rec["resnet50_load_and_warm_s"] = time.monotonic() - t1
+        rec["warm_buckets"] = list(entry.warm_buckets)
+        service.load_model("wide_deep", ctr_art, device=dev)
+        bodies = [json.dumps({"inputs": {"img": im.tolist()}}).encode()
+                  for im in images]
+        st0 = service.stats
+        kernels.reset_launches()
+        answers = [None] * len(bodies)
+
+        def client(i):
+            try:
+                answers[i] = _post_json(base + "resnet50:predict",
+                                        bodies[i])
+            except Exception as e:      # reported by the main thread
+                answers[i] = (None, repr(e))
+
+        t2 = time.monotonic()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.monotonic() - t2
+        paths["predict"] = kernels.launch_counts()
+        st1 = service.stats
+        bad = [a for a in answers if a[0] != 200]
+        if bad:
+            fail("predict: %d of %d answers failed: %s"
+                 % (len(bad), len(answers), bad[0]))
+        # a batch runs its live rows alone: one replay a request
+        dispatched = st1["completed"] - st0["completed"]
+        got_conv = paths["predict"].get("conv3x3_fwd", 0)
+        if dev.type == "cuda" and \
+                got_conv != PREDICT_CONV3X3_PER_IMAGE * dispatched:
+            fail("predict: %d conv3x3_fwd launches for %d requests "
+                 "(%d a request expected)" % (got_conv, dispatched,
+                                              PREDICT_CONV3X3_PER_IMAGE))
+        alone = [entry.model.run({"img": im})[0] for im in images]
+        for i, ((_code, ans), want) in enumerate(zip(answers, alone)):
+            got = np.asarray(ans["outputs"][0], np.float32)
+            if ans["version"] != 1 or not np.array_equal(
+                    got, want.cpu().numpy()):
+                fail("predict: answer %d differs from CompiledModel.run of "
+                     "its image alone" % i)
+        # the per-op run of the same program with every conv on cuDNN
+        plain = test.clone()
+        for op in plain.global_block().ops:
+            if op.type == "conv2d":
+                op.attrs["conv_impl"] = "conv"
+        pexe = Executor(dev)
+        eager = [pexe.run(plain, feed={"img": im}, fetch_list=[pred],
+                          scope=r50_scope, use_jit=False,
+                          return_numpy=False)[0] for im in images[:4]]
+        eager_err = max(_rel_norm(a, e) for a, e in zip(alone[:4], eager))
+        if eager_err > PREDICT_EAGER_REL_TOL:
+            fail("predict: served logits differ from the per-op run with "
+                 "the plain conv by %g > %g" % (eager_err,
+                                                PREDICT_EAGER_REL_TOL))
+        rec.update({
+            "requests": len(bodies), "wall_s": wall,
+            "images_per_s": len(bodies) / wall,
+            "batches": st1["batches"] - st0["batches"],
+            "dispatched_rows": dispatched,
+            "padded_rows_counted": st1["padded_rows"] - st0["padded_rows"],
+            "batch_occupancy": (st1["completed"] - st0["completed"])
+            / max(1, st1["batches"] - st0["batches"]),
+            "max_occupancy": st1["max_occupancy"],
+            "latency_ms_p50": st1["latency_ms_p50"],
+            "latency_ms_p99": st1["latency_ms_p99"],
+            "queue_wait_ms_p50": st1["queue_wait_ms_p50"],
+            "conv3x3_fwd_launches": got_conv,
+            "eager_plain_conv_max_rel_norm": eager_err})
+        # the AMP artifact at bucket 8: row 6's bfloat16 face
+        amp_model = inference.load_compiled(v1_amp, device=dev)
+        stack = {"img": np.concatenate(images[:PREDICT_MAX_BATCH])[:, None]}
+        amp_model.run({"img": images[0]})
+        amp_model.run({"img": images[0]})
+        kernels.reset_launches()
+        amp_out = amp_model.run_many(stack)[0]
+        paths["predict_amp"] = kernels.launch_counts()
+        want_bf16 = PREDICT_CONV3X3_PER_IMAGE * PREDICT_MAX_BATCH
+        if dev.type == "cuda" and \
+                paths["predict_amp"].get("conv3x3_fwd_bf16", 0) != want_bf16:
+            fail("predict amp: %s conv3x3 launches at bucket %d, %d on the "
+                 "bfloat16 face expected" % (
+                     {k: v for k, v in paths["predict_amp"].items() if v},
+                     PREDICT_MAX_BATCH, want_bf16))
+        amp_err = max(_rel_norm(amp_out[i].float(), alone[i].float())
+                      for i in range(PREDICT_MAX_BATCH))
+        if not (math.isfinite(amp_err) and amp_err < PREDICT_AMP_REL_TOL):
+            fail("predict amp: logits %g from the float32 artifact's"
+                 % amp_err)
+        rec["amp_bucket8"] = {"conv3x3_fwd_bf16_launches": paths[
+            "predict_amp"].get("conv3x3_fwd_bf16", 0),
+            "max_rel_norm_vs_float32": amp_err}
+        del amp_model, amp_out
+        if dev.type == "cuda":
+            rec["conv3x3_batch1"] = _predict_conv_check(dev, test)
+        # wide&deep beside the ResNet-50: [1, 1] probabilities equal to
+        # the trained scope's eager forward
+        probs = []
+        fwd = infer.prune(feeds=feed_names, fetches=[prob])
+        for i in range(PREDICT_CTR_REQUESTS):
+            one = {n: ctr_req[n][i:i + 1] for n in feed_names}
+            code, ans = _post_json(base + "wide_deep:predict", json.dumps(
+                {"inputs": {n: v.tolist() for n, v in one.items()}})
+                .encode())
+            if code != 200:
+                fail("predict wide_deep: answer %d: %s" % (code, ans))
+            got = np.asarray(ans["outputs"][0], np.float32)
+            want = exe.run(fwd, feed=one, fetch_list=[prob],
+                           scope=ctr_scope, use_jit=False)[0]
+            if got.shape != (1, 1) or not (0.0 <= got[0, 0] <= 1.0) \
+                    or np.abs(got - want).max() > 1e-6:
+                fail("predict wide_deep: %s against the scope's forward %s"
+                     % (got, want))
+            probs.append(float(got[0, 0]))
+        rec["wide_deep_probs"] = probs
+        # :reload to v2 under in-flight requests: two clients post
+        # until the reload has answered and PREDICT_RELOAD_AFTER more
+        # answers came (four kept the GIL on their JSON bodies and
+        # stretched the new version's warm-up from 0.6 to 12.7 s on an
+        # H100's host)
+        v2_out = {}
+        reload_ans = {}
+        outs = []
+        stop = threading.Event()
+
+        def flood(k):
+            j = 0
+            while not stop.is_set():
+                i = (k * 7 + j) % len(bodies)
+                j += 1
+                try:
+                    outs.append((i, _post_json(base + "resnet50:predict",
+                                               bodies[i])))
+                except Exception as e:  # reported by the main thread
+                    outs.append((i, (None, repr(e))))
+
+        threads = [threading.Thread(target=flood, args=(k,))
+                   for k in range(2)]
+        for t in threads:
+            t.start()
+        while len(outs) < 2:
+            time.sleep(0.005)
+        reload_ans["v2"] = _post_json(base + "resnet50:reload",
+                                      json.dumps({"dirname": v2}).encode())
+        after = len(outs) + PREDICT_RELOAD_AFTER
+        deadline = time.monotonic() + 120
+        while len(outs) < after and time.monotonic() < deadline:
+            time.sleep(0.005)
+        stop.set()
+        for t in threads:
+            t.join()
+        if reload_ans["v2"][0] != 200 or reload_ans["v2"][1]["version"] != 2:
+            fail("predict: :reload to v2 answered %s" % (reload_ans["v2"],))
+        v2_model = service.registry.get("resnet50").model
+        versions = collections.Counter()
+        for i, (code, ans) in outs:
+            if code != 200:
+                fail("predict: a request under the reload answered %s: %s"
+                     % (code, ans))
+            got = np.asarray(ans["outputs"][0], np.float32)
+            if i not in v2_out:
+                v2_out[i] = v2_model.run({"img": images[i]})[0].cpu().numpy()
+            want = alone[i].cpu().numpy() if ans["version"] == 1 \
+                else v2_out[i]
+            if not np.array_equal(got, want):
+                fail("predict: a request under the reload is not its "
+                     "version's answer (version %s)" % ans["version"])
+            versions[ans["version"]] += 1
+        if sorted(versions) != [1, 2]:
+            fail("predict: the requests under the reload were answered by "
+                 "versions %s, both 1 and 2 expected" % dict(versions))
+        rec["reload"] = {"requests": len(outs),
+                         "by_version": dict(versions),
+                         "warmup_ms": reload_ans["v2"][1]["warmup_ms"]}
+        # serving.reload armed: 409, and the serving version stays
+        resilience.arm("serving.reload", action="raise", nth=1, times=1)
+        try:
+            code, ans = _post_json(base + "resnet50:reload",
+                                   json.dumps({"dirname": v1}).encode())
+        finally:
+            resilience.disarm("serving.reload")
+        if code != 409 or ans.get("serving_version") != 2:
+            fail("predict: an armed serving.reload answered %d %s, 409 "
+                 "with serving_version 2 expected" % (code, ans))
+        code, ans = _post_json(base + "resnet50:predict", bodies[0])
+        if code != 200 or ans["version"] != 2 or not np.array_equal(
+                np.asarray(ans["outputs"][0], np.float32), v2_out.get(
+                    0, v2_model.run({"img": images[0]})[0].cpu().numpy())):
+            fail("predict: after the refused reload v2 did not answer")
+        rec["reload_fault"] = {"status": 409, "serving_version": 2}
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+    exe.close()
+    return rec, paths
+
+
+PREDICT_SIZES = dict(image=PREDICT_IMAGE, classes=PREDICT_CLASSES, depth=50,
+                     vocab=CTR_VOCAB, batch=CTR_BATCH)
+
+
+def phase_ctr_predict(dev, root, sizes=None):
+    """Phase 21: sparse CTR training (wide&deep at 10^6 ids a slot under
+    lazy Adam, against non-lazy sparse Adam and the dense embedding;
+    DeepFM) and the ``:predict`` front over compiled artifacts (ResNet-50
+    through conv3x3, its AMP artifact on the bfloat16 face, the trained
+    wide&deep beside it, a hot reload under traffic and a refused one).
+    Returns {path: launches}."""
+    from paddle_tpu_torch import tune
+    from paddle_tpu_torch.flags import FLAGS
+    sizes = dict(PREDICT_SIZES, **(sizes or {}))
+    t0 = time.monotonic()
+    old_dir = FLAGS.tune_cache_dir
+    FLAGS.tune_cache_dir = _fresh_dir(os.path.join(
+        root, "build", "chip_smoke", "tune_ctr_predict"))
+    tune.clear_memory_cache()
+    try:
+        ctr, paths, kept = _ctr_phase(dev, sizes)
+        ctr_s = time.monotonic() - t0
+        predict, ppaths = _predict_phase(dev, root, sizes, kept)
+        paths.update(ppaths)
+    finally:
+        FLAGS.tune_cache_dir = old_dir
+        tune.clear_memory_cache()
+    summary = {
+        "ctr_step_ms_p50": {m: ctr[m]["step_ms_p50_replays"]
+                            for m in ("lazy", "sparse", "dense")},
+        "ctr_losses_lazy": ctr["lazy_checked"]["losses"],
+        "ctr_update_max_err": ctr["lazy_checked"]["update_max_err"],
+        "ctr_rows_looked_up": ctr["lazy_checked"][
+            "rows_looked_up_per_table"],
+        "sparse_vs_dense_max_abs_diff":
+            ctr["sparse_vs_dense"]["max_abs_diff"],
+        "deepfm_losses": ctr["deepfm"]["losses"],
+        "ctr_s": ctr_s,
+        "predict": predict}
+    log(json.dumps({"ctr": ctr, "card": card_line()}))
+    log(json.dumps({"ctr_predict_wall_s": time.monotonic() - t0,
+                    "summary": summary, "card": card_line()}))
+    return paths
+
+
+# phases a phase needs run before it (it reads what they made)
+PHASE_DEPS = {4: (3,), 8: (5,), 9: (6, 7, 8), 10: (3,), 11: (3, 4),
+              14: (12,), 15: (12,), 16: (12,)}
+# the kernels each phase's main paths launch: with --phases, the
+# "launched on no main path" check covers those of the phases run
+PHASE_KERNELS = {
+    3: ("paged_attention", "flash_attention_fwd"),
+    5: ("flash_attention_fwd", "flash_attention_bwd_dkv",
+        "flash_attention_bwd_dq"),
+    6: ("conv3x3_fwd", "conv3x3_dx"),
+    7: ("fused_lstm", "fused_gru"),
+    8: ("matmul", "flash_attention_fwd", "flash_attention_bwd_dkv",
+        "flash_attention_bwd_dq", "conv3x3_fwd", "conv3x3_dx"),
+    9: ("conv3x3_fwd_bf16", "conv3x3_dx_bf16", "flash_attention_fwd_bf16",
+        "flash_attention_bwd_dkv_bf16", "flash_attention_bwd_dq_bf16",
+        "fused_lstm_bf16", "matmul_bf16"),
+    10: ("paged_attention", "flash_attention_fwd"),
+    11: ("paged_attention", "flash_attention_fwd"),
+    12: ("flash_attention_fwd", "flash_attention_bwd_dkv",
+         "flash_attention_bwd_dq", "conv3x3_fwd", "conv3x3_dx",
+         "fused_lstm", "fused_gru", "flash_attention_fwd_bf16",
+         "flash_attention_bwd_dkv_bf16", "flash_attention_bwd_dq_bf16"),
+    13: ("flash_attention_fwd", "flash_attention_bwd_dkv",
+         "flash_attention_bwd_dq", "conv3x3_fwd", "fused_lstm"),
+    14: ("flash_attention_fwd", "flash_attention_bwd_dkv",
+         "flash_attention_bwd_dq", "conv3x3_fwd", "conv3x3_dx",
+         "fused_lstm"),
+    15: ("flash_attention_fwd", "flash_attention_bwd_dkv",
+         "flash_attention_bwd_dq", "conv3x3_fwd", "conv3x3_dx"),
+    16: ("flash_attention_fwd", "flash_attention_bwd_dkv",
+         "flash_attention_bwd_dq"),
+    18: ("conv3x3_fwd", "conv3x3_dx"),
+    19: ("fused_lstm",),
+    20: ("fused_lstm",),
+    21: ("conv3x3_fwd", "conv3x3_fwd_bf16"),
+}
+ALL_PHASES = tuple(range(1, 22))
+
+
+def phase_closure(requested):
+    """The phases to run for ``requested``: those and what they need
+    (PHASE_DEPS), with phase 1 (the build) always."""
+    run = {1}
+    todo = list(requested)
+    while todo:
+        p = todo.pop()
+        if p not in ALL_PHASES:
+            raise ValueError("no phase %r (phases are 1-%d)"
+                             % (p, ALL_PHASES[-1]))
+        if p not in run:
+            run.add(p)
+            todo.extend(PHASE_DEPS.get(p, ()))
+    return sorted(run)
+
+
+def _parse_phases(text):
+    try:
+        return [int(t) for t in text.replace(",", " ").split()]
+    except ValueError:
+        raise SystemExit("chip_smoke: --phases takes phase numbers, got %r"
+                         % text)
+
+
+def _records_for(dev, kernels, run):
+    """With a subset of phases, the kernels-line records the phases run
+    need but whose making phase did not run: row 6's float32 entries
+    (phase 6's check) and its bfloat16 face's (phase 9's)."""
+    need = {k for p in run for k in PHASE_KERNELS.get(p, ())}
+    if 6 not in run and need & {"conv3x3_fwd", "conv3x3_dx"}:
+        kernels.update(_conv3x3_kernel_check(dev))
+    if 9 not in run and need & {"conv3x3_fwd_bf16", "conv3x3_dx_bf16"}:
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                            device=dev)
+        kernels.update({k: v for k, v in _amp_conv_check(dev, flush).items()
+                        if k in ("conv3x3_fwd_bf16", "conv3x3_dx_bf16")})
+        del flush
+        torch.cuda.empty_cache()
+
+
 def main():
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default="",
+                    help="phase numbers to run, e.g. '21' or '3,10' "
+                         "(default: all); the phases they need run too")
+    args = ap.parse_args()
+    requested = _parse_phases(args.phases) if args.phases else ALL_PHASES
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
+    try:
+        run = phase_closure(requested)
+    except ValueError as e:
+        fail(str(e))
+    subset = tuple(run) != ALL_PHASES
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -11780,7 +12708,8 @@ def main():
     log(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                     "matmul.allow_tf32":
                         torch.backends.cuda.matmul.allow_tf32,
-                    "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}))
+                    "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+                    "phases": run}))
     card = card_line()
     log(card)
     t_start = time.monotonic()
@@ -11799,57 +12728,90 @@ def main():
     log(json.dumps({"tune_cache_dir": FLAGS.tune_cache_dir,
                     "tune": FLAGS.tune}))
     timed(1, phase_build)
-    kernels = timed(2, phase_kernels, dev)
-    prompts, results, serve_launches, plain_serving = timed(
-        3, phase_engine, dev, art_dir)
-    http = timed(4, phase_http, dev, art_dir, prompts, results)
-    train5 = timed(5, phase_train, dev, os.path.join(
-        root, "build", "chip_smoke", "gpt2_small_trained"))
-    conv_kernels, (convnet_launches, f32_images_s) = timed(
-        6, lambda: (_conv3x3_kernel_check(dev), phase_convnet(dev)))
-    kernels.update(conv_kernels)
-    rnn_kernels, (lstm_launches, lstm_run), (gru_launches, _) = timed(
-        7, lambda: (_rnn_kernel_check(dev), phase_rnn(dev, "lstm"),
-                    phase_rnn(dev, "gru")))
-    kernels.update(rnn_kernels)
-    mm_kernels, tuned_launches, consult_launches, tuned = timed(
-        8, phase_tune, dev, root, train5)
-    kernels.update(mm_kernels)
-    amp_kernels, amp_paths = timed(9, phase_amp, dev, root, f32_images_s,
-                                   tuned, lstm_run)
-    kernels.update(amp_kernels)
-    spec_paths = timed(10, phase_speculative, dev, root, art_dir, prompts,
-                       results, plain_serving)
-    disagg_paths = timed(11, phase_disagg, dev, root, art_dir, prompts,
-                         results, plain_serving, http)
-    compiled_paths, plain_steps = timed(12, phase_compiled, dev, root)
-    checkpoint_paths = timed(13, phase_checkpoint, dev, root)
-    optim_paths = timed(14, phase_optimization, dev, plain_steps)
-    memory_paths = timed(15, phase_memory, dev, root, plain_steps)
-    resilience_paths = timed(16, phase_resilience, dev, root, plain_steps)
-    dense_paths = timed(17, phase_dense, dev, root)
-    zoo_paths, first_conv = timed(18, phase_convnet_zoo, dev, root)
-    kernels["conv3x3_fwd"]["vgg16_first_conv"] = first_conv
-    seq_paths, d128 = timed(19, phase_sequence, dev, root)
-    kernels["fused_lstm"]["d128_n128"] = d128
-    cf_paths, encdec = timed(20, phase_control_flow, dev, root)
-    kernels["fused_lstm"]["encdec_d512_n64"] = encdec
-    log(json.dumps({"seconds": round(time.monotonic() - t_start, 3)}))
-    paths = {"serve": serve_launches, **spec_paths, **disagg_paths,
-             "train": train5["launches"],
-             "convnet_train": convnet_launches,
-             "rnn_train_lstm": lstm_launches,
-             "rnn_train_gru": gru_launches,
-             "tuned_train": tuned_launches,
-             "convnet_conv3x3_consult": consult_launches, **amp_paths,
-             **compiled_paths, **checkpoint_paths, **optim_paths,
-             **memory_paths, **resilience_paths, **dense_paths,
-             **zoo_paths, **seq_paths, **cf_paths}
+    paths = {}
+    kernels = timed(2, phase_kernels, dev) if 2 in run else {}
+    if subset:
+        _records_for(dev, kernels, run)
+    if 3 in run:
+        prompts, results, paths["serve"], plain_serving = timed(
+            3, phase_engine, dev, art_dir)
+    if 4 in run:
+        http = timed(4, phase_http, dev, art_dir, prompts, results)
+    if 5 in run:
+        train5 = timed(5, phase_train, dev, os.path.join(
+            root, "build", "chip_smoke", "gpt2_small_trained"))
+        paths["train"] = train5["launches"]
+    if 6 in run:
+        conv_kernels, (paths["convnet_train"], f32_images_s) = timed(
+            6, lambda: (_conv3x3_kernel_check(dev), phase_convnet(dev)))
+        kernels.update(conv_kernels)
+    if 7 in run:
+        rnn_kernels, (paths["rnn_train_lstm"], lstm_run), \
+            (paths["rnn_train_gru"], _) = timed(
+                7, lambda: (_rnn_kernel_check(dev), phase_rnn(dev, "lstm"),
+                            phase_rnn(dev, "gru")))
+        kernels.update(rnn_kernels)
+    if 8 in run:
+        mm_kernels, paths["tuned_train"], \
+            paths["convnet_conv3x3_consult"], tuned = timed(
+                8, phase_tune, dev, root, train5)
+        kernels.update(mm_kernels)
+    if 9 in run:
+        amp_kernels, amp_paths = timed(9, phase_amp, dev, root,
+                                       f32_images_s, tuned, lstm_run)
+        kernels.update(amp_kernels)
+        paths.update(amp_paths)
+    if 10 in run:
+        paths.update(timed(10, phase_speculative, dev, root, art_dir,
+                           prompts, results, plain_serving))
+    if 11 in run:
+        paths.update(timed(11, phase_disagg, dev, root, art_dir, prompts,
+                           results, plain_serving, http))
+    if 12 in run:
+        compiled_paths, plain_steps = timed(12, phase_compiled, dev, root)
+        paths.update(compiled_paths)
+    if 13 in run:
+        paths.update(timed(13, phase_checkpoint, dev, root))
+    if 14 in run:
+        paths.update(timed(14, phase_optimization, dev, plain_steps))
+    if 15 in run:
+        paths.update(timed(15, phase_memory, dev, root, plain_steps))
+    if 16 in run:
+        paths.update(timed(16, phase_resilience, dev, root, plain_steps))
+    if 17 in run:
+        paths.update(timed(17, phase_dense, dev, root))
+    if 18 in run:
+        zoo_paths, first_conv = timed(18, phase_convnet_zoo, dev, root)
+        paths.update(zoo_paths)
+        if "conv3x3_fwd" in kernels:
+            kernels["conv3x3_fwd"]["vgg16_first_conv"] = first_conv
+    if 19 in run:
+        seq_paths, d128 = timed(19, phase_sequence, dev, root)
+        paths.update(seq_paths)
+        if "fused_lstm" in kernels:
+            kernels["fused_lstm"]["d128_n128"] = d128
+    if 20 in run:
+        cf_paths, encdec = timed(20, phase_control_flow, dev, root)
+        paths.update(cf_paths)
+        if "fused_lstm" in kernels:
+            kernels["fused_lstm"]["encdec_d512_n64"] = encdec
+    if 21 in run:
+        paths.update(timed(21, phase_ctr_predict, dev, root))
+    log(json.dumps({"seconds": round(time.monotonic() - t_start, 3),
+                    "phases": run}))
+    expected = {k for p in run for k in PHASE_KERNELS.get(p, ())}
+    unrecorded = sorted(expected - set(kernels))
+    if unrecorded:
+        log(json.dumps({"phases": run, "kernels_without_a_record":
+                        unrecorded}))
     for name, entry in kernels.items():
         # each main path is read with the counts set to 0 just before it
-        entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}
+        entry["launches_by_path"] = {p: c.get(name, 0)
+                                     for p, c in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
-        if entry["launches"] == 0 and entry.get("main_path", True):
+        checked = entry.get("main_path", True) and (
+            not subset or name in expected)
+        if entry["launches"] == 0 and checked:
             fail("kernel %s was launched on no main path" % name)
         entry["kernel_ms"] = entry["ms"]
     log(card)

@@ -8,10 +8,12 @@ path, over shared kernels, with AMP on the training paths:
 
 - the generative serving path: ``models/transformer.py``'s serving face,
   ``serving/`` (paged KV pool, continuous-batching engine, disaggregated
-  prefill and decode tiers, service and the ``:generate`` /
-  ``:prefill`` / ``:decode`` HTTP endpoint), ``inference.py`` (the
-  generative artifact, the JAX package's format) and the PT034
-  memory-budget check;
+  prefill and decode tiers, the ``:predict`` tier's registry,
+  micro-batcher and admission control, service and the ``:predict`` /
+  ``:reload`` / ``:generate`` / ``:prefill`` / ``:decode`` HTTP
+  endpoint), ``inference.py`` (the generative artifact, the JAX
+  package's format, and the compiled artifact, a pruned Program run as
+  a CUDA graph) and the PT034 memory-budget check;
 - static checks: ``analysis/`` (the program verifier's rules
   PT001-PT017, the memory planner PT030-PT034, the Executor's verify
   hook and memory preflight under ``FLAGS.verify``) and ``debugger.py``
@@ -21,14 +23,16 @@ path, over shared kernels, with AMP on the training paths:
   per-op and hybrid paths, each value freed at its last use,
   ``append_backward`` and ``calc_gradient``), ``layers/``, ``ops/``
   (the lowerings of the transformer LM's training step, the host IO
-  ops), ``optimizer.py`` (the nine optimizers and ``ModelAverage``),
+  ops, the SelectedRows gradient of a sparse embedding), ``optimizer.py``
+  (the nine optimizers, Adam's ``lazy_mode``, and ``ModelAverage``),
   ``clip.py``, ``regularizer.py``, ``learning_rate_decay.py``,
   ``reader/``,
   ``data_feeder.py``, ``io.py`` (save and load, inference models),
   ``checkpoint.py`` (async, atomic, CRC-checked checkpoints),
   ``core/serialize.py`` (the protostr), ``pipeline.py`` (the feed
   pipeline), ``trainer.py`` (with resume, preemption and ``test``), the
-  ``transformer_lm`` Program builder and ``models/lenet.py``;
+  ``transformer_lm`` Program builder, ``models/lenet.py`` and the CTR
+  models (``models/ctr.py``);
 - the conv-net training path: the conv2d, pool2d, batch_norm, softmax,
   cross_entropy and metric ops and ``models/resnet.py``; the conv knobs
   (``matmul``, ``nhwc``, the s2d stem), the transposed, 3-D and

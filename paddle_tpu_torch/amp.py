@@ -66,9 +66,14 @@ def force(mode):
 
 def active(ctx):
     """Whether AMP casting applies to this op: its program is marked and
-    it runs off the CPU (or a pin says so)."""
-    if not getattr(ctx.block.program, "_amp", False):
+    it runs off the CPU (or a pin says so). A program pinned on its own
+    (``_amp_pinned``: a compiled artifact exported with ``amp=True``)
+    casts wherever it runs, as its export asked."""
+    prog = ctx.block.program
+    if not getattr(prog, "_amp", False):
         return False
+    if getattr(prog, "_amp_pinned", False):
+        return True
     if _FORCE is not None:
         return bool(_FORCE)
     return ctx.device.type != "cpu"

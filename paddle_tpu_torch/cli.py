@@ -1,7 +1,7 @@
 """Command line of the port: the ``train``, ``serve``, ``tune`` and
 ``lint`` verbs (counterparts of ``paddle_tpu/cli.py:cmd_train``, of
-``cmd_serve`` for generative artifacts, of ``cmd_tune`` for train configs
-and of ``cmd_lint`` without its mesh passes).
+``cmd_serve``, of ``cmd_tune`` for train configs and of ``cmd_lint``
+without its mesh passes).
 
     python -m paddle_tpu_torch train <config.py> [--device cuda|cpu]
         [--num_passes N] [--log_period K] [--learning_rate LR]
@@ -24,12 +24,18 @@ beside it, and exits 75); ``loss_skip_budget=B`` (and
 wedged third step.
 
     python -m paddle_tpu_torch serve <artifact_dir> --port 0 [--device cuda]
+        [--max_batch B] [--batch_timeout_ms T] [--extra_model NAME=DIR]
         [--draft_dir DIR] [--spec_k K] [--prefix_sharing]
         [--tier prefill|decode]
 
-validates the artifact (exit 1 with the problems on a bad one; a
-``--draft_dir`` that is not a generative artifact is refused too), with
-the PT034 check of the pool the run would allocate (``--kv_pages`` x
+serves a compiled artifact (``inference.export_compiled``) behind
+``POST /v1/models/<name>:predict`` and ``:reload`` (the registry warms
+and captures the one-request step, which every batch up to
+``--max_batch`` replays, before the readiness line),
+or a generative one. It validates each artifact (exit 1 with the
+problems on a bad one, a JAX package artifact among them; a
+``--draft_dir`` that is not a generative artifact is refused too; and
+``--device cuda`` with no card), with the PT034 check of the pool the run would allocate (``--kv_pages`` x
 ``--page_tokens``) plus the weights against the card's memory or
 ``FLAGS.memory_budget_gb``, each model alone and the target and its
 ``--draft_dir`` draft together, loads
@@ -38,8 +44,10 @@ pairs the artifact with that draft, at ``--spec_k`` or
 ``FLAGS.serve_spec_k``), warms the engine, prints one JSON readiness line
 ``{"serving": {"host", "port", ...}}`` (``--port 0`` binds a free port
 and this line names it; ``tier`` when ``--tier`` is set), and serves
-``POST /v1/models/<name>:generate``, ``:prefill`` and ``:decode`` until
-SIGTERM or SIGINT. Then it drains in-flight generations, prints
+``POST /v1/models/<name>:generate``, ``:prefill`` and ``:decode`` (a
+generative model) or ``:predict`` (a compiled one), each
+``--extra_model`` beside it, until SIGTERM or SIGINT. Then it fails the
+queued ``:predict`` requests, drains in-flight generations, prints
 ``{"serving_stopped": {"signal", "stats"}}`` and exits 0.
 
     python -m paddle_tpu_torch tune <config.py> [--device cuda|cpu]
@@ -114,39 +122,66 @@ def cmd_train(args):
     return 0
 
 
-def _validate_artifacts(artifact_dir, draft_dir, kv_pages, page_tokens,
-                        budget):
-    """The JAX verb's up-front check: print the problems of the artifact
-    and of a ``--draft_dir`` draft (PT034 at this run's pool geometry
-    against ``budget`` included) and return False on a bad one; then,
-    with a draft, the aggregate: the two load into one process, so each
-    fitting alone proves nothing."""
+def _parse_extra_models(pairs, primary=None):
+    """``--extra_model name=dir`` entries -> [(name, dir)]; ValueError on
+    a malformed pair or a name repeated (or shadowing ``primary``):
+    ``load_model`` would hot-swap the earlier artifact."""
+    out = []
+    seen = {primary} if primary else set()
+    for pair in pairs or []:
+        name, eq, dirname = pair.partition("=")
+        if not (eq and name.strip() and dirname.strip()):
+            raise ValueError("bad --extra_model %r (want name=dir)" % pair)
+        name = name.strip()
+        if name in seen:
+            raise ValueError("duplicate model name %r (--extra_model "
+                             "must not repeat a name or shadow --name)"
+                             % name)
+        seen.add(name)
+        out.append((name, dirname.strip()))
+    return out
+
+
+def _validate_artifacts(artifact_dir, extra_models, draft_dir, kv_pages,
+                        page_tokens, budget):
+    """The JAX verb's up-front check: print the problems of the primary
+    artifact, of each ``--extra_model`` and of a ``--draft_dir`` draft
+    and return False on a bad one. A compiled artifact is judged by
+    ``validate_artifact``, a generative one by
+    ``validate_generative_artifact`` (PT034 at this run's pool geometry
+    against ``budget`` included); then the aggregate of the generative
+    ones: they load into one process, so each fitting alone proves
+    nothing."""
     from . import inference
     from .analysis import memory as memory_mod
+    if draft_dir and not inference.is_generative_artifact(draft_dir):
+        print("serve: cannot serve: --draft_dir %r is not a generative "
+              "artifact (speculation drafts are export_generative "
+              "directories)" % draft_dir, file=sys.stderr)
+        return False
+    entries = [("artifact", artifact_dir)] + [
+        ("extra model %r" % n, d) for n, d in extra_models]
+    if draft_dir:
+        entries.append(("--draft_dir", draft_dir))
     total, labels = 0, []
-    for role, dirname in (("artifact", artifact_dir),
-                          ("--draft_dir", draft_dir)):
-        if not dirname:
-            continue
-        problems = inference.validate_generative_artifact(
-            dirname, kv_pages=kv_pages, page_tokens=page_tokens,
-            budget_bytes=budget, check_pool=bool(budget))
-        if not problems and not inference.is_generative_artifact(dirname):
-            problems = ["not a generative artifact (no %s)%s"
-                        % (inference.GEN_CONFIG_FILE,
-                           "; speculation drafts are export_generative "
-                           "directories" if role == "--draft_dir" else "")]
+    for role, dirname in entries:
+        generative = inference.is_generative_artifact(dirname)
+        problems = (inference.validate_generative_artifact(
+                        dirname, kv_pages=kv_pages, page_tokens=page_tokens,
+                        budget_bytes=budget, check_pool=bool(budget))
+                    if generative else inference.validate_artifact(dirname))
         if problems:
             print("serve: cannot serve %s %r:" % (role, dirname),
                   file=sys.stderr)
             for p in problems:
                 print("  - " + p, file=sys.stderr)
             return False
-        nb = inference.generative_memory_bytes(
-            dirname, kv_pages=kv_pages, page_tokens=page_tokens)
-        if budget and nb is not None:
-            total += nb
-            labels.append("%s=%s" % (role, memory_mod.fmt_bytes(nb)))
+        if generative and budget:
+            nb = inference.generative_memory_bytes(
+                dirname, kv_pages=kv_pages, page_tokens=page_tokens)
+            if nb is not None:
+                total += nb
+                labels.append("%s=%s" % (role, memory_mod.fmt_bytes(nb)))
     if budget and len(labels) > 1 and total > budget:
         print("serve: cannot serve: PT034 the co-hosted generative models "
               "need %s together (%s) on a %s budget — each fits alone, "
@@ -164,32 +199,53 @@ def cmd_serve(args):
     from .flags import FLAGS
     draft_dir = args.draft_dir or FLAGS.serve_draft_dir or None
     try:
+        extra_models = _parse_extra_models(args.extra_model,
+                                           primary=args.name)
         device = resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         print("serve: %s" % e, file=sys.stderr)
         return 1
+    generative = inference.is_generative_artifact(args.artifact_dir)
+    if draft_dir and not generative:
+        print("serve: --draft_dir only pairs with a generative primary "
+              "artifact", file=sys.stderr)
+        return 1
     budget = memory_mod.resolve_budget_bytes(device=device)
-    if not _validate_artifacts(args.artifact_dir, draft_dir,
+    if not _validate_artifacts(args.artifact_dir, extra_models, draft_dir,
                                args.kv_pages or None,
                                args.page_tokens or None, budget):
         return 1
-    service = serving.InferenceService(queue_depth=args.queue_depth or None,
-                                       tier=args.tier or None)
+    service = serving.InferenceService(
+        max_batch=args.max_batch or None,
+        batch_timeout_ms=(args.batch_timeout_ms
+                          if args.batch_timeout_ms >= 0 else None),
+        queue_depth=args.queue_depth or None, tier=args.tier or None)
     knobs = {k: getattr(args, k) for k in ("max_running", "kv_pages",
-                                           "page_tokens", "spec_k")
+                                           "page_tokens")
              if getattr(args, k)}
     if args.prefix_sharing:
         knobs["prefix_sharing"] = True
+    # speculation is the primary model's alone
+    primary = dict(knobs)
+    if args.spec_k:
+        primary["spec_k"] = args.spec_k
     loading = args.artifact_dir
     try:
         if draft_dir:
             loading = draft_dir
-            knobs["draft_model"] = inference.load_generative(
+            primary["draft_model"] = inference.load_generative(
                 draft_dir, device=device)
-            knobs.setdefault("spec_k", FLAGS.serve_spec_k)
+            primary.setdefault("spec_k", FLAGS.serve_spec_k)
             loading = args.artifact_dir
         entry = service.load_model(args.name, args.artifact_dir,
-                                   device=device, **knobs)
+                                   device=device,
+                                   **(primary if generative else {}))
+        for extra_name, extra_dir in extra_models:
+            loading = extra_dir
+            service.load_model(
+                extra_name, extra_dir, device=device,
+                **(knobs if inference.is_generative_artifact(extra_dir)
+                   else {}))
     except Exception as e:
         print("serve: failed to load %r: %s: %s"
               % (loading, type(e).__name__, e), file=sys.stderr)
@@ -197,22 +253,28 @@ def cmd_serve(args):
         return 1
     server = serving.make_server(service, host=args.host, port=args.port)
     host, port = server.server_address[:2]
-    eng = entry.engine
-    st = eng.stats
     info = {
         "host": host, "port": port, "model": args.name,
-        "kind": "generative", "version": entry.version,
-        "warmup_ms": round(entry.warmup_ms, 3),
-        "device": str(eng.device), "max_running": eng.max_running,
-        "kv_pages": eng.pool.num_pages,
-        "page_tokens": eng.pool.page_tokens,
-        "max_context": eng.max_context,
-        "speculative": st["speculative"], "spec_k": st["spec_k"],
-        "spec_degraded": st["spec_degraded"],
-        "prefix_sharing": st["prefix_sharing"],
-        "prefix_degraded": st["prefix_degraded"]}
+        "kind": "generative" if generative else "compiled",
+        "version": entry.version, "warmup_ms": round(entry.warmup_ms, 3),
+        "device": str(device), "max_batch": service.max_batch,
+        "batch_timeout_ms": service.batch_timeout_ms}
     if service.tier:
         info["tier"] = service.tier
+    if extra_models:
+        info["extra_models"] = [n for n, _ in extra_models]
+    if generative:
+        eng = entry.engine
+        st = eng.stats
+        info.update({
+            "max_running": eng.max_running,
+            "kv_pages": eng.pool.num_pages,
+            "page_tokens": eng.pool.page_tokens,
+            "max_context": eng.max_context,
+            "speculative": st["speculative"], "spec_k": st["spec_k"],
+            "spec_degraded": st["spec_degraded"],
+            "prefix_sharing": st["prefix_sharing"],
+            "prefix_degraded": st["prefix_degraded"]})
     print(json.dumps({"serving": info}), flush=True)
     try:
         signum = serving.serve_until_shutdown(server)
@@ -534,11 +596,12 @@ def _parser():
                    help="resume from, save to and preempt into this "
                         "directory")
     t.set_defaults(fn=cmd_train)
-    s = sub.add_parser("serve", help="serve a generative artifact over "
-                                     "HTTP")
+    s = sub.add_parser("serve", help="serve a compiled or generative "
+                                     "artifact over HTTP")
     s.add_argument("artifact_dir")
     s.add_argument("--name", default="default",
-                   help="model name in /v1/models/<name>:generate")
+                   help="model name in /v1/models/<name>:predict or "
+                        ":generate")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8080,
                    help="0 binds a free port (named on the readiness line)")
@@ -552,6 +615,16 @@ def _parser():
                    help="0 = FLAGS.serve_page_tokens")
     s.add_argument("--queue_depth", type=int, default=0,
                    help="0 = FLAGS.serve_queue_depth")
+    s.add_argument("--max_batch", type=int, default=0,
+                   help="compiled artifacts: 0 = FLAGS.serve_max_batch")
+    s.add_argument("--batch_timeout_ms", type=float, default=-1.0,
+                   help="compiled artifacts: negative = "
+                        "FLAGS.serve_batch_timeout_ms")
+    s.add_argument("--extra_model", action="append", default=[],
+                   metavar="NAME=DIR",
+                   help="another artifact served from the same process "
+                        "(repeatable): a predict model and a generate "
+                        "model side by side")
     s.add_argument("--draft_dir", default="",
                    help="a generative artifact to load as the draft "
                         "model of speculative decoding; empty defers to "

@@ -415,8 +415,12 @@ def _to_numpy(t):
 
 def _fetch_to_host(v):
     """A fetched value as numpy, or as a host ``LoDTensor`` when it
-    carries LoD (``paddle_tpu/core/executor.py:566``)."""
+    carries LoD (``paddle_tpu/core/executor.py:566``); a SelectedRows
+    gradient keeps its rows, as a ``SelectedRowsVal`` of host arrays
+    (``:570-575``)."""
     v = _no_host_value(v)
+    if _is_selected_rows(v):
+        return v.map(_to_numpy)
     if isinstance(v, LoDValue):
         return LoDTensor(_to_numpy(v.data),
                          [l.cpu().tolist() for l in v.lod])
@@ -542,8 +546,15 @@ def _copy_in(buf, v):
         buf.copy_(v)
 
 
+def _is_selected_rows(v):
+    from ..ops.selected_rows import SelectedRowsVal
+    return isinstance(v, SelectedRowsVal)
+
+
 def _own(v):
     """A fetched value that no later run writes into."""
+    if _is_selected_rows(v):
+        return v.map(torch.clone)
     if isinstance(v, ConcreteScalar):
         return ConcreteScalar(v.value, v.data.clone())
     if isinstance(v, LoDValue):
@@ -580,6 +591,8 @@ def _nan_inf_hook(name, value):
     """The NaN/Inf scan (``paddle_tpu/core/executor.py:1094``): every
     floating value an op sets must be finite."""
     data = raw_data(value)
+    if _is_selected_rows(data):
+        data = data.values
     if isinstance(data, torch.Tensor) and data.is_floating_point():
         if not bool(torch.isfinite(data).all()):
             raise FloatingPointError("NaN/Inf detected in %r" % name)
@@ -1279,7 +1292,11 @@ class Executor(object):
             self._pool = torch.cuda.graph_pool_handle()
         error, outs, extra = None, (), {}
         with torch.cuda.stream(stream):
-            graph.capture_begin(pool=self._pool)
+            # thread_local: another thread may launch on the card while
+            # this one captures (a generation engine beside a served
+            # compiled model); only this thread's unsafe calls end it
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
             try:
                 outs, extra = body(env, bufs)
                 # the created persistables' static buffers, in the graph's

@@ -40,6 +40,21 @@ _DEFS = {
     "serve_queue_depth": (
         64, int, "bound on generation requests queued per engine; one "
         "more is shed with OverloadError (HTTP 429)"),
+    "serve_max_batch": (
+        8, int, "online serving (serving/batcher.py): most requests the "
+        "micro-batcher coalesces into one run_many dispatch. "
+        "Also sets the padding buckets (powers of two capped here) "
+        "that the occupancy and padded_rows counters report; a batch "
+        "runs its live rows alone, as replays of the one-request "
+        "graph"),
+    "serve_batch_timeout_ms": (
+        2.0, float, "online serving: how long the dispatch loop holds the "
+        "OLDEST queued request open for same-model arrivals before "
+        "dispatching a partial batch. A batch is replays of the "
+        "one-request graph, so here batching adds latency and no "
+        "throughput: 0 dispatches immediately (lowest latency, "
+        "occupancy only from true concurrency); the default keeps "
+        "the JAX package's counters comparable"),
     "serve_max_running": (
         8, int, "most sequences decoded together by one decode step"),
     "serve_kv_pages": (

@@ -1,5 +1,22 @@
-"""Generative artifacts: export and load a transformer LM for serving
-(the generative part of ``paddle_tpu/inference.py``).
+"""Inference artifacts: compiled models for ``:predict`` and generative
+transformer LMs for ``:generate`` (counterpart of
+``paddle_tpu/inference.py``; its native tier, ``__module__.stablehlo_bc``
+and the C ABI, is not ported).
+
+A compiled artifact (:func:`export_compiled`, :class:`CompiledModel`)
+cannot be StableHLO here: it holds the pruned inference Program in the
+port's ``__model__`` form (``io.py``, the same pickle rules), beside
+``__params__.pkl`` (``{name: np.ndarray}``) and ``__meta__.json``, which
+keep the JAX package's names and keys. :class:`CompiledModel` runs the
+Program through an Executor on the compiled path: its first run is an
+eager warm-up, its second captures a CUDA graph and later runs replay
+it. ``run_many`` runs R requests as R replays of that one-request step,
+so each is bit-identical to the request run alone. Its conv2d ops keep
+their ``conv_impl`` attr, so a ResNet exported under ``pallas3x3``
+launches the conv3x3 kernel whatever the serving process's flag. A JAX
+artifact (``__compiled__.stablehlo``, no ``__model__``) is refused, and
+``feed_spec`` reports a feed's own dtype where JAX's canonical avals
+narrow int64 to int32 (ROADMAP.md Queue 3 #39).
 
 The format is the JAX package's own: ``__gen_params__.pkl`` (a pickled
 ``{name: np.ndarray}`` dict in ``param_names`` order) and
@@ -25,15 +42,26 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import threading
 
 import numpy as np
 
-__all__ = ["ArtifactError", "DRAFT_SUBDIR", "GEN_CONFIG_FILE",
-           "GEN_PARAMS_FILE", "SPEC_CONFIG_FILE", "export_generative",
-           "export_speculative", "generative_memory_bytes",
-           "is_generative_artifact", "is_speculative_artifact",
-           "load_generative", "load_speculative",
+__all__ = ["ArtifactError", "CompiledModel", "DRAFT_SUBDIR",
+           "EXPORTED_FILE", "GEN_CONFIG_FILE", "GEN_PARAMS_FILE",
+           "META_FILE", "MODEL_FILE", "PARAMS_FILE", "SPEC_CONFIG_FILE",
+           "export_compiled", "export_generative", "export_speculative",
+           "generative_memory_bytes", "is_generative_artifact",
+           "is_speculative_artifact", "load_compiled", "load_generative",
+           "load_speculative", "validate_artifact",
            "validate_generative_artifact"]
+
+# a compiled artifact: the pruned Program, its parameters, its feeds and
+# fetches (the JAX package's names for the last two)
+MODEL_FILE = "__model__"
+PARAMS_FILE = "__params__.pkl"
+META_FILE = "__meta__.json"
+# the JAX package's StableHLO program, which the port cannot run
+EXPORTED_FILE = "__compiled__.stablehlo"
 
 GEN_PARAMS_FILE = "__gen_params__.pkl"
 GEN_CONFIG_FILE = "__gen_config__.json"
@@ -46,6 +74,231 @@ DRAFT_SUBDIR = "__draft__"
 class ArtifactError(ValueError):
     """An artifact directory that cannot be loaded; the message names
     every problem found."""
+
+
+# -- compiled artifacts -------------------------------------------------------
+
+def validate_artifact(dirname):
+    """Problem list of a compiled artifact (empty = valid), stat only:
+    a missing directory, each missing or empty ``__model__`` /
+    ``__params__.pkl`` / ``__meta__.json``, and a JAX artifact, whose
+    StableHLO program the port cannot run (Queue 3 #39).
+    :class:`CompiledModel` runs it before loading and reports corrupt
+    contents with the same error type."""
+    if not os.path.isdir(dirname):
+        return ["artifact directory %r does not exist (expected the "
+                "directory export_compiled wrote)" % dirname]
+    if (os.path.isfile(os.path.join(dirname, EXPORTED_FILE))
+            and not os.path.isfile(os.path.join(dirname, MODEL_FILE))):
+        return ["%s without %s: a JAX package artifact (a StableHLO "
+                "program), which this package cannot run; export the "
+                "model with paddle_tpu_torch.inference.export_compiled"
+                % (EXPORTED_FILE, MODEL_FILE)]
+    problems = []
+    for fname, role in ((MODEL_FILE, "pickled inference Program"),
+                        (PARAMS_FILE, "pickled parameters"),
+                        (META_FILE, "feed/fetch metadata")):
+        path = os.path.join(dirname, fname)
+        if not os.path.isfile(path):
+            problems.append("missing %s (%s)" % (fname, role))
+        elif os.path.getsize(path) == 0:
+            problems.append("%s is empty (%s)" % (fname, role))
+    return problems
+
+
+def export_compiled(dirname, feeded_var_names, target_vars, executor,
+                    main_program=None, example_feed=None, scope=None,
+                    amp=False):
+    """Write the inference slice of ``main_program`` (pruned to
+    ``feeded_var_names`` and ``target_vars``) with the persistables it
+    reads from ``scope`` (default the global scope); the JAX package's
+    signature. ``example_feed`` ({name: array}) fixes each feed's shape
+    and dtype, one request's; by default each -1 dim is 1. ``amp=True``
+    writes an artifact that runs its matmuls and convs in bfloat16
+    wherever it is loaded, the CPU too: the cast decision is pinned by
+    the caller's request, not by the device. Returns the fetch names."""
+    from .core import ir
+    from .core.executor import _to_numpy
+    from .core.scope import global_scope
+    main_program = main_program or ir.default_main_program()
+    scope = scope or global_scope()
+    if isinstance(feeded_var_names, str):
+        feeded_var_names = [feeded_var_names]
+    target_vars = ([target_vars] if isinstance(target_vars, ir.Variable)
+                   else list(target_vars))
+    fetch_names = [v.name if isinstance(v, ir.Variable) else v
+                   for v in target_vars]
+    pruned = main_program.prune(feeds=feeded_var_names,
+                                fetches=fetch_names)
+    # prune copies the program: an AMP training program must not leak
+    # its marks into an amp=False export
+    pruned._amp = bool(amp)
+    pruned._amp_pure = False
+    block = pruned.global_block()
+    needed = set()
+    for op in block.ops:
+        needed.update(op.input_arg_names)
+    params = {}
+    for n in sorted(needed):
+        v = scope.find_var(n) if n not in feeded_var_names else None
+        if v is not None:
+            params[n] = _to_numpy(v) if hasattr(v, "detach") \
+                else np.asarray(v)
+    if example_feed is None:
+        example_feed = {}
+        for n in feeded_var_names:
+            v = block.var(n)
+            shape = tuple(1 if d in (-1, None) else d
+                          for d in (v.shape or (1,)))
+            example_feed[n] = np.zeros(shape, dtype=str(v.dtype))
+    feed_order = sorted(feeded_var_names)
+    examples = {n: np.asarray(example_feed[n]) for n in feed_order}
+    os.makedirs(dirname, exist_ok=True)
+    with open(os.path.join(dirname, MODEL_FILE), "wb") as f:
+        pickle.dump({"program": pruned, "feed_names": feed_order,
+                     "fetch_names": fetch_names}, f)
+    with open(os.path.join(dirname, PARAMS_FILE), "wb") as f:
+        pickle.dump(params, f)
+    with open(os.path.join(dirname, META_FILE), "w") as f:
+        json.dump({"feed_names": feed_order, "fetch_names": fetch_names,
+                   "feed_shapes": {n: list(a.shape)
+                                   for n, a in examples.items()},
+                   "feed_dtypes": {n: str(a.dtype)
+                                   for n, a in examples.items()},
+                   "amp": bool(amp)}, f)
+    return fetch_names
+
+
+class CompiledModel(object):
+    """A loaded compiled artifact on ``device`` (default ``cuda``; no
+    card raises, the port never falls back to the CPU on its own).
+    Thread-safe: runs are serialized on the model's Executor."""
+
+    def __init__(self, dirname, device="cuda"):
+        from . import io as _io
+        from .core.executor import Executor, _to_device_value
+        from .core.scope import Scope
+        from .device import resolve_device
+        problems = validate_artifact(dirname)
+        if problems:
+            raise ArtifactError("cannot load compiled artifact %r:\n  - %s"
+                                % (dirname, "\n  - ".join(problems)))
+        self.device = resolve_device(device)
+        self.dirname = dirname
+        try:
+            with open(os.path.join(dirname, MODEL_FILE), "rb") as f:
+                payload = _io._ModelUnpickler(f).load()
+            program = _io._adopt(payload["program"])
+        except Exception as e:
+            raise ArtifactError(
+                "artifact %r: %s is corrupt (%s: %s) — re-export with "
+                "export_compiled" % (dirname, MODEL_FILE,
+                                     type(e).__name__, e)) from e
+        try:
+            with open(os.path.join(dirname, PARAMS_FILE), "rb") as f:
+                params = _io._ModelUnpickler(f).load()
+            if not isinstance(params, dict):
+                raise TypeError("not a {name: array} dict")
+        except Exception as e:
+            raise ArtifactError(
+                "artifact %r: %s is corrupt (%s: %s) — re-export with "
+                "export_compiled" % (dirname, PARAMS_FILE,
+                                     type(e).__name__, e)) from e
+        try:
+            with open(os.path.join(dirname, META_FILE)) as f:
+                meta = json.load(f)
+            self.feed_names = list(meta["feed_names"])
+            self.fetch_names = list(meta["fetch_names"])
+            self._spec = {n: (tuple(int(d) for d in meta["feed_shapes"][n]),
+                              str(meta["feed_dtypes"][n]))
+                          for n in self.feed_names}
+            amp = bool(meta.get("amp", False))
+        except Exception as e:
+            raise ArtifactError(
+                "artifact %r: %s is corrupt or incomplete (%s: %s) — "
+                "re-export with export_compiled"
+                % (dirname, META_FILE, type(e).__name__, e)) from e
+        program._amp = amp
+        program._amp_pure = False
+        program._amp_pinned = amp
+        self._program = program
+        # the weights stay on the device for the model's lifetime
+        self._scope = Scope()
+        for n, a in params.items():
+            self._scope.set_var(n, _to_device_value(np.array(a),
+                                                    self.device))
+        self._exe = Executor(self.device)
+        self._lock = threading.Lock()
+
+    @property
+    def feed_spec(self):
+        """``{feed name: (shape, dtype str)}``, one request's: what a
+        serving tier checks a request against and shapes its warm-up
+        zeros from."""
+        return dict(self._spec)
+
+    @property
+    def stats(self):
+        """The Executor's run counters and ``compiled_steps``, the steps
+        it keeps (one per feed signature)."""
+        with self._lock:
+            out = dict(self._exe.stats)
+            out["compiled_steps"] = len(self._exe._cache)
+        return out
+
+    def _feed_val(self, a):
+        """A tensor on the model's device passes through untouched; any
+        other array-like is copied there."""
+        import torch
+        if isinstance(a, torch.Tensor) and a.device == self.device:
+            return a
+        from .core.executor import _to_device_value
+        return _to_device_value(a, self.device)
+
+    def stage(self, feed):
+        """Copy a feed to the device ahead of :meth:`run` /
+        :meth:`run_many`."""
+        return {n: self._feed_val(feed[n]) for n in self.feed_names}
+
+    def _run_locked(self, feed):
+        return self._exe.run(self._program, feed=feed,
+                             fetch_list=self.fetch_names,
+                             scope=self._scope, return_numpy=False)
+
+    def run(self, feed):
+        """One request: a list of tensors on the device, one a fetch."""
+        feed = self.stage(feed)
+        with self._lock:
+            self._set_device()
+            return self._run_locked(feed)
+
+    def run_many(self, feeds):
+        """R requests stacked on a leading axis (``{name: [R, ...]}``):
+        each runs as the one-request step (R replays of its graph), so
+        each row is bit-identical to :meth:`run` of that request alone.
+        Returns one tensor a fetch with the leading R axis."""
+        import torch
+        stacked = self.stage(feeds)
+        r = int(stacked[self.feed_names[0]].shape[0])
+        rows = []
+        with self._lock:
+            self._set_device()
+            for i in range(r):
+                rows.append(self._run_locked(
+                    {n: v[i] for n, v in stacked.items()}))
+        return [torch.stack([row[j] for row in rows])
+                for j in range(len(self.fetch_names))]
+
+    def _set_device(self):
+        # the calling thread (a dispatch thread) may not have launched on
+        # this card before
+        if self.device.type == "cuda":
+            import torch
+            torch.cuda.set_device(self.device)
+
+
+def load_compiled(dirname, device="cuda"):
+    return CompiledModel(dirname, device=device)
 
 
 def is_generative_artifact(dirname):

@@ -5,7 +5,8 @@ classifier's and fit_a_line's training steps, the host IO ops, the
 dense tensor and loss ops (word2vec's, the recommender's), and the
 sequence ops with the samplers and tree softmax of the sequence layers
 (the sentiment nets', the semantic role tagger's), and the control flow
-ops (While, the tensor arrays, the rank table, beam search)."""
+ops (While, the tensor arrays, the rank table, beam search), and the
+SelectedRows gradient of a sparse embedding (the CTR models')."""
 from . import (  # noqa: F401
     common,
     generic_grad,
@@ -14,6 +15,7 @@ from . import (  # noqa: F401
     nn_ops,
     loss_ops,
     metric_ops,
+    selected_rows,
     optimizer_ops,
     attention_ops,
     sequence_ops,

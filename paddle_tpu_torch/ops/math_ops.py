@@ -184,8 +184,19 @@ def minus(ctx):
 @register_op("sum", infer_shape=_infer_ew)
 def sum_op(ctx):
     """Multi-input add, the gradient-accumulation op of backward; Out
-    keeps the first input's LoD."""
+    keeps the first input's LoD. SelectedRows inputs
+    (``paddle_tpu/ops/math_ops.py:154-170``): all sparse concatenate
+    their rows, a mix is made dense."""
+    from .selected_rows import SelectedRowsVal
     xs = ctx.inputs("X")
+    if any(isinstance(v, SelectedRowsVal) for v in xs):
+        if all(isinstance(v, SelectedRowsVal) for v in xs):
+            ctx.set_output("Out", SelectedRowsVal(
+                torch.cat([v.rows for v in xs]),
+                torch.cat([v.values for v in xs]), xs[0].height))
+            return
+        xs = [v.to_dense() if isinstance(v, SelectedRowsVal) else v
+              for v in xs]
     out = raw_data(xs[0])
     for v in xs[1:]:
         out = out + raw_data(v)

@@ -5,7 +5,7 @@ Code calls ``fault_point("site.name", payload)`` at a failure-relevant
 edge; a test, or an operator through the ``PADDLE_TPU_FAULT_SPEC``
 environment variable, arms the site to raise, to delay, or to corrupt
 the payload at the Nth hit. A disarmed site costs one dict lookup. The
-port has ten sites:
+port has twelve sites:
 
 ``tune.candidate``     the autotune loop, once per candidate before it
                        is built (``tune/loop.py``): a raise is a
@@ -13,6 +13,18 @@ port has ten sites:
 ``tune.cache``         the winner cache's bytes between their CRC and the
                        disk (``tune/cache.py``): a corrupt models bit rot
                        after the integrity data was derived
+``serving.dispatch``   the micro-batcher's dispatch of a compiled
+                       model (``serving/batcher.py``), once per batch
+                       before ``run`` / ``run_many``: a raise fails that
+                       batch's requests (``batch_failed`` event) and the
+                       dispatch loop keeps serving; a delay models a slow
+                       device and backs the queue up into admission
+                       control
+``serving.reload``     the model registry's warm-up
+                       (``serving/registry.py``), once per (re)load
+                       before the buckets are run: a raise on a hot
+                       reload keeps the serving version
+                       (``reload_rollback`` event)
 ``serving.generate``   the generation engine's device edges
                        (``serving/generator.py``), once per prefill and
                        once per decode step or speculative round: a raise
@@ -94,6 +106,8 @@ _ACTIONS = ("raise", "delay", "corrupt")
 SITE_TABLE = {
     "tune.candidate": ("tune/loop.py", True, False),
     "tune.cache": ("tune/cache.py", True, False),
+    "serving.dispatch": ("serving/batcher.py", True, True),
+    "serving.reload": ("serving/registry.py", True, False),
     "serving.generate": ("serving/generator.py", True, True),
     "serving.speculate": ("serving/speculative.py", True, False),
     "serving.prefix": ("serving/prefix.py", True, False),

@@ -1,10 +1,20 @@
-"""Stdlib JSON/HTTP front end over :class:`InferenceService` (the
-``:generate``, ``:prefill`` and ``:decode`` part of
-``paddle_tpu/serving/httpd.py``, same bodies and answers).
+"""Stdlib JSON/HTTP front end over :class:`InferenceService`
+(counterpart of ``paddle_tpu/serving/httpd.py`` without the router's
+routes: same bodies and answers).
 
 ====== ================================ ===================================
 method path                             body / response
 ====== ================================ ===================================
+POST   ``/v1/models/<name>:predict``    ``{"inputs": {feed: nested list},
+                                        "deadline_ms": optional}`` ->
+                                        ``{"model": name, "version": v,
+                                        "fetch_names": [...],
+                                        "outputs": [nested lists]}``
+POST   ``/v1/models/<name>:reload``     ``{"dirname": path}`` ->
+                                        ``{"model", "version",
+                                        "warmup_ms"}``; 409 with
+                                        ``serving_version`` when the load
+                                        fails and the old version stays
 POST   ``/v1/models/<name>:generate``   ``{"tokens": [ids],
                                         "max_new_tokens": N,
                                         "temperature": t, "seed": s,
@@ -29,6 +39,7 @@ POST   ``/v1/models/<name>:decode``     ``{"artifact": payload,
 GET    ``/healthz``                     liveness, tier, models, readiness
 GET    ``/statz``                       ``InferenceService.stats``
                                         (``tier`` among them)
+GET    ``/v1/models``                   ``InferenceService.model_info``
 ====== ================================ ===================================
 
 ``spec_k`` caps the request's speculation depth on a speculative engine
@@ -40,16 +51,20 @@ since a long prompt's pages are past ``_MAX_BODY``, the limit of the
 other bodies and of a ``:decode`` to a model not served.
 
 Errors: 429 overload and kv-pool exhaustion (with a ``Retry-After``
-header and a ``retry_after_ms`` body field), 504 deadline (``:generate``
-and ``:decode``), 404 unknown model or route, 400 malformed input (a
-malformed artifact included), 500 anything else; each body is
-``{"error": ..., "kind": ...}``. One thread per connection blocks in
-``generate`` while the engine thread batches across them.
+header and a ``retry_after_ms`` body field), 504 deadline (``:predict``,
+``:generate`` and ``:decode``), 404 unknown model or route, 400 malformed input (a
+malformed artifact included), 500 anything else (a failed batch of
+``:predict``, a kernel that did not build or launch among them); each
+body is ``{"error": ..., "kind": ...}``. One thread per connection
+blocks in ``infer`` or ``generate`` while the dispatch thread or the
+engine thread batches across them.
 """
 from __future__ import annotations
 
 import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
 
 from .admission import (DeadlineExceededError, ModelUnavailableError,
                         OverloadError)
@@ -118,6 +133,8 @@ class _Handler(BaseHTTPRequestHandler):
                               "ready": self.service.readiness()})
         elif self.path == "/statz":
             self._reply(200, self.service.stats)
+        elif self.path == "/v1/models":
+            self._reply(200, self.service.model_info())
         else:
             self._reply(404, {"error": "no route %r" % self.path,
                               "kind": "not_found"})
@@ -126,8 +143,9 @@ class _Handler(BaseHTTPRequestHandler):
         route = name = None
         if self.path.startswith("/v1/models/") and ":" in self.path:
             name, _, route = self.path[len("/v1/models/"):].rpartition(":")
-        handler = {"generate": self._generate, "prefill": self._prefill,
-                   "decode": self._decode}.get(route)
+        handler = {"predict": self._predict, "generate": self._generate,
+                   "prefill": self._prefill, "decode": self._decode,
+                   "reload": self._reload}.get(route)
         try:
             body = read_json_body(self, limit=self._body_limit(route, name))
         except Exception as e:
@@ -174,6 +192,53 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:
             self._reply(500, {"error": repr(e), "kind": "dispatch"})
         return None
+
+    def _predict(self, name, body):
+        def call():
+            entry = self.service.registry.get(name)
+            inputs = body.get("inputs")
+            if not isinstance(inputs, dict):
+                raise ValueError('body must carry {"inputs": {name: '
+                                 "nested-list}}")
+            # only convert here (JSON nested lists -> the exported
+            # dtype); the signature is checked once, by the service
+            spec = entry.model.feed_spec
+            feed = {fn: np.asarray(inputs[fn], dtype=dtype)
+                    for fn, (_, dtype) in spec.items() if fn in inputs}
+            req = self.service.infer_async(
+                name, feed, deadline_ms=body.get("deadline_ms"))
+            return entry, req, req.wait()
+        done = self._answer(name, call)
+        if done is None:
+            return
+        # the version that served the request, set at dispatch: the
+        # JAX package answers with the one published at admission,
+        # which a hot reload in between makes wrong (Queue 3 #40)
+        entry, req, rows = done
+        self._reply(200, {
+            "model": name, "version": req.version,
+            "fetch_names": list(entry.model.fetch_names),
+            "outputs": [np.asarray(r).tolist() for r in rows]})
+
+    def _reload(self, name, body):
+        dirname = body.get("dirname")
+        if not dirname:
+            return self._reply(400, {"error": 'reload wants {"dirname": '
+                                              "path}",
+                                     "kind": "bad_request"})
+        try:
+            entry = self.service.reload_model(name, dirname)
+        except Exception as e:
+            # the previously published version keeps serving
+            kept = None
+            try:
+                kept = self.service.registry.get(name).version
+            except ModelUnavailableError:
+                pass
+            return self._reply(409, {"error": repr(e), "kind": "reload",
+                                     "serving_version": kept})
+        self._reply(200, {"model": name, "version": entry.version,
+                          "warmup_ms": entry.warmup_ms})
 
     def _generate(self, name, body):
         def call():
@@ -233,11 +298,17 @@ class _Handler(BaseHTTPRequestHandler):
         self._reply(200, out)
 
 
+class _Server(ThreadingHTTPServer):
+    # the listen backlog: the stdlib's 5 resets the connections of a
+    # burst of concurrent clients past it before a thread accepts them
+    request_queue_size = 128
+
+
 def make_server(service, host="127.0.0.1", port=0):
     """Bind a :class:`ThreadingHTTPServer` over ``service``; ``port=0``
     picks a free port (read it back from ``server.server_address``).
     The caller owns ``serve_forever()`` / ``shutdown()``."""
-    server = ThreadingHTTPServer((host, port), _Handler)
+    server = _Server((host, port), _Handler)
     server.daemon_threads = True
     server.service = service
     return server

@@ -9,7 +9,7 @@ registry conformance walk of ``tests/test_trainer_resilience.py``.
   ``load_fault_spec``, ``armed``, the nth/times window, the ``delay``
   action, seeded size-preserving corruption and hit counting under
   threads behave as in the JAX package.
-- ``SITE_TABLE`` is the port's ten sites: it agrees with the docstring
+- ``SITE_TABLE`` is the port's twelve sites: it agrees with the docstring
   table, every site arms and fires, sits at its documented module, and
   a site marked delay-documented says what a delay means there.
 
@@ -186,7 +186,7 @@ def _docstring_table_sites():
 def test_site_table_matches_the_docstring_table():
     doc = _docstring_table_sites()
     assert sorted(doc) == sorted(faults.SITE_TABLE)
-    assert len(doc) == len(set(doc)) == 10
+    assert len(doc) == len(set(doc)) == 12
 
 
 def test_every_port_site_is_a_jax_site_in_the_same_module():
